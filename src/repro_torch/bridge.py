@@ -1,0 +1,28 @@
+"""Weight bridge: the JAX package's param tree, as numpy, onto the port.
+
+The port cannot reproduce ``jax.random``'s bits, so parity tests initialize
+in JAX, move the tree through numpy (``np.asarray`` per leaf) and load it
+here. bf16 leaves arrive as numpy arrays of the ``ml_dtypes`` bfloat16
+type; they are recognised by dtype name and reinterpreted bit for bit
+(``uint16`` view -> ``torch.bfloat16`` view), so the port never imports
+``ml_dtypes``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
+    """One numpy array (bf16 included) -> a torch tensor with the same bits."""
+    arr = np.array(arr, order="C")  # a private contiguous copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_numpy(tree, device="cpu"):
+    """Nested dict of numpy arrays -> nested dict of torch tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)

@@ -1,0 +1,417 @@
+"""The out-of-graph offload tiers (paper Secs. 5.1.1, 6.3), ported from
+``repro/core/offload.py:53-440``.
+
+  * ``PinnedBufferPool`` — a fixed, reused budget of host staging buffers
+    (``torch.uint8`` tensors, page-locked with ``pin_memory=True`` on the
+    card path, where they make host<->device copies direct DMA).
+  * ``ArrayStore`` — the async key->tensor store with bandwidth counters
+    (cumulative ``bandwidth_stats``, per-step ``mark``/``delta_since``).
+      - ``HostArrayStore``: tensors resident in host DRAM;
+      - ``NvmeStore``: file-backed, same on-disk format as the JAX package
+        (hashed ``.bin`` + JSON ``.meta`` sidecar, dtype names such as
+        ``"bfloat16"``), so either package reopens the other's directory.
+
+Stores hold torch tensors, not numpy arrays: numpy has no bfloat16 without
+``ml_dtypes``, which the port does not use. A tensor handed to ``write`` may
+live on the card; its device->host copy runs on the store's worker thread.
+``ChunkedAdamOffload`` and ``ParamStreamer`` wait for the training slice.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import math
+import os
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.runtime import trace
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class PinnedBufferPool:
+    """Reusable host buffers under a fixed byte budget.
+
+    Buffers are recycled by (rounded) size class; acquiring beyond the budget
+    blocks until a buffer is released — backpressure instead of
+    fragmentation. The budget bounds *resident* bytes: buffers handed out
+    plus buffers cached for reuse. A single request larger than the whole
+    budget is still honoured once no other buffer is outstanding.
+    """
+
+    def __init__(self, budget_bytes: int, pin: bool = False):
+        self.budget = budget_bytes
+        self.pin = pin
+        self._lock = threading.Condition()
+        self._free: Dict[int, List[torch.Tensor]] = {}
+        self._outstanding = 0
+        self._resident = 0  # outstanding + cached free bytes
+        self.peak_outstanding = 0
+        self.peak_resident = 0
+
+    @staticmethod
+    def _size_class(nbytes: int) -> int:
+        return 1 << max(12, math.ceil(math.log2(max(nbytes, 1))))
+
+    def _drop_free(self, need_bytes: int) -> None:
+        """Drop cached buffers (any class) until ``need_bytes`` are freed."""
+        for cls in sorted(self._free, reverse=True):
+            bucket = self._free[cls]
+            while bucket and need_bytes > 0:
+                bucket.pop()
+                self._resident -= cls
+                need_bytes -= cls
+            if not bucket:
+                del self._free[cls]
+            if need_bytes <= 0:
+                return
+
+    def acquire(self, nbytes: int) -> torch.Tensor:
+        cls = self._size_class(nbytes)
+        with self._lock:
+            while True:
+                bucket = self._free.get(cls)
+                if bucket:
+                    buf = bucket.pop()
+                    break  # recycled: resident bytes unchanged
+                if self._resident + cls > self.budget:
+                    self._drop_free(self._resident + cls - self.budget)
+                if self._resident + cls <= self.budget or self._outstanding == 0:
+                    buf = torch.empty(cls, dtype=torch.uint8, pin_memory=self.pin)
+                    self._resident += cls
+                    break
+                # genuine backpressure: the fixed pinned supply is exhausted
+                with trace.span("pinned_pool_wait", sys="store", nbytes=nbytes):
+                    self._lock.wait(timeout=10.0)
+            self._outstanding += cls
+            self.peak_outstanding = max(self.peak_outstanding, self._outstanding)
+            self.peak_resident = max(self.peak_resident, self._resident)
+        return buf
+
+    def release(self, buf: torch.Tensor) -> None:
+        cls = _nbytes(buf)
+        with self._lock:
+            self._free.setdefault(cls, []).append(buf)
+            self._outstanding -= cls
+            self._lock.notify_all()
+
+
+def _staged(buf: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    """The first bytes of a pool buffer viewed as a tensor of dtype/shape."""
+    n = math.prod(shape) * dtype.itemsize
+    return buf[:n].view(dtype).reshape(shape)
+
+
+class ArrayStore:
+    """Async key->tensor store with bandwidth accounting (DeepNVMe analogue).
+
+    write(key, t) / read(key) return futures; flush() synchronizes writes.
+    Counters are cumulative over the store's lifetime (``bandwidth_stats``);
+    per-step deltas come from ``mark()`` + ``delta_since(mark)``.
+    """
+
+    kind = "abstract"
+    # state class this store carries ("kv", ...); tags every I/O span
+    trace_cls: Optional[str] = None
+
+    def __init__(self, pool: Optional[PinnedBufferPool] = None, pool_mb: int = 64,
+                 workers: int = 2, overlap: bool = True):
+        self.pool = pool if pool is not None else PinnedBufferPool(pool_mb << 20)
+        self.overlap = overlap
+        self._pool_exec = ThreadPoolExecutor(max_workers=workers) if overlap else None
+        self._stat_lock = threading.Lock()
+        self.bytes_read = 0
+        self.bytes_written = 0
+        self.read_time = 0.0
+        self.write_time = 0.0
+        self._pending: List[Future] = []
+
+    # -- accounting ---------------------------------------------------------
+
+    def _count_read(self, nbytes: int, dt: float) -> None:
+        with self._stat_lock:
+            self.bytes_read += nbytes
+            self.read_time += dt
+
+    def _count_write(self, nbytes: int, dt: float) -> None:
+        with self._stat_lock:
+            self.bytes_written += nbytes
+            self.write_time += dt
+
+    def bandwidth_stats(self) -> dict:
+        with self._stat_lock:
+            return {
+                "read_gbps": self.bytes_read / max(self.read_time, 1e-9) / 1e9,
+                "write_gbps": self.bytes_written / max(self.write_time, 1e-9) / 1e9,
+                "bytes_read": self.bytes_read,
+                "bytes_written": self.bytes_written,
+                # logical == wire until a quantized wire format is ported
+                "logical_bytes_read": self.bytes_read,
+                "logical_bytes_written": self.bytes_written,
+                "read_time": self.read_time,
+                "write_time": self.write_time,
+                "pinned_peak_bytes": self.pool.peak_resident,
+            }
+
+    def mark(self) -> dict:
+        """Counter snapshot; pass to ``delta_since`` for per-step stats."""
+        with self._stat_lock:
+            return {"bytes_read": self.bytes_read, "bytes_written": self.bytes_written,
+                    "logical_bytes_read": self.bytes_read,
+                    "logical_bytes_written": self.bytes_written,
+                    "read_time": self.read_time, "write_time": self.write_time}
+
+    def delta_since(self, mark: dict) -> dict:
+        with self._stat_lock:
+            br = self.bytes_read - mark["bytes_read"]
+            bw = self.bytes_written - mark["bytes_written"]
+            rt = self.read_time - mark["read_time"]
+            wt = self.write_time - mark["write_time"]
+        return {"bytes_read": br, "bytes_written": bw,
+                "logical_bytes_read": br, "logical_bytes_written": bw,
+                "read_gbps": br / max(rt, 1e-9) / 1e9,
+                "write_gbps": bw / max(wt, 1e-9) / 1e9}
+
+    # -- sync backends (implemented by subclasses) --------------------------
+
+    def _write_sync(self, key: str, t: torch.Tensor) -> None:
+        raise NotImplementedError
+
+    def _read_sync(self, key: str) -> torch.Tensor:
+        raise NotImplementedError
+
+    def delete(self, key: str) -> None:
+        """Remove a key (idempotent). Synchronous and uncounted."""
+        raise NotImplementedError
+
+    # -- traced sync wrappers (the span is where the bytes move) ------------
+
+    def _traced_write(self, key: str, t: torch.Tensor) -> None:
+        attr = "io" if self.overlap else "io_wait"
+        with trace.span(f"{self.kind}_write", sys="store", attr=attr,
+                        cls=self.trace_cls, key=key) as sp:
+            sp.set(nbytes=_nbytes(t), wire_bytes=_nbytes(t))
+            self._write_sync(key, t.detach())
+
+    def _traced_read(self, key: str) -> torch.Tensor:
+        attr = "io" if self.overlap else "io_wait"
+        with trace.span(f"{self.kind}_read", sys="store", attr=attr,
+                        cls=self.trace_cls, key=key) as sp:
+            out = self._read_sync(key)
+            sp.set(nbytes=_nbytes(out), wire_bytes=_nbytes(out))
+            return out
+
+    # -- async API ----------------------------------------------------------
+
+    def write(self, key: str, t: torch.Tensor) -> Future:
+        """Async write. ``t`` may be a CUDA tensor: the device->host copy
+        runs on the worker thread, not the caller. The caller must not write
+        into ``t`` until the future resolves (``flush``)."""
+        if not self.overlap:
+            f: Future = Future()
+            f.set_result(self._traced_write(key, t))
+            return f
+        fut = self._pool_exec.submit(self._traced_write, key, t)
+        self._pending.append(fut)
+        return fut
+
+    def read(self, key: str) -> Future:
+        if not self.overlap:
+            f: Future = Future()
+            f.set_result(self._traced_read(key))
+            return f
+        return self._pool_exec.submit(self._traced_read, key)
+
+    def roundtrip(self, key: str, t: torch.Tensor) -> Future:
+        """Drain ``t`` into the store and resolve to the store-resident copy:
+        an ordered write-then-read on one worker (the grad-tier leg of the
+        overlap-centric schedule). ``t`` may be a CUDA tensor."""
+        if not self.overlap:
+            f: Future = Future()
+            self._traced_write(key, t)
+            f.set_result(self._traced_read(key))
+            return f
+
+        def _rt():
+            self._traced_write(key, t)
+            return self._traced_read(key)
+
+        fut = self._pool_exec.submit(_rt)
+        self._pending.append(fut)
+        return fut
+
+    def close(self) -> None:
+        """Synchronize pending writes and stop the worker threads."""
+        self.flush()
+        if self._pool_exec is not None:
+            self._pool_exec.shutdown(wait=True)
+
+    def flush(self) -> None:
+        if not self._pending:
+            return
+        with trace.span(f"{self.kind}_flush", sys="store", attr="io_wait",
+                        cls=self.trace_cls, n_pending=len(self._pending)):
+            for f in self._pending:
+                f.result()
+            self._pending.clear()
+
+    def keys(self):
+        raise NotImplementedError
+
+
+class HostArrayStore(ArrayStore):
+    """Host-DRAM tier: tensors live in host memory, staged through the
+    shared buffer pool."""
+
+    kind = "host"
+
+    def __init__(self, pool: Optional[PinnedBufferPool] = None, pool_mb: int = 64,
+                 workers: int = 2, overlap: bool = True):
+        super().__init__(pool=pool, pool_mb=pool_mb, workers=workers, overlap=overlap)
+        self._data: Dict[str, torch.Tensor] = {}
+        self._data_lock = threading.Lock()
+
+    def _write_sync(self, key: str, t: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        n = _nbytes(t)
+        buf = self.pool.acquire(max(n, 1))
+        staged = _staged(buf, t.dtype, t.shape)
+        staged.copy_(t)  # device->host staging through the pool
+        resident = staged.clone()  # the host-resident copy outlives the buffer
+        self.pool.release(buf)
+        with self._data_lock:
+            self._data[key] = resident
+        self._count_write(n, time.perf_counter() - t0)
+
+    def _read_sync(self, key: str) -> torch.Tensor:
+        t0 = time.perf_counter()
+        with self._data_lock:
+            src = self._data[key]
+        out = src.clone()
+        self._count_read(_nbytes(out), time.perf_counter() - t0)
+        return out
+
+    def delete(self, key: str) -> None:
+        with self._data_lock:
+            self._data.pop(key, None)
+
+    def keys(self):
+        with self._data_lock:
+            return list(self._data)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """Round-trippable dtype name shared with the JAX package's sidecars
+    ('float32', 'bfloat16', 'int32', ...)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def dtype_from_name(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype name {name!r} in a store sidecar")
+    return dt
+
+
+class NvmeStore(ArrayStore):
+    """Async file-backed tensor store (DeepNVMe analogue).
+
+    Filenames are content-addressed from the key (sanitized prefix + md5),
+    so overlapping key namespaces never collide on disk. Per-key metadata
+    persists in a ``.meta`` sidecar committed with the data file;
+    reopening a store on the same directory serves all flushed keys.
+    """
+
+    kind = "nvme"
+
+    def __init__(self, directory: str, pool_mb: int = 64, workers: int = 2,
+                 overlap: bool = True, pool: Optional[PinnedBufferPool] = None):
+        super().__init__(pool=pool, pool_mb=pool_mb, workers=workers, overlap=overlap)
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+        self._meta: Dict[str, Tuple[tuple, str]] = {}
+        self._meta_lock = threading.Lock()
+        self._reopen()
+
+    def _reopen(self) -> None:
+        for name in os.listdir(self.dir):
+            if not name.endswith(".meta"):
+                continue
+            try:
+                with open(os.path.join(self.dir, name)) as f:
+                    rec = json.load(f)
+                self._meta[rec["key"]] = (tuple(rec["shape"]), rec["dtype"])
+            except (OSError, ValueError, KeyError):
+                continue  # partial sidecar from a crash mid-write: skip
+
+    def _fname(self, key: str) -> str:
+        safe = "".join(c if c.isalnum() or c in "._-" else "_" for c in key)[:48]
+        return f"{safe}-{hashlib.md5(key.encode()).hexdigest()[:12]}"
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.dir, self._fname(key) + ".bin")
+
+    def _meta_path(self, key: str) -> str:
+        return os.path.join(self.dir, self._fname(key) + ".meta")
+
+    def _write_sync(self, key: str, t: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        n = _nbytes(t)
+        buf = self.pool.acquire(max(n, 1))
+        staged = _staged(buf, t.dtype, t.shape)
+        staged.copy_(t)  # host staging copy through the pool
+        tmp = self._path(key) + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(buf[:n].numpy().data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._path(key))
+        meta = (tuple(t.shape), dtype_name(t.dtype))
+        with self._meta_lock:
+            meta_stale = self._meta.get(key) != meta
+            self._meta[key] = meta
+        if meta_stale:  # sidecar only on first write / layout change
+            mtmp = self._meta_path(key) + ".tmp"
+            with open(mtmp, "w") as f:
+                json.dump({"key": key, "shape": list(t.shape),
+                           "dtype": meta[1]}, f)
+            os.replace(mtmp, self._meta_path(key))
+        self.pool.release(buf)
+        self._count_write(n, time.perf_counter() - t0)
+
+    def _read_sync(self, key: str) -> torch.Tensor:
+        t0 = time.perf_counter()
+        with self._meta_lock:
+            shape, name = self._meta[key]
+        dtype = dtype_from_name(name)
+        n = math.prod(shape) * dtype.itemsize
+        buf = self.pool.acquire(max(n, 1))
+        with open(self._path(key), "rb") as f:
+            got = f.readinto(buf[:n].numpy())
+        if got != n:
+            self.pool.release(buf)
+            raise OSError(f"{self._path(key)}: read {got} of {n} bytes")
+        out = _staged(buf, dtype, shape).clone()
+        self.pool.release(buf)
+        self._count_read(n, time.perf_counter() - t0)
+        return out
+
+    def delete(self, key: str) -> None:
+        with self._meta_lock:
+            self._meta.pop(key, None)
+        for path in (self._path(key), self._meta_path(key)):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def keys(self):
+        with self._meta_lock:
+            return list(self._meta)

@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source is compiled by ``nvcc`` on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), named by a
+hash of the source and the flags, under ``build/repro_torch_kernels/`` at
+the root of the checkout. All missing libraries build in parallel, one
+``nvcc`` process per source. Libraries load with ``ctypes``; each C entry
+returns ``cudaGetLastError()`` and ``check`` raises when that is not 0.
+Nothing here runs at import: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("flash_attention", "tiled_matmul")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the C entries' dtype argument, by the tensors' dtype
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default location. Raises when none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (CUDA_HOME, PATH, /usr/local/cuda): the CUDA kernels "
+        "build only where the CUDA toolkit is installed")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def nvcc_command(name: str, out: Path) -> list:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every source whose library is missing, all in parallel.
+
+    Returns ``{name: {"seconds": s, "log": compiler output}}`` for the
+    sources built by this call. Raises ``RuntimeError`` with the compiler's
+    output if any build fails."""
+    todo = [n for n in SOURCES if not lib_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = lib_path(name).with_suffix(f".tmp{os.getpid()}.so")
+        procs[name] = (tmp, subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    out, failed = {}, []
+    for name, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{name} (rc {p.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib_path(name))  # atomic: concurrent builds agree
+        out[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if not lib_path(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg}) at launch")

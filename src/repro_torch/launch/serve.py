@@ -1,0 +1,430 @@
+"""Continuous-batching serving driver with tier-paged KV blocks — the
+PyTorch port of ``repro/launch/serve.py``.
+
+A fixed batch of device decode slots advances in lockstep: per-slot
+lengths and EOS are tracked, a slot whose sequence finishes (EOS or token
+budget) is refilled from the waiting queue, and idle slots keep decoding
+into padding that is masked out of the returned text. Sequences beyond the
+device KV budget wait in the host (or NVMe) tier as fixed-size
+per-sequence KV blocks (``core/kvcache.py``) and stream back when admitted.
+On the card, prefill attention and every MLP projection run the port's
+hand-written CUDA kernels (``kernels/ops.py``).
+
+Runs on the card by default and raises when CUDA is absent; ``--device
+cpu`` runs the plain versions (the tests do). ``--plan``, ``--kv-quant
+q8|q4`` and a mesh larger than one device are not ported yet and raise.
+
+Example (one H100, full smollm-135m, 8 sequences through 4 device slots):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
+      --batch 8 --kv-slots 4 --kv-tier host --prompt-len 512 --new-tokens 32
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.config import ParallelConfig, RunConfig, ShapeConfig
+from repro_torch.core import kvcache
+from repro_torch.core.engine import ZeroInfinityEngine
+from repro_torch.core.offload import HostArrayStore, NvmeStore, PinnedBufferPool
+from repro_torch.kernels import ops
+from repro_torch.runtime import metrics as metrics_mod
+from repro_torch.runtime import trace
+
+
+def _parse(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels; raises without a card) or cpu "
+                         "(the plain versions)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="total sequences to serve; those beyond --kv-slots "
+                         "wait on the KV tier as paged blocks")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="per-sequence token budget (includes the EOS token)")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="EOS token id; a slot emitting it finishes early "
+                         "(-1: budget-only)")
+    ap.add_argument("--kv-slots", type=int, default=0,
+                    help="device decode slots (0 = all sequences resident)")
+    ap.add_argument("--kv-tier", default="device",
+                    choices=["device", "host", "nvme"],
+                    help="tier for waiting sequences' KV blocks ('device' "
+                         "stages any overflow through host DRAM)")
+    ap.add_argument("--kv-block-tokens", type=int, default=0,
+                    help="tokens per paged KV block (0 = auto)")
+    ap.add_argument("--kv-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_kv"),
+                    help="directory backing the NVMe KV tier")
+    ap.add_argument("--kv-quant", default="none", choices=["none", "q8", "q4"],
+                    help="block-quantized wire format for parked KV "
+                         "(not ported yet: q8/q4 raise)")
+    ap.add_argument("--data-mesh", type=int, default=1)
+    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
+                    metavar="OUT.json",
+                    help="record spans and write a Chrome/Perfetto trace")
+    ap.add_argument("--plan", default=None,
+                    help="planner-derived placement (not ported yet: raises)")
+    return ap.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's device; raises when CUDA is asked for and absent."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: CUDA is not available here; pass "
+                           "--device cpu to serve with the plain versions")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: want cuda or cpu")
+    return dev
+
+
+def _unported(args) -> None:
+    if args.plan is not None:
+        raise NotImplementedError(
+            "--plan is not ported yet (ROADMAP.md Queue 1: planner, plan.py)")
+    if args.kv_quant != "none":
+        raise NotImplementedError(
+            f"--kv-quant {args.kv_quant} is not ported yet (ROADMAP.md "
+            "Queue 1: quantized transport, core/qformat.py)")
+    if args.data_mesh * args.model_mesh != 1:
+        raise NotImplementedError(
+            "a mesh larger than one device is not ported yet (ROADMAP.md "
+            "Queue 1: GSPMD engine / explicit ZeRO-3)")
+
+
+def _percentiles(xs) -> dict:
+    """p50/p95/p99 of a latency sample, in seconds (zeros when empty)."""
+    if not xs:
+        return {"p50": 0.0, "p95": 0.0, "p99": 0.0}
+    a = np.asarray(xs, np.float64)
+    return {f"p{q}": float(np.percentile(a, q)) for q in (50, 95, 99)}
+
+
+def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
+    """Admission: write one fetched sequence into decode slot ``b`` of the
+    device slot cache IN PLACE (the reference's donated functional update)."""
+    for name, leaf in single.items():
+        dst = slot_cache[name]
+        dst[:, b] = leaf[:, 0].to(device=dst.device, dtype=dst.dtype)
+    slot_cache["len"][b] = length
+    return slot_cache
+
+
+def run_serve(args) -> dict:
+    """The serving run; returns per-sequence tokens + timings + KV metrics
+    (the test surface — ``main`` just prints)."""
+    _unported(args)
+    device = resolve_device(args.device)
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    n_seqs, P, N = args.batch, args.prompt_len, args.new_tokens
+    eos = args.eos_id
+    run = RunConfig(model=cfg, parallel=ParallelConfig(remat="none"))
+    kv_tier = args.kv_tier
+    slots = max(1, min(int(args.kv_slots or n_seqs), n_seqs))
+    block_tokens = int(args.kv_block_tokens) or kvcache.default_block_tokens(P + N)
+    kv_prefetch = 2
+
+    eng = ZeroInfinityEngine(run, device)
+    params = eng.init_state(
+        torch.Generator(device=device).manual_seed(args.seed))["params"]
+    bundle = eng.bundle
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    # the slow tier for waiting sequences (unused when every slot fits)
+    pool = PinnedBufferPool(run.offload.pinned_buffer_mb << 20,
+                            pin=device.type == "cuda")
+    if kv_tier == "nvme":
+        store = NvmeStore(os.path.join(args.kv_dir, "kv"), pool=pool,
+                          workers=run.offload.nvme_workers)
+    else:
+        store = HostArrayStore(pool=pool, workers=2)
+    store.trace_cls = "kv"
+    seq_names = ("k", "v") if cfg.family in kvcache.SEQ_CACHE_FAMILIES else ()
+    kv = kvcache.PagedKVCache(store, block_tokens=block_tokens,
+                              seq_axis_names=seq_names,
+                              prefetch_blocks=kv_prefetch)
+
+    # ---- prompts for every sequence (waves of `slots` rows) ----
+    rng = np.random.default_rng(args.seed)
+    specs = bundle.input_specs(ShapeConfig("serve", P, slots, "prefill"))
+    full = {}
+    for k, v in specs.items():
+        shp = (n_seqs,) + tuple(v.shape[1:])
+        if v.dtype.is_floating_point:
+            full[k] = torch.from_numpy(
+                (rng.standard_normal(shp) * 0.1).astype(np.float32)).to(v.dtype)
+        else:
+            full[k] = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, shp, dtype=np.int32)).to(v.dtype)
+
+    def wave_rows(w):
+        lo = w * slots
+        idx = list(range(lo, min(lo + slots, n_seqs)))
+        valid = len(idx)
+        while len(idx) < slots:
+            idx.append(0)  # padding rows; results discarded
+        return idx, valid
+
+    def wave_batch(idx):
+        return {k: a[idx].to(device) for k, a in full.items()}
+
+    n_waves = -(-n_seqs // slots)
+    gen = [[] for _ in range(n_seqs)]
+    done = [False] * n_seqs
+    waiting: collections.deque = collections.deque()
+
+    pc = time.perf_counter
+    with torch.no_grad():
+        # untimed warm-up (kernel build and load, first launches): the
+        # throughput below is steady-state compute
+        t0 = pc()
+        bundle.prefill(params, wave_batch(wave_rows(0)[0]))
+        sync()
+        t_compile_prefill = pc() - t0
+
+        t_prefill = 0.0
+        wave0 = None
+        ttft = [0.0] * n_seqs  # time to first token, from serve start
+        t_serve = pc()
+        for w in range(n_waves):
+            idx, valid = wave_rows(w)
+            t0 = pc()
+            with trace.span("prefill", sys="serve", attr="compute", unit=w):
+                logits, cache = bundle.prefill(params, wave_batch(idx))
+                sync()
+            t_prefill += pc() - t0
+            first = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+            prefill_len = int(cache["len"])
+            t_first = pc() - t_serve
+            for j in range(valid):
+                s = idx[j]
+                ttft[s] = t_first
+                gen[s].append(int(first[j]))
+                if int(first[j]) == eos or N <= 1:
+                    done[s] = True  # finished at birth: EOS-masked already
+            if w == 0:
+                wave0 = (cache, idx, valid)
+            else:
+                for j in range(valid):
+                    s = idx[j]
+                    if not done[s]:
+                        kv.park(f"seq{s}",
+                                kvcache.slice_sequence(cache, j), prefill_len)
+                        waiting.append(s)
+        kv.flush()
+
+        # ---- device slot cache: wave 0 grown to decode capacity, with a
+        # per-slot length vector in place of the scalar prefill length ----
+        cache0, idx0, valid0 = wave0
+        slot_cache = kvcache.grow_cache(cache0, N, cfg.family)
+        slot_cache = {**slot_cache,
+                      "len": torch.full((slots,), prefill_len,
+                                        dtype=torch.int32, device=device)}
+        cap = prefill_len + N
+        resident = kvcache.device_kv_bytes(slot_cache)
+
+        slot_seq = [idx0[j] if j < valid0 else None for j in range(slots)]
+        active = [j < valid0 and not done[idx0[j]] for j in range(slots)]
+        cur = np.zeros((slots,), np.int32)
+        for j in range(valid0):
+            cur[j] = gen[idx0[j]][-1]
+
+        # untimed decode warm-up on a copy (decode writes its cache in place)
+        t0 = pc()
+        bundle.decode_step(params, {k: t.clone() for k, t in slot_cache.items()},
+                           {"tokens": torch.zeros((slots, 1), dtype=torch.int32,
+                                                  device=device)})
+        sync()
+        t_compile_decode = pc() - t0
+
+        # ---- continuous-batching decode loop ----
+        # Admission fetches are issued AHEAD of need (kv.start_fetch) so the
+        # block reads overlap decode steps; a freed slot pays only the
+        # uncovered remainder, reported as admit_stall_s.
+        history = []
+        tok_lat = []  # per-token decode latency (one entry per token)
+        t_decode = t_admit = t_admit_stall = 0.0
+        steps = admissions = 0
+        prefetched: collections.deque = collections.deque()
+
+        def top_up_admissions():
+            while waiting and len(prefetched) < slots:
+                s = waiting.popleft()
+                prefetched.append((s, kv.start_fetch(f"seq{s}", cap)))
+
+        top_up_admissions()  # first admissions overlap the first decodes
+        while True:
+            m = kv.mark()
+            for b in range(slots):
+                if active[b] or not prefetched:
+                    continue
+                s, handle = prefetched.popleft()
+                ta = pc()
+                with trace.span("admit_wait", sys="serve", attr="io_wait",
+                                cls="kv", unit=s):
+                    single, length = handle.result()
+                t_admit_stall += pc() - ta
+                with trace.span("admit_insert", sys="serve", attr="compute",
+                                cls="kv", unit=s):
+                    _insert(slot_cache, single, b, length)
+                t_admit += pc() - ta
+                kv.drop(f"seq{s}")
+                slot_seq[b], active[b] = s, True
+                cur[b] = gen[s][-1]
+                admissions += 1
+            top_up_admissions()
+            for _, handle in prefetched:
+                handle.poll()  # keep windows full without blocking
+            if not any(active):
+                break
+            t0 = pc()
+            with trace.span("decode_step", sys="serve", attr="compute",
+                            unit=steps):
+                logits, slot_cache = bundle.decode_step(
+                    params, slot_cache,
+                    {"tokens": torch.from_numpy(cur[:, None].copy()).to(device)})
+                toks = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+            step_dt = pc() - t0
+            t_decode += step_dt
+            steps += 1
+            history.append(
+                metrics_mod.kv_step_metrics(kv.delta_since(m), resident))
+            for b in range(slots):
+                if not active[b]:
+                    continue  # idle slot: padding decode, masked out
+                s = slot_seq[b]
+                tok_lat.append(step_dt)
+                gen[s].append(int(toks[b]))
+                cur[b] = toks[b]
+                if int(toks[b]) == eos or len(gen[s]) >= N:
+                    done[s], active[b], slot_seq[b] = True, False, None
+                    cur[b] = 0
+
+    stats = store.bandwidth_stats()
+    store.close()
+    return {
+        "generated": gen,
+        "done": done,
+        "slots": slots,
+        "kv_tier": kv_tier,
+        "block_tokens": block_tokens,
+        "steps": steps,
+        "admissions": admissions,
+        "plan": None,
+        "history": history,
+        "latency": {
+            "ttft_s": list(ttft),
+            "decode_token_s": list(tok_lat),
+            "ttft": _percentiles(ttft),
+            "decode_token": _percentiles(tok_lat),
+        },
+        "kv": {
+            "resident_bytes": resident,
+            "in_bytes": int(stats["logical_bytes_read"]),
+            "out_bytes": int(stats["logical_bytes_written"]),
+            "in_wire_bytes": int(stats["bytes_read"]),
+            "out_wire_bytes": int(stats["bytes_written"]),
+            "parked_peak_bytes": kv.parked_bytes(),
+            "pinned_peak_bytes": int(pool.peak_resident),
+            "pinned_budget_bytes": int(run.offload.pinned_buffer_mb) << 20,
+        },
+        "timings": {
+            "compile_prefill_s": t_compile_prefill,
+            "compile_decode_s": t_compile_decode,
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "admit_s": t_admit,
+            "admit_stall_s": t_admit_stall,
+        },
+    }
+
+
+def main(argv=None) -> None:
+    args = _parse(argv)
+    if args.trace:
+        trace.enable()
+    out = run_serve(args)
+    t = out["timings"]
+    gen, slots = out["generated"], out["slots"]
+    n_seqs, P = args.batch, args.prompt_len
+    dec_toks = sum(len(g) for g in gen) - n_seqs  # prefill emits token 1
+    print(f"warm-up: prefill {t['compile_prefill_s']*1e3:.1f} ms | "
+          f"decode {t['compile_decode_s']*1e3:.1f} ms (untimed; kernel build "
+          f"and first launches, excluded from throughput)")
+    print(f"prefill: {n_seqs}x{P} tokens in {t['prefill_s']*1e3:.1f} ms "
+          f"({n_seqs * P / max(t['prefill_s'], 1e-9):.0f} tok/s, "
+          f"{slots} slots/wave)")
+    print(f"decode: {dec_toks} tokens over {out['steps']} steps in "
+          f"{t['decode_s']*1e3:.1f} ms "
+          f"({dec_toks / max(t['decode_s'], 1e-9):.0f} tok/s) | "
+          f"{out['admissions']} admissions (+{t['admit_s']*1e3:.1f} ms "
+          f"KV streaming, of which {t['admit_stall_s']*1e3:.1f} ms stalled "
+          f"waiting on reads the decode overlap did not cover)")
+    kvm = out["kv"]
+    print(f"kv[{out['kv_tier']}]: resident {kvm['resident_bytes']} B | "
+          f"in {kvm['in_bytes']} B | out {kvm['out_bytes']} B | "
+          f"pinned peak {kvm['pinned_peak_bytes']} B "
+          f"(budget {kvm['pinned_budget_bytes']} B)")
+    lat = out["latency"]
+    ttft_p, tok_p = lat["ttft"], lat["decode_token"]
+    print(f"latency: TTFT p50/p95/p99 = {ttft_p['p50']*1e3:.1f}/"
+          f"{ttft_p['p95']*1e3:.1f}/{ttft_p['p99']*1e3:.1f} ms | "
+          f"decode tok p50/p95/p99 = {tok_p['p50']*1e3:.2f}/"
+          f"{tok_p['p95']*1e3:.2f}/{tok_p['p99']*1e3:.2f} ms "
+          f"({len(lat['decode_token_s'])} tokens)")
+    print(f"kernels: launches {ops.launch_counts()}")
+    if args.trace:
+        trace.export_chrome(args.trace)
+        print(f"trace: wrote {args.trace} "
+              f"({len(trace.TRACER.events())} spans)")
+    for s in range(min(n_seqs, 4)):
+        print(f"slot {s}: {gen[s][:16]}")
+
+    if args.smoke:
+        if not all(out["done"]):
+            raise SystemExit("SERVE SMOKE FAIL: decode did not complete "
+                             f"(done={out['done']})")
+        for s, g in enumerate(gen):
+            if args.eos_id in g and g.index(args.eos_id) != len(g) - 1:
+                raise SystemExit(
+                    f"SERVE SMOKE FAIL: seq {s} has tokens after EOS: {g}")
+            if len(g) > args.new_tokens:
+                raise SystemExit(
+                    f"SERVE SMOKE FAIL: seq {s} exceeded the "
+                    f"{args.new_tokens}-token budget: {len(g)}")
+        if kvm["pinned_peak_bytes"] > kvm["pinned_budget_bytes"]:
+            raise SystemExit(
+                f"SERVE SMOKE FAIL: pinned staging "
+                f"{kvm['pinned_peak_bytes']} B exceeded the "
+                f"{kvm['pinned_budget_bytes']} B budget")
+        for which in ("ttft", "decode_token"):
+            p = lat[which]
+            if p["p50"] > p["p99"]:
+                raise SystemExit(
+                    f"SERVE SMOKE FAIL: {which} latency percentiles "
+                    f"inverted: p50 {p['p50']*1e3:.2f} ms > "
+                    f"p99 {p['p99']*1e3:.2f} ms")
+        print(f"SERVE SMOKE OK: {n_seqs} seqs through {slots} "
+              f"{out['kv_tier']}-tier slots, {out['steps']} steps, "
+              f"{out['admissions']} admissions, EOS-masked, latency "
+              f"percentiles sane (decode tok p50 {tok_p['p50']*1e3:.2f} ms)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,134 @@
+"""Dense decoder-only LM (the ``dense`` family of ``repro/models/transformer.py``).
+
+Blocks are stacked over a leading ``layers`` dim, as in the reference; the
+reference's ``lax.scan`` over that dim is a Python loop over layer slices
+here. Serving entry points: ``prefill`` builds the ``(L, B, S, KV, D)``
+cache from a prompt, ``decode_step`` advances every row one token,
+writing the cache IN PLACE (the returned cache holds the same ``k``/``v``
+tensors). The training loss waits for the training slice (it needs the
+backward kernels).
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from repro_torch.config import ModelConfig, ParallelConfig, ShapeConfig
+from repro_torch.core import partition as pt
+from repro_torch.models import common as cm
+
+# shape + torch dtype of one model input (the port's ShapeDtypeStruct)
+TensorSpec = collections.namedtuple("TensorSpec", ["shape", "dtype"])
+
+
+def block_defs(cfg: ModelConfig) -> dict:
+    L = cfg.n_layers
+
+    def stack(defs):
+        if isinstance(defs, pt.ParamDef):
+            return pt.ParamDef((L,) + defs.shape, ("layers",) + defs.axes,
+                               defs.dtype, defs.init, defs.init_scale)
+        return {k: stack(v) for k, v in defs.items()}
+
+    return stack({
+        "ln1": cm.norm_defs(cfg.d_model, cfg.norm_kind),
+        "attn": cm.attn_defs(cfg),
+        "ln2": cm.norm_defs(cfg.d_model, cfg.norm_kind),
+        "mlp": cm.mlp_defs(cfg),
+    })
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    return {"embed": cm.embed_defs(cfg), "blocks": block_defs(cfg),
+            "ln_f": cm.norm_defs(cfg.d_model, cfg.norm_kind)}
+
+
+def layer_params(blocks: dict, layer: int) -> dict:
+    """One layer's slice (views) of the stacked block params."""
+    return pt.tree_map(lambda t: t[layer], blocks)
+
+
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"transformer.make_fns: family {cfg.family!r} is not ported "
+            "(ROADMAP.md Queue 1: other families)")
+    if cfg.window:
+        raise NotImplementedError(
+            "local attention windows are not ported (ROADMAP.md Queue 2: "
+            "flash attention window/softcap)")
+    tiles = parallel.tiling_factor
+
+    def block(x, blk, positions, cache=None, collect_kv=False):
+        a, new_cache = cm.attention_block(
+            blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
+            causal=True, cache=cache, collect_kv=collect_kv)
+        x = x + a
+        m = cm.mlp_block(blk["mlp"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg, tiles)
+        return x + m, new_cache
+
+    def backbone_inputs(params, batch):
+        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        return x, positions
+
+    def cache_defs(batch: int, cache_len: int) -> dict:
+        L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+        axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {
+            "k": pt.ParamDef((L, batch, cache_len, KV, D), axes),
+            "v": pt.ParamDef((L, batch, cache_len, KV, D), axes),
+            "len": pt.ParamDef((), (), "int32", "zeros"),
+        }
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """Forward over the prompt, building the KV cache; returns the last
+        position's logits (B, 1, V_padded) and the cache."""
+        x, positions = backbone_inputs(params, batch)
+        S = x.shape[1]
+        ks, vs = [], []
+        for l in range(cfg.n_layers):
+            x, kv = block(x, layer_params(params["blocks"], l), positions,
+                          collect_kv=True)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x[:, -1:], cfg)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "len": torch.tensor(S, dtype=torch.int32, device=x.device)}
+        return lg, cache
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        """One new token per row against the cache; tokens (B, 1). ``len``
+        is a scalar (lockstep) or a (B,) vector of per-slot lengths; each
+        row's position is its own length."""
+        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        B = x.shape[0]
+        clen = cache["len"]
+        positions = clen.reshape(-1, 1).expand(B, 1)
+        for l in range(cfg.n_layers):
+            x, _ = block(x, layer_params(params["blocks"], l), positions,
+                         cache={"k": cache["k"][l], "v": cache["v"][l], "len": clen})
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x, cfg)
+        return lg, {"k": cache["k"], "v": cache["v"], "len": clen + 1}
+
+    def input_specs(shape: ShapeConfig) -> dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": TensorSpec((B, 1), torch.int32)}
+        specs = {"tokens": TensorSpec((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((B, S), torch.int32)
+        return specs
+
+    return {
+        "prefill": prefill,
+        "decode_step": decode_step,
+        "cache_defs": cache_defs,
+        "input_specs": input_specs,
+    }
