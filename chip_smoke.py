@@ -1,7 +1,9 @@
 """Chip smoke for the PyTorch/Hopper port: builds the CUDA kernels, holds
 each against its plain PyTorch version on the card, serves full-width
 smollm-135m through ``repro_torch.launch.serve`` (host and NVMe KV tiers),
-checks the outputs, and prints one JSON line per the contract below.
+trains full smollm-135m through ``repro_torch.launch.train`` with
+parameters, gradients and optimizer states on NVMe, checks the outputs,
+and prints one JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -22,7 +24,20 @@ Phases (any failure exits non-zero; no phase is caught):
      sequences through 4 device slots, waiting KV on the host tier; launch
      counters are zeroed just before and read just after;
   6. the NVMe KV tier: 3 sequences through 1 slot (counters read again);
-  7. the kernels JSON line, then the device JSON line last.
+  7. the training kernels against their plain versions: fused Adam at the
+     embedding, ``ln_f`` and 100,001 elements; the flash backward (dq, dk,
+     dv) and the tiled matmul's gradient products on transposed views, at
+     the training shapes and a ragged one, bf16 and f32 (``TOL``), timed
+     in bf16 at the training shapes;
+  8. training numerics: a 2-layer full-width smollm-135m, 2 layered steps
+     on the card (kernels) against the CPU (plain versions) from the same
+     weights and batches: loss, grad norm, and the rows read back from the
+     param store;
+  9. the training main path: ``launch.train`` on full smollm-135m (30
+     layers), zero3 with params, grads and optimizer states on NVMe, 8
+     steps of 8 x 512 tokens, tracer on; launch counters zeroed just before
+     and read just after;
+  10. the kernels JSON line, then the device JSON line last.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -30,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -44,10 +60,17 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,  # noqa: E402
+                                make_offload, make_parallel)
 from repro_torch.core import kvcache  # noqa: E402
+from repro_torch.core.executor import InfinityExecutor  # noqa: E402
+from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
+from repro_torch.runtime import trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
@@ -72,6 +95,42 @@ TOL = {("flash_attention", torch.bfloat16): {"rtol": 2**-7, "mtol": 2**-7, "atol
        ("flash_attention", torch.float32): {"rtol": 0.0, "mtol": 0.0, "atol": 1e-4},
        ("tiled_matmul", torch.float32): {"rtol": 0.0, "mtol": 0.0, "atol": 1e-4}}
 E2E_REL_TOL = 5e-2  # 2 bf16 layers, CPU vs card rounding, relative to max |logit|
+
+# training shapes of full smollm-135m at --batch 8 --seq 512 (4096 tokens)
+FLASH_TRAIN = (8, 9, 3, 512, 512, 64)
+# the MLP's products per layer: (M, K, N, which operand is a transposed view)
+# forward x@W_in|gate and h@W_out, then per projection dX = dY @ W^T and
+# dW = X^T @ dY, read in place
+TILED_TRAIN = [(4096, 576, 1536, ""), (4096, 1536, 576, ""),
+               (4096, 1536, 576, "w"), (576, 4096, 1536, "x"),
+               (4096, 576, 1536, "w"), (1536, 4096, 576, "x")]
+TILED_TRAIN_RAGGED = [(300, 200, 100, "x"), (300, 200, 100, "w")]
+ADAM_SIZES = [(49152 * 576, "embed.tok"), (576, "ln_f.scale"), (100_001, "ragged")]
+# The flash backward's bf16 gradients: one output ulp (2^-7 |plain|) plus,
+# inside dV, the rare p rounded to bf16 one ulp apart in kernel and plain
+# version (lse and the f32 scores differ in the last bits): 2^-9 of the
+# gradient's largest element (mag = max |plain|). f32: sums of <= 512
+# products in another order, 1e-4 of the largest element. The matmul's bf16
+# bound is K * 2^-24 of |x| @ |w|, taken as 2^-11 at K = 4096. Fused Adam
+# repeats the plain version's f32 operations in order with no FMA
+# contraction, so it must agree bit for bit.
+TOL.update({
+    ("flash_attention_bwd", torch.bfloat16): {"rtol": 2**-7, "mtol": 2**-9, "atol": 0.0},
+    ("flash_attention_bwd", torch.float32): {"rtol": 0.0, "mtol": 1e-4, "atol": 0.0},
+    ("tiled_matmul_k4096", torch.bfloat16): {"rtol": 2**-7, "mtol": 2**-11, "atol": 0.0},
+    ("tiled_matmul_k4096", torch.float32): {"rtol": 0.0, "mtol": 0.0, "atol": 1e-4},
+    ("fused_adam", torch.float32): {"rtol": 0.0, "mtol": 0.0, "atol": 0.0},
+    ("fused_adam", torch.bfloat16): {"rtol": 0.0, "mtol": 0.0, "atol": 0.0},
+})
+# Training numerics, card vs CPU: the per-step loss and grad norm by the
+# reference's cross-tier tolerance (rtol = atol = 2e-3; bf16 activations
+# rounded at other places, averaged down in a mean and a norm). Rows after
+# the last step: AdamW's normalized update is bounded whatever the
+# gradient, so two runs differ by at most ``adam.parity_bound`` (~2 *
+# sum(lr): a tiny gradient may flip sign between them) plus the stored
+# row's bf16 rounding; in the bulk, gradients rounded to bf16 apart (2^-8)
+# move Adam's ratio by a few 2^-8 of lr: mean |diff| <= 2^-5 * sum(lr).
+TRAIN_TOL = {"rtol": 2e-3, "atol": 2e-3}
 
 
 def say(*a) -> None:
@@ -110,7 +169,8 @@ def compare(name, shape, dtype, out, plain, mag) -> dict:
     tol = TOL[(name, dtype)]
     err = (out.float() - plain.float()).abs()
     allowed = tol["rtol"] * plain.float().abs() + tol["mtol"] * mag.float() + tol["atol"]
-    worst = (err / allowed).max().item()
+    # an exact tolerance (allowed 0) admits only err 0
+    worst = torch.where(err == 0, 0.0, err / allowed).max().item()
     rec = {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
            "max_abs_err": err.max().item(), "tol": tol, "worst_err_over_tol": worst}
     if not worst <= 1.0 or not torch.isfinite(out).all():
@@ -179,6 +239,214 @@ def phase_kernels() -> dict:
     return {"flash_attention": flash, "tiled_matmul": tiled}
 
 
+def check_tiled_t(case, dtype, gen, timed: bool) -> dict:
+    """One product with one operand as a transposed view (``trans`` "x" or
+    "w"), as the gradient products read the saved tensors."""
+    M, K, N, trans = case
+    x = randn((K, M) if trans == "x" else (M, K), dtype, gen, 0.1)
+    w = randn((N, K) if trans == "w" else (K, N), dtype, gen, 0.1)
+    x = x.T if trans == "x" else x
+    w = w.T if trans == "w" else w
+    out = ops.tiled_matmul(x, w)
+    plain = ref.matmul_ref(x, w)
+    mag = ref.matmul_ref(x.abs(), w.abs())
+    torch.cuda.synchronize()
+    name = "tiled_matmul" if K <= 1536 else "tiled_matmul_k4096"
+    rec = compare(name, (M, K, N), dtype, out, plain, mag)
+    rec["transposed"] = trans
+    if timed:
+        nbytes = (M * K + K * N + M * N) * x.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
+        rec["ms"] = time_ms(lambda: ops.tiled_matmul(x, w))
+        rec["plain_ms"] = time_ms(lambda: ref.matmul_ref(x, w))
+        rec["library_ms"] = time_ms(lambda: torch.matmul(x, w))
+    return rec
+
+
+def check_flash_bwd(shape, dtype, gen, timed: bool) -> dict:
+    """dq, dk, dv of the kernel against ``ref.attention_bwd_ref`` from the
+    same saved o and lse (the kernel forward's), strided (B,S,H,D) views."""
+    B, H, KV, Sq, Sk, D = shape
+    q, do = (randn((B, Sq, H, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
+    k, v = (randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    recs = [compare("flash_attention_bwd", shape, dtype, g, w, w.float().abs().max())
+            for g, w in zip(got, want)]
+    rec = {"shape": list(shape), "dtype": recs[0]["dtype"], "tol": recs[0]["tol"],
+           "max_abs_err": max(r["max_abs_err"] for r in recs),
+           "worst_err_over_tol": max(r["worst_err_over_tol"] for r in recs)}
+    if timed:
+        pairs = sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq)) * B * H
+        nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()  # q o dO dq; k v dk dv
+                  + lse.numel() * 4)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * D * pairs, dtype)
+        rec["ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do))
+        rec["plain_ms"] = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+    return rec
+
+
+def check_adam(n, label, gen, timed: bool) -> dict:
+    """The kernel against the plain version on copies of the same state,
+    all four outputs; timed at the embedding with the library's fused
+    AdamW (``torch._fused_adamw_``, no bf16 copy) as the yardstick."""
+    p, g, m = (randn((n,), torch.float32, gen, 1.0) for _ in range(3))
+    v = randn((n,), torch.float32, gen, 0.01).abs()
+    scal = ops.adam_scalars(3e-3, 0.9, 0.95, 1e-8, 0.1, 1 - 0.9, 1 - 0.95, "cuda")
+    pr, mr, vr = p.clone(), m.clone(), v.clone()
+    pbf = ops.fused_adam(p, g, m, v, scal)
+    pad = (-n) % 128
+    rows = lambda t: F.pad(t, (0, pad)).view(-1, 128)
+    prr, mrr, vrr = rows(pr), rows(mr), rows(vr)
+    pbf_ref = ref.adam_ref(prr, rows(g), mrr, vrr, scal).reshape(-1)[:n]
+    torch.cuda.synchronize()
+    recs = [compare("fused_adam", (n,), torch.float32, got, want.reshape(-1)[:n],
+                    want.reshape(-1)[:n]) for got, want in ((p, prr), (m, mrr), (v, vrr))]
+    recs.append(compare("fused_adam", (n,), torch.bfloat16, pbf, pbf_ref, pbf_ref))
+    rec = {"shape": [-(-n // 128), 128], "elements": n, "leaf": label, "dtype": "float32",
+           "tol": recs[0]["tol"], "max_abs_err": max(r["max_abs_err"] for r in recs),
+           "worst_err_over_tol": max(r["worst_err_over_tol"] for r in recs)}
+    if timed:
+        rec["bound_ms"], rec["bound_by"] = bound(30.0 * n, 15.0 * n, torch.float32)
+        rec["ms"] = time_ms(lambda: ops.fused_adam(p, g, m, v, scal))
+        rec["plain_ms"] = time_ms(lambda: ref.adam_ref(prr, rows(g), mrr, vrr, scal))
+        step = [torch.tensor(1.0, device="cuda")]
+        rec["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+            [pr], [g], [mr], [vr], [], step, lr=3e-3, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+    return rec
+
+
+def phase_train_kernels() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    adam = [check_adam(n, label, gen, timed=(i == 0)) for i, (n, label) in enumerate(ADAM_SIZES)]
+    fwd = [check_flash(FLASH_TRAIN, bf16, gen, timed=True)]
+    bwd = [check_flash_bwd(FLASH_TRAIN, bf16, gen, timed=True)]
+    bwd += [check_flash_bwd(FLASH_TRAIN, f32, gen, timed=False)]
+    bwd += [check_flash_bwd(FLASH_RAGGED, dt, gen, timed=False) for dt in (bf16, f32)]
+    tiled = [check_tiled_t(c, bf16, gen, timed=True) for c in TILED_TRAIN]
+    tiled += [check_tiled_t(c, f32, gen, timed=False) for c in TILED_TRAIN]
+    tiled += [check_tiled_t(c, dt, gen, timed=False) for c in TILED_TRAIN_RAGGED
+              for dt in (bf16, f32)]
+    for rec in adam + fwd + bwd + tiled:
+        say("train kernel check:", json.dumps(rec))
+    return {"fused_adam": adam, "flash_attention": fwd, "flash_attention_bwd": bwd,
+            "tiled_matmul": tiled}
+
+
+def _train_run(cfg, dev, nvme_dir, steps) -> RunConfig:
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    return RunConfig(
+        model=cfg, parallel=make_parallel("zero3", remat="none"),
+        offload=make_offload(opt_tier="nvme", param_tier="nvme", grad_tier="nvme",
+                             nvme_dir=nvme_dir),
+        train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+
+
+def phase_train_numerics() -> dict:
+    """Full-width smollm-135m cut to 2 layers: 2 layered steps on the card
+    (kernels) and on the CPU (plain versions), same weights and batches."""
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    B, S, steps = 4, 256, 2
+    base = os.path.join(ROOT, "build", "chip_smoke_train_numerics")
+    state0 = None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ex = InfinityExecutor(_train_run(cfg, dev, os.path.join(base, dev), steps), dev)
+        if state0 is None:
+            state0 = ex.engine.init_state(torch.Generator().manual_seed(SEED))
+        state = ex.reseed(_to(state0, dev))
+        stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                                 cfg.vocab_size, seed=SEED)
+        step = ex.make_train_step()
+        traj = []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        out[dev] = (traj, ex.materialize_flat().float())
+        ex.close()
+    (tc, rows_c), (tg, rows_g) = out["cpu"], out["cuda"]
+    lrs = [t["lr"] for t in tc]
+    drift = adam.parity_bound(TrainConfig(), lrs)
+    diff = (rows_g - rows_c).abs()
+    rec = {"layers": 2, "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
+           "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+           "rows_max_abs_diff": diff.max().item(), "rows_mean_abs_diff": diff.mean().item(),
+           "rows_max_bound": drift, "rows_mean_bound": 2**-5 * sum(lrs)}
+    say("train numerics:", json.dumps(rec))
+    for c, g in zip(tc, tg):
+        for key in ("loss", "grad_norm"):
+            if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
+                raise SystemExit(f"FAIL train numerics: card {key} {g[key]} vs CPU {c[key]}")
+    if not bool((diff <= drift + 2**-8 * rows_c.abs()).all()) \
+            or not rec["rows_mean_abs_diff"] <= rec["rows_mean_bound"]:
+        raise SystemExit(f"FAIL train numerics: rows differ beyond the bound: {rec}")
+    return rec
+
+
+def phase_train_main() -> tuple:
+    """The training main path through ``launch.train`` on full smollm-135m."""
+    L, steps = configs.get("smollm-135m").n_layers, 8
+    nvme = os.path.join(ROOT, "build", "chip_smoke_nvme")
+    shutil.rmtree(nvme, ignore_errors=True)
+    argv = ["--arch", "smollm-135m", "--engine", "zero3", "--offload-param", "nvme",
+            "--offload-grad", "nvme", "--offload-opt", "nvme", "--batch", "8",
+            "--seq", "512", "--steps", str(steps), "--lr", "3e-3", "--nvme-dir", nvme,
+            "--log-every", "1"]
+    trace.enable()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    trace.disable()
+    trace.clear()
+    tiers = ("param_in", "param_out", "grad_out", "opt_read", "opt_write")
+    for m in hist["metrics"]:
+        w = max(m["trace_wall_s"], 1e-12)
+        say("train step:", json.dumps({
+            "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"],
+            "compute_frac": m["trace_compute_s"] / w, "io_wait_frac": m["trace_io_wait_s"] / w,
+            "other_frac": m["trace_other_s"] / w,
+            **{f"{t}_bytes": m[f"{t}_bytes"] for t in tiers},
+            **{f"{t}_gbps": m[f"{t}_gbps"] for t in tiers},
+            "peak_resident_param_bytes": m["peak_resident_param_bytes"],
+            "prefetch_hit_rate": m["prefetch_hit_rate"]}))
+    losses = hist["losses"]
+    rec = {"argv": " ".join(argv), "wall_s": wall, "launches": launches,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "param_total_bytes": hist["metrics"][0]["param_total_bytes"],
+           "nvme": hist["nvme_stats"]}
+    say("train:", json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL train: losses not finite or not falling: {losses}")
+    for m in hist["metrics"]:
+        if not all(m[f"{t}_bytes"] > 0 for t in tiers):
+            raise SystemExit(f"FAIL train: a tier moved no bytes at step {m['step']}")
+        if not m["peak_resident_param_bytes"] < m["param_total_bytes"]:
+            raise SystemExit("FAIL train: every param row was resident at once")
+    # per step: flash forward in every layer's forward and again in its
+    # recompute; one flash backward per layer; three MLP projections
+    # forward, three in the recompute and two gradient products each;
+    # fused Adam once per 'other' leaf (embedding, final norm)
+    want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+            "tiled_matmul": (3 + 3 + 6) * L * steps, "fused_adam": 2 * steps}
+    for name, n in want.items():
+        if launches[name] < n:
+            raise SystemExit(f"FAIL train: {name} launched {launches[name]} < {n}")
+    return rec, launches
+
+
 def phase_e2e() -> dict:
     """Full-width smollm-135m cut to 2 layers: the card (kernels) against
     the CPU (plain versions) from the same weights, teacher-forced."""
@@ -219,9 +487,12 @@ def phase_e2e() -> dict:
 
 
 def _to(tree, dev):
+    """A copy of a nested dict / tuple of tensors on ``dev``."""
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(v, dev) for v in tree))
+    return tree.to(dev, copy=True)
 
 
 def run_serve(argv) -> tuple:
@@ -310,26 +581,44 @@ def main() -> int:
     out, nvme_launches, wall = run_serve(nvme_argv)
     summarize("nvme", nvme_argv, out, nvme_launches, wall)
 
+    train_checks = phase_train_kernels()
+    numerics = phase_train_numerics()
+    train_rec, train_launches = phase_train_main()
+
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
+               "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention.cu",
+                                       "none: the TPU kernel has no backward "
+                                       "(src/repro/kernels/flash_attention.py:65)"),
                "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
-                                "src/repro/kernels/tiled_matmul.py:60")}
+                                "src/repro/kernels/tiled_matmul.py:60"),
+               "fused_adam": ("src/repro_torch/csrc/fused_adam.cu",
+                              "src/repro/kernels/fused_adam.py:47")}
+    serve_launches = {"flash_attention": launches, "tiled_matmul": launches}
     kernels = []
-    for name, recs in checks.items():
-        head = recs[0]  # the serve shape that dominates the kernel's time
+    for name in sources:
+        recs = checks.get(name, []) + train_checks.get(name, [])
+        # the training path's first timed shape; every other shape beside it
+        head = next(r for r in train_checks[name] if "ms" in r)
         src, replaces = sources[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "launches": train_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
-            "tol": head["tol"], "nvme_run_launches": nvme_launches[name],
-            "shapes": recs})
+            "tol": head["tol"], "shapes": recs}
+        if name in serve_launches:
+            entry["serve_launches"] = serve_launches[name][name]
+            entry["nvme_run_launches"] = nvme_launches[name]
+        kernels.append(entry)
     say(f"total: {time.perf_counter() - t_start:.1f} s "
         f"(e2e rel err {e2e['max_rel_err']:.3g}, main-path tok/s "
-        f"{main_rec['decode_tok_s']:.0f} decode)")
+        f"{main_rec['decode_tok_s']:.0f} decode; train "
+        f"{train_rec['first_loss']:.4f} -> {train_rec['last_loss']:.4f}, "
+        f"numerics loss {numerics['card'][-1]['loss']:.5f} card vs "
+        f"{numerics['cpu'][-1]['loss']:.5f} CPU)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,3 +26,22 @@ def params_from_numpy(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def zero3_state_from_numpy(state: dict, device="cpu") -> dict:
+    """The JAX package's ``ExplicitZero3Engine.init_state`` output with
+    every leaf as numpy (``flat`` (L, P) bf16 rows, ``other``, ``other_opt``
+    (an ``AdamState``-shaped 4-tuple step/master/m/v), ``step``) -> the
+    port engine's state, so both packages start from the same weights."""
+    from repro_torch.optim.adam import AdamState
+
+    step, master, m, v = state["other_opt"]
+    return {
+        "flat": tensor_from_numpy(state["flat"], device),
+        "other": params_from_numpy(state["other"], device),
+        "other_opt": AdamState(tensor_from_numpy(step, device),
+                               params_from_numpy(master, device),
+                               params_from_numpy(m, device),
+                               params_from_numpy(v, device)),
+        "step": tensor_from_numpy(state["step"], device),
+    }

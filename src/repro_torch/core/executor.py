@@ -1,0 +1,392 @@
+"""InfinityExecutor, the layered ZeRO-3 epoch on one device — the subset of
+``repro/core/executor.py`` that ``launch/train.py --engine zero3
+--offload-param nvme`` runs.
+
+Parameters, gradients and optimizer states all live off the device: each
+layer's bf16 row in the param store (``ParamStreamer``), its f32 gradient
+drained to the grad store, its f32 master/m/v in the opt store
+(``ChunkedAdamOffload``). One step is two scheduler-driven passes over the
+rows (``core/schedule.py``): forward, each row read ahead inside the
+prefetch window, copied to the device just in time and evicted after use;
+then the head, and the reversed pass that re-reads each row, recomputes
+the layer under autograd (``layer_vjp``) and hands the row's gradient to
+the grad store. ``finish`` updates the small device-resident states with
+the fused-Adam kernel; the rows update on the host, chunk by chunk, and go
+straight back to the param store. The full (L, P) array is never
+assembled, so ``peak_resident_param_bytes`` is O(window).
+
+On the card two copies cross the host link asynchronously. A row goes up
+through a pinned pool buffer (``PinnedStager``: the buffer is not reused
+before its copy's event completes), and a gradient comes down on a store
+worker after an event recorded behind the ``layer_vjp`` that wrote it.
+
+Every other variant (the GSPMD engine, params off NVMe, dp > 1) raises
+naming its ROADMAP item. Per-step metrics are the reference's: loss,
+grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
+``grad_out``, ``opt_read/write``), scheduler residency, and the tracer's
+stall attribution (``trace_*``) when tracing is on.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.config import RunConfig, ShapeConfig
+from repro_torch.core import schedule as sched_mod
+from repro_torch.core.offload import (ArrayStore, ChunkedAdamOffload,
+                                      HostArrayStore, NvmeStore, ParamStreamer,
+                                      PinnedBufferPool, PinnedStager)
+from repro_torch.core.zero import ExplicitZero3Engine
+from repro_torch.models.transformer import TensorSpec
+from repro_torch.runtime import trace
+
+
+def check_ported(run: RunConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port cannot
+    run yet, naming the ROADMAP item that ports it."""
+    if run.parallel.engine != "zero3":
+        raise NotImplementedError(
+            "the GSPMD engine (--engine pjit) is not ported: the port runs "
+            "the explicit zero3 engine's layered epoch (ROADMAP.md Queue 1 "
+            "item 8: GSPMD engine and meshes)")
+    if run.offload.param_tier != "nvme":
+        raise NotImplementedError(
+            "the zero3 engine's in-graph step (params on the device or host "
+            "tier) is not ported; pass --offload-param nvme for the layered "
+            "epoch (ROADMAP.md Queue 1 item 10)")
+    if run.offload.param_quant != "none":
+        raise NotImplementedError(
+            f"param_quant={run.offload.param_quant!r} is not ported "
+            "(ROADMAP.md Queue 1 item 4: quantized transport)")
+
+
+class InfinityExecutor:
+    """Drives the explicit engine's layered epoch through the slow tiers.
+
+    ``make_train_step()(state, batch)`` returns ``(new_state, metrics)``;
+    ``state`` is the engine's state with the ``flat`` rows dropped to a
+    ``TensorSpec`` placeholder once the stores are seeded (``reseed``).
+    """
+
+    def __init__(self, run: RunConfig, device="cuda", *,
+                 engine: Optional[ExplicitZero3Engine] = None):
+        check_ported(run)
+        self.run = run
+        self.device = torch.device(device)
+        self.engine = engine if engine is not None else ExplicitZero3Engine(run, self.device)
+        off = run.offload
+        self.grad_offload = off.grad_tier != "device"
+        # one staging budget shared by every store and the row stager;
+        # page-locked where it feeds the card
+        self._pool = PinnedBufferPool(off.pinned_buffer_mb << 20,
+                                      pin=self.device.type == "cuda")
+        self._stager = PinnedStager(self._pool, self.engine.layer_row_device())
+        self.opt_store: Optional[ArrayStore] = None
+        self.grad_store: Optional[ArrayStore] = None
+        self.param_store: Optional[ArrayStore] = None
+        self.offload: Optional[ChunkedAdamOffload] = None
+        self.param_stream: Optional[ParamStreamer] = None
+        self._ws = sched_mod.WorkingSetManager()
+        self._sched: Optional[sched_mod.LayerSchedule] = None
+        self._pe: Optional[sched_mod.PrefetchEngine] = None
+        self._pe_stream: Optional[ParamStreamer] = None
+        self._sched_tokens: Optional[int] = None
+        self._layer_fns = None
+        self._step_fn = None
+        self._trace_t0: Optional[float] = None
+        self._trace_tid: Optional[int] = None
+        self.trace_attributions: list = []
+
+    def close(self) -> None:
+        """Flush and shut down the stores; a closed executor must not step."""
+        for store in (self.param_store, self.grad_store, self.opt_store):
+            if store is not None:
+                store.close()
+        self._stager.retire(wait=True)
+        self.param_store = self.grad_store = self.opt_store = None
+        self.param_stream = self.offload = None
+        self._step_fn = None
+
+    # ------------------------------------------------------------------
+    # state
+    # ------------------------------------------------------------------
+
+    def init_state(self, generator: torch.Generator) -> dict:
+        """Engine init + store seeding; the returned state's ``flat`` is a
+        placeholder (the param store is authoritative)."""
+        return self.reseed(self.engine.init_state(generator))
+
+    def _make_store(self, tier: str, name: str) -> ArrayStore:
+        off = self.run.offload
+        if tier == "nvme":
+            store = NvmeStore(os.path.join(off.nvme_dir, name), pool=self._pool,
+                              overlap=off.overlap, workers=off.nvme_workers)
+        else:
+            store = HostArrayStore(pool=self._pool, overlap=off.overlap,
+                                   workers=off.nvme_workers)
+        store.trace_cls = name  # tags this class's I/O spans
+        return store
+
+    def reseed(self, state: dict, step: int = 0) -> dict:
+        """(Re)populate the stores from ``state`` (m, v restart at zero) and
+        return it with ``flat`` dropped to a placeholder. The opt store is
+        seeded in backward order, the order the reversed pass emits the
+        rows' gradients."""
+        off = self.run.offload
+        flat = state["flat"]
+        if isinstance(flat, TensorSpec):
+            raise ValueError("reseed needs materialized rows, not a placeholder")
+        flat = flat.detach().to("cpu")
+        if self.opt_store is None:
+            self.opt_store = self._make_store(off.opt_tier, "opt")
+        self.offload = ChunkedAdamOffload(self.opt_store)
+        self.offload.init_from_params(
+            {f"rank0/l{li}": flat[li] for li in range(flat.shape[0] - 1, -1, -1)})
+        self.offload.step_count = step
+        if self.grad_offload and self.grad_store is None:
+            self.grad_store = self._make_store(off.grad_tier, "grad")
+        if self.param_store is None:
+            self.param_store = self._make_store("nvme", "param")
+        self.param_stream = ParamStreamer(self.param_store,
+                                          read_ahead=off.param_read_ahead)
+        self.param_stream.seed({"rank0": flat}, row_split=True)
+        state = dict(state)
+        state["flat"] = self._param_placeholder()
+        return state
+
+    def _param_placeholder(self) -> TensorSpec:
+        return TensorSpec((self.engine.n_layers, self.engine.layout.padded),
+                          torch.bfloat16)
+
+    @property
+    def total_param_bytes(self) -> int:
+        """Bytes of all scheduler-managed rows (the never-fully-resident
+        claim's denominator)."""
+        return self.engine.n_layers * self.engine.layout.padded * 2
+
+    def materialize_flat(self) -> torch.Tensor:
+        """The (L, P) bf16 rows assembled from the param store, on the CPU —
+        for checks and checkpoints; the step never calls it."""
+        return self.param_stream.load_all()["rank0"]
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        return self.engine.input_specs(shape)
+
+    def n_params_active(self) -> int:
+        return self.engine.n_params_active()
+
+    # ------------------------------------------------------------------
+    # the layered epoch
+    # ------------------------------------------------------------------
+
+    def make_train_step(self):
+        if self._step_fn is None:
+            self._step_fn = self._layered_step()
+        return self._step_fn
+
+    def _ensure_row_scheduler(self, batch):
+        """Plan + prefetcher over the rows; rebuilt when ``reseed`` swapped
+        the streamer or, for the auto window, the batch's tokens changed."""
+        off = self.run.offload
+        tokens = batch["tokens"].numel()
+        stale = (self._sched is None or self._pe_stream is not self.param_stream
+                 or (not off.prefetch_layers and tokens != self._sched_tokens))
+        if stale:
+            L = self.engine.n_layers
+            window = off.prefetch_layers or sched_mod.default_prefetch_layers(
+                L, self.engine.layout.padded, tokens)
+            self._sched_tokens = tokens
+            stream = self.param_stream
+
+            def fetch(layer):
+                return [stream.read_row("rank0", layer)]
+
+            self._sched = sched_mod.LayerSchedule(L, window,
+                                                  read_ahead=off.param_read_ahead)
+            self._pe = sched_mod.PrefetchEngine(fetch, self._ws, trace_cls="param")
+            self._pe_stream = stream
+        return self._sched, self._pe
+
+    def _device_row(self, vals) -> torch.Tensor:
+        """The one rank's host row -> the device (pinned, non-blocking)."""
+        with trace.span("h2d_row", sys="store", cls="param"):
+            return self._stager.to_device(vals[0])
+
+    def _ready_event(self):
+        """An event behind the kernels enqueued so far (None on the CPU,
+        where a tensor is complete when its op returns)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _layered_step(self):
+        eng = self.engine
+        tc = self.run.train
+
+        def step(state, batch):
+            self._trace_step_begin()
+            marks = {name: s.mark() for name, s in self._active_stores()}
+            if self._layer_fns is None:
+                self._layer_fns = eng.make_layer_fns()
+            fns = self._layer_fns
+            sched, pe = self._ensure_row_scheduler(batch)
+            self._ws.begin_step()
+            rows: Dict[int, torch.Tensor] = {}
+
+            def run_pass(events, use_fn):
+                pe.run_events(
+                    events,
+                    on_materialize=lambda l, vals: rows.__setitem__(
+                        l, self._device_row(vals)),
+                    on_use=use_fn,
+                    on_evict=lambda l: rows.pop(l, None))
+
+            # ---- forward ----
+            x = fns["embed_fwd"](state["other"], batch["tokens"])
+            acts: Dict[int, torch.Tensor] = {}
+
+            def fwd_use(layer):
+                nonlocal x
+                acts[layer] = x  # the layer's input (its recompute seed)
+                x = fns["layer_fwd"](x, rows[layer])
+
+            run_pass(sched.forward(), fwd_use)
+
+            # ---- head + reversed layer pass ----
+            loss, dx, g_head = fns["head"](x, state["other"], batch["labels"])
+            gdict: Dict[str, object] = {}
+            # the grad norm's sum of squares stays on the device until finish
+            sumsq = torch.zeros((), dtype=torch.float32, device=self.device)
+
+            def bwd_use(layer):
+                nonlocal dx, sumsq
+                dx, g_row = fns["layer_vjp"](acts.pop(layer), rows[layer], dx)
+                sumsq = fns["accum_sumsq"](sumsq, g_row)
+                key = f"rank0/l{layer}"
+                gdict[key] = (self.grad_store.roundtrip(f"{key}/g", g_row,
+                                                        ready=self._ready_event())
+                              if self.grad_offload else g_row)
+
+            run_pass(sched.backward(), bwd_use)
+
+            g_emb = fns["embed_vjp"](state["other"], batch["tokens"], dx)
+            new_other, new_other_opt, new_step, fm = fns["finish"](
+                state["other"], state["other_opt"], state["step"],
+                g_head, g_emb, sumsq)
+
+            # reading lr waits for finish and so for the whole step's
+            # device work: where the compute lands on the critical path
+            with trace.span("device_sync", sys="compute", attr="compute"):
+                lr_host = float(fm["lr"])
+
+            # streamed per-row Adam on the host; bf16 rows straight back
+            new_master = self.offload.step(
+                gdict, lr=lr_host, beta1=tc.beta1, beta2=tc.beta2,
+                eps=tc.eps, weight_decay=tc.weight_decay)
+            with trace.span("param_writeback", sys="optim", cls="param"):
+                for key, m32 in new_master.items():
+                    rank, layer = key.split("/")  # "rank<r>/l<i>"
+                    self.param_stream.write_row(rank, int(layer[1:]),
+                                                m32.to(torch.bfloat16))
+                self.param_stream.flush()
+            if self.grad_store is not None:
+                self.grad_store.flush()
+            self._stager.retire(wait=True)
+
+            new_state = {"flat": self._param_placeholder(), "other": new_other,
+                         "other_opt": new_other_opt, "step": new_step}
+            metrics = {"loss": loss, "grad_norm": fm["grad_norm"], "lr": fm["lr"]}
+            return new_state, self._with_tier_metrics(metrics, marks)
+
+        return step
+
+    # ------------------------------------------------------------------
+    # metrics
+    # ------------------------------------------------------------------
+
+    def _active_stores(self):
+        return [(name, s) for name, s in (("param", self.param_store),
+                                           ("grad", self.grad_store),
+                                           ("opt", self.opt_store))
+                if s is not None]
+
+    def _trace_step_begin(self) -> None:
+        if trace.enabled():
+            self._trace_t0 = time.perf_counter()
+            self._trace_tid = threading.get_ident()
+
+    def _with_trace_attribution(self, out: dict) -> dict:
+        """The step's wall time partitioned from the recorded spans, as
+        ``trace_*`` metrics."""
+        if not (trace.enabled() and self._trace_t0 is not None):
+            return out
+        att = trace.TRACER.attribute_window(
+            self._trace_t0, time.perf_counter(), main_tid=self._trace_tid)
+        self._trace_t0 = None
+        self.trace_attributions.append(att)
+        out.update(trace.flatten_attribution(att))
+        return out
+
+    def _with_tier_metrics(self, metrics, marks) -> dict:
+        """This step's per-tier counters (deltas, never cumulative):
+        param-in/out, grad-out, opt-read/write bytes and GB/s (logical ==
+        wire: no quantized wire format is ported), the NVMe aggregate, the
+        pinned pool's peak, and the scheduler's residency."""
+        out = dict(metrics)
+        nvme = {"bytes_read": 0, "bytes_written": 0}
+        for name, store in self._active_stores():
+            d = store.delta_since(marks[name])
+            r, w = d["bytes_read"], d["bytes_written"]
+            if name == "param":
+                out.update(param_in_bytes=r, param_in_wire_bytes=r,
+                           param_in_gbps=d["read_gbps"], param_out_bytes=w,
+                           param_out_wire_bytes=w, param_out_gbps=d["write_gbps"])
+            elif name == "grad":
+                out.update(grad_out_bytes=w, grad_out_wire_bytes=w,
+                           grad_out_gbps=d["write_gbps"])
+            else:
+                out.update(opt_read_bytes=r, opt_read_wire_bytes=r,
+                           opt_read_gbps=d["read_gbps"], opt_write_bytes=w,
+                           opt_write_wire_bytes=w, opt_write_gbps=d["write_gbps"])
+            if store.kind == "nvme":
+                nvme["bytes_read"] += r
+                nvme["bytes_written"] += w
+        out["nvme_bytes_read"] = nvme["bytes_read"]
+        out["nvme_bytes_written"] = nvme["bytes_written"]
+        out["nvme_pinned_peak_bytes"] = self._pool.peak_resident
+        out.update(self._ws.stats())
+        out["param_total_bytes"] = self.total_param_bytes
+        return self._with_trace_attribution(out)
+
+    def bandwidth_stats(self) -> dict:
+        """Whole-run aggregate over every store, per class and combined."""
+        stores = self._active_stores()
+        if not stores:
+            return {}
+        out = {}
+        tot_r = tot_w = 0
+        tot_rt = tot_wt = 0.0
+        for name, store in stores:
+            s = store.bandwidth_stats()
+            out[f"{name}_bytes_read"] = s["bytes_read"]
+            out[f"{name}_bytes_written"] = s["bytes_written"]
+            out[f"{name}_read_gbps"] = s["read_gbps"]
+            out[f"{name}_write_gbps"] = s["write_gbps"]
+            out[f"{name}_logical_bytes_read"] = s["logical_bytes_read"]
+            out[f"{name}_logical_bytes_written"] = s["logical_bytes_written"]
+            tot_r += s["bytes_read"]
+            tot_w += s["bytes_written"]
+            tot_rt += s["read_time"]
+            tot_wt += s["write_time"]
+        out["bytes_read"] = tot_r
+        out["bytes_written"] = tot_w
+        out["read_gbps"] = tot_r / max(tot_rt, 1e-9) / 1e9
+        out["write_gbps"] = tot_w / max(tot_wt, 1e-9) / 1e9
+        out["pinned_peak_bytes"] = self._pool.peak_resident
+        return out

@@ -1,5 +1,5 @@
-"""The out-of-graph offload tiers (paper Secs. 5.1.1, 6.3), ported from
-``repro/core/offload.py:53-440``.
+"""The out-of-graph offload tiers (paper Secs. 5.1.1, 5.2.2, 6.3), ported
+from ``repro/core/offload.py``.
 
   * ``PinnedBufferPool`` — a fixed, reused budget of host staging buffers
     (``torch.uint8`` tensors, page-locked with ``pin_memory=True`` on the
@@ -11,13 +11,25 @@
         (hashed ``.bin`` + JSON ``.meta`` sidecar, dtype names such as
         ``"bfloat16"``), so either package reopens the other's directory.
 
+  * ``ChunkedAdamOffload`` — the slow-tier optimizer step: master/m/v
+    stream store -> host in chunks, read(k+1) || CPU update(k) ||
+    write(k-1); the update is ``_adam_update`` on CPU tensors, in place
+    (the DeepSpeed CPU-Adam analogue).
+  * ``ParamStreamer`` — slow-tier resident bf16 rows, one per layer, read
+    and written asynchronously for the layer scheduler.
+  * ``PinnedStager`` — host rows to the card through pinned pool buffers
+    with non-blocking copies; a buffer returns to the pool only after its
+    copy's event completed.
+
 Stores hold torch tensors, not numpy arrays: numpy has no bfloat16 without
-``ml_dtypes``, which the port does not use. A tensor handed to ``write`` may
-live on the card; its device->host copy runs on the store's worker thread.
-``ChunkedAdamOffload`` and ``ParamStreamer`` wait for the training slice.
+``ml_dtypes``, which the port does not use. A tensor handed to ``write`` or
+``roundtrip`` may live on the card; its device->host copy runs on the
+store's worker thread (``roundtrip``'s after the ``ready`` event the caller
+recorded behind the kernels that produce it).
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import math
@@ -25,11 +37,13 @@ import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from repro_torch.runtime import trace
+
+DEFAULT_CHUNK_ELEMS = 1 << 22  # 4M elements per pipeline chunk
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -193,11 +207,15 @@ class ArrayStore:
 
     # -- traced sync wrappers (the span is where the bytes move) ------------
 
-    def _traced_write(self, key: str, t: torch.Tensor) -> None:
+    def _traced_write(self, key: str, t: torch.Tensor, ready=None) -> None:
         attr = "io" if self.overlap else "io_wait"
         with trace.span(f"{self.kind}_write", sys="store", attr=attr,
                         cls=self.trace_cls, key=key) as sp:
             sp.set(nbytes=_nbytes(t), wire_bytes=_nbytes(t))
+            if ready is not None:
+                # the kernels that write t were only enqueued: wait for them
+                # before the copy reads it (else a half-written tensor)
+                ready.synchronize()
             self._write_sync(key, t.detach())
 
     def _traced_read(self, key: str) -> torch.Tensor:
@@ -229,18 +247,20 @@ class ArrayStore:
             return f
         return self._pool_exec.submit(self._traced_read, key)
 
-    def roundtrip(self, key: str, t: torch.Tensor) -> Future:
+    def roundtrip(self, key: str, t: torch.Tensor, ready=None) -> Future:
         """Drain ``t`` into the store and resolve to the store-resident copy:
         an ordered write-then-read on one worker (the grad-tier leg of the
-        overlap-centric schedule). ``t`` may be a CUDA tensor."""
+        overlap-centric schedule). ``t`` may be a CUDA tensor: the worker
+        copies it after ``ready`` (a ``torch.cuda.Event`` recorded behind
+        the kernels that produce ``t``) completes."""
         if not self.overlap:
             f: Future = Future()
-            self._traced_write(key, t)
+            self._traced_write(key, t, ready)
             f.set_result(self._traced_read(key))
             return f
 
         def _rt():
-            self._traced_write(key, t)
+            self._traced_write(key, t, ready)
             return self._traced_read(key)
 
         fut = self._pool_exec.submit(_rt)
@@ -415,3 +435,213 @@ class NvmeStore(ArrayStore):
     def keys(self):
         with self._meta_lock:
             return list(self._meta)
+
+
+# ---------------------------------------------------------------------------
+# the streamed optimizer and the streamed parameter rows
+# ---------------------------------------------------------------------------
+
+
+def _adam_update(p, m, v, g, lr, b1, b2, eps, wd, c1, c2):
+    """AdamW on f32 CPU tensors, IN PLACE on p, m and v, with host-float
+    scalars — the CPU-Adam analogue (``repro/core/offload.py:443``)."""
+    m.mul_(b1).add_(g * (1.0 - b1))
+    v.mul_(b2).add_(g * (1.0 - b2) * g)
+    mh = m / c1
+    vh = v / c2
+    p.sub_(lr * (mh / (torch.sqrt(vh) + eps) + wd * p))
+    return p, m, v
+
+
+class ChunkedAdamOffload:
+    """Slow-tier-resident optimizer states with a 3-stage streamed update.
+
+    States are stored as fixed-size f32 chunks in any ``ArrayStore``.
+    ``step()`` runs the software pipeline read(k+1) || update(k) ||
+    write(k-1) over every key's chunks; with overlap off the stages
+    serialize. ``last_step_stats`` holds the store-counter deltas of the
+    latest step.
+    """
+
+    def __init__(self, store: ArrayStore, chunk_elems: int = DEFAULT_CHUNK_ELEMS):
+        self.store = store
+        self.chunk = chunk_elems
+        self.layout: List[Tuple[str, tuple, int]] = []  # (key, shape, n elems)
+        self.step_count = 0
+        self.last_step_stats: dict = {}
+
+    def init_from_params(self, flat_params: Dict[str, torch.Tensor]) -> None:
+        """Seed master (the f32 params) and zero m, v, key by key in the
+        dict's order (the order ``step`` streams them)."""
+        self.layout = []
+        for key, p in flat_params.items():
+            p32 = p.detach().to("cpu", torch.float32).reshape(-1)
+            self.layout.append((key, tuple(p.shape), p32.numel()))
+            for ci, off in enumerate(range(0, p32.numel(), self.chunk)):
+                sl = p32[off: off + self.chunk]
+                self.store.write(f"{key}.master.{ci}", sl)
+                self.store.write(f"{key}.m.{ci}", torch.zeros_like(sl))
+                self.store.write(f"{key}.v.{ci}", torch.zeros_like(sl))
+        self.store.flush()
+
+    def _chunks_of(self, n: int) -> Iterator[Tuple[int, int, int]]:
+        for ci, off in enumerate(range(0, n, self.chunk)):
+            yield ci, off, min(self.chunk, n - off)
+
+    def step(self, flat_grads: Dict[str, object], *, lr: float, beta1: float = 0.9,
+             beta2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1
+             ) -> Dict[str, torch.Tensor]:
+        """Consume f32 grads per key; return the updated f32 params.
+
+        A grad may be a tensor (any device) or a Future (a grad-tier drain
+        in flight), resolved only when its key's first chunk reaches the
+        update stage, so later keys' drains overlap earlier keys' traffic.
+        The bias corrections c1, c2 are host floats from ``step_count``.
+        """
+        t_mark = self.store.mark()
+        self.step_count += 1
+        c1 = 1.0 - beta1 ** self.step_count
+        c2 = 1.0 - beta2 ** self.step_count
+        work = [(key, ci, off, ln) for key, _, n in self.layout
+                for ci, off, ln in self._chunks_of(n)]
+        g_cache: Dict[str, torch.Tensor] = {}
+
+        def g_slice(key: str, off: int, ln: int) -> torch.Tensor:
+            if key not in g_cache:
+                g = flat_grads[key]
+                if hasattr(g, "result"):  # a draining Future
+                    with trace.span("grad_drain_wait", sys="optim",
+                                    attr="io_wait", cls="grad", key=key):
+                        g = g.result()
+                g_cache[key] = g.to("cpu", torch.float32).reshape(-1)
+            return g_cache[key][off: off + ln]
+
+        out = {key: torch.empty(n, dtype=torch.float32) for key, _, n in self.layout}
+
+        def read_chunk(item):
+            key, ci, _, _ = item
+            return (self.store.read(f"{key}.master.{ci}"),
+                    self.store.read(f"{key}.m.{ci}"),
+                    self.store.read(f"{key}.v.{ci}"))
+
+        pending = read_chunk(work[0]) if work else None
+        for i, item in enumerate(work):
+            key, ci, off, ln = item
+            nxt = read_chunk(work[i + 1]) if i + 1 < len(work) else None
+            with trace.span("opt_read_wait", sys="optim", attr="io_wait",
+                            cls="opt", key=key, unit=ci):
+                p, m, v = (f.result() for f in pending)
+            with trace.span("opt_update", sys="optim", attr="compute",
+                            cls="opt", key=key, unit=ci):
+                p, m, v = _adam_update(p, m, v, g_slice(key, off, ln), lr,
+                                       beta1, beta2, eps, weight_decay, c1, c2)
+            out[key][off: off + p.numel()] = p
+            self.store.write(f"{key}.master.{ci}", p)  # async write-back
+            self.store.write(f"{key}.m.{ci}", m)
+            self.store.write(f"{key}.v.{ci}", v)
+            pending = nxt
+        self.store.flush()
+        self.last_step_stats = self.store.delta_since(t_mark)
+        return {key: out[key].reshape(shape) for key, shape, _ in self.layout}
+
+
+class ParamStreamer:
+    """Slow-tier-resident parameters, one chunk per row.
+
+    Each named (L, P) array is stored as L rows, ``f"{name}/c{i}"``
+    (``row_split=True``; a 1-D array is one chunk). The per-row API
+    (``read_row`` / ``write_row``) is the layer scheduler's I/O backend;
+    ``load_all`` reassembles the arrays (checkpoint paths only).
+    """
+
+    def __init__(self, store: ArrayStore, read_ahead: int = 2):
+        self.store = store
+        self.read_ahead = max(1, read_ahead)
+        self._layout: Dict[str, Tuple[int, bool]] = {}
+
+    def seed(self, named: Dict[str, torch.Tensor], *, row_split: bool = True) -> None:
+        self._layout = {}
+        for name, arr in named.items():
+            split = row_split and arr.dim() >= 2
+            chunks = [arr[i] for i in range(arr.shape[0])] if split else [arr]
+            for i, c in enumerate(chunks):
+                self.store.write(f"{name}/c{i}", c)
+            self._layout[name] = (len(chunks), split)
+        self.store.flush()
+
+    def load_all(self) -> Dict[str, torch.Tensor]:
+        """Every chunk, at most ``read_ahead`` reads in flight."""
+        worklist = [(name, i) for name, (n, _) in self._layout.items()
+                    for i in range(n)]
+        results: Dict[str, List[torch.Tensor]] = collections.defaultdict(list)
+        inflight: collections.deque = collections.deque()
+        wi = 0
+        while wi < len(worklist) or inflight:
+            while wi < len(worklist) and len(inflight) < self.read_ahead:
+                name, i = worklist[wi]
+                inflight.append((name, self.store.read(f"{name}/c{i}")))
+                wi += 1
+            name, fut = inflight.popleft()
+            with trace.span("param_load_wait", sys="store", attr="io_wait",
+                            cls="param", key=name):
+                results[name].append(fut.result())
+        return {name: torch.stack(results[name]) if split else results[name][0]
+                for name, (_, split) in self._layout.items()}
+
+    def read_row(self, name: str, i: int) -> Future:
+        """Async read of one row — the fetch the ``PrefetchEngine`` submits
+        ahead of the layer's use."""
+        return self.store.read(f"{name}/c{i}")
+
+    def write_row(self, name: str, i: int, t: torch.Tensor) -> Future:
+        """Async write-back of one updated row; ``flush()`` commits."""
+        return self.store.write(f"{name}/c{i}", t)
+
+    def flush(self) -> None:
+        self.store.flush()
+
+
+class PinnedStager:
+    """Host rows to ``device`` through pinned pool buffers.
+
+    On the card each row is copied into a pinned buffer and from there to
+    the device with a non-blocking copy; the buffer goes back to the pool
+    only once the event recorded behind that copy has completed (released
+    earlier, the next row would overwrite it while the DMA still reads it).
+    At most ``max_inflight`` copies hold buffers; ``retire(wait=True)``
+    drains them (end of step). On the CPU a row is returned as it is.
+    """
+
+    def __init__(self, pool: PinnedBufferPool, device, max_inflight: int = 2):
+        self.pool = pool
+        self.device = torch.device(device)
+        self.max_inflight = max_inflight
+        self._pending: collections.deque = collections.deque()  # (event, buf)
+
+    def to_device(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        self.retire()
+        while len(self._pending) >= self.max_inflight:
+            self._release_oldest()
+        n = _nbytes(t)
+        buf = self.pool.acquire(max(n, 1))
+        staged = _staged(buf, t.dtype, t.shape)
+        staged.copy_(t)
+        out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+        out.copy_(staged, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._pending.append((ev, buf))
+        return out
+
+    def _release_oldest(self) -> None:
+        ev, buf = self._pending.popleft()
+        ev.synchronize()
+        self.pool.release(buf)
+
+    def retire(self, wait: bool = False) -> None:
+        """Return every buffer whose copy has completed (with ``wait``, wait
+        for all of them first)."""
+        while self._pending and (wait or self._pending[0][0].query()):
+            self._release_oldest()

@@ -1,4 +1,5 @@
-"""Parameter definitions and initialization (``repro/core/partition.py:33-67``).
+"""Parameter definitions, initialization and the flat row layout
+(``repro/core/partition.py:33-67``, ``repro/core/zero.py:74-81,152-213``).
 
 A ``ParamDef`` carries shape, dtype, logical axis names and the init rule;
 ``init_tree`` materializes a nested dict of defs as tensors on one device.
@@ -6,6 +7,12 @@ The distributions are the JAX package's (normal * 0.02, zeros, ones,
 fan-in scaled, RG-LRU forget-gate), drawn from an explicit
 ``torch.Generator``: the bits differ from ``jax.random``, so parity tests
 load the JAX package's weights through ``repro_torch.bridge`` instead.
+
+``FlatLayout`` / ``flatten_blocks`` / ``unflatten_row`` are the explicit
+ZeRO-3 engine's per-layer row: every leaf of one layer flattened and
+concatenated in ``jax.tree`` order (sorted dict keys), padded to a multiple
+of dp — byte for byte the reference's row, so either package's stores
+hold the same rows. Nested dicts stand in for pytrees (``tree_*`` helpers).
 The sharding rules wait for the multi-device slice.
 """
 from __future__ import annotations
@@ -71,3 +78,77 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_paths(tree, prefix=()) -> list:
+    """Key paths of every non-dict leaf, in ``jax.tree`` order (sorted
+    keys at every level)."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in sorted(tree) for p in tree_paths(tree[k], prefix + (k,))]
+
+
+def tree_leaves(tree) -> list:
+    return [tree_get(tree, p) for p in tree_paths(tree)]
+
+
+def tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def tree_set(tree: dict, path, value) -> None:
+    """Set a leaf, creating the intermediate dicts."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+@dataclasses.dataclass
+class FlatLayout:
+    """One layer's flat row: leaf paths, per-layer shapes (layer dim
+    stripped), def dtypes, sizes, and the padded row length."""
+
+    paths: list
+    shapes: list
+    dtypes: list
+    sizes: list
+    padded: int  # per-layer flat length (padded to a dp multiple)
+
+
+def build_layout(block_defs: dict, dp: int = 1) -> FlatLayout:
+    """Layout of the stacked block defs (leading ``layers`` dim)."""
+    paths = tree_paths(block_defs)
+    defs = [tree_get(block_defs, p) for p in paths]
+    shapes = [tuple(d.shape[1:]) for d in defs]
+    sizes = [math.prod(s) for s in shapes]
+    total = sum(sizes)
+    return FlatLayout(paths, shapes, [d.dtype for d in defs], sizes,
+                      total + (-total) % dp)
+
+
+def flatten_blocks(blocks: dict, layout: FlatLayout, dtype: torch.dtype) -> torch.Tensor:
+    """Stacked block params (leaves (L, ...)) -> (L, padded) in ``dtype``."""
+    leaves = [tree_get(blocks, p) for p in layout.paths]
+    L = leaves[0].shape[0]
+    flat = torch.cat([t.to(dtype).reshape(L, -1) for t in leaves], dim=1)
+    pad = layout.padded - flat.shape[1]
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat
+
+
+def unflatten_row(row: torch.Tensor, layout: FlatLayout, dtype=None) -> dict:
+    """(padded,) one-layer row -> nested dict of leaves (views of the row
+    when the dtype already matches), each cast to ``dtype`` (default: the
+    def's dtype). Differentiable: the row's gradient is the leaves'
+    gradients scattered back, zero in the padding."""
+    out: dict = {}
+    off = 0
+    for path, shape, dt, size in zip(layout.paths, layout.shapes,
+                                     layout.dtypes, layout.sizes):
+        piece = row[off:off + size].reshape(shape)
+        tree_set(out, path, piece.to(dtype or getattr(torch, dt)))
+        off += size
+    return out

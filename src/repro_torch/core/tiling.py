@@ -4,7 +4,8 @@
 A large linear ``y = x @ W`` is restated as a sequence of smaller linears
 over tiles of ``W``. Every product goes through ``kernels.ops.tiled_matmul``
 (the hand-written kernel on the card, its plain version on the CPU), so the
-MLP projections of the serving path run on the port's kernel.
+MLP projections run on the port's kernel, forward and backward. The kernel
+reads strided operands, so the column tiles of ``W`` go in as views.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, tiles: int = 1,
     """
     lead, K = x.shape[:-1], x.shape[-1]
     N = w.shape[1]
-    x2 = x.reshape(-1, K).contiguous()
+    x2 = x.reshape(-1, K)
     if tiles <= 1:
         return ops.tiled_matmul(x2, w).reshape(*lead, N)
     if axis is None:
@@ -32,7 +33,7 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, tiles: int = 1,
         if N % tiles:
             raise ValueError(f"N={N} not divisible by tiles={tiles}")
         step = N // tiles
-        ys = [ops.tiled_matmul(x2, w[:, i * step:(i + 1) * step].contiguous())
+        ys = [ops.tiled_matmul(x2, w[:, i * step:(i + 1) * step])
               for i in range(tiles)]
         return torch.cat(ys, dim=-1).reshape(*lead, N)
     if K % tiles:
@@ -42,6 +43,6 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, tiles: int = 1,
     for i in range(tiles):
         # products of the working-type values are exact in f32, so the f32
         # kernel call is the reference's f32-accumulated einsum
-        acc += ops.tiled_matmul(x2[:, i * step:(i + 1) * step].float().contiguous(),
+        acc += ops.tiled_matmul(x2[:, i * step:(i + 1) * step].float(),
                                 w[i * step:(i + 1) * step].float())
     return acc.to(x.dtype).reshape(*lead, N)

@@ -1,5 +1,7 @@
 // Tiled matmul for Hopper (sm_90a): y (M,N) = x (M,K) @ w (K,N), f32
-// accumulation, output in x's type.
+// accumulation, output in x's type. x and w are read through row and column
+// strides, so the gradient products dX = dY @ W^T and dW = X^T @ dY read the
+// saved tensors in place, as transposed views.
 //
 // Replaces the Pallas TPU kernel repro/kernels/tiled_matmul.py
 // (tiled_matmul / _mm_kernel), which streams W through VMEM in (bk, bn)
@@ -20,8 +22,9 @@
 // bound by them at prefill and by too few blocks at decode; wgmma/TMA and a
 // split-K decode path are the later, faster version.
 //
-// C interface (ctypes): pointers and the stream are void*, x and w are
-// row-major contiguous. Returns cudaGetLastError().
+// C interface (ctypes): pointers and the stream are void*, strides are in
+// elements (any, a transpose included), y is row-major contiguous. Returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,9 +53,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ y, int M, int N, int K) {
+                    T* __restrict__ y, int M, int N, int K, int64_t sxm,
+                    int64_t sxk, int64_t swk, int64_t swn) {
   __shared__ float xs[BKK][BM + 1];  // x tile, transposed: xs[k][m]
-  __shared__ float ws[BKK][BN];
+  __shared__ float ws[BKK][BN + 1];
+  const bool x_rows = sxk == 1;  // walk x along k (row-major) or along m
+  const bool w_rows = swn == 1;  // walk w along n (row-major) or along k
 
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
@@ -67,14 +73,16 @@ tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int k0 = 0; k0 < K; k0 += BKK) {
     for (int idx = threadIdx.x; idx < BM * BKK; idx += THREADS) {
-      const int r = idx / BKK, c = idx % BKK;
+      const int r = x_rows ? idx / BKK : idx % BM;
+      const int c = x_rows ? idx % BKK : idx / BM;
       const int gr = row0 + r, gc = k0 + c;
-      xs[c][r] = (gr < M && gc < K) ? to_f(x[(int64_t)gr * K + gc]) : 0.f;
+      xs[c][r] = (gr < M && gc < K) ? to_f(x[gr * sxm + gc * sxk]) : 0.f;
     }
     for (int idx = threadIdx.x; idx < BKK * BN; idx += THREADS) {
-      const int r = idx / BN, c = idx % BN;
+      const int r = w_rows ? idx / BN : idx % BKK;
+      const int c = w_rows ? idx % BN : idx / BKK;
       const int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < K && gc < N) ? to_f(w[(int64_t)gr * N + gc]) : 0.f;
+      ws[r][c] = (gr < K && gc < N) ? to_f(w[gr * swk + gc * swn]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -108,7 +116,8 @@ tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // dtype: 0 = float32, 1 = bfloat16.
 extern "C" int tiled_matmul(const void* x, const void* w, void* y, int M,
-                            int N, int K, int dtype, void* stream) {
+                            int N, int K, int64_t sxm, int64_t sxk,
+                            int64_t swk, int64_t swn, int dtype, void* stream) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
   if (M <= 0 || N <= 0 || K <= 0 || (M + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
@@ -117,11 +126,11 @@ extern "C" int tiled_matmul(const void* x, const void* w, void* y, int M,
   if (dtype == 0)
     tiled_matmul_kernel<float><<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), M, N, K);
+        static_cast<float*>(y), M, N, K, sxm, sxk, swk, swn);
   else if (dtype == 1)
     tiled_matmul_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), M, N, K);
+        static_cast<__nv_bfloat16*>(y), M, N, K, sxm, sxk, swk, swn);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,0 +1,74 @@
+"""Deterministic synthetic data pipeline with prefetch (``repro/data/pipeline.py``).
+
+``batch(step)`` is a pure function of (seed, step, specs), drawn with
+numpy exactly as the reference draws it, so both packages train on the
+same batches bit for bit. A background thread builds the next batches
+while the device computes; the loader places each on the run's device.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+
+class SyntheticStream:
+    """Shape-driven synthetic batches from ``specs`` (name -> ``TensorSpec``):
+    int leaves are token ids, float leaves unit-normal * 0.1 embeddings."""
+
+    def __init__(self, specs: Dict[str, object], vocab_size: int, seed: int = 0):
+        self.specs = specs
+        self.vocab = max(vocab_size, 2)
+        self.seed = seed
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        out = {}
+        for i, (k, v) in enumerate(sorted(self.specs.items())):
+            rng = np.random.default_rng(np.random.SeedSequence([self.seed, step, i]))
+            if not v.dtype.is_floating_point:
+                # learnable synthetic language: per-row linear-congruential
+                # sequences (the next token is a function of the current one)
+                B = v.shape[0]
+                T = int(np.prod(v.shape[1:])) if len(v.shape) > 1 else 1
+                V = min(self.vocab, 997)
+                start = rng.integers(0, V, (B, 1))
+                stride = rng.integers(1, 7, (B, 1))
+                seqs = (start + stride * np.arange(T)[None, :]) % V
+                out[k] = seqs.reshape(v.shape).astype(np.int32)
+            else:
+                out[k] = (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
+        if "labels" in out and "tokens" in out and out["labels"].shape == out["tokens"].shape:
+            out["labels"] = out["tokens"]  # the LM objective: the loss shifts
+        return out
+
+
+class PrefetchLoader:
+    """Iterates ``(step, batch)`` for steps [start, end) with a
+    ``depth``-deep background prefetch; each batch's tensors land on
+    ``device`` in their spec's dtype."""
+
+    def __init__(self, stream: SyntheticStream, start_step: int, end_step: int,
+                 device="cpu", depth: int = 2):
+        self.stream = stream
+        self.start, self.end = start_step, end_step
+        self.device = torch.device(device)
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        for step in range(self.start, self.end):
+            self.q.put((step, self.stream.batch_at(step)))
+        self.q.put(None)
+
+    def __iter__(self) -> Iterator:
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            step, batch = item
+            yield step, {k: torch.from_numpy(v).to(self.device, self.stream.specs[k].dtype)
+                         for k, v in batch.items()}

@@ -4,7 +4,9 @@ Each is what the CUDA kernel computes, written with stock torch ops: the
 CPU path of ``kernels/ops.py`` and the card-side reference in
 ``chip_smoke.py`` and the CUDA tests. Products are taken on float32
 copies, so the accumulation is f32 exactly where the JAX oracles ask for
-``preferred_element_type=float32``.
+``preferred_element_type=float32``. The backward versions are written out
+by hand (not autograd through the forward), so the CPU runs the same
+``torch.autograd.Function`` wiring as the card.
 """
 from __future__ import annotations
 
@@ -14,27 +16,103 @@ NEG_INF = -1e30
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) with f32 accumulation; output in x's dtype."""
+    """(M, K) @ (K, N) with f32 accumulation; output in x's dtype. Either
+    operand may be a strided view (a transpose)."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def _causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: query i sees key j iff j <= i + (Sk - Sq)."""
+    return torch.ones(Sq, Sk, dtype=torch.bool, device=device).tril(Sk - Sq)
+
+
+def _scores(q, k, causal):
+    """f32 scaled scores (B,H,Sq,Sk), masked keys at -1e30; k already
+    repeated to H heads."""
+    D, Sq, Sk = q.shape[-1], q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    if causal:
+        s = torch.where(_causal_mask(Sq, Sk, q.device), s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True):
+    """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) -> (out (B,H,Sq,D) in q's dtype,
+    lse (B,H,Sq) f32), lse the log-sum-exp of each row's scaled scores.
+
+    Query head h reads kv head h // (H // KV) (``repeat_interleave``, not
+    tiling). The causal mask is aligned at the end: query i sees key j iff
+    j <= i + (Sk - Sq), so the last query sees the last key. p is rounded
+    to v's dtype before the P@V product, as the TPU kernel does.
+    """
+    n_rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(n_rep, dim=1)
+    v = v.repeat_interleave(n_rep, dim=1)
+    s = _scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype), lse
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) -> (B,H,Sq,D). fp32 softmax.
+    """The forward's output alone (see ``attention_fwd_ref``)."""
+    return attention_fwd_ref(q, k, v, causal=causal)[0]
 
-    Query head h reads kv head h // (H // KV) (``repeat_interleave``, not
-    tiling). The causal mask is aligned at the end: query i sees key j iff
-    j <= i + (Sk - Sq), so the last query sees the last key.
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``attention_fwd_ref``'s output, each in
+    its input's dtype, from the saved output ``o`` and ``lse``:
+
+        p  = exp(s - lse)                  (the forward's softmax, f32)
+        dv = sum over the group's heads of p_r^T @ do, p_r = p in v's dtype
+        dp = do @ v^T,  delta = rowsum(do * o)
+        ds = p * (dp - delta)
+        dq = scale * ds @ k,  dk = scale * sum over the group of ds^T @ q
     """
     B, H, Sq, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    KV = k.shape[1]
     n_rep = H // KV
-    k = k.repeat_interleave(n_rep, dim=1)
-    v = v.repeat_interleave(n_rep, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
-    if causal:
-        mask = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(Sk - Sq)
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    scale = D ** -0.5
+    kr = k.repeat_interleave(n_rep, dim=1).float()
+    vr = v.repeat_interleave(n_rep, dim=1).float()
+    s = _scores(q, kr, causal)
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    # GQA: the n_rep query heads of a group sum into their KV head
+    dk = dk.reshape(B, KV, n_rep, *dk.shape[2:]).sum(2)
+    dv = dv.reshape(B, KV, n_rep, *dv.shape[2:]).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# index of each scalar in the fused-Adam scalar vector (the Pallas SMEM operand)
+ADAM_SCALARS = ("lr", "b1", "b2", "eps", "wd", "c1", "c2")
+
+
+def adam_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+             scalars: torch.Tensor) -> torch.Tensor:
+    """AdamW with decay inside lr, ``scalars`` = (7,) f32
+    ``[lr, b1, b2, eps, wd, c1, c2]``; all arrays f32 of one shape.
+
+    Updates p, m and v IN PLACE and returns p's bf16 copy. Each operation
+    rounds in f32 in the order the TPU kernel writes it (no fused
+    multiply-add), so the CUDA kernel repeats it bit for bit.
+    """
+    lr, b1, b2, eps, wd, c1, c2 = scalars.unbind()
+    m_new = b1 * m + (1.0 - b1) * g
+    v_new = b2 * v + (1.0 - b2) * g * g
+    mh = m_new / c1
+    vh = v_new / c2
+    p_new = p - lr * (mh / (torch.sqrt(vh) + eps) + wd * p)
+    m.copy_(m_new)
+    v.copy_(v_new)
+    p.copy_(p_new)
+    return p.to(torch.bfloat16)

@@ -1,0 +1,232 @@
+"""Training entry point: synthetic data -> InfinityExecutor's layered ZeRO-3 epoch
+with parameters, gradients and optimizer states on the slow tiers — the
+port of ``repro/launch/train.py`` for the path
+
+    --engine zero3 --offload-param nvme [--offload-grad T] [--offload-opt T]
+
+It takes the reference's flags. Runs on the card by default and raises when
+CUDA is absent; ``--device cpu`` runs the kernels' plain versions (the
+tests do). Every flag whose machinery is not ported raises, naming the
+ROADMAP item that ports it: ``--engine pjit`` and params off NVMe,
+meshes > 1, ``--plan`` other than manual and the planner's hardware flags,
+``--elastic``/``--chaos``, the fault runtime's flags, ``--param-quant``,
+``--grad-compress``, ``--resume auto`` and checkpoints (``--ckpt-every``
+> 0, ``--ckpt-dir``).
+
+Example (one H100, full smollm-135m, 8 steps, every state class on NVMe):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --engine zero3 --offload-param nvme --offload-grad nvme \\
+      --offload-opt nvme --batch 8 --seq 512 --steps 8 --lr 3e-3
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,
+                                make_offload, make_parallel)
+from repro_torch.core.executor import InfinityExecutor
+from repro_torch.data.pipeline import PrefetchLoader, SyntheticStream
+from repro_torch.launch.serve import resolve_device
+from repro_torch.runtime import trace
+from repro_torch.runtime.metrics import MetricsLogger
+
+# flags whose machinery is not ported: any value given raises
+UNPORTED = {
+    "objective": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_device_mem": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_host_mem": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_nvme": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_nvme_bw": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_host_bw": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_peak_flops": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "hw_devices": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
+    "chaos": "ROADMAP.md Queue 1 item 5: elastic runtime",
+    "straggler_factor": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
+    "max_restarts": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
+    "recovery_budget": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
+    "ckpt_dir": "ROADMAP.md Queue 1 item 5: checkpoint/manager.py",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels; raises without a card) or cpu "
+                         "(the plain versions)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--data-mesh", type=int, default=1)
+    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
+                    help="zero3 (explicit collectives) is ported; pjit raises")
+    ap.add_argument("--zero-stage", type=int, default=3)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    for cls, what in (("opt", "optimizer-state (fp32 master/m/v)"),
+                      ("param", "bf16 compute-parameter"),
+                      ("grad", "gradient drain")):
+        ap.add_argument(f"--offload-{cls}", default="device",
+                        choices=["device", "host", "nvme"], help=f"{what} tier")
+    ap.add_argument("--nvme-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_torch_nvme"))
+    ap.add_argument("--no-overlap", action="store_true", help="disable store overlap")
+    ap.add_argument("--prefetch-layers", type=int, default=0,
+                    help="layer-scheduler window (0 = bandwidth-aware auto "
+                         "from the paper's model)")
+    ap.add_argument("--param-quant", default="none", choices=["none", "q8", "q4"],
+                    help="wire format for param rows (q8/q4 not ported: raise)")
+    ap.add_argument("--grad-compress", default="none", choices=["none", "int8"],
+                    help="int8 gradient reduce (not ported: raises)")
+    ap.add_argument("--read-ahead", type=int, default=2,
+                    help="slow-tier param reads in flight beyond the window")
+    ap.add_argument("--nvme-workers", type=int, default=2,
+                    help="worker threads per slow-tier store")
+    ap.add_argument("--pinned-buffer-mb", type=int, default=64,
+                    help="shared pinned buffer-pool budget (all stores)")
+    ap.add_argument("--plan", default="manual",
+                    help="manual (the flags above); anything else raises")
+    ap.add_argument("--objective", default=None)
+    for hw in ("device-mem", "host-mem", "nvme", "nvme-bw", "host-bw",
+               "peak-flops", "devices"):
+        ap.add_argument(f"--hw-{hw}", type=float, default=None)
+    ap.add_argument("--elastic", action="store_true", help="not ported: raises")
+    ap.add_argument("--chaos", default=None)
+    ap.add_argument("--straggler-factor", type=float, default=None)
+    ap.add_argument("--max-restarts", type=int, default=None)
+    ap.add_argument("--recovery-budget", type=float, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoints are not ported: > 0 raises")
+    ap.add_argument("--resume", default="no", choices=["no", "auto"])
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
+                    metavar="OUT.json",
+                    help="record spans and write a Chrome/Perfetto trace; "
+                         "per-step stall attribution lands in the step "
+                         "metrics as trace_* fields")
+    return ap
+
+
+def _unported(args) -> None:
+    """Raise for every flag set to something the port cannot run."""
+    for name, item in UNPORTED.items():
+        if getattr(args, name) is not None:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported yet ({item})")
+    checks = [
+        (args.plan != "manual", f"--plan {args.plan}",
+         "ROADMAP.md Queue 1 item 3: planner (plan.py)"),
+        (args.elastic, "--elastic", "ROADMAP.md Queue 1 item 5: elastic runtime"),
+        (args.resume != "no", f"--resume {args.resume}",
+         "ROADMAP.md Queue 1 item 5: checkpoint/manager.py"),
+        (args.ckpt_every > 0, f"--ckpt-every {args.ckpt_every}",
+         "ROADMAP.md Queue 1 item 5: checkpoint/manager.py"),
+        (args.data_mesh * args.model_mesh != 1, "a mesh larger than one device",
+         "ROADMAP.md Queue 1 item 8: GSPMD engine and meshes"),
+        (args.param_quant != "none", f"--param-quant {args.param_quant}",
+         "ROADMAP.md Queue 1 item 4: quantized transport"),
+        (args.grad_compress != "none", f"--grad-compress {args.grad_compress}",
+         "ROADMAP.md Queue 1 item 4: quantized transport"),
+        (args.zero_stage != 3, f"--zero-stage {args.zero_stage}",
+         "ROADMAP.md Queue 1 item 10: the explicit engine is ZeRO-3"),
+        (args.grad_accum != 1, f"--grad-accum {args.grad_accum}",
+         "ROADMAP.md Queue 1 item 10: one microbatch per layered step"),
+    ]
+    for bad, what, item in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def make_run(args) -> RunConfig:
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    return RunConfig(
+        model=cfg,
+        parallel=make_parallel(args.engine, zero_stage=args.zero_stage,
+                               grad_accum=args.grad_accum,
+                               grad_compression=args.grad_compress),
+        offload=make_offload(opt_tier=args.offload_opt,
+                             param_tier=args.offload_param,
+                             grad_tier=args.offload_grad, nvme_dir=args.nvme_dir,
+                             overlap=not args.no_overlap,
+                             prefetch_layers=args.prefetch_layers,
+                             param_quant=args.param_quant,
+                             param_read_ahead=args.read_ahead,
+                             nvme_workers=args.nvme_workers,
+                             pinned_buffer_mb=args.pinned_buffer_mb),
+        train=TrainConfig(lr=args.lr, steps=args.steps,
+                          checkpoint_every=args.ckpt_every, seed=args.seed),
+    )
+
+
+def _host(v):
+    return float(v) if isinstance(v, torch.Tensor) else v
+
+
+def train(args) -> dict:
+    """Run ``args.steps`` layered steps. Returns ``{"losses", "grad_norms",
+    "metrics" (one dict of host numbers per step, with step_time and
+    tokens_per_s), "nvme_stats", "trace_attributions"}``."""
+    _unported(args)
+    device = resolve_device(args.device)
+    run = make_run(args)
+    executor = InfinityExecutor(run, device)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    tokens = shape.global_batch * shape.seq_len
+    history = {"losses": [], "grad_norms": [], "metrics": []}
+    try:
+        gen = torch.Generator(device=device).manual_seed(run.train.seed)
+        state = executor.init_state(gen)
+        step_fn = executor.make_train_step()
+        stream = SyntheticStream(executor.input_specs(shape), run.model.vocab_size,
+                                 seed=run.train.seed)
+        loader = PrefetchLoader(stream, 0, run.train.steps, device)
+        logger = MetricsLogger(executor.n_params_active())
+        for step, batch in loader:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            rec = {k: _host(v) for k, v in metrics.items()}  # waits for the step
+            dt = time.perf_counter() - t0
+            rec.update(step=step, step_time=dt, tokens_per_s=tokens / dt)
+            history["losses"].append(rec["loss"])
+            history["grad_norms"].append(rec["grad_norm"])
+            history["metrics"].append(rec)
+            if step % args.log_every == 0:
+                logger.log(step, rec["loss"], tokens, dt)
+        history["nvme_stats"] = executor.bandwidth_stats()
+        history["trace_attributions"] = executor.trace_attributions
+    finally:
+        executor.close()
+    return history
+
+
+def main(argv=None) -> dict:
+    args = build_argparser().parse_args(argv)
+    if args.trace:
+        trace.enable()
+    t0 = time.time()
+    hist = train(args)
+    losses = hist["losses"]
+    print(f"done in {time.time()-t0:.1f}s | first loss {losses[0]:.4f} | "
+          f"last loss {losses[-1]:.4f}")
+    s = hist["nvme_stats"]
+    if s:
+        print(f"nvme: read {s['read_gbps']:.2f} GB/s, write {s['write_gbps']:.2f} GB/s, "
+              f"pinned peak {s['pinned_peak_bytes']>>20} MiB")
+    if args.trace:
+        trace.export_chrome(args.trace)
+        print(f"trace: wrote {args.trace} ({len(trace.TRACER.events())} spans)")
+    return hist
+
+
+if __name__ == "__main__":
+    main()

@@ -29,6 +29,7 @@ NOT_PORTED = {
 class ModelBundle:
     cfg: ModelConfig
     defs: Any  # nested dict of ParamDef
+    loss: Callable  # (params, batch) -> scalar loss (differentiable)
     prefill: Callable  # (params, batch) -> (logits, cache)
     decode_step: Callable  # (params, cache, batch) -> (logits, cache)
     cache_defs: Callable  # (batch, cache_len) -> nested dict of ParamDef
@@ -48,6 +49,7 @@ def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> Mode
     return ModelBundle(
         cfg=cfg,
         defs=mod.param_defs(cfg),
+        loss=fns["loss"],
         prefill=fns["prefill"],
         decode_step=fns["decode_step"],
         cache_defs=fns["cache_defs"],

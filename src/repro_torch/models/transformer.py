@@ -5,8 +5,10 @@ reference's ``lax.scan`` over that dim is a Python loop over layer slices
 here. Serving entry points: ``prefill`` builds the ``(L, B, S, KV, D)``
 cache from a prompt, ``decode_step`` advances every row one token,
 writing the cache IN PLACE (the returned cache holds the same ``k``/``v``
-tensors). The training loss waits for the training slice (it needs the
-backward kernels).
+tensors). Training: ``loss`` is the next-token loss over the whole stack
+and ``make_block_fn`` the standalone train-mode block the explicit ZeRO-3
+engine (``core/zero.py``) calls on one layer's row; both differentiate
+through the kernels' ``torch.autograd.Function``s.
 """
 from __future__ import annotations
 
@@ -49,30 +51,62 @@ def layer_params(blocks: dict, layer: int) -> dict:
     return pt.tree_map(lambda t: t[layer], blocks)
 
 
-def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+def _check_ported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"transformer.make_fns: family {cfg.family!r} is not ported "
+            f"transformer: family {cfg.family!r} is not ported "
             "(ROADMAP.md Queue 1: other families)")
     if cfg.window:
         raise NotImplementedError(
             "local attention windows are not ported (ROADMAP.md Queue 2: "
             "flash attention window/softcap)")
+
+
+def _block(cfg: ModelConfig, tiles: int, x, blk, positions, cache=None,
+           collect_kv=False):
+    a, new_cache = cm.attention_block(
+        blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
+        causal=True, cache=cache, collect_kv=collect_kv)
+    x = x + a
+    m = cm.mlp_block(blk["mlp"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg, tiles)
+    return x + m, new_cache
+
+
+def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+    """Standalone ``(x, blk_params, positions) -> x`` block (train mode),
+    as ``repro/models/transformer.py:make_block_fn``: the explicit ZeRO-3
+    engine calls it on the leaves of one layer's gathered row."""
+    _check_ported(cfg)
+    tiles = parallel.tiling_factor
+
+    def block(x, blk, positions):
+        return _block(cfg, tiles, x, blk, positions)[0]
+
+    return block
+
+
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+    _check_ported(cfg)
     tiles = parallel.tiling_factor
 
     def block(x, blk, positions, cache=None, collect_kv=False):
-        a, new_cache = cm.attention_block(
-            blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
-            causal=True, cache=cache, collect_kv=collect_kv)
-        x = x + a
-        m = cm.mlp_block(blk["mlp"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg, tiles)
-        return x + m, new_cache
+        return _block(cfg, tiles, x, blk, positions, cache, collect_kv)
 
     def backbone_inputs(params, batch):
         x = cm.embed(params["embed"], batch["tokens"], cfg)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         return x, positions
+
+    def loss_fn(params, batch):
+        """Mean next-token cross-entropy over the batch (labels shifted by
+        one inside, padded vocab masked); differentiable."""
+        x, positions = backbone_inputs(params, batch)
+        for l in range(cfg.n_layers):
+            x, _ = block(x, layer_params(params["blocks"], l), positions)
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x, cfg)
+        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
     def cache_defs(batch: int, cache_len: int) -> dict:
         L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -127,6 +161,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         return specs
 
     return {
+        "loss": loss_fn,
         "prefill": prefill,
         "decode_step": decode_step,
         "cache_defs": cache_defs,

@@ -83,3 +83,126 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(1, 1, 4, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_cuda(q, q, q)
+
+
+def _bwd_close(got, want, dtype):
+    """Backward gradients: f32 sums differ in order only (1e-4 of the
+    tensor's largest element); bf16 adds one output ulp (2^-7 |plain|) and
+    the rare p rounded to bf16 one ulp apart inside dV (2^-9 of the
+    largest element)."""
+    err = (got.float() - want.float()).abs()
+    top = want.float().abs().max()
+    if dtype == torch.float32:
+        allowed = 1e-4 * top
+    else:
+        allowed = 2**-7 * want.float().abs() + 2**-9 * top
+    assert (err <= allowed).all(), (err / allowed).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 9, 3, 512, 512, 64), (1, 6, 2, 100, 132, 64),
+                                   (2, 4, 1, 64, 64, 128), (1, 2, 2, 40, 40, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
+    B, H, KV, Sq, Sk, D = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, do = (torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, KV, D, generator=g, device=cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    o_ref, lse_ref = ref.attention_fwd_ref(q, k, v, causal=True)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.stride() == t.stride() and a.dtype == dtype
+        _bwd_close(a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_matmul_reads_transposed_views(cuda, dtype):
+    """dX = dY @ W^T and dW = X^T @ dY on saved tensors, in place."""
+    M, K, N = 4096, 576, 1536
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 0.1).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.1).to(dtype)
+    dy = (torch.randn(M, N, generator=g, device=cuda) * 0.1).to(dtype)
+    for a, b in ((dy, w.T), (x.T, dy), (x[:, 7:300], w[7:300, 100:1000])):
+        got = ops.tiled_matmul(a, b)
+        assert_close(got, ref.matmul_ref(a, b), ref.matmul_ref(a.abs(), b.abs()),
+                     dtype, f32_tol=1e-4, mtol=2**-11)  # K up to 4096: 2^-12 |x|@|w|
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 129, 100_001, 49152 * 576])
+def test_fused_adam_kernel_repeats_plain_bit_for_bit(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    p, grad, m = (torch.randn(n, generator=g, device=cuda) for _ in range(3))
+    v = torch.randn(n, generator=g, device=cuda).abs() * 0.01
+    scalars = ops.adam_scalars(1e-3, 0.9, 0.95, 1e-8, 0.1, 0.1, 0.05, cuda)
+    cpu = [t.cpu() for t in (p, grad, m, v)]
+    before = ops.launch_counts()["fused_adam"]
+    pbf = ops.fused_adam(p, grad, m, v, scalars)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_adam"] == before + 1
+    # the plain version on the card, on copies of the same inputs
+    pp, mp, vp = (t.to(cuda) for t in (cpu[0], cpu[2], cpu[3]))
+    pad = (-n) % 128
+    rows = lambda t: torch.nn.functional.pad(t, (0, pad)).view(-1, 128)
+    pr, gr, mr, vr = rows(pp), rows(cpu[1].to(cuda)), rows(mp), rows(vp)
+    pbf_ref = ref.adam_ref(pr, gr, mr, vr, scalars).reshape(-1)[:n]
+    for got, want in ((p, pr), (m, mr), (v, vr)):
+        assert torch.equal(got, want.reshape(-1)[:n])
+    assert torch.equal(pbf, pbf_ref)
+
+
+@pytest.mark.cuda
+def test_layer_vjp_gives_every_row_leaf_a_gradient_on_the_card(cuda):
+    """The layered step's backward on the card: the row gradient comes
+    through the kernels' autograd Functions (flash backward, the tiled
+    matmul's two gradient products), and every leaf of the row gets one."""
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, make_offload, make_parallel
+    from repro_torch.core import zero
+
+    cfg = configs.get("smollm-135m")
+    run = RunConfig(model=cfg, parallel=make_parallel("zero3", remat="none"),
+                    offload=make_offload(opt_tier="nvme", param_tier="nvme",
+                                         grad_tier="nvme"))
+    eng = zero.ExplicitZero3Engine(run, cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    row = (torch.randn(eng.layout.padded, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    x = torch.randn(2, 128, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
+    dy = torch.randn(2, 128, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    dx, grow = eng.make_layer_fns()["layer_vjp"](x, row, dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    assert counts["tiled_matmul"] == 3 + 6  # 3 projections, 2 gradient products each
+    assert grow.dtype == torch.float32 and torch.isfinite(grow).all()
+    off = 0
+    for path, size in zip(eng.layout.paths, eng.layout.sizes):
+        assert grow[off:off + size].abs().sum() > 0, path
+        off += size
+    assert torch.isfinite(dx).all() and dx.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_pinned_stager_copies_rows_and_returns_buffers(cuda):
+    from repro_torch.core.offload import PinnedBufferPool, PinnedStager
+
+    pool = PinnedBufferPool(64 << 20, pin=True)
+    stager = PinnedStager(pool, cuda)
+    rows = [torch.randn(1 << 20).to(torch.bfloat16) for _ in range(5)]
+    got = [stager.to_device(r) for r in rows]
+    assert len(stager._pending) <= stager.max_inflight
+    stager.retire(wait=True)
+    assert not stager._pending and pool._outstanding == 0
+    for r, d in zip(rows, got):
+        assert d.device.type == "cuda" and torch.equal(d.cpu(), r)
