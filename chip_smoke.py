@@ -2,8 +2,9 @@
 each against its plain PyTorch version on the card, serves full-width
 smollm-135m through ``repro_torch.launch.serve`` (host and NVMe KV tiers),
 trains full smollm-135m through ``repro_torch.launch.train`` with
-parameters, gradients and optimizer states on NVMe, checks the outputs,
-and prints one JSON line per the contract below.
+parameters, gradients and optimizer states on NVMe, in bf16 rows and in q8
+wire rows (``--param-quant q8``, through the quantized-matmul kernel),
+checks the outputs, and prints one JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -23,21 +24,27 @@ Phases (any failure exits non-zero; no phase is caught):
   5. the main path: ``run_serve`` on full smollm-135m (30 layers) with 8
      sequences through 4 device slots, waiting KV on the host tier; launch
      counters are zeroed just before and read just after;
-  6. the NVMe KV tier: 3 sequences through 1 slot (counters read again);
+  6. the NVMe KV tier: 3 sequences through 1 slot, once with bf16 KV
+     blocks and once with q8 ones (``--kv-quant q8``), counters read again
+     for each;
   7. the training kernels against their plain versions: fused Adam at the
      embedding, ``ln_f`` and 100,001 elements; the flash backward (dq, dk,
-     dv) and the tiled matmul's gradient products on transposed views, at
-     the training shapes and a ragged one, bf16 and f32 (``TOL``), timed
-     in bf16 at the training shapes;
+     dv), the tiled matmul's gradient products on transposed views, and the
+     quantized matmul forward and in its dX orientation, at the training
+     shapes and a ragged one, bf16 and f32 (``TOL``), timed in bf16 at the
+     training shapes;
   8. training numerics: a 2-layer full-width smollm-135m, 2 layered steps
      on the card (kernels) against the CPU (plain versions) from the same
      weights and batches: loss, grad norm, and the rows read back from the
-     param store;
+     param store; once with bf16 rows, once with q8 wire rows;
   9. the training main path: ``launch.train`` on full smollm-135m (30
      layers), zero3 with params, grads and optimizer states on NVMe, 8
      steps of 8 x 512 tokens, tracer on; launch counters zeroed just before
      and read just after;
-  10. the kernels JSON line, then the device JSON line last.
+  10. the q8 training path: the same run with ``--param-quant q8`` (rows
+      cross the tier as q8 frames and the MLP projections run the
+      quantized-matmul kernel on them), counters zeroed and read again;
+  11. the kernels JSON line, then the device JSON line last.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -62,11 +69,12 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,  # noqa: E402
                                 make_offload, make_parallel)
-from repro_torch.core import kvcache  # noqa: E402
+from repro_torch.core import kvcache, qformat  # noqa: E402
 from repro_torch.core.executor import InfinityExecutor  # noqa: E402
 from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import quantized_matmul as tqm  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -106,6 +114,12 @@ TILED_TRAIN = [(4096, 576, 1536, ""), (4096, 1536, 576, ""),
                (4096, 576, 1536, "w"), (1536, 4096, 576, "x")]
 TILED_TRAIN_RAGGED = [(300, 200, 100, "x"), (300, 200, 100, "w")]
 ADAM_SIZES = [(49152 * 576, "embed.tok"), (576, "ln_f.scale"), (100_001, "ragged")]
+# the quantized matmul on q8 weights q (K, N): (M, K, N, dX orientation);
+# forward x (M,K) @ W_in|gate (576,1536) and h (M,1536) @ W_out (1536,576),
+# dX = dY (M,1536) @ W_in|gate^T and dY (M,576) @ W_out^T
+QMM_TRAIN = [(4096, 576, 1536, False), (4096, 1536, 576, False),
+             (4096, 576, 1536, True), (4096, 1536, 576, True)]
+QMM_RAGGED = [(100, 96, 64, False), (100, 96, 64, True)]
 # The flash backward's bf16 gradients: one output ulp (2^-7 |plain|) plus,
 # inside dV, the rare p rounded to bf16 one ulp apart in kernel and plain
 # version (lse and the f32 scores differ in the last bits): 2^-9 of the
@@ -122,6 +136,14 @@ TOL.update({
     ("fused_adam", torch.float32): {"rtol": 0.0, "mtol": 0.0, "atol": 0.0},
     ("fused_adam", torch.bfloat16): {"rtol": 0.0, "mtol": 0.0, "atol": 0.0},
 })
+# The quantized matmul: both versions dequantize each weight element by the
+# same single f32 product q * s, so they differ as the tiled matmul's do —
+# one output ulp in bf16 and f32 sums of <= 1536 terms in another order
+# (K * 2^-24 of |x| @ |W|, taken as 2^-12); f32: 1e-4 at outputs of O(1).
+TOL.update({
+    ("quantized_matmul", torch.bfloat16): {"rtol": 2**-7, "mtol": 2**-12, "atol": 0.0},
+    ("quantized_matmul", torch.float32): {"rtol": 0.0, "mtol": 0.0, "atol": 1e-4},
+})
 # Training numerics, card vs CPU: the per-step loss and grad norm by the
 # reference's cross-tier tolerance (rtol = atol = 2e-3; bf16 activations
 # rounded at other places, averaged down in a mean and a norm). Rows after
@@ -130,6 +152,11 @@ TOL.update({
 # sum(lr): a tiny gradient may flip sign between them) plus the stored
 # row's bf16 rounding; in the bulk, gradients rounded to bf16 apart (2^-8)
 # move Adam's ratio by a few 2^-8 of lr: mean |diff| <= 2^-5 * sum(lr).
+# With q8 rows each side re-encodes its updated rows: a value may land one
+# quant step (its block's absmax/127) from the other side's, so each
+# element's bound adds two steps; the mean bound holds as it is (the flips
+# average to the values' own drift; measured on the CPU against the
+# reference at 0.27 of it).
 TRAIN_TOL = {"rtol": 2e-3, "atol": 2e-3}
 
 
@@ -323,6 +350,38 @@ def check_adam(n, label, gen, timed: bool) -> dict:
     return rec
 
 
+def check_qmm(case, dtype, gen, timed: bool) -> dict:
+    """The quantized matmul on the q8 operands of a random bf16 weight (the
+    port's encoder), forward or in its dX orientation, against
+    ``ref.quantized_matmul_ref``. No single PyTorch call computes this
+    function (library_ms null); ``torch.matmul`` on the weight already
+    dequantized to bf16 is timed beside it as a labelled yardstick."""
+    M, K, N, trans = case
+    q, s, _ = qformat.wire_matmul_operands(
+        qformat.encode_array(randn((K, N), torch.bfloat16, gen, 0.1), "q8"))
+    q, s = q.cuda(), s.cuda()
+    x = randn((M, N if trans else K), dtype, gen, 0.1)
+    out = tqm.quantized_matmul_cuda(x, q, s, transpose=trans)
+    plain = ref.quantized_matmul_ref(x, q, s, transpose=trans)
+    w_abs = qformat.dequant_q8(q, s).abs()
+    mag = x.float().abs() @ (w_abs.T if trans else w_abs)
+    torch.cuda.synchronize()
+    rec = compare("quantized_matmul", (M, K, N), dtype, out, plain, mag)
+    rec["transposed"] = trans
+    if timed:
+        n_out = K if trans else N
+        nbytes = (x.numel() + M * n_out) * x.element_size() + q.numel() + s.numel() * 2
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
+        rec["ms"] = time_ms(lambda: tqm.quantized_matmul_cuda(x, q, s, transpose=trans))
+        rec["plain_ms"] = time_ms(lambda: ref.quantized_matmul_ref(x, q, s, transpose=trans))
+        rec["library_ms"] = None
+        w = qformat.dequant_q8(q, s).to(dtype)
+        w = w.T if trans else w
+        rec["yardstick"] = "torch.matmul on the weight dequantized to bf16"
+        rec["yardstick_ms"] = time_ms(lambda: torch.matmul(x, w))
+    return rec
+
+
 def phase_train_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -335,31 +394,46 @@ def phase_train_kernels() -> dict:
     tiled += [check_tiled_t(c, f32, gen, timed=False) for c in TILED_TRAIN]
     tiled += [check_tiled_t(c, dt, gen, timed=False) for c in TILED_TRAIN_RAGGED
               for dt in (bf16, f32)]
-    for rec in adam + fwd + bwd + tiled:
+    qmm = [check_qmm(c, bf16, gen, timed=True) for c in QMM_TRAIN]
+    qmm += [check_qmm(c, f32, gen, timed=False) for c in QMM_TRAIN]
+    qmm += [check_qmm(c, dt, gen, timed=False) for c in QMM_RAGGED for dt in (bf16, f32)]
+    for rec in adam + fwd + bwd + tiled + qmm:
         say("train kernel check:", json.dumps(rec))
     return {"fused_adam": adam, "flash_attention": fwd, "flash_attention_bwd": bwd,
-            "tiled_matmul": tiled}
+            "tiled_matmul": tiled,
+            "quantized_matmul": [r for r in qmm if not r["transposed"]],
+            "quantized_matmul_dx": [r for r in qmm if r["transposed"]]}
 
 
-def _train_run(cfg, dev, nvme_dir, steps) -> RunConfig:
+def _train_run(cfg, dev, nvme_dir, steps, quant="none") -> RunConfig:
     shutil.rmtree(nvme_dir, ignore_errors=True)
     return RunConfig(
         model=cfg, parallel=make_parallel("zero3", remat="none"),
         offload=make_offload(opt_tier="nvme", param_tier="nvme", grad_tier="nvme",
-                             nvme_dir=nvme_dir),
+                             nvme_dir=nvme_dir, param_quant=quant),
         train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
 
 
-def phase_train_numerics() -> dict:
+def _q8_step(rows: torch.Tensor) -> torch.Tensor:
+    """Each element's q8 quant step: its block's scale (absmax / 127) as
+    the q8 encoder stores it."""
+    P = rows.shape[1]
+    scales = torch.stack([qformat.q8_encode(r)[1] for r in rows])
+    return scales.float().repeat_interleave(qformat.BLOCK, dim=1)[:, :P]
+
+
+def phase_train_numerics(quant: str = "none") -> dict:
     """Full-width smollm-135m cut to 2 layers: 2 layered steps on the card
-    (kernels) and on the CPU (plain versions), same weights and batches."""
+    (kernels) and on the CPU (plain versions), same weights and batches;
+    ``quant`` is ``--param-quant``."""
     cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
     B, S, steps = 4, 256, 2
-    base = os.path.join(ROOT, "build", "chip_smoke_train_numerics")
+    base = os.path.join(ROOT, "build", f"chip_smoke_train_numerics_{quant}")
     state0 = None
     out = {}
     for dev in ("cpu", "cuda"):
-        ex = InfinityExecutor(_train_run(cfg, dev, os.path.join(base, dev), steps), dev)
+        ex = InfinityExecutor(_train_run(cfg, dev, os.path.join(base, dev), steps, quant),
+                              dev)
         if state0 is None:
             state0 = ex.engine.init_state(torch.Generator().manual_seed(SEED))
         state = ex.reseed(_to(state0, dev))
@@ -377,30 +451,37 @@ def phase_train_numerics() -> dict:
     lrs = [t["lr"] for t in tc]
     drift = adam.parity_bound(TrainConfig(), lrs)
     diff = (rows_g - rows_c).abs()
-    rec = {"layers": 2, "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
-           "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+    allowed = drift + 2**-8 * rows_c.abs()
+    if quant == "q8":
+        allowed = allowed + 2 * _q8_step(rows_c)
+    rec = {"param_quant": quant, "layers": 2, "d_model": cfg.d_model, "batch": B,
+           "seq": S, "steps": steps, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "rows_max_abs_diff": diff.max().item(), "rows_mean_abs_diff": diff.mean().item(),
+           "rows_worst_diff_over_bound": (diff / allowed).max().item(),
            "rows_max_bound": drift, "rows_mean_bound": 2**-5 * sum(lrs)}
     say("train numerics:", json.dumps(rec))
     for c, g in zip(tc, tg):
         for key in ("loss", "grad_norm"):
             if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
-                raise SystemExit(f"FAIL train numerics: card {key} {g[key]} vs CPU {c[key]}")
-    if not bool((diff <= drift + 2**-8 * rows_c.abs()).all()) \
+                raise SystemExit(f"FAIL train numerics ({quant}): card {key} {g[key]} "
+                                 f"vs CPU {c[key]}")
+    if not bool((diff <= allowed).all()) \
             or not rec["rows_mean_abs_diff"] <= rec["rows_mean_bound"]:
-        raise SystemExit(f"FAIL train numerics: rows differ beyond the bound: {rec}")
+        raise SystemExit(f"FAIL train numerics ({quant}): rows differ beyond the bound: {rec}")
     return rec
 
 
-def phase_train_main() -> tuple:
-    """The training main path through ``launch.train`` on full smollm-135m."""
+def phase_train_main(quant: str = "none") -> tuple:
+    """The training main path through ``launch.train`` on full smollm-135m;
+    ``quant`` is ``--param-quant`` (q8: the quantized-matmul path)."""
     L, steps = configs.get("smollm-135m").n_layers, 8
-    nvme = os.path.join(ROOT, "build", "chip_smoke_nvme")
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_nvme_{quant}")
     shutil.rmtree(nvme, ignore_errors=True)
     argv = ["--arch", "smollm-135m", "--engine", "zero3", "--offload-param", "nvme",
             "--offload-grad", "nvme", "--offload-opt", "nvme", "--batch", "8",
             "--seq", "512", "--steps", str(steps), "--lr", "3e-3", "--nvme-dir", nvme,
-            "--log-every", "1"]
+            "--log-every", "1", "--param-quant", quant]
+    tag = "train" if quant == "none" else f"train {quant}"
     trace.enable()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -408,12 +489,15 @@ def phase_train_main() -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    # host time encoding rows to q8 frames (the seed's rows and each step's
+    # write-back), from the tracer's wire_encode spans
+    encodes = [ev[6] - ev[5] for ev in trace.TRACER.events() if ev[0] == "wire_encode"]
     trace.disable()
     trace.clear()
     tiers = ("param_in", "param_out", "grad_out", "opt_read", "opt_write")
     for m in hist["metrics"]:
         w = max(m["trace_wall_s"], 1e-12)
-        say("train step:", json.dumps({
+        say(f"{tag} step:", json.dumps({
             "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
             "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"],
             "compute_frac": m["trace_compute_s"] / w, "io_wait_frac": m["trace_io_wait_s"] / w,
@@ -421,29 +505,46 @@ def phase_train_main() -> tuple:
             **{f"{t}_bytes": m[f"{t}_bytes"] for t in tiers},
             **{f"{t}_gbps": m[f"{t}_gbps"] for t in tiers},
             "peak_resident_param_bytes": m["peak_resident_param_bytes"],
-            "prefetch_hit_rate": m["prefetch_hit_rate"]}))
+            "prefetch_hit_rate": m["prefetch_hit_rate"],
+            "param_in_wire_bytes": m["param_in_wire_bytes"],
+            "param_out_wire_bytes": m["param_out_wire_bytes"]}))
     losses = hist["losses"]
     rec = {"argv": " ".join(argv), "wall_s": wall, "launches": launches,
            "first_loss": losses[0], "last_loss": losses[-1],
            "param_total_bytes": hist["metrics"][0]["param_total_bytes"],
+           "quantized_leaves": ["/".join(p) for p in hist["quantized_leaves"]],
+           "wire_encode_rows": len(encodes), "wire_encode_s": sum(encodes),
            "nvme": hist["nvme_stats"]}
-    say("train:", json.dumps(rec))
+    say(f"{tag}:", json.dumps(rec))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise SystemExit(f"FAIL train: losses not finite or not falling: {losses}")
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
     for m in hist["metrics"]:
         if not all(m[f"{t}_bytes"] > 0 for t in tiers):
-            raise SystemExit(f"FAIL train: a tier moved no bytes at step {m['step']}")
+            raise SystemExit(f"FAIL {tag}: a tier moved no bytes at step {m['step']}")
         if not m["peak_resident_param_bytes"] < m["param_total_bytes"]:
-            raise SystemExit("FAIL train: every param row was resident at once")
+            raise SystemExit(f"FAIL {tag}: every param row was resident at once")
+        # q8: 34 wire bytes per 32 bf16 elements (64 bytes), plus a header
+        if quant == "q8" and not m["param_in_wire_bytes"] <= 0.54 * m["param_in_bytes"]:
+            raise SystemExit(f"FAIL {tag}: param rows crossed as {m['param_in_wire_bytes']} "
+                             f"wire bytes for {m['param_in_bytes']} logical")
     # per step: flash forward in every layer's forward and again in its
     # recompute; one flash backward per layer; three MLP projections
-    # forward, three in the recompute and two gradient products each;
-    # fused Adam once per 'other' leaf (embedding, final norm)
+    # forward, three in the recompute and two gradient products each (q8:
+    # the projections and their dX on the quantized kernel, dW on the tiled
+    # matmul); fused Adam once per 'other' leaf (embedding, final norm)
     want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
-            "tiled_matmul": (3 + 3 + 6) * L * steps, "fused_adam": 2 * steps}
+            "fused_adam": 2 * steps}
+    if quant == "q8":
+        want.update(quantized_matmul=6 * L * steps, quantized_matmul_dx=3 * L * steps,
+                    tiled_matmul=3 * L * steps)
+        if rec["quantized_leaves"] != ["mlp/w_gate", "mlp/w_in", "mlp/w_out"]:
+            raise SystemExit(f"FAIL {tag}: the q8 plan leaves MLP weights out: "
+                             f"{rec['quantized_leaves']}")
+    else:
+        want["tiled_matmul"] = (3 + 3 + 6) * L * steps
     for name, n in want.items():
         if launches[name] < n:
-            raise SystemExit(f"FAIL train: {name} launched {launches[name]} < {n}")
+            raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
     return rec, launches
 
 
@@ -519,7 +620,9 @@ def summarize(tag, argv, out, launches, wall) -> dict:
            "ttft_p99_s": out["latency"]["ttft"]["p99"],
            "decode_token_p50_s": out["latency"]["decode_token"]["p50"],
            "kv_in_bytes": out["kv"]["in_bytes"],
-           "kv_out_bytes": out["kv"]["out_bytes"], "launches": launches}
+           "kv_out_bytes": out["kv"]["out_bytes"],
+           "kv_in_wire_bytes": out["kv"]["in_wire_bytes"],
+           "kv_out_wire_bytes": out["kv"]["out_wire_bytes"], "launches": launches}
     say("serve:", json.dumps(rec))
     if not all(out["done"]):
         raise SystemExit(f"FAIL {tag}: not every sequence finished")
@@ -527,6 +630,10 @@ def summarize(tag, argv, out, launches, wall) -> dict:
         raise SystemExit(f"FAIL {tag}: no sequence was admitted from the KV tier")
     if out["kv"]["in_bytes"] <= 0 or out["kv"]["out_bytes"] <= 0:
         raise SystemExit(f"FAIL {tag}: no KV bytes moved through the tier")
+    if "--kv-quant" in argv and not (0 < out["kv"]["out_wire_bytes"]
+                                     <= 0.54 * out["kv"]["out_bytes"]):
+        raise SystemExit(f"FAIL {tag}: q8 KV parked {out['kv']['out_wire_bytes']} wire "
+                         f"bytes for {out['kv']['out_bytes']} logical")
     L = configs.get("smollm-135m").n_layers
     if launches["flash_attention"] < L * waves:
         raise SystemExit(f"FAIL {tag}: flash_attention launched "
@@ -580,10 +687,16 @@ def main() -> int:
                  "--new-tokens", "8"]
     out, nvme_launches, wall = run_serve(nvme_argv)
     summarize("nvme", nvme_argv, out, nvme_launches, wall)
+    shutil.rmtree(kv_dir, ignore_errors=True)
+    q8kv_argv = nvme_argv + ["--kv-quant", "q8"]
+    out, q8kv_launches, wall = run_serve(q8kv_argv)
+    summarize("nvme q8", q8kv_argv, out, q8kv_launches, wall)
 
     train_checks = phase_train_kernels()
     numerics = phase_train_numerics()
+    phase_train_numerics("q8")
     train_rec, train_launches = phase_train_main()
+    q8_rec, q8_launches = phase_train_main("q8")
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -593,8 +706,17 @@ def main() -> int:
                "tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                                 "src/repro/kernels/tiled_matmul.py:60"),
                "fused_adam": ("src/repro_torch/csrc/fused_adam.cu",
-                              "src/repro/kernels/fused_adam.py:47")}
+                              "src/repro/kernels/fused_adam.py:47"),
+               "quantized_matmul": ("src/repro_torch/csrc/quantized_matmul.cu",
+                                    "src/repro/kernels/tiled_matmul.py:92"),
+               "quantized_matmul_dx": ("src/repro_torch/csrc/quantized_matmul.cu",
+                                       "none: the TPU kernel has no dX orientation "
+                                       "(src/repro/kernels/tiled_matmul.py:92)")}
     serve_launches = {"flash_attention": launches, "tiled_matmul": launches}
+    # each kernel's main path: the q8 training run for the quantized kernel,
+    # the bf16 training run for the others
+    main_launches = {**train_launches, "quantized_matmul": q8_launches["quantized_matmul"],
+                     "quantized_matmul_dx": q8_launches["quantized_matmul_dx"]}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -603,20 +725,24 @@ def main() -> int:
         src, replaces = sources[name]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": train_launches[name],
+            "launches": main_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["shape"],
-            "tol": head["tol"], "shapes": recs}
+            "tol": head["tol"], "q8_run_launches": q8_launches[name], "shapes": recs}
+        if "yardstick_ms" in head:
+            entry["yardstick"], entry["yardstick_ms"] = head["yardstick"], head["yardstick_ms"]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name][name]
             entry["nvme_run_launches"] = nvme_launches[name]
+            entry["nvme_q8_run_launches"] = q8kv_launches[name]
         kernels.append(entry)
     say(f"total: {time.perf_counter() - t_start:.1f} s "
         f"(e2e rel err {e2e['max_rel_err']:.3g}, main-path tok/s "
         f"{main_rec['decode_tok_s']:.0f} decode; train "
-        f"{train_rec['first_loss']:.4f} -> {train_rec['last_loss']:.4f}, "
+        f"{train_rec['first_loss']:.4f} -> {train_rec['last_loss']:.4f}, q8 "
+        f"{q8_rec['first_loss']:.4f} -> {q8_rec['last_loss']:.4f}, "
         f"numerics loss {numerics['card'][-1]['loss']:.5f} card vs "
         f"{numerics['cpu'][-1]['loss']:.5f} CPU)")
     say(json.dumps({"kernels": kernels}))

@@ -20,11 +20,21 @@ through a pinned pool buffer (``PinnedStager``: the buffer is not reused
 before its copy's event completes), and a gradient comes down on a store
 worker after an event recorded behind the ``layer_vjp`` that wrote it.
 
+Quantized tier transport (``offload.param_quant``): the param store is a
+``qformat.QuantizedArrayStore``, so rows are encoded on the host as they
+are written and cross the tier in wire bytes. Under ``q8`` a row is read
+undecoded, its wire body goes to the device as it is, and the layer pieces
+run the MLP projections on its int8 quants and fp16 scales through the
+quantized-matmul kernel (``core/zero.py``). Under ``q4`` a row is decoded
+on the host back to bf16, as the reference does for both formats. The
+auto prefetch window deepens by the compression ratio.
+
 Every other variant (the GSPMD engine, params off NVMe, dp > 1) raises
 naming its ROADMAP item. Per-step metrics are the reference's: loss,
 grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
-``grad_out``, ``opt_read/write``), scheduler residency, and the tracer's
-stall attribution (``trace_*``) when tracing is on.
+``grad_out``, ``opt_read/write``; ``*_bytes`` logical, ``*_wire_bytes``
+what crossed the tier), scheduler residency, and the tracer's stall
+attribution (``trace_*``) when tracing is on.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.config import RunConfig, ShapeConfig
+from repro_torch.core import qformat
 from repro_torch.core import schedule as sched_mod
 from repro_torch.core.offload import (ArrayStore, ChunkedAdamOffload,
                                       HostArrayStore, NvmeStore, ParamStreamer,
@@ -58,10 +69,6 @@ def check_ported(run: RunConfig) -> None:
             "the zero3 engine's in-graph step (params on the device or host "
             "tier) is not ported; pass --offload-param nvme for the layered "
             "epoch (ROADMAP.md Queue 1 item 10)")
-    if run.offload.param_quant != "none":
-        raise NotImplementedError(
-            f"param_quant={run.offload.param_quant!r} is not ported "
-            "(ROADMAP.md Queue 1 item 4: quantized transport)")
 
 
 class InfinityExecutor:
@@ -80,6 +87,8 @@ class InfinityExecutor:
         self.engine = engine if engine is not None else ExplicitZero3Engine(run, self.device)
         off = run.offload
         self.grad_offload = off.grad_tier != "device"
+        # q8 rows go to the device as wire operands; q4 rows decode on the host
+        self._wire_rows = off.param_quant == "q8"
         # one staging budget shared by every store and the row stager;
         # page-locked where it feeds the card
         self._pool = PinnedBufferPool(off.pinned_buffer_mb << 20,
@@ -129,6 +138,8 @@ class InfinityExecutor:
             store = HostArrayStore(pool=self._pool, overlap=off.overlap,
                                    workers=off.nvme_workers)
         store.trace_cls = name  # tags this class's I/O spans
+        if name == "param":
+            store = qformat.maybe_wrap_store(store, off.param_quant)
         return store
 
     def reseed(self, state: dict, step: int = 0) -> dict:
@@ -198,12 +209,13 @@ class InfinityExecutor:
         if stale:
             L = self.engine.n_layers
             window = off.prefetch_layers or sched_mod.default_prefetch_layers(
-                L, self.engine.layout.padded, tokens)
+                L, self.engine.layout.padded, tokens,
+                compression_ratio=qformat.compression_ratio(off.param_quant))
             self._sched_tokens = tokens
-            stream = self.param_stream
+            stream, wire = self.param_stream, self._wire_rows
 
             def fetch(layer):
-                return [stream.read_row("rank0", layer)]
+                return [stream.read_row("rank0", layer, wire=wire)]
 
             self._sched = sched_mod.LayerSchedule(L, window,
                                                   read_ahead=off.param_read_ahead)
@@ -211,9 +223,12 @@ class InfinityExecutor:
             self._pe_stream = stream
         return self._sched, self._pe
 
-    def _device_row(self, vals) -> torch.Tensor:
-        """The one rank's host row -> the device (pinned, non-blocking)."""
+    def _device_row(self, vals):
+        """The one rank's host row -> the device (pinned, non-blocking): a
+        bf16 row, or under q8 the wire operands ``(q, s)``."""
         with trace.span("h2d_row", sys="store", cls="param"):
+            if self._wire_rows:
+                return qformat.wire_row_device(vals[0], self._stager)
             return self._stager.to_device(vals[0])
 
     def _ready_event(self):
@@ -335,24 +350,28 @@ class InfinityExecutor:
 
     def _with_tier_metrics(self, metrics, marks) -> dict:
         """This step's per-tier counters (deltas, never cumulative):
-        param-in/out, grad-out, opt-read/write bytes and GB/s (logical ==
-        wire: no quantized wire format is ported), the NVMe aggregate, the
-        pinned pool's peak, and the scheduler's residency."""
+        param-in/out, grad-out, opt-read/write bytes and GB/s, the NVMe
+        aggregate, the pinned pool's peak, and the scheduler's residency.
+        ``<class>_*_bytes`` are logical (the full-precision arrays moved),
+        ``<class>_*_wire_bytes`` what crossed the tier — smaller under a
+        quantized wire format, equal otherwise; the GB/s and the NVMe
+        aggregate count wire bytes."""
         out = dict(metrics)
         nvme = {"bytes_read": 0, "bytes_written": 0}
         for name, store in self._active_stores():
             d = store.delta_since(marks[name])
             r, w = d["bytes_read"], d["bytes_written"]
+            lr, lw = d["logical_bytes_read"], d["logical_bytes_written"]
             if name == "param":
-                out.update(param_in_bytes=r, param_in_wire_bytes=r,
-                           param_in_gbps=d["read_gbps"], param_out_bytes=w,
+                out.update(param_in_bytes=lr, param_in_wire_bytes=r,
+                           param_in_gbps=d["read_gbps"], param_out_bytes=lw,
                            param_out_wire_bytes=w, param_out_gbps=d["write_gbps"])
             elif name == "grad":
-                out.update(grad_out_bytes=w, grad_out_wire_bytes=w,
+                out.update(grad_out_bytes=lw, grad_out_wire_bytes=w,
                            grad_out_gbps=d["write_gbps"])
             else:
-                out.update(opt_read_bytes=r, opt_read_wire_bytes=r,
-                           opt_read_gbps=d["read_gbps"], opt_write_bytes=w,
+                out.update(opt_read_bytes=lr, opt_read_wire_bytes=r,
+                           opt_read_gbps=d["read_gbps"], opt_write_bytes=lw,
                            opt_write_wire_bytes=w, opt_write_gbps=d["write_gbps"])
             if store.kind == "nvme":
                 nvme["bytes_read"] += r

@@ -41,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.qformat import dtype_from_name, dtype_name
 from repro_torch.runtime import trace
 
 DEFAULT_CHUNK_ELEMS = 1 << 22  # 4M elements per pipeline chunk
@@ -166,7 +167,8 @@ class ArrayStore:
                 "write_gbps": self.bytes_written / max(self.write_time, 1e-9) / 1e9,
                 "bytes_read": self.bytes_read,
                 "bytes_written": self.bytes_written,
-                # logical == wire until a quantized wire format is ported
+                # a plain store moves its arrays as they are: logical ==
+                # wire (``qformat.QuantizedArrayStore`` splits them)
                 "logical_bytes_read": self.bytes_read,
                 "logical_bytes_written": self.bytes_written,
                 "read_time": self.read_time,
@@ -325,19 +327,6 @@ class HostArrayStore(ArrayStore):
     def keys(self):
         with self._data_lock:
             return list(self._data)
-
-
-def dtype_name(dtype: torch.dtype) -> str:
-    """Round-trippable dtype name shared with the JAX package's sidecars
-    ('float32', 'bfloat16', 'int32', ...)."""
-    return str(dtype).removeprefix("torch.")
-
-
-def dtype_from_name(name: str) -> torch.dtype:
-    dt = getattr(torch, name, None)
-    if not isinstance(dt, torch.dtype):
-        raise ValueError(f"unknown dtype name {name!r} in a store sidecar")
-    return dt
 
 
 class NvmeStore(ArrayStore):
@@ -588,10 +577,12 @@ class ParamStreamer:
         return {name: torch.stack(results[name]) if split else results[name][0]
                 for name, (_, split) in self._layout.items()}
 
-    def read_row(self, name: str, i: int) -> Future:
+    def read_row(self, name: str, i: int, wire: bool = False) -> Future:
         """Async read of one row — the fetch the ``PrefetchEngine`` submits
-        ahead of the layer's use."""
-        return self.store.read(f"{name}/c{i}")
+        ahead of the layer's use. With ``wire`` (a ``QuantizedArrayStore``)
+        the row resolves to its wire payload, undecoded."""
+        key = f"{name}/c{i}"
+        return self.store.read_wire(key) if wire else self.store.read(key)
 
     def write_row(self, name: str, i: int, t: torch.Tensor) -> Future:
         """Async write-back of one updated row; ``flush()`` commits."""

@@ -13,16 +13,20 @@ ZeRO-3 engine's per-layer row: every leaf of one layer flattened and
 concatenated in ``jax.tree`` order (sorted dict keys), padded to a multiple
 of dp — byte for byte the reference's row, so either package's stores
 hold the same rows. Nested dicts stand in for pytrees (``tree_*`` helpers).
-The sharding rules wait for the multi-device slice.
+``quantized_leaf_plan`` / ``unflatten_wire_row`` read a row that arrives in
+the q8 wire layout (``core/qformat.py``): the planned MLP weights stay
+quantized (``QWeight``), every other leaf is dequantized. The sharding
+rules wait for the multi-device slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.qformat import BLOCK as QBLOCK, dequant_q8
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -150,5 +154,62 @@ def unflatten_row(row: torch.Tensor, layout: FlatLayout, dtype=None) -> dict:
                                      layout.dtypes, layout.sizes):
         piece = row[off:off + size].reshape(shape)
         tree_set(out, path, piece.to(dtype or getattr(torch, dt)))
+        off += size
+    return out
+
+
+class QWeight(NamedTuple):
+    """A (K, N) weight in the q8 wire layout: int8 quants ``q`` (K, N),
+    fp16 scales ``s`` (K, N/32), and ``anchor``, a bf16 (K, N) view that
+    stands for the weight in autograd (None where nothing differentiates)."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+    anchor: Optional[torch.Tensor]
+
+
+def quantized_leaf_plan(layout: FlatLayout) -> tuple:
+    """Paths of the leaves whose products take the q8 operands in place:
+    MLP weights (under ``"mlp"``) that are 2-D (K, N) with N and their row
+    offset multiples of the quant block, so the wire blocks tile them as
+    (K, N/32). Decided once per layout."""
+    plan, off = [], 0
+    for path, shape, size in zip(layout.paths, layout.shapes, layout.sizes):
+        if (path[0] == "mlp" and len(shape) == 2 and shape[1] % QBLOCK == 0
+                and off % QBLOCK == 0):
+            plan.append(path)
+        off += size
+    return tuple(plan)
+
+
+def unflatten_wire_row(q: torch.Tensor, s: torch.Tensor,
+                       anchor_row: Optional[torch.Tensor], layout: FlatLayout,
+                       plan: tuple) -> dict:
+    """A q8 wire row (``q`` int8 over whole blocks, ``s`` fp16, one scale
+    per block) -> nested dict of leaves: a ``QWeight`` of views for each
+    leaf in ``plan``, the bf16 values ``(q * s).to(bf16)`` for every other
+    leaf (the reference's host decode, bit for bit).
+
+    ``anchor_row`` (a (padded,) bf16 zero row that requires grad, or None)
+    carries the gradient: each planned leaf's anchor is its segment, and
+    every other leaf adds its (zero) segment, so the row's gradient is the
+    leaves' gradients at their offsets, zero in the padding."""
+    out: dict = {}
+    off = 0
+    for path, shape, size in zip(layout.paths, layout.shapes, layout.sizes):
+        anchor = None if anchor_row is None else anchor_row[off:off + size].view(shape)
+        if path in plan:
+            K, N = shape
+            leaf = QWeight(q[off:off + size].view(K, N),
+                           s[off // QBLOCK:(off + size) // QBLOCK].view(K, N // QBLOCK),
+                           anchor)
+        else:
+            b0, b1 = off // QBLOCK, -(-(off + size) // QBLOCK)
+            lo = off - b0 * QBLOCK
+            vals = dequant_q8(q[b0 * QBLOCK:b1 * QBLOCK], s[b0:b1])[lo:lo + size]
+            leaf = vals.to(torch.bfloat16).view(shape)
+            if anchor is not None:
+                leaf = leaf + anchor
+        tree_set(out, path, leaf)
         off += size
     return out

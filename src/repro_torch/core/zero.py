@@ -11,9 +11,16 @@ the prefetch window (``core/executor.py``): ``embed_fwd``, ``layer_fwd``,
 "parameters loaded one additional time"), ``head``, ``accum_sumsq``,
 ``embed_vjp`` and ``finish`` (Adam on the small device-resident states).
 
+Under q8 transport (``offload.param_quant="q8"``) a row reaches
+``layer_fwd`` and ``layer_vjp`` as its wire operands ``(q, s)``: the MLP
+weights in ``quantized_leaves`` (a static plan per layout) go into the
+quantized-matmul kernel as they are, every other leaf is dequantized on
+the device.
+
 Not ported: dp > 1 (ROADMAP Queue 1 item 8), the MoE rows (item 6), int8
-gradient compression (item 4), and the monolithic in-graph step
-(``make_train_step``) with its device/host tiers (item 10).
+gradient compression (items 8 and 10: the reference has it only in the
+cross-rank reduce and the monolithic step), and the monolithic in-graph
+step (``make_train_step``) with its device/host tiers (item 10).
 """
 from __future__ import annotations
 
@@ -57,8 +64,9 @@ class ExplicitZero3Engine:
                 "owner rank")
         if run.parallel.grad_compression != "none":
             raise NotImplementedError(
-                "grad_compression='int8' is not ported (ROADMAP.md Queue 1 "
-                "item 4: quantized transport)")
+                "grad_compression='int8' is not ported: the reference runs it "
+                "only in the cross-rank reduce and the monolithic step "
+                "(ROADMAP.md Queue 1 items 8 and 10)")
         if not run.opt_offgraph:
             raise NotImplementedError(
                 "the explicit engine's in-graph step (device/host optimizer "
@@ -71,6 +79,10 @@ class ExplicitZero3Engine:
         self.defs = transformer.param_defs(cfg)
         self.n_layers = cfg.n_layers
         self._build_layout()
+        # the MLP weights whose products read the q8 wire row in place;
+        # fixed by the layout, the same for every row and step
+        self.quantized_leaves = (pt.quantized_leaf_plan(self.layout)
+                                 if run.offload.param_quant == "q8" else ())
 
     def _build_layout(self) -> None:
         self.layout = pt.build_layout(self.defs["blocks"], self.dp)
@@ -117,10 +129,15 @@ class ExplicitZero3Engine:
         pieces run without autograd; ``layer_vjp`` and ``head`` record only
         their own graph and return gradients (``torch.autograd.grad``)."""
         cfg, tc, dp = self.run.model, self.run.train, self.dp
-        block_fn, layout = self.block_fn, self.layout
+        block_fn, layout, plan = self.block_fn, self.layout, self.quantized_leaves
 
-        def _block(x, row):
-            blk = pt.unflatten_row(row, layout, torch.bfloat16)
+        def _block(x, row, anchor_row=None):
+            """``row``: a bf16 row, or a q8 wire row ``(q, s)`` whose
+            gradient ``anchor_row`` carries."""
+            if isinstance(row, tuple):
+                blk = pt.unflatten_wire_row(*row, anchor_row, layout, plan)
+            else:
+                blk = pt.unflatten_row(row, layout, torch.bfloat16)
             B, S = x.shape[0], x.shape[1]
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
             return block_fn(x, blk, positions)
@@ -146,8 +163,16 @@ class ExplicitZero3Engine:
         def _layer_vjp(x, row, dy):
             with torch.enable_grad():
                 x_ = x.detach().requires_grad_()
-                row_ = row.detach().requires_grad_()
-                dx, drow = torch.autograd.grad(_block(x_, row_), (x_, row_), dy)
+                if isinstance(row, tuple):
+                    # a wire row takes no gradient itself: a zero row stands
+                    # in for it (``unflatten_wire_row``)
+                    row_ = torch.zeros(layout.padded, dtype=torch.bfloat16,
+                                       device=x.device, requires_grad=True)
+                    y = _block(x_, row, row_)
+                else:
+                    row_ = row.detach().requires_grad_()
+                    y = _block(x_, row_)
+                dx, drow = torch.autograd.grad(y, (x_, row_), dy)
             # the bf16 row's cotangent, carried in f32 to the grad tier
             return dx, drow.float()
 

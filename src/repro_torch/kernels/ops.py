@@ -6,12 +6,12 @@ there is no fallback from the card to the plain version. Any other device
 raises. Each kernel counts its launches (``launch_counts``), so a run can
 show that its main path went through the kernels.
 
-Flash attention and the tiled matmul are differentiable: where autograd
-records (grad mode on and an input that requires grad) the call goes
-through a ``torch.autograd.Function`` whose backward dispatches the same
-way — the backward kernels on the card, the plain backward written out in
-``kernels/ref.py`` on the CPU. Elsewhere (serving under ``no_grad``) the
-forward runs alone and saves nothing.
+Flash attention, the tiled matmul and the quantized matmul are
+differentiable: where autograd records (grad mode on and an input that
+requires grad) the call goes through a ``torch.autograd.Function`` whose
+backward dispatches the same way — the backward kernels on the card, the
+plain backward written out in ``kernels/ref.py`` on the CPU. Elsewhere
+(serving under ``no_grad``) the forward runs alone and saves nothing.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adam as _ad
+from repro_torch.kernels import quantized_matmul as _qmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import tiled_matmul as _mm
 
@@ -121,6 +122,54 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# quantized matmul
+# ---------------------------------------------------------------------------
+
+
+def _qmatmul(x, q, s, transpose=False):
+    if _device(x, q, s).type == "cpu":
+        return ref.quantized_matmul_ref(x, q, s, transpose=transpose)
+    return _qmm.quantized_matmul_cuda(x, q, s, transpose=transpose)
+
+
+class _QuantizedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q, s, anchor):
+        ctx.save_for_backward(x, q, s)
+        return _qmatmul(x, q, s)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, q, s = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = _qmatmul(dy, q, s, transpose=True) if ctx.needs_input_grad[0] else None
+        # dW = X^T @ dY, the transposed view read in place by the tiled matmul
+        dw = _matmul(x.T, dy) if ctx.needs_input_grad[3] else None
+        return dx, None, None, dw
+
+
+def quantized_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                     anchor: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (M,K) @ dequant(q: (K,N) int8, s: (K,N/32) fp16) -> (M,N) in x's
+    dtype, f32 math; q and s are the q8 wire layout (``core/qformat.py``)
+    and may be column-slice views.
+
+    Differentiable in x (dX = dY @ dequant^T, the kernel's transposed
+    orientation) and in ``anchor``: a (K, N) tensor whose values are never
+    read, standing for the weight in autograd. Its gradient is dW = X^T @ dY
+    (the tiled matmul), so a view of a row that requires grad scatters dW
+    into the row's gradient at the weight's offset."""
+    _device(x, q, s)
+    _qmm.check_inputs(x, q, s)
+    if anchor is not None and tuple(anchor.shape) != tuple(q.shape):
+        raise ValueError(f"quantized_matmul: anchor {tuple(anchor.shape)} is not "
+                         f"q's shape {tuple(q.shape)}")
+    if _records(*[t for t in (x, anchor) if t is not None]):
+        return _QuantizedMatmul.apply(x, q, s, anchor)
+    return _qmatmul(x, q, s)
+
+
+# ---------------------------------------------------------------------------
 # fused Adam
 # ---------------------------------------------------------------------------
 
@@ -178,7 +227,9 @@ def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
     return {"flash_attention": _fa.launches,
             "flash_attention_bwd": _fa.bwd_launches,
-            "tiled_matmul": _mm.launches, "fused_adam": _ad.launches}
+            "tiled_matmul": _mm.launches, "fused_adam": _ad.launches,
+            "quantized_matmul": _qmm.launches,
+            "quantized_matmul_dx": _qmm.dx_launches}
 
 
 def reset_launch_counts() -> None:
@@ -186,3 +237,5 @@ def reset_launch_counts() -> None:
     _fa.bwd_launches = 0
     _mm.launches = 0
     _ad.launches = 0
+    _qmm.launches = 0
+    _qmm.dx_launches = 0

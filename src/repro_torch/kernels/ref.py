@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.qformat import dequant_q8
+
 NEG_INF = -1e30
 
 
@@ -19,6 +21,15 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) with f32 accumulation; output in x's dtype. Either
     operand may be a strided view (a transpose)."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                         transpose: bool = False) -> torch.Tensor:
+    """x (M, K) @ dequant(q, s) (K, N) -> (M, N), or with ``transpose``
+    x (M, N) @ dequant(q, s)^T -> (M, K) (the dX product); f32 math, output
+    in x's dtype, as the TPU kernel ``_qmm_kernel`` computes it."""
+    w = dequant_q8(q, s)
+    return (x.float() @ (w.T if transpose else w)).to(x.dtype)
 
 
 def _causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:

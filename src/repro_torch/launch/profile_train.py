@@ -11,7 +11,8 @@ the step's wall time), and the device time of each kernel per step with its
 launches (``profile_serve._report``). Weights are random from ``--seed``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      --arch smollm-135m --batch 8 --seq 512 --nvme-dir build/profile_nvme
+      --arch smollm-135m --batch 8 --seq 512 --nvme-dir build/profile_nvme \\
+      [--param-quant q8]
 """
 from __future__ import annotations
 
@@ -44,6 +45,8 @@ def _parse(argv=None):
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_profile"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--param-quant", default="none", choices=["none", "q8", "q4"],
+                    help="wire format of the param rows (launch/train.py's flag)")
     return ap.parse_args(argv)
 
 
@@ -56,7 +59,8 @@ def main(argv=None) -> None:
     cfg = configs.get(args.arch)
     run = RunConfig(model=cfg, parallel=make_parallel("zero3"),
                     offload=make_offload(opt_tier="nvme", param_tier="nvme",
-                                         grad_tier="nvme", nvme_dir=args.nvme_dir),
+                                         grad_tier="nvme", nvme_dir=args.nvme_dir,
+                                         param_quant=args.param_quant),
                     train=TrainConfig(lr=3e-3, seed=args.seed))
     ex = InfinityExecutor(run, dev)
     try:

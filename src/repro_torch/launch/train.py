@@ -3,15 +3,18 @@ with parameters, gradients and optimizer states on the slow tiers — the
 port of ``repro/launch/train.py`` for the path
 
     --engine zero3 --offload-param nvme [--offload-grad T] [--offload-opt T]
+        [--param-quant q8|q4]
 
 It takes the reference's flags. Runs on the card by default and raises when
 CUDA is absent; ``--device cpu`` runs the kernels' plain versions (the
 tests do). Every flag whose machinery is not ported raises, naming the
 ROADMAP item that ports it: ``--engine pjit`` and params off NVMe,
 meshes > 1, ``--plan`` other than manual and the planner's hardware flags,
-``--elastic``/``--chaos``, the fault runtime's flags, ``--param-quant``,
-``--grad-compress``, ``--resume auto`` and checkpoints (``--ckpt-every``
-> 0, ``--ckpt-dir``).
+``--elastic``/``--chaos``, the fault runtime's flags, ``--grad-compress``,
+``--resume auto`` and checkpoints (``--ckpt-every`` > 0, ``--ckpt-dir``).
+``--param-quant q8`` ships the rows as q8 wire bytes and runs the MLP
+projections on them through the quantized-matmul kernel; ``q4`` rows
+decode on the host.
 
 Example (one H100, full smollm-135m, 8 steps, every state class on NVMe):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -83,7 +86,9 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="layer-scheduler window (0 = bandwidth-aware auto "
                          "from the paper's model)")
     ap.add_argument("--param-quant", default="none", choices=["none", "q8", "q4"],
-                    help="wire format for param rows (q8/q4 not ported: raise)")
+                    help="block-quantized wire format for the param rows "
+                         "(core/qformat.py): q8 rows feed the quantized-matmul "
+                         "kernel as they are, q4 rows decode on the host")
     ap.add_argument("--grad-compress", default="none", choices=["none", "int8"],
                     help="int8 gradient reduce (not ported: raises)")
     ap.add_argument("--read-ahead", type=int, default=2,
@@ -133,10 +138,9 @@ def _unported(args) -> None:
          "ROADMAP.md Queue 1 item 5: checkpoint/manager.py"),
         (args.data_mesh * args.model_mesh != 1, "a mesh larger than one device",
          "ROADMAP.md Queue 1 item 8: GSPMD engine and meshes"),
-        (args.param_quant != "none", f"--param-quant {args.param_quant}",
-         "ROADMAP.md Queue 1 item 4: quantized transport"),
         (args.grad_compress != "none", f"--grad-compress {args.grad_compress}",
-         "ROADMAP.md Queue 1 item 4: quantized transport"),
+         "ROADMAP.md Queue 1 items 8 and 10: the reference compresses "
+         "gradients only in the cross-rank reduce and the monolithic step"),
         (args.zero_stage != 3, f"--zero-stage {args.zero_stage}",
          "ROADMAP.md Queue 1 item 10: the explicit engine is ZeRO-3"),
         (args.grad_accum != 1, f"--grad-accum {args.grad_accum}",
@@ -175,7 +179,8 @@ def _host(v):
 def train(args) -> dict:
     """Run ``args.steps`` layered steps. Returns ``{"losses", "grad_norms",
     "metrics" (one dict of host numbers per step, with step_time and
-    tokens_per_s), "nvme_stats", "trace_attributions"}``."""
+    tokens_per_s), "nvme_stats", "trace_attributions", "quantized_leaves"
+    (the MLP weights whose products read the q8 rows in place)}``."""
     _unported(args)
     device = resolve_device(args.device)
     run = make_run(args)
@@ -204,6 +209,7 @@ def train(args) -> dict:
                 logger.log(step, rec["loss"], tokens, dt)
         history["nvme_stats"] = executor.bandwidth_stats()
         history["trace_attributions"] = executor.trace_attributions
+        history["quantized_leaves"] = executor.engine.quantized_leaves
     finally:
         executor.close()
     return history

@@ -193,11 +193,16 @@ def mlp_defs(cfg: ModelConfig) -> dict:
 
 def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
               tiling_factor: int = 1) -> torch.Tensor:
-    """Every projection goes through the tiled-matmul kernel."""
+    """Every projection goes through the tiled-matmul kernel; a weight
+    that arrived in the q8 wire layout (``pt.QWeight``) goes through the
+    quantized-matmul kernel as it is, without a cast."""
     kind = cfg.mlp_kind
 
+    def as_operand(w):
+        return w if isinstance(w, pt.QWeight) else w.to(x.dtype)
+
     def up(w):
-        return tiled_matmul(x, w.to(x.dtype), tiling_factor)
+        return tiled_matmul(x, as_operand(w), tiling_factor)
 
     h = up(p["w_in"])
     if kind == "swiglu":
@@ -208,7 +213,7 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         h = torch.square(F.relu(h))
     elif kind == "gelu":
         h = F.gelu(h, approximate="tanh")
-    return tiled_matmul(h, p["w_out"].to(x.dtype), tiling_factor)
+    return tiled_matmul(h, as_operand(p["w_out"]), tiling_factor)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,7 @@ def kv_step_metrics(delta: dict, resident_bytes: int) -> dict:
 
     ``kv_in_bytes`` / ``kv_out_bytes`` are *logical* bytes (the decoded
     blocks the cache moved); ``kv_*_wire_bytes`` is what actually crossed
-    the tier link — identical until a quantized wire format is ported."""
+    the tier link — smaller under ``--kv-quant``, identical otherwise."""
     wire_r = int(delta.get("bytes_read", 0))
     wire_w = int(delta.get("bytes_written", 0))
     return {

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import qformat  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 
@@ -206,3 +207,76 @@ def test_pinned_stager_copies_rows_and_returns_buffers(cuda):
     assert not stager._pending and pool._outstanding == 0
     for r, d in zip(rows, got):
         assert d.device.type == "cuda" and torch.equal(d.cpu(), r)
+
+
+def _q8(w: torch.Tensor):
+    """A weight's q8 operands (int8 (K,N), fp16 (K,N/32)), on w's device."""
+    q, s, _ = qformat.wire_matmul_operands(qformat.encode_array(w, "q8"))
+    return q.to(w.device), s.to(w.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,transpose", [((4096, 576, 1536), False),
+                                             ((4096, 1536, 576), False),
+                                             ((4096, 576, 1536), True),
+                                             ((4096, 1536, 576), True),
+                                             ((100, 96, 64), False), ((100, 96, 64), True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_matmul_kernel_matches_plain(cuda, shape, transpose, dtype):
+    """Both orientations: x (M,K) @ dequant(q (K,N)), and with ``transpose``
+    x (M,N) @ dequant(q (K,N))^T, the dX product. The dequantized weight is
+    the same f32 product in both versions, so the rule is the tiled
+    matmul's (sums of up to 1536 terms in another order)."""
+    from repro_torch.kernels import quantized_matmul as tqm
+
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, s = _q8((torch.randn(K, N, generator=g, device=cuda) * 0.1).to(torch.bfloat16))
+    x = (torch.randn(M, N if transpose else K, generator=g, device=cuda) * 0.1).to(dtype)
+    key = "quantized_matmul_dx" if transpose else "quantized_matmul"
+    before = ops.launch_counts()[key]
+    got = tqm.quantized_matmul_cuda(x, q, s, transpose=transpose)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[key] == before + 1
+    w_abs = qformat.dequant_q8(q, s).abs()
+    mag = x.float().abs() @ (w_abs.T if transpose else w_abs)
+    assert_close(got, ref.quantized_matmul_ref(x, q, s, transpose=transpose), mag,
+                 dtype, f32_tol=1e-4, mtol=2**-12)
+
+
+@pytest.mark.cuda
+def test_layer_vjp_on_a_wire_row_gives_every_leaf_a_gradient_on_the_card(cuda):
+    """A q8 wire row on the card: the MLP projections go through the
+    quantized kernel (forward, and dX in the backward), their dW through
+    the tiled matmul into the zero anchor row, and every leaf of the row
+    gets a gradient."""
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, make_offload, make_parallel
+    from repro_torch.core import offload, zero
+
+    cfg = configs.get("smollm-135m")
+    run = RunConfig(model=cfg, parallel=make_parallel("zero3", remat="none"),
+                    offload=make_offload(opt_tier="nvme", param_tier="nvme",
+                                         grad_tier="nvme", param_quant="q8"))
+    eng = zero.ExplicitZero3Engine(run, cuda)
+    assert [p[-1] for p in eng.quantized_leaves] == ["w_gate", "w_in", "w_out"]
+    g = torch.Generator().manual_seed(0)
+    row = (torch.randn(eng.layout.padded, generator=g) * 0.02).to(torch.bfloat16)
+    stager = offload.PinnedStager(offload.PinnedBufferPool(64 << 20, pin=True), cuda)
+    wire = qformat.wire_row_device(qformat.encode_array(row, "q8"), stager)
+    x = torch.randn(2, 128, cfg.d_model, generator=g).to(cuda, torch.bfloat16)
+    dy = torch.randn(2, 128, cfg.d_model, generator=g).to(cuda, torch.bfloat16)
+    ops.reset_launch_counts()
+    dx, grow = eng.make_layer_fns()["layer_vjp"](x, wire, dy)
+    torch.cuda.synchronize()
+    stager.retire(wait=True)
+    counts = ops.launch_counts()
+    assert counts["quantized_matmul"] == 3 and counts["quantized_matmul_dx"] == 3
+    assert counts["tiled_matmul"] == 3  # the dW products
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    assert grow.dtype == torch.float32 and torch.isfinite(grow).all()
+    off = 0
+    for path, size in zip(eng.layout.paths, eng.layout.sizes):
+        assert grow[off:off + size].abs().sum() > 0, path
+        off += size
+    assert torch.isfinite(dx).all() and dx.abs().sum() > 0

@@ -158,11 +158,26 @@ def test_serve_defaults_to_the_card():
         _serve(["--smoke", "--batch", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--plan", "auto"], ["--kv-quant", "q8"],
-                                  ["--model-mesh", "2"]])
+@pytest.mark.parametrize("flag", [["--plan", "auto"], ["--model-mesh", "2"]])
 def test_unported_options_raise_with_roadmap_pointer(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _serve(["--smoke", "--device", "cpu", "--batch", "1"] + flag)
+
+
+@pytest.mark.parametrize("fmt,share", [("q8", 0.6), ("q4", 0.35)])
+def test_kv_quant_parks_wire_bytes_on_the_host_tier(fmt, share):
+    """``--kv-quant``: waiting sequences park as q8/q4 frames (decoded on
+    the host when admitted); every sequence finishes, and the tier moves
+    the format's share of the logical KV bytes (plus a header per block)."""
+    out = _serve(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--batch", "5",
+                  "--prompt-len", "64", "--new-tokens", "6", "--kv-tier", "host",
+                  "--kv-slots", "2", "--kv-block-tokens", "64", "--kv-quant", fmt])
+    assert all(out["done"]) and out["admissions"] == 3
+    assert all(len(g) == 6 for g in out["generated"])
+    kv = out["kv"]
+    assert kv["in_bytes"] > 0 and kv["out_bytes"] == kv["in_bytes"]
+    assert 0 < kv["out_wire_bytes"] <= share * kv["out_bytes"]
+    assert 0 < kv["in_wire_bytes"] <= share * kv["in_bytes"]
 
 
 def test_profile_counts_device_time_once(capsys):

@@ -19,8 +19,10 @@ flip sign between the packages) plus the bf16 rounding of the stored row;
 in the bulk, bf16 rounding of the gradients (2^-8 relative) moves Adam's
 ratio by a few 2^-8 of lr per step, held as mean |diff| <= 2^-5 * sum(lr).
 """
+import contextlib
 import dataclasses
 import types
+from concurrent.futures import Future
 
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from repro.config import make_offload as jmake_offload  # noqa: E402
 from repro.config import make_parallel as jmake_parallel  # noqa: E402
 from repro.core import executor as jexec  # noqa: E402
 from repro.core import offload as joff  # noqa: E402
+from repro.core import qformat as jqformat  # noqa: E402
 from repro.core import schedule as jsched  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
 from repro.launch.mesh import make_local_mesh  # noqa: E402
@@ -49,6 +52,7 @@ from repro_torch.config import make_offload, make_parallel  # noqa: E402
 from repro_torch.core import executor as texec  # noqa: E402
 from repro_torch.core import offload as toff  # noqa: E402
 from repro_torch.core import partition as tpt  # noqa: E402
+from repro_torch.core import qformat as tqformat  # noqa: E402
 from repro_torch.core import schedule as tsched  # noqa: E402
 from repro_torch.core import zero as tzero  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
@@ -69,9 +73,10 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def _runs(nvme_dir, **offload):
-    jcfg = dataclasses.replace(jconfigs.smoke("smollm-135m"), n_layers=2)
-    tcfg = dataclasses.replace(tconfigs.smoke("smollm-135m"), n_layers=2)
+def _runs(nvme_dir, d_model=None, **offload):
+    wide = {} if d_model is None else {"d_model": d_model}
+    jcfg = dataclasses.replace(jconfigs.smoke("smollm-135m"), n_layers=2, **wide)
+    tcfg = dataclasses.replace(tconfigs.smoke("smollm-135m"), n_layers=2, **wide)
     off = {**NVME, **offload}
     jrun = JRun(model=jcfg, parallel=jmake_parallel("zero3", remat="none"),
                 offload=jmake_offload(nvme_dir=f"{nvme_dir}/jax", **off),
@@ -87,33 +92,47 @@ def mesh():
     return make_local_mesh(1, 1)
 
 
-@pytest.fixture(scope="module")
-def slice_run(tmp_path_factory, mesh):
-    """Both executors, 3 layered steps from the same weights and batches."""
-    jrun, trun = _runs(tmp_path_factory.mktemp("nvme"))
-    jex = jexec.InfinityExecutor(jrun, mesh)
-    jstate = jex.engine.init_state(jax.random.PRNGKey(0))
-    tstate = bridge.zero3_state_from_numpy(jax.tree.map(np.asarray, jstate))
-    jstate = jex.reseed(jstate)
+def _port_steps(trun, init):
+    """The port's executor, 3 layered steps from the reference's initial
+    state ``init`` (numpy) on the port's stream, which is bit-identical to
+    the reference's (test_synthetic_stream_bit_identical_to_reference)."""
     tex = texec.InfinityExecutor(trun, "cpu")
-    tstate = tex.reseed(tstate)
-    # the port's stream: bit-identical to the reference's
-    # (test_synthetic_stream_bit_identical_to_reference)
+    tstate = tex.reseed(bridge.zero3_state_from_numpy(init))
     tstream = tpipe.SyntheticStream(tex.input_specs(ShapeConfig("t", S, B, "train")),
                                     trun.model.vocab_size, seed=0)
-    jstep, tstep = jex.make_train_step(), tex.make_train_step()
-    jm, tm = [], []
+    tstep = tex.make_train_step()
+    tm = []
+    for i in range(STEPS):
+        tstate, m = tstep(tstate, {k: torch.from_numpy(v)
+                                   for k, v in tstream.batch_at(i).items()})
+        tm.append(m)
+    return tex, tstate, tm, tstream
+
+
+def _both_executors(nvme_dir, mesh, **kw):
+    """Both executors, 3 layered steps from the same weights and batches."""
+    jrun, trun = _runs(nvme_dir, **kw)
+    jex = jexec.InfinityExecutor(jrun, mesh)
+    jstate = jex.engine.init_state(jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, jstate)
+    jstate = jex.reseed(jstate)
+    tex, tstate, tm, tstream = _port_steps(trun, init)
+    jstep = jex.make_train_step()
+    jm = []
     for i in range(STEPS):
         batch = tstream.batch_at(i)
         jstate, m = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         jm.append(m)
-        tstate, m = tstep(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
-        tm.append(m)
-    out = types.SimpleNamespace(jex=jex, tex=tex, jstate=jstate, tstate=tstate,
-                                jm=jm, tm=tm, trun=trun)
+    return types.SimpleNamespace(jex=jex, tex=tex, jstate=jstate, tstate=tstate,
+                                 jm=jm, tm=tm, trun=trun, init=init)
+
+
+@pytest.fixture(scope="module")
+def slice_run(tmp_path_factory, mesh):
+    out = _both_executors(tmp_path_factory.mktemp("nvme"), mesh)
     yield out
-    tex.close()
-    jex.close()
+    out.tex.close()
+    out.jex.close()
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +591,7 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--engine", "pjit"], ["--offload-param", "device"], ["--plan", "auto"],
-    ["--elastic"], ["--chaos", "fail@3"], ["--param-quant", "q8"],
+    ["--elastic"], ["--chaos", "fail@3"],
     ["--grad-compress", "int8"], ["--resume", "auto"], ["--ckpt-every", "5"],
     ["--ckpt-dir", "/x"], ["--data-mesh", "2"], ["--model-mesh", "2"],
     ["--objective", "throughput"], ["--hw-nvme-bw", "2e9"],
@@ -596,3 +615,271 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
         assert rec["opt_read_bytes"] > 0 and rec["step_time"] > 0
     assert hist["nvme_stats"]["bytes_written"] > 0
     assert "done in" in capsys.readouterr().out
+
+
+def test_cli_trains_q4_rows_on_the_cpu_with_falling_loss(tmp_path):
+    """``--param-quant q4``: rows cross the tier as q4 frames and decode on
+    the host; the loss falls and the param tier moves ~0.31x of bf16."""
+    hist = ttrain.main(BASE + ["--device", "cpu", "--offload-grad", "nvme",
+                               "--offload-opt", "nvme", "--lr", "3e-3", "--param-quant",
+                               "q4", "--nvme-dir", str(tmp_path), "--steps", "6"])
+    losses = hist["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert hist["quantized_leaves"] == ()  # no kernel consumes q4 rows
+    for rec in hist["metrics"]:
+        assert 0 < rec["param_in_wire_bytes"] <= 0.35 * rec["param_in_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# quantized tier transport (--param-quant q8 | q4)
+# ---------------------------------------------------------------------------
+
+# smoke smollm at d_model 64: every MLP leaf's offset and N are multiples of
+# the 32-element quant block, so q8 rows feed all three projections as they
+# are (at the smoke width 48, w_out's N is not)
+QUANT_D = 64
+MLP_LEAVES = (("mlp", "w_gate"), ("mlp", "w_in"), ("mlp", "w_out"))
+# Bounds as multiples of the bf16 rows' (TIER_TOL on loss and grad norm,
+# 2^-5 * sum(lr) on the rows' mean drift). After each update both packages
+# re-encode their own rows: two masters a rounding apart can land one level
+# apart. q8's 255 levels keep the gaps inside the bf16 bounds (measured on
+# the CPU: loss 0.06, grad norm 0.82, rows 0.27 of them). A q4 block has 16
+# levels, range/15 apart, so a flip moves ~2^-4 of the block's spread where
+# a bf16 rounding moves 2^-8 of a value; measured loss 0.15, grad norm 3.3,
+# rows 1.2 of the bf16 bounds. Each q4 bound sits between that gap and the
+# one a planted fault opens (a layer's row never written back: loss 2.9,
+# grad norm 20, rows 11; test_quantized_bounds_reject_a_row_never_written).
+QUANT_FACTOR = {"q8": {"loss": 1, "grad_norm": 1, "lr": 1, "rows": 1},
+                "q4": {"loss": 1, "grad_norm": 8, "lr": 1, "rows": 4}}
+
+
+@pytest.fixture(scope="module", params=["q8", "q4"])
+def quant_run(request, tmp_path_factory, mesh):
+    out = _both_executors(tmp_path_factory.mktemp(request.param), mesh,
+                          d_model=QUANT_D, param_quant=request.param)
+    out.quant = request.param
+    yield out
+    out.tex.close()
+    out.jex.close()
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_quantized_layered_step_matches_reference(quant_run, step):
+    """The port's layered step against the reference executor's under the
+    same ``param_quant``, loss and grad norm by TIER_TOL (scaled by
+    ``QUANT_FACTOR``). Under q8 the port's MLP products take the
+    dequantized weight in f32 (the TPU kernel's math) where the reference
+    rounds it to bf16: a relative 2^-9 per weight, at or below the bf16
+    rounding of the outputs."""
+    jm, tm = quant_run.jm[step], quant_run.tm[step]
+    for key in ("loss", "grad_norm", "lr"):
+        tol = {k: v * QUANT_FACTOR[quant_run.quant][key] for k, v in TIER_TOL.items()}
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]), **tol, err_msg=key)
+
+
+def _quantized_row_gap(quant_run, tex):
+    """``tex``'s rows after the last step against the reference's: (|diff|,
+    each element's bound, the mean's bound). Beyond the bf16 rows' bound,
+    each package re-encodes its own updated row: values a hair apart may
+    round to neighbouring quants, one quant step apart, and a block's scale
+    follows its largest element; one step is at most the block's absmax/127
+    (q8) or range/15 (q4), taken twice for the two encodes. In the bulk the
+    flips average out to the values' own drift (``QUANT_FACTOR``)."""
+    want = np.asarray(quant_run.jex._materialize_flat()).astype(np.float32)
+    got = _np(tex.materialize_flat())
+    assert got.shape == want.shape
+    lrs = [float(m["lr"]) for m in quant_run.jm]
+    blocks = np.pad(want, ((0, 0), (0, (-want.shape[1]) % 32))).reshape(want.shape[0], -1, 32)
+    if quant_run.quant == "q8":
+        step = np.abs(blocks).max(-1) / 127.0
+    else:
+        step = (blocks.max(-1) - blocks.min(-1)) / 15.0
+    step = np.repeat(step, 32, axis=1)[:, :want.shape[1]]
+    drift = tadam.parity_bound(quant_run.trun.train, lrs)
+    return (np.abs(got - want), drift + 2**-8 * np.abs(want) + 2 * step,
+            QUANT_FACTOR[quant_run.quant]["rows"] * 2**-5 * sum(lrs))
+
+
+def test_quantized_rows_after_last_step_match_reference(quant_run):
+    """Rows read back (decoded) after the last step (``_quantized_row_gap``)."""
+    diff, allowed, mean_bound = _quantized_row_gap(quant_run, quant_run.tex)
+    assert (diff <= allowed).all(), diff.max()
+    assert diff.mean() <= mean_bound, diff.mean()
+
+
+@contextlib.contextmanager
+def _row_never_written(layer: int = 1):
+    """A planted fault: ``layer``'s updated row is never written back (its
+    master moves on in the host optimizer, the stored row stays as seeded)."""
+    write_row = toff.ParamStreamer.write_row
+
+    def drop(self, name, i, t):
+        if i != layer:
+            return write_row(self, name, i, t)
+        done = Future()
+        done.set_result(None)
+        return done
+
+    toff.ParamStreamer.write_row = drop
+    try:
+        yield
+    finally:
+        toff.ParamStreamer.write_row = write_row
+
+
+def _quantized_gaps(quant_run, tex, tm) -> dict:
+    """Each gap to the reference over its bf16 bound (QUANT_FACTOR's units):
+    loss and grad norm per step, the rows' mean drift after the last."""
+    out = {key: [abs(float(t[key]) - float(j[key]))
+                 / (TIER_TOL["atol"] + TIER_TOL["rtol"] * abs(float(j[key])))
+                 for t, j in zip(tm, quant_run.jm)] for key in ("loss", "grad_norm")}
+    diff, _, mean_bound = _quantized_row_gap(quant_run, tex)
+    out["rows"] = float(diff.mean() / mean_bound) * QUANT_FACTOR[quant_run.quant]["rows"]
+    return out
+
+
+def test_quantized_bounds_reject_a_row_never_written(quant_run, tmp_path):
+    """The planted fault ``_row_never_written`` must leave the bounds: the
+    last step's loss and grad norm and the rows' mean drift all do."""
+    _, trun = _runs(tmp_path, d_model=QUANT_D, param_quant=quant_run.quant)
+    with _row_never_written():
+        tex, _, tm, _ = _port_steps(trun, quant_run.init)
+    try:
+        gaps = _quantized_gaps(quant_run, tex, tm)
+    finally:
+        tex.close()
+    for key in ("loss", "grad_norm", "rows"):
+        last = gaps[key][-1] if key != "rows" else gaps[key]
+        assert last > QUANT_FACTOR[quant_run.quant][key], (key, gaps)
+
+
+def test_quantized_rows_cross_the_tier_as_wire_bytes(quant_run):
+    """Every tier still moves bytes every step; the param tier's wire bytes
+    are the format's share of the logical bf16 bytes (q8 34/64, q4 20/64,
+    plus a header per row)."""
+    L, P = 2, quant_run.tex.engine.layout.padded
+    share = {"q8": 0.6, "q4": 0.35}[quant_run.quant]
+    for tm, jm in zip(quant_run.tm, quant_run.jm):
+        assert tm["param_in_bytes"] == 2 * L * P * 2
+        assert tm["param_out_bytes"] == L * P * 2
+        assert 0 < tm["param_in_wire_bytes"] <= share * tm["param_in_bytes"]
+        assert 0 < tm["param_out_wire_bytes"] <= share * tm["param_out_bytes"]
+        for key in ("param_in_bytes", "param_in_wire_bytes", "param_out_bytes",
+                    "param_out_wire_bytes", "grad_out_bytes", "opt_read_bytes"):
+            assert tm[key] == jm[key], key
+        assert tm["nvme_bytes_read"] == (tm["param_in_wire_bytes"] + tm["opt_read_bytes"]
+                                         + tm["grad_out_bytes"])
+
+
+def test_quantized_plan_takes_every_aligned_mlp_leaf(quant_run):
+    """q8 at d_model 64: all three MLP weights go into the quantized
+    product; q4 rows feed no kernel."""
+    want = MLP_LEAVES if quant_run.quant == "q8" else ()
+    assert quant_run.tex.engine.quantized_leaves == want
+
+
+def test_quantized_prefetch_window_equals_reference():
+    for quant in ("none", "q8", "q4"):
+        for L, P, tokens in ((30, 3_540_096, 4096), (30, 3_540_096, 64), (2, 1000, 32)):
+            assert (tsched.default_prefetch_layers(
+                        L, P, tokens, compression_ratio=tqformat.compression_ratio(quant))
+                    == jsched.default_prefetch_layers(
+                        L, P, tokens, compression_ratio=jqformat.compression_ratio(quant)))
+    assert (tsched.default_prefetch_layers(30, 3_540_096, 4096, compression_ratio=64 / 34)
+            > tsched.default_prefetch_layers(30, 3_540_096, 4096))
+
+
+@pytest.fixture(scope="module")
+def wire_pieces(mesh, tmp_path_factory):
+    """One q8 wire row (the reference's encoder) and its host decode, at
+    the aligned width (d_model 64) and at the smoke width (48)."""
+    out = {}
+    for d in (QUANT_D, None):
+        jrun, trun = _runs(tmp_path_factory.mktemp("wire"), d_model=d, param_quant="q8")
+        jeng = jexec.make_engine(jrun, mesh)
+        row = np.asarray(jeng.init_state(jax.random.PRNGKey(4))["flat"][1])
+        wire = jqformat.encode_array(row, "q8")
+        teng = tzero.ExplicitZero3Engine(trun, "cpu")
+        stager = toff.PinnedStager(toff.PinnedBufferPool(1 << 20), "cpu")
+        out[d] = types.SimpleNamespace(
+            jeng=jeng, teng=teng, decoded=jqformat.decode_array(wire),
+            wire=tqformat.wire_row_device(torch.from_numpy(wire.copy()), stager))
+    return out
+
+
+@pytest.mark.parametrize("d_model", [QUANT_D, None])
+def test_wire_row_leaves_match_the_reference_host_decode(wire_pieces, d_model):
+    """Every leaf outside the plan is the reference's host-decoded bf16
+    value bit for bit; each planned leaf's quants and scales dequantize to
+    it in f32. At the smoke width w_out (N = 48) takes the dequantized
+    route, and nothing unaligned is planned."""
+    wp = wire_pieces[d_model]
+    plan = wp.teng.quantized_leaves
+    if d_model is None:
+        assert plan == (("mlp", "w_gate"), ("mlp", "w_in"))
+    else:
+        assert plan == MLP_LEAVES
+    tree = tpt.unflatten_wire_row(*wp.wire, None, wp.teng.layout, plan)
+    jtree = wp.jeng._unflatten_layer(jnp.asarray(wp.decoded))
+    off = 0
+    for path, shape, size in zip(wp.teng.layout.paths, wp.teng.layout.shapes,
+                                 wp.teng.layout.sizes):
+        leaf, want = tpt.tree_get(tree, path), _np(tpt.tree_get(jtree, path))
+        if path in plan:
+            assert isinstance(leaf, tpt.QWeight) and off % 32 == 0 and shape[1] % 32 == 0
+            np.testing.assert_array_equal(
+                tqformat.dequant_q8(leaf.q, leaf.s).to(torch.bfloat16).float().numpy(), want)
+        else:
+            assert leaf.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_np(leaf), want)
+        off += size
+
+
+@pytest.mark.parametrize("d_model", [QUANT_D, None])
+def test_wire_row_layer_pieces_match_reference(wire_pieces, d_model):
+    """``layer_fwd`` and ``layer_vjp`` on the q8 wire row against the
+    reference's on its host-decoded bf16 row (2e-2 of the largest element,
+    as the bf16-row pieces): every leaf gets a gradient, the padding none,
+    and the row gradient is a bf16 row's cotangent carried in f32."""
+    wp = wire_pieces[d_model]
+    d = wp.teng.run.model.d_model
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((B, S, d)) * 0.5).astype(np.float32)
+    dy = (rng.standard_normal((B, S, d)) * 0.1).astype(np.float32)
+    jx, tx = _bf16(x)
+    jdy, tdy = _bf16(dy)
+    jfns, tfns = wp.jeng.make_layer_fns(), wp.teng.make_layer_fns()
+    row_j = jnp.asarray(wp.decoded)
+    _close(tfns["layer_fwd"](tx, wp.wire), jfns["layer_fwd"](jx, row_j), 2e-2)
+    jdx, jg = jfns["layer_vjp"](jx, row_j, jdy)
+    tdx, tg = tfns["layer_vjp"](tx, wp.wire, tdy)
+    assert tg.dtype == torch.float32 and torch.equal(tg, tg.to(torch.bfloat16).float())
+    _close(tdx, jdx, 2e-2)
+    _close(tg, jg, 2e-2)
+    off = 0
+    for size in wp.teng.layout.sizes:
+        assert tg[off:off + size].abs().sum() > 0
+        off += size
+    assert tg[off:].abs().sum() == 0
+
+
+if __name__ == "__main__":
+    # The readings behind QUANT_FACTOR: each gap to the reference over its
+    # bf16 bound, clean and under the planted fault, for q8 and q4 rows:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/test_torch_training.py
+    import json
+    import tempfile
+
+    for fmt in ("q8", "q4"):
+        with tempfile.TemporaryDirectory() as d:
+            run = _both_executors(f"{d}/clean", make_local_mesh(1, 1), d_model=QUANT_D,
+                                  param_quant=fmt)
+            run.quant = fmt
+            _, fault_run = _runs(f"{d}/fault", d_model=QUANT_D, param_quant=fmt)
+            with _row_never_written():
+                fault_tex, _, fault_tm, _ = _port_steps(fault_run, run.init)
+            print(json.dumps({"param_quant": fmt, "bound": QUANT_FACTOR[fmt],
+                              "clean": _quantized_gaps(run, run.tex, run.tm),
+                              "row_never_written": _quantized_gaps(run, fault_tex, fault_tm)}))
+            for ex in (fault_tex, run.tex, run.jex):
+                ex.close()
