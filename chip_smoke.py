@@ -13,11 +13,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; no phase is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ``src/repro_torch/csrc`` (one nvcc each, in
-     parallel);
+     parallel), and count the warpgroup MMA (HGMMA) instructions in the
+     tiled matmul's library (none fails);
   3. each kernel against its plain version at the serve shapes and at one
      ragged shape, in bf16 and f32, element by element (``TOL``), with
      timings of the bf16 serve shapes (kernel, plain, library yardstick)
-     and the least time the card could take (bound);
+     and the least time the card could take (bound); the tiled matmul's
+     route held (bf16 on the tensor cores, f32 and the ragged shape on the
+     CUDA cores) and its tensor-core kernel timed against the CUDA-core one
+     (``simt_ms``, at least ``WGMMA_MIN_SPEEDUP`` faster but at decode);
   4. end-to-end numerics: a 2-layer full-width smollm-135m on the card
      (kernels) against the same weights on the CPU (plain versions),
      teacher-forced prefill + decode logits;
@@ -29,8 +33,9 @@ Phases (any failure exits non-zero; no phase is caught):
      for each;
   7. the training kernels against their plain versions: fused Adam at the
      embedding, ``ln_f`` and 100,001 elements; the flash backward (dq, dk,
-     dv), the tiled matmul's gradient products on transposed views, and the
-     quantized matmul forward and in its dX orientation, at the training
+     dv), the tiled matmul's gradient products on transposed views (all
+     four major-ness combinations, a ragged shape on the tensor cores), and
+     the quantized matmul forward and in its dX orientation, at the training
      shapes and a ragged one, bf16 and f32 (``TOL``), timed in bf16 at the
      training shapes;
   8. training numerics: a 2-layer full-width smollm-135m, 2 layered steps
@@ -45,6 +50,9 @@ Phases (any failure exits non-zero; no phase is caught):
       cross the tier as q8 frames and the MLP projections run the
       quantized-matmul kernel on them), counters zeroed and read again;
   11. the kernels JSON line, then the device JSON line last.
+
+In every main path (5, 6, 9, 10) each tiled-matmul launch must be on the
+tensor-core route (``tiled_matmul_wgmma``), none on ``simt``.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -75,10 +83,12 @@ from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import quantized_matmul as tqm  # noqa: E402
+from repro_torch.kernels import tiled_matmul as tmm  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.runtime import trace  # noqa: E402
+from repro_torch.runtime.metrics import device_ms as time_ms  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no sparsity
@@ -88,7 +98,7 @@ SEED = 0
 FLASH_SERVE = (4, 9, 3, 512, 512, 64)  # B, H, KV, Sq, Sk, D
 TILED_SERVE = [(2048, 576, 1536), (2048, 1536, 576), (4, 576, 1536)]  # M, K, N
 FLASH_RAGGED = (1, 6, 2, 100, 132, 64)  # Sq < Sk, not a multiple of the tiles
-TILED_RAGGED = (300, 200, 100)
+TILED_RAGGED = (300, 200, 100)  # w's rows 200 bytes apart: TMA cannot read it
 # Each element must satisfy |kernel - plain| <= rtol*|plain| + mtol*mag + atol,
 # where mag is the plain version on absolute values (softmax weights on |v|,
 # |x| @ |w|): the size that rounding errors inside the sums scale with.
@@ -113,6 +123,13 @@ TILED_TRAIN = [(4096, 576, 1536, ""), (4096, 1536, 576, ""),
                (4096, 1536, 576, "w"), (576, 4096, 1536, "x"),
                (4096, 576, 1536, "w"), (1536, 4096, 576, "x")]
 TILED_TRAIN_RAGGED = [(300, 200, 100, "x"), (300, 200, 100, "w")]
+# the tensor-core route at the fourth major-ness (x M-major, w K-major, which
+# no main path hands it) at K = 4096, and at a shape that is a multiple of
+# no tile (ragged M, N and K), plain and with each operand transposed
+TILED_WGMMA = [(1536, 4096, 576, "xw")] + [(296, 200, 104, t) for t in ("", "x", "w", "xw")]
+# the tensor-core kernel must beat the CUDA-core one by this at every timed
+# bf16 training and prefill shape (not decode, M = 4)
+WGMMA_MIN_SPEEDUP = 4.0
 ADAM_SIZES = [(49152 * 576, "embed.tok"), (576, "ln_f.scale"), (100_001, "ragged")]
 # the quantized matmul on q8 weights q (K, N): (M, K, N, dX orientation);
 # forward x (M,K) @ W_in|gate (576,1536) and h (M,1536) @ W_out (1536,576),
@@ -162,22 +179,6 @@ TRAIN_TOL = {"rtol": 2e-3, "atol": 2e-3}
 
 def say(*a) -> None:
     print(*a, flush=True)
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls
-    after a warm-up (inputs stay in the 50 MB L2 at these shapes)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -236,18 +237,65 @@ def check_tiled(shape, dtype, gen, timed: bool) -> dict:
     M, K, N = shape
     x = randn((M, K), dtype, gen, 0.1)
     w = randn((K, N), dtype, gen, 0.1)
-    out = ops.tiled_matmul(x, w)
+    out, rec_route = routed_matmul(x, w)
     plain = ref.matmul_ref(x, w)
     mag = ref.matmul_ref(x.abs(), w.abs())
     torch.cuda.synchronize()
     rec = compare("tiled_matmul", shape, dtype, out, plain, mag)
+    rec.update(rec_route)
     if timed:
-        nbytes = (M * K + K * N + M * N) * x.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
-        rec["ms"] = time_ms(lambda: ops.tiled_matmul(x, w))
-        rec["plain_ms"] = time_ms(lambda: ref.matmul_ref(x, w))
-        rec["library_ms"] = time_ms(lambda: torch.matmul(x, w))
+        time_tiled(rec, x, w)
     return rec
+
+
+def routed_matmul(x, w) -> tuple:
+    """``ops.tiled_matmul`` with the route its launch counters say it took,
+    which must be the one ``tiled_matmul.route`` names, and the plan of a
+    tensor-core launch."""
+    before = ops.launch_counts()
+    out = ops.tiled_matmul(x, w)
+    after = ops.launch_counts()
+    took = [r for r in tmm.ROUTES if after[f"tiled_matmul_{r}"] == before[f"tiled_matmul_{r}"] + 1]
+    if took != [tmm.route(x, w)] or after["tiled_matmul"] != before["tiled_matmul"] + 1:
+        raise SystemExit(f"FAIL tiled_matmul: launch counters {before} -> {after} for route "
+                         f"{tmm.route(x, w)}")
+    rec = {"route": took[0]}
+    if took[0] == "wgmma":
+        M, K = x.shape
+        rec["plan"] = tmm.plan(M, w.shape[1], K, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    return out, rec
+
+
+def time_tiled(rec, x, w) -> None:
+    """Times of one product on its route (ms), on the CUDA-core kernel as the
+    previous design (simt_ms), the plain version and ``torch.matmul``."""
+    M, K = x.shape
+    N = w.shape[1]
+    nbytes = (M * K + K * N + M * N) * x.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K, x.dtype)
+    rec["ms"] = time_ms(lambda: ops.tiled_matmul(x, w))
+    rec["call_ms"] = time_ms(lambda: ops.tiled_matmul(x, w), queued=False)
+    rec["simt_ms"] = time_ms(lambda: tmm.tiled_matmul_cuda(x, w, simt=True))
+    rec["plain_ms"] = time_ms(lambda: ref.matmul_ref(x, w))
+    rec["library_ms"] = time_ms(lambda: torch.matmul(x, w))
+    if rec["route"] == "wgmma" and M > 4 and not rec["ms"] * WGMMA_MIN_SPEEDUP <= rec["simt_ms"]:
+        raise SystemExit(f"FAIL tiled_matmul {(M, K, N)}: wgmma {rec['ms']} ms is not "
+                         f"{WGMMA_MIN_SPEEDUP}x faster than simt {rec['simt_ms']} ms")
+
+
+def check_routes(recs) -> None:
+    """Every bf16 product of the serve and training shapes, the fourth
+    major-ness and the TMA-readable ragged shape take the tensor cores; f32
+    and the ragged (300,200,100) the CUDA cores."""
+    for r in recs:
+        shape = tuple(r["shape"])
+        want = "simt" if r["dtype"] == "float32" or shape == TILED_RAGGED else "wgmma"
+        if r.get("transposed") and shape == TILED_RAGGED:
+            continue  # TILED_TRAIN_RAGGED: held only against the plain version
+        if r["route"] != want:
+            raise SystemExit(f"FAIL tiled_matmul {shape} {r['dtype']} "
+                             f"{r.get('transposed', '')!r}: took {r['route']}, want {want}")
 
 
 def phase_kernels() -> dict:
@@ -261,32 +309,30 @@ def phase_kernels() -> dict:
     tiled = [check_tiled(s, bf16, gen, timed=True) for s in TILED_SERVE]
     tiled += [check_tiled(s, f32, gen, timed=False) for s in TILED_SERVE]
     tiled += [check_tiled(TILED_RAGGED, dt, gen, timed=False) for dt in (bf16, f32)]
+    check_routes(tiled)
     for rec in flash + tiled:
         say("kernel check:", json.dumps(rec))
     return {"flash_attention": flash, "tiled_matmul": tiled}
 
 
 def check_tiled_t(case, dtype, gen, timed: bool) -> dict:
-    """One product with one operand as a transposed view (``trans`` "x" or
-    "w"), as the gradient products read the saved tensors."""
+    """One product with operands as transposed views (``trans`` holds "x"
+    and/or "w"), as the gradient products read the saved tensors."""
     M, K, N, trans = case
-    x = randn((K, M) if trans == "x" else (M, K), dtype, gen, 0.1)
-    w = randn((N, K) if trans == "w" else (K, N), dtype, gen, 0.1)
-    x = x.T if trans == "x" else x
-    w = w.T if trans == "w" else w
-    out = ops.tiled_matmul(x, w)
+    x = randn((K, M) if "x" in trans else (M, K), dtype, gen, 0.1)
+    w = randn((N, K) if "w" in trans else (K, N), dtype, gen, 0.1)
+    x = x.T if "x" in trans else x
+    w = w.T if "w" in trans else w
+    out, rec_route = routed_matmul(x, w)
     plain = ref.matmul_ref(x, w)
     mag = ref.matmul_ref(x.abs(), w.abs())
     torch.cuda.synchronize()
     name = "tiled_matmul" if K <= 1536 else "tiled_matmul_k4096"
     rec = compare(name, (M, K, N), dtype, out, plain, mag)
     rec["transposed"] = trans
+    rec.update(rec_route)
     if timed:
-        nbytes = (M * K + K * N + M * N) * x.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
-        rec["ms"] = time_ms(lambda: ops.tiled_matmul(x, w))
-        rec["plain_ms"] = time_ms(lambda: ref.matmul_ref(x, w))
-        rec["library_ms"] = time_ms(lambda: torch.matmul(x, w))
+        time_tiled(rec, x, w)
     return rec
 
 
@@ -394,6 +440,8 @@ def phase_train_kernels() -> dict:
     tiled += [check_tiled_t(c, f32, gen, timed=False) for c in TILED_TRAIN]
     tiled += [check_tiled_t(c, dt, gen, timed=False) for c in TILED_TRAIN_RAGGED
               for dt in (bf16, f32)]
+    tiled += [check_tiled_t(c, bf16, gen, timed=False) for c in TILED_WGMMA]
+    check_routes(tiled)
     qmm = [check_qmm(c, bf16, gen, timed=True) for c in QMM_TRAIN]
     qmm += [check_qmm(c, f32, gen, timed=False) for c in QMM_TRAIN]
     qmm += [check_qmm(c, dt, gen, timed=False) for c in QMM_RAGGED for dt in (bf16, f32)]
@@ -545,7 +593,16 @@ def phase_train_main(quant: str = "none") -> tuple:
     for name, n in want.items():
         if launches[name] < n:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
+    check_main_path_routes(tag, launches)
     return rec, launches
+
+
+def check_main_path_routes(tag, launches) -> None:
+    """Every tiled-matmul launch of a main path is a tensor-core one."""
+    if launches["tiled_matmul_simt"] or launches["tiled_matmul_wgmma"] != launches["tiled_matmul"]:
+        raise SystemExit(f"FAIL {tag}: tiled_matmul launched {launches['tiled_matmul']} times, "
+                         f"{launches['tiled_matmul_wgmma']} on wgmma and "
+                         f"{launches['tiled_matmul_simt']} on simt; want all on wgmma")
 
 
 def phase_e2e() -> dict:
@@ -642,10 +699,25 @@ def summarize(tag, argv, out, launches, wall) -> dict:
         raise SystemExit(f"FAIL {tag}: tiled_matmul launched "
                          f"{launches['tiled_matmul']} < 90 x "
                          f"({waves} waves + {out['steps']} steps)")
+    check_main_path_routes(tag, launches)
     for g in out["generated"]:
         if any(not 0 <= tok < configs.get("smollm-135m").padded_vocab() for tok in g):
             raise SystemExit(f"FAIL {tag}: token outside the padded vocab: {g}")
     return rec
+
+
+def count_hgmma() -> int:
+    """Warpgroup MMA instructions (HGMMA) in the built tiled-matmul library,
+    read with the toolkit's cuobjdump; fails when there are none."""
+    lib = _build.lib_path("tiled_matmul")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    say(f"tiled_matmul: {n} HGMMA instructions in {lib.name}")
+    if n == 0:
+        raise SystemExit("FAIL tiled_matmul: the built library has no HGMMA instruction")
+    return n
 
 
 def main() -> int:
@@ -671,6 +743,7 @@ def main() -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
+    hgmma = count_hgmma()
 
     checks = phase_kernels()
     e2e = phase_e2e()
@@ -733,6 +806,14 @@ def main() -> int:
             "tol": head["tol"], "q8_run_launches": q8_launches[name], "shapes": recs}
         if "yardstick_ms" in head:
             entry["yardstick"], entry["yardstick_ms"] = head["yardstick"], head["yardstick_ms"]
+        if name == "tiled_matmul":
+            entry["simt_ms"] = head["simt_ms"]
+            entry["routes"] = {run: {r: c[f"tiled_matmul_{r}"] for r in tmm.ROUTES}
+                               for run, c in (("train", train_launches), ("train_q8", q8_launches),
+                                              ("serve_host", launches),
+                                              ("serve_nvme", nvme_launches),
+                                              ("serve_nvme_q8", q8kv_launches))}
+            entry["hgmma_instructions"] = hgmma
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name][name]
             entry["nvme_run_launches"] = nvme_launches[name]

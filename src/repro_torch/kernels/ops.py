@@ -224,10 +224,13 @@ def fused_adam(p32: torch.Tensor, g32: torch.Tensor, m: torch.Tensor,
 
 
 def launch_counts() -> dict:
-    """Kernel launches so far in this process, by kernel."""
+    """Kernel launches so far in this process, by kernel; the tiled
+    matmul's also by route (``tiled_matmul`` is their sum)."""
     return {"flash_attention": _fa.launches,
             "flash_attention_bwd": _fa.bwd_launches,
-            "tiled_matmul": _mm.launches, "fused_adam": _ad.launches,
+            "tiled_matmul": _mm.wgmma_launches + _mm.simt_launches,
+            "tiled_matmul_wgmma": _mm.wgmma_launches,
+            "tiled_matmul_simt": _mm.simt_launches, "fused_adam": _ad.launches,
             "quantized_matmul": _qmm.launches,
             "quantized_matmul_dx": _qmm.dx_launches}
 
@@ -235,7 +238,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     _fa.launches = 0
     _fa.bwd_launches = 0
-    _mm.launches = 0
+    _mm.wgmma_launches = 0
+    _mm.simt_launches = 0
     _ad.launches = 0
     _qmm.launches = 0
     _qmm.dx_launches = 0

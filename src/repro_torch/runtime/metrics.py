@@ -1,9 +1,11 @@
 """Step metrics, ported from ``repro/runtime/metrics.py``: the training
 ``MetricsLogger`` (tokens/s, step-time EMA, analytic MFU) and the
-serving-side KV-tier counters (``kv_*``). The elastic metrics wait for the
-elastic runtime (ROADMAP.md Queue 1 item 5)."""
+serving-side KV-tier counters (``kv_*``); ``device_ms``, the card's time
+per kernel call. The elastic metrics wait for the elastic runtime
+(ROADMAP.md Queue 1 item 5)."""
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 # dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet), the
@@ -60,3 +62,30 @@ def kv_step_metrics(delta: dict, resident_bytes: int) -> dict:
         "kv_in_gbps": float(delta.get("read_gbps", 0.0)),
         "kv_out_gbps": float(delta.get("write_gbps", 0.0)),
     }
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """Mean device time of one call of ``fn`` on the card, from CUDA events
+    around ``iters`` calls after a warm-up. With ``queued`` the calls are
+    enqueued behind a spin kernel (``torch.cuda._sleep``) that outlasts
+    their enqueueing, so the card runs them back to back and a call's host
+    time (Python, ctypes, descriptor encoding) stays out of the reading
+    even where it exceeds the kernel's; without, the reading is the time
+    per call as a caller issuing them one after another sees it."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per_call_s = (time.perf_counter() - t0) / warmup  # host and device, an upper bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queued:  # cycles at up to ~2 GHz: twice the enqueueing, capped at 0.5 s
+        torch.cuda._sleep(int(min(2 * iters * per_call_s, 0.5) * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

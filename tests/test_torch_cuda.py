@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import qformat  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import tiled_matmul as tmm  # noqa: E402
 
 
 @pytest.fixture
@@ -39,20 +40,74 @@ def assert_close(got, want, mag, dtype, f32_tol, mtol):
         assert (err <= allowed).all(), (err / allowed).max().item()
 
 
+def _routed(x, w, want):
+    """``ops.tiled_matmul`` on the route ``want``, held by the counters: one
+    launch on that route, none on the other."""
+    assert tmm.route(x, w) == want
+    before = ops.launch_counts()
+    got = ops.tiled_matmul(x, w)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["tiled_matmul"] == before["tiled_matmul"] + 1
+    for r in tmm.ROUTES:
+        key = f"tiled_matmul_{r}"
+        assert after[key] == before[key] + (r == want), (r, before, after)
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2048, 576, 1536), (4, 576, 1536), (300, 200, 100)])
+@pytest.mark.parametrize("shape", [(2048, 576, 1536), (4, 576, 1536), (300, 200, 100),
+                                   (1, 576, 1536), (296, 200, 104), (2048, 1536, 576)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tiled_matmul_kernel_matches_plain(cuda, shape, dtype):
+    """bf16 takes the tensor cores but where TMA cannot read w (300,200,100:
+    rows 200 bytes apart); f32 the CUDA cores."""
     M, K, N = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     x = (torch.randn(M, K, generator=g, device=cuda) * 0.1).to(dtype)
     w = (torch.randn(K, N, generator=g, device=cuda) * 0.1).to(dtype)
-    before = ops.launch_counts()["tiled_matmul"]
-    got = ops.tiled_matmul(x, w)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["tiled_matmul"] == before + 1
+    want = "wgmma" if dtype == torch.bfloat16 and shape != (300, 200, 100) else "simt"
+    got = _routed(x, w, want)
     assert_close(got, ref.matmul_ref(x, w), ref.matmul_ref(x.abs(), w.abs()),
                  dtype, f32_tol=1e-4, mtol=2**-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,trans", [
+    (s, t) for s in [(296, 200, 104), (520, 264, 392), (1536, 4096, 576), (576, 4096, 1536)]
+    for t in ["", "x", "w", "xw"]] + [((4, 576, 1536), ""), ((4, 576, 1536), "w")])
+def test_tiled_matmul_wgmma_reads_every_major_ness(cuda, shape, trans):
+    """x K- or M-major, w N- or K-major (``trans`` names the operands given
+    as transposed views), at M, K, N all distinct -- a square product would
+    not show a B read in the wrong major-ness -- ragged against every tile,
+    split along K = 4096, and at decode's M = 4 (x K-major there: an M-major
+    x of 4 rows has an 8-byte stride, which TMA cannot read)."""
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn((K, M) if "x" in trans else (M, K), generator=g, device=cuda) * 0.1)
+    w = (torch.randn((N, K) if "w" in trans else (K, N), generator=g, device=cuda) * 0.1)
+    x = (x.T if "x" in trans else x).to(torch.bfloat16)
+    w = (w.T if "w" in trans else w).to(torch.bfloat16)
+    got = _routed(x, w, "wgmma")
+    assert_close(got, ref.matmul_ref(x, w), ref.matmul_ref(x.abs(), w.abs()),
+                 torch.bfloat16, f32_tol=None, mtol=2**-11 if K > 1536 else 2**-12)
+
+
+@pytest.mark.cuda
+def test_tiled_matmul_simt_route_on_request(cuda):
+    """``simt=True`` runs the CUDA-core kernel on operands the tensor cores
+    take (the previous design, timed beside the new one)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = (torch.randn(296, 200, generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    w = (torch.randn(200, 104, generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    before = ops.launch_counts()
+    got = tmm.tiled_matmul_cuda(x, w, simt=True)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["tiled_matmul_simt"] == before["tiled_matmul_simt"] + 1
+    assert after["tiled_matmul_wgmma"] == before["tiled_matmul_wgmma"]
+    assert_close(got, ref.matmul_ref(x, w), ref.matmul_ref(x.abs(), w.abs()),
+                 torch.bfloat16, f32_tol=None, mtol=2**-12)
 
 
 @pytest.mark.cuda
@@ -186,6 +241,7 @@ def test_layer_vjp_gives_every_row_leaf_a_gradient_on_the_card(cuda):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
     assert counts["tiled_matmul"] == 3 + 6  # 3 projections, 2 gradient products each
+    assert counts["tiled_matmul_wgmma"] == 9  # every one on the tensor cores
     assert grow.dtype == torch.float32 and torch.isfinite(grow).all()
     off = 0
     for path, size in zip(eng.layout.paths, eng.layout.sizes):
