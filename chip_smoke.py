@@ -14,14 +14,15 @@ Phases (any failure exits non-zero; no phase is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel), and count the warpgroup MMA (HGMMA) instructions in the
-     tiled matmul's library (none fails);
-  3. each kernel against its plain version at the serve shapes and at one
-     ragged shape, in bf16 and f32, element by element (``TOL``), with
+     flash-attention and tiled-matmul libraries (none in either fails);
+  3. each kernel against its plain version at the serve shapes and at a
+     ragged shape (flash attention: two), in bf16 and f32, element by element (``TOL``), with
      timings of the bf16 serve shapes (kernel, plain, library yardstick)
-     and the least time the card could take (bound); the tiled matmul's
-     route held (bf16 on the tensor cores, f32 and the ragged shape on the
-     CUDA cores) and its tensor-core kernel timed against the CUDA-core one
-     (``simt_ms``, at least ``WGMMA_MIN_SPEEDUP`` faster but at decode);
+     and the least time the card could take (bound); the flash attention's
+     and the tiled matmul's routes held (bf16 on the tensor cores, f32 and
+     the tiled matmul's ragged shape on the CUDA cores) and their
+     tensor-core kernels timed against the CUDA-core ones (``simt_ms``, at
+     least ``WGMMA_MIN_SPEEDUP`` faster but at decode);
   4. end-to-end numerics: a 2-layer full-width smollm-135m on the card
      (kernels) against the same weights on the CPU (plain versions),
      teacher-forced prefill + decode logits;
@@ -32,16 +33,18 @@ Phases (any failure exits non-zero; no phase is caught):
      blocks and once with q8 ones (``--kv-quant q8``), counters read again
      for each;
   7. the training kernels against their plain versions: fused Adam at the
-     embedding, ``ln_f`` and 100,001 elements; the flash backward (dq, dk,
-     dv), the tiled matmul's gradient products on transposed views (all
-     four major-ness combinations, a ragged shape on the tensor cores), and
-     the quantized matmul forward and in its dX orientation, at the training
-     shapes and a ragged one, bf16 and f32 (``TOL``), timed in bf16 at the
-     training shapes;
+     embedding, ``ln_f`` and 100,001 elements; the flash forward and
+     backward (dq, dk, dv; routes held, the tensor-core kernels timed
+     against the CUDA-core ones as in 3), the tiled matmul's gradient
+     products on transposed views (all four major-ness combinations, a
+     ragged shape on the tensor cores), and the quantized matmul forward and
+     in its dX orientation, at the training shapes and a ragged one (flash:
+     two), bf16 and f32 (``TOL``), timed in bf16 at the training shapes;
   8. training numerics: a 2-layer full-width smollm-135m, 2 layered steps
      on the card (kernels) against the CPU (plain versions) from the same
-     weights and batches: loss, grad norm, and the rows read back from the
-     param store; once with bf16 rows, once with q8 wire rows;
+     weights and batches: loss, grad norm, the rows' f32 Adam masters read
+     back from the optimizer store and the rows read back from the param
+     store; once with bf16 rows, once with q8 wire rows;
   9. the training main path: ``launch.train`` on full smollm-135m (30
      layers), zero3 with params, grads and optimizer states on NVMe, 8
      steps of 8 x 512 tokens, tracer on; launch counters zeroed just before
@@ -51,8 +54,9 @@ Phases (any failure exits non-zero; no phase is caught):
       quantized-matmul kernel on them), counters zeroed and read again;
   11. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10) each tiled-matmul launch must be on the
-tensor-core route (``tiled_matmul_wgmma``), none on ``simt``.
+In every main path (5, 6, 9, 10) each flash-attention launch, forward and
+backward, and each tiled-matmul launch must be on the tensor-core route
+(``*_wgmma``), none on ``simt``.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -98,6 +102,8 @@ SEED = 0
 FLASH_SERVE = (4, 9, 3, 512, 512, 64)  # B, H, KV, Sq, Sk, D
 TILED_SERVE = [(2048, 576, 1536), (2048, 1536, 576), (4, 576, 1536)]  # M, K, N
 FLASH_RAGGED = (1, 6, 2, 100, 132, 64)  # Sq < Sk, not a multiple of the tiles
+# Sq = Sk, 77 rows a head: a head's lse rows start off 16-byte boundaries
+FLASH_ODD = (2, 3, 1, 77, 77, 64)
 TILED_RAGGED = (300, 200, 100)  # w's rows 200 bytes apart: TMA cannot read it
 # Each element must satisfy |kernel - plain| <= rtol*|plain| + mtol*mag + atol,
 # where mag is the plain version on absolute values (softmax weights on |v|,
@@ -127,8 +133,9 @@ TILED_TRAIN_RAGGED = [(300, 200, 100, "x"), (300, 200, 100, "w")]
 # no main path hands it) at K = 4096, and at a shape that is a multiple of
 # no tile (ragged M, N and K), plain and with each operand transposed
 TILED_WGMMA = [(1536, 4096, 576, "xw")] + [(296, 200, 104, t) for t in ("", "x", "w", "xw")]
-# the tensor-core kernel must beat the CUDA-core one by this at every timed
-# bf16 training and prefill shape (not decode, M = 4)
+# the tensor-core kernels (tiled matmul, flash forward and backward) must
+# beat the CUDA-core ones by this at every timed bf16 training and prefill
+# shape (not the tiled matmul at decode, M = 4)
 WGMMA_MIN_SPEEDUP = 4.0
 ADAM_SIZES = [(49152 * 576, "embed.tok"), (576, "ln_f.scale"), (100_001, "ragged")]
 # the quantized matmul on q8 weights q (K, N): (M, K, N, dX orientation);
@@ -165,10 +172,13 @@ TOL.update({
 # reference's cross-tier tolerance (rtol = atol = 2e-3; bf16 activations
 # rounded at other places, averaged down in a mean and a norm). Rows after
 # the last step: AdamW's normalized update is bounded whatever the
-# gradient, so two runs differ by at most ``adam.parity_bound`` (~2 *
-# sum(lr): a tiny gradient may flip sign between them) plus the stored
-# row's bf16 rounding; in the bulk, gradients rounded to bf16 apart (2^-8)
-# move Adam's ratio by a few 2^-8 of lr: mean |diff| <= 2^-5 * sum(lr).
+# gradient, so the two runs' f32 masters differ by at most
+# ``adam.parity_bound`` (~2 * sum(lr): a tiny gradient may flip sign
+# between them), held as it is on the masters read back from the optimizer
+# store; the stored bf16 rows add each side's rounding, at most half an ulp
+# of each (<= 2^-8 of its value); in the bulk, gradients rounded to bf16
+# apart (2^-8) move Adam's ratio by a few 2^-8 of lr: mean |diff| <= 2^-5 *
+# sum(lr).
 # With q8 rows each side re-encodes its updated rows: a value may land one
 # quant step (its block's absmax/127) from the other side's, so each
 # element's bound adds two steps; the mean bound holds as it is (the flips
@@ -216,21 +226,70 @@ def check_flash(shape, dtype, gen, timed: bool) -> dict:
     q = randn((B, Sq, H, D), dtype, gen, 1.0).transpose(1, 2)
     k = randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2)
     v = randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2)
-    out = ops.flash_attention(q, k, v, causal=True)
+    out, rec_route = routed_flash(lambda: ops.flash_attention(q, k, v, causal=True), (q, k, v))
     plain = ref.attention_ref(q, k, v, causal=True)
     mag = ref.attention_ref(q, k, v.abs(), causal=True)
     torch.cuda.synchronize()
     rec = compare("flash_attention", shape, dtype, out, plain, mag)
+    rec.update(rec_route)
     if timed:
         # causal: query i needs keys j <= i + (Sk - Sq), the work this run does
         pairs = sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq)) * B * H
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * D * pairs, dtype)
         rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+        rec["call_ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True), queued=False)
+        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_cuda(q, k, v, simt=True))
         rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
         rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
+        check_speedup("flash_attention", shape, rec)
     return rec
+
+
+def routed(key: str, fn, want: str):
+    """``fn()``, held by the launch counters of ``key`` to one launch on the
+    route ``want`` (the one its module's ``route`` names), none on the
+    other."""
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    took = [r for r in tmm.ROUTES if after[f"{key}_{r}"] == before[f"{key}_{r}"] + 1]
+    if took != [want] or after[key] != before[key] + 1:
+        raise SystemExit(f"FAIL {key}: launch counters {before} -> {after} for route {want}")
+    return out
+
+
+def routed_flash(fn, inputs, bwd: bool = False) -> tuple:
+    """A flash-attention call on the route ``flash_attention.route`` names
+    for ``inputs`` (``routed``), and the plan of a tensor-core launch."""
+    want = tfa.route(*inputs)
+    out = routed("flash_attention_bwd" if bwd else "flash_attention", fn, want)
+    rec = {"route": want}
+    if want == "wgmma":
+        (B, H, Sq, _), (_, KV, Sk, _) = inputs[0].shape, inputs[1].shape
+        p = tfa.plan(B, H, KV, Sq, Sk, sms=torch.cuda.get_device_properties(0)
+                     .multi_processor_count)
+        rec["plan"] = {kern: {k: p[kern][k] for k in ("tile", "blocks", "blocks_per_sm")}
+                       for kern in (("dkdv", "dq") if bwd else ("fwd",))}
+    return out, rec
+
+
+def check_speedup(name, shape, rec) -> None:
+    """A tensor-core launch must beat the CUDA-core kernel on the same
+    inputs by ``WGMMA_MIN_SPEEDUP``."""
+    if rec["route"] == "wgmma" and not rec["ms"] * WGMMA_MIN_SPEEDUP <= rec["simt_ms"]:
+        raise SystemExit(f"FAIL {name} {shape}: wgmma {rec['ms']} ms is not "
+                         f"{WGMMA_MIN_SPEEDUP}x faster than simt {rec['simt_ms']} ms")
+
+
+def check_flash_routes(recs) -> None:
+    """bf16 at head_dim 64 takes the tensor cores, f32 the CUDA cores."""
+    for r in recs:
+        want = "simt" if r["dtype"] == "float32" else "wgmma"
+        if r["route"] != want:
+            raise SystemExit(f"FAIL flash_attention {r['shape']} {r['dtype']}: took "
+                             f"{r['route']}, want {want}")
 
 
 def check_tiled(shape, dtype, gen, timed: bool) -> dict:
@@ -249,18 +308,12 @@ def check_tiled(shape, dtype, gen, timed: bool) -> dict:
 
 
 def routed_matmul(x, w) -> tuple:
-    """``ops.tiled_matmul`` with the route its launch counters say it took,
-    which must be the one ``tiled_matmul.route`` names, and the plan of a
-    tensor-core launch."""
-    before = ops.launch_counts()
-    out = ops.tiled_matmul(x, w)
-    after = ops.launch_counts()
-    took = [r for r in tmm.ROUTES if after[f"tiled_matmul_{r}"] == before[f"tiled_matmul_{r}"] + 1]
-    if took != [tmm.route(x, w)] or after["tiled_matmul"] != before["tiled_matmul"] + 1:
-        raise SystemExit(f"FAIL tiled_matmul: launch counters {before} -> {after} for route "
-                         f"{tmm.route(x, w)}")
-    rec = {"route": took[0]}
-    if took[0] == "wgmma":
+    """``ops.tiled_matmul`` on the route ``tiled_matmul.route`` names
+    (``routed``), and the plan of a tensor-core launch."""
+    want = tmm.route(x, w)
+    out = routed("tiled_matmul", lambda: ops.tiled_matmul(x, w), want)
+    rec = {"route": want}
+    if want == "wgmma":
         M, K = x.shape
         rec["plan"] = tmm.plan(M, w.shape[1], K, torch.cuda.get_device_properties(0)
                                .multi_processor_count)
@@ -279,9 +332,8 @@ def time_tiled(rec, x, w) -> None:
     rec["simt_ms"] = time_ms(lambda: tmm.tiled_matmul_cuda(x, w, simt=True))
     rec["plain_ms"] = time_ms(lambda: ref.matmul_ref(x, w))
     rec["library_ms"] = time_ms(lambda: torch.matmul(x, w))
-    if rec["route"] == "wgmma" and M > 4 and not rec["ms"] * WGMMA_MIN_SPEEDUP <= rec["simt_ms"]:
-        raise SystemExit(f"FAIL tiled_matmul {(M, K, N)}: wgmma {rec['ms']} ms is not "
-                         f"{WGMMA_MIN_SPEEDUP}x faster than simt {rec['simt_ms']} ms")
+    if M > 4:
+        check_speedup("tiled_matmul", (M, K, N), rec)
 
 
 def check_routes(recs) -> None:
@@ -305,11 +357,13 @@ def phase_kernels() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     flash = [check_flash(FLASH_SERVE, bf16, gen, timed=True)]
     flash += [check_flash(FLASH_SERVE, f32, gen, timed=False)]
-    flash += [check_flash(FLASH_RAGGED, dt, gen, timed=False) for dt in (bf16, f32)]
+    flash += [check_flash(s, dt, gen, timed=False) for s in (FLASH_RAGGED, FLASH_ODD)
+              for dt in (bf16, f32)]
     tiled = [check_tiled(s, bf16, gen, timed=True) for s in TILED_SERVE]
     tiled += [check_tiled(s, f32, gen, timed=False) for s in TILED_SERVE]
     tiled += [check_tiled(TILED_RAGGED, dt, gen, timed=False) for dt in (bf16, f32)]
     check_routes(tiled)
+    check_flash_routes(flash)
     for rec in flash + tiled:
         say("kernel check:", json.dumps(rec))
     return {"flash_attention": flash, "tiled_matmul": tiled}
@@ -343,25 +397,32 @@ def check_flash_bwd(shape, dtype, gen, timed: bool) -> dict:
     q, do = (randn((B, Sq, H, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
     k, v = (randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
     o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
-    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    got, rec_route = routed_flash(
+        lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True), (q, k, v, do),
+        bwd=True)
     want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
     torch.cuda.synchronize()
     recs = [compare("flash_attention_bwd", shape, dtype, g, w, w.float().abs().max())
             for g, w in zip(got, want)]
     rec = {"shape": list(shape), "dtype": recs[0]["dtype"], "tol": recs[0]["tol"],
            "max_abs_err": max(r["max_abs_err"] for r in recs),
-           "worst_err_over_tol": max(r["worst_err_over_tol"] for r in recs)}
+           "worst_err_over_tol": max(r["worst_err_over_tol"] for r in recs), **rec_route}
     if timed:
         pairs = sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq)) * B * H
         nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()  # q o dO dq; k v dk dv
                   + lse.numel() * 4)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * D * pairs, dtype)
         rec["ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do))
+        rec["call_ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do),
+                                 queued=False)
+        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                      simt=True))
         rec["plain_ms"] = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do))
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
         rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
+        check_speedup("flash_attention_bwd", shape, rec)
     return rec
 
 
@@ -435,7 +496,9 @@ def phase_train_kernels() -> dict:
     fwd = [check_flash(FLASH_TRAIN, bf16, gen, timed=True)]
     bwd = [check_flash_bwd(FLASH_TRAIN, bf16, gen, timed=True)]
     bwd += [check_flash_bwd(FLASH_TRAIN, f32, gen, timed=False)]
-    bwd += [check_flash_bwd(FLASH_RAGGED, dt, gen, timed=False) for dt in (bf16, f32)]
+    bwd += [check_flash_bwd(s, dt, gen, timed=False) for s in (FLASH_RAGGED, FLASH_ODD)
+            for dt in (bf16, f32)]
+    check_flash_routes(fwd + bwd)
     tiled = [check_tiled_t(c, bf16, gen, timed=True) for c in TILED_TRAIN]
     tiled += [check_tiled_t(c, f32, gen, timed=False) for c in TILED_TRAIN]
     tiled += [check_tiled_t(c, dt, gen, timed=False) for c in TILED_TRAIN_RAGGED
@@ -470,6 +533,17 @@ def _q8_step(rows: torch.Tensor) -> torch.Tensor:
     return scales.float().repeat_interleave(qformat.BLOCK, dim=1)[:, :P]
 
 
+def _masters(ex) -> torch.Tensor:
+    """The (L, P) f32 Adam masters of the rows, read back from the
+    optimizer store."""
+    off = ex.offload
+    off.store.flush()  # the last step's write-back
+    flat = {key: torch.cat([off.store.read(f"{key}.master.{ci}").result().reshape(-1)
+                            for ci in range(-(-n // off.chunk))])
+            for key, _, n in off.layout}
+    return torch.stack([flat[f"rank0/l{li}"] for li in range(len(flat))]).float()
+
+
 def phase_train_numerics(quant: str = "none") -> dict:
     """Full-width smollm-135m cut to 2 layers: 2 layered steps on the card
     (kernels) and on the CPU (plain versions), same weights and batches;
@@ -493,19 +567,23 @@ def phase_train_numerics(quant: str = "none") -> dict:
             batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
             state, m = step(state, batch)
             traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
-        out[dev] = (traj, ex.materialize_flat().float())
+        out[dev] = (traj, ex.materialize_flat().float(), _masters(ex))
         ex.close()
-    (tc, rows_c), (tg, rows_g) = out["cpu"], out["cuda"]
+    (tc, rows_c, masters_c), (tg, rows_g, masters_g) = out["cpu"], out["cuda"]
     lrs = [t["lr"] for t in tc]
     drift = adam.parity_bound(TrainConfig(), lrs)
+    master_diff = (masters_g - masters_c).abs()
     diff = (rows_g - rows_c).abs()
-    allowed = drift + 2**-8 * rows_c.abs()
+    # each side's bf16 rounding of its master: half an ulp, <= 2^-8 |value|
+    allowed = drift + 2**-8 * (rows_c.abs() + rows_g.abs())
     if quant == "q8":
         allowed = allowed + 2 * _q8_step(rows_c)
     rec = {"param_quant": quant, "layers": 2, "d_model": cfg.d_model, "batch": B,
            "seq": S, "steps": steps, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "rows_max_abs_diff": diff.max().item(), "rows_mean_abs_diff": diff.mean().item(),
            "rows_worst_diff_over_bound": (diff / allowed).max().item(),
+           "masters_max_abs_diff": master_diff.max().item(),
+           "masters_worst_diff_over_drift": master_diff.max().item() / drift,
            "rows_max_bound": drift, "rows_mean_bound": 2**-5 * sum(lrs)}
     say("train numerics:", json.dumps(rec))
     for c, g in zip(tc, tg):
@@ -513,7 +591,7 @@ def phase_train_numerics(quant: str = "none") -> dict:
             if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
                 raise SystemExit(f"FAIL train numerics ({quant}): card {key} {g[key]} "
                                  f"vs CPU {c[key]}")
-    if not bool((diff <= allowed).all()) \
+    if not rec["masters_max_abs_diff"] <= drift or not bool((diff <= allowed).all()) \
             or not rec["rows_mean_abs_diff"] <= rec["rows_mean_bound"]:
         raise SystemExit(f"FAIL train numerics ({quant}): rows differ beyond the bound: {rec}")
     return rec
@@ -598,11 +676,13 @@ def phase_train_main(quant: str = "none") -> tuple:
 
 
 def check_main_path_routes(tag, launches) -> None:
-    """Every tiled-matmul launch of a main path is a tensor-core one."""
-    if launches["tiled_matmul_simt"] or launches["tiled_matmul_wgmma"] != launches["tiled_matmul"]:
-        raise SystemExit(f"FAIL {tag}: tiled_matmul launched {launches['tiled_matmul']} times, "
-                         f"{launches['tiled_matmul_wgmma']} on wgmma and "
-                         f"{launches['tiled_matmul_simt']} on simt; want all on wgmma")
+    """Every flash-attention (forward and backward) and tiled-matmul launch
+    of a main path is a tensor-core one."""
+    for name in ("flash_attention", "flash_attention_bwd", "tiled_matmul"):
+        if launches[f"{name}_simt"] or launches[f"{name}_wgmma"] != launches[name]:
+            raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times, "
+                             f"{launches[f'{name}_wgmma']} on wgmma and "
+                             f"{launches[f'{name}_simt']} on simt; want all on wgmma")
 
 
 def phase_e2e() -> dict:
@@ -706,17 +786,17 @@ def summarize(tag, argv, out, launches, wall) -> dict:
     return rec
 
 
-def count_hgmma() -> int:
-    """Warpgroup MMA instructions (HGMMA) in the built tiled-matmul library,
-    read with the toolkit's cuobjdump; fails when there are none."""
-    lib = _build.lib_path("tiled_matmul")
+def count_hgmma(name: str) -> int:
+    """Warpgroup MMA instructions (HGMMA) in a built kernel library, read
+    with the toolkit's cuobjdump; fails when there are none."""
+    lib = _build.lib_path(name)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     n = sum("HGMMA" in line for line in sass.splitlines())
-    say(f"tiled_matmul: {n} HGMMA instructions in {lib.name}")
+    say(f"{name}: {n} HGMMA instructions in {lib.name}")
     if n == 0:
-        raise SystemExit("FAIL tiled_matmul: the built library has no HGMMA instruction")
+        raise SystemExit(f"FAIL {name}: the built library has no HGMMA instruction")
     return n
 
 
@@ -743,7 +823,7 @@ def main() -> int:
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
-    hgmma = count_hgmma()
+    hgmma = {name: count_hgmma(name) for name in ("flash_attention", "tiled_matmul")}
 
     checks = phase_kernels()
     e2e = phase_e2e()
@@ -806,14 +886,14 @@ def main() -> int:
             "tol": head["tol"], "q8_run_launches": q8_launches[name], "shapes": recs}
         if "yardstick_ms" in head:
             entry["yardstick"], entry["yardstick_ms"] = head["yardstick"], head["yardstick_ms"]
-        if name == "tiled_matmul":
-            entry["simt_ms"] = head["simt_ms"]
-            entry["routes"] = {run: {r: c[f"tiled_matmul_{r}"] for r in tmm.ROUTES}
+        if name in ("flash_attention", "flash_attention_bwd", "tiled_matmul"):
+            entry["simt_ms"], entry["call_ms"] = head["simt_ms"], head["call_ms"]
+            entry["routes"] = {run: {r: c[f"{name}_{r}"] for r in tmm.ROUTES}
                                for run, c in (("train", train_launches), ("train_q8", q8_launches),
                                               ("serve_host", launches),
                                               ("serve_nvme", nvme_launches),
                                               ("serve_nvme_q8", q8kv_launches))}
-            entry["hgmma_instructions"] = hgmma
+            entry["hgmma_instructions"] = hgmma[name.removesuffix("_bwd")]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name][name]
             entry["nvme_run_launches"] = nvme_launches[name]

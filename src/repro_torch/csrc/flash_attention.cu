@@ -9,47 +9,107 @@
 // asked, it also writes each row's f32 log-sum-exp m + log(l), which the
 // backward reads instead of recomputing the softmax's normalizer.
 //
-// Design. One thread block per (q tile of BQ rows, head, batch); a loop over
-// K/V tiles of BK keys staged in shared memory as f32 takes the place of the
-// TPU's sequential grid axis. LANES threads share one query row: each keeps
-// D/LANES of the row's q and accumulator in registers (dims d = lane +
-// LANES*i, so the lanes of a row read neighbouring shared-memory words), and
-// a score is the sum of the lanes' partial dot products through two warp
-// shuffles. The K/V tiles past the causal frontier of the block's last row
-// are skipped: their scores would be -1e30 and contribute exactly 0.
-//
 // Backward (no TPU counterpart: the reference differentiates its jnp
-// chunked attention). The classic split into kernels with no atomics, so
-// the GQA sums come in a fixed order and repeat to the bit:
-//   delta: delta_i = sum_d dO_id O_id in f32, one row per LANES threads;
-//   dK/dV: one block per (K/V tile of BK keys, KV head, batch), LANES
-//          threads per key holding k_j, v_j and the f32 dk_j, dv_j in
-//          registers; it loops over the group's H/KV query heads and the
-//          query tiles at or past the causal frontier (q, dO, lse, delta
-//          staged in shared memory), recomputes p = exp(s - lse), adds
-//          p_r * dO to dv (p_r = p rounded to the input type, as the forward
-//          rounds it before P@V) and ds * q to dk, ds = p * (dP - delta);
-//   dQ:    one block per (q tile, head, batch) like the forward, looping
-//          over K/V tiles up to the frontier and adding ds * k to dq.
+// chunked attention), as kernels/ref.py:attention_bwd_ref states it, split
+// into kernels with no atomics, so the GQA sums come in a fixed order and a
+// run repeats to the bit: delta_i = sum_d dO_id O_id; dK/dV per key tile,
+// looping over the group's H/KV query heads and the query tiles at or past
+// the causal frontier; dQ per query tile.
 //
-// Bound on this card: at the train shapes (B=8, H=9, KV=3, Sq=Sk=512, D=64,
-// bf16) the forward's causal work is ~2.4 GFLOP against ~12.6 MB, ~190
-// flop/byte, under the H100's ~295 flop/byte bf16 ridge: bytes bound it
-// (~3.8 us). The backward reads q, k, v, o, dO, lse and writes dq, dk, dv
-// for 10*D flops per causal pair, ~6 GFLOP against ~20 MB: ~300 flop/byte,
-// at the ridge. These first versions compute with CUDA-core FMAs in f32
-// (67 TF/s peak), not the tensor cores, so in practice those operations
-// bound them; wgmma/TMA are the later, faster version.
+// Two routes, chosen per call by kernels/flash_attention.py:route():
+//   wgmma -- bf16, D in {64, 128}, every operand one TMA can describe (unit
+//            last stride, the others multiples of 8 elements, base aligned
+//            to 16 bytes): tensor cores fed by TMA under mbarriers. Every
+//            bf16 attention call of the serving and training paths takes it.
+//   simt  -- everything else: f32 (wgmma's only f32 input is TF32, which
+//            would break the f32 tolerance), D = 32, views TMA cannot
+//            describe. The first design's CUDA-core f32 FMAs, kept as it
+//            was: LANES threads per query (or key) row, K/V tiles of 32
+//            staged as f32 in static shared memory.
+//
+// Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; each input read once,
+// each output written once). At the training shape (B 8, H 9, KV 3,
+// Sq = Sk = 512, D 64, causal; 9,455,616 causal (query, key) pairs) the
+// forward does 4 D flops per pair, 2.42 GFLOP, against 12.6 MB: 3.76 us by
+// bytes (2.45 us by operations). The backward reads q, k, v, o, dO, lse
+// and writes dq, dk, dv, 20.6 MB, for 10 D flops per pair, 6.05 GFLOP:
+// 6.15 us by bytes (6.12 us by operations). The forward sits below the
+// card's ~295 flop/byte ridge and the backward on it, so bytes bound both;
+// the CUDA-core route is bound by its operations instead (67 TFLOP/s f32:
+// 36 and 90 us at best), which is what the tensor cores remove.
+//
+// wgmma design. Every product is one of two wgmma forms (csrc/sm90.cuh):
+// SS, both operands K-major in shared memory, for S = Q K^T and dP = dO V^T
+// (and, with keys as rows, S^T = K Q^T and dP^T = V dO^T); RS, A in
+// registers -- the previous product's f32 accumulator packed pairwise into
+// bf16, which is exactly its A fragment -- and B N-major in shared memory,
+// for O += P V, dQ += dS K, dV += P^T dO and dK += dS^T Q. A (rows x D)
+// tile lands from one 4-D TMA map per tensor ({D, S, H, B}, the model's
+// (B,S,H,D) storage read through its (B,H,S,D) view, no copy) as D/64
+// chunks of rows x 128 bytes under the 128-byte swizzle, so the same tile
+// serves as a K-major operand (contracting over D) and as an N-major B
+// (contracting over its rows). TMA zero-fills rows past S, which is not a
+// mask here (a zero key scores 0, a zero query row with lse 0 gives p = 1),
+// so every kernel masks keys past Sk and query rows past Sq itself.
+//   forward (fwd_kernel): one block per (128 query rows, head, batch), the
+//     last query tiles launched first (under causal they see the most keys:
+//     no tail of heavy blocks). Two consumer warpgroups own 64 rows each;
+//     one producer thread loads the Q tile once, then K/V tiles of 64 keys
+//     through a 2-stage ring under full/empty mbarriers, up to the causal
+//     frontier of the block's last row (a warpgroup skips the tiles past
+//     its own). Per tile: S (SS), mask, the online softmax on the
+//     accumulator registers (a row's max and sum reduce over the 4 threads
+//     that hold it; l sums f32 p), P rounded to bf16 in registers, O += P V
+//     (RS). The epilogue writes O in q's strides and the lse.
+//   dQ (dq_kernel): the forward's grid and ring; Q and dO tiles load once;
+//     per K/V tile S and dP (SS), dS = P (dP - delta) in registers, then
+//     dQ += dS K as two RS products on dS's bf16 hi + lo pair.
+//   dK/dV (dkdv_kernel): one block per (64 keys, KV head, batch), one
+//     consumer warpgroup (the keys are the rows of every product), key tile
+//     0 first. 128-key blocks would give 4 x 3 x 8 = 96 blocks at the
+//     training shape, fewer than the 132 SMs; 64-key blocks give 192. K and
+//     V load once; the ring carries the q tile, the dO tile (64 rows each)
+//     and their 64 lse and delta values (1-D TMA maps; a box starts on 16
+//     bytes, so 68 values from the boundary at or before them) for each
+//     query head of the group and each query tile at or past the causal
+//     frontier. Per stage: S^T and dP^T (SS), P^T = exp(S^T scale - lse)
+//     and dS^T with lse and delta read per column from shared memory,
+//     dV += bf16(P^T) dO and dK += dS^T Q on dS's hi + lo pair (RS).
+//   delta stays the CUDA-core row reduction on both routes.
+// dS goes to the tensor cores as hi = bf16(dS) and lo = bf16(dS - hi), two
+// RS products where one would do, because dS rounded once to bf16 does not
+// fit chip_smoke.py's unchanged backward tolerance: emulated on the CPU
+// (tests/test_torch_tolerance.py) it takes an element of dK past it at two
+// batches of the training cell's heads, where the pair stays under 0.6 of
+// it. The CUDA-core kernels multiply dS in f32. P for dV is rounded to
+// bf16, as in P@V.
+// Descriptors are encoded on the host per call through
+// cudaGetDriverEntryPoint (no -lcuda) and passed as __grid_constant__
+// parameters. Left for later: a second consumer stage overlapping softmax
+// with the next tile's products, persistent scheduling, cached descriptors,
+// TMA stores of the outputs, window and softcap.
+//
+// Registers and spills (nvcc -Xptxas -v, CUDA 12.8, sm_90a): forward 96 at
+// D = 64 (two blocks per SM: 28 bytes of spill, and ptxas serializes its
+// wgmmas for want of registers -- still faster at the training shape than
+// one block per SM without either, slower at the serve shape; PERF.md),
+// 149 at D = 128; dQ 135 / 157; dK/dV 168 / 231; none of these spill. The
+// simt kernels are as they were: forward up to 128 registers, dQ up to 166,
+// dK/dV up to 216, delta 27-32, no spills.
 //
 // C interface (ctypes): pointers and the stream are void*, strides are in
 // elements and the last dim is contiguous; lse and delta are contiguous
-// (B, H, Sq) f32. Each entry returns cudaGetLastError().
+// (B, H, Sq) f32. The wgmma entries take the same arguments as the simt
+// ones. Each entry returns cudaGetLastError() (or cudaErrorInvalidValue for
+// what it cannot take).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace {
+#include "sm90.cuh"
+
+namespace simt {
 
 constexpr int BQ = 32;
 constexpr int BK = 32;
@@ -470,42 +530,658 @@ bool bad_dims(int B, int H, int KV, int Sq, int Sk, int causal) {
          (causal && Sq > Sk) || B > 65535 || H > 65535;
 }
 
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// The wgmma route: bf16, D in {64, 128}, operands TMA can describe.
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using namespace sm90;
+using simt::BwdArgs;
+using simt::FwdArgs;
+using simt::NEG_INF;
+using simt::Strides;
+
+constexpr int BQ = 128;   // query rows per forward / dQ block: two m64 consumer warpgroups
+constexpr int BKV = 64;   // keys per K/V tile, and per dK/dV block (one warpgroup)
+constexpr int BQB = 64;   // query rows per tile of the dK/dV block's loop
+// lse / delta values per dK/dV stage: a TMA box must start on 16 bytes, so
+// a tile's BQB values are loaded from the 4-value boundary at or before them
+constexpr int ROW_BOX = BQB + 4;
+constexpr int STAGES = 2;  // ring depth
+constexpr int THREADS = 2 * 128 + 32;     // forward / dQ: two consumer warpgroups + a producer warp
+constexpr int THREADS_KV = 128 + 32;      // dK/dV: one consumer warpgroup + a producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D> constexpr int tile_bytes(int rows) { return rows * D * 2; }
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// K/V tiles that query rows up to last_row (inclusive) see: all of them,
+// or under causal those up to the frontier key last_row + (Sk - Sq).
+__host__ __device__ inline int kv_tiles(int last_row, int Sq, int Sk, int causal) {
+  const int n = cdiv(Sk, BKV);
+  const int frontier = (last_row + Sk - Sq) / BKV + 1;
+  return causal && frontier < n ? frontier : n;
+}
+
+// A (rows x D) bf16 tile lies in shared memory as D/64 chunks of rows x 128
+// bytes (TMA boxes {64, rows}, 128-byte swizzle), so one tile serves both
+// wgmma orientations:
+//   kdesc: K-major operand, contracting over D -- rows r0 ... r0+63 (A) or
+//          all rows (B), k16 slice kk of D;
+//   ndesc: N-major B, contracting over the rows (N = D) -- k16 slice kk of
+//          the rows; 64-wide chunks of D lie rows x 128 bytes apart.
+template <int ROWS>
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* tile, int r0, int kk) {
+  return gmma_desc(tile + (kk >> 2) * (ROWS * 128) + r0 * 128 + (kk & 3) * 32, 16, 1024);
+}
+template <int ROWS>
+__device__ __forceinline__ uint64_t ndesc(const uint8_t* tile, int kk) {
+  return gmma_desc(tile + kk * 2048, ROWS * 128, 1024);
+}
+
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int s0, int h, int b) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_4d(dst + c * ROWS * 128, map, bar, 64 * c, s0, h, b);
+}
+
+// s (64 x 64) = A (rows r0 ... r0+63 of an AROWS-row tile) @ B^T (a 64-row
+// tile), contracting over D: SS, both K-major.
+template <int D, int AROWS>
+__device__ __forceinline__ void mma_abt(float (&s)[32], const uint8_t* a, int r0,
+                                        const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_n64<0, 0>(s, kdesc<AROWS>(a, r0, kk), kdesc<64>(b, 0, kk), kk > 0);
+}
+
+// acc (64 x D) += P (64 x 64, the A fragments pa) @ V (a 64-row tile): RS,
+// B N-major.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 2], const uint32_t (&pa)[4][4],
+                                       const uint8_t* v) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if constexpr (D == 128) wgmma_rs_n128<1>(acc, pa[c], ndesc<64>(v, c), 1);
+    else wgmma_rs_n64<1>(acc, pa[c], ndesc<64>(v, c), 1);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void pack_all(uint32_t (&a)[4][4], const float (&d)[R]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) pack_a(a[c], d, c);
+}
+
+template <int R>
+__device__ __forceinline__ void pack_all_hilo(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                              const float (&d)[R]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) pack_a_hilo(hi[c], lo[c], d, c);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Writes one thread's two rows (r, r + 8) of an m64 x D accumulator times
+// mul, in bf16, at rows below `rows` of the strided output.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul0, float mul1,
+                                           __nv_bfloat16* base, int64_t ss, int r, int rows,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (r + 8 * j >= rows) continue;
+    const float mul = j ? mul1 : mul0;
+    __nv_bfloat16* p = base + (int64_t)(r + 8 * j) * ss + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * j] * mul, acc[4 * i + 2 * j + 1] * mul);
+  }
+}
+
+template <int D> struct Fwd {
+  static constexpr int Q_BYTES = tile_bytes<D>(BQ);
+  static constexpr int KV_BYTES = tile_bytes<D>(BKV);
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// Forward. One block per (query tile of BQ rows, head, batch), the last
+// query tiles first (under causal they see the most keys).
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+           float* __restrict__ lse, int B, int H, int n_rep, int Sq, int Sk, Strides os,
+           int causal, float sl2) {
+  using C = Fwd<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* sk = sq + C::Q_BYTES;
+  uint8_t* sv = sk + STAGES * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + STAGES * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int q_tile = cdiv(Sq, BQ) - 1 - blockIdx.x / (H * B);
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int q0 = q_tile * BQ;
+  const int n_tiles = kv_tiles(min(q0 + BQ, Sq) - 1, Sq, Sk, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx; TMA completes the bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warp: one thread issues every load
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      load_tile<D, BQ>(sq, &tq, q_full, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        load_tile<D, BKV>(sk + s * C::KV_BYTES, &tk, &full[s], t * BKV, h / n_rep, b);
+        load_tile<D, BKV>(sv + s * C::KV_BYTES, &tv, &full[s], t * BKV, h / n_rep, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup g owns query rows q0 + 64 g ... + 63; this thread
+  // rows r and r + 8 of them
+  const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r = q0 + g * 64 + warp * 16 + lane / 4;
+  const int my_tiles = q0 + g * 64 < Sq ? kv_tiles(min(q0 + g * 64 + 63, Sq - 1), Sq, Sk, causal) : 0;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    if (t < my_tiles) {  // warpgroup-uniform
+      float sc[32];
+      wgmma_fence();
+      mma_abt<D, BQ>(sc, sq, g * 64, sk + s * C::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      // scores in log2 units, masked: keys past Sk, and under causal keys
+      // past i + (Sk - Sq); then the online softmax, rows reduced over the
+      // quad of threads that holds them
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = t * BKV + 8 * i + 2 * (lane % 4) + c;
+            const bool ok = key < Sk && (!causal || key <= r + 8 * j + Sk - Sq);
+            const float v = ok ? sc[4 * i + 2 * j + c] * sl2 : NEG_INF;
+            sc[4 * i + 2 * j + c] = v;
+            mx[j] = fmaxf(mx[j], v);
+          }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mx[j] = quad_max(mx[j]);
+        alpha[j] = exp2f(m[j] - mx[j]);
+        m[j] = mx[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2f(sc[4 * i + 2 * j + c] - m[j]);
+            sc[4 * i + 2 * j + c] = p;
+            rs[j] += p;  // the f32 p into l; P@V takes p rounded to bf16
+          }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + rs[j];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc[4 * i + 2 * j] *= alpha[j];
+          acc[4 * i + 2 * j + 1] *= alpha[j];
+        }
+      uint32_t pa[4][4];
+      pack_all(pa, sc);
+      wgmma_fence();
+      mma_pv<D>(acc, pa, sv + s * C::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] = quad_sum(l[j]);
+    inv[j] = 1.f / fmaxf(l[j], 1e-30f);
+  }
+  store_rows<D>(acc, inv[0], inv[1], o + b * os.b + h * os.h, os.s, r, Sq, lane);
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (r + 8 * j < Sq)
+        lse[((int64_t)b * H + h) * Sq + r + 8 * j] = (m[j] + log2f(l[j])) * LN2;
+  }
+}
+
+template <int D> struct Dq {
+  static constexpr int Q_BYTES = tile_bytes<D>(BQ);
+  static constexpr int KV_BYTES = tile_bytes<D>(BKV);
+  static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// dQ. The forward's grid; q and dO tiles load once, K/V tiles through the ring.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ dq, int B, int H, int n_rep, int Sq, int Sk, Strides dqs,
+          int causal, float sl2, float scale) {
+  using C = Dq<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* sdo = sq + C::Q_BYTES;
+  uint8_t* sk = sdo + C::Q_BYTES;
+  uint8_t* sv = sk + STAGES * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + STAGES * C::KV_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int q_tile = cdiv(Sq, BQ) - 1 - blockIdx.x / (H * B);
+  const int h = blockIdx.x % H;
+  const int b = (blockIdx.x / H) % B;
+  const int q0 = q_tile * BQ;
+  const int n_tiles = kv_tiles(min(q0 + BQ, Sq) - 1, Sq, Sk, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+      load_tile<D, BQ>(sq, &tq, q_full, q0, h, b);
+      load_tile<D, BQ>(sdo, &tdo, q_full, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        load_tile<D, BKV>(sk + s * C::KV_BYTES, &tk, &full[s], t * BKV, h / n_rep, b);
+        load_tile<D, BKV>(sv + s * C::KV_BYTES, &tv, &full[s], t * BKV, h / n_rep, b);
+      }
+    }
+    return;
+  }
+
+  const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int r = q0 + g * 64 + warp * 16 + lane / 4;
+  const int my_tiles = q0 + g * 64 < Sq ? kv_tiles(min(q0 + g * 64 + 63, Sq - 1), Sq, Sk, causal) : 0;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int64_t row = ((int64_t)b * H + h) * Sq + r + 8 * j;
+    lse2[j] = r + 8 * j < Sq ? lse[row] * LOG2E : 0.f;
+    dl[j] = r + 8 * j < Sq ? delta[row] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    if (t < my_tiles) {
+      const uint8_t* ks = sk + s * C::KV_BYTES;
+      float sc[32], dp[32];
+      wgmma_fence();
+      mma_abt<D, BQ>(sc, sq, g * 64, ks);                    // S = Q K^T
+      mma_abt<D, BQ>(dp, sdo, g * 64, sv + s * C::KV_BYTES);  // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // dS = P * (dP - delta), P = exp(S scale - lse), 0 where masked
+      // (rows past Sq too)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * i + 2 * j + c;
+            const int key = t * BKV + 8 * i + 2 * (lane % 4) + c;
+            const int row = r + 8 * j;
+            const bool ok = row < Sq && key < Sk && (!causal || key <= row + Sk - Sq);
+            const float p = ok ? exp2f(fmaf(sc[e], sl2, -lse2[j])) : 0.f;
+            sc[e] = p * (dp[e] - dl[j]);
+          }
+      uint32_t dh[4][4], dlo[4][4];
+      pack_all_hilo(dh, dlo, sc);  // dS as a bf16 hi + lo pair
+      wgmma_fence();
+      mma_pv<D>(acc, dh, ks);  // dQ += dS K
+      mma_pv<D>(acc, dlo, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  store_rows<D>(acc, scale, scale, dq + b * dqs.b + h * dqs.h, dqs.s, r, Sq, lane);
+}
+
+template <int D> struct Dkv {
+  static constexpr int KV_BYTES = tile_bytes<D>(BKV);
+  static constexpr int QT_BYTES = tile_bytes<D>(BQB);
+  // a stage: the q tile, the dO tile, then ROW_BOX lse and, 512 bytes on,
+  // ROW_BOX delta (f32), padded so that every stage's tiles start on 1024
+  // bytes
+  static constexpr int STAGE = 2 * QT_BYTES + 1024;
+  static constexpr int SMEM = 2 * KV_BYTES + STAGES * STAGE + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// dK/dV. One block per (key tile of BKV keys, KV head, batch), key tile 0
+// first (under causal it sees the most queries); keys are the rows of every
+// product. The producer walks the group's n_rep query heads in order and,
+// for each, the query tiles at or past the causal frontier, so the GQA sum
+// comes in a fixed order with no atomics.
+template <int D>
+__global__ void __launch_bounds__(THREADS_KV, 1)
+dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+            const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdelta,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int H, int KV,
+            int Sq, int Sk, Strides dks, Strides dvs, int causal, float sl2, float scale) {
+  using C = Dkv<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align1024(smem_raw);
+  uint8_t* sv = sk + C::KV_BYTES;
+  uint8_t* ring = sv + C::KV_BYTES;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ring + STAGES * C::STAGE);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int n_rep = H / KV;
+  const int k0 = (blockIdx.x / (KV * B)) * BKV;
+  const int kvh = blockIdx.x % KV;
+  const int b = (blockIdx.x / KV) % B;
+  // the first query tile that sees key k0: rows i >= k0 - (Sk - Sq)
+  const int t0 = causal ? max(0, k0 - (Sk - Sq)) / BQB : 0;
+  const int per_head = cdiv(Sq, BQB) - t0;  // >= 1: k0 < Sk
+  const int n_it = n_rep * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrive per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+      load_tile<D, BKV>(sk, &tk, kv_full, k0, kvh, b);
+      load_tile<D, BKV>(sv, &tv, kv_full, k0, kvh, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        const int h = kvh * n_rep + it / per_head;
+        const int q0 = (t0 + it % per_head) * BQB;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::QT_BYTES + 2 * ROW_BOX * 4);
+        uint8_t* st = ring + s * C::STAGE;
+        load_tile<D, BQB>(st, &tq, &full[s], q0, h, b);
+        load_tile<D, BQB>(st + C::QT_BYTES, &tdo, &full[s], q0, h, b);
+        // lse and delta rows of (b, h) from q0 on, from the 16-byte boundary
+        // at or before them; rows past Sq are the next head's (or zeros at
+        // the end) and are masked below
+        const int row = ((b * H + h) * Sq + q0) & ~3;
+        tma_load_1d(st + 2 * C::QT_BYTES, &tlse, &full[s], row);
+        tma_load_1d(st + 2 * C::QT_BYTES + 512, &tdelta, &full[s], row);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key = k0 + warp * 16 + lane / 4;  // this thread's keys: key, key + 8
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % STAGES;
+    const int q0 = (t0 + it % per_head) * BQB;
+    const uint8_t* st = ring + s * C::STAGE;
+    const int skew = ((b * H + kvh * n_rep + it / per_head) * Sq + q0) & 3;
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * C::QT_BYTES) + skew;
+    const float* delta_s = reinterpret_cast<const float*>(st + 2 * C::QT_BYTES + 512) + skew;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    float sc[32], dp[32];
+    wgmma_fence();
+    mma_abt<D, BKV>(sc, sk, 0, st);                // S^T = K Q^T
+    mma_abt<D, BKV>(dp, sv, 0, st + C::QT_BYTES);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    // P^T = exp(S^T scale - lse) and dS^T = P^T * (dP^T - delta), lse and
+    // delta per column (query row); 0 where masked: keys past Sk, query
+    // rows past Sq, and under causal keys past i + (Sk - Sq)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * i + 2 * (lane % 4) + c;
+        const int qi = q0 + col;
+        const float l2 = lse_s[col] * LOG2E, dl = delta_s[col];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = 4 * i + 2 * j + c;
+          const int kj = key + 8 * j;
+          const bool ok = kj < Sk && qi < Sq && (!causal || kj <= qi + Sk - Sq);
+          const float p = ok ? exp2f(fmaf(sc[e], sl2, -l2)) : 0.f;
+          sc[e] = p;
+          dp[e] = p * (dp[e] - dl);
+        }
+      }
+    uint32_t pa[4][4], dh[4][4], dlo[4][4];
+    pack_all(pa, sc);             // P^T in bf16, as the forward rounds P before P@V
+    pack_all_hilo(dh, dlo, dp);   // dS^T as a bf16 hi + lo pair
+    wgmma_fence();
+    mma_pv<D>(dva, pa, st + C::QT_BYTES);  // dV += P^T dO
+    mma_pv<D>(dka, dh, st);                // dK += dS^T Q
+    mma_pv<D>(dka, dlo, st);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  store_rows<D>(dka, scale, scale, dk + b * dks.b + kvh * dks.h, dks.s, key, Sk, lane);
+  store_rows<D>(dva, 1.f, 1.f, dv + b * dvs.b + kvh * dvs.h, dvs.s, key, Sk, lane);
+}
+
+// A (B, H, S, D) bf16 view as a 4-D tensor map {D, S, H, B}, its strides
+// in elements multiples of 8 (a dimension of size 1 may carry any: the
+// wrapper passes one that is), cut into boxes {64, rows, 1, 1}.
+bool encode_bhsd(CUtensorMap* map, const void* base, int B, int H, int S, int D, Strides t,
+                 int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t st[3] = {(cuuint64_t)t.s * 2, (cuuint64_t)t.h * 2, (cuuint64_t)t.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, st, box,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// n contiguous f32 values as a 1-D tensor map, boxes of ROW_BOX.
+bool encode_f32(CUtensorMap* map, const void* base, int64_t n) {
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t unused[1] = {(cuuint64_t)n * 4};  // a rank-1 map has no strides
+  const cuuint32_t box[1] = {ROW_BOX};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims, unused, box,
+                CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  configured = e == cudaSuccess;
+  return e;
+}
+
+template <int D>
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t e = allow_smem(fwd_kernel<D>, Fwd<D>::SMEM, configured);
+  if (e != cudaSuccess) return e;
+  CUtensorMap mq, mk, mv;
+  if (!encode_bhsd(&mq, a.q, a.B, a.H, a.Sq, D, a.qs, BQ) ||
+      !encode_bhsd(&mk, a.k, a.B, a.KV, a.Sk, D, a.ks, BKV) ||
+      !encode_bhsd(&mv, a.v, a.B, a.KV, a.Sk, D, a.vs, BKV))
+    return cudaErrorInvalidValue;
+  const int blocks = cdiv(a.Sq, BQ) * a.H * a.B;
+  fwd_kernel<D><<<blocks, THREADS, Fwd<D>::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.B, a.H, a.H / a.KV, a.Sq, a.Sk,
+      a.os, a.causal, a.scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  static bool conf_dq = false, conf_kv = false;
+  cudaError_t e = allow_smem(dq_kernel<D>, Dq<D>::SMEM, conf_dq);
+  if (e == cudaSuccess) e = allow_smem(dkdv_kernel<D>, Dkv<D>::SMEM, conf_kv);
+  if (e != cudaSuccess) return e;
+  // q, k, v, dO as the wgmma kernels read them: q and dO in BQ-row boxes
+  // (dQ) and BQB-row boxes (dK/dV), k and v in BKV-row boxes
+  CUtensorMap mq, mq_b, mk, mv, mdo, mdo_b, mlse, mdelta;
+  const int64_t n_rows = (int64_t)a.B * a.H * a.Sq;
+  if (!encode_bhsd(&mq, a.q, a.B, a.H, a.Sq, D, a.qs, BQ) ||
+      !encode_bhsd(&mq_b, a.q, a.B, a.H, a.Sq, D, a.qs, BQB) ||
+      !encode_bhsd(&mk, a.k, a.B, a.KV, a.Sk, D, a.ks, BKV) ||
+      !encode_bhsd(&mv, a.v, a.B, a.KV, a.Sk, D, a.vs, BKV) ||
+      !encode_bhsd(&mdo, a.dO, a.B, a.H, a.Sq, D, a.dos, BQ) ||
+      !encode_bhsd(&mdo_b, a.dO, a.B, a.H, a.Sq, D, a.dos, BQB) ||
+      !encode_f32(&mlse, a.lse, n_rows) || !encode_f32(&mdelta, a.delta, n_rows))
+    return cudaErrorInvalidValue;
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o);
+  const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO);
+  dim3 dgrid((a.Sq + simt::BQ - 1) / simt::BQ, a.H, a.B);
+  simt::flash_bwd_delta_kernel<__nv_bfloat16, D><<<dgrid, simt::THREADS, 0, stream>>>(
+      o, dO, a.delta, a.Sq, a.os, a.dos);
+  const float sl2 = a.scale * LOG2E;
+  dkdv_kernel<D><<<cdiv(a.Sk, BKV) * a.KV * a.B, THREADS_KV, Dkv<D>::SMEM, stream>>>(
+      mq_b, mk, mv, mdo_b, mlse, mdelta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.B, a.H, a.KV, a.Sq, a.Sk, a.dks, a.dvs, a.causal, sl2,
+      a.scale);
+  dq_kernel<D><<<cdiv(a.Sq, BQ) * a.H * a.B, THREADS, Dq<D>::SMEM, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.B, a.H, a.H / a.KV,
+      a.Sq, a.Sk, a.dqs, a.causal, sl2, a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+
+namespace {
+
+// The wgmma route at head_dim D (bf16 only), or cudaErrorInvalidValue.
+template <typename Args>
+cudaError_t wgmma_route(const Args& a, int D, int dtype, cudaStream_t s,
+                        cudaError_t (*d64)(const Args&, cudaStream_t),
+                        cudaError_t (*d128)(const Args&, cudaStream_t)) {
+  if (dtype != 1 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
+  cudaError_t e = sm90::bind_context();
+  if (e != cudaSuccess) return e;
+  return D == 64 ? d64(a, s) : d128(a, s);
+}
+
 }  // namespace
 
-// lse may be null (no log-sum-exp written).
+// lse may be null (no log-sum-exp written). route: 0 = simt, 1 = wgmma.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int KV, int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh,
     int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
-    int causal, int dtype, float scale, void* stream) {
+    int causal, int dtype, float scale, int route, void* stream) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
-  if (bad_dims(B, H, KV, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
-  FwdArgs a{q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk,
+  if (simt::bad_dims(B, H, KV, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
+  simt::FwdArgs a{q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk,
             {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
             {o_sb, o_sh, o_ss}, causal, scale};
-  const int rc = dispatch_t<Fwd>(a, D, dtype, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) return (int)wgmma_route(a, D, dtype, st, wg::launch_fwd<64>, wg::launch_fwd<128>);
+  const int rc = simt::dispatch_t<simt::Fwd>(a, D, dtype, st);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }
 
 // strides: 3 per tensor (batch, head, seq) for q, k, v, o, dO, dq, dk, dv in
-// that order; delta is (B, H, Sq) f32 scratch.
+// that order; delta is (B, H, Sq) f32 scratch. route: 0 = simt, 1 = wgmma.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv,
     void* delta, int B, int H, int KV, int Sq, int Sk, int D,
-    const int64_t* strides, int causal, int dtype, float scale, void* stream) {
+    const int64_t* strides, int causal, int dtype, float scale, int route, void* stream) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
-  if (bad_dims(B, H, KV, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
+  if (simt::bad_dims(B, H, KV, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
   const int64_t* s = strides;
-  BwdArgs a{q, k, v, o, dO, static_cast<const float*>(lse), dq, dk, dv,
+  simt::BwdArgs a{q, k, v, o, dO, static_cast<const float*>(lse), dq, dk, dv,
             static_cast<float*>(delta), B, H, KV, Sq, Sk,
             {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
             {s[9], s[10], s[11]}, {s[12], s[13], s[14]},
             {s[15], s[16], s[17]}, {s[18], s[19], s[20]},
             {s[21], s[22], s[23]}, causal, scale};
-  const int rc = dispatch_t<Bwd>(a, D, dtype, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) return (int)wgmma_route(a, D, dtype, st, wg::launch_bwd<64>, wg::launch_bwd<128>);
+  const int rc = simt::dispatch_t<simt::Bwd>(a, D, dtype, st);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

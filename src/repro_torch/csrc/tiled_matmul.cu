@@ -72,12 +72,13 @@
 // elements, y is row-major contiguous. Every entry returns
 // cudaGetLastError() (or cudaErrorInvalidValue for what it cannot take).
 
-#include <cuda.h>  // CUtensorMap and the driver's enums; no driver call is linked
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "sm90.cuh"
 
 namespace simt {
 
@@ -178,129 +179,12 @@ template <int BN> constexpr int B_BYTES = BK * BN * 2;
 template <int BN>  // + slack to align the ring to 1024 bytes
 constexpr int SMEM_BYTES = STAGES * (A_BYTES + B_BYTES<BN>) + 2 * STAGES * 8 + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-
-// Returns once the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  const uint32_t addr = smem_u32(b);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 2-D TMA box at coordinates (c0 innermost, c1) into shared memory,
-// completing on the barrier's transaction count.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// TA / TB: the instruction's transpose bits -- 0 for a K-major operand,
-// 1 for an M-major A or an N-major B.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                        int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                        int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
+using namespace sm90;
 
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 128) wgmma_n128<TA, TB>(d, da, db, 1);
   else wgmma_n64<TA, TB>(d, da, db, 1);
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma's wait.
-template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <int BN, int TA, int TB>
@@ -310,8 +194,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tma_x, const __grid_constant__ 
              int kt_split) {
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles must start on 1024-byte boundaries
-  uint8_t* sa = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sa = align1024(smem_raw);
   uint8_t* sb = sa + STAGES * A_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_BYTES<BN>);
   uint64_t* empty = full + STAGES;
@@ -326,7 +209,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tma_x, const __grid_constant__ 
       mbar_init(&full[s], 1);   // the producer's expect_tx; TMA completes the bytes
       mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -340,16 +223,16 @@ wgmma_kernel(const __grid_constant__ CUtensorMap tma_x, const __grid_constant__ 
         uint8_t* a = sa + s * A_BYTES;
         uint8_t* b = sb + s * B_BYTES<BN>;
         if (TA) {
-          tma_load(a, &tma_x, &full[s], m0, k);
-          tma_load(a + CHUNK, &tma_x, &full[s], m0 + 64, k);
+          tma_load_2d(a, &tma_x, &full[s], m0, k);
+          tma_load_2d(a + CHUNK, &tma_x, &full[s], m0 + 64, k);
         } else {
-          tma_load(a, &tma_x, &full[s], k, m0);
+          tma_load_2d(a, &tma_x, &full[s], k, m0);
         }
         if (TB) {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c) tma_load(b + c * CHUNK, &tma_w, &full[s], n0 + 64 * c, k);
+          for (int c = 0; c < BN / 64; ++c) tma_load_2d(b + c * CHUNK, &tma_w, &full[s], n0 + 64 * c, k);
         } else {
-          tma_load(b, &tma_w, &full[s], k, n0);
+          tma_load_2d(b, &tma_w, &full[s], k, n0);
         }
       }
     }
@@ -422,37 +305,15 @@ __global__ void splitk_sum(const float* __restrict__ ws, __nv_bfloat16* __restri
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 (rows, cols) operand whose cols run along the unit stride and whose
 // rows lie `ld` elements apart, cut into boxes of {box0 cols, box1 rows}.
 bool encode(CUtensorMap* map, const void* base, int64_t cols, int64_t rows, int64_t ld,
             uint32_t box0, uint32_t box1) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   const cuuint32_t box[2] = {box0, box1};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return sm90::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int BN, int TA, int TB>
@@ -520,12 +381,7 @@ extern "C" int tiled_matmul_wgmma(const void* x, const void* w, void* y, void* w
     return (int)cudaErrorInvalidValue;
   const int kt_split = (kt + split - 1) / split;
   split = (kt + kt_split - 1) / kt_split;  // no empty split
-  // The encoder is a driver call: it needs the device's context current on
-  // this thread, which a runtime call has not always made so (autograd's
-  // backward runs on a thread of its own). cudaSetDevice binds it.
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  cudaError_t e = sm90::bind_context();
   if (e != cudaSuccess) return (int)e;
   CUtensorMap mx, mw;
   const bool ok =

@@ -2,10 +2,11 @@
 
 Each source is compiled by ``nvcc`` on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), named by a
-hash of the source and the flags, under ``build/repro_torch_kernels/`` at
-the root of the checkout. All missing libraries build in parallel, one
-``nvcc`` process per source. Libraries load with ``ctypes``; each C entry
-returns ``cudaGetLastError()`` and ``check`` raises when that is not 0.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+under ``build/repro_torch_kernels/`` at the root of the checkout. All
+missing libraries build in parallel, one ``nvcc`` process per source.
+Libraries load with ``ctypes``; each C entry returns ``cudaGetLastError()``
+and ``check`` raises when that is not 0.
 Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -54,7 +55,8 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are in every library's key
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

@@ -6,25 +6,46 @@ The forward replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 counterpart (the reference differentiates its jnp chunked attention). Both
 take any batch / head / sequence strides with a contiguous last dim, so the
 model's ``(B, S, H, D)`` activations and their gradients go in and out as
-transposed views without a copy. The source's header comment states the
-design and what bounds it on an H100. The plain versions are
-``kernels/ref.py:attention_fwd_ref`` / ``attention_bwd_ref``; the CPU path
-goes there through ``kernels/ops.py``.
+transposed views without a copy.
+
+The source holds two sets of kernels, and ``route`` picks one per call by a
+stated rule (not a fallback: each route launches its kernels or raises):
+
+- ``"wgmma"``: bf16, head_dim 64 or 128 (smollm-135m's, llama-3.2-3b's),
+  every operand one TMA can describe (``tma_strides``). Tensor cores fed by
+  TMA under mbarriers; ``plan`` states their tiles and grids. Every bf16
+  attention call of the serving and training paths meets this.
+- ``"simt"``: everything else -- f32 (wgmma's only f32 input is TF32, which
+  would break the f32 tolerance), head_dim 32, views TMA cannot describe.
+  The first design's CUDA-core f32 FMAs.
+
+The source's header comment states the design and what bounds it on an
+H100. The plain versions are ``kernels/ref.py:attention_fwd_ref`` /
+``attention_bwd_ref``; the CPU path goes there through ``kernels/ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-# launches of the CUDA kernels in this process (ops.launch_counts reads
-# them); one backward launch is the delta, dK/dV and dQ kernels together
-launches = 0
-bwd_launches = 0
+ROUTES = ("wgmma", "simt")
+# launches in this process by route, forward and backward (ops.launch_counts
+# reads them; one backward launch is the delta, dK/dV and dQ kernels together)
+wgmma_launches = 0
+simt_launches = 0
+bwd_wgmma_launches = 0
+bwd_simt_launches = 0
 
 HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+# the wgmma kernels' tiles (csrc/flash_attention.cu, namespace wg): query
+# rows per forward / dQ block, keys per K/V tile and per dK/dV block, query
+# rows per tile of the dK/dV loop
+BQ, BKV, BQB = 128, 64, 64
 
 
 def _lib() -> ctypes.CDLL:
@@ -34,13 +55,82 @@ def _lib() -> ctypes.CDLL:
         fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                         + [ctypes.c_int64] * 12
                         + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_void_p])
+                           ctypes.c_int, ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_void_p])
+                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         bwd.restype = ctypes.c_int
     return lib
+
+
+def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
+    """The batch, head and sequence strides (elements) under which TMA reads
+    a bf16 (B, H, S, D) operand, or None when it cannot: a unit last stride,
+    the others positive multiples of 8 elements (16 bytes), the base aligned
+    to 16 bytes. A dimension of size 1 is never stepped, so it takes any
+    stride and is given 8."""
+    if t.dtype != torch.bfloat16 or t.dim() != 4 or t.stride(-1) != 1 or t.data_ptr() % 16:
+        return None
+    out = []
+    for size, st in zip(t.shape[:3], t.stride()[:3]):
+        if size == 1:
+            st = 8
+        if st <= 0 or st % 8:
+            return None
+        out.append(st)
+    return tuple(out)
+
+
+def route(q: torch.Tensor, *ts: torch.Tensor) -> str:
+    """``"wgmma"`` when q and every tensor of ``ts`` (k, v; and dO for the
+    backward) are bf16 of head_dim 64 or 128 that TMA can describe
+    (``tma_strides``), else ``"simt"``."""
+    if q.shape[-1] not in WGMMA_HEAD_DIMS or min(q.shape) == 0:
+        return "simt"
+    return "wgmma" if all(tma_strides(t) for t in (q, *ts)) else "simt"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _kv_tiles(last_row: int, Sq: int, Sk: int, causal: bool) -> int:
+    """K/V tiles that query rows up to ``last_row`` see (the kernels' rule)."""
+    n = _cdiv(Sk, BKV)
+    return min(n, (last_row + Sk - Sq) // BKV + 1) if causal else n
+
+
+def plan(B: int, H: int, KV: int, Sq: int, Sk: int, causal: bool = True,
+         sms: int = 132) -> dict:
+    """The wgmma kernels' tiles and grids for one call on a card with ``sms``
+    SMs, as the kernels compute them:
+
+    - forward and dQ: one block per (BQ query rows, head, batch), the last
+      query tile first, each block walking the K/V tiles of BKV keys up to
+      the causal frontier of its last row;
+    - dK/dV: one block per (BKV keys, KV head, batch), key tile 0 first,
+      each block walking its group's H/KV query heads and, for each, the
+      query tiles of BQB rows at or past the frontier of its first key.
+
+    Under causal the first launched block has the most work, so the heavy
+    blocks never form a tail. Returns, per kernel, ``tile`` (rows, columns
+    of a step), ``blocks``, ``blocks_per_sm`` (blocks over SMs), ``order``
+    (the tile index of each group of blocks in launch order), ``steps`` (the
+    tiles each of those blocks walks) and ``pairs`` (tile pairs over the
+    grid)."""
+    n_qt, n_kt, n_rep = _cdiv(Sq, BQ), _cdiv(Sk, BKV), H // KV
+    q_order = list(range(n_qt - 1, -1, -1))
+    q_steps = [_kv_tiles(min((t + 1) * BQ, Sq) - 1, Sq, Sk, causal) for t in q_order]
+    k_order = list(range(n_kt))
+    t0 = [max(0, t * BKV - (Sk - Sq)) // BQB if causal else 0 for t in k_order]
+    k_steps = [n_rep * (_cdiv(Sq, BQB) - f) for f in t0]
+    qgrid = {"tile": [BQ, BKV], "blocks": n_qt * H * B, "blocks_per_sm": n_qt * H * B / sms,
+             "order": q_order, "steps": q_steps, "pairs": sum(q_steps) * H * B}
+    return {"fwd": qgrid, "dq": dict(qgrid),
+            "dkdv": {"tile": [BKV, BQB], "blocks": n_kt * KV * B,
+                     "blocks_per_sm": n_kt * KV * B / sms, "order": k_order,
+                     "steps": k_steps, "pairs": sum(k_steps) * KV * B}}
 
 
 def _check_cuda(ts, D: int) -> None:
@@ -75,13 +165,22 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"({Sq} > {Sk}): a query row would see no key")
 
 
+def _read(t: torch.Tensor, chosen: str) -> tuple:
+    """The batch, head and sequence strides an input is read through: on the
+    wgmma route TMA's (``tma_strides``), else the tensor's own."""
+    return tma_strides(t) if chosen == "wgmma" else t.stride()[:3]
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, with_lse: bool = False):
+                         *, causal: bool = True, with_lse: bool = False,
+                         simt: bool = False):
     """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) on one CUDA device, shapes checked by
     ``check_inputs`` (``kernels/ops.py`` does both) -> (B,H,Sq,D) in q's
     dtype and q's memory layout; with ``with_lse`` also the (B,H,Sq) f32
-    log-sum-exp, as ``(o, lse)``. Launches the kernel or raises."""
-    global launches
+    log-sum-exp, as ``(o, lse)``. Runs on the route ``route`` picks;
+    ``simt=True`` runs the CUDA-core kernel whatever the operands (the
+    previous design, timed beside the new one). Launches or raises."""
+    global wgmma_launches, simt_launches
     D = q.shape[-1]
     _check_cuda((q, k, v), D)
     B, H, Sq, D = q.shape
@@ -89,26 +188,34 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)  # keeps q's strides: (B,S,H,D) storage stays so
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    chosen = "simt" if simt else route(q, k, v)
+    strides = [*_read(q, chosen), *_read(k, chosen), *_read(v, chosen), *o.stride()[:3]]
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if with_lse else None,
-            B, H, KV, Sq, Sk, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *o.stride()[:3], int(causal),
-            _build.DTYPE_CODES[q.dtype], D ** -0.5, stream)
-    _build.check(lib, rc, "flash_attention")
-    launches += 1
+            B, H, KV, Sq, Sk, D, *strides, int(causal),
+            _build.DTYPE_CODES[q.dtype], D ** -0.5, int(chosen == "wgmma"), stream)
+    _build.check(lib, rc, f"flash_attention ({chosen}, q {tuple(q.shape)} strides "
+                          f"{q.stride()}, k {tuple(k.shape)} strides {k.stride()})")
+    if chosen == "wgmma":
+        wgmma_launches += 1
+    else:
+        simt_launches += 1
     return (o, lse) if with_lse else o
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             simt: bool = False):
     """Gradients (dq, dk, dv) of the forward on one CUDA device, from the
     saved output ``o`` and f32 ``lse`` (B,H,Sq) and the output gradient
     ``do`` (B,H,Sq,D); each gradient in its input's dtype and memory layout.
-    Launches the delta, dK/dV and dQ kernels in that order or raises."""
-    global bwd_launches
+    Launches the delta, dK/dV and dQ kernels of the route ``route(q, k, v,
+    do)`` picks (``simt=True``: the CUDA-core ones) in that order or
+    raises."""
+    global bwd_wgmma_launches, bwd_simt_launches
     D = q.shape[-1]
     _check_cuda((q, k, v, o, do), D)
     B, H, Sq, D = q.shape
@@ -119,7 +226,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
                          f"{tuple(lse.shape)}; want contiguous f32 {(B, H, Sq)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]]
+    chosen = "simt" if simt else route(q, k, v, do)
+    strides = [s for t in (q, k, v) for s in _read(t, chosen)] + list(o.stride()[:3]) \
+        + list(_read(do, chosen)) + [s for t in (dq, dk, dv) for s in t.stride()[:3]]
     c_strides = (ctypes.c_int64 * len(strides))(*strides)
     lib = _lib()
     with torch.cuda.device(q.device):
@@ -129,7 +238,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True):
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), B, H, KV, Sq, Sk, D,
             ctypes.cast(c_strides, ctypes.c_void_p), int(causal),
-            _build.DTYPE_CODES[q.dtype], D ** -0.5, stream)
-    _build.check(lib, rc, "flash_attention_bwd")
-    bwd_launches += 1
+            _build.DTYPE_CODES[q.dtype], D ** -0.5, int(chosen == "wgmma"), stream)
+    _build.check(lib, rc, f"flash_attention_bwd ({chosen}, q {tuple(q.shape)} strides "
+                          f"{q.stride()}, dO strides {do.stride()})")
+    if chosen == "wgmma":
+        bwd_wgmma_launches += 1
+    else:
+        bwd_simt_launches += 1
     return dq, dk, dv

@@ -224,10 +224,16 @@ def fused_adam(p32: torch.Tensor, g32: torch.Tensor, m: torch.Tensor,
 
 
 def launch_counts() -> dict:
-    """Kernel launches so far in this process, by kernel; the tiled
-    matmul's also by route (``tiled_matmul`` is their sum)."""
-    return {"flash_attention": _fa.launches,
-            "flash_attention_bwd": _fa.bwd_launches,
+    """Kernel launches so far in this process, by kernel; flash attention's
+    (forward and backward) and the tiled matmul's also by route
+    (``flash_attention``, ``flash_attention_bwd`` and ``tiled_matmul`` are
+    their sums)."""
+    return {"flash_attention": _fa.wgmma_launches + _fa.simt_launches,
+            "flash_attention_wgmma": _fa.wgmma_launches,
+            "flash_attention_simt": _fa.simt_launches,
+            "flash_attention_bwd": _fa.bwd_wgmma_launches + _fa.bwd_simt_launches,
+            "flash_attention_bwd_wgmma": _fa.bwd_wgmma_launches,
+            "flash_attention_bwd_simt": _fa.bwd_simt_launches,
             "tiled_matmul": _mm.wgmma_launches + _mm.simt_launches,
             "tiled_matmul_wgmma": _mm.wgmma_launches,
             "tiled_matmul_simt": _mm.simt_launches, "fused_adam": _ad.launches,
@@ -236,8 +242,10 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    _fa.launches = 0
-    _fa.bwd_launches = 0
+    _fa.wgmma_launches = 0
+    _fa.simt_launches = 0
+    _fa.bwd_wgmma_launches = 0
+    _fa.bwd_simt_launches = 0
     _mm.wgmma_launches = 0
     _mm.simt_launches = 0
     _ad.launches = 0

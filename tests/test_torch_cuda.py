@@ -40,19 +40,23 @@ def assert_close(got, want, mag, dtype, f32_tol, mtol):
         assert (err <= allowed).all(), (err / allowed).max().item()
 
 
-def _routed(x, w, want):
-    """``ops.tiled_matmul`` on the route ``want``, held by the counters: one
-    launch on that route, none on the other."""
-    assert tmm.route(x, w) == want
+def _took(key, fn, want):
+    """``fn()``, held by the launch counters of ``key``: one launch on the
+    route ``want``, none on the other."""
     before = ops.launch_counts()
-    got = ops.tiled_matmul(x, w)
+    got = fn()
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert after["tiled_matmul"] == before["tiled_matmul"] + 1
+    assert after[key] == before[key] + 1
     for r in tmm.ROUTES:
-        key = f"tiled_matmul_{r}"
-        assert after[key] == before[key] + (r == want), (r, before, after)
+        assert after[f"{key}_{r}"] == before[f"{key}_{r}"] + (r == want), (r, before, after)
     return got
+
+
+def _routed(x, w, want):
+    """``ops.tiled_matmul`` on the route ``want``, which the rule picks."""
+    assert tmm.route(x, w) == want
+    return _took("tiled_matmul", lambda: ops.tiled_matmul(x, w), want)
 
 
 @pytest.mark.cuda
@@ -110,11 +114,24 @@ def test_tiled_matmul_simt_route_on_request(cuda):
                  torch.bfloat16, f32_tol=None, mtol=2**-12)
 
 
+def _flash_routed(fn, inputs, want, bwd=False):
+    """A flash call on the route ``want``: the one the rule picks for
+    ``inputs``, or ``simt`` forced by the call."""
+    assert want == "simt" or tfa.route(*inputs) == want
+    return _took("flash_attention_bwd" if bwd else "flash_attention", fn, want)
+
+
+def _want_route(dtype, D):
+    return "wgmma" if dtype == torch.bfloat16 and D in tfa.WGMMA_HEAD_DIMS else "simt"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 9, 3, 512, 512, 64), (1, 2, 2, 100, 132, 32),
                                    (2, 4, 1, 64, 64, 128), (1, 3, 1, 16, 16, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    """bf16 at head_dim 64 or 128 takes the tensor cores; f32 and head_dim
+    32 the CUDA cores."""
     B, H, KV, Sq, Sk, D = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     # unit variance: a peaked softmax and outputs of O(1)
@@ -123,12 +140,101 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     v = torch.randn(B, Sk, KV, D, generator=g, device=cuda).to(dtype)
     # the model's (B,S,H,D) storage goes in as a strided (B,H,S,D) view
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    got = ops.flash_attention(qh, kh, vh, causal=True)
-    torch.cuda.synchronize()
+    got = _flash_routed(lambda: ops.flash_attention(qh, kh, vh, causal=True), (qh, kh, vh),
+                        _want_route(dtype, D))
     assert got.stride() == qh.stride()
     assert_close(got, ref.attention_ref(qh, kh, vh, causal=True),
                  ref.attention_ref(qh, kh, vh.abs(), causal=True),
                  dtype, f32_tol=2e-4, mtol=2**-7)
+
+
+# (B, H, KV, Sq, Sk, D, layout, causal): head_dim 64 and 128; n_rep 1 and 3;
+# Sq < Sk; Sq and Sk not multiples of the tiles (128 query rows, 64 keys);
+# (B,S,H,D) storage as a strided view ("bshd") and contiguous (B,H,S,D)
+FLASH_ROUTE_CASES = [
+    (2, 9, 3, 512, 512, 64, "bshd", True),     # smollm-135m's heads
+    (1, 6, 2, 100, 132, 64, "bshd", True),     # ragged, Sq < Sk
+    (2, 4, 4, 77, 77, 128, "bhsd", True),      # head_dim 128, n_rep 1
+    (1, 24, 8, 200, 264, 128, "bshd", True),   # llama-3.2-3b's heads
+    (3, 3, 1, 130, 130, 64, "bhsd", True),     # n_rep 3, one row past a tile
+    (1, 4, 2, 96, 160, 64, "bshd", False),     # not causal
+]
+
+
+def _flash_inputs(case, dtype, seed, grads=False):
+    B, H, KV, Sq, Sk, D, layout, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(S, heads):
+        t = torch.randn(B, S, heads, D, generator=g, device="cuda").to(dtype).transpose(1, 2)
+        return t if layout == "bshd" else t.contiguous()
+
+    ts = [draw(Sq, H), draw(Sk, KV), draw(Sk, KV)]
+    return ts + [draw(Sq, H)] if grads else ts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_ROUTE_CASES)
+def test_flash_attention_routes_match_plain_and_each_other(cuda, case):
+    """The forward and backward on both routes, bf16: each against the plain
+    version on the same inputs (the tolerances above), and the two routes
+    against each other within the sum of their tolerances."""
+    causal = case[7]
+    q, k, v, do = _flash_inputs(case, torch.bfloat16, 6, grads=True)
+    plain, lse_ref = ref.attention_fwd_ref(q, k, v, causal=causal)
+    mag = ref.attention_ref(q, k, v.abs(), causal=causal)
+    outs = {}
+    for r in tfa.ROUTES:
+        outs[r] = _flash_routed(
+            lambda: tfa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True,
+                                             simt=r == "simt"), (q, k, v), r)
+        o, lse = outs[r]
+        assert o.stride() == q.stride()
+        assert_close(o, plain, mag, torch.bfloat16, f32_tol=None, mtol=2**-7)
+        assert (lse - lse_ref).abs().max().item() <= 1e-4 * max(1.0, lse_ref.abs().max().item())
+    # both backward routes from the same saved o and lse (the wgmma forward's)
+    o, lse = outs["wgmma"]
+    grads = {r: _flash_routed(lambda: tfa.flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal=causal, simt=r == "simt"), (q, k, v, do), r, bwd=True)
+        for r in tfa.ROUTES}
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+    for r in tfa.ROUTES:
+        for a, b, t in zip(grads[r], want, (q, k, v)):
+            assert a.stride() == t.stride() and a.dtype == torch.bfloat16
+            _bwd_close(a, b, torch.bfloat16)
+    err = (outs["wgmma"][0].float() - outs["simt"][0].float()).abs()
+    assert (err <= 2 * (2**-7 * plain.float().abs() + 2**-7 * mag.float())).all()
+    for a, b, w in zip(grads["wgmma"], grads["simt"], want):
+        err = (a.float() - b.float()).abs()
+        assert (err <= 2 * (2**-7 * w.float().abs() + 2**-9 * w.float().abs().max())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [FLASH_ROUTE_CASES[0], FLASH_ROUTE_CASES[3]])
+def test_flash_attention_wgmma_repeats_to_the_bit(cuda, case):
+    """No atomics anywhere: two runs of the forward and of the backward on
+    the same inputs are bit-identical."""
+    causal = case[7]
+    q, k, v, do = _flash_inputs(case, torch.bfloat16, 7, grads=True)
+    runs = []
+    for _ in range(2):
+        o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+        runs.append((o, lse, *tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_simt_route_on_request_and_f32_stays_there(cuda):
+    """``simt=True`` runs the CUDA-core kernels on bf16 operands the tensor
+    cores take; f32 and head_dim 32 route there by the rule."""
+    q, k, v = _flash_inputs(FLASH_ROUTE_CASES[1], torch.bfloat16, 8)
+    assert tfa.route(q, k, v) == "wgmma"
+    _took("flash_attention", lambda: tfa.flash_attention_cuda(q, k, v, simt=True), "simt")
+    assert tfa.route(*_flash_inputs(FLASH_ROUTE_CASES[1], torch.float32, 8)) == "simt"
+    q32 = torch.zeros(1, 2, 40, 32, device=cuda, dtype=torch.bfloat16)
+    assert tfa.route(q32, q32[:, :1], q32[:, :1]) == "simt"
 
 
 @pytest.mark.cuda
@@ -169,10 +275,8 @@ def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
     o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
     o_ref, lse_ref = ref.attention_fwd_ref(q, k, v, causal=True)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
-    before = ops.launch_counts()["flash_attention_bwd"]
-    got = tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    got = _flash_routed(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True),
+                        (q, k, v, do), _want_route(dtype, D), bwd=True)
     want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
     for a, b, t in zip(got, want, (q, k, v)):
         assert a.stride() == t.stride() and a.dtype == dtype
@@ -240,6 +344,8 @@ def test_layer_vjp_gives_every_row_leaf_a_gradient_on_the_card(cuda):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    # both on the tensor cores
+    assert counts["flash_attention_wgmma"] == 1 and counts["flash_attention_bwd_wgmma"] == 1
     assert counts["tiled_matmul"] == 3 + 6  # 3 projections, 2 gradient products each
     assert counts["tiled_matmul_wgmma"] == 9  # every one on the tensor cores
     assert grow.dtype == torch.float32 and torch.isfinite(grow).all()

@@ -1,0 +1,186 @@
+"""Flash attention's routing rule and launch plan, on the CPU.
+
+``kernels/flash_attention.py:route`` sends a call to the tensor-core
+(``wgmma``) kernels when its operands are bf16 of head_dim 64 or 128 and
+TMA can describe each, else to the CUDA-core (``simt``) kernels. These
+tests hold the rule at the operands the main paths hand the kernels --
+``attention_block``'s (B,S,H,D) storage seen as (B,H,S,D) views, at the full
+width of smollm-135m (head_dim 64) and llama-3.2-3b (head_dim 128) -- and at
+the cases that must stay on ``simt``; and ``plan``'s grids against a
+brute-force count of the (query tile, key tile) pairs the causal mask
+leaves. The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import common as tcm  # noqa: E402
+
+BF16 = torch.bfloat16
+MODELS = ["smollm-135m", "llama3.2-3b"]
+# (B, Sq, Sk): a prefill wave of the serve cell (4 slots x 512 tokens), the
+# training cell's batch (8 x 512), and chip_smoke.py's ragged shape
+SHAPES = {"serve": (4, 512, 512), "train": (8, 512, 512), "ragged": (1, 100, 132)}
+
+
+def _views(cfg, B, Sq, Sk, dtype=BF16):
+    """q, k, v and dO as ``attention_block`` hands them to the kernels:
+    (B,S,H,D) storage seen as (B,H,S,D); dO is the gradient of the output's
+    transposed view, (B,S,H,D) storage too."""
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, do = (torch.zeros(B, Sq, H, D, dtype=dtype).transpose(1, 2) for _ in range(2))
+    k, v = (torch.zeros(B, Sk, KV, D, dtype=dtype).transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("model", MODELS)
+def test_main_path_operands_take_the_tensor_cores(model, shape):
+    cfg = configs.get(model)
+    q, k, v, do = _views(cfg, *SHAPES[shape])
+    assert tfa.route(q, k, v) == "wgmma"       # the forward
+    assert tfa.route(q, k, v, do) == "wgmma"   # the backward reads dO too
+    B, H, D = q.shape[0], cfg.n_heads, cfg.resolved_head_dim
+    # a batch of one is never stepped: its stride goes to TMA as 8
+    assert tfa.tma_strides(q) == (q.shape[2] * H * D if B > 1 else 8, D, H * D)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_attention_block_hands_the_kernels_views_they_route_to_the_tensor_cores(
+        model, monkeypatch):
+    """The operands ``models/common.attention_block`` really passes, forward
+    and (through the autograd Function) backward, at full width."""
+    cfg = configs.get(model)
+    H, KV, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    g = torch.Generator().manual_seed(0)
+    p = {name: (torch.randn(*shape, generator=g) * 0.02).to(BF16).requires_grad_()
+         for name, shape in (("wq", (d, H, D)), ("wk", (d, KV, D)), ("wv", (d, KV, D)),
+                             ("wo", (H, D, d)))}
+    B, S = 2, 24
+    x = torch.randn(B, S, d, generator=g).to(BF16)
+    seen = {}
+    real_fwd, real_bwd = ops.flash_attention, ref.attention_bwd_ref
+
+    def fwd(q, k, v, **kw):
+        seen["fwd"] = (q, k, v)
+        return real_fwd(q, k, v, **kw)
+
+    def bwd(q, k, v, o, lse, do, **kw):
+        seen["bwd"] = (q, k, v, do)
+        return real_bwd(q, k, v, o, lse, do, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", fwd)
+    monkeypatch.setattr(ref, "attention_bwd_ref", bwd)
+    out, _ = tcm.attention_block(p, x, torch.arange(S).expand(B, S), cfg)
+    out.float().square().sum().backward()
+    assert tfa.route(*seen["fwd"]) == "wgmma"
+    assert tfa.route(*seen["bwd"]) == "wgmma"
+    assert seen["bwd"][3].stride(-1) == 1
+
+
+def test_what_tma_cannot_take_stays_on_the_cuda_cores():
+    cfg = configs.get("smollm-135m")
+    q, k, v, do = _views(cfg, 1, 100, 132)
+    # f32: wgmma's only f32 input is TF32
+    assert tfa.route(*_views(cfg, 1, 100, 132, torch.float32)[:3]) == "simt"
+    # mixed dtypes never take the tensor cores
+    assert tfa.route(q, k.float(), v) == "simt"
+    # head_dim 32: no tensor-core kernel
+    q32 = torch.zeros(1, 2, 40, 32, dtype=BF16)
+    assert tfa.route(q32, q32[:, :1], q32[:, :1]) == "simt"
+    # a row stride of 68 elements (136 bytes), not a multiple of 16 bytes
+    wide = torch.zeros(1, 100, 9, 68, dtype=BF16)[..., :64].transpose(1, 2)
+    assert tfa.tma_strides(wide) is None and tfa.route(wide, k, v) == "simt"
+    # a view offset by one element: base 2 bytes off a 16-byte boundary
+    buf = torch.zeros(100 * 9 * 64 + 8, dtype=BF16)
+    off = buf[1:1 + 100 * 9 * 64].view(1, 100, 9, 64).transpose(1, 2)
+    assert tfa.route(off, k, v) == "simt"
+    assert tfa.route(buf[8:].view(1, 100, 9, 64).transpose(1, 2), k, v) == "wgmma"
+    # the last dim not contiguous
+    assert tfa.route(q, k, v, do.transpose(2, 3).contiguous().transpose(2, 3)) == "simt"
+    # dO that TMA cannot read sends the backward to simt, not the forward
+    assert tfa.route(q, k, v) == "wgmma" and tfa.route(q, k, v, wide) == "simt"
+
+
+def test_tma_strides_read_either_layout_and_take_size_one_dims():
+    c = torch.zeros(2, 9, 100, 64, dtype=BF16)  # contiguous (B,H,S,D)
+    assert tfa.tma_strides(c) == (9 * 100 * 64, 100 * 64, 64)
+    one = torch.zeros(1, 100, 1, 64, dtype=BF16).transpose(1, 2)  # B = H = 1
+    assert tfa.tma_strides(one) == (8, 8, 64)
+    bcast = torch.zeros(1, 1, 100, 64, dtype=BF16).expand(1, 3, 100, 64)  # a head stride of 0
+    assert tfa.tma_strides(bcast) is None
+
+
+def _tile_pairs(Sq, Sk, causal, rows, cols, by_keys=False):
+    """Brute force: for each query tile of ``rows`` (key tile of ``cols``
+    when ``by_keys``), the tiles of the other kind that hold at least one
+    (query, key) pair the mask keeps."""
+    i = torch.arange(Sq)[:, None]
+    j = torch.arange(Sk)[None, :]
+    keep = (j <= i + (Sk - Sq)) if causal else torch.ones(Sq, Sk, dtype=torch.bool)
+    nq, nk = -(-Sq // rows), -(-Sk // cols)
+    pad = torch.zeros(nq * rows, nk * cols, dtype=torch.bool)
+    pad[:Sq, :Sk] = keep
+    tiles = pad.view(nq, rows, nk, cols).any(3).any(1)  # (nq, nk)
+    return tiles.sum(0).tolist() if by_keys else tiles.sum(1).tolist()
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal", [
+    (8, 9, 3, 512, 512, True),      # the training cell
+    (4, 9, 3, 512, 512, True),      # a prefill wave
+    (1, 6, 2, 100, 132, True),      # ragged, Sq < Sk
+    (2, 24, 8, 200, 264, True),     # llama-3.2-3b's heads, ragged
+    (3, 3, 1, 130, 130, True),      # one row past a tile
+    (1, 4, 2, 96, 160, False),      # not causal
+    (1, 2, 1, 1, 700, True),        # a single query row at the end of long keys
+])
+def test_plan_grids_match_a_brute_force_count_heavy_blocks_first(B, H, KV, Sq, Sk, causal):
+    p = tfa.plan(B, H, KV, Sq, Sk, causal=causal)
+    n_rep = H // KV
+    per_q = _tile_pairs(Sq, Sk, causal, tfa.BQ, tfa.BKV)
+    per_k = _tile_pairs(Sq, Sk, causal, tfa.BQB, tfa.BKV, by_keys=True)
+    for kern in ("fwd", "dq"):
+        g = p[kern]
+        assert g["tile"] == [tfa.BQ, tfa.BKV]
+        assert g["blocks"] == len(per_q) * H * B
+        assert g["steps"] == [per_q[t] for t in g["order"]]
+        assert g["pairs"] == sum(per_q) * H * B
+        assert sorted(g["order"]) == list(range(len(per_q)))
+    g = p["dkdv"]
+    assert g["tile"] == [tfa.BKV, tfa.BQB]
+    assert g["blocks"] == len(per_k) * KV * B
+    assert g["steps"] == [n_rep * per_k[t] for t in g["order"]]
+    assert g["pairs"] == sum(per_k) * n_rep * KV * B
+    assert sorted(g["order"]) == list(range(len(per_k)))
+    # the heaviest blocks launch first, so none is left running alone at the end
+    for kern in ("fwd", "dq", "dkdv"):
+        assert p[kern]["steps"] == sorted(p[kern]["steps"], reverse=True)
+
+
+def test_plan_at_the_training_shape_fills_the_card():
+    """128-row query blocks give 4 x 9 x 8 = 288 forward / dQ blocks; 64-key
+    dK/dV blocks give 8 x 3 x 8 = 192 where 128-key ones would leave 36 of
+    132 SMs without one."""
+    p = tfa.plan(8, 9, 3, 512, 512, sms=132)
+    assert p["fwd"]["blocks"] == 288 and p["dkdv"]["blocks"] == 192
+    assert p["dkdv"]["blocks_per_sm"] > 1 > (512 // 128) * 3 * 8 / 132
+    # causal: the last query tile walks all 8 key tiles, the first 2
+    assert p["fwd"]["order"][0] == 3 and p["fwd"]["steps"] == [8, 6, 4, 2]
+    assert p["dkdv"]["steps"][0] == 3 * 8 and p["dkdv"]["steps"][-1] == 3 * 1
+
+
+def test_launch_counts_report_each_route_and_their_sums(monkeypatch):
+    for name, n in (("wgmma_launches", 5), ("simt_launches", 2),
+                    ("bwd_wgmma_launches", 3), ("bwd_simt_launches", 1)):
+        monkeypatch.setattr(tfa, name, n)
+    c = ops.launch_counts()
+    assert (c["flash_attention"], c["flash_attention_wgmma"], c["flash_attention_simt"]) == (7, 5, 2)
+    assert (c["flash_attention_bwd"], c["flash_attention_bwd_wgmma"],
+            c["flash_attention_bwd_simt"]) == (4, 3, 1)
+    ops.reset_launch_counts()
+    assert tfa.wgmma_launches == tfa.simt_launches == 0
+    assert tfa.bwd_wgmma_launches == tfa.bwd_simt_launches == 0

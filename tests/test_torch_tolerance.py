@@ -1,12 +1,16 @@
 """``chip_smoke.py``'s kernel tolerances against faulty kernels, on the CPU.
 
 The CUDA kernels run only on the card, so their arithmetic is emulated
-here in float64: the flash kernel's K/V tiles of 32 keys, online softmax
-against the running max and p rounded to the input type before P@V; the
-tiled matmul's exact sum rounded once. Each emulation must pass
-``chip_smoke.compare`` against the plain version at a serve shape, and each
-mutant of it (a fault the kernel could carry) must fail there, so the
-check on the card can tell a faulty kernel from a right one.
+here in float64: the CUDA-core (simt) flash kernel's K/V tiles of 32 keys,
+online softmax against the running max and p rounded to the input type
+before P@V; the tensor-core (wgmma) flash kernels' -- K/V tiles of 64 keys
+zero-filled past Sk as TMA lands them, bf16 P against the running max per
+tile in the forward, bf16 P for dV and dS as a bf16 hi + lo pair for dQ and
+dK in the backward; the tiled matmul's exact sum rounded once. Each
+emulation must pass ``chip_smoke.compare`` against the plain version under
+the unchanged ``TOL``, and each mutant of it (a fault the kernel could
+carry) must fail there, so the check on the card can tell a faulty kernel
+from a right one.
 """
 import importlib.util
 import pathlib
@@ -15,10 +19,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BK = 32  # keys per K/V tile in csrc/flash_attention.cu
+BK = 32  # keys per K/V tile of the simt kernel in csrc/flash_attention.cu
+NEG = -1e30
 
 
 def _chip_smoke():
@@ -103,3 +109,178 @@ def test_tiled_tolerance_passes_right_and_rejects_a_lost_k_tile(dtype):
     lost = (x[:, 64:].double() @ w[64:].double()).to(dtype)
     with pytest.raises(SystemExit, match="FAIL tiled_matmul"):
         cs.compare("tiled_matmul", (M, K, N), dtype, lost, plain, mag)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core (wgmma) kernels
+# ---------------------------------------------------------------------------
+
+
+def _keep(Sq, Sk, *, causal=True, shift=0, past_sk=False, drop=None):
+    """The (Sq, Sk + padding to whole BKV tiles) mask the kernels apply:
+    keys below Sk and, when causal, ``j <= i + (Sk - Sq)``. Mutations:
+    ``shift`` moves the causal edge, ``past_sk`` keeps the zero-filled keys
+    past Sk (under causal they lie past the frontier too, so only the
+    non-causal form can show it), ``drop`` loses one K/V tile."""
+    nk = -(-Sk // tfa.BKV) * tfa.BKV
+    i = torch.arange(Sq)[:, None]
+    j = torch.arange(nk)[None, :]
+    keep = ((j <= i + (Sk - Sq) + shift) | (not causal)) & ((j < Sk) | past_sk)
+    if drop is not None:
+        keep &= (j // tfa.BKV) != drop
+    return keep
+
+
+def _padded(t, Sk):
+    """k or v with the zero keys TMA lands past Sk, to whole BKV tiles."""
+    nk = -(-Sk // tfa.BKV) * tfa.BKV
+    return torch.nn.functional.pad(t, (0, 0, 0, nk - Sk))
+
+
+def emulate_flash_wgmma(q, k, v, **mutation):
+    """The wgmma forward for q (B,H,Sq,D), k/v (B,KV,Sk,D): per K/V
+    tile of BKV keys, S, the mask, the online softmax against the running
+    max (l sums f32 p), p rounded to bf16 for the RS product P@V."""
+    B, H, Sq, D = q.shape
+    Sk, n_rep = k.shape[2], H // k.shape[1]
+    qf = q.double()
+    kf = _padded(k, Sk).repeat_interleave(n_rep, 1).double()
+    vf = _padded(v, Sk).repeat_interleave(n_rep, 1).double()
+    keep = _keep(Sq, Sk, **mutation)
+    m = torch.full((B, H, Sq, 1), NEG, dtype=torch.float64)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, H, Sq, D, dtype=torch.float64)
+    for t in range(kf.shape[2] // tfa.BKV):
+        keys = slice(t * tfa.BKV, (t + 1) * tfa.BKV)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, keys]) * D ** -0.5
+        s = torch.where(keep[:, keys], s, torch.tensor(NEG, dtype=torch.float64))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p = p.to(torch.bfloat16).double()
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vf[:, :, keys])
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def emulate_flash_bwd_wgmma(q, k, v, o, lse, do, *, hilo=True, twice=None, extra=None,
+                            **mutation):
+    """The wgmma backward's dq, dk, dv from the forward's o and lse: P =
+    exp(S scale - lse) under the mask, dV = sum over the group of
+    bf16(P)^T dO, dS = P (dP - delta) carried as hi = bf16(dS) plus
+    lo = bf16(dS - hi) (``hilo=False``: hi alone), dQ = scale dS K and
+    dK = scale sum over the group of dS^T Q. Mutations: ``twice`` sums one
+    query head of each group twice into dK/dV; ``extra`` = (q, dO, o, lse)
+    rows past Sq that a kernel reading on without masking would take into
+    dK/dV (they see every key)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    n_rep, scale = H // KV, D ** -0.5
+    keep = _keep(Sq, Sk, **mutation)[:, :Sk]
+    if extra is not None:
+        q, do, o, lse = (torch.cat([a, b], 2) for a, b in zip((q, do, o, lse), extra))
+        keep = torch.cat([keep, torch.ones(q.shape[2] - Sq, Sk, dtype=torch.bool)])
+    kr = k.repeat_interleave(n_rep, 1).double()
+    vr = v.repeat_interleave(n_rep, 1).double()
+    qf, dof = q.double(), do.double()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    p = torch.where(keep, torch.exp(s - lse.double()[..., None]),
+                    torch.zeros((), dtype=torch.float64))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(torch.bfloat16).double(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    ds = p * (dp - (dof * o.double()).sum(-1, keepdim=True))
+    hi = ds.to(torch.bfloat16).double()
+    dsr = hi + (ds - hi).to(torch.bfloat16).double() if hilo else hi
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsr, kr)[:, :, :Sq] * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qf) * scale
+    if twice is not None:  # head `twice` of every group counted again
+        heads = torch.arange(H) % n_rep == twice
+        dk = dk + torch.where(heads[:, None, None], dk, 0.0)
+        dv = dv + torch.where(heads[:, None, None], dv, 0.0)
+    dk = dk.reshape(B, KV, n_rep, Sk, D).sum(2)
+    dv = dv.reshape(B, KV, n_rep, Sk, D).sum(2)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# the training cell's heads, length and head_dim (B = 1; chip_smoke draws B =
+# 8), and chip_smoke.py's ragged shape: Sq < Sk, neither a multiple of a tile
+WG_TRAIN = (1, 9, 3, 512, 512, 64)
+WG_RAGGED = (1, 6, 2, 100, 132, 64)
+
+
+def _draw(shape, seed=0, extra_rows=0):
+    """q, k, v, dO as chip_smoke draws them (unit variance, (B,S,H,D)
+    storage seen as (B,H,S,D)), bf16; q and dO with ``extra_rows`` more
+    rows past Sq."""
+    B, H, KV, Sq, Sk, D = shape
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
+    q, do = (torch.randn(B, Sq + extra_rows, H, D, generator=g).to(bf).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, KV, D, generator=g).to(bf).transpose(1, 2) for _ in range(2))
+    return q, k, v, do
+
+
+def _check_wgmma_fwd(shape, causal=True, **mutation):
+    q, k, v, _ = _draw(shape)
+    return _chip_smoke().compare(
+        "flash_attention", shape, torch.bfloat16,
+        emulate_flash_wgmma(q, k, v, causal=causal, **mutation),
+        ref.attention_ref(q, k, v, causal=causal), ref.attention_ref(q, k, v.abs(), causal=causal))
+
+
+def _check_wgmma_bwd(shape, seed=0, rows_past_sq=False, **mutation):
+    """Each of dq, dk, dv against the plain backward from the same saved o
+    and lse, as ``chip_smoke.check_flash_bwd`` holds the kernel."""
+    Sq = shape[3]
+    pad = (-Sq) % tfa.BQB if rows_past_sq else 0
+    q, k, v, do = _draw(shape, seed, extra_rows=pad)
+    extra = None
+    if pad:  # the rows past Sq see every key, as an unmasked kernel lets them
+        ox, lsex = ref.attention_fwd_ref(q, k, v, causal=False)
+        extra = (q[:, :, Sq:], do[:, :, Sq:], ox[:, :, Sq:], lsex[:, :, Sq:])
+        q, do = q[:, :, :Sq], do[:, :, :Sq]
+    o, lse = ref.attention_fwd_ref(q, k, v, causal=True)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    got = emulate_flash_bwd_wgmma(q, k, v, o, lse, do, extra=extra, **mutation)
+    cs = _chip_smoke()
+    return [cs.compare("flash_attention_bwd", shape, torch.bfloat16, g, w, w.float().abs().max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", [WG_TRAIN, WG_RAGGED], ids=["train", "ragged"])
+def test_wgmma_flash_tolerance_passes_the_tensor_core_arithmetic(shape):
+    assert _check_wgmma_fwd(shape)["worst_err_over_tol"] <= 1.0
+    assert _check_wgmma_fwd(shape, causal=False)["worst_err_over_tol"] <= 1.0
+    # the hi + lo pair stays well inside the backward's tolerance
+    assert max(r["worst_err_over_tol"] for r in _check_wgmma_bwd(shape)) <= 0.6
+
+
+@pytest.mark.parametrize("shape,mutation", [
+    (WG_TRAIN, {"drop": 3}), (WG_TRAIN, {"drop": 7}), (WG_TRAIN, {"shift": 1}),
+    (WG_TRAIN, {"shift": -1}), (WG_RAGGED, {"past_sk": True, "causal": False})],
+    ids=["lost-mid-tile", "lost-last-tile", "causal+1", "causal-1", "key-past-Sk-unmasked"])
+def test_wgmma_flash_tolerance_rejects_a_faulty_forward(shape, mutation):
+    with pytest.raises(SystemExit, match="FAIL flash_attention"):
+        _check_wgmma_fwd(shape, **mutation)
+
+
+@pytest.mark.parametrize("shape,mutation", [
+    (WG_TRAIN, {"drop": 3}), (WG_TRAIN, {"shift": 1}), (WG_TRAIN, {"shift": -1}),
+    (WG_RAGGED, {"rows_past_sq": True}), (WG_TRAIN, {"twice": 0}), (WG_TRAIN, {"twice": 2})],
+    ids=["lost-key-tile", "causal+1", "causal-1", "query-row-past-Sq-unmasked",
+         "gqa-head-0-summed-twice", "gqa-head-2-summed-twice"])
+def test_wgmma_flash_tolerance_rejects_a_faulty_backward(shape, mutation):
+    with pytest.raises(SystemExit, match="FAIL flash_attention_bwd"):
+        _check_wgmma_bwd(shape, **mutation)
+
+
+def test_single_bf16_ds_does_not_fit_the_backward_tolerance():
+    """Why the kernels carry dS as a hi + lo pair: rounded once to bf16, dS
+    takes an element of dK past the unchanged tolerance at two batches of
+    the training cell's heads (chip_smoke times eight); the pair does not."""
+    shape = (2, 9, 3, 512, 512, 64)
+    with pytest.raises(SystemExit, match="FAIL flash_attention_bwd"):
+        _check_wgmma_bwd(shape, hilo=False)
+    assert max(r["worst_err_over_tol"] for r in _check_wgmma_bwd(shape)) <= 0.6
