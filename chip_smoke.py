@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; no phase is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ``src/repro_torch/csrc`` (one nvcc each, in
      parallel), and count the warpgroup MMA (HGMMA) instructions in the
-     flash-attention and tiled-matmul libraries (none in either fails);
+     flash-attention, tiled-matmul and quantized-matmul libraries (none in
+     any fails);
   3. each kernel against its plain version at the serve shapes and at a
      ragged shape (flash attention: two), in bf16 and f32, element by element (``TOL``), with
      timings of the bf16 serve shapes (kernel, plain, library yardstick)
@@ -35,11 +36,14 @@ Phases (any failure exits non-zero; no phase is caught):
   7. the training kernels against their plain versions: fused Adam at the
      embedding, ``ln_f`` and 100,001 elements; the flash forward and
      backward (dq, dk, dv; routes held, the tensor-core kernels timed
-     against the CUDA-core ones as in 3), the tiled matmul's gradient
-     products on transposed views (all four major-ness combinations, a
-     ragged shape on the tensor cores), and the quantized matmul forward and
-     in its dX orientation, at the training shapes and a ragged one (flash:
-     two), bf16 and f32 (``TOL``), timed in bf16 at the training shapes;
+     against the CUDA-core ones as in 3), also at gemma-7b's and
+     nemotron-4-340b's heads (head_dim 256 and 192, on the CUDA cores), the
+     tiled matmul's gradient products on transposed views (all four
+     major-ness combinations, a ragged shape on the tensor cores), and the
+     quantized matmul forward and in its dX orientation (routes held, the
+     tensor-core kernel timed against the CUDA-core one as in 3), at the
+     training shapes and a ragged one (flash: two), bf16 and f32 (``TOL``),
+     timed in bf16 at the training shapes;
   8. training numerics: a 2-layer full-width smollm-135m, 2 layered steps
      on the card (kernels) against the CPU (plain versions) from the same
      weights and batches: loss, grad norm, the rows' f32 Adam masters read
@@ -55,8 +59,9 @@ Phases (any failure exits non-zero; no phase is caught):
   11. the kernels JSON line, then the device JSON line last.
 
 In every main path (5, 6, 9, 10) each flash-attention launch, forward and
-backward, and each tiled-matmul launch must be on the tensor-core route
-(``*_wgmma``), none on ``simt``.
+backward, each tiled-matmul launch and each quantized-matmul launch,
+forward and dX, must be on the tensor-core route (``*_wgmma``), none on
+``simt``.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -144,6 +149,10 @@ ADAM_SIZES = [(49152 * 576, "embed.tok"), (576, "ln_f.scale"), (100_001, "ragged
 QMM_TRAIN = [(4096, 576, 1536, False), (4096, 1536, 576, False),
              (4096, 576, 1536, True), (4096, 1536, 576, True)]
 QMM_RAGGED = [(100, 96, 64, False), (100, 96, 64, True)]
+# flash at the heads of the dense configs whose head_dim the tensor-core
+# kernels do not take (the CUDA-core ones do): gemma-7b (16 heads, head_dim
+# 256) and nemotron-4-340b (96 query heads over 8 KV heads, head_dim 192)
+FLASH_WIDE = [(1, 16, 16, 512, 512, 256), (1, 96, 8, 256, 256, 192)]
 # The flash backward's bf16 gradients: one output ulp (2^-7 |plain|) plus,
 # inside dV, the rare p rounded to bf16 one ulp apart in kernel and plain
 # version (lse and the f32 scores differ in the last bits): 2^-9 of the
@@ -284,9 +293,11 @@ def check_speedup(name, shape, rec) -> None:
 
 
 def check_flash_routes(recs) -> None:
-    """bf16 at head_dim 64 takes the tensor cores, f32 the CUDA cores."""
+    """bf16 at head_dim 64 or 128 takes the tensor cores; f32 and other
+    head_dims the CUDA cores."""
     for r in recs:
-        want = "simt" if r["dtype"] == "float32" else "wgmma"
+        bf16_wgmma = r["dtype"] == "bfloat16" and r["shape"][-1] in tfa.WGMMA_HEAD_DIMS
+        want = "wgmma" if bf16_wgmma else "simt"
         if r["route"] != want:
             raise SystemExit(f"FAIL flash_attention {r['shape']} {r['dtype']}: took "
                              f"{r['route']}, want {want}")
@@ -460,33 +471,57 @@ def check_adam(n, label, gen, timed: bool) -> dict:
 def check_qmm(case, dtype, gen, timed: bool) -> dict:
     """The quantized matmul on the q8 operands of a random bf16 weight (the
     port's encoder), forward or in its dX orientation, against
-    ``ref.quantized_matmul_ref``. No single PyTorch call computes this
-    function (library_ms null); ``torch.matmul`` on the weight already
+    ``ref.quantized_matmul_ref``, on the route ``quantized_matmul.route``
+    names (held by the launch counters). No single PyTorch call computes
+    this function (library_ms null); ``torch.matmul`` on the weight already
     dequantized to bf16 is timed beside it as a labelled yardstick."""
     M, K, N, trans = case
     q, s, _ = qformat.wire_matmul_operands(
         qformat.encode_array(randn((K, N), torch.bfloat16, gen, 0.1), "q8"))
     q, s = q.cuda(), s.cuda()
     x = randn((M, N if trans else K), dtype, gen, 0.1)
-    out = tqm.quantized_matmul_cuda(x, q, s, transpose=trans)
+
+    def call():
+        return tqm.quantized_matmul_cuda(x, q, s, transpose=trans)
+
+    want = tqm.route(x, q)
+    out = routed("quantized_matmul_dx" if trans else "quantized_matmul", call, want)
     plain = ref.quantized_matmul_ref(x, q, s, transpose=trans)
     w_abs = qformat.dequant_q8(q, s).abs()
     mag = x.float().abs() @ (w_abs.T if trans else w_abs)
     torch.cuda.synchronize()
     rec = compare("quantized_matmul", (M, K, N), dtype, out, plain, mag)
     rec["transposed"] = trans
+    rec["route"] = want
+    n_out = K if trans else N
+    if want == "wgmma":
+        rec["plan"] = tqm.plan(M, n_out, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
     if timed:
-        n_out = K if trans else N
         nbytes = (x.numel() + M * n_out) * x.element_size() + q.numel() + s.numel() * 2
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
-        rec["ms"] = time_ms(lambda: tqm.quantized_matmul_cuda(x, q, s, transpose=trans))
+        rec["ms"] = time_ms(call)
+        rec["call_ms"] = time_ms(call, queued=False)
+        rec["simt_ms"] = time_ms(lambda: tqm.quantized_matmul_cuda(x, q, s, transpose=trans,
+                                                                   simt=True))
         rec["plain_ms"] = time_ms(lambda: ref.quantized_matmul_ref(x, q, s, transpose=trans))
         rec["library_ms"] = None
         w = qformat.dequant_q8(q, s).to(dtype)
         w = w.T if trans else w
         rec["yardstick"] = "torch.matmul on the weight dequantized to bf16"
         rec["yardstick_ms"] = time_ms(lambda: torch.matmul(x, w))
+        check_speedup("quantized_matmul", (M, K, N), rec)
     return rec
+
+
+def check_qmm_routes(recs) -> None:
+    """bf16 at every training and ragged shape takes the tensor cores, f32
+    the CUDA cores."""
+    for r in recs:
+        want = "simt" if r["dtype"] == "float32" else "wgmma"
+        if r["route"] != want:
+            raise SystemExit(f"FAIL quantized_matmul {r['shape']} {r['dtype']} "
+                             f"transposed={r['transposed']}: took {r['route']}, want {want}")
 
 
 def phase_train_kernels() -> dict:
@@ -498,6 +533,10 @@ def phase_train_kernels() -> dict:
     bwd += [check_flash_bwd(FLASH_TRAIN, f32, gen, timed=False)]
     bwd += [check_flash_bwd(s, dt, gen, timed=False) for s in (FLASH_RAGGED, FLASH_ODD)
             for dt in (bf16, f32)]
+    for shape in FLASH_WIDE:
+        fwd += [check_flash(shape, bf16, gen, timed=True), check_flash(shape, f32, gen, timed=False)]
+        bwd += [check_flash_bwd(shape, bf16, gen, timed=True),
+                check_flash_bwd(shape, f32, gen, timed=False)]
     check_flash_routes(fwd + bwd)
     tiled = [check_tiled_t(c, bf16, gen, timed=True) for c in TILED_TRAIN]
     tiled += [check_tiled_t(c, f32, gen, timed=False) for c in TILED_TRAIN]
@@ -508,6 +547,7 @@ def phase_train_kernels() -> dict:
     qmm = [check_qmm(c, bf16, gen, timed=True) for c in QMM_TRAIN]
     qmm += [check_qmm(c, f32, gen, timed=False) for c in QMM_TRAIN]
     qmm += [check_qmm(c, dt, gen, timed=False) for c in QMM_RAGGED for dt in (bf16, f32)]
+    check_qmm_routes(qmm)
     for rec in adam + fwd + bwd + tiled + qmm:
         say("train kernel check:", json.dumps(rec))
     return {"fused_adam": adam, "flash_attention": fwd, "flash_attention_bwd": bwd,
@@ -675,20 +715,25 @@ def phase_train_main(quant: str = "none") -> tuple:
     return rec, launches
 
 
+ROUTED = ("flash_attention", "flash_attention_bwd", "tiled_matmul", "quantized_matmul",
+          "quantized_matmul_dx")
+
+
 def check_main_path_routes(tag, launches) -> None:
-    """Every flash-attention (forward and backward) and tiled-matmul launch
-    of a main path is a tensor-core one."""
-    for name in ("flash_attention", "flash_attention_bwd", "tiled_matmul"):
+    """Every flash-attention (forward and backward), tiled-matmul and
+    quantized-matmul (forward and dX) launch of a main path is a
+    tensor-core one."""
+    for name in ROUTED:
         if launches[f"{name}_simt"] or launches[f"{name}_wgmma"] != launches[name]:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times, "
                              f"{launches[f'{name}_wgmma']} on wgmma and "
                              f"{launches[f'{name}_simt']} on simt; want all on wgmma")
 
 
-def phase_e2e() -> dict:
-    """Full-width smollm-135m cut to 2 layers: the card (kernels) against
-    the CPU (plain versions) from the same weights, teacher-forced."""
-    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+def phase_e2e(arch: str = "smollm-135m") -> dict:
+    """Full-width ``arch`` cut to 2 layers: the card (kernels) against the
+    CPU (plain versions) from the same weights, teacher-forced."""
+    cfg = dataclasses.replace(configs.get(arch), n_layers=2)
     bundle = registry.build(cfg)
     params_cpu = bundle.init(torch.Generator().manual_seed(SEED), "cpu")
     params_gpu = _to(params_cpu, "cuda")
@@ -714,7 +759,7 @@ def phase_e2e() -> dict:
                          f"or not {tuple(a.shape)}")
     worst = (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
     agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    rec = {"layers": cfg.n_layers, "d_model": cfg.d_model, "batch": B,
+    rec = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model, "batch": B,
            "prompt": S, "decode_steps": n_dec, "max_rel_err": worst,
            "tol": E2E_REL_TOL, "argmax_agree": agree}
     say("e2e check:", json.dumps(rec))
@@ -821,9 +866,10 @@ def main() -> int:
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, rec in built.items():
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
-    hgmma = {name: count_hgmma(name) for name in ("flash_attention", "tiled_matmul")}
+    hgmma = {name: count_hgmma(name)
+             for name in ("flash_attention", "tiled_matmul", "quantized_matmul")}
 
     checks = phase_kernels()
     e2e = phase_e2e()
@@ -886,14 +932,14 @@ def main() -> int:
             "tol": head["tol"], "q8_run_launches": q8_launches[name], "shapes": recs}
         if "yardstick_ms" in head:
             entry["yardstick"], entry["yardstick_ms"] = head["yardstick"], head["yardstick_ms"]
-        if name in ("flash_attention", "flash_attention_bwd", "tiled_matmul"):
+        if name in ROUTED:
             entry["simt_ms"], entry["call_ms"] = head["simt_ms"], head["call_ms"]
             entry["routes"] = {run: {r: c[f"{name}_{r}"] for r in tmm.ROUTES}
                                for run, c in (("train", train_launches), ("train_q8", q8_launches),
                                               ("serve_host", launches),
                                               ("serve_nvme", nvme_launches),
                                               ("serve_nvme_q8", q8kv_launches))}
-            entry["hgmma_instructions"] = hgmma[name.removesuffix("_bwd")]
+            entry["hgmma_instructions"] = hgmma[name.removesuffix("_bwd").removesuffix("_dx")]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name][name]
             entry["nvme_run_launches"] = nvme_launches[name]

@@ -609,7 +609,12 @@ class PinnedStager:
         self.max_inflight = max_inflight
         self._pending: collections.deque = collections.deque()  # (event, buf)
 
-    def to_device(self, t: torch.Tensor) -> torch.Tensor:
+    def to_device(self, t: torch.Tensor, gap: tuple = (0, 0)) -> torch.Tensor:
+        """``t`` on the device. ``gap = (at, n)`` leaves ``n`` unset
+        elements before element ``at`` of a 1-D ``t`` in the device copy
+        (the rest moves up by ``n``), so a part of it can start on an
+        aligned address; the card's copy, from the same pinned buffer."""
+        at, n_gap = gap
         if self.device.type != "cuda":
             return t.to(self.device)
         self.retire()
@@ -619,8 +624,13 @@ class PinnedStager:
         buf = self.pool.acquire(max(n, 1))
         staged = _staged(buf, t.dtype, t.shape)
         staged.copy_(t)
-        out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
-        out.copy_(staged, non_blocking=True)
+        if n_gap:
+            out = torch.empty((t.numel() + n_gap,), dtype=t.dtype, device=self.device)
+            out[:at].copy_(staged[:at], non_blocking=True)
+            out[at + n_gap:].copy_(staged[at:], non_blocking=True)
+        else:
+            out = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            out.copy_(staged, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
         self._pending.append((ev, buf))

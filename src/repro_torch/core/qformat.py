@@ -251,9 +251,11 @@ def wire_row_device(payload: torch.Tensor, stager) -> Tuple[torch.Tensor, torch.
     on ``stager.device``.
 
     The header is parsed on the host; the body (scales, then quants) goes
-    to the device in one non-blocking copy through the pinned
-    ``PinnedStager``, and both operands are views of that one buffer (the
-    scales first, so both start aligned). ``q`` covers whole blocks: the
+    to the device through the pinned ``PinnedStager`` (one staging copy,
+    two non-blocking device copies), and both operands are views of that
+    one buffer: the scales first, then a gap of under 16 bytes, so the
+    quants start on a 16-byte boundary (where TMA reads them in the
+    quantized matmul's tensor-core route). ``q`` covers whole blocks: the
     row's elements are ``q[:n]``."""
     hdr, off = _parse_wire(payload)
     if hdr["fmt"] != "q8" or len(hdr["shape"]) != 1:
@@ -261,11 +263,16 @@ def wire_row_device(payload: torch.Tensor, stager) -> Tuple[torch.Tensor, torch.
                          f"{hdr['fmt']!r} of shape {hdr['shape']}")
     nb = -(-hdr["shape"][0] // BLOCK)
     body = payload[off:off + nb * (2 + BLOCK)]
+    sb = nb * 2
+    gap = -sb % 16
     if stager.device.type == "cuda":
-        body = stager.to_device(body)
-    else:
-        body = body.clone()  # the host's copy stands in for the link
-    return body[nb * 2:].view(torch.int8), body[:nb * 2].view(torch.float16)
+        body = stager.to_device(body, gap=(sb, gap))
+    else:  # the host's copy stands in for the link
+        out = torch.empty(body.numel() + gap, dtype=torch.uint8)
+        out[:sb] = body[:sb]
+        out[sb + gap:] = body[sb:]
+        body = out
+    return body[sb + gap:].view(torch.int8), body[:sb].view(torch.float16)
 
 
 # ---------------------------------------------------------------------------

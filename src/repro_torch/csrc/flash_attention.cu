@@ -22,10 +22,14 @@
 //            to 16 bytes): tensor cores fed by TMA under mbarriers. Every
 //            bf16 attention call of the serving and training paths takes it.
 //   simt  -- everything else: f32 (wgmma's only f32 input is TF32, which
-//            would break the f32 tolerance), D = 32, views TMA cannot
-//            describe. The first design's CUDA-core f32 FMAs, kept as it
-//            was: LANES threads per query (or key) row, K/V tiles of 32
-//            staged as f32 in static shared memory.
+//            would break the f32 tolerance), D = 32, 192 and 256, views TMA
+//            cannot describe. The first design's CUDA-core f32 FMAs: LANES
+//            threads per query (or key) row, 32 rows a block, K/V (or q/dO)
+//            tiles staged as f32 in static shared memory -- 4 lanes and
+//            32-row tiles up to D = 128, as it was; above it 8 lanes and
+//            16-row tiles, so a tile pair stays within the 48 KB of static
+//            shared memory (32 KB at D = 256) and a dK/dV thread's four
+//            row arrays within its registers (D / 8 values each).
 //
 // Bound on this card (989 TFLOP/s bf16, 3.35 TB/s; each input read once,
 // each output written once). At the training shape (B 8, H 9, KV 3,
@@ -94,8 +98,11 @@
 // wgmmas for want of registers -- still faster at the training shape than
 // one block per SM without either, slower at the serve shape; PERF.md),
 // 149 at D = 128; dQ 135 / 157; dK/dV 168 / 231; none of these spill. The
-// simt kernels are as they were: forward up to 128 registers, dQ up to 166,
-// dK/dV up to 216, delta 27-32, no spills.
+// simt kernels up to D = 128 are as they were: forward up to 128
+// registers, dQ up to 166, dK/dV up to 216, delta 27-32, no spills; at
+// D = 192 / 256 (f32 and bf16): forward 111-116 / 128, dQ 128 / 164-166,
+// dK/dV 167 / 215-216, delta 31-32, 24-33 KB of static shared memory,
+// 0 bytes of spills.
 //
 // C interface (ctypes): pointers and the stream are void*, strides are in
 // elements and the last dim is contiguous; lse and delta are contiguous
@@ -111,11 +118,23 @@
 
 namespace simt {
 
-constexpr int BQ = 32;
-constexpr int BK = 32;
-constexpr int LANES = 4;
-constexpr int THREADS = BQ * LANES;
+constexpr int ROWS = 32;  // query (forward, delta, dQ) or key (dK/dV) rows per block
+// Threads per row and rows per staged tile, by head_dim. Each thread holds
+// D / LANES values of each row array in registers, and a step stages TILE
+// K/V (or q/dO) rows as f32 in static shared memory (48 KB at most): above
+// D = 128, eight threads a row and 16-row tiles keep both in bounds.
+template <int D> constexpr int LANES_OF = D > 128 ? 8 : 4;
+template <int D> constexpr int TILE_OF = D > 128 ? 16 : 32;
+template <int D> constexpr int THREADS_OF = ROWS * LANES_OF<D>;
 constexpr float NEG_INF = -1e30f;
+
+// The sum over the L neighbouring threads that hold one row.
+template <int L> __device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  if (L > 4) x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return x;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -131,12 +150,14 @@ struct Strides {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS_OF<D>)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int n_rep, int Sq, int Sk,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  float scale) {
+  constexpr int LANES = LANES_OF<D>, THREADS = THREADS_OF<D>;
+  constexpr int BQ = ROWS, BK = TILE_OF<D>;  // query rows a block, keys a tile
   constexpr int DP = D / LANES;
   __shared__ float k_tile[BK][D];
   __shared__ float v_tile[BK][D];
@@ -195,8 +216,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < DP; ++i) part += qr[i] * k_tile[j][lane + LANES * i];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      part = row_sum<LANES>(part);
       const int kj = t * BK + j;
       const bool valid = kj < Sk && (!causal || kj <= qi + q_offset);
       const float sc = valid ? part * scale : NEG_INF;
@@ -234,10 +254,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS_OF<D>)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
                        float* __restrict__ delta, int Sq, Strides os,
                        Strides dos) {
+  constexpr int LANES = LANES_OF<D>, BQ = ROWS;
   constexpr int DP = D / LANES;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -252,13 +273,12 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
     for (int i = 0; i < DP; ++i)
       part += to_f(op[lane + LANES * i]) * to_f(dp[lane + LANES * i]);
   }
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
+  part = row_sum<LANES>(part);
   if (qi < Sq && lane == 0) delta[((int64_t)b * gridDim.y + h) * Sq + qi] = part;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS_OF<D>)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dO,
                       const float* __restrict__ lse,
@@ -266,6 +286,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       T* __restrict__ dv, int H, int n_rep, int Sq, int Sk,
                       Strides qs, Strides ks, Strides vs, Strides dos,
                       Strides dks, Strides dvs, int causal, float scale) {
+  constexpr int LANES = LANES_OF<D>, THREADS = THREADS_OF<D>;
+  constexpr int BK = ROWS, BQ = TILE_OF<D>;  // key rows a block, queries a tile
   constexpr int DP = D / LANES;
   __shared__ float q_tile[BQ][D];
   __shared__ float do_tile[BQ][D];
@@ -338,10 +360,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           s += q_tile[r][lane + LANES * i] * kr[i];
           dp += do_tile[r][lane + LANES * i] * vr[i];
         }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+        s = row_sum<LANES>(s);
+        dp = row_sum<LANES>(dp);
         const bool valid = key_valid && (!causal || kj <= qi + q_offset);
         const float p = valid ? expf(s * scale - lse_tile[r]) : 0.f;
         const float ds = p * (dp - delta_tile[r]);
@@ -367,7 +387,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS_OF<D>)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dO,
                     const float* __restrict__ lse,
@@ -375,6 +395,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int n_rep, int Sq, int Sk, Strides qs, Strides ks,
                     Strides vs, Strides dos, Strides dqs, int causal,
                     float scale) {
+  constexpr int LANES = LANES_OF<D>, THREADS = THREADS_OF<D>;
+  constexpr int BQ = ROWS, BK = TILE_OF<D>;  // query rows a block, keys a tile
   constexpr int DP = D / LANES;
   __shared__ float k_tile[BK][D];
   __shared__ float v_tile[BK][D];
@@ -434,10 +456,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s += qr[i] * k_tile[j][lane + LANES * i];
         dp += dor[i] * v_tile[j][lane + LANES * i];
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+      s = row_sum<LANES>(s);
+      dp = row_sum<LANES>(dp);
       const int kj = t * BK + j;
       const bool valid = row_valid && kj < Sk && (!causal || kj <= qi + q_offset);
       const float p = valid ? expf(s * scale - lse_i) : 0.f;
@@ -477,8 +497,8 @@ struct BwdArgs {
 
 template <typename T, int D>
 void launch_fwd(const FwdArgs& a, cudaStream_t stream) {
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  dim3 grid((a.Sq + ROWS - 1) / ROWS, a.H, a.B);
+  flash_fwd_kernel<T, D><<<grid, THREADS_OF<D>, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H / a.KV,
       a.Sq, a.Sk, a.qs, a.ks, a.vs, a.os, a.causal, a.scale);
@@ -490,20 +510,20 @@ void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dO = static_cast<const T*>(a.dO);
-  dim3 qgrid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_delta_kernel<T, D><<<qgrid, THREADS, 0, stream>>>(
+  dim3 qgrid((a.Sq + ROWS - 1) / ROWS, a.H, a.B);
+  flash_bwd_delta_kernel<T, D><<<qgrid, THREADS_OF<D>, 0, stream>>>(
       static_cast<const T*>(a.o), dO, a.delta, a.Sq, a.os, a.dos);
-  dim3 kgrid((a.Sk + BK - 1) / BK, a.KV, a.B);
-  flash_bwd_dkdv_kernel<T, D><<<kgrid, THREADS, 0, stream>>>(
+  dim3 kgrid((a.Sk + ROWS - 1) / ROWS, a.KV, a.B);
+  flash_bwd_dkdv_kernel<T, D><<<kgrid, THREADS_OF<D>, 0, stream>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.H, a.H / a.KV, a.Sq, a.Sk, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs,
       a.causal, a.scale);
-  flash_bwd_dq_kernel<T, D><<<qgrid, THREADS, 0, stream>>>(
+  flash_bwd_dq_kernel<T, D><<<qgrid, THREADS_OF<D>, 0, stream>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dq), a.H / a.KV, a.Sq,
       a.Sk, a.qs, a.ks, a.vs, a.dos, a.dqs, a.causal, a.scale);
 }
 
-// dtype x head_dim dispatch: 0 = float32, 1 = bfloat16; D in {32, 64, 128}
+// dtype x head_dim dispatch: 0 = float32, 1 = bfloat16; D in {32, 64, 128, 192, 256}
 template <typename T, int D> struct Fwd { static void run(const FwdArgs& a, cudaStream_t s) { launch_fwd<T, D>(a, s); } };
 template <typename T, int D> struct Bwd { static void run(const BwdArgs& a, cudaStream_t s) { launch_bwd<T, D>(a, s); } };
 
@@ -513,6 +533,8 @@ int dispatch_d(const Args& a, int D, cudaStream_t s) {
     case 32: L<T, 32>::run(a, s); break;
     case 64: L<T, 64>::run(a, s); break;
     case 128: L<T, 128>::run(a, s); break;
+    case 192: L<T, 192>::run(a, s); break;
+    case 256: L<T, 256>::run(a, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -1112,8 +1134,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o);
   const __nv_bfloat16* dO = static_cast<const __nv_bfloat16*>(a.dO);
-  dim3 dgrid((a.Sq + simt::BQ - 1) / simt::BQ, a.H, a.B);
-  simt::flash_bwd_delta_kernel<__nv_bfloat16, D><<<dgrid, simt::THREADS, 0, stream>>>(
+  dim3 dgrid((a.Sq + simt::ROWS - 1) / simt::ROWS, a.H, a.B);
+  simt::flash_bwd_delta_kernel<__nv_bfloat16, D><<<dgrid, simt::THREADS_OF<D>, 0, stream>>>(
       o, dO, a.delta, a.Sq, a.os, a.dos);
   const float sl2 = a.scale * LOG2E;
   dkdv_kernel<D><<<cdiv(a.Sk, BKV) * a.KV * a.B, THREADS_KV, Dkv<D>::SMEM, stream>>>(

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (tiled_matmul.cu, flash_attention.cu): mbarriers, TMA loads and the host
-// encoder of their descriptors, wgmma shared-memory descriptors, and the
-// wgmma forms the kernels issue. Each .cu that includes this builds on its
+// (tiled_matmul.cu, flash_attention.cu, quantized_matmul.cu): mbarriers,
+// TMA loads and the host encoder of their descriptors, the async-proxy
+// fence and named barriers, wgmma shared-memory descriptors, and the wgmma
+// forms the kernels issue. Each .cu that includes this builds on its
 // own (kernels/_build.py hashes the header into every library's name).
 //
 // The two wgmma forms, bf16 inputs with f32 accumulation:
@@ -101,6 +102,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's later reads of them (a wgmma operand that threads wrote,
+// not TMA); a barrier after it makes the writes of every thread visible.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads of the
+// block, a multiple of 32.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading

@@ -16,8 +16,10 @@ stated rule (not a fallback: each route launches its kernels or raises):
   TMA under mbarriers; ``plan`` states their tiles and grids. Every bf16
   attention call of the serving and training paths meets this.
 - ``"simt"``: everything else -- f32 (wgmma's only f32 input is TF32, which
-  would break the f32 tolerance), head_dim 32, views TMA cannot describe.
-  The first design's CUDA-core f32 FMAs.
+  would break the f32 tolerance), head_dim 32, 192 (nemotron-4-340b's) and
+  256 (gemma-7b's), views TMA cannot describe. The first design's CUDA-core
+  f32 FMAs. The smoke configs' head_dim 16 and 8 have no kernel: they run
+  on the CPU only.
 
 The source's header comment states the design and what bounds it on an
 H100. The plain versions are ``kernels/ref.py:attention_fwd_ref`` /
@@ -40,7 +42,7 @@ simt_launches = 0
 bwd_wgmma_launches = 0
 bwd_simt_launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128)
 # the wgmma kernels' tiles (csrc/flash_attention.cu, namespace wg): query
 # rows per forward / dQ block, keys per K/V tile and per dK/dV block, query

@@ -225,9 +225,10 @@ def fused_adam(p32: torch.Tensor, g32: torch.Tensor, m: torch.Tensor,
 
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel; flash attention's
-    (forward and backward) and the tiled matmul's also by route
-    (``flash_attention``, ``flash_attention_bwd`` and ``tiled_matmul`` are
-    their sums)."""
+    (forward and backward), the tiled matmul's and the quantized matmul's
+    (forward and dX) also by route (``flash_attention``,
+    ``flash_attention_bwd``, ``tiled_matmul``, ``quantized_matmul`` and
+    ``quantized_matmul_dx`` are their sums)."""
     return {"flash_attention": _fa.wgmma_launches + _fa.simt_launches,
             "flash_attention_wgmma": _fa.wgmma_launches,
             "flash_attention_simt": _fa.simt_launches,
@@ -237,8 +238,12 @@ def launch_counts() -> dict:
             "tiled_matmul": _mm.wgmma_launches + _mm.simt_launches,
             "tiled_matmul_wgmma": _mm.wgmma_launches,
             "tiled_matmul_simt": _mm.simt_launches, "fused_adam": _ad.launches,
-            "quantized_matmul": _qmm.launches,
-            "quantized_matmul_dx": _qmm.dx_launches}
+            "quantized_matmul": _qmm.wgmma_launches + _qmm.simt_launches,
+            "quantized_matmul_wgmma": _qmm.wgmma_launches,
+            "quantized_matmul_simt": _qmm.simt_launches,
+            "quantized_matmul_dx": _qmm.dx_wgmma_launches + _qmm.dx_simt_launches,
+            "quantized_matmul_dx_wgmma": _qmm.dx_wgmma_launches,
+            "quantized_matmul_dx_simt": _qmm.dx_simt_launches}
 
 
 def reset_launch_counts() -> None:
@@ -249,5 +254,7 @@ def reset_launch_counts() -> None:
     _mm.wgmma_launches = 0
     _mm.simt_launches = 0
     _ad.launches = 0
-    _qmm.launches = 0
-    _qmm.dx_launches = 0
+    _qmm.wgmma_launches = 0
+    _qmm.simt_launches = 0
+    _qmm.dx_wgmma_launches = 0
+    _qmm.dx_simt_launches = 0

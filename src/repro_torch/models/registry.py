@@ -44,6 +44,13 @@ def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> Mode
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.arch}) is not ported yet: "
             f"{NOT_PORTED.get(cfg.family, 'ROADMAP.md Queue 1')}")
+    if cfg.score_dtype != "float32":
+        # the port's attention scores are f32 in every path (the kernels and
+        # their plain versions); the reference's chunked attention honours
+        # this field (repro/models/common.py:149) and the port does not yet
+        raise ValueError(
+            f"score_dtype {cfg.score_dtype!r} ({cfg.arch}): the port computes "
+            f"attention scores in float32 only (ROADMAP.md Queue 1 item 9b)")
     mod = FAMILY_MODULES[cfg.family]
     fns = mod.make_fns(cfg, parallel)
     return ModelBundle(

@@ -127,11 +127,12 @@ def _want_route(dtype, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 9, 3, 512, 512, 64), (1, 2, 2, 100, 132, 32),
-                                   (2, 4, 1, 64, 64, 128), (1, 3, 1, 16, 16, 32)])
+                                   (2, 4, 1, 64, 64, 128), (1, 3, 1, 16, 16, 32),
+                                   (1, 12, 2, 100, 132, 192), (2, 4, 4, 77, 77, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     """bf16 at head_dim 64 or 128 takes the tensor cores; f32 and head_dim
-    32 the CUDA cores."""
+    32, 192 and 256 the CUDA cores."""
     B, H, KV, Sq, Sk, D = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     # unit variance: a peaked softmax and outputs of O(1)
@@ -263,9 +264,13 @@ def _bwd_close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 9, 3, 512, 512, 64), (1, 6, 2, 100, 132, 64),
-                                   (2, 4, 1, 64, 64, 128), (1, 2, 2, 40, 40, 32)])
+                                   (2, 4, 1, 64, 64, 128), (1, 2, 2, 40, 40, 32),
+                                   (1, 12, 2, 100, 132, 192), (2, 4, 4, 77, 77, 256),
+                                   (1, 16, 16, 512, 512, 256), (1, 96, 8, 256, 256, 192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
+    """Every head_dim the kernels take, gemma-7b's and nemotron-4-340b's
+    heads among them (head_dim 256 and 192, on the CUDA cores)."""
     B, H, KV, Sq, Sk, D = shape
     g = torch.Generator(device=cuda).manual_seed(1)
     q, do = (torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dtype).transpose(1, 2)
@@ -369,6 +374,12 @@ def test_pinned_stager_copies_rows_and_returns_buffers(cuda):
     assert not stager._pending and pool._outstanding == 0
     for r, d in zip(rows, got):
         assert d.device.type == "cuda" and torch.equal(d.cpu(), r)
+    # a gap: the device copy's tail starts 10 elements later
+    row = torch.arange(100, dtype=torch.int16)
+    gapped = stager.to_device(row, gap=(36, 10))
+    stager.retire(wait=True)
+    assert gapped.shape == (110,)
+    assert torch.equal(gapped[:36].cpu(), row[:36]) and torch.equal(gapped[46:].cpu(), row[36:])
 
 
 def _q8(w: torch.Tensor):
@@ -377,33 +388,81 @@ def _q8(w: torch.Tensor):
     return q.to(w.device), s.to(w.device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,transpose", [((4096, 576, 1536), False),
-                                             ((4096, 1536, 576), False),
-                                             ((4096, 576, 1536), True),
-                                             ((4096, 1536, 576), True),
-                                             ((100, 96, 64), False), ((100, 96, 64), True)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantized_matmul_kernel_matches_plain(cuda, shape, transpose, dtype):
-    """Both orientations: x (M,K) @ dequant(q (K,N)), and with ``transpose``
-    x (M,N) @ dequant(q (K,N))^T, the dX product. The dequantized weight is
-    the same f32 product in both versions, so the rule is the tiled
-    matmul's (sums of up to 1536 terms in another order)."""
-    from repro_torch.kernels import quantized_matmul as tqm
-
+def _qmm_inputs(shape, transpose, dtype, seed, cols=None):
+    """x and the q8 operands of a 0.1-scaled bf16 weight (K, N); with
+    ``cols`` = (lo, hi), q and s are that column tile of a wider weight,
+    cut as ``core/tiling.py:_slice`` cuts it."""
     M, K, N = shape
-    g = torch.Generator(device=cuda).manual_seed(3)
-    q, s = _q8((torch.randn(K, N, generator=g, device=cuda) * 0.1).to(torch.bfloat16))
-    x = (torch.randn(M, N if transpose else K, generator=g, device=cuda) * 0.1).to(dtype)
-    key = "quantized_matmul_dx" if transpose else "quantized_matmul"
-    before = ops.launch_counts()[key]
-    got = tqm.quantized_matmul_cuda(x, q, s, transpose=transpose)
-    torch.cuda.synchronize()
-    assert ops.launch_counts()[key] == before + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    width = N if cols is None else N + cols[0] + 64
+    q, s = _q8((torch.randn(K, width, generator=g, device="cuda") * 0.1).to(torch.bfloat16))
+    if cols is not None:
+        lo, hi = cols
+        q, s = q[:, lo:hi], s[:, lo // 32:hi // 32]
+    x = (torch.randn(M, N if transpose else K, generator=g, device="cuda") * 0.1).to(dtype)
+    return x, q, s
+
+
+def _qmm_close(got, x, q, s, transpose, dtype):
     w_abs = qformat.dequant_q8(q, s).abs()
     mag = x.float().abs() @ (w_abs.T if transpose else w_abs)
     assert_close(got, ref.quantized_matmul_ref(x, q, s, transpose=transpose), mag,
                  dtype, f32_tol=1e-4, mtol=2**-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,transpose,cols", [
+    ((4096, 576, 1536), False, None), ((4096, 1536, 576), False, None),
+    ((4096, 576, 1536), True, None), ((4096, 1536, 576), True, None),
+    ((100, 96, 64), False, None), ((100, 96, 64), True, None),
+    # ragged: K and N multiples of no tile or stage; a column tile of q
+    ((296, 200, 160), False, None), ((296, 200, 160), True, None),
+    ((300, 576, 384), False, (64, 448)), ((300, 576, 384), True, (64, 448))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantized_matmul_kernel_matches_plain(cuda, shape, transpose, cols, dtype):
+    """Both orientations: x (M,K) @ dequant(q (K,N)), and with ``transpose``
+    x (M,N) @ dequant(q (K,N))^T, the dX product, on the route the rule
+    names (bf16 on the tensor cores, f32 on the CUDA cores), held by the
+    launch counters. The tensor cores multiply the weight as a bf16 hi + lo
+    pair, which keeps it to ~16 bits, so the rule is the tiled matmul's
+    (sums of up to 1536 terms in another order; tests/test_torch_tolerance.py
+    emulates the pair against chip_smoke.py's check)."""
+    from repro_torch.kernels import quantized_matmul as tqm
+
+    x, q, s = _qmm_inputs(shape, transpose, dtype, 3, cols)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert tqm.route(x, q) == want
+    key = "quantized_matmul_dx" if transpose else "quantized_matmul"
+    got = _took(key, lambda: tqm.quantized_matmul_cuda(x, q, s, transpose=transpose), want)
+    _qmm_close(got, x, q, s, transpose, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_quantized_matmul_simt_route_on_request(cuda, transpose):
+    """``simt=True`` runs the CUDA-core kernel on operands the tensor cores
+    take (the previous design, timed beside the new one)."""
+    from repro_torch.kernels import quantized_matmul as tqm
+
+    x, q, s = _qmm_inputs((296, 200, 160), transpose, torch.bfloat16, 4)
+    assert tqm.route(x, q) == "wgmma"
+    key = "quantized_matmul_dx" if transpose else "quantized_matmul"
+    got = _took(key, lambda: tqm.quantized_matmul_cuda(x, q, s, transpose=transpose,
+                                                       simt=True), "simt")
+    _qmm_close(got, x, q, s, transpose, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transpose", [False, True])
+def test_quantized_matmul_wgmma_repeats_to_the_bit(cuda, transpose):
+    """No atomics and no split: two runs on the same inputs agree bit for
+    bit."""
+    from repro_torch.kernels import quantized_matmul as tqm
+
+    x, q, s = _qmm_inputs((4096, 576, 1536), transpose, torch.bfloat16, 5)
+    runs = [tqm.quantized_matmul_cuda(x, q, s, transpose=transpose) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
 
 
 @pytest.mark.cuda
@@ -434,6 +493,9 @@ def test_layer_vjp_on_a_wire_row_gives_every_leaf_a_gradient_on_the_card(cuda):
     stager.retire(wait=True)
     counts = ops.launch_counts()
     assert counts["quantized_matmul"] == 3 and counts["quantized_matmul_dx"] == 3
+    # every one on the tensor cores: the row's quants start on 16 bytes
+    assert counts["quantized_matmul_wgmma"] == counts["quantized_matmul_dx_wgmma"] == 3
+    assert counts["quantized_matmul_simt"] == counts["quantized_matmul_dx_simt"] == 0
     assert counts["tiled_matmul"] == 3  # the dW products
     assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
     assert grow.dtype == torch.float32 and torch.isfinite(grow).all()
@@ -442,3 +504,23 @@ def test_layer_vjp_on_a_wire_row_gives_every_leaf_a_gradient_on_the_card(cuda):
         assert grow[off:off + size].abs().sum() > 0, path
         off += size
     assert torch.isfinite(dx).all() and dx.abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_gemma_7b_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    """Full-width gemma-7b (head_dim 256: flash on the CUDA cores) cut to 2
+    layers: teacher-forced prefill and decode logits on the card (kernels)
+    against the CPU (plain versions) from the same weights, under
+    chip_smoke.py's end-to-end tolerance."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    before = ops.launch_counts()
+    rec = cs.phase_e2e("gemma-7b")
+    after = ops.launch_counts()
+    assert rec["max_rel_err"] <= cs.E2E_REL_TOL
+    assert after["flash_attention_simt"] > before["flash_attention_simt"]

@@ -184,3 +184,26 @@ def test_launch_counts_report_each_route_and_their_sums(monkeypatch):
     ops.reset_launch_counts()
     assert tfa.wgmma_launches == tfa.simt_launches == 0
     assert tfa.bwd_wgmma_launches == tfa.bwd_simt_launches == 0
+
+
+@pytest.mark.parametrize("model", ["gemma-7b", "nemotron-4-340b"])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_head_dims_192_and_256_take_the_cuda_cores(model, dtype):
+    """gemma-7b (head_dim 256) and nemotron-4-340b (192) at full width:
+    the CUDA-core kernels take them (``_check_cuda`` accepts the head_dim)
+    and the rule sends them there; the tensor cores stay at 64 and 128."""
+    cfg = configs.get(model)
+    D = cfg.resolved_head_dim
+    assert D == {"gemma-7b": 256, "nemotron-4-340b": 192}[model]
+    q, k, v, do = _views(cfg, *SHAPES["ragged"], dtype=dtype)
+    assert tfa.route(q, k, v) == tfa.route(q, k, v, do) == "simt"
+    tfa._check_cuda((q, k, v), D)
+    tfa._check_cuda((q, k, v, do), D)
+
+
+@pytest.mark.parametrize("D", [8, 16, 48, 320])
+def test_head_dims_without_a_kernel_are_refused(D):
+    """The smoke configs' head_dim 16 and 8 run on the CPU only."""
+    q = torch.zeros(1, 2, 16, D, dtype=BF16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check_cuda((q, q, q), D)

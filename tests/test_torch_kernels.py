@@ -56,6 +56,8 @@ def test_tiled_matmul_plain_matches_pallas(shape, dtype):
     (2, 4, 1, 128, 128, 32, False),   # MQA
     (1, 2, 2, 100, 132, 32, True),    # ragged, Sq < Sk
     (1, 6, 2, 64, 256, 64, True),     # long KV
+    (1, 4, 2, 64, 64, 192, True),     # nemotron-4-340b's head_dim
+    (1, 2, 1, 40, 72, 256, True),     # gemma-7b's, ragged
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_pallas(B, H, KV, Sq, Sk, D, causal, dtype):

@@ -266,3 +266,18 @@ def test_unported_families_raise_with_roadmap_pointer():
     for arch in ("granite-moe-1b-a400m", "mamba2-370m", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             treg.build(tconfigs.smoke(arch))
+
+
+@pytest.mark.parametrize("score_dtype", ["bfloat16", "float16"])
+def test_a_score_dtype_other_than_float32_is_refused_where_a_model_is_built(score_dtype):
+    """The port's attention scores are f32 everywhere; the reference's
+    chunked attention computes them in ``score_dtype``. Until the port
+    honours the field, building a model with another value raises, and the
+    default builds on both sides."""
+    cfg = dataclasses.replace(tconfigs.smoke("smollm-135m"), score_dtype=score_dtype)
+    with pytest.raises(ValueError, match="score_dtype"):
+        treg.build(cfg)
+    assert tconfigs.smoke("smollm-135m").score_dtype == "float32"
+    assert jconfigs.smoke("smollm-135m").score_dtype == "float32"
+    treg.build(tconfigs.smoke("smollm-135m"))
+    jreg.build(jconfigs.smoke("smollm-135m"))

@@ -6,11 +6,19 @@ online softmax against the running max and p rounded to the input type
 before P@V; the tensor-core (wgmma) flash kernels' -- K/V tiles of 64 keys
 zero-filled past Sk as TMA lands them, bf16 P against the running max per
 tile in the forward, bf16 P for dV and dS as a bf16 hi + lo pair for dQ and
-dK in the backward; the tiled matmul's exact sum rounded once. Each
-emulation must pass ``chip_smoke.compare`` against the plain version under
-the unchanged ``TOL``, and each mutant of it (a fault the kernel could
-carry) must fail there, so the check on the card can tell a faulty kernel
-from a right one.
+dK in the backward; the tiled matmul's exact sum rounded once; the
+tensor-core quantized matmul's -- each weight element w = q * s formed once
+in f32 (exact: a 7-bit integer times an 11-bit significand), split into
+hi = bf16(w) and lo = bf16(w - hi), and x @ hi + x @ lo summed exactly and
+rounded once to the output type. The emulation stands for the kernel
+because every step the kernel takes that can lose a bit is in it: the two
+bf16 roundings of the split and the output rounding; the tensor cores'
+products of bf16 values are exact and their f32 sums of at most 1536
+terms sit far below the tolerance's 2^-12 share (as the tiled matmul's).
+Each emulation must pass ``chip_smoke.compare`` against the plain version
+under the unchanged ``TOL``, and each mutant of it (a fault the kernel
+could carry) must fail there, so the check on the card can tell a faulty
+kernel from a right one.
 """
 import importlib.util
 import pathlib
@@ -19,6 +27,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import qformat  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
@@ -284,3 +293,94 @@ def test_single_bf16_ds_does_not_fit_the_backward_tolerance():
     with pytest.raises(SystemExit, match="FAIL flash_attention_bwd"):
         _check_wgmma_bwd(shape, hilo=False)
     assert max(r["worst_err_over_tol"] for r in _check_wgmma_bwd(shape)) <= 0.6
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core (wgmma) quantized matmul
+# ---------------------------------------------------------------------------
+
+QMM_BK = 64  # contraction elements per ring stage of the wgmma kernel
+
+
+def _qmm_weight(q, s, mutant=None):
+    """The (K, N) f64 weight the kernel multiplies: w = q * s, exact.
+    Mutants: ``neighbour-scale`` takes each element's scale from the next
+    32-block of its row; ``scale-axis`` reads s as if its blocks ran down
+    the columns (element (k, n) takes flat scale (n K + k) / 32)."""
+    K, N = q.shape
+    qd = q.double()
+    if mutant == "neighbour-scale":
+        s = s.roll(-1, dims=1)
+    if mutant == "scale-axis":
+        k, n = torch.meshgrid(torch.arange(K), torch.arange(N), indexing="ij")
+        return qd * s.reshape(-1).double()[(n * K + k) // qformat.BLOCK]
+    return qd * s.double().repeat_interleave(qformat.BLOCK, dim=1)
+
+
+def emulate_qmm_wgmma(x, q, s, transpose, *, pair=True, mutant=None):
+    """The wgmma quantized matmul's arithmetic: w split into hi + lo
+    (``pair=False``: hi alone, one bf16 rounding), both products summed
+    exactly, the output rounded once to x's dtype. Mutants beside
+    ``_qmm_weight``'s: ``lost-k-slice`` drops the second ring stage's
+    contraction slice, ``lo-dropped`` skips the second product."""
+    w = _qmm_weight(q, s, mutant)
+    hi = w.to(torch.bfloat16).double()
+    lo = (w - hi).to(torch.bfloat16).double()
+    wk = hi + lo if pair and mutant != "lo-dropped" else hi
+    wk = wk.T if transpose else wk
+    xd = x.double()
+    if mutant == "lost-k-slice":
+        keep = torch.ones(wk.shape[0], dtype=torch.bool)
+        keep[QMM_BK:2 * QMM_BK] = False
+        xd, wk = xd[:, keep], wk[keep]
+    return (xd @ wk).to(x.dtype)
+
+
+def _qmm_check(case, rows=None, **kw):
+    """One ``chip_smoke.QMM_TRAIN`` case drawn as chip_smoke draws it (the
+    port's q8 encoder on a 0.1-scaled bf16 weight, x at 0.1), the emulation
+    held by ``chip_smoke.compare`` under the bf16 quantized ``TOL``;
+    ``rows`` keeps the first rows of x (the mutants fail on any)."""
+    M, K, N, transpose = case
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn(K, N, generator=g) * 0.1).to(torch.bfloat16)
+    q, s, _ = qformat.wire_matmul_operands(qformat.encode_array(w, "q8"))
+    x = (torch.randn(M, N if transpose else K, generator=g) * 0.1).to(torch.bfloat16)
+    if rows is not None:
+        x = x[:rows]
+    w_abs = qformat.dequant_q8(q, s).abs()
+    mag = x.float().abs() @ (w_abs.T if transpose else w_abs)
+    return _chip_smoke().compare(
+        "quantized_matmul", (x.shape[0], K, N), torch.bfloat16,
+        emulate_qmm_wgmma(x, q, s, transpose, **kw),
+        ref.quantized_matmul_ref(x, q, s, transpose=transpose), mag)
+
+
+def _qmm_cases():
+    return _chip_smoke().QMM_TRAIN
+
+
+@pytest.mark.parametrize("i", range(4), ids=["fwd-576x1536", "fwd-1536x576",
+                                             "dx-576x1536", "dx-1536x576"])
+def test_qmm_hi_lo_pair_fits_the_quantized_tolerance(i):
+    """The kernel's hi + lo pair at each training shape stays under the
+    unchanged ``TOL[("quantized_matmul", bf16)]`` (reads 0.7-0.85 of it)."""
+    assert _qmm_check(_qmm_cases()[i])["worst_err_over_tol"] <= 0.9
+
+
+@pytest.mark.parametrize("i", range(4), ids=["fwd-576x1536", "fwd-1536x576",
+                                             "dx-576x1536", "dx-1536x576"])
+def test_qmm_single_bf16_rounding_does_not_fit(i):
+    """Why the kernel carries the weight as a pair: w rounded once to bf16
+    takes an element past the tolerance at every training shape."""
+    with pytest.raises(SystemExit, match="FAIL quantized_matmul"):
+        _qmm_check(_qmm_cases()[i], pair=False)
+
+
+@pytest.mark.parametrize("i,mutant", [
+    (0, "neighbour-scale"), (1, "neighbour-scale"), (2, "scale-axis"), (3, "scale-axis"),
+    (0, "lost-k-slice"), (3, "lost-k-slice"), (1, "lo-dropped"), (2, "lo-dropped")])
+def test_qmm_tolerance_rejects_a_faulty_kernel(i, mutant):
+    rows = None if mutant == "lo-dropped" else 256
+    with pytest.raises(SystemExit, match="FAIL quantized_matmul"):
+        _qmm_check(_qmm_cases()[i], rows=rows, mutant=mutant)
