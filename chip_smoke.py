@@ -1,10 +1,13 @@
 """Chip smoke for the PyTorch/Hopper port: builds the CUDA kernels, holds
 each against its plain PyTorch version on the card, serves full-width
-smollm-135m through ``repro_torch.launch.serve`` (host and NVMe KV tiers),
-trains full smollm-135m through ``repro_torch.launch.train`` with
-parameters, gradients and optimizer states on NVMe, in bf16 rows and in q8
-wire rows (``--param-quant q8``, through the quantized-matmul kernel),
-checks the outputs, and prints one JSON line per the contract below.
+smollm-135m through ``repro_torch.launch.serve`` (host and NVMe KV tiers,
+and the planner's own placement), trains full smollm-135m through
+``repro_torch.launch.train`` with parameters, gradients and optimizer
+states on NVMe, in bf16 rows and in q8 wire rows (``--param-quant q8``,
+through the quantized-matmul kernel), then with ``--plan auto`` (the
+placement the planner derives for the detected card, and the ZeRO-Offload
+placement it derives for a starved one), checks the outputs, and prints one
+JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -56,12 +59,31 @@ Phases (any failure exits non-zero; no phase is caught):
   10. the q8 training path: the same run with ``--param-quant q8`` (rows
       cross the tier as q8 frames and the MLP projections run the
       quantized-matmul kernel on them), counters zeroed and read again;
-  11. the kernels JSON line, then the device JSON line last.
+  11. the GSPMD step's numerics: a 2-layer full-width smollm-135m, 2 steps
+      of ``--engine pjit`` on the card against the CPU from the same
+      weights and batches, in-graph (all on the device), off-graph (the
+      optimizer on NVMe, ``remat="full"``) and on the pinned host tier
+      (params and optimizer in page-locked CPU memory, ``remat="full"``):
+      loss, grad norm, the f32 Adam masters and the params, by
+      ``phase_train_numerics``' bounds;
+  12. the planner's main path: ``launch.train --plan auto`` on full
+      smollm-135m, 4 steps of 8 x 512 tokens on the detected card, its plan
+      printed; fused Adam launches once per leaf per step;
+  13. the planner's ZeRO-Offload path: the same argv with ``--hw-device-mem
+      3e9`` (``OFFLOAD_DEVICE_MEM``), which the planner answers with the
+      optimizer on NVMe off-graph and the params on the device (checked
+      against the CPU planner in ``tests/test_torch_plan.py``); every step
+      moves the optimizer's bytes, as the plan predicts;
+  14. the planner's serving path: ``launch.serve --plan auto`` at the serve
+      host cell's sizes, its KV fields printed, every sequence finished and
+      the device KV within the plan;
+  15. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10) each flash-attention launch, forward and
-backward, each tiled-matmul launch and each quantized-matmul launch,
-forward and dX, must be on the tensor-core route (``*_wgmma``), none on
-``simt``.
+In every main path (5, 6, 9, 10, 12, 13, 14) each flash-attention launch,
+forward and backward (the recompute under ``remat="full"`` included), each
+tiled-matmul launch and each quantized-matmul launch, forward and dX, must
+be on the tensor-core route (``*_wgmma``), none on ``simt``; ``plan_residency_ok``
+must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -72,6 +94,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -87,6 +110,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,  # noqa: E402
                                 make_offload, make_parallel)
 from repro_torch.core import kvcache, qformat  # noqa: E402
+from repro_torch.core import partition as pt  # noqa: E402
 from repro_torch.core.executor import InfinityExecutor  # noqa: E402
 from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -194,6 +218,16 @@ TOL.update({
 # average to the values' own drift; measured on the CPU against the
 # reference at 0.27 of it).
 TRAIN_TOL = {"rtol": 2e-3, "atol": 2e-3}
+# the GSPMD step's placements held card vs CPU (phase 11): (param, grad,
+# opt tier, remat); the params and masters by the bounds above
+GSPMD_PLACEMENTS = {"in_graph": ("device", "device", "device", "none"),
+                    "off_graph": ("device", "device", "nvme", "full"),
+                    "host": ("host", "device", "host", "full")}
+# --hw-device-mem for phase 13: usable HBM (70 %) below the 2.57 GB of full
+# smollm-135m's states and checkpoints at 8 x 512 tokens, above its 0.95 GB
+# without the optimizer: the planner moves the optimizer off the device
+# (to NVMe: the in-graph host stream would transit 1.61 GB) and keeps params
+OFFLOAD_DEVICE_MEM = "3e9"
 
 
 def say(*a) -> None:
@@ -573,14 +607,19 @@ def _q8_step(rows: torch.Tensor) -> torch.Tensor:
     return scales.float().repeat_interleave(qformat.BLOCK, dim=1)[:, :P]
 
 
+def _store_masters(ex) -> dict:
+    """Every key's f32 Adam master, read back from the optimizer store."""
+    off = ex.offload
+    off.store.flush()  # the last step's write-back
+    return {key: torch.cat([off.store.read(f"{key}.master.{ci}").result().reshape(-1)
+                            for ci in range(-(-n // off.chunk))])
+            for key, _, n in off.layout}
+
+
 def _masters(ex) -> torch.Tensor:
     """The (L, P) f32 Adam masters of the rows, read back from the
     optimizer store."""
-    off = ex.offload
-    off.store.flush()  # the last step's write-back
-    flat = {key: torch.cat([off.store.read(f"{key}.master.{ci}").result().reshape(-1)
-                            for ci in range(-(-n // off.chunk))])
-            for key, _, n in off.layout}
+    flat = _store_masters(ex)
     return torch.stack([flat[f"rank0/l{li}"] for li in range(len(flat))]).float()
 
 
@@ -831,6 +870,193 @@ def summarize(tag, argv, out, launches, wall) -> dict:
     return rec
 
 
+def _gspmd_run(cfg, nvme_dir, steps, placement) -> RunConfig:
+    param, grad, opt, remat = GSPMD_PLACEMENTS[placement]
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    return RunConfig(
+        model=cfg, parallel=make_parallel("pjit", remat=remat),
+        offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                             nvme_dir=nvme_dir),
+        train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+
+
+def phase_gspmd_numerics(placement: str = "in_graph") -> dict:
+    """Full-width smollm-135m cut to 2 layers: 2 steps of the GSPMD engine
+    on the card (kernels) and on the CPU (plain versions), same weights and
+    batches, in one of ``GSPMD_PLACEMENTS``; loss and grad norm by
+    ``TRAIN_TOL``, the f32 masters (in the state in-graph, read back from
+    the optimizer store off-graph) by the drift bound, the params by it
+    plus each side's bf16 rounding, their mean by 2^-5 * sum(lr)."""
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    B, S, steps = 4, 256, 2
+    base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{placement}")
+    params0 = None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ex = InfinityExecutor(_gspmd_run(cfg, os.path.join(base, dev), steps, placement), dev)
+        if params0 is None:
+            params0 = ex.engine.init_params(torch.Generator().manual_seed(SEED))
+        state = ex.reseed(ex.engine.adopt_params(params0))
+        stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                                 cfg.vocab_size, seed=SEED)
+        step = ex.make_train_step()
+        traj = []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        ex.wait_host()
+        masters = (_store_masters(ex) if ex.offgraph else
+                   {k: v for k, v in zip(pt.tree_paths(state["opt"].master),
+                                         pt.tree_leaves(state["opt"].master))})
+        masters = torch.cat([t.detach().float().cpu().reshape(-1) for t in masters.values()])
+        params = torch.cat([t.detach().float().cpu().reshape(-1)
+                            for t in pt.tree_leaves(state["params"])])
+        out[dev] = (traj, params, masters)
+        ex.close()
+    (tc, p_c, m_c), (tg, p_g, m_g) = out["cpu"], out["cuda"]
+    lrs = [t["lr"] for t in tc]
+    drift = adam.parity_bound(TrainConfig(), lrs)
+    diff = (p_g - p_c).abs()
+    allowed = drift + 2**-8 * (p_c.abs() + p_g.abs())
+    rec = {"placement": placement, "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
+           "layers": 2, "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
+           "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+           "params_max_abs_diff": diff.max().item(), "params_mean_abs_diff": diff.mean().item(),
+           "params_worst_diff_over_bound": (diff / allowed).max().item(),
+           "masters_max_abs_diff": (m_g - m_c).abs().max().item(),
+           "masters_worst_diff_over_drift": (m_g - m_c).abs().max().item() / drift,
+           "params_max_bound": drift, "params_mean_bound": 2**-5 * sum(lrs)}
+    say("gspmd numerics:", json.dumps(rec))
+    for c, g in zip(tc, tg):
+        for key in ("loss", "grad_norm"):
+            if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
+                raise SystemExit(f"FAIL gspmd numerics ({placement}): card {key} {g[key]} "
+                                 f"vs CPU {c[key]}")
+    if not rec["masters_max_abs_diff"] <= drift or not bool((diff <= allowed).all()) \
+            or not rec["params_mean_abs_diff"] <= rec["params_mean_bound"]:
+        raise SystemExit(f"FAIL gspmd numerics ({placement}): params differ beyond the "
+                         f"bound: {rec}")
+    return rec
+
+
+def phase_plan_train(tag: str, extra: list) -> tuple:
+    """``launch.train --plan auto`` on full smollm-135m at the training
+    cell's shape; ``extra`` adds flags (``--hw-device-mem``). Counters
+    zeroed just before and read just after."""
+    cfg = configs.get("smollm-135m")
+    L, steps = cfg.n_layers, 4
+    nvme = os.path.join(ROOT, "build", "chip_smoke_" + tag.replace(" ", "_"))
+    shutil.rmtree(nvme, ignore_errors=True)
+    argv = ["--arch", "smollm-135m", "--plan", "auto", "--batch", "8", "--seq", "512",
+            "--steps", str(steps), "--lr", "3e-3", "--nvme-dir", nvme,
+            "--log-every", "1"] + extra
+    trace.enable()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    trace.disable()
+    trace.clear()
+    plan, run = hist["plan"], hist["run"]
+    say(f"{tag} plan: {plan.summary()}")
+    keep = ("opt_read_bytes", "opt_write_bytes", "opt_read_gbps", "opt_write_gbps",
+            "grad_out_bytes", "plan_opt_step_bytes", "plan_grad_step_bytes",
+            "plan_efficiency", "plan_peak_resident_param_bytes", "plan_residency_ok",
+            "trace_wall_s", "trace_compute_s", "trace_io_wait_s", "trace_other_s")
+    for m in hist["metrics"]:
+        say(f"{tag} step:", json.dumps({
+            "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "lr": m["lr"], "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"],
+            **{k: m[k] for k in keep if k in m}}))
+    losses = hist["losses"]
+    median = statistics.median(m["step_time"] for m in hist["metrics"][1:])
+    n_leaves = len(pt.tree_paths(registry.build(cfg).defs))
+    rec = {"argv": " ".join(argv), "wall_s": wall, "launches": launches,
+           "plan": {"engine": plan.engine, "tiers": plan.tiers, "remat": plan.remat,
+                    "grad_accum": plan.grad_accum, "feasible": plan.feasible,
+                    "device_mem": plan.hardware.device_mem,
+                    "host_mem": plan.hardware.host_mem,
+                    "nvme_capacity": plan.hardware.nvme_capacity,
+                    "source": plan.hardware.source, "warnings": list(plan.warnings)},
+           "opt_offgraph": run.opt_offgraph, "first_loss": losses[0], "last_loss": losses[-1],
+           "median_step_s_after_first": median,
+           "median_tokens_per_s_after_first": 8 * 512 / median, "n_leaves": n_leaves}
+    say(f"{tag}:", json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
+    if plan.engine != "pjit" or plan.param_tier != "device" or not plan.feasible:
+        raise SystemExit(f"FAIL {tag}: the planner gave {plan.summary()}; this phase "
+                         "runs the GSPMD step with params on the device")
+    for m in hist["metrics"]:
+        if "plan_residency_ok" in m and m["plan_residency_ok"] is not True:
+            raise SystemExit(f"FAIL {tag}: plan_residency_ok false at step {m['step']}")
+    remat = plan.remat == "full"
+    want = {"flash_attention": (2 if remat else 1) * L * steps,
+            "flash_attention_bwd": L * steps,
+            "tiled_matmul": ((6 if remat else 3) + 6) * L * steps}
+    if run.opt_offgraph:
+        if plan.opt_tier == "device":
+            raise SystemExit(f"FAIL {tag}: the optimizer stayed on the device")
+        for m in hist["metrics"]:
+            moved = m["opt_read_bytes"] + m["opt_write_bytes"]
+            if not (m["opt_read_bytes"] > 0 and m["opt_write_bytes"] > 0
+                    and m["plan_opt_step_bytes"] == moved):
+                raise SystemExit(f"FAIL {tag}: step {m['step']} moved {moved} optimizer "
+                                 f"bytes, the plan predicts {m.get('plan_opt_step_bytes')}")
+    else:
+        want["fused_adam"] = n_leaves * steps
+    for name, n in want.items():
+        if launches[name] < n:
+            raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
+    check_main_path_routes(tag, launches)
+    return rec, launches
+
+
+def phase_plan_serve() -> tuple:
+    """``launch.serve --plan auto`` at the serve host cell's sizes."""
+    kv_dir = os.path.join(ROOT, "build", "chip_smoke_plan_kv")
+    shutil.rmtree(kv_dir, ignore_errors=True)
+    argv = ["--arch", "smollm-135m", "--plan", "auto", "--batch", "8", "--prompt-len", "512",
+            "--new-tokens", "32", "--kv-dir", kv_dir]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.run_serve(serve._parse(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    plan = out["plan"]
+    n = len(out["generated"])
+    t = out["timings"]
+    rec = {"run": "plan serve", "argv": " ".join(argv), "wall_s": wall,
+           "plan": plan.summary(), "kv_tier": plan.kv_tier, "kv_slots": plan.kv_slots,
+           "kv_block_tokens": plan.kv_block_tokens,
+           "kv_prefetch_blocks": plan.kv_prefetch_blocks,
+           "kv_resident_bytes": out["kv"]["resident_bytes"],
+           "plan_kv_resident_bytes": plan.predictions["kv_resident_bytes"],
+           "plan_kv_parked_bytes": plan.predictions["kv_parked_bytes"],
+           "admissions": out["admissions"], "decode_steps": out["steps"],
+           "prefill_tok_s": n * 512 / max(t["prefill_s"], 1e-9),
+           "decode_tok_s": (sum(len(g) for g in out["generated"]) - n) / max(t["decode_s"], 1e-9),
+           "ttft_p50_s": out["latency"]["ttft"]["p50"],
+           "decode_token_p50_s": out["latency"]["decode_token"]["p50"], "launches": launches}
+    say("plan serve:", json.dumps(rec))
+    if not all(out["done"]) or any(len(g) != 32 for g in out["generated"]):
+        raise SystemExit("FAIL plan serve: not every sequence finished its 32 tokens")
+    if out["kv"]["resident_bytes"] > plan.predictions["kv_resident_bytes"]:
+        raise SystemExit(f"FAIL plan serve: device KV {out['kv']['resident_bytes']} B > "
+                         f"planned {plan.predictions['kv_resident_bytes']} B")
+    L = configs.get("smollm-135m").n_layers
+    waves = -(-n // out["slots"])
+    if launches["flash_attention"] < L * waves or \
+            launches["tiled_matmul"] < 3 * L * (waves + out["steps"]):
+        raise SystemExit(f"FAIL plan serve: too few launches {launches}")
+    check_main_path_routes("plan serve", launches)
+    return rec, launches
+
+
 def count_hgmma(name: str) -> int:
     """Warpgroup MMA instructions (HGMMA) in a built kernel library, read
     with the toolkit's cuobjdump; fails when there are none."""
@@ -896,6 +1122,11 @@ def main() -> int:
     phase_train_numerics("q8")
     train_rec, train_launches = phase_train_main()
     q8_rec, q8_launches = phase_train_main("q8")
+    gspmd = {p: phase_gspmd_numerics(p) for p in GSPMD_PLACEMENTS}
+    plan_rec, plan_launches = phase_plan_train("plan train", [])
+    offload_rec, offload_launches = phase_plan_train(
+        "plan offload", ["--hw-device-mem", OFFLOAD_DEVICE_MEM])
+    plan_serve_rec, plan_serve_launches = phase_plan_serve()
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -916,6 +1147,11 @@ def main() -> int:
     # the bf16 training run for the others
     main_launches = {**train_launches, "quantized_matmul": q8_launches["quantized_matmul"],
                      "quantized_matmul_dx": q8_launches["quantized_matmul_dx"]}
+    # every main path's launch counters, each zeroed just before its run
+    paths = {"train": train_launches, "train_q8": q8_launches, "serve_host": launches,
+             "serve_nvme": nvme_launches, "serve_nvme_q8": q8kv_launches,
+             "plan_train": plan_launches, "plan_offload": offload_launches,
+             "plan_serve": plan_serve_launches}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -925,6 +1161,7 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": main_launches[name],
+            "path_launches": {run: c[name] for run, c in paths.items()},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -935,10 +1172,7 @@ def main() -> int:
         if name in ROUTED:
             entry["simt_ms"], entry["call_ms"] = head["simt_ms"], head["call_ms"]
             entry["routes"] = {run: {r: c[f"{name}_{r}"] for r in tmm.ROUTES}
-                               for run, c in (("train", train_launches), ("train_q8", q8_launches),
-                                              ("serve_host", launches),
-                                              ("serve_nvme", nvme_launches),
-                                              ("serve_nvme_q8", q8kv_launches))}
+                               for run, c in paths.items()}
             entry["hgmma_instructions"] = hgmma[name.removesuffix("_bwd").removesuffix("_dx")]
         if name in serve_launches:
             entry["serve_launches"] = serve_launches[name][name]
@@ -951,7 +1185,13 @@ def main() -> int:
         f"{train_rec['first_loss']:.4f} -> {train_rec['last_loss']:.4f}, q8 "
         f"{q8_rec['first_loss']:.4f} -> {q8_rec['last_loss']:.4f}, "
         f"numerics loss {numerics['card'][-1]['loss']:.5f} card vs "
-        f"{numerics['cpu'][-1]['loss']:.5f} CPU)")
+        f"{numerics['cpu'][-1]['loss']:.5f} CPU; plan train "
+        f"{plan_rec['first_loss']:.4f} -> {plan_rec['last_loss']:.4f} at "
+        f"{plan_rec['median_tokens_per_s_after_first']:.0f} tok/s, plan offload "
+        f"{offload_rec['first_loss']:.4f} -> {offload_rec['last_loss']:.4f} at "
+        f"{offload_rec['median_tokens_per_s_after_first']:.0f} tok/s; gspmd numerics "
+        f"masters {max(r['masters_worst_diff_over_drift'] for r in gspmd.values()):.3f} "
+        f"of drift; plan serve {plan_serve_rec['kv_tier']}x{plan_serve_rec['kv_slots']})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

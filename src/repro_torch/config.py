@@ -4,8 +4,8 @@ A copy of ``repro/config.py`` for the PyTorch port, which imports nothing
 from the JAX package. Everything is a frozen dataclass so configs are
 hashable. ``repro_torch.configs`` registers one ``ModelConfig`` per
 assigned architecture; ``SHAPES`` defines the assigned input-shape set.
-Planner references (``repro.plan``) name the JAX package's planner, which
-the port does not have yet.
+Planner references (``repro.plan``) name the planner, ``repro_torch/plan.py``
+in the port.
 """
 from __future__ import annotations
 

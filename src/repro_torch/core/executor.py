@@ -1,24 +1,41 @@
-"""InfinityExecutor, the layered ZeRO-3 epoch on one device — the subset of
-``repro/core/executor.py`` that ``launch/train.py --engine zero3
---offload-param nvme`` runs.
+"""InfinityExecutor on one device: both ZeRO engines through the three
+tiers — the subset of ``repro/core/executor.py`` that one card runs.
 
-Parameters, gradients and optimizer states all live off the device: each
-layer's bf16 row in the param store (``ParamStreamer``), its f32 gradient
-drained to the grad store, its f32 master/m/v in the opt store
-(``ChunkedAdamOffload``). One step is two scheduler-driven passes over the
-rows (``core/schedule.py``): forward, each row read ahead inside the
-prefetch window, copied to the device just in time and evicted after use;
-then the head, and the reversed pass that re-reads each row, recomputes
-the layer under autograd (``layer_vjp``) and hands the row's gradient to
-the grad store. ``finish`` updates the small device-resident states with
-the fused-Adam kernel; the rows update on the host, chunk by chunk, and go
-straight back to the param store. The full (L, P) array is never
-assembled, so ``peak_resident_param_bytes`` is O(window).
+``make_engine`` picks the engine from ``RunConfig.parallel.engine``, and
+the executor drives the configured placement of each state class:
+
+  * the GSPMD engine (``--engine pjit``, ``core/engine.py``) with params on
+    the device or host tier. With the optimizer in-graph (device or host
+    tier, gradients on the device) its step is the executor's step. With
+    the optimizer off-graph (``run.opt_offgraph``: optimizer states on
+    NVMe, or gradients drained to host or NVMe — the ZeRO-Offload
+    placement) the engine computes the gradients alone; they drain to the
+    grad store when it is a slow tier, and f32 master/m/v stream through
+    the opt store with ``ChunkedAdamOffload``'s read(k+1) || update(k) ||
+    write(k-1) pipeline, keyed by the reference's leaf names
+    (``keystr``: ``['blocks']['attn']['wq']``), with the lr a host float
+    from the same ``lr_at`` arithmetic;
+  * the explicit engine's layered ZeRO-3 epoch (``--engine zero3
+    --offload-param nvme``, below).
+
+The layered epoch: parameters, gradients and optimizer states all live
+off the device: each layer's bf16 row in the param store
+(``ParamStreamer``), its f32 gradient drained to the grad store, its f32
+master/m/v in the opt store (``ChunkedAdamOffload``). One step is two
+scheduler-driven passes over the rows (``core/schedule.py``): forward,
+each row read ahead inside the prefetch window, copied to the device just
+in time and evicted after use; then the head, and the reversed pass that
+re-reads each row, recomputes the layer under autograd (``layer_vjp``) and
+hands the row's gradient to the grad store. ``finish`` updates the small
+device-resident states with the fused-Adam kernel; the rows update on the
+host, chunk by chunk, and go straight back to the param store. The full
+(L, P) array is never assembled, so ``peak_resident_param_bytes`` is
+O(window).
 
 On the card two copies cross the host link asynchronously. A row goes up
 through a pinned pool buffer (``PinnedStager``: the buffer is not reused
 before its copy's event completes), and a gradient comes down on a store
-worker after an event recorded behind the ``layer_vjp`` that wrote it.
+worker after an event recorded behind the kernels that wrote it.
 
 Quantized tier transport (``offload.param_quant``): the param store is a
 ``qformat.QuantizedArrayStore``, so rows are encoded on the host as they
@@ -29,12 +46,14 @@ quantized-matmul kernel (``core/zero.py``). Under ``q4`` a row is decoded
 on the host back to bf16, as the reference does for both formats. The
 auto prefetch window deepens by the compression ratio.
 
-Every other variant (the GSPMD engine, params off NVMe, dp > 1) raises
-naming its ROADMAP item. Per-step metrics are the reference's: loss,
-grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
+What stays unported raises, naming its ROADMAP item (``check_ported``).
+Per-step metrics of the off-graph and layered steps are the reference's:
+loss, grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
 ``grad_out``, ``opt_read/write``; ``*_bytes`` logical, ``*_wire_bytes``
-what crossed the tier), scheduler residency, and the tracer's stall
-attribution (``trace_*``) when tracing is on.
+what crossed the tier), scheduler residency (layered), the tracer's stall
+attribution (``trace_*``) when tracing is on, and, for an executor built
+from an ``InfinityPlan`` (``plan=``), the plan's predictions beside them
+(``plan_*``). The fully in-graph step returns loss, grad_norm and lr.
 """
 from __future__ import annotations
 
@@ -46,46 +65,78 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.config import RunConfig, ShapeConfig
+from repro_torch.core import partition as pt
 from repro_torch.core import qformat
 from repro_torch.core import schedule as sched_mod
+from repro_torch.core.engine import ZeroInfinityEngine
 from repro_torch.core.offload import (ArrayStore, ChunkedAdamOffload,
                                       HostArrayStore, NvmeStore, ParamStreamer,
                                       PinnedBufferPool, PinnedStager)
 from repro_torch.core.zero import ExplicitZero3Engine
 from repro_torch.models.transformer import TensorSpec
+from repro_torch.optim import adam as adam_mod
 from repro_torch.runtime import trace
 
 
-def check_ported(run: RunConfig) -> None:
+def check_ported(run: RunConfig, n_devices: int = 1) -> None:
     """Raise ``NotImplementedError`` for a configuration the port cannot
     run yet, naming the ROADMAP item that ports it."""
-    if run.parallel.engine != "zero3":
+    if n_devices > 1:
         raise NotImplementedError(
-            "the GSPMD engine (--engine pjit) is not ported: the port runs "
-            "the explicit zero3 engine's layered epoch (ROADMAP.md Queue 1 "
-            "item 8: GSPMD engine and meshes)")
-    if run.offload.param_tier != "nvme":
+            f"{n_devices} devices: the port runs one (ROADMAP.md Queue 1 "
+            "item 8: meshes larger than one device)")
+    if run.parallel.engine == "pjit" and run.offload.param_tier == "nvme":
+        raise NotImplementedError(
+            "--engine pjit with NVMe params (the GSPMD leaf scheduler) is not "
+            "ported; pass --engine zero3 for the layered epoch (ROADMAP.md "
+            "Queue 1 item 8)")
+    if run.parallel.engine == "zero3" and run.offload.param_tier != "nvme":
         raise NotImplementedError(
             "the zero3 engine's in-graph step (params on the device or host "
             "tier) is not ported; pass --offload-param nvme for the layered "
-            "epoch (ROADMAP.md Queue 1 item 10)")
+            "epoch, or --engine pjit (ROADMAP.md Queue 1 item 10)")
+
+
+def make_engine(run: RunConfig, device):
+    """``RunConfig.parallel.engine`` -> engine instance ('pjit' | 'zero3')."""
+    if run.parallel.engine == "zero3":
+        return ExplicitZero3Engine(run, device)
+    return ZeroInfinityEngine(run, device)
+
+
+def keystr(path) -> str:
+    """A leaf's name as ``jax.tree_util.keystr`` spells a dict path:
+    ``['blocks']['attn']['wq']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def flatten_with_paths(tree: dict) -> Dict[str, torch.Tensor]:
+    """Every leaf of a nested dict by its ``keystr`` name, in tree order."""
+    return {keystr(p): pt.tree_get(tree, p) for p in pt.tree_paths(tree)}
 
 
 class InfinityExecutor:
-    """Drives the explicit engine's layered epoch through the slow tiers.
+    """Drives an engine through the configured three-tier placement.
 
-    ``make_train_step()(state, batch)`` returns ``(new_state, metrics)``;
-    ``state`` is the engine's state with the ``flat`` rows dropped to a
-    ``TensorSpec`` placeholder once the stores are seeded (``reseed``).
+    ``make_train_step()(state, batch)`` returns ``(new_state, metrics)``
+    for every ported (engine, tier) combination. On the layered epoch
+    ``state`` is the explicit engine's with the ``flat`` rows dropped to a
+    ``TensorSpec`` placeholder once the stores are seeded (``reseed``); on
+    the GSPMD engine it is ``{"params"}``, plus ``{"opt"}`` while the
+    optimizer is in-graph.
     """
 
-    def __init__(self, run: RunConfig, device="cuda", *,
-                 engine: Optional[ExplicitZero3Engine] = None):
-        check_ported(run)
+    def __init__(self, run: RunConfig, device="cuda", *, engine=None, plan=None):
+        # an optional repro_torch.plan.InfinityPlan: its predictions are
+        # reported beside the measured counters in the step metrics
+        self.plan = plan
+        check_ported(run, plan.hardware.n_devices if plan is not None else 1)
         self.run = run
         self.device = torch.device(device)
-        self.engine = engine if engine is not None else ExplicitZero3Engine(run, self.device)
+        self.engine = engine if engine is not None else make_engine(run, self.device)
+        self.layered = isinstance(self.engine, ExplicitZero3Engine)
         off = run.offload
+        self.offgraph = run.opt_offgraph
         self.grad_offload = off.grad_tier != "device"
         # q8 rows go to the device as wire operands; q4 rows decode on the host
         self._wire_rows = off.param_quant == "q8"
@@ -93,7 +144,8 @@ class InfinityExecutor:
         # page-locked where it feeds the card
         self._pool = PinnedBufferPool(off.pinned_buffer_mb << 20,
                                       pin=self.device.type == "cuda")
-        self._stager = PinnedStager(self._pool, self.engine.layer_row_device())
+        self._stager = (PinnedStager(self._pool, self.engine.layer_row_device())
+                        if self.layered else None)
         self.opt_store: Optional[ArrayStore] = None
         self.grad_store: Optional[ArrayStore] = None
         self.param_store: Optional[ArrayStore] = None
@@ -115,7 +167,8 @@ class InfinityExecutor:
         for store in (self.param_store, self.grad_store, self.opt_store):
             if store is not None:
                 store.close()
-        self._stager.retire(wait=True)
+        if self._stager is not None:
+            self._stager.retire(wait=True)
         self.param_store = self.grad_store = self.opt_store = None
         self.param_stream = self.offload = None
         self._step_fn = None
@@ -125,8 +178,9 @@ class InfinityExecutor:
     # ------------------------------------------------------------------
 
     def init_state(self, generator: torch.Generator) -> dict:
-        """Engine init + store seeding; the returned state's ``flat`` is a
-        placeholder (the param store is authoritative)."""
+        """Engine init + store seeding; on the layered epoch the returned
+        state's ``flat`` is a placeholder (the param store is
+        authoritative)."""
         return self.reseed(self.engine.init_state(generator))
 
     def _make_store(self, tier: str, name: str) -> ArrayStore:
@@ -143,11 +197,24 @@ class InfinityExecutor:
         return store
 
     def reseed(self, state: dict, step: int = 0) -> dict:
-        """(Re)populate the stores from ``state`` (m, v restart at zero) and
-        return it with ``flat`` dropped to a placeholder. The opt store is
-        seeded in backward order, the order the reversed pass emits the
-        rows' gradients."""
+        """(Re)populate the stores from ``state`` (m, v restart at zero).
+        GSPMD engine: an off-graph optimizer's store is seeded from the
+        params, leaf by leaf under their ``keystr`` names in tree order;
+        the state returns as it is. Layered epoch: the state returns with
+        ``flat`` dropped to a placeholder, and the opt store is seeded in
+        backward order, the order the reversed pass emits the rows'
+        gradients."""
         off = self.run.offload
+        if not self.layered:
+            if self.offgraph:
+                if self.opt_store is None:
+                    self.opt_store = self._make_store(off.opt_tier, "opt")
+                self.offload = ChunkedAdamOffload(self.opt_store)
+                self.offload.init_from_params(flatten_with_paths(state["params"]))
+                self.offload.step_count = step
+            if self.grad_offload and self.grad_store is None:
+                self.grad_store = self._make_store(off.grad_tier, "grad")
+            return state
         flat = state["flat"]
         if isinstance(flat, TensorSpec):
             raise ValueError("reseed needs materialized rows, not a placeholder")
@@ -176,8 +243,16 @@ class InfinityExecutor:
     @property
     def total_param_bytes(self) -> int:
         """Bytes of all scheduler-managed rows (the never-fully-resident
-        claim's denominator)."""
+        claim's denominator); 0 where no param is slow-tier resident."""
+        if not self.layered:
+            return 0
         return self.engine.n_layers * self.engine.layout.padded * 2
+
+    def wait_host(self) -> None:
+        """Wait until the pinned host tier holds the last step's values
+        (before the host reads a host-tier state)."""
+        if not self.layered:
+            self.engine.host_ready()
 
     def materialize_flat(self) -> torch.Tensor:
         """The (L, P) bf16 rows assembled from the param store, on the CPU —
@@ -196,8 +271,66 @@ class InfinityExecutor:
 
     def make_train_step(self):
         if self._step_fn is None:
-            self._step_fn = self._layered_step()
+            if self.layered:
+                self._step_fn = self._layered_step()
+            elif not self.offgraph:
+                self._step_fn = self.engine.make_train_step()  # fully in-graph
+            else:
+                self._step_fn = self._instrumented(self._gspmd_offgraph_step(
+                    self.engine.make_train_step(grads_only=True)))
         return self._step_fn
+
+    # ------------------------------------------------------------------
+    # the GSPMD engine's off-graph optimizer
+    # ------------------------------------------------------------------
+
+    def _instrumented(self, inner):
+        """A step with per-step per-tier bandwidth metrics around it."""
+
+        def step(state, batch):
+            self._trace_step_begin()
+            marks = {name: s.mark() for name, s in self._active_stores()}
+            with trace.span("train_step", sys="compute", attr="compute"):
+                new_state, metrics = inner(state, batch)
+            if self.grad_store is not None:
+                self.grad_store.flush()  # retire this step's drain futures
+            return new_state, self._with_tier_metrics(metrics, marks)
+
+        return step
+
+    def _gspmd_offgraph_step(self, grads_step):
+        tc = self.run.train
+        param_host = self.engine.param_host
+
+        def step(state, batch):
+            grads, metrics = grads_step(state, batch)
+            gflat = {k: g.float() for k, g in flatten_with_paths(grads).items()}
+            if self.grad_offload:
+                gflat = self._drain_grads(gflat)
+            lr = float(adam_mod.lr_at(tc, torch.tensor(self.offload.step_count + 1,
+                                                       dtype=torch.int32)))
+            new_flat = self.offload.step(gflat, lr=lr, beta1=tc.beta1,
+                                         beta2=tc.beta2, eps=tc.eps,
+                                         weight_decay=tc.weight_decay)
+            # the update consumed every gradient, so the step's reads of the
+            # params are done: a pinned host leaf may take its new value
+            new_state = dict(state)
+            new_state["params"] = _unflatten_like(state["params"], new_flat,
+                                                  in_place=param_host)
+            return new_state, dict(metrics, lr=lr)
+
+        return step
+
+    def _drain_grads(self, gflat: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        """Drain f32 gradients to the grad tier: each becomes a write-then-
+        read ``roundtrip`` future resolving to the store-resident copy,
+        copied off the card after the event behind the kernels that wrote
+        it. ``ChunkedAdamOffload.step`` resolves a leaf only when its first
+        chunk reaches the update stage, so later leaves' drains overlap the
+        pipeline's work on earlier ones."""
+        ready = self._ready_event()
+        return {k: self.grad_store.roundtrip(f"{k}/g", g, ready=ready)
+                for k, g in gflat.items()}
 
     def _ensure_row_scheduler(self, batch):
         """Plan + prefetcher over the rows; rebuilt when ``reseed`` swapped
@@ -379,9 +512,41 @@ class InfinityExecutor:
         out["nvme_bytes_read"] = nvme["bytes_read"]
         out["nvme_bytes_written"] = nvme["bytes_written"]
         out["nvme_pinned_peak_bytes"] = self._pool.peak_resident
-        out.update(self._ws.stats())
-        out["param_total_bytes"] = self.total_param_bytes
-        return self._with_trace_attribution(out)
+        if self.layered:  # scheduler residency
+            out.update(self._ws.stats())
+            out["param_total_bytes"] = self.total_param_bytes
+        return self._with_plan_crosscheck(self._with_trace_attribution(out))
+
+    def _with_plan_crosscheck(self, out: dict) -> dict:
+        """Predicted beside measured: with a plan, its predictions sit next
+        to the step's counters. The residency claim is directional (the
+        measured peak must stay at or below the plan's budget), so it also
+        gets a pass/fail flag, ``plan_residency_ok``."""
+        if self.plan is None:
+            return out
+        pred = self.plan.predictions
+        pp = pred.get("peak_resident_param_bytes")
+        if pp is not None:
+            out["plan_peak_resident_param_bytes"] = pp
+            if "peak_resident_param_bytes" in out:
+                out["plan_residency_ok"] = bool(out["peak_resident_param_bytes"] <= pp)
+        if "efficiency" in pred:
+            out["plan_efficiency"] = pred["efficiency"]
+        for cls_, measured_keys in (
+                ("param", ("param_in_bytes", "param_out_bytes")),
+                ("grad", ("grad_out_bytes",)),
+                ("opt", ("opt_read_bytes", "opt_write_bytes"))):
+            total = sum(v for v in (pred.get(f"{cls_}_step_read_bytes"),
+                                    pred.get(f"{cls_}_step_write_bytes"))
+                        if v is not None)
+            if total and any(k in out for k in measured_keys):
+                out[f"plan_{cls_}_step_bytes"] = total
+            total_wire = sum(v for v in (pred.get(f"{cls_}_step_read_wire_bytes"),
+                                         pred.get(f"{cls_}_step_write_wire_bytes"))
+                             if v is not None)
+            if total_wire and any(k in out for k in measured_keys):
+                out[f"plan_{cls_}_step_wire_bytes"] = total_wire
+        return out
 
     def bandwidth_stats(self) -> dict:
         """Whole-run aggregate over every store, per class and combined."""
@@ -409,3 +574,20 @@ class InfinityExecutor:
         out["write_gbps"] = tot_w / max(tot_wt, 1e-9) / 1e9
         out["pinned_peak_bytes"] = self._pool.peak_resident
         return out
+
+
+def _unflatten_like(like: dict, flat: Dict[str, torch.Tensor], *,
+                    in_place: bool = False) -> dict:
+    """``flat`` (``keystr`` name -> tensor) as a nested dict shaped like
+    ``like``, each leaf cast to ``like``'s dtype on its device; with
+    ``in_place`` written into ``like``'s own tensors (the pinned host
+    tier keeps its residency)."""
+    out: dict = {}
+    for path in pt.tree_paths(like):
+        leaf, new = pt.tree_get(like, path), flat[keystr(path)]
+        if in_place:
+            leaf.copy_(new)
+        else:
+            leaf = new.to(dtype=leaf.dtype).to(leaf.device)
+        pt.tree_set(out, path, leaf)
+    return out

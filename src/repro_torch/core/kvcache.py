@@ -3,6 +3,8 @@
 
   * ``pad_seq_caches`` / ``grow_cache`` — grow dense-style K/V leaves along
     the sequence axis to decode capacity, leaving everything else alone.
+  * ``sequence_kv_bytes`` — one sequence's cache bytes from the family's
+    ``cache_defs`` (the planner's KV arithmetic).
   * ``PagedKVCache`` — per-sequence KV state parked in an ``ArrayStore``
     tier (host DRAM or NVMe) as fixed-size token blocks along the cache's
     sequence axis; only ``ceil(len/block)`` blocks of live tokens move, and
@@ -53,6 +55,17 @@ def grow_cache(cache: dict, extra: int, family: str) -> dict:
     if family in SEQ_CACHE_FAMILIES:
         return pad_seq_caches(cache, extra)
     return cache
+
+
+def sequence_kv_bytes(model, cache_len: int) -> int:
+    """Bytes of ONE sequence's decode cache at ``cache_len`` context,
+    summed over the family's ``cache_defs`` leaves."""
+    from repro_torch.core import partition as pt
+    from repro_torch.models import registry
+
+    defs = registry.build(model).cache_defs(1, cache_len)
+    return sum(math.prod(d.shape) * d.torch_dtype.itemsize
+               for d in pt.tree_leaves(defs))
 
 
 def device_kv_bytes(cache: dict) -> int:

@@ -15,7 +15,8 @@ evicted right after, so the device-resident working set is O(window):
 
 ``default_prefetch_layers`` derives the window from the paper's Sec. 3-4
 model with the reference's constants, so both packages pick the same
-window. The MoE pieces (``HotUnitCache``, ``ExpertPopularity``) wait for
+window; ``default_kv_prefetch_blocks`` is its serving mirror, which the
+planner uses for the KV read-ahead. The MoE pieces (``HotUnitCache``, ``ExpertPopularity``) wait for
 ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
@@ -24,13 +25,13 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence
 
+from repro_torch.core.model_math import BYTES_PER_PARAM_FP16
 from repro_torch.runtime import trace
 
 # Paper Fig. 2b / Sec. 4 nominal rates used when no measured bandwidth is
 # available: per-device NVMe bandwidth and per-device peak throughput.
 PAPER_NVME_BYTES_PER_S = 1.6e9
 PAPER_PEAK_FLOPS = 70e12
-BYTES_PER_PARAM_FP16 = 2  # a copy of repro/core/model_math.py's constant
 
 
 def default_prefetch_layers(num_layers: int, layer_param_count: int,
@@ -50,6 +51,18 @@ def default_prefetch_layers(num_layers: int, layer_param_count: int,
     window = int(math.ceil(read_t / max(compute_t, 1e-12))) + 1
     window = int(math.ceil(window * max(compression_ratio, 1.0)))
     return max(1, min(window, num_layers - 1))
+
+
+def default_kv_prefetch_blocks(block_bytes: float, step_flops: float, *,
+                               slow_bw: float = PAPER_NVME_BYTES_PER_S,
+                               peak_flops: float = PAPER_PEAK_FLOPS) -> int:
+    """KV-block read-ahead for serving: the decode steps (``step_flops``
+    each at ``peak_flops``) that hide one block fetch (``block_bytes`` at
+    ``slow_bw``), clamped to [1, 8] (the pinned pool backpressures
+    anything deeper)."""
+    read_t = max(block_bytes, 1.0) / max(slow_bw, 1.0)
+    compute_t = max(step_flops, 1.0) / max(peak_flops, 1.0)
+    return max(1, min(8, int(math.ceil(read_t / max(compute_t, 1e-12)))))
 
 
 @dataclasses.dataclass(frozen=True)

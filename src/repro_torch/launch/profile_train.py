@@ -1,73 +1,70 @@
-"""Where the training time goes: layered ZeRO-3 steps of the port on the
-card, parameters, gradients and optimizer states on NVMe, under
+"""Where the training time goes: steps of the port on the card under
 ``torch.profiler`` and the span tracer.
 
-Runs ``--warmup`` unprofiled steps (kernel builds, first launches, pinned
-buffers), ``--steps`` unprofiled steps for the wall time, then one profiled
-step, and prints: the host wall time per step and its compute / io_wait /
-other split from the tracer; the device time summed over device-side
-events, the device busy share (the union of those events' intervals over
-the step's wall time), and the device time of each kernel per step with its
-launches (``profile_serve._report``). Weights are random from ``--seed``.
+It takes ``launch/train.py``'s flags (the placement, ``--plan auto`` with
+``--hw-*`` and ``--objective``, ``--param-quant``, shapes), with defaults
+of its own: the layered ZeRO-3 step with parameters, gradients and
+optimizer states on NVMe, 8 x 512 tokens. Runs ``--warmup`` unprofiled
+steps (kernel builds, first launches, pinned buffers), ``--steps``
+unprofiled steps for the wall time, then one profiled step, and prints:
+the host wall time per step and, where the step reports it, its compute /
+io_wait / other split from the tracer and the tier bandwidths; the device
+time summed over device-side events, the device busy share (the union of
+those events' intervals over the step's wall time), and the device time of
+each kernel per step with its launches (``profile_serve._report``; fused
+Adam is the ``fused_adam`` kernel's row). Weights are random from
+``--seed``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      --arch smollm-135m --batch 8 --seq 512 --nvme-dir build/profile_nvme \\
-      [--param-quant q8]
+      --arch smollm-135m --nvme-dir build/profile_nvme [--param-quant q8]
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+      --arch smollm-135m --plan auto [--hw-device-mem 3e9]
 """
 from __future__ import annotations
 
-import argparse
 import os
 import shutil
+import sys
 import tempfile
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch import configs
-from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,
-                                make_offload, make_parallel)
+from repro_torch.config import ShapeConfig
 from repro_torch.core.executor import InfinityExecutor
 from repro_torch.data.pipeline import SyntheticStream
+from repro_torch.launch import train
 from repro_torch.launch.profile_serve import _report
 from repro_torch.runtime import trace
 
 
 def _parse(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=512)
+    ap = train.build_argparser()
     ap.add_argument("--warmup", type=int, default=1)
-    ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--nvme-dir",
-                    default=os.path.join(tempfile.gettempdir(), "repro_torch_profile"))
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--param-quant", default="none", choices=["none", "q8", "q4"],
-                    help="wire format of the param rows (launch/train.py's flag)")
+    ap.set_defaults(engine="zero3", offload_param="nvme", offload_grad="nvme",
+                    offload_opt="nvme", batch=8, seq=512, steps=2, lr=3e-3,
+                    nvme_dir=os.path.join(tempfile.gettempdir(), "repro_torch_profile"))
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
     args = _parse(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available; this profile runs on the card")
     dev = torch.device("cuda")
     shutil.rmtree(args.nvme_dir, ignore_errors=True)
-    cfg = configs.get(args.arch)
-    run = RunConfig(model=cfg, parallel=make_parallel("zero3"),
-                    offload=make_offload(opt_tier="nvme", param_tier="nvme",
-                                         grad_tier="nvme", nvme_dir=args.nvme_dir,
-                                         param_quant=args.param_quant),
-                    train=TrainConfig(lr=3e-3, seed=args.seed))
-    ex = InfinityExecutor(run, dev)
+    train._unported(args)
+    run, plan = train.make_run(args, argv)
+    train._unported_run(run)
+    ex = InfinityExecutor(run, dev, plan=plan)
     try:
         state = ex.init_state(torch.Generator(device=dev).manual_seed(args.seed))
         stream = SyntheticStream(ex.input_specs(ShapeConfig("p", args.seq, args.batch,
                                                             "train")),
-                                 cfg.vocab_size, seed=args.seed)
+                                 run.model.vocab_size, seed=args.seed)
         step_fn = ex.make_train_step()
         it = iter(range(args.warmup + args.steps + 1))
 
@@ -86,12 +83,16 @@ def main(argv=None) -> None:
         trace.enable()
         for _ in range(args.steps):
             wall, m = step()
-            w = m["trace_wall_s"]
-            print(f"train step: unprofiled wall {wall * 1e3:.1f} ms | compute "
-                  f"{m['trace_compute_s'] / w:.3f} io_wait {m['trace_io_wait_s'] / w:.3f} "
-                  f"other {m['trace_other_s'] / w:.3f} of the traced wall | "
-                  f"param in {m['param_in_gbps']:.2f} GB/s, opt read "
-                  f"{m['opt_read_gbps']:.2f} GB/s, opt write {m['opt_write_gbps']:.2f} GB/s")
+            line = f"train step: unprofiled wall {wall * 1e3:.1f} ms"
+            if "trace_wall_s" in m:
+                w = m["trace_wall_s"]
+                line += (f" | compute {m['trace_compute_s'] / w:.3f} io_wait "
+                         f"{m['trace_io_wait_s'] / w:.3f} other "
+                         f"{m['trace_other_s'] / w:.3f} of the traced wall")
+            for key in ("param_in_gbps", "opt_read_gbps", "opt_write_gbps", "grad_out_gbps"):
+                if key in m:
+                    line += f" | {key} {m[key]:.2f}"
+            print(line)
         trace.disable()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall, _ = step()

@@ -10,11 +10,17 @@ per-sequence KV blocks (``core/kvcache.py``) and stream back when admitted.
 On the card, prefill attention and every MLP projection run the port's
 hand-written CUDA kernels (``kernels/ops.py``).
 
+With ``--plan auto`` the KV tier, slot count, block size and read-ahead
+come from the planner (``repro_torch/plan.py``: the same Sec. 3 byte
+arithmetic that places training state), ``--kv-*`` flags override per
+field, and the smoke check holds the measured device KV to the plan's
+``kv_resident_bytes``.
+
 Runs on the card by default and raises when CUDA is absent; ``--device
 cpu`` runs the plain versions (the tests do). ``--kv-quant q8|q4`` parks
 waiting KV blocks as block-quantized wire bytes (``core/qformat.py``),
-decoded on the host when fetched. ``--plan`` and a mesh larger than one
-device are not ported yet and raise.
+decoded on the host when fetched. A mesh larger than one device (or a
+plan for more than one, ``--hw-devices``) is not ported yet and raises.
 
 Example (one H100, full smollm-135m, 8 sequences through 4 device slots):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch import plan as plan_mod
 from repro_torch.config import ParallelConfig, RunConfig, ShapeConfig
 from repro_torch.core import kvcache, qformat
 from repro_torch.core.engine import ZeroInfinityEngine
@@ -78,8 +85,7 @@ def _parse(argv=None):
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
                     metavar="OUT.json",
                     help="record spans and write a Chrome/Perfetto trace")
-    ap.add_argument("--plan", default=None,
-                    help="planner-derived placement (not ported yet: raises)")
+    plan_mod.add_plan_args(ap)
     return ap.parse_args(argv)
 
 
@@ -94,14 +100,12 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def _unported(args) -> None:
-    if args.plan is not None:
-        raise NotImplementedError(
-            "--plan is not ported yet (ROADMAP.md Queue 1: planner, plan.py)")
-    if args.data_mesh * args.model_mesh != 1:
+def _unported(args, plan=None) -> None:
+    n = plan.hardware.n_devices if plan is not None else 1
+    if args.data_mesh * args.model_mesh != 1 or n != 1:
         raise NotImplementedError(
             "a mesh larger than one device is not ported yet (ROADMAP.md "
-            "Queue 1: GSPMD engine / explicit ZeRO-3)")
+            "Queue 1 item 8: GSPMD engine and meshes)")
 
 
 def _percentiles(xs) -> dict:
@@ -122,23 +126,36 @@ def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
     return slot_cache
 
 
-def run_serve(args) -> dict:
+def run_serve(args, argv=None) -> dict:
     """The serving run; returns per-sequence tokens + timings + KV metrics
-    (the test surface — ``main`` just prints)."""
-    _unported(args)
+    (the test surface — ``main`` just prints). ``argv`` (default
+    ``sys.argv[1:]``) says which legacy flags were given: under ``--plan
+    auto`` those become overrides of the derived plan."""
     device = resolve_device(args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     n_seqs, P, N = args.batch, args.prompt_len, args.new_tokens
     eos = args.eos_id
-    run = RunConfig(model=cfg, parallel=ParallelConfig(remat="none"))
-    kv_tier = args.kv_tier
-    slots = max(1, min(int(args.kv_slots or n_seqs), n_seqs))
-    block_tokens = int(args.kv_block_tokens) or kvcache.default_block_tokens(P + N)
-    kv_prefetch = 2
+    plan = plan_mod.resolve_plan(
+        args, cfg, ShapeConfig("serve-plan", P + N, n_seqs, "decode"),
+        argv=argv)
+    _unported(args, plan)
+    if plan is not None:
+        run = plan.to_run_config()
+        kv_tier = plan.kv_tier
+        slots = plan.kv_slots or n_seqs
+        block_tokens = plan.kv_block_tokens
+        kv_prefetch = plan.kv_prefetch_blocks
+    else:
+        run = RunConfig(model=cfg, parallel=ParallelConfig(remat="none"))
+        kv_tier = args.kv_tier
+        slots = args.kv_slots or n_seqs
+        block_tokens = args.kv_block_tokens
+        kv_prefetch = 2
+    slots = max(1, min(int(slots), n_seqs))
+    block_tokens = int(block_tokens) or kvcache.default_block_tokens(P + N)
 
     eng = ZeroInfinityEngine(run, device)
-    params = eng.init_state(
-        torch.Generator(device=device).manual_seed(args.seed))["params"]
+    params = eng.init_params(torch.Generator(device=device).manual_seed(args.seed))
     bundle = eng.bundle
 
     def sync():
@@ -326,7 +343,7 @@ def run_serve(args) -> dict:
         "block_tokens": block_tokens,
         "steps": steps,
         "admissions": admissions,
-        "plan": None,
+        "plan": plan,
         "history": history,
         "latency": {
             "ttft_s": list(ttft),
@@ -359,7 +376,7 @@ def main(argv=None) -> None:
     args = _parse(argv)
     if args.trace:
         trace.enable()
-    out = run_serve(args)
+    out = run_serve(args, argv)
     t = out["timings"]
     gen, slots = out["generated"], out["slots"]
     n_seqs, P = args.batch, args.prompt_len
@@ -408,6 +425,13 @@ def main(argv=None) -> None:
                 raise SystemExit(
                     f"SERVE SMOKE FAIL: seq {s} exceeded the "
                     f"{args.new_tokens}-token budget: {len(g)}")
+        plan = out["plan"]
+        if plan is not None and "kv_resident_bytes" in plan.predictions:
+            pred = plan.predictions["kv_resident_bytes"]
+            if kvm["resident_bytes"] > pred:
+                raise SystemExit(
+                    f"SERVE SMOKE FAIL: measured device KV "
+                    f"{kvm['resident_bytes']} B > planned {pred:.0f} B")
         if kvm["pinned_peak_bytes"] > kvm["pinned_budget_bytes"]:
             raise SystemExit(
                 f"SERVE SMOKE FAIL: pinned staging "
@@ -422,8 +446,9 @@ def main(argv=None) -> None:
                     f"p99 {p['p99']*1e3:.2f} ms")
         print(f"SERVE SMOKE OK: {n_seqs} seqs through {slots} "
               f"{out['kv_tier']}-tier slots, {out['steps']} steps, "
-              f"{out['admissions']} admissions, EOS-masked, latency "
-              f"percentiles sane (decode tok p50 {tok_p['p50']*1e3:.2f} ms)")
+              f"{out['admissions']} admissions, EOS-masked, "
+              + ("KV residency within plan, " if out["plan"] is not None else "")
+              + f"latency percentiles sane (decode tok p50 {tok_p['p50']*1e3:.2f} ms)")
 
 
 if __name__ == "__main__":

@@ -1,22 +1,35 @@
-"""Training entry point: synthetic data -> InfinityExecutor's layered ZeRO-3 epoch
-with parameters, gradients and optimizer states on the slow tiers — the
-port of ``repro/launch/train.py`` for the path
+"""Training entry point: synthetic data -> InfinityExecutor -> per-step
+metrics, the port of ``repro/launch/train.py`` for one device:
 
-    --engine zero3 --offload-param nvme [--offload-grad T] [--offload-opt T]
-        [--param-quant q8|q4]
+  * ``--plan auto``: the planner (``repro_torch/plan.py``) derives the
+    placement from the detected card (``--hw-*`` override what detection
+    reads, ``--objective`` picks the objective), and every legacy flag
+    given on the command line becomes a per-field override of the derived
+    plan, as in the reference; the plan's ``explain()`` is printed and its
+    cross-check fields (``plan_*``) land in the step metrics. ``--plan
+    <file.json>`` loads a saved plan.
+  * ``--plan manual`` (default): the flags as given. ``--engine pjit``
+    (default) runs the GSPMD engine's step with params on the device or
+    host tier: in-graph fused Adam with the optimizer on the device or host
+    tier, or off-graph (``ChunkedAdamOffload``) with the optimizer on NVMe
+    or the gradients drained to host or NVMe (the ZeRO-Offload placement);
+    ``--grad-accum`` and the plan's ``remat`` are honoured. ``--engine
+    zero3 --offload-param nvme`` runs the layered epoch with every state
+    class on the slow tiers; ``--param-quant q8`` ships its rows as q8 wire
+    bytes into the quantized-matmul kernel, ``q4`` rows decode on the host.
 
-It takes the reference's flags. Runs on the card by default and raises when
-CUDA is absent; ``--device cpu`` runs the kernels' plain versions (the
-tests do). Every flag whose machinery is not ported raises, naming the
-ROADMAP item that ports it: ``--engine pjit`` and params off NVMe,
-meshes > 1, ``--plan`` other than manual and the planner's hardware flags,
-``--elastic``/``--chaos``, the fault runtime's flags, ``--grad-compress``,
-``--resume auto`` and checkpoints (``--ckpt-every`` > 0, ``--ckpt-dir``).
-``--param-quant q8`` ships the rows as q8 wire bytes and runs the MLP
-projections on them through the quantized-matmul kernel; ``q4`` rows
-decode on the host.
+Runs on the card by default and raises when CUDA is absent; ``--device
+cpu`` runs the kernels' plain versions (the tests do). Every flag whose
+machinery is not ported raises, naming the ROADMAP item that ports it:
+``--engine pjit`` with NVMe params, ``--engine zero3`` with params off
+NVMe, more than one device (meshes, ``--hw-devices`` > 1), ``--remat
+dots``, ``--grad-accum`` > 1 on the layered epoch, ``--elastic``/
+``--chaos``, the fault runtime's flags, ``--grad-compress``, ``--resume
+auto`` and checkpoints (``--ckpt-every`` > 0, ``--ckpt-dir``).
 
-Example (one H100, full smollm-135m, 8 steps, every state class on NVMe):
+Examples (one H100, full smollm-135m):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --plan auto --batch 8 --seq 512 --steps 4 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --engine zero3 --offload-param nvme --offload-grad nvme \\
       --offload-opt nvme --batch 8 --seq 512 --steps 8 --lr 3e-3
@@ -24,6 +37,7 @@ Example (one H100, full smollm-135m, 8 steps, every state class on NVMe):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import time
@@ -31,6 +45,7 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch import plan as plan_mod
 from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,
                                 make_offload, make_parallel)
 from repro_torch.core.executor import InfinityExecutor
@@ -41,14 +56,6 @@ from repro_torch.runtime.metrics import MetricsLogger
 
 # flags whose machinery is not ported: any value given raises
 UNPORTED = {
-    "objective": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_device_mem": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_host_mem": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_nvme": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_nvme_bw": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_host_bw": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_peak_flops": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
-    "hw_devices": "ROADMAP.md Queue 1 item 3: planner (plan.py)",
     "chaos": "ROADMAP.md Queue 1 item 5: elastic runtime",
     "straggler_factor": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
     "max_restarts": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
@@ -71,9 +78,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--data-mesh", type=int, default=1)
     ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
-                    help="zero3 (explicit collectives) is ported; pjit raises")
+                    help="pjit = the GSPMD engine's step (params on the device "
+                         "or host tier); zero3 = the explicit engine's layered "
+                         "epoch (params on NVMe)")
     ap.add_argument("--zero-stage", type=int, default=3)
-    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatches per step (the GSPMD engine)")
+    ap.add_argument("--remat", default="full", choices=["full", "dots", "none"],
+                    help="activation checkpoint policy of the GSPMD engine's "
+                         "loss (dots is not ported: raises)")
     for cls, what in (("opt", "optimizer-state (fp32 master/m/v)"),
                       ("param", "bf16 compute-parameter"),
                       ("grad", "gradient drain")):
@@ -97,12 +110,7 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="worker threads per slow-tier store")
     ap.add_argument("--pinned-buffer-mb", type=int, default=64,
                     help="shared pinned buffer-pool budget (all stores)")
-    ap.add_argument("--plan", default="manual",
-                    help="manual (the flags above); anything else raises")
-    ap.add_argument("--objective", default=None)
-    for hw in ("device-mem", "host-mem", "nvme", "nvme-bw", "host-bw",
-               "peak-flops", "devices"):
-        ap.add_argument(f"--hw-{hw}", type=float, default=None)
+    plan_mod.add_plan_args(ap)
     ap.add_argument("--elastic", action="store_true", help="not ported: raises")
     ap.add_argument("--chaos", default=None)
     ap.add_argument("--straggler-factor", type=float, default=None)
@@ -129,8 +137,6 @@ def _unported(args) -> None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported yet ({item})")
     checks = [
-        (args.plan != "manual", f"--plan {args.plan}",
-         "ROADMAP.md Queue 1 item 3: planner (plan.py)"),
         (args.elastic, "--elastic", "ROADMAP.md Queue 1 item 5: elastic runtime"),
         (args.resume != "no", f"--resume {args.resume}",
          "ROADMAP.md Queue 1 item 5: checkpoint/manager.py"),
@@ -141,22 +147,49 @@ def _unported(args) -> None:
         (args.grad_compress != "none", f"--grad-compress {args.grad_compress}",
          "ROADMAP.md Queue 1 items 8 and 10: the reference compresses "
          "gradients only in the cross-rank reduce and the monolithic step"),
-        (args.zero_stage != 3, f"--zero-stage {args.zero_stage}",
-         "ROADMAP.md Queue 1 item 10: the explicit engine is ZeRO-3"),
-        (args.grad_accum != 1, f"--grad-accum {args.grad_accum}",
-         "ROADMAP.md Queue 1 item 10: one microbatch per layered step"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
-def make_run(args) -> RunConfig:
+def _unported_run(run: RunConfig) -> None:
+    """Raise for what the resolved run (the flags, or the plan with its
+    overrides) asks of the layered epoch and it cannot do."""
+    pc = run.parallel
+    if pc.engine != "zero3":
+        return
+    if pc.zero_stage != 3:
+        raise NotImplementedError(
+            f"--zero-stage {pc.zero_stage} is not ported yet (ROADMAP.md Queue "
+            "1 item 10: the explicit engine is ZeRO-3)")
+    if pc.grad_accum != 1:
+        raise NotImplementedError(
+            f"--grad-accum {pc.grad_accum} on the layered epoch is not ported "
+            "yet (ROADMAP.md Queue 1 item 10: one microbatch per layered step)")
+
+
+def make_run(args, argv=None):
+    """(RunConfig, Optional[InfinityPlan]). With ``--plan auto`` (or a saved
+    plan) the planner derives every offload/engine knob and the legacy
+    flags given in ``argv`` (default ``sys.argv[1:]``) act only as explicit
+    per-field overrides; ``--plan manual`` keeps the flags as given."""
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    return RunConfig(
+    tc = TrainConfig(lr=args.lr, steps=args.steps,
+                     checkpoint_every=args.ckpt_every, seed=args.seed)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    plan = plan_mod.resolve_plan(args, cfg, shape, nvme_dir=args.nvme_dir, argv=argv)
+    if plan is not None:
+        run = plan.to_run_config(train=tc, nvme_dir=args.nvme_dir,
+                                 overlap=not args.no_overlap)
+        # non-plan parallelism knobs stay CLI-driven under --plan auto
+        run = run.replace(parallel=dataclasses.replace(
+            run.parallel, zero_stage=args.zero_stage))
+        return run, plan
+    run = RunConfig(
         model=cfg,
         parallel=make_parallel(args.engine, zero_stage=args.zero_stage,
-                               grad_accum=args.grad_accum,
+                               grad_accum=args.grad_accum, remat=args.remat,
                                grad_compression=args.grad_compress),
         offload=make_offload(opt_tier=args.offload_opt,
                              param_tier=args.offload_param,
@@ -167,27 +200,30 @@ def make_run(args) -> RunConfig:
                              param_read_ahead=args.read_ahead,
                              nvme_workers=args.nvme_workers,
                              pinned_buffer_mb=args.pinned_buffer_mb),
-        train=TrainConfig(lr=args.lr, steps=args.steps,
-                          checkpoint_every=args.ckpt_every, seed=args.seed),
+        train=tc,
     )
+    return run, None
 
 
 def _host(v):
     return float(v) if isinstance(v, torch.Tensor) else v
 
 
-def train(args) -> dict:
-    """Run ``args.steps`` layered steps. Returns ``{"losses", "grad_norms",
+def train(args, argv=None) -> dict:
+    """Run ``args.steps`` steps. Returns ``{"losses", "grad_norms",
     "metrics" (one dict of host numbers per step, with step_time and
     tokens_per_s), "nvme_stats", "trace_attributions", "quantized_leaves"
-    (the MLP weights whose products read the q8 rows in place)}``."""
+    (the MLP weights whose products read the q8 rows in place), "plan"
+    (the ``InfinityPlan``, or None in manual mode), "run" (the resolved
+    ``RunConfig``)}``. ``argv`` is what ``make_run`` reads overrides from."""
     _unported(args)
     device = resolve_device(args.device)
-    run = make_run(args)
-    executor = InfinityExecutor(run, device)
+    run, plan = make_run(args, argv)
+    _unported_run(run)
+    executor = InfinityExecutor(run, device, plan=plan)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     tokens = shape.global_batch * shape.seq_len
-    history = {"losses": [], "grad_norms": [], "metrics": []}
+    history = {"losses": [], "grad_norms": [], "metrics": [], "plan": plan, "run": run}
     try:
         gen = torch.Generator(device=device).manual_seed(run.train.seed)
         state = executor.init_state(gen)
@@ -209,7 +245,7 @@ def train(args) -> dict:
                 logger.log(step, rec["loss"], tokens, dt)
         history["nvme_stats"] = executor.bandwidth_stats()
         history["trace_attributions"] = executor.trace_attributions
-        history["quantized_leaves"] = executor.engine.quantized_leaves
+        history["quantized_leaves"] = getattr(executor.engine, "quantized_leaves", ())
     finally:
         executor.close()
     return history
@@ -220,7 +256,7 @@ def main(argv=None) -> dict:
     if args.trace:
         trace.enable()
     t0 = time.time()
-    hist = train(args)
+    hist = train(args, argv)
     losses = hist["losses"]
     print(f"done in {time.time()-t0:.1f}s | first loss {losses[0]:.4f} | "
           f"last loss {losses[-1]:.4f}")

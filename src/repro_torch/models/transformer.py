@@ -9,12 +9,20 @@ tensors). Training: ``loss`` is the next-token loss over the whole stack
 and ``make_block_fn`` the standalone train-mode block the explicit ZeRO-3
 engine (``core/zero.py``) calls on one layer's row; both differentiate
 through the kernels' ``torch.autograd.Function``s.
+
+``parallel.remat`` shapes ``loss`` as the reference's ``jax.checkpoint``
+of each scanned block does: ``full`` runs every block under
+``torch.utils.checkpoint`` (non-reentrant), so backward recomputes the
+block, kernels included (the recompute's launches count like any other),
+and ``none`` keeps every block's activations. ``dots`` (save only the
+matmul outputs) is not ported and raises (ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import partition as pt
@@ -87,7 +95,12 @@ def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig())
 
 def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
     _check_ported(cfg)
+    if parallel.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matmul outputs) is not ported; use "
+            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
     tiles = parallel.tiling_factor
+    remat = parallel.remat == "full"
 
     def block(x, blk, positions, cache=None, collect_kv=False):
         return _block(cfg, tiles, x, blk, positions, cache, collect_kv)
@@ -98,12 +111,23 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         return x, positions
 
+    def train_block(x, blk, positions):
+        return block(x, blk, positions)[0]
+
     def loss_fn(params, batch):
         """Mean next-token cross-entropy over the batch (labels shifted by
-        one inside, padded vocab masked); differentiable."""
+        one inside, padded vocab masked); differentiable. Each stacked
+        block leaf is unbound once, so its gradient is one stack of the
+        layers' gradients (indexing a layer would write a full-size zero
+        gradient per layer)."""
         x, positions = backbone_inputs(params, batch)
+        layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
         for l in range(cfg.n_layers):
-            x, _ = block(x, layer_params(params["blocks"], l), positions)
+            blk = pt.tree_map(lambda ts: ts[l], layers)
+            if remat:
+                x = checkpoint(train_block, x, blk, positions, use_reentrant=False)
+            else:
+                x = train_block(x, blk, positions)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg)
         return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)

@@ -506,12 +506,7 @@ def test_layer_vjp_on_a_wire_row_gives_every_leaf_a_gradient_on_the_card(cuda):
     assert torch.isfinite(dx).all() and dx.abs().sum() > 0
 
 
-@pytest.mark.cuda
-def test_gemma_7b_prefill_and_decode_on_the_card_match_the_cpu(cuda):
-    """Full-width gemma-7b (head_dim 256: flash on the CUDA cores) cut to 2
-    layers: teacher-forced prefill and decode logits on the card (kernels)
-    against the CPU (plain versions) from the same weights, under
-    chip_smoke.py's end-to-end tolerance."""
+def _chip_smoke():
     import importlib.util
     import pathlib
 
@@ -519,8 +514,78 @@ def test_gemma_7b_prefill_and_decode_on_the_card_match_the_cpu(cuda):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.cuda
+def test_gemma_7b_prefill_and_decode_on_the_card_match_the_cpu(cuda):
+    """Full-width gemma-7b (head_dim 256: flash on the CUDA cores) cut to 2
+    layers: teacher-forced prefill and decode logits on the card (kernels)
+    against the CPU (plain versions) from the same weights, under
+    chip_smoke.py's end-to-end tolerance."""
+    cs = _chip_smoke()
     before = ops.launch_counts()
     rec = cs.phase_e2e("gemma-7b")
     after = ops.launch_counts()
     assert rec["max_rel_err"] <= cs.E2E_REL_TOL
     assert after["flash_attention_simt"] > before["flash_attention_simt"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["in_graph", "off_graph", "host"])
+def test_gspmd_step_on_the_card_matches_the_cpu(cuda, placement):
+    """The GSPMD engine's step at 2 layers, full width: in-graph, off-graph
+    (the optimizer on NVMe, remat full) and on the pinned host tier, the
+    card (kernels) against the CPU (plain versions) from the same weights
+    and batches, by chip_smoke.py's training bounds (``phase_gspmd_numerics``
+    raises beyond them)."""
+    rec = _chip_smoke().phase_gspmd_numerics(placement)
+    assert rec["masters_worst_diff_over_drift"] <= 1.0
+    assert rec["params_worst_diff_over_bound"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_host_tier_is_pinned_and_repeats_the_device_tier_to_the_bit(cuda):
+    """params and the optimizer on the host tier: page-locked CPU tensors
+    before and after a step, and the same kernels on the same values, so
+    two steps give the device tier's params and masters bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, ShapeConfig, make_offload, make_parallel
+    from repro_torch.core import partition as pt
+    from repro_torch.core.executor import InfinityExecutor
+    from repro_torch.data.pipeline import SyntheticStream
+
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    out = {}
+    for tier in ("device", "host"):
+        run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none"),
+                        offload=make_offload(param_tier=tier, opt_tier=tier))
+        ex = InfinityExecutor(run, cuda)
+        state = ex.init_state(torch.Generator(device=cuda).manual_seed(0))
+        stream = SyntheticStream(ex.input_specs(ShapeConfig("t", 128, 2, "train")),
+                                 cfg.vocab_size)
+        step = ex.make_train_step()
+        for i in range(2):
+            batch = {k: torch.from_numpy(a).to(cuda) for k, a in stream.batch_at(i).items()}
+            state, _ = step(state, batch)
+        ex.wait_host()
+        leaves = pt.tree_leaves(state["params"]) + pt.tree_leaves(state["opt"].master)
+        if tier == "host":
+            assert all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+        else:
+            assert all(t.device.type == "cuda" for t in leaves)
+        out[tier] = [t.cpu() for t in leaves]
+    for a, b in zip(out["device"], out["host"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_detect_reports_the_card(cuda):
+    from repro_torch import plan
+
+    hw = plan.HardwareSpec.detect()
+    assert hw.n_devices == torch.cuda.device_count() >= 1 and hw.source == "detected"
+    assert hw.device_mem == torch.cuda.mem_get_info(0)[1] > 0
+    assert hw.host_mem > 0 and hw.nvme_capacity >= 0

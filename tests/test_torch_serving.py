@@ -118,7 +118,7 @@ def test_store_counters_roundtrip_and_pool_budget(overlap):
 
 
 def _serve(argv):
-    return serve.run_serve(serve._parse(argv))
+    return serve.run_serve(serve._parse(argv), argv)
 
 
 def test_paged_host_decode_matches_all_device(tmp_path):
@@ -158,7 +158,8 @@ def test_serve_defaults_to_the_card():
         _serve(["--smoke", "--batch", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--plan", "auto"], ["--model-mesh", "2"]])
+@pytest.mark.parametrize("flag", [["--plan", "auto", "--hw-devices", "2"],
+                                  ["--model-mesh", "2"]])
 def test_unported_options_raise_with_roadmap_pointer(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _serve(["--smoke", "--device", "cpu", "--batch", "1"] + flag)

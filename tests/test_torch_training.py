@@ -590,19 +590,20 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "pjit"], ["--offload-param", "device"], ["--plan", "auto"],
+    ["--engine", "pjit"], ["--offload-param", "device"],
+    ["--engine", "pjit", "--plan", "auto"],
+    ["--engine", "pjit", "--offload-param", "device", "--remat", "dots"],
+    ["--plan", "auto", "--hw-devices", "2"],
     ["--elastic"], ["--chaos", "fail@3"],
     ["--grad-compress", "int8"], ["--resume", "auto"], ["--ckpt-every", "5"],
     ["--ckpt-dir", "/x"], ["--data-mesh", "2"], ["--model-mesh", "2"],
-    ["--objective", "throughput"], ["--hw-nvme-bw", "2e9"],
     ["--max-restarts", "2"], ["--straggler-factor", "2"],
     ["--recovery-budget", "9"], ["--zero-stage", "2"], ["--grad-accum", "2"],
 ])
 def test_cli_raises_on_every_unported_flag(tmp_path, extra):
-    args = ttrain.build_argparser().parse_args(
-        BASE + ["--device", "cpu", "--nvme-dir", str(tmp_path)] + extra)
+    argv = BASE + ["--device", "cpu", "--nvme-dir", str(tmp_path)] + extra
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.train(args)
+        ttrain.train(ttrain.build_argparser().parse_args(argv), argv)
 
 
 def test_cli_trains_on_the_cpu(tmp_path, capsys):
