@@ -6,8 +6,10 @@ and the planner's own placement), trains full smollm-135m through
 states on NVMe, in bf16 rows and in q8 wire rows (``--param-quant q8``,
 through the quantized-matmul kernel), then with ``--plan auto`` (the
 placement the planner derives for the detected card, and the ZeRO-Offload
-placement it derives for a starved one), checks the outputs, and prints one
-JSON line per the contract below.
+placement it derives for a starved one), then through the explicit
+engine's monolithic step (``--engine zero3`` with params on the device or
+the pinned host tier) and a restart drill that resumes from a checkpoint,
+checks the outputs, and prints one JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -37,7 +39,8 @@ Phases (any failure exits non-zero; no phase is caught):
      blocks and once with q8 ones (``--kv-quant q8``), counters read again
      for each;
   7. the training kernels against their plain versions: fused Adam at the
-     embedding, ``ln_f`` and 100,001 elements; the flash forward and
+     embedding, ``ln_f``, 100,001 elements and the explicit step's (L, P)
+     flat (30 x 3,540,096, timed); the flash forward and
      backward (dq, dk, dv; routes held, the tensor-core kernels timed
      against the CUDA-core ones as in 3), also at gemma-7b's and
      nemotron-4-340b's heads (head_dim 256 and 192, on the CUDA cores), the
@@ -77,9 +80,25 @@ Phases (any failure exits non-zero; no phase is caught):
   14. the planner's serving path: ``launch.serve --plan auto`` at the serve
       host cell's sizes, its KV fields printed, every sequence finished and
       the device KV within the plan;
-  15. the kernels JSON line, then the device JSON line last.
+  15. the explicit engine's monolithic step's numerics: a 2-layer
+      full-width smollm-135m, 2 steps on the card against the CPU from the
+      same state and batches, in-graph, on the pinned host tier (flat and
+      optimizer), with the optimizer on NVMe off-graph, and with int8
+      gradient compression (``ZERO3_PLACEMENTS``), by phase 11's bounds;
+  16. its main path: ``launch.train --engine zero3`` on full smollm-135m,
+      6 steps of 8 x 512 tokens all on the device, with the optimizer on
+      the pinned host tier (the ZeRO-Offload placement) and with params and
+      optimizer there; fused Adam on the flat and the two 'other' leaves
+      each step;
+  17. the restart drill: the in-graph run with a checkpoint every 2 steps
+      and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
+      with ``--resume auto``: one restart, the redone steps' losses equal
+      to an uninterrupted run's bit for bit; then the layered NVMe epoch
+      resumes from its last checkpoint and trains one step; the
+      checkpoint's bytes, snapshot, persist and restore times printed;
+  18. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14) each flash-attention launch,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17) each flash-attention launch,
 forward and backward (the recompute under ``remat="full"`` included), each
 tiled-matmul launch and each quantized-matmul launch, forward and dX, must
 be on the tensor-core route (``*_wgmma``), none on ``simt``; ``plan_residency_ok``
@@ -112,6 +131,7 @@ from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,  # noqa: E4
 from repro_torch.core import kvcache, qformat  # noqa: E402
 from repro_torch.core import partition as pt  # noqa: E402
 from repro_torch.core.executor import InfinityExecutor  # noqa: E402
+from repro_torch.core.zero import ExplicitZero3Engine  # noqa: E402
 from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
@@ -223,6 +243,17 @@ TRAIN_TOL = {"rtol": 2e-3, "atol": 2e-3}
 GSPMD_PLACEMENTS = {"in_graph": ("device", "device", "device", "none"),
                     "off_graph": ("device", "device", "nvme", "full"),
                     "host": ("host", "device", "host", "full")}
+# the explicit engine's monolithic step held card vs CPU (phase 15): (param,
+# grad, opt tier, int8 compression); the flat and masters by the bounds
+# above. Under int8 the 'other' gradients cross a 127-level quantizer: an
+# element the two sides round a bf16 ulp apart may land one level (1/127
+# of its block's absmax) apart, and the carried residual adds at most half
+# a level more, so the grad norm takes rtol 2^-6 (~2/127) instead.
+ZERO3_PLACEMENTS = {"in_graph": ("device", "device", "device", "none"),
+                    "host": ("host", "device", "host", "none"),
+                    "off_graph_nvme": ("device", "device", "nvme", "none"),
+                    "int8": ("device", "device", "device", "int8")}
+INT8_NORM_TOL = {"rtol": 2**-6, "atol": 2e-3}
 # --hw-device-mem for phase 13: usable HBM (70 %) below the 2.57 GB of full
 # smollm-135m's states and checkpoints at 8 x 512 tokens, above its 0.95 GB
 # without the optimizer: the planner moves the optimizer off the device
@@ -561,7 +592,9 @@ def check_qmm_routes(recs) -> None:
 def phase_train_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     bf16, f32 = torch.bfloat16, torch.float32
+    flat_n = zero3_flat_elems()
     adam = [check_adam(n, label, gen, timed=(i == 0)) for i, (n, label) in enumerate(ADAM_SIZES)]
+    adam.append(check_adam(flat_n, "zero3 flat (L, P)", gen, timed=True))
     fwd = [check_flash(FLASH_TRAIN, bf16, gen, timed=True)]
     bwd = [check_flash_bwd(FLASH_TRAIN, bf16, gen, timed=True)]
     bwd += [check_flash_bwd(FLASH_TRAIN, f32, gen, timed=False)]
@@ -1057,6 +1090,196 @@ def phase_plan_serve() -> tuple:
     return rec, launches
 
 
+def zero3_flat_elems() -> int:
+    """Elements of full smollm-135m's (L, P) flat, the explicit step's
+    fused-Adam operand."""
+    run = RunConfig(model=configs.get("smollm-135m"), parallel=make_parallel("zero3"))
+    eng = ExplicitZero3Engine(run, "cpu")
+    return eng.n_layers * eng.layout.padded
+
+
+def _zero3_run(cfg, nvme_dir, steps, placement) -> RunConfig:
+    param, grad, opt, compress = ZERO3_PLACEMENTS[placement]
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    return RunConfig(
+        model=cfg, parallel=make_parallel("zero3", remat="none", grad_compression=compress),
+        offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                             nvme_dir=nvme_dir),
+        train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+
+
+def phase_zero3_numerics(placement: str) -> dict:
+    """Full-width smollm-135m cut to 2 layers: 2 monolithic steps of the
+    explicit engine on the card (kernels) and on the CPU (plain versions),
+    same state and batches, in one of ``ZERO3_PLACEMENTS``; loss and grad
+    norm by ``TRAIN_TOL`` (the grad norm by ``INT8_NORM_TOL`` under int8),
+    the f32 masters (in the state in-graph, read back from the optimizer
+    store off-graph) by the drift bound, the flat by it plus each side's
+    bf16 rounding, its mean by 2^-5 * sum(lr)."""
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    B, S, steps = 4, 256, 2
+    base = os.path.join(ROOT, "build", f"chip_smoke_zero3_{placement}")
+    state0 = None
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ex = InfinityExecutor(_zero3_run(cfg, os.path.join(base, dev), steps, placement), dev)
+        if state0 is None:
+            state0 = ex.engine.init_state(torch.Generator().manual_seed(SEED))
+        state = ex.reseed(ex.engine.place_state(_to(state0, dev)))
+        stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                                 cfg.vocab_size, seed=SEED)
+        step = ex.make_train_step()
+        traj = []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        ex.wait_host()
+        masters = _store_masters(ex)["rank0/flat"] if ex.offgraph else state["master"]
+        out[dev] = (traj, state["flat"].detach().float().cpu(),
+                    masters.detach().float().cpu().reshape(state["flat"].shape))
+        ex.close()
+    (tc, f_c, m_c), (tg, f_g, m_g) = out["cpu"], out["cuda"]
+    lrs = [t["lr"] for t in tc]
+    drift = adam.parity_bound(TrainConfig(), lrs)
+    diff = (f_g - f_c).abs()
+    allowed = drift + 2**-8 * (f_c.abs() + f_g.abs())
+    rec = {"placement": placement, "tiers_param_grad_opt_compress": ZERO3_PLACEMENTS[placement],
+           "layers": 2, "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
+           "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+           "flat_max_abs_diff": diff.max().item(), "flat_mean_abs_diff": diff.mean().item(),
+           "flat_worst_diff_over_bound": (diff / allowed).max().item(),
+           "masters_max_abs_diff": (m_g - m_c).abs().max().item(),
+           "masters_worst_diff_over_drift": (m_g - m_c).abs().max().item() / drift,
+           "flat_max_bound": drift, "flat_mean_bound": 2**-5 * sum(lrs)}
+    say("zero3 numerics:", json.dumps(rec))
+    for c, g in zip(tc, tg):
+        for key in ("loss", "grad_norm"):
+            tol = INT8_NORM_TOL if (placement == "int8" and key == "grad_norm") else TRAIN_TOL
+            if not abs(g[key] - c[key]) <= tol["atol"] + tol["rtol"] * abs(c[key]):
+                raise SystemExit(f"FAIL zero3 numerics ({placement}): card {key} {g[key]} "
+                                 f"vs CPU {c[key]}")
+    if not rec["masters_max_abs_diff"] <= drift or not bool((diff <= allowed).all()) \
+            or not rec["flat_mean_abs_diff"] <= rec["flat_mean_bound"]:
+        raise SystemExit(f"FAIL zero3 numerics ({placement}): the flat differs beyond the "
+                         f"bound: {rec}")
+    return rec
+
+
+def phase_zero3_train(tag: str, tiers: list) -> tuple:
+    """``launch.train --engine zero3`` on full smollm-135m: the explicit
+    engine's monolithic step, 6 steps of 8 x 512 tokens; ``tiers`` sets the
+    params' and the optimizer's tiers (device or the pinned host tier).
+    Counters zeroed just before and read just after."""
+    cfg = configs.get("smollm-135m")
+    L, steps = cfg.n_layers, 6
+    argv = ["--arch", "smollm-135m", "--engine", "zero3", "--batch", "8", "--seq", "512",
+            "--steps", str(steps), "--lr", "3e-3", "--ckpt-every", "0",
+            "--log-every", "1"] + tiers
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    for m in hist["metrics"]:
+        say(f"{tag} step:", json.dumps({
+            "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"], "lr": m["lr"],
+            "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"]}))
+    losses = hist["losses"]
+    median = statistics.median(m["step_time"] for m in hist["metrics"][1:])
+    rec = {"argv": " ".join(argv), "wall_s": wall, "launches": launches,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "median_step_s_after_first": median,
+           "median_tokens_per_s_after_first": 8 * 512 / median}
+    say(f"{tag}:", json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
+    # remat "full" (the CLI default): flash forward in every layer and again
+    # in its recompute, one backward; three MLP products forward, three in
+    # the recompute, two gradient products each; fused Adam on the flat and
+    # on the two 'other' leaves (embedding, final norm) every step
+    want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+            "tiled_matmul": (6 + 6) * L * steps, "fused_adam": 3 * steps}
+    for name, n in want.items():
+        if launches[name] < n:
+            raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
+    check_main_path_routes(tag, launches)
+    return rec, launches
+
+
+def phase_resume_drill() -> tuple:
+    """Full smollm-135m, the explicit in-graph step: 6 steps uninterrupted,
+    then the same run with a checkpoint every 2 steps and a failure
+    injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed with ``--resume
+    auto``: one restart, and the redone steps' losses equal the
+    uninterrupted run's bit for bit (the checkpoint restores every leaf of
+    the state bit for bit, and the kernels sum in a fixed order: no
+    atomics). Then the layered NVMe epoch resumes from the drill's last
+    checkpoint (a tier migration: its moments restart at zero) and trains
+    one step. Counters zeroed just before the drill and read just after."""
+    steps, fail_at = 6, 3
+    root = os.path.join(ROOT, "build", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    base = ["--arch", "smollm-135m", "--engine", "zero3", "--batch", "8", "--seq", "512",
+            "--lr", "3e-3", "--log-every", "1"]
+
+    def run(argv, env=None):
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            return train.train(train.build_argparser().parse_args(argv), argv)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    ref = run(base + ["--steps", str(steps), "--ckpt-every", "0",
+                      "--ckpt-dir", os.path.join(root, "ref")])
+    ckpt_dir = os.path.join(root, "ckpt")
+    drill_argv = base + ["--steps", str(steps), "--ckpt-every", "2", "--ckpt-dir", ckpt_dir,
+                         "--resume", "auto"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    drill = run(drill_argv, {"REPRO_FAIL_AT_STEP": str(fail_at),
+                             "REPRO_FAIL_MARKER": os.path.join(root, "marker")})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    # the drill's losses: steps 0-2, then from the checkpoint at step 2 again
+    resumed = [m["loss"] for m in drill["metrics"][fail_at:]]
+    want = ref["losses"][2:]
+    diffs = [abs(a - b) for a, b in zip(resumed, want)]
+    mig_argv = base + ["--steps", str(steps + 1), "--ckpt-every", "0", "--ckpt-dir", ckpt_dir,
+                       "--resume", "auto", "--offload-param", "nvme", "--offload-grad",
+                       "nvme", "--offload-opt", "nvme", "--nvme-dir",
+                       os.path.join(root, "nvme")]
+    mig = run(mig_argv)
+    rec = {"argv": " ".join(drill_argv), "fail_at_step": fail_at, "wall_s": wall,
+           "restarts": drill["restarts"], "recovery_s": drill["recovery_s"],
+           "uninterrupted_losses": ref["losses"], "drill_losses": drill["losses"],
+           "resumed_max_abs_diff": max(diffs) if diffs else None,
+           "checkpoint": drill["checkpoint"],
+           "migration": {"argv": " ".join(mig_argv), "steps": [m["step"] for m in mig["metrics"]],
+                         "losses": mig["losses"], "restore_s": mig["checkpoint"]["restore_s"]},
+           "launches": launches}
+    say("resume drill:", json.dumps(rec))
+    ck = drill["checkpoint"]
+    say(f"checkpoint: {ck['bytes']} bytes, snapshot {ck['snapshot_s'] * 1e3:.1f} ms, "
+        f"persist {ck['persist_s']:.3f} s, restore {ck['restore_s']:.3f} s "
+        f"({ck['saves']} saves)")
+    if drill["restarts"] != 1:
+        raise SystemExit(f"FAIL resume drill: {drill['restarts']} restarts, want 1")
+    if len(resumed) != steps - 2 or resumed != want:
+        raise SystemExit(f"FAIL resume drill: resumed losses {resumed} != uninterrupted {want}")
+    if [m["step"] for m in mig["metrics"]] != [steps] or not math.isfinite(mig["losses"][0]):
+        raise SystemExit(f"FAIL resume drill: the layered epoch did not train step {steps} "
+                         f"from the checkpoint: {rec['migration']}")
+    return rec, launches
+
+
 def count_hgmma(name: str) -> int:
     """Warpgroup MMA instructions (HGMMA) in a built kernel library, read
     with the toolkit's cuobjdump; fails when there are none."""
@@ -1127,6 +1350,14 @@ def main() -> int:
     offload_rec, offload_launches = phase_plan_train(
         "plan offload", ["--hw-device-mem", OFFLOAD_DEVICE_MEM])
     plan_serve_rec, plan_serve_launches = phase_plan_serve()
+    zero3 = {p: phase_zero3_numerics(p) for p in ZERO3_PLACEMENTS}
+    z3_rec, z3_launches = phase_zero3_train(
+        "zero3 train", ["--offload-param", "device", "--offload-opt", "device"])
+    z3o_rec, z3o_launches = phase_zero3_train(
+        "zero3 offload", ["--offload-param", "device", "--offload-opt", "host"])
+    z3h_rec, z3h_launches = phase_zero3_train(
+        "zero3 host", ["--offload-param", "host", "--offload-opt", "host"])
+    drill_rec, drill_launches = phase_resume_drill()
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -1145,13 +1376,17 @@ def main() -> int:
     serve_launches = {"flash_attention": launches, "tiled_matmul": launches}
     # each kernel's main path: the q8 training run for the quantized kernel,
     # the bf16 training run for the others
+    # fused Adam's: the explicit in-graph step, where it updates the flat
     main_launches = {**train_launches, "quantized_matmul": q8_launches["quantized_matmul"],
-                     "quantized_matmul_dx": q8_launches["quantized_matmul_dx"]}
+                     "quantized_matmul_dx": q8_launches["quantized_matmul_dx"],
+                     "fused_adam": z3_launches["fused_adam"]}
     # every main path's launch counters, each zeroed just before its run
     paths = {"train": train_launches, "train_q8": q8_launches, "serve_host": launches,
              "serve_nvme": nvme_launches, "serve_nvme_q8": q8kv_launches,
              "plan_train": plan_launches, "plan_offload": offload_launches,
-             "plan_serve": plan_serve_launches}
+             "plan_serve": plan_serve_launches, "zero3_train": z3_launches,
+             "zero3_offload": z3o_launches, "zero3_host": z3h_launches,
+             "resume_drill": drill_launches}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -1191,7 +1426,12 @@ def main() -> int:
         f"{offload_rec['first_loss']:.4f} -> {offload_rec['last_loss']:.4f} at "
         f"{offload_rec['median_tokens_per_s_after_first']:.0f} tok/s; gspmd numerics "
         f"masters {max(r['masters_worst_diff_over_drift'] for r in gspmd.values()):.3f} "
-        f"of drift; plan serve {plan_serve_rec['kv_tier']}x{plan_serve_rec['kv_slots']})")
+        f"of drift; plan serve {plan_serve_rec['kv_tier']}x{plan_serve_rec['kv_slots']}; "
+        f"zero3 {z3_rec['median_tokens_per_s_after_first']:.0f} tok/s, offload "
+        f"{z3o_rec['median_tokens_per_s_after_first']:.0f} tok/s, host "
+        f"{z3h_rec['median_tokens_per_s_after_first']:.0f} tok/s; zero3 numerics masters "
+        f"{max(r['masters_worst_diff_over_drift'] for r in zero3.values()):.3f} of drift; "
+        f"resume drill restarts {drill_rec['restarts']})")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

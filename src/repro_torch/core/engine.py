@@ -13,16 +13,17 @@ Gradients are bf16, the params' dtype, as the reference's
 (``jax.value_and_grad`` over bf16 leaves); a leaf used twice (the tied
 embedding) sums its two cotangents in bf16, as autograd accumulates in the
 leaf's dtype. Only the accumulation over microbatches and the global norm
-run in f32. (The explicit engine's row gradients are f32: another
-engine's convention, ``core/zero.py``.)
+run in f32. (The explicit engine's layered epoch carries its row
+gradients in f32: its convention, ``core/zero.py``.)
 
 Host tier (``offload.param_tier="host"``, and ``opt_tier="host"`` while
 the optimizer is in-graph): on the card those tensors live in page-locked
-CPU memory. A step copies them to the device non-blocking on the current
-stream before use and copies the updated values back, non-blocking, into
-the same pinned tensors. Every copy rides that one stream, so a pinned
-tensor is never written while its read is in flight; a host reader waits
-for ``host_ready()`` first. On the CPU (``device="cpu"``) the host tier is
+CPU memory (``PinnedHostTier``, shared with the explicit engine). A step
+copies them to the device non-blocking on the current stream before use
+and copies the updated values back, non-blocking, into the same pinned
+tensors. Every copy rides that one stream, so a pinned tensor is never
+written while its read is in flight; a host reader waits for
+``host_ready()`` first. On the CPU (``device="cpu"``) the host tier is
 the device, as the reference's host tier is on a CPU backend.
 """
 from __future__ import annotations
@@ -44,6 +45,42 @@ def global_norm(tree) -> torch.Tensor:
                           for x in pt.tree_leaves(tree)))
 
 
+class PinnedHostTier:
+    """The host tier's copies on the card, shared by both engines: ``pin``
+    a tree (or one tensor) into page-locked CPU memory, ``to_device`` it
+    non-blocking on the current stream ahead of its use, ``write_back``
+    updated values non-blocking into the same pinned tensors, and
+    ``ready`` waits for the last write-back before a host reader. Every
+    copy rides the one stream, so a pinned tensor is never written while
+    its read is in flight."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._written: Optional[torch.cuda.Event] = None
+
+    @staticmethod
+    def pin(tree):
+        return pt.tree_map(lambda t: t.to("cpu").pin_memory(), tree)
+
+    def to_device(self, tree):
+        return pt.tree_map(lambda t: t.to(self.device, non_blocking=True), tree)
+
+    def write_back(self, host, dev):
+        """Copy ``dev``'s leaves into the pinned ``host`` tensors; returns
+        ``host``."""
+        for path in pt.tree_paths(host):
+            pt.tree_get(host, path).copy_(pt.tree_get(dev, path), non_blocking=True)
+        self._written = torch.cuda.Event()
+        self._written.record()
+        return host
+
+    def ready(self) -> None:
+        """Wait for the last write-back (a no-op where nothing was written
+        back)."""
+        if self._written is not None:
+            self._written.synchronize()
+
+
 class ZeroInfinityEngine:
     def __init__(self, run: RunConfig, device="cuda"):
         self.run = run
@@ -55,7 +92,7 @@ class ZeroInfinityEngine:
         self.param_host = run.offload.param_tier == "host" and pinned
         self.opt_host = (run.offload.opt_tier == "host" and pinned
                          and not run.opt_offgraph)
-        self._written: Optional[torch.cuda.Event] = None
+        self.host = PinnedHostTier(self.device)
 
     # ------------------------------------------------------------------
     # state
@@ -73,43 +110,33 @@ class ZeroInfinityEngine:
         the executor's store), params drawn as ``init_params`` does."""
         return self.adopt_params(self.init_params(generator))
 
-    def adopt_params(self, params: dict) -> dict:
+    def adopt_params(self, params: dict, step: int = 0) -> dict:
         """This engine's state around ``params`` (any device): Adam masters
-        the params' f32 copies, zero moments. Host-tier params, masters and
-        moments become pinned CPU copies on the card; the Adam step count
-        stays on the device."""
+        the params' f32 copies, zero moments, the Adam step count ``step``
+        (a checkpoint's, on a tier migration)."""
         params = pt.tree_map(lambda t: t.to(self.device), params)
         state = {"params": params}
         if not self.run.opt_offgraph:
             opt = adam.init_state(params)
-            if self.opt_host:
-                opt = adam.AdamState(opt.step, *(self._pin(t) for t in opt[1:]))
-            state["opt"] = opt
-        if self.param_host:
-            state["params"] = self._pin(params)
-        return state
+            state["opt"] = opt._replace(step=torch.full_like(opt.step, step))
+        return self.place_state(state)
 
-    @staticmethod
-    def _pin(tree) -> dict:
-        return pt.tree_map(lambda t: t.to("cpu").pin_memory(), tree)
-
-    def _to_device(self, tree) -> dict:
-        return pt.tree_map(lambda t: t.to(self.device, non_blocking=True), tree)
-
-    def _write_back(self, host: dict, dev: dict) -> dict:
-        """Copy ``dev``'s leaves into the pinned ``host`` tensors
-        (non-blocking, on the current stream); returns ``host``."""
-        for path in pt.tree_paths(host):
-            pt.tree_get(host, path).copy_(pt.tree_get(dev, path), non_blocking=True)
-        self._written = torch.cuda.Event()
-        self._written.record()
-        return host
+    def place_state(self, state: dict) -> dict:
+        """``state``'s leaves where this engine keeps them: host-tier
+        params, masters and moments in pinned CPU memory on the card,
+        everything else (the Adam step count too) on the device."""
+        out = {"params": (self.host.pin(state["params"]) if self.param_host
+                          else pt.tree_map(lambda t: t.to(self.device), state["params"]))}
+        if "opt" in state:
+            opt = state["opt"]
+            move = self.host.pin if self.opt_host else (
+                lambda tree: pt.tree_map(lambda t: t.to(self.device), tree))
+            out["opt"] = adam.AdamState(opt.step.to(self.device), *(move(t) for t in opt[1:]))
+        return out
 
     def host_ready(self) -> None:
-        """Wait for the last step's write-backs into the pinned host tier
-        (a no-op where nothing was written back)."""
-        if self._written is not None:
-            self._written.synchronize()
+        """Wait for the last step's write-backs into the pinned host tier."""
+        self.host.ready()
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         return self.bundle.input_specs(shape)
@@ -165,19 +192,19 @@ class ZeroInfinityEngine:
         def train_step(state, batch):
             params, opt = state["params"], state.get("opt")
             if param_host:  # pinned host -> the device, ahead of the forward
-                params = self._to_device(params)
+                params = self.host.to_device(params)
             if opt_host:  # pinned host -> the device for the update
-                opt = adam.AdamState(opt.step, *(self._to_device(t) for t in opt[1:]))
+                opt = adam.AdamState(opt.step, *(self.host.to_device(t) for t in opt[1:]))
             loss, grads = grads_of(params, batch)
             if grads_only:
                 return grads, {"loss": loss, "grad_norm": global_norm(grads)}
             new_params, new_opt = adam.apply_updates(grads, opt, tc, params_prev=params)
             if param_host:  # updated bf16 params back to their pinned tensors
-                new_params = self._write_back(state["params"], new_params)
+                new_params = self.host.write_back(state["params"], new_params)
             if opt_host:  # updated masters and moments back likewise
                 host = state["opt"]
                 new_opt = adam.AdamState(new_opt.step, *(
-                    self._write_back(h, d) for h, d in zip(host[1:], new_opt[1:])))
+                    self.host.write_back(h, d) for h, d in zip(host[1:], new_opt[1:])))
             metrics = {"loss": loss, "grad_norm": global_norm(grads),
                        "lr": adam.lr_at(tc, new_opt.step)}
             return {"params": new_params, "opt": new_opt}, metrics

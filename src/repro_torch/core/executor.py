@@ -5,18 +5,29 @@ tiers — the subset of ``repro/core/executor.py`` that one card runs.
 the executor drives the configured placement of each state class:
 
   * the GSPMD engine (``--engine pjit``, ``core/engine.py``) with params on
-    the device or host tier. With the optimizer in-graph (device or host
-    tier, gradients on the device) its step is the executor's step. With
-    the optimizer off-graph (``run.opt_offgraph``: optimizer states on
-    NVMe, or gradients drained to host or NVMe — the ZeRO-Offload
+    the device or host tier, and the explicit engine's monolithic step
+    (``--engine zero3`` with params on the device or host tier,
+    ``core/zero.py``). With the optimizer in-graph (device or host tier,
+    gradients on the device) the engine's step is the executor's step.
+    With the optimizer off-graph (``run.opt_offgraph``: optimizer states
+    on NVMe, or gradients drained to host or NVMe — the ZeRO-Offload
     placement) the engine computes the gradients alone; they drain to the
     grad store when it is a slow tier, and f32 master/m/v stream through
     the opt store with ``ChunkedAdamOffload``'s read(k+1) || update(k) ||
-    write(k-1) pipeline, keyed by the reference's leaf names
-    (``keystr``: ``['blocks']['attn']['wq']``), with the lr a host float
-    from the same ``lr_at`` arithmetic;
+    write(k-1) pipeline, keyed by the reference's names: the GSPMD
+    engine's leaves by ``keystr`` (``['blocks']['attn']['wq']``), the
+    explicit engine's (L, P) flat as the one rank's ``rank0/flat``; the lr
+    is a host float from the same ``lr_at`` arithmetic;
   * the explicit engine's layered ZeRO-3 epoch (``--engine zero3
     --offload-param nvme``, below).
+
+Checkpoint views (``checkpoint_state``, ``portable_state``,
+``adopt_state``) are the reference's: the full state with the layered
+epoch's rows materialized from the param store; the tier-independent
+leaves (``flat``/``other``/``other_opt``/``step``, or ``params``); and a
+full state for this executor's tiers around such leaves, where the
+streamed moments, the in-graph moments and the int8 residual restart at
+zero and the stores are reseeded.
 
 The layered epoch: parameters, gradients and optimizer states all live
 off the device: each layer's bf16 row in the param store
@@ -90,11 +101,6 @@ def check_ported(run: RunConfig, n_devices: int = 1) -> None:
             "--engine pjit with NVMe params (the GSPMD leaf scheduler) is not "
             "ported; pass --engine zero3 for the layered epoch (ROADMAP.md "
             "Queue 1 item 8)")
-    if run.parallel.engine == "zero3" and run.offload.param_tier != "nvme":
-        raise NotImplementedError(
-            "the zero3 engine's in-graph step (params on the device or host "
-            "tier) is not ported; pass --offload-param nvme for the layered "
-            "epoch, or --engine pjit (ROADMAP.md Queue 1 item 10)")
 
 
 def make_engine(run: RunConfig, device):
@@ -134,8 +140,23 @@ class InfinityExecutor:
         self.run = run
         self.device = torch.device(device)
         self.engine = engine if engine is not None else make_engine(run, self.device)
-        self.layered = isinstance(self.engine, ExplicitZero3Engine)
+        self.explicit = isinstance(self.engine, ExplicitZero3Engine)
         off = run.offload
+        # the layered epoch: the explicit engine with params on NVMe; with
+        # params on the device or host tier it takes the monolithic step
+        self.layered = self.explicit and off.param_tier == "nvme"
+        if self.layered and run.parallel.partition_mode != "allgather":
+            raise ValueError(
+                "param_tier='nvme' on the explicit engine requires "
+                "partition_mode='allgather' (the layer scheduler streams "
+                "per-rank rows); broadcast is the non-scaling contrast "
+                "baseline — keep params on the device/host tier for it")
+        if self.layered and run.parallel.grad_compression != "none":
+            raise ValueError(
+                "grad_compression='int8' applies to the monolithic step's "
+                "replicated-grad reduce; the layered epoch "
+                "(param_tier='nvme' + zero3) reduce-scatters rows through "
+                "the all-gather transpose and is not compressed")
         self.offgraph = run.opt_offgraph
         self.grad_offload = off.grad_tier != "device"
         # q8 rows go to the device as wire operands; q4 rows decode on the host
@@ -177,11 +198,13 @@ class InfinityExecutor:
     # state
     # ------------------------------------------------------------------
 
-    def init_state(self, generator: torch.Generator) -> dict:
+    def init_state(self, generator: torch.Generator, *, seed_stores: bool = True) -> dict:
         """Engine init + store seeding; on the layered epoch the returned
         state's ``flat`` is a placeholder (the param store is
-        authoritative)."""
-        return self.reseed(self.engine.init_state(generator))
+        authoritative). ``seed_stores=False`` skips the seeding where a
+        checkpoint restore (which reseeds) follows."""
+        state = self.engine.init_state(generator)
+        return self.reseed(state) if seed_stores else state
 
     def _make_store(self, tier: str, name: str) -> ArrayStore:
         off = self.run.offload
@@ -210,7 +233,11 @@ class InfinityExecutor:
                 if self.opt_store is None:
                     self.opt_store = self._make_store(off.opt_tier, "opt")
                 self.offload = ChunkedAdamOffload(self.opt_store)
-                self.offload.init_from_params(flatten_with_paths(state["params"]))
+                # the explicit engine's one rank's (L, P) flat, f32 (bf16 ->
+                # f32 is exact), or the GSPMD engine's leaves
+                self.offload.init_from_params(
+                    {"rank0/flat": state["flat"].float()} if self.explicit
+                    else flatten_with_paths(state["params"]))
                 self.offload.step_count = step
             if self.grad_offload and self.grad_store is None:
                 self.grad_store = self._make_store(off.grad_tier, "grad")
@@ -251,13 +278,52 @@ class InfinityExecutor:
     def wait_host(self) -> None:
         """Wait until the pinned host tier holds the last step's values
         (before the host reads a host-tier state)."""
-        if not self.layered:
-            self.engine.host_ready()
+        self.engine.host_ready()
 
     def materialize_flat(self) -> torch.Tensor:
         """The (L, P) bf16 rows assembled from the param store, on the CPU —
         for checks and checkpoints; the step never calls it."""
         return self.param_stream.load_all()["rank0"]
+
+    # ------------------------------------------------------------------
+    # tier-independent checkpoint views
+    # ------------------------------------------------------------------
+
+    def checkpoint_state(self, state: dict) -> dict:
+        """``state`` with the layered epoch's placeholder rows materialized
+        from the param store: what the full-state checkpoint persists. Waits
+        for the pinned host tier's write-backs first, so a snapshot reads
+        the last step's values."""
+        self.wait_host()
+        if self.layered and isinstance(state["flat"], TensorSpec):
+            state = dict(state)
+            state["flat"] = self.materialize_flat()
+        return state
+
+    def portable_state(self, state: dict) -> dict:
+        """The leaves whose presence and layout do not depend on the tiers,
+        so a checkpoint of them restores into an executor at any tier."""
+        state = self.checkpoint_state(state)
+        if self.explicit:
+            return {k: state[k] for k in ("flat", "other", "other_opt", "step")}
+        return {"params": state["params"]}
+
+    def adopt_state(self, portable: dict, *, step: int = 0) -> dict:
+        """Portable leaves -> a full state for this executor's tiers: the
+        moments (in-graph or streamed) and the int8 residual restart at
+        zero, in-graph masters are the params' f32 copies, the stores are
+        reseeded."""
+        if self.explicit:
+            state = self.engine.place_state(self.engine.complete_state(portable))
+        else:
+            state = self.engine.adopt_params(portable["params"], step=step)
+        return self.reseed(state, step=step)
+
+    def restore_state(self, restored: dict, *, step: int) -> dict:
+        """A full checkpoint restored on the CPU -> this executor's state:
+        each leaf placed on its tier, the stores reseeded (their moments
+        restart at zero)."""
+        return self.reseed(self.engine.place_state(restored), step=step)
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         return self.engine.input_specs(shape)
@@ -276,8 +342,10 @@ class InfinityExecutor:
             elif not self.offgraph:
                 self._step_fn = self.engine.make_train_step()  # fully in-graph
             else:
-                self._step_fn = self._instrumented(self._gspmd_offgraph_step(
-                    self.engine.make_train_step(grads_only=True)))
+                grads_step = self.engine.make_train_step(grads_only=True)
+                self._step_fn = self._instrumented(
+                    self._explicit_offgraph_step(grads_step) if self.explicit
+                    else self._gspmd_offgraph_step(grads_step))
         return self._step_fn
 
     # ------------------------------------------------------------------
@@ -295,6 +363,33 @@ class InfinityExecutor:
             if self.grad_store is not None:
                 self.grad_store.flush()  # retire this step's drain futures
             return new_state, self._with_tier_metrics(metrics, marks)
+
+        return step
+
+    def _explicit_offgraph_step(self, grads_step):
+        """The explicit engine's grads-only step, then the streamed Adam
+        over the one rank's (L, P) flat (``rank0/flat``): its gradient
+        drained to the grad tier when that is slow, the updated bf16 rows
+        placed like the old ``flat`` (written into the pinned tensor on the
+        host tier, once the update has consumed the gradient and so the
+        step's reads of the rows are done)."""
+        tc = self.run.train
+        param_host = self.engine.param_host
+
+        def step(state, batch):
+            new_state, g32, metrics = grads_step(state, batch)
+            gflat = {"rank0/flat": g32}
+            if self.grad_offload:
+                gflat = self._drain_grads(gflat)
+            lr = float(metrics["lr"])
+            new_master = self.offload.step(gflat, lr=lr, beta1=tc.beta1,
+                                           beta2=tc.beta2, eps=tc.eps,
+                                           weight_decay=tc.weight_decay)
+            rows = new_master["rank0/flat"].to(torch.bfloat16)
+            old = state["flat"]
+            new_state = dict(new_state)
+            new_state["flat"] = old.copy_(rows) if param_host else rows.to(old.device)
+            return new_state, metrics
 
         return step
 

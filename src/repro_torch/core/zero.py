@@ -1,39 +1,72 @@
-"""Explicit ZeRO-3 engine, dense family, one device — the layered-epoch
-subset of ``repro/core/zero.py``.
+"""Explicit ZeRO-3 engine, dense family, one device (``repro/core/zero.py``).
 
 Each layer's parameters flatten into one row (``core/partition.py``
-``FlatLayout``, the reference's byte order). With one data-parallel rank
-the row's all-gather and its reduce-scatter transpose are the identity, so
-a row is used as it is read. ``make_layer_fns`` exposes the training step
-as the pieces the executor's scheduler drives over rows streamed through
-the prefetch window (``core/executor.py``): ``embed_fwd``, ``layer_fwd``,
-``layer_vjp`` (the layer's forward recomputed under autograd: the paper's
-"parameters loaded one additional time"), ``head``, ``accum_sumsq``,
-``embed_vjp`` and ``finish`` (Adam on the small device-resident states).
+``FlatLayout``, the reference's byte order), the (L, P) bf16 ``flat``. With
+one data-parallel rank a row's all-gather and its reduce-scatter transpose
+are the identity, so a row is used as it is read. Two ways to step:
 
-Under q8 transport (``offload.param_quant="q8"``) a row reaches
+  * **the monolithic step** (``make_train_step``; params on the device or
+    host tier): one autograd pass over the whole (L, P) flat, the
+    reference's ``sharded_step`` at dp = 1. ``partition_mode="broadcast"``
+    is accepted: at dp = 1 the owner of every layer is rank 0 and the
+    masked psum that stands for the broadcast is the identity, as in the
+    reference. ``parallel.prefetch`` only reorders the gathers in the
+    reference (gather(i+1) issued before compute(i)), so it changes no
+    number and the port gathers in order whatever its value. In-graph
+    tiers update the flat with the fused-Adam kernel over the f32
+    ``master``/``m``/``v`` (L, P), the reference's in-graph update
+    (``repro/core/zero.py:499-506``), and take its bf16 copy as the new
+    ``flat``; off-graph tiers (``run.opt_offgraph``) return the f32 flat
+    gradient for the executor's streamed Adam and advance only ``step``
+    and the small 'other' states. ``grad_compression="int8"`` passes the
+    'other' gradients through ``optim/compression.psum_compressed`` with a
+    per-rank f32 residual ``g_err`` (a leading dp = 1 dim), as the
+    reference does.
+  * **the layered epoch** (``make_layer_fns``; params on NVMe): the step
+    as the pieces the executor's scheduler drives over rows streamed
+    through the prefetch window (``core/executor.py``): ``embed_fwd``,
+    ``layer_fwd``, ``layer_vjp`` (the layer's forward recomputed under
+    autograd: the paper's "parameters loaded one additional time"),
+    ``head``, ``accum_sumsq``, ``embed_vjp`` and ``finish`` (Adam on the
+    small device-resident states).
+
+Gradient dtypes follow the reference: the monolithic step differentiates
+with respect to the bf16 ``flat``, so its row gradients are bf16 (summed in
+bf16 where a leaf's pieces meet) and only then upcast to f32; the layered
+epoch's ``layer_vjp`` carries each row's bf16 cotangent in f32 to the grad
+tier.
+
+Host tier (``param_tier="host"``, and ``opt_tier="host"`` while the
+optimizer is in-graph): on the card ``flat`` and ``master``/``m``/``v``
+live in page-locked CPU memory and cross to the device around the step on
+the current stream (``core/engine.PinnedHostTier``); on the CPU the host
+tier is the device, as the reference's host tier is on a CPU backend.
+
+Under q8 transport (``offload.param_quant="q8"``) a layered row reaches
 ``layer_fwd`` and ``layer_vjp`` as its wire operands ``(q, s)``: the MLP
 weights in ``quantized_leaves`` (a static plan per layout) go into the
 quantized-matmul kernel as they are, every other leaf is dequantized on
 the device.
 
-Not ported: dp > 1 (ROADMAP Queue 1 item 8), the MoE rows (item 6), int8
-gradient compression (items 8 and 10: the reference has it only in the
-cross-rank reduce and the monolithic step), and the monolithic in-graph
-step (``make_train_step``) with its device/host tiers (item 10).
+Not ported: dp > 1 (ROADMAP Queue 1 item 8), the MoE rows (item 6),
+``remat="dots"`` (item 12).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import RunConfig, ShapeConfig
 from repro_torch.core import partition as pt
+from repro_torch.core.engine import PinnedHostTier
+from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam as adam_mod
+from repro_torch.optim import compression
 from repro_torch.runtime import trace
 
 
@@ -46,10 +79,12 @@ def _trace_wrap_fns(fns: dict) -> dict:
 
 
 class ExplicitZero3Engine:
-    """Layered-epoch ZeRO-3 on one device. The optimizer states of the rows
-    never live here (``opt_offgraph``): the executor streams them through
-    ``ChunkedAdamOffload``; the small 'other' states (embedding, final
-    norm) stay on the device with their Adam state."""
+    """ZeRO-3 with explicit rows on one device, at every tier placement
+    the reference's explicit engine takes there. In-graph tiers keep the
+    f32 ``master``/``m``/``v`` (L, P) in the state; off-graph tiers
+    (``opt_offgraph``) keep them in the executor's stores. The small
+    'other' states (embedding, final norm) stay on the device with their
+    Adam state."""
 
     def __init__(self, run: RunConfig, device="cuda"):
         cfg = run.model
@@ -57,24 +92,17 @@ class ExplicitZero3Engine:
             raise NotImplementedError(
                 f"explicit engine: family {cfg.family!r} is not ported "
                 "(ROADMAP.md Queue 1 item 6: MoE rows)")
-        if run.parallel.partition_mode != "allgather":
-            raise ValueError(
-                "the layered epoch needs the bandwidth-centric (allgather) "
-                "row layout; the broadcast baseline stores whole layers per "
-                "owner rank")
-        if run.parallel.grad_compression != "none":
-            raise NotImplementedError(
-                "grad_compression='int8' is not ported: the reference runs it "
-                "only in the cross-rank reduce and the monolithic step "
-                "(ROADMAP.md Queue 1 items 8 and 10)")
-        if not run.opt_offgraph:
-            raise NotImplementedError(
-                "the explicit engine's in-graph step (device/host optimizer "
-                "tiers without NVMe params) is not ported (ROADMAP.md Queue "
-                "1 item 10)")
         self.run = run
         self.device = torch.device(device)
         self.dp = 1  # one device: the row's gather and reduce are the identity
+        self.offgraph = run.opt_offgraph
+        self.layered = run.offload.param_tier == "nvme"
+        # the host tier is page-locked CPU memory on the card, the device
+        # itself on the CPU
+        pinned = self.device.type == "cuda"
+        self.param_host = run.offload.param_tier == "host" and pinned
+        self.opt_host = run.offload.opt_tier == "host" and pinned and not self.offgraph
+        self.host = PinnedHostTier(self.device)
         self.block_fn = transformer.make_block_fn(cfg, run.parallel)
         self.defs = transformer.param_defs(cfg)
         self.n_layers = cfg.n_layers
@@ -94,17 +122,76 @@ class ExplicitZero3Engine:
     # state and data interface
     # ------------------------------------------------------------------
 
+    @property
+    def grad_compress(self) -> bool:
+        """int8 + error feedback on the 'other' gradients' reduce
+        (``optim/compression.py``), its residual carried as ``g_err``."""
+        return self.run.parallel.grad_compression == "int8"
+
+    def g_err_zeros(self) -> dict:
+        """Fresh error-feedback residuals: one f32 zero copy of each
+        'other' leaf per rank, stacked on a leading dp dim (each rank's
+        residual is its own quantization error, never reduced)."""
+        return pt.tree_map(
+            lambda d: torch.zeros((self.dp,) + tuple(d.shape), dtype=torch.float32,
+                                  device=self.device),
+            self._other_defs())
+
     def init_state(self, generator: torch.Generator) -> dict:
-        """``{"flat": (L, P) bf16 rows, "other", "other_opt", "step"}`` on
-        the engine's device, drawn from ``generator`` (on that device)."""
+        """``{"flat": (L, P) bf16 rows, "other", "other_opt", "step"}``,
+        plus ``g_err`` under int8 compression and the f32 ``master`` (the
+        flat's copy) and zero ``m``/``v`` while the optimizer is in-graph;
+        drawn from ``generator`` (on the engine's device) and placed by
+        ``place_state``."""
         params = pt.init_tree(self.defs, generator, self.device)
         other = {"embed": params["embed"], "ln_f": params["ln_f"]}
-        return {
+        state = {
             "flat": pt.flatten_blocks(params["blocks"], self.layout, torch.bfloat16),
             "other": other,
             "other_opt": adam_mod.init_state(other),
             "step": torch.zeros((), dtype=torch.int32, device=self.device),
         }
+        return self.place_state(self.complete_state(state))
+
+    def complete_state(self, state: dict) -> dict:
+        """The tier-independent leaves (``flat``, ``other``, ``other_opt``,
+        ``step``) plus what this placement adds around them: a zero
+        ``g_err`` under int8 compression; in-graph, the flat's f32 copy as
+        ``master`` and zero moments. (A checkpoint carries neither the
+        rank-local residual nor, on a migration, the moments.)"""
+        state = {k: state[k] for k in ("flat", "other", "other_opt", "step")}
+        if self.grad_compress:
+            state["g_err"] = self.g_err_zeros()
+        if not self.offgraph:
+            flat32 = state["flat"].to(self.device).float()
+            state.update(master=flat32, m=torch.zeros_like(flat32),
+                         v=torch.zeros_like(flat32))
+        return state
+
+    def place_state(self, state: dict) -> dict:
+        """``state``'s leaves where this engine keeps them: the host-tier
+        ``flat`` and ``master``/``m``/``v`` in pinned CPU memory on the
+        card; the layered epoch's ``flat`` on the CPU (the executor seeds
+        the param store from it); everything else on the device."""
+        dev = lambda tree: pt.tree_map(lambda t: t.to(self.device), tree)
+        out = {}
+        for key, val in state.items():
+            if isinstance(val, TensorSpec):
+                out[key] = val
+            elif key == "other_opt":
+                out[key] = adam_mod.AdamState(*(dev(t) for t in val))
+            elif key == "flat" and self.layered:
+                out[key] = val.to("cpu")
+            elif (key == "flat" and self.param_host) or (
+                    key in ("master", "m", "v") and self.opt_host):
+                out[key] = self.host.pin(val)
+            else:
+                out[key] = dev(val)
+        return out
+
+    def host_ready(self) -> None:
+        """Wait for the last step's write-backs into the pinned host tier."""
+        self.host.ready()
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         B, S = shape.global_batch, shape.seq_len
@@ -121,6 +208,123 @@ class ExplicitZero3Engine:
         return self.device
 
     # ------------------------------------------------------------------
+    # the monolithic step (params on the device or host tier)
+    # ------------------------------------------------------------------
+
+    def make_train_step(self, *, grads_only: bool = None):
+        """``step(state, batch)``, the reference's ``sharded_step`` at one
+        rank. ``grads_only=None`` resolves from the tiers
+        (``opt_offgraph``). In-graph -> ``(new_state, {loss, grad_norm,
+        lr})`` with the flat updated through the fused-Adam kernel (its
+        master/m/v in place); with ``grads_only`` -> ``(new_state, g32,
+        metrics)``, ``g32`` the (L, P) f32 flat gradient, ``new_state``
+        the old ``flat`` with ``step`` and 'other' advanced. Metrics are
+        0-d device tensors; ``lr`` is the new step's (``adam.lr_at``)."""
+        if grads_only is None:
+            grads_only = self.offgraph
+        pc, tc, cfg = self.run.parallel, self.run.train, self.run.model
+        if pc.remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save only the matmul outputs) is not ported; use "
+                "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
+        L, dp, layout, block_fn = self.n_layers, self.dp, self.layout, self.block_fn
+        remat = pc.remat == "full"
+        compress = self.grad_compress
+        param_host = self.param_host
+        opt_host = self.opt_host and not grads_only
+        host = self.host
+
+        def gather_layer(rows, i):
+            # allgather: the one rank's (P,) slice is the whole row;
+            # broadcast: rank 0 owns every layer and the masked psum that
+            # stands for the broadcast returns its row as it is
+            return rows[i]
+
+        def body_core(x, row, positions):
+            return block_fn(x, pt.unflatten_row(row, layout, torch.bfloat16), positions)
+
+        def local_loss(flat, other, batch):
+            x = cm.embed(other["embed"], batch["tokens"], cfg)
+            B, S, _ = x.shape
+            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            # one unbind: the flat's gradient is one stack of the rows'
+            # (indexing a row would add a full-size zero gradient per layer)
+            rows = flat.unbind(0)
+            for i in range(L):
+                row = gather_layer(rows, i)
+                if remat:
+                    x = checkpoint(body_core, x, row, positions, use_reentrant=False)
+                else:
+                    x = body_core(x, row, positions)
+            x = cm.norm(x, other["ln_f"], cfg.norm_kind)
+            lg = cm.logits(other["embed"], x, cfg)
+            return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
+
+        def value_and_grad(flat, other, batch):
+            with torch.enable_grad():
+                flat_ = flat.detach().requires_grad_()
+                o = pt.tree_map(lambda t: t.detach().requires_grad_(), other)
+                paths = pt.tree_paths(o)
+                # scaled by 1/dp before the cross-rank sum (identity at dp=1)
+                loss_s = local_loss(flat_, o, batch) / dp
+                grads = torch.autograd.grad(loss_s, [flat_] + pt.tree_leaves(o))
+            g_other: dict = {}
+            for path, g in zip(paths, grads[1:]):
+                pt.tree_set(g_other, path, g)
+            return loss_s.detach(), grads[0], g_other
+
+        def reduce_other(g_other, g_err):
+            """The 'other' gradients' cross-rank sum: the identity at dp=1,
+            or the int8 wire format with error feedback (the mean, scaled
+            back by dp), each leaf's residual in its rank's slice."""
+            if not compress:
+                return g_other, None
+            red: dict = {}
+            errs: dict = {}
+            for path in pt.tree_paths(g_other):
+                g = pt.tree_get(g_other, path)
+                r, ne = compression.psum_compressed(g, pt.tree_get(g_err, path)[0])
+                pt.tree_set(red, path, (r.float() * dp).to(g.dtype))
+                pt.tree_set(errs, path, ne.float()[None])
+            return red, errs
+
+        def step(state, batch):
+            flat, other = state["flat"], state["other"]
+            if param_host:  # pinned host -> the device, ahead of the forward
+                flat = host.to_device(flat)
+            loss, g_flat, g_other = value_and_grad(flat, other, batch)
+            g_other, new_g_err = reduce_other(g_other, state.get("g_err"))
+            new_step = state["step"] + 1
+            lr = adam_mod.lr_at(tc, new_step)
+            g32 = g_flat.float()  # the bf16 cotangent, upcast as the reference's
+            gnorm = torch.sqrt(torch.sum(g32 ** 2) + sum(
+                torch.sum(g.float() ** 2) for g in pt.tree_leaves(g_other)))
+            metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+            new_other, new_other_opt = adam_mod.apply_updates(
+                g_other, state["other_opt"], tc, params_prev=other)
+            new_state = {"flat": state["flat"], "other": new_other,
+                         "other_opt": new_other_opt, "step": new_step}
+            if new_g_err is not None:
+                new_state["g_err"] = new_g_err
+            if grads_only:  # the executor's streamed Adam updates the flat
+                return new_state, g32, metrics
+            # the flat's AdamW on its f32 master and moments, in place
+            keys = ("master", "m", "v")
+            master, m, v = (host.to_device(state[k]) if opt_host else state[k]
+                            for k in keys)  # pinned host -> the device
+            new_flat = ops.fused_adam(master, g32, m, v,
+                                      adam_mod.update_scalars(tc, new_step))
+            if opt_host:  # updated masters and moments back to their pinned tensors
+                master, m, v = (host.write_back(state[k], t)
+                                for k, t in zip(keys, (master, m, v)))
+            if param_host:  # the updated bf16 rows back likewise
+                new_flat = host.write_back(state["flat"], new_flat)
+            new_state.update(flat=new_flat, master=master, m=m, v=v)
+            return new_state, metrics
+
+        return step
+
+    # ------------------------------------------------------------------
     # per-layer pieces for the scheduler-driven layered epoch
     # ------------------------------------------------------------------
 
@@ -128,6 +332,16 @@ class ExplicitZero3Engine:
         """The layered step's pieces (``repro/core/zero.py:599``). Forward
         pieces run without autograd; ``layer_vjp`` and ``head`` record only
         their own graph and return gradients (``torch.autograd.grad``)."""
+        if self.run.parallel.partition_mode != "allgather":
+            raise ValueError(
+                "layered epochs need the bandwidth-centric (allgather) row "
+                "layout; the broadcast baseline stores whole layers per owner")
+        if self.grad_compress:
+            raise ValueError(
+                "grad_compression='int8' wires into the monolithic step's "
+                "replicated-grad reduce; the layered epoch's per-row reduce-"
+                "scatter is implicit in the all-gather transpose and is not "
+                "compressed - run it with grad_compression='none'")
         cfg, tc, dp = self.run.model, self.run.train, self.dp
         block_fn, layout, plan = self.block_fn, self.layout, self.quantized_leaves
 

@@ -1,9 +1,10 @@
 """Where the training time goes: steps of the port on the card under
 ``torch.profiler`` and the span tracer.
 
-It takes ``launch/train.py``'s flags (the placement, ``--plan auto`` with
-``--hw-*`` and ``--objective``, ``--param-quant``, shapes), with defaults
-of its own: the layered ZeRO-3 step with parameters, gradients and
+It takes ``launch/train.py``'s flags and checks (the placement — the
+explicit engine's monolithic step too, with ``--offload-param device`` or
+``host`` — ``--plan auto`` with ``--hw-*`` and ``--objective``,
+``--param-quant``, shapes), with defaults of its own: the layered ZeRO-3 step with parameters, gradients and
 optimizer states on NVMe, 8 x 512 tokens. Runs ``--warmup`` unprofiled
 steps (kernel builds, first launches, pinned buffers), ``--steps``
 unprofiled steps for the wall time, then one profiled step, and prints:
@@ -58,7 +59,6 @@ def main(argv=None) -> None:
     shutil.rmtree(args.nvme_dir, ignore_errors=True)
     train._unported(args)
     run, plan = train.make_run(args, argv)
-    train._unported_run(run)
     ex = InfinityExecutor(run, dev, plan=plan)
     try:
         state = ex.init_state(torch.Generator(device=dev).manual_seed(args.seed))

@@ -1,5 +1,6 @@
 """Training entry point: synthetic data -> InfinityExecutor -> per-step
-metrics, the port of ``repro/launch/train.py`` for one device:
+metrics and checkpoints, with fault injection, restart and straggler
+detection — the port of ``repro/launch/train.py`` for one device:
 
   * ``--plan auto``: the planner (``repro_torch/plan.py``) derives the
     placement from the detected card (``--hw-*`` override what detection
@@ -9,30 +10,46 @@ metrics, the port of ``repro/launch/train.py`` for one device:
     cross-check fields (``plan_*``) land in the step metrics. ``--plan
     <file.json>`` loads a saved plan.
   * ``--plan manual`` (default): the flags as given. ``--engine pjit``
-    (default) runs the GSPMD engine's step with params on the device or
-    host tier: in-graph fused Adam with the optimizer on the device or host
-    tier, or off-graph (``ChunkedAdamOffload``) with the optimizer on NVMe
-    or the gradients drained to host or NVMe (the ZeRO-Offload placement);
-    ``--grad-accum`` and the plan's ``remat`` are honoured. ``--engine
-    zero3 --offload-param nvme`` runs the layered epoch with every state
-    class on the slow tiers; ``--param-quant q8`` ships its rows as q8 wire
-    bytes into the quantized-matmul kernel, ``q4`` rows decode on the host.
+    (default) runs the GSPMD engine's step and ``--engine zero3`` the
+    explicit engine's monolithic step, each with params on the device or
+    host tier: in-graph fused Adam with the optimizer on the device or
+    host tier, or off-graph (``ChunkedAdamOffload``) with the optimizer on
+    NVMe or the gradients drained to host or NVMe (the ZeRO-Offload
+    placement); ``--grad-accum`` and ``--remat`` are honoured by the GSPMD
+    engine, ``--remat`` and ``--grad-compress int8`` by the explicit one.
+    ``--engine zero3 --offload-param nvme`` runs the layered epoch with
+    every state class on the slow tiers; ``--param-quant q8`` ships its
+    rows as q8 wire bytes into the quantized-matmul kernel, ``q4`` rows
+    decode on the host.
+  * checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``
+    (``checkpoint/manager.py``, the reference's format), with the data
+    cursor as ``{"next_step"}``; ``REPRO_FAIL_AT_STEP`` (and
+    ``REPRO_FAIL_MARKER``) inject a failure, ``retry_loop`` restarts the
+    run up to ``--max-restarts`` times within ``--recovery-budget``
+    seconds, and ``--resume auto`` resumes from the newest intact
+    checkpoint: the full state, or on a tier change the tier-independent
+    leaves (``portable_state``/``adopt_state``); ``--straggler-factor``
+    flags slow steps.
 
 Runs on the card by default and raises when CUDA is absent; ``--device
-cpu`` runs the kernels' plain versions (the tests do). Every flag whose
-machinery is not ported raises, naming the ROADMAP item that ports it:
-``--engine pjit`` with NVMe params, ``--engine zero3`` with params off
-NVMe, more than one device (meshes, ``--hw-devices`` > 1), ``--remat
-dots``, ``--grad-accum`` > 1 on the layered epoch, ``--elastic``/
-``--chaos``, the fault runtime's flags, ``--grad-compress``, ``--resume
-auto`` and checkpoints (``--ckpt-every`` > 0, ``--ckpt-dir``).
+cpu`` runs the kernels' plain versions (the tests do). What is not ported
+raises, naming the ROADMAP item that ports it: ``--engine pjit`` with NVMe
+params, more than one device (meshes, ``--hw-devices`` > 1), ``--remat
+dots``, ``--elastic``/``--chaos``, and on the layered epoch
+``--grad-compress int8`` and ``partition_mode="broadcast"`` (the
+reference's ``ValueError``s). The explicit engine reads neither
+``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
 
 Examples (one H100, full smollm-135m):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --plan auto --batch 8 --seq 512 --steps 4 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --engine zero3 --offload-opt host --batch 8 --seq 512 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --engine zero3 --offload-param nvme --offload-grad nvme \\
       --offload-opt nvme --batch 8 --seq 512 --steps 8 --lr 3e-3
+  REPRO_FAIL_AT_STEP=3 REPRO_FAIL_MARKER=/tmp/m PYTHONPATH=src \\
+      python -m repro_torch.launch.train ... --ckpt-every 2 --resume auto
 """
 from __future__ import annotations
 
@@ -46,22 +63,16 @@ import torch
 
 from repro_torch import configs
 from repro_torch import plan as plan_mod
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,
                                 make_offload, make_parallel)
 from repro_torch.core.executor import InfinityExecutor
 from repro_torch.data.pipeline import PrefetchLoader, SyntheticStream
 from repro_torch.launch.serve import resolve_device
 from repro_torch.runtime import trace
-from repro_torch.runtime.metrics import MetricsLogger
-
-# flags whose machinery is not ported: any value given raises
-UNPORTED = {
-    "chaos": "ROADMAP.md Queue 1 item 5: elastic runtime",
-    "straggler_factor": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
-    "max_restarts": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
-    "recovery_budget": "ROADMAP.md Queue 1 item 5: runtime/fault.py",
-    "ckpt_dir": "ROADMAP.md Queue 1 item 5: checkpoint/manager.py",
-}
+from repro_torch.runtime.elastic import wire_straggler
+from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, retry_loop
+from repro_torch.runtime.metrics import MetricsLogger, elastic_step_metrics
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -79,14 +90,18 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
                     help="pjit = the GSPMD engine's step (params on the device "
-                         "or host tier); zero3 = the explicit engine's layered "
-                         "epoch (params on NVMe)")
-    ap.add_argument("--zero-stage", type=int, default=3)
+                         "or host tier); zero3 = the explicit engine's "
+                         "monolithic step (params on the device or host tier) "
+                         "or layered epoch (params on NVMe)")
+    ap.add_argument("--zero-stage", type=int, default=3,
+                    help="the GSPMD engine's partition rules (the explicit "
+                         "engine is ZeRO-3 whatever its value)")
     ap.add_argument("--grad-accum", type=int, default=1,
-                    help="microbatches per step (the GSPMD engine)")
+                    help="microbatches per step (the GSPMD engine; the "
+                         "explicit engine takes one)")
     ap.add_argument("--remat", default="full", choices=["full", "dots", "none"],
-                    help="activation checkpoint policy of the GSPMD engine's "
-                         "loss (dots is not ported: raises)")
+                    help="activation checkpoint policy of the loss (dots is "
+                         "not ported: raises)")
     for cls, what in (("opt", "optimizer-state (fp32 master/m/v)"),
                       ("param", "bf16 compute-parameter"),
                       ("grad", "gradient drain")):
@@ -103,7 +118,9 @@ def build_argparser() -> argparse.ArgumentParser:
                          "(core/qformat.py): q8 rows feed the quantized-matmul "
                          "kernel as they are, q4 rows decode on the host")
     ap.add_argument("--grad-compress", default="none", choices=["none", "int8"],
-                    help="int8 gradient reduce (not ported: raises)")
+                    help="int8 + error-feedback wire format on the zero3 "
+                         "monolithic step's replicated-grad reduce "
+                         "(optim/compression.py)")
     ap.add_argument("--read-ahead", type=int, default=2,
                     help="slow-tier param reads in flight beyond the window")
     ap.add_argument("--nvme-workers", type=int, default=2,
@@ -112,14 +129,21 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="shared pinned buffer-pool budget (all stores)")
     plan_mod.add_plan_args(ap)
     ap.add_argument("--elastic", action="store_true", help="not ported: raises")
-    ap.add_argument("--chaos", default=None)
-    ap.add_argument("--straggler-factor", type=float, default=None)
-    ap.add_argument("--max-restarts", type=int, default=None)
-    ap.add_argument("--recovery-budget", type=float, default=None)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="checkpoints are not ported: > 0 raises")
-    ap.add_argument("--resume", default="no", choices=["no", "auto"])
+    ap.add_argument("--chaos", default=None, help="not ported: raises")
+    ap.add_argument("--straggler-factor", type=float, default=3.0,
+                    help="flag a step as a straggler when its wall time "
+                         "exceeds this multiple of the running median")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="restart budget for crash recovery")
+    ap.add_argument("--recovery-budget", type=float, default=60.0,
+                    help="max cumulative recovery wall-clock seconds before "
+                         "giving up")
+    ap.add_argument("--ckpt-dir",
+                    default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="steps between checkpoints (0: none)")
+    ap.add_argument("--resume", default="no", choices=["no", "auto"],
+                    help="auto: resume from the newest intact checkpoint")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
@@ -132,41 +156,15 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _unported(args) -> None:
     """Raise for every flag set to something the port cannot run."""
-    for name, item in UNPORTED.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet ({item})")
     checks = [
         (args.elastic, "--elastic", "ROADMAP.md Queue 1 item 5: elastic runtime"),
-        (args.resume != "no", f"--resume {args.resume}",
-         "ROADMAP.md Queue 1 item 5: checkpoint/manager.py"),
-        (args.ckpt_every > 0, f"--ckpt-every {args.ckpt_every}",
-         "ROADMAP.md Queue 1 item 5: checkpoint/manager.py"),
+        (args.chaos is not None, "--chaos", "ROADMAP.md Queue 1 item 5: elastic runtime"),
         (args.data_mesh * args.model_mesh != 1, "a mesh larger than one device",
          "ROADMAP.md Queue 1 item 8: GSPMD engine and meshes"),
-        (args.grad_compress != "none", f"--grad-compress {args.grad_compress}",
-         "ROADMAP.md Queue 1 items 8 and 10: the reference compresses "
-         "gradients only in the cross-rank reduce and the monolithic step"),
     ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-
-def _unported_run(run: RunConfig) -> None:
-    """Raise for what the resolved run (the flags, or the plan with its
-    overrides) asks of the layered epoch and it cannot do."""
-    pc = run.parallel
-    if pc.engine != "zero3":
-        return
-    if pc.zero_stage != 3:
-        raise NotImplementedError(
-            f"--zero-stage {pc.zero_stage} is not ported yet (ROADMAP.md Queue "
-            "1 item 10: the explicit engine is ZeRO-3)")
-    if pc.grad_accum != 1:
-        raise NotImplementedError(
-            f"--grad-accum {pc.grad_accum} on the layered epoch is not ported "
-            "yet (ROADMAP.md Queue 1 item 10: one microbatch per layered step)")
 
 
 def make_run(args, argv=None):
@@ -175,16 +173,19 @@ def make_run(args, argv=None):
     flags given in ``argv`` (default ``sys.argv[1:]``) act only as explicit
     per-field overrides; ``--plan manual`` keeps the flags as given."""
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    tc = TrainConfig(lr=args.lr, steps=args.steps,
+    tc = TrainConfig(lr=args.lr, steps=args.steps, checkpoint_dir=args.ckpt_dir,
                      checkpoint_every=args.ckpt_every, seed=args.seed)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     plan = plan_mod.resolve_plan(args, cfg, shape, nvme_dir=args.nvme_dir, argv=argv)
     if plan is not None:
         run = plan.to_run_config(train=tc, nvme_dir=args.nvme_dir,
                                  overlap=not args.no_overlap)
-        # non-plan parallelism knobs stay CLI-driven under --plan auto
-        run = run.replace(parallel=dataclasses.replace(
-            run.parallel, zero_stage=args.zero_stage))
+        # non-plan parallelism knobs stay CLI-driven under --plan auto; int8
+        # compression on a pjit plan raises ParallelConfig's ValueError
+        par_kw = {"zero_stage": args.zero_stage}
+        if args.grad_compress != "none":
+            par_kw["grad_compression"] = args.grad_compress
+        run = run.replace(parallel=dataclasses.replace(run.parallel, **par_kw))
         return run, plan
     run = RunConfig(
         model=cfg,
@@ -209,40 +210,99 @@ def _host(v):
     return float(v) if isinstance(v, torch.Tensor) else v
 
 
-def train(args, argv=None) -> dict:
-    """Run ``args.steps`` steps. Returns ``{"losses", "grad_norms",
-    "metrics" (one dict of host numbers per step, with step_time and
-    tokens_per_s), "nvme_stats", "trace_attributions", "quantized_leaves"
-    (the MLP weights whose products read the q8 rows in place), "plan"
-    (the ``InfinityPlan``, or None in manual mode), "run" (the resolved
-    ``RunConfig``)}``. ``argv`` is what ``make_run`` reads overrides from."""
+def train(args, argv=None, *, init_state=None) -> dict:
+    """Run ``args.steps`` steps under ``retry_loop``. Returns ``{"losses",
+    "grad_norms", "metrics" (one dict of host numbers per step run, with
+    step_time and tokens_per_s; a restarted run repeats the steps it
+    redoes), "restarts", "recovery_s", "final_state", "checkpoint" (the
+    manager's last bytes and timings), "nvme_stats", "trace_attributions",
+    "quantized_leaves" (the MLP weights whose products read the q8 rows in
+    place), "plan" (the ``InfinityPlan``, or None in manual mode), "run"
+    (the resolved ``RunConfig``)}``. ``argv`` is what ``make_run`` reads
+    overrides from; ``init_state``, a callable returning an engine state,
+    replaces the seeded draw (the parity tests pass the reference's)."""
     _unported(args)
     device = resolve_device(args.device)
     run, plan = make_run(args, argv)
-    _unported_run(run)
     executor = InfinityExecutor(run, device, plan=plan)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     tokens = shape.global_batch * shape.seq_len
-    history = {"losses": [], "grad_norms": [], "metrics": [], "plan": plan, "run": run}
-    try:
-        gen = torch.Generator(device=device).manual_seed(run.train.seed)
-        state = executor.init_state(gen)
+    tc = run.train
+    ckpt = CheckpointManager(tc.checkpoint_dir, keep=tc.keep_checkpoints)
+    injector = FailureInjector()
+    straggler = wire_straggler(StragglerMonitor(factor=args.straggler_factor))
+    retry_stats = {"restarts": 0, "recovery_s": 0.0}
+    history = {"losses": [], "grad_norms": [], "metrics": [], "restarts": 0,
+               "plan": plan, "run": run}
+
+    def fresh_state(resuming: bool) -> dict:
+        # a resume reseeds the stores from the restored state: skip seeding
+        # them from the throwaway init
+        if init_state is None:
+            gen = torch.Generator(device=device).manual_seed(tc.seed)
+            return executor.init_state(gen, seed_stores=not resuming)
+        state = executor.engine.place_state(init_state())
+        return state if resuming else executor.reseed(state)
+
+    def run_once():
+        ckpt.wait()  # a save the failure interrupted commits first
+        resuming = args.resume == "auto" and ckpt.latest_step() is not None
+        state = fresh_state(resuming)
+        start_step = 0
+        if resuming:
+            try:
+                restored, extra = ckpt.restore(state)
+            except KeyError:
+                # tier migration: the checkpoint was written at other tiers;
+                # restore the tier-independent leaves, rebuild the rest
+                portable, extra = ckpt.restore(executor.portable_state(state))
+                start_step = extra["next_step"]
+                state = executor.adopt_state(portable, step=start_step)
+            else:
+                start_step = extra["next_step"]
+                state = executor.restore_state(restored, step=start_step)
+            print(f"resumed from checkpoint at step {start_step}")
+
         step_fn = executor.make_train_step()
         stream = SyntheticStream(executor.input_specs(shape), run.model.vocab_size,
-                                 seed=run.train.seed)
-        loader = PrefetchLoader(stream, 0, run.train.steps, device)
+                                 seed=tc.seed)
+        loader = PrefetchLoader(stream, start_step, tc.steps, device)
         logger = MetricsLogger(executor.n_params_active())
         for step, batch in loader:
-            t0 = time.perf_counter()
+            straggler.start()
+            injector.maybe_fail(step)
             state, metrics = step_fn(state, batch)
             rec = {k: _host(v) for k, v in metrics.items()}  # waits for the step
-            dt = time.perf_counter() - t0
+            dt = straggler.stop(step)
             rec.update(step=step, step_time=dt, tokens_per_s=tokens / dt)
             history["losses"].append(rec["loss"])
             history["grad_norms"].append(rec["grad_norm"])
             history["metrics"].append(rec)
             if step % args.log_every == 0:
-                logger.log(step, rec["loss"], tokens, dt)
+                extras = elastic_step_metrics(restarts=retry_stats["restarts"],
+                                              recovery_s=retry_stats["recovery_s"])
+                extras.update(straggler.step_metrics())
+                logger.log(step, rec["loss"], tokens, dt, **extras)
+            if tc.checkpoint_every and (step + 1) % tc.checkpoint_every == 0:
+                # the layered epoch's rows are materialized from the store
+                ckpt.save(step + 1, executor.checkpoint_state(state),
+                          {"next_step": step + 1})
+        ckpt.wait()
+        history["final_state"] = state
+
+    try:
+        history["restarts"] = retry_loop(
+            run_once, max_restarts=args.max_restarts,
+            recovery_budget_s=args.recovery_budget, stats=retry_stats,
+            on_restart=lambda n, e: print(f"restart #{n} after: {e}"))
+        history["recovery_s"] = retry_stats["recovery_s"]
+        if straggler.flagged:
+            print(f"straggler steps flagged: {straggler.flagged}")
+        executor.wait_host()
+        history["checkpoint"] = {"saves": ckpt.save_count, "bytes": ckpt.last_bytes,
+                                 "snapshot_s": ckpt.last_snapshot_s,
+                                 "persist_s": ckpt.last_persist_s,
+                                 "restore_s": ckpt.last_restore_s}
         history["nvme_stats"] = executor.bandwidth_stats()
         history["trace_attributions"] = executor.trace_attributions
         history["quantized_leaves"] = getattr(executor.engine, "quantized_leaves", ())
@@ -259,7 +319,7 @@ def main(argv=None) -> dict:
     hist = train(args, argv)
     losses = hist["losses"]
     print(f"done in {time.time()-t0:.1f}s | first loss {losses[0]:.4f} | "
-          f"last loss {losses[-1]:.4f}")
+          f"last loss {losses[-1]:.4f} | restarts {hist['restarts']}")
     s = hist["nvme_stats"]
     if s:
         print(f"nvme: read {s['read_gbps']:.2f} GB/s, write {s['write_gbps']:.2f} GB/s, "

@@ -44,6 +44,19 @@ def lr_at(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return warm * tc.lr
 
 
+def update_scalars(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    """The fused-Adam kernel's (7,) scalars for the update that makes the
+    step count ``step`` (0-d int32, on the device): ``lr_at(step)`` and the
+    f32 bias corrections ``1 - beta ** step``."""
+    sf = step.float()
+    c1 = 1.0 - torch.pow(torch.tensor(tc.beta1, dtype=torch.float32,
+                                      device=sf.device), sf)
+    c2 = 1.0 - torch.pow(torch.tensor(tc.beta2, dtype=torch.float32,
+                                      device=sf.device), sf)
+    return ops.adam_scalars(lr_at(tc, step), tc.beta1, tc.beta2, tc.eps,
+                            tc.weight_decay, c1, c2, sf.device)
+
+
 def apply_updates(grads: dict, state: AdamState, tc: TrainConfig, *,
                   params_prev: dict | None = None):
     """Returns (new compute-dtype params, new AdamState). ``grads`` is a
@@ -52,14 +65,7 @@ def apply_updates(grads: dict, state: AdamState, tc: TrainConfig, *,
     A bf16 param is the kernel's rounded copy; an f32 param is a copy of
     the master."""
     step = state.step + 1
-    lr = lr_at(tc, step)
-    sf = step.float()
-    c1 = 1.0 - torch.pow(torch.tensor(tc.beta1, dtype=torch.float32,
-                                      device=sf.device), sf)
-    c2 = 1.0 - torch.pow(torch.tensor(tc.beta2, dtype=torch.float32,
-                                      device=sf.device), sf)
-    scalars = ops.adam_scalars(lr, tc.beta1, tc.beta2, tc.eps, tc.weight_decay,
-                               c1, c2, sf.device)
+    scalars = update_scalars(tc, step)
     paths = pt.tree_paths(grads)
     params = {}
     for path in paths:

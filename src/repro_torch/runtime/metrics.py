@@ -1,8 +1,10 @@
 """Step metrics, ported from ``repro/runtime/metrics.py``: the training
-``MetricsLogger`` (tokens/s, step-time EMA, analytic MFU) and the
-serving-side KV-tier counters (``kv_*``); ``device_ms``, the card's time
-per kernel call. The elastic metrics wait for the elastic runtime
-(ROADMAP.md Queue 1 item 5)."""
+``MetricsLogger`` (tokens/s, step-time EMA, analytic MFU), the restart
+counters a training step logs (``elastic_step_metrics``: the fault
+runtime's restarts and recovery time; the replan, resize and membership
+fields stay at their one-device values until the elastic supervisor,
+ROADMAP.md Queue 1 item 5), the serving-side KV-tier counters (``kv_*``);
+``device_ms``, the card's time per kernel call."""
 from __future__ import annotations
 
 import time
@@ -36,6 +38,25 @@ class MetricsLogger:
             f"step {step:5d} | loss {loss:8.4f} | {tps:9.0f} tok/s | "
             f"{dt*1e3:7.1f} ms" + (f" | {k}" if (k := kw.get('note')) else ""))
         return rec
+
+
+def elastic_step_metrics(*, restarts: int = 0, replans: int = 0,
+                         resizes: int = 0, recovery_s: float = 0.0,
+                         n_alive: int = 1,
+                         membership_version: int = 0) -> dict:
+    """Per-step recovery fields, cumulative over the run (a step record
+    answers "how much recovery has this trajectory absorbed so far"):
+    ``elastic_restarts`` crash recoveries (checkpoint restores),
+    ``elastic_replans`` planner invocations, ``elastic_resizes`` live
+    membership changes, ``elastic_recovery_s`` failure-to-resumed wall
+    time, ``elastic_n_alive`` / ``elastic_membership_version`` the
+    membership the incarnation runs on."""
+    return {"elastic_restarts": int(restarts),
+            "elastic_replans": int(replans),
+            "elastic_resizes": int(resizes),
+            "elastic_recovery_s": round(float(recovery_s), 3),
+            "elastic_n_alive": int(n_alive),
+            "elastic_membership_version": int(membership_version)}
 
 
 def kv_step_metrics(delta: dict, resident_bytes: int) -> dict:

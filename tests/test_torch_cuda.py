@@ -582,6 +582,63 @@ def test_host_tier_is_pinned_and_repeats_the_device_tier_to_the_bit(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["in_graph", "host"])
+def test_zero3_step_on_the_card_matches_the_cpu(cuda, placement):
+    """The explicit engine's monolithic step (2 layers, full width), in-graph
+    on the device and with the flat and its optimizer on the pinned host
+    tier, card against CPU from the same state and batches, by chip_smoke's
+    training bounds (``phase_zero3_numerics`` raises beyond them)."""
+    rec = _chip_smoke().phase_zero3_numerics(placement)
+    assert rec["masters_worst_diff_over_drift"] <= 1.0
+    assert rec["flat_worst_diff_over_bound"] <= 1.0
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_pinned_host_tier_state_restores_bit_for_bit(cuda, tmp_path):
+    """The explicit engine with the flat and its optimizer pinned on the
+    host: a checkpoint saved after one step holds that step's values even
+    though the next step rewrites the pinned leaves in place while it
+    persists; restored, the leaves are pinned again, and a step from them
+    repeats the second step bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten_with_keys
+    from repro_torch.config import RunConfig, ShapeConfig, make_offload, make_parallel
+    from repro_torch.core.executor import InfinityExecutor
+    from repro_torch.data.pipeline import SyntheticStream
+
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    run = RunConfig(model=cfg, parallel=make_parallel("zero3", remat="none"),
+                    offload=make_offload(param_tier="host", opt_tier="host"))
+    ex = InfinityExecutor(run, cuda)
+    state = ex.init_state(torch.Generator(device=cuda).manual_seed(0))
+    stream = SyntheticStream(ex.input_specs(ShapeConfig("t", 128, 2, "train")),
+                             cfg.vocab_size)
+    batches = [{k: torch.from_numpy(a).to(cuda) for k, a in stream.batch_at(i).items()}
+               for i in range(2)]
+    step = ex.make_train_step()
+    state, _ = step(state, batches[0])
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(1, ex.checkpoint_state(state), {"next_step": 1})
+    want = {k: v.cpu().clone() for k, v in flatten_with_keys(state).items()}
+    state, m2 = step(state, batches[1])  # rewrites the pinned leaves in place
+    ex.wait_host()
+    mgr.wait()
+    assert not torch.equal(state["flat"], want["flat"])
+    restored, extra = mgr.restore(state)
+    for key, leaf in flatten_with_keys(restored).items():
+        assert torch.equal(leaf, want[key]), key
+    again = ex.restore_state(restored, step=extra["next_step"])
+    assert all(again[k].is_pinned() for k in ("flat", "master", "m", "v"))
+    again, m2_again = step(again, batches[1])
+    ex.wait_host()
+    assert float(m2_again["loss"]) == float(m2["loss"])
+    assert torch.equal(again["flat"], state["flat"])
+    ex.close()
+
+
+@pytest.mark.cuda
 def test_detect_reports_the_card(cuda):
     from repro_torch import plan
 

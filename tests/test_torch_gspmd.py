@@ -233,8 +233,7 @@ def test_make_engine_selects_by_engine_name():
 
 
 @pytest.mark.parametrize("engine,param,n_devices", [
-    ("pjit", "nvme", 1), ("zero3", "device", 1), ("zero3", "host", 1),
-    ("pjit", "device", 2)])
+    ("pjit", "nvme", 1), ("pjit", "device", 2)])
 def test_check_ported_raises_for_what_stays_unported(engine, param, n_devices):
     run = RunConfig(model=tconfigs.smoke("smollm-135m"), parallel=make_parallel(engine),
                     offload=make_offload(param_tier=param, opt_tier="nvme"))
