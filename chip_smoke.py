@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch/Hopper port: builds the CUDA kernels, holds
 each against its plain PyTorch version on the card, serves full-width
-smollm-135m through ``repro_torch.launch.serve`` (host and NVMe KV tiers,
+smollm-135m and granite-moe-1b-a400m through ``repro_torch.launch.serve`` (host and NVMe KV tiers,
 and the planner's own placement), trains full smollm-135m through
 ``repro_torch.launch.train`` with parameters, gradients and optimizer
 states on NVMe, in bf16 rows and in q8 wire rows (``--param-quant q8``,
@@ -9,7 +9,9 @@ placement the planner derives for the detected card, and the ZeRO-Offload
 placement it derives for a starved one), then through the explicit
 engine's monolithic step (``--engine zero3`` with params on the device or
 the pinned host tier) and a restart drill that resumes from a checkpoint,
-checks the outputs, and prints one JSON line per the contract below.
+then trains granite-moe-1b-a400m under ``--plan auto`` and through the
+layered epoch with its expert rows paged from NVMe, checks the outputs,
+and prints one JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -42,7 +44,8 @@ Phases (any failure exits non-zero; no phase is caught):
      embedding, ``ln_f``, 100,001 elements and the explicit step's (L, P)
      flat (30 x 3,540,096, timed); the flash forward and
      backward (dq, dk, dv; routes held, the tensor-core kernels timed
-     against the CUDA-core ones as in 3), also at gemma-7b's and
+     against the CUDA-core ones as in 3), at smollm's and at
+     granite-moe-1b-a400m's training shapes, also at gemma-7b's and
      nemotron-4-340b's heads (head_dim 256 and 192, on the CUDA cores), the
      tiled matmul's gradient products on transposed views (all four
      major-ness combinations, a ragged shape on the tensor cores), and the
@@ -96,9 +99,20 @@ Phases (any failure exits non-zero; no phase is caught):
       to an uninterrupted run's bit for bit; then the layered NVMe epoch
       resumes from its last checkpoint and trains one step; the
       checkpoint's bytes, snapshot, persist and restore times printed;
-  18. the kernels JSON line, then the device JSON line last.
+  18. the MoE family (granite-moe-1b-a400m: 32 experts, top-8): one
+      full-width layer's loss and gradients twice on the card, equal bits
+      (``moe repeat``); the GSPMD step all on the device and the layered
+      epoch on NVMe at 2 layers, full width, card against CPU by phase 11's
+      bounds (``moe numerics``); full granite (24 layers) served at the
+      serve host cell's sizes (``moe serve``) and trained 4 steps under
+      ``--plan auto`` (``moe plan train``: all on the device); the layered
+      epoch at full width cut to ``MOE_LAYERED_LAYERS`` (4) layers, 3 steps,
+      its router-selected expert rows paged from NVMe with 0 < peak
+      resident expert bytes < all expert bytes (``moe layered``); its flash
+      forward and backward shapes are checked in phase 7 (``FLASH_MOE``);
+  19. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17) each flash-attention launch,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18) each flash-attention launch,
 forward and backward (the recompute under ``remat="full"`` included), each
 tiled-matmul launch and each quantized-matmul launch, forward and dX, must
 be on the tensor-core route (``*_wgmma``), none on ``simt``; ``plan_residency_ok``
@@ -139,6 +153,7 @@ from repro_torch.kernels import quantized_matmul as tqm  # noqa: E402
 from repro_torch.kernels import tiled_matmul as tmm  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.runtime import trace  # noqa: E402
 from repro_torch.runtime.metrics import device_ms as time_ms  # noqa: E402
@@ -197,6 +212,10 @@ QMM_RAGGED = [(100, 96, 64, False), (100, 96, 64, True)]
 # kernels do not take (the CUDA-core ones do): gemma-7b (16 heads, head_dim
 # 256) and nemotron-4-340b (96 query heads over 8 KV heads, head_dim 192)
 FLASH_WIDE = [(1, 16, 16, 512, 512, 256), (1, 96, 8, 256, 256, 192)]
+# the MoE family's training shape: full granite-moe-1b-a400m at --batch 8
+# --seq 512 (16 query heads over 8 KV heads, head_dim 64: the tensor cores)
+MOE_ARCH = "granite-moe-1b-a400m"
+FLASH_MOE = (8, 16, 8, 512, 512, 64)
 # The flash backward's bf16 gradients: one output ulp (2^-7 |plain|) plus,
 # inside dV, the rare p rounded to bf16 one ulp apart in kernel and plain
 # version (lse and the f32 scores differ in the last bits): 2^-9 of the
@@ -600,6 +619,8 @@ def phase_train_kernels() -> dict:
     bwd += [check_flash_bwd(FLASH_TRAIN, f32, gen, timed=False)]
     bwd += [check_flash_bwd(s, dt, gen, timed=False) for s in (FLASH_RAGGED, FLASH_ODD)
             for dt in (bf16, f32)]
+    fwd.append(check_flash(FLASH_MOE, bf16, gen, timed=True))
+    bwd.append(check_flash_bwd(FLASH_MOE, bf16, gen, timed=True))
     for shape in FLASH_WIDE:
         fwd += [check_flash(shape, bf16, gen, timed=True), check_flash(shape, f32, gen, timed=False)]
         bwd += [check_flash_bwd(shape, bf16, gen, timed=True),
@@ -859,7 +880,13 @@ def run_serve(argv) -> tuple:
     return out, ops.launch_counts(), wall
 
 
-def summarize(tag, argv, out, launches, wall) -> dict:
+def summarize(tag, argv, out, launches, wall, arch="smollm-135m") -> dict:
+    """A serving run's numbers and checks. Every sequence finishes, KV
+    moves through the tier, flash attention runs in every layer of every
+    prefill wave; a dense model's MLP projections run the tiled matmul in
+    every layer of every wave and decode step (a MoE model's experts are
+    batched einsums, as the reference's)."""
+    cfg = configs.get(arch)
     n = len(out["generated"])
     t = out["timings"]
     dec_toks = sum(len(g) for g in out["generated"]) - n
@@ -888,17 +915,17 @@ def summarize(tag, argv, out, launches, wall) -> dict:
                                      <= 0.54 * out["kv"]["out_bytes"]):
         raise SystemExit(f"FAIL {tag}: q8 KV parked {out['kv']['out_wire_bytes']} wire "
                          f"bytes for {out['kv']['out_bytes']} logical")
-    L = configs.get("smollm-135m").n_layers
+    L = cfg.n_layers
     if launches["flash_attention"] < L * waves:
         raise SystemExit(f"FAIL {tag}: flash_attention launched "
                          f"{launches['flash_attention']} < {L} x {waves} waves")
-    if launches["tiled_matmul"] < 3 * L * (waves + out["steps"]):
+    if cfg.family == "dense" and launches["tiled_matmul"] < 3 * L * (waves + out["steps"]):
         raise SystemExit(f"FAIL {tag}: tiled_matmul launched "
-                         f"{launches['tiled_matmul']} < 90 x "
+                         f"{launches['tiled_matmul']} < {3 * L} x "
                          f"({waves} waves + {out['steps']} steps)")
     check_main_path_routes(tag, launches)
     for g in out["generated"]:
-        if any(not 0 <= tok < configs.get("smollm-135m").padded_vocab() for tok in g):
+        if any(not 0 <= tok < cfg.padded_vocab() for tok in g):
             raise SystemExit(f"FAIL {tag}: token outside the padded vocab: {g}")
     return rec
 
@@ -973,15 +1000,16 @@ def phase_gspmd_numerics(placement: str = "in_graph") -> dict:
     return rec
 
 
-def phase_plan_train(tag: str, extra: list) -> tuple:
-    """``launch.train --plan auto`` on full smollm-135m at the training
+def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m") -> tuple:
+    """``launch.train --plan auto`` on full ``arch`` at the training
     cell's shape; ``extra`` adds flags (``--hw-device-mem``). Counters
-    zeroed just before and read just after."""
-    cfg = configs.get("smollm-135m")
+    zeroed just before and read just after. A MoE model's steps also
+    report the routing's dropped fraction and (E,) expert load."""
+    cfg = configs.get(arch)
     L, steps = cfg.n_layers, 4
     nvme = os.path.join(ROOT, "build", "chip_smoke_" + tag.replace(" ", "_"))
     shutil.rmtree(nvme, ignore_errors=True)
-    argv = ["--arch", "smollm-135m", "--plan", "auto", "--batch", "8", "--seq", "512",
+    argv = ["--arch", arch, "--plan", "auto", "--batch", "8", "--seq", "512",
             "--steps", str(steps), "--lr", "3e-3", "--nvme-dir", nvme,
             "--log-every", "1"] + extra
     trace.enable()
@@ -998,7 +1026,8 @@ def phase_plan_train(tag: str, extra: list) -> tuple:
     keep = ("opt_read_bytes", "opt_write_bytes", "opt_read_gbps", "opt_write_gbps",
             "grad_out_bytes", "plan_opt_step_bytes", "plan_grad_step_bytes",
             "plan_efficiency", "plan_peak_resident_param_bytes", "plan_residency_ok",
-            "trace_wall_s", "trace_compute_s", "trace_io_wait_s", "trace_other_s")
+            "trace_wall_s", "trace_compute_s", "trace_io_wait_s", "trace_other_s",
+            "moe_dropped_token_fraction", "moe_expert_load")
     for m in hist["metrics"]:
         say(f"{tag} step:", json.dumps({
             "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
@@ -1028,8 +1057,16 @@ def phase_plan_train(tag: str, extra: list) -> tuple:
             raise SystemExit(f"FAIL {tag}: plan_residency_ok false at step {m['step']}")
     remat = plan.remat == "full"
     want = {"flash_attention": (2 if remat else 1) * L * steps,
-            "flash_attention_bwd": L * steps,
-            "tiled_matmul": ((6 if remat else 3) + 6) * L * steps}
+            "flash_attention_bwd": L * steps}
+    if cfg.family == "dense":
+        want["tiled_matmul"] = ((6 if remat else 3) + 6) * L * steps
+    else:
+        for m in hist["metrics"]:
+            load = m["moe_expert_load"]
+            if not (0.0 <= m["moe_dropped_token_fraction"] <= 1.0
+                    and len(load) == cfg.n_experts and abs(sum(load) - 1.0) < 1e-3):
+                raise SystemExit(f"FAIL {tag}: routing metrics at step {m['step']}: "
+                                 f"dropped {m['moe_dropped_token_fraction']}, load {load}")
     if run.opt_offgraph:
         if plan.opt_tier == "device":
             raise SystemExit(f"FAIL {tag}: the optimizer stayed on the device")
@@ -1280,6 +1317,293 @@ def phase_resume_drill() -> tuple:
     return rec, launches
 
 
+MOE_LAYERED_LAYERS = 4  # the layered MoE run's depth cut (full width)
+
+
+def phase_moe_serve() -> tuple:
+    """``launch.serve`` on full granite-moe-1b-a400m (24 layers) at the
+    serve host cell's sizes: 8 sequences through 4 device slots, prompt
+    512, 32 new tokens, waiting KV on the host tier. Counters zeroed just
+    before and read just after."""
+    argv = ["--arch", MOE_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
+            "--prompt-len", "512", "--new-tokens", "32"]
+    out, launches, wall = run_serve(argv)
+    return summarize("moe serve", argv, out, launches, wall, arch=MOE_ARCH), launches
+
+
+def phase_moe_layered() -> tuple:
+    """``launch.train --engine zero3`` with params, grads and optimizer
+    states on NVMe on granite-moe-1b-a400m at full width, its depth cut to
+    ``MOE_LAYERED_LAYERS``: the layered epoch where each layer's dense row
+    follows the static plan and its router-selected expert rows page as
+    ("x", layer, expert) units. 3 steps of 8 x 512 tokens; counters zeroed
+    just before and read just after."""
+    L, steps = MOE_LAYERED_LAYERS, 3
+    nvme = os.path.join(ROOT, "build", "chip_smoke_moe_layered")
+    shutil.rmtree(nvme, ignore_errors=True)
+    argv = ["--arch", MOE_ARCH, "--layers", str(L), "--engine", "zero3",
+            "--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme",
+            "--batch", "8", "--seq", "512", "--steps", str(steps), "--lr", "3e-3",
+            "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+    trace.enable()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    trace.disable()
+    trace.clear()
+    keys = ("moe_dropped_token_fraction", "expert_peak_resident_bytes",
+            "expert_total_bytes", "expert_prefetch_hit_rate", "expert_evictions",
+            "peak_resident_param_bytes", "param_total_bytes", "prefetch_hit_rate",
+            "param_in_bytes", "param_out_bytes", "grad_out_bytes", "opt_read_bytes",
+            "opt_write_bytes", "param_in_gbps", "opt_read_gbps", "opt_write_gbps")
+    for m in hist["metrics"]:
+        w = max(m["trace_wall_s"], 1e-12)
+        say("moe layered step:", json.dumps({
+            "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
+            "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"],
+            "compute_frac": m["trace_compute_s"] / w, "io_wait_frac": m["trace_io_wait_s"] / w,
+            **{k: m[k] for k in keys}}))
+    losses = hist["losses"]
+    last = hist["metrics"][-1]
+    rec = {"argv": " ".join(argv), "layers": L, "wall_s": wall, "launches": launches,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "expert_peak_resident_bytes": last["expert_peak_resident_bytes"],
+           "expert_total_bytes": last["expert_total_bytes"],
+           "expert_prefetch_hit_rate": last["expert_prefetch_hit_rate"],
+           "expert_evictions": last["expert_evictions"],
+           "moe_dropped_token_fraction": last["moe_dropped_token_fraction"],
+           "nvme": hist["nvme_stats"]}
+    say("moe layered:", json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL moe layered: losses not finite or not falling: {losses}")
+    for m in hist["metrics"]:
+        if not 0 < m["expert_peak_resident_bytes"] < m["expert_total_bytes"]:
+            raise SystemExit(f"FAIL moe layered: expert residency {m['expert_peak_resident_bytes']}"
+                             f" not within (0, {m['expert_total_bytes']}) at step {m['step']}")
+        if not m["peak_resident_param_bytes"] < m["param_total_bytes"]:
+            raise SystemExit("FAIL moe layered: every param row was resident at once")
+        if not all(m[f"{t}_bytes"] > 0 for t in ("param_in", "param_out", "grad_out",
+                                                  "opt_read", "opt_write")):
+            raise SystemExit(f"FAIL moe layered: a tier moved no bytes at step {m['step']}")
+    # per layer and step: flash forward in moe_attn, again in the backward's
+    # moe_xmid and in moe_attn_vjp's recompute, one flash backward; fused
+    # Adam on the three 'other' leaves (embedding, final norm, router)
+    want = {"flash_attention": 3 * L * steps, "flash_attention_bwd": L * steps,
+            "fused_adam": 3 * steps}
+    for name, n in want.items():
+        if launches[name] < n:
+            raise SystemExit(f"FAIL moe layered: {name} launched {launches[name]} < {n}")
+    check_main_path_routes("moe layered", launches)
+    return rec, launches
+
+
+def _moe_run(cfg, nvme_dir, steps, kind) -> RunConfig:
+    if kind == "layered":
+        return _train_run(cfg, None, nvme_dir, steps)
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    return RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none"),
+                     offload=make_offload(nvme_dir=nvme_dir),
+                     train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+
+
+class RoutingRecorder:
+    """Records each layer's routing plan during a MoE run: every call of
+    ``moe_ffn`` (the GSPMD step, once per layer in layer order) or of
+    ``moe_counts`` (the layered epoch's ``moe_attn``, once per layer in the
+    forward, layer order), as each slot's token (-1 where empty). Two runs
+    of the same steps record their calls in the same order, call ``i``
+    being layer ``i % L``."""
+
+    def __init__(self):
+        self.plans = []
+        self._saved = None
+
+    def __enter__(self):
+        self._saved = (moe_mod.moe_ffn, moe_mod.moe_counts)
+        ffn, counts = self._saved
+
+        @torch.no_grad()
+        def record(router, x, cfg):
+            r = moe_mod.route_tokens(router, moe_mod._groups(x, moe_mod.DEFAULT_GROUP), cfg)
+            self.plans.append(torch.where(r["valid_ec"], r["tok_ec"], -1).cpu())
+
+        def moe_ffn(p, x, cfg, *a, **kw):
+            record(p["router"], x, cfg)
+            return ffn(p, x, cfg, *a, **kw)
+
+        def moe_counts(router, x, cfg, *a, **kw):
+            record(router, x, cfg)
+            return counts(router, x, cfg, *a, **kw)
+
+        moe_mod.moe_ffn, moe_mod.moe_counts = moe_ffn, moe_counts
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_ffn, moe_mod.moe_counts = self._saved
+
+
+def rerouted_experts(a: list, b: list, L: int, E: int) -> tuple:
+    """(L, E) mask of the experts whose routed tokens differ between two
+    runs' recorded plans in any step, and the number of slots that
+    differ."""
+    if len(a) != len(b):
+        raise SystemExit(f"FAIL moe numerics: {len(a)} routing calls against {len(b)}")
+    mask = torch.zeros(L, E, dtype=torch.bool)
+    slots = 0
+    for i, (pa, pb) in enumerate(zip(a, b)):
+        differ = pa != pb  # (G, E, C)
+        mask[i % L] |= differ.any(dim=2).any(dim=0)
+        slots += int(differ.sum())
+    return mask, slots
+
+
+def _moe_param_groups(state, ex, kind) -> tuple:
+    """(every param outside the expert rows as one f32 vector, the expert
+    rows as (L * E, Pe) f32) on the CPU."""
+    if kind == "layered":
+        rows = ex.materialize_rows()
+        other = [rows["flat"]] + pt.tree_leaves(state["other"])
+        experts = rows["eflat"].float()
+    else:
+        params = state["params"]
+        moe_p = params["blocks"]["moe"]
+        names = [n for n in sorted(moe_p) if n != "router"]
+        L, E = moe_p["w_in"].shape[:2]
+        experts = torch.cat([moe_p[n].detach().float().cpu().reshape(L * E, -1)
+                             for n in names], dim=1)
+        other = [pt.tree_get(params, p) for p in pt.tree_paths(params)
+                 if not (p[:2] == ("blocks", "moe") and p[2] != "router")]
+    return (torch.cat([t.detach().float().cpu().reshape(-1) for t in other]),
+            experts.detach().float().cpu())
+
+
+def phase_moe_numerics(kind: str, cfg=None, devices=("cpu", "cuda")) -> dict:
+    """Full-width granite-moe-1b-a400m cut to 2 layers: 2 steps on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batches, of the GSPMD step all on the device (``kind="gspmd"``) or of
+    the layered epoch on NVMe (``"layered"``). Loss and grad norm by
+    ``TRAIN_TOL``; the f32 masters (in the state, or read back from the
+    optimizer store) by the drift bound; every param (the layered epoch's
+    rows read back from the param store, expert rows included) by it plus
+    each side's bf16 rounding: ``phase_train_numerics``' bounds.
+
+    The bulk bound (mean |diff| <= 2^-5 * sum(lr)) rests on gradients that
+    differ by rounding alone. Routing is discrete: where the two sides
+    round a token's k-th and (k+1)-th gates apart, or admit another token
+    to a full expert, that expert's gradient differs by whole tokens'
+    contributions, and its row only keeps the per-element bound. So the
+    bulk bound holds the params outside the expert rows and every expert
+    row whose routed tokens agree in every step; the rerouted experts
+    (``RoutingRecorder``) are counted and printed. ``cfg`` and
+    ``devices`` replace the model and the two sides (the tests run the
+    smoke model on the CPU twice)."""
+    cfg = cfg or dataclasses.replace(configs.get(MOE_ARCH), n_layers=2)
+    L, E = cfg.n_layers, cfg.n_experts
+    B, S, steps = 4, 256, 2
+    base = os.path.join(ROOT, "build", f"chip_smoke_moe_{kind}")
+    init = None
+    out = []
+    for side, dev in enumerate(devices):
+        ex = InfinityExecutor(_moe_run(cfg, os.path.join(base, str(side)), steps, kind), dev)
+        if kind == "layered":
+            if init is None:
+                init = ex.engine.init_state(torch.Generator().manual_seed(SEED))
+            state = ex.reseed(_to(init, dev))
+        else:
+            if init is None:
+                init = ex.engine.init_params(torch.Generator().manual_seed(SEED))
+            state = ex.reseed(ex.engine.adopt_params(init))
+        stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                                 cfg.vocab_size, seed=SEED)
+        step = ex.make_train_step()
+        traj = []
+        with RoutingRecorder() as rr:
+            for i in range(steps):
+                batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+                state, m = step(state, batch)
+                traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                                      "moe_dropped_token_fraction")})
+        other, experts = _moe_param_groups(state, ex, kind)
+        masters = (_store_masters(ex).values() if kind == "layered"
+                   else pt.tree_leaves(state["opt"].master))
+        masters = torch.cat([t.detach().float().cpu().reshape(-1) for t in masters])
+        out.append((traj, other, experts, masters, rr.plans))
+        ex.close()
+    (tc, o_c, x_c, m_c, plans_c), (tg, o_g, x_g, m_g, plans_g) = out
+    rerouted, slots = rerouted_experts(plans_c, plans_g, L, E)
+    lrs = [t["lr"] for t in tc]
+    drift = adam.parity_bound(TrainConfig(), lrs)
+    mean_bound = 2**-5 * sum(lrs)
+    p_c, p_g = torch.cat([o_c, x_c.reshape(-1)]), torch.cat([o_g, x_g.reshape(-1)])
+    diff = (p_g - p_c).abs()
+    allowed = drift + 2**-8 * (p_c.abs() + p_g.abs())
+    x_diff = (x_g - x_c).abs()
+    kept = ~rerouted.reshape(-1)
+    bulk = torch.cat([(o_g - o_c).abs(), x_diff[kept].reshape(-1)])
+    master_diff = (m_g - m_c).abs().max().item()
+    rec = {"kind": kind, "arch": cfg.arch, "layers": L, "d_model": cfg.d_model, "batch": B,
+           "seq": S, "steps": steps, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+           "params_max_abs_diff": diff.max().item(), "params_mean_abs_diff": diff.mean().item(),
+           "params_worst_diff_over_bound": (diff / allowed).max().item(),
+           "masters_max_abs_diff": master_diff,
+           "masters_worst_diff_over_drift": master_diff / drift,
+           "params_max_bound": drift, "params_mean_bound": mean_bound,
+           "routing_calls": len(plans_c), "rerouted_slots": slots,
+           "rerouted_experts": int(rerouted.sum()), "experts": L * E,
+           "bulk_mean_abs_diff": bulk.mean().item(),
+           "non_expert_mean_abs_diff": (o_g - o_c).abs().mean().item(),
+           "kept_expert_rows_mean_abs_diff": (x_diff[kept].mean().item()
+                                              if kept.any() else None),
+           "rerouted_expert_rows_mean_abs_diff": (x_diff[~kept].mean().item()
+                                                  if (~kept).any() else None)}
+    say("moe numerics:", json.dumps(rec))
+    for c, g in zip(tc, tg):
+        for key in ("loss", "grad_norm"):
+            if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
+                raise SystemExit(f"FAIL moe numerics ({kind}): card {key} {g[key]} "
+                                 f"vs CPU {c[key]}")
+    if not master_diff <= drift or not bool((diff <= allowed).all()) \
+            or not rec["bulk_mean_abs_diff"] <= mean_bound:
+        raise SystemExit(f"FAIL moe numerics ({kind}): params differ beyond the bound: {rec}")
+    return rec
+
+
+def phase_moe_repeat() -> dict:
+    """One full-width granite-moe-1b-a400m layer (the bundle cut to 1
+    layer) at the training shape, loss and gradients twice on the card from
+    the same weights and batch: equal bits. The combine and the dispatch's
+    backward gather in a fixed order (models/moe.py), so nothing depends on
+    the order atomics land in."""
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=1)
+    bundle = registry.build(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    stream = SyntheticStream(bundle.input_specs(ShapeConfig("r", 512, 8, "train")),
+                             cfg.vocab_size, seed=SEED)
+    batch = {k: torch.from_numpy(a).cuda() for k, a in stream.batch_at(0).items()}
+    paths = pt.tree_paths(params)
+    runs = []
+    for _ in range(2):
+        leaves = [pt.tree_get(params, p).detach().requires_grad_() for p in paths]
+        live: dict = {}
+        for p, leaf in zip(paths, leaves):
+            pt.tree_set(live, p, leaf)
+        loss, aux = bundle.loss_stats(live, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        runs.append([loss.detach(), aux["moe_expert_load"]] + list(grads))
+    torch.cuda.synchronize()
+    differ = [("loss", "load")[i] if i < 2 else "/".join(paths[i - 2])
+              for i, (a, b) in enumerate(zip(*runs)) if not torch.equal(a, b)]
+    rec = {"arch": MOE_ARCH, "layers": 1, "batch": 8, "seq": 512,
+           "loss": runs[0][0].item(), "leaves": len(paths), "differing": differ}
+    say("moe repeat:", json.dumps(rec))
+    if differ:
+        raise SystemExit(f"FAIL moe repeat: a second run differs in {differ}")
+    return rec
+
+
 def count_hgmma(name: str) -> int:
     """Warpgroup MMA instructions (HGMMA) in a built kernel library, read
     with the toolkit's cuobjdump; fails when there are none."""
@@ -1358,6 +1682,11 @@ def main() -> int:
     z3h_rec, z3h_launches = phase_zero3_train(
         "zero3 host", ["--offload-param", "host", "--offload-opt", "host"])
     drill_rec, drill_launches = phase_resume_drill()
+    moe_repeat = phase_moe_repeat()
+    moe_numerics = {k: phase_moe_numerics(k) for k in ("gspmd", "layered")}
+    moe_serve_rec, moe_serve_launches = phase_moe_serve()
+    moe_plan_rec, moe_plan_launches = phase_plan_train("moe plan train", [], arch=MOE_ARCH)
+    moe_layered_rec, moe_layered_launches = phase_moe_layered()
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -1386,7 +1715,8 @@ def main() -> int:
              "plan_train": plan_launches, "plan_offload": offload_launches,
              "plan_serve": plan_serve_launches, "zero3_train": z3_launches,
              "zero3_offload": z3o_launches, "zero3_host": z3h_launches,
-             "resume_drill": drill_launches}
+             "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
+             "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -1431,7 +1761,15 @@ def main() -> int:
         f"{z3o_rec['median_tokens_per_s_after_first']:.0f} tok/s, host "
         f"{z3h_rec['median_tokens_per_s_after_first']:.0f} tok/s; zero3 numerics masters "
         f"{max(r['masters_worst_diff_over_drift'] for r in zero3.values()):.3f} of drift; "
-        f"resume drill restarts {drill_rec['restarts']})")
+        f"resume drill restarts {drill_rec['restarts']}; moe repeat "
+        f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
+        f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "
+        f"bound; moe serve {moe_serve_rec['decode_tok_s']:.0f} decode tok/s; moe plan train "
+        f"{moe_plan_rec['first_loss']:.4f} -> {moe_plan_rec['last_loss']:.4f} at "
+        f"{moe_plan_rec['median_tokens_per_s_after_first']:.0f} tok/s; moe layered "
+        f"{moe_layered_rec['first_loss']:.4f} -> {moe_layered_rec['last_loss']:.4f}, "
+        f"expert peak {moe_layered_rec['expert_peak_resident_bytes']} of "
+        f"{moe_layered_rec['expert_total_bytes']} B)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

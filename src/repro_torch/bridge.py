@@ -32,9 +32,10 @@ def zero3_state_from_numpy(state: dict, device="cpu") -> dict:
     """The JAX package's ``ExplicitZero3Engine.init_state`` output with
     every leaf as numpy (``flat`` (L, P) bf16 rows, ``other``, ``other_opt``
     (an ``AdamState``-shaped 4-tuple step/master/m/v), ``step``, and where
-    present the in-graph f32 ``master``/``m``/``v`` and the int8
-    residuals ``g_err``) -> the port engine's state, so both packages start
-    from the same state."""
+    present the MoE expert rows ``eflat`` (L * E, Pe) bf16 (with the f32
+    router in ``other``), the in-graph f32 ``master``/``m``/``v`` and the
+    int8 residuals ``g_err``) -> the port engine's state, so both packages
+    start from the same state."""
     from repro_torch.optim.adam import AdamState
 
     step, master, m, v = state["other_opt"]
@@ -47,7 +48,7 @@ def zero3_state_from_numpy(state: dict, device="cpu") -> dict:
                                params_from_numpy(v, device)),
         "step": tensor_from_numpy(state["step"], device),
     }
-    for key in ("master", "m", "v", "g_err"):
+    for key in ("eflat", "master", "m", "v", "g_err"):
         if key in state:
             out[key] = params_from_numpy(state[key], device)
     return out

@@ -8,6 +8,9 @@ gradient over the nested param tree, accumulated over microbatches when
 fused-Adam kernel (``optim/adam.py``), with the host tier's streaming
 around both. ``make_train_step(grads_only=True)`` stops at the gradients:
 the executor's off-graph optimizer consumes them (``core/executor.py``).
+A family with step statistics (MoE: ``moe_dropped_token_fraction``, the
+(E,) ``moe_expert_load``) returns them beside loss and grad norm, from the
+bundle's ``loss_stats`` in the same gradient pass.
 
 Gradients are bf16, the params' dtype, as the reference's
 (``jax.value_and_grad`` over bf16 leaves); a leaf used twice (the tied
@@ -28,7 +31,6 @@ the device, as the reference's host tier is on a CPU backend.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -142,8 +144,9 @@ class ZeroInfinityEngine:
         return self.bundle.input_specs(shape)
 
     def n_params_active(self) -> int:
-        """Every parameter (the dense family has no inactive experts)."""
-        return sum(math.prod(d.shape) for d in pt.tree_leaves(self.bundle.defs))
+        """The bundle's count: every parameter, MoE experts discounted by
+        top_k / E."""
+        return self.bundle.n_params_active()
 
     # ------------------------------------------------------------------
     # train step
@@ -157,7 +160,13 @@ class ZeroInfinityEngine:
         tensors."""
         tc = self.run.train
         accum = self.run.parallel.grad_accum
-        loss_f = self.bundle.loss
+        # families with step statistics (moe) expose loss_stats: its aux
+        # (the routing's drop fraction and expert load) rides out of the
+        # gradient pass into the step metrics without a second forward
+        loss_stats = self.bundle.loss_stats
+        if loss_stats is None:
+            loss_f = self.bundle.loss
+            loss_stats = lambda params, batch: (loss_f(params, batch), {})
         param_host = self.param_host
         opt_host = self.opt_host and not grads_only
 
@@ -167,27 +176,31 @@ class ZeroInfinityEngine:
             live: dict = {}
             for p, leaf in zip(paths, leaves):
                 pt.tree_set(live, p, leaf)
-            loss = loss_f(live, batch)
+            loss, aux = loss_stats(live, batch)
             grads: dict = {}
             for p, g in zip(paths, torch.autograd.grad(loss, leaves)):
                 pt.tree_set(grads, p, g)
-            return loss.detach(), grads
+            return loss.detach(), grads, aux
 
         def grads_of(params, batch):
             if accum <= 1:
                 return value_and_grad(params, batch)
-            # microbatches along the leading batch dim, summed in f32
+            # microbatches along the leading batch dim, summed in f32; the
+            # aux of each microbatch averaged, as the reference's scan
             micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                      for k, v in batch.items()}
             loss_acc = torch.zeros((), dtype=torch.float32, device=self.device)
             g_acc = pt.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                       device=self.device), params)
+            auxs = []
             for i in range(accum):
-                loss, g = value_and_grad(params, {k: v[i] for k, v in micro.items()})
+                loss, g, aux = value_and_grad(params, {k: v[i] for k, v in micro.items()})
                 loss_acc = loss_acc + loss
                 g_acc = _tree_add_f32(g_acc, g)
+                auxs.append(aux)
             inv = 1.0 / accum
-            return loss_acc * inv, pt.tree_map(lambda g: g * inv, g_acc)
+            aux = {k: torch.stack([a[k] for a in auxs]).mean(dim=0) for k in auxs[0]}
+            return loss_acc * inv, pt.tree_map(lambda g: g * inv, g_acc), aux
 
         def train_step(state, batch):
             params, opt = state["params"], state.get("opt")
@@ -195,9 +208,9 @@ class ZeroInfinityEngine:
                 params = self.host.to_device(params)
             if opt_host:  # pinned host -> the device for the update
                 opt = adam.AdamState(opt.step, *(self.host.to_device(t) for t in opt[1:]))
-            loss, grads = grads_of(params, batch)
+            loss, grads, aux = grads_of(params, batch)
             if grads_only:
-                return grads, {"loss": loss, "grad_norm": global_norm(grads)}
+                return grads, {"loss": loss, "grad_norm": global_norm(grads), **aux}
             new_params, new_opt = adam.apply_updates(grads, opt, tc, params_prev=params)
             if param_host:  # updated bf16 params back to their pinned tensors
                 new_params = self.host.write_back(state["params"], new_params)
@@ -206,7 +219,7 @@ class ZeroInfinityEngine:
                 new_opt = adam.AdamState(new_opt.step, *(
                     self.host.write_back(h, d) for h, d in zip(host[1:], new_opt[1:])))
             metrics = {"loss": loss, "grad_norm": global_norm(grads),
-                       "lr": adam.lr_at(tc, new_opt.step)}
+                       "lr": adam.lr_at(tc, new_opt.step), **aux}
             return {"params": new_params, "opt": new_opt}, metrics
 
         return train_step

@@ -43,6 +43,25 @@ host, chunk by chunk, and go straight back to the param store. The full
 (L, P) array is never assembled, so ``peak_resident_param_bytes`` is
 O(window).
 
+The MoE layered epoch (``_layered_moe_step``): a layer expands into
+heterogeneous schedule units. Its dense row (ln1 + attn + ln2) follows the
+static layer plan; its expert rows (``xrank0/c{l * E + e}`` in the param
+store, ``xrank0/l{l * E + e}`` in the opt store) page as dynamic units
+``("x", layer, expert)`` through a second ``PrefetchEngine`` (class
+``expert``) sharing the working-set accounting. The router's counts (one
+small host sync per layer) pick the selected set, which streams through
+fixed-width waves of ``top_k`` rows; evict-bound rows are offered to the
+byte-budgeted hot cache (``HotUnitCache``, refreshed from the new masters
+after each write-back), and the predicted-hot rows (``ExpertPopularity``)
+prefetch alongside the static plan's horizon. Unrouted experts still take
+their Adam step, from known-zero gradients. Peak expert residency is
+O(wave + hot budget), never O(L * E); the step reports
+``expert_peak_resident_bytes`` / ``_prefetch_hit_rate`` / ``_evictions``,
+``expert_total_bytes`` and the routing's ``moe_dropped_token_fraction`` and
+(E,) ``moe_expert_load``. Under ``param_quant`` the expert rows arrive
+decoded by the store, as the reference's: only dense rows travel as wire
+operands.
+
 On the card two copies cross the host link asynchronously. A row goes up
 through a pinned pool buffer (``PinnedStager``: the buffer is not reused
 before its copy's event completes), and a gradient comes down on a store
@@ -68,6 +87,7 @@ from an ``InfinityPlan`` (``plan=``), the plan's predictions beside them
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -141,6 +161,8 @@ class InfinityExecutor:
         self.device = torch.device(device)
         self.engine = engine if engine is not None else make_engine(run, self.device)
         self.explicit = isinstance(self.engine, ExplicitZero3Engine)
+        # explicit-engine MoE: expert rows are schedule units of their own
+        self.is_moe = bool(getattr(self.engine, "is_moe", False))
         off = run.offload
         # the layered epoch: the explicit engine with params on NVMe; with
         # params on the device or host tier it takes the monolithic step
@@ -178,6 +200,12 @@ class InfinityExecutor:
         self._pe_stream: Optional[ParamStreamer] = None
         self._sched_tokens: Optional[int] = None
         self._layer_fns = None
+        # the MoE layered epoch's dynamic units: their own prefetch engine
+        # over ("x", layer, expert) rows, the hot cache and the predictor
+        self._pe_x: Optional[sched_mod.PrefetchEngine] = None
+        self._pe_x_stream: Optional[ParamStreamer] = None
+        self._hot: Optional[sched_mod.HotUnitCache] = None
+        self._pop: Optional[sched_mod.ExpertPopularity] = None
         self._step_fn = None
         self._trace_t0: Optional[float] = None
         self._trace_tid: Optional[int] = None
@@ -242,15 +270,25 @@ class InfinityExecutor:
             if self.grad_offload and self.grad_store is None:
                 self.grad_store = self._make_store(off.grad_tier, "grad")
             return state
-        flat = state["flat"]
-        if isinstance(flat, TensorSpec):
+        keys = ("flat", "eflat") if self.is_moe else ("flat",)
+        if any(isinstance(state[k], TensorSpec) for k in keys):
             raise ValueError("reseed needs materialized rows, not a placeholder")
-        flat = flat.detach().to("cpu")
+        flat = state["flat"].detach().to("cpu")
+        eflat = state["eflat"].detach().to("cpu") if self.is_moe else None
         if self.opt_store is None:
             self.opt_store = self._make_store(off.opt_tier, "opt")
         self.offload = ChunkedAdamOffload(self.opt_store)
-        self.offload.init_from_params(
-            {f"rank0/l{li}": flat[li] for li in range(flat.shape[0] - 1, -1, -1)})
+        # backward order; a MoE layer's expert rows precede its dense row
+        # (the reversed pass emits the experts' gradients before the
+        # attention part's)
+        seed: Dict[str, torch.Tensor] = {}
+        for li in range(flat.shape[0] - 1, -1, -1):
+            if eflat is not None:
+                E = self.engine.n_experts
+                for e in range(E):
+                    seed[f"xrank0/l{li * E + e}"] = eflat[li * E + e]
+            seed[f"rank0/l{li}"] = flat[li]
+        self.offload.init_from_params(seed)
         self.offload.step_count = step
         if self.grad_offload and self.grad_store is None:
             self.grad_store = self._make_store(off.grad_tier, "grad")
@@ -258,13 +296,26 @@ class InfinityExecutor:
             self.param_store = self._make_store("nvme", "param")
         self.param_stream = ParamStreamer(self.param_store,
                                           read_ahead=off.param_read_ahead)
-        self.param_stream.seed({"rank0": flat}, row_split=True)
+        named = {"rank0": flat}
+        if eflat is not None:
+            named["xrank0"] = eflat
+        self.param_stream.seed(named, row_split=True)
+        return self._drop_rows(state)
+
+    def _drop_rows(self, state: dict) -> dict:
         state = dict(state)
         state["flat"] = self._param_placeholder()
+        if self.is_moe:
+            state["eflat"] = self._eflat_placeholder()
         return state
 
     def _param_placeholder(self) -> TensorSpec:
         return TensorSpec((self.engine.n_layers, self.engine.layout.padded),
+                          torch.bfloat16)
+
+    def _eflat_placeholder(self) -> TensorSpec:
+        eng = self.engine
+        return TensorSpec((eng.n_layers * eng.n_experts, eng.elayout.padded),
                           torch.bfloat16)
 
     @property
@@ -273,17 +324,34 @@ class InfinityExecutor:
         claim's denominator); 0 where no param is slow-tier resident."""
         if not self.layered:
             return 0
-        return self.engine.n_layers * self.engine.layout.padded * 2
+        return self.engine.n_layers * self.engine.layout.padded * 2 + self.expert_total_bytes
+
+    @property
+    def expert_total_bytes(self) -> int:
+        """Bytes of all expert rows (the expert-paging claim's denominator:
+        peak resident expert bytes stay below it); 0 without MoE rows."""
+        if not (self.layered and self.is_moe):
+            return 0
+        return math.prod(self._eflat_placeholder().shape) * 2
 
     def wait_host(self) -> None:
         """Wait until the pinned host tier holds the last step's values
         (before the host reads a host-tier state)."""
         self.engine.host_ready()
 
+    def materialize_rows(self) -> dict:
+        """The rows assembled from the param store, on the CPU: ``flat``
+        (L, P) bf16 and, for MoE, ``eflat`` (L * E, Pe) — for checks and
+        checkpoints; the step never calls it."""
+        loaded = self.param_stream.load_all()
+        out = {"flat": loaded["rank0"]}
+        if self.is_moe:
+            out["eflat"] = loaded["xrank0"]
+        return out
+
     def materialize_flat(self) -> torch.Tensor:
-        """The (L, P) bf16 rows assembled from the param store, on the CPU —
-        for checks and checkpoints; the step never calls it."""
-        return self.param_stream.load_all()["rank0"]
+        """The (L, P) bf16 dense rows assembled from the param store."""
+        return self.materialize_rows()["flat"]
 
     # ------------------------------------------------------------------
     # tier-independent checkpoint views
@@ -297,7 +365,7 @@ class InfinityExecutor:
         self.wait_host()
         if self.layered and isinstance(state["flat"], TensorSpec):
             state = dict(state)
-            state["flat"] = self.materialize_flat()
+            state.update(self.materialize_rows())
         return state
 
     def portable_state(self, state: dict) -> dict:
@@ -305,7 +373,7 @@ class InfinityExecutor:
         so a checkpoint of them restores into an executor at any tier."""
         state = self.checkpoint_state(state)
         if self.explicit:
-            return {k: state[k] for k in ("flat", "other", "other_opt", "step")}
+            return {k: state[k] for k in self.engine.portable_keys}
         return {"params": state["params"]}
 
     def adopt_state(self, portable: dict, *, step: int = 0) -> dict:
@@ -338,7 +406,8 @@ class InfinityExecutor:
     def make_train_step(self):
         if self._step_fn is None:
             if self.layered:
-                self._step_fn = self._layered_step()
+                self._step_fn = (self._layered_moe_step() if self.is_moe
+                                 else self._layered_step())
             elif not self.offgraph:
                 self._step_fn = self.engine.make_train_step()  # fully in-graph
             else:
@@ -548,6 +617,239 @@ class InfinityExecutor:
             return new_state, self._with_tier_metrics(metrics, marks)
 
         return step
+
+    # ------------------------------------------------------------------
+    # the MoE layered epoch: dynamic expert schedule units
+    # ------------------------------------------------------------------
+
+    def _ensure_expert_paging(self):
+        """The ``("x", layer, expert)`` units' prefetch engine (class
+        ``expert``, sharing the working-set accounting), the hot cache and
+        the popularity predictor; rebuilt when ``reseed`` swapped the
+        streamer."""
+        if self._pe_x is not None and self._pe_x_stream is self.param_stream:
+            return self._pe_x, self._hot, self._pop
+        if self._hot is not None:
+            self._hot.clear()
+        eng, stream = self.engine, self.param_stream
+        E = eng.n_experts
+
+        def fetch(unit):
+            _, l, e = unit
+            # decoded by the store under param_quant: expert rows travel bf16
+            return [stream.read_row("xrank0", l * E + e)]
+
+        self._pe_x = sched_mod.PrefetchEngine(fetch, self._ws, cls="expert")
+        budget = sched_mod.resolve_expert_hot_bytes(
+            self.run.offload.expert_hot_mb, eng.top_k, eng.elayout.padded * 2)
+        self._hot = sched_mod.HotUnitCache(budget, self._pe_x)
+        self._pop = sched_mod.ExpertPopularity()
+        self._pe_x_stream = stream
+        return self._pe_x, self._hot, self._pop
+
+    @staticmethod
+    def _expert_waves(sel: list, W: int) -> list:
+        """Selected expert ids -> fixed-width waves ``(ids, padded ids,
+        mask)``; padding repeats the last id with a zero mask (zero output,
+        zero gradient; its gradient slot is dropped)."""
+        waves = []
+        for i in range(0, len(sel), W):
+            wave = sel[i:i + W]
+            pad = W - len(wave)
+            waves.append((wave, wave + [wave[-1]] * pad, [1.0] * len(wave) + [0.0] * pad))
+        return waves
+
+    def _layered_moe_step(self):
+        eng = self.engine
+        tc = self.run.train
+        E, L = eng.n_experts, eng.n_layers
+        W = max(1, eng.top_k)
+        row_bytes = eng.elayout.padded * 2
+
+        def step(state, batch):
+            self._trace_step_begin()
+            marks = {name: s.mark() for name, s in self._active_stores()}
+            if self._layer_fns is None:
+                self._layer_fns = eng.make_layer_fns()
+            fns = self._layer_fns
+            sched, pe = self._ensure_row_scheduler(batch)
+            pe_x, hot, pop = self._ensure_expert_paging()
+            self._ws.begin_step()
+            dev = self.device
+            rows: Dict[int, object] = {}
+            router = state["other"]["router"]
+            sel_by_layer: Dict[int, list] = {}
+            drop_fracs, loads = [], []
+
+            def run_pass(events, use_fn, predict_fn):
+                # predicted (forward) or known (backward) expert rows start
+                # reading when their layer's dense row enters the horizon
+                def on_prefetch(l):
+                    for e in predict_fn(l):
+                        if ("x", l, e) not in hot:
+                            pe_x.prefetch(("x", l, e))
+
+                pe.run_events(
+                    events,
+                    on_materialize=lambda l, vals: rows.__setitem__(
+                        l, self._device_row(vals)),
+                    on_use=use_fn,
+                    on_evict=lambda l: rows.pop(l, None),
+                    on_prefetch=on_prefetch)
+
+            def wave_rows(l, wave):
+                """One wave's (W, Pe) device rows (hot hits are free)."""
+                fresh, rws = [], []
+                for e in wave:
+                    u = ("x", l, e)
+                    payload = hot.get(u)
+                    if payload is None:
+                        payload = self._expert_row(pe_x.materialize(u))
+                        fresh.append((u, payload))
+                    rws.append(payload)
+                rws += [rws[-1]] * (W - len(rws))
+                return torch.stack(rws), fresh
+
+            def retire(l, fresh):
+                for u, payload in fresh:
+                    if not hot.offer(u, payload, nbytes=row_bytes,
+                                     popularity=pop.score(l, u[2])):
+                        pe_x.evict(u)  # idempotent where offer dropped it
+
+            def start_reads(l, sel):
+                for e in sel:
+                    if ("x", l, e) not in hot:
+                        pe_x.prefetch(("x", l, e))
+
+            def wave_args(ids, mask):
+                return (torch.tensor(ids, dtype=torch.int64, device=dev),
+                        torch.tensor(mask, dtype=torch.float32, device=dev))
+
+            # ---- forward ----
+            x = fns["embed_fwd"](state["other"], batch["tokens"])
+            acts: Dict[int, torch.Tensor] = {}
+
+            def fwd_use(l):
+                nonlocal x
+                acts[l] = x
+                x_mid, counts_e, dropped, routed = fns["moe_attn"](x, rows[l], router[l])
+                # the one host sync per layer: the waves need the routed set
+                host = torch.cat([counts_e, dropped[None], routed[None]]).cpu()
+                counts = host[:E]
+                sel = [int(e) for e in torch.nonzero(counts > 0).flatten()]
+                sel_by_layer[l] = sel
+                routed_f = max(float(host[E + 1]), 1.0)
+                drop_fracs.append(float(host[E]) / routed_f)
+                load = counts.double() / routed_f
+                loads.append(load)
+                pop.update(l, load.tolist())
+                start_reads(l, sel)
+                out = x_mid
+                for wave, ids, mask in self._expert_waves(sel, W):
+                    erows, fresh = wave_rows(l, wave)
+                    out = out + fns["moe_wave_fwd"](x_mid, rows[l], router[l], erows,
+                                                    *wave_args(ids, mask))
+                    retire(l, fresh)
+                x = out
+
+            run_pass(sched.forward(), fwd_use, lambda l: pop.top(l, W))
+
+            # ---- head + reversed pass ----
+            loss, dx, g_head = fns["head"](x, state["other"], batch["labels"])
+            gdict: Dict[str, object] = {}
+            g_router = [None] * L
+            sumsq = torch.zeros((), dtype=torch.float32, device=dev)
+
+            def drain(key, g):
+                gdict[key] = (self.grad_store.roundtrip(f"{key}/g", g,
+                                                        ready=self._ready_event())
+                              if self.grad_offload else g)
+
+            def bwd_use(l):
+                nonlocal dx, sumsq
+                x_in = acts.pop(l)
+                x_mid = fns["moe_xmid"](x_in, rows[l])
+                sel = sel_by_layer[l]
+                start_reads(l, sel)
+                dxmid, g_row, g_rt = dx, None, None
+                for wave, ids, mask in self._expert_waves(sel, W):
+                    erows, fresh = wave_rows(l, wave)
+                    dxm, g_row_w, g_rt_w, g_er = fns["moe_wave_vjp"](
+                        x_mid, rows[l], router[l], erows, *wave_args(ids, mask), dx)
+                    dxmid = dxmid + dxm
+                    g_row = g_row_w if g_row is None else g_row + g_row_w
+                    g_rt = g_rt_w if g_rt is None else g_rt + g_rt_w
+                    sumsq = fns["accum_sumsq2"](sumsq, g_er)
+                    # only the wave's real rows drain: a padded slot's
+                    # gradient must not reach the expert it repeats
+                    for i, e in enumerate(wave):
+                        drain(f"xrank0/l{l * E + e}", g_er[i])
+                    retire(l, fresh)
+                dx_new, g_row_attn = fns["moe_attn_vjp"](x_in, rows[l], dxmid)
+                g_row = g_row_attn if g_row is None else g_row + g_row_attn
+                g_router[l] = g_rt
+                sumsq = fns["accum_sumsq"](sumsq, g_row)
+                dx = dx_new
+                drain(f"rank0/l{l}", g_row)
+
+            run_pass(sched.backward(), bwd_use, lambda l: sel_by_layer.get(l, []))
+
+            # unrouted experts step from known-zero gradients, fed straight
+            # to the streamed Adam (their m and v decay as the all-resident
+            # run's); no grad-tier traffic scales with E
+            zero_row = torch.zeros(eng.elayout.padded, dtype=torch.float32)
+            for l in range(L):
+                selset = set(sel_by_layer[l])
+                for e in range(E):
+                    if e not in selset:
+                        gdict[f"xrank0/l{l * E + e}"] = zero_row
+
+            g_emb = fns["embed_vjp"](state["other"], batch["tokens"], dx)
+            g_head = dict(g_head)
+            zeros_rt = torch.zeros_like(router[0])
+            g_head["router"] = g_head["router"] + torch.stack(
+                [g if g is not None else zeros_rt for g in g_router])
+            new_other, new_other_opt, new_step, fm = fns["finish"](
+                state["other"], state["other_opt"], state["step"],
+                g_head, g_emb, sumsq)
+
+            with trace.span("device_sync", sys="compute", attr="compute"):
+                lr_host = float(fm["lr"])
+            new_master = self.offload.step(
+                gdict, lr=lr_host, beta1=tc.beta1, beta2=tc.beta2,
+                eps=tc.eps, weight_decay=tc.weight_decay)
+            with trace.span("param_writeback", sys="optim", cls="param"):
+                for key, m32 in new_master.items():
+                    rank, layer = key.split("/")  # "[x]rank<r>/l<i>"
+                    self.param_stream.write_row(rank, int(layer[1:]),
+                                                m32.to(torch.bfloat16))
+                # hot rows take the new masters, so the next step's hot hits
+                # serve the updated parameters
+                for u in hot.units():
+                    _, l, e = u
+                    hot.replace(u, self._expert_row(
+                        [new_master[f"xrank0/l{l * E + e}"].to(torch.bfloat16)]))
+                self.param_stream.flush()
+            if self.grad_store is not None:
+                self.grad_store.flush()
+            self._stager.retire(wait=True)
+
+            new_state = {"flat": self._param_placeholder(),
+                         "eflat": self._eflat_placeholder(),
+                         "other": new_other, "other_opt": new_other_opt,
+                         "step": new_step}
+            metrics = {"loss": loss, "grad_norm": fm["grad_norm"], "lr": fm["lr"],
+                       "moe_dropped_token_fraction": sum(drop_fracs) / len(drop_fracs),
+                       "moe_expert_load": torch.stack(loads).mean(dim=0),
+                       "expert_total_bytes": self.expert_total_bytes}
+            return new_state, self._with_tier_metrics(metrics, marks)
+
+        return step
+
+    def _expert_row(self, vals) -> torch.Tensor:
+        """One expert's host row (bf16) -> the device."""
+        with trace.span("h2d_row", sys="store", cls="expert"):
+            return self._stager.to_device(vals[0])
 
     # ------------------------------------------------------------------
     # metrics

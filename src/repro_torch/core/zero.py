@@ -48,8 +48,17 @@ weights in ``quantized_leaves`` (a static plan per layout) go into the
 quantized-matmul kernel as they are, every other leaf is dequantized on
 the device.
 
-Not ported: dp > 1 (ROADMAP Queue 1 item 8), the MoE rows (item 6),
-``remat="dots"`` (item 12).
+MoE (the ``moe`` family) runs as the layered epoch only, as in the
+reference: a layer's attention and norm leaves flatten into its dense row,
+each expert's weights into their own expert row (``eflat``, (L * E, Pe),
+row ``l * E + e``, paged as a unit of its own), and the (L, d, E) router
+is a small f32 'other' state so its master stays full precision. The
+layer runs as pieces: ``moe_attn`` (attention and the routing counts),
+then fixed-width waves of router-selected expert rows (``moe_wave_fwd`` /
+``moe_wave_vjp``) whose sum is the all-resident ``moe_ffn``, and
+``moe_attn_vjp``. The monolithic step refuses MoE, as the reference's.
+
+Not ported: dp > 1 (ROADMAP Queue 1 item 8), ``remat="dots"`` (item 12).
 """
 from __future__ import annotations
 
@@ -63,6 +72,7 @@ from repro_torch.core import partition as pt
 from repro_torch.core.engine import PinnedHostTier
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam as adam_mod
@@ -88,10 +98,16 @@ class ExplicitZero3Engine:
 
     def __init__(self, run: RunConfig, device="cuda"):
         cfg = run.model
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"explicit engine: family {cfg.family!r} is not ported "
-                "(ROADMAP.md Queue 1 item 6: MoE rows)")
+                f"explicit engine: family {cfg.family!r}: dense and moe "
+                "families only, as the reference")
+        self.is_moe = cfg.family == "moe"
+        if self.is_moe and run.offload.param_tier != "nvme":
+            raise ValueError(
+                "explicit-engine MoE requires param_tier='nvme': expert rows "
+                "page through the layered scheduler; use the pjit engine for "
+                "all-resident MoE")
         self.run = run
         self.device = torch.device(device)
         self.dp = 1  # one device: the row's gather and reduce are the identity
@@ -103,8 +119,12 @@ class ExplicitZero3Engine:
         self.param_host = run.offload.param_tier == "host" and pinned
         self.opt_host = run.offload.opt_tier == "host" and pinned and not self.offgraph
         self.host = PinnedHostTier(self.device)
-        self.block_fn = transformer.make_block_fn(cfg, run.parallel)
-        self.defs = transformer.param_defs(cfg)
+        if self.is_moe:
+            self.block_fn = None  # MoE layers run as make_layer_fns pieces
+            self.defs = moe_mod.param_defs(cfg)
+        else:
+            self.block_fn = transformer.make_block_fn(cfg, run.parallel)
+            self.defs = transformer.param_defs(cfg)
         self.n_layers = cfg.n_layers
         self._build_layout()
         # the MLP weights whose products read the q8 wire row in place;
@@ -112,11 +132,40 @@ class ExplicitZero3Engine:
         self.quantized_leaves = (pt.quantized_leaf_plan(self.layout)
                                  if run.offload.param_quant == "q8" else ())
 
+    def _dense_blocks(self, blocks: dict) -> dict:
+        """The per-layer leaves of the dense row: for MoE all but the
+        ``moe`` subtree (expert rows and router page and update apart)."""
+        if self.is_moe:
+            return {k: v for k, v in blocks.items() if k != "moe"}
+        return blocks
+
     def _build_layout(self) -> None:
-        self.layout = pt.build_layout(self.defs["blocks"], self.dp)
+        self.layout = pt.build_layout(self._dense_blocks(self.defs["blocks"]), self.dp)
+        if self.is_moe:
+            # one flat row per (layer, expert), split like the dense rows
+            cfg = self.run.model
+            rdefs = moe_mod.expert_row_defs(cfg)
+            self.elayout = pt.build_layout(pt.tree_map(
+                lambda d: pt.ParamDef((1,) + d.shape, (None,) + d.axes, d.dtype,
+                                      d.init, d.init_scale), rdefs), self.dp)
+            self.n_experts = cfg.n_experts
+            self.top_k = cfg.top_k
+
+    def _flatten_experts(self, moe_params: dict) -> torch.Tensor:
+        """The ``moe`` subtree (leaves (L, E, ...)) -> the (L * E, Pe) bf16
+        expert rows, row ``l * E + e``."""
+        LE = self.n_layers * self.n_experts
+        sub = {n: moe_params[n].reshape((LE,) + tuple(moe_params[n].shape[2:]))
+               for n in moe_mod.expert_leaf_names(self.run.model)}
+        return pt.flatten_blocks(sub, self.elayout, torch.bfloat16)
 
     def _other_defs(self) -> dict:
-        return {"embed": self.defs["embed"], "ln_f": self.defs["ln_f"]}
+        """The small device-resident ('other') states: embeddings, the final
+        norm and, for MoE, the stacked (L, d, E) f32 router."""
+        out = {"embed": self.defs["embed"], "ln_f": self.defs["ln_f"]}
+        if self.is_moe:
+            out["router"] = self.defs["blocks"]["moe"]["router"]
+        return out
 
     # ------------------------------------------------------------------
     # state and data interface
@@ -145,13 +194,23 @@ class ExplicitZero3Engine:
         ``place_state``."""
         params = pt.init_tree(self.defs, generator, self.device)
         other = {"embed": params["embed"], "ln_f": params["ln_f"]}
+        if self.is_moe:
+            other["router"] = params["blocks"]["moe"]["router"].float()
         state = {
-            "flat": pt.flatten_blocks(params["blocks"], self.layout, torch.bfloat16),
+            "flat": pt.flatten_blocks(self._dense_blocks(params["blocks"]),
+                                      self.layout, torch.bfloat16),
             "other": other,
             "other_opt": adam_mod.init_state(other),
             "step": torch.zeros((), dtype=torch.int32, device=self.device),
         }
+        if self.is_moe:
+            state["eflat"] = self._flatten_experts(params["blocks"]["moe"])
         return self.place_state(self.complete_state(state))
+
+    @property
+    def portable_keys(self) -> tuple:
+        """The tier-independent leaves of this engine's state."""
+        return ("flat", "other", "other_opt", "step") + (("eflat",) if self.is_moe else ())
 
     def complete_state(self, state: dict) -> dict:
         """The tier-independent leaves (``flat``, ``other``, ``other_opt``,
@@ -159,7 +218,7 @@ class ExplicitZero3Engine:
         ``g_err`` under int8 compression; in-graph, the flat's f32 copy as
         ``master`` and zero moments. (A checkpoint carries neither the
         rank-local residual nor, on a migration, the moments.)"""
-        state = {k: state[k] for k in ("flat", "other", "other_opt", "step")}
+        state = {k: state[k] for k in self.portable_keys}
         if self.grad_compress:
             state["g_err"] = self.g_err_zeros()
         if not self.offgraph:
@@ -180,7 +239,7 @@ class ExplicitZero3Engine:
                 out[key] = val
             elif key == "other_opt":
                 out[key] = adam_mod.AdamState(*(dev(t) for t in val))
-            elif key == "flat" and self.layered:
+            elif key in ("flat", "eflat") and self.layered:
                 out[key] = val.to("cpu")
             elif (key == "flat" and self.param_host) or (
                     key in ("master", "m", "v") and self.opt_host):
@@ -200,7 +259,29 @@ class ExplicitZero3Engine:
 
     def n_params_active(self) -> int:
         other = sum(math.prod(d.shape) for d in pt.tree_leaves(self._other_defs()))
-        return sum(self.layout.sizes) * self.n_layers + other
+        blocks = sum(self.layout.sizes) * self.n_layers
+        if self.is_moe:  # only the top_k routed experts are active
+            blocks += sum(self.elayout.sizes) * self.top_k * self.n_layers
+        return blocks + other
+
+    def params_from_state(self, state: dict) -> dict:
+        """The bundle-shaped param tree rebuilt from an engine state with
+        materialized rows (``InfinityExecutor.checkpoint_state``): the
+        eval path, the bundle's prefill after a layered run."""
+        rows = [pt.unflatten_row(r, self.layout) for r in state["flat"]]
+        blocks: dict = {}
+        for path in self.layout.paths:
+            pt.tree_set(blocks, path, torch.stack([pt.tree_get(r, path) for r in rows]))
+        if self.is_moe:
+            L, E = self.n_layers, self.n_experts
+            erows = [pt.unflatten_row(r, self.elayout) for r in state["eflat"]]
+            moe_p = {p[0]: torch.stack([pt.tree_get(r, p) for r in erows]).reshape(
+                (L, E) + tuple(pt.tree_get(erows[0], p).shape))
+                for p in self.elayout.paths}
+            moe_p["router"] = state["other"]["router"].float()
+            blocks["moe"] = moe_p
+        return {"embed": state["other"]["embed"], "blocks": blocks,
+                "ln_f": state["other"]["ln_f"]}
 
     def layer_row_device(self) -> torch.device:
         """Where one materialized layer row lives: with one rank, its slice
@@ -222,6 +303,11 @@ class ExplicitZero3Engine:
         0-d device tensors; ``lr`` is the new step's (``adam.lr_at``)."""
         if grads_only is None:
             grads_only = self.offgraph
+        if self.is_moe:
+            raise NotImplementedError(
+                "explicit-engine MoE has no monolithic step: expert rows page "
+                "through the layered epoch (param_tier='nvme' + "
+                "make_layer_fns)")
         pc, tc, cfg = self.run.parallel, self.run.train, self.run.model
         if pc.remat == "dots":
             raise NotImplementedError(
@@ -345,16 +431,28 @@ class ExplicitZero3Engine:
         cfg, tc, dp = self.run.model, self.run.train, self.dp
         block_fn, layout, plan = self.block_fn, self.layout, self.quantized_leaves
 
-        def _block(x, row, anchor_row=None):
+        def _unflatten(row, anchor_row=None):
             """``row``: a bf16 row, or a q8 wire row ``(q, s)`` whose
             gradient ``anchor_row`` carries."""
             if isinstance(row, tuple):
-                blk = pt.unflatten_wire_row(*row, anchor_row, layout, plan)
-            else:
-                blk = pt.unflatten_row(row, layout, torch.bfloat16)
+                return pt.unflatten_wire_row(*row, anchor_row, layout, plan)
+            return pt.unflatten_row(row, layout, torch.bfloat16)
+
+        def _positions(x):
             B, S = x.shape[0], x.shape[1]
-            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-            return block_fn(x, blk, positions)
+            return torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+        def _grad_row(row, device):
+            """(the leaf that takes a row's gradient, the row's leaves read
+            through it), under autograd: a bf16 row is its own leaf; a wire
+            row takes no gradient itself and a zero row stands in for it
+            (``unflatten_wire_row``)."""
+            if isinstance(row, tuple):
+                anchor = torch.zeros(layout.padded, dtype=torch.bfloat16,
+                                     device=device, requires_grad=True)
+                return anchor, _unflatten(row, anchor)
+            row_ = row.detach().requires_grad_()
+            return row_, _unflatten(row_)
 
         def _grad_leaves(tree):
             return pt.tree_map(lambda t: t.detach().requires_grad_(), tree)
@@ -372,20 +470,13 @@ class ExplicitZero3Engine:
 
         @torch.no_grad()
         def _layer_fwd(x, row):
-            return _block(x, row)
+            return block_fn(x, _unflatten(row), _positions(x))
 
         def _layer_vjp(x, row, dy):
             with torch.enable_grad():
                 x_ = x.detach().requires_grad_()
-                if isinstance(row, tuple):
-                    # a wire row takes no gradient itself: a zero row stands
-                    # in for it (``unflatten_wire_row``)
-                    row_ = torch.zeros(layout.padded, dtype=torch.bfloat16,
-                                       device=x.device, requires_grad=True)
-                    y = _block(x_, row, row_)
-                else:
-                    row_ = row.detach().requires_grad_()
-                    y = _block(x_, row_)
+                row_, blk = _grad_row(row, x.device)
+                y = block_fn(x_, blk, _positions(x))
                 dx, drow = torch.autograd.grad(y, (x_, row_), dy)
             # the bf16 row's cotangent, carried in f32 to the grad tier
             return dx, drow.float()
@@ -431,9 +522,83 @@ class ExplicitZero3Engine:
                 g_other, other_opt, tc, params_prev=other)
             return new_other, new_other_opt, new_step, {"grad_norm": gnorm, "lr": lr}
 
-        return _trace_wrap_fns({
-            "embed_fwd": _embed_fwd, "layer_fwd": _layer_fwd,
-            "layer_vjp": _layer_vjp, "head": _head,
-            "accum_sumsq": _accum_sumsq, "embed_vjp": _embed_vjp,
-            "finish": _finish,
-        })
+        fns = {"embed_fwd": _embed_fwd, "head": _head,
+               "accum_sumsq": _accum_sumsq, "embed_vjp": _embed_vjp,
+               "finish": _finish}
+        if not self.is_moe:
+            fns.update(layer_fwd=_layer_fwd, layer_vjp=_layer_vjp)
+            return _trace_wrap_fns(fns)
+
+        # ---- MoE layer pieces: the attention part + fixed-width waves ----
+        # A layer materializes as its dense row (ln1 + attn + ln2) plus, per
+        # wave, W expert rows as a (W, Pe) buffer; the waves' outputs summed
+        # over a partition of the selected experts are the all-resident
+        # moe_ffn (models/moe.py). At dp = 1 every all-gather and psum of the
+        # reference's pieces is the identity.
+        group = moe_mod.DEFAULT_GROUP
+        elayout = self.elayout
+
+        def _experts(erows):
+            """(W, Pe) expert rows -> per-expert leaves stacked over W."""
+            out: dict = {}
+            off = 0
+            for path, shape, size in zip(elayout.paths, elayout.shapes, elayout.sizes):
+                pt.tree_set(out, path, erows[:, off:off + size].reshape(
+                    (erows.shape[0],) + tuple(shape)).to(torch.bfloat16))
+                off += size
+            return out
+
+        def _xmid_of(x, blk):
+            a, _ = cm.attention_block(blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind),
+                                      _positions(x), cfg, causal=True)
+            return x + a
+
+        @torch.no_grad()
+        def _xmid(x, row):
+            return _xmid_of(x, _unflatten(row))
+
+        @torch.no_grad()
+        def _moe_attn(x, row, router_l):
+            """x_mid and the layer's routing: (E,) counts (which rows to page
+            in), the dropped and routed assignment counts."""
+            blk = _unflatten(row)
+            x_mid = _xmid_of(x, blk)
+            xn = cm.norm(x_mid, blk["ln2"], cfg.norm_kind)
+            counts = moe_mod.moe_counts(router_l, xn, cfg, group=group)
+            cap = moe_mod._capacity(cfg, min(group, x.shape[1]))
+            dropped = torch.sum(torch.clamp(counts - cap, min=0))
+            return x_mid, torch.sum(counts, dim=0), dropped, torch.sum(counts)
+
+        def _wave_of(x_mid, blk, router_l, erows, sel_ids, sel_mask):
+            xn = cm.norm(x_mid, blk["ln2"], cfg.norm_kind)
+            return moe_mod.moe_ffn_selected(router_l, _experts(erows), xn, sel_ids,
+                                            sel_mask, cfg, group=group)
+
+        @torch.no_grad()
+        def _wave_fwd(x_mid, row, router_l, erows, sel_ids, sel_mask):
+            return _wave_of(x_mid, _unflatten(row), router_l, erows, sel_ids, sel_mask)
+
+        def _wave_vjp(x_mid, row, router_l, erows, sel_ids, sel_mask, dy):
+            """-> (dx_mid, the dense row's f32 gradient (through ln2), the
+            router's f32 gradient, the (W, Pe) f32 expert-row gradients)."""
+            with torch.enable_grad():
+                xm = x_mid.detach().requires_grad_()
+                row_, blk = _grad_row(row, x_mid.device)
+                rt = router_l.detach().requires_grad_()
+                er = erows.detach().requires_grad_()
+                y = _wave_of(xm, blk, rt, er, sel_ids, sel_mask)
+                dxm, drow, drt, der = torch.autograd.grad(y, (xm, row_, rt, er), dy)
+            return dxm, drow.float(), drt.float(), der.float()
+
+        def _moe_attn_vjp(x, row, dxmid):
+            with torch.enable_grad():
+                x_ = x.detach().requires_grad_()
+                row_, blk = _grad_row(row, x.device)
+                y = _xmid_of(x_, blk)
+                dx, drow = torch.autograd.grad(y, (x_, row_), dxmid)
+            return dx, drow.float()
+
+        fns.update(moe_xmid=_xmid, moe_attn=_moe_attn, moe_wave_fwd=_wave_fwd,
+                   moe_wave_vjp=_wave_vjp, moe_attn_vjp=_moe_attn_vjp,
+                   accum_sumsq2=_accum_sumsq)
+        return _trace_wrap_fns(fns)

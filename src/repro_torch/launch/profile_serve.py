@@ -1,5 +1,5 @@
 """Where the serving time goes: one prefill wave and a few decode steps of
-the port's dense bundle under ``torch.profiler``, on the card.
+the port's bundle (dense or MoE) under ``torch.profiler``, on the card.
 
 Prints, for prefill and for decode separately, the host wall time per
 call, the device time summed over device-side events (kernels, copies),
@@ -9,6 +9,8 @@ are random from ``--seed``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch smollm-135m --slots 4 --prompt-len 512 --decode-steps 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch granite-moe-1b-a400m
 """
 from __future__ import annotations
 

@@ -13,13 +13,16 @@ io_wait / other split from the tracer and the tier bandwidths; the device
 time summed over device-side events, the device busy share (the union of
 those events' intervals over the step's wall time), and the device time of
 each kernel per step with its launches (``profile_serve._report``; fused
-Adam is the ``fused_adam`` kernel's row). Weights are random from
-``--seed``.
+Adam is the ``fused_adam`` kernel's row). A MoE model's steps add the
+routing's dropped fraction and, layered, the expert rows' hit rate and
+residency. Weights are random from ``--seed``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch smollm-135m --nvme-dir build/profile_nvme [--param-quant q8]
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch smollm-135m --plan auto [--hw-device-mem 3e9]
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+      --arch granite-moe-1b-a400m --plan auto
 """
 from __future__ import annotations
 
@@ -89,9 +92,13 @@ def main(argv=None) -> None:
                 line += (f" | compute {m['trace_compute_s'] / w:.3f} io_wait "
                          f"{m['trace_io_wait_s'] / w:.3f} other "
                          f"{m['trace_other_s'] / w:.3f} of the traced wall")
-            for key in ("param_in_gbps", "opt_read_gbps", "opt_write_gbps", "grad_out_gbps"):
+            for key in ("param_in_gbps", "opt_read_gbps", "opt_write_gbps", "grad_out_gbps",
+                        "moe_dropped_token_fraction", "expert_prefetch_hit_rate"):
                 if key in m:
-                    line += f" | {key} {m[key]:.2f}"
+                    line += f" | {key} {float(m[key]):.3f}"
+            for key in ("expert_peak_resident_bytes", "expert_total_bytes", "expert_evictions"):
+                if key in m:
+                    line += f" | {key} {m[key]}"
             print(line)
         trace.disable()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -22,6 +22,10 @@ waiting KV blocks as block-quantized wire bytes (``core/qformat.py``),
 decoded on the host when fetched. A mesh larger than one device (or a
 plan for more than one, ``--hw-devices``) is not ported yet and raises.
 
+The dense and MoE families serve (``--arch granite-moe-1b-a400m``: the
+routed experts run in prefill and in every decode step, with the same
+paged KV as a dense model).
+
 Example (one H100, full smollm-135m, 8 sequences through 4 device slots):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 8 --kv-slots 4 --kv-tier host --prompt-len 512 --new-tokens 32

@@ -20,7 +20,14 @@ detection — the port of ``repro/launch/train.py`` for one device:
     ``--engine zero3 --offload-param nvme`` runs the layered epoch with
     every state class on the slow tiers; ``--param-quant q8`` ships its
     rows as q8 wire bytes into the quantized-matmul kernel, ``q4`` rows
-    decode on the host.
+    decode on the host. A MoE model (``--arch granite-moe-1b-a400m``)
+    trains under ``--engine pjit`` (all-resident) and the layered epoch,
+    where its expert rows page as units of their own (the explicit
+    engine's monolithic step refuses MoE, as the reference's); its steps
+    carry ``moe_dropped_token_fraction``, the (E,) ``moe_expert_load`` and,
+    layered, the ``expert_*`` residency counters, and the run ends with a
+    ``moe:`` line of them. The hot-expert budget comes from the plan's
+    ``expert_hot_mb`` override, as in the reference (no flag).
   * checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``
     (``checkpoint/manager.py``, the reference's format), with the data
     cursor as ``{"next_step"}``; ``REPRO_FAIL_AT_STEP`` (and
@@ -48,6 +55,8 @@ Examples (one H100, full smollm-135m):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --engine zero3 --offload-param nvme --offload-grad nvme \\
       --offload-opt nvme --batch 8 --seq 512 --steps 8 --lr 3e-3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-1b-a400m --plan auto --batch 8 --seq 512 --steps 4
   REPRO_FAIL_AT_STEP=3 REPRO_FAIL_MARKER=/tmp/m PYTHONPATH=src \\
       python -m repro_torch.launch.train ... --ckpt-every 2 --resume auto
 """
@@ -79,6 +88,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers at full width "
+                         "(0: the config's depth)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu "
                          "(the plain versions)")
@@ -173,6 +185,8 @@ def make_run(args, argv=None):
     flags given in ``argv`` (default ``sys.argv[1:]``) act only as explicit
     per-field overrides; ``--plan manual`` keeps the flags as given."""
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     tc = TrainConfig(lr=args.lr, steps=args.steps, checkpoint_dir=args.ckpt_dir,
                      checkpoint_every=args.ckpt_every, seed=args.seed)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -207,7 +221,11 @@ def make_run(args, argv=None):
 
 
 def _host(v):
-    return float(v) if isinstance(v, torch.Tensor) else v
+    """A step metric as a host number: a 0-d tensor as a float, a vector
+    (the MoE (E,) ``moe_expert_load``) as a list of floats."""
+    if isinstance(v, torch.Tensor):
+        return float(v) if v.dim() == 0 else v.double().tolist()
+    return v
 
 
 def train(args, argv=None, *, init_state=None) -> dict:
@@ -320,6 +338,15 @@ def main(argv=None) -> dict:
     losses = hist["losses"]
     print(f"done in {time.time()-t0:.1f}s | first loss {losses[0]:.4f} | "
           f"last loss {losses[-1]:.4f} | restarts {hist['restarts']}")
+    last = hist["metrics"][-1]
+    if "moe_dropped_token_fraction" in last:
+        line = f"moe: dropped {last['moe_dropped_token_fraction']:.4f} of routed assignments"
+        if "expert_total_bytes" in last:
+            line += (f" | expert rows resident at peak {last['expert_peak_resident_bytes']}"
+                     f" of {last['expert_total_bytes']} bytes | hit rate "
+                     f"{last['expert_prefetch_hit_rate']:.3f} | evictions "
+                     f"{last['expert_evictions']}")
+        print(line)
     s = hist["nvme_stats"]
     if s:
         print(f"nvme: read {s['read_gbps']:.2f} GB/s, write {s['write_gbps']:.2f} GB/s, "

@@ -1,0 +1,402 @@
+"""Mixture-of-Experts transformer (the ``moe`` family of
+``repro/models/moe.py``: granite 32e top-8, llama4-scout 16e top-1).
+
+Dispatch is sort-based, as in the reference: each group's tokens are
+argsorted (stably) by expert id and gathered into (G, E, capacity, d)
+buffers, the experts run as two or three batched products
+(``gecd,edf->gecf``; plain ``torch.einsum``, as the reference leaves them
+to XLA outside Pallas), and each token's outputs come back weighted by its
+renormalized gates. Capacity overflow drops assignments; ``routing_stats``
+counts the dropped fraction and the per-expert load, the
+``moe_dropped_token_fraction`` / ``moe_expert_load`` step metrics.
+
+Where the reference scatter-adds the combine, the port gathers: every
+non-dropped (token, choice) assignment knows its slot (``inv``, the
+inverse of the slot -> token map ``tok_slot``), and a token sums its k
+slot outputs in a fixed order (``_GatherSum``). The dispatch is the
+transpose, so its backward is the same gather-sum. Neither direction
+scatters with atomics, so a step repeats to the bit on the card.
+
+``route_tokens`` (the slot plan) and ``expert_mix`` (the per-expert MLP)
+are shared with ``moe_ffn_selected``, which runs the same computation over
+a selected subset of expert rows: an expert with no routed tokens gives
+zero output and zero gradient, so the explicit engine's layered epoch
+pages in only the router-selected rows (``core/zero.py``).
+
+Precision is the reference's: the router product takes bf16 inputs and
+accumulates in f32 (the router is rounded to bf16, then both operands
+multiply in f32), top-k breaks ties to the lower expert index (a stable
+descending sort, as ``jax.lax.top_k``), the combine sums in
+``cfg.moe_combine_dtype``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.config import ModelConfig, ParallelConfig
+from repro_torch.core import partition as pt
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tf
+
+DEFAULT_GROUP = 1024  # tokens per routing group (the reference's default)
+
+
+def moe_defs(cfg: ModelConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    defs = {
+        "router": pt.ParamDef((d, E), ("embed", None), "float32"),
+        "w_in": pt.ParamDef((E, d, f), ("experts", "embed_e", "mlp")),
+        "w_out": pt.ParamDef((E, f, d), ("experts", "mlp", "embed_e")),
+    }
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        defs["w_gate"] = pt.ParamDef((E, d, f), ("experts", "embed_e", "mlp"))
+    return defs
+
+
+def expert_leaf_names(cfg: ModelConfig) -> tuple:
+    """Canonical order of the per-expert weight leaves in a paged expert row."""
+    gated = cfg.mlp_kind in ("swiglu", "geglu")
+    return ("w_in", "w_gate", "w_out") if gated else ("w_in", "w_out")
+
+
+def expert_row_defs(cfg: ModelConfig) -> dict:
+    """ParamDefs of ONE expert's weights (the leading E axis stripped): the
+    schedule unit the layered epoch pages on its own."""
+    defs = moe_defs(cfg)
+    return {name: pt.ParamDef(defs[name].shape[1:], defs[name].axes[1:],
+                              defs[name].dtype, defs[name].init,
+                              defs[name].init_scale)
+            for name in expert_leaf_names(cfg)}
+
+
+def block_defs(cfg: ModelConfig) -> dict:
+    L = cfg.n_layers
+
+    def stack(defs):
+        if isinstance(defs, pt.ParamDef):
+            return pt.ParamDef((L,) + defs.shape, ("layers",) + defs.axes,
+                               defs.dtype, defs.init, defs.init_scale)
+        return {k: stack(v) for k, v in defs.items()}
+
+    return stack({
+        "ln1": cm.norm_defs(cfg.d_model, cfg.norm_kind),
+        "attn": cm.attn_defs(cfg),
+        "ln2": cm.norm_defs(cfg.d_model, cfg.norm_kind),
+        "moe": moe_defs(cfg),
+    })
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    return {"embed": cm.embed_defs(cfg), "blocks": block_defs(cfg),
+            "ln_f": cm.norm_defs(cfg.d_model, cfg.norm_kind)}
+
+
+def _capacity(cfg: ModelConfig, T: int) -> int:
+    cap = max(int(T * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+    return min(cap, T * cfg.top_k)
+
+
+# ---------------------------------------------------------------------------
+# the deterministic dispatch / combine
+# ---------------------------------------------------------------------------
+
+
+def _gather_sum(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[g, n] = sum_j ext[g, idx[g, n, j]]`` over j in order, where
+    ``ext`` is ``src`` (G, M, d) with one zero row appended: the index M
+    reads zeros."""
+    G, M, d = src.shape
+    N, J = idx.shape[1], idx.shape[2]
+    ext = torch.cat([src, src.new_zeros(G, 1, d)], dim=1)
+    out = torch.gather(ext, 1, idx.reshape(G, N * J, 1).expand(G, N * J, d))
+    out = out.view(G, N, J, d)
+    return out[:, :, 0] if J == 1 else out.sum(dim=2)
+
+
+class _GatherSum(torch.autograd.Function):
+    """``_gather_sum(src, fwd)`` whose backward is ``_gather_sum(dout,
+    bwd)``: ``bwd`` is ``fwd``'s transpose (the slot -> token map against
+    the token -> slots map), so neither pass scatters."""
+
+    @staticmethod
+    def forward(ctx, src, fwd, bwd):
+        ctx.save_for_backward(bwd)
+        return _gather_sum(src, fwd)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (bwd,) = ctx.saved_tensors
+        return _gather_sum(dout.contiguous(), bwd), None, None
+
+
+def dispatch(xg: torch.Tensor, tok_slot: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """(G, T, d) tokens -> (G, S, d) slot inputs, zero in empty slots
+    (``tok_slot`` == T)."""
+    return _GatherSum.apply(xg, tok_slot[..., None], inv)
+
+
+def combine(out: torch.Tensor, tok_slot: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """(G, S, d) slot outputs -> (G, T, d): each token's k slots summed in
+    choice order; dropped choices (``inv`` == S) add nothing."""
+    return _GatherSum.apply(out, inv, tok_slot[..., None])
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+
+def route_tokens(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig) -> dict:
+    """Sorted-dispatch routing plan. xg: (G, T, d) grouped tokens.
+
+    The reference's (G, E, C) slot plan: ``tok_ec`` (token index per
+    slot), ``valid_ec`` (slot occupied), ``w_ec`` (renormalized gate
+    weight, zero on invalid slots), ``counts`` (G, E) routed-token counts
+    per expert, ``cap``; plus the port's ``inv`` (G, T, k): the flat slot
+    ``e * C + c`` of each token's choices, ``E * C`` where dropped."""
+    G, T, _ = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(cfg, T)
+    dev = xg.device
+
+    # bf16 operands, f32 accumulation: the router rounds to the tokens'
+    # dtype first (a bf16 product would flip near-tied top-k choices)
+    logits = torch.matmul(xg.float(), router.to(xg.dtype).float())
+    gates = torch.softmax(logits, dim=-1)
+    # a stable descending sort breaks ties to the lower index (lax.top_k)
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topg, topi = vals[..., :k], idx[..., :k]
+    topg = topg / torch.sum(topg, dim=-1, keepdim=True)
+
+    flat_e = topi.reshape(G, T * k)
+    flat_w = topg.reshape(G, T * k)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    tok_of_slot = order // k  # token index of each sorted slot
+
+    counts = torch.zeros(G, E, dtype=torch.long, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))  # (G, E); integer adds are exact
+    starts = torch.cumsum(counts, dim=1) - counts  # exclusive prefix
+    ar = torch.arange(cap, device=dev)
+    slot_ec = starts[:, :, None] + ar[None, None, :]  # (G, E, C)
+    valid_ec = ar[None, None, :] < counts[:, :, None]
+    slot_ec = torch.clamp(slot_ec, 0, T * k - 1).reshape(G, -1)
+
+    tok_ec = torch.gather(tok_of_slot, 1, slot_ec).reshape(G, E, cap)
+    w_sorted = torch.gather(flat_w, 1, order)
+    w_ec = torch.gather(w_sorted, 1, slot_ec).reshape(G, E, cap)
+    w_ec = torch.where(valid_ec, w_ec, torch.zeros_like(w_ec))
+
+    # each assignment's sorted position, hence its slot within its expert
+    pos = torch.empty_like(order).scatter_(
+        1, order, torch.arange(T * k, device=dev).expand(G, T * k))
+    c = pos - torch.gather(starts, 1, flat_e)
+    inv = torch.where(c < cap, flat_e * cap + c, torch.full_like(c, E * cap))
+    return {"tok_ec": tok_ec, "valid_ec": valid_ec, "w_ec": w_ec,
+            "counts": counts, "cap": cap, "inv": inv.reshape(G, T, k)}
+
+
+def routing_stats(counts: torch.Tensor, cap: int, k: int) -> dict:
+    """counts (G, E) -> ``moe_dropped_token_fraction`` (the share of
+    routed assignments lost to capacity overflow) and ``moe_expert_load``
+    (E,) (the share landing on each expert)."""
+    routed = torch.clamp(torch.sum(counts), min=1)
+    dropped = torch.sum(torch.clamp(counts - cap, min=0))
+    load = torch.sum(counts, dim=0) / routed
+    return {"moe_dropped_token_fraction": (dropped / routed).float(),
+            "moe_expert_load": load.float()}
+
+
+def expert_mix(xin: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
+               w_gate, mlp_kind: str) -> torch.Tensor:
+    """(G, E', C, d) x per-expert weights (E', d, f) / (E', f, d) ->
+    (G, E', C, d); E' the full expert axis or a selected subset."""
+    h = torch.einsum("gecd,edf->gecf", xin, w_in.to(xin.dtype))
+    if mlp_kind == "swiglu":
+        h = F.silu(torch.einsum("gecd,edf->gecf", xin, w_gate.to(xin.dtype))) * h
+    elif mlp_kind == "geglu":
+        h = F.gelu(torch.einsum("gecd,edf->gecf", xin, w_gate.to(xin.dtype)),
+                   approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.einsum("gecf,efd->gecd", h, w_out.to(h.dtype))
+
+
+def _groups(x: torch.Tensor, group: int) -> torch.Tensor:
+    B, S, d = x.shape
+    T = min(group, S)
+    return x.reshape(B * (S // T), T, d)
+
+
+def _mix_and_combine(xg, rows, tok_e, valid_e, w_e, inv, cfg):
+    """The experts' MLP over the slots of (G, E', C) and the combine back
+    to (G, T, d) in ``moe_combine_dtype``."""
+    G, T, d = xg.shape
+    Ep, C = tok_e.shape[1], tok_e.shape[2]
+    tok_slot = torch.where(valid_e, tok_e, torch.full_like(tok_e, T)).reshape(G, Ep * C)
+    xin = dispatch(xg, tok_slot, inv).view(G, Ep, C, d)
+    out = expert_mix(xin, rows["w_in"], rows["w_out"], rows.get("w_gate"), cfg.mlp_kind)
+    out = out * w_e[..., None].to(out.dtype)
+    cdt = getattr(torch, cfg.moe_combine_dtype)
+    return combine(out.to(cdt).reshape(G, Ep * C, d), tok_slot, inv)
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            group: int = DEFAULT_GROUP, with_stats: bool = False):
+    """x (B, S, d) -> (B, S, d): sorted-dispatch MoE over all E experts;
+    ``with_stats`` also returns ``routing_stats``."""
+    B, S, d = x.shape
+    xg = _groups(x, group)
+    r = route_tokens(p["router"], xg, cfg)
+    y = _mix_and_combine(xg, p, r["tok_ec"], r["valid_ec"], r["w_ec"], r["inv"], cfg)
+    y = y.to(x.dtype).reshape(B, S, d)
+    if with_stats:
+        return y, routing_stats(r["counts"], r["cap"], cfg.top_k)
+    return y
+
+
+def moe_counts(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+               group: int = DEFAULT_GROUP) -> torch.Tensor:
+    """Routing counts only: (B, S, d) -> (G, E). The layered epoch runs
+    this ahead of the expert waves to pick which rows to page in."""
+    return route_tokens(router, _groups(x, group), cfg)["counts"]
+
+
+def moe_ffn_selected(router: torch.Tensor, rows: dict, x: torch.Tensor,
+                     sel_ids: torch.Tensor, sel_mask: torch.Tensor,
+                     cfg: ModelConfig, group: int = DEFAULT_GROUP) -> torch.Tensor:
+    """The MoE output from a selected set of expert rows.
+
+    rows: per-expert weights stacked over the selection, w_in (W, d, f),
+    w_out (W, f, d), optionally w_gate (W, d, f); sel_ids (W,) expert ids;
+    sel_mask (W,) zero on padding slots (a padded id repeats a real one
+    and adds nothing). Summed over a partition of the experts with tokens
+    this is ``moe_ffn``: an unselected expert's slots are empty."""
+    B, S, d = x.shape
+    xg = _groups(x, group)
+    r = route_tokens(router, xg, cfg)
+    G, T, _ = xg.shape
+    E, W, cap = cfg.n_experts, sel_ids.shape[0], r["cap"]
+    sel_ids = sel_ids.to(device=x.device, dtype=torch.long)
+    sel_mask = sel_mask.to(device=x.device, dtype=torch.float32)
+    live = sel_mask > 0
+    tok_sel = r["tok_ec"][:, sel_ids]
+    valid_sel = r["valid_ec"][:, sel_ids] & live[None, :, None]
+    w_sel = r["w_ec"][:, sel_ids] * sel_mask[None, :, None]
+    # expert -> its (first live) position in the selection, W where absent
+    hit = (sel_ids[None, :] == torch.arange(E, device=x.device)[:, None]) & live[None, :]
+    first = torch.where(hit, torch.arange(W, device=x.device)[None, :],
+                        torch.full((E, W), W, device=x.device))
+    wpos = torch.amin(first, dim=1)  # (E,)
+    # re-aim the token -> slot map at the selection's slots
+    inv = r["inv"]
+    e_of = torch.div(inv, cap, rounding_mode="floor").clamp(max=E - 1)
+    w_of = wpos[e_of]
+    keep = (inv < E * cap) & (w_of < W)
+    inv_sel = torch.where(keep, w_of * cap + inv % cap, torch.full_like(inv, W * cap))
+    y = _mix_and_combine(xg, rows, tok_sel, valid_sel, w_sel, inv_sel, cfg)
+    return y.to(x.dtype).reshape(B, S, d)
+
+
+# ---------------------------------------------------------------------------
+# the model functions
+# ---------------------------------------------------------------------------
+
+
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+    if cfg.window:
+        raise NotImplementedError(
+            "local attention windows are not ported (ROADMAP.md Queue 2: "
+            "flash attention window/softcap)")
+    if parallel.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matmul outputs) is not ported; use "
+            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
+    remat = parallel.remat == "full"
+
+    def block(x, blk, positions, cache=None, collect_kv=False, with_stats=False):
+        a, new_cache = cm.attention_block(
+            blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
+            causal=True, cache=cache, collect_kv=collect_kv)
+        x = x + a
+        m = moe_ffn(blk["moe"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg,
+                    with_stats=with_stats)
+        if with_stats:
+            m, stats = m
+            return x + m, new_cache, stats
+        return x + m, new_cache
+
+    def train_block(x, blk, positions):
+        out, _, stats = block(x, blk, positions, with_stats=True)
+        return out, stats["moe_dropped_token_fraction"], stats["moe_expert_load"]
+
+    def backbone_inputs(params, batch):
+        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        return x, positions
+
+    def loss_stats_fn(params, batch):
+        """(loss, aux): the mean next-token loss and, over the layers, the
+        mean dropped fraction and the mean (E,) expert load. Stacked block
+        leaves are unbound once, as in the dense loss."""
+        x, positions = backbone_inputs(params, batch)
+        layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
+        drops, loads = [], []
+        for l in range(cfg.n_layers):
+            blk = pt.tree_map(lambda ts: ts[l], layers)
+            if remat:
+                x, drop, load = checkpoint(train_block, x, blk, positions,
+                                           use_reentrant=False)
+            else:
+                x, drop, load = train_block(x, blk, positions)
+            drops.append(drop)
+            loads.append(load)
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x, cfg)
+        loss = cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
+        aux = {"moe_dropped_token_fraction": torch.stack(drops).mean().detach(),
+               "moe_expert_load": torch.stack(loads).mean(dim=0).detach()}
+        return loss, aux
+
+    def loss_fn(params, batch):
+        return loss_stats_fn(params, batch)[0]
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        x, positions = backbone_inputs(params, batch)
+        S = x.shape[1]
+        ks, vs = [], []
+        for l in range(cfg.n_layers):
+            x, kv = block(x, tf.layer_params(params["blocks"], l), positions,
+                          collect_kv=True)
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x[:, -1:], cfg)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "len": torch.tensor(S, dtype=torch.int32, device=x.device)}
+        return lg, cache
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        B = x.shape[0]
+        clen = cache["len"]
+        positions = clen.reshape(-1, 1).expand(B, 1)
+        for l in range(cfg.n_layers):
+            x, _ = block(x, tf.layer_params(params["blocks"], l), positions,
+                         cache={"k": cache["k"][l], "v": cache["v"][l], "len": clen})
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x, cfg)
+        return lg, {"k": cache["k"], "v": cache["v"], "len": clen + 1}
+
+    return {
+        "loss": loss_fn,
+        "loss_stats": loss_stats_fn,
+        "prefill": prefill,
+        "decode_step": decode_step,
+        "cache_defs": tf.make_cache_defs(cfg),
+        "input_specs": tf.input_specs,
+    }

@@ -1,24 +1,24 @@
 """arch -> ModelBundle: the uniform interface over model families.
 
-Only the ``dense`` family is ported; every other family raises
+The ``dense`` and ``moe`` families are ported; every other family raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import math
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
-FAMILY_MODULES = {"dense": transformer}
+FAMILY_MODULES = {"dense": transformer, "moe": moe}
 
 NOT_PORTED = {
     "vlm": "ROADMAP.md Queue 1, other families (vlm through transformer.py)",
-    "moe": "ROADMAP.md Queue 1, MoE (models/moe.py)",
     "ssm": "ROADMAP.md Queue 1, other families (models/mamba2.py)",
     "hybrid": "ROADMAP.md Queue 1, other families (models/rglru.py)",
     "encdec": "ROADMAP.md Queue 1, other families (models/encdec.py)",
@@ -34,9 +34,28 @@ class ModelBundle:
     decode_step: Callable  # (params, cache, batch) -> (logits, cache)
     cache_defs: Callable  # (batch, cache_len) -> nested dict of ParamDef
     input_specs: Callable  # (ShapeConfig) -> dict of TensorSpec
+    # (params, batch) -> (scalar, aux metrics dict); families without step
+    # metrics (everything but moe) leave it None
+    loss_stats: Optional[Callable] = None
 
     def init(self, generator: torch.Generator, device="cpu") -> dict:
         return pt.init_tree(self.defs, generator, device)
+
+    def n_params(self) -> int:
+        return sum(math.prod(d.shape) for d in pt.tree_leaves(self.defs))
+
+    def n_params_active(self) -> int:
+        """MoE: an ``experts``-axis leaf counts top_k / E of its elements
+        (integer division, as the reference), for 6 * N_active * D."""
+        if self.cfg.family != "moe" or not self.cfg.n_experts:
+            return self.n_params()
+        total = 0
+        for d in pt.tree_leaves(self.defs):
+            n = math.prod(d.shape)
+            if "experts" in d.axes:
+                n = n * self.cfg.top_k // self.cfg.n_experts
+            total += n
+        return total
 
 
 def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> ModelBundle:
@@ -61,4 +80,5 @@ def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> Mode
         decode_step=fns["decode_step"],
         cache_defs=fns["cache_defs"],
         input_specs=fns["input_specs"],
+        loss_stats=fns.get("loss_stats"),
     )

@@ -80,6 +80,33 @@ def _block(cfg: ModelConfig, tiles: int, x, blk, positions, cache=None,
     return x + m, new_cache
 
 
+def make_cache_defs(cfg: ModelConfig):
+    """``(batch, cache_len) -> {"k", "v", "len"}`` defs of the per-layer
+    K/V cache; the MoE family shares it, as the reference's does."""
+
+    def cache_defs(batch: int, cache_len: int) -> dict:
+        L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+        axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {
+            "k": pt.ParamDef((L, batch, cache_len, KV, D), axes),
+            "v": pt.ParamDef((L, batch, cache_len, KV, D), axes),
+            "len": pt.ParamDef((), (), "int32", "zeros"),
+        }
+
+    return cache_defs
+
+
+def input_specs(shape: ShapeConfig) -> dict:
+    """The token (and, training, label) inputs of a decoder-only LM."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": TensorSpec((B, 1), torch.int32)}
+    specs = {"tokens": TensorSpec((B, S), torch.int32)}
+    if shape.kind == "train":
+        specs["labels"] = TensorSpec((B, S), torch.int32)
+    return specs
+
+
 def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
     """Standalone ``(x, blk_params, positions) -> x`` block (train mode),
     as ``repro/models/transformer.py:make_block_fn``: the explicit ZeRO-3
@@ -132,15 +159,6 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         lg = cm.logits(params["embed"], x, cfg)
         return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
-    def cache_defs(batch: int, cache_len: int) -> dict:
-        L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-        axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-        return {
-            "k": pt.ParamDef((L, batch, cache_len, KV, D), axes),
-            "v": pt.ParamDef((L, batch, cache_len, KV, D), axes),
-            "len": pt.ParamDef((), (), "int32", "zeros"),
-        }
-
     @torch.no_grad()
     def prefill(params, batch):
         """Forward over the prompt, building the KV cache; returns the last
@@ -175,19 +193,10 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         lg = cm.logits(params["embed"], x, cfg)
         return lg, {"k": cache["k"], "v": cache["v"], "len": clen + 1}
 
-    def input_specs(shape: ShapeConfig) -> dict:
-        B, S = shape.global_batch, shape.seq_len
-        if shape.kind == "decode":
-            return {"tokens": TensorSpec((B, 1), torch.int32)}
-        specs = {"tokens": TensorSpec((B, S), torch.int32)}
-        if shape.kind == "train":
-            specs["labels"] = TensorSpec((B, S), torch.int32)
-        return specs
-
     return {
         "loss": loss_fn,
         "prefill": prefill,
         "decode_step": decode_step,
-        "cache_defs": cache_defs,
+        "cache_defs": make_cache_defs(cfg),
         "input_specs": input_specs,
     }

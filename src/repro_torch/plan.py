@@ -33,8 +33,8 @@ byte for byte (``to_json``; ``tests/test_torch_plan.py`` holds it across
 the reference's scenario grid). What differs: ``HardwareSpec.detect``
 probes ``torch.cuda`` (or the host with ``device="cpu"``), and the byte
 arithmetic walks the port's ``ParamDef`` trees, which exist for the dense
-family only, so a plan for another family raises until that family is
-ported (ROADMAP.md Queue 1 items 6 and 7).
+and MoE families, so a plan for another family raises until that family
+is ported (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -297,13 +297,26 @@ def state_bytes(model: ModelConfig, shape: ShapeConfig,
         (int(s) * l.torch_dtype.itemsize for s, l in zip(sizes, leaves)),
         reverse=True))
 
-    # layer-granular view (the explicit engine's flat rows)
+    # layer-granular view (the explicit engine's flat rows). For MoE the
+    # scheduled layer row is the DENSE part only — each expert's weights are
+    # their own schedule unit, sized separately below
     n_layers = model.n_layers or (model.n_enc_layers + model.n_dec_layers) or 1
     layer_params = max(1, n_params // n_layers)
+    expert_row_params, n_experts, top_k = 0, 0, 0
     if isinstance(defs, dict) and "blocks" in defs:
+        blk_defs = defs["blocks"]
+        if model.family == "moe":
+            blk_defs = {k: v for k, v in blk_defs.items() if k != "moe"}
         per_layer = sum(math.prod(l.shape[1:]) if len(l.shape) > 1 else 1
-                        for l in pt.tree_leaves(defs["blocks"]))
+                        for l in pt.tree_leaves(blk_defs))
         layer_params = per_layer + ((-per_layer) % max(n_devices, 1))
+    if model.family == "moe":
+        from repro_torch.models import moe as moe_mod
+
+        per_e = sum(math.prod(d.shape)
+                    for d in moe_mod.expert_row_defs(model).values())
+        expert_row_params = per_e + ((-per_e) % max(n_devices, 1))
+        n_experts, top_k = model.n_experts, model.top_k
 
     hd, nl = model.d_model, n_layers
     bsz, seq = shape.global_batch, shape.seq_len
@@ -326,6 +339,9 @@ def state_bytes(model: ModelConfig, shape: ShapeConfig,
         n_layers=n_layers,
         layer_params=layer_params,
         leaf_bytes=leaf_bytes,
+        expert_row_params=expert_row_params,
+        n_experts=n_experts,
+        top_k=top_k,
     )
 
 
@@ -840,6 +856,19 @@ def plan_run(model: Union[str, ModelConfig], shape: Union[str, ShapeConfig],
         "kv_block_tokens": kv_block_tokens, "param_quant": "none",
         "expert_hot_mb": 0,
     }
+    if engine == "zero3" and model.family == "moe" and sb.n_experts:
+        er_bytes = PARAM_BYTES_PP * sb.expert_row_params
+        wave = max(1, sb.top_k)
+        hot_b = schedule.resolve_expert_hot_bytes(0, sb.top_k, er_bytes)
+        decisions.append(Decision(
+            "expert_hot_mb", "0",
+            f"hot-expert cache at the runtime default of two waves "
+            f"(2 x top_k={sb.top_k} rows of {_fmt_bytes(er_bytes)} = "
+            f"{_fmt_bytes(hot_b)}); expert residency = "
+            f"{wave} wave rows x window + cache, never all "
+            f"{sb.n_experts} experts x {sb.n_layers} layers "
+            f"({_fmt_bytes(sb.n_layers * sb.n_experts * er_bytes)}) — "
+            f"raise --expert-hot-mb to pin more popular experts"))
     if tiers["param"] == "nvme":
         decisions.append(Decision(
             "param_quant", "none",
@@ -1200,6 +1229,28 @@ def _predict(fields, sb: StateBytes, hw: HardwareSpec, model: ModelConfig,
             w_eff = min(window, sb.n_layers)
             out["peak_resident_param_bytes"] = float(
                 w_eff * PARAM_BYTES_PP * sb.layer_params)
+            if model.family == "moe" and sb.n_experts:
+                # expert residency bound: one wave (top_k rows) per window
+                # slot — prefetched-ahead expert reads only count once
+                # materialized — plus the hot-cache budget. The measured
+                # counter must stay at or below this (plan_residency_ok).
+                er_bytes = PARAM_BYTES_PP * sb.expert_row_params
+                wave = max(1, sb.top_k)
+                hot_b = schedule.resolve_expert_hot_bytes(
+                    int(fields.get("expert_hot_mb", 0) or 0), sb.top_k,
+                    er_bytes)
+                expert_peak = float(wave * w_eff * er_bytes + hot_b)
+                out["expert_peak_resident_bytes"] = expert_peak
+                out["expert_total_bytes"] = float(
+                    sb.n_layers * sb.n_experts * er_bytes)
+                # coarse hit-rate estimate: backward prefetches the exact
+                # selected set ahead of use; forward's first wave per layer
+                # races the reads it just issued (popularity prediction and
+                # the hot cache cover part of it) — assume all E experts get
+                # tokens at training batch sizes
+                out["expert_hit_rate"] = max(
+                    0.0, 1.0 - wave / (2.0 * max(sb.n_experts, 1)))
+                out["peak_resident_param_bytes"] += expert_peak
         else:
             window = int(fields["prefetch_layers"]) or max(
                 2, int(fields["read_ahead"]))

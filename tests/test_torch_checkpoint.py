@@ -7,8 +7,10 @@ migrations on the port's executor) and the corruption fallbacks of
 ``tests/test_fault_tolerance.py``; then holds the on-disk format byte for
 byte against the reference in both directions (keys, file names, file
 bytes, manifest md5s; bf16, f32 and int32 leaves; the GSPMD and the
-explicit engine's in-graph states), and shows that a leaf updated in place
-after ``save()`` returns does not reach the persisted bytes.
+explicit engine's in-graph states, a MoE layered run's rows with its
+expert rows and f32 router), and shows that a leaf updated in place after
+``save()`` returns does not reach the persisted bytes; a MoE layered run
+resumes from its checkpoint.
 """
 import dataclasses
 import json
@@ -380,3 +382,86 @@ def test_checkpoint_state_materializes_the_layered_rows(tmp_path):
     got, _ = mgr.restore(state)  # a placeholder leaf restores by its key
     assert torch.equal(got["flat"], full["flat"])
     ex.close()
+
+
+# ---------------------------------------------------------------------------
+# a MoE layered run: the expert rows (``eflat``) and the f32 router
+# ---------------------------------------------------------------------------
+
+MOE = "granite-moe-1b-a400m"
+
+
+def _moe_runs(tmp_path):
+    jrun = JRun(model=jconfigs.smoke(MOE), parallel=jmake_parallel("zero3", remat="none"),
+                offload=jmake_offload(param_tier="nvme", grad_tier="nvme", opt_tier="nvme",
+                                      nvme_dir=str(tmp_path / "jnv")))
+    trun = RunConfig(model=tconfigs.smoke(MOE), parallel=make_parallel("zero3", remat="none"),
+                     offload=make_offload(param_tier="nvme", grad_tier="nvme",
+                                          opt_tier="nvme", nvme_dir=str(tmp_path / "tnv")))
+    return jrun, trun
+
+
+def test_moe_layered_checkpoint_holds_the_reference_files_byte_for_byte(tmp_path, mesh):
+    """The layered MoE state as each executor checkpoints it (the dense and
+    expert rows materialized from its param store, the f32 router among
+    the 'other' leaves): the same files from both packages, and each
+    restores the other's bit for bit."""
+    jrun, trun = _moe_runs(tmp_path)
+    jex = jexec.InfinityExecutor(jrun, mesh)
+    jstate = jex.reseed(jex.engine.init_state(jax.random.PRNGKey(0)))
+    tex = InfinityExecutor(trun, "cpu")
+    init = jax.tree.map(np.asarray, jex.checkpoint_state(jstate))
+    tstate = tex.reseed(tex.engine.place_state(bridge.zero3_state_from_numpy(init)))
+    jfull, tfull = jex.checkpoint_state(jstate), tex.checkpoint_state(tstate)
+    keys = list(tman.flatten_with_keys(tfull))
+    assert "eflat" in keys and "other/router" in keys and "other_opt/m/router" in keys
+    jman.CheckpointManager(str(tmp_path / "j"), async_save=False).save(1, jfull, {"next_step": 1})
+    CheckpointManager(str(tmp_path / "t"), async_save=False).save(1, tfull, {"next_step": 1})
+    _same_files(str(tmp_path / "j" / "step-00000001"), str(tmp_path / "t" / "step-00000001"))
+    got, _ = CheckpointManager(str(tmp_path / "j")).restore(tstate)  # placeholders by key
+    for key, leaf in tman.flatten_with_keys(got).items():
+        assert torch.equal(_bits(leaf), _bits(tman.flatten_with_keys(tfull)[key])), key
+    jgot, _ = jman.CheckpointManager(str(tmp_path / "t")).restore(jfull)
+    for key, want in jman._flatten_with_keys(jfull).items():
+        assert jman._flatten_with_keys(jgot)[key].tobytes() == np.asarray(want).tobytes(), key
+    # the port's executor takes the reference's checkpoint back into its stores
+    back = tex.restore_state(got, step=1)
+    assert torch.equal(tex.materialize_rows()["eflat"], tfull["eflat"])
+    assert not isinstance(back["eflat"], torch.Tensor)
+    jex.close()
+    tex.close()
+
+
+def test_moe_layered_run_resumes_from_its_checkpoint(tmp_path, monkeypatch, capsys):
+    """``--resume auto`` on the MoE layered epoch: a failure at step 3
+    restarts from the step-2 checkpoint (rows, router and 'other' states
+    restored bit for bit, the streamed moments at zero), so the redone
+    step 2 repeats the uninterrupted run's loss to the bit and the run
+    trains on."""
+    from repro_torch.launch import train as ttrain
+
+    argv = ["--arch", MOE, "--smoke", "--device", "cpu", "--engine", "zero3",
+            "--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme",
+            "--steps", "5", "--batch", "2", "--seq", "16", "--lr", "3e-3", "--log-every", "1"]
+
+    def run(extra, fail_at=None):
+        monkeypatch.delenv("REPRO_FAIL_AT_STEP", raising=False)
+        if fail_at is not None:
+            monkeypatch.setenv("REPRO_FAIL_AT_STEP", str(fail_at))
+            monkeypatch.setenv("REPRO_FAIL_MARKER", str(tmp_path / "marker"))
+        a = argv + extra
+        return ttrain.train(ttrain.build_argparser().parse_args(a), a)
+
+    ref = run(["--ckpt-every", "0", "--nvme-dir", str(tmp_path / "rnv"),
+               "--ckpt-dir", str(tmp_path / "rck")])
+    hist = run(["--ckpt-every", "2", "--resume", "auto", "--nvme-dir", str(tmp_path / "nv"),
+                "--ckpt-dir", str(tmp_path / "ck")], fail_at=3)
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint at step 2" in out and hist["restarts"] == 1
+    assert [m["step"] for m in hist["metrics"]] == [0, 1, 2, 2, 3, 4]
+    assert hist["losses"][:3] == ref["losses"][:3]
+    assert hist["losses"][3] == ref["losses"][2]
+    assert np.isfinite(hist["losses"]).all()
+    for m in hist["metrics"]:
+        assert 0 < m["expert_peak_resident_bytes"] < m["expert_total_bytes"]
+        assert len(m["moe_expert_load"]) == tconfigs.smoke(MOE).n_experts

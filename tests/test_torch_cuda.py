@@ -646,3 +646,27 @@ def test_detect_reports_the_card(cuda):
     assert hw.n_devices == torch.cuda.device_count() >= 1 and hw.source == "detected"
     assert hw.device_mem == torch.cuda.mem_get_info(0)[1] > 0
     assert hw.host_mem > 0 and hw.nvme_capacity >= 0
+
+
+@pytest.mark.cuda
+def test_moe_layer_repeats_to_the_bit_on_the_card(cuda):
+    """One full-width granite-moe-1b-a400m layer at the training shape, loss
+    and gradients twice from the same weights and batch: equal bits (the
+    combine and the dispatch's backward gather in a fixed order; no
+    atomics). ``phase_moe_repeat`` raises on any differing leaf."""
+    rec = _chip_smoke().phase_moe_repeat()
+    assert rec["differing"] == [] and rec["leaves"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gspmd", "layered"])
+def test_moe_steps_on_the_card_match_the_cpu(cuda, kind):
+    """granite-moe-1b-a400m at full width cut to 2 layers: 2 steps of the
+    GSPMD step (all on the device) and of the layered epoch (every state on
+    NVMe, expert rows paged), card against CPU from the same weights and
+    batches, by chip_smoke.py's row and master bounds
+    (``phase_moe_numerics`` raises beyond them)."""
+    rec = _chip_smoke().phase_moe_numerics(kind)
+    assert rec["masters_worst_diff_over_drift"] <= 1.0
+    assert rec["params_worst_diff_over_bound"] <= 1.0
+    assert rec["bulk_mean_abs_diff"] <= rec["params_mean_bound"]

@@ -222,8 +222,28 @@ SCENARIOS = {
     "h100_grads_to_host": ("smollm-135m", (512, 8, "train"),
                            dict(n_devices=1, device_mem=1.2e9, host_mem=103e9,
                                 nvme_capacity=1e12), {}),
+    # MoE: the all-device plan chip_smoke trains, the layered epoch (expert
+    # rows as schedule units, the expert_hot_mb decision and the residency
+    # predictions), and the override checks that guard explicit-engine MoE
+    "moe_h100_train": ("granite-moe-1b-a400m", (512, 8, "train"),
+                       dict(n_devices=1, device_mem=85e9, host_mem=103e9,
+                            nvme_capacity=1e12), {}),
+    "moe_h100_layered": ("granite-moe-1b-a400m", (512, 8, "train"),
+                         dict(n_devices=1, device_mem=3e9, host_mem=103e9,
+                              nvme_capacity=1e12), {}),
+    "moe_zero3_nvme": ("granite-moe-1b-a400m", "train_4k", _NVME,
+                       {"overrides": {"engine": "zero3", "param_tier": "nvme"}}),
+    "moe_zero3_hot_mb": ("granite-moe-1b-a400m", "train_4k", _NVME,
+                         {"overrides": {"engine": "zero3", "param_tier": "nvme",
+                                        "expert_hot_mb": 64}}),
+    "moe_zero3_window": ("llama4-scout-17b-a16e", "train_4k", _NVME,
+                         {"overrides": {"engine": "zero3", "param_tier": "nvme",
+                                        "prefetch_layers": 3}}),
+    "moe_serve": ("granite-moe-1b-a400m", (512, 8, "decode"),
+                  dict(n_devices=1, device_mem=85e9, host_mem=103e9), {}),
 }
-for _arch in ("smollm-135m", "llama3.2-3b", "gemma-7b"):
+for _arch in ("smollm-135m", "llama3.2-3b", "gemma-7b", "granite-moe-1b-a400m",
+              "llama4-scout-17b-a16e"):
     for _shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         for _hw_name, _hw in (("roomy", _ROOMY), ("nvme", _NVME),
                               ("one_h100", dict(n_devices=1, device_mem=85e9,
@@ -268,7 +288,8 @@ def test_lowered_run_config_equals_reference(name):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b", "gemma-7b",
-                                  "nemotron-4-340b"])
+                                  "nemotron-4-340b", "granite-moe-1b-a400m",
+                                  "llama4-scout-17b-a16e"])
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 @pytest.mark.parametrize("n_devices", [1, 16])
 def test_state_bytes_fields_equal_reference(arch, shape, n_devices):
@@ -277,21 +298,37 @@ def test_state_bytes_fields_equal_reference(arch, shape, n_devices):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
+def _bad_override_errors(arch, shape, overrides, match):
+    errs = []
+    for mod, cfgs, shp in ((tplan, tconfigs, TShape), (jplan, jconfigs, JShape)):
+        with pytest.raises(ValueError, match=match) as e:
+            mod.plan_run(cfgs.get(arch), shp("s", *shape),
+                         mod.HardwareSpec(**_NVME), overrides=overrides)
+        errs.append(str(e.value))
+    return errs
+
+
 @pytest.mark.parametrize("overrides,match", [
     ({"nope": 1}, "unknown plan override"), ({"param_quant": "q2"}, "param_quant"),
     ({"kv_tier": "floppy"}, "kv_tier")])
 def test_bad_overrides_raise_as_the_reference(overrides, match):
     shape = (64, 8, "decode") if "kv_tier" in overrides else (4096, 256, "train")
-    errs = []
-    for mod, cfgs, shp in ((tplan, tconfigs, TShape), (jplan, jconfigs, JShape)):
-        with pytest.raises(ValueError, match=match) as e:
-            mod.plan_run(cfgs.get("smollm-135m"), shp("s", *shape),
-                         mod.HardwareSpec(**_NVME), overrides=overrides)
-        errs.append(str(e.value))
+    errs = _bad_override_errors("smollm-135m", shape, overrides, match)
     assert errs[0] == errs[1]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch,param", [("granite-moe-1b-a400m", "device"),
+                                        ("llama4-scout-17b-a16e", "host")])
+def test_moe_zero3_override_without_nvme_params_raises_as_the_reference(arch, param):
+    """Explicit-engine MoE exists only as the layered epoch: a plan override
+    to zero3 with params off NVMe raises the reference's words."""
+    errs = _bad_override_errors(arch, (4096, 256, "train"),
+                                {"engine": "zero3", "param_tier": param},
+                                "param_tier='nvme'")
+    assert errs[0] == errs[1]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "seamless-m4t-medium"])
 def test_families_without_port_defs_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         tplan.plan_run(tconfigs.get(arch), "train_4k", tplan.HardwareSpec(**_NVME))
