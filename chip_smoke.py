@@ -10,8 +10,11 @@ placement it derives for a starved one), then through the explicit
 engine's monolithic step (``--engine zero3`` with params on the device or
 the pinned host tier) and a restart drill that resumes from a checkpoint,
 then trains granite-moe-1b-a400m under ``--plan auto`` and through the
-layered epoch with its expert rows paged from NVMe, checks the outputs,
-and prints one JSON line per the contract below.
+layered epoch with its expert rows paged from NVMe, then the fixed-state
+families: flash attention with recurrentgemma's local window, full
+recurrentgemma-9b and mamba2-370m served, recurrentgemma at full width
+(5 layers) and full mamba2 trained under ``--plan auto``, checks the
+outputs, and prints one JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -110,13 +113,45 @@ Phases (any failure exits non-zero; no phase is caught):
       its router-selected expert rows paged from NVMe with 0 < peak
       resident expert bytes < all expert bytes (``moe layered``); its flash
       forward and backward shapes are checked in phase 7 (``FLASH_MOE``);
-  19. the kernels JSON line, then the device JSON line last.
+  19. flash attention with a local window (``window`` > 0: query i sees
+      key j only if j > i + (Sk - Sq) - window), forward and backward
+      against the windowed plain version by ``TOL``, bf16 and f32, at
+      recurrentgemma-9b's heads over 4096 tokens with its window of 2048
+      (head_dim 256: the CUDA cores), at (8,9,3,1024,64) with a window of
+      256 (the tensor cores), both timed in bf16 beside their bound (the
+      pairs the window keeps), the plain version and SDPA with the window
+      as a boolean mask, and at 2500 tokens past a window of 2048 on both
+      routes (``FLASH_WINDOW``, ``FLASH_WINDOW_RAGGED``);
+  20. recurrent numerics: the GSPMD step all on the device, card against
+      CPU by phase 11's bounds, on mamba2-370m at full width cut to 2
+      layers (4 x 256 tokens) and recurrentgemma-9b at full width cut to 3
+      layers (one group, 1,705,070,592 params; 2 x 128 tokens);
+  21. hybrid serve: full recurrentgemma-9b (38 layers, 9,396,301,824
+      params on the device), 8 sequences through 4 slots, prompt 2560 (past
+      the window: the K/V rings roll at prefill and wrap), 16 new tokens,
+      waiting caches parked whole on the host tier; decode and prefill
+      tokens/s and TTFT p50/p99;
+  22. hybrid plan train: ``--plan auto`` on recurrentgemma-9b at full width
+      cut to ``HYBRID_TRAIN_LAYERS`` (5: one group and the two-block tail,
+      2,174,906,368 params), 4 steps of 1 x 4096 tokens (past the window,
+      so the windowed backward runs), loss falling;
+  23. ssm serve / ssm plan train: full mamba2-370m (48 layers, 369,169,920
+      params) served at the serve host cell's sizes (8 sequences, 4 slots,
+      prompt 512, 32 new tokens) and trained 4 steps of 8 x 512 tokens
+      under ``--plan auto``;
+  24. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18) each flash-attention launch,
-forward and backward (the recompute under ``remat="full"`` included), each
-tiled-matmul launch and each quantized-matmul launch, forward and dX, must
-be on the tensor-core route (``*_wgmma``), none on ``simt``; ``plan_residency_ok``
-must be true wherever a step reports it.
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18, 21, 22, 23) each
+flash-attention launch, forward and backward (the recompute under
+``remat="full"`` included), each tiled-matmul launch and each
+quantized-matmul launch, forward and dX, must be on the tensor-core route
+(``*_wgmma``), none on ``simt``, with one stated exception: flash attention
+at head_dim 192 or 256 runs on the CUDA cores (ROADMAP.md Queue 2 item 2
+(a)), so the hybrid paths' flash launches are all ``simt``, exactly one per
+attention layer (forward, its recompute, backward) and each with the
+window; mamba2's paths launch no flash and no tiled matmul (its products
+are the reference's einsums outside Pallas). ``plan_residency_ok`` must be
+true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -216,6 +251,20 @@ FLASH_WIDE = [(1, 16, 16, 512, 512, 256), (1, 96, 8, 256, 256, 192)]
 # --seq 512 (16 query heads over 8 KV heads, head_dim 64: the tensor cores)
 MOE_ARCH = "granite-moe-1b-a400m"
 FLASH_MOE = (8, 16, 8, 512, 512, 64)
+# flash with a local window, (shape, window): recurrentgemma-9b's attention
+# (16 query heads over one KV head, head_dim 256: the CUDA cores) at the
+# hybrid training cell's 4096 tokens with its window of 2048, the tensor-core
+# route at smollm-width heads over 1024 tokens with a window of 256, and
+# ragged lengths past the window on both routes (untimed)
+FLASH_WINDOW = [((1, 16, 1, 4096, 4096, 256), 2048), ((8, 9, 3, 1024, 1024, 64), 256)]
+FLASH_WINDOW_RAGGED = [((1, 16, 1, 2500, 2500, 256), 2048), ((2, 4, 2, 2500, 2500, 64), 2048)]
+# the fixed-state families: recurrentgemma-9b (hybrid: RG-LRU blocks and
+# local attention, head_dim 256) and mamba2-370m (ssm: chunked SSD, no
+# attention and no MLP); the hybrid trains at full width cut to one group
+# and the two-block tail
+HYBRID_ARCH = "recurrentgemma-9b"
+SSM_ARCH = "mamba2-370m"
+HYBRID_TRAIN_LAYERS = 5
 # The flash backward's bf16 gradients: one output ulp (2^-7 |plain|) plus,
 # inside dV, the rare p rounded to bf16 one ulp apart in kernel and plain
 # version (lse and the f32 scores differ in the last bits): 2^-9 of the
@@ -311,7 +360,25 @@ def compare(name, shape, dtype, out, plain, mag) -> dict:
     return rec
 
 
-def check_flash(shape, dtype, gen, timed: bool) -> dict:
+def causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
+    """(query, key) pairs a causal head keeps: query i sees keys
+    j <= i + (Sk - Sq) and, under a window, j > i + (Sk - Sq) - window."""
+    off = Sk - Sq
+    return sum(min(Sk, i + off + 1) - (max(0, i + off - window + 1) if window else 0)
+               for i in range(Sq))
+
+
+def sdpa(q, k, v, window: int = 0):
+    """The library's attention on the same inputs: causal, or under a
+    window the plain version's boolean mask."""
+    if not window:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    mask = ref.visible(q.shape[2], k.shape[2], True, window, q.device)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def check_flash(shape, dtype, gen, timed: bool, window: int = 0,
+                name: str = "flash_attention") -> dict:
     B, H, KV, Sq, Sk, D = shape
     # unit-variance q and k give scores of unit variance (peaked softmax) and
     # outputs of O(1); (B,S,H,D) storage passed as strided (B,H,S,D) views,
@@ -319,24 +386,30 @@ def check_flash(shape, dtype, gen, timed: bool) -> dict:
     q = randn((B, Sq, H, D), dtype, gen, 1.0).transpose(1, 2)
     k = randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2)
     v = randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2)
-    out, rec_route = routed_flash(lambda: ops.flash_attention(q, k, v, causal=True), (q, k, v))
-    plain = ref.attention_ref(q, k, v, causal=True)
-    mag = ref.attention_ref(q, k, v.abs(), causal=True)
+    out, rec_route = routed_flash(
+        lambda: ops.flash_attention(q, k, v, causal=True, window=window), (q, k, v),
+        window=window)
+    plain = ref.attention_ref(q, k, v, causal=True, window=window)
+    mag = ref.attention_ref(q, k, v.abs(), causal=True, window=window)
     torch.cuda.synchronize()
     rec = compare("flash_attention", shape, dtype, out, plain, mag)
     rec.update(rec_route)
+    if window:
+        rec["window"] = window
     if timed:
-        # causal: query i needs keys j <= i + (Sk - Sq), the work this run does
-        pairs = sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq)) * B * H
+        # the pairs the mask keeps: the work this run does
+        pairs = causal_pairs(Sq, Sk, window) * B * H
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * D * pairs, dtype)
-        rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
-        rec["call_ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True), queued=False)
-        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_cuda(q, k, v, simt=True))
-        rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, causal=True))
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-        check_speedup("flash_attention", shape, rec)
+        rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, window=window))
+        rec["call_ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                             window=window), queued=False)
+        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_cuda(q, k, v, window=window,
+                                                                   simt=True))
+        rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, causal=True,
+                                                            window=window))
+        rec["library_ms"] = time_ms(lambda: sdpa(q, k, v, window))
+        check_speedup(name, shape, rec)
     return rec
 
 
@@ -353,7 +426,7 @@ def routed(key: str, fn, want: str):
     return out
 
 
-def routed_flash(fn, inputs, bwd: bool = False) -> tuple:
+def routed_flash(fn, inputs, bwd: bool = False, window: int = 0) -> tuple:
     """A flash-attention call on the route ``flash_attention.route`` names
     for ``inputs`` (``routed``), and the plan of a tensor-core launch."""
     want = tfa.route(*inputs)
@@ -362,7 +435,7 @@ def routed_flash(fn, inputs, bwd: bool = False) -> tuple:
     if want == "wgmma":
         (B, H, Sq, _), (_, KV, Sk, _) = inputs[0].shape, inputs[1].shape
         p = tfa.plan(B, H, KV, Sq, Sk, sms=torch.cuda.get_device_properties(0)
-                     .multi_processor_count)
+                     .multi_processor_count, window=window)
         rec["plan"] = {kern: {k: p[kern][k] for k in ("tile", "blocks", "blocks_per_sm")}
                        for kern in (("dkdv", "dq") if bwd else ("fwd",))}
     return out, rec
@@ -485,39 +558,44 @@ def check_tiled_t(case, dtype, gen, timed: bool) -> dict:
     return rec
 
 
-def check_flash_bwd(shape, dtype, gen, timed: bool) -> dict:
+def check_flash_bwd(shape, dtype, gen, timed: bool, window: int = 0,
+                    name: str = "flash_attention_bwd") -> dict:
     """dq, dk, dv of the kernel against ``ref.attention_bwd_ref`` from the
     same saved o and lse (the kernel forward's), strided (B,S,H,D) views."""
     B, H, KV, Sq, Sk, D = shape
     q, do = (randn((B, Sq, H, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
     k, v = (randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
-    o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
-    got, rec_route = routed_flash(
-        lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True), (q, k, v, do),
-        bwd=True)
-    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=window, with_lse=True)
+
+    def kernel(simt=False):
+        return tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window,
+                                            simt=simt)
+
+    got, rec_route = routed_flash(kernel, (q, k, v, do), bwd=True, window=window)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
     torch.cuda.synchronize()
     recs = [compare("flash_attention_bwd", shape, dtype, g, w, w.float().abs().max())
             for g, w in zip(got, want)]
     rec = {"shape": list(shape), "dtype": recs[0]["dtype"], "tol": recs[0]["tol"],
            "max_abs_err": max(r["max_abs_err"] for r in recs),
            "worst_err_over_tol": max(r["worst_err_over_tol"] for r in recs), **rec_route}
+    if window:
+        rec["window"] = window
     if timed:
-        pairs = sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq)) * B * H
+        pairs = causal_pairs(Sq, Sk, window) * B * H
         nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()  # q o dO dq; k v dk dv
                   + lse.numel() * 4)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * D * pairs, dtype)
-        rec["ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do))
-        rec["call_ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do),
-                                 queued=False)
-        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                                      simt=True))
-        rec["plain_ms"] = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do))
+        rec["ms"] = time_ms(kernel)
+        rec["call_ms"] = time_ms(kernel, queued=False)
+        rec["simt_ms"] = time_ms(lambda: kernel(simt=True))
+        rec["plain_ms"] = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do,
+                                                                window=window))
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        out = sdpa(qg, kg, vg, window)
         rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-        check_speedup("flash_attention_bwd", shape, rec)
+        check_speedup(name, shape, rec)
     return rec
 
 
@@ -812,15 +890,40 @@ ROUTED = ("flash_attention", "flash_attention_bwd", "tiled_matmul", "quantized_m
           "quantized_matmul_dx")
 
 
-def check_main_path_routes(tag, launches) -> None:
+def check_main_path_routes(tag, launches, cfg=None) -> None:
     """Every flash-attention (forward and backward), tiled-matmul and
     quantized-matmul (forward and dX) launch of a main path is a
-    tensor-core one."""
+    tensor-core one, with one stated exception: flash attention at
+    head_dim 192 or 256 (recurrentgemma-9b's heads) runs on the CUDA cores,
+    all of it (ROADMAP.md Queue 2 item 2 (a))."""
     for name in ROUTED:
-        if launches[f"{name}_simt"] or launches[f"{name}_wgmma"] != launches[name]:
+        want = "wgmma"
+        if name.startswith("flash") and cfg is not None \
+                and cfg.resolved_head_dim not in tfa.WGMMA_HEAD_DIMS:
+            want = "simt"
+        other = "simt" if want == "wgmma" else "wgmma"
+        if launches[f"{name}_{other}"] or launches[f"{name}_{want}"] != launches[name]:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times, "
                              f"{launches[f'{name}_wgmma']} on wgmma and "
-                             f"{launches[f'{name}_simt']} on simt; want all on wgmma")
+                             f"{launches[f'{name}_simt']} on simt; want all on {want}")
+
+
+def attention_layers(cfg) -> int:
+    """The attention blocks of one forward: every layer of a dense or MoE
+    model, one per (rec, rec, attn) group of the hybrid, none in mamba2."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // len(cfg.block_pattern)
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def check_window_launches(tag, launches, cfg) -> None:
+    """A windowed model's flash launches all carry its window; no other
+    model's does."""
+    for name in ("flash_attention", "flash_attention_bwd"):
+        want = launches[name] if cfg.window else 0
+        if launches[f"{name}_window"] != want:
+            raise SystemExit(f"FAIL {tag}: {launches[f'{name}_window']} windowed {name} "
+                             f"launches of {launches[name]}; want {want}")
 
 
 def phase_e2e(arch: str = "smollm-135m") -> dict:
@@ -915,15 +1018,21 @@ def summarize(tag, argv, out, launches, wall, arch="smollm-135m") -> dict:
                                      <= 0.54 * out["kv"]["out_bytes"]):
         raise SystemExit(f"FAIL {tag}: q8 KV parked {out['kv']['out_wire_bytes']} wire "
                          f"bytes for {out['kv']['out_bytes']} logical")
-    L = cfg.n_layers
-    if launches["flash_attention"] < L * waves:
+    L, A = cfg.n_layers, attention_layers(cfg)
+    if launches["flash_attention"] < A * waves:
         raise SystemExit(f"FAIL {tag}: flash_attention launched "
-                         f"{launches['flash_attention']} < {L} x {waves} waves")
-    if cfg.family == "dense" and launches["tiled_matmul"] < 3 * L * (waves + out["steps"]):
+                         f"{launches['flash_attention']} < {A} x {waves} waves")
+    if cfg.family in ("hybrid", "ssm") and launches["flash_attention"] != A * (waves + 1):
+        # exactly the attention layers of each wave and of the warm-up prefill
+        raise SystemExit(f"FAIL {tag}: flash_attention launched "
+                         f"{launches['flash_attention']} times; want {A} x ({waves} + 1)")
+    if cfg.family in ("dense", "hybrid") and \
+            launches["tiled_matmul"] < 3 * L * (waves + out["steps"]):
         raise SystemExit(f"FAIL {tag}: tiled_matmul launched "
                          f"{launches['tiled_matmul']} < {3 * L} x "
                          f"({waves} waves + {out['steps']} steps)")
-    check_main_path_routes(tag, launches)
+    check_main_path_routes(tag, launches, cfg)
+    check_window_launches(tag, launches, cfg)
     for g in out["generated"]:
         if any(not 0 <= tok < cfg.padded_vocab() for tok in g):
             raise SystemExit(f"FAIL {tag}: token outside the padded vocab: {g}")
@@ -940,16 +1049,19 @@ def _gspmd_run(cfg, nvme_dir, steps, placement) -> RunConfig:
         train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
 
 
-def phase_gspmd_numerics(placement: str = "in_graph") -> dict:
-    """Full-width smollm-135m cut to 2 layers: 2 steps of the GSPMD engine
-    on the card (kernels) and on the CPU (plain versions), same weights and
-    batches, in one of ``GSPMD_PLACEMENTS``; loss and grad norm by
-    ``TRAIN_TOL``, the f32 masters (in the state in-graph, read back from
-    the optimizer store off-graph) by the drift bound, the params by it
-    plus each side's bf16 rounding, their mean by 2^-5 * sum(lr)."""
-    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
-    B, S, steps = 4, 256, 2
-    base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{placement}")
+def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
+                         layers: int = 2, B: int = 4, S: int = 256,
+                         tag: str = "gspmd numerics") -> dict:
+    """Full-width ``arch`` cut to ``layers`` layers: 2 steps of the GSPMD
+    engine on the card (kernels) and on the CPU (plain versions), same
+    weights and batches (B x S tokens), in one of ``GSPMD_PLACEMENTS``;
+    loss and grad norm by ``TRAIN_TOL``, the f32 masters (in the state
+    in-graph, read back from the optimizer store off-graph) by the drift
+    bound, the params by it plus each side's bf16 rounding, their mean by
+    2^-5 * sum(lr)."""
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    steps = 2
+    base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{arch}_{placement}")
     params0 = None
     out = {}
     for dev in ("cpu", "cuda"):
@@ -979,37 +1091,44 @@ def phase_gspmd_numerics(placement: str = "in_graph") -> dict:
     drift = adam.parity_bound(TrainConfig(), lrs)
     diff = (p_g - p_c).abs()
     allowed = drift + 2**-8 * (p_c.abs() + p_g.abs())
-    rec = {"placement": placement, "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
-           "layers": 2, "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
+    rec = {"arch": arch, "placement": placement,
+           "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
+           "layers": layers, "n_params": registry.build(cfg).n_params(),
+           "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
            "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "params_max_abs_diff": diff.max().item(), "params_mean_abs_diff": diff.mean().item(),
            "params_worst_diff_over_bound": (diff / allowed).max().item(),
            "masters_max_abs_diff": (m_g - m_c).abs().max().item(),
            "masters_worst_diff_over_drift": (m_g - m_c).abs().max().item() / drift,
            "params_max_bound": drift, "params_mean_bound": 2**-5 * sum(lrs)}
-    say("gspmd numerics:", json.dumps(rec))
+    say(f"{tag}:", json.dumps(rec))
     for c, g in zip(tc, tg):
         for key in ("loss", "grad_norm"):
             if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
-                raise SystemExit(f"FAIL gspmd numerics ({placement}): card {key} {g[key]} "
+                raise SystemExit(f"FAIL {tag} ({arch}, {placement}): card {key} {g[key]} "
                                  f"vs CPU {c[key]}")
     if not rec["masters_max_abs_diff"] <= drift or not bool((diff <= allowed).all()) \
             or not rec["params_mean_abs_diff"] <= rec["params_mean_bound"]:
-        raise SystemExit(f"FAIL gspmd numerics ({placement}): params differ beyond the "
+        raise SystemExit(f"FAIL {tag} ({arch}, {placement}): params differ beyond the "
                          f"bound: {rec}")
     return rec
 
 
-def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m") -> tuple:
-    """``launch.train --plan auto`` on full ``arch`` at the training
-    cell's shape; ``extra`` adds flags (``--hw-device-mem``). Counters
-    zeroed just before and read just after. A MoE model's steps also
-    report the routing's dropped fraction and (E,) expert load."""
+def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m", batch: int = 8,
+                     seq: int = 512, layers: int = 0) -> tuple:
+    """``launch.train --plan auto`` on ``arch`` at full width (its depth cut
+    to ``layers`` when given) at the training cell's shape (``batch`` x
+    ``seq``); ``extra`` adds flags (``--hw-device-mem``). Counters zeroed
+    just before and read just after. A MoE model's steps also report the
+    routing's dropped fraction and (E,) expert load."""
     cfg = configs.get(arch)
-    L, steps = cfg.n_layers, 4
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        extra = extra + ["--layers", str(layers)]
+    L, A, steps = cfg.n_layers, attention_layers(cfg), 4
     nvme = os.path.join(ROOT, "build", "chip_smoke_" + tag.replace(" ", "_"))
     shutil.rmtree(nvme, ignore_errors=True)
-    argv = ["--arch", arch, "--plan", "auto", "--batch", "8", "--seq", "512",
+    argv = ["--arch", arch, "--plan", "auto", "--batch", str(batch), "--seq", str(seq),
             "--steps", str(steps), "--lr", "3e-3", "--nvme-dir", nvme,
             "--log-every", "1"] + extra
     trace.enable()
@@ -1045,7 +1164,8 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m") -> tuple:
                     "source": plan.hardware.source, "warnings": list(plan.warnings)},
            "opt_offgraph": run.opt_offgraph, "first_loss": losses[0], "last_loss": losses[-1],
            "median_step_s_after_first": median,
-           "median_tokens_per_s_after_first": 8 * 512 / median, "n_leaves": n_leaves}
+           "median_tokens_per_s_after_first": batch * seq / median, "n_leaves": n_leaves,
+           "n_params": registry.build(cfg).n_params(), "layers": L}
     say(f"{tag}:", json.dumps(rec))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
@@ -1056,11 +1176,18 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m") -> tuple:
         if "plan_residency_ok" in m and m["plan_residency_ok"] is not True:
             raise SystemExit(f"FAIL {tag}: plan_residency_ok false at step {m['step']}")
     remat = plan.remat == "full"
-    want = {"flash_attention": (2 if remat else 1) * L * steps,
-            "flash_attention_bwd": L * steps}
-    if cfg.family == "dense":
+    want = {"flash_attention": (2 if remat else 1) * A * steps,
+            "flash_attention_bwd": A * steps}
+    if cfg.family in ("hybrid", "ssm"):
+        # exactly the attention layers' launches: forward (again under
+        # remat="full") and backward, every step
+        for name, n in want.items():
+            if launches[name] != n:
+                raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times; "
+                                 f"want {n}")
+    if cfg.family in ("dense", "hybrid"):
         want["tiled_matmul"] = ((6 if remat else 3) + 6) * L * steps
-    else:
+    elif cfg.family == "moe":
         for m in hist["metrics"]:
             load = m["moe_expert_load"]
             if not (0.0 <= m["moe_dropped_token_fraction"] <= 1.0
@@ -1081,7 +1208,8 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m") -> tuple:
     for name, n in want.items():
         if launches[name] < n:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
-    check_main_path_routes(tag, launches)
+    check_main_path_routes(tag, launches, cfg)
+    check_window_launches(tag, launches, cfg)
     return rec, launches
 
 
@@ -1604,6 +1732,52 @@ def phase_moe_repeat() -> dict:
     return rec
 
 
+def phase_flash_window() -> dict:
+    """Flash attention with a local window, forward and backward, against
+    the windowed plain version (``TOL``, bf16 and f32) at ``FLASH_WINDOW``
+    (bf16 timed: kernel, CUDA-core kernel, plain version, SDPA with the
+    window as a boolean mask, bound over the pairs the window keeps) and
+    ``FLASH_WINDOW_RAGGED``; routes held: head_dim 256 on the CUDA cores,
+    64 on the tensor cores."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    fwd, bwd = [], []
+    for i, (shape, window) in enumerate(FLASH_WINDOW + FLASH_WINDOW_RAGGED):
+        timed = i < len(FLASH_WINDOW)
+        for dt in (bf16, f32):
+            fwd.append(check_flash(shape, dt, gen, timed and dt == bf16, window,
+                                   name="flash_attention_window"))
+            bwd.append(check_flash_bwd(shape, dt, gen, timed and dt == bf16, window,
+                                       name="flash_attention_bwd_window"))
+    check_flash_routes(fwd + bwd)
+    for rec in fwd + bwd:
+        say("window kernel check:", json.dumps(rec))
+    return {"flash_attention_window": fwd, "flash_attention_bwd_window": bwd}
+
+
+def phase_family_serve(tag: str, arch: str, prompt: int, new: int) -> tuple:
+    """``launch.serve`` on full ``arch``: 8 sequences through 4 device
+    slots, waiting caches parked whole on the host tier, every slot at its
+    own length. Counters zeroed just before and read just after."""
+    argv = ["--arch", arch, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
+            "--prompt-len", str(prompt), "--new-tokens", str(new)]
+    out, launches, wall = run_serve(argv)
+    rec = summarize(tag, argv, out, launches, wall, arch=arch)
+    cfg = configs.get(arch)
+    if any(len(g) != new for g in out["generated"]):
+        raise SystemExit(f"FAIL {tag}: not every sequence produced its {new} tokens")
+    per_seq = kvcache.sequence_kv_bytes(cfg, prompt + new) - 4  # less the len leaf
+    if out["kv"]["out_bytes"] != out["admissions"] * per_seq:
+        raise SystemExit(f"FAIL {tag}: parked {out['kv']['out_bytes']} B for "
+                         f"{out['admissions']} caches of {per_seq} B")
+    rec["n_params"] = registry.build(cfg).n_params()
+    rec["cache_bytes_per_seq"] = per_seq
+    say(f"{tag} summary:", json.dumps({k: rec[k] for k in (
+        "n_params", "cache_bytes_per_seq", "prefill_tok_s", "decode_tok_s", "ttft_p50_s",
+        "ttft_p99_s", "decode_token_p50_s", "wall_s")}))
+    return rec, launches
+
+
 def count_hgmma(name: str) -> int:
     """Warpgroup MMA instructions (HGMMA) in a built kernel library, read
     with the toolkit's cuobjdump; fails when there are none."""
@@ -1687,6 +1861,16 @@ def main() -> int:
     moe_serve_rec, moe_serve_launches = phase_moe_serve()
     moe_plan_rec, moe_plan_launches = phase_plan_train("moe plan train", [], arch=MOE_ARCH)
     moe_layered_rec, moe_layered_launches = phase_moe_layered()
+    train_checks.update(phase_flash_window())
+    recurrent = {arch: phase_gspmd_numerics("in_graph", arch, layers, B, S,
+                                            tag="recurrent numerics")
+                 for arch, layers, B, S in ((SSM_ARCH, 2, 4, 256), (HYBRID_ARCH, 3, 2, 128))}
+    hybrid_serve_rec, hybrid_serve_launches = phase_family_serve(
+        "hybrid serve", HYBRID_ARCH, 2560, 16)
+    hybrid_train_rec, hybrid_train_launches = phase_plan_train(
+        "hybrid plan train", [], arch=HYBRID_ARCH, batch=1, seq=4096, layers=HYBRID_TRAIN_LAYERS)
+    ssm_serve_rec, ssm_serve_launches = phase_family_serve("ssm serve", SSM_ARCH, 512, 32)
+    ssm_train_rec, ssm_train_launches = phase_plan_train("ssm plan train", [], arch=SSM_ARCH)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -1701,14 +1885,26 @@ def main() -> int:
                                     "src/repro/kernels/tiled_matmul.py:92"),
                "quantized_matmul_dx": ("src/repro_torch/csrc/quantized_matmul.cu",
                                        "none: the TPU kernel has no dX orientation "
-                                       "(src/repro/kernels/tiled_matmul.py:92)")}
+                                       "(src/repro/kernels/tiled_matmul.py:92)"),
+               "flash_attention_window": ("src/repro_torch/csrc/flash_attention.cu",
+                                          "src/repro/kernels/flash_attention.py:65 with the "
+                                          "window of src/repro/models/common.py:166 (jnp "
+                                          "chunked attention, outside Pallas)"),
+               "flash_attention_bwd_window": ("src/repro_torch/csrc/flash_attention.cu",
+                                              "none: the TPU kernel has no backward; the "
+                                              "window of src/repro/models/common.py:166")}
     serve_launches = {"flash_attention": launches, "tiled_matmul": launches}
     # each kernel's main path: the q8 training run for the quantized kernel,
     # the bf16 training run for the others
     # fused Adam's: the explicit in-graph step, where it updates the flat
+    # the windowed flash kernels': the hybrid's training run (forward and
+    # backward; its serving run adds forwards)
     main_launches = {**train_launches, "quantized_matmul": q8_launches["quantized_matmul"],
                      "quantized_matmul_dx": q8_launches["quantized_matmul_dx"],
-                     "fused_adam": z3_launches["fused_adam"]}
+                     "fused_adam": z3_launches["fused_adam"],
+                     "flash_attention_window": hybrid_train_launches["flash_attention_window"],
+                     "flash_attention_bwd_window":
+                         hybrid_train_launches["flash_attention_bwd_window"]}
     # every main path's launch counters, each zeroed just before its run
     paths = {"train": train_launches, "train_q8": q8_launches, "serve_host": launches,
              "serve_nvme": nvme_launches, "serve_nvme_q8": q8kv_launches,
@@ -1716,7 +1912,9 @@ def main() -> int:
              "plan_serve": plan_serve_launches, "zero3_train": z3_launches,
              "zero3_offload": z3o_launches, "zero3_host": z3h_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
-             "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches}
+             "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
+             "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
+             "ssm_serve": ssm_serve_launches, "ssm_plan_train": ssm_train_launches}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -1769,7 +1967,16 @@ def main() -> int:
         f"{moe_plan_rec['median_tokens_per_s_after_first']:.0f} tok/s; moe layered "
         f"{moe_layered_rec['first_loss']:.4f} -> {moe_layered_rec['last_loss']:.4f}, "
         f"expert peak {moe_layered_rec['expert_peak_resident_bytes']} of "
-        f"{moe_layered_rec['expert_total_bytes']} B)")
+        f"{moe_layered_rec['expert_total_bytes']} B; recurrent numerics params "
+        f"{max(r['params_worst_diff_over_bound'] for r in recurrent.values()):.3f} of bound; "
+        f"hybrid serve {hybrid_serve_rec['decode_tok_s']:.0f} decode tok/s, "
+        f"{hybrid_serve_rec['prefill_tok_s']:.0f} prefill tok/s, TTFT p50 "
+        f"{hybrid_serve_rec['ttft_p50_s']:.3f} s; hybrid plan train "
+        f"{hybrid_train_rec['first_loss']:.4f} -> {hybrid_train_rec['last_loss']:.4f} at "
+        f"{hybrid_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; ssm serve "
+        f"{ssm_serve_rec['decode_tok_s']:.0f} decode tok/s; ssm plan train "
+        f"{ssm_train_rec['first_loss']:.4f} -> {ssm_train_rec['last_loss']:.4f} at "
+        f"{ssm_train_rec['median_tokens_per_s_after_first']:.0f} tok/s)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

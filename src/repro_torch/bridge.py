@@ -22,7 +22,8 @@ def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cpu"):
-    """Nested dict of numpy arrays -> nested dict of torch tensors."""
+    """Nested dict of numpy arrays -> nested dict of torch tensors, at any
+    depth (the hybrid's ``groups``/``tail`` subtrees included)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

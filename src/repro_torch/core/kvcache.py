@@ -10,10 +10,15 @@
     sequence axis; only ``ceil(len/block)`` blocks of live tokens move, and
     fetching streams them back through a bounded read-ahead window.
 
-A cache is a flat dict of tensors keyed ``k``/``v``/``len`` (the reference
-walks a pytree by path; here the key is the path). A pageable leaf is a
-5-dim ``(layers, batch, seq, kv_heads, head_dim)`` tensor whose key is in
-``seq_axis_names``; the batch axis of every non-scalar leaf is axis 1.
+A cache is a nested dict of tensors with a top-level ``len``: flat for
+the dense, MoE and SSM families (``k``/``v``, or mamba2's conv tails and
+``state``), nested for the hybrid (``groups/rec1/h``, ``groups/attn/k``,
+``tail/rec/conv``, ...). The reference walks a pytree by path; here a
+leaf's name is its key path joined by ``/``. A pageable leaf is a 5-dim
+``(layers, batch, seq, kv_heads, head_dim)`` tensor whose last key is in
+``seq_axis_names``; every other leaf (an SSM state, a conv tail, a
+window-bounded K/V ring) is parked whole. The batch axis of every
+non-scalar leaf is axis 1.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import partition as pt
 from repro_torch.core.offload import ArrayStore
 from repro_torch.runtime import trace
 
@@ -70,7 +76,7 @@ def sequence_kv_bytes(model, cache_len: int) -> int:
 
 def device_kv_bytes(cache: dict) -> int:
     """Resident bytes of a live cache (every tensor leaf, ``len`` included)."""
-    return int(sum(t.numel() * t.element_size() for t in cache.values()
+    return int(sum(t.numel() * t.element_size() for t in pt.tree_leaves(cache)
                    if isinstance(t, torch.Tensor)))
 
 
@@ -116,8 +122,9 @@ class PagedKVCache:
         entries: List[tuple] = []
         nbytes = 0
         bt = self.block_tokens
-        for name, leaf in cache.items():
-            if _is_seq_leaf(name, leaf, self.seq_axis_names):
+        for path in pt.tree_paths(cache):
+            leaf, name = pt.tree_get(cache, path), "/".join(path)
+            if _is_seq_leaf(path[-1], leaf, self.seq_axis_names):
                 nb = self.n_blocks(length)
                 for i in range(nb):
                     blk = leaf[:, :, i * bt: min((i + 1) * bt, int(length))]
@@ -146,8 +153,8 @@ class PagedKVCache:
         return KVFetchHandle(self, length, entries, work, cache_len)
 
     def fetch(self, seq_id: str, cache_len: int):
-        """Blocking read-back: ``(cache dict of host tensors, length)`` with
-        seq leaves zero-padded to ``cache_len``."""
+        """Blocking read-back: ``(cache of host tensors, nested as it was
+        parked, length)`` with seq leaves zero-padded to ``cache_len``."""
         return self.start_fetch(seq_id, cache_len).result()
 
     def drop(self, seq_id: str) -> None:
@@ -240,12 +247,14 @@ class KVFetchHandle:
                     t = t[:, :, :self._cache_len]
             else:
                 t = self._parts[name][0].reshape(shape)
-            out[name] = t
+            pt.tree_set(out, tuple(name.split("/")), t)
         self._out = (out, self.length)
         return self._out
 
 
 def slice_sequence(cache: dict, b: int) -> dict:
-    """Sequence ``b`` of a batched cache as batch-1 views; the ``len`` leaf
-    is left out (the paging layout tracks each sequence's length)."""
-    return {name: leaf[:, b: b + 1] for name, leaf in cache.items() if name != "len"}
+    """Sequence ``b`` of a batched cache as batch-1 views, nested as the
+    cache is; the top-level ``len`` leaf is left out (the paging layout
+    tracks each sequence's length)."""
+    return pt.tree_map(lambda leaf: leaf[:, b: b + 1],
+                       {name: sub for name, sub in cache.items() if name != "len"})

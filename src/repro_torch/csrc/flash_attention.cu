@@ -1,5 +1,5 @@
 // Causal GQA flash attention for Hopper (sm_90a): the forward, and the
-// backward that the TPU kernel does not have.
+// backward that the TPU kernel does not have, with an optional local window.
 //
 // Forward. Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention / _flash_kernel). Same function: online softmax with
@@ -8,6 +8,21 @@
 // -1e30, and p is rounded to the input type before the P@V product. When
 // asked, it also writes each row's f32 log-sum-exp m + log(l), which the
 // backward reads instead of recomputing the softmax's normalizer.
+//
+// Window (window > 0; 0 is global): query i sees key j only if
+// j > i + (Sk - Sq) - window, causal or not -- recurrentgemma's local
+// attention (repro/models/common.py:164-167, end-aligned). Every kernel
+// walks only the tiles a block's rows' windows reach: the K/V tiles from
+// the first key past its first row's window (kv_range, a [first, last)
+// range with the causal frontier), and in dK/dV the query tiles below the
+// last row whose window reaches its last key. So work scales with the
+// window, not with Sk. A tile partly inside is masked per element, next
+// to the causal test (TMA's zero fill is no mask). A row's leading tiles
+// may lie wholly outside its window: their scores are all -1e30, the
+// online softmax takes p = 1 there, and the first tile with a visible key
+// rescales that away (alpha = exp(-1e30 - m) = 0), as in the reference's
+// chunked scan. The heavy-first launch order stays; under a window the
+// work is flat past the first `window` rows, so it is correct, not optimal.
 //
 // Backward (no TPU counterpart: the reference differentiates its jnp
 // chunked attention), as kernels/ref.py:attention_bwd_ref states it, split
@@ -91,13 +106,15 @@
 // cudaGetDriverEntryPoint (no -lcuda) and passed as __grid_constant__
 // parameters. Left for later: a second consumer stage overlapping softmax
 // with the next tile's products, persistent scheduling, cached descriptors,
-// TMA stores of the outputs, window and softcap.
+// TMA stores of the outputs, softcap.
 //
-// Registers and spills (nvcc -Xptxas -v, CUDA 12.8, sm_90a): forward 96 at
-// D = 64 (two blocks per SM: 28 bytes of spill, and ptxas serializes its
-// wgmmas for want of registers -- still faster at the training shape than
-// one block per SM without either, slower at the serve shape; PERF.md),
-// 149 at D = 128; dQ 135 / 157; dK/dV 168 / 231; none of these spill. The
+// Registers and spills (nvcc -Xptxas -v, CUDA 12.8, sm_90a), each wgmma
+// kernel without / with the window (built apart, so a global call pays
+// nothing for it): forward 96 / 96 at D = 64 (two blocks per SM: 8 / 68
+// bytes of spill, and ptxas serializes its wgmmas for want of registers --
+// still faster at the training shape than one block per SM without either,
+// slower at the serve shape; PERF.md), 151 / 167 at D = 128; dQ 137 / 139
+// and 162 / 159; dK/dV 199 / 188 and 255 / 250; none of these spill. The
 // simt kernels up to D = 128 are as they were: forward up to 128
 // registers, dQ up to 166, dK/dV up to 216, delta 27-32, no spills; at
 // D = 192 / 256 (f32 and bf16): forward 111-116 / 128, dQ 128 / 164-166,
@@ -155,7 +172,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int n_rep, int Sq, int Sk,
                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                 float scale) {
+                 int window, float scale) {
   constexpr int LANES = LANES_OF<D>, THREADS = THREADS_OF<D>;
   constexpr int BQ = ROWS, BK = TILE_OF<D>;  // query rows a block, keys a tile
   constexpr int DP = D / LANES;
@@ -192,8 +209,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int last_key = last_row + q_offset;  // >= 0: the wrapper needs Sq <= Sk
     n_tiles = min(n_tiles, last_key / BK + 1);
   }
+  // under a window, from the first key past the first row's window
+  const int t_first = window > 0 ? max(0, q_tile * BQ + q_offset - window + 1) / BK : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     __syncthreads();  // the previous tile has been read
     for (int idx = threadIdx.x; idx < BK * D; idx += THREADS) {
       const int j = idx / D;
@@ -218,7 +237,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < DP; ++i) part += qr[i] * k_tile[j][lane + LANES * i];
       part = row_sum<LANES>(part);
       const int kj = t * BK + j;
-      const bool valid = kj < Sk && (!causal || kj <= qi + q_offset);
+      const bool valid = kj < Sk && (!causal || kj <= qi + q_offset) &&
+                         (window <= 0 || kj > qi + q_offset - window);
       const float sc = valid ? part * scale : NEG_INF;
       s[j] = sc;
       tile_max = fmaxf(tile_max, sc);
@@ -285,7 +305,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int n_rep, int Sq, int Sk,
                       Strides qs, Strides ks, Strides vs, Strides dos,
-                      Strides dks, Strides dvs, int causal, float scale) {
+                      Strides dks, Strides dvs, int causal, int window,
+                      float scale) {
   constexpr int LANES = LANES_OF<D>, THREADS = THREADS_OF<D>;
   constexpr int BK = ROWS, BQ = TILE_OF<D>;  // key rows a block, queries a tile
   constexpr int DP = D / LANES;
@@ -322,7 +343,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int first_q = k_tile * BK - q_offset;
     t0 = first_q > 0 ? first_q / BQ : 0;
   }
-  const int n_qt = (Sq + BQ - 1) / BQ;
+  int n_qt = (Sq + BQ - 1) / BQ;
+  if (window > 0) {  // the rows below last key - (Sk - Sq) + window see it
+    const int end = min(Sq, max(0, min(k_tile * BK + BK, Sk) - 1 - q_offset + window));
+    n_qt = min(n_qt, (end + BQ - 1) / BQ);
+  }
 
   for (int hh = 0; hh < n_rep; ++hh) {
     const int h = kvh * n_rep + hh;
@@ -362,7 +387,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         s = row_sum<LANES>(s);
         dp = row_sum<LANES>(dp);
-        const bool valid = key_valid && (!causal || kj <= qi + q_offset);
+        const bool valid = key_valid && (!causal || kj <= qi + q_offset) &&
+                           (window <= 0 || kj > qi + q_offset - window);
         const float p = valid ? expf(s * scale - lse_tile[r]) : 0.f;
         const float ds = p * (dp - delta_tile[r]);
         const float pr = to_f(from_f<T>(p));  // p in the input type, as in P@V
@@ -394,7 +420,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int n_rep, int Sq, int Sk, Strides qs, Strides ks,
                     Strides vs, Strides dos, Strides dqs, int causal,
-                    float scale) {
+                    int window, float scale) {
   constexpr int LANES = LANES_OF<D>, THREADS = THREADS_OF<D>;
   constexpr int BQ = ROWS, BK = TILE_OF<D>;  // query rows a block, keys a tile
   constexpr int DP = D / LANES;
@@ -432,8 +458,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int last_row = min(q_tile * BQ + BQ, Sq) - 1;
     n_tiles = min(n_tiles, (last_row + q_offset) / BK + 1);
   }
+  const int t_first = window > 0 ? max(0, q_tile * BQ + q_offset - window + 1) / BK : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     __syncthreads();  // the previous tile has been read
     for (int idx = threadIdx.x; idx < BK * D; idx += THREADS) {
       const int j = idx / D;
@@ -459,7 +486,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s = row_sum<LANES>(s);
       dp = row_sum<LANES>(dp);
       const int kj = t * BK + j;
-      const bool valid = row_valid && kj < Sk && (!causal || kj <= qi + q_offset);
+      const bool valid = row_valid && kj < Sk && (!causal || kj <= qi + q_offset) &&
+                         (window <= 0 || kj > qi + q_offset - window);
       const float p = valid ? expf(s * scale - lse_i) : 0.f;
       const float ds = p * (dp - delta_i);
 #pragma unroll
@@ -480,7 +508,7 @@ struct FwdArgs {
   float* lse;
   int B, H, KV, Sq, Sk;
   Strides qs, ks, vs, os;
-  int causal;
+  int causal, window;
   float scale;
 };
 
@@ -491,7 +519,7 @@ struct BwdArgs {
   float* delta;
   int B, H, KV, Sq, Sk;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
-  int causal;
+  int causal, window;
   float scale;
 };
 
@@ -501,7 +529,7 @@ void launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   flash_fwd_kernel<T, D><<<grid, THREADS_OF<D>, 0, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H / a.KV,
-      a.Sq, a.Sk, a.qs, a.ks, a.vs, a.os, a.causal, a.scale);
+      a.Sq, a.Sk, a.qs, a.ks, a.vs, a.os, a.causal, a.window, a.scale);
 }
 
 template <typename T, int D>
@@ -517,10 +545,10 @@ void launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   flash_bwd_dkdv_kernel<T, D><<<kgrid, THREADS_OF<D>, 0, stream>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.H, a.H / a.KV, a.Sq, a.Sk, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs,
-      a.causal, a.scale);
+      a.causal, a.window, a.scale);
   flash_bwd_dq_kernel<T, D><<<qgrid, THREADS_OF<D>, 0, stream>>>(
       q, k, v, dO, a.lse, a.delta, static_cast<T*>(a.dq), a.H / a.KV, a.Sq,
-      a.Sk, a.qs, a.ks, a.vs, a.dos, a.dqs, a.causal, a.scale);
+      a.Sk, a.qs, a.ks, a.vs, a.dos, a.dqs, a.causal, a.window, a.scale);
 }
 
 // dtype x head_dim dispatch: 0 = float32, 1 = bfloat16; D in {32, 64, 128, 192, 256}
@@ -547,9 +575,9 @@ int dispatch_t(const Args& a, int D, int dtype, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-bool bad_dims(int B, int H, int KV, int Sq, int Sk, int causal) {
+bool bad_dims(int B, int H, int KV, int Sq, int Sk, int causal, int window) {
   return B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-         (causal && Sq > Sk) || B > 65535 || H > 65535;
+         (causal && Sq > Sk) || window < 0 || B > 65535 || H > 65535;
 }
 
 }  // namespace simt
@@ -582,12 +610,28 @@ template <int D> constexpr int tile_bytes(int rows) { return rows * D * 2; }
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// K/V tiles that query rows up to last_row (inclusive) see: all of them,
-// or under causal those up to the frontier key last_row + (Sk - Sq).
-__host__ __device__ inline int kv_tiles(int last_row, int Sq, int Sk, int causal) {
+// The [first, last) K/V tiles that query rows first_row ... last_row see:
+// all of them, or under causal those up to the frontier key
+// last_row + (Sk - Sq); with a window from the first key past
+// first_row + (Sk - Sq) - window.
+struct TileRange {
+  int first, last;
+};
+__host__ __device__ inline TileRange kv_range(int first_row, int last_row, int Sq, int Sk,
+                                              int causal, int window) {
   const int n = cdiv(Sk, BKV);
   const int frontier = (last_row + Sk - Sq) / BKV + 1;
-  return causal && frontier < n ? frontier : n;
+  const int last = causal && frontier < n ? frontier : n;
+  const int first = window > 0 ? max(0, first_row + Sk - Sq - window + 1) / BKV : 0;
+  return {first, max(first, last)};
+}
+
+// Is key `key` visible to query row `row`: inside Sk, at or before the
+// causal frontier, past the window.
+__device__ __forceinline__ bool visible(int key, int row, int Sq, int Sk, int causal,
+                                        int window) {
+  const int diag = row + Sk - Sq;
+  return key < Sk && (!causal || key <= diag) && (window <= 0 || key > diag - window);
 }
 
 // A (rows x D) bf16 tile lies in shared memory as D/64 chunks of rows x 128
@@ -682,12 +726,13 @@ template <int D> struct Fwd {
 
 // Forward. One block per (query tile of BQ rows, head, batch), the last
 // query tiles first (under causal they see the most keys).
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
            float* __restrict__ lse, int B, int H, int n_rep, int Sq, int Sk, Strides os,
-           int causal, float sl2) {
+           int causal, int window, float sl2) {
+  if constexpr (!WIN) window = 0;  // folds the window's terms away
   using C = Fwd<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
@@ -701,7 +746,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const int h = blockIdx.x % H;
   const int b = (blockIdx.x / H) % B;
   const int q0 = q_tile * BQ;
-  const int n_tiles = kv_tiles(min(q0 + BQ, Sq) - 1, Sq, Sk, causal);
+  const TileRange rng = kv_range(q0, min(q0 + BQ, Sq) - 1, Sq, Sk, causal, window);
+  const int n_tiles = rng.last - rng.first;  // ring step i carries K/V tile rng.first + i
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -717,9 +763,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       load_tile<D, BQ>(sq, &tq, q_full, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, t = rng.first + i;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
         load_tile<D, BKV>(sk + s * C::KV_BYTES, &tk, &full[s], t * BKV, h / n_rep, b);
         load_tile<D, BKV>(sv + s * C::KV_BYTES, &tv, &full[s], t * BKV, h / n_rep, b);
@@ -732,26 +778,29 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   // rows r and r + 8 of them
   const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int r = q0 + g * 64 + warp * 16 + lane / 4;
-  const int my_tiles = q0 + g * 64 < Sq ? kv_tiles(min(q0 + g * 64 + 63, Sq - 1), Sq, Sk, causal) : 0;
+  const TileRange my = q0 + g * 64 < Sq
+      ? kv_range(q0 + g * 64, min(q0 + g * 64 + 63, Sq - 1), Sq, Sk, causal, window)
+      : TileRange{0, 0};
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % STAGES;
-    mbar_wait(&full[s], (t / STAGES) & 1);
-    if (t < my_tiles) {  // warpgroup-uniform
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, t = rng.first + it;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    if (t >= my.first && t < my.last) {  // warpgroup-uniform
       float sc[32];
       wgmma_fence();
       mma_abt<D, BQ>(sc, sq, g * 64, sk + s * C::KV_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
-      // scores in log2 units, masked: keys past Sk, and under causal keys
-      // past i + (Sk - Sq); then the online softmax, rows reduced over the
-      // quad of threads that holds them
+      // scores in log2 units, masked: keys past Sk, under causal keys
+      // past i + (Sk - Sq), under a window keys at or before
+      // i + (Sk - Sq) - window; then the online softmax, rows reduced over
+      // the quad of threads that holds them
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -760,7 +809,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int key = t * BKV + 8 * i + 2 * (lane % 4) + c;
-            const bool ok = key < Sk && (!causal || key <= r + 8 * j + Sk - Sq);
+            const bool ok = visible(key, r + 8 * j, Sq, Sk, causal, window);
             const float v = ok ? sc[4 * i + 2 * j + c] * sl2 : NEG_INF;
             sc[4 * i + 2 * j + c] = v;
             mx[j] = fmaxf(mx[j], v);
@@ -825,13 +874,14 @@ template <int D> struct Dq {
 };
 
 // dQ. The forward's grid; q and dO tiles load once, K/V tiles through the ring.
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
           const float* __restrict__ lse, const float* __restrict__ delta,
           __nv_bfloat16* __restrict__ dq, int B, int H, int n_rep, int Sq, int Sk, Strides dqs,
-          int causal, float sl2, float scale) {
+          int causal, int window, float sl2, float scale) {
+  if constexpr (!WIN) window = 0;
   using C = Dq<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
@@ -846,7 +896,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   const int h = blockIdx.x % H;
   const int b = (blockIdx.x / H) % B;
   const int q0 = q_tile * BQ;
-  const int n_tiles = kv_tiles(min(q0 + BQ, Sq) - 1, Sq, Sk, causal);
+  const TileRange rng = kv_range(q0, min(q0 + BQ, Sq) - 1, Sq, Sk, causal, window);
+  const int n_tiles = rng.last - rng.first;  // ring step i carries K/V tile rng.first + i
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -863,9 +914,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       mbar_expect_tx(q_full, 2 * C::Q_BYTES);
       load_tile<D, BQ>(sq, &tq, q_full, q0, h, b);
       load_tile<D, BQ>(sdo, &tdo, q_full, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, t = rng.first + i;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
         load_tile<D, BKV>(sk + s * C::KV_BYTES, &tk, &full[s], t * BKV, h / n_rep, b);
         load_tile<D, BKV>(sv + s * C::KV_BYTES, &tv, &full[s], t * BKV, h / n_rep, b);
@@ -876,7 +927,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
 
   const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int r = q0 + g * 64 + warp * 16 + lane / 4;
-  const int my_tiles = q0 + g * 64 < Sq ? kv_tiles(min(q0 + g * 64 + 63, Sq - 1), Sq, Sk, causal) : 0;
+  const TileRange my = q0 + g * 64 < Sq
+      ? kv_range(q0 + g * 64, min(q0 + g * 64 + 63, Sq - 1), Sq, Sk, causal, window)
+      : TileRange{0, 0};
   float lse2[2], dl[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -889,10 +942,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   mbar_wait(q_full, 0);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % STAGES;
-    mbar_wait(&full[s], (t / STAGES) & 1);
-    if (t < my_tiles) {
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, t = rng.first + it;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    if (t >= my.first && t < my.last) {
       const uint8_t* ks = sk + s * C::KV_BYTES;
       float sc[32], dp[32];
       wgmma_fence();
@@ -913,7 +966,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
             const int e = 4 * i + 2 * j + c;
             const int key = t * BKV + 8 * i + 2 * (lane % 4) + c;
             const int row = r + 8 * j;
-            const bool ok = row < Sq && key < Sk && (!causal || key <= row + Sk - Sq);
+            const bool ok = row < Sq && visible(key, row, Sq, Sk, causal, window);
             const float p = ok ? exp2f(fmaf(sc[e], sl2, -lse2[j])) : 0.f;
             sc[e] = p * (dp[e] - dl[j]);
           }
@@ -947,13 +1000,15 @@ template <int D> struct Dkv {
 // product. The producer walks the group's n_rep query heads in order and,
 // for each, the query tiles at or past the causal frontier, so the GQA sum
 // comes in a fixed order with no atomics.
-template <int D>
+template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS_KV, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
             const __grid_constant__ CUtensorMap tlse, const __grid_constant__ CUtensorMap tdelta,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int H, int KV,
-            int Sq, int Sk, Strides dks, Strides dvs, int causal, float sl2, float scale) {
+            int Sq, int Sk, Strides dks, Strides dvs, int causal, int window, float sl2,
+            float scale) {
+  if constexpr (!WIN) window = 0;
   using C = Dkv<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = align1024(smem_raw);
@@ -967,9 +1022,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   const int k0 = (blockIdx.x / (KV * B)) * BKV;
   const int kvh = blockIdx.x % KV;
   const int b = (blockIdx.x / KV) % B;
-  // the first query tile that sees key k0: rows i >= k0 - (Sk - Sq)
+  // the first query tile that sees key k0: rows i >= k0 - (Sk - Sq); under
+  // a window the last is below the rows i < k_last - (Sk - Sq) + window
   const int t0 = causal ? max(0, k0 - (Sk - Sq)) / BQB : 0;
-  const int per_head = cdiv(Sq, BQB) - t0;  // >= 1: k0 < Sk
+  int t_end = cdiv(Sq, BQB);
+  if (window > 0)
+    t_end = min(t_end, cdiv(min(Sq, max(0, min(k0 + BKV, Sk) - 1 - (Sk - Sq) + window)), BQB));
+  const int per_head = max(0, t_end - t0);  // 0: no row's window reaches the tile
   const int n_it = n_rep * per_head;
 
   if (threadIdx.x == 0) {
@@ -1044,7 +1103,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         for (int j = 0; j < 2; ++j) {
           const int e = 4 * i + 2 * j + c;
           const int kj = key + 8 * j;
-          const bool ok = kj < Sk && qi < Sq && (!causal || kj <= qi + Sk - Sq);
+          const bool ok = qi < Sq && visible(kj, qi, Sq, Sk, causal, window);
           const float p = ok ? exp2f(fmaf(sc[e], sl2, -l2)) : 0.f;
           sc[e] = p;
           dp[e] = p * (dp[e] - dl);
@@ -1097,10 +1156,13 @@ cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
   return e;
 }
 
-template <int D>
-cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+// Each wgmma kernel is built twice, with and without the window: the
+// window's per-element test and tile range cost the global kernels
+// registers (and the D = 64 forward spills) that they need not pay.
+template <int D, bool WIN>
+cudaError_t launch_fwd_win(const FwdArgs& a, cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t e = allow_smem(fwd_kernel<D>, Fwd<D>::SMEM, configured);
+  cudaError_t e = allow_smem(fwd_kernel<D, WIN>, Fwd<D>::SMEM, configured);
   if (e != cudaSuccess) return e;
   CUtensorMap mq, mk, mv;
   if (!encode_bhsd(&mq, a.q, a.B, a.H, a.Sq, D, a.qs, BQ) ||
@@ -1108,17 +1170,22 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
       !encode_bhsd(&mv, a.v, a.B, a.KV, a.Sk, D, a.vs, BKV))
     return cudaErrorInvalidValue;
   const int blocks = cdiv(a.Sq, BQ) * a.H * a.B;
-  fwd_kernel<D><<<blocks, THREADS, Fwd<D>::SMEM, stream>>>(
+  fwd_kernel<D, WIN><<<blocks, THREADS, Fwd<D>::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.B, a.H, a.H / a.KV, a.Sq, a.Sk,
-      a.os, a.causal, a.scale * LOG2E);
+      a.os, a.causal, a.window, a.scale * LOG2E);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  return a.window > 0 ? launch_fwd_win<D, true>(a, stream) : launch_fwd_win<D, false>(a, stream);
+}
+
+template <int D, bool WIN>
+cudaError_t launch_bwd_win(const BwdArgs& a, cudaStream_t stream) {
   static bool conf_dq = false, conf_kv = false;
-  cudaError_t e = allow_smem(dq_kernel<D>, Dq<D>::SMEM, conf_dq);
-  if (e == cudaSuccess) e = allow_smem(dkdv_kernel<D>, Dkv<D>::SMEM, conf_kv);
+  cudaError_t e = allow_smem(dq_kernel<D, WIN>, Dq<D>::SMEM, conf_dq);
+  if (e == cudaSuccess) e = allow_smem(dkdv_kernel<D, WIN>, Dkv<D>::SMEM, conf_kv);
   if (e != cudaSuccess) return e;
   // q, k, v, dO as the wgmma kernels read them: q and dO in BQ-row boxes
   // (dQ) and BQB-row boxes (dK/dV), k and v in BKV-row boxes
@@ -1138,14 +1205,19 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   simt::flash_bwd_delta_kernel<__nv_bfloat16, D><<<dgrid, simt::THREADS_OF<D>, 0, stream>>>(
       o, dO, a.delta, a.Sq, a.os, a.dos);
   const float sl2 = a.scale * LOG2E;
-  dkdv_kernel<D><<<cdiv(a.Sk, BKV) * a.KV * a.B, THREADS_KV, Dkv<D>::SMEM, stream>>>(
+  dkdv_kernel<D, WIN><<<cdiv(a.Sk, BKV) * a.KV * a.B, THREADS_KV, Dkv<D>::SMEM, stream>>>(
       mq_b, mk, mv, mdo_b, mlse, mdelta, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.B, a.H, a.KV, a.Sq, a.Sk, a.dks, a.dvs, a.causal, sl2,
-      a.scale);
-  dq_kernel<D><<<cdiv(a.Sq, BQ) * a.H * a.B, THREADS, Dq<D>::SMEM, stream>>>(
+      static_cast<__nv_bfloat16*>(a.dv), a.B, a.H, a.KV, a.Sq, a.Sk, a.dks, a.dvs, a.causal,
+      a.window, sl2, a.scale);
+  dq_kernel<D, WIN><<<cdiv(a.Sq, BQ) * a.H * a.B, THREADS, Dq<D>::SMEM, stream>>>(
       mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.B, a.H, a.H / a.KV,
-      a.Sq, a.Sk, a.dqs, a.causal, sl2, a.scale);
+      a.Sq, a.Sk, a.dqs, a.causal, a.window, sl2, a.scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  return a.window > 0 ? launch_bwd_win<D, true>(a, stream) : launch_bwd_win<D, false>(a, stream);
 }
 
 }  // namespace wg
@@ -1166,18 +1238,19 @@ cudaError_t wgmma_route(const Args& a, int D, int dtype, cudaStream_t s,
 
 }  // namespace
 
-// lse may be null (no log-sum-exp written). route: 0 = simt, 1 = wgmma.
+// lse may be null (no log-sum-exp written). window 0 is global. route:
+// 0 = simt, 1 = wgmma.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int KV, int Sq, int Sk, int D, int64_t q_sb, int64_t q_sh,
     int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
-    int causal, int dtype, float scale, int route, void* stream) {
+    int causal, int window, int dtype, float scale, int route, void* stream) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
-  if (simt::bad_dims(B, H, KV, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
+  if (simt::bad_dims(B, H, KV, Sq, Sk, causal, window)) return (int)cudaErrorInvalidValue;
   simt::FwdArgs a{q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Sk,
             {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
-            {o_sb, o_sh, o_ss}, causal, scale};
+            {o_sb, o_sh, o_ss}, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 1) return (int)wgmma_route(a, D, dtype, st, wg::launch_fwd<64>, wg::launch_fwd<128>);
   const int rc = simt::dispatch_t<simt::Fwd>(a, D, dtype, st);
@@ -1191,16 +1264,17 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv,
     void* delta, int B, int H, int KV, int Sq, int Sk, int D,
-    const int64_t* strides, int causal, int dtype, float scale, int route, void* stream) {
+    const int64_t* strides, int causal, int window, int dtype, float scale, int route,
+    void* stream) {
   cudaGetLastError();  // clear any stale error so the return is this launch's
-  if (simt::bad_dims(B, H, KV, Sq, Sk, causal)) return (int)cudaErrorInvalidValue;
+  if (simt::bad_dims(B, H, KV, Sq, Sk, causal, window)) return (int)cudaErrorInvalidValue;
   const int64_t* s = strides;
   simt::BwdArgs a{q, k, v, o, dO, static_cast<const float*>(lse), dq, dk, dv,
             static_cast<float*>(delta), B, H, KV, Sq, Sk,
             {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
             {s[9], s[10], s[11]}, {s[12], s[13], s[14]},
             {s[15], s[16], s[17]}, {s[18], s[19], s[20]},
-            {s[21], s[22], s[23]}, causal, scale};
+            {s[21], s[22], s[23]}, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 1) return (int)wgmma_route(a, D, dtype, st, wg::launch_bwd<64>, wg::launch_bwd<128>);
   const int rc = simt::dispatch_t<simt::Bwd>(a, D, dtype, st);

@@ -1,5 +1,7 @@
 """Causal GQA flash attention on the card: the ctypes wrappers around
-``csrc/flash_attention.cu``, forward and backward.
+``csrc/flash_attention.cu``, forward and backward, with an optional local
+window (``window`` > 0: query i sees key j only if j > i + (Sk - Sq) -
+window, recurrentgemma's local attention; 0 is global).
 
 The forward replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``); the backward has no TPU
@@ -21,8 +23,10 @@ stated rule (not a fallback: each route launches its kernels or raises):
   f32 FMAs. The smoke configs' head_dim 16 and 8 have no kernel: they run
   on the CPU only.
 
-The source's header comment states the design and what bounds it on an
-H100. The plain versions are ``kernels/ref.py:attention_fwd_ref`` /
+The window never changes the route; it narrows each block's walk to the
+tiles its rows' windows reach (``plan``), and a tile partly inside is
+masked per element. The source's header comment states the design and
+what bounds it on an H100. The plain versions are ``kernels/ref.py:attention_fwd_ref`` /
 ``attention_bwd_ref``; the CPU path goes there through ``kernels/ops.py``.
 """
 from __future__ import annotations
@@ -36,11 +40,14 @@ from repro_torch.kernels import _build
 
 ROUTES = ("wgmma", "simt")
 # launches in this process by route, forward and backward (ops.launch_counts
-# reads them; one backward launch is the delta, dK/dV and dQ kernels together)
+# reads them; one backward launch is the delta, dK/dV and dQ kernels
+# together), and of those the launches with a local window
 wgmma_launches = 0
 simt_launches = 0
 bwd_wgmma_launches = 0
 bwd_simt_launches = 0
+window_launches = 0
+bwd_window_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -56,12 +63,13 @@ def _lib() -> ctypes.CDLL:
     if fwd.argtypes is None:
         fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                         + [ctypes.c_int64] * 12
-                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_int, ctypes.c_void_p])
+                        + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_void_p])
         bwd.restype = ctypes.c_int
     return lib
 
@@ -97,36 +105,62 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _kv_tiles(last_row: int, Sq: int, Sk: int, causal: bool) -> int:
-    """K/V tiles that query rows up to ``last_row`` see (the kernels' rule)."""
+def _kv_range(first_row: int, last_row: int, Sq: int, Sk: int, causal: bool,
+              window: int = 0) -> Tuple[int, int]:
+    """The [first, last) K/V tiles that query rows first_row ... last_row
+    see (the kernels' rule): under causal up to the frontier key
+    last_row + (Sk - Sq); with a window from the first key past
+    first_row + (Sk - Sq) - window."""
     n = _cdiv(Sk, BKV)
-    return min(n, (last_row + Sk - Sq) // BKV + 1) if causal else n
+    last = min(n, (last_row + Sk - Sq) // BKV + 1) if causal else n
+    first = max(0, first_row + Sk - Sq - window + 1) // BKV if window > 0 else 0
+    return first, max(first, last)
+
+
+def _q_range(k0: int, Sq: int, Sk: int, causal: bool, window: int = 0) -> Tuple[int, int]:
+    """The [first, last) query tiles of BQB rows that see a key of the K/V
+    tile from key k0 (the dK/dV kernels' rule): under causal from the first
+    row i >= k0 - (Sk - Sq); with a window the rows below
+    min(k0 + BKV, Sk) - 1 - (Sk - Sq) + window."""
+    first = max(0, k0 - (Sk - Sq)) // BQB if causal else 0
+    end = Sq
+    if window > 0:
+        end = min(Sq, max(0, min(k0 + BKV, Sk) - 1 - (Sk - Sq) + window))
+    return first, max(first, _cdiv(end, BQB))
 
 
 def plan(B: int, H: int, KV: int, Sq: int, Sk: int, causal: bool = True,
-         sms: int = 132) -> dict:
+         sms: int = 132, window: int = 0) -> dict:
     """The wgmma kernels' tiles and grids for one call on a card with ``sms``
     SMs, as the kernels compute them:
 
     - forward and dQ: one block per (BQ query rows, head, batch), the last
-      query tile first, each block walking the K/V tiles of BKV keys up to
-      the causal frontier of its last row;
+      query tile first, each block walking the K/V tiles of BKV keys from
+      the first its first row's window reaches (``window`` > 0) up to the
+      causal frontier of its last row;
     - dK/dV: one block per (BKV keys, KV head, batch), key tile 0 first,
       each block walking its group's H/KV query heads and, for each, the
-      query tiles of BQB rows at or past the frontier of its first key.
+      query tiles of BQB rows from the frontier of its first key to the
+      last row whose window reaches its last key.
 
-    Under causal the first launched block has the most work, so the heavy
-    blocks never form a tail. Returns, per kernel, ``tile`` (rows, columns
-    of a step), ``blocks``, ``blocks_per_sm`` (blocks over SMs), ``order``
-    (the tile index of each group of blocks in launch order), ``steps`` (the
-    tiles each of those blocks walks) and ``pairs`` (tile pairs over the
-    grid)."""
+    Under causal without a window the first launched block has the most
+    work, so the heavy blocks never form a tail; under a window the work
+    is flat past the first ``window`` rows and the order stays correct, not
+    optimal. Returns, per kernel, ``tile`` (rows, columns of a step),
+    ``blocks``, ``blocks_per_sm`` (blocks over SMs), ``order`` (the tile
+    index of each group of blocks in launch order), ``steps`` (the tiles
+    each of those blocks walks) and ``pairs`` (tile pairs over the grid)."""
     n_qt, n_kt, n_rep = _cdiv(Sq, BQ), _cdiv(Sk, BKV), H // KV
     q_order = list(range(n_qt - 1, -1, -1))
-    q_steps = [_kv_tiles(min((t + 1) * BQ, Sq) - 1, Sq, Sk, causal) for t in q_order]
+    q_steps = []
+    for t in q_order:
+        first, last = _kv_range(t * BQ, min((t + 1) * BQ, Sq) - 1, Sq, Sk, causal, window)
+        q_steps.append(last - first)
     k_order = list(range(n_kt))
-    t0 = [max(0, t * BKV - (Sk - Sq)) // BQB if causal else 0 for t in k_order]
-    k_steps = [n_rep * (_cdiv(Sq, BQB) - f) for f in t0]
+    k_steps = []
+    for t in k_order:
+        first, last = _q_range(t * BKV, Sq, Sk, causal, window)
+        k_steps.append(n_rep * (last - first))
     qgrid = {"tile": [BQ, BKV], "blocks": n_qt * H * B, "blocks_per_sm": n_qt * H * B / sms,
              "order": q_order, "steps": q_steps, "pairs": sum(q_steps) * H * B}
     return {"fwd": qgrid, "dq": dict(qgrid),
@@ -151,7 +185,7 @@ def _check_cuda(ts, D: int) -> None:
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 causal: bool) -> None:
+                 causal: bool, window: int = 0) -> None:
     """Raise ``ValueError`` on shapes neither version takes."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -165,6 +199,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and Sq > Sk:
         raise ValueError(f"flash_attention: causal needs Sq <= Sk "
                          f"({Sq} > {Sk}): a query row would see no key")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window}; want >= 0 (0 = global)")
 
 
 def _read(t: torch.Tensor, chosen: str) -> tuple:
@@ -174,15 +210,15 @@ def _read(t: torch.Tensor, chosen: str) -> tuple:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, with_lse: bool = False,
-                         simt: bool = False):
+                         *, causal: bool = True, window: int = 0,
+                         with_lse: bool = False, simt: bool = False):
     """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) on one CUDA device, shapes checked by
     ``check_inputs`` (``kernels/ops.py`` does both) -> (B,H,Sq,D) in q's
     dtype and q's memory layout; with ``with_lse`` also the (B,H,Sq) f32
     log-sum-exp, as ``(o, lse)``. Runs on the route ``route`` picks;
     ``simt=True`` runs the CUDA-core kernel whatever the operands (the
     previous design, timed beside the new one). Launches or raises."""
-    global wgmma_launches, simt_launches
+    global wgmma_launches, simt_launches, window_launches
     D = q.shape[-1]
     _check_cuda((q, k, v), D)
     B, H, Sq, D = q.shape
@@ -198,7 +234,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if with_lse else None,
-            B, H, KV, Sq, Sk, D, *strides, int(causal),
+            B, H, KV, Sq, Sk, D, *strides, int(causal), int(window),
             _build.DTYPE_CODES[q.dtype], D ** -0.5, int(chosen == "wgmma"), stream)
     _build.check(lib, rc, f"flash_attention ({chosen}, q {tuple(q.shape)} strides "
                           f"{q.stride()}, k {tuple(k.shape)} strides {k.stride()})")
@@ -206,18 +242,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         wgmma_launches += 1
     else:
         simt_launches += 1
+    window_launches += window > 0
     return (o, lse) if with_lse else o
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                             simt: bool = False):
+                             window: int = 0, simt: bool = False):
     """Gradients (dq, dk, dv) of the forward on one CUDA device, from the
     saved output ``o`` and f32 ``lse`` (B,H,Sq) and the output gradient
     ``do`` (B,H,Sq,D); each gradient in its input's dtype and memory layout.
     Launches the delta, dK/dV and dQ kernels of the route ``route(q, k, v,
     do)`` picks (``simt=True``: the CUDA-core ones) in that order or
     raises."""
-    global bwd_wgmma_launches, bwd_simt_launches
+    global bwd_wgmma_launches, bwd_simt_launches, bwd_window_launches
     D = q.shape[-1]
     _check_cuda((q, k, v, o, do), D)
     B, H, Sq, D = q.shape
@@ -239,7 +276,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), B, H, KV, Sq, Sk, D,
-            ctypes.cast(c_strides, ctypes.c_void_p), int(causal),
+            ctypes.cast(c_strides, ctypes.c_void_p), int(causal), int(window),
             _build.DTYPE_CODES[q.dtype], D ** -0.5, int(chosen == "wgmma"), stream)
     _build.check(lib, rc, f"flash_attention_bwd ({chosen}, q {tuple(q.shape)} strides "
                           f"{q.stride()}, dO strides {do.stride()})")
@@ -247,4 +284,5 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         bwd_wgmma_launches += 1
     else:
         bwd_simt_launches += 1
+    bwd_window_launches += window > 0
     return dq, dk, dv

@@ -44,19 +44,20 @@ def _records(*ts: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _attention_fwd(q, k, v, causal: bool, with_lse: bool):
+def _attention_fwd(q, k, v, causal: bool, window: int, with_lse: bool):
     if _device(q, k, v).type == "cpu":
-        o, lse = ref.attention_fwd_ref(q, k, v, causal=causal)
+        o, lse = ref.attention_fwd_ref(q, k, v, causal=causal, window=window)
         return (o, lse) if with_lse else o
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, with_lse=with_lse)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    with_lse=with_lse)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = _attention_fwd(q, k, v, causal, with_lse=True)
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = _attention_fwd(q, k, v, causal, window, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
@@ -65,22 +66,24 @@ class _FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1:
             do = do.contiguous()
         if _device(q, do).type == "cpu":
-            grads = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=ctx.causal)
+            grads = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=ctx.causal,
+                                          window=ctx.window)
         else:
             grads = _fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                 causal=ctx.causal)
-        return (*grads, None)
+                                                 causal=ctx.causal, window=ctx.window)
+        return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) -> (B,H,Sq,D); causal alignment
-    ``k <= q + (Sk - Sq)`` as in the TPU kernel. Differentiable."""
+    ``k <= q + (Sk - Sq)`` as in the TPU kernel, and with ``window`` > 0
+    only keys ``k > q + (Sk - Sq) - window`` (0: global). Differentiable."""
     _device(q, k, v)
-    _fa.check_inputs(q, k, v, causal)
+    _fa.check_inputs(q, k, v, causal, window)
     if _records(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal)
-    return _attention_fwd(q, k, v, causal, with_lse=False)
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _attention_fwd(q, k, v, causal, window, with_lse=False)
 
 
 # ---------------------------------------------------------------------------
@@ -228,13 +231,17 @@ def launch_counts() -> dict:
     (forward and backward), the tiled matmul's and the quantized matmul's
     (forward and dX) also by route (``flash_attention``,
     ``flash_attention_bwd``, ``tiled_matmul``, ``quantized_matmul`` and
-    ``quantized_matmul_dx`` are their sums)."""
+    ``quantized_matmul_dx`` are their sums), and flash attention's with a
+    local window (``flash_attention_window``, ``flash_attention_bwd_window``:
+    launches of either route counted once more)."""
     return {"flash_attention": _fa.wgmma_launches + _fa.simt_launches,
             "flash_attention_wgmma": _fa.wgmma_launches,
             "flash_attention_simt": _fa.simt_launches,
+            "flash_attention_window": _fa.window_launches,
             "flash_attention_bwd": _fa.bwd_wgmma_launches + _fa.bwd_simt_launches,
             "flash_attention_bwd_wgmma": _fa.bwd_wgmma_launches,
             "flash_attention_bwd_simt": _fa.bwd_simt_launches,
+            "flash_attention_bwd_window": _fa.bwd_window_launches,
             "tiled_matmul": _mm.wgmma_launches + _mm.simt_launches,
             "tiled_matmul_wgmma": _mm.wgmma_launches,
             "tiled_matmul_simt": _mm.simt_launches, "fused_adam": _ad.launches,
@@ -251,6 +258,8 @@ def reset_launch_counts() -> None:
     _fa.simt_launches = 0
     _fa.bwd_wgmma_launches = 0
     _fa.bwd_simt_launches = 0
+    _fa.window_launches = 0
+    _fa.bwd_window_launches = 0
     _mm.wgmma_launches = 0
     _mm.simt_launches = 0
     _ad.launches = 0

@@ -32,35 +32,46 @@ def quantized_matmul_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return (x.float() @ (w.T if transpose else w)).to(x.dtype)
 
 
-def _causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
-    """(Sq, Sk) bool: query i sees key j iff j <= i + (Sk - Sq)."""
-    return torch.ones(Sq, Sk, dtype=torch.bool, device=device).tril(Sk - Sq)
+def visible(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool, aligned at the end: query i sees key j iff, under
+    ``causal``, j <= i + (Sk - Sq) and, with ``window`` > 0 (causal or
+    not), j > i + (Sk - Sq) - window (``repro/models/common.py:164-167``
+    with the query's position i + (Sk - Sq)). ``window`` 0 is global."""
+    m = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    if causal:
+        m = m.tril(Sk - Sq)
+    if window > 0:
+        m = m.triu(Sk - Sq - window + 1)
+    return m
 
 
-def _scores(q, k, causal):
+def _scores(q, k, causal, window=0):
     """f32 scaled scores (B,H,Sq,Sk), masked keys at -1e30; k already
     repeated to H heads."""
     D, Sq, Sk = q.shape[-1], q.shape[2], k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
-    if causal:
-        s = torch.where(_causal_mask(Sq, Sk, q.device), s, torch.full_like(s, NEG_INF))
+    if causal or window > 0:
+        s = torch.where(visible(Sq, Sk, causal, window, q.device), s,
+                        torch.full_like(s, NEG_INF))
     return s
 
 
 def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True):
+                      causal: bool = True, window: int = 0):
     """q: (B,H,Sq,D), k/v: (B,KV,Sk,D) -> (out (B,H,Sq,D) in q's dtype,
     lse (B,H,Sq) f32), lse the log-sum-exp of each row's scaled scores.
 
     Query head h reads kv head h // (H // KV) (``repeat_interleave``, not
-    tiling). The causal mask is aligned at the end: query i sees key j iff
-    j <= i + (Sk - Sq), so the last query sees the last key. p is rounded
-    to v's dtype before the P@V product, as the TPU kernel does.
+    tiling). The masks are aligned at the end (``visible``): under causal
+    query i sees key j iff j <= i + (Sk - Sq), so the last query sees the
+    last key, and a ``window`` > 0 also hides keys j <= i + (Sk - Sq) -
+    window. p is rounded to v's dtype before the P@V product, as the TPU
+    kernel does.
     """
     n_rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(n_rep, dim=1)
     v = v.repeat_interleave(n_rep, dim=1)
-    s = _scores(q, k, causal)
+    s = _scores(q, k, causal, window)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
@@ -68,12 +79,13 @@ def attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
     """The forward's output alone (see ``attention_fwd_ref``)."""
-    return attention_fwd_ref(q, k, v, causal=causal)[0]
+    return attention_fwd_ref(q, k, v, causal=causal, window=window)[0]
 
 
-def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: int = 0):
     """Gradients (dq, dk, dv) of ``attention_fwd_ref``'s output, each in
     its input's dtype, from the saved output ``o`` and ``lse``:
 
@@ -89,7 +101,7 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
     scale = D ** -0.5
     kr = k.repeat_interleave(n_rep, dim=1).float()
     vr = v.repeat_interleave(n_rep, dim=1).float()
-    s = _scores(q, kr, causal)
+    s = _scores(q, kr, causal, window)
     p = torch.exp(s - lse[..., None])
     dof = do.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(v.dtype).float(), dof)

@@ -1,5 +1,5 @@
 """Where the serving time goes: one prefill wave and a few decode steps of
-the port's bundle (dense or MoE) under ``torch.profiler``, on the card.
+the port's bundle (any ported family) under ``torch.profiler``, on the card.
 
 Prints, for prefill and for decode separately, the host wall time per
 call, the device time summed over device-side events (kernels, copies),
@@ -11,10 +11,13 @@ are random from ``--seed``.
       --arch smollm-135m --slots 4 --prompt-len 512 --decode-steps 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch granite-moe-1b-a400m
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch recurrentgemma-9b --prompt-len 2560 [--layers 5]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from collections import defaultdict
 
@@ -31,6 +34,9 @@ from repro_torch.runtime import trace
 def _parse(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers at full width "
+                         "(0: the config's depth)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--decode-steps", type=int, default=8)
@@ -72,6 +78,8 @@ def main(argv=None) -> None:
         raise SystemExit("profile_serve: CUDA is not available; this profile runs on the card")
     dev = torch.device("cuda")
     cfg = configs.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     bundle = registry.build(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -24,7 +24,11 @@ plan for more than one, ``--hw-devices``) is not ported yet and raises.
 
 The dense and MoE families serve (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
-paged KV as a dense model).
+paged KV as a dense model), and so do the fixed-state families
+(``--arch mamba2-370m``: conv tails and the SSD state;
+``--arch recurrentgemma-9b``: LRU states and window-bounded K/V rings):
+their caches do not grow with the context, each slot keeps its own
+length, and a waiting sequence's cache parks whole (no token blocks).
 
 Example (one H100, full smollm-135m, 8 sequences through 4 device slots):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import os
 import tempfile
 import time
@@ -45,6 +50,7 @@ from repro_torch import configs
 from repro_torch import plan as plan_mod
 from repro_torch.config import ParallelConfig, RunConfig, ShapeConfig
 from repro_torch.core import kvcache, qformat
+from repro_torch.core import partition as pt
 from repro_torch.core.engine import ZeroInfinityEngine
 from repro_torch.core.offload import HostArrayStore, NvmeStore, PinnedBufferPool
 from repro_torch.kernels import ops
@@ -56,6 +62,9 @@ def _parse(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers at full width "
+                         "(0: the config's depth)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; raises without a card) or cpu "
                          "(the plain versions)")
@@ -121,11 +130,12 @@ def _percentiles(xs) -> dict:
 
 
 def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
-    """Admission: write one fetched sequence into decode slot ``b`` of the
-    device slot cache IN PLACE (the reference's donated functional update)."""
-    for name, leaf in single.items():
-        dst = slot_cache[name]
-        dst[:, b] = leaf[:, 0].to(device=dst.device, dtype=dst.dtype)
+    """Admission: write one fetched sequence (nested as the cache is) into
+    decode slot ``b`` of the device slot cache IN PLACE (the reference's
+    donated functional update)."""
+    for path in pt.tree_paths(single):
+        dst = pt.tree_get(slot_cache, path)
+        dst[:, b] = pt.tree_get(single, path)[:, 0].to(device=dst.device, dtype=dst.dtype)
     slot_cache["len"][b] = length
     return slot_cache
 
@@ -137,6 +147,8 @@ def run_serve(args, argv=None) -> dict:
     auto`` those become overrides of the derived plan."""
     device = resolve_device(args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     n_seqs, P, N = args.batch, args.prompt_len, args.new_tokens
     eos = args.eos_id
     plan = plan_mod.resolve_plan(
@@ -268,7 +280,7 @@ def run_serve(args, argv=None) -> dict:
 
         # untimed decode warm-up on a copy (decode writes its cache in place)
         t0 = pc()
-        bundle.decode_step(params, {k: t.clone() for k, t in slot_cache.items()},
+        bundle.decode_step(params, pt.tree_map(torch.clone, slot_cache),
                            {"tokens": torch.zeros((slots, 1), dtype=torch.int32,
                                                   device=device)})
         sync()

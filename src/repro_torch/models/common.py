@@ -139,15 +139,20 @@ def _scatter_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
 
 
 def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                    cfg: ModelConfig, *, causal: bool = True,
+                    cfg: ModelConfig, *, causal: bool = True, window: int = 0,
                     cache: dict | None = None, collect_kv: bool = False):
     """qkv proj -> rope -> attention -> out proj.
 
-    Prefill (``cache`` None) runs ``ops.flash_attention`` over the prompt;
-    with ``collect_kv`` it also returns this block's bf16 ``{"k", "v"}``.
-    Decode (``cache`` = ``{"k","v","len"}`` with (B, S_cache, KV, D)
-    leaves) writes the new K/V into the cache in place and attends with
-    ``decode_attention``. Returns ``(out, new_cache_or_collected_kv)``.
+    Prefill (``cache`` None) runs ``ops.flash_attention`` over the prompt,
+    with the local ``window`` (0: global); with ``collect_kv`` it also
+    returns this block's bf16 ``{"k", "v"}``. Decode (``cache`` =
+    ``{"k","v","len"}`` with (B, S_cache, KV, D) leaves) writes the new K/V
+    into the cache in place and attends with ``decode_attention``. A
+    window-bounded ring cache passes the reference's ``write_pos`` (the
+    ring slot, ``len % window``) and ``valid_len`` (``min(len + 1,
+    window)``), scalars or one per row; otherwise the write lands at
+    ``len`` and the first ``len + S`` slots are attended. Returns ``(out,
+    new_cache_or_collected_kv)``.
     """
     B, S, d = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -160,14 +165,16 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     new_cache = None
     if cache is not None:
         k_cache, v_cache, clen = cache["k"], cache["v"], cache["len"]
-        _scatter_cache(k_cache, kx, clen)
-        _scatter_cache(v_cache, vx, clen)
+        write_pos = cache.get("write_pos", clen)
+        valid_len = cache.get("valid_len", clen + S)
+        _scatter_cache(k_cache, kx, write_pos)
+        _scatter_cache(v_cache, vx, write_pos)
         new_cache = {"k": k_cache, "v": v_cache, "len": clen + S}
-        out = decode_attention(q, k_cache, v_cache, clen + S)
+        out = decode_attention(q, k_cache, v_cache, valid_len)
     else:
         # (B,S,H,D) storage seen as (B,H,S,D): the kernel takes the strides
         out = ops.flash_attention(q.transpose(1, 2), kx.transpose(1, 2),
-                                  vx.transpose(1, 2), causal=causal)
+                                  vx.transpose(1, 2), causal=causal, window=window)
         out = out.transpose(1, 2)
         if collect_kv:
             new_cache = {"k": kx.to(torch.bfloat16), "v": vx.to(torch.bfloat16)}

@@ -1,0 +1,305 @@
+"""Mamba2 (SSD, state-space duality; the ``ssm`` family of
+``repro/models/mamba2.py``).
+
+Training and prefill run the chunked SSD algorithm: attention-like
+products *within* chunks of ``ssm_chunk`` tokens and a linear recurrence
+*across* the chunks' states. Decode is the O(1) recurrent update against
+a fixed-size state (``conv_x``/``conv_B``/``conv_C`` conv tails and the
+(H, P, N) f32 ``state`` per layer), so the cache does not grow with the
+context. The reference writes every product as a jnp einsum outside
+Pallas; here they are ``torch.einsum`` / ``torch.matmul`` with f32
+accumulation (cuBLAS on the card): this family has no hand-written kernel
+on its path, and training reaches the card's kernels through the fused
+Adam update alone.
+
+The reference's roundings are kept: the intra-chunk decay ``L`` and the
+state decays cast to the input dtype before the f32-accumulating products,
+and the last chunk zero-padded (exact: decay exp(0) = 1, contribution
+B * xbar = 0). The four-operand intra-chunk contraction is ordered so that
+no intermediate is larger than (B, nc, H, Q, Q). The reference's
+``lax.scan`` over layers is a Python loop over layer slices; under
+``parallel.remat == "full"`` each block runs under one
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of the
+scanned body. Decode writes the stacked cache IN PLACE.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.config import ModelConfig, ParallelConfig
+from repro_torch.core import partition as pt
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tf
+
+NEG_INF = -1e30
+
+
+def _dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = d_in // cfg.ssm_head_dim
+    return d_in, H, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def _stack(defs, n: int):
+    if isinstance(defs, pt.ParamDef):
+        return pt.ParamDef((n,) + defs.shape, ("layers",) + defs.axes,
+                           defs.dtype, defs.init, defs.init_scale)
+    return {k: _stack(v, n) for k, v in defs.items()}
+
+
+def block_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    d_in, H, P, N = _dims(cfg)
+    w = cfg.conv_width
+    return _stack({
+        "ln": cm.norm_defs(d, cfg.norm_kind),
+        "w_z": pt.ParamDef((d, d_in), ("embed", "inner")),
+        "w_x": pt.ParamDef((d, d_in), ("embed", "inner")),
+        "w_B": pt.ParamDef((d, N), ("embed", "state")),
+        "w_C": pt.ParamDef((d, N), ("embed", "state")),
+        "w_dt": pt.ParamDef((d, H), ("embed", "inner")),
+        "conv_x": pt.ParamDef((w, d_in), ("conv", "inner"), "float32", "fan_in"),
+        "conv_B": pt.ParamDef((w, N), ("conv", "state"), "float32", "fan_in"),
+        "conv_C": pt.ParamDef((w, N), ("conv", "state"), "float32", "fan_in"),
+        "A_log": pt.ParamDef((H,), ("inner",), "float32", "zeros"),
+        "D": pt.ParamDef((H,), ("inner",), "float32", "ones"),
+        "dt_bias": pt.ParamDef((H,), ("inner",), "float32", "zeros"),
+        "gn": pt.ParamDef((d_in,), ("inner",), "float32", "zeros"),
+        "w_out": pt.ParamDef((d_in, d), ("inner", "embed")),
+    }, cfg.n_layers)
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    return {"embed": cm.embed_defs(cfg), "blocks": block_defs(cfg),
+            "ln_f": cm.norm_defs(cfg.d_model, cfg.norm_kind)}
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, state=None):
+    """Depthwise causal conv as width shifted adds, x: (B,S,C), w: (W,C);
+    with ``state`` (B, W-1, C) (decode) also the new state, the last W-1
+    inputs in x's dtype. Shared with ``models/rglru.py``."""
+    W = w.shape[0]
+    if state is not None:
+        full = torch.cat([state.to(x.dtype), x], dim=1)
+        y = sum(full[:, W - 1 - i: full.shape[1] - i] * w[W - 1 - i][None, None, :]
+                for i in range(W))
+        return y, full[:, -(W - 1):]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    y = sum(pad[:, W - 1 - i: W - 1 - i + x.shape[1]] * w[W - 1 - i][None, None, :]
+            for i in range(W))
+    return y, None
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
+    """The conv followed by SiLU; returns ``(y, new_state_or_None)``."""
+    y, new_state = _conv(x, w, state)
+    return F.silu(y), new_state
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., T) -> (..., T, T) with out[i,j] = sum_{k=j+1..i} x_k (i>=j),
+    -1e30 above the diagonal."""
+    T = x.shape[-1]
+    c = torch.cumsum(x, dim=-1)
+    d = c[..., :, None] - c[..., None, :]
+    mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    return torch.where(mask, d, torch.full_like(d, NEG_INF))
+
+
+def ssd_chunked(xbar, dA, Bm, Cm, chunk: int, h0=None):
+    """Chunked SSD scan. xbar: (B,S,H,P) discretized inputs; dA: (B,S,H)
+    log-decays (<= 0); Bm/Cm: (B,S,N). Returns (y (B,S,H,P) f32, final
+    state (B,H,P,N) f32)."""
+    Bsz, S, H, P = xbar.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    if pad:  # zero padding is exact: decay exp(0)=1, contribution B*xbar=0
+        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
+        dA = F.pad(dA, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    S_out = S
+    S = S + pad
+    nc = S // Q
+    in_dt = Cm.dtype  # the decays round to the input dtype, as the reference's
+
+    x = xbar.reshape(Bsz, nc, Q, H, P)
+    a = dA.reshape(Bsz, nc, Q, H).permute(0, 1, 3, 2).float()  # (B,nc,H,Q)
+    Bc = Bm.reshape(Bsz, nc, Q, N)
+    Cc = Cm.reshape(Bsz, nc, Q, N)
+
+    cum = torch.cumsum(a, dim=-1)  # (B,nc,H,Q)
+    L = torch.exp(_segsum(a)).to(in_dt)  # (B,nc,H,Q,Q)
+
+    # intra-chunk "bcln,bcsn,bchls,bcshp->bclhp", contracted pairwise in
+    # f32 so that no intermediate outgrows (B,nc,H,Q,Q)
+    CB = torch.einsum("bcln,bcsn->bcls", Cc.float(), Bc.float())
+    y_diag = torch.einsum("bchls,bcshp->bclhp", CB[:, :, None] * L.float(), x.float())
+
+    # chunk state contributions: decay from each position to the chunk end
+    decay_states = torch.exp(cum[..., -1:] - cum).to(Bc.dtype)  # (B,nc,H,Q)
+    xd = x.float() * decay_states.float().permute(0, 1, 3, 2)[..., None]
+    states = torch.einsum("bcsn,bcshp->bchpn", Bc.float(), xd)
+
+    # inter-chunk recurrence over nc, emitting the state entering each chunk
+    chunk_decay = torch.exp(cum[..., -1])  # (B,nc,H)
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=xbar.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1).to(in_dt)  # (B,nc,H,P,N)
+
+    state_decay_in = torch.exp(cum).to(in_dt)  # decay chunk start -> pos (inclusive)
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc.float(), h_prev.float())
+    y_off = y_off * state_decay_in.float().permute(0, 1, 3, 2)[..., None]
+
+    y = (y_diag + y_off).reshape(Bsz, S, H, P)[:, :S_out]
+    return y, h
+
+
+def mamba_block(p, x, cfg: ModelConfig, cache=None, collect_state=False):
+    """x: (B,S,d) -> (out, new_cache). ``cache`` {"conv_x","conv_B",
+    "conv_C","state"} for decode; ``collect_state`` (prefill) returns the
+    equivalent cache in one pass; otherwise the cache is None."""
+    d_in, H, P, N = _dims(cfg)
+    W = cfg.conv_width
+    x = cm.norm(x, p["ln"], cfg.norm_kind)  # pre-norm (residual added by caller)
+    z = x @ p["w_z"].to(x.dtype)
+    xs = x @ p["w_x"].to(x.dtype)
+    Bm = x @ p["w_B"].to(x.dtype)
+    Cm = x @ p["w_C"].to(x.dtype)
+    dt = x.float() @ p["w_dt"].float()
+    dt = F.softplus(dt + p["dt_bias"])  # (B,S,H)
+    A = -torch.exp(p["A_log"])  # (H,)
+
+    new_cache = {}
+    if cache is None:
+        if collect_state:  # pre-conv tails are the decode conv state
+            new_cache["conv_x"] = xs[:, -(W - 1):].to(torch.bfloat16)
+            new_cache["conv_B"] = Bm[:, -(W - 1):].to(torch.bfloat16)
+            new_cache["conv_C"] = Cm[:, -(W - 1):].to(torch.bfloat16)
+        xs, _ = _causal_conv(xs, p["conv_x"])
+        Bm, _ = _causal_conv(Bm, p["conv_B"])
+        Cm, _ = _causal_conv(Cm, p["conv_C"])
+    else:
+        xs, new_cache["conv_x"] = _causal_conv(xs, p["conv_x"], cache["conv_x"])
+        Bm, new_cache["conv_B"] = _causal_conv(Bm, p["conv_B"], cache["conv_B"])
+        Cm, new_cache["conv_C"] = _causal_conv(Cm, p["conv_C"], cache["conv_C"])
+
+    xh = xs.reshape(*xs.shape[:2], H, P)
+    xbar = xh * dt[..., None].to(xh.dtype)
+    dA = dt * A  # (B,S,H) log decay
+
+    if cache is None:
+        y, last_state = ssd_chunked(xbar, dA, Bm, Cm, cfg.ssm_chunk)
+        if collect_state:
+            new_cache["state"] = last_state
+    else:
+        # O(1) recurrent decode: h = exp(dA) h + xbar (outer) B ; y = <h, C>
+        h = cache["state"].float()  # (B,H,P,N)
+        dec = torch.exp(dA[:, 0].float())  # (B,H)
+        h = h * dec[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", xbar[:, 0].float(), Bm[:, 0].float())
+        y = torch.einsum("bhpn,bn->bhp", h, Cm[:, 0].float())[:, None]
+        new_cache["state"] = h
+
+    y = y + xh.float() * p["D"][None, None, :, None]
+    y = y.reshape(*y.shape[:2], d_in)
+    y = cm.rms_norm((y * F.silu(z.float())).to(x.dtype), p["gn"])
+    out = y @ p["w_out"].to(y.dtype)
+    return out, (new_cache if (cache is not None or collect_state) else None)
+
+
+CACHE_KEYS = ("conv_x", "conv_B", "conv_C", "state")
+
+
+def cache_defs_fn(cfg: ModelConfig):
+    d_in, H, P, N = _dims(cfg)
+    w = cfg.conv_width
+    L = cfg.n_layers
+
+    def cache_defs(batch: int, cache_len: int) -> dict:
+        return {
+            "conv_x": pt.ParamDef((L, batch, w - 1, d_in), ("layers", "batch", None, "inner")),
+            "conv_B": pt.ParamDef((L, batch, w - 1, N), ("layers", "batch", None, "state")),
+            "conv_C": pt.ParamDef((L, batch, w - 1, N), ("layers", "batch", None, "state")),
+            "state": pt.ParamDef((L, batch, H, P, N), ("layers", "batch", "inner", None, "state"),
+                                 "float32"),
+            "len": pt.ParamDef((), (), "int32", "zeros"),
+        }
+
+    return cache_defs
+
+
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+    if parallel.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save only the matmul outputs) is not ported; use "
+            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
+    remat = parallel.remat == "full"
+
+    def train_block(h, blk):
+        return h + mamba_block(blk, h, cfg)[0]
+
+    def loss_fn(params, batch):
+        """Mean next-token cross-entropy (labels shifted by one inside);
+        each stacked block leaf is unbound once, as in the dense family."""
+        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
+        for l in range(cfg.n_layers):
+            blk = pt.tree_map(lambda ts: ts[l], layers)
+            if remat:
+                x = checkpoint(train_block, x, blk, use_reentrant=False)
+            else:
+                x = train_block(x, blk)
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x, cfg)
+        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        """The chunked scan over the prompt, keeping each layer's conv tails
+        and final state; returns the last position's logits and the cache."""
+        tokens = batch["tokens"]
+        x = cm.embed(params["embed"], tokens, cfg)
+        outs = {k: [] for k in CACHE_KEYS}
+        for l in range(cfg.n_layers):
+            out, nc = mamba_block(tf.layer_params(params["blocks"], l), x, cfg,
+                                  collect_state=True)
+            x = x + out
+            for k in CACHE_KEYS:
+                outs[k].append(nc[k])
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x[:, -1:], cfg)
+        cache = {k: torch.stack(v) for k, v in outs.items()}
+        cache["len"] = torch.tensor(tokens.shape[1], dtype=torch.int32, device=x.device)
+        return lg, cache
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        """One token per row against the fixed-size state; the conv tails
+        and states are updated IN PLACE. ``len`` (scalar or per row) only
+        counts."""
+        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        for l in range(cfg.n_layers):
+            layer = {k: cache[k][l] for k in CACHE_KEYS}
+            out, nc = mamba_block(tf.layer_params(params["blocks"], l), x, cfg, cache=layer)
+            x = x + out
+            for k in CACHE_KEYS:
+                layer[k].copy_(nc[k])
+        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
+        lg = cm.logits(params["embed"], x, cfg)
+        return lg, {**{k: cache[k] for k in CACHE_KEYS}, "len": cache["len"] + 1}
+
+    return {
+        "loss": loss_fn,
+        "prefill": prefill,
+        "decode_step": decode_step,
+        "cache_defs": cache_defs_fn(cfg),
+        "input_specs": tf.input_specs,
+    }

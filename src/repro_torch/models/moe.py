@@ -307,8 +307,9 @@ def moe_ffn_selected(router: torch.Tensor, rows: dict, x: torch.Tensor,
 def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
     if cfg.window:
         raise NotImplementedError(
-            "local attention windows are not ported (ROADMAP.md Queue 2: "
-            "flash attention window/softcap)")
+            "a local attention window on this family is not wired: none of "
+            "its configs sets one (the flash kernels take it; the hybrid "
+            "family's attention passes it)")
     if parallel.remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save only the matmul outputs) is not ported; use "

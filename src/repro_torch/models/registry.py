@@ -1,7 +1,8 @@
 """arch -> ModelBundle: the uniform interface over model families.
 
-The ``dense`` and ``moe`` families are ported; every other family raises
-``NotImplementedError`` naming its ROADMAP item.
+The ``dense``, ``moe``, ``ssm`` (mamba2) and ``hybrid`` (recurrentgemma)
+families are ported; ``vlm`` and ``encdec`` raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -13,14 +14,12 @@ import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
-from repro_torch.models import moe, transformer
+from repro_torch.models import mamba2, moe, rglru, transformer
 
-FAMILY_MODULES = {"dense": transformer, "moe": moe}
+FAMILY_MODULES = {"dense": transformer, "moe": moe, "ssm": mamba2, "hybrid": rglru}
 
 NOT_PORTED = {
     "vlm": "ROADMAP.md Queue 1, other families (vlm through transformer.py)",
-    "ssm": "ROADMAP.md Queue 1, other families (models/mamba2.py)",
-    "hybrid": "ROADMAP.md Queue 1, other families (models/rglru.py)",
     "encdec": "ROADMAP.md Queue 1, other families (models/encdec.py)",
 }
 

@@ -66,8 +66,9 @@ def _check_ported(cfg: ModelConfig) -> None:
             "(ROADMAP.md Queue 1: other families)")
     if cfg.window:
         raise NotImplementedError(
-            "local attention windows are not ported (ROADMAP.md Queue 2: "
-            "flash attention window/softcap)")
+            "a local attention window on this family is not wired: none of "
+            "its configs sets one (the flash kernels take it; the hybrid "
+            "family's attention passes it)")
 
 
 def _block(cfg: ModelConfig, tiles: int, x, blk, positions, cache=None,

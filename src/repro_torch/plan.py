@@ -32,9 +32,10 @@ For the same explicit ``HardwareSpec`` the port's plan is the reference's
 byte for byte (``to_json``; ``tests/test_torch_plan.py`` holds it across
 the reference's scenario grid). What differs: ``HardwareSpec.detect``
 probes ``torch.cuda`` (or the host with ``device="cpu"``), and the byte
-arithmetic walks the port's ``ParamDef`` trees, which exist for the dense
-and MoE families, so a plan for another family raises until that family
-is ported (ROADMAP.md Queue 1 item 7).
+arithmetic walks the port's ``ParamDef`` trees, which exist for the dense,
+MoE, SSM and hybrid families (the fixed-state families' ``cache_defs`` size
+their serving state), so a plan for ``encdec`` or ``vlm`` raises until that
+family is ported (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -288,6 +288,54 @@ def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
         _bwd_close(a, b, dtype)
 
 
+# (B, H, KV, Sq, Sk, D, layout, causal, window): a local window on both
+# routes -- head_dim 64 and 128 on the tensor cores, 192 and 256 on the CUDA
+# cores; odd Sq/Sk (77, 130: where the TMA-box fault hid), Sq < Sk, not
+# causal, a window past Sk (global), and recurrentgemma's heads (16 query
+# heads on one KV head, head_dim 256)
+FLASH_WINDOW_CASES = [
+    (2, 9, 3, 512, 512, 64, "bshd", True, 128),
+    (1, 6, 2, 100, 132, 64, "bshd", True, 50),
+    (3, 3, 1, 130, 130, 64, "bhsd", True, 64),
+    (1, 4, 2, 96, 160, 64, "bshd", False, 40),
+    (2, 4, 4, 77, 77, 128, "bhsd", True, 33),
+    (1, 3, 1, 130, 130, 64, "bshd", True, 1000),
+    (1, 16, 1, 300, 300, 256, "bshd", True, 100),
+    (1, 4, 2, 77, 130, 192, "bshd", False, 50),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_WINDOW_CASES)
+def test_flash_attention_window_matches_plain_on_both_routes(cuda, case):
+    """The windowed forward and backward on every route the head_dim
+    allows, bf16, against the windowed plain version with the tolerances
+    of the unwindowed checks; the plain version without the window's lower
+    bound (the mutant that drops it) fails that tolerance."""
+    causal, window, D = case[7], case[8], case[5]
+    q, k, v, do = _flash_inputs(case[:8], torch.bfloat16, 9, grads=True)
+    plain, lse_ref = ref.attention_fwd_ref(q, k, v, causal=causal, window=window)
+    mag = ref.attention_ref(q, k, v.abs(), causal=causal, window=window)
+    routes = tfa.ROUTES if D in tfa.WGMMA_HEAD_DIMS else ("simt",)
+    for r in routes:
+        o, lse = _flash_routed(
+            lambda: tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             with_lse=True, simt=r == "simt"), (q, k, v), r)
+        assert_close(o, plain, mag, torch.bfloat16, f32_tol=None, mtol=2**-7)
+        assert (lse - lse_ref).abs().max().item() <= 1e-4 * max(1.0, lse_ref.abs().max().item())
+        grads = _flash_routed(lambda: tfa.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=causal, window=window, simt=r == "simt"),
+            (q, k, v, do), r, bwd=True)
+        want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+        for a, b, t in zip(grads, want, (q, k, v)):
+            assert a.stride() == t.stride()
+            _bwd_close(a, b, torch.bfloat16)
+        if window < q.shape[2] + k.shape[2]:
+            dropped = ref.attention_ref(q, k, v, causal=causal)
+            with pytest.raises(AssertionError):
+                assert_close(o, dropped, mag, torch.bfloat16, f32_tol=None, mtol=2**-7)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tiled_matmul_reads_transposed_views(cuda, dtype):

@@ -115,13 +115,15 @@ def test_tma_strides_read_either_layout_and_take_size_one_dims():
     assert tfa.tma_strides(bcast) is None
 
 
-def _tile_pairs(Sq, Sk, causal, rows, cols, by_keys=False):
+def _tile_pairs(Sq, Sk, causal, rows, cols, by_keys=False, window=0):
     """Brute force: for each query tile of ``rows`` (key tile of ``cols``
     when ``by_keys``), the tiles of the other kind that hold at least one
     (query, key) pair the mask keeps."""
     i = torch.arange(Sq)[:, None]
     j = torch.arange(Sk)[None, :]
     keep = (j <= i + (Sk - Sq)) if causal else torch.ones(Sq, Sk, dtype=torch.bool)
+    if window:
+        keep = keep & (j > i + (Sk - Sq) - window)
     nq, nk = -(-Sq // rows), -(-Sk // cols)
     pad = torch.zeros(nq * rows, nk * cols, dtype=torch.bool)
     pad[:Sq, :Sk] = keep
@@ -161,6 +163,47 @@ def test_plan_grids_match_a_brute_force_count_heavy_blocks_first(B, H, KV, Sq, S
         assert p[kern]["steps"] == sorted(p[kern]["steps"], reverse=True)
 
 
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", [
+    (1, 16, 1, 4096, 4096, True, 2048),  # recurrentgemma-9b's local attention
+    (8, 9, 3, 1024, 1024, True, 256),    # the tensor-core window shape
+    (1, 16, 1, 2500, 2500, True, 2048),  # ragged, longer than the window
+    (1, 6, 2, 100, 132, True, 50),       # Sq < Sk
+    (1, 4, 2, 96, 160, False, 40),       # not causal: a lower bound alone
+    (3, 3, 1, 130, 130, True, 1000),     # a window past Sk: the causal plan
+    (1, 2, 1, 77, 300, True, 30),        # early keys no query's window reaches
+])
+def test_plan_under_a_window_walks_only_the_tiles_it_reaches(B, H, KV, Sq, Sk, causal, window):
+    """Each block's steps are the brute-force count of the tiles holding a
+    kept pair (a tile's first step and its frontier both tight), so the
+    work scales with the window, not with Sk."""
+    p = tfa.plan(B, H, KV, Sq, Sk, causal=causal, window=window)
+    n_rep = H // KV
+    per_q = _tile_pairs(Sq, Sk, causal, tfa.BQ, tfa.BKV, window=window)
+    per_k = _tile_pairs(Sq, Sk, causal, tfa.BQB, tfa.BKV, by_keys=True, window=window)
+    for kern in ("fwd", "dq"):
+        assert p[kern]["steps"] == [per_q[t] for t in p[kern]["order"]]
+        assert p[kern]["pairs"] == sum(per_q) * H * B
+    assert p["dkdv"]["steps"] == [n_rep * per_k[t] for t in p["dkdv"]["order"]]
+    glob = tfa.plan(B, H, KV, Sq, Sk, causal=causal)
+    if window >= Sq + Sk:
+        assert p == glob
+    for kern in ("fwd", "dkdv"):
+        assert p[kern]["pairs"] <= glob[kern]["pairs"]
+        if Sq >= 1024:  # rows span many windows: whole tiles drop out
+            assert p[kern]["pairs"] < glob[kern]["pairs"]
+
+
+def test_window_halves_the_last_query_tiles_at_recurrentgemmas_shape():
+    """(1,16,4096,256) over one KV head, causal, window 2048: the last query
+    tile walks 34 of the 64 K/V tiles its causal frontier reaches, every
+    tile past the first 2048 rows the same 34 (the work is flat there)."""
+    p = tfa.plan(1, 16, 1, 4096, 4096, causal=True, window=2048)
+    glob = tfa.plan(1, 16, 1, 4096, 4096, causal=True)
+    assert glob["fwd"]["steps"][0] == 64 and p["fwd"]["steps"][0] == 34
+    assert set(p["fwd"]["steps"][:16]) == {34}
+    assert p["fwd"]["steps"] == sorted(p["fwd"]["steps"], reverse=True)
+
+
 def test_plan_at_the_training_shape_fills_the_card():
     """128-row query blocks give 4 x 9 x 8 = 288 forward / dQ blocks; 64-key
     dK/dV blocks give 8 x 3 x 8 = 192 where 128-key ones would leave 36 of
@@ -175,15 +218,17 @@ def test_plan_at_the_training_shape_fills_the_card():
 
 def test_launch_counts_report_each_route_and_their_sums(monkeypatch):
     for name, n in (("wgmma_launches", 5), ("simt_launches", 2),
-                    ("bwd_wgmma_launches", 3), ("bwd_simt_launches", 1)):
+                    ("bwd_wgmma_launches", 3), ("bwd_simt_launches", 1),
+                    ("window_launches", 2), ("bwd_window_launches", 1)):
         monkeypatch.setattr(tfa, name, n)
     c = ops.launch_counts()
     assert (c["flash_attention"], c["flash_attention_wgmma"], c["flash_attention_simt"]) == (7, 5, 2)
     assert (c["flash_attention_bwd"], c["flash_attention_bwd_wgmma"],
             c["flash_attention_bwd_simt"]) == (4, 3, 1)
+    assert (c["flash_attention_window"], c["flash_attention_bwd_window"]) == (2, 1)
     ops.reset_launch_counts()
-    assert tfa.wgmma_launches == tfa.simt_launches == 0
-    assert tfa.bwd_wgmma_launches == tfa.bwd_simt_launches == 0
+    assert tfa.wgmma_launches == tfa.simt_launches == tfa.window_launches == 0
+    assert tfa.bwd_wgmma_launches == tfa.bwd_simt_launches == tfa.bwd_window_launches == 0
 
 
 @pytest.mark.parametrize("model", ["gemma-7b", "nemotron-4-340b"])

@@ -208,6 +208,52 @@ def test_flash_backward_plain_matches_jax_vjp(B, H, KV, Sq, Sk, D):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-5 * np.abs(w).max())
 
 
+@pytest.mark.parametrize("D", [16, 64, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk,window", [(48, 48, 16), (20, 53, 24)])
+def test_windowed_plain_attention_matches_chunked_attention(D, causal, Sq, Sk, window):
+    """The windowed plain version (forward, and backward through the
+    autograd Function) against the reference's jnp ``chunked_attention``
+    with ``window`` and the query's end-aligned offset ``q_offset = Sk -
+    Sq``, forward and ``jax.vjp``, in f32: sums differ only in order (2e-5
+    of the largest element). The same plain version without the window's
+    lower bound (a mutant that drops it) misses the forward by far more."""
+    B, H, KV = 1, 4, 2
+    rng = np.random.default_rng(Sq * 10 + Sk + D)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Sk, KV, D)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    f = lambda q, k, v: jcm.chunked_attention(q, k, v, causal=causal, q_offset=Sk - Sq,
+                                              window=window, q_chunk=16, kv_chunk=16)
+    want_o, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                              tv.transpose(1, 2), causal=causal, window=window)
+    want_o = np.asarray(want_o)
+    tol = 2e-5 * np.abs(want_o).max()
+    np.testing.assert_allclose(out.detach().transpose(1, 2).numpy(), want_o, rtol=0, atol=tol)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do).transpose(1, 2))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-5 * np.abs(w).max())
+    dropped = ref.attention_ref(tq.detach().transpose(1, 2), tk.detach().transpose(1, 2),
+                                tv.detach().transpose(1, 2), causal=causal)
+    assert np.abs(dropped.transpose(1, 2).numpy() - want_o).max() > 100 * tol
+
+
+def test_window_rule_is_end_aligned_and_global_at_zero():
+    m = ref.visible(3, 6, True, 2, "cpu")  # query i sits at key position i + 3
+    assert m.tolist() == [[False, False, True, True, False, False],
+                          [False, False, False, True, True, False],
+                          [False, False, False, False, True, True]]
+    assert ref.visible(4, 4, False, 0, "cpu").all()
+    assert torch.equal(ref.visible(5, 7, True, 0, "cpu"), ref.visible(5, 7, True, 99, "cpu"))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
+                            torch.zeros(1, 1, 4, 8), window=-1)
+
+
 def test_autograd_wiring_saves_nothing_when_serving():
     """Under ``no_grad`` (serving) the forward runs alone: no graph, the
     plain version's output bit for bit. With grad the Function's backward

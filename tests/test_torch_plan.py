@@ -132,7 +132,8 @@ def test_kv_prefetch_blocks_equals_reference(block_bytes, step_flops, bw, peak):
                                           peak_flops=peak)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b", "gemma-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b", "gemma-7b",
+                                  "mamba2-370m", "recurrentgemma-9b"])
 @pytest.mark.parametrize("ctx", [16, 640, 32768])
 def test_sequence_kv_bytes_equals_reference(arch, ctx):
     assert tkv.sequence_kv_bytes(tconfigs.get(arch), ctx) == \
@@ -241,9 +242,20 @@ SCENARIOS = {
                                         "prefetch_layers": 3}}),
     "moe_serve": ("granite-moe-1b-a400m", (512, 8, "decode"),
                   dict(n_devices=1, device_mem=85e9, host_mem=103e9), {}),
+    # the fixed-state families at the shapes chip_smoke serves and trains
+    "ssm_h100_train": ("mamba2-370m", (512, 8, "train"),
+                       dict(n_devices=1, device_mem=85e9, host_mem=103e9,
+                            nvme_capacity=1e12), {}),
+    "ssm_h100_serve": ("mamba2-370m", (544, 8, "decode"),
+                       dict(n_devices=1, device_mem=85e9, host_mem=103e9), {}),
+    "hybrid_h100_serve": ("recurrentgemma-9b", (2576, 8, "decode"),
+                          dict(n_devices=1, device_mem=85e9, host_mem=103e9), {}),
+    "hybrid_h100_train": ("recurrentgemma-9b", (4096, 1, "train"),
+                          dict(n_devices=1, device_mem=85e9, host_mem=103e9,
+                               nvme_capacity=1e12), {}),
 }
 for _arch in ("smollm-135m", "llama3.2-3b", "gemma-7b", "granite-moe-1b-a400m",
-              "llama4-scout-17b-a16e"):
+              "llama4-scout-17b-a16e", "mamba2-370m", "recurrentgemma-9b"):
     for _shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         for _hw_name, _hw in (("roomy", _ROOMY), ("nvme", _NVME),
                               ("one_h100", dict(n_devices=1, device_mem=85e9,
@@ -289,7 +301,8 @@ def test_lowered_run_config_equals_reference(name):
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b", "gemma-7b",
                                   "nemotron-4-340b", "granite-moe-1b-a400m",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "mamba2-370m",
+                                  "recurrentgemma-9b"])
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 @pytest.mark.parametrize("n_devices", [1, 16])
 def test_state_bytes_fields_equal_reference(arch, shape, n_devices):
@@ -328,7 +341,16 @@ def test_moe_zero3_override_without_nvme_params_raises_as_the_reference(arch, pa
     assert errs[0] == errs[1]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+def test_zero3_override_on_a_fixed_state_family_raises_as_the_reference(arch):
+    """The explicit engine is dense/moe only: a plan override to zero3 on
+    mamba2 or recurrentgemma raises the reference's words."""
+    errs = _bad_override_errors(arch, (4096, 256, "train"), {"engine": "zero3"},
+                                "dense/moe only")
+    assert errs[0] == errs[1]
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "seamless-m4t-medium"])
 def test_families_without_port_defs_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         tplan.plan_run(tconfigs.get(arch), "train_4k", tplan.HardwareSpec(**_NVME))
