@@ -49,7 +49,7 @@ Phases (any failure exits non-zero; no phase is caught):
      backward (dq, dk, dv; routes held, the tensor-core kernels timed
      against the CUDA-core ones as in 3), at smollm's and at
      granite-moe-1b-a400m's training shapes, also at gemma-7b's and
-     nemotron-4-340b's heads (head_dim 256 and 192, on the CUDA cores), the
+     nemotron-4-340b's heads (head_dim 256 and 192, on the tensor cores), the
      tiled matmul's gradient products on transposed views (all four
      major-ness combinations, a ragged shape on the tensor cores), and the
      quantized matmul forward and in its dX orientation (routes held, the
@@ -117,11 +117,11 @@ Phases (any failure exits non-zero; no phase is caught):
       key j only if j > i + (Sk - Sq) - window), forward and backward
       against the windowed plain version by ``TOL``, bf16 and f32, at
       recurrentgemma-9b's heads over 4096 tokens with its window of 2048
-      (head_dim 256: the CUDA cores), at (8,9,3,1024,64) with a window of
-      256 (the tensor cores), both timed in bf16 beside their bound (the
-      pairs the window keeps), the plain version and SDPA with the window
-      as a boolean mask, and at 2500 tokens past a window of 2048 on both
-      routes (``FLASH_WINDOW``, ``FLASH_WINDOW_RAGGED``);
+      (head_dim 256) and at (8,9,3,1024,64) with a window of 256, both on
+      the tensor cores and timed in bf16 beside their bound (the pairs the
+      window keeps), the CUDA-core kernels, the plain version and SDPA
+      with the window as a boolean mask, and at 2500 tokens past a window
+      of 2048 at both head_dims (``FLASH_WINDOW``, ``FLASH_WINDOW_RAGGED``);
   20. recurrent numerics: the GSPMD step all on the device, card against
       CPU by phase 11's bounds, on mamba2-370m at full width cut to 2
       layers (4 x 256 tokens) and recurrentgemma-9b at full width cut to 3
@@ -145,13 +145,11 @@ In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18, 21, 22, 23) each
 flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
-(``*_wgmma``), none on ``simt``, with one stated exception: flash attention
-at head_dim 192 or 256 runs on the CUDA cores (ROADMAP.md Queue 2 item 2
-(a)), so the hybrid paths' flash launches are all ``simt``, exactly one per
-attention layer (forward, its recompute, backward) and each with the
-window; mamba2's paths launch no flash and no tiled matmul (its products
-are the reference's einsums outside Pallas). ``plan_residency_ok`` must be
-true wherever a step reports it.
+(``*_wgmma``), none on ``simt``: the hybrid paths' flash launches too
+(head_dim 256), exactly one per attention layer (forward, its recompute,
+backward) and each with the window; mamba2's paths launch no flash and no
+tiled matmul (its products are the reference's einsums outside Pallas).
+``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 """
@@ -243,19 +241,20 @@ ADAM_SIZES = [(49152 * 576, "embed.tok"), (576, "ln_f.scale"), (100_001, "ragged
 QMM_TRAIN = [(4096, 576, 1536, False), (4096, 1536, 576, False),
              (4096, 576, 1536, True), (4096, 1536, 576, True)]
 QMM_RAGGED = [(100, 96, 64, False), (100, 96, 64, True)]
-# flash at the heads of the dense configs whose head_dim the tensor-core
-# kernels do not take (the CUDA-core ones do): gemma-7b (16 heads, head_dim
-# 256) and nemotron-4-340b (96 query heads over 8 KV heads, head_dim 192)
+# flash at the heads of the dense configs with the widest heads, on the
+# tensor cores (dQ blocks of 64 query rows, dK/dV blocks on slabs of
+# head_dim): gemma-7b (16 heads, head_dim 256) and nemotron-4-340b (96
+# query heads over 8 KV heads, head_dim 192)
 FLASH_WIDE = [(1, 16, 16, 512, 512, 256), (1, 96, 8, 256, 256, 192)]
 # the MoE family's training shape: full granite-moe-1b-a400m at --batch 8
 # --seq 512 (16 query heads over 8 KV heads, head_dim 64: the tensor cores)
 MOE_ARCH = "granite-moe-1b-a400m"
 FLASH_MOE = (8, 16, 8, 512, 512, 64)
-# flash with a local window, (shape, window): recurrentgemma-9b's attention
-# (16 query heads over one KV head, head_dim 256: the CUDA cores) at the
-# hybrid training cell's 4096 tokens with its window of 2048, the tensor-core
-# route at smollm-width heads over 1024 tokens with a window of 256, and
-# ragged lengths past the window on both routes (untimed)
+# flash with a local window, (shape, window), all on the tensor cores:
+# recurrentgemma-9b's attention (16 query heads over one KV head, head_dim
+# 256) at the hybrid training cell's 4096 tokens with its window of 2048,
+# smollm-width heads over 1024 tokens with a window of 256, and ragged
+# lengths past the window at both head_dims (untimed)
 FLASH_WINDOW = [((1, 16, 1, 4096, 4096, 256), 2048), ((8, 9, 3, 1024, 1024, 64), 256)]
 FLASH_WINDOW_RAGGED = [((1, 16, 1, 2500, 2500, 256), 2048), ((2, 4, 2, 2500, 2500, 64), 2048)]
 # the fixed-state families: recurrentgemma-9b (hybrid: RG-LRU blocks and
@@ -433,10 +432,11 @@ def routed_flash(fn, inputs, bwd: bool = False, window: int = 0) -> tuple:
     out = routed("flash_attention_bwd" if bwd else "flash_attention", fn, want)
     rec = {"route": want}
     if want == "wgmma":
-        (B, H, Sq, _), (_, KV, Sk, _) = inputs[0].shape, inputs[1].shape
+        (B, H, Sq, D), (_, KV, Sk, _) = inputs[0].shape, inputs[1].shape
         p = tfa.plan(B, H, KV, Sq, Sk, sms=torch.cuda.get_device_properties(0)
-                     .multi_processor_count, window=window)
-        rec["plan"] = {kern: {k: p[kern][k] for k in ("tile", "blocks", "blocks_per_sm")}
+                     .multi_processor_count, window=window, D=D)
+        rec["plan"] = {kern: {k: p[kern][k] for k in ("tile", "slab", "blocks", "blocks_per_sm")
+                              if k in p[kern]}
                        for kern in (("dkdv", "dq") if bwd else ("fwd",))}
     return out, rec
 
@@ -450,8 +450,8 @@ def check_speedup(name, shape, rec) -> None:
 
 
 def check_flash_routes(recs) -> None:
-    """bf16 at head_dim 64 or 128 takes the tensor cores; f32 and other
-    head_dims the CUDA cores."""
+    """bf16 at head_dim 64, 128, 192 or 256 takes the tensor cores; f32 the
+    CUDA cores."""
     for r in recs:
         bf16_wgmma = r["dtype"] == "bfloat16" and r["shape"][-1] in tfa.WGMMA_HEAD_DIMS
         want = "wgmma" if bf16_wgmma else "simt"
@@ -890,22 +890,15 @@ ROUTED = ("flash_attention", "flash_attention_bwd", "tiled_matmul", "quantized_m
           "quantized_matmul_dx")
 
 
-def check_main_path_routes(tag, launches, cfg=None) -> None:
+def check_main_path_routes(tag, launches) -> None:
     """Every flash-attention (forward and backward), tiled-matmul and
     quantized-matmul (forward and dX) launch of a main path is a
-    tensor-core one, with one stated exception: flash attention at
-    head_dim 192 or 256 (recurrentgemma-9b's heads) runs on the CUDA cores,
-    all of it (ROADMAP.md Queue 2 item 2 (a))."""
+    tensor-core one."""
     for name in ROUTED:
-        want = "wgmma"
-        if name.startswith("flash") and cfg is not None \
-                and cfg.resolved_head_dim not in tfa.WGMMA_HEAD_DIMS:
-            want = "simt"
-        other = "simt" if want == "wgmma" else "wgmma"
-        if launches[f"{name}_{other}"] or launches[f"{name}_{want}"] != launches[name]:
+        if launches[f"{name}_simt"] or launches[f"{name}_wgmma"] != launches[name]:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times, "
                              f"{launches[f'{name}_wgmma']} on wgmma and "
-                             f"{launches[f'{name}_simt']} on simt; want all on {want}")
+                             f"{launches[f'{name}_simt']} on simt; want all on wgmma")
 
 
 def attention_layers(cfg) -> int:
@@ -1031,7 +1024,7 @@ def summarize(tag, argv, out, launches, wall, arch="smollm-135m") -> dict:
         raise SystemExit(f"FAIL {tag}: tiled_matmul launched "
                          f"{launches['tiled_matmul']} < {3 * L} x "
                          f"({waves} waves + {out['steps']} steps)")
-    check_main_path_routes(tag, launches, cfg)
+    check_main_path_routes(tag, launches)
     check_window_launches(tag, launches, cfg)
     for g in out["generated"]:
         if any(not 0 <= tok < cfg.padded_vocab() for tok in g):
@@ -1208,7 +1201,7 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m", batch: in
     for name, n in want.items():
         if launches[name] < n:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
-    check_main_path_routes(tag, launches, cfg)
+    check_main_path_routes(tag, launches)
     check_window_launches(tag, launches, cfg)
     return rec, launches
 
@@ -1737,8 +1730,8 @@ def phase_flash_window() -> dict:
     the windowed plain version (``TOL``, bf16 and f32) at ``FLASH_WINDOW``
     (bf16 timed: kernel, CUDA-core kernel, plain version, SDPA with the
     window as a boolean mask, bound over the pairs the window keeps) and
-    ``FLASH_WINDOW_RAGGED``; routes held: head_dim 256 on the CUDA cores,
-    64 on the tensor cores."""
+    ``FLASH_WINDOW_RAGGED``; routes held: bf16 at head_dim 256 and 64 on
+    the tensor cores, f32 on the CUDA cores."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     bf16, f32 = torch.bfloat16, torch.float32
     fwd, bwd = [], []
@@ -1766,7 +1759,7 @@ def phase_family_serve(tag: str, arch: str, prompt: int, new: int) -> tuple:
     cfg = configs.get(arch)
     if any(len(g) != new for g in out["generated"]):
         raise SystemExit(f"FAIL {tag}: not every sequence produced its {new} tokens")
-    per_seq = kvcache.sequence_kv_bytes(cfg, prompt + new) - 4  # less the len leaf
+    per_seq = kvcache.sequence_kv_bytes(cfg, prompt + new)  # with the len placeholder
     if out["kv"]["out_bytes"] != out["admissions"] * per_seq:
         raise SystemExit(f"FAIL {tag}: parked {out['kv']['out_bytes']} B for "
                          f"{out['admissions']} caches of {per_seq} B")

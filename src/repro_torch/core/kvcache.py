@@ -254,7 +254,12 @@ class KVFetchHandle:
 
 def slice_sequence(cache: dict, b: int) -> dict:
     """Sequence ``b`` of a batched cache as batch-1 views, nested as the
-    cache is; the top-level ``len`` leaf is left out (the paging layout
-    tracks each sequence's length)."""
-    return pt.tree_map(lambda leaf: leaf[:, b: b + 1],
-                       {name: sub for name, sub in cache.items() if name != "len"})
+    cache is. The top-level ``len`` leaf becomes a 0-d int32 zero on the
+    cache's device, as in the reference: a structural placeholder that
+    ``park`` ships as ``.../len/full`` and unpark never consults (the
+    paging layout tracks each sequence's length)."""
+    out = pt.tree_map(lambda leaf: leaf[:, b: b + 1],
+                      {name: sub for name, sub in cache.items() if name != "len"})
+    if "len" in cache:
+        out["len"] = torch.zeros((), dtype=torch.int32, device=cache["len"].device)
+    return out

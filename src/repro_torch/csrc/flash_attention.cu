@@ -32,13 +32,15 @@
 // the causal frontier; dQ per query tile.
 //
 // Two routes, chosen per call by kernels/flash_attention.py:route():
-//   wgmma -- bf16, D in {64, 128}, every operand one TMA can describe (unit
-//            last stride, the others multiples of 8 elements, base aligned
-//            to 16 bytes): tensor cores fed by TMA under mbarriers. Every
-//            bf16 attention call of the serving and training paths takes it.
+//   wgmma -- bf16, D in {64, 128, 192, 256}, every operand one TMA can
+//            describe (unit last stride, the others multiples of 8
+//            elements, base aligned to 16 bytes): tensor cores fed by TMA
+//            under mbarriers. Every bf16 attention call of the serving and
+//            training paths takes it.
 //   simt  -- everything else: f32 (wgmma's only f32 input is TF32, which
-//            would break the f32 tolerance), D = 32, 192 and 256, views TMA
-//            cannot describe. The first design's CUDA-core f32 FMAs: LANES
+//            would break the f32 tolerance), D = 32, views TMA cannot
+//            describe; at any D on request (the timed baseline). The
+//            first design's CUDA-core f32 FMAs: LANES
 //            threads per query (or key) row, 32 rows a block, K/V (or q/dO)
 //            tiles staged as f32 in static shared memory -- 4 lanes and
 //            32-row tiles up to D = 128, as it was; above it 8 lanes and
@@ -95,6 +97,31 @@
 //     and dS^T with lse and delta read per column from shared memory,
 //     dV += bf16(P^T) dO and dK += dS^T Q on dS's hi + lo pair (RS).
 //   delta stays the CUDA-core row reduction on both routes.
+// Above D = 128 (gemma-7b's and recurrentgemma-9b's 256, nemotron's 192)
+// the same products would not fit a thread's registers or a block's shared
+// memory as they stand, so three things change, and only there:
+//   forward: the same grid and tiles (Q 64 KB + a 2 x 64 KB K/V ring at
+//     D = 256), but a 64 x D f32 accumulator (128 registers at D = 256)
+//     does not fit the 168 registers that 288 threads leave a thread (9
+//     warps put 3 on one of the SM's four schedulers): it spilled and
+//     serialized its wgmmas. The producer becomes a whole warpgroup that
+//     drops to 40 registers with setmaxnreg and each consumer rises to 232
+//     (FlashAttention-3's recipe, arXiv:2407.08608); O += P V runs as n128
+//     pieces and an n64 piece over the 64-column chunks (piece p on
+//     accumulator registers 64 p on: one m64nD product's layout).
+//   dQ: 128 query rows would need Q + dO + the ring = 256 KB at D = 256,
+//     so a block holds 64 rows and one consumer warpgroup (160 threads,
+//     up to 255 registers; 192 KB).
+//   dK/dV: dK and dV at D = 256 would take 256 accumulator registers a
+//     thread. Each block accumulates one slab of D instead -- 128 columns
+//     at D = 256, 64 at D = 192, so slabs start on the swizzled tiles'
+//     64-column chunks -- from full-width K, V, q and dO tiles: S^T and
+//     dP^T over all of D, dV += P^T dO and dK += dS^T Q on its slab (the
+//     N-major descriptor starts at the slab's chunk). Accumulators stay at
+//     64 + 64 registers, S^T and dP^T are formed once per slab (4 D of
+//     about 12 D flops a pair again), and the grid grows by the slabs: 128
+//     blocks at recurrentgemma's MQA shape (64 key tiles on one KV head)
+//     where 64 would leave half of the 132 SMs idle.
 // dS goes to the tensor cores as hi = bf16(dS) and lo = bf16(dS - hi), two
 // RS products where one would do, because dS rounded once to bf16 does not
 // fit chip_smoke.py's unchanged backward tolerance: emulated on the CPU
@@ -114,7 +141,16 @@
 // bytes of spill, and ptxas serializes its wgmmas for want of registers --
 // still faster at the training shape than one block per SM without either,
 // slower at the serve shape; PERF.md), 151 / 167 at D = 128; dQ 137 / 139
-// and 162 / 159; dK/dV 199 / 188 and 255 / 250; none of these spill. The
+// and 162 / 159; dK/dV 199 / 188 and 255 / 250; none of these spill.
+// Above D = 128, dynamic shared memory per block and registers:
+//   kernel          D = 192                 D = 256
+//   forward         145 KB, 168 at launch,  193 KB, 168 at launch,
+//                   232 after setmaxnreg    232 after setmaxnreg
+//   dQ (64 rows)    145 KB, 194 / 191       193 KB, 224 / 222
+//   dK/dV (slab)    147 KB, 198 / 186       195 KB, 255 / 252
+// with no spill and no serialized wgmma; before setmaxnreg the D = 256
+// forward spilled 264 bytes at 168 registers and serialized its wgmmas
+// (D = 192: 16 bytes). The
 // simt kernels up to D = 128 are as they were: forward up to 128
 // registers, dQ up to 166, dK/dV up to 216, delta 27-32, no spills; at
 // D = 192 / 256 (f32 and bf16): forward 111-116 / 128, dQ 128 / 164-166,
@@ -583,7 +619,7 @@ bool bad_dims(int B, int H, int KV, int Sq, int Sk, int causal, int window) {
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// The wgmma route: bf16, D in {64, 128}, operands TMA can describe.
+// The wgmma route: bf16, D in {64, 128, 192, 256}, operands TMA can describe.
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -594,7 +630,7 @@ using simt::FwdArgs;
 using simt::NEG_INF;
 using simt::Strides;
 
-constexpr int BQ = 128;   // query rows per forward / dQ block: two m64 consumer warpgroups
+constexpr int BQ = 128;   // query rows per forward block (and dQ's up to D = 128): two m64 warpgroups
 constexpr int BKV = 64;   // keys per K/V tile, and per dK/dV block (one warpgroup)
 constexpr int BQB = 64;   // query rows per tile of the dK/dV block's loop
 // lse / delta values per dK/dV stage: a TMA box must start on 16 bytes, so
@@ -603,6 +639,23 @@ constexpr int ROW_BOX = BQB + 4;
 constexpr int STAGES = 2;  // ring depth
 constexpr int THREADS = 2 * 128 + 32;     // forward / dQ: two consumer warpgroups + a producer warp
 constexpr int THREADS_KV = 128 + 32;      // dK/dV: one consumer warpgroup + a producer warp
+// Above D = 128 a dQ block has one consumer warpgroup of 64 query rows (its
+// q and dO tiles and the K/V ring would pass 227 KB at 128 rows), and a
+// dK/dV block accumulates one slab of D: 128 columns at D = 256, 64 at
+// D = 192 (a slab starts on a 64-column chunk of the swizzled tiles), so
+// its two accumulators stay at 64 + 64 registers a thread at most.
+template <int D> constexpr int DQ_WG = D > 128 ? 1 : 2;
+template <int D> constexpr int DQ_ROWS = 64 * DQ_WG<D>;
+template <int D> constexpr int DQ_THREADS = 128 * DQ_WG<D> + 32;
+template <int D> constexpr int SLAB = D == 256 ? 128 : D == 192 ? 64 : D;
+// Above D = 128 the forward's producer is a whole warpgroup, so that
+// setmaxnreg can move registers to the consumers: 384 threads cap a thread
+// at 168 registers at launch (3 warps on each of the SM's four schedulers),
+// the producer drops to PRODUCER_REGS and each consumer rises to
+// CONSUMER_REGS (4 x 32 x 40 + 8 x 32 x 232 <= 65,536).
+template <int D> constexpr int FWD_THREADS = D > 128 ? 3 * 128 : THREADS;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -666,15 +719,29 @@ __device__ __forceinline__ void mma_abt(float (&s)[32], const uint8_t* a, int r0
   for (int kk = 0; kk < D / 16; ++kk) wgmma_n64<0, 0>(s, kdesc<AROWS>(a, r0, kk), kdesc<64>(b, 0, kk), kk > 0);
 }
 
+// The N-wide piece of an accumulator from register `off` on (an m64nN
+// accumulator's piece over columns 2 off ... 2 off + N - 1).
+template <int N, int R>
+__device__ __forceinline__ auto piece(float (&acc)[R], int off) -> float (&)[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(acc + off);
+}
+
 // acc (64 x D) += P (64 x 64, the A fragments pa) @ V (a 64-row tile): RS,
-// B N-major.
+// B N-major, N = D as n128 pieces and, for D % 128, an n64 one: piece p
+// on accumulator registers 64 p on and on the 64-column chunks 2 p on
+// (the fragment layout of one m64nD product).
 template <int D>
 __device__ __forceinline__ void mma_pv(float (&acc)[D / 2], const uint32_t (&pa)[4][4],
                                        const uint8_t* v) {
+  constexpr int CHUNK = 64 * 128;  // one 64-column chunk of a 64-row tile
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if constexpr (D == 128) wgmma_rs_n128<1>(acc, pa[c], ndesc<64>(v, c), 1);
-    else wgmma_rs_n64<1>(acc, pa[c], ndesc<64>(v, c), 1);
+#pragma unroll
+    for (int p = 0; p < D / 128; ++p)
+      wgmma_rs_n128<1>(piece<128>(acc, 64 * p), pa[c], ndesc<64>(v + 2 * p * CHUNK, c), 1);
+    if constexpr (D % 128)
+      wgmma_rs_n64<1>(piece<64>(acc, 64 * (D / 128)), pa[c],
+                      ndesc<64>(v + 2 * (D / 128) * CHUNK, c), 1);
   }
 }
 
@@ -727,7 +794,7 @@ template <int D> struct Fwd {
 // Forward. One block per (query tile of BQ rows, head, batch), the last
 // query tiles first (under causal they see the most keys).
 template <int D, bool WIN>
-__global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(FWD_THREADS<D>, D == 64 ? 2 : 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
            float* __restrict__ lse, int B, int H, int n_rep, int Sq, int Sk, Strides os,
@@ -759,7 +826,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {  // producer warp: one thread issues every load
+  if (threadIdx.x >= 256) {  // producer warp (warpgroup): one thread issues every load
+    if constexpr (D > 128) setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       load_tile<D, BQ>(sq, &tq, q_full, q0, h, b);
@@ -776,6 +844,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 
   // consumers: warpgroup g owns query rows q0 + 64 g ... + 63; this thread
   // rows r and r + 8 of them
+  if constexpr (D > 128) setmaxnreg_inc<CONSUMER_REGS>();
   const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int r = q0 + g * 64 + warp * 16 + lane / 4;
   const TileRange my = q0 + g * 64 < Sq
@@ -868,14 +937,15 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 }
 
 template <int D> struct Dq {
-  static constexpr int Q_BYTES = tile_bytes<D>(BQ);
+  static constexpr int Q_BYTES = tile_bytes<D>(DQ_ROWS<D>);
   static constexpr int KV_BYTES = tile_bytes<D>(BKV);
   static constexpr int SMEM = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// dQ. The forward's grid; q and dO tiles load once, K/V tiles through the ring.
+// dQ. The forward's grid (DQ_ROWS query rows a block: BQ up to D = 128, 64
+// above); q and dO tiles load once, K/V tiles through the ring.
 template <int D, bool WIN>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(DQ_THREADS<D>, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
           const float* __restrict__ lse, const float* __restrict__ delta,
@@ -883,6 +953,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
           int causal, int window, float sl2, float scale) {
   if constexpr (!WIN) window = 0;
   using C = Dq<D>;
+  constexpr int NC = DQ_WG<D>, QR = DQ_ROWS<D>;  // consumer warpgroups, query rows
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
   uint8_t* sdo = sq + C::Q_BYTES;
@@ -892,28 +963,28 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int q_tile = cdiv(Sq, BQ) - 1 - blockIdx.x / (H * B);
+  const int q_tile = cdiv(Sq, QR) - 1 - blockIdx.x / (H * B);
   const int h = blockIdx.x % H;
   const int b = (blockIdx.x / H) % B;
-  const int q0 = q_tile * BQ;
-  const TileRange rng = kv_range(q0, min(q0 + BQ, Sq) - 1, Sq, Sk, causal, window);
+  const int q0 = q_tile * QR;
+  const TileRange rng = kv_range(q0, min(q0 + QR, Sq) - 1, Sq, Sk, causal, window);
   const int n_tiles = rng.last - rng.first;  // ring step i carries K/V tile rng.first + i
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
+      mbar_init(&empty[s], 4 * NC);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
-    if (threadIdx.x == 256) {
+  if (threadIdx.x >= 128 * NC) {
+    if (threadIdx.x == 128 * NC) {
       mbar_expect_tx(q_full, 2 * C::Q_BYTES);
-      load_tile<D, BQ>(sq, &tq, q_full, q0, h, b);
-      load_tile<D, BQ>(sdo, &tdo, q_full, q0, h, b);
+      load_tile<D, QR>(sq, &tq, q_full, q0, h, b);
+      load_tile<D, QR>(sdo, &tdo, q_full, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, t = rng.first + i;
         if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
@@ -949,8 +1020,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       const uint8_t* ks = sk + s * C::KV_BYTES;
       float sc[32], dp[32];
       wgmma_fence();
-      mma_abt<D, BQ>(sc, sq, g * 64, ks);                    // S = Q K^T
-      mma_abt<D, BQ>(dp, sdo, g * 64, sv + s * C::KV_BYTES);  // dP = dO V^T
+      mma_abt<D, QR>(sc, sq, g * 64, ks);                    // S = Q K^T
+      mma_abt<D, QR>(dp, sdo, g * 64, sv + s * C::KV_BYTES);  // dP = dO V^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -995,11 +1066,14 @@ template <int D> struct Dkv {
   static constexpr int SMEM = 2 * KV_BYTES + STAGES * STAGE + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// dK/dV. One block per (key tile of BKV keys, KV head, batch), key tile 0
-// first (under causal it sees the most queries); keys are the rows of every
-// product. The producer walks the group's n_rep query heads in order and,
-// for each, the query tiles at or past the causal frontier, so the GQA sum
-// comes in a fixed order with no atomics.
+// dK/dV. One block per (key tile of BKV keys, slab of SLAB columns of D,
+// KV head, batch), key tile 0 first (under causal it sees the most
+// queries); keys are the rows of every product. The producer walks the
+// group's n_rep query heads in order and, for each, the query tiles at or
+// past the causal frontier, so the GQA sum comes in a fixed order with no
+// atomics. Every block stages full-width tiles and forms S^T and dP^T over
+// all of D; it accumulates dV and dK on its slab only (below D = 192 the
+// slab is all of D).
 template <int D, bool WIN>
 __global__ void __launch_bounds__(THREADS_KV, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -1010,6 +1084,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
             float scale) {
   if constexpr (!WIN) window = 0;
   using C = Dkv<D>;
+  constexpr int SW = SLAB<D>, NS = D / SW;  // slab columns, slabs
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = align1024(smem_raw);
   uint8_t* sv = sk + C::KV_BYTES;
@@ -1019,7 +1094,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   uint64_t* empty = full + STAGES;
 
   const int n_rep = H / KV;
-  const int k0 = (blockIdx.x / (KV * B)) * BKV;
+  const int k0 = (blockIdx.x / (KV * B * NS)) * BKV;
+  const int slab = (blockIdx.x / (KV * B)) % NS;
   const int kvh = blockIdx.x % KV;
   const int b = (blockIdx.x / KV) % B;
   // the first query tile that sees key k0: rows i >= k0 - (Sk - Sq); under
@@ -1068,9 +1144,11 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int key = k0 + warp * 16 + lane / 4;  // this thread's keys: key, key + 8
-  float dka[D / 2], dva[D / 2];
+  float dka[SW / 2], dva[SW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < SW / 2; ++i) dka[i] = dva[i] = 0.f;
+  // the slab's first 64-column chunk in a staged q or dO tile
+  const int slab_off = slab * (SW / 64) * (BQB * 128);
   mbar_wait(kv_full, 0);
 
   for (int it = 0; it < n_it; ++it) {
@@ -1113,9 +1191,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     pack_all(pa, sc);             // P^T in bf16, as the forward rounds P before P@V
     pack_all_hilo(dh, dlo, dp);   // dS^T as a bf16 hi + lo pair
     wgmma_fence();
-    mma_pv<D>(dva, pa, st + C::QT_BYTES);  // dV += P^T dO
-    mma_pv<D>(dka, dh, st);                // dK += dS^T Q
-    mma_pv<D>(dka, dlo, st);
+    mma_pv<SW>(dva, pa, st + C::QT_BYTES + slab_off);  // dV += P^T dO, on the slab
+    mma_pv<SW>(dka, dh, st + slab_off);  // dK += dS^T Q
+    mma_pv<SW>(dka, dlo, st + slab_off);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dva);
@@ -1123,8 +1201,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
-  store_rows<D>(dka, scale, scale, dk + b * dks.b + kvh * dks.h, dks.s, key, Sk, lane);
-  store_rows<D>(dva, 1.f, 1.f, dv + b * dvs.b + kvh * dvs.h, dvs.s, key, Sk, lane);
+  store_rows<SW>(dka, scale, scale, dk + b * dks.b + kvh * dks.h + slab * SW, dks.s, key, Sk,
+                 lane);
+  store_rows<SW>(dva, 1.f, 1.f, dv + b * dvs.b + kvh * dvs.h + slab * SW, dvs.s, key, Sk, lane);
 }
 
 // A (B, H, S, D) bf16 view as a 4-D tensor map {D, S, H, B}, its strides
@@ -1170,7 +1249,7 @@ cudaError_t launch_fwd_win(const FwdArgs& a, cudaStream_t stream) {
       !encode_bhsd(&mv, a.v, a.B, a.KV, a.Sk, D, a.vs, BKV))
     return cudaErrorInvalidValue;
   const int blocks = cdiv(a.Sq, BQ) * a.H * a.B;
-  fwd_kernel<D, WIN><<<blocks, THREADS, Fwd<D>::SMEM, stream>>>(
+  fwd_kernel<D, WIN><<<blocks, FWD_THREADS<D>, Fwd<D>::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(a.o), a.lse, a.B, a.H, a.H / a.KV, a.Sq, a.Sk,
       a.os, a.causal, a.window, a.scale * LOG2E);
   return cudaGetLastError();
@@ -1187,15 +1266,15 @@ cudaError_t launch_bwd_win(const BwdArgs& a, cudaStream_t stream) {
   cudaError_t e = allow_smem(dq_kernel<D, WIN>, Dq<D>::SMEM, conf_dq);
   if (e == cudaSuccess) e = allow_smem(dkdv_kernel<D, WIN>, Dkv<D>::SMEM, conf_kv);
   if (e != cudaSuccess) return e;
-  // q, k, v, dO as the wgmma kernels read them: q and dO in BQ-row boxes
-  // (dQ) and BQB-row boxes (dK/dV), k and v in BKV-row boxes
+  // q, k, v, dO as the wgmma kernels read them: q and dO in DQ_ROWS-row
+  // boxes (dQ) and BQB-row boxes (dK/dV), k and v in BKV-row boxes
   CUtensorMap mq, mq_b, mk, mv, mdo, mdo_b, mlse, mdelta;
   const int64_t n_rows = (int64_t)a.B * a.H * a.Sq;
-  if (!encode_bhsd(&mq, a.q, a.B, a.H, a.Sq, D, a.qs, BQ) ||
+  if (!encode_bhsd(&mq, a.q, a.B, a.H, a.Sq, D, a.qs, DQ_ROWS<D>) ||
       !encode_bhsd(&mq_b, a.q, a.B, a.H, a.Sq, D, a.qs, BQB) ||
       !encode_bhsd(&mk, a.k, a.B, a.KV, a.Sk, D, a.ks, BKV) ||
       !encode_bhsd(&mv, a.v, a.B, a.KV, a.Sk, D, a.vs, BKV) ||
-      !encode_bhsd(&mdo, a.dO, a.B, a.H, a.Sq, D, a.dos, BQ) ||
+      !encode_bhsd(&mdo, a.dO, a.B, a.H, a.Sq, D, a.dos, DQ_ROWS<D>) ||
       !encode_bhsd(&mdo_b, a.dO, a.B, a.H, a.Sq, D, a.dos, BQB) ||
       !encode_f32(&mlse, a.lse, n_rows) || !encode_f32(&mdelta, a.delta, n_rows))
     return cudaErrorInvalidValue;
@@ -1205,11 +1284,14 @@ cudaError_t launch_bwd_win(const BwdArgs& a, cudaStream_t stream) {
   simt::flash_bwd_delta_kernel<__nv_bfloat16, D><<<dgrid, simt::THREADS_OF<D>, 0, stream>>>(
       o, dO, a.delta, a.Sq, a.os, a.dos);
   const float sl2 = a.scale * LOG2E;
-  dkdv_kernel<D, WIN><<<cdiv(a.Sk, BKV) * a.KV * a.B, THREADS_KV, Dkv<D>::SMEM, stream>>>(
+  const int slabs = D / SLAB<D>;
+  dkdv_kernel<D, WIN><<<cdiv(a.Sk, BKV) * slabs * a.KV * a.B, THREADS_KV, Dkv<D>::SMEM,
+                        stream>>>(
       mq_b, mk, mv, mdo_b, mlse, mdelta, static_cast<__nv_bfloat16*>(a.dk),
       static_cast<__nv_bfloat16*>(a.dv), a.B, a.H, a.KV, a.Sq, a.Sk, a.dks, a.dvs, a.causal,
       a.window, sl2, a.scale);
-  dq_kernel<D, WIN><<<cdiv(a.Sq, BQ) * a.H * a.B, THREADS, Dq<D>::SMEM, stream>>>(
+  dq_kernel<D, WIN><<<cdiv(a.Sq, DQ_ROWS<D>) * a.H * a.B, DQ_THREADS<D>, Dq<D>::SMEM,
+                      stream>>>(
       mq, mk, mv, mdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.B, a.H, a.H / a.KV,
       a.Sq, a.Sk, a.dqs, a.causal, a.window, sl2, a.scale);
   return cudaGetLastError();
@@ -1225,16 +1307,27 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
 
 namespace {
 
-// The wgmma route at head_dim D (bf16 only), or cudaErrorInvalidValue.
-template <typename Args>
-cudaError_t wgmma_route(const Args& a, int D, int dtype, cudaStream_t s,
-                        cudaError_t (*d64)(const Args&, cudaStream_t),
-                        cudaError_t (*d128)(const Args&, cudaStream_t)) {
-  if (dtype != 1 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
+// The wgmma route at head_dim D (bf16 only): launch<64>, <128>, <192> or
+// <256>, or cudaErrorInvalidValue.
+template <typename Args, template <int> class L>
+cudaError_t wgmma_route(const Args& a, int D, int dtype, cudaStream_t s) {
+  if (dtype != 1 || (D != 64 && D != 128 && D != 192 && D != 256)) return cudaErrorInvalidValue;
   cudaError_t e = sm90::bind_context();
   if (e != cudaSuccess) return e;
-  return D == 64 ? d64(a, s) : d128(a, s);
+  switch (D) {
+    case 64: return L<64>::run(a, s);
+    case 128: return L<128>::run(a, s);
+    case 192: return L<192>::run(a, s);
+    default: return L<256>::run(a, s);
+  }
 }
+
+template <int D> struct WgFwd {
+  static cudaError_t run(const simt::FwdArgs& a, cudaStream_t s) { return wg::launch_fwd<D>(a, s); }
+};
+template <int D> struct WgBwd {
+  static cudaError_t run(const simt::BwdArgs& a, cudaStream_t s) { return wg::launch_bwd<D>(a, s); }
+};
 
 }  // namespace
 
@@ -1252,7 +1345,7 @@ extern "C" int flash_attention_fwd(
             {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
             {o_sb, o_sh, o_ss}, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 1) return (int)wgmma_route(a, D, dtype, st, wg::launch_fwd<64>, wg::launch_fwd<128>);
+  if (route == 1) return (int)wgmma_route<simt::FwdArgs, WgFwd>(a, D, dtype, st);
   const int rc = simt::dispatch_t<simt::Fwd>(a, D, dtype, st);
   if (rc) return rc;
   return (int)cudaGetLastError();
@@ -1276,7 +1369,7 @@ extern "C" int flash_attention_bwd(
             {s[15], s[16], s[17]}, {s[18], s[19], s[20]},
             {s[21], s[22], s[23]}, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (route == 1) return (int)wgmma_route(a, D, dtype, st, wg::launch_bwd<64>, wg::launch_bwd<128>);
+  if (route == 1) return (int)wgmma_route<simt::BwdArgs, WgBwd>(a, D, dtype, st);
   const int rc = simt::dispatch_t<simt::Bwd>(a, D, dtype, st);
   if (rc) return rc;
   return (int)cudaGetLastError();

@@ -135,6 +135,17 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Hands a warpgroup's registers back to the SM's pool (dec) or takes more
+// from it (inc), N a multiple of 8 in [24, 256]; every thread of the
+// warpgroup executes it. A kernel's branches that issue them must not
+// reconverge, or ptxas ignores them (warning C7508).
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Keeps the compiler from moving register reads or writes across the
 // asynchronous wgmma's wait.
 template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {

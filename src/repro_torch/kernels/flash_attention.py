@@ -13,15 +13,18 @@ transposed views without a copy.
 The source holds two sets of kernels, and ``route`` picks one per call by a
 stated rule (not a fallback: each route launches its kernels or raises):
 
-- ``"wgmma"``: bf16, head_dim 64 or 128 (smollm-135m's, llama-3.2-3b's),
+- ``"wgmma"``: bf16, head_dim 64, 128, 192 or 256 (smollm-135m's,
+  llama-3.2-3b's, nemotron-4-340b's, gemma-7b's and recurrentgemma-9b's),
   every operand one TMA can describe (``tma_strides``). Tensor cores fed by
-  TMA under mbarriers; ``plan`` states their tiles and grids. Every bf16
-  attention call of the serving and training paths meets this.
+  TMA under mbarriers; ``plan`` states their tiles and grids, which differ
+  above head_dim 128: dQ blocks of 64 query rows, and dK/dV blocks that
+  each accumulate one slab of head_dim (``SLAB``). Every bf16 attention
+  call of the serving and training paths meets this.
 - ``"simt"``: everything else -- f32 (wgmma's only f32 input is TF32, which
-  would break the f32 tolerance), head_dim 32, 192 (nemotron-4-340b's) and
-  256 (gemma-7b's), views TMA cannot describe. The first design's CUDA-core
-  f32 FMAs. The smoke configs' head_dim 16 and 8 have no kernel: they run
-  on the CPU only.
+  would break the f32 tolerance), head_dim 32, views TMA cannot describe.
+  The first design's CUDA-core f32 FMAs, at every head_dim on request
+  (``simt=True``: the timed baseline). The smoke configs' head_dim 16 and 8
+  have no kernel: they run on the CPU only.
 
 The window never changes the route; it narrows each block's walk to the
 tiles its rows' windows reach (``plan``), and a tile partly inside is
@@ -50,11 +53,15 @@ window_launches = 0
 bwd_window_launches = 0
 
 HEAD_DIMS = (32, 64, 128, 192, 256)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 # the wgmma kernels' tiles (csrc/flash_attention.cu, namespace wg): query
-# rows per forward / dQ block, keys per K/V tile and per dK/dV block, query
-# rows per tile of the dK/dV loop
+# rows per forward block (and dQ block up to head_dim 128), keys per K/V
+# tile and per dK/dV block, query rows per tile of the dK/dV loop (and per
+# dQ block above head_dim 128)
 BQ, BKV, BQB = 128, 64, 64
+# the columns of head_dim one dK/dV block accumulates: a 64-column chunk
+# multiple, so that its two accumulators stay within a thread's registers
+SLAB = {64: 64, 128: 128, 192: 64, 256: 128}
 
 
 def _lib() -> ctypes.CDLL:
@@ -94,8 +101,8 @@ def tma_strides(t: torch.Tensor) -> Optional[Tuple[int, int, int]]:
 
 def route(q: torch.Tensor, *ts: torch.Tensor) -> str:
     """``"wgmma"`` when q and every tensor of ``ts`` (k, v; and dO for the
-    backward) are bf16 of head_dim 64 or 128 that TMA can describe
-    (``tma_strides``), else ``"simt"``."""
+    backward) are bf16 of a head_dim in ``WGMMA_HEAD_DIMS`` that TMA can
+    describe (``tma_strides``), else ``"simt"``."""
     if q.shape[-1] not in WGMMA_HEAD_DIMS or min(q.shape) == 0:
         return "simt"
     return "wgmma" if all(tma_strides(t) for t in (q, *ts)) else "simt"
@@ -130,18 +137,20 @@ def _q_range(k0: int, Sq: int, Sk: int, causal: bool, window: int = 0) -> Tuple[
 
 
 def plan(B: int, H: int, KV: int, Sq: int, Sk: int, causal: bool = True,
-         sms: int = 132, window: int = 0) -> dict:
-    """The wgmma kernels' tiles and grids for one call on a card with ``sms``
-    SMs, as the kernels compute them:
+         sms: int = 132, window: int = 0, D: int = 64) -> dict:
+    """The wgmma kernels' tiles and grids for one call at head_dim ``D`` on a
+    card with ``sms`` SMs, as the kernels compute them:
 
-    - forward and dQ: one block per (BQ query rows, head, batch), the last
-      query tile first, each block walking the K/V tiles of BKV keys from
-      the first its first row's window reaches (``window`` > 0) up to the
-      causal frontier of its last row;
-    - dK/dV: one block per (BKV keys, KV head, batch), key tile 0 first,
-      each block walking its group's H/KV query heads and, for each, the
-      query tiles of BQB rows from the frontier of its first key to the
-      last row whose window reaches its last key.
+    - forward and dQ: one block per (query rows, head, batch) -- BQ rows,
+      and BQB for dQ above head_dim 128 -- the last query tile first, each
+      block walking the K/V tiles of BKV keys from the first its first
+      row's window reaches (``window`` > 0) up to the causal frontier of its
+      last row;
+    - dK/dV: one block per (BKV keys, slab of ``SLAB[D]`` columns of
+      head_dim, KV head, batch), key tile 0 first, each block walking its
+      group's H/KV query heads and, for each, the query tiles of BQB rows
+      from the frontier of its first key to the last row whose window
+      reaches its last key.
 
     Under causal without a window the first launched block has the most
     work, so the heavy blocks never form a tail; under a window the work
@@ -149,24 +158,33 @@ def plan(B: int, H: int, KV: int, Sq: int, Sk: int, causal: bool = True,
     optimal. Returns, per kernel, ``tile`` (rows, columns of a step),
     ``blocks``, ``blocks_per_sm`` (blocks over SMs), ``order`` (the tile
     index of each group of blocks in launch order), ``steps`` (the tiles
-    each of those blocks walks) and ``pairs`` (tile pairs over the grid)."""
-    n_qt, n_kt, n_rep = _cdiv(Sq, BQ), _cdiv(Sk, BKV), H // KV
-    q_order = list(range(n_qt - 1, -1, -1))
-    q_steps = []
-    for t in q_order:
-        first, last = _kv_range(t * BQ, min((t + 1) * BQ, Sq) - 1, Sq, Sk, causal, window)
-        q_steps.append(last - first)
+    each of those blocks walks) and ``pairs`` (tile pairs over the grid);
+    dK/dV also ``slab`` and ``slabs``."""
+    if D not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention.plan: head_dim {D} not in {WGMMA_HEAD_DIMS}")
+
+    def q_grid(rows):
+        order = list(range(_cdiv(Sq, rows) - 1, -1, -1))
+        steps = []
+        for t in order:
+            first, last = _kv_range(t * rows, min((t + 1) * rows, Sq) - 1, Sq, Sk, causal,
+                                    window)
+            steps.append(last - first)
+        blocks = len(order) * H * B
+        return {"tile": [rows, BKV], "blocks": blocks, "blocks_per_sm": blocks / sms,
+                "order": order, "steps": steps, "pairs": sum(steps) * H * B}
+
+    n_kt, n_rep, slabs = _cdiv(Sk, BKV), H // KV, D // SLAB[D]
     k_order = list(range(n_kt))
     k_steps = []
     for t in k_order:
         first, last = _q_range(t * BKV, Sq, Sk, causal, window)
         k_steps.append(n_rep * (last - first))
-    qgrid = {"tile": [BQ, BKV], "blocks": n_qt * H * B, "blocks_per_sm": n_qt * H * B / sms,
-             "order": q_order, "steps": q_steps, "pairs": sum(q_steps) * H * B}
-    return {"fwd": qgrid, "dq": dict(qgrid),
-            "dkdv": {"tile": [BKV, BQB], "blocks": n_kt * KV * B,
-                     "blocks_per_sm": n_kt * KV * B / sms, "order": k_order,
-                     "steps": k_steps, "pairs": sum(k_steps) * KV * B}}
+    blocks = n_kt * slabs * KV * B
+    return {"fwd": q_grid(BQ), "dq": q_grid(BQ if D <= 128 else BQB),
+            "dkdv": {"tile": [BKV, BQB], "slab": SLAB[D], "slabs": slabs, "blocks": blocks,
+                     "blocks_per_sm": blocks / sms, "order": k_order, "steps": k_steps,
+                     "pairs": sum(k_steps) * slabs * KV * B}}
 
 
 def _check_cuda(ts, D: int) -> None:

@@ -132,8 +132,11 @@ def _percentiles(xs) -> dict:
 def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
     """Admission: write one fetched sequence (nested as the cache is) into
     decode slot ``b`` of the device slot cache IN PLACE (the reference's
-    donated functional update)."""
+    donated functional update). The parked ``len`` placeholder is not
+    consulted: the slot's length is ``length``, from the paging layout."""
     for path in pt.tree_paths(single):
+        if path == ("len",):
+            continue
         dst = pt.tree_get(slot_cache, path)
         dst[:, b] = pt.tree_get(single, path)[:, 0].to(device=dst.device, dtype=dst.dtype)
     slot_cache["len"][b] = length

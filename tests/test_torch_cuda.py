@@ -131,8 +131,8 @@ def _want_route(dtype, D):
                                    (1, 12, 2, 100, 132, 192), (2, 4, 4, 77, 77, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
-    """bf16 at head_dim 64 or 128 takes the tensor cores; f32 and head_dim
-    32, 192 and 256 the CUDA cores."""
+    """bf16 at head_dim 64, 128, 192 and 256 takes the tensor cores; f32 and
+    head_dim 32 the CUDA cores."""
     B, H, KV, Sq, Sk, D = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     # unit variance: a peaked softmax and outputs of O(1)
@@ -149,9 +149,10 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
                  dtype, f32_tol=2e-4, mtol=2**-7)
 
 
-# (B, H, KV, Sq, Sk, D, layout, causal): head_dim 64 and 128; n_rep 1 and 3;
-# Sq < Sk; Sq and Sk not multiples of the tiles (128 query rows, 64 keys);
-# (B,S,H,D) storage as a strided view ("bshd") and contiguous (B,H,S,D)
+# (B, H, KV, Sq, Sk, D, layout, causal): head_dim 64, 128, 192 and 256;
+# n_rep 1 to 16; Sq < Sk; Sq and Sk not multiples of the tiles (128 query
+# rows, 64 keys; 64 query rows in dQ above head_dim 128); (B,S,H,D) storage
+# as a strided view ("bshd") and contiguous (B,H,S,D)
 FLASH_ROUTE_CASES = [
     (2, 9, 3, 512, 512, 64, "bshd", True),     # smollm-135m's heads
     (1, 6, 2, 100, 132, 64, "bshd", True),     # ragged, Sq < Sk
@@ -159,6 +160,11 @@ FLASH_ROUTE_CASES = [
     (1, 24, 8, 200, 264, 128, "bshd", True),   # llama-3.2-3b's heads
     (3, 3, 1, 130, 130, 64, "bhsd", True),     # n_rep 3, one row past a tile
     (1, 4, 2, 96, 160, 64, "bshd", False),     # not causal
+    (1, 16, 1, 300, 300, 256, "bshd", True),   # recurrentgemma-9b's MQA, 16 on 1
+    (2, 16, 16, 130, 130, 256, "bhsd", True),  # gemma-7b's heads, odd length
+    (1, 24, 2, 100, 132, 192, "bshd", True),   # nemotron-4-340b's 12 a group, Sq < Sk
+    (2, 4, 4, 77, 77, 192, "bshd", True),      # odd length, n_rep 1
+    (1, 8, 2, 96, 160, 256, "bshd", False),    # not causal, Sq < Sk
 ]
 
 
@@ -211,16 +217,22 @@ def test_flash_attention_routes_match_plain_and_each_other(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [FLASH_ROUTE_CASES[0], FLASH_ROUTE_CASES[3]])
-def test_flash_attention_wgmma_repeats_to_the_bit(cuda, case):
+@pytest.mark.parametrize("case,window", [
+    (FLASH_ROUTE_CASES[0], 0), (FLASH_ROUTE_CASES[3], 0), (FLASH_ROUTE_CASES[6], 0),
+    (FLASH_ROUTE_CASES[6], 100), (FLASH_ROUTE_CASES[7], 0), (FLASH_ROUTE_CASES[8], 0),
+    (FLASH_ROUTE_CASES[8], 50)])
+def test_flash_attention_wgmma_repeats_to_the_bit(cuda, case, window):
     """No atomics anywhere: two runs of the forward and of the backward on
-    the same inputs are bit-identical."""
+    the same inputs are bit-identical, at every head_dim, with and without
+    a window."""
     causal = case[7]
     q, k, v, do = _flash_inputs(case, torch.bfloat16, 7, grads=True)
+    assert tfa.route(q, k, v, do) == "wgmma"
     runs = []
     for _ in range(2):
-        o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
-        runs.append((o, lse, *tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)))
+        o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
+        runs.append((o, lse, *tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                                           window=window)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -270,7 +282,7 @@ def _bwd_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
     """Every head_dim the kernels take, gemma-7b's and nemotron-4-340b's
-    heads among them (head_dim 256 and 192, on the CUDA cores)."""
+    heads among them (head_dim 256 and 192: the tensor cores in bf16)."""
     B, H, KV, Sq, Sk, D = shape
     g = torch.Generator(device=cuda).manual_seed(1)
     q, do = (torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dtype).transpose(1, 2)
@@ -289,10 +301,9 @@ def test_flash_attention_backward_matches_plain(cuda, shape, dtype):
 
 
 # (B, H, KV, Sq, Sk, D, layout, causal, window): a local window on both
-# routes -- head_dim 64 and 128 on the tensor cores, 192 and 256 on the CUDA
-# cores; odd Sq/Sk (77, 130: where the TMA-box fault hid), Sq < Sk, not
-# causal, a window past Sk (global), and recurrentgemma's heads (16 query
-# heads on one KV head, head_dim 256)
+# routes at head_dim 64, 128, 192 and 256; odd Sq/Sk (77, 130: where the
+# TMA-box fault hid), Sq < Sk, not causal, a window past Sk (global), and
+# recurrentgemma's heads (16 query heads on one KV head, head_dim 256)
 FLASH_WINDOW_CASES = [
     (2, 9, 3, 512, 512, 64, "bshd", True, 128),
     (1, 6, 2, 100, 132, 64, "bshd", True, 50),
@@ -302,6 +313,10 @@ FLASH_WINDOW_CASES = [
     (1, 3, 1, 130, 130, 64, "bshd", True, 1000),
     (1, 16, 1, 300, 300, 256, "bshd", True, 100),
     (1, 4, 2, 77, 130, 192, "bshd", False, 50),
+    (1, 16, 1, 600, 600, 256, "bshd", True, 256),   # rows past the window's tiles
+    (2, 16, 1, 77, 130, 256, "bhsd", True, 60),     # MQA, odd, Sq < Sk
+    (1, 12, 2, 130, 130, 192, "bshd", True, 1000),  # a window past Sk
+    (1, 24, 2, 200, 264, 192, "bshd", True, 64),    # GQA 12 a group, Sq < Sk
 ]
 
 
@@ -567,8 +582,8 @@ def _chip_smoke():
 
 @pytest.mark.cuda
 def test_gemma_7b_prefill_and_decode_on_the_card_match_the_cpu(cuda):
-    """Full-width gemma-7b (head_dim 256: flash on the CUDA cores) cut to 2
-    layers: teacher-forced prefill and decode logits on the card (kernels)
+    """Full-width gemma-7b (head_dim 256: flash on the tensor cores) cut to
+    2 layers: teacher-forced prefill and decode logits on the card (kernels)
     against the CPU (plain versions) from the same weights, under
     chip_smoke.py's end-to-end tolerance."""
     cs = _chip_smoke()
@@ -576,7 +591,8 @@ def test_gemma_7b_prefill_and_decode_on_the_card_match_the_cpu(cuda):
     rec = cs.phase_e2e("gemma-7b")
     after = ops.launch_counts()
     assert rec["max_rel_err"] <= cs.E2E_REL_TOL
-    assert after["flash_attention_simt"] > before["flash_attention_simt"]
+    assert after["flash_attention_wgmma"] > before["flash_attention_wgmma"]
+    assert after["flash_attention_simt"] == before["flash_attention_simt"]
 
 
 @pytest.mark.cuda

@@ -1,15 +1,16 @@
 """Flash attention's routing rule and launch plan, on the CPU.
 
 ``kernels/flash_attention.py:route`` sends a call to the tensor-core
-(``wgmma``) kernels when its operands are bf16 of head_dim 64 or 128 and
-TMA can describe each, else to the CUDA-core (``simt``) kernels. These
-tests hold the rule at the operands the main paths hand the kernels --
-``attention_block``'s (B,S,H,D) storage seen as (B,H,S,D) views, at the full
-width of smollm-135m (head_dim 64) and llama-3.2-3b (head_dim 128) -- and at
-the cases that must stay on ``simt``; and ``plan``'s grids against a
-brute-force count of the (query tile, key tile) pairs the causal mask
-leaves. The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``).
+(``wgmma``) kernels when its operands are bf16 of head_dim 64, 128, 192 or
+256 and TMA can describe each, else to the CUDA-core (``simt``) kernels.
+These tests hold the rule at the operands the main paths hand the kernels
+-- ``attention_block``'s (B,S,H,D) storage seen as (B,H,S,D) views, at the
+full width of smollm-135m (head_dim 64), llama-3.2-3b (128), gemma-7b
+(256) and nemotron-4-340b (192) -- and at the cases that must stay on
+``simt``; and ``plan``'s grids against a brute-force count of the (query
+tile, key tile) pairs the causal mask and the window leave, with the dQ
+tiles and dK/dV slabs of head_dim 192 and 256. The kernels themselves run
+only on the card (``tests/test_torch_cuda.py``).
 """
 import pytest
 
@@ -233,17 +234,68 @@ def test_launch_counts_report_each_route_and_their_sums(monkeypatch):
 
 @pytest.mark.parametrize("model", ["gemma-7b", "nemotron-4-340b"])
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
-def test_head_dims_192_and_256_take_the_cuda_cores(model, dtype):
+def test_head_dims_192_and_256_take_the_tensor_cores_in_bf16_and_f32_the_cuda_cores(
+        model, dtype):
     """gemma-7b (head_dim 256) and nemotron-4-340b (192) at full width:
-    the CUDA-core kernels take them (``_check_cuda`` accepts the head_dim)
-    and the rule sends them there; the tensor cores stay at 64 and 128."""
+    the kernels take the head_dim (``_check_cuda``), and the rule sends bf16
+    to the tensor cores and f32 to the CUDA cores."""
     cfg = configs.get(model)
     D = cfg.resolved_head_dim
     assert D == {"gemma-7b": 256, "nemotron-4-340b": 192}[model]
     q, k, v, do = _views(cfg, *SHAPES["ragged"], dtype=dtype)
-    assert tfa.route(q, k, v) == tfa.route(q, k, v, do) == "simt"
+    want = "wgmma" if dtype == BF16 else "simt"
+    assert tfa.route(q, k, v) == tfa.route(q, k, v, do) == want
     tfa._check_cuda((q, k, v), D)
     tfa._check_cuda((q, k, v, do), D)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window", [
+    (1, 16, 1, 4096, 4096, 256, True, 2048),  # recurrentgemma-9b's local attention
+    (1, 16, 16, 512, 512, 256, True, 0),      # gemma-7b's heads
+    (1, 96, 8, 256, 256, 192, True, 0),       # nemotron-4-340b's heads
+    (1, 12, 2, 100, 132, 192, True, 0),       # ragged, Sq < Sk
+    (2, 4, 4, 77, 77, 256, True, 33),         # odd lengths under a window
+    (1, 4, 2, 77, 130, 192, False, 50),       # not causal
+    (3, 3, 1, 130, 130, 256, True, 1000),     # a window past Sk
+])
+def test_plan_above_head_dim_128_tiles_dq_by_64_rows_and_splits_dkdv_into_slabs(
+        B, H, KV, Sq, Sk, D, causal, window):
+    """Above head_dim 128, dQ blocks hold 64 query rows (one consumer
+    warpgroup) and each dK/dV block accumulates one slab of head_dim:
+    128 columns at 256, 64 at 192, so a key tile has D / slab blocks per KV
+    head. Steps held against the brute-force count, per slab."""
+    p = tfa.plan(B, H, KV, Sq, Sk, causal=causal, window=window, D=D)
+    n_rep, slab = H // KV, {256: 128, 192: 64}[D]
+    per_q = _tile_pairs(Sq, Sk, causal, tfa.BQ, tfa.BKV, window=window)
+    per_dq = _tile_pairs(Sq, Sk, causal, tfa.BQB, tfa.BKV, window=window)
+    per_k = _tile_pairs(Sq, Sk, causal, tfa.BQB, tfa.BKV, by_keys=True, window=window)
+    assert p["fwd"]["tile"] == [tfa.BQ, tfa.BKV] and p["fwd"]["blocks"] == len(per_q) * H * B
+    assert p["fwd"]["steps"] == [per_q[t] for t in p["fwd"]["order"]]
+    g = p["dq"]
+    assert g["tile"] == [tfa.BQB, tfa.BKV] and g["blocks"] == len(per_dq) * H * B
+    assert g["steps"] == [per_dq[t] for t in g["order"]]
+    assert g["pairs"] == sum(per_dq) * H * B
+    g = p["dkdv"]
+    assert (g["slab"], g["slabs"]) == (slab, D // slab)
+    assert g["blocks"] == len(per_k) * (D // slab) * KV * B
+    assert g["steps"] == [n_rep * per_k[t] for t in g["order"]]
+    assert g["pairs"] == sum(per_k) * n_rep * (D // slab) * KV * B
+    # below head_dim 192 the grids are the forward's and one slab of all of D
+    narrow = tfa.plan(B, H, KV, Sq, Sk, causal=causal, window=window, D=128)
+    assert narrow["dq"]["tile"] == [tfa.BQ, tfa.BKV] and narrow["dkdv"]["slabs"] == 1
+    assert narrow["dkdv"]["blocks"] * (D // slab) == g["blocks"]
+
+
+def test_slabs_double_the_dkdv_grid_at_recurrentgemmas_shape():
+    """16 query heads over one KV head, 4096 keys, window 2048: 64 key tiles
+    gave 64 dK/dV blocks for 132 SMs; two 128-column slabs give 128, each
+    walking 16 heads x 33 query tiles at most."""
+    p = tfa.plan(1, 16, 1, 4096, 4096, causal=True, window=2048, D=256)
+    assert p["dkdv"]["blocks"] == 128 and p["dkdv"]["slabs"] == 2
+    assert max(p["dkdv"]["steps"]) == 16 * 33
+    assert p["dq"]["blocks"] == 64 * 16 and p["fwd"]["blocks"] == 32 * 16
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.plan(1, 16, 1, 4096, 4096, D=32)
 
 
 @pytest.mark.parametrize("D", [8, 16, 48, 320])

@@ -211,7 +211,7 @@ def test_paged_cache_parks_nested_leaves_whole_and_fetches_them_back():
     kv = tkv.PagedKVCache(HostArrayStore(), block_tokens=16, seq_axis_names=())
     one = tkv.slice_sequence(cache, 1)
     n = kv.park("s", one, 40)
-    assert n == tkv.device_kv_bytes(one) == tkv.sequence_kv_bytes(cfg, 40) - 4
+    assert n == tkv.device_kv_bytes(one) == tkv.sequence_kv_bytes(cfg, 40)  # len placeholder too
     got, length = kv.fetch("s", 56)
     assert length == 40 and tpt.tree_paths(got) == tpt.tree_paths(one)
     for path in tpt.tree_paths(one):
@@ -272,9 +272,9 @@ def test_serve_cli_past_the_window_pages_whole_caches_through_the_host_tier():
                           "--prompt-len", "40", "--new-tokens", "6"])
     out = tserve.run_serve(args, [])
     assert all(out["done"]) and all(len(g) == 6 for g in out["generated"])
-    per_seq = tkv.sequence_kv_bytes(rp.cfgs(ARCH, LAYERS)[1], 46) - 4  # less the len leaf
+    per_seq = tkv.sequence_kv_bytes(rp.cfgs(ARCH, LAYERS)[1], 46)  # the len placeholder too
     assert out["admissions"] == 3 and out["kv"]["out_bytes"] == 3 * per_seq
-    assert out["kv"]["resident_bytes"] == 2 * per_seq + 2 * 4  # two slots and their lengths
+    assert out["kv"]["resident_bytes"] == 2 * (per_seq - 4) + 2 * 4  # two slots and their lengths
 
 
 def test_train_cli_plans_and_trains_past_the_window_with_falling_loss(tmp_path, capsys):

@@ -237,7 +237,7 @@ def test_serve_cli_pages_whole_states_through_the_host_tier():
     out = tserve.run_serve(args, [])
     assert all(out["done"]) and all(len(g) == 6 for g in out["generated"])
     assert out["admissions"] == 3 and out["kv"]["in_bytes"] == out["kv"]["out_bytes"] > 0
-    per_seq = tkv.sequence_kv_bytes(tconfigs.smoke(ARCH), 26) - 4  # less the len leaf
+    per_seq = tkv.sequence_kv_bytes(tconfigs.smoke(ARCH), 26)  # the len placeholder too
     assert out["kv"]["out_bytes"] == 3 * per_seq
 
 

@@ -6,7 +6,9 @@ online softmax against the running max and p rounded to the input type
 before P@V; the tensor-core (wgmma) flash kernels' -- K/V tiles of 64 keys
 zero-filled past Sk as TMA lands them, bf16 P against the running max per
 tile in the forward, bf16 P for dV and dS as a bf16 hi + lo pair for dQ and
-dK in the backward; the tiled matmul's exact sum rounded once; the
+dK in the backward, with and without a local window, at head_dim 64, 192
+and 256 (above 128 a dK/dV block forms the same products on one slab of
+head_dim); the tiled matmul's exact sum rounded once; the
 tensor-core quantized matmul's -- each weight element w = q * s formed once
 in f32 (exact: a 7-bit integer times an 11-bit significand), split into
 hi = bf16(w) and lo = bf16(w - hi), and x @ hi + x @ lo summed exactly and
@@ -125,16 +127,19 @@ def test_tiled_tolerance_passes_right_and_rejects_a_lost_k_tile(dtype):
 # ---------------------------------------------------------------------------
 
 
-def _keep(Sq, Sk, *, causal=True, shift=0, past_sk=False, drop=None):
+def _keep(Sq, Sk, *, causal=True, shift=0, past_sk=False, drop=None, window=0, wshift=0):
     """The (Sq, Sk + padding to whole BKV tiles) mask the kernels apply:
-    keys below Sk and, when causal, ``j <= i + (Sk - Sq)``. Mutations:
-    ``shift`` moves the causal edge, ``past_sk`` keeps the zero-filled keys
-    past Sk (under causal they lie past the frontier too, so only the
+    keys below Sk and, when causal, ``j <= i + (Sk - Sq)``; with a window
+    also ``j > i + (Sk - Sq) - window``. Mutations: ``shift`` moves the
+    causal edge, ``wshift`` the window's, ``past_sk`` keeps the zero-filled
+    keys past Sk (under causal they lie past the frontier too, so only the
     non-causal form can show it), ``drop`` loses one K/V tile."""
     nk = -(-Sk // tfa.BKV) * tfa.BKV
     i = torch.arange(Sq)[:, None]
     j = torch.arange(nk)[None, :]
     keep = ((j <= i + (Sk - Sq) + shift) | (not causal)) & ((j < Sk) | past_sk)
+    if window:
+        keep &= j > i + (Sk - Sq) - window + wshift
     if drop is not None:
         keep &= (j // tfa.BKV) != drop
     return keep
@@ -174,15 +179,18 @@ def emulate_flash_wgmma(q, k, v, **mutation):
 
 
 def emulate_flash_bwd_wgmma(q, k, v, o, lse, do, *, hilo=True, twice=None, extra=None,
-                            **mutation):
+                            slab_from=None, **mutation):
     """The wgmma backward's dq, dk, dv from the forward's o and lse: P =
     exp(S scale - lse) under the mask, dV = sum over the group of
     bf16(P)^T dO, dS = P (dP - delta) carried as hi = bf16(dS) plus
     lo = bf16(dS - hi) (``hilo=False``: hi alone), dQ = scale dS K and
-    dK = scale sum over the group of dS^T Q. Mutations: ``twice`` sums one
-    query head of each group twice into dK/dV; ``extra`` = (q, dO, o, lse)
-    rows past Sq that a kernel reading on without masking would take into
-    dK/dV (they see every key)."""
+    dK = scale sum over the group of dS^T Q. Above head_dim 128 a dK/dV
+    block accumulates one slab of head_dim: the same products, column by
+    column. Mutations: ``twice`` sums one query head of each group twice
+    into dK/dV; ``extra`` = (q, dO, o, lse) rows past Sq that a kernel
+    reading on without masking would take into dK/dV (they see every key);
+    ``slab_from`` = s has every slab's dK and dV read slab s's columns of
+    Q and dO (a slab offset lost)."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     n_rep, scale = H // KV, D ** -0.5
@@ -196,13 +204,18 @@ def emulate_flash_bwd_wgmma(q, k, v, o, lse, do, *, hilo=True, twice=None, extra
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
     p = torch.where(keep, torch.exp(s - lse.double()[..., None]),
                     torch.zeros((), dtype=torch.float64))
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(torch.bfloat16).double(), dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
     ds = p * (dp - (dof * o.double()).sum(-1, keepdim=True))
     hi = ds.to(torch.bfloat16).double()
     dsr = hi + (ds - hi).to(torch.bfloat16).double() if hilo else hi
     dq = torch.einsum("bhqk,bhkd->bhqd", dsr, kr)[:, :, :Sq] * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qf) * scale
+    qs, dos = qf, dof
+    if slab_from is not None:
+        w = tfa.SLAB[D]
+        qs, dos = (t[..., slab_from * w:(slab_from + 1) * w].repeat(1, 1, 1, D // w)
+                   for t in (qf, dof))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(torch.bfloat16).double(), dos)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qs) * scale
     if twice is not None:  # head `twice` of every group counted again
         heads = torch.arange(H) % n_rep == twice
         dk = dk + torch.where(heads[:, None, None], dk, 0.0)
@@ -231,15 +244,16 @@ def _draw(shape, seed=0, extra_rows=0):
     return q, k, v, do
 
 
-def _check_wgmma_fwd(shape, causal=True, **mutation):
+def _check_wgmma_fwd(shape, causal=True, window=0, **mutation):
     q, k, v, _ = _draw(shape)
     return _chip_smoke().compare(
         "flash_attention", shape, torch.bfloat16,
-        emulate_flash_wgmma(q, k, v, causal=causal, **mutation),
-        ref.attention_ref(q, k, v, causal=causal), ref.attention_ref(q, k, v.abs(), causal=causal))
+        emulate_flash_wgmma(q, k, v, causal=causal, window=window, **mutation),
+        ref.attention_ref(q, k, v, causal=causal, window=window),
+        ref.attention_ref(q, k, v.abs(), causal=causal, window=window))
 
 
-def _check_wgmma_bwd(shape, seed=0, rows_past_sq=False, **mutation):
+def _check_wgmma_bwd(shape, seed=0, rows_past_sq=False, window=0, **mutation):
     """Each of dq, dk, dv against the plain backward from the same saved o
     and lse, as ``chip_smoke.check_flash_bwd`` holds the kernel."""
     Sq = shape[3]
@@ -250,9 +264,9 @@ def _check_wgmma_bwd(shape, seed=0, rows_past_sq=False, **mutation):
         ox, lsex = ref.attention_fwd_ref(q, k, v, causal=False)
         extra = (q[:, :, Sq:], do[:, :, Sq:], ox[:, :, Sq:], lsex[:, :, Sq:])
         q, do = q[:, :, :Sq], do[:, :, :Sq]
-    o, lse = ref.attention_fwd_ref(q, k, v, causal=True)
-    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
-    got = emulate_flash_bwd_wgmma(q, k, v, o, lse, do, extra=extra, **mutation)
+    o, lse = ref.attention_fwd_ref(q, k, v, causal=True, window=window)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
+    got = emulate_flash_bwd_wgmma(q, k, v, o, lse, do, extra=extra, window=window, **mutation)
     cs = _chip_smoke()
     return [cs.compare("flash_attention_bwd", shape, torch.bfloat16, g, w, w.float().abs().max())
             for g, w in zip(got, want)]
@@ -293,6 +307,48 @@ def test_single_bf16_ds_does_not_fit_the_backward_tolerance():
     with pytest.raises(SystemExit, match="FAIL flash_attention_bwd"):
         _check_wgmma_bwd(shape, hilo=False)
     assert max(r["worst_err_over_tol"] for r in _check_wgmma_bwd(shape)) <= 0.6
+
+
+# recurrentgemma-9b's heads (16 on one KV head, head_dim 256) under a
+# window, cut from 4096 tokens and a window of 2048 to 512 and 192 (the
+# emulation holds every score in float64); nemotron-4-340b's head_dim 192
+# and its 12 query heads a KV head, cut from 96 / 8 heads to 24 / 2
+WG_WIDE = {"recurrentgemma": ((1, 16, 1, 512, 512, 256), 192),
+           "nemotron": ((1, 24, 2, 256, 256, 192), 0)}
+
+
+@pytest.mark.parametrize("case", list(WG_WIDE))
+def test_wgmma_flash_tolerance_passes_at_head_dims_256_and_192(case):
+    """The tensor-core arithmetic at the wide heads, the window's per-element
+    edge included, fits the unchanged tolerances; the backward's hi + lo
+    pair stays inside its own (reads 0.32 at recurrentgemma's heads, 0.61
+    at nemotron's, where dK sums 12 heads and its own output rounding
+    leads: dS rounded once reads 0.64 there)."""
+    shape, window = WG_WIDE[case]
+    assert _check_wgmma_fwd(shape, window=window)["worst_err_over_tol"] <= 1.0
+    assert max(r["worst_err_over_tol"] for r in _check_wgmma_bwd(shape, window=window)) <= 0.75
+
+
+@pytest.mark.parametrize("case,mutation", [
+    ("recurrentgemma", {"wshift": 1}), ("recurrentgemma", {"wshift": -1}),
+    ("recurrentgemma", {"drop": 5}), ("nemotron", {"shift": 1})],
+    ids=["window-edge+1", "window-edge-1", "lost-tile-in-window", "causal+1"])
+def test_wgmma_flash_tolerance_rejects_a_faulty_wide_forward(case, mutation):
+    shape, window = WG_WIDE[case]
+    with pytest.raises(SystemExit, match="FAIL flash_attention"):
+        _check_wgmma_fwd(shape, window=window, **mutation)
+
+
+@pytest.mark.parametrize("case,mutation", [
+    ("recurrentgemma", {"wshift": 1}), ("recurrentgemma", {"wshift": -1}),
+    ("recurrentgemma", {"slab_from": 0}), ("nemotron", {"slab_from": 2}),
+    ("nemotron", {"twice": 11})],
+    ids=["window-edge+1", "window-edge-1", "slab-offset-lost-256", "slab-offset-lost-192",
+         "gqa-head-11-summed-twice"])
+def test_wgmma_flash_tolerance_rejects_a_faulty_wide_backward(case, mutation):
+    shape, window = WG_WIDE[case]
+    with pytest.raises(SystemExit, match="FAIL flash_attention_bwd"):
+        _check_wgmma_bwd(shape, window=window, **mutation)
 
 
 # ---------------------------------------------------------------------------
