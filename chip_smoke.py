@@ -13,8 +13,10 @@ then trains granite-moe-1b-a400m under ``--plan auto`` and through the
 layered epoch with its expert rows paged from NVMe, then the fixed-state
 families: flash attention with recurrentgemma's local window, full
 recurrentgemma-9b and mamba2-370m served, recurrentgemma at full width
-(5 layers) and full mamba2 trained under ``--plan auto``, checks the
-outputs, and prints one JSON line per the contract below.
+(5 layers) and full mamba2 trained under ``--plan auto``, then the VLM and
+the encoder-decoder: llava-next-34b at full width served (8 layers) and
+trained (2 layers), full seamless-m4t-medium served and trained, checks
+the outputs, and prints one JSON line per the contract below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -139,10 +141,38 @@ Phases (any failure exits non-zero; no phase is caught):
       params) served at the serve host cell's sizes (8 sequences, 4 slots,
       prompt 512, 32 new tokens) and trained 4 steps of 8 x 512 tokens
       under ``--plan auto``;
-  24. the kernels JSON line, then the device JSON line last.
+  24. the VLM's and the encoder-decoder's kernel shapes
+      (``phase_family_kernels``): flash forward and backward at llava's
+      training shape (1 x 4096, 56 query heads on 8 KV heads of 128,
+      causal) and at seamless's encoder (8 x 2048 frames, 16 heads of 64,
+      not causal), cross-attention (512 decoder queries on 2048 frames,
+      not causal) and decoder self-attention (512, causal); the tiled
+      matmul at llava's swiglu, (4096,7168)@(7168,20480) and
+      (4096,20480)@(20480,7168), with dX and dW on transposed views, and at
+      seamless's gelu, (16384,1024)@(1024,4096) and back; bf16 by ``TOL``,
+      timed beside bound, plain, CUDA-core kernel and SDPA / torch.matmul;
+  25. family numerics: the GSPMD step all on the device, card against CPU
+      by phase 11's bounds, on seamless-m4t-medium at full width cut to 2 +
+      2 layers (2 x 256 frames, 64 decoder tokens) and on llava-next-34b
+      at full width cut to one layer and 96 vision positions
+      (``VLM_NUMERICS_CUT``: a layer at its 2880 positions costs the CPU
+      ~27 TFLOP a step), 1 x 160 positions;
+  26. vlm serve / vlm plan train: llava-next-34b at full width cut to 8
+      layers (5.40 B params) served, 8 sequences through 4 slots, prompt
+      3072 (2880 vision positions, 192 tokens), 16 new tokens, waiting K/V
+      paged on the host tier; cut to 2 layers (2.06 B params), 4 steps of
+      1 x 4096 (2880 vision positions, 1216 tokens) under ``--plan auto``:
+      flash backward at n_rep 7;
+  27. encdec serve / encdec plan train: full seamless-m4t-medium (12 + 12
+      layers, 0.62 B params) served, 8 sequences through 4 slots, 2048
+      frames (512 decoder tokens), 32 new tokens, waiting decoder K/V paged
+      and cross-attention K/V parked whole; 4 steps of 8 x 2048 frames
+      under ``--plan auto``: flash launched by the encoder, the decoder and
+      the cross-attention in every step;
+  28. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18, 21, 22, 23) each
-flash-attention launch, forward and backward (the recompute under
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18, 21, 22, 23, 26,
+27) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
 (``*_wgmma``), none on ``simt``: the hybrid paths' flash launches too
@@ -321,6 +351,38 @@ ZERO3_PLACEMENTS = {"in_graph": ("device", "device", "device", "none"),
                     "off_graph_nvme": ("device", "device", "nvme", "none"),
                     "int8": ("device", "device", "device", "int8")}
 INT8_NORM_TOL = {"rtol": 2**-6, "atol": 2e-3}
+# the VLM and the encoder-decoder: llava-next-34b at full width (d_model
+# 7168, 56 query heads on 8 KV heads of 128, swiglu d_ff 20480, vocab 64000
+# padded to 65536; 60 layers do not fit one card: served cut to 8, trained
+# cut to 2) and full seamless-m4t-medium (12 + 12 layers, d_model 1024, 16
+# heads of 64, gelu d_ff 4096, tied vocab 256206 padded to 258048)
+VLM_ARCH = "llava-next-34b"
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_SERVE_LAYERS = 8
+VLM_TRAIN_LAYERS = 2
+# their flash operating points, (shape, causal): llava's training shape (1 x
+# 4096: 2880 vision positions and 1216 tokens, n_rep 7); seamless's at 8 x
+# 2048 frames: the encoder (Sq = Sk), the cross-attention (512 decoder
+# tokens on 2048 frames) and the decoder's causal self-attention
+FLASH_VLM_ENCDEC = [((1, 56, 8, 4096, 4096, 128), True), ((8, 16, 16, 2048, 2048, 64), False),
+                  ((8, 16, 16, 512, 2048, 64), False), ((8, 16, 16, 512, 512, 64), True)]
+# their MLP products: llava's x @ W_in|gate and h @ W_out at 4096 tokens
+# (timed), dX = dY @ W_in^T and dW = X^T @ dY on transposed views;
+# seamless's at 16384 frames (timed)
+TILED_VLM_ENCDEC = [(4096, 7168, 20480, ""), (4096, 20480, 7168, ""),
+                         (4096, 20480, 7168, "w"), (7168, 4096, 20480, "x"),
+                         (16384, 1024, 4096, ""), (16384, 4096, 1024, "")]
+# f32 sums of K products in another order: K * 2^-24 of |x| @ |w|, 2^-9.7 at
+# llava's K = 20480 (its down projection and dX), taken as 2^-9
+TOL.update({
+    ("tiled_matmul_k20480", torch.bfloat16): {"rtol": 2**-7, "mtol": 2**-9, "atol": 0.0},
+})
+# the VLM's card-vs-CPU numerics: one full-width llava layer's CPU step at
+# its 2880 vision positions is ~27 TFLOP, so the CPU side runs one layer at
+# full width over 96 vision positions and 64 tokens (its vocab and widths
+# as they are), and seamless at full width, 2 + 2 layers
+VLM_NUMERICS_CUT = {"n_layers": 1, "vision_len": 96}
+ENCDEC_NUMERICS_CUT = {"n_layers": 4, "n_enc_layers": 2, "n_dec_layers": 2}
 # --hw-device-mem for phase 13: usable HBM (70 %) below the 2.57 GB of full
 # smollm-135m's states and checkpoints at 8 x 512 tokens, above its 0.95 GB
 # without the optimizer: the planner moves the optimizer off the device
@@ -359,25 +421,28 @@ def compare(name, shape, dtype, out, plain, mag) -> dict:
     return rec
 
 
-def causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
-    """(query, key) pairs a causal head keeps: query i sees keys
-    j <= i + (Sk - Sq) and, under a window, j > i + (Sk - Sq) - window."""
+def causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True) -> int:
+    """(query, key) pairs a head keeps: causal, query i sees keys
+    j <= i + (Sk - Sq) and, under a window, j > i + (Sk - Sq) - window;
+    not causal, every pair."""
+    if not causal:
+        return Sq * Sk
     off = Sk - Sq
     return sum(min(Sk, i + off + 1) - (max(0, i + off - window + 1) if window else 0)
                for i in range(Sq))
 
 
-def sdpa(q, k, v, window: int = 0):
-    """The library's attention on the same inputs: causal, or under a
-    window the plain version's boolean mask."""
+def sdpa(q, k, v, window: int = 0, causal: bool = True):
+    """The library's attention on the same inputs: causal (or not), or
+    under a window the plain version's boolean mask."""
     if not window:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
     mask = ref.visible(q.shape[2], k.shape[2], True, window, q.device)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def check_flash(shape, dtype, gen, timed: bool, window: int = 0,
-                name: str = "flash_attention") -> dict:
+                name: str = "flash_attention", causal: bool = True) -> dict:
     B, H, KV, Sq, Sk, D = shape
     # unit-variance q and k give scores of unit variance (peaked softmax) and
     # outputs of O(1); (B,S,H,D) storage passed as strided (B,H,S,D) views,
@@ -386,28 +451,29 @@ def check_flash(shape, dtype, gen, timed: bool, window: int = 0,
     k = randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2)
     v = randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2)
     out, rec_route = routed_flash(
-        lambda: ops.flash_attention(q, k, v, causal=True, window=window), (q, k, v),
-        window=window)
-    plain = ref.attention_ref(q, k, v, causal=True, window=window)
-    mag = ref.attention_ref(q, k, v.abs(), causal=True, window=window)
+        lambda: ops.flash_attention(q, k, v, causal=causal, window=window), (q, k, v),
+        window=window, causal=causal)
+    plain = ref.attention_ref(q, k, v, causal=causal, window=window)
+    mag = ref.attention_ref(q, k, v.abs(), causal=causal, window=window)
     torch.cuda.synchronize()
     rec = compare("flash_attention", shape, dtype, out, plain, mag)
     rec.update(rec_route)
     if window:
         rec["window"] = window
+    rec["causal"] = causal
     if timed:
         # the pairs the mask keeps: the work this run does
-        pairs = causal_pairs(Sq, Sk, window) * B * H
+        pairs = causal_pairs(Sq, Sk, window, causal) * B * H
         nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * D * pairs, dtype)
-        rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True, window=window))
-        rec["call_ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+        rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+        rec["call_ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                              window=window), queued=False)
-        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_cuda(q, k, v, window=window,
-                                                                   simt=True))
-        rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, causal=True,
+        rec["simt_ms"] = time_ms(lambda: tfa.flash_attention_cuda(q, k, v, causal=causal,
+                                                                   window=window, simt=True))
+        rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, causal=causal,
                                                             window=window))
-        rec["library_ms"] = time_ms(lambda: sdpa(q, k, v, window))
+        rec["library_ms"] = time_ms(lambda: sdpa(q, k, v, window, causal))
         check_speedup(name, shape, rec)
     return rec
 
@@ -425,7 +491,7 @@ def routed(key: str, fn, want: str):
     return out
 
 
-def routed_flash(fn, inputs, bwd: bool = False, window: int = 0) -> tuple:
+def routed_flash(fn, inputs, bwd: bool = False, window: int = 0, causal: bool = True) -> tuple:
     """A flash-attention call on the route ``flash_attention.route`` names
     for ``inputs`` (``routed``), and the plan of a tensor-core launch."""
     want = tfa.route(*inputs)
@@ -433,7 +499,7 @@ def routed_flash(fn, inputs, bwd: bool = False, window: int = 0) -> tuple:
     rec = {"route": want}
     if want == "wgmma":
         (B, H, Sq, D), (_, KV, Sk, _) = inputs[0].shape, inputs[1].shape
-        p = tfa.plan(B, H, KV, Sq, Sk, sms=torch.cuda.get_device_properties(0)
+        p = tfa.plan(B, H, KV, Sq, Sk, causal=causal, sms=torch.cuda.get_device_properties(0)
                      .multi_processor_count, window=window, D=D)
         rec["plan"] = {kern: {k: p[kern][k] for k in ("tile", "slab", "blocks", "blocks_per_sm")
                               if k in p[kern]}
@@ -549,7 +615,8 @@ def check_tiled_t(case, dtype, gen, timed: bool) -> dict:
     plain = ref.matmul_ref(x, w)
     mag = ref.matmul_ref(x.abs(), w.abs())
     torch.cuda.synchronize()
-    name = "tiled_matmul" if K <= 1536 else "tiled_matmul_k4096"
+    name = ("tiled_matmul" if K <= 1536 else "tiled_matmul_k4096" if K <= 8192
+            else "tiled_matmul_k20480")
     rec = compare(name, (M, K, N), dtype, out, plain, mag)
     rec["transposed"] = trans
     rec.update(rec_route)
@@ -559,20 +626,21 @@ def check_tiled_t(case, dtype, gen, timed: bool) -> dict:
 
 
 def check_flash_bwd(shape, dtype, gen, timed: bool, window: int = 0,
-                    name: str = "flash_attention_bwd") -> dict:
+                    name: str = "flash_attention_bwd", causal: bool = True) -> dict:
     """dq, dk, dv of the kernel against ``ref.attention_bwd_ref`` from the
     same saved o and lse (the kernel forward's), strided (B,S,H,D) views."""
     B, H, KV, Sq, Sk, D = shape
     q, do = (randn((B, Sq, H, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
     k, v = (randn((B, Sk, KV, D), dtype, gen, 1.0).transpose(1, 2) for _ in range(2))
-    o, lse = tfa.flash_attention_cuda(q, k, v, causal=True, window=window, with_lse=True)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window, with_lse=True)
 
     def kernel(simt=False):
-        return tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window,
+        return tfa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window,
                                             simt=simt)
 
-    got, rec_route = routed_flash(kernel, (q, k, v, do), bwd=True, window=window)
-    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
+    got, rec_route = routed_flash(kernel, (q, k, v, do), bwd=True, window=window,
+                                  causal=causal)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     recs = [compare("flash_attention_bwd", shape, dtype, g, w, w.float().abs().max())
             for g, w in zip(got, want)]
@@ -581,8 +649,9 @@ def check_flash_bwd(shape, dtype, gen, timed: bool, window: int = 0,
            "worst_err_over_tol": max(r["worst_err_over_tol"] for r in recs), **rec_route}
     if window:
         rec["window"] = window
+    rec["causal"] = causal
     if timed:
-        pairs = causal_pairs(Sq, Sk, window) * B * H
+        pairs = causal_pairs(Sq, Sk, window, causal) * B * H
         nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()  # q o dO dq; k v dk dv
                   + lse.numel() * 4)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * D * pairs, dtype)
@@ -590,9 +659,9 @@ def check_flash_bwd(shape, dtype, gen, timed: bool, window: int = 0,
         rec["call_ms"] = time_ms(kernel, queued=False)
         rec["simt_ms"] = time_ms(lambda: kernel(simt=True))
         rec["plain_ms"] = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do,
-                                                                window=window))
+                                                                causal=causal, window=window))
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        out = sdpa(qg, kg, vg, window)
+        out = sdpa(qg, kg, vg, window, causal)
         rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
         check_speedup(name, shape, rec)
@@ -902,11 +971,30 @@ def check_main_path_routes(tag, launches) -> None:
 
 
 def attention_layers(cfg) -> int:
-    """The attention blocks of one forward: every layer of a dense or MoE
-    model, one per (rec, rec, attn) group of the hybrid, none in mamba2."""
+    """The flash launches of one forward: every layer of a dense, VLM or
+    MoE model, one per (rec, rec, attn) group of the hybrid, none in
+    mamba2; an encoder-decoder's encoder layers and its decoder layers
+    twice (self- and cross-attention)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // len(cfg.block_pattern)
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers
     return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+# families whose MLPs run the tiled matmul (the MoE's experts are batched
+# einsums, as the reference's; mamba2 has no MLP)
+MLP_FAMILIES = ("dense", "vlm", "hybrid", "encdec")
+
+
+def mlp_products(cfg, decode: bool = False) -> int:
+    """The tiled-matmul launches of one forward's MLPs (prefill or a
+    training step; ``decode``: a decode step, which runs no encoder): two
+    or, gated, three projections in every layer with an MLP."""
+    per = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    if cfg.family == "encdec":
+        return per * (cfg.n_dec_layers if decode else cfg.n_enc_layers + cfg.n_dec_layers)
+    return per * cfg.n_layers
 
 
 def check_window_launches(tag, launches, cfg) -> None:
@@ -976,13 +1064,14 @@ def run_serve(argv) -> tuple:
     return out, ops.launch_counts(), wall
 
 
-def summarize(tag, argv, out, launches, wall, arch="smollm-135m") -> dict:
+def summarize(tag, argv, out, launches, wall, arch="smollm-135m", cfg=None) -> dict:
     """A serving run's numbers and checks. Every sequence finishes, KV
-    moves through the tier, flash attention runs in every layer of every
-    prefill wave; a dense model's MLP projections run the tiled matmul in
-    every layer of every wave and decode step (a MoE model's experts are
-    batched einsums, as the reference's)."""
-    cfg = configs.get(arch)
+    moves through the tier, flash attention runs in every attention layer
+    of every prefill wave; a dense, VLM, hybrid or enc-dec model's MLP
+    projections run the tiled matmul in every layer of every wave and
+    decode step (a MoE model's experts are batched einsums, as the
+    reference's). ``cfg`` is the served config (``arch``'s by default)."""
+    cfg = cfg or configs.get(arch)
     n = len(out["generated"])
     t = out["timings"]
     dec_toks = sum(len(g) for g in out["generated"]) - n
@@ -1011,7 +1100,7 @@ def summarize(tag, argv, out, launches, wall, arch="smollm-135m") -> dict:
                                      <= 0.54 * out["kv"]["out_bytes"]):
         raise SystemExit(f"FAIL {tag}: q8 KV parked {out['kv']['out_wire_bytes']} wire "
                          f"bytes for {out['kv']['out_bytes']} logical")
-    L, A = cfg.n_layers, attention_layers(cfg)
+    A = attention_layers(cfg)
     if launches["flash_attention"] < A * waves:
         raise SystemExit(f"FAIL {tag}: flash_attention launched "
                          f"{launches['flash_attention']} < {A} x {waves} waves")
@@ -1019,11 +1108,11 @@ def summarize(tag, argv, out, launches, wall, arch="smollm-135m") -> dict:
         # exactly the attention layers of each wave and of the warm-up prefill
         raise SystemExit(f"FAIL {tag}: flash_attention launched "
                          f"{launches['flash_attention']} times; want {A} x ({waves} + 1)")
-    if cfg.family in ("dense", "hybrid") and \
-            launches["tiled_matmul"] < 3 * L * (waves + out["steps"]):
+    want = mlp_products(cfg) * waves + mlp_products(cfg, decode=True) * out["steps"]
+    if cfg.family in MLP_FAMILIES and launches["tiled_matmul"] < want:
         raise SystemExit(f"FAIL {tag}: tiled_matmul launched "
-                         f"{launches['tiled_matmul']} < {3 * L} x "
-                         f"({waves} waves + {out['steps']} steps)")
+                         f"{launches['tiled_matmul']} < {want} ({waves} waves, "
+                         f"{out['steps']} steps)")
     check_main_path_routes(tag, launches)
     check_window_launches(tag, launches, cfg)
     for g in out["generated"]:
@@ -1044,15 +1133,16 @@ def _gspmd_run(cfg, nvme_dir, steps, placement) -> RunConfig:
 
 def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
                          layers: int = 2, B: int = 4, S: int = 256,
-                         tag: str = "gspmd numerics") -> dict:
-    """Full-width ``arch`` cut to ``layers`` layers: 2 steps of the GSPMD
-    engine on the card (kernels) and on the CPU (plain versions), same
-    weights and batches (B x S tokens), in one of ``GSPMD_PLACEMENTS``;
-    loss and grad norm by ``TRAIN_TOL``, the f32 masters (in the state
-    in-graph, read back from the optimizer store off-graph) by the drift
-    bound, the params by it plus each side's bf16 rounding, their mean by
-    2^-5 * sum(lr)."""
-    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+                         tag: str = "gspmd numerics", cut: dict | None = None) -> dict:
+    """Full-width ``arch`` cut to ``layers`` layers (or by the config fields
+    in ``cut``): 2 steps of the GSPMD engine on the card (kernels) and on
+    the CPU (plain versions), same weights and batches (B x S tokens), in
+    one of ``GSPMD_PLACEMENTS``; loss and grad norm by ``TRAIN_TOL``, the
+    f32 masters (in the state in-graph, read back from the optimizer store
+    off-graph) by the drift bound, the params by it plus each side's bf16
+    rounding, their mean by 2^-5 * sum(lr)."""
+    cut = cut or {"n_layers": layers}
+    cfg = dataclasses.replace(configs.get(arch), **cut)
     steps = 2
     base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{arch}_{placement}")
     params0 = None
@@ -1086,7 +1176,7 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
     allowed = drift + 2**-8 * (p_c.abs() + p_g.abs())
     rec = {"arch": arch, "placement": placement,
            "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
-           "layers": layers, "n_params": registry.build(cfg).n_params(),
+           "cut": cut, "n_params": registry.build(cfg).n_params(),
            "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
            "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "params_max_abs_diff": diff.max().item(), "params_mean_abs_diff": diff.mean().item(),
@@ -1178,8 +1268,9 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m", batch: in
             if launches[name] != n:
                 raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times; "
                                  f"want {n}")
-    if cfg.family in ("dense", "hybrid"):
-        want["tiled_matmul"] = ((6 if remat else 3) + 6) * L * steps
+    if cfg.family in MLP_FAMILIES:
+        # each projection forward (again under remat="full"), then dX and dW
+        want["tiled_matmul"] = ((2 if remat else 1) + 2) * mlp_products(cfg) * steps
     elif cfg.family == "moe":
         for m in hist["metrics"]:
             load = m["moe_expert_load"]
@@ -1748,18 +1839,58 @@ def phase_flash_window() -> dict:
     return {"flash_attention_window": fwd, "flash_attention_bwd_window": bwd}
 
 
-def phase_family_serve(tag: str, arch: str, prompt: int, new: int) -> tuple:
-    """``launch.serve`` on full ``arch``: 8 sequences through 4 device
-    slots, waiting caches parked whole on the host tier, every slot at its
-    own length. Counters zeroed just before and read just after."""
+def phase_family_kernels() -> dict:
+    """Flash forward and backward and the tiled matmul at the VLM's and the
+    encoder-decoder's operating points (``FLASH_VLM_ENCDEC``,
+    ``TILED_VLM_ENCDEC``), bf16, against their plain versions by
+    ``TOL``, timed beside the bound, the plain version, the CUDA-core
+    kernel and SDPA / ``torch.matmul``; every launch on the tensor cores."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    fwd = [check_flash(shape, bf16, gen, timed=True, causal=causal)
+           for shape, causal in FLASH_VLM_ENCDEC]
+    bwd = [check_flash_bwd(shape, bf16, gen, timed=True, causal=causal)
+           for shape, causal in FLASH_VLM_ENCDEC]
+    check_flash_routes(fwd + bwd)
+    tiled = [check_tiled_t(c, bf16, gen, timed=not c[3]) for c in TILED_VLM_ENCDEC]
+    check_routes(tiled)
+    for rec in fwd + bwd + tiled:
+        say("family kernel check:", json.dumps(rec))
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd, "tiled_matmul": tiled}
+
+
+def parked_seq_bytes(cfg, prompt: int, new: int) -> int:
+    """One waiting sequence's parked bytes, the ``len`` placeholder
+    included. A fixed-state cache is the same at any length; a VLM's K/V
+    are paged up to the prompt, its vision positions among them. An
+    encoder-decoder's are counted from the parked leaves: its decoder K/V
+    up to the prompt's P // 4 tokens and its cross-attention K/V at the
+    encoder's P frames, whole; ``sequence_kv_bytes`` would read
+    ``cache_defs``, which sizes those at ``cache_len // 4``, as the
+    reference's does."""
+    if cfg.family == "encdec":
+        row = cfg.n_dec_layers * cfg.n_kv_heads * cfg.resolved_head_dim * 2  # bf16, a position
+        return 2 * row * (prompt // 4) + 2 * row * prompt + 4
+    if cfg.family == "vlm":
+        return kvcache.sequence_kv_bytes(cfg, prompt)
+    return kvcache.sequence_kv_bytes(cfg, prompt + new)
+
+
+def phase_family_serve(tag: str, arch: str, prompt: int, new: int, layers: int = 0) -> tuple:
+    """``launch.serve`` on ``arch`` at full width (its depth cut to
+    ``layers`` when given): 8 sequences through 4 device slots, waiting
+    caches parked on the host tier, every slot at its own length. Counters
+    zeroed just before and read just after."""
     argv = ["--arch", arch, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
             "--prompt-len", str(prompt), "--new-tokens", str(new)]
+    if layers:
+        argv += ["--layers", str(layers)]
+    cfg = configs.with_layers(configs.get(arch), layers)
     out, launches, wall = run_serve(argv)
-    rec = summarize(tag, argv, out, launches, wall, arch=arch)
-    cfg = configs.get(arch)
+    rec = summarize(tag, argv, out, launches, wall, arch=arch, cfg=cfg)
     if any(len(g) != new for g in out["generated"]):
         raise SystemExit(f"FAIL {tag}: not every sequence produced its {new} tokens")
-    per_seq = kvcache.sequence_kv_bytes(cfg, prompt + new)  # with the len placeholder
+    per_seq = parked_seq_bytes(cfg, prompt, new)
     if out["kv"]["out_bytes"] != out["admissions"] * per_seq:
         raise SystemExit(f"FAIL {tag}: parked {out['kv']['out_bytes']} B for "
                          f"{out['admissions']} caches of {per_seq} B")
@@ -1864,6 +1995,20 @@ def main() -> int:
         "hybrid plan train", [], arch=HYBRID_ARCH, batch=1, seq=4096, layers=HYBRID_TRAIN_LAYERS)
     ssm_serve_rec, ssm_serve_launches = phase_family_serve("ssm serve", SSM_ARCH, 512, 32)
     ssm_train_rec, ssm_train_launches = phase_plan_train("ssm plan train", [], arch=SSM_ARCH)
+    for name, recs in phase_family_kernels().items():
+        train_checks[name] += recs
+    family = {arch: phase_gspmd_numerics("in_graph", arch, B=B, S=S, tag="family numerics",
+                                         cut=cut)
+              for arch, cut, B, S in ((ENCDEC_ARCH, ENCDEC_NUMERICS_CUT, 2, 256),
+                                      (VLM_ARCH, VLM_NUMERICS_CUT, 1, 160))}
+    vlm_serve_rec, vlm_serve_launches = phase_family_serve(
+        "vlm serve", VLM_ARCH, 3072, 16, layers=VLM_SERVE_LAYERS)
+    vlm_train_rec, vlm_train_launches = phase_plan_train(
+        "vlm plan train", [], arch=VLM_ARCH, batch=1, seq=4096, layers=VLM_TRAIN_LAYERS)
+    encdec_serve_rec, encdec_serve_launches = phase_family_serve(
+        "encdec serve", ENCDEC_ARCH, 2048, 32)
+    encdec_train_rec, encdec_train_launches = phase_plan_train(
+        "encdec plan train", [], arch=ENCDEC_ARCH, batch=8, seq=2048)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -1907,7 +2052,10 @@ def main() -> int:
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
-             "ssm_serve": ssm_serve_launches, "ssm_plan_train": ssm_train_launches}
+             "ssm_serve": ssm_serve_launches, "ssm_plan_train": ssm_train_launches,
+             "vlm_serve": vlm_serve_launches, "vlm_plan_train": vlm_train_launches,
+             "encdec_serve": encdec_serve_launches,
+             "encdec_plan_train": encdec_train_launches}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -1969,7 +2117,17 @@ def main() -> int:
         f"{hybrid_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; ssm serve "
         f"{ssm_serve_rec['decode_tok_s']:.0f} decode tok/s; ssm plan train "
         f"{ssm_train_rec['first_loss']:.4f} -> {ssm_train_rec['last_loss']:.4f} at "
-        f"{ssm_train_rec['median_tokens_per_s_after_first']:.0f} tok/s)")
+        f"{ssm_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; family numerics "
+        f"params {max(r['params_worst_diff_over_bound'] for r in family.values()):.3f} of "
+        f"bound; vlm serve {vlm_serve_rec['decode_tok_s']:.0f} decode tok/s, "
+        f"{vlm_serve_rec['prefill_tok_s']:.0f} prefill tok/s, TTFT p50 "
+        f"{vlm_serve_rec['ttft_p50_s']:.3f} s; vlm plan train "
+        f"{vlm_train_rec['first_loss']:.4f} -> {vlm_train_rec['last_loss']:.4f} at "
+        f"{vlm_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; encdec serve "
+        f"{encdec_serve_rec['decode_tok_s']:.0f} decode tok/s, TTFT p50 "
+        f"{encdec_serve_rec['ttft_p50_s']:.3f} s; encdec plan train "
+        f"{encdec_train_rec['first_loss']:.4f} -> {encdec_train_rec['last_loss']:.4f} at "
+        f"{encdec_train_rec['median_tokens_per_s_after_first']:.0f} tok/s)")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Assigned architecture registry. ``get(arch_id)`` -> ModelConfig."""
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.config import ModelConfig
 
 from . import (
@@ -43,3 +45,18 @@ def smoke(arch_id: str) -> ModelConfig:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return _MODULES[arch_id].SMOKE
+
+
+def with_layers(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` at full width cut to ``n_layers`` layers (0: as it is), the
+    drivers' ``--layers``. An enc-dec model's depth is its
+    ``n_enc_layers`` and ``n_dec_layers``: replacing ``n_layers`` would cut
+    no block and change only the planner's arithmetic, so it is refused."""
+    if not n_layers:
+        return cfg
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"--layers {n_layers}: {cfg.arch} is an encoder-decoder "
+            f"({cfg.n_enc_layers} + {cfg.n_dec_layers} layers); --layers "
+            "would cut no block of it, so it runs whole")
+    return dataclasses.replace(cfg, n_layers=n_layers)

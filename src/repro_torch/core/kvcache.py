@@ -11,14 +11,17 @@
     fetching streams them back through a bounded read-ahead window.
 
 A cache is a nested dict of tensors with a top-level ``len``: flat for
-the dense, MoE and SSM families (``k``/``v``, or mamba2's conv tails and
-``state``), nested for the hybrid (``groups/rec1/h``, ``groups/attn/k``,
-``tail/rec/conv``, ...). The reference walks a pytree by path; here a
-leaf's name is its key path joined by ``/``. A pageable leaf is a 5-dim
-``(layers, batch, seq, kv_heads, head_dim)`` tensor whose last key is in
-``seq_axis_names``; every other leaf (an SSM state, a conv tail, a
-window-bounded K/V ring) is parked whole. The batch axis of every
-non-scalar leaf is axis 1.
+the dense, VLM, MoE, enc-dec and SSM families (``k``/``v``, enc-dec's
+``xk``/``xv`` beside them, or mamba2's conv tails and ``state``), nested
+for the hybrid (``groups/rec1/h``, ``groups/attn/k``, ``tail/rec/conv``,
+...). The reference walks a pytree by path; here a leaf's name is its key
+path joined by ``/``. A pageable leaf is a 5-dim ``(layers, batch, seq,
+kv_heads, head_dim)`` tensor whose last key is in ``seq_axis_names``
+(``k``/``v``); every other leaf (enc-dec's cross-attention ``xk``/``xv``,
+an SSM state, a conv tail, a window-bounded K/V ring) is parked whole and
+never grows: the cross keys' length is the encoder's, and zero-padded
+ones would get attention weight. The batch axis of every non-scalar leaf
+is axis 1.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ def _is_seq_leaf(name: str, leaf, seq_axis_names) -> bool:
 def pad_seq_caches(cache: dict, extra: int,
                    seq_axis_names: Tuple[str, ...] = ("k", "v")) -> dict:
     """Grow 5-dim ``k``/``v`` leaves by ``extra`` zero slots along the seq
-    axis (new tensors); other leaves pass through."""
+    axis (new tensors); other leaves (enc-dec's ``xk``/``xv`` among them)
+    pass through."""
     if extra <= 0:
         return cache
     return {name: (F.pad(leaf, (0, 0, 0, 0, 0, extra))

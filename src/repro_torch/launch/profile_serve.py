@@ -1,5 +1,5 @@
 """Where the serving time goes: one prefill wave and a few decode steps of
-the port's bundle (any ported family) under ``torch.profiler``, on the card.
+the port's bundle (any family) under ``torch.profiler``, on the card.
 
 Prints, for prefill and for decode separately, the host wall time per
 call, the device time summed over device-side events (kernels, copies),
@@ -13,11 +13,14 @@ are random from ``--seed``.
       --arch granite-moe-1b-a400m
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch recurrentgemma-9b --prompt-len 2560 [--layers 5]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch llava-next-34b --prompt-len 3072 --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch seamless-m4t-medium --prompt-len 2048
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from collections import defaultdict
 
@@ -26,7 +29,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
+from repro_torch.config import ShapeConfig
 from repro_torch.core import kvcache
+from repro_torch.launch import serve
 from repro_torch.models import registry
 from repro_torch.runtime import trace
 
@@ -77,33 +82,35 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: CUDA is not available; this profile runs on the card")
     dev = torch.device("cuda")
-    cfg = configs.get(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = configs.with_layers(configs.get(args.arch), args.layers)
     bundle = registry.build(cfg)
     params = bundle.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    toks = torch.randint(0, cfg.vocab_size, (args.slots, args.prompt_len),
-                         generator=gen, device=dev, dtype=torch.int32)
+    # the family's prefill inputs (token ids, a VLM's vision embeddings or an
+    # enc-dec model's frames), drawn as the serve driver draws them
+    specs = bundle.input_specs(ShapeConfig("profile", args.prompt_len, args.slots, "prefill"))
+    batch = {name: t.to(dev) for name, t in
+             serve.draw_inputs(specs, args.slots, cfg.vocab_size, args.seed).items()}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
-    bundle.prefill(params, {"tokens": toks})  # warm-up: build, load, first launches
+    bundle.prefill(params, batch)  # warm-up: build, load, first launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bundle.prefill(params, {"tokens": toks})
+    bundle.prefill(params, batch)
     torch.cuda.synchronize()
     print(f"prefill: unprofiled wall {(time.perf_counter() - t0) * 1e3:.3f} ms/call")
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, cache = bundle.prefill(params, {"tokens": toks})
+        _, cache = bundle.prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report("prefill", prof, wall, 1, args.top)
 
-    # room for a warm-up step, the unprofiled steps and the profiled steps
+    # room for a warm-up step, the unprofiled steps and the profiled steps;
+    # each slot continues at the prefill's length (a VLM's counts its vision
+    # positions, an enc-dec model's is its decoder's)
+    prefill_len = int(cache["len"])
     cache = kvcache.grow_cache(cache, 2 * args.decode_steps + 1, cfg.family)
-    cache["len"] = torch.full((args.slots,), args.prompt_len, dtype=torch.int32,
-                              device=dev)
+    cache["len"] = torch.full((args.slots,), prefill_len, dtype=torch.int32, device=dev)
 
     def decode(n, cache, cur):
         """n greedy steps; returns the wall seconds, the cache and the tokens."""
@@ -114,7 +121,7 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0, cache, cur
 
-    _, cache, cur = decode(1, cache, toks[:, -1:])  # warm-up
+    _, cache, cur = decode(1, cache, batch["tokens"][:, -1:])  # warm-up
     wall, cache, cur = decode(args.decode_steps, cache, cur)
     print(f"decode: unprofiled wall {wall / args.decode_steps * 1e3:.3f} ms/call")
     with profile(activities=acts) as prof:

@@ -22,23 +22,35 @@ waiting KV blocks as block-quantized wire bytes (``core/qformat.py``),
 decoded on the host when fetched. A mesh larger than one device (or a
 plan for more than one, ``--hw-devices``) is not ported yet and raises.
 
-The dense and MoE families serve (``--arch granite-moe-1b-a400m``: the
+Every family serves: dense, MoE (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
-paged KV as a dense model), and so do the fixed-state families
+paged KV as a dense model), the VLM (``--arch llava-next-34b``: the prompt
+holds the ``vision_len`` vision positions, so ``--prompt-len`` must exceed
+them; decode continues after them), the encoder-decoder (``--arch
+seamless-m4t-medium``: ``--prompt-len`` frames into the encoder, a quarter
+as many decoder tokens; its cross-attention keys park whole beside the
+paged decoder K/V; ``--layers`` is refused, as its depth is two stacks),
+and the fixed-state families
 (``--arch mamba2-370m``: conv tails and the SSD state;
 ``--arch recurrentgemma-9b``: LRU states and window-bounded K/V rings):
 their caches do not grow with the context, each slot keeps its own
 length, and a waiting sequence's cache parks whole (no token blocks).
 
-Example (one H100, full smollm-135m, 8 sequences through 4 device slots):
+Examples (one H100: full smollm-135m, llava-next-34b at full width cut to
+8 layers, full seamless-m4t-medium; 8 sequences through 4 device slots):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 8 --kv-slots 4 --kv-tier host --prompt-len 512 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \
+      --layers 8 --batch 8 --kv-slots 4 --kv-tier host --prompt-len 3072 \
+      --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-medium --batch 8 --kv-slots 4 --kv-tier host \
+      --prompt-len 2048 --new-tokens 32
 """
 from __future__ import annotations
 
 import argparse
 import collections
-import dataclasses
 import os
 import tempfile
 import time
@@ -129,6 +141,26 @@ def _percentiles(xs) -> dict:
     return {f"p{q}": float(np.percentile(a, q)) for q in (50, 95, 99)}
 
 
+def draw_inputs(specs: dict, n_seqs: int, vocab_size: int, seed: int) -> dict:
+    """Every sequence's prefill inputs (``specs``' leaves with ``n_seqs``
+    rows), drawn from ``seed`` in the specs' order as the reference's
+    driver draws them: token ids uniform over the vocab; float inputs (a
+    VLM's vision embeddings, an enc-dec model's frames) unit-normal * 0.1,
+    cast f64 -> f32 -> the spec's dtype, which gives the bits of the
+    reference's f64 -> bf16 cast."""
+    rng = np.random.default_rng(seed)
+    full = {}
+    for k, v in specs.items():
+        shp = (n_seqs,) + tuple(v.shape[1:])
+        if v.dtype.is_floating_point:
+            full[k] = torch.from_numpy(
+                (rng.standard_normal(shp) * 0.1).astype(np.float32)).to(v.dtype)
+        else:
+            full[k] = torch.from_numpy(
+                rng.integers(0, vocab_size, shp, dtype=np.int32)).to(v.dtype)
+    return full
+
+
 def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
     """Admission: write one fetched sequence (nested as the cache is) into
     decode slot ``b`` of the device slot cache IN PLACE (the reference's
@@ -150,8 +182,7 @@ def run_serve(args, argv=None) -> dict:
     auto`` those become overrides of the derived plan."""
     device = resolve_device(args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = configs.with_layers(cfg, args.layers)
     n_seqs, P, N = args.batch, args.prompt_len, args.new_tokens
     eos = args.eos_id
     plan = plan_mod.resolve_plan(
@@ -197,17 +228,8 @@ def run_serve(args, argv=None) -> dict:
                               prefetch_blocks=kv_prefetch)
 
     # ---- prompts for every sequence (waves of `slots` rows) ----
-    rng = np.random.default_rng(args.seed)
-    specs = bundle.input_specs(ShapeConfig("serve", P, slots, "prefill"))
-    full = {}
-    for k, v in specs.items():
-        shp = (n_seqs,) + tuple(v.shape[1:])
-        if v.dtype.is_floating_point:
-            full[k] = torch.from_numpy(
-                (rng.standard_normal(shp) * 0.1).astype(np.float32)).to(v.dtype)
-        else:
-            full[k] = torch.from_numpy(
-                rng.integers(0, cfg.vocab_size, shp, dtype=np.int32)).to(v.dtype)
+    full = draw_inputs(bundle.input_specs(ShapeConfig("serve", P, slots, "prefill")),
+                       n_seqs, cfg.vocab_size, args.seed)
 
     def wave_rows(w):
         lo = w * slots

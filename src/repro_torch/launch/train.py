@@ -27,7 +27,13 @@ detection — the port of ``repro/launch/train.py`` for one device:
     carry ``moe_dropped_token_fraction``, the (E,) ``moe_expert_load`` and,
     layered, the ``expert_*`` residency counters, and the run ends with a
     ``moe:`` line of them. The hot-expert budget comes from the plan's
-    ``expert_hot_mb`` override, as in the reference (no flag).
+    ``expert_hot_mb`` override, as in the reference (no flag). The
+    fixed-state, VLM and encoder-decoder families (``--arch mamba2-370m``,
+    ``recurrentgemma-9b``, ``llava-next-34b``, ``seamless-m4t-medium``)
+    train under ``--engine pjit``; the explicit engine refuses them, as the
+    reference's does. A VLM's ``--seq`` counts its vision positions; an
+    encoder-decoder's is the encoder's frames (its decoder takes a
+    quarter), and ``--layers`` is refused on it.
   * checkpoints every ``--ckpt-every`` steps into ``--ckpt-dir``
     (``checkpoint/manager.py``, the reference's format), with the data
     cursor as ``{"next_step"}``; ``REPRO_FAIL_AT_STEP`` (and
@@ -47,7 +53,7 @@ dots``, ``--elastic``/``--chaos``, and on the layered epoch
 reference's ``ValueError``s). The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
 
-Examples (one H100, full smollm-135m):
+Examples (one H100; llava-next-34b at full width cut to 2 layers):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --plan auto --batch 8 --seq 512 --steps 4 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -57,6 +63,10 @@ Examples (one H100, full smollm-135m):
       --offload-opt nvme --batch 8 --seq 512 --steps 8 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch granite-moe-1b-a400m --plan auto --batch 8 --seq 512 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llava-next-34b \\
+      --layers 2 --plan auto --batch 1 --seq 4096 --steps 4 --lr 3e-3
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless-m4t-medium --plan auto --batch 8 --seq 2048 --steps 4
   REPRO_FAIL_AT_STEP=3 REPRO_FAIL_MARKER=/tmp/m PYTHONPATH=src \\
       python -m repro_torch.launch.train ... --ckpt-every 2 --resume auto
 """
@@ -185,8 +195,7 @@ def make_run(args, argv=None):
     flags given in ``argv`` (default ``sys.argv[1:]``) act only as explicit
     per-field overrides; ``--plan manual`` keeps the flags as given."""
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = configs.with_layers(cfg, args.layers)
     tc = TrainConfig(lr=args.lr, steps=args.steps, checkpoint_dir=args.ckpt_dir,
                      checkpoint_every=args.ckpt_every, seed=args.seed)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")

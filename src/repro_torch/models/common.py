@@ -140,8 +140,15 @@ def _scatter_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
 
 def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, *, causal: bool = True, window: int = 0,
-                    cache: dict | None = None, collect_kv: bool = False):
+                    cache: dict | None = None,
+                    kv_source: torch.Tensor | None = None,
+                    collect_kv: bool = False):
     """qkv proj -> rope -> attention -> out proj.
+
+    With ``kv_source`` (B, Sk, d) — cross-attention to an encoder's memory —
+    K and V are projected from it, neither q nor k is rotated, and the
+    call is never causal (the reference's ``causal and kv_source is
+    None``); Sq may differ from Sk.
 
     Prefill (``cache`` None) runs ``ops.flash_attention`` over the prompt,
     with the local ``window`` (0: global); with ``collect_kv`` it also
@@ -156,11 +163,14 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """
     B, S, d = x.shape
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    xs = x if kv_source is None else kv_source
+    Sk = xs.shape[1]
     q = (x @ p["wq"].to(x.dtype).reshape(d, H * D)).reshape(B, S, H, D)
-    kx = (x @ p["wk"].to(x.dtype).reshape(d, KV * D)).reshape(B, S, KV, D)
-    vx = (x @ p["wv"].to(x.dtype).reshape(d, KV * D)).reshape(B, S, KV, D)
-    q = rope(q, positions, cfg.rope_theta)
-    kx = rope(kx, positions, cfg.rope_theta)
+    kx = (xs @ p["wk"].to(x.dtype).reshape(d, KV * D)).reshape(B, Sk, KV, D)
+    vx = (xs @ p["wv"].to(x.dtype).reshape(d, KV * D)).reshape(B, Sk, KV, D)
+    if kv_source is None:  # self-attention: rope at absolute positions
+        q = rope(q, positions, cfg.rope_theta)
+        kx = rope(kx, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -174,7 +184,8 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         # (B,S,H,D) storage seen as (B,H,S,D): the kernel takes the strides
         out = ops.flash_attention(q.transpose(1, 2), kx.transpose(1, 2),
-                                  vx.transpose(1, 2), causal=causal, window=window)
+                                  vx.transpose(1, 2), causal=causal and kv_source is None,
+                                  window=window)
         out = out.transpose(1, 2)
         if collect_kv:
             new_cache = {"k": kx.to(torch.bfloat16), "v": vx.to(torch.bfloat16)}

@@ -301,5 +301,5 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         "prefill": prefill,
         "decode_step": decode_step,
         "cache_defs": cache_defs_fn(cfg),
-        "input_specs": tf.input_specs,
+        "input_specs": tf.make_input_specs(cfg),
     }

@@ -1,8 +1,8 @@
 """arch -> ModelBundle: the uniform interface over model families.
 
-The ``dense``, ``moe``, ``ssm`` (mamba2) and ``hybrid`` (recurrentgemma)
-families are ported; ``vlm`` and ``encdec`` raise ``NotImplementedError``
-naming their ROADMAP item.
+Every family of the reference is ported: ``dense`` and ``vlm``
+(``transformer.py``), ``moe``, ``ssm`` (mamba2), ``hybrid``
+(recurrentgemma) and ``encdec`` (seamless-m4t).
 """
 from __future__ import annotations
 
@@ -14,13 +14,15 @@ import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
-from repro_torch.models import mamba2, moe, rglru, transformer
+from repro_torch.models import encdec, mamba2, moe, rglru, transformer
 
-FAMILY_MODULES = {"dense": transformer, "moe": moe, "ssm": mamba2, "hybrid": rglru}
-
-NOT_PORTED = {
-    "vlm": "ROADMAP.md Queue 1, other families (vlm through transformer.py)",
-    "encdec": "ROADMAP.md Queue 1, other families (models/encdec.py)",
+FAMILY_MODULES = {
+    "dense": transformer,
+    "vlm": transformer,
+    "moe": moe,
+    "ssm": mamba2,
+    "hybrid": rglru,
+    "encdec": encdec,
 }
 
 
@@ -58,10 +60,6 @@ class ModelBundle:
 
 
 def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> ModelBundle:
-    if cfg.family not in FAMILY_MODULES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.arch}) is not ported yet: "
-            f"{NOT_PORTED.get(cfg.family, 'ROADMAP.md Queue 1')}")
     if cfg.score_dtype != "float32":
         # the port's attention scores are f32 in every path (the kernels and
         # their plain versions); the reference's chunked attention honours

@@ -1,4 +1,5 @@
-"""Dense decoder-only LM (the ``dense`` family of ``repro/models/transformer.py``).
+"""Dense decoder-only LM and its VLM backbone variant (the ``dense`` and
+``vlm`` families of ``repro/models/transformer.py``).
 
 Blocks are stacked over a leading ``layers`` dim, as in the reference; the
 reference's ``lax.scan`` over that dim is a Python loop over layer slices
@@ -9,6 +10,13 @@ tensors). Training: ``loss`` is the next-token loss over the whole stack
 and ``make_block_fn`` the standalone train-mode block the explicit ZeRO-3
 engine (``core/zero.py``) calls on one layer's row; both differentiate
 through the kernels' ``torch.autograd.Function``s.
+
+The ``vlm`` family (llava-next-34b) is the dense model behind a stub
+vision frontend: ``vision_embeds`` (B, vision_len, d_model), precomputed
+patch embeddings, take the head of the sequence in front of the token
+embeddings (``_merge_vision``); the loss covers the text positions only,
+and prefill's ``len`` counts the vision positions, so decode continues
+after them.
 
 ``parallel.remat`` shapes ``loss`` as the reference's ``jax.checkpoint``
 of each scanned block does: ``full`` runs every block under
@@ -60,7 +68,7 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"transformer: family {cfg.family!r} is not ported "
             "(ROADMAP.md Queue 1: other families)")
@@ -69,6 +77,12 @@ def _check_ported(cfg: ModelConfig) -> None:
             "a local attention window on this family is not wired: none of "
             "its configs sets one (the flash kernels take it; the hybrid "
             "family's attention passes it)")
+
+
+def _merge_vision(x_tok: torch.Tensor, vision: torch.Tensor) -> torch.Tensor:
+    """VLM stub frontend: precomputed patch embeddings occupy the sequence
+    head."""
+    return torch.cat([vision.to(x_tok.dtype), x_tok], dim=1)
 
 
 def _block(cfg: ModelConfig, tiles: int, x, blk, positions, cache=None,
@@ -97,15 +111,29 @@ def make_cache_defs(cfg: ModelConfig):
     return cache_defs
 
 
-def input_specs(shape: ShapeConfig) -> dict:
-    """The token (and, training, label) inputs of a decoder-only LM."""
-    B, S = shape.global_batch, shape.seq_len
-    if shape.kind == "decode":
-        return {"tokens": TensorSpec((B, 1), torch.int32)}
-    specs = {"tokens": TensorSpec((B, S), torch.int32)}
-    if shape.kind == "train":
-        specs["labels"] = TensorSpec((B, S), torch.int32)
-    return specs
+def make_input_specs(cfg: ModelConfig):
+    """``ShapeConfig -> {name: TensorSpec}``: the token (and, training,
+    label) inputs of a decoder-only LM; a VLM's ``seq_len`` counts its
+    vision positions, given as bf16 ``vision_embeds``."""
+
+    def input_specs(shape: ShapeConfig) -> dict:
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": TensorSpec((B, 1), torch.int32)}
+        vlm = cfg.family == "vlm"
+        text = S - cfg.vision_len if vlm else S
+        if text < 1:
+            raise ValueError(f"{cfg.arch}: a sequence of {S} positions leaves no text "
+                             f"after the {cfg.vision_len} vision positions")
+        specs = {"tokens": TensorSpec((B, text), torch.int32)}
+        if vlm:
+            specs["vision_embeds"] = TensorSpec((B, cfg.vision_len, cfg.d_model),
+                                                torch.bfloat16)
+        if shape.kind == "train":
+            specs["labels"] = TensorSpec((B, text), torch.int32)
+        return specs
+
+    return input_specs
 
 
 def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
@@ -135,6 +163,8 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
 
     def backbone_inputs(params, batch):
         x = cm.embed(params["embed"], batch["tokens"], cfg)
+        if cfg.family == "vlm":
+            x = _merge_vision(x, batch["vision_embeds"])
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         return x, positions
@@ -158,6 +188,8 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
                 x = train_block(x, blk, positions)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg)
+        if cfg.family == "vlm":  # the loss covers the text positions only
+            lg = lg[:, cfg.vision_len:]
         return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
 
     @torch.no_grad()
@@ -199,5 +231,5 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         "prefill": prefill,
         "decode_step": decode_step,
         "cache_defs": make_cache_defs(cfg),
-        "input_specs": input_specs,
+        "input_specs": make_input_specs(cfg),
     }

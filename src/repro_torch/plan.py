@@ -32,10 +32,9 @@ For the same explicit ``HardwareSpec`` the port's plan is the reference's
 byte for byte (``to_json``; ``tests/test_torch_plan.py`` holds it across
 the reference's scenario grid). What differs: ``HardwareSpec.detect``
 probes ``torch.cuda`` (or the host with ``device="cpu"``), and the byte
-arithmetic walks the port's ``ParamDef`` trees, which exist for the dense,
-MoE, SSM and hybrid families (the fixed-state families' ``cache_defs`` size
-their serving state), so a plan for ``encdec`` or ``vlm`` raises until that
-family is ported (ROADMAP.md Queue 1 item 7).
+arithmetic walks the port's ``ParamDef`` trees of every family (the
+fixed-state families' ``cache_defs`` size their serving state, encdec's
+its decoder's and cross-attention caches).
 """
 from __future__ import annotations
 
@@ -277,10 +276,6 @@ def _param_defs(model: ModelConfig):
     from repro_torch.core import partition as pt
     from repro_torch.models import registry
 
-    if model.family not in registry.FAMILY_MODULES:
-        raise NotImplementedError(
-            f"plan: family {model.family!r} ({model.arch}) has no parameter "
-            f"defs in the port yet: {registry.NOT_PORTED.get(model.family, 'ROADMAP.md Queue 1')}")
     defs = registry.FAMILY_MODULES[model.family].param_defs(model)
     return defs, pt.tree_leaves(defs)
 

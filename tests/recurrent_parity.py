@@ -1,6 +1,6 @@
-"""Shared machinery of ``tests/test_torch_ssm.py`` and
-``tests/test_torch_hybrid.py``: the port's fixed-state families (mamba2,
-recurrentgemma) against the JAX package's, on the CPU. Not a test module;
+"""Shared machinery of ``tests/test_torch_{ssm,hybrid,vlm,encdec}.py``:
+the port's families added after the dense one (mamba2, recurrentgemma,
+llava, seamless) against the JAX package's, on the CPU. Not a test module;
 each test file calls these with its arch and states its tolerances.
 
 The bundles' weights are the reference's ``init`` carried across by
@@ -107,15 +107,22 @@ def torch_value_and_grad(fn, params, batch):
     return loss.detach(), dict(zip(paths, torch.autograd.grad(loss, leaves)))
 
 
-def loss_and_grads(bs, seed, Sn, act_rel, grad_rel):
-    """The bundle's loss and every gradient against the reference's."""
+def embeds(cfg, seed, shape) -> np.ndarray:
+    """Float model inputs (vision embeddings, frames): unit-normal * 0.1 in
+    f32, as the drivers draw them; each package casts them to bf16."""
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.1).astype(np.float32)
+
+
+def loss_and_grads(bs, seed, Sn, act_rel, grad_rel, extra=None):
+    """The bundle's loss and every gradient against the reference's;
+    ``extra`` adds numpy inputs beside the tokens and labels."""
     jcfg, jb, jparams, tb, tparams = bs
     toks, labels = tokens(jcfg, seed, Sn=Sn), tokens(jcfg, seed + 1, Sn=Sn)
-    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    lj, gj = jax.jit(jax.value_and_grad(jb.loss))(jparams, jbatch)
+    batch = {"tokens": toks, "labels": labels, **(extra or {})}
+    lj, gj = jax.jit(jax.value_and_grad(jb.loss))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     lt, gt = torch_value_and_grad(tb.loss, tparams,
-                                  {"tokens": torch.from_numpy(toks),
-                                   "labels": torch.from_numpy(labels)})
+                                  {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(lt), float(lj), rtol=act_rel)
     assert len(gt) == len(jax.tree.leaves(gj))
     for path, g in gt.items():
@@ -127,12 +134,14 @@ def cache_leaves(cache) -> dict:
     return {"/".join(p): tpt.tree_get(cache, p) for p in tpt.tree_paths(cache)}
 
 
-def remat_full_equals_none(tcfg, seed):
+def remat_full_equals_none(tcfg, seed, extra=None, Sn=16):
     """``remat="full"`` recomputes each checkpointed unit in backward to
-    the same loss and gradients, bit for bit."""
+    the same loss and gradients, bit for bit; ``extra`` adds numpy
+    inputs."""
     params = treg.build(tcfg).init(torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(tokens(tcfg, seed))
-    batch = {"tokens": toks, "labels": toks}
+    toks = torch.from_numpy(tokens(tcfg, seed, Sn=Sn))
+    batch = {"tokens": toks, "labels": toks,
+             **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
     out = {r: torch_value_and_grad(treg.build(tcfg, make_parallel("pjit", remat=r)).loss,
                                    params, batch) for r in ("none", "full")}
     assert torch.equal(out["none"][0], out["full"][0])
@@ -144,12 +153,13 @@ def remat_full_equals_none(tcfg, seed):
 # the GSPMD step in every one-card placement
 # ---------------------------------------------------------------------------
 
-def reference_run(arch, mesh) -> dict:
+def reference_run(arch, mesh, seq=S) -> dict:
     """The reference's ``InfinityExecutor(engine="pjit")`` with every state
-    on the device, ``STEPS`` steps. Every placement computes the same
-    function (the reference's own cross-tier tests hold its placements to
-    ``TIER_TOL`` of each other), so each of the port's placements is held
-    against this one run (a module-scoped fixture of each test file)."""
+    on the device, ``STEPS`` steps of ``B`` x ``seq``. Every placement
+    computes the same function (the reference's own cross-tier tests hold
+    its placements to ``TIER_TOL`` of each other), so each of the port's
+    placements is held against this one run (a module-scoped fixture of
+    each test file)."""
     jcfg = jconfigs.smoke(arch)
     jrun = JRun(model=jcfg, parallel=jmake_parallel("pjit", remat="none"),
                 offload=jmake_offload(), train=JTrain(lr=3e-3, warmup_steps=2))
@@ -157,7 +167,7 @@ def reference_run(arch, mesh) -> dict:
     jstate = jex.init_state(jax.random.PRNGKey(0))
     init = jax.tree.map(np.asarray, jstate["params"])
     stream = tpipe.SyntheticStream(
-        treg.build(tconfigs.smoke(arch)).input_specs(ShapeConfig("t", S, B, "train")),
+        treg.build(tconfigs.smoke(arch)).input_specs(ShapeConfig("t", seq, B, "train")),
         jcfg.vocab_size, seed=0)
     jstep, jm = jex.make_train_step(), []
     for i in range(STEPS):

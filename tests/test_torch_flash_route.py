@@ -50,12 +50,10 @@ def test_main_path_operands_take_the_tensor_cores(model, shape):
     assert tfa.tma_strides(q) == (q.shape[2] * H * D if B > 1 else 8, D, H * D)
 
 
-@pytest.mark.parametrize("model", MODELS)
-def test_attention_block_hands_the_kernels_views_they_route_to_the_tensor_cores(
-        model, monkeypatch):
-    """The operands ``models/common.attention_block`` really passes, forward
-    and (through the autograd Function) backward, at full width."""
-    cfg = configs.get(model)
+def _block_operands(cfg, monkeypatch, Sk=0):
+    """The flash operands ``attention_block`` passes, forward and backward,
+    on a (2, 24) input at full width; ``Sk`` > 0 cross-attends a memory of
+    Sk positions (``kv_source``)."""
     H, KV, D, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
     g = torch.Generator().manual_seed(0)
     p = {name: (torch.randn(*shape, generator=g) * 0.02).to(BF16).requires_grad_()
@@ -63,11 +61,13 @@ def test_attention_block_hands_the_kernels_views_they_route_to_the_tensor_cores(
                              ("wo", (H, D, d)))}
     B, S = 2, 24
     x = torch.randn(B, S, d, generator=g).to(BF16)
+    mem = torch.randn(B, Sk, d, generator=g).to(BF16) if Sk else None
     seen = {}
     real_fwd, real_bwd = ops.flash_attention, ref.attention_bwd_ref
 
     def fwd(q, k, v, **kw):
         seen["fwd"] = (q, k, v)
+        seen["causal"] = kw["causal"]
         return real_fwd(q, k, v, **kw)
 
     def bwd(q, k, v, o, lse, do, **kw):
@@ -76,11 +76,36 @@ def test_attention_block_hands_the_kernels_views_they_route_to_the_tensor_cores(
 
     monkeypatch.setattr(ops, "flash_attention", fwd)
     monkeypatch.setattr(ref, "attention_bwd_ref", bwd)
-    out, _ = tcm.attention_block(p, x, torch.arange(S).expand(B, S), cfg)
+    out, _ = tcm.attention_block(p, x, torch.arange(S).expand(B, S), cfg, kv_source=mem)
     out.float().square().sum().backward()
+    return seen
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_attention_block_hands_the_kernels_views_they_route_to_the_tensor_cores(
+        model, monkeypatch):
+    """The operands ``models/common.attention_block`` really passes, forward
+    and (through the autograd Function) backward, at full width."""
+    seen = _block_operands(configs.get(model), monkeypatch)
     assert tfa.route(*seen["fwd"]) == "wgmma"
     assert tfa.route(*seen["bwd"]) == "wgmma"
     assert seen["bwd"][3].stride(-1) == 1
+
+
+@pytest.mark.parametrize("model,Sk", [("llava-next-34b", 0), ("seamless-m4t-medium", 0),
+                                      ("seamless-m4t-medium", 96)])
+def test_the_vlm_and_encdec_blocks_hand_the_kernels_tensor_core_views(model, Sk, monkeypatch):
+    """llava's 56 query heads on 8 KV heads of 128, and seamless's 16 heads
+    of 64 in self-attention and cross-attending a memory four times the
+    queries' length (not causal, Sq != Sk), forward and backward."""
+    cfg = configs.get(model)
+    seen = _block_operands(cfg, monkeypatch, Sk)
+    q, k, _ = seen["fwd"]
+    assert q.shape[1:] == (cfg.n_heads, 24, cfg.resolved_head_dim)
+    assert k.shape[1:] == (cfg.n_kv_heads, Sk or 24, cfg.resolved_head_dim)
+    assert seen["causal"] == (Sk == 0)
+    assert tfa.route(*seen["fwd"]) == "wgmma"
+    assert tfa.route(*seen["bwd"]) == "wgmma"
 
 
 def test_what_tma_cannot_take_stays_on_the_cuda_cores():
@@ -140,6 +165,10 @@ def _tile_pairs(Sq, Sk, causal, rows, cols, by_keys=False, window=0):
     (3, 3, 1, 130, 130, True),      # one row past a tile
     (1, 4, 2, 96, 160, False),      # not causal
     (1, 2, 1, 1, 700, True),        # a single query row at the end of long keys
+    (1, 56, 8, 4096, 4096, True),   # llava-next-34b's training shape, n_rep 7
+    (8, 16, 16, 2048, 2048, False),  # seamless's encoder
+    (8, 16, 16, 512, 2048, False),  # seamless's cross-attention, Sq = Sk / 4
+    (2, 16, 16, 33, 130, False),    # ragged cross-attention
 ])
 def test_plan_grids_match_a_brute_force_count_heavy_blocks_first(B, H, KV, Sq, Sk, causal):
     p = tfa.plan(B, H, KV, Sq, Sk, causal=causal)

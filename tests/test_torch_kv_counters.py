@@ -6,7 +6,10 @@ tier. Every waiting sequence parks its whole cache, the ``len`` placeholder
 included, so the ``kv`` byte counters and the generated tokens agree with
 the reference's exactly, raw and under ``--kv-quant q8`` (whose wire frames
 carry the placeholder as raw bytes). Depth is cut as the family tests cut
-it: recurrentgemma at one group and its two-block tail (5 layers)."""
+it: recurrentgemma at one group and its two-block tail (5 layers). The
+prompt is 8 positions, 16 for llava and seamless (``PROMPT``); seamless's
+waiting caches park their decoder K/V in blocks and their cross-attention
+K/V whole, which is where padded and parked bytes would part."""
 import dataclasses
 
 import numpy as np
@@ -22,8 +25,13 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 
 ARGV = ["--smoke", "--batch", "5", "--kv-slots", "2", "--kv-tier", "host",
-        "--prompt-len", "8", "--new-tokens", "4"]
+        "--new-tokens", "4"]
 KV_KEYS = ("in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
+
+
+# llava's prompt holds its 8 vision positions and 8 tokens, seamless's
+# gives 16 frames and 4 decoder tokens
+PROMPT = {"llava-next-34b": 16, "seamless-m4t-medium": 16}
 
 
 @pytest.mark.parametrize("arch,layers,quant", [
@@ -32,9 +40,14 @@ KV_KEYS = ("in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
     ("mamba2-370m", 0, "none"),
     ("recurrentgemma-9b", 5, "none"),
     ("smollm-135m", 0, "q8"),
+    ("llava-next-34b", 0, "none"),
+    ("llava-next-34b", 0, "q8"),
+    ("seamless-m4t-medium", 0, "none"),
+    ("seamless-m4t-medium", 0, "q8"),
 ])
 def test_serve_kv_counters_and_tokens_equal_the_reference(monkeypatch, arch, layers, quant):
-    argv = ["--arch", arch, *ARGV, "--kv-quant", quant]
+    argv = ["--arch", arch, *ARGV, "--prompt-len", str(PROMPT.get(arch, 8)),
+            "--kv-quant", quant]
     if layers:
         cut = dataclasses.replace(jconfigs.smoke(arch), n_layers=layers)
         monkeypatch.setattr(jserve.configs, "smoke", lambda name: cut)

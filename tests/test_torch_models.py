@@ -262,10 +262,15 @@ def test_bundle_decode_steps_per_slot_lengths(smoke):
     np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
 
 
-def test_unported_families_raise_with_roadmap_pointer():
-    for arch in ("llava-next-34b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.build(tconfigs.smoke(arch))
+@pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)
+def test_every_arch_builds_with_the_references_param_counts(arch):
+    """Every config of the reference builds in the port, full and smoke,
+    with its parameter counts: all, and active (MoE's top-k of E)."""
+    for get in ("get", "smoke"):
+        jb = jreg.build(getattr(jconfigs, get)(arch))
+        tb = treg.build(getattr(tconfigs, get)(arch))
+        assert tb.n_params() == jb.n_params()
+        assert tb.n_params_active() == jb.n_params_active()
 
 
 @pytest.mark.parametrize("score_dtype", ["bfloat16", "float16"])

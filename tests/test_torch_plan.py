@@ -133,7 +133,8 @@ def test_kv_prefetch_blocks_equals_reference(block_bytes, step_flops, bw, peak):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b", "gemma-7b",
-                                  "mamba2-370m", "recurrentgemma-9b"])
+                                  "mamba2-370m", "recurrentgemma-9b", "llava-next-34b",
+                                  "seamless-m4t-medium"])
 @pytest.mark.parametrize("ctx", [16, 640, 32768])
 def test_sequence_kv_bytes_equals_reference(arch, ctx):
     assert tkv.sequence_kv_bytes(tconfigs.get(arch), ctx) == \
@@ -253,9 +254,22 @@ SCENARIOS = {
     "hybrid_h100_train": ("recurrentgemma-9b", (4096, 1, "train"),
                           dict(n_devices=1, device_mem=85e9, host_mem=103e9,
                                nvme_capacity=1e12), {}),
+    # the VLM and the encoder-decoder at the shapes chip_smoke serves and
+    # trains (llava cut to 8 and 2 layers there; its full depth here)
+    "vlm_h100_serve": ("llava-next-34b", (3088, 8, "decode"),
+                       dict(n_devices=1, device_mem=85e9, host_mem=103e9), {}),
+    "vlm_h100_train": ("llava-next-34b", (4096, 1, "train"),
+                       dict(n_devices=1, device_mem=85e9, host_mem=103e9,
+                            nvme_capacity=1e12), {}),
+    "encdec_h100_serve": ("seamless-m4t-medium", (2080, 8, "decode"),
+                          dict(n_devices=1, device_mem=85e9, host_mem=103e9), {}),
+    "encdec_h100_train": ("seamless-m4t-medium", (2048, 8, "train"),
+                          dict(n_devices=1, device_mem=85e9, host_mem=103e9,
+                               nvme_capacity=1e12), {}),
 }
 for _arch in ("smollm-135m", "llama3.2-3b", "gemma-7b", "granite-moe-1b-a400m",
-              "llama4-scout-17b-a16e", "mamba2-370m", "recurrentgemma-9b"):
+              "llama4-scout-17b-a16e", "mamba2-370m", "recurrentgemma-9b",
+              "llava-next-34b", "seamless-m4t-medium"):
     for _shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         for _hw_name, _hw in (("roomy", _ROOMY), ("nvme", _NVME),
                               ("one_h100", dict(n_devices=1, device_mem=85e9,
@@ -302,7 +316,8 @@ def test_lowered_run_config_equals_reference(name):
 @pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b", "gemma-7b",
                                   "nemotron-4-340b", "granite-moe-1b-a400m",
                                   "llama4-scout-17b-a16e", "mamba2-370m",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "llava-next-34b",
+                                  "seamless-m4t-medium"])
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
 @pytest.mark.parametrize("n_devices", [1, 16])
 def test_state_bytes_fields_equal_reference(arch, shape, n_devices):
@@ -341,19 +356,15 @@ def test_moe_zero3_override_without_nvme_params_raises_as_the_reference(arch, pa
     assert errs[0] == errs[1]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b", "llava-next-34b",
+                                  "seamless-m4t-medium"])
 def test_zero3_override_on_a_fixed_state_family_raises_as_the_reference(arch):
     """The explicit engine is dense/moe only: a plan override to zero3 on
-    mamba2 or recurrentgemma raises the reference's words."""
+    mamba2, recurrentgemma, llava or seamless raises the reference's
+    words."""
     errs = _bad_override_errors(arch, (4096, 256, "train"), {"engine": "zero3"},
                                 "dense/moe only")
     assert errs[0] == errs[1]
-
-
-@pytest.mark.parametrize("arch", ["llava-next-34b", "seamless-m4t-medium"])
-def test_families_without_port_defs_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        tplan.plan_run(tconfigs.get(arch), "train_4k", tplan.HardwareSpec(**_NVME))
 
 
 def test_save_load_and_summary(tmp_path):
