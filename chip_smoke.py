@@ -16,7 +16,11 @@ recurrentgemma-9b and mamba2-370m served, recurrentgemma at full width
 (5 layers) and full mamba2 trained under ``--plan auto``, then the VLM and
 the encoder-decoder: llava-next-34b at full width served (8 layers) and
 trained (2 layers), full seamless-m4t-medium served and trained, checks
-the outputs, and prints one JSON line per the contract below.
+the outputs, trains full seamless with every state class on NVMe through
+the GSPMD leaf scheduler under ``--plan auto --objective min_device_mem``
+and under each activation checkpoint policy (``none``, ``full``,
+``dots``) all on the device, and prints one JSON line per the contract
+below.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
@@ -169,10 +173,30 @@ Phases (any failure exits non-zero; no phase is caught):
       and cross-attention K/V parked whole; 4 steps of 8 x 2048 frames
       under ``--plan auto``: flash launched by the encoder, the decoder and
       the cross-attention in every step;
-  28. the kernels JSON line, then the device JSON line last.
+  28. the params on NVMe (the GSPMD leaf scheduler) and the activation
+      checkpoint policies, on seamless-m4t-medium: "gspmd numerics" in
+      ``NVME_PLACEMENTS`` (params on NVMe with the in-graph fused Adam;
+      every state class on NVMe under ``remat="dots"``), card against
+      phase 25's CPU run of seamless (the same weights and batches, all on
+      the device) at ``ENCDEC_NUMERICS_CUT`` by phase 11's bounds; "encdec
+      plan nvme":
+      full seamless, 2 steps of 8 x 2048 frames (~17 s each) under
+      ``--plan auto --objective min_device_mem``, which the planner
+      answers with the GSPMD engine and every state class on NVMe: each
+      step's param bytes
+      in and out equal the leaves' bytes, the gradients drained are the
+      f32 leaves' bytes, the optimizer moves what the plan predicts, the
+      residency flag holds, no fused Adam (the host Adam updates), the
+      device's busy share of the steps from a CUDA-only profile;
+      "encdec remat": full seamless all on the device, 3 steps of 8 x 2048
+      under ``none``, ``full`` and ``dots``: the first loss agrees, the
+      peak allocated memory is ordered none > dots > full, and ``dots``
+      launches the tiled matmul as ``none`` does and the flash forward as
+      ``full`` does;
+  29. the kernels JSON line, then the device JSON line last.
 
 In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18, 21, 22, 23, 26,
-27) each flash-attention launch, forward and backward (the recompute under
+27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
 (``*_wgmma``), none on ``simt``: the hybrid paths' flash launches too
@@ -336,10 +360,17 @@ TOL.update({
 # reference at 0.27 of it).
 TRAIN_TOL = {"rtol": 2e-3, "atol": 2e-3}
 # the GSPMD step's placements held card vs CPU (phase 11): (param, grad,
-# opt tier, remat); the params and masters by the bounds above
+# opt tier, remat); the params and masters by the bounds above. The first
+# three run on smollm; the params on NVMe through the leaf scheduler
+# (in-graph fused Adam, and every state class on NVMe under remat="dots")
+# run on seamless (phase 28)
 GSPMD_PLACEMENTS = {"in_graph": ("device", "device", "device", "none"),
                     "off_graph": ("device", "device", "nvme", "full"),
-                    "host": ("host", "device", "host", "full")}
+                    "host": ("host", "device", "host", "full"),
+                    "param_nvme": ("nvme", "device", "device", "none"),
+                    "all_nvme_dots": ("nvme", "nvme", "nvme", "dots")}
+SMOLLM_PLACEMENTS = ("in_graph", "off_graph", "host")
+NVME_PLACEMENTS = ("param_nvme", "all_nvme_dots")
 # the explicit engine's monolithic step held card vs CPU (phase 15): (param,
 # grad, opt tier, int8 compression); the flat and masters by the bounds
 # above. Under int8 the 'other' gradients cross a 127-level quantizer: an
@@ -1131,26 +1162,36 @@ def _gspmd_run(cfg, nvme_dir, steps, placement) -> RunConfig:
         train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
 
 
+# CPU sides of in-graph GSPMD runs kept for later placements of the same
+# model, cut, weights and batches: every placement computes the same
+# function, so a card run in another placement is held against them
+CPU_RUNS: dict = {}
+
+
 def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
                          layers: int = 2, B: int = 4, S: int = 256,
-                         tag: str = "gspmd numerics", cut: dict | None = None) -> dict:
+                         tag: str = "gspmd numerics", cut: dict | None = None,
+                         keep_cpu: bool = False, reuse_cpu: bool = False) -> dict:
     """Full-width ``arch`` cut to ``layers`` layers (or by the config fields
     in ``cut``): 2 steps of the GSPMD engine on the card (kernels) and on
     the CPU (plain versions), same weights and batches (B x S tokens), in
     one of ``GSPMD_PLACEMENTS``; loss and grad norm by ``TRAIN_TOL``, the
     f32 masters (in the state in-graph, read back from the optimizer store
     off-graph) by the drift bound, the params by it plus each side's bf16
-    rounding, their mean by 2^-5 * sum(lr)."""
+    rounding, their mean by 2^-5 * sum(lr). ``keep_cpu`` keeps the CPU
+    side in ``CPU_RUNS``; ``reuse_cpu`` holds the card against the kept
+    one instead of running the CPU again (its host Adam and NVMe traffic
+    would double the phase's time)."""
     cut = cut or {"n_layers": layers}
     cfg = dataclasses.replace(configs.get(arch), **cut)
     steps = 2
     base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{arch}_{placement}")
-    params0 = None
-    out = {}
-    for dev in ("cpu", "cuda"):
+    key = (arch, tuple(sorted(cut.items())), B, S)
+    params0 = registry.build(cfg).init(torch.Generator().manual_seed(SEED),
+                                       torch.device("cpu"))
+    out = {"cpu": CPU_RUNS[key]} if reuse_cpu else {}
+    for dev in [d for d in ("cpu", "cuda") if d not in out]:
         ex = InfinityExecutor(_gspmd_run(cfg, os.path.join(base, dev), steps, placement), dev)
-        if params0 is None:
-            params0 = ex.engine.init_params(torch.Generator().manual_seed(SEED))
         state = ex.reseed(ex.engine.adopt_params(params0))
         stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
                                  cfg.vocab_size, seed=SEED)
@@ -1165,10 +1206,13 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
                    {k: v for k, v in zip(pt.tree_paths(state["opt"].master),
                                          pt.tree_leaves(state["opt"].master))})
         masters = torch.cat([t.detach().float().cpu().reshape(-1) for t in masters.values()])
+        # NVMe-resident params are read back from the param store
         params = torch.cat([t.detach().float().cpu().reshape(-1)
-                            for t in pt.tree_leaves(state["params"])])
+                            for t in pt.tree_leaves(ex.checkpoint_state(state)["params"])])
         out[dev] = (traj, params, masters)
         ex.close()
+    if keep_cpu:
+        CPU_RUNS[key] = out["cpu"]
     (tc, p_c, m_c), (tg, p_g, m_g) = out["cpu"], out["cuda"]
     lrs = [t["lr"] for t in tc]
     drift = adam.parity_bound(TrainConfig(), lrs)
@@ -1176,6 +1220,7 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
     allowed = drift + 2**-8 * (p_c.abs() + p_g.abs())
     rec = {"arch": arch, "placement": placement,
            "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
+           "cpu_side": "in_graph, kept" if reuse_cpu else placement,
            "cut": cut, "n_params": registry.build(cfg).n_params(),
            "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
            "cpu": tc, "card": tg, "tol": TRAIN_TOL,
@@ -1902,6 +1947,185 @@ def phase_family_serve(tag: str, arch: str, prompt: int, new: int, layers: int =
     return rec, launches
 
 
+def step_launches(cfg, remat: str, steps: int) -> dict:
+    """The flash and tiled-matmul launches of ``steps`` training steps of
+    ``cfg`` under ``remat``: the flash forward once per attention layer
+    (twice where the backward recomputes it: ``full`` and ``dots``), its
+    backward once; each MLP product forward (again under ``full``; ``dots``
+    saves it), then dX and dW."""
+    A, P = attention_layers(cfg), mlp_products(cfg) if cfg.family in MLP_FAMILIES else 0
+    return {"flash_attention": (1 if remat == "none" else 2) * A * steps,
+            "flash_attention_bwd": A * steps,
+            "tiled_matmul": ((2 if remat == "full" else 1) + 2) * P * steps}
+
+
+def _busy_s(prof) -> float:
+    """Seconds in which the card ran any device-side event (kernels,
+    copies, sets) under ``prof``: the union of their intervals."""
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return trace._total(trace._merge(spans)) / 1e6
+
+
+def phase_plan_nvme(batch: int = 8, seq: int = 2048, steps: int = 2) -> tuple:
+    """``launch.train --plan auto --objective min_device_mem`` on full
+    seamless-m4t-medium at ``batch`` x ``seq`` frames on the detected card:
+    the planner gives the GSPMD engine with params, gradients and optimizer
+    states all on NVMe, so each step loads every leaf through the leaf
+    scheduler, runs the gradient step on the card, drains the f32
+    gradients, updates on the host (the streamed Adam) and writes the bf16
+    leaves back from the host. Counters zeroed just before and read just
+    after; the run under a CUDA-only profiler for the device's busy
+    seconds. Checks the plan, falling finite losses, each step's byte
+    counters against the leaves and the plan, the residency flag, the
+    launches the plan's remat gives (all on the tensor cores) and no fused
+    Adam; the fresh ``--nvme-dir`` is removed afterwards."""
+    tag = "encdec plan nvme"
+    cfg = configs.get(ENCDEC_ARCH)
+    nvme = os.path.join(ROOT, "build", "chip_smoke_encdec_plan_nvme")
+    shutil.rmtree(nvme, ignore_errors=True)
+    argv = ["--arch", ENCDEC_ARCH, "--plan", "auto", "--objective", "min_device_mem",
+            "--batch", str(batch), "--seq", str(seq), "--steps", str(steps), "--lr", "3e-3",
+            "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+    trace.enable()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        hist = train.train(train.build_argparser().parse_args(argv), argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    trace.disable()
+    trace.clear()
+    shutil.rmtree(nvme, ignore_errors=True)
+    busy_s = _busy_s(prof)
+    plan, run = hist["plan"], hist["run"]
+    say(f"{tag} plan: {plan.summary()}")
+    defs = pt.tree_leaves(registry.build(cfg).defs)
+    leaf_bytes = sum(math.prod(d.shape) * d.torch_dtype.itemsize for d in defs)
+    n_params = sum(math.prod(d.shape) for d in defs)
+    keep = ("param_in_bytes", "param_out_bytes", "param_total_bytes", "param_in_gbps",
+            "param_out_gbps", "grad_out_bytes", "grad_out_gbps", "opt_read_bytes",
+            "opt_write_bytes", "opt_read_gbps", "opt_write_gbps", "nvme_pinned_peak_bytes",
+            "peak_resident_param_bytes", "plan_peak_resident_param_bytes",
+            "plan_residency_ok", "plan_param_step_bytes", "plan_grad_step_bytes",
+            "plan_opt_step_bytes", "trace_wall_s", "trace_compute_s", "trace_io_wait_s",
+            "trace_other_s")
+    for m in hist["metrics"]:
+        say(f"{tag} step:", json.dumps({
+            "step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"], "lr": m["lr"],
+            "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"],
+            "param_in_plus_out_bytes": m["param_in_bytes"] + m["param_out_bytes"],
+            **{k: m[k] for k in keep if k in m}}))
+    losses = hist["losses"]
+    step_walls = [m["step_time"] for m in hist["metrics"]]
+    rec = {"argv": " ".join(argv), "wall_s": wall, "launches": launches,
+           "plan": {"engine": plan.engine, "tiers": plan.tiers, "remat": plan.remat,
+                    "window": plan.prefetch_layers, "read_ahead": plan.read_ahead,
+                    "pinned_buffer_mb": plan.pinned_buffer_mb, "feasible": plan.feasible,
+                    "device_mem": plan.hardware.device_mem,
+                    "host_mem": plan.hardware.host_mem,
+                    "nvme_capacity": plan.hardware.nvme_capacity,
+                    "warnings": list(plan.warnings)},
+           "first_loss": losses[0], "last_loss": losses[-1], "n_params": n_params,
+           "leaf_bytes": leaf_bytes, "step_walls_s": step_walls,
+           "median_step_s": statistics.median(step_walls),
+           "median_tokens_per_s": batch * seq / statistics.median(step_walls),
+           "device_busy_s": busy_s, "device_busy_share_of_steps": busy_s / sum(step_walls),
+           "nvme_pinned_peak_bytes": max(m["nvme_pinned_peak_bytes"] for m in hist["metrics"]),
+           "nvme_stats": hist["nvme_stats"]}
+    say(f"{tag}:", json.dumps(rec))
+    if not (plan.engine == "pjit" and plan.feasible
+            and (plan.param_tier, plan.grad_tier, plan.opt_tier) == ("nvme", "nvme", "nvme")):
+        raise SystemExit(f"FAIL {tag}: the planner gave {plan.summary()}; this phase runs "
+                         "the GSPMD engine with every state class on NVMe")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
+    for m in hist["metrics"]:
+        moved = m["opt_read_bytes"] + m["opt_write_bytes"]
+        if not (m["param_in_bytes"] == m["param_out_bytes"] == m["param_total_bytes"]
+                == leaf_bytes and m["grad_out_bytes"] == 4 * n_params
+                and moved == m["plan_opt_step_bytes"] and m["plan_residency_ok"] is True):
+            raise SystemExit(f"FAIL {tag}: step {m['step']}: param in/out/total "
+                             f"{m['param_in_bytes']}/{m['param_out_bytes']}/"
+                             f"{m['param_total_bytes']} (leaves {leaf_bytes}), grad out "
+                             f"{m['grad_out_bytes']} (f32 {4 * n_params}), opt {moved} (plan "
+                             f"{m['plan_opt_step_bytes']}), residency ok "
+                             f"{m.get('plan_residency_ok')}")
+    want = dict(step_launches(cfg, plan.remat, steps), fused_adam=0)
+    for name, n in want.items():
+        if launches[name] != n:
+            raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} times; want {n}")
+    check_main_path_routes(tag, launches)
+    return rec, launches
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def phase_encdec_remat(batch: int = 8, seq: int = 2048, steps: int = 3) -> dict:
+    """Full seamless-m4t-medium, every state on the device, ``steps`` GSPMD
+    steps of ``batch`` x ``seq`` frames under each activation checkpoint
+    policy from the same weights and batches. Counters zeroed just before
+    each policy's steps and read just after; the peak of
+    ``torch.cuda.max_memory_allocated`` over them. Fails unless the first
+    step's loss agrees across the policies by ``TRAIN_TOL``, the peaks are
+    ordered none > dots > full, and each policy launches what
+    ``step_launches`` gives (``dots``: the tiled matmul as under ``none``,
+    flash forward as under ``full``), all on the tensor cores."""
+    tag = "encdec remat"
+    cfg = configs.get(ENCDEC_ARCH)
+    dev = torch.device("cuda")
+    params0 = registry.build(cfg).init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    stream = SyntheticStream(registry.build(cfg).input_specs(
+        ShapeConfig("r", seq, batch, "train")), cfg.vocab_size, seed=SEED)
+    out, paths = {}, {}
+    for policy in REMAT_POLICIES:
+        run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat=policy),
+                        train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+        ex = InfinityExecutor(run, dev)
+        state = ex.reseed(ex.engine.adopt_params({k: v for k, v in params0.items()}))
+        step = ex.make_train_step()
+        batches = [{k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+                   for i in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, walls = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ex.close()
+        del ex, state, step, batches
+        torch.cuda.empty_cache()
+        rec = {"policy": policy, "losses": losses, "step_ms": [w * 1e3 for w in walls],
+               "median_step_ms_after_first": statistics.median(walls[1:]) * 1e3,
+               "peak_allocated_gb": peak / 1e9, "launches": launches}
+        say(f"{tag}:", json.dumps(rec))
+        out[policy], paths[policy] = rec, launches
+        for name, n in step_launches(cfg, policy, steps).items():
+            if launches[name] != n:
+                raise SystemExit(f"FAIL {tag} ({policy}): {name} launched "
+                                 f"{launches[name]} times; want {n}")
+        check_main_path_routes(f"{tag} ({policy})", launches)
+    first = out["none"]["losses"][0]
+    for policy in REMAT_POLICIES:
+        got = out[policy]["losses"][0]
+        if not abs(got - first) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(first):
+            raise SystemExit(f"FAIL {tag}: step-1 loss {got} under {policy} vs {first} "
+                             "under none")
+    peaks = [out[p]["peak_allocated_gb"] for p in ("none", "dots", "full")]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        raise SystemExit(f"FAIL {tag}: peak allocated none/dots/full {peaks} GB; want "
+                         "none > dots > full")
+    return out, paths
+
+
 def count_hgmma(name: str) -> int:
     """Warpgroup MMA instructions (HGMMA) in a built kernel library, read
     with the toolkit's cuobjdump; fails when there are none."""
@@ -1967,7 +2191,7 @@ def main() -> int:
     phase_train_numerics("q8")
     train_rec, train_launches = phase_train_main()
     q8_rec, q8_launches = phase_train_main("q8")
-    gspmd = {p: phase_gspmd_numerics(p) for p in GSPMD_PLACEMENTS}
+    gspmd = {p: phase_gspmd_numerics(p) for p in SMOLLM_PLACEMENTS}
     plan_rec, plan_launches = phase_plan_train("plan train", [])
     offload_rec, offload_launches = phase_plan_train(
         "plan offload", ["--hw-device-mem", OFFLOAD_DEVICE_MEM])
@@ -1998,7 +2222,7 @@ def main() -> int:
     for name, recs in phase_family_kernels().items():
         train_checks[name] += recs
     family = {arch: phase_gspmd_numerics("in_graph", arch, B=B, S=S, tag="family numerics",
-                                         cut=cut)
+                                         cut=cut, keep_cpu=arch == ENCDEC_ARCH)
               for arch, cut, B, S in ((ENCDEC_ARCH, ENCDEC_NUMERICS_CUT, 2, 256),
                                       (VLM_ARCH, VLM_NUMERICS_CUT, 1, 160))}
     vlm_serve_rec, vlm_serve_launches = phase_family_serve(
@@ -2009,6 +2233,11 @@ def main() -> int:
         "encdec serve", ENCDEC_ARCH, 2048, 32)
     encdec_train_rec, encdec_train_launches = phase_plan_train(
         "encdec plan train", [], arch=ENCDEC_ARCH, batch=8, seq=2048)
+    nvme_numerics = {p: phase_gspmd_numerics(p, ENCDEC_ARCH, B=2, S=256, tag="gspmd numerics",
+                                             cut=ENCDEC_NUMERICS_CUT, reuse_cpu=True)
+                     for p in NVME_PLACEMENTS}
+    plan_nvme_rec, plan_nvme_launches = phase_plan_nvme()
+    remat_recs, remat_launches = phase_encdec_remat()
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -2055,7 +2284,9 @@ def main() -> int:
              "ssm_serve": ssm_serve_launches, "ssm_plan_train": ssm_train_launches,
              "vlm_serve": vlm_serve_launches, "vlm_plan_train": vlm_train_launches,
              "encdec_serve": encdec_serve_launches,
-             "encdec_plan_train": encdec_train_launches}
+             "encdec_plan_train": encdec_train_launches,
+             "encdec_plan_nvme": plan_nvme_launches,
+             **{f"encdec_remat_{p}": c for p, c in remat_launches.items()}}
     kernels = []
     for name in sources:
         recs = checks.get(name, []) + train_checks.get(name, [])
@@ -2127,7 +2358,14 @@ def main() -> int:
         f"{encdec_serve_rec['decode_tok_s']:.0f} decode tok/s, TTFT p50 "
         f"{encdec_serve_rec['ttft_p50_s']:.3f} s; encdec plan train "
         f"{encdec_train_rec['first_loss']:.4f} -> {encdec_train_rec['last_loss']:.4f} at "
-        f"{encdec_train_rec['median_tokens_per_s_after_first']:.0f} tok/s)")
+        f"{encdec_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; gspmd numerics "
+        f"on NVMe params "
+        f"{max(r['params_worst_diff_over_bound'] for r in nvme_numerics.values()):.3f} of "
+        f"bound; encdec plan nvme {plan_nvme_rec['first_loss']:.4f} -> "
+        f"{plan_nvme_rec['last_loss']:.4f} at {plan_nvme_rec['median_step_s']:.2f} s/step, "
+        f"busy {plan_nvme_rec['device_busy_share_of_steps']:.3f}; encdec remat peak GB "
+        + ", ".join(f"{p} {r['peak_allocated_gb']:.2f}" for p, r in remat_recs.items())
+        + ")")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

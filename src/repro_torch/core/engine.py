@@ -38,6 +38,7 @@ import torch
 from repro_torch.config import RunConfig, ShapeConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import registry
+from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam
 
 
@@ -135,6 +136,13 @@ class ZeroInfinityEngine:
                 lambda tree: pt.tree_map(lambda t: t.to(self.device), tree))
             out["opt"] = adam.AdamState(opt.step.to(self.device), *(move(t) for t in opt[1:]))
         return out
+
+    def param_specs(self) -> dict:
+        """The params' tree of ``TensorSpec`` (shape, dtype): what stands
+        in the state for leaves that live in the executor's param store
+        (``param_tier="nvme"``), and what their bytes are counted from."""
+        return pt.tree_map(lambda d: TensorSpec(tuple(d.shape), d.torch_dtype),
+                           self.bundle.defs)
 
     def host_ready(self) -> None:
         """Wait for the last step's write-backs into the pinned host tier."""

@@ -5,7 +5,8 @@ tiers — the subset of ``repro/core/executor.py`` that one card runs.
 the executor drives the configured placement of each state class:
 
   * the GSPMD engine (``--engine pjit``, ``core/engine.py``) with params on
-    the device or host tier, and the explicit engine's monolithic step
+    the device, host or NVMe tier (below), and the explicit engine's
+    monolithic step
     (``--engine zero3`` with params on the device or host tier,
     ``core/zero.py``). With the optimizer in-graph (device or host tier,
     gradients on the device) the engine's step is the executor's step.
@@ -20,6 +21,22 @@ the executor drives the configured placement of each state class:
     is a host float from the same ``lr_at`` arithmetic;
   * the explicit engine's layered ZeRO-3 epoch (``--engine zero3
     --offload-param nvme``, below).
+
+The GSPMD leaf scheduler (``--engine pjit --offload-param nvme``): the
+param store holds every leaf whole, under its ``keystr`` name, and the
+state carries the engine's ``param_specs`` placeholders in its place.
+Each step (``_instrumented``) loads the leaves through the same
+``LayerSchedule`` / ``PrefetchEngine`` the layered epoch uses, one leaf a
+unit (window ``prefetch_layers or max(2, read_ahead)``): a leaf goes to
+the device through a pinned pool buffer as it lands and its host copy is
+evicted at once. The engine's step then runs as on the device tier: the
+in-graph update (fused Adam on the device) or the off-graph one. Its new
+params go back to the store: from the device behind an event recorded
+after the update's kernels, or, off-graph, from the host Adam's f32
+masters rounded to the leaves' dtype on the host (never a round trip
+through the card); then the state drops them to placeholders again.
+Under ``param_quant`` the store encodes on write and decodes on read, as
+the reference's. Each leaf crosses the tier once a step each way.
 
 Checkpoint views (``checkpoint_state``, ``portable_state``,
 ``adopt_state``) are the reference's: the full state with the layered
@@ -80,7 +97,8 @@ What stays unported raises, naming its ROADMAP item (``check_ported``).
 Per-step metrics of the off-graph and layered steps are the reference's:
 loss, grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
 ``grad_out``, ``opt_read/write``; ``*_bytes`` logical, ``*_wire_bytes``
-what crossed the tier), scheduler residency (layered), the tracer's stall
+what crossed the tier), scheduler residency and ``param_total_bytes``
+(wherever params live on NVMe), the tracer's stall
 attribution (``trace_*``) when tracing is on, and, for an executor built
 from an ``InfinityPlan`` (``plan=``), the plan's predictions beside them
 (``plan_*``). The fully in-graph step returns loss, grad_norm and lr.
@@ -115,12 +133,7 @@ def check_ported(run: RunConfig, n_devices: int = 1) -> None:
     if n_devices > 1:
         raise NotImplementedError(
             f"{n_devices} devices: the port runs one (ROADMAP.md Queue 1 "
-            "item 8: meshes larger than one device)")
-    if run.parallel.engine == "pjit" and run.offload.param_tier == "nvme":
-        raise NotImplementedError(
-            "--engine pjit with NVMe params (the GSPMD leaf scheduler) is not "
-            "ported; pass --engine zero3 for the layered epoch (ROADMAP.md "
-            "Queue 1 item 8)")
+            "item 8b: meshes larger than one device)")
 
 
 def make_engine(run: RunConfig, device):
@@ -149,7 +162,8 @@ class InfinityExecutor:
     ``state`` is the explicit engine's with the ``flat`` rows dropped to a
     ``TensorSpec`` placeholder once the stores are seeded (``reseed``); on
     the GSPMD engine it is ``{"params"}``, plus ``{"opt"}`` while the
-    optimizer is in-graph.
+    optimizer is in-graph, the params a tree of ``TensorSpec`` while they
+    live on NVMe.
     """
 
     def __init__(self, run: RunConfig, device="cuda", *, engine=None, plan=None):
@@ -164,9 +178,11 @@ class InfinityExecutor:
         # explicit-engine MoE: expert rows are schedule units of their own
         self.is_moe = bool(getattr(self.engine, "is_moe", False))
         off = run.offload
-        # the layered epoch: the explicit engine with params on NVMe; with
-        # params on the device or host tier it takes the monolithic step
-        self.layered = self.explicit and off.param_tier == "nvme"
+        # params on NVMe: the layered epoch on the explicit engine (with
+        # params on the device or host tier it takes the monolithic step),
+        # the leaf scheduler around the step on the GSPMD engine
+        self.param_nvme = off.param_tier == "nvme"
+        self.layered = self.explicit and self.param_nvme
         if self.layered and run.parallel.partition_mode != "allgather":
             raise ValueError(
                 "param_tier='nvme' on the explicit engine requires "
@@ -187,8 +203,10 @@ class InfinityExecutor:
         # page-locked where it feeds the card
         self._pool = PinnedBufferPool(off.pinned_buffer_mb << 20,
                                       pin=self.device.type == "cuda")
-        self._stager = (PinnedStager(self._pool, self.engine.layer_row_device())
-                        if self.layered else None)
+        self._stager = None
+        if self.param_nvme:
+            self._stager = PinnedStager(self._pool, self.engine.layer_row_device()
+                                        if self.layered else self.device)
         self.opt_store: Optional[ArrayStore] = None
         self.grad_store: Optional[ArrayStore] = None
         self.param_store: Optional[ArrayStore] = None
@@ -251,10 +269,12 @@ class InfinityExecutor:
         """(Re)populate the stores from ``state`` (m, v restart at zero).
         GSPMD engine: an off-graph optimizer's store is seeded from the
         params, leaf by leaf under their ``keystr`` names in tree order;
-        the state returns as it is. Layered epoch: the state returns with
-        ``flat`` dropped to a placeholder, and the opt store is seeded in
-        backward order, the order the reversed pass emits the rows'
-        gradients."""
+        with params on NVMe the param store takes every leaf whole under
+        the same names and the state returns with ``params`` dropped to
+        the placeholder tree, else as it is. Layered epoch: the state
+        returns with ``flat`` dropped to a placeholder, and the opt store
+        is seeded in backward order, the order the reversed pass emits the
+        rows' gradients."""
         off = self.run.offload
         if not self.layered:
             if self.offgraph:
@@ -269,6 +289,10 @@ class InfinityExecutor:
                 self.offload.step_count = step
             if self.grad_offload and self.grad_store is None:
                 self.grad_store = self._make_store(off.grad_tier, "grad")
+            if self.param_nvme:
+                self._seed_param_stream(flatten_with_paths(state["params"]),
+                                        row_split=False)
+                state = self._drop_params(state)
             return state
         keys = ("flat", "eflat") if self.is_moe else ("flat",)
         if any(isinstance(state[k], TensorSpec) for k in keys):
@@ -292,26 +316,43 @@ class InfinityExecutor:
         self.offload.step_count = step
         if self.grad_offload and self.grad_store is None:
             self.grad_store = self._make_store(off.grad_tier, "grad")
-        if self.param_store is None:
-            self.param_store = self._make_store("nvme", "param")
-        self.param_stream = ParamStreamer(self.param_store,
-                                          read_ahead=off.param_read_ahead)
         named = {"rank0": flat}
         if eflat is not None:
             named["xrank0"] = eflat
-        self.param_stream.seed(named, row_split=True)
-        return self._drop_rows(state)
+        self._seed_param_stream(named, row_split=True)
+        return self._drop_params(state)
 
-    def _drop_rows(self, state: dict) -> dict:
+    def _seed_param_stream(self, named: Dict[str, torch.Tensor], *, row_split: bool) -> None:
+        if self.param_store is None:
+            self.param_store = self._make_store("nvme", "param")
+        self.param_stream = ParamStreamer(self.param_store,
+                                          read_ahead=self.run.offload.param_read_ahead)
+        self.param_stream.seed(named, row_split=row_split)
+
+    def _drop_params(self, state: dict) -> dict:
+        """``state`` with its store-resident params (the layered epoch's
+        rows, the GSPMD engine's leaves) as placeholders."""
         state = dict(state)
+        if not self.explicit:
+            state["params"] = self._param_placeholder()
+            return state
         state["flat"] = self._param_placeholder()
         if self.is_moe:
             state["eflat"] = self._eflat_placeholder()
         return state
 
-    def _param_placeholder(self) -> TensorSpec:
+    def _param_placeholder(self):
+        """The layered epoch's (L, P) row spec, or the GSPMD engine's tree
+        of leaf specs."""
+        if not self.explicit:
+            return self.engine.param_specs()
         return TensorSpec((self.engine.n_layers, self.engine.layout.padded),
                           torch.bfloat16)
+
+    @staticmethod
+    def _is_dropped(tree) -> bool:
+        leaves = pt.tree_leaves(tree)
+        return bool(leaves) and isinstance(leaves[0], TensorSpec)
 
     def _eflat_placeholder(self) -> TensorSpec:
         eng = self.engine
@@ -320,10 +361,14 @@ class InfinityExecutor:
 
     @property
     def total_param_bytes(self) -> int:
-        """Bytes of all scheduler-managed rows (the never-fully-resident
-        claim's denominator); 0 where no param is slow-tier resident."""
-        if not self.layered:
+        """Bytes of all scheduler-managed rows or leaves (the never-fully-
+        resident claim's denominator); 0 where no param is slow-tier
+        resident."""
+        if not self.param_nvme:
             return 0
+        if not self.explicit:
+            return sum(math.prod(s.shape) * s.dtype.itemsize
+                       for s in pt.tree_leaves(self._param_placeholder()))
         return self.engine.n_layers * self.engine.layout.padded * 2 + self.expert_total_bytes
 
     @property
@@ -353,19 +398,29 @@ class InfinityExecutor:
         """The (L, P) bf16 dense rows assembled from the param store."""
         return self.materialize_rows()["flat"]
 
+    def materialize_params(self) -> dict:
+        """The GSPMD engine's param tree assembled from the param store, on
+        the CPU — for checks and checkpoints; the step never calls it."""
+        return _unflatten_like(self._param_placeholder(), self.param_stream.load_all())
+
     # ------------------------------------------------------------------
     # tier-independent checkpoint views
     # ------------------------------------------------------------------
 
     def checkpoint_state(self, state: dict) -> dict:
-        """``state`` with the layered epoch's placeholder rows materialized
-        from the param store: what the full-state checkpoint persists. Waits
-        for the pinned host tier's write-backs first, so a snapshot reads
-        the last step's values."""
+        """``state`` with its placeholder params (the layered epoch's rows,
+        the GSPMD engine's leaves) materialized from the param store: what
+        the full-state checkpoint persists. Waits for the pinned host
+        tier's write-backs first, so a snapshot reads the last step's
+        values."""
         self.wait_host()
-        if self.layered and isinstance(state["flat"], TensorSpec):
-            state = dict(state)
+        if not self.param_nvme:
+            return state
+        state = dict(state)
+        if self.explicit and isinstance(state["flat"], TensorSpec):
             state.update(self.materialize_rows())
+        elif not self.explicit and self._is_dropped(state["params"]):
+            state["params"] = self.materialize_params()
         return state
 
     def portable_state(self, state: dict) -> dict:
@@ -408,8 +463,11 @@ class InfinityExecutor:
             if self.layered:
                 self._step_fn = (self._layered_moe_step() if self.is_moe
                                  else self._layered_step())
-            elif not self.offgraph:
+            elif not self.offgraph and not self.param_nvme:
                 self._step_fn = self.engine.make_train_step()  # fully in-graph
+            elif not self.offgraph:
+                # the in-graph update on the device; only the params stream
+                self._step_fn = self._instrumented(self.engine.make_train_step())
             else:
                 grads_step = self.engine.make_train_step(grads_only=True)
                 self._step_fn = self._instrumented(
@@ -422,13 +480,21 @@ class InfinityExecutor:
     # ------------------------------------------------------------------
 
     def _instrumented(self, inner):
-        """A step with per-step per-tier bandwidth metrics around it."""
+        """A step with param streaming (NVMe-resident leaves: loaded before,
+        written back and dropped after) and per-step per-tier bandwidth
+        metrics around it."""
 
         def step(state, batch):
             self._trace_step_begin()
             marks = {name: s.mark() for name, s in self._active_stores()}
+            if self.param_nvme:
+                self._ws.begin_step()
+                state = self._load_params(state)
             with trace.span("train_step", sys="compute", attr="compute"):
                 new_state, metrics = inner(state, batch)
+            if self.param_nvme:
+                self._save_params(new_state)
+                new_state = self._drop_params(new_state)
             if self.grad_store is not None:
                 self.grad_store.flush()  # retire this step's drain futures
             return new_state, self._with_tier_metrics(metrics, marks)
@@ -477,10 +543,13 @@ class InfinityExecutor:
                                          beta2=tc.beta2, eps=tc.eps,
                                          weight_decay=tc.weight_decay)
             # the update consumed every gradient, so the step's reads of the
-            # params are done: a pinned host leaf may take its new value
+            # params are done: a pinned host leaf may take its new value.
+            # NVMe-resident leaves stay on the host, rounded there, for the
+            # param store
             new_state = dict(state)
-            new_state["params"] = _unflatten_like(state["params"], new_flat,
-                                                  in_place=param_host)
+            new_state["params"] = _unflatten_like(
+                state["params"], new_flat, in_place=param_host,
+                device="cpu" if self.param_nvme else None)
             return new_state, dict(metrics, lr=lr)
 
         return step
@@ -495,6 +564,56 @@ class InfinityExecutor:
         ready = self._ready_event()
         return {k: self.grad_store.roundtrip(f"{k}/g", g, ready=ready)
                 for k, g in gflat.items()}
+
+    def _ensure_leaf_scheduler(self):
+        """The GSPMD engine's leaves under the layered epoch's scheduler,
+        one leaf a unit: at most ``window`` staged on the host at once while
+        the rest are in flight or already on the device; rebuilt when
+        ``reseed`` swapped the streamer."""
+        if self._sched is None or self._pe_stream is not self.param_stream:
+            off = self.run.offload
+            stream = self.param_stream
+            names = stream.names()
+            window = off.prefetch_layers or max(2, off.param_read_ahead)
+
+            def fetch(i):
+                return [stream.read_row(names[i], 0)]
+
+            self._sched = sched_mod.LayerSchedule(len(names), window,
+                                                  read_ahead=off.param_read_ahead)
+            self._pe = sched_mod.PrefetchEngine(fetch, self._ws, trace_cls="param")
+            self._pe_stream = stream
+        return self.param_stream.names(), self._sched, self._pe
+
+    def _load_params(self, state: dict) -> dict:
+        """``state`` with its params loaded from the store through the leaf
+        scheduler: each leaf to the device as it lands (a pinned pool
+        buffer, released before the next read is awaited, so the pool
+        bounds the staging), its host copy evicted at once."""
+        names, sched, pe = self._ensure_leaf_scheduler()
+        host: Dict[int, torch.Tensor] = {}
+        on_device: Dict[str, torch.Tensor] = {}
+
+        def use(i):
+            with trace.span("h2d_leaf", sys="store", cls="param"):
+                on_device[names[i]] = self._stager.to_device(host[i])
+                self._stager.retire(wait=True)
+
+        pe.run_events(sched.forward(),
+                      on_materialize=lambda i, vals: host.__setitem__(i, vals[0]),
+                      on_use=use,
+                      on_evict=lambda i: host.pop(i, None))
+        state = dict(state)
+        state["params"] = _unflatten_like(state["params"], on_device)
+        return state
+
+    def _save_params(self, new_state: dict) -> None:
+        """The step's updated params back to the param store: device leaves
+        copied off after an event behind the update's kernels, host leaves
+        as they are."""
+        with trace.span("param_writeback", sys="optim", attr="io_wait", cls="param"):
+            self.param_stream.save_all(flatten_with_paths(new_state["params"]),
+                                       ready=self._ready_event())
 
     def _ensure_row_scheduler(self, batch):
         """Plan + prefetcher over the rows; rebuilt when ``reseed`` swapped
@@ -909,7 +1028,7 @@ class InfinityExecutor:
         out["nvme_bytes_read"] = nvme["bytes_read"]
         out["nvme_bytes_written"] = nvme["bytes_written"]
         out["nvme_pinned_peak_bytes"] = self._pool.peak_resident
-        if self.layered:  # scheduler residency
+        if self.param_nvme:  # scheduler residency
             out.update(self._ws.stats())
             out["param_total_bytes"] = self.total_param_bytes
         return self._with_plan_crosscheck(self._with_trace_attribution(out))
@@ -974,17 +1093,20 @@ class InfinityExecutor:
 
 
 def _unflatten_like(like: dict, flat: Dict[str, torch.Tensor], *,
-                    in_place: bool = False) -> dict:
+                    in_place: bool = False, device=None) -> dict:
     """``flat`` (``keystr`` name -> tensor) as a nested dict shaped like
-    ``like``, each leaf cast to ``like``'s dtype on its device; with
-    ``in_place`` written into ``like``'s own tensors (the pinned host
-    tier keeps its residency)."""
+    ``like`` (tensors or ``TensorSpec``), each leaf cast to ``like``'s
+    dtype (round to nearest even) on ``device``, by default the device of
+    ``like``'s tensor (of ``flat``'s where ``like`` holds a spec); with
+    ``in_place`` written into ``like``'s own tensors (the pinned host tier
+    keeps its residency)."""
     out: dict = {}
     for path in pt.tree_paths(like):
         leaf, new = pt.tree_get(like, path), flat[keystr(path)]
         if in_place:
             leaf.copy_(new)
         else:
-            leaf = new.to(dtype=leaf.dtype).to(leaf.device)
+            dev = device or getattr(leaf, "device", new.device)
+            leaf = new.to(dtype=leaf.dtype).to(dev)
         pt.tree_set(out, path, leaf)
     return out

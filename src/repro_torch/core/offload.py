@@ -230,15 +230,17 @@ class ArrayStore:
 
     # -- async API ----------------------------------------------------------
 
-    def write(self, key: str, t: torch.Tensor) -> Future:
+    def write(self, key: str, t: torch.Tensor, ready=None) -> Future:
         """Async write. ``t`` may be a CUDA tensor: the device->host copy
-        runs on the worker thread, not the caller. The caller must not write
-        into ``t`` until the future resolves (``flush``)."""
+        runs on the worker thread, not the caller, after ``ready`` (an
+        event recorded behind the kernels that produce ``t``) completes.
+        The caller must not write into ``t`` until the future resolves
+        (``flush``)."""
         if not self.overlap:
             f: Future = Future()
-            f.set_result(self._traced_write(key, t))
+            f.set_result(self._traced_write(key, t, ready))
             return f
-        fut = self._pool_exec.submit(self._traced_write, key, t)
+        fut = self._pool_exec.submit(self._traced_write, key, t, ready)
         self._pending.append(fut)
         return fut
 
@@ -538,9 +540,12 @@ class ParamStreamer:
     """Slow-tier-resident parameters, one chunk per row.
 
     Each named (L, P) array is stored as L rows, ``f"{name}/c{i}"``
-    (``row_split=True``; a 1-D array is one chunk). The per-row API
-    (``read_row`` / ``write_row``) is the layer scheduler's I/O backend;
-    ``load_all`` reassembles the arrays (checkpoint paths only).
+    (``row_split=True``; a 1-D array is one chunk), or whole, as one chunk
+    (``row_split=False``: the GSPMD engine's parameter leaves, named by
+    ``keystr`` in tree order). The per-row API (``read_row`` /
+    ``write_row`` / ``names``) is the layer and leaf schedulers' I/O
+    backend; ``save_all`` writes every array back, and ``load_all``
+    reassembles them (checkpoint paths only).
     """
 
     def __init__(self, store: ArrayStore, read_ahead: int = 2):
@@ -576,6 +581,21 @@ class ParamStreamer:
                 results[name].append(fut.result())
         return {name: torch.stack(results[name]) if split else results[name][0]
                 for name, (_, split) in self._layout.items()}
+
+    def save_all(self, named: Dict[str, torch.Tensor], ready=None) -> None:
+        """Write every named array back, chunked as it was seeded, and
+        commit. A CUDA array is copied off the card on a store worker
+        after ``ready`` (an event behind the kernels that wrote it)."""
+        for name, arr in named.items():
+            n, split = self._layout[name]
+            chunks = [arr[i] for i in range(n)] if split else [arr]
+            for i, c in enumerate(chunks):
+                self.store.write(f"{name}/c{i}", c, ready=ready)
+        self.store.flush()
+
+    def names(self) -> List[str]:
+        """The seeded arrays' names, in seeding order."""
+        return list(self._layout)
 
     def read_row(self, name: str, i: int, wire: bool = False) -> Future:
         """Async read of one row — the fetch the ``PrefetchEngine`` submits

@@ -403,7 +403,10 @@ class QuantizedArrayStore:
             sp.set(wire_bytes=wire.numel())
         return wire
 
-    def write(self, key: str, t: torch.Tensor) -> Future:
+    def write(self, key: str, t: torch.Tensor, ready=None) -> Future:
+        """Encode ``t`` (any device) here and write its wire bytes; the
+        encode's ops are ordered behind the kernels that produced ``t``
+        on their stream, so ``ready`` needs no wait."""
         return self.inner.write(key, self._encode(t))
 
     def read(self, key: str) -> _WireFuture:

@@ -58,14 +58,15 @@ then fixed-width waves of router-selected expert rows (``moe_wave_fwd`` /
 ``moe_wave_vjp``) whose sum is the all-resident ``moe_ffn``, and
 ``moe_attn_vjp``. The monolithic step refuses MoE, as the reference's.
 
-Not ported: dp > 1 (ROADMAP Queue 1 item 8), ``remat="dots"`` (item 12).
+Not ported: dp > 1 (ROADMAP Queue 1 item 8b). ``parallel.remat`` applies
+to the monolithic step's layers (``models/remat.py``); the layered epoch
+recomputes each layer in its reversed pass whatever the policy.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import RunConfig, ShapeConfig
 from repro_torch.core import partition as pt
@@ -73,6 +74,7 @@ from repro_torch.core.engine import PinnedHostTier
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import transformer
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam as adam_mod
@@ -309,12 +311,8 @@ class ExplicitZero3Engine:
                 "through the layered epoch (param_tier='nvme' + "
                 "make_layer_fns)")
         pc, tc, cfg = self.run.parallel, self.run.train, self.run.model
-        if pc.remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save only the matmul outputs) is not ported; use "
-                "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
         L, dp, layout, block_fn = self.n_layers, self.dp, self.layout, self.block_fn
-        remat = pc.remat == "full"
+        remat = pc.remat
         compress = self.grad_compress
         param_host = self.param_host
         opt_host = self.opt_host and not grads_only
@@ -338,10 +336,7 @@ class ExplicitZero3Engine:
             rows = flat.unbind(0)
             for i in range(L):
                 row = gather_layer(rows, i)
-                if remat:
-                    x = checkpoint(body_core, x, row, positions, use_reentrant=False)
-                else:
-                    x = body_core(x, row, positions)
+                x = remat_mod.remat(remat, body_core, x, row, positions)
             x = cm.norm(x, other["ln_f"], cfg.norm_kind)
             lg = cm.logits(other["embed"], x, cfg)
             return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)

@@ -12,6 +12,13 @@ requires grad) the call goes through a ``torch.autograd.Function`` whose
 backward dispatches the same way — the backward kernels on the card, the
 plain backward written out in ``kernels/ref.py`` on the CPU. Elsewhere
 (serving under ``no_grad``) the forward runs alone and saves nothing.
+
+The tiled matmul records as a dispatcher op of its own,
+``repro_torch::tiled_matmul`` (a ``torch.library`` op with a fake impl and
+its autograd registered), not as an ``autograd.Function``: a selective
+activation checkpoint policy sees only dispatcher ops, and
+``remat="dots"`` (``models/remat.py``) must be able to save the product's
+output. The op's body is the same device dispatch as the direct call.
 """
 from __future__ import annotations
 
@@ -97,30 +104,47 @@ def _matmul(x, w):
     return _mm.tiled_matmul_cuda(x, w)
 
 
-class _TiledMatmul(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _matmul(x, w)
+# Defined through ``torch.library.Library``, not the ``custom_op``
+# decorator: that wraps the body in a dynamo guard whose first call imports
+# ``torch._dynamo``, seconds of host time in a process's first step.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("tiled_matmul(Tensor x, Tensor w) -> Tensor")
+_LIB.impl("tiled_matmul", _matmul, "CompositeExplicitAutograd")
+tiled_matmul_op = torch.ops.repro_torch.tiled_matmul.default
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dy = dy.to(x.dtype)
-        # transposed views: the kernel reads the saved tensors in place
-        dx = _matmul(dy, w.T) if ctx.needs_input_grad[0] else None
-        dw = _matmul(x.T, dy) if ctx.needs_input_grad[1] else None
-        return dx, dw
+
+@torch.library.register_fake("repro_torch::tiled_matmul")
+def _(x, w):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _tiled_matmul_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _tiled_matmul_backward(ctx, dy):
+    x, w = ctx.saved_tensors
+    dy = dy.to(x.dtype)
+    # transposed views: the kernel reads the saved tensors in place
+    dx = _matmul(dy, w.T) if ctx.needs_input_grad[0] else None
+    dw = _matmul(x.T, dy) if ctx.needs_input_grad[1] else None
+    return dx, dw
+
+
+torch.library.register_autograd("repro_torch::tiled_matmul", _tiled_matmul_backward,
+                                setup_context=_tiled_matmul_setup)
 
 
 def tiled_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (M,K) @ w: (K,N) -> (M,N) in x's dtype, f32 accumulation; either
     operand may be a strided view. Differentiable: dX = dY @ W^T and
-    dW = X^T @ dY, each in its operand's dtype."""
+    dW = X^T @ dY, each in its operand's dtype. Recorded as the
+    ``repro_torch::tiled_matmul`` op; without autograd (serving) the
+    product is called directly, off the dispatcher."""
     _device(x, w)
     _mm.check_inputs(x, w)
     if _records(x, w):
-        return _TiledMatmul.apply(x, w)
+        return tiled_matmul_op(x, w)
     return _matmul(x, w)
 
 

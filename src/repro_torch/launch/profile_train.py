@@ -3,9 +3,11 @@
 
 It takes ``launch/train.py``'s flags and checks (the placement — the
 explicit engine's monolithic step too, with ``--offload-param device`` or
-``host`` — ``--plan auto`` with ``--hw-*`` and ``--objective``,
-``--param-quant``, shapes), with defaults of its own: the layered ZeRO-3 step with parameters, gradients and
-optimizer states on NVMe, 8 x 512 tokens. Runs ``--warmup`` unprofiled
+``host``, and the GSPMD engine's leaf scheduler with ``--engine pjit
+--offload-param nvme`` — ``--remat``, ``--plan auto`` with ``--hw-*`` and
+``--objective``, ``--param-quant``, shapes), with defaults of its own: the
+layered ZeRO-3 step with parameters, gradients and optimizer states on
+NVMe, 8 x 512 tokens. Runs ``--warmup`` unprofiled
 steps (kernel builds, first launches, pinned buffers), ``--steps``
 unprofiled steps for the wall time, then one profiled step, and prints:
 the host wall time per step and, where the step reports it, its compute /
@@ -23,6 +25,9 @@ residency. Weights are random from ``--seed``.
       --arch smollm-135m --plan auto [--hw-device-mem 3e9]
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch granite-moe-1b-a400m --plan auto
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+      --arch seamless-m4t-medium --plan auto --objective min_device_mem \\
+      --batch 8 --seq 2048 --steps 1
 """
 from __future__ import annotations
 

@@ -15,8 +15,13 @@ detection — the port of ``repro/launch/train.py`` for one device:
     host tier: in-graph fused Adam with the optimizer on the device or
     host tier, or off-graph (``ChunkedAdamOffload``) with the optimizer on
     NVMe or the gradients drained to host or NVMe (the ZeRO-Offload
-    placement); ``--grad-accum`` and ``--remat`` are honoured by the GSPMD
-    engine, ``--remat`` and ``--grad-compress int8`` by the explicit one.
+    placement); ``--grad-accum`` and ``--remat`` (``full``, ``dots``,
+    ``none``) are honoured by the GSPMD engine, ``--remat`` and
+    ``--grad-compress int8`` by the explicit one. ``--engine pjit
+    --offload-param nvme`` keeps every param leaf in the NVMe param store
+    and loads it through the leaf scheduler each step (any optimizer and
+    gradient tier; ``--param-quant`` q8/q4 encodes the leaves in the store,
+    decoded on read).
     ``--engine zero3 --offload-param nvme`` runs the layered epoch with
     every state class on the slow tiers; ``--param-quant q8`` ships its
     rows as q8 wire bytes into the quantized-matmul kernel, ``q4`` rows
@@ -46,11 +51,10 @@ detection — the port of ``repro/launch/train.py`` for one device:
 
 Runs on the card by default and raises when CUDA is absent; ``--device
 cpu`` runs the kernels' plain versions (the tests do). What is not ported
-raises, naming the ROADMAP item that ports it: ``--engine pjit`` with NVMe
-params, more than one device (meshes, ``--hw-devices`` > 1), ``--remat
-dots``, ``--elastic``/``--chaos``, and on the layered epoch
-``--grad-compress int8`` and ``partition_mode="broadcast"`` (the
-reference's ``ValueError``s). The explicit engine reads neither
+raises, naming the ROADMAP item that ports it: more than one device
+(meshes, ``--hw-devices`` > 1) and ``--elastic``/``--chaos``; on the
+layered epoch ``--grad-compress int8`` and ``partition_mode="broadcast"``
+raise the reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
 
 Examples (one H100; llava-next-34b at full width cut to 2 layers):
@@ -67,6 +71,9 @@ Examples (one H100; llava-next-34b at full width cut to 2 layers):
       --layers 2 --plan auto --batch 1 --seq 4096 --steps 4 --lr 3e-3
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch seamless-m4t-medium --plan auto --batch 8 --seq 2048 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch seamless-m4t-medium --plan auto --objective min_device_mem \\
+      --batch 8 --seq 2048 --steps 3 --nvme-dir /path/on/nvme
   REPRO_FAIL_AT_STEP=3 REPRO_FAIL_MARKER=/tmp/m PYTHONPATH=src \\
       python -m repro_torch.launch.train ... --ckpt-every 2 --resume auto
 """
@@ -122,8 +129,8 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="microbatches per step (the GSPMD engine; the "
                          "explicit engine takes one)")
     ap.add_argument("--remat", default="full", choices=["full", "dots", "none"],
-                    help="activation checkpoint policy of the loss (dots is "
-                         "not ported: raises)")
+                    help="activation checkpoint policy of the loss (dots: "
+                         "save the products without a batch dim)")
     for cls, what in (("opt", "optimizer-state (fp32 master/m/v)"),
                       ("param", "bf16 compute-parameter"),
                       ("grad", "gradient drain")):

@@ -12,10 +12,9 @@ Attention goes through ``cm.attention_block``: the encoder's not causal
 (flash with Sq = Sk), the cross-attention with ``kv_source`` (no RoPE, not
 causal, flash with Sq = Sk / 4 on the card), the decoder's self-attention
 causal; the MLPs through the tiled-matmul kernel. The reference's
-``lax.scan`` over each stack is a Python loop over layer slices; under
-``parallel.remat == "full"`` each encoder and each decoder block runs
-under one ``torch.utils.checkpoint``, and ``dots`` raises (ROADMAP.md
-Queue 1 item 12).
+``lax.scan`` over each stack is a Python loop over layer slices; each
+encoder and each decoder block runs under ``parallel.remat``
+(``models/remat.py``).
 
 Serving: ``prefill`` returns the decoder's self-attention ``k``/``v`` and
 the cross-attention keys and values ``xk``/``xv`` projected from the
@@ -28,11 +27,11 @@ serving holds them at the encoder's length).
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import common as cm
+from repro_torch.models import remat as remat_mod
 from repro_torch.models.mamba2 import _stack
 from repro_torch.models.transformer import TensorSpec, layer_params
 
@@ -65,11 +64,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
-    if parallel.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matmul outputs) is not ported; use "
-            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
-    remat = parallel.remat == "full"
+    remat = parallel.remat
     tiles = parallel.tiling_factor
     kind = cfg.norm_kind
 
@@ -85,8 +80,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         layers = pt.tree_map(lambda t: t.unbind(0), params["enc"])
         for l in range(cfg.n_enc_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            x = (checkpoint(enc_block, x, blk, positions, use_reentrant=False) if remat
-                 else enc_block(x, blk, positions))
+            x = remat_mod.remat(remat, enc_block, x, blk, positions)
         return cm.norm(x, params["ln_enc"], kind)
 
     def dec_block(h, blk, positions, memory, self_cache=None, cross_kv=None,
@@ -133,8 +127,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         layers = pt.tree_map(lambda t: t.unbind(0), params["dec"])
         for l in range(cfg.n_dec_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            x = (checkpoint(train_dec_block, x, blk, positions, memory, use_reentrant=False)
-                 if remat else train_dec_block(x, blk, positions, memory))
+            x = remat_mod.remat(remat, train_dec_block, x, blk, positions, memory)
         x = cm.norm(x, params["ln_f"], kind)
         lg = cm.logits(params["embed"], x, cfg)
         return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)

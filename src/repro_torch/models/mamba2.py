@@ -17,20 +17,20 @@ state decays cast to the input dtype before the f32-accumulating products,
 and the last chunk zero-padded (exact: decay exp(0) = 1, contribution
 B * xbar = 0). The four-operand intra-chunk contraction is ordered so that
 no intermediate is larger than (B, nc, H, Q, Q). The reference's
-``lax.scan`` over layers is a Python loop over layer slices; under
-``parallel.remat == "full"`` each block runs under one
-``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of the
-scanned body. Decode writes the stacked cache IN PLACE.
+``lax.scan`` over layers is a Python loop over layer slices; each block
+runs under ``parallel.remat`` (``models/remat.py``), as the reference's
+``jax.checkpoint`` of the scanned body: under ``dots`` the projections'
+products are saved and the SSD's batched einsums recomputed. Decode writes the stacked cache IN PLACE.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import common as cm
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import transformer as tf
 
 NEG_INF = -1e30
@@ -237,11 +237,7 @@ def cache_defs_fn(cfg: ModelConfig):
 
 
 def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
-    if parallel.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matmul outputs) is not ported; use "
-            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
-    remat = parallel.remat == "full"
+    remat = parallel.remat
 
     def train_block(h, blk):
         return h + mamba_block(blk, h, cfg)[0]
@@ -253,10 +249,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            if remat:
-                x = checkpoint(train_block, x, blk, use_reentrant=False)
-            else:
-                x = train_block(x, blk)
+            x = remat_mod.remat(remat, train_block, x, blk)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg)
         return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)

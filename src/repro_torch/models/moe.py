@@ -33,11 +33,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import common as cm
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import transformer as tf
 
 DEFAULT_GROUP = 1024  # tokens per routing group (the reference's default)
@@ -310,11 +310,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
             "a local attention window on this family is not wired: none of "
             "its configs sets one (the flash kernels take it; the hybrid "
             "family's attention passes it)")
-    if parallel.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matmul outputs) is not ported; use "
-            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
-    remat = parallel.remat == "full"
+    remat = parallel.remat
 
     def block(x, blk, positions, cache=None, collect_kv=False, with_stats=False):
         a, new_cache = cm.attention_block(
@@ -347,11 +343,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         drops, loads = [], []
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            if remat:
-                x, drop, load = checkpoint(train_block, x, blk, positions,
-                                           use_reentrant=False)
-            else:
-                x, drop, load = train_block(x, blk, positions)
+            x, drop, load = remat_mod.remat(remat, train_block, x, blk, positions)
             drops.append(drop)
             loads.append(load)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)

@@ -19,19 +19,19 @@ Prefill lays the prompt's last ``window`` keys out at slot t % window
 (rolled when the prompt reaches the window, zero-padded below it); decode
 writes slot ``len % window`` and attends over ``min(len + 1, window)``
 slots, per row for continuous batching. The reference's ``lax.scan`` over
-groups and tail blocks is a Python loop; under ``parallel.remat ==
-"full"`` each group and each tail block runs under one
-``torch.utils.checkpoint``. Decode writes the stacked cache IN PLACE.
+groups and tail blocks is a Python loop; each group and each tail block
+runs under ``parallel.remat`` (``models/remat.py``). Decode writes the
+stacked cache IN PLACE.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import common as cm
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as tf
 
@@ -185,11 +185,7 @@ def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
-    if parallel.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matmul outputs) is not ported; use "
-            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
-    remat = parallel.remat == "full"
+    remat = parallel.remat
     tiles = parallel.tiling_factor
     n_groups, n_tail = _layout(cfg)
     window = cfg.window
@@ -240,16 +236,12 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         groups = pt.tree_map(lambda t: t.unbind(0), params["groups"])
         for l in range(n_groups):
             g = pt.tree_map(lambda ts: ts[l], groups)
-            if remat:
-                x = checkpoint(train_group, x, g, positions, use_reentrant=False)
-            else:
-                x = train_group(x, g, positions)
+            x = remat_mod.remat(remat, train_group, x, g, positions)
         if n_tail:
             tails = pt.tree_map(lambda t: t.unbind(0), params["tail"])
             for l in range(n_tail):
                 t = pt.tree_map(lambda ts: ts[l], tails)
-                x = (checkpoint(train_tail, x, t, use_reentrant=False) if remat
-                     else train_tail(x, t))
+                x = remat_mod.remat(remat, train_tail, x, t)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg)
         return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)

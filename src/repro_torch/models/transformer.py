@@ -19,22 +19,23 @@ and prefill's ``len`` counts the vision positions, so decode continues
 after them.
 
 ``parallel.remat`` shapes ``loss`` as the reference's ``jax.checkpoint``
-of each scanned block does: ``full`` runs every block under
-``torch.utils.checkpoint`` (non-reentrant), so backward recomputes the
-block, kernels included (the recompute's launches count like any other),
-and ``none`` keeps every block's activations. ``dots`` (save only the
-matmul outputs) is not ported and raises (ROADMAP.md Queue 1 item 12).
+of each scanned block does (``models/remat.py``): ``full`` runs every
+block under ``torch.utils.checkpoint`` (non-reentrant), so backward
+recomputes the block, kernels included (the recompute's launches count
+like any other); ``dots`` saves the projections' and the MLP's products
+and recomputes the rest, flash attention included; ``none`` keeps every
+block's activations.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import common as cm
+from repro_torch.models import remat as remat_mod
 
 # shape + torch dtype of one model input (the port's ShapeDtypeStruct)
 TensorSpec = collections.namedtuple("TensorSpec", ["shape", "dtype"])
@@ -151,12 +152,8 @@ def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig())
 
 def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
     _check_ported(cfg)
-    if parallel.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save only the matmul outputs) is not ported; use "
-            "'full' or 'none' (ROADMAP.md Queue 1 item 12)")
     tiles = parallel.tiling_factor
-    remat = parallel.remat == "full"
+    remat = parallel.remat
 
     def block(x, blk, positions, cache=None, collect_kv=False):
         return _block(cfg, tiles, x, blk, positions, cache, collect_kv)
@@ -182,10 +179,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            if remat:
-                x = checkpoint(train_block, x, blk, positions, use_reentrant=False)
-            else:
-                x = train_block(x, blk, positions)
+            x = remat_mod.remat(remat, train_block, x, blk, positions)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg)
         if cfg.family == "vlm":  # the loss covers the text positions only

@@ -1,7 +1,8 @@
 """Shared machinery of ``tests/test_torch_{ssm,hybrid,vlm,encdec}.py``:
 the port's families added after the dense one (mamba2, recurrentgemma,
-llava, seamless) against the JAX package's, on the CPU. Not a test module;
-each test file calls these with its arch and states its tolerances.
+llava, seamless) against the JAX package's, on the CPU, and of every
+family's ``remat="dots"`` checks. Not a test module; each test file calls
+these with its arch and states its tolerances.
 
 The bundles' weights are the reference's ``init`` carried across by
 ``repro_torch.bridge``; batches come from numpy seeds (or each package's
@@ -16,6 +17,8 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax._src.ad_checkpoint import saved_residuals
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro import configs as jconfigs
 from repro.checkpoint import manager as jman
@@ -33,7 +36,9 @@ from repro_torch.config import make_offload, make_parallel
 from repro_torch.core import executor as texec
 from repro_torch.core import partition as tpt
 from repro_torch.data import pipeline as tpipe
+from repro_torch.kernels import ref as tref
 from repro_torch.models import registry as treg
+from repro_torch.models import remat as tremat
 from repro_torch.optim import adam as tadam
 from repro_torch.optim.adam import AdamState
 
@@ -83,13 +88,19 @@ def cfgs(arch, n_layers=None):
     return jcfg, tcfg
 
 
-def bundles(arch, n_layers=None):
-    """(jcfg, jbundle, jparams, tbundle, tparams) from the same weights."""
+def bundles(arch, n_layers=None, remat=None):
+    """(jcfg, jbundle, jparams, tbundle, tparams) from the same weights;
+    ``remat`` builds both bundles under that policy (default: each
+    package's default)."""
     jcfg, tcfg = cfgs(arch, n_layers)
-    jb = jreg.build(jcfg)
+    if remat is None:
+        jb, tb = jreg.build(jcfg), treg.build(tcfg)
+    else:
+        jb = jreg.build(jcfg, parallel=jmake_parallel("pjit", remat=remat))
+        tb = treg.build(tcfg, make_parallel("pjit", remat=remat))
     jparams = jax.jit(jb.init)(jax.random.PRNGKey(0))  # one compile, not per-leaf dispatch
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
-    return jcfg, jb, jparams, treg.build(tcfg), tparams
+    return jcfg, jb, jparams, tb, tparams
 
 
 def tokens(cfg, seed, Bn=2, Sn=16) -> np.ndarray:
@@ -134,19 +145,108 @@ def cache_leaves(cache) -> dict:
     return {"/".join(p): tpt.tree_get(cache, p) for p in tpt.tree_paths(cache)}
 
 
+def _remat_batch(tcfg, seed, extra, Sn):
+    toks = torch.from_numpy(tokens(tcfg, seed, Sn=Sn))
+    return {"tokens": toks, "labels": toks,
+            **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
+
+
+def _loss_of(tb):
+    """The bundle's scalar loss (the MoE's ``loss_stats`` without aux)."""
+    if tb.loss_stats is None:
+        return tb.loss
+    return lambda params, batch: tb.loss_stats(params, batch)[0]
+
+
 def remat_full_equals_none(tcfg, seed, extra=None, Sn=16):
     """``remat="full"`` recomputes each checkpointed unit in backward to
     the same loss and gradients, bit for bit; ``extra`` adds numpy
     inputs."""
     params = treg.build(tcfg).init(torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(tokens(tcfg, seed, Sn=Sn))
-    batch = {"tokens": toks, "labels": toks,
-             **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
+    batch = _remat_batch(tcfg, seed, extra, Sn)
     out = {r: torch_value_and_grad(treg.build(tcfg, make_parallel("pjit", remat=r)).loss,
                                    params, batch) for r in ("none", "full")}
     assert torch.equal(out["none"][0], out["full"][0])
     for path, g in out["none"][1].items():
         assert torch.equal(g, out["full"][1][path]), path
+
+
+def remat_dots_saves_the_products(tcfg, seed, extra=None, Sn=16):
+    """``remat="dots"``: the loss and every gradient equal ``none``'s bit
+    for bit; the plain matmul (the MLP products) runs as often as under
+    ``none`` (saved, never recomputed) and attention's plain forward as
+    often as under ``full`` (recomputed). Returns the calls by policy."""
+    params = treg.build(tcfg).init(torch.Generator().manual_seed(0))
+    batch = _remat_batch(tcfg, seed, extra, Sn)
+    calls = {"matmul": 0, "attention": 0}
+    real_mm, real_att = tref.matmul_ref, tref.attention_fwd_ref
+
+    def mm(*a, **k):
+        calls["matmul"] += 1
+        return real_mm(*a, **k)
+
+    def att(*a, **k):
+        calls["attention"] += 1
+        return real_att(*a, **k)
+
+    out, n = {}, {}
+    tref.matmul_ref, tref.attention_fwd_ref = mm, att
+    try:
+        for r in ("none", "full", "dots"):
+            calls.update(matmul=0, attention=0)
+            tb = treg.build(tcfg, make_parallel("pjit", remat=r))
+            out[r] = torch_value_and_grad(_loss_of(tb), params, batch)
+            n[r] = dict(calls)
+    finally:
+        tref.matmul_ref, tref.attention_fwd_ref = real_mm, real_att
+    assert torch.equal(out["none"][0], out["dots"][0])
+    for path, g in out["none"][1].items():
+        assert torch.equal(g, out["dots"][1][path]), path
+    assert n["dots"]["matmul"] == n["none"]["matmul"], n
+    assert n["dots"]["attention"] == n["full"]["attention"], n
+    return n
+
+
+def saved_product_bytes(arch, n_layers=None, seed=3, Sn=16):
+    """What ``remat="dots"`` keeps from the products without a batch dim,
+    in one forward of the bundles' loss on the same weights and batch:
+    (the port's saved bytes, the sum over its checkpointed blocks of each
+    block's last saved product, the reference's kept residual bytes). The
+    reference's are its residuals (``saved_residuals``) under ``dots``
+    beyond those under ``full``, which saves only each block's input."""
+    jcfg, jb, jparams, tb, tparams = bundles(arch, n_layers, remat="dots")
+    toks = tokens(jcfg, seed, Sn=Sn)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+
+    def residual_bytes(remat):
+        b = jreg.build(jcfg, parallel=jmake_parallel("pjit", remat=remat))
+        return sum(a.size * a.dtype.itemsize for a, _ in saved_residuals(b.loss, jparams, jbatch))
+
+    blocks = []  # per checkpointed block: the bytes of each saved product
+
+    def counting_context():
+        saved = []
+        blocks.append(saved)
+
+        def policy(ctx, op, *args, **kwargs):
+            decision = tremat.dots_policy(ctx, op, *args, **kwargs)
+            if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                x, w = args[:2]
+                saved.append(x.shape[0] * w.shape[1] * x.element_size())
+            return decision
+
+        return create_selective_checkpoint_contexts(policy)
+
+    real = tremat.dots_context
+    tremat.dots_context = counting_context
+    try:
+        torch_value_and_grad(tb.loss, tparams, {"tokens": torch.from_numpy(toks),
+                                                "labels": torch.from_numpy(toks)})
+    finally:
+        tremat.dots_context = real
+    assert blocks and all(blocks)
+    return (sum(map(sum, blocks)), sum(b[-1] for b in blocks),
+            residual_bytes("dots") - residual_bytes("full"))
 
 
 # ---------------------------------------------------------------------------

@@ -280,13 +280,17 @@ def test_in_graph_engine_states_cross_read_in_both_directions(tmp_path, mesh, en
 # tier migration through the portable view, on the port's executor
 # ---------------------------------------------------------------------------
 
-# the reference's MIGRATIONS (tests/test_checkpoint.py)
+# the reference's MIGRATIONS (tests/test_checkpoint.py), and the GSPMD
+# engine with every state class on NVMe (its leaves materialized from the
+# param store) to the device and back
 MIGRATIONS = [
     ("zero3", ("device", "device", "device"), ("nvme", "nvme", "nvme")),
     ("zero3", ("nvme", "nvme", "nvme"), ("device", "device", "device")),
     ("zero3", ("device", "device", "host"), ("device", "device", "nvme")),
     ("pjit", ("device", "device", "device"), ("device", "nvme", "nvme")),
     ("pjit", ("device", "device", "nvme"), ("device", "device", "device")),
+    ("pjit", ("nvme", "nvme", "nvme"), ("device", "device", "device")),
+    ("pjit", ("device", "device", "device"), ("nvme", "nvme", "nvme")),
 ]
 
 

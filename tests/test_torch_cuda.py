@@ -743,3 +743,33 @@ def test_moe_steps_on_the_card_match_the_cpu(cuda, kind):
     assert rec["masters_worst_diff_over_drift"] <= 1.0
     assert rec["params_worst_diff_over_bound"] <= 1.0
     assert rec["bulk_mean_abs_diff"] <= rec["params_mean_bound"]
+
+
+@pytest.mark.cuda
+def test_remat_dots_saves_the_tiled_matmul_output_on_the_card(cuda):
+    """A block ``relu(x @ w1) @ w2`` under ``remat="dots"``: the kernel's
+    products are saved by the selective checkpoint (two forward launches,
+    none again in the backward; four gradient products), where ``full``
+    launches the forward twice more; the gradients equal ``none``'s."""
+    from repro_torch.models import remat
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x0 = (torch.randn(256, 128, generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    w10 = (torch.randn(128, 256, generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    w20 = (torch.randn(256, 128, generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+
+    def block(x, w1, w2):
+        return ops.tiled_matmul(torch.relu(ops.tiled_matmul(x, w1)), w2)
+
+    out, launches = {}, {}
+    for policy in ("none", "full", "dots"):
+        x, w1, w2 = (t.clone().requires_grad_() for t in (x0, w10, w20))
+        before = ops.launch_counts()["tiled_matmul"]
+        y = remat.remat(policy, block, x, w1, w2)
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        launches[policy] = ops.launch_counts()["tiled_matmul"] - before
+        out[policy] = [t.grad for t in (x, w1, w2)]
+    assert launches == {"none": 2 + 4, "full": 2 + 2 + 4, "dots": 2 + 4}
+    for got, want in zip(out["dots"], out["none"]):
+        assert torch.equal(got, want)

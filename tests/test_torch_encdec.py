@@ -246,9 +246,18 @@ def test_remat_full_recomputes_to_the_same_loss_and_gradients():
     rp.remat_full_equals_none(tcfg, 4, extra={"frames": _frames(tcfg, 13, 20)}, Sn=5)
 
 
-def test_remat_dots_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        treg.build(tconfigs.smoke(ARCH), make_parallel("pjit", remat="dots"))
+def test_remat_dots_saves_the_products_bit_equal_to_none():
+    """Encoder, decoder and cross-attention: the MLP products saved (the
+    plain matmul's calls as under ``none``), every attention forward
+    recomputed (as under ``full``), gradients equal ``none``'s."""
+    tcfg = rp.cfgs(ARCH)[1]
+    rp.remat_dots_saves_the_products(tcfg, 4, extra={"frames": _frames(tcfg, 13, 20)}, Sn=5)
+
+
+def test_remat_dots_loss_and_every_gradient_match_reference():
+    jcfg = rp.cfgs(ARCH)[0]
+    rp.loss_and_grads(rp.bundles(ARCH, remat="dots"), 1, 4, LOSS_REL, GRAD_REL,
+                      extra={"frames": _frames(jcfg, 2, 16)})
 
 
 def test_explicit_engine_refuses_the_family_in_both_packages():

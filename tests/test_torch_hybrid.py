@@ -192,6 +192,29 @@ def test_param_count_and_cache_bytes_match_reference():
             jkv.sequence_kv_bytes(jconfigs.get(ARCH), ctx)
 
 
+def test_remat_dots_saves_the_products_bit_equal_to_none():
+    """The group's attention recomputed (its flash forward twice), the
+    MLP products saved (the plain matmul as under ``none``)."""
+    n = rp.remat_dots_saves_the_products(rp.cfgs(ARCH, LAYERS)[1], 4)
+    assert n["none"]["attention"] == 1 and n["dots"]["attention"] == 2
+
+
+def test_remat_dots_loss_and_every_gradient_match_reference_past_the_window():
+    rp.loss_and_grads(rp.bundles(ARCH, LAYERS, remat="dots"), 1, 45, LOSS_REL, GRAD_REL)
+
+
+def test_remat_dots_keeps_the_reference_products_and_each_blocks_last():
+    """What ``dots`` keeps over the group and the two tail blocks: the
+    reference's residuals (the recurrences' gate and in projections, the
+    f32 RG-LRU gates, the out projections, the MLPs' up and gate
+    projections and every down projection but the block's last), plus
+    each block's last down projection."""
+    port, last, ref = rp.saved_product_bytes(ARCH, LAYERS)
+    cfg = rp.cfgs(ARCH, LAYERS)[1]
+    assert last == 3 * 2 * 16 * cfg.d_model * 2  # one group, two tail blocks
+    assert port - last == ref > 0
+
+
 def test_remat_full_recomputes_to_the_same_loss_and_gradients():
     rp.remat_full_equals_none(rp.cfgs(ARCH, LAYERS)[1], 4)
 

@@ -37,7 +37,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import recurrent_parity as rp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
+from repro.config import make_parallel as jmake_parallel  # noqa: E402
 from repro.core import kvcache as jkv  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
@@ -312,6 +314,10 @@ def _torch_value_and_grad(fn, params, batch):
 
 
 def test_bundle_loss_stats_and_gradients_match_reference(bundles):
+    _check_loss_stats(bundles)
+
+
+def _check_loss_stats(bundles):
     jcfg, jb, jparams, tb, tparams = bundles
     toks, labels = _tokens(jcfg, 1), _tokens(jcfg, 2)
     jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
@@ -353,6 +359,23 @@ def test_bundle_prefill_and_teacher_forced_decode_match_reference(bundles):
         lt, tc = tb.decode_step(tparams, tc, {"tokens": torch.from_numpy(step)})
         _close(lt, lj, 3e-2, f"decode step {i}")
     np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
+
+
+def test_remat_dots_saves_the_router_bit_equal_to_none():
+    """The router's ``mm`` saved, the experts' batched einsums and the
+    attention recomputed (its plain forward as often as under ``full``),
+    gradients equal ``none``'s."""
+    n = rp.remat_dots_saves_the_products(_cfgs("granite-moe-1b-a400m")[1], 4)
+    assert n["dots"]["attention"] == 2 * n["none"]["attention"] > 0
+
+
+def test_remat_dots_loss_stats_and_gradients_match_reference():
+    jcfg, tcfg = _cfgs("granite-moe-1b-a400m")
+    jb = jreg.build(jcfg, parallel=jmake_parallel("pjit", remat="dots"))
+    jparams = jax.jit(jb.init)(jax.random.PRNGKey(0))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    _check_loss_stats((jcfg, jb, jparams,
+                       treg.build(tcfg, ParallelConfig(remat="dots")), tparams))
 
 
 def test_remat_full_recomputes_to_the_same_loss_and_gradients():

@@ -172,6 +172,19 @@ def test_param_count_and_cache_bytes_match_reference():
             jkv.sequence_kv_bytes(jconfigs.get(ARCH), ctx)
 
 
+def test_remat_dots_saves_the_projections_bit_equal_to_none():
+    """No flash and no tiled matmul here: the counts are zero under every
+    policy; the projections' ``mm`` outputs are saved, the SSD's einsums
+    recomputed, and the gradients equal ``none``'s."""
+    n = rp.remat_dots_saves_the_products(rp.cfgs(ARCH)[1], 4)
+    assert all(c == {"matmul": 0, "attention": 0} for c in n.values()), n
+
+
+@pytest.mark.parametrize("Sn", [16, 37])
+def test_remat_dots_loss_and_every_gradient_match_reference(Sn):
+    rp.loss_and_grads(rp.bundles(ARCH, remat="dots"), 1, Sn, LOSS_REL, GRAD_REL)
+
+
 def test_remat_full_recomputes_to_the_same_loss_and_gradients():
     rp.remat_full_equals_none(rp.cfgs(ARCH)[1], 4)
 

@@ -21,6 +21,7 @@ ratio by a few 2^-8 of lr per step, held as mean |diff| <= 2^-5 * sum(lr).
 """
 import contextlib
 import dataclasses
+import math
 import types
 from concurrent.futures import Future
 
@@ -42,6 +43,7 @@ from repro.core import offload as joff  # noqa: E402
 from repro.core import qformat as jqformat  # noqa: E402
 from repro.core import schedule as jsched  # noqa: E402
 from repro.data import pipeline as jpipe  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
 from repro.launch.mesh import make_local_mesh  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
 from repro.optim import adam as jadam  # noqa: E402
@@ -590,9 +592,6 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--engine", "pjit"],
-    ["--engine", "pjit", "--plan", "auto"],
-    ["--engine", "pjit", "--offload-param", "device", "--remat", "dots"],
     ["--plan", "auto", "--hw-devices", "2"],
     ["--elastic"], ["--chaos", "fail@3"],
     ["--grad-compress", "int8"], ["--data-mesh", "2"], ["--model-mesh", "2"],
@@ -608,6 +607,60 @@ def test_cli_raises_on_every_unported_flag(tmp_path, extra):
                     else (NotImplementedError, "ROADMAP"))
     with pytest.raises(error, match=match):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)
+
+
+# the card machine's capacities (device, host, NVMe bytes) and pinned rates,
+# so both packages' planners see the same hardware
+PLAN_HW = ["--hw-devices", "1", "--hw-device-mem", "85.02e9", "--hw-host-mem", "108.45e9",
+           "--hw-nvme", "63.8e9", "--hw-nvme-bw", "2e9", "--hw-host-bw", "2e10",
+           "--hw-peak-flops", "1e12"]
+
+
+@pytest.mark.parametrize("arch,seq", [("seamless-m4t-medium", 48), ("mamba2-370m", 32)])
+def test_cli_min_device_mem_trains_gspmd_on_nvme_as_the_reference(tmp_path, mesh, arch, seq):
+    """``--plan auto --objective min_device_mem``: both planners put every
+    state class on NVMe under the GSPMD engine (params through the leaf
+    scheduler, the optimizer off-graph), and the port's CLI follows the
+    reference CLI's losses from the same weights by TIER_TOL, each step
+    reading and writing every leaf once."""
+    common = (["--arch", arch, "--smoke", "--plan", "auto", "--objective", "min_device_mem",
+               "--steps", "3", "--batch", "2", "--seq", str(seq), "--lr", "3e-3",
+               "--log-every", "100", "--ckpt-every", "0"] + PLAN_HW)
+    jargv = common + ["--nvme-dir", str(tmp_path / "jnv"), "--ckpt-dir", str(tmp_path / "jck")]
+    targv = common + ["--device", "cpu", "--nvme-dir", str(tmp_path / "tnv"),
+                      "--ckpt-dir", str(tmp_path / "tck")]
+    jargs = jtrain.build_argparser().parse_args(jargv)
+    jrun, _ = jtrain.make_run(jargs)
+    init = jax.tree.map(np.asarray, jexec.make_engine(jrun, mesh).init_state(
+        jax.random.PRNGKey(jargs.seed))["params"])
+    jhist = jtrain.train(jargs)
+    thist = ttrain.train(ttrain.build_argparser().parse_args(targv), targv,
+                         init_state=lambda: {"params": bridge.params_from_numpy(init)})
+    plan = thist["plan"]
+    assert plan.engine == "pjit" and plan.feasible
+    assert (plan.param_tier, plan.grad_tier, plan.opt_tier) == ("nvme", "nvme", "nvme")
+    np.testing.assert_allclose(thist["losses"], jhist["losses"], **TIER_TOL)
+    n = sum(math.prod(d.shape) * d.torch_dtype.itemsize
+            for d in tpt.tree_leaves(treg.build(tconfigs.smoke(arch)).defs))
+    for m in thist["metrics"]:
+        assert m["param_in_bytes"] == m["param_out_bytes"] == m["param_total_bytes"] == n
+        assert m["plan_residency_ok"] is True
+
+
+def test_cli_trains_gspmd_nvme_params_in_graph_under_dots(tmp_path):
+    """``--engine pjit --offload-param nvme --remat dots``: the leaf
+    scheduler feeds the in-graph update, whose new leaves go back to the
+    store each step; the loss falls."""
+    hist = ttrain.main(["--smoke", "--device", "cpu", "--engine", "pjit",
+                        "--offload-param", "nvme", "--remat", "dots", "--steps", "4",
+                        "--batch", "2", "--seq", "16", "--lr", "3e-3", "--log-every", "100",
+                        "--nvme-dir", str(tmp_path), "--ckpt-every", "0"])
+    assert hist["run"].parallel.remat == "dots" and not hist["run"].opt_offgraph
+    losses = hist["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    for m in hist["metrics"]:
+        assert 0 < m["peak_resident_param_bytes"] < m["param_total_bytes"] \
+            == m["param_in_bytes"] == m["param_out_bytes"]
 
 
 def test_cli_trains_on_the_cpu(tmp_path, capsys):

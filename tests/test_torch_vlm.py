@@ -139,6 +139,17 @@ def test_decode_after_the_vision_positions_with_per_slot_lengths_matches_referen
     np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
 
 
+def test_remat_dots_saves_the_products_bit_equal_to_none():
+    tcfg = rp.cfgs(ARCH)[1]
+    rp.remat_dots_saves_the_products(tcfg, 4, extra={"vision_embeds": _vision(tcfg, 9)}, Sn=6)
+
+
+def test_remat_dots_loss_on_text_positions_and_every_gradient_match_reference():
+    jcfg = rp.cfgs(ARCH)[0]
+    rp.loss_and_grads(rp.bundles(ARCH, remat="dots"), 1, 9, LOSS_REL, GRAD_REL,
+                      extra={"vision_embeds": _vision(jcfg, 2)})
+
+
 def test_remat_full_recomputes_to_the_same_loss_and_gradients():
     tcfg = rp.cfgs(ARCH)[1]
     rp.remat_full_equals_none(tcfg, 4, extra={"vision_embeds": _vision(tcfg, 9)}, Sn=6)

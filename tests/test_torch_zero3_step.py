@@ -90,6 +90,7 @@ PLACEMENTS = {
     "int8": ("device", "device", "device", "none", "int8", "allgather"),
     "broadcast": ("device", "device", "device", "none", "none", "broadcast"),
     "remat_full": ("device", "device", "device", "full", "none", "allgather"),
+    "remat_dots": ("device", "device", "device", "dots", "none", "allgather"),
 }
 OFFGRAPH = ("opt_nvme", "grad_nvme")
 
@@ -360,10 +361,37 @@ def test_remat_full_recomputes_each_layer_and_matches_none(monkeypatch):
     assert out["full"][2] == out["none"][2] + 3 * eng.n_layers
 
 
-def test_remat_dots_raises_naming_its_roadmap_item():
-    eng = _engine(remat="dots")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.make_train_step()
+def test_remat_dots_saves_the_products_and_matches_none(monkeypatch):
+    """``remat="dots"`` on the monolithic step: the MLP products (the plain
+    matmul) run as often as under ``"none"`` (saved, not recomputed),
+    attention's plain forward as often as under ``"full"``, and the
+    gradients and the loss equal ``"none"``'s."""
+    from repro_torch.kernels import ref
+
+    calls = {"mm": 0, "att": 0}
+    real_mm, real_att = ref.matmul_ref, ref.attention_fwd_ref
+
+    def mm(x, w):
+        calls["mm"] += 1
+        return real_mm(x, w)
+
+    def att(*a, **k):
+        calls["att"] += 1
+        return real_att(*a, **k)
+
+    monkeypatch.setattr(ref, "matmul_ref", mm)
+    monkeypatch.setattr(ref, "attention_fwd_ref", att)
+    out = {}
+    for remat in ("none", "full", "dots"):
+        eng = _engine(remat=remat, opt_tier="nvme")
+        state = eng.init_state(torch.Generator().manual_seed(0))
+        calls.update(mm=0, att=0)
+        _, g32, m = eng.make_train_step()(state, _batch(eng.run.model))
+        out[remat] = (g32, float(m["loss"]), dict(calls))
+    assert torch.equal(out["dots"][0], out["none"][0])
+    assert out["dots"][1] == out["none"][1]
+    assert out["dots"][2]["mm"] == out["none"][2]["mm"]
+    assert out["dots"][2]["att"] == out["full"][2]["att"] == 2 * eng.n_layers
 
 
 @pytest.mark.parametrize("par,match", [
