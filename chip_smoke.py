@@ -9,7 +9,10 @@ placement the planner derives for the detected card, and the ZeRO-Offload
 placement it derives for a starved one), then through the explicit
 engine's monolithic step (``--engine zero3`` with params on the device or
 the pinned host tier) and a restart drill that resumes from a checkpoint,
-then trains granite-moe-1b-a400m under ``--plan auto`` and through the
+then on two data-parallel ranks sharing the card (``--data-mesh 2``: the
+explicit engine's rows sharded per rank, the card against the CPU and
+the layered epoch on NVMe through ``launch.train``), then trains
+granite-moe-1b-a400m under ``--plan auto`` and through the
 layered epoch with its expert rows paged from NVMe, then the fixed-state
 families: flash attention with recurrentgemma's local window, full
 recurrentgemma-9b and mamba2-370m served, recurrentgemma at full width
@@ -102,6 +105,22 @@ Phases (any failure exits non-zero; no phase is caught):
       the pinned host tier (the ZeRO-Offload placement) and with params and
       optimizer there; fused Adam on the flat and the two 'other' leaves
       each step;
+  16a. "zero3 dp2 numerics": the explicit engine at dp 2, two ranks on the
+      one card (torchrun; both on cuda:0 over gloo, ``launch/mesh.py``)
+      against two ranks on the CPU, full-width smollm-135m cut to 2
+      layers, 2 steps of 4 x 128 tokens (2 a rank) from the same global
+      state (each rank its shard) in allgather mode, with int8 compression
+      and as the layered epoch with every state class on NVMe; each rank's
+      loss, grad norm, rows and f32 masters by phase 15's bounds;
+  16b. "zero3 dp2 train": ``launch.train --engine zero3 --data-mesh 2`` on
+      full smollm-135m with params, grads and optimizer on NVMe, two ranks
+      on the card, 4 steps of 8 x 512 (4 x 512 a rank), tracer on: each
+      rank's tier bytes a step half of phase 9's, their sum over the ranks
+      equal to it, the losses phase 9's first four by ``TRAIN_TOL`` and
+      falling; each rank's launches, the transport per collective, the
+      step wall with its collective waits and each rank's peak allocated
+      memory printed. Two ranks on one card check correctness, the
+      transport and per-rank memory, not scaling;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -195,8 +214,8 @@ Phases (any failure exits non-zero; no phase is caught):
       ``full`` does;
   29. the kernels JSON line, then the device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 17, 18, 21, 22, 23, 26,
-27, 28) each flash-attention launch, forward and backward (the recompute under
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a, 16b (each rank), 17,
+18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
 (``*_wgmma``), none on ``simt``: the hybrid paths' flash launches too
@@ -206,6 +225,10 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
+``chip_smoke.py --dp-rank numerics|train`` is one rank of phase 16a or
+16b, started by the script itself through ``torch.distributed.run``;
+``chip_smoke.py --nccl-check`` runs phase 16b's path on four ranks with a
+card each (NCCL), on a machine with four cards.
 """
 from __future__ import annotations
 
@@ -214,6 +237,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -233,12 +257,13 @@ from repro_torch.core import kvcache, qformat  # noqa: E402
 from repro_torch.core import partition as pt  # noqa: E402
 from repro_torch.core.executor import InfinityExecutor  # noqa: E402
 from repro_torch.core.zero import ExplicitZero3Engine  # noqa: E402
-from repro_torch.data.pipeline import SyntheticStream  # noqa: E402
+from repro_torch.data.pipeline import SyntheticStream, rank_slice  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import quantized_matmul as tqm  # noqa: E402
 from repro_torch.kernels import tiled_matmul as tmm  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -849,10 +874,10 @@ def _store_masters(ex) -> dict:
 
 
 def _masters(ex) -> torch.Tensor:
-    """The (L, P) f32 Adam masters of the rows, read back from the
-    optimizer store."""
+    """The rank's (L, P/dp) f32 Adam masters of the rows, read back from
+    the optimizer store."""
     flat = _store_masters(ex)
-    return torch.stack([flat[f"rank0/l{li}"] for li in range(len(flat))]).float()
+    return torch.stack([flat[f"{ex.rank_key}/l{li}"] for li in range(len(flat))]).float()
 
 
 def phase_train_numerics(quant: str = "none") -> dict:
@@ -951,7 +976,8 @@ def phase_train_main(quant: str = "none") -> tuple:
            "param_total_bytes": hist["metrics"][0]["param_total_bytes"],
            "quantized_leaves": ["/".join(p) for p in hist["quantized_leaves"]],
            "wire_encode_rows": len(encodes), "wire_encode_s": sum(encodes),
-           "nvme": hist["nvme_stats"]}
+           "nvme": hist["nvme_stats"], "losses": losses,
+           "step_bytes": {f"{t}_bytes": hist["metrics"][-1][f"{t}_bytes"] for t in tiers}}
     say(f"{tag}:", json.dumps(rec))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
@@ -1500,6 +1526,283 @@ def phase_zero3_train(tag: str, tiers: list) -> tuple:
             raise SystemExit(f"FAIL {tag}: {name} launched {launches[name]} < {n}")
     check_main_path_routes(tag, launches)
     return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# data parallel: two ranks on the one card (gloo), one process each
+# ---------------------------------------------------------------------------
+
+# case -> (param, grad, opt tiers, grad_compression): the monolithic step in
+# allgather mode all on the device, with int8 compression, and the layered
+# epoch with every state class on NVMe
+DP2_CASES = {"allgather": ("device", "device", "device", "none"),
+             "int8": ("device", "device", "device", "int8"),
+             "layered_nvme": ("nvme", "nvme", "nvme", "none")}
+DP_TRAIN_STEPS = 4
+TIERS = ("param_in", "param_out", "grad_out", "opt_read", "opt_write")
+
+
+def _rank_record(mode: str, rank: int) -> str:
+    """Where rank ``rank`` of a ``--dp-rank <mode>`` run writes its record
+    (one file a rank: the ranks share one stdout, whose lines interleave)."""
+    return os.path.join(ROOT, "build", f"chip_smoke_dp_{mode}.rank{rank}.json")
+
+
+def run_ranks(mode: str, timeout: float, n: int = 2) -> list:
+    """``chip_smoke.py --dp-rank <mode>`` on ``n`` ranks through torchrun's
+    launcher (``--standalone``: a rendezvous on this host); each rank's
+    record in rank order, the ranks' output echoed. Fails the script if a
+    rank fails or the launch outlives ``timeout``."""
+    paths = [_rank_record(mode, r) for r in range(n)]
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or n) // n)),
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    # its own process group, so a timeout takes the ranks down with the launcher
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", str(n), os.path.abspath(__file__),
+                             "--dp-rank", mode], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"FAIL dp {mode}: the ranks outlived {timeout} s; killed")
+    for line in stdout.splitlines():
+        if line.strip():
+            say(f"  {line}")
+    if proc.returncode or not all(os.path.exists(p) for p in paths):
+        raise SystemExit(f"FAIL dp {mode}: rc {proc.returncode}\n{stdout[-3000:]}\n"
+                         f"{stderr[-3000:]}")
+    recs = []
+    for path in paths:
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _sum_launches(recs) -> dict:
+    """The ranks' launch counters summed: every launch on the card."""
+    return {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+
+
+def dp2_numerics_rank() -> dict:
+    """(a rank) Full-width smollm-135m cut to 2 layers, 2 steps of each of
+    ``DP2_CASES`` on 2 ranks on the card (kernels) and on 2 ranks on the
+    CPU (plain versions), the same global state (drawn whole, each rank
+    its shard) and global batches (each rank its rows); this rank's loss,
+    grad norm (summed over the ranks), rows and f32 masters held card
+    against CPU by ``phase_zero3_numerics``' bounds."""
+    meshes = {dev: mesh_mod.make_local_mesh(2, 1, dev) for dev in ("cpu", "cuda")}
+    rank = meshes["cpu"].rank
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    B, S, steps = 4, 128, 2
+    recs, failures = [], []
+    ops.reset_launch_counts()
+    for case, (param, grad, opt, compress) in DP2_CASES.items():
+        base = os.path.join(ROOT, "build", f"chip_smoke_dp2_{case}")
+        state0, out = None, {}
+        for dev in ("cpu", "cuda"):
+            mesh = meshes[dev]
+            nvme = os.path.join(base, dev)
+            run = RunConfig(model=cfg, parallel=make_parallel("zero3", remat="none",
+                                                              grad_compression=compress),
+                            offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                                                 nvme_dir=nvme),
+                            train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+            ex = InfinityExecutor(run, mesh.device, mesh=mesh)
+            if state0 is None:
+                state0 = ex.engine.init_state(torch.Generator().manual_seed(SEED))
+            state = ex.reseed(ex.engine.place_state(_to(state0, mesh.device)))
+            stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                                     cfg.vocab_size, seed=SEED)
+            step = ex.make_train_step()
+            traj = []
+            for i in range(steps):
+                batch = {k: torch.from_numpy(a).to(mesh.device)
+                         for k, a in rank_slice(stream.batch_at(i), rank, 2).items()}
+                state, m = step(state, batch)
+                traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+            rows = ex.materialize_flat() if ex.layered else state["flat"]
+            masters = _masters(ex) if ex.layered else state["master"]
+            out[dev] = (traj, rows.detach().float().cpu(), masters.detach().float().cpu())
+            ex.close()
+            shutil.rmtree(os.path.join(nvme, ex.rank_key), ignore_errors=True)
+        (tc, f_c, m_c), (tg, f_g, m_g) = out["cpu"], out["cuda"]
+        lrs = [t["lr"] for t in tc]
+        drift = adam.parity_bound(TrainConfig(), lrs)
+        diff = (f_g - f_c).abs()
+        allowed = drift + 2**-8 * (f_c.abs() + f_g.abs())
+        rec = {"case": case, "rank": rank, "tiers_param_grad_opt_compress": DP2_CASES[case],
+               "layers": 2, "d_model": cfg.d_model, "global_batch": B, "seq": S,
+               "steps": steps, "rows_shape": list(f_g.shape), "cpu": tc, "card": tg,
+               "flat_max_abs_diff": diff.max().item(), "flat_mean_abs_diff": diff.mean().item(),
+               "flat_worst_diff_over_bound": (diff / allowed).max().item(),
+               "masters_worst_diff_over_drift": (m_g - m_c).abs().max().item() / drift,
+               "flat_mean_bound": 2**-5 * sum(lrs)}
+        for c, g in zip(tc, tg):
+            for key in ("loss", "grad_norm"):
+                tol = INT8_NORM_TOL if (case == "int8" and key == "grad_norm") else TRAIN_TOL
+                if not abs(g[key] - c[key]) <= tol["atol"] + tol["rtol"] * abs(c[key]):
+                    failures.append(f"{case}: card {key} {g[key]} vs CPU {c[key]}")
+        if not rec["masters_worst_diff_over_drift"] <= 1 or not bool((diff <= allowed).all()) \
+                or not rec["flat_mean_abs_diff"] <= rec["flat_mean_bound"]:
+            failures.append(f"{case}: the rows differ beyond the bound")
+        recs.append(rec)
+    return {"rank": rank, "cases": recs, "failures": failures,
+            "launches": ops.launch_counts(), "transport": meshes["cuda"].transport()}
+
+
+def dp_train_rank() -> dict:
+    """(a rank) ``launch.train --engine zero3 --data-mesh N`` (N the
+    launch's world size) on full smollm-135m, the layered epoch with
+    params, grads and optimizer on NVMe, ``DP_TRAIN_STEPS`` steps of 8 x
+    512 (8 / N x 512 a rank), tracer on; this rank's step metrics (the
+    wall's compute / io_wait / other split, the collectives' waits among
+    io_wait), launches, peak allocated memory and transport."""
+    n = int(os.environ["WORLD_SIZE"])
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_nvme_dp{n}")
+    argv = ["--arch", "smollm-135m", "--engine", "zero3", "--data-mesh", str(n),
+            "--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme",
+            "--batch", "8", "--seq", "512", "--steps", str(DP_TRAIN_STEPS), "--lr", "3e-3",
+            "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+    trace.enable()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace.disable()
+    keys = [f"{t}_bytes" for t in TIERS] + ["param_total_bytes", "peak_resident_param_bytes"]
+
+    def fracs(m):
+        w = max(m["trace_wall_s"], 1e-12)
+        return {"compute_frac": m["trace_compute_s"] / w,
+                "io_wait_frac": m["trace_io_wait_s"] / w,
+                "io_wait_collective_frac": m.get("trace_io_wait_collective_s", 0.0) / w,
+                "other_frac": m["trace_other_s"] / w}
+
+    return {"rank": hist["mesh"].rank, "argv": " ".join(argv), "wall_s": wall,
+            "launches": ops.launch_counts(), "transport": hist["mesh"].transport(),
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "steps": [{"step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
+                       "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"], **fracs(m),
+                       **{k: m[k] for k in keys}, **{f"{k}_all_ranks": m[f"{k}_all_ranks"]
+                                                     for k in keys}} for m in hist["metrics"]]}
+
+
+def dp_rank(mode: str) -> int:
+    """A rank's side of the dp phases, started by ``run_ranks``, on the
+    backend ``mesh.choose_backend`` picks (gloo for ranks that share the
+    card, NCCL for ranks with a card each); writes its record to
+    ``_rank_record``."""
+    if not torch.cuda.is_available():
+        print("dp rank: CUDA is not available")
+        return 1
+    if mode == "numerics":
+        created = mesh_mod.maybe_init_distributed("cuda")
+        try:
+            rec = dp2_numerics_rank()
+        finally:
+            if created:
+                torch.distributed.destroy_process_group()
+    else:  # launch.train joins and leaves the group itself
+        rec = dp_train_rank()
+    with open(_rank_record(mode, rec["rank"]), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def phase_zero3_dp2_numerics() -> tuple:
+    """Both ranks' ``dp2_numerics_rank``: every case within its bounds on
+    each rank, the CUDA side's launches on the tensor-core routes."""
+    t0 = time.perf_counter()
+    recs = run_ranks("numerics", 600)
+    for r in recs:
+        for case in r["cases"]:
+            say("zero3 dp2 numerics:", json.dumps(case))
+        say("zero3 dp2 numerics launches:", json.dumps({"rank": r["rank"],
+                                                        "launches": r["launches"],
+                                                        "transport": r["transport"]}))
+        if r["failures"]:
+            raise SystemExit(f"FAIL zero3 dp2 numerics (rank {r['rank']}): {r['failures']}")
+        check_main_path_routes("zero3 dp2 numerics", r["launches"])
+    launches = _sum_launches(recs)
+    rec = {"phase_s": time.perf_counter() - t0, "transport": recs[0]["transport"],
+           "masters_worst_diff_over_drift": max(c["masters_worst_diff_over_drift"]
+                                                for r in recs for c in r["cases"])}
+    say("zero3 dp2 numerics phase:", json.dumps(rec))
+    return rec, launches
+
+
+def phase_zero3_dp_train(dp1: dict, n: int = 2, tag: str = "zero3 dp2 train") -> tuple:
+    """``n`` ranks' ``dp_train_rank``: the losses finite, falling and those
+    of the one-rank layered run (``dp1``, phase 9: the same seed and global
+    batches) by ``TRAIN_TOL``; each rank's tier bytes per step an n-th of
+    the one-rank run's, their sum equal to it; each rank's launches those
+    of a one-rank step, all on the tensor cores."""
+    L = configs.get("smollm-135m").n_layers
+    recs = run_ranks("train", 600, n)
+    for r in recs:
+        for m in r["steps"]:
+            say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
+    rec = {"argv": recs[0]["argv"], "transport": recs[0]["transport"],
+           "wall_s": [r["wall_s"] for r in recs],
+           "peak_allocated_gb": [r["peak_allocated_gb"] for r in recs],
+           "launches_per_rank": [r["launches"] for r in recs],
+           "losses": [m["loss"] for m in recs[0]["steps"]],
+           "dp1_losses": dp1["losses"][:DP_TRAIN_STEPS],
+           "median_step_s_after_first": statistics.median(
+               m["step_s"] for m in recs[0]["steps"][1:]),
+           "bytes_per_rank": {k: recs[0]["steps"][-1][k] for k in dp1["step_bytes"]},
+           "dp1_bytes": dp1["step_bytes"]}
+    rec["median_tokens_per_s_after_first"] = 8 * 512 / rec["median_step_s_after_first"]
+    say(f"{tag}:", json.dumps(rec))
+    losses = rec["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
+    for got, want in zip(losses, rec["dp1_losses"]):
+        if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
+            raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
+    for r in recs:
+        for m in r["steps"]:
+            for k, whole in dp1["step_bytes"].items():
+                if not (n * m[k] == whole and m[f"{k}_all_ranks"] == whole):
+                    raise SystemExit(f"FAIL {tag}: rank {r['rank']} step {m['step']} {k} {m[k]} "
+                                     f"(all ranks {m[f'{k}_all_ranks']}), the one-rank run's "
+                                     f"{whole}")
+        steps = DP_TRAIN_STEPS
+        want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps,
+                "tiled_matmul": 12 * L * steps, "fused_adam": 2 * steps}
+        for name, count in want.items():
+            if r["launches"][name] < count:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched {name} "
+                                 f"{r['launches'][name]} < {count}")
+        check_main_path_routes(tag, r["launches"])
+    return rec, _sum_launches(recs)
+
+
+def nccl_check() -> int:
+    """``chip_smoke.py --nccl-check``, on a machine with four cards: the
+    NCCL branch of the transport rule (each rank a card of its own), the
+    one-rank layered run (phase 9) on card 0, then "zero3 dp4 nccl train"
+    (``phase_zero3_dp_train`` on 4 ranks, cuda:0-3). Not part of the
+    one-card run."""
+    if torch.cuda.device_count() < 4:
+        print(f"nccl check: {torch.cuda.device_count()} cards; it needs 4")
+        return 1
+    say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    dp1, _ = phase_train_main()
+    rec, launches = phase_zero3_dp_train(dp1, 4, "zero3 dp4 nccl train")
+    if rec["transport"]["backend"] != "nccl":
+        raise SystemExit(f"FAIL nccl check: the ranks ran {rec['transport']}")
+    say("nccl check:", json.dumps({"ok": True, "cards": torch.cuda.device_count(),
+                                   "launches": launches}))
+    return 0
 
 
 def phase_resume_drill() -> tuple:
@@ -2203,6 +2506,8 @@ def main() -> int:
         "zero3 offload", ["--offload-param", "device", "--offload-opt", "host"])
     z3h_rec, z3h_launches = phase_zero3_train(
         "zero3 host", ["--offload-param", "host", "--offload-opt", "host"])
+    dp2_rec, dp2_launches = phase_zero3_dp2_numerics()
+    dp2_train_rec, dp2_train_launches = phase_zero3_dp_train(train_rec)
     drill_rec, drill_launches = phase_resume_drill()
     moe_repeat = phase_moe_repeat()
     moe_numerics = {k: phase_moe_numerics(k) for k in ("gspmd", "layered")}
@@ -2278,6 +2583,7 @@ def main() -> int:
              "plan_train": plan_launches, "plan_offload": offload_launches,
              "plan_serve": plan_serve_launches, "zero3_train": z3_launches,
              "zero3_offload": z3o_launches, "zero3_host": z3h_launches,
+             "zero3_dp2_numerics": dp2_launches, "zero3_dp2_train": dp2_train_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -2331,6 +2637,10 @@ def main() -> int:
         f"{z3o_rec['median_tokens_per_s_after_first']:.0f} tok/s, host "
         f"{z3h_rec['median_tokens_per_s_after_first']:.0f} tok/s; zero3 numerics masters "
         f"{max(r['masters_worst_diff_over_drift'] for r in zero3.values()):.3f} of drift; "
+        f"zero3 dp2 numerics masters {dp2_rec['masters_worst_diff_over_drift']:.3f} of "
+        f"drift, dp2 train {dp2_train_rec['losses'][0]:.4f} -> "
+        f"{dp2_train_rec['losses'][-1]:.4f} at "
+        f"{dp2_train_rec['median_tokens_per_s_after_first']:.0f} tok/s (2 ranks, 1 card); "
         f"resume drill restarts {drill_rec['restarts']}; moe repeat "
         f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
         f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "
@@ -2374,4 +2684,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--nccl-check"]:
+        sys.exit(nccl_check())
     sys.exit(main())

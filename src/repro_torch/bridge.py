@@ -29,14 +29,16 @@ def params_from_numpy(tree, device="cpu"):
     return tensor_from_numpy(tree, device)
 
 
-def zero3_state_from_numpy(state: dict, device="cpu") -> dict:
+def zero3_state_from_numpy(state: dict, device="cpu", *, rank: int = 0, dp: int = 1,
+                           mode: str = "allgather") -> dict:
     """The JAX package's ``ExplicitZero3Engine.init_state`` output with
     every leaf as numpy (``flat`` (L, P) bf16 rows, ``other``, ``other_opt``
     (an ``AdamState``-shaped 4-tuple step/master/m/v), ``step``, and where
     present the MoE expert rows ``eflat`` (L * E, Pe) bf16 (with the f32
     router in ``other``), the in-graph f32 ``master``/``m``/``v`` and the
     int8 residuals ``g_err``) -> the port engine's state, so both packages
-    start from the same state."""
+    start from the same state; with ``dp`` > 1, rank ``rank``'s shard of
+    it (``shard_zero3_state``)."""
     from repro_torch.optim.adam import AdamState
 
     step, master, m, v = state["other_opt"]
@@ -52,4 +54,23 @@ def zero3_state_from_numpy(state: dict, device="cpu") -> dict:
     for key in ("eflat", "master", "m", "v", "g_err"):
         if key in state:
             out[key] = params_from_numpy(state[key], device)
+    return shard_zero3_state(out, rank, dp, mode)
+
+
+def shard_zero3_state(state: dict, rank: int, dp: int, mode: str = "allgather") -> dict:
+    """A global explicit-engine state (torch) -> rank ``rank``'s shard of
+    it among ``dp`` ranks: the (L, P) ``flat`` and ``master``/``m``/``v``
+    as ``partition.row_shard`` splits them under ``mode``, each (dp, ...)
+    residual's slice ``[rank]``; the small 'other' states whole, as the
+    reference replicates them. The state itself at dp = 1."""
+    from repro_torch.core.partition import row_shard, tree_map
+
+    if dp == 1:
+        return state
+    out = dict(state)
+    for key in ("flat", "master", "m", "v"):
+        if key in out:
+            out[key] = row_shard(out[key], rank, dp, mode).contiguous()
+    if "g_err" in out:
+        out["g_err"] = tree_map(lambda t: t[rank:rank + 1].contiguous(), out["g_err"])
     return out

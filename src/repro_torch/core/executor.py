@@ -1,5 +1,6 @@
-"""InfinityExecutor on one device: both ZeRO engines through the three
-tiers — the subset of ``repro/core/executor.py`` that one card runs.
+"""InfinityExecutor: both ZeRO engines through the three tiers on one
+device, and the explicit engine on each rank of a data-parallel mesh — the
+subset of ``repro/core/executor.py`` the port runs.
 
 ``make_engine`` picks the engine from ``RunConfig.parallel.engine``, and
 the executor drives the configured placement of each state class:
@@ -17,8 +18,8 @@ the executor drives the configured placement of each state class:
     the opt store with ``ChunkedAdamOffload``'s read(k+1) || update(k) ||
     write(k-1) pipeline, keyed by the reference's names: the GSPMD
     engine's leaves by ``keystr`` (``['blocks']['attn']['wq']``), the
-    explicit engine's (L, P) flat as the one rank's ``rank0/flat``; the lr
-    is a host float from the same ``lr_at`` arithmetic;
+    explicit engine's flat as the rank's ``rank<r>/flat``; the lr is a
+    host float from the same ``lr_at`` arithmetic;
   * the explicit engine's layered ZeRO-3 epoch (``--engine zero3
     --offload-param nvme``, below).
 
@@ -93,6 +94,17 @@ quantized-matmul kernel (``core/zero.py``). Under ``q4`` a row is decoded
 on the host back to bf16, as the reference does for both formats. The
 auto prefetch window deepens by the compression ratio.
 
+Data parallel (``mesh``, a ``launch/mesh.LocalMesh`` of dp > 1 ranks, one
+process each): the explicit engine's monolithic step and layered epoch on
+the rank's shard of the rows, keyed by the rank as the reference keys each
+rank's (``rank<r>/flat``, ``rank<r>/l<i>``, param rows ``rank<r>/c<i>``);
+the host Adam and the gradient drain run on the rank's shard, and the
+rank's stores live in ``<nvme_dir>/rank<r>/``, so no two processes share a
+file. The tier counters count the rank's own bytes; each step also reports
+their sum over the ranks, ``<counter>_all_ranks``, what the reference's
+one process counts. The GSPMD engine on a mesh raises (ROADMAP item 8c),
+as do checkpoints at dp > 1 (item 5).
+
 What stays unported raises, naming its ROADMAP item (``check_ported``).
 Per-step metrics of the off-graph and layered steps are the reference's:
 loss, grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
@@ -127,19 +139,25 @@ from repro_torch.optim import adam as adam_mod
 from repro_torch.runtime import trace
 
 
-def check_ported(run: RunConfig, n_devices: int = 1) -> None:
+def check_ported(run: RunConfig, n_devices: int = 1, dp: int = 1) -> None:
     """Raise ``NotImplementedError`` for a configuration the port cannot
-    run yet, naming the ROADMAP item that ports it."""
+    run yet, naming the ROADMAP item that ports it: a plan for more than
+    one device, and the GSPMD engine on a mesh of ``dp`` > 1 ranks."""
     if n_devices > 1:
         raise NotImplementedError(
-            f"{n_devices} devices: the port runs one (ROADMAP.md Queue 1 "
-            "item 8b: meshes larger than one device)")
+            f"a plan for {n_devices} devices: the planner's placements and the "
+            "GSPMD engine run one (ROADMAP.md Queue 1 item 8c)")
+    if dp > 1 and run.parallel.engine != "zero3":
+        raise NotImplementedError(
+            f"the GSPMD engine on a mesh of {dp} ranks is not ported (ROADMAP.md "
+            "Queue 1 item 8c); the explicit engine (--engine zero3) runs at dp > 1")
 
 
-def make_engine(run: RunConfig, device):
-    """``RunConfig.parallel.engine`` -> engine instance ('pjit' | 'zero3')."""
+def make_engine(run: RunConfig, device, mesh=None):
+    """``RunConfig.parallel.engine`` -> engine instance ('pjit' | 'zero3');
+    the explicit one on ``mesh``'s rank."""
     if run.parallel.engine == "zero3":
-        return ExplicitZero3Engine(run, device)
+        return ExplicitZero3Engine(run, device, mesh)
     return ZeroInfinityEngine(run, device)
 
 
@@ -166,14 +184,18 @@ class InfinityExecutor:
     live on NVMe.
     """
 
-    def __init__(self, run: RunConfig, device="cuda", *, engine=None, plan=None):
+    def __init__(self, run: RunConfig, device="cuda", *, engine=None, plan=None, mesh=None):
         # an optional repro_torch.plan.InfinityPlan: its predictions are
         # reported beside the measured counters in the step metrics
         self.plan = plan
-        check_ported(run, plan.hardware.n_devices if plan is not None else 1)
+        self.mesh = mesh
+        self.dp = mesh.world if mesh is not None else 1
+        check_ported(run, plan.hardware.n_devices if plan is not None else 1, self.dp)
         self.run = run
         self.device = torch.device(device)
-        self.engine = engine if engine is not None else make_engine(run, self.device)
+        # this rank's key namespace in the stores, as the reference's
+        self.rank_key = f"rank{mesh.rank if mesh is not None else 0}"
+        self.engine = engine if engine is not None else make_engine(run, self.device, mesh)
         self.explicit = isinstance(self.engine, ExplicitZero3Engine)
         # explicit-engine MoE: expert rows are schedule units of their own
         self.is_moe = bool(getattr(self.engine, "is_moe", False))
@@ -255,7 +277,11 @@ class InfinityExecutor:
     def _make_store(self, tier: str, name: str) -> ArrayStore:
         off = self.run.offload
         if tier == "nvme":
-            store = NvmeStore(os.path.join(off.nvme_dir, name), pool=self._pool,
+            # at dp > 1 each rank's stores in a directory of their own: no
+            # file, sidecars included, is written by two processes
+            root = (off.nvme_dir if self.dp == 1
+                    else os.path.join(off.nvme_dir, self.rank_key))
+            store = NvmeStore(os.path.join(root, name), pool=self._pool,
                               overlap=off.overlap, workers=off.nvme_workers)
         else:
             store = HostArrayStore(pool=self._pool, overlap=off.overlap,
@@ -281,10 +307,10 @@ class InfinityExecutor:
                 if self.opt_store is None:
                     self.opt_store = self._make_store(off.opt_tier, "opt")
                 self.offload = ChunkedAdamOffload(self.opt_store)
-                # the explicit engine's one rank's (L, P) flat, f32 (bf16 ->
-                # f32 is exact), or the GSPMD engine's leaves
+                # the explicit engine's rank's flat, f32 (bf16 -> f32 is
+                # exact), or the GSPMD engine's leaves
                 self.offload.init_from_params(
-                    {"rank0/flat": state["flat"].float()} if self.explicit
+                    {f"{self.rank_key}/flat": state["flat"].float()} if self.explicit
                     else flatten_with_paths(state["params"]))
                 self.offload.step_count = step
             if self.grad_offload and self.grad_store is None:
@@ -311,12 +337,12 @@ class InfinityExecutor:
                 E = self.engine.n_experts
                 for e in range(E):
                     seed[f"xrank0/l{li * E + e}"] = eflat[li * E + e]
-            seed[f"rank0/l{li}"] = flat[li]
+            seed[f"{self.rank_key}/l{li}"] = flat[li]
         self.offload.init_from_params(seed)
         self.offload.step_count = step
         if self.grad_offload and self.grad_store is None:
             self.grad_store = self._make_store(off.grad_tier, "grad")
-        named = {"rank0": flat}
+        named = {self.rank_key: flat}
         if eflat is not None:
             named["xrank0"] = eflat
         self._seed_param_stream(named, row_split=True)
@@ -346,8 +372,7 @@ class InfinityExecutor:
         of leaf specs."""
         if not self.explicit:
             return self.engine.param_specs()
-        return TensorSpec((self.engine.n_layers, self.engine.layout.padded),
-                          torch.bfloat16)
+        return TensorSpec(self.engine.local_shape, torch.bfloat16)
 
     @staticmethod
     def _is_dropped(tree) -> bool:
@@ -361,15 +386,15 @@ class InfinityExecutor:
 
     @property
     def total_param_bytes(self) -> int:
-        """Bytes of all scheduler-managed rows or leaves (the never-fully-
-        resident claim's denominator); 0 where no param is slow-tier
-        resident."""
+        """Bytes of all scheduler-managed rows (this rank's) or leaves (the
+        never-fully-resident claim's denominator); 0 where no param is
+        slow-tier resident."""
         if not self.param_nvme:
             return 0
         if not self.explicit:
             return sum(math.prod(s.shape) * s.dtype.itemsize
                        for s in pt.tree_leaves(self._param_placeholder()))
-        return self.engine.n_layers * self.engine.layout.padded * 2 + self.expert_total_bytes
+        return math.prod(self.engine.local_shape) * 2 + self.expert_total_bytes
 
     @property
     def expert_total_bytes(self) -> int:
@@ -386,10 +411,10 @@ class InfinityExecutor:
 
     def materialize_rows(self) -> dict:
         """The rows assembled from the param store, on the CPU: ``flat``
-        (L, P) bf16 and, for MoE, ``eflat`` (L * E, Pe) — for checks and
-        checkpoints; the step never calls it."""
+        (the rank's (L, P/dp) bf16) and, for MoE, ``eflat`` (L * E, Pe) —
+        for checks and checkpoints; the step never calls it."""
         loaded = self.param_stream.load_all()
-        out = {"flat": loaded["rank0"]}
+        out = {"flat": loaded[self.rank_key]}
         if self.is_moe:
             out["eflat"] = loaded["xrank0"]
         return out
@@ -413,6 +438,7 @@ class InfinityExecutor:
         the full-state checkpoint persists. Waits for the pinned host
         tier's write-backs first, so a snapshot reads the last step's
         values."""
+        self._one_rank_checkpoints()
         self.wait_host()
         if not self.param_nvme:
             return state
@@ -436,6 +462,7 @@ class InfinityExecutor:
         moments (in-graph or streamed) and the int8 residual restart at
         zero, in-graph masters are the params' f32 copies, the stores are
         reseeded."""
+        self._one_rank_checkpoints()
         if self.explicit:
             state = self.engine.place_state(self.engine.complete_state(portable))
         else:
@@ -446,7 +473,15 @@ class InfinityExecutor:
         """A full checkpoint restored on the CPU -> this executor's state:
         each leaf placed on its tier, the stores reseeded (their moments
         restart at zero)."""
+        self._one_rank_checkpoints()
         return self.reseed(self.engine.place_state(restored), step=step)
+
+    def _one_rank_checkpoints(self) -> None:
+        if self.dp > 1:
+            raise NotImplementedError(
+                f"checkpoints at dp {self.dp}: a checkpoint holds the global rows, "
+                "and saving or restoring it across ranks is re-sharding (ROADMAP.md "
+                "Queue 1 item 5)")
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         return self.engine.input_specs(shape)
@@ -503,24 +538,25 @@ class InfinityExecutor:
 
     def _explicit_offgraph_step(self, grads_step):
         """The explicit engine's grads-only step, then the streamed Adam
-        over the one rank's (L, P) flat (``rank0/flat``): its gradient
+        over the rank's flat shard (``rank<r>/flat``): its gradient
         drained to the grad tier when that is slow, the updated bf16 rows
         placed like the old ``flat`` (written into the pinned tensor on the
         host tier, once the update has consumed the gradient and so the
         step's reads of the rows are done)."""
         tc = self.run.train
         param_host = self.engine.param_host
+        key = f"{self.rank_key}/flat"
 
         def step(state, batch):
             new_state, g32, metrics = grads_step(state, batch)
-            gflat = {"rank0/flat": g32}
+            gflat = {key: g32}
             if self.grad_offload:
                 gflat = self._drain_grads(gflat)
             lr = float(metrics["lr"])
             new_master = self.offload.step(gflat, lr=lr, beta1=tc.beta1,
                                            beta2=tc.beta2, eps=tc.eps,
                                            weight_decay=tc.weight_decay)
-            rows = new_master["rank0/flat"].to(torch.bfloat16)
+            rows = new_master[key].to(torch.bfloat16)
             old = state["flat"]
             new_state = dict(new_state)
             new_state["flat"] = old.copy_(rows) if param_host else rows.to(old.device)
@@ -616,10 +652,12 @@ class InfinityExecutor:
                                        ready=self._ready_event())
 
     def _ensure_row_scheduler(self, batch):
-        """Plan + prefetcher over the rows; rebuilt when ``reseed`` swapped
-        the streamer or, for the auto window, the batch's tokens changed."""
+        """Plan + prefetcher over the rank's rows; rebuilt when ``reseed``
+        swapped the streamer or, for the auto window, the batch's tokens
+        changed. The auto window counts the global batch's tokens (the
+        rank's slice times dp) and the whole row, as the reference's."""
         off = self.run.offload
-        tokens = batch["tokens"].numel()
+        tokens = batch["tokens"].numel() * self.dp
         stale = (self._sched is None or self._pe_stream is not self.param_stream
                  or (not off.prefetch_layers and tokens != self._sched_tokens))
         if stale:
@@ -628,10 +666,10 @@ class InfinityExecutor:
                 L, self.engine.layout.padded, tokens,
                 compression_ratio=qformat.compression_ratio(off.param_quant))
             self._sched_tokens = tokens
-            stream, wire = self.param_stream, self._wire_rows
+            stream, wire, name = self.param_stream, self._wire_rows, self.rank_key
 
             def fetch(layer):
-                return [stream.read_row("rank0", layer, wire=wire)]
+                return [stream.read_row(name, layer, wire=wire)]
 
             self._sched = sched_mod.LayerSchedule(L, window,
                                                   read_ahead=off.param_read_ahead)
@@ -640,8 +678,8 @@ class InfinityExecutor:
         return self._sched, self._pe
 
     def _device_row(self, vals):
-        """The one rank's host row -> the device (pinned, non-blocking): a
-        bf16 row, or under q8 the wire operands ``(q, s)``."""
+        """The rank's host row (slice) -> the device (pinned, non-blocking):
+        a bf16 row, or under q8 the wire operands ``(q, s)``."""
         with trace.span("h2d_row", sys="store", cls="param"):
             if self._wire_rows:
                 return qformat.wire_row_device(vals[0], self._stager)
@@ -699,7 +737,7 @@ class InfinityExecutor:
                 nonlocal dx, sumsq
                 dx, g_row = fns["layer_vjp"](acts.pop(layer), rows[layer], dx)
                 sumsq = fns["accum_sumsq"](sumsq, g_row)
-                key = f"rank0/l{layer}"
+                key = f"{self.rank_key}/l{layer}"
                 gdict[key] = (self.grad_store.roundtrip(f"{key}/g", g_row,
                                                         ready=self._ready_event())
                               if self.grad_offload else g_row)
@@ -1004,7 +1042,9 @@ class InfinityExecutor:
         ``<class>_*_bytes`` are logical (the full-precision arrays moved),
         ``<class>_*_wire_bytes`` what crossed the tier — smaller under a
         quantized wire format, equal otherwise; the GB/s and the NVMe
-        aggregate count wire bytes."""
+        aggregate count wire bytes. At dp > 1 they are the rank's, and
+        each integer counter's sum over the ranks sits beside it as
+        ``<counter>_all_ranks`` (one sum over the ranks a step)."""
         out = dict(metrics)
         nvme = {"bytes_read": 0, "bytes_written": 0}
         for name, store in self._active_stores():
@@ -1031,6 +1071,10 @@ class InfinityExecutor:
         if self.param_nvme:  # scheduler residency
             out.update(self._ws.stats())
             out["param_total_bytes"] = self.total_param_bytes
+        if self.dp > 1:
+            keys = [k for k, v in out.items() if k.endswith("_bytes") and isinstance(v, int)]
+            out.update({f"{k}_all_ranks": v for k, v in
+                        zip(keys, self.mesh.sum_over_ranks([out[k] for k in keys]))})
         return self._with_plan_crosscheck(self._with_trace_attribution(out))
 
     def _with_plan_crosscheck(self, out: dict) -> dict:

@@ -132,6 +132,20 @@ def build_layout(block_defs: dict, dp: int = 1) -> FlatLayout:
                       total + (-total) % dp)
 
 
+def row_shard(rows: torch.Tensor, rank: int, dp: int, mode: str = "allgather") -> torch.Tensor:
+    """Rank ``rank``'s part of the global (L, P) ``rows`` (the flat, its
+    f32 master or a moment) among ``dp`` ranks: the columns ``[r * P/dp,
+    (r+1) * P/dp)`` of every layer under ``allgather`` (P a multiple of
+    dp, ``build_layout`` pads it), the contiguous layers ``[r * L/dp,
+    (r+1) * L/dp)`` under ``broadcast``."""
+    axis = 1 if mode == "allgather" else 0
+    n = rows.shape[axis]
+    if n % dp:
+        raise ValueError(f"{mode}: {n} rows' {'columns' if axis else 'layers'} do not "
+                         f"split over {dp} ranks")
+    return rows.narrow(axis, rank * (n // dp), n // dp)
+
+
 def flatten_blocks(blocks: dict, layout: FlatLayout, dtype: torch.dtype) -> torch.Tensor:
     """Stacked block params (leaves (L, ...)) -> (L, padded) in ``dtype``."""
     leaves = [tree_get(blocks, p) for p in layout.paths]

@@ -1,27 +1,45 @@
-"""Explicit ZeRO-3 engine, dense family, one device (``repro/core/zero.py``).
+"""Explicit ZeRO-3 engine, dense family (``repro/core/zero.py``), one
+process per data-parallel rank.
 
 Each layer's parameters flatten into one row (``core/partition.py``
-``FlatLayout``, the reference's byte order), the (L, P) bf16 ``flat``. With
-one data-parallel rank a row's all-gather and its reduce-scatter transpose
-are the identity, so a row is used as it is read. Two ways to step:
+``FlatLayout``, the reference's byte order), the (L, P) bf16 ``flat``,
+padded to a multiple of dp. The ranks of a ``launch/mesh.LocalMesh`` each
+hold a shard of it (``partition.row_shard``), the reference's placement:
+
+  * ``partition_mode="allgather"`` (bandwidth-centric, the paper's Sec.
+    6.1): rank r holds columns ``[r * P/dp, (r+1) * P/dp)`` of every row,
+    the local (L, P/dp). A layer materializes as the all-gather of its
+    slices (``RowGather``: forward ``all_gather_into_tensor``, backward
+    the bf16 ``reduce_scatter_tensor`` of the row's cotangent, which is
+    upcast to f32 only after, as the reference's ``psum_scatter``);
+  * ``"broadcast"`` (the owner baseline): rank r holds the layers ``[r *
+    L/dp, (r+1) * L/dp)`` whole (L % dp == 0, as the reference asserts);
+    a layer reaches the other ranks as the reference's masked psum
+    (``Psum``: the owner's row, zeros elsewhere, summed; its backward sums
+    the cotangents), so the gradient reaches the owner alone.
+
+At dp = 1 the gather and its transpose are the identity and a row is used
+as it is read. Each rank takes rows ``[r * B/dp, (r+1) * B/dp)`` of the
+global batch; the loss is scaled by 1/dp before its sum over the ranks,
+the 'other' gradients and the grad norm's sums of squares are summed over
+them, the small 'other' states update alike on every rank. Two ways to
+step:
 
   * **the monolithic step** (``make_train_step``; params on the device or
-    host tier): one autograd pass over the whole (L, P) flat, the
-    reference's ``sharded_step`` at dp = 1. ``partition_mode="broadcast"``
-    is accepted: at dp = 1 the owner of every layer is rank 0 and the
-    masked psum that stands for the broadcast is the identity, as in the
-    reference. ``parallel.prefetch`` only reorders the gathers in the
-    reference (gather(i+1) issued before compute(i)), so it changes no
+    host tier): one autograd pass over the rank's flat, the reference's
+    ``sharded_step``. ``parallel.prefetch`` only reorders the gathers in
+    the reference (gather(i+1) issued before compute(i)), so it changes no
     number and the port gathers in order whatever its value. In-graph
-    tiers update the flat with the fused-Adam kernel over the f32
-    ``master``/``m``/``v`` (L, P), the reference's in-graph update
+    tiers update the local flat with the fused-Adam kernel over its f32
+    ``master``/``m``/``v``, the reference's partitioned in-graph update
     (``repro/core/zero.py:499-506``), and take its bf16 copy as the new
-    ``flat``; off-graph tiers (``run.opt_offgraph``) return the f32 flat
-    gradient for the executor's streamed Adam and advance only ``step``
-    and the small 'other' states. ``grad_compression="int8"`` passes the
-    'other' gradients through ``optim/compression.psum_compressed`` with a
-    per-rank f32 residual ``g_err`` (a leading dp = 1 dim), as the
-    reference does.
+    ``flat``; off-graph tiers (``run.opt_offgraph``) return the local f32
+    flat gradient for the executor's streamed Adam and advance only
+    ``step`` and the small 'other' states. ``grad_compression="int8"``
+    reduces the 'other' gradients through
+    ``optim/compression.psum_compressed`` (the mean, scaled back by dp)
+    with the rank's f32 residual ``g_err`` (a leading dim of 1: the rank's
+    slice of the reference's (dp, ...) leaf).
   * **the layered epoch** (``make_layer_fns``; params on NVMe): the step
     as the pieces the executor's scheduler drives over rows streamed
     through the prefetch window (``core/executor.py``): ``embed_fwd``,
@@ -33,8 +51,8 @@ are the identity, so a row is used as it is read. Two ways to step:
 Gradient dtypes follow the reference: the monolithic step differentiates
 with respect to the bf16 ``flat``, so its row gradients are bf16 (summed in
 bf16 where a leaf's pieces meet) and only then upcast to f32; the layered
-epoch's ``layer_vjp`` carries each row's bf16 cotangent in f32 to the grad
-tier.
+epoch's ``layer_vjp`` carries each row's bf16 cotangent (the
+reduce-scattered slice) in f32 to the grad tier.
 
 Host tier (``param_tier="host"``, and ``opt_tier="host"`` while the
 optimizer is in-graph): on the card ``flat`` and ``master``/``m``/``v``
@@ -58,9 +76,10 @@ then fixed-width waves of router-selected expert rows (``moe_wave_fwd`` /
 ``moe_wave_vjp``) whose sum is the all-resident ``moe_ffn``, and
 ``moe_attn_vjp``. The monolithic step refuses MoE, as the reference's.
 
-Not ported: dp > 1 (ROADMAP Queue 1 item 8b). ``parallel.remat`` applies
-to the monolithic step's layers (``models/remat.py``); the layered epoch
-recomputes each layer in its reversed pass whatever the policy.
+At dp > 1 MoE's expert rows and q8/q4 rows raise (ROADMAP item 8d).
+``parallel.remat`` applies to the monolithic step's layers
+(``models/remat.py``); the layered epoch recomputes each layer in its
+reversed pass whatever the policy.
 """
 from __future__ import annotations
 
@@ -82,6 +101,43 @@ from repro_torch.optim import compression
 from repro_torch.runtime import trace
 
 
+class RowGather(torch.autograd.Function):
+    """A layer's row from the ranks' slices: forward the all-gather of the
+    (P/dp,) slices into the (P,) row, backward the reduce-scatter (a sum,
+    in the cotangent's dtype) of the row's cotangent into this rank's
+    slice: the reference's ``all_gather`` and its transpose."""
+
+    @staticmethod
+    def forward(ctx, piece, mesh):
+        ctx.mesh = mesh
+        return mesh.all_gather(piece)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.reduce_scatter(ct), None
+
+
+class Psum(torch.autograd.Function):
+    """The sum of the ranks' tensors, backward the sum of their cotangents
+    (the reference's ``psum`` and its transpose); the broadcast baseline's
+    layer, each rank's piece its row or zeros."""
+
+    @staticmethod
+    def forward(ctx, piece, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(piece)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.all_reduce(ct), None
+
+
+def _psum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s ranks (the reference's ``psum``); ``t``
+    itself at one rank."""
+    return t if mesh is None else mesh.all_reduce(t)
+
+
 def _trace_wrap_fns(fns: dict) -> dict:
     """Each piece in a compute span. On the card the span covers the
     host's launches; the executor's ``device_sync`` span is where the
@@ -91,14 +147,14 @@ def _trace_wrap_fns(fns: dict) -> dict:
 
 
 class ExplicitZero3Engine:
-    """ZeRO-3 with explicit rows on one device, at every tier placement
-    the reference's explicit engine takes there. In-graph tiers keep the
-    f32 ``master``/``m``/``v`` (L, P) in the state; off-graph tiers
-    (``opt_offgraph``) keep them in the executor's stores. The small
-    'other' states (embedding, final norm) stay on the device with their
-    Adam state."""
+    """ZeRO-3 with explicit rows, one rank of ``mesh`` (None: one rank),
+    at every tier placement the reference's explicit engine takes. In-graph
+    tiers keep the rank's f32 ``master``/``m``/``v`` shard in the state;
+    off-graph tiers (``opt_offgraph``) keep them in the executor's stores.
+    The small 'other' states (embedding, final norm) stay on the device
+    with their Adam state, whole on every rank."""
 
-    def __init__(self, run: RunConfig, device="cuda"):
+    def __init__(self, run: RunConfig, device="cuda", mesh=None):
         cfg = run.model
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
@@ -112,7 +168,21 @@ class ExplicitZero3Engine:
                 "all-resident MoE")
         self.run = run
         self.device = torch.device(device)
-        self.dp = 1  # one device: the row's gather and reduce are the identity
+        self.mesh = mesh
+        self.dp = mesh.world if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        self.mode = run.parallel.partition_mode
+        if self.dp > 1:
+            if self.is_moe or run.offload.param_quant != "none":
+                raise NotImplementedError(
+                    f"explicit engine at dp {self.dp}: MoE expert rows and q8/q4 "
+                    "param rows are not ported across ranks (ROADMAP.md Queue 1 "
+                    "item 8d)")
+            if self.mode == "broadcast" and cfg.n_layers % self.dp:
+                raise ValueError(
+                    "broadcast (owner) mode needs n_layers % dp == 0 - and that is "
+                    "the point: single-owner placement does not scale; use "
+                    "partition_mode='allgather' (bandwidth-centric) at scale.")
         self.offgraph = run.opt_offgraph
         self.layered = run.offload.param_tier == "nvme"
         # the host tier is page-locked CPU memory on the card, the device
@@ -181,26 +251,41 @@ class ExplicitZero3Engine:
 
     def g_err_zeros(self) -> dict:
         """Fresh error-feedback residuals: one f32 zero copy of each
-        'other' leaf per rank, stacked on a leading dp dim (each rank's
-        residual is its own quantization error, never reduced)."""
+        'other' leaf, with a leading dim of 1, this rank's slice of the
+        reference's (dp, ...) stack (each rank's residual is its own
+        quantization error, never reduced)."""
         return pt.tree_map(
-            lambda d: torch.zeros((self.dp,) + tuple(d.shape), dtype=torch.float32,
+            lambda d: torch.zeros((1,) + tuple(d.shape), dtype=torch.float32,
                                   device=self.device),
             self._other_defs())
 
+    def shard_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's part of global (L, P) rows (``partition.row_shard``
+        under the partition mode); the rows themselves at dp = 1."""
+        if self.dp == 1:
+            return rows
+        return pt.row_shard(rows, self.rank, self.dp, self.mode).contiguous()
+
+    @property
+    def local_shape(self) -> tuple:
+        """The rank's (L, P/dp) (allgather) or (L/dp, P) (broadcast) flat."""
+        L, P = self.n_layers, self.layout.padded
+        return (L, P // self.dp) if self.mode == "allgather" else (L // self.dp, P)
+
     def init_state(self, generator: torch.Generator) -> dict:
-        """``{"flat": (L, P) bf16 rows, "other", "other_opt", "step"}``,
+        """``{"flat": the rank's bf16 rows, "other", "other_opt", "step"}``,
         plus ``g_err`` under int8 compression and the f32 ``master`` (the
         flat's copy) and zero ``m``/``v`` while the optimizer is in-graph;
-        drawn from ``generator`` (on the engine's device) and placed by
+        the global state drawn from ``generator`` (on the engine's device,
+        the same on every rank), the rank's shard kept, placed by
         ``place_state``."""
         params = pt.init_tree(self.defs, generator, self.device)
         other = {"embed": params["embed"], "ln_f": params["ln_f"]}
         if self.is_moe:
             other["router"] = params["blocks"]["moe"]["router"].float()
         state = {
-            "flat": pt.flatten_blocks(self._dense_blocks(params["blocks"]),
-                                      self.layout, torch.bfloat16),
+            "flat": self.shard_rows(pt.flatten_blocks(self._dense_blocks(params["blocks"]),
+                                                      self.layout, torch.bfloat16)),
             "other": other,
             "other_opt": adam_mod.init_state(other),
             "step": torch.zeros((), dtype=torch.int32, device=self.device),
@@ -270,6 +355,10 @@ class ExplicitZero3Engine:
         """The bundle-shaped param tree rebuilt from an engine state with
         materialized rows (``InfinityExecutor.checkpoint_state``): the
         eval path, the bundle's prefill after a layered run."""
+        if self.dp > 1:
+            raise NotImplementedError(
+                f"params_from_state at dp {self.dp}: the rank holds a shard of the "
+                "rows; assembling them is re-sharding (ROADMAP.md Queue 1 item 5)")
         rows = [pt.unflatten_row(r, self.layout) for r in state["flat"]]
         blocks: dict = {}
         for path in self.layout.paths:
@@ -286,8 +375,8 @@ class ExplicitZero3Engine:
                 "ln_f": state["other"]["ln_f"]}
 
     def layer_row_device(self) -> torch.device:
-        """Where one materialized layer row lives: with one rank, its slice
-        is the whole row, on the engine's device."""
+        """Where the rank's slice of a layer row lives: the engine's
+        device."""
         return self.device
 
     # ------------------------------------------------------------------
@@ -295,14 +384,15 @@ class ExplicitZero3Engine:
     # ------------------------------------------------------------------
 
     def make_train_step(self, *, grads_only: bool = None):
-        """``step(state, batch)``, the reference's ``sharded_step`` at one
-        rank. ``grads_only=None`` resolves from the tiers
-        (``opt_offgraph``). In-graph -> ``(new_state, {loss, grad_norm,
-        lr})`` with the flat updated through the fused-Adam kernel (its
-        master/m/v in place); with ``grads_only`` -> ``(new_state, g32,
-        metrics)``, ``g32`` the (L, P) f32 flat gradient, ``new_state``
-        the old ``flat`` with ``step`` and 'other' advanced. Metrics are
-        0-d device tensors; ``lr`` is the new step's (``adam.lr_at``)."""
+        """``step(state, batch)``, the reference's ``sharded_step`` on this
+        rank's flat and batch slice. ``grads_only=None`` resolves from the
+        tiers (``opt_offgraph``). In-graph -> ``(new_state, {loss,
+        grad_norm, lr})`` with the flat updated through the fused-Adam
+        kernel (its master/m/v in place); with ``grads_only`` ->
+        ``(new_state, g32, metrics)``, ``g32`` the rank's f32 flat gradient
+        (its reduce-scattered shard), ``new_state`` the old ``flat`` with
+        ``step`` and 'other' advanced. Metrics are 0-d device tensors, the
+        same on every rank; ``lr`` is the new step's (``adam.lr_at``)."""
         if grads_only is None:
             grads_only = self.offgraph
         if self.is_moe:
@@ -312,17 +402,29 @@ class ExplicitZero3Engine:
                 "make_layer_fns)")
         pc, tc, cfg = self.run.parallel, self.run.train, self.run.model
         L, dp, layout, block_fn = self.n_layers, self.dp, self.layout, self.block_fn
+        mesh, rank = self.mesh, self.rank
         remat = pc.remat
         compress = self.grad_compress
         param_host = self.param_host
         opt_host = self.opt_host and not grads_only
         host = self.host
+        lpr = L // dp  # broadcast: the layers each rank owns
 
         def gather_layer(rows, i):
-            # allgather: the one rank's (P,) slice is the whole row;
-            # broadcast: rank 0 owns every layer and the masked psum that
-            # stands for the broadcast returns its row as it is
-            return rows[i]
+            """Layer i's (P,) row on every rank, from the rank's rows."""
+            if dp == 1:  # the gather and its transpose are the identity
+                return rows[i]
+            if self.mode == "allgather":
+                return RowGather.apply(rows[i], mesh)
+            # broadcast: the owner's row, zeros on the other ranks, summed
+            # (the reference's masked psum); the zeros stay in the graph so
+            # every rank takes part in the backward's sum
+            owner, local = i // lpr, min(max(i - rank * lpr, 0), lpr - 1)
+            piece = rows[local]
+            if rank != owner:
+                piece = torch.where(torch.zeros((), dtype=torch.bool, device=piece.device),
+                                    piece, torch.zeros_like(piece))
+            return Psum.apply(piece, mesh)
 
         def body_core(x, row, positions):
             return block_fn(x, pt.unflatten_row(row, layout, torch.bfloat16), positions)
@@ -346,25 +448,25 @@ class ExplicitZero3Engine:
                 flat_ = flat.detach().requires_grad_()
                 o = pt.tree_map(lambda t: t.detach().requires_grad_(), other)
                 paths = pt.tree_paths(o)
-                # scaled by 1/dp before the cross-rank sum (identity at dp=1)
+                # scaled by 1/dp before the cross-rank sum
                 loss_s = local_loss(flat_, o, batch) / dp
                 grads = torch.autograd.grad(loss_s, [flat_] + pt.tree_leaves(o))
             g_other: dict = {}
             for path, g in zip(paths, grads[1:]):
                 pt.tree_set(g_other, path, g)
-            return loss_s.detach(), grads[0], g_other
+            return _psum(mesh, loss_s.detach()), grads[0], g_other
 
         def reduce_other(g_other, g_err):
-            """The 'other' gradients' cross-rank sum: the identity at dp=1,
-            or the int8 wire format with error feedback (the mean, scaled
-            back by dp), each leaf's residual in its rank's slice."""
+            """The 'other' gradients' cross-rank sum, or the int8 wire format
+            with error feedback (the mean, scaled back by dp), each leaf's
+            residual in its rank's slice."""
             if not compress:
-                return g_other, None
+                return pt.tree_map(lambda g: _psum(mesh, g), g_other), None
             red: dict = {}
             errs: dict = {}
             for path in pt.tree_paths(g_other):
                 g = pt.tree_get(g_other, path)
-                r, ne = compression.psum_compressed(g, pt.tree_get(g_err, path)[0])
+                r, ne = compression.psum_compressed(g, pt.tree_get(g_err, path)[0], mesh)
                 pt.tree_set(red, path, (r.float() * dp).to(g.dtype))
                 pt.tree_set(errs, path, ne.float()[None])
             return red, errs
@@ -378,7 +480,7 @@ class ExplicitZero3Engine:
             new_step = state["step"] + 1
             lr = adam_mod.lr_at(tc, new_step)
             g32 = g_flat.float()  # the bf16 cotangent, upcast as the reference's
-            gnorm = torch.sqrt(torch.sum(g32 ** 2) + sum(
+            gnorm = torch.sqrt(_psum(mesh, torch.sum(g32 ** 2)) + sum(
                 torch.sum(g.float() ** 2) for g in pt.tree_leaves(g_other)))
             metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
             new_other, new_other_opt = adam_mod.apply_updates(
@@ -410,9 +512,14 @@ class ExplicitZero3Engine:
     # ------------------------------------------------------------------
 
     def make_layer_fns(self) -> dict:
-        """The layered step's pieces (``repro/core/zero.py:599``). Forward
-        pieces run without autograd; ``layer_vjp`` and ``head`` record only
-        their own graph and return gradients (``torch.autograd.grad``)."""
+        """The layered step's pieces (``repro/core/zero.py:599``) over the
+        rank's (P/dp,) row slices and batch slice. Forward pieces run
+        without autograd; ``layer_vjp`` and ``head`` record only their own
+        graph and return gradients (``torch.autograd.grad``). At dp > 1 a
+        row is gathered before its layer (``RowGather``: ``layer_vjp``'s
+        row gradient is the reduce-scattered slice), and ``head``'s loss
+        and 'other' gradients, ``accum_sumsq``'s sum of squares and
+        ``embed_vjp``'s gradients are summed over the ranks."""
         if self.run.parallel.partition_mode != "allgather":
             raise ValueError(
                 "layered epochs need the bandwidth-centric (allgather) row "
@@ -423,14 +530,17 @@ class ExplicitZero3Engine:
                 "replicated-grad reduce; the layered epoch's per-row reduce-"
                 "scatter is implicit in the all-gather transpose and is not "
                 "compressed - run it with grad_compression='none'")
-        cfg, tc, dp = self.run.model, self.run.train, self.dp
+        cfg, tc, dp, mesh = self.run.model, self.run.train, self.dp, self.mesh
         block_fn, layout, plan = self.block_fn, self.layout, self.quantized_leaves
 
         def _unflatten(row, anchor_row=None):
-            """``row``: a bf16 row, or a q8 wire row ``(q, s)`` whose
-            gradient ``anchor_row`` carries."""
+            """``row``: a bf16 row (the rank's slice at dp > 1, gathered
+            here), or a q8 wire row ``(q, s)`` whose gradient
+            ``anchor_row`` carries (one rank only)."""
             if isinstance(row, tuple):
                 return pt.unflatten_wire_row(*row, anchor_row, layout, plan)
+            if dp > 1:
+                row = RowGather.apply(row, mesh)
             return pt.unflatten_row(row, layout, torch.bfloat16)
 
         def _positions(x):
@@ -439,8 +549,9 @@ class ExplicitZero3Engine:
 
         def _grad_row(row, device):
             """(the leaf that takes a row's gradient, the row's leaves read
-            through it), under autograd: a bf16 row is its own leaf; a wire
-            row takes no gradient itself and a zero row stands in for it
+            through it), under autograd: a bf16 row (slice) is its own leaf,
+            its gradient the reduce-scattered slice; a wire row takes no
+            gradient itself and a zero row stands in for it
             (``unflatten_wire_row``)."""
             if isinstance(row, tuple):
                 anchor = torch.zeros(layout.padded, dtype=torch.bfloat16,
@@ -482,16 +593,18 @@ class ExplicitZero3Engine:
                 o = _grad_leaves(other)
                 h = cm.norm(x_, o["ln_f"], cfg.norm_kind)
                 lg = cm.logits(o["embed"], h, cfg)
-                # scaled by 1/dp before the cross-rank sum (identity at dp=1)
+                # scaled by 1/dp before the cross-rank sum
                 loss_s = cm.lm_loss(lg[:, :-1], labels[:, 1:], cfg.vocab_size) / dp
                 paths = pt.tree_paths(o)
                 grads = torch.autograd.grad(loss_s, [x_] + pt.tree_leaves(o),
                                             allow_unused=True)
-            return loss_s.detach(), grads[0], _as_tree(paths, grads[1:], other)
+            g_other = pt.tree_map(lambda g: _psum(mesh, g), _as_tree(paths, grads[1:], other))
+            return _psum(mesh, loss_s.detach()), grads[0], g_other
 
         @torch.no_grad()
         def _accum_sumsq(acc, g_row):
-            return acc + torch.sum(g_row.float() ** 2)
+            # one sum over the ranks per row: the norm stays on the device
+            return acc + _psum(mesh, torch.sum(g_row.float() ** 2))
 
         def _embed_vjp(other, tokens, dx0):
             with torch.enable_grad():
@@ -500,7 +613,7 @@ class ExplicitZero3Engine:
                 paths = pt.tree_paths(o)
                 grads = torch.autograd.grad(x, pt.tree_leaves(o), dx0,
                                             allow_unused=True)
-            return _as_tree(paths, grads, other)
+            return pt.tree_map(lambda g: _psum(mesh, g), _as_tree(paths, grads, other))
 
         @torch.no_grad()
         def _finish(other, other_opt, step, g_head, g_emb, sumsq_flat):

@@ -4,6 +4,9 @@
 numpy exactly as the reference draws it, so both packages train on the
 same batches bit for bit. A background thread builds the next batches
 while the device computes; the loader places each on the run's device.
+With ``dp`` data-parallel ranks the loader hands rank r the rows ``[r *
+B/dp, (r+1) * B/dp)`` of each global batch (``rank_slice``), the
+reference's ``P(axis, None)`` batch placement.
 """
 from __future__ import annotations
 
@@ -45,14 +48,28 @@ class SyntheticStream:
         return out
 
 
+def rank_slice(batch: Dict[str, np.ndarray], rank: int, dp: int) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s rows ``[r * B/dp, (r+1) * B/dp)`` of every leaf of a
+    global batch (B a multiple of dp, as the reference's sharding needs)."""
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % dp:
+            raise ValueError(f"batch {k}: {B} rows do not split over {dp} ranks")
+        out[k] = v[rank * (B // dp):(rank + 1) * (B // dp)]
+    return out
+
+
 class PrefetchLoader:
     """Iterates ``(step, batch)`` for steps [start, end) with a
     ``depth``-deep background prefetch; each batch's tensors land on
-    ``device`` in their spec's dtype."""
+    ``device`` in their spec's dtype, rank ``rank``'s slice of it among
+    ``dp`` ranks."""
 
     def __init__(self, stream: SyntheticStream, start_step: int, end_step: int,
-                 device="cpu", depth: int = 2):
+                 device="cpu", depth: int = 2, rank: int = 0, dp: int = 1):
         self.stream = stream
+        self.rank, self.dp = rank, dp
         self.start, self.end = start_step, end_step
         self.device = torch.device(device)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -61,7 +78,8 @@ class PrefetchLoader:
 
     def _worker(self):
         for step in range(self.start, self.end):
-            self.q.put((step, self.stream.batch_at(step)))
+            batch = self.stream.batch_at(step)
+            self.q.put((step, rank_slice(batch, self.rank, self.dp) if self.dp > 1 else batch))
         self.q.put(None)
 
     def __iter__(self) -> Iterator:

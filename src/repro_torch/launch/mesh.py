@@ -1,0 +1,191 @@
+"""Ranks and their transport (``repro/launch/mesh.py``): one process per
+data-parallel rank over ``torch.distributed``, where the reference runs one
+program over a mesh of devices.
+
+``maybe_init_distributed`` reads torchrun's environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), as the reference's
+hook reads ``REPRO_COORDINATOR``, and joins the process group.
+``make_local_mesh(data, model)`` returns a ``LocalMesh``: the world size
+(``data * model``: the explicit engine folds every mesh axis into dp, as
+the reference's does), this rank, its device, the process group and the
+transport, with the collectives the explicit engine issues.
+
+The transport is chosen by a rule, never on failure (``choose_backend``):
+
+  * each rank has a card of its own: NCCL, on the device tensors;
+  * ranks share a card (more local ranks than cards, as two ranks on one
+    H100) or run on the CPU: gloo (NCCL refuses two ranks on one device).
+    gloo takes each collective here on the CUDA tensors themselves
+    (``COLLECTIVES``, probed by ``launch/probe_transport.py`` on the
+    card), so every call is direct.
+
+A run's device for rank r is ``cuda:{LOCAL_RANK % device_count}``, or the
+CPU. A ``--data-mesh N`` run whose world size is not N raises, naming the
+launch that gives it N ranks. With the tracer on, each collective is a
+span (``sys="comm"``, class ``collective``, ``attr="io_wait"``: the
+calling thread waits on the other ranks, and on a CUDA tensor on the
+kernels that produce it), so a step's attribution carries
+``trace_io_wait_collective_s``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import warnings
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.runtime import trace
+
+# The collectives the explicit engine issues. gloo takes every one of them
+# on CUDA tensors, in every dtype the engine hands it (f32, bf16, int8,
+# int64), with the right result: torch 2.11 on an H100, two ranks on the
+# card (launch/probe_transport.py). So no collective is staged through host
+# memory by the port (gloo copies a CUDA tensor through the host itself).
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+# torch >= 2.12 renames the two tensor collectives (a FutureWarning on each
+# call); the names the card's torch 2.11 has stay in use
+warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_scatter_tensor)"
+                        r"` is deprecated", category=FutureWarning)
+
+LAUNCH = "torchrun --standalone --nproc-per-node {n} -m repro_torch.launch.train ..."
+# a rank that waits longer than this on a collective raises instead of hanging
+TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def choose_backend(device_type: str, local_ranks: int) -> str:
+    """``nccl`` when each of the ``local_ranks`` ranks on this host has a
+    card of its own, ``gloo`` when they share cards or run on the CPU."""
+    if device_type == "cuda" and local_ranks <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
+
+
+def _local_rank() -> int:
+    """This process's rank on its host (torchrun's ``LOCAL_RANK``; the
+    global rank where no launcher set it)."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return _env_int("LOCAL_RANK", rank)
+
+
+def maybe_init_distributed(device_type: str) -> bool:
+    """Join the process group torchrun's environment describes, on the
+    backend ``choose_backend`` picks; True if this call created it (its
+    caller destroys it), False where a group exists already or the
+    environment holds one rank."""
+    world = _env_int("WORLD_SIZE", 1)
+    if dist.is_initialized() or world == 1:
+        return False
+    backend = choose_backend(device_type, _env_int("LOCAL_WORLD_SIZE", world))
+    if backend == "nccl":
+        torch.cuda.set_device(_env_int("LOCAL_RANK", 0))
+    dist.init_process_group(backend, init_method="env://", timeout=TIMEOUT)
+    return True
+
+
+def _rank_device(device) -> torch.device:
+    """The rank's device: ``cuda:{LOCAL_RANK % device_count}`` on the card,
+    else the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.device("cpu")
+    return torch.device("cuda", _local_rank() % torch.cuda.device_count())
+
+
+@dataclasses.dataclass
+class LocalMesh:
+    """One rank's view of a ``data x model`` mesh folded into dp ranks."""
+
+    data: int
+    model: int
+    rank: int
+    world: int
+    device: torch.device
+    group: Optional[object]  # the process group; None at one rank
+    backend: str  # "nccl" | "gloo" | "none" (one rank)
+
+    def transport(self) -> dict:
+        """``{"backend", "device", op: "direct"}``: every collective takes
+        the rank's tensors where they are (``COLLECTIVES``)."""
+        return {"backend": self.backend, "device": str(self.device),
+                **{op: "direct" for op in COLLECTIVES}}
+
+    # -- the collectives ----------------------------------------------------
+
+    @staticmethod
+    def _span(op: str, t: torch.Tensor):
+        return trace.span(op, sys="comm", cls="collective", attr="io_wait",
+                          nbytes=t.numel() * t.element_size())
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` (any shape) concatenated along dim 0, in rank
+        order (``all_gather_into_tensor``)."""
+        if self.world == 1:
+            return t
+        t = t.contiguous()
+        out = t.new_empty((self.world * t.shape[0],) + tuple(t.shape[1:]))
+        with self._span("all_gather_into_tensor", t):
+            dist.all_gather_into_tensor(out, t, group=self.group)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's dim-0 chunk of the ranks' ``t`` summed, in ``t``'s
+        dtype (``reduce_scatter_tensor``)."""
+        if self.world == 1:
+            return t
+        t = t.contiguous()
+        out = t.new_empty((t.shape[0] // self.world,) + tuple(t.shape[1:]))
+        with self._span("reduce_scatter_tensor", t):
+            dist.reduce_scatter_tensor(out, t, group=self.group)
+        return out
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` summed, in ``t``'s dtype, as a new tensor."""
+        if self.world == 1:
+            return t
+        out = t.detach().clone(memory_format=torch.contiguous_format)
+        with self._span("all_reduce", out):
+            dist.all_reduce(out, group=self.group)
+        return out
+
+    def gather_stack(self, t: torch.Tensor) -> torch.Tensor:
+        """``(world, *t.shape)``: every rank's ``t`` in rank order."""
+        return self.all_gather(t.reshape((1,) + tuple(t.shape)))
+
+    def sum_over_ranks(self, values: list) -> list:
+        """Host integers summed over the ranks (the step's byte counters)."""
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
+        return [int(v) for v in self.all_reduce(t).cpu()]
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device="cpu") -> LocalMesh:
+    """This rank's mesh of ``data * model`` ranks on ``device`` (its card
+    from ``_rank_device``). Raises where the process group holds another
+    number of ranks, or chose another backend than ``choose_backend``."""
+    n = data * model
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise ValueError(
+            f"--data-mesh {data} --model-mesh {model} needs {n} ranks, one process "
+            f"each, and this run has {world}: launch it as "
+            + LAUNCH.format(n=n) + " --data-mesh ...")
+    dev = _rank_device(device)
+    if n == 1:
+        return LocalMesh(data, model, 0, 1, dev, None, "none")
+    backend = dist.get_backend()
+    want = choose_backend(dev.type, _env_int("LOCAL_WORLD_SIZE", n))
+    if backend != want:
+        raise ValueError(f"the process group runs {backend}; ranks on {dev.type} "
+                         f"with {torch.cuda.device_count()} card(s) take {want}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return LocalMesh(data, model, dist.get_rank(), n, dev, dist.group.WORLD, backend)

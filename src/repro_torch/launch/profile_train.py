@@ -17,7 +17,8 @@ those events' intervals over the step's wall time), and the device time of
 each kernel per step with its launches (``profile_serve._report``; fused
 Adam is the ``fused_adam`` kernel's row). A MoE model's steps add the
 routing's dropped fraction and, layered, the expert rows' hit rate and
-residency. Weights are random from ``--seed``.
+residency. Weights are random from ``--seed``. One rank: on a mesh
+(``--data-mesh``/``--model-mesh`` > 1) it raises (ROADMAP item 8c).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch smollm-135m --nvme-dir build/profile_nvme [--param-quant q8]
@@ -61,6 +62,9 @@ def _parse(argv=None):
 def main(argv=None) -> None:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     args = _parse(argv)
+    if args.data_mesh * args.model_mesh != 1:
+        raise NotImplementedError("profile_train on a mesh is not ported (ROADMAP.md "
+                                  "Queue 1 item 8c)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: CUDA is not available; this profile runs on the card")
     dev = torch.device("cuda")

@@ -129,8 +129,8 @@ def _unported(args, plan=None) -> None:
     n = plan.hardware.n_devices if plan is not None else 1
     if args.data_mesh * args.model_mesh != 1 or n != 1:
         raise NotImplementedError(
-            "a mesh larger than one device is not ported yet (ROADMAP.md "
-            "Queue 1 item 8: GSPMD engine and meshes)")
+            "serving on a mesh larger than one device is not ported yet "
+            "(ROADMAP.md Queue 1 item 8c: the GSPMD engine and serving on a mesh)")
 
 
 def _percentiles(xs) -> dict:

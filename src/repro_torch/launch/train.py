@@ -1,6 +1,7 @@
 """Training entry point: synthetic data -> InfinityExecutor -> per-step
 metrics and checkpoints, with fault injection, restart and straggler
-detection — the port of ``repro/launch/train.py`` for one device:
+detection — the port of ``repro/launch/train.py``, on one device or, for
+the explicit engine, on a data-parallel mesh of ranks:
 
   * ``--plan auto``: the planner (``repro_torch/plan.py``) derives the
     placement from the detected card (``--hw-*`` override what detection
@@ -49,12 +50,26 @@ detection — the port of ``repro/launch/train.py`` for one device:
     leaves (``portable_state``/``adopt_state``); ``--straggler-factor``
     flags slow steps.
 
+  * ``--engine zero3 --data-mesh N [--model-mesh M]``: the explicit
+    engine over N * M data-parallel ranks (every mesh axis folds into dp,
+    as the reference's), one process each, launched by torchrun
+    (``launch/mesh.py``): rank r holds its shard of the rows and takes
+    rows ``[r * B/dp, (r+1) * B/dp)`` of each global batch, on
+    ``cuda:{LOCAL_RANK % device_count}`` (NCCL when each rank has a card,
+    gloo when ranks share one) or the CPU (gloo) under ``--device cpu``.
+    Every rank runs ``train`` and returns its history; rank 0 prints the
+    step lines, each with the rank's tier bytes and their sum over the
+    ranks. A run whose world size is not N * M raises, naming the launch.
+
 Runs on the card by default and raises when CUDA is absent; ``--device
 cpu`` runs the kernels' plain versions (the tests do). What is not ported
-raises, naming the ROADMAP item that ports it: more than one device
-(meshes, ``--hw-devices`` > 1) and ``--elastic``/``--chaos``; on the
-layered epoch ``--grad-compress int8`` and ``partition_mode="broadcast"``
-raise the reference's ``ValueError``s. The explicit engine reads neither
+raises, naming the ROADMAP item that ports it: ``--elastic``/``--chaos``
+(item 5); on a mesh, the GSPMD engine and ``--plan`` (item 8c),
+``--param-quant`` rows and MoE's expert rows (item 8d), checkpoints and
+``--resume`` (item 5: pass ``--ckpt-every 0``); a plan for more than one
+device (``--hw-devices`` > 1, item 8c). On the layered epoch
+``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the
+reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
 
 Examples (one H100; llava-next-34b at full width cut to 2 layers):
@@ -76,6 +91,10 @@ Examples (one H100; llava-next-34b at full width cut to 2 layers):
       --batch 8 --seq 2048 --steps 3 --nvme-dir /path/on/nvme
   REPRO_FAIL_AT_STEP=3 REPRO_FAIL_MARKER=/tmp/m PYTHONPATH=src \\
       python -m repro_torch.launch.train ... --ckpt-every 2 --resume auto
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch smollm-135m --engine zero3 \\
+      --data-mesh 2 --offload-param nvme --offload-grad nvme \\
+      --offload-opt nvme --batch 8 --seq 512 --steps 4 --ckpt-every 0
 """
 from __future__ import annotations
 
@@ -94,11 +113,13 @@ from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,
                                 make_offload, make_parallel)
 from repro_torch.core.executor import InfinityExecutor
 from repro_torch.data.pipeline import PrefetchLoader, SyntheticStream
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.serve import resolve_device
 from repro_torch.runtime import trace
 from repro_torch.runtime.elastic import wire_straggler
 from repro_torch.runtime.fault import FailureInjector, StragglerMonitor, retry_loop
-from repro_torch.runtime.metrics import MetricsLogger, elastic_step_metrics
+from repro_torch.runtime.metrics import (MetricsLogger, elastic_step_metrics,
+                                         rank_bytes_note)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -115,8 +136,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--data-mesh", type=int, default=1)
-    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--data-mesh", type=int, default=1,
+                    help="data-parallel ranks of the explicit engine (launch "
+                         "them with torchrun)")
+    ap.add_argument("--model-mesh", type=int, default=1,
+                    help="folded into dp by the explicit engine, as the "
+                         "reference's: N * M ranks in all")
     ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
                     help="pjit = the GSPMD engine's step (params on the device "
                          "or host tier); zero3 = the explicit engine's "
@@ -183,14 +208,26 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args) -> None:
-    """Raise for every flag set to something the port cannot run."""
+def _unported(args, dp: int = 1) -> None:
+    """Raise for every flag set to something the port cannot run, on one
+    rank or on a mesh of ``dp`` ranks."""
+    elastic = "ROADMAP.md Queue 1 item 5: elastic runtime"
     checks = [
-        (args.elastic, "--elastic", "ROADMAP.md Queue 1 item 5: elastic runtime"),
-        (args.chaos is not None, "--chaos", "ROADMAP.md Queue 1 item 5: elastic runtime"),
-        (args.data_mesh * args.model_mesh != 1, "a mesh larger than one device",
-         "ROADMAP.md Queue 1 item 8: GSPMD engine and meshes"),
+        (args.elastic, "--elastic", elastic),
+        (args.chaos is not None, "--chaos", elastic),
     ]
+    if dp > 1:
+        checks += [
+            (args.engine != "zero3", f"the GSPMD engine on a mesh of {dp} ranks",
+             "ROADMAP.md Queue 1 item 8c: FSDP2/DTensor for the GSPMD engine"),
+            (args.plan != "manual", f"--plan on a mesh of {dp} ranks",
+             "ROADMAP.md Queue 1 item 8c: plans for more than one device"),
+            (args.param_quant != "none", f"--param-quant rows across {dp} ranks",
+             "ROADMAP.md Queue 1 item 8d: MoE expert rows and q8/q4 rows at dp > 1"),
+            (args.ckpt_every > 0 or args.resume == "auto",
+             f"checkpoints across {dp} ranks (pass --ckpt-every 0)",
+             "ROADMAP.md Queue 1 item 5: re-sharding"),
+        ]
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
@@ -252,13 +289,27 @@ def train(args, argv=None, *, init_state=None) -> dict:
     manager's last bytes and timings), "nvme_stats", "trace_attributions",
     "quantized_leaves" (the MLP weights whose products read the q8 rows in
     place), "plan" (the ``InfinityPlan``, or None in manual mode), "run"
-    (the resolved ``RunConfig``)}``. ``argv`` is what ``make_run`` reads
-    overrides from; ``init_state``, a callable returning an engine state,
-    replaces the seeded draw (the parity tests pass the reference's)."""
-    _unported(args)
+    (the resolved ``RunConfig``), "mesh" (the rank's ``LocalMesh``)}``, on
+    every rank of a mesh, with the rank's metrics. ``argv`` is what
+    ``make_run`` reads overrides from; ``init_state``, a callable returning
+    an engine state (the rank's shard on a mesh), replaces the seeded draw
+    (the parity tests pass the reference's). Joins the process group
+    torchrun describes where none exists, and leaves it before returning."""
     device = resolve_device(args.device)
+    created = mesh_mod.maybe_init_distributed(device.type)
+    try:
+        mesh = mesh_mod.make_local_mesh(args.data_mesh, args.model_mesh, device)
+        _unported(args, mesh.world)
+        return _train(args, argv, init_state, mesh)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, argv, init_state, mesh) -> dict:
+    device = mesh.device
     run, plan = make_run(args, argv)
-    executor = InfinityExecutor(run, device, plan=plan)
+    executor = InfinityExecutor(run, device, plan=plan, mesh=mesh if mesh.world > 1 else None)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     tokens = shape.global_batch * shape.seq_len
     tc = run.train
@@ -267,7 +318,7 @@ def train(args, argv=None, *, init_state=None) -> dict:
     straggler = wire_straggler(StragglerMonitor(factor=args.straggler_factor))
     retry_stats = {"restarts": 0, "recovery_s": 0.0}
     history = {"losses": [], "grad_norms": [], "metrics": [], "restarts": 0,
-               "plan": plan, "run": run}
+               "plan": plan, "run": run, "mesh": mesh}
 
     def fresh_state(resuming: bool) -> dict:
         # a resume reseeds the stores from the restored state: skip seeding
@@ -300,8 +351,13 @@ def train(args, argv=None, *, init_state=None) -> dict:
         step_fn = executor.make_train_step()
         stream = SyntheticStream(executor.input_specs(shape), run.model.vocab_size,
                                  seed=tc.seed)
-        loader = PrefetchLoader(stream, start_step, tc.steps, device)
-        logger = MetricsLogger(executor.n_params_active())
+        loader = PrefetchLoader(stream, start_step, tc.steps, device,
+                                rank=mesh.rank, dp=mesh.world)
+        # rank 0 prints the step lines; the MFU counts the cards the ranks
+        # run on (ranks beyond the host's cards share them)
+        cards = min(mesh.world, torch.cuda.device_count()) if device.type == "cuda" else 1
+        logger = MetricsLogger(executor.n_params_active(), n_chips=cards,
+                               log_fn=print if mesh.rank == 0 else (lambda _: None))
         for step, batch in loader:
             straggler.start()
             injector.maybe_fail(step)
@@ -316,6 +372,8 @@ def train(args, argv=None, *, init_state=None) -> dict:
                 extras = elastic_step_metrics(restarts=retry_stats["restarts"],
                                               recovery_s=retry_stats["recovery_s"])
                 extras.update(straggler.step_metrics())
+                if mesh.world > 1:
+                    extras["note"] = rank_bytes_note(rec, mesh.world)
                 logger.log(step, rec["loss"], tokens, dt, **extras)
             if tc.checkpoint_every and (step + 1) % tc.checkpoint_every == 0:
                 # the layered epoch's rows are materialized from the store
@@ -351,6 +409,8 @@ def main(argv=None) -> dict:
         trace.enable()
     t0 = time.time()
     hist = train(args, argv)
+    if hist["mesh"].rank != 0:  # rank 0 reports the run
+        return hist
     losses = hist["losses"]
     print(f"done in {time.time()-t0:.1f}s | first loss {losses[0]:.4f} | "
           f"last loss {losses[-1]:.4f} | restarts {hist['restarts']}")

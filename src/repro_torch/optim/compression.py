@@ -7,11 +7,12 @@ rounded half to even (``torch.round``, as ``jnp.round``), clipped to
 keeps the new residual (the quantization error) and returns the mean over
 the ranks of the dequantized payloads, cast back to the input's dtype.
 
-One rank: the reduce is the identity, but the quantization and the error
-feedback still change the numbers, exactly as the reference's do. The
-cross-rank reduce (the all-gather of the int8 payload and its scales)
-belongs to the multi-device slice: with ``torch.distributed`` initialised
-over more than one rank, ``psum_compressed`` raises.
+Across the ranks of a ``launch/mesh.LocalMesh`` the int8 payload and its
+f32 scales are all-gathered and summed in rank order, each rank's product
+added to the running f32 sum with one rounding (the multiply-add the
+reference's compiled step fuses it into), then divided by the ranks. One
+rank: the reduce is the identity, but the quantization and the error
+feedback still change the numbers, exactly as the reference's do.
 """
 from __future__ import annotations
 
@@ -64,14 +65,17 @@ def _world_size() -> int:
     return 1
 
 
-def psum_compressed(x: torch.Tensor, error: Optional[torch.Tensor] = None):
-    """Mean-all-reduce ``x`` over the ranks in the int8 wire format with
-    error feedback -> (reduced x in x's dtype, new f32-or-promoted residual).
-    ``x + error`` promotes as the reference does (bf16 + f32 -> f32)."""
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "psum_compressed across ranks is not ported (ROADMAP.md Queue 1 "
-            "item 8: meshes larger than one device)")
+def psum_compressed(x: torch.Tensor, error: Optional[torch.Tensor] = None, mesh=None):
+    """Mean-all-reduce ``x`` over ``mesh``'s ranks (None: this process
+    alone) in the int8 wire format with error feedback -> (reduced x in x's
+    dtype, new f32-or-promoted residual). ``x + error`` promotes as the
+    reference does (bf16 + f32 -> f32)."""
+    n = mesh.world if mesh is not None else 1
+    if n == 1 and _world_size() > 1:
+        raise ValueError(
+            "psum_compressed without a mesh in a run of "
+            f"{_world_size()} ranks would reduce this rank's payload alone: "
+            "pass the run's launch/mesh.LocalMesh")
     out_dtype = x.dtype
     if error is not None:
         x = x + error
@@ -84,7 +88,12 @@ def psum_compressed(x: torch.Tensor, error: Optional[torch.Tensor] = None):
         new_error = (x.double() - qs.reshape(x.shape)).float()
     else:
         new_error = x - dequantize_int8(q, scale, struct, dtype=x.dtype)
-    # one rank: the gathered payload is this rank's alone, and its mean is it
-    n = 1
-    total = (q.float() * scale[:, None]).reshape(-1)[:x.numel()].reshape(x.shape)
+    qs = mesh.gather_stack(q) if n > 1 else q[None]  # (n, nb, BLOCK) int8
+    ss = mesh.gather_stack(scale) if n > 1 else scale[None]  # (n, nb) f32
+    # each rank's q * s is exact in f64 (31 significant bits at most): added
+    # to the running sum and rounded to f32 once, a fused multiply-add
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for r in range(n):
+        acc = (acc.double() + qs[r].double() * ss[r].double()[:, None]).float()
+    total = acc.reshape(-1)[:x.numel()].reshape(x.shape)
     return (total / n).to(out_dtype), new_error

@@ -4,7 +4,9 @@ counters a training step logs (``elastic_step_metrics``: the fault
 runtime's restarts and recovery time; the replan, resize and membership
 fields stay at their one-device values until the elastic supervisor,
 ROADMAP.md Queue 1 item 5), the serving-side KV-tier counters (``kv_*``);
-``device_ms``, the card's time per kernel call."""
+``rank_bytes_note``, a data-parallel step's tier bytes per rank beside
+their sum over the ranks; ``device_ms``, the card's time per kernel
+call."""
 from __future__ import annotations
 
 import time
@@ -57,6 +59,20 @@ def elastic_step_metrics(*, restarts: int = 0, replans: int = 0,
             "elastic_recovery_s": round(float(recovery_s), 3),
             "elastic_n_alive": int(n_alive),
             "elastic_membership_version": int(membership_version)}
+
+
+# the tier counters a data-parallel step line shows, per rank and summed
+RANK_BYTES = ("param_in_bytes", "param_out_bytes", "grad_out_bytes", "opt_read_bytes",
+              "opt_write_bytes")
+
+
+def rank_bytes_note(rec: dict, world: int) -> str:
+    """``bytes/rank (sum of N ranks): param_in a (b) | ...`` for the tier
+    counters a step reports (the executor's ``<counter>_all_ranks`` is
+    the sum); empty where the step moved none (all in-graph)."""
+    parts = [f"{k[:-6]} {rec[k]} ({rec[k + '_all_ranks']})" for k in RANK_BYTES
+             if k in rec and k + "_all_ranks" in rec]
+    return f"bytes/rank (sum of {world} ranks): " + ", ".join(parts) if parts else ""
 
 
 def kv_step_metrics(delta: dict, resident_bytes: int) -> dict:

@@ -249,8 +249,8 @@ def test_int8_reduce_passes_each_other_leaf_and_its_residual(monkeypatch):
     seen = []
     real = tcomp.psum_compressed
 
-    def spy(x, error=None):
-        out = real(x, error)
+    def spy(x, error=None, mesh=None):
+        out = real(x, error, mesh)
         seen.append((x, error, out))
         return out
 
@@ -486,6 +486,9 @@ def test_psum_compressed_at_one_rank_is_bit_exact_against_reference(mesh, shape,
 
 
 def test_psum_compressed_raises_across_ranks(monkeypatch):
+    """Across ranks the reduce needs the run's mesh: called without one in
+    a process group of two ranks it refuses rather than reduce this rank's
+    payload alone (the cross-rank reduce is held in tests/test_torch_dp.py)."""
     monkeypatch.setattr(tcomp, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="LocalMesh"):
         tcomp.psum_compressed(torch.ones(3))

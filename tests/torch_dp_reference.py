@@ -1,0 +1,117 @@
+"""The reference's side of ``tests/test_torch_dp.py``, run as a script in a
+subprocess of its own with four host devices (the test process keeps one):
+the JAX package's ``InfinityExecutor(engine="zero3")`` on a mesh of dp
+devices for every case of ``torch_dp_worker.CASES``, and its
+``psum_compressed`` under ``shard_map`` on 2 devices. Writes the numbers to
+one ``.npz`` (pytest does not collect this file).
+
+  python tests/torch_dp_reference.py <scratch dir> <out.npz>
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [HERE, os.path.join(HERE, "..", "src")]
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+import torch_dp_worker as W  # noqa: E402
+from repro import compat  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
+from repro.config import RunConfig, ShapeConfig, TrainConfig, make_offload, make_parallel  # noqa: E402
+from repro.core import executor as jexec  # noqa: E402
+from repro.data import pipeline as jpipe  # noqa: E402
+from repro.launch.mesh import make_local_mesh  # noqa: E402
+from repro.optim import compression as jcomp  # noqa: E402
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x).astype(np.float32)
+
+
+def run_case(case: str, tmp: str, out: dict) -> None:
+    dp, d_model, param, grad, opt, compress, mode = W.CASES[case]
+    wide = {} if d_model is None else {"d_model": d_model}
+    cfg = dataclasses.replace(jconfigs.smoke("smollm-135m"), n_layers=2, **wide)
+    run = RunConfig(model=cfg,
+                    parallel=make_parallel("zero3", remat="none", grad_compression=compress,
+                                           partition_mode=mode),
+                    offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                                         nvme_dir=os.path.join(tmp, case, "jax")),
+                    train=TrainConfig(lr=W.LR, warmup_steps=W.WARMUP))
+    mesh = make_local_mesh(dp, 1)
+    ex = jexec.InfinityExecutor(run, mesh)
+    state = ex.engine.init_state(jax.random.PRNGKey(0))
+    out[f"{case}/init_flat"] = _f32(state["flat"])
+    state = ex.reseed(state)
+    shape = ShapeConfig("t", W.S, W.B, "train")
+    stream = jpipe.SyntheticStream(ex.input_specs(shape), cfg.vocab_size, seed=0)
+    shardings = ex.batch_shardings(shape)
+    step = ex.make_train_step()
+    metrics = []
+    with compat.set_mesh(mesh):
+        for i in range(W.STEPS):
+            batch = {k: jax.device_put(v, shardings[k]) for k, v in stream.batch_at(i).items()}
+            state, m = step(state, batch)
+            metrics.append(m)
+    for key in ("loss", "grad_norm", "lr"):
+        out[f"{case}/{key}"] = np.array([float(m[key]) for m in metrics])
+    for key in metrics[0]:
+        if key.endswith("_bytes") and "pinned" not in key:
+            out[f"{case}/ctr/{key}"] = np.array([int(m[key]) for m in metrics])
+    full = ex.checkpoint_state(state)
+    out[f"{case}/flat"] = _f32(full["flat"])
+    for path, leaf in jax.tree_util.tree_flatten_with_path(full["other"])[0]:
+        out[f"{case}/other/{jax.tree_util.keystr(path)}"] = _f32(leaf)
+    out[f"{case}/step"] = np.array(int(full["step"]))
+    for key in ("master", "m", "v"):
+        if key in full:
+            out[f"{case}/{key}"] = _f32(full[key])
+    if "g_err" in full:
+        for path, leaf in jax.tree_util.tree_flatten_with_path(full["g_err"])[0]:
+            out[f"{case}/g_err/{jax.tree_util.keystr(path)}"] = _f32(leaf)
+    if ex.opt_store is not None:
+        out[f"{case}/opt_keys"] = np.array(sorted(ex.opt_store.keys()))
+    ex.close()
+
+
+def run_psum(out: dict) -> None:
+    """``psum_compressed`` on 2 devices, each rank its row of
+    ``psum_inputs``, three steps of error feedback per case."""
+    mesh = jax.make_mesh((2,), ("data",), devices=jax.devices()[:2])
+
+    def f(x, e):
+        r, ne = jcomp.psum_compressed(x[0], "data", e[0])
+        return r[None], ne[None]
+
+    fn = jax.jit(compat.shard_map(f, mesh=mesh, in_specs=(P("data"), P("data")),
+                                  out_specs=(P("data"), P("data")), check_vma=False))
+    for shape, dtype in W.PSUM_CASES:
+        err = jnp.zeros((2,) + tuple(shape), jnp.float32)
+        for i in range(3):
+            x = jnp.asarray(W.psum_inputs(shape, i, 2)).astype(getattr(jnp, dtype))
+            red, err = fn(x, err)
+            out[f"psum/{shape}/{dtype}/{i}/red"] = _f32(red)
+            out[f"psum/{shape}/{dtype}/{i}/err"] = _f32(err)
+
+
+def main() -> None:
+    tmp, path = sys.argv[1], sys.argv[2]
+    assert len(jax.devices()) == 4
+    out: dict = {}
+    for case in W.CASES:
+        run_case(case, tmp, out)
+    run_psum(out)
+    np.savez(path, **out)
+
+
+if __name__ == "__main__":
+    main()
