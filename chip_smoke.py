@@ -11,7 +11,9 @@ engine's monolithic step (``--engine zero3`` with params on the device or
 the pinned host tier) and a restart drill that resumes from a checkpoint,
 then on two data-parallel ranks sharing the card (``--data-mesh 2``: the
 explicit engine's rows sharded per rank, the card against the CPU and
-the layered epoch on NVMe through ``launch.train``), then trains
+the layered epoch on NVMe through ``launch.train``; the GSPMD engine's
+leaves sharded per rank at ZeRO-3, the card against the CPU, and full
+smollm under ``--plan auto --hw-devices 2``), then trains
 granite-moe-1b-a400m under ``--plan auto`` and through the
 layered epoch with its expert rows paged from NVMe, then the fixed-state
 families: flash attention with recurrentgemma's local window, full
@@ -83,7 +85,9 @@ Phases (any failure exits non-zero; no phase is caught):
       optimizer on NVMe, ``remat="full"``) and on the pinned host tier
       (params and optimizer in page-locked CPU memory, ``remat="full"``):
       loss, grad norm, the f32 Adam masters and the params, by
-      ``phase_train_numerics``' bounds;
+      ``phase_train_numerics``' bounds; the three placements compute one
+      function, so the in-graph CPU run is kept (``CPU_RUNS``) and the
+      other two cards are held against it;
   12. the planner's main path: ``launch.train --plan auto`` on full
       smollm-135m, 4 steps of 8 x 512 tokens on the detected card, its plan
       printed; fused Adam launches once per leaf per step;
@@ -100,6 +104,8 @@ Phases (any failure exits non-zero; no phase is caught):
       same state and batches, in-graph, on the pinned host tier (flat and
       optimizer), with the optimizer on NVMe off-graph, and with int8
       gradient compression (``ZERO3_PLACEMENTS``), by phase 11's bounds;
+      the in-graph CPU run is kept (``ZERO3_CPU_RUNS``) for the host and
+      off-graph placements, int8 runs its own;
   16. its main path: ``launch.train --engine zero3`` on full smollm-135m,
       6 steps of 8 x 512 tokens all on the device, with the optimizer on
       the pinned host tier (the ZeRO-Offload placement) and with params and
@@ -121,6 +127,21 @@ Phases (any failure exits non-zero; no phase is caught):
       step wall with its collective waits and each rank's peak allocated
       memory printed. Two ranks on one card check correctness, the
       transport and per-rank memory, not scaling;
+  16c. "gspmd dp2 numerics": the GSPMD engine at ZeRO-3 on two ranks on the
+      card (gloo), phase 11's model, weights and global batches (each rank
+      its shards and rows), in-graph and with the optimizer on NVMe
+      off-graph: the params and masters gathered over the ranks and the
+      loss and grad norm (summed over them) held against phase 11's kept
+      one-rank CPU run by its bounds (rank 0 saves the gathered tensors to
+      a file);
+  16d. "gspmd dp2 train": ``launch.train --plan auto --hw-devices 2`` on
+      full smollm-135m, two ranks on the card, 4 steps of 8 x 512 (4 x 512
+      a rank), tracer on: the plan (the GSPMD step, every state on the
+      device), each rank's param, grad and opt bytes exactly half of the
+      one-rank run's (every leaf splits at d_model 576; a leaf that does
+      not is named) and their sums over the ranks equal to it, the plan's
+      per-device bytes beside them, the losses phase 12's by ``TRAIN_TOL``,
+      each rank's peak allocated memory, the step wall and tokens/s;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -150,7 +171,8 @@ Phases (any failure exits non-zero; no phase is caught):
   20. recurrent numerics: the GSPMD step all on the device, card against
       CPU by phase 11's bounds, on mamba2-370m at full width cut to 2
       layers (4 x 256 tokens) and recurrentgemma-9b at full width cut to 3
-      layers (one group, 1,705,070,592 params; 2 x 128 tokens);
+      layers (one group, 1,705,070,592 params; 2 x 128 tokens, one step:
+      its CPU side is the run's slowest);
   21. hybrid serve: full recurrentgemma-9b (38 layers, 9,396,301,824
       params on the device), 8 sequences through 4 slots, prompt 2560 (past
       the window: the K/V rings roll at prefill and wrap), 16 new tokens,
@@ -179,7 +201,9 @@ Phases (any failure exits non-zero; no phase is caught):
       2 layers (2 x 256 frames, 64 decoder tokens) and on llava-next-34b
       at full width cut to one layer and 96 vision positions
       (``VLM_NUMERICS_CUT``: a layer at its 2880 positions costs the CPU
-      ~27 TFLOP a step), 1 x 160 positions;
+      ~27 TFLOP a step), 1 x 160 positions, one step; each numerics phase
+      compares on the card and prints its sides' seconds (``... compare:``
+      lines);
   26. vlm serve / vlm plan train: llava-next-34b at full width cut to 8
       layers (5.40 B params) served, 8 sequences through 4 slots, prompt
       3072 (2880 vision positions, 192 tokens), 16 new tokens, waiting K/V
@@ -212,9 +236,11 @@ Phases (any failure exits non-zero; no phase is caught):
       peak allocated memory is ordered none > dots > full, and ``dots``
       launches the tiled matmul as ``none`` does and the flash forward as
       ``full`` does;
-  29. the kernels JSON line, then the device JSON line last.
+  29. each phase's seconds (a ``phase <name>: s`` line after each, and a
+      ``phases:`` line of all of them), the kernels JSON line, then the
+      device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a, 16b (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16d (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -225,10 +251,11 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
-``chip_smoke.py --dp-rank numerics|train`` is one rank of phase 16a or
-16b, started by the script itself through ``torch.distributed.run``;
-``chip_smoke.py --nccl-check`` runs phase 16b's path on four ranks with a
-card each (NCCL), on a machine with four cards.
+``chip_smoke.py --dp-rank numerics|train|gspmd_numerics|gspmd_train`` is
+one rank of phase 16a-16d, started by the script itself through
+``torch.distributed.run``; ``chip_smoke.py --nccl-check`` runs phase 16b's
+and 16d's paths on four ranks with a card each (NCCL), on a machine with
+four cards.
 """
 from __future__ import annotations
 
@@ -255,9 +282,11 @@ from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,  # noqa: E4
                                 make_offload, make_parallel)
 from repro_torch.core import kvcache, qformat  # noqa: E402
 from repro_torch.core import partition as pt  # noqa: E402
-from repro_torch.core.executor import InfinityExecutor  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core.engine import ZeroInfinityEngine  # noqa: E402
+from repro_torch.core.executor import InfinityExecutor, keystr  # noqa: E402
 from repro_torch.core.zero import ExplicitZero3Engine  # noqa: E402
-from repro_torch.data.pipeline import SyntheticStream, rank_slice  # noqa: E402
+from repro_torch.data.pipeline import SyntheticStream, rank_batch, rank_slice  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import quantized_matmul as tqm  # noqa: E402
@@ -1194,13 +1223,23 @@ def _gspmd_run(cfg, nvme_dir, steps, placement) -> RunConfig:
 CPU_RUNS: dict = {}
 
 
+def init_params(cfg) -> dict:
+    """``cfg``'s params drawn from ``SEED`` on the CPU: every side of a
+    numerics phase, and the ranks of "gspmd dp2 numerics", start from them.
+    (A draw on the card is ~15 s faster for the hybrid's 1.7 B params, but
+    gives other weights, and at the card's draw mamba2's second-step grad
+    norm is rounding-sensitive beyond ``TRAIN_TOL``: PERF.md §7.)"""
+    return registry.build(cfg).init(torch.Generator().manual_seed(SEED), torch.device("cpu"))
+
+
 def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
                          layers: int = 2, B: int = 4, S: int = 256,
                          tag: str = "gspmd numerics", cut: dict | None = None,
-                         keep_cpu: bool = False, reuse_cpu: bool = False) -> dict:
+                         keep_cpu: bool = False, reuse_cpu: bool = False,
+                         steps: int = 2) -> dict:
     """Full-width ``arch`` cut to ``layers`` layers (or by the config fields
-    in ``cut``): 2 steps of the GSPMD engine on the card (kernels) and on
-    the CPU (plain versions), same weights and batches (B x S tokens), in
+    in ``cut``): ``steps`` steps of the GSPMD engine on the card (kernels)
+    and on the CPU (plain versions), same weights and batches (B x S tokens), in
     one of ``GSPMD_PLACEMENTS``; loss and grad norm by ``TRAIN_TOL``, the
     f32 masters (in the state in-graph, read back from the optimizer store
     off-graph) by the drift bound, the params by it plus each side's bf16
@@ -1210,13 +1249,14 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
     would double the phase's time)."""
     cut = cut or {"n_layers": layers}
     cfg = dataclasses.replace(configs.get(arch), **cut)
-    steps = 2
     base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{arch}_{placement}")
-    key = (arch, tuple(sorted(cut.items())), B, S)
-    params0 = registry.build(cfg).init(torch.Generator().manual_seed(SEED),
-                                       torch.device("cpu"))
+    key = (arch, tuple(sorted(cut.items())), B, S, steps)
+    t0 = time.perf_counter()
+    params0 = init_params(cfg)
+    side_s = {"init": time.perf_counter() - t0}  # where the phase's seconds go
     out = {"cpu": CPU_RUNS[key]} if reuse_cpu else {}
     for dev in [d for d in ("cpu", "cuda") if d not in out]:
+        t0 = time.perf_counter()
         ex = InfinityExecutor(_gspmd_run(cfg, os.path.join(base, dev), steps, placement), dev)
         state = ex.reseed(ex.engine.adopt_params(params0))
         stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
@@ -1237,34 +1277,61 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
                             for t in pt.tree_leaves(ex.checkpoint_state(state)["params"])])
         out[dev] = (traj, params, masters)
         ex.close()
+        del ex, state, step  # the card's copy is freed before the comparison
+        side_s[dev] = time.perf_counter() - t0
     if keep_cpu:
         CPU_RUNS[key] = out["cpu"]
-    (tc, p_c, m_c), (tg, p_g, m_g) = out["cpu"], out["cuda"]
-    lrs = [t["lr"] for t in tc]
-    drift = adam.parity_bound(TrainConfig(), lrs)
-    diff = (p_g - p_c).abs()
-    allowed = drift + 2**-8 * (p_c.abs() + p_g.abs())
     rec = {"arch": arch, "placement": placement,
            "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
            "cpu_side": "in_graph, kept" if reuse_cpu else placement,
            "cut": cut, "n_params": registry.build(cfg).n_params(),
-           "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
-           "cpu": tc, "card": tg, "tol": TRAIN_TOL,
-           "params_max_abs_diff": diff.max().item(), "params_mean_abs_diff": diff.mean().item(),
-           "params_worst_diff_over_bound": (diff / allowed).max().item(),
-           "masters_max_abs_diff": (m_g - m_c).abs().max().item(),
-           "masters_worst_diff_over_drift": (m_g - m_c).abs().max().item() / drift,
+           "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps, "side_s": side_s}
+    t0 = time.perf_counter()
+    rec = hold_card_to_cpu(tag, f"{arch}, {placement}", out["cpu"], out["cuda"], rec)
+    say(f"{tag} compare: {time.perf_counter() - t0:.1f} s, sides {json.dumps(side_s)}")
+    return rec
+
+
+COMPARE_CHUNK = 1 << 27  # elements a slice of the card-side comparison holds
+
+
+def hold_card_to_cpu(tag: str, what: str, cpu: tuple, card: tuple, rec: dict) -> dict:
+    """``(trajectory, params, masters)`` of a card run against a CPU run of
+    the same function: loss and grad norm by ``TRAIN_TOL``, the f32
+    masters by the drift bound, the params by it plus each side's bf16
+    rounding, their mean by 2^-5 * sum(lr). Prints ``rec`` with the
+    numbers; fails the script beyond a bound. The elementwise comparison
+    runs on the card (exact f32 arithmetic either way; over the hybrid's
+    1.7 B elements the CPU took ~20 s), ``COMPARE_CHUNK`` elements at a
+    time (whole, llava's 1.45 B elements took the card's memory)."""
+    (tc, p_c, m_c), (tg, p_g, m_g) = cpu, card
+    lrs = [t["lr"] for t in tc]
+    drift = adam.parity_bound(TrainConfig(), lrs)
+    p_max = p_sum = worst = m_max = 0.0
+    within = True
+    for i in range(0, p_c.numel(), COMPARE_CHUNK):
+        a, b = (t[i:i + COMPARE_CHUNK].to("cuda") for t in (p_c, p_g))
+        diff = (b - a).abs()
+        allowed = drift + 2**-8 * (a.abs() + b.abs())
+        p_max, p_sum = max(p_max, diff.max().item()), p_sum + diff.sum().item()
+        worst = max(worst, (diff / allowed).max().item())
+        within = within and bool((diff <= allowed).all())
+    for i in range(0, m_c.numel(), COMPARE_CHUNK):
+        a, b = (t[i:i + COMPARE_CHUNK].to("cuda") for t in (m_c, m_g))
+        m_max = max(m_max, (b - a).abs().max().item())
+    rec = {**rec, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+           "params_max_abs_diff": p_max, "params_mean_abs_diff": p_sum / p_c.numel(),
+           "params_worst_diff_over_bound": worst, "masters_max_abs_diff": m_max,
+           "masters_worst_diff_over_drift": m_max / drift,
            "params_max_bound": drift, "params_mean_bound": 2**-5 * sum(lrs)}
     say(f"{tag}:", json.dumps(rec))
     for c, g in zip(tc, tg):
         for key in ("loss", "grad_norm"):
             if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
-                raise SystemExit(f"FAIL {tag} ({arch}, {placement}): card {key} {g[key]} "
-                                 f"vs CPU {c[key]}")
-    if not rec["masters_max_abs_diff"] <= drift or not bool((diff <= allowed).all()) \
+                raise SystemExit(f"FAIL {tag} ({what}): card {key} {g[key]} vs CPU {c[key]}")
+    if not m_max <= drift or not within \
             or not rec["params_mean_abs_diff"] <= rec["params_mean_bound"]:
-        raise SystemExit(f"FAIL {tag} ({arch}, {placement}): params differ beyond the "
-                         f"bound: {rec}")
+        raise SystemExit(f"FAIL {tag} ({what}): params differ beyond the bound: {rec}")
     return rec
 
 
@@ -1286,6 +1353,7 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m", batch: in
             "--steps", str(steps), "--lr", "3e-3", "--nvme-dir", nvme,
             "--log-every", "1"] + extra
     trace.enable()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     hist = train.train(train.build_argparser().parse_args(argv), argv)
@@ -1317,6 +1385,7 @@ def phase_plan_train(tag: str, extra: list, arch: str = "smollm-135m", batch: in
                     "nvme_capacity": plan.hardware.nvme_capacity,
                     "source": plan.hardware.source, "warnings": list(plan.warnings)},
            "opt_offgraph": run.opt_offgraph, "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "median_step_s_after_first": median,
            "median_tokens_per_s_after_first": batch * seq / median, "n_leaves": n_leaves,
            "n_params": registry.build(cfg).n_params(), "layers": L}
@@ -1428,23 +1497,31 @@ def _zero3_run(cfg, nvme_dir, steps, placement) -> RunConfig:
         train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
 
 
-def phase_zero3_numerics(placement: str) -> dict:
+# the CPU side of the in-graph monolithic step, kept for the placements
+# that compute the same function (all but int8, whose quantizer is another)
+ZERO3_CPU_RUNS: dict = {}
+
+
+def phase_zero3_numerics(placement: str, keep_cpu: bool = False,
+                         reuse_cpu: bool = False) -> dict:
     """Full-width smollm-135m cut to 2 layers: 2 monolithic steps of the
     explicit engine on the card (kernels) and on the CPU (plain versions),
     same state and batches, in one of ``ZERO3_PLACEMENTS``; loss and grad
     norm by ``TRAIN_TOL`` (the grad norm by ``INT8_NORM_TOL`` under int8),
     the f32 masters (in the state in-graph, read back from the optimizer
     store off-graph) by the drift bound, the flat by it plus each side's
-    bf16 rounding, its mean by 2^-5 * sum(lr)."""
+    bf16 rounding, its mean by 2^-5 * sum(lr). ``keep_cpu`` keeps the CPU
+    side in ``ZERO3_CPU_RUNS``, ``reuse_cpu`` holds the card against it
+    (the host and off-graph placements compute the in-graph function)."""
     cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
     B, S, steps = 4, 256, 2
     base = os.path.join(ROOT, "build", f"chip_smoke_zero3_{placement}")
-    state0 = None
-    out = {}
-    for dev in ("cpu", "cuda"):
+    # the seed's draw on the CPU: the kept CPU side's start too
+    state0 = ExplicitZero3Engine(_zero3_run(cfg, os.path.join(base, "init"), steps, placement),
+                                 "cpu").init_state(torch.Generator().manual_seed(SEED))
+    out = {"cpu": ZERO3_CPU_RUNS["in_graph"]} if reuse_cpu else {}
+    for dev in [d for d in ("cpu", "cuda") if d not in out]:
         ex = InfinityExecutor(_zero3_run(cfg, os.path.join(base, dev), steps, placement), dev)
-        if state0 is None:
-            state0 = ex.engine.init_state(torch.Generator().manual_seed(SEED))
         state = ex.reseed(ex.engine.place_state(_to(state0, dev)))
         stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
                                  cfg.vocab_size, seed=SEED)
@@ -1459,13 +1536,16 @@ def phase_zero3_numerics(placement: str) -> dict:
         out[dev] = (traj, state["flat"].detach().float().cpu(),
                     masters.detach().float().cpu().reshape(state["flat"].shape))
         ex.close()
+    if keep_cpu:
+        ZERO3_CPU_RUNS[placement] = out["cpu"]
     (tc, f_c, m_c), (tg, f_g, m_g) = out["cpu"], out["cuda"]
     lrs = [t["lr"] for t in tc]
     drift = adam.parity_bound(TrainConfig(), lrs)
     diff = (f_g - f_c).abs()
     allowed = drift + 2**-8 * (f_c.abs() + f_g.abs())
     rec = {"placement": placement, "tiers_param_grad_opt_compress": ZERO3_PLACEMENTS[placement],
-           "layers": 2, "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
+           "cpu_side": "in_graph, kept" if reuse_cpu else placement, "layers": 2,
+           "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps,
            "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "flat_max_abs_diff": diff.max().item(), "flat_mean_abs_diff": diff.mean().item(),
            "flat_worst_diff_over_bound": (diff / allowed).max().item(),
@@ -1701,15 +1781,15 @@ def dp_rank(mode: str) -> int:
     if not torch.cuda.is_available():
         print("dp rank: CUDA is not available")
         return 1
-    if mode == "numerics":
+    if mode in ("numerics", "gspmd_numerics"):
         created = mesh_mod.maybe_init_distributed("cuda")
         try:
-            rec = dp2_numerics_rank()
+            rec = dp2_numerics_rank() if mode == "numerics" else gspmd_dp2_numerics_rank()
         finally:
             if created:
                 torch.distributed.destroy_process_group()
     else:  # launch.train joins and leaves the group itself
-        rec = dp_train_rank()
+        rec = dp_train_rank() if mode == "train" else gspmd_train_rank()
     with open(_rank_record(mode, rec["rank"]), "w") as f:
         json.dump(rec, f)
     return 0
@@ -1798,11 +1878,226 @@ def nccl_check() -> int:
     _build.build_all()
     dp1, _ = phase_train_main()
     rec, launches = phase_zero3_dp_train(dp1, 4, "zero3 dp4 nccl train")
-    if rec["transport"]["backend"] != "nccl":
-        raise SystemExit(f"FAIL nccl check: the ranks ran {rec['transport']}")
+    # one rank on card 0 plans for one device (detection counts the four)
+    plan1, _ = phase_plan_train("plan train", ["--hw-devices", "1"])
+    grec, glaunches = phase_gspmd_dp_train(plan1, 4, "gspmd dp4 nccl train")
+    for r in (rec, grec):
+        if r["transport"]["backend"] != "nccl":
+            raise SystemExit(f"FAIL nccl check: the ranks ran {r['transport']}")
     say("nccl check:", json.dumps({"ok": True, "cards": torch.cuda.device_count(),
-                                   "launches": launches}))
+                                   "launches": launches, "gspmd_launches": glaunches}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD engine on data-parallel ranks: two sharing the one card (gloo)
+# ---------------------------------------------------------------------------
+
+# the GSPMD step's dp-2 placements (ZeRO-3: every leaf split over the
+# ranks), held against the one-rank CPU side of phase 11's in-graph run
+GSPMD_DP2_PLACEMENTS = ("in_graph", "off_graph")
+GSPMD_NUMERICS_KEY = ("smollm-135m", (("n_layers", 2),), 4, 256, 2)
+
+
+def _gspmd_dp2_record() -> str:
+    """Where rank 0 of "gspmd dp2 numerics" saves the gathered params and
+    masters (too large for a JSON line)."""
+    return os.path.join(ROOT, "build", "chip_smoke_gspmd_dp2_numerics.pt")
+
+
+def gspmd_dp2_numerics_rank() -> dict:
+    """(a rank) Phase 11's model, weights and global batches (full-width
+    smollm-135m cut to 2 layers, 4 x 256, 2 steps) through the GSPMD step
+    at ZeRO-3 on 2 ranks on the card, each from its shards of the global
+    state (``bridge.shard_gspmd_state``) on its rows of each batch, in
+    ``GSPMD_DP2_PLACEMENTS``; the params and f32 masters gathered over the
+    ranks after the last step, which rank 0 saves for the main process."""
+    mesh = mesh_mod.make_local_mesh(2, 1, "cuda")
+    rank, dev = mesh.rank, mesh.device
+    arch, cut, B, S, steps = GSPMD_NUMERICS_KEY
+    cfg = dataclasses.replace(configs.get(arch), **dict(cut))
+    params0 = init_params(cfg)
+    ops.reset_launch_counts()
+    runs, unsplit = {}, {}
+    for placement in GSPMD_DP2_PLACEMENTS:
+        param, grad, opt, remat = GSPMD_PLACEMENTS[placement]
+        nvme = os.path.join(ROOT, "build", f"chip_smoke_gspmd_dp2_{placement}")
+        shutil.rmtree(os.path.join(nvme, f"rank{rank}"), ignore_errors=True)
+        run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat=remat, zero_stage=3),
+                        offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                                             nvme_dir=nvme),
+                        train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+        ex = InfinityExecutor(run, dev, mesh=mesh)
+        eng = ex.engine
+        full = {"params": params0}
+        if not run.opt_offgraph:
+            full["opt"] = adam.init_state(params0)
+        state = ex.reseed(eng.place_state(bridge.shard_gspmd_state(full, run, rank, 2)))
+        stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                                 cfg.vocab_size, seed=SEED)
+        step = ex.make_train_step()
+        traj = []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev)
+                     for k, a in rank_batch(stream.batch_at(i), rank, 2).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        if ex.offgraph:  # the rank's opt shards from the store, shaped as its params'
+            named = _store_masters(ex)
+            masters: dict = {}
+            for path in pt.tree_paths(state["params"]):
+                like = pt.tree_get(state["params"], path)
+                pt.tree_set(masters, path, named[f"rank{rank}/{keystr(path)}"]
+                            .reshape(like.shape).to(dev))
+        else:
+            masters = state["opt"].master
+        whole = [torch.cat([t.detach().float().cpu().reshape(-1)
+                            for t in pt.tree_leaves(eng.respec(tree, cls, None))])
+                 for tree, cls in ((state["params"], "param"), (masters, "opt"))]
+        runs[placement] = (traj, *whole)
+        unsplit = {cls: eng.unsplit_leaves(cls) for cls in ("param", "grad", "opt")}
+        ex.close()
+    if rank == 0:
+        torch.save(runs, _gspmd_dp2_record())
+    return {"rank": rank, "launches": ops.launch_counts(), "transport": mesh.transport(),
+            "unsplit_leaves": unsplit, "trajectories": {p: r[0] for p, r in runs.items()}}
+
+
+def phase_gspmd_dp2_numerics() -> tuple:
+    """Both ranks' ``gspmd_dp2_numerics_rank``, each placement's gathered
+    params and masters and its trajectory (the same on both ranks: loss
+    and grad norm are summed over them) held against phase 11's kept
+    one-rank CPU run by its bounds; the launches on the tensor cores."""
+    recs = run_ranks("gspmd_numerics", 600)
+    gathered = torch.load(_gspmd_dp2_record(), weights_only=False)
+    out = {}
+    for placement, card in gathered.items():
+        if recs[1]["trajectories"][placement] != card[0]:
+            raise SystemExit(f"FAIL gspmd dp2 numerics ({placement}): the ranks report "
+                             f"{recs[1]['trajectories'][placement]} and {card[0]}")
+        rec = {"placement": placement, "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
+               "ranks": 2, "zero_stage": 3, "cpu_side": "one rank, in_graph, kept",
+               "unsplit_leaves": recs[0]["unsplit_leaves"]}
+        out[placement] = hold_card_to_cpu("gspmd dp2 numerics", placement,
+                                          CPU_RUNS[GSPMD_NUMERICS_KEY], card, rec)
+    for r in recs:
+        say("gspmd dp2 numerics launches:", json.dumps({
+            "rank": r["rank"], "launches": r["launches"], "transport": r["transport"]}))
+        check_main_path_routes("gspmd dp2 numerics", r["launches"])
+    return out, _sum_launches(recs)
+
+
+def gspmd_train_rank() -> dict:
+    """(a rank) ``launch.train --plan auto --hw-devices N`` (N the launch's
+    world size) on full smollm-135m, ``DP_TRAIN_STEPS`` steps of 8 x 512
+    (8 / N x 512 a rank), tracer on: the plan it chose, this rank's state
+    bytes and their sums, the one-rank bytes of the same run, the leaves
+    that split over no rank, its step metrics, launches, peak allocated
+    memory and transport."""
+    n = int(os.environ["WORLD_SIZE"])
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_gspmd_dp{n}")
+    argv = ["--arch", "smollm-135m", "--plan", "auto", "--hw-devices", str(n),
+            "--batch", "8", "--seq", "512", "--steps", str(DP_TRAIN_STEPS), "--lr", "3e-3",
+            "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+    trace.enable()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace.disable()
+    mesh, plan, run = hist["mesh"], hist["plan"], hist["run"]
+    # the engine's layout on this rank (no collective: a CPU engine on the
+    # rank's mesh), and the same run's one-rank bytes
+    layout = ZeroInfinityEngine(run, "cpu", mesh=dataclasses.replace(mesh, device="cpu"))
+    keys = [f"{c}_shard_bytes" for c in ("param", "grad", "opt")]
+
+    def fracs(m):
+        w = max(m["trace_wall_s"], 1e-12)
+        return {"compute_frac": m["trace_compute_s"] / w,
+                "io_wait_frac": m["trace_io_wait_s"] / w,
+                "io_wait_collective_frac": m.get("trace_io_wait_collective_s", 0.0) / w,
+                "other_frac": m["trace_other_s"] / w}
+
+    return {"rank": mesh.rank, "argv": " ".join(argv), "wall_s": wall,
+            "plan": plan.summary(), "engine": plan.engine, "tiers": plan.tiers,
+            "remat": plan.remat, "zero_stage": run.parallel.zero_stage,
+            "launches": ops.launch_counts(), "transport": mesh.transport(),
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "one_rank_bytes": ZeroInfinityEngine(run, "cpu").shard_bytes(),
+            "layout_bytes": layout.shard_bytes(),
+            "unsplit_leaves": {c: layout.unsplit_leaves(c) for c in ("param", "grad", "opt")},
+            "steps": [{"step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
+                       "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"], **fracs(m),
+                       **{k: m[k] for k in keys}, **{f"{k}_all_ranks": m[f"{k}_all_ranks"]
+                                                     for k in keys},
+                       **{f"plan_{k}": m[f"plan_{k}"] for k in keys}}
+                      for m in hist["metrics"]]}
+
+
+def phase_gspmd_dp_train(dp1: dict, n: int = 2, tag: str = "gspmd dp2 train") -> tuple:
+    """``n`` ranks' ``gspmd_train_rank``: the plan the GSPMD step with
+    params on the device; the losses finite, falling and those of the
+    one-rank "plan train" run (``dp1``: the same seed and global batches)
+    by ``TRAIN_TOL``; each rank's param, grad and opt bytes an n-th of the
+    one-rank run's and their sum equal to it, where every leaf splits
+    (the leaves that do not are named); the launches of a step on every
+    rank, all on the tensor cores."""
+    cfg = configs.get("smollm-135m")
+    L, steps = cfg.n_layers, DP_TRAIN_STEPS
+    recs = run_ranks("gspmd_train", 600, n)
+    for r in recs:
+        for m in r["steps"]:
+            say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
+    r0 = recs[0]
+    rec = {"argv": r0["argv"], "plan": r0["plan"], "zero_stage": r0["zero_stage"],
+           "transport": r0["transport"], "wall_s": [r["wall_s"] for r in recs],
+           "peak_allocated_gb": [r["peak_allocated_gb"] for r in recs],
+           "dp1_peak_allocated_gb": dp1.get("peak_allocated_gb"),
+           "launches_per_rank": [r["launches"] for r in recs],
+           "losses": [m["loss"] for m in r0["steps"]], "dp1_losses": dp1["losses"][:steps],
+           "bytes_per_rank": {k: r0["steps"][-1][k] for k in r0["one_rank_bytes"]},
+           "bytes_all_ranks": {k: r0["steps"][-1][f"{k}_all_ranks"]
+                               for k in r0["one_rank_bytes"]},
+           "plan_bytes_per_device": {k: r0["steps"][-1][f"plan_{k}"]
+                                     for k in r0["one_rank_bytes"]},
+           "one_rank_bytes": r0["one_rank_bytes"], "unsplit_leaves": r0["unsplit_leaves"],
+           "median_step_s_after_first": statistics.median(m["step_s"] for m in r0["steps"][1:]),
+           "dp1_median_step_s_after_first": dp1["median_step_s_after_first"]}
+    rec["median_tokens_per_s_after_first"] = 8 * 512 / rec["median_step_s_after_first"]
+    say(f"{tag}:", json.dumps(rec))
+    if r0["engine"] != "pjit" or set(r0["tiers"].values()) != {"device"}:
+        raise SystemExit(f"FAIL {tag}: the planner gave {r0['plan']}; this phase runs the "
+                         "GSPMD step with every state on the device")
+    losses = rec["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
+    for got, want in zip(losses, rec["dp1_losses"]):
+        if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
+            raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
+    for r in recs:
+        for cls, names in r["unsplit_leaves"].items():
+            if names:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']}'s {cls} leaves {names} split "
+                                 f"over no rank (d_model {cfg.d_model})")
+        for m in r["steps"]:
+            for k, whole in r["one_rank_bytes"].items():
+                if not (n * m[k] == whole == m[f"{k}_all_ranks"]
+                        and m[k] == r["layout_bytes"][k]):
+                    raise SystemExit(f"FAIL {tag}: rank {r['rank']} step {m['step']} {k} "
+                                     f"{m[k]} (all ranks {m[f'{k}_all_ranks']}), the one-rank "
+                                     f"run's {whole}")
+        fwd = 2 if r["remat"] == "full" else 1
+        want = {"flash_attention": fwd * L * steps, "flash_attention_bwd": L * steps,
+                "tiled_matmul": (fwd + 2) * mlp_products(cfg) * steps,
+                "fused_adam": len(pt.tree_paths(registry.build(cfg).defs)) * steps}
+        for name, count in want.items():
+            if r["launches"][name] < count:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched {name} "
+                                 f"{r['launches'][name]} < {count}")
+        check_main_path_routes(tag, r["launches"])
+    return rec, _sum_launches(recs)
 
 
 def phase_resume_drill() -> tuple:
@@ -2443,6 +2738,20 @@ def count_hgmma(name: str) -> int:
     return n
 
 
+# each phase's seconds, in the order run (printed as "phase <name>: s")
+PHASE_S: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds printed on a line of their own
+    and kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = time.perf_counter() - t0
+    say(f"phase {name}: {PHASE_S[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on the card",
@@ -2460,7 +2769,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = _build.build_all()
+    built = timed("build", _build.build_all)
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, rec in built.items():
         for line in rec["log"].splitlines():
@@ -2469,80 +2778,105 @@ def main() -> int:
     hgmma = {name: count_hgmma(name)
              for name in ("flash_attention", "tiled_matmul", "quantized_matmul")}
 
-    checks = phase_kernels()
-    e2e = phase_e2e()
+    checks = timed("kernels", phase_kernels)
+    e2e = timed("e2e", phase_e2e)
 
     kv_dir = os.path.join(ROOT, "build", "chip_smoke_kv")
     shutil.rmtree(kv_dir, ignore_errors=True)
     main_argv = ["--arch", "smollm-135m", "--batch", "8", "--kv-slots", "4",
                  "--kv-tier", "host", "--prompt-len", "512", "--new-tokens", "32"]
-    out, launches, wall = run_serve(main_argv)
+    out, launches, wall = timed("serve host", run_serve, main_argv)
     main_rec = summarize("host", main_argv, out, launches, wall)
 
     nvme_argv = ["--arch", "smollm-135m", "--batch", "3", "--kv-slots", "1",
                  "--kv-tier", "nvme", "--kv-dir", kv_dir, "--prompt-len", "128",
                  "--new-tokens", "8"]
-    out, nvme_launches, wall = run_serve(nvme_argv)
+    out, nvme_launches, wall = timed("serve nvme", run_serve, nvme_argv)
     summarize("nvme", nvme_argv, out, nvme_launches, wall)
     shutil.rmtree(kv_dir, ignore_errors=True)
     q8kv_argv = nvme_argv + ["--kv-quant", "q8"]
-    out, q8kv_launches, wall = run_serve(q8kv_argv)
+    out, q8kv_launches, wall = timed("serve nvme q8", run_serve, q8kv_argv)
     summarize("nvme q8", q8kv_argv, out, q8kv_launches, wall)
 
-    train_checks = phase_train_kernels()
-    numerics = phase_train_numerics()
-    phase_train_numerics("q8")
-    train_rec, train_launches = phase_train_main()
-    q8_rec, q8_launches = phase_train_main("q8")
-    gspmd = {p: phase_gspmd_numerics(p) for p in SMOLLM_PLACEMENTS}
-    plan_rec, plan_launches = phase_plan_train("plan train", [])
-    offload_rec, offload_launches = phase_plan_train(
-        "plan offload", ["--hw-device-mem", OFFLOAD_DEVICE_MEM])
-    plan_serve_rec, plan_serve_launches = phase_plan_serve()
-    zero3 = {p: phase_zero3_numerics(p) for p in ZERO3_PLACEMENTS}
-    z3_rec, z3_launches = phase_zero3_train(
-        "zero3 train", ["--offload-param", "device", "--offload-opt", "device"])
-    z3o_rec, z3o_launches = phase_zero3_train(
-        "zero3 offload", ["--offload-param", "device", "--offload-opt", "host"])
-    z3h_rec, z3h_launches = phase_zero3_train(
-        "zero3 host", ["--offload-param", "host", "--offload-opt", "host"])
-    dp2_rec, dp2_launches = phase_zero3_dp2_numerics()
-    dp2_train_rec, dp2_train_launches = phase_zero3_dp_train(train_rec)
-    drill_rec, drill_launches = phase_resume_drill()
-    moe_repeat = phase_moe_repeat()
-    moe_numerics = {k: phase_moe_numerics(k) for k in ("gspmd", "layered")}
-    moe_serve_rec, moe_serve_launches = phase_moe_serve()
-    moe_plan_rec, moe_plan_launches = phase_plan_train("moe plan train", [], arch=MOE_ARCH)
-    moe_layered_rec, moe_layered_launches = phase_moe_layered()
-    train_checks.update(phase_flash_window())
-    recurrent = {arch: phase_gspmd_numerics("in_graph", arch, layers, B, S,
-                                            tag="recurrent numerics")
-                 for arch, layers, B, S in ((SSM_ARCH, 2, 4, 256), (HYBRID_ARCH, 3, 2, 128))}
-    hybrid_serve_rec, hybrid_serve_launches = phase_family_serve(
-        "hybrid serve", HYBRID_ARCH, 2560, 16)
-    hybrid_train_rec, hybrid_train_launches = phase_plan_train(
-        "hybrid plan train", [], arch=HYBRID_ARCH, batch=1, seq=4096, layers=HYBRID_TRAIN_LAYERS)
-    ssm_serve_rec, ssm_serve_launches = phase_family_serve("ssm serve", SSM_ARCH, 512, 32)
-    ssm_train_rec, ssm_train_launches = phase_plan_train("ssm plan train", [], arch=SSM_ARCH)
-    for name, recs in phase_family_kernels().items():
+    train_checks = timed("train kernels", phase_train_kernels)
+    numerics = timed("train numerics", phase_train_numerics)
+    timed("train numerics q8", phase_train_numerics, "q8")
+    train_rec, train_launches = timed("train", phase_train_main)
+    q8_rec, q8_launches = timed("train q8", phase_train_main, "q8")
+    # the three placements compute one function: one CPU run, kept
+    gspmd = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p,
+                      keep_cpu=p == "in_graph", reuse_cpu=p != "in_graph")
+             for p in SMOLLM_PLACEMENTS}
+    plan_rec, plan_launches = timed("plan train", phase_plan_train, "plan train", [])
+    offload_rec, offload_launches = timed("plan offload", phase_plan_train,
+                                          "plan offload", ["--hw-device-mem", OFFLOAD_DEVICE_MEM])
+    plan_serve_rec, plan_serve_launches = timed("plan serve", phase_plan_serve)
+    # int8 quantizes the 'other' gradients: its CPU side is its own
+    zero3 = {p: timed(f"zero3 numerics/{p}", phase_zero3_numerics, p,
+                      keep_cpu=p == "in_graph", reuse_cpu=p in ("host", "off_graph_nvme"))
+             for p in ZERO3_PLACEMENTS}
+    z3_rec, z3_launches = timed(
+        "zero3 train", phase_zero3_train, "zero3 train",
+        ["--offload-param", "device", "--offload-opt", "device"])
+    z3o_rec, z3o_launches = timed(
+        "zero3 offload", phase_zero3_train, "zero3 offload",
+        ["--offload-param", "device", "--offload-opt", "host"])
+    z3h_rec, z3h_launches = timed(
+        "zero3 host", phase_zero3_train, "zero3 host",
+        ["--offload-param", "host", "--offload-opt", "host"])
+    dp2_rec, dp2_launches = timed("zero3 dp2 numerics", phase_zero3_dp2_numerics)
+    dp2_train_rec, dp2_train_launches = timed("zero3 dp2 train", phase_zero3_dp_train, train_rec)
+    gdp2, gdp2_launches = timed("gspmd dp2 numerics", phase_gspmd_dp2_numerics)
+    gdp2_train_rec, gdp2_train_launches = timed("gspmd dp2 train", phase_gspmd_dp_train, plan_rec)
+    drill_rec, drill_launches = timed("resume drill", phase_resume_drill)
+    moe_repeat = timed("moe repeat", phase_moe_repeat)
+    moe_numerics = {k: timed(f"moe numerics/{k}", phase_moe_numerics, k)
+                    for k in ("gspmd", "layered")}
+    moe_serve_rec, moe_serve_launches = timed("moe serve", phase_moe_serve)
+    moe_plan_rec, moe_plan_launches = timed("moe plan train", phase_plan_train,
+                                            "moe plan train", [], arch=MOE_ARCH)
+    moe_layered_rec, moe_layered_launches = timed("moe layered", phase_moe_layered)
+    train_checks.update(timed("flash window", phase_flash_window))
+    # the hybrid's 1.7 B-param cut takes one step: its CPU side is the
+    # run's slowest (~110 s for two)
+    recurrent = {arch: timed(f"recurrent numerics/{arch}", phase_gspmd_numerics, "in_graph",
+                             arch, layers, B, S, tag="recurrent numerics", steps=steps)
+                 for arch, layers, B, S, steps in ((SSM_ARCH, 2, 4, 256, 2),
+                                                   (HYBRID_ARCH, 3, 2, 128, 1))}
+    hybrid_serve_rec, hybrid_serve_launches = timed(
+        "hybrid serve", phase_family_serve, "hybrid serve", HYBRID_ARCH, 2560, 16)
+    hybrid_train_rec, hybrid_train_launches = timed(
+        "hybrid plan train", phase_plan_train, "hybrid plan train", [], arch=HYBRID_ARCH,
+        batch=1, seq=4096, layers=HYBRID_TRAIN_LAYERS)
+    ssm_serve_rec, ssm_serve_launches = timed("ssm serve", phase_family_serve,
+                                              "ssm serve", SSM_ARCH, 512, 32)
+    ssm_train_rec, ssm_train_launches = timed("ssm plan train", phase_plan_train,
+                                              "ssm plan train", [], arch=SSM_ARCH)
+    for name, recs in timed("family kernels", phase_family_kernels).items():
         train_checks[name] += recs
-    family = {arch: phase_gspmd_numerics("in_graph", arch, B=B, S=S, tag="family numerics",
-                                         cut=cut, keep_cpu=arch == ENCDEC_ARCH)
-              for arch, cut, B, S in ((ENCDEC_ARCH, ENCDEC_NUMERICS_CUT, 2, 256),
-                                      (VLM_ARCH, VLM_NUMERICS_CUT, 1, 160))}
-    vlm_serve_rec, vlm_serve_launches = phase_family_serve(
-        "vlm serve", VLM_ARCH, 3072, 16, layers=VLM_SERVE_LAYERS)
-    vlm_train_rec, vlm_train_launches = phase_plan_train(
-        "vlm plan train", [], arch=VLM_ARCH, batch=1, seq=4096, layers=VLM_TRAIN_LAYERS)
-    encdec_serve_rec, encdec_serve_launches = phase_family_serve(
-        "encdec serve", ENCDEC_ARCH, 2048, 32)
-    encdec_train_rec, encdec_train_launches = phase_plan_train(
-        "encdec plan train", [], arch=ENCDEC_ARCH, batch=8, seq=2048)
-    nvme_numerics = {p: phase_gspmd_numerics(p, ENCDEC_ARCH, B=2, S=256, tag="gspmd numerics",
-                                             cut=ENCDEC_NUMERICS_CUT, reuse_cpu=True)
+    # llava's 1.45 B-param cut takes one step, as the hybrid's
+    family = {arch: timed(f"family numerics/{arch}", phase_gspmd_numerics, "in_graph", arch,
+                          B=B, S=S, tag="family numerics", cut=cut,
+                          keep_cpu=arch == ENCDEC_ARCH, steps=steps)
+              for arch, cut, B, S, steps in ((ENCDEC_ARCH, ENCDEC_NUMERICS_CUT, 2, 256, 2),
+                                             (VLM_ARCH, VLM_NUMERICS_CUT, 1, 160, 1))}
+    vlm_serve_rec, vlm_serve_launches = timed(
+        "vlm serve", phase_family_serve, "vlm serve", VLM_ARCH, 3072, 16,
+        layers=VLM_SERVE_LAYERS)
+    vlm_train_rec, vlm_train_launches = timed(
+        "vlm plan train", phase_plan_train, "vlm plan train", [], arch=VLM_ARCH, batch=1,
+        seq=4096, layers=VLM_TRAIN_LAYERS)
+    encdec_serve_rec, encdec_serve_launches = timed(
+        "encdec serve", phase_family_serve, "encdec serve", ENCDEC_ARCH, 2048, 32)
+    encdec_train_rec, encdec_train_launches = timed(
+        "encdec plan train", phase_plan_train, "encdec plan train", [], arch=ENCDEC_ARCH,
+        batch=8, seq=2048)
+    nvme_numerics = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p, ENCDEC_ARCH,
+                              B=2, S=256, tag="gspmd numerics", cut=ENCDEC_NUMERICS_CUT,
+                              reuse_cpu=True)
                      for p in NVME_PLACEMENTS}
-    plan_nvme_rec, plan_nvme_launches = phase_plan_nvme()
-    remat_recs, remat_launches = phase_encdec_remat()
+    plan_nvme_rec, plan_nvme_launches = timed("encdec plan nvme", phase_plan_nvme)
+    remat_recs, remat_launches = timed("encdec remat", phase_encdec_remat)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:65"),
@@ -2584,6 +2918,7 @@ def main() -> int:
              "plan_serve": plan_serve_launches, "zero3_train": z3_launches,
              "zero3_offload": z3o_launches, "zero3_host": z3h_launches,
              "zero3_dp2_numerics": dp2_launches, "zero3_dp2_train": dp2_train_launches,
+             "gspmd_dp2_numerics": gdp2_launches, "gspmd_dp2_train": gdp2_train_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -2641,6 +2976,10 @@ def main() -> int:
         f"drift, dp2 train {dp2_train_rec['losses'][0]:.4f} -> "
         f"{dp2_train_rec['losses'][-1]:.4f} at "
         f"{dp2_train_rec['median_tokens_per_s_after_first']:.0f} tok/s (2 ranks, 1 card); "
+        f"gspmd dp2 numerics params "
+        f"{max(r['params_worst_diff_over_bound'] for r in gdp2.values()):.3f} of bound, "
+        f"dp2 train {gdp2_train_rec['losses'][0]:.4f} -> {gdp2_train_rec['losses'][-1]:.4f} "
+        f"at {gdp2_train_rec['median_tokens_per_s_after_first']:.0f} tok/s (2 ranks, 1 card); "
         f"resume drill restarts {drill_rec['restarts']}; moe repeat "
         f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
         f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "
@@ -2676,6 +3015,7 @@ def main() -> int:
         f"busy {plan_nvme_rec['device_busy_share_of_steps']:.3f}; encdec remat peak GB "
         + ", ".join(f"{p} {r['peak_allocated_gb']:.2f}" for p, r in remat_recs.items())
         + ")")
+    say("phases:", json.dumps(PHASE_S))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

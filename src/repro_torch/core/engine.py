@@ -1,5 +1,6 @@
-"""ZeroInfinityEngine on one device: RunConfig -> the family's bundle, its
-state, and the GSPMD engine's train step (``repro/core/engine.py``).
+"""ZeroInfinityEngine: RunConfig -> the family's bundle, its state, and the
+GSPMD engine's train step (``repro/core/engine.py``), on one device or on
+each rank of a data-parallel mesh.
 
 On one device every sharding of the reference is the identity, so what is
 left of its step (``repro/core/engine.py:139-235``) is the loss's value and
@@ -28,9 +29,48 @@ tensors. Every copy rides that one stream, so a pinned tensor is never
 written while its read is in flight; a host reader waits for
 ``host_ready()`` first. On the CPU (``device="cpu"``) the host tier is
 the device, as the reference's host tier is on a CPU backend.
+
+On a mesh (``mesh``, a ``launch/mesh.LocalMesh`` of dp > 1 ranks with a
+model axis of 1, one process each) the state is what the reference's
+shardings give one device. ``partition.make_rules`` lays every leaf out
+for each state class (param, grad, opt) at the ZeRO stage: at stage 3 the
+``"embed"`` dim of params, gradients and optimizer states is split over
+the ranks, at stage 2 gradients and optimizer states, at stage 1 the
+optimizer states alone, at stage 0 nothing; a dim that does not split
+evenly stays whole. Each rank holds its shard of a split leaf
+(``partition.shard_leaf``) and the whole of every other. A step, on the
+rank's rows of the global batch (``data/pipeline.rank_batch``):
+
+  1. gathers each split param leaf (``zero.LeafGather``: the all-gather
+     of the shards along the split dim);
+  2. computes the loss on the rank's rows scaled by 1/dp before the
+     backward, exact for equal disjoint slices and for a batch every rank
+     holds whole (the reference replicates a batch that does not split);
+  3. differentiates: a gathered leaf's cotangent reduce-scatters in bf16
+     (``LeafGather``'s backward, XLA's transpose of the gather); a leaf
+     whole on every rank has its local gradient reduce-scattered where
+     the grad spec splits it and all-reduced where it does not
+     (stages 0-2), so each rank holds its grad-spec part of the global
+     gradient, in the gradient's dtype;
+  4. sums ``loss`` over the ranks; ``grad_norm`` from the split leaves'
+     sums of squares summed over the ranks plus the whole leaves' counted
+     once (rank 0's);
+  5. runs fused Adam on the rank's optimizer shards (a shard of the
+     gradient where the grad is whole and the optimizer split, stage 1):
+     elementwise, so a shard's update is those elements of the whole
+     leaf's;
+  6. puts the new params back in their spec: the all-gather of the
+     updated shards where params are whole and optimizer states split
+     (stages 1-2).
+
+Every rank issues every collective in the same order. The step reports
+each rank's state bytes (``param_shard_bytes``, ``grad_shard_bytes``,
+``opt_shard_bytes`` in-graph); ``shard_bytes()`` predicts them from the
+defs.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -84,11 +124,26 @@ class PinnedHostTier:
             self._written.synchronize()
 
 
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pt.tree_leaves(tree))
+
+
+STATE_CLASSES = ("param", "grad", "opt")
+
+
 class ZeroInfinityEngine:
-    def __init__(self, run: RunConfig, device="cuda"):
+    def __init__(self, run: RunConfig, device="cuda", mesh=None):
         self.run = run
         self.device = torch.device(device)
         self.bundle = registry.build(run.model, run.parallel)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.dp = mesh.world if self.mesh is not None else 1
+        self.rank = mesh.rank if self.mesh is not None else 0
+        sizes = mesh.axis_sizes() if self.mesh is not None else {"data": 1, "model": 1}
+        # each leaf's split dim (None: whole on every rank) per state class
+        self.splits = {cls: pt.leaf_splits(self.bundle.defs, run.model, sizes,
+                                           run.parallel, cls)
+                       for cls in STATE_CLASSES}
         # the host tier is page-locked CPU memory on the card, the device
         # itself on the CPU
         pinned = self.device.type == "cuda"
@@ -114,15 +169,65 @@ class ZeroInfinityEngine:
         return self.adopt_params(self.init_params(generator))
 
     def adopt_params(self, params: dict, step: int = 0) -> dict:
-        """This engine's state around ``params`` (any device): Adam masters
-        the params' f32 copies, zero moments, the Adam step count ``step``
-        (a checkpoint's, on a tier migration)."""
+        """This engine's state around the whole ``params`` (any device):
+        Adam masters the params' f32 copies, zero moments, the Adam step
+        count ``step`` (a checkpoint's, on a tier migration); on a mesh the
+        rank's shards of each."""
         params = pt.tree_map(lambda t: t.to(self.device), params)
-        state = {"params": params}
+        state = {"params": self.respec(params, None, "param")}
         if not self.run.opt_offgraph:
-            opt = adam.init_state(params)
+            opt = adam.init_state(self.respec(params, None, "opt"))
             state["opt"] = opt._replace(step=torch.full_like(opt.step, step))
         return self.place_state(state)
+
+    def respec(self, tree: dict, src: Optional[str], dst: Optional[str]) -> dict:
+        """``tree`` laid out by state class ``src`` (None: whole leaves)
+        -> laid out by ``dst`` (None: whole): the rank's shard where only
+        ``dst`` splits a leaf, the all-gather of the shards where only
+        ``src`` does (one collective a leaf, in tree order), the leaf
+        itself where both agree. The identity at one rank."""
+        if self.mesh is None or src == dst:
+            return tree
+        out: dict = {}
+        for path in pt.tree_paths(tree):
+            t = pt.tree_get(tree, path)
+            da = pt.tree_get(self.splits[src], path) if src else None
+            db = pt.tree_get(self.splits[dst], path) if dst else None
+            if da == db:
+                leaf = t
+            elif da is None:
+                leaf = pt.shard_leaf(t, db, self.rank, self.dp)
+            elif db is None:
+                leaf = self.mesh.all_gather(t, da)
+            else:
+                raise ValueError(f"{path}: split on dim {da} as {src}, {db} as {dst}")
+            pt.tree_set(out, path, leaf)
+        return out
+
+    def shard_bytes(self) -> dict:
+        """One rank's state bytes from the defs and the splits: its param
+        shards in the params' dtypes, its gradient shards likewise (f32,
+        the accumulators', under ``grad_accum`` > 1), its f32 master, m and
+        v shards (12 bytes an element)."""
+        def count(cls, per_elem=None):
+            total = 0
+            for path in pt.tree_paths(self.bundle.defs):
+                d = pt.tree_get(self.bundle.defs, path)
+                n = math.prod(d.shape) // (self.dp if pt.tree_get(self.splits[cls], path)
+                                           is not None else 1)
+                total += n * (per_elem or d.torch_dtype.itemsize)
+            return total
+
+        accum = self.run.parallel.grad_accum > 1
+        return {"param_shard_bytes": count("param"),
+                "grad_shard_bytes": count("grad", 4 if accum else None),
+                "opt_shard_bytes": count("opt", 12)}
+
+    def unsplit_leaves(self, cls: str) -> list:
+        """The ``keystr`` names of the leaves every rank holds whole in
+        state class ``cls`` (all of them at one rank)."""
+        return ["".join(f"[{k!r}]" for k in path) for path in pt.tree_paths(self.bundle.defs)
+                if self.mesh is None or pt.tree_get(self.splits[cls], path) is None]
 
     def place_state(self, state: dict) -> dict:
         """``state``'s leaves where this engine keeps them: host-tier
@@ -165,9 +270,12 @@ class ZeroInfinityEngine:
         ``(grads, {loss, grad_norm})``; otherwise the Adam update ->
         ``(new_state, {loss, grad_norm, lr})``, ``lr`` the step's own
         (``adam.lr_at`` of the new step count). Metrics are 0-d device
-        tensors."""
+        tensors (and, on a mesh, the rank's state bytes as integers). On a
+        mesh ``batch`` is the rank's rows and ``grads`` the rank's part of
+        the global gradient in the grad spec."""
         tc = self.run.train
         accum = self.run.parallel.grad_accum
+        mesh, dp = self.mesh, self.dp
         # families with step statistics (moe) expose loss_stats: its aux
         # (the routing's drop fraction and expert load) rides out of the
         # gradient pass into the step metrics without a second forward
@@ -177,16 +285,24 @@ class ZeroInfinityEngine:
             loss_stats = lambda params, batch: (loss_f(params, batch), {})
         param_host = self.param_host
         opt_host = self.opt_host and not grads_only
+        if mesh is not None:
+            from repro_torch.core.zero import LeafGather  # zero.py imports this module
 
         def value_and_grad(params, batch):
             paths = pt.tree_paths(params)
             leaves = [pt.tree_get(params, p).detach().requires_grad_() for p in paths]
             live: dict = {}
             for p, leaf in zip(paths, leaves):
-                pt.tree_set(live, p, leaf)
+                dim = pt.tree_get(self.splits["param"], p) if mesh is not None else None
+                pt.tree_set(live, p, leaf if dim is None else LeafGather.apply(leaf, mesh, dim))
             loss, aux = loss_stats(live, batch)
+            if mesh is not None:
+                loss = loss / dp  # the ranks' sum is the global batch's loss
             grads: dict = {}
             for p, g in zip(paths, torch.autograd.grad(loss, leaves)):
+                if mesh is not None and pt.tree_get(self.splits["param"], p) is None:
+                    dim = pt.tree_get(self.splits["grad"], p)
+                    g = mesh.all_reduce(g) if dim is None else mesh.reduce_scatter(g, dim)
                 pt.tree_set(grads, p, g)
             return loss.detach(), grads, aux
 
@@ -198,12 +314,14 @@ class ZeroInfinityEngine:
             micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                      for k, v in batch.items()}
             loss_acc = torch.zeros((), dtype=torch.float32, device=self.device)
-            g_acc = pt.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                      device=self.device), params)
+            g_acc = None
             auxs = []
             for i in range(accum):
                 loss, g, aux = value_and_grad(params, {k: v[i] for k, v in micro.items()})
                 loss_acc = loss_acc + loss
+                if g_acc is None:  # shaped like the gradients' spec
+                    g_acc = pt.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                              device=self.device), g)
                 g_acc = _tree_add_f32(g_acc, g)
                 auxs.append(aux)
             inv = 1.0 / accum
@@ -217,20 +335,47 @@ class ZeroInfinityEngine:
             if opt_host:  # pinned host -> the device for the update
                 opt = adam.AdamState(opt.step, *(self.host.to_device(t) for t in opt[1:]))
             loss, grads, aux = grads_of(params, batch)
+            extra = {}
+            if mesh is not None:
+                loss = mesh.all_reduce(loss)
+                extra = {"param_shard_bytes": _nbytes(state["params"]),
+                         "grad_shard_bytes": _nbytes(grads)}
+            gnorm = self.grad_norm(grads)
             if grads_only:
-                return grads, {"loss": loss, "grad_norm": global_norm(grads), **aux}
-            new_params, new_opt = adam.apply_updates(grads, opt, tc, params_prev=params)
+                return grads, {"loss": loss, "grad_norm": gnorm, **aux, **extra}
+            new_params, new_opt = adam.apply_updates(self.respec(grads, "grad", "opt"), opt,
+                                                     tc, params_prev=params)
+            new_params = self.respec(new_params, "opt", "param")
             if param_host:  # updated bf16 params back to their pinned tensors
                 new_params = self.host.write_back(state["params"], new_params)
             if opt_host:  # updated masters and moments back likewise
                 host = state["opt"]
                 new_opt = adam.AdamState(new_opt.step, *(
                     self.host.write_back(h, d) for h, d in zip(host[1:], new_opt[1:])))
-            metrics = {"loss": loss, "grad_norm": global_norm(grads),
-                       "lr": adam.lr_at(tc, new_opt.step), **aux}
+            if mesh is not None:
+                extra["opt_shard_bytes"] = sum(_nbytes(t) for t in new_opt[1:])
+            metrics = {"loss": loss, "grad_norm": gnorm,
+                       "lr": adam.lr_at(tc, new_opt.step), **aux, **extra}
             return {"params": new_params, "opt": new_opt}, metrics
 
         return train_step
+
+    def grad_norm(self, grads: dict) -> torch.Tensor:
+        """The global gradient's norm from this rank's grad-spec part: at
+        one rank ``global_norm``; on a mesh the split leaves' f32 sums of
+        squares summed over the ranks, each whole leaf's counted once
+        (rank 0 adds them), one all-reduce."""
+        if self.mesh is None:
+            return global_norm(grads)
+        split = torch.zeros((), dtype=torch.float32, device=self.device)
+        whole = torch.zeros((), dtype=torch.float32, device=self.device)
+        for path in pt.tree_paths(grads):
+            sq = torch.sum(torch.square(pt.tree_get(grads, path).float()))
+            if pt.tree_get(self.splits["grad"], path) is None:
+                whole = whole + sq
+            else:
+                split = split + sq
+        return torch.sqrt(self.mesh.all_reduce(split + whole if self.rank == 0 else split))
 
 
 def _tree_add_f32(acc: dict, g: dict) -> dict:

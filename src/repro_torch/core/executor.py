@@ -1,6 +1,6 @@
 """InfinityExecutor: both ZeRO engines through the three tiers on one
-device, and the explicit engine on each rank of a data-parallel mesh — the
-subset of ``repro/core/executor.py`` the port runs.
+device and on each rank of a data-parallel mesh — the subset of
+``repro/core/executor.py`` the port runs.
 
 ``make_engine`` picks the engine from ``RunConfig.parallel.engine``, and
 the executor drives the configured placement of each state class:
@@ -98,12 +98,19 @@ Data parallel (``mesh``, a ``launch/mesh.LocalMesh`` of dp > 1 ranks, one
 process each): the explicit engine's monolithic step and layered epoch on
 the rank's shard of the rows, keyed by the rank as the reference keys each
 rank's (``rank<r>/flat``, ``rank<r>/l<i>``, param rows ``rank<r>/c<i>``);
-the host Adam and the gradient drain run on the rank's shard, and the
-rank's stores live in ``<nvme_dir>/rank<r>/``, so no two processes share a
-file. The tier counters count the rank's own bytes; each step also reports
-their sum over the ranks, ``<counter>_all_ranks``, what the reference's
-one process counts. The GSPMD engine on a mesh raises (ROADMAP item 8c),
-as do checkpoints at dp > 1 (item 5).
+the GSPMD engine's step on the rank's shards of each leaf
+(``core/engine.py``), in-graph or with its off-graph optimizer over the
+rank's optimizer shards, keyed ``rank<r>/<keystr>``. The host Adam and the
+gradient drain run on the rank's shard, and the rank's stores live in
+``<nvme_dir>/rank<r>/``, so no two processes share a file. The tier
+counters count the rank's own bytes (the GSPMD engine's steps add the
+rank's state shards, ``*_shard_bytes``); each step also reports their sum
+over the ranks, ``<counter>_all_ranks``, what the reference's one process
+counts, and an executor built from a plan the plan's per-device state
+bytes beside them (``plan_*_shard_bytes``). A plan for another number of
+devices than the ranks raises; so do, on a GSPMD mesh, a model axis (ROADMAP
+item 8e), a MoE family (8d) and params on NVMe (8f), and checkpoints at dp
+> 1 (item 5).
 
 What stays unported raises, naming its ROADMAP item (``check_ported``).
 Per-step metrics of the off-graph and layered steps are the reference's:
@@ -125,6 +132,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import plan as plan_mod
 from repro_torch.config import RunConfig, ShapeConfig
 from repro_torch.core import partition as pt
 from repro_torch.core import qformat
@@ -139,26 +147,44 @@ from repro_torch.optim import adam as adam_mod
 from repro_torch.runtime import trace
 
 
-def check_ported(run: RunConfig, n_devices: int = 1, dp: int = 1) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port cannot
-    run yet, naming the ROADMAP item that ports it: a plan for more than
-    one device, and the GSPMD engine on a mesh of ``dp`` > 1 ranks."""
-    if n_devices > 1:
+def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
+                 model: int = 1) -> None:
+    """Raise for a configuration the port cannot run on ``dp`` ranks of a
+    mesh whose model axis is ``model``: ``ValueError`` for a plan made
+    for ``n_devices`` devices (None: no plan) on another number of ranks;
+    ``NotImplementedError`` naming the ROADMAP item that ports it for the
+    GSPMD engine on a mesh with a model axis (tensor and context
+    parallelism), a MoE family (its capacity counts the global batch's
+    tokens) or params on NVMe (the leaf scheduler)."""
+    if n_devices is not None and n_devices != dp:
+        raise ValueError(
+            f"a plan for {n_devices} device(s) runs on as many ranks, and this run "
+            f"has {dp}: plan for {dp} (--hw-devices {dp}) or launch {n_devices} "
+            "ranks (torchrun --standalone --nproc-per-node "
+            f"{n_devices} ... --hw-devices {n_devices})")
+    if dp == 1 or run.parallel.engine == "zero3":
+        return
+    where = f"the GSPMD engine on a mesh of {dp} ranks"
+    if model > 1:
         raise NotImplementedError(
-            f"a plan for {n_devices} devices: the planner's placements and the "
-            "GSPMD engine run one (ROADMAP.md Queue 1 item 8c)")
-    if dp > 1 and run.parallel.engine != "zero3":
+            f"{where} with a model axis of {model}: tensor and context parallelism "
+            "are not ported (ROADMAP.md Queue 1 item 8e); --model-mesh 1")
+    if run.model.family == "moe":
         raise NotImplementedError(
-            f"the GSPMD engine on a mesh of {dp} ranks is not ported (ROADMAP.md "
-            "Queue 1 item 8c); the explicit engine (--engine zero3) runs at dp > 1")
+            f"{where}: MoE routing counts its capacity over the global batch "
+            "(ROADMAP.md Queue 1 item 8d)")
+    if run.offload.param_tier == "nvme":
+        raise NotImplementedError(
+            f"{where}: params on NVMe through the leaf scheduler are not ported "
+            "across ranks (ROADMAP.md Queue 1 item 8f)")
 
 
 def make_engine(run: RunConfig, device, mesh=None):
-    """``RunConfig.parallel.engine`` -> engine instance ('pjit' | 'zero3');
-    the explicit one on ``mesh``'s rank."""
+    """``RunConfig.parallel.engine`` -> engine instance ('pjit' | 'zero3')
+    on ``mesh``'s rank."""
     if run.parallel.engine == "zero3":
         return ExplicitZero3Engine(run, device, mesh)
-    return ZeroInfinityEngine(run, device)
+    return ZeroInfinityEngine(run, device, mesh)
 
 
 def keystr(path) -> str:
@@ -190,13 +216,15 @@ class InfinityExecutor:
         self.plan = plan
         self.mesh = mesh
         self.dp = mesh.world if mesh is not None else 1
-        check_ported(run, plan.hardware.n_devices if plan is not None else 1, self.dp)
+        check_ported(run, plan.hardware.n_devices if plan is not None else None, self.dp,
+                     mesh.model if mesh is not None else 1)
         self.run = run
         self.device = torch.device(device)
         # this rank's key namespace in the stores, as the reference's
         self.rank_key = f"rank{mesh.rank if mesh is not None else 0}"
         self.engine = engine if engine is not None else make_engine(run, self.device, mesh)
         self.explicit = isinstance(self.engine, ExplicitZero3Engine)
+        self._gspmd_mesh = self.dp > 1 and not self.explicit
         # explicit-engine MoE: expert rows are schedule units of their own
         self.is_moe = bool(getattr(self.engine, "is_moe", False))
         off = run.offload
@@ -311,7 +339,7 @@ class InfinityExecutor:
                 # exact), or the GSPMD engine's leaves
                 self.offload.init_from_params(
                     {f"{self.rank_key}/flat": state["flat"].float()} if self.explicit
-                    else flatten_with_paths(state["params"]))
+                    else self._opt_named(self.engine.respec(state["params"], "param", "opt")))
                 self.offload.step_count = step
             if self.grad_offload and self.grad_store is None:
                 self.grad_store = self._make_store(off.grad_tier, "grad")
@@ -498,10 +526,11 @@ class InfinityExecutor:
             if self.layered:
                 self._step_fn = (self._layered_moe_step() if self.is_moe
                                  else self._layered_step())
-            elif not self.offgraph and not self.param_nvme:
+            elif not self.offgraph and not self.param_nvme and not self._gspmd_mesh:
                 self._step_fn = self.engine.make_train_step()  # fully in-graph
             elif not self.offgraph:
-                # the in-graph update on the device; only the params stream
+                # the in-graph update on the device: the params stream, or,
+                # on a mesh, the rank's bytes are summed over the ranks
                 self._step_fn = self._instrumented(self.engine.make_train_step())
             else:
                 grads_step = self.engine.make_train_step(grads_only=True)
@@ -566,11 +595,15 @@ class InfinityExecutor:
 
     def _gspmd_offgraph_step(self, grads_step):
         tc = self.run.train
-        param_host = self.engine.param_host
+        eng = self.engine
+        param_host = eng.param_host
 
         def step(state, batch):
             grads, metrics = grads_step(state, batch)
-            gflat = {k: g.float() for k, g in flatten_with_paths(grads).items()}
+            # the rank's gradient in the optimizer's spec (its shard where
+            # the gradient is whole and the optimizer split: stage 1)
+            gflat = {k: g.float() for k, g in
+                     self._opt_named(eng.respec(grads, "grad", "opt")).items()}
             if self.grad_offload:
                 gflat = self._drain_grads(gflat)
             lr = float(adam_mod.lr_at(tc, torch.tensor(self.offload.step_count + 1,
@@ -578,6 +611,8 @@ class InfinityExecutor:
             new_flat = self.offload.step(gflat, lr=lr, beta1=tc.beta1,
                                          beta2=tc.beta2, eps=tc.eps,
                                          weight_decay=tc.weight_decay)
+            if self.dp > 1:
+                new_flat = self._opt_to_params(state["params"], new_flat)
             # the update consumed every gradient, so the step's reads of the
             # params are done: a pinned host leaf may take its new value.
             # NVMe-resident leaves stay on the host, rounded there, for the
@@ -589,6 +624,26 @@ class InfinityExecutor:
             return new_state, dict(metrics, lr=lr)
 
         return step
+
+    def _opt_named(self, tree: dict) -> Dict[str, torch.Tensor]:
+        """The GSPMD engine's leaves by their opt-store names: ``keystr``,
+        under the rank's prefix (``rank<r>/``) on a mesh."""
+        named = flatten_with_paths(tree)
+        if self.dp == 1:
+            return named
+        return {f"{self.rank_key}/{k}": v for k, v in named.items()}
+
+    def _opt_to_params(self, like: dict,
+                       new_flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A mesh rank's updated f32 masters (opt-store names, the opt
+        spec) -> its params by ``keystr``: each rounded to its leaf's
+        dtype on the device, then gathered where the params are whole and
+        the optimizer split (stages 1-2)."""
+        tree: dict = {}
+        for path in pt.tree_paths(like):
+            t = new_flat[f"{self.rank_key}/{keystr(path)}"]
+            pt.tree_set(tree, path, t.to(self.device).to(pt.tree_get(like, path).dtype))
+        return flatten_with_paths(self.engine.respec(tree, "opt", "param"))
 
     def _drain_grads(self, gflat: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """Drain f32 gradients to the grad tier: each becomes a write-then-
@@ -1092,6 +1147,13 @@ class InfinityExecutor:
                 out["plan_residency_ok"] = bool(out["peak_resident_param_bytes"] <= pp)
         if "efficiency" in pred:
             out["plan_efficiency"] = pred["efficiency"]
+        if "param_shard_bytes" in out and "n_params" in pred:
+            # each device's share of the plan's state bytes (its
+            # arithmetic: bf16 params, f32 grads, f32 master + m + v)
+            n = pred["n_params"] / self.plan.hardware.n_devices
+            for cls, per in (("param", plan_mod.PARAM_BYTES_PP),
+                             ("grad", plan_mod.GRAD_BYTES_PP), ("opt", plan_mod.OPT_BYTES_PP)):
+                out[f"plan_{cls}_shard_bytes"] = per * n
         for cls_, measured_keys in (
                 ("param", ("param_in_bytes", "param_out_bytes")),
                 ("grad", ("grad_out_bytes",)),

@@ -15,17 +15,29 @@ of dp — byte for byte the reference's row, so either package's stores
 hold the same rows. Nested dicts stand in for pytrees (``tree_*`` helpers).
 ``quantized_leaf_plan`` / ``unflatten_wire_row`` read a row that arrives in
 the q8 wire layout (``core/qformat.py``): the planned MLP weights stay
-quantized (``QWeight``), every other leaf is dequantized. The sharding
-rules wait for the multi-device slice.
+quantized (``QWeight``), every other leaf is dequantized.
+
+The GSPMD engine's sharding rules (``repro/core/partition.py:78-230``):
+``AxisRules`` maps logical dims to mesh axes, ``make_rules`` builds the
+table of a ZeRO stage for one state class (param, grad, opt, act) and
+``spec_tree`` lays a tree of defs out by it. A spec is the reference's
+``PartitionSpec`` as a tuple (its divisibility guard included: a dim that
+does not split evenly stays replicated); the rules read the mesh's axis
+sizes, ``{"data": N, "model": M}``, not devices. ``split_dim`` turns a
+spec into what one rank holds of the leaf: the dim split over the ranks,
+or None where the leaf is whole on every rank; ``shard_leaf`` /
+``unshard_leaf`` cut a whole leaf into a rank's shard and put the shards
+back together.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core.qformat import BLOCK as QBLOCK, dequant_q8
 
 @dataclasses.dataclass(frozen=True)
@@ -227,3 +239,163 @@ def unflatten_wire_row(q: torch.Tensor, s: torch.Tensor,
         tree_set(out, path, leaf)
         off += size
     return out
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD engine's sharding rules
+# ---------------------------------------------------------------------------
+
+MeshAxes = Optional[Tuple[str, ...]]
+Spec = Tuple[object, ...]  # a PartitionSpec's entries: None, an axis, or a tuple of axes
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """logical axis name -> mesh axes (or None = replicated)."""
+
+    table: Tuple[Tuple[str, MeshAxes], ...]
+    mesh_sizes: Tuple[Tuple[str, int], ...] = ()  # for divisibility guards
+
+    def lookup(self, name: Optional[str]) -> MeshAxes:
+        if name is None:
+            return None
+        for k, v in self.table:
+            if k == name:
+                return v
+        return None
+
+    def degree(self, mesh_axes: Sequence[str]) -> int:
+        sizes = dict(self.mesh_sizes)
+        return math.prod(sizes.get(a, 1) for a in mesh_axes)
+
+    def spec(self, axes: Sequence[Optional[str]], shape: Sequence[int] = None) -> Spec:
+        entries: list = []
+        used: set = set()
+        for i, name in enumerate(axes):
+            mesh_axes = self.lookup(name)
+            if mesh_axes is None:
+                entries.append(None)
+                continue
+            # a mesh axis may appear only once per spec
+            mesh_axes = tuple(a for a in mesh_axes if a not in used)
+            if not mesh_axes:
+                entries.append(None)
+                continue
+            # divisibility guard: drop sharding for non-divisible dims
+            if shape is not None and self.mesh_sizes:
+                if shape[i] % self.degree(mesh_axes) != 0:
+                    entries.append(None)
+                    continue
+            used.update(mesh_axes)
+            entries.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+        while entries and entries[-1] is None:
+            entries.pop()
+        return tuple(entries)
+
+
+def dp_axes(mesh_sizes: Dict[str, int]) -> Tuple[str, ...]:
+    """Mesh axes that constitute data parallelism (pod + data)."""
+    return tuple(a for a in ("pod", "data") if a in mesh_sizes)
+
+
+def choose_attn_strategy(cfg: ModelConfig, mesh_sizes: Dict[str, int],
+                         parallel: ParallelConfig) -> str:
+    """'tp' (shard heads over the model axis) or 'cp' (shard sequence)."""
+    if parallel.attn_strategy != "auto":
+        return parallel.attn_strategy
+    tp = mesh_sizes.get("model", 1)
+    if cfg.n_heads and cfg.n_heads % tp == 0:
+        return "tp"
+    return "cp"
+
+
+def make_rules(cfg: ModelConfig, mesh_sizes: Dict[str, int], parallel: ParallelConfig,
+               *, for_state: str = "param") -> AxisRules:
+    """The logical -> mesh mapping of the ZeRO stage (and TP/CP) for one
+    state class: "param" / "grad" sharded over dp iff stage >= 3 / >= 2,
+    "opt" iff stage >= 1, "act" the activations' batch/seq sharding."""
+    if parallel.pure_dp:  # every mesh axis is data parallelism
+        dp = tuple(mesh_sizes)
+        tp_avail = False
+    else:
+        dp = dp_axes(mesh_sizes)
+        tp_avail = "model" in mesh_sizes
+    zero_ax = tuple(a for a in dp if a != "pod") if parallel.zero_scope == "pod" else dp
+
+    def zero_axes(stage: int) -> MeshAxes:
+        sharded = {"param": stage >= 3, "grad": stage >= 2, "opt": stage >= 1,
+                   "act": False}[for_state]
+        return zero_ax if (sharded and zero_ax) else None
+
+    fsdp, fsdp_e = zero_axes(parallel.zero_stage), zero_axes(parallel.moe_zero_stage)
+    attn = "dp" if parallel.pure_dp else choose_attn_strategy(cfg, mesh_sizes, parallel)
+    tp = mesh_sizes.get("model", 1)
+    heads_tp = tp_avail and attn == "tp"
+    kv_tp = heads_tp and cfg.n_kv_heads and cfg.n_kv_heads % tp == 0
+    model: MeshAxes = ("model",) if tp_avail else None
+    table = [
+        # ---- parameter storage dims ----
+        ("embed", fsdp),  # ZeRO-3 partitioning dim
+        ("embed_e", fsdp_e),  # expert weights' ZeRO dim
+        ("mlp", model),
+        ("heads", ("model",) if heads_tp else None),
+        ("kv_heads", ("model",) if kv_tp else None),
+        ("head_dim", None),
+        ("vocab", model),
+        ("experts", model),
+        ("inner", model),  # ssm d_inner / lru_width
+        ("state", None),
+        ("conv", None),
+        ("layers", None),
+        # ---- activation dims ----
+        ("batch", dp if dp else None),
+        ("seq", ("model",) if (tp_avail and attn == "cp") else None),
+        ("kv_seq", None),
+        ("cache_seq", model),
+        ("act_embed", None),
+        ("act_mlp", model),
+        ("act_heads", ("model",) if heads_tp else None),
+    ]
+    return AxisRules(tuple(table), tuple(sorted(mesh_sizes.items())))
+
+
+def spec_tree(defs, rules: AxisRules):
+    """Nested dict of ``ParamDef`` -> nested dict of specs."""
+    return tree_map(lambda d: rules.spec(d.axes, d.shape), defs)
+
+
+def split_dim(spec: Spec, rules: AxisRules) -> Optional[int]:
+    """The dim of a leaf laid out by ``spec`` that its ranks each hold a
+    part of, or None where every rank holds it whole (entries on mesh
+    axes of size 1 split nothing). One split dim at most: the GSPMD
+    engine's ranks are data-parallel."""
+    dims = [i for i, e in enumerate(spec)
+            if e is not None and rules.degree((e,) if isinstance(e, str) else e) > 1]
+    if len(dims) > 1:
+        raise NotImplementedError(f"spec {spec} splits {len(dims)} dims over the ranks")
+    return dims[0] if dims else None
+
+
+def leaf_splits(defs, cfg: ModelConfig, mesh_sizes: Dict[str, int],
+                parallel: ParallelConfig, for_state: str) -> dict:
+    """Each leaf's ``split_dim`` under ``make_rules`` for ``for_state``:
+    a tree shaped like ``defs``."""
+    rules = make_rules(cfg, mesh_sizes, parallel, for_state=for_state)
+    return tree_map(lambda d: split_dim(rules.spec(d.axes, d.shape), rules), defs)
+
+
+def shard_leaf(t: torch.Tensor, dim: Optional[int], rank: int, parts: int) -> torch.Tensor:
+    """Rank ``rank``'s contiguous shard of a whole leaf split in ``parts``
+    equal pieces along ``dim``; the leaf itself where ``dim`` is None."""
+    if dim is None:
+        return t
+    n = t.shape[dim]
+    if n % parts:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {parts} ranks")
+    return t.narrow(dim, rank * (n // parts), n // parts).contiguous()
+
+
+def unshard_leaf(shards: Sequence[torch.Tensor], dim: Optional[int]) -> torch.Tensor:
+    """The whole leaf from its ranks' shards in rank order (rank 0's where
+    the leaf is whole on every rank)."""
+    return shards[0] if dim is None else torch.cat(list(shards), dim=dim)

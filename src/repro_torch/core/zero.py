@@ -117,6 +117,23 @@ class RowGather(torch.autograd.Function):
         return ctx.mesh.reduce_scatter(ct), None
 
 
+class LeafGather(torch.autograd.Function):
+    """A GSPMD leaf from the ranks' shards along ``dim``: forward the
+    all-gather of the shards, backward the reduce-scatter (a sum, in the
+    cotangent's dtype: bf16 for bf16 leaves) of the leaf's cotangent into
+    this rank's shard, the transpose XLA emits for a ZeRO-3 leaf
+    (``core/engine.py``)."""
+
+    @staticmethod
+    def forward(ctx, shard, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.all_gather(shard, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.reduce_scatter(ct, ctx.dim), None, None
+
+
 class Psum(torch.autograd.Function):
     """The sum of the ranks' tensors, backward the sum of their cotangents
     (the reference's ``psum`` and its transpose); the broadcast baseline's

@@ -4,9 +4,13 @@
 numpy exactly as the reference draws it, so both packages train on the
 same batches bit for bit. A background thread builds the next batches
 while the device computes; the loader places each on the run's device.
-With ``dp`` data-parallel ranks the loader hands rank r the rows ``[r *
-B/dp, (r+1) * B/dp)`` of each global batch (``rank_slice``), the
-reference's ``P(axis, None)`` batch placement.
+With ``dp`` data-parallel ranks the loader hands rank r its rows of each
+global batch (``rank_batch``), the reference's batch placement: the rows
+``[r * B/dp, (r+1) * B/dp)`` (``rank_slice``, ``P(axis, None)``) where B
+splits over the ranks, the whole batch on every rank where it does not
+(the reference's divisibility guard, ``repro/core/engine.py:106-121``);
+under ``accum`` microbatches, the rank's rows of each microbatch in turn,
+so its local microbatch i is its part of the global microbatch i.
 """
 from __future__ import annotations
 
@@ -60,16 +64,37 @@ def rank_slice(batch: Dict[str, np.ndarray], rank: int, dp: int) -> Dict[str, np
     return out
 
 
+def rank_batch(batch: Dict[str, np.ndarray], rank: int, dp: int,
+               accum: int = 1) -> Dict[str, np.ndarray]:
+    """Rank ``rank``'s rows of a global batch among ``dp`` ranks: with
+    B a multiple of ``dp * accum``, its ``rank_slice`` of each of the
+    ``accum`` microbatches (the global batch's rows in ``accum``
+    consecutive runs), concatenated in microbatch order; otherwise the
+    whole batch, which every rank then holds (the engines scale their
+    loss by 1/dp, exact either way)."""
+    B = next(iter(batch.values())).shape[0]
+    if dp == 1 or B % (dp * accum):
+        return batch
+    out = {}
+    for k, v in batch.items():
+        micro = v.reshape((accum, B // accum) + v.shape[1:])
+        mine = rank_slice({k: np.swapaxes(micro, 0, 1)}, rank, dp)[k]
+        out[k] = np.ascontiguousarray(np.swapaxes(mine, 0, 1)).reshape(
+            (B // dp,) + v.shape[1:])
+    return out
+
+
 class PrefetchLoader:
     """Iterates ``(step, batch)`` for steps [start, end) with a
     ``depth``-deep background prefetch; each batch's tensors land on
-    ``device`` in their spec's dtype, rank ``rank``'s slice of it among
-    ``dp`` ranks."""
+    ``device`` in their spec's dtype, rank ``rank``'s rows of it among
+    ``dp`` ranks (``rank_batch`` over ``accum`` microbatches)."""
 
     def __init__(self, stream: SyntheticStream, start_step: int, end_step: int,
-                 device="cpu", depth: int = 2, rank: int = 0, dp: int = 1):
+                 device="cpu", depth: int = 2, rank: int = 0, dp: int = 1,
+                 accum: int = 1):
         self.stream = stream
-        self.rank, self.dp = rank, dp
+        self.rank, self.dp, self.accum = rank, dp, accum
         self.start, self.end = start_step, end_step
         self.device = torch.device(device)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -79,7 +104,7 @@ class PrefetchLoader:
     def _worker(self):
         for step in range(self.start, self.end):
             batch = self.stream.batch_at(step)
-            self.q.put((step, rank_slice(batch, self.rank, self.dp) if self.dp > 1 else batch))
+            self.q.put((step, rank_batch(batch, self.rank, self.dp, self.accum)))
         self.q.put(None)
 
     def __iter__(self) -> Iterator:

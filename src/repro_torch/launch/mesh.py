@@ -8,7 +8,8 @@ hook reads ``REPRO_COORDINATOR``, and joins the process group.
 ``make_local_mesh(data, model)`` returns a ``LocalMesh``: the world size
 (``data * model``: the explicit engine folds every mesh axis into dp, as
 the reference's does), this rank, its device, the process group and the
-transport, with the collectives the explicit engine issues.
+transport, with the collectives the engines issue (the all-gather and the
+reduce-scatter along any dim, for the GSPMD engine's leaves).
 
 The transport is chosen by a rule, never on failure (``choose_backend``):
 
@@ -97,6 +98,8 @@ def _rank_device(device) -> torch.device:
     device = torch.device(device)
     if device.type != "cuda":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("a rank on cuda: CUDA is not available; this run needs a card")
     return torch.device("cuda", _local_rank() % torch.cuda.device_count())
 
 
@@ -112,6 +115,10 @@ class LocalMesh:
     group: Optional[object]  # the process group; None at one rank
     backend: str  # "nccl" | "gloo" | "none" (one rank)
 
+    def axis_sizes(self) -> dict:
+        """The mesh's axis sizes, what the GSPMD engine's rules read."""
+        return {"data": self.data, "model": self.model}
+
     def transport(self) -> dict:
         """``{"backend", "device", op: "direct"}``: every collective takes
         the rank's tensors where they are (``COLLECTIVES``)."""
@@ -125,27 +132,29 @@ class LocalMesh:
         return trace.span(op, sys="comm", cls="collective", attr="io_wait",
                           nbytes=t.numel() * t.element_size())
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``t`` (any shape) concatenated along dim 0, in rank
-        order (``all_gather_into_tensor``)."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``t`` (any shape) concatenated along ``dim``, in rank
+        order (``all_gather_into_tensor``, which gathers along dim 0: any
+        other dim is moved to the front for it and back after)."""
         if self.world == 1:
             return t
-        t = t.contiguous()
+        t = t.movedim(dim, 0).contiguous()
         out = t.new_empty((self.world * t.shape[0],) + tuple(t.shape[1:]))
         with self._span("all_gather_into_tensor", t):
             dist.all_gather_into_tensor(out, t, group=self.group)
-        return out
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
 
-    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's dim-0 chunk of the ranks' ``t`` summed, in ``t``'s
-        dtype (``reduce_scatter_tensor``)."""
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the ranks' ``t`` summed, in
+        ``t``'s dtype (``reduce_scatter_tensor``, along dim 0 as
+        ``all_gather``)."""
         if self.world == 1:
             return t
-        t = t.contiguous()
+        t = t.movedim(dim, 0).contiguous()
         out = t.new_empty((t.shape[0] // self.world,) + tuple(t.shape[1:]))
         with self._span("reduce_scatter_tensor", t):
             dist.reduce_scatter_tensor(out, t, group=self.group)
-        return out
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' ``t`` summed, in ``t``'s dtype, as a new tensor."""

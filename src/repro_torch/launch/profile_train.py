@@ -17,8 +17,10 @@ those events' intervals over the step's wall time), and the device time of
 each kernel per step with its launches (``profile_serve._report``; fused
 Adam is the ``fused_adam`` kernel's row). A MoE model's steps add the
 routing's dropped fraction and, layered, the expert rows' hit rate and
-residency. Weights are random from ``--seed``. One rank: on a mesh
-(``--data-mesh``/``--model-mesh`` > 1) it raises (ROADMAP item 8c).
+residency. Weights are random from ``--seed``. On a mesh (torchrun,
+``--data-mesh N``, or ``--plan auto --hw-devices N``: ``launch/train.py``'s
+ranks and refusals) each rank profiles its own device on its rows of each
+global batch, and rank 0 prints its lines.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch smollm-135m --nvme-dir build/profile_nvme [--param-quant q8]
@@ -29,6 +31,9 @@ residency. Weights are random from ``--seed``. One rank: on a mesh
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
       --arch seamless-m4t-medium --plan auto --objective min_device_mem \\
       --batch 8 --seq 2048 --steps 1
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.profile_train --arch smollm-135m --engine pjit \\
+      --offload-param device --offload-grad device --offload-opt device --data-mesh 2
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.config import ShapeConfig
 from repro_torch.core.executor import InfinityExecutor
-from repro_torch.data.pipeline import SyntheticStream
+from repro_torch.data.pipeline import SyntheticStream, rank_batch
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import train
 from repro_torch.launch.profile_serve import _report
 from repro_torch.runtime import trace
@@ -53,8 +59,9 @@ def _parse(argv=None):
     ap = train.build_argparser()
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--top", type=int, default=12)
+    # no checkpoints: a profile saves none (and a mesh refuses them)
     ap.set_defaults(engine="zero3", offload_param="nvme", offload_grad="nvme",
-                    offload_opt="nvme", batch=8, seq=512, steps=2, lr=3e-3,
+                    offload_opt="nvme", batch=8, seq=512, steps=2, lr=3e-3, ckpt_every=0,
                     nvme_dir=os.path.join(tempfile.gettempdir(), "repro_torch_profile"))
     return ap.parse_args(argv)
 
@@ -62,16 +69,26 @@ def _parse(argv=None):
 def main(argv=None) -> None:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     args = _parse(argv)
-    if args.data_mesh * args.model_mesh != 1:
-        raise NotImplementedError("profile_train on a mesh is not ported (ROADMAP.md "
-                                  "Queue 1 item 8c)")
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train: CUDA is not available; this profile runs on the card")
-    dev = torch.device("cuda")
-    shutil.rmtree(args.nvme_dir, ignore_errors=True)
-    train._unported(args)
+    created = mesh_mod.maybe_init_distributed("cuda")
+    try:
+        # the world size is checked first: a mismatch raises, naming the launch
+        mesh = mesh_mod.make_local_mesh(train.data_mesh(args), args.model_mesh, "cuda")
+        _profile(args, argv, mesh)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+
+
+def _profile(args, argv, mesh) -> None:
+    dev = mesh.device
+    say = print if mesh.rank == 0 else (lambda *a: None)
+    # each rank clears only the stores it writes (<nvme_dir>/rank<r> on a mesh)
+    shutil.rmtree(args.nvme_dir if mesh.world == 1
+                  else os.path.join(args.nvme_dir, f"rank{mesh.rank}"), ignore_errors=True)
+    train._unported(args, mesh.world)
     run, plan = train.make_run(args, argv)
-    ex = InfinityExecutor(run, dev, plan=plan)
+    ex = InfinityExecutor(run, dev, plan=plan, mesh=mesh if mesh.world > 1 else None)
+    accum = 1 if ex.explicit else run.parallel.grad_accum
     try:
         state = ex.init_state(torch.Generator(device=dev).manual_seed(args.seed))
         stream = SyntheticStream(ex.input_specs(ShapeConfig("p", args.seq, args.batch,
@@ -82,8 +99,8 @@ def main(argv=None) -> None:
 
         def step():
             nonlocal state
-            batch = {k: torch.from_numpy(a).to(dev)
-                     for k, a in stream.batch_at(next(it)).items()}
+            batch = rank_batch(stream.batch_at(next(it)), mesh.rank, mesh.world, accum)
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
             t0 = time.perf_counter()
             state, m = step_fn(state, batch)
             float(m["loss"])
@@ -105,14 +122,17 @@ def main(argv=None) -> None:
                         "moe_dropped_token_fraction", "expert_prefetch_hit_rate"):
                 if key in m:
                     line += f" | {key} {float(m[key]):.3f}"
-            for key in ("expert_peak_resident_bytes", "expert_total_bytes", "expert_evictions"):
+            for key in ("expert_peak_resident_bytes", "expert_total_bytes", "expert_evictions",
+                        "param_shard_bytes", "grad_shard_bytes", "opt_shard_bytes"):
                 if key in m:
                     line += f" | {key} {m[key]}"
-            print(line)
+            say(line)
         trace.disable()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall, _ = step()
-        _report("train step", prof, wall, 1, args.top)
+        if mesh.rank == 0:
+            _report("train step" + (f" (rank 0 of {mesh.world})" if mesh.world > 1 else ""),
+                    prof, wall, 1, args.top)
     finally:
         ex.close()
 

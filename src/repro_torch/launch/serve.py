@@ -130,7 +130,7 @@ def _unported(args, plan=None) -> None:
     if args.data_mesh * args.model_mesh != 1 or n != 1:
         raise NotImplementedError(
             "serving on a mesh larger than one device is not ported yet "
-            "(ROADMAP.md Queue 1 item 8c: the GSPMD engine and serving on a mesh)")
+            "(ROADMAP.md Queue 1 item 8c: serving on a mesh)")
 
 
 def _percentiles(xs) -> dict:

@@ -1,7 +1,7 @@
 """Training entry point: synthetic data -> InfinityExecutor -> per-step
 metrics and checkpoints, with fault injection, restart and straggler
-detection — the port of ``repro/launch/train.py``, on one device or, for
-the explicit engine, on a data-parallel mesh of ranks:
+detection — the port of ``repro/launch/train.py``, on one device or on a
+data-parallel mesh of ranks:
 
   * ``--plan auto``: the planner (``repro_torch/plan.py``) derives the
     placement from the detected card (``--hw-*`` override what detection
@@ -50,24 +50,31 @@ the explicit engine, on a data-parallel mesh of ranks:
     leaves (``portable_state``/``adopt_state``); ``--straggler-factor``
     flags slow steps.
 
-  * ``--engine zero3 --data-mesh N [--model-mesh M]``: the explicit
-    engine over N * M data-parallel ranks (every mesh axis folds into dp,
-    as the reference's), one process each, launched by torchrun
-    (``launch/mesh.py``): rank r holds its shard of the rows and takes
-    rows ``[r * B/dp, (r+1) * B/dp)`` of each global batch, on
-    ``cuda:{LOCAL_RANK % device_count}`` (NCCL when each rank has a card,
-    gloo when ranks share one) or the CPU (gloo) under ``--device cpu``.
-    Every rank runs ``train`` and returns its history; rank 0 prints the
-    step lines, each with the rank's tier bytes and their sum over the
+  * ``--data-mesh N``: N data-parallel ranks, one process each, launched
+    by torchrun (``launch/mesh.py``), on ``cuda:{LOCAL_RANK %
+    device_count}`` (NCCL when each rank has a card, gloo when ranks share
+    one) or the CPU (gloo) under ``--device cpu``. ``--engine pjit``: the
+    GSPMD engine with each leaf laid out by the reference's rules at
+    ``--zero-stage`` (``core/engine.py``: at stage 3 every rank holds its
+    shard of params, gradients and optimizer states); ``--engine zero3``:
+    the explicit engine over N * M ranks (``--model-mesh M`` folds into
+    dp, as the reference's), each holding its shard of the rows. Rank r
+    takes its rows of each global batch (``data/pipeline.rank_batch``: the
+    whole batch where B does not split). ``--plan auto --hw-devices N``
+    plans for N devices and runs on N ranks (``--data-mesh`` defaults to
+    the plan's devices); a plan for another number of devices than the
+    run's ranks raises, naming both. Every rank runs ``train`` and returns
+    its history; rank 0 prints the step lines, each with the rank's bytes
+    (tier bytes; the GSPMD engine's state shards) and their sum over the
     ranks. A run whose world size is not N * M raises, naming the launch.
 
 Runs on the card by default and raises when CUDA is absent; ``--device
 cpu`` runs the kernels' plain versions (the tests do). What is not ported
 raises, naming the ROADMAP item that ports it: ``--elastic``/``--chaos``
-(item 5); on a mesh, the GSPMD engine and ``--plan`` (item 8c),
-``--param-quant`` rows and MoE's expert rows (item 8d), checkpoints and
-``--resume`` (item 5: pass ``--ckpt-every 0``); a plan for more than one
-device (``--hw-devices`` > 1, item 8c). On the layered epoch
+(item 5); on a mesh, ``--param-quant`` rows and MoE's expert rows (item
+8d), checkpoints and ``--resume`` (item 5: pass ``--ckpt-every 0``), and
+for the GSPMD engine a model axis (``--model-mesh`` > 1, item 8e), a MoE
+family (item 8d) and params on NVMe (item 8f). On the layered epoch
 ``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the
 reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
@@ -95,6 +102,12 @@ Examples (one H100; llava-next-34b at full width cut to 2 layers):
       -m repro_torch.launch.train --arch smollm-135m --engine zero3 \\
       --data-mesh 2 --offload-param nvme --offload-grad nvme \\
       --offload-opt nvme --batch 8 --seq 512 --steps 4 --ckpt-every 0
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch smollm-135m --engine pjit \\
+      --data-mesh 2 --zero-stage 3 --batch 8 --seq 512 --steps 4 --ckpt-every 0
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch smollm-135m --plan auto \\
+      --hw-devices 2 --batch 8 --seq 512 --steps 4 --ckpt-every 0
 """
 from __future__ import annotations
 
@@ -136,12 +149,13 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--data-mesh", type=int, default=1,
-                    help="data-parallel ranks of the explicit engine (launch "
-                         "them with torchrun)")
+    ap.add_argument("--data-mesh", type=int, default=0,
+                    help="data-parallel ranks (launch them with torchrun); "
+                         "0: the plan's --hw-devices under --plan, else 1")
     ap.add_argument("--model-mesh", type=int, default=1,
                     help="folded into dp by the explicit engine, as the "
-                         "reference's: N * M ranks in all")
+                         "reference's: N * M ranks in all (the GSPMD engine "
+                         "takes 1)")
     ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
                     help="pjit = the GSPMD engine's step (params on the device "
                          "or host tier); zero3 = the explicit engine's "
@@ -216,12 +230,8 @@ def _unported(args, dp: int = 1) -> None:
         (args.elastic, "--elastic", elastic),
         (args.chaos is not None, "--chaos", elastic),
     ]
-    if dp > 1:
+    if dp > 1:  # the GSPMD engine's refusals: core/executor.check_ported
         checks += [
-            (args.engine != "zero3", f"the GSPMD engine on a mesh of {dp} ranks",
-             "ROADMAP.md Queue 1 item 8c: FSDP2/DTensor for the GSPMD engine"),
-            (args.plan != "manual", f"--plan on a mesh of {dp} ranks",
-             "ROADMAP.md Queue 1 item 8c: plans for more than one device"),
             (args.param_quant != "none", f"--param-quant rows across {dp} ranks",
              "ROADMAP.md Queue 1 item 8d: MoE expert rows and q8/q4 rows at dp > 1"),
             (args.ckpt_every > 0 or args.resume == "auto",
@@ -231,6 +241,16 @@ def _unported(args, dp: int = 1) -> None:
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+def data_mesh(args) -> int:
+    """The run's data-parallel ranks: ``--data-mesh``, or where it is not
+    given the devices a ``--plan`` is made for (``--hw-devices``), else 1."""
+    if args.data_mesh:
+        return args.data_mesh
+    if args.plan != "manual" and args.hw_devices:
+        return args.hw_devices
+    return 1
 
 
 def make_run(args, argv=None):
@@ -298,7 +318,7 @@ def train(args, argv=None, *, init_state=None) -> dict:
     device = resolve_device(args.device)
     created = mesh_mod.maybe_init_distributed(device.type)
     try:
-        mesh = mesh_mod.make_local_mesh(args.data_mesh, args.model_mesh, device)
+        mesh = mesh_mod.make_local_mesh(data_mesh(args), args.model_mesh, device)
         _unported(args, mesh.world)
         return _train(args, argv, init_state, mesh)
     finally:
@@ -351,8 +371,10 @@ def _train(args, argv, init_state, mesh) -> dict:
         step_fn = executor.make_train_step()
         stream = SyntheticStream(executor.input_specs(shape), run.model.vocab_size,
                                  seed=tc.seed)
+        # the explicit engine takes one microbatch whatever grad_accum says
+        accum = 1 if executor.explicit else run.parallel.grad_accum
         loader = PrefetchLoader(stream, start_step, tc.steps, device,
-                                rank=mesh.rank, dp=mesh.world)
+                                rank=mesh.rank, dp=mesh.world, accum=accum)
         # rank 0 prints the step lines; the MFU counts the cards the ranks
         # run on (ranks beyond the host's cards share them)
         cards = min(mesh.world, torch.cuda.device_count()) if device.type == "cuda" else 1

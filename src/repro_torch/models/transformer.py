@@ -69,10 +69,7 @@ def layer_params(blocks: dict, layer: int) -> dict:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"transformer: family {cfg.family!r} is not ported "
-            "(ROADMAP.md Queue 1: other families)")
+    # registry.FAMILY_MODULES routes only the dense and vlm families here
     if cfg.window:
         raise NotImplementedError(
             "a local attention window on this family is not wired: none of "

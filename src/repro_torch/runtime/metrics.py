@@ -4,9 +4,9 @@ counters a training step logs (``elastic_step_metrics``: the fault
 runtime's restarts and recovery time; the replan, resize and membership
 fields stay at their one-device values until the elastic supervisor,
 ROADMAP.md Queue 1 item 5), the serving-side KV-tier counters (``kv_*``);
-``rank_bytes_note``, a data-parallel step's tier bytes per rank beside
-their sum over the ranks; ``device_ms``, the card's time per kernel
-call."""
+``rank_bytes_note``, a data-parallel step's tier bytes (and the GSPMD
+engine's state shards) per rank beside their sum over the ranks;
+``device_ms``, the card's time per kernel call."""
 from __future__ import annotations
 
 import time
@@ -63,13 +63,13 @@ def elastic_step_metrics(*, restarts: int = 0, replans: int = 0,
 
 # the tier counters a data-parallel step line shows, per rank and summed
 RANK_BYTES = ("param_in_bytes", "param_out_bytes", "grad_out_bytes", "opt_read_bytes",
-              "opt_write_bytes")
+              "opt_write_bytes", "param_shard_bytes", "grad_shard_bytes", "opt_shard_bytes")
 
 
 def rank_bytes_note(rec: dict, world: int) -> str:
     """``bytes/rank (sum of N ranks): param_in a (b) | ...`` for the tier
-    counters a step reports (the executor's ``<counter>_all_ranks`` is
-    the sum); empty where the step moved none (all in-graph)."""
+    counters and state shards a step reports (the executor's
+    ``<counter>_all_ranks`` is the sum); empty where it reports none."""
     parts = [f"{k[:-6]} {rec[k]} ({rec[k + '_all_ranks']})" for k in RANK_BYTES
              if k in rec and k + "_all_ranks" in rec]
     return f"bytes/rank (sum of {world} ranks): " + ", ".join(parts) if parts else ""

@@ -316,7 +316,8 @@ def _run(arch="smollm-135m", engine="zero3", **offload):
 
 
 @pytest.mark.parametrize("what,build,match", [
-    ("gspmd", lambda m: texec.InfinityExecutor(_run(engine="pjit"), "cpu", mesh=m), "item 8c"),
+    ("gspmd", lambda m: texec.InfinityExecutor(_run(engine="pjit", param_tier="nvme"), "cpu",
+                                               mesh=m), "item 8f"),
     ("moe", lambda m: ExplicitZero3Engine(_run("granite-moe-1b-a400m", param_tier="nvme"),
                                           "cpu", m), "item 8d"),
     ("q8", lambda m: ExplicitZero3Engine(_run(param_tier="nvme", param_quant="q8"), "cpu", m),
@@ -332,30 +333,37 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "zero3", "--data-mesh", "2",
         "--steps", "1", "--batch", "2", "--seq", "16", "--ckpt-every", "0"]
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--engine", "pjit"], "item 8c"),
-    (["--plan", "auto"], "item 8c"),
-    (["--arch", "granite-moe-1b-a400m", "--offload-param", "nvme"], "item 8d"),
-    (["--offload-param", "nvme", "--param-quant", "q8"], "item 8d"),
-    (["--ckpt-every", "2"], "item 5"),
-    (["--resume", "auto"], "item 5")])
-def test_cli_refuses_what_stays_unported_at_dp2(monkeypatch, tmp_path, extra, match):
-    """``launch.train`` on a 2-rank mesh: the GSPMD engine and ``--plan``
-    (item 8c), MoE's expert rows and q8 rows (8d), checkpoints and resume
-    (item 5) raise, naming the item."""
+@pytest.mark.parametrize("extra,error,match", [
+    (["--engine", "pjit", "--offload-param", "nvme"], NotImplementedError, "item 8f"),
+    (["--plan", "auto"], ValueError, "a plan for 1 device.*this run has 2"),
+    (["--arch", "granite-moe-1b-a400m", "--offload-param", "nvme"], NotImplementedError,
+     "item 8d"),
+    (["--offload-param", "nvme", "--param-quant", "q8"], NotImplementedError, "item 8d"),
+    (["--ckpt-every", "2"], NotImplementedError, "item 5"),
+    (["--resume", "auto"], NotImplementedError, "item 5")])
+def test_cli_refuses_what_stays_unported_at_dp2(monkeypatch, tmp_path, extra, error, match):
+    """``launch.train`` on a 2-rank mesh: the GSPMD engine with params on
+    NVMe (item 8f), a plan for the one device the CPU detects (ValueError,
+    naming both counts), MoE's expert rows and q8 rows (8d), checkpoints
+    and resume (item 5) raise. (The GSPMD engine and plans on a mesh run:
+    ``tests/test_torch_gspmd_mesh.py``.)"""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda *a: _fake_mesh())
     argv = BASE + ["--nvme-dir", str(tmp_path), "--ckpt-dir", str(tmp_path / "ck")] + extra
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)
 
 
 def test_plan_for_two_devices_and_profile_on_a_mesh_raise(tmp_path):
+    """A plan for 2 devices on one rank raises, naming both counts, and
+    ``profile_train --data-mesh 2`` in one process names the launch that
+    gives it its ranks (on a mesh both run: tests/test_torch_gspmd_mesh.py
+    and the card)."""
     run = _run()
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    with pytest.raises(ValueError, match="a plan for 2 device.*this run has 1"):
         texec.check_ported(run, n_devices=2)
     from repro_torch.launch import profile_train
 
-    with pytest.raises(NotImplementedError, match="item 8c"):
+    with pytest.raises(ValueError, match="torchrun --standalone --nproc-per-node 2"):
         profile_train.main(["--smoke", "--data-mesh", "2", "--nvme-dir", str(tmp_path)])
 
 

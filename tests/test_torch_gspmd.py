@@ -285,9 +285,12 @@ def test_make_engine_selects_by_engine_name():
 
 @pytest.mark.parametrize("engine,param,n_devices", [("pjit", "device", 2)])
 def test_check_ported_raises_for_what_stays_unported(engine, param, n_devices):
+    """A plan for more devices than this one rank raises, naming both
+    counts (plans for N devices run on N ranks: tests/test_torch_gspmd_mesh.py;
+    what stays unported on a GSPMD mesh raises there, naming its item)."""
     run = RunConfig(model=tconfigs.smoke("smollm-135m"), parallel=make_parallel(engine),
                     offload=make_offload(param_tier=param, opt_tier="nvme"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(ValueError, match=f"a plan for {n_devices} device.*this run has 1"):
         texec.check_ported(run, n_devices)
 
 

@@ -600,15 +600,16 @@ def test_cli_raises_on_every_unported_flag(tmp_path, extra):
     """What stays unported raises, naming its ROADMAP item; int8 gradient
     compression on the layered epoch (``BASE``) raises the reference's
     ``ValueError`` (the layered rows' reduce is not compressed there); a
-    mesh of 2 in a run of one process raises, naming the torchrun launch
-    that gives it its ranks (what stays unported on a mesh is held in
-    ``tests/test_torch_dp.py``)."""
+    mesh of 2 in a run of one process, and a plan for 2 devices (whose
+    ranks the mesh takes), raise, naming the torchrun launch that gives it
+    its ranks (what stays unported on a mesh is held in
+    ``tests/test_torch_dp.py`` and ``tests/test_torch_gspmd_mesh.py``)."""
     argv = (BASE + ["--device", "cpu", "--nvme-dir", str(tmp_path),
                     "--ckpt-dir", str(tmp_path / "ck")] + extra)
     error, match = ((ValueError, "grad_compression='int8'")
                     if extra == ["--grad-compress", "int8"]
                     else (ValueError, "torchrun --standalone --nproc-per-node 2")
-                    if extra[0] in ("--data-mesh", "--model-mesh")
+                    if extra[0] in ("--data-mesh", "--model-mesh") or "--hw-devices" in extra
                     else (NotImplementedError, "ROADMAP"))
     with pytest.raises(error, match=match):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)

@@ -1,11 +1,14 @@
-"""The reference's side of ``tests/test_torch_dp.py``, run as a script in a
-subprocess of its own with four host devices (the test process keeps one):
-the JAX package's ``InfinityExecutor(engine="zero3")`` on a mesh of dp
-devices for every case of ``torch_dp_worker.CASES``, and its
-``psum_compressed`` under ``shard_map`` on 2 devices. Writes the numbers to
-one ``.npz`` (pytest does not collect this file).
+"""The reference's side of ``tests/test_torch_dp.py`` and
+``tests/test_torch_gspmd_mesh.py``, run as a script in a subprocess of its
+own with four host devices (the test process keeps one). Job ``dp``: the
+JAX package's ``InfinityExecutor(engine="zero3")`` on a mesh of dp devices
+for every case of ``torch_dp_worker.CASES``, and its ``psum_compressed``
+under ``shard_map`` on 2 devices; job ``gspmd``: its
+``InfinityExecutor(engine="pjit")`` on a mesh of dp devices for every case
+of ``torch_dp_worker.GSPMD_CASES``, from the initial params the test saved.
+Writes the numbers to one ``.npz`` (pytest does not collect this file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz>
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd]
 """
 from __future__ import annotations
 
@@ -103,13 +106,106 @@ def run_psum(out: dict) -> None:
             out[f"psum/{shape}/{dtype}/{i}/err"] = _f32(err)
 
 
+def _keyed(tree) -> dict:
+    return {jax.tree_util.keystr(p): leaf
+            for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
+    """``GSPMD_STEPS`` steps of ``case`` on a mesh of its dp devices from
+    the params the test saved (laid out by the engine's shardings, Adam's
+    state from them as its ``init_state`` builds it), the global batches
+    placed by ``batch_shardings``: per step loss, grad norm, lr and the
+    tier counters; after, the global params and in-graph optimizer states
+    and each device's addressable shard of the params and masters, and
+    the opt store's keys."""
+    import torch
+
+    from repro.config import make_offload as jmake_offload
+    from repro.core import partition as jpt
+    from repro.optim import adam as jadam
+
+    dp, _, _, stage, param, grad, opt, accum, B = W.GSPMD_CASES[case]
+    run = RunConfig(model=W.gspmd_cfg(case, jconfigs),
+                    parallel=make_parallel("pjit", remat="none", zero_stage=stage,
+                                           grad_accum=accum),
+                    offload=jmake_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                                          nvme_dir=os.path.join(tmp, case, "jax")),
+                    train=TrainConfig(lr=W.LR, warmup_steps=W.WARMUP))
+    mesh = make_local_mesh(dp, 1)
+    ex = jexec.InfinityExecutor(run, mesh)
+    eng = ex.engine
+    init = torch.load(W.gspmd_init_path(tmp, case), weights_only=False)
+    like = jax.tree.map(lambda d: d, eng.bundle.defs,
+                        is_leaf=lambda x: isinstance(x, jpt.ParamDef))
+    flat = {k: np.asarray(v.float().numpy()) for k, v in _torch_keyed(init).items()}
+    with compat.set_mesh(mesh):
+        params = jax.tree_util.tree_map_with_path(
+            lambda p, d: jnp.asarray(flat[jax.tree_util.keystr(p)]).astype(d.dtype),
+            like, is_leaf=lambda x: isinstance(x, jpt.ParamDef))
+        params = jax.device_put(params, eng.param_shardings())
+        state = {"params": params}
+        if not run.opt_offgraph:
+            state["opt"] = jax.jit(jadam.init_state,
+                                   out_shardings=eng._opt_state_from(eng.opt_shardings()))(params)
+    state = ex.reseed(state)
+    shape = ShapeConfig("t", W.gspmd_seq(case), B, "train")
+    stream = jpipe.SyntheticStream(ex.input_specs(shape), run.model.vocab_size, seed=0)
+    shardings = ex.batch_shardings(shape)
+    step = ex.make_train_step()
+    metrics = []
+    with compat.set_mesh(mesh):
+        for i in range(W.GSPMD_STEPS):
+            batch = {k: jax.device_put(v, shardings[k]) for k, v in stream.batch_at(i).items()}
+            state, m = step(state, batch)
+            metrics.append(m)
+    for key in ("loss", "grad_norm", "lr"):
+        out[f"{case}/{key}"] = np.array([float(m[key]) for m in metrics])
+    for key in metrics[0]:
+        if key.endswith("_bytes") and "pinned" not in key:
+            out[f"{case}/ctr/{key}"] = np.array([int(m[key]) for m in metrics])
+    # laid out by the engine's shardings (the off-graph step hands back
+    # plain arrays that its next step would lay out so)
+    trees = {"params": jax.device_put(state["params"], eng.param_shardings())}
+    if "opt" in state:
+        opt_sh = eng.opt_shardings()
+        trees.update(master=jax.device_put(state["opt"].master, opt_sh["master"]),
+                     m=state["opt"].m, v=state["opt"].v)
+        out[f"{case}/step"] = np.array(int(state["opt"].step))
+    for name, tree in trees.items():
+        for k, leaf in _keyed(tree).items():
+            out[f"{case}/{name}/{k}"] = _f32(leaf)
+            if name in ("params", "master"):  # each device's shard, in mesh order
+                by_dev = {s.device: s.data for s in leaf.addressable_shards}
+                for r, d in enumerate(np.asarray(mesh.devices).flat):
+                    out[f"{case}/{name}_shard{r}/{k}"] = _f32(by_dev[d])
+    if ex.opt_store is not None:
+        out[f"{case}/opt_keys"] = np.array(sorted(ex.opt_store.keys()))
+    ex.close()
+
+
+def _torch_keyed(tree, prefix="") -> dict:
+    """A nested dict of torch tensors by ``keystr`` name."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(_torch_keyed(tree[k], prefix + f"[{k!r}]"))
+    return out
+
+
 def main() -> None:
     tmp, path = sys.argv[1], sys.argv[2]
+    job = sys.argv[3] if len(sys.argv) > 3 else "dp"
     assert len(jax.devices()) == 4
     out: dict = {}
-    for case in W.CASES:
-        run_case(case, tmp, out)
-    run_psum(out)
+    if job == "dp":
+        for case in W.CASES:
+            run_case(case, tmp, out)
+        run_psum(out)
+    else:
+        for case in W.GSPMD_CASES:
+            run_gspmd_case(case, tmp, out)
     np.savez(path, **out)
 
 
