@@ -111,13 +111,21 @@ Phases (any failure exits non-zero; no phase is caught):
       the pinned host tier (the ZeRO-Offload placement) and with params and
       optimizer there; fused Adam on the flat and the two 'other' leaves
       each step;
+  16a-16f run after 18, whose kept CPU sides their MoE cases share; one
+      spawn of two ranks runs every dp-2 job (``DP_PARTS``, phase "dp2
+      ranks") and the phases hold its records:
   16a. "zero3 dp2 numerics": the explicit engine at dp 2, two ranks on the
       one card (torchrun; both on cuda:0 over gloo, ``launch/mesh.py``)
       against two ranks on the CPU, full-width smollm-135m cut to 2
       layers, 2 steps of 4 x 128 tokens (2 a rank) from the same global
       state (each rank its shard) in allgather mode, with int8 compression
       and as the layered epoch with every state class on NVMe; each rank's
-      loss, grad norm, rows and f32 masters by phase 15's bounds;
+      loss, grad norm, rows and f32 masters by phase 15's bounds; then, in
+      the same spawn, the layered epoch on the card alone with q8 rows
+      (phase 8's model: each rank's slice encoded on its own, gathered as
+      int8 quants and fp16 scales into the quantized matmul) and with
+      MoE's expert rows (phase 18's 2-layer granite), held against phase
+      8's and 18's kept one-rank CPU sides (``DP2_CARD_CASES``);
   16b. "zero3 dp2 train": ``launch.train --engine zero3 --data-mesh 2`` on
       full smollm-135m with params, grads and optimizer on NVMe, two ranks
       on the card, 4 steps of 8 x 512 (4 x 512 a rank), tracer on: each
@@ -127,6 +135,13 @@ Phases (any failure exits non-zero; no phase is caught):
       step wall with its collective waits and each rank's peak allocated
       memory printed. Two ranks on one card check correctness, the
       transport and per-rank memory, not scaling;
+  16e. "moe dp2 train" (the same spawn as 16b): ``launch.train --engine
+      zero3 --data-mesh 2`` on granite-moe-1b-a400m at full width cut to
+      ``MOE_LAYERED_LAYERS``, expert rows paged from NVMe and every state
+      class there, ``MOE_TRAIN_STEPS`` steps of 8 x 512: each rank's tier
+      and expert bytes half of "moe layered"'s every step and their sums
+      equal to them, the losses that run's by ``TRAIN_TOL``, the routing
+      statistics equal on both ranks;
   16c. "gspmd dp2 numerics": the GSPMD engine at ZeRO-3 on two ranks on the
       card (gloo), phase 11's model, weights and global batches (each rank
       its shards and rows), in-graph and with the optimizer on NVMe
@@ -142,6 +157,13 @@ Phases (any failure exits non-zero; no phase is caught):
       not is named) and their sums over the ranks equal to it, the plan's
       per-device bytes beside them, the losses phase 12's by ``TRAIN_TOL``,
       each rank's peak allocated memory, the step wall and tokens/s;
+  16f. "gspmd moe dp2 train" (the same spawn as 16d): ``--plan auto
+      --hw-devices 2`` on granite at ``MOE_LAYERED_LAYERS`` layers,
+      ``MOE_TRAIN_STEPS`` steps: each rank's state bytes half the one-rank
+      run's, the losses "moe layered"'s (the same weights and batches) by
+      ``TRAIN_TOL``, the routing statistics equal on both ranks; 16c also
+      holds the GSPMD step on granite at 2 layers on the two ranks against
+      phase 18's kept CPU side;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -155,7 +177,8 @@ Phases (any failure exits non-zero; no phase is caught):
       bounds (``moe numerics``); full granite (24 layers) served at the
       serve host cell's sizes (``moe serve``) and trained 4 steps under
       ``--plan auto`` (``moe plan train``: all on the device); the layered
-      epoch at full width cut to ``MOE_LAYERED_LAYERS`` (4) layers, 3 steps,
+      epoch at full width cut to ``MOE_LAYERED_LAYERS`` (4) layers,
+      ``MOE_TRAIN_STEPS`` (2) steps,
       its router-selected expert rows paged from NVMe with 0 < peak
       resident expert bytes < all expert bytes (``moe layered``); its flash
       forward and backward shapes are checked in phase 7 (``FLASH_MOE``);
@@ -171,7 +194,7 @@ Phases (any failure exits non-zero; no phase is caught):
   20. recurrent numerics: the GSPMD step all on the device, card against
       CPU by phase 11's bounds, on mamba2-370m at full width cut to 2
       layers (4 x 256 tokens) and recurrentgemma-9b at full width cut to 3
-      layers (one group, 1,705,070,592 params; 2 x 128 tokens, one step:
+      layers (one group, 1,705,070,592 params; 1 x 128 tokens, one step:
       its CPU side is the run's slowest);
   21. hybrid serve: full recurrentgemma-9b (38 layers, 9,396,301,824
       params on the device), 8 sequences through 4 slots, prompt 2560 (past
@@ -240,7 +263,7 @@ Phases (any failure exits non-zero; no phase is caught):
       ``phases:`` line of all of them), the kernels JSON line, then the
       device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16d (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16f (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -251,8 +274,8 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
-``chip_smoke.py --dp-rank numerics|train|gspmd_numerics|gspmd_train`` is
-one rank of phase 16a-16d, started by the script itself through
+``chip_smoke.py --dp-rank all|numerics|train[+moe]|gspmd_numerics|gspmd_train[+moe]``
+is one rank of phase 16a-16f, started by the script itself through
 ``torch.distributed.run``; ``chip_smoke.py --nccl-check`` runs phase 16b's
 and 16d's paths on four ranks with a card each (NCCL), on a machine with
 four cards.
@@ -909,12 +932,20 @@ def _masters(ex) -> torch.Tensor:
     return torch.stack([flat[f"{ex.rank_key}/l{li}"] for li in range(len(flat))]).float()
 
 
+# the layered numerics phases' model and batches (full-width smollm-135m
+# cut to 2 layers, B x S, steps), and their CPU sides kept by
+# ``--param-quant`` for "zero3 dp2 numerics"' q8 case
+TRAIN_NUMERICS = (2, 4, 256, 2)
+LAYERED_CPU_RUNS: dict = {}
+
+
 def phase_train_numerics(quant: str = "none") -> dict:
     """Full-width smollm-135m cut to 2 layers: 2 layered steps on the card
     (kernels) and on the CPU (plain versions), same weights and batches;
-    ``quant`` is ``--param-quant``."""
-    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
-    B, S, steps = 4, 256, 2
+    ``quant`` is ``--param-quant``. The CPU side is kept in
+    ``LAYERED_CPU_RUNS``."""
+    layers, B, S, steps = TRAIN_NUMERICS
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=layers)
     base = os.path.join(ROOT, "build", f"chip_smoke_train_numerics_{quant}")
     state0 = None
     out = {}
@@ -934,7 +965,20 @@ def phase_train_numerics(quant: str = "none") -> dict:
             traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
         out[dev] = (traj, ex.materialize_flat().float(), _masters(ex))
         ex.close()
-    (tc, rows_c, masters_c), (tg, rows_g, masters_g) = out["cpu"], out["cuda"]
+    LAYERED_CPU_RUNS[quant] = out["cpu"]
+    rec = {"param_quant": quant, "layers": layers, "d_model": cfg.d_model, "batch": B,
+           "seq": S, "steps": steps}
+    return hold_rows_to_cpu("train numerics", quant, out["cpu"], out["cuda"], rec)
+
+
+def hold_rows_to_cpu(tag: str, quant: str, cpu: tuple, card: tuple, rec: dict) -> dict:
+    """``(trajectory, (L, P) rows, (L, P) f32 masters)`` of a layered card
+    run against a CPU run of the same function: loss and grad norm by
+    ``TRAIN_TOL``, the masters by the drift bound, the rows by it plus each
+    side's bf16 rounding (under q8 two quant steps of the row's block:
+    each side re-encodes its rows), their mean by 2^-5 * sum(lr). Prints
+    ``rec`` with the numbers; fails the script beyond a bound."""
+    (tc, rows_c, masters_c), (tg, rows_g, masters_g) = cpu, card
     lrs = [t["lr"] for t in tc]
     drift = adam.parity_bound(TrainConfig(), lrs)
     master_diff = (masters_g - masters_c).abs()
@@ -943,22 +987,20 @@ def phase_train_numerics(quant: str = "none") -> dict:
     allowed = drift + 2**-8 * (rows_c.abs() + rows_g.abs())
     if quant == "q8":
         allowed = allowed + 2 * _q8_step(rows_c)
-    rec = {"param_quant": quant, "layers": 2, "d_model": cfg.d_model, "batch": B,
-           "seq": S, "steps": steps, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+    rec = {**rec, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "rows_max_abs_diff": diff.max().item(), "rows_mean_abs_diff": diff.mean().item(),
            "rows_worst_diff_over_bound": (diff / allowed).max().item(),
            "masters_max_abs_diff": master_diff.max().item(),
            "masters_worst_diff_over_drift": master_diff.max().item() / drift,
            "rows_max_bound": drift, "rows_mean_bound": 2**-5 * sum(lrs)}
-    say("train numerics:", json.dumps(rec))
+    say(f"{tag}:", json.dumps(rec))
     for c, g in zip(tc, tg):
         for key in ("loss", "grad_norm"):
             if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
-                raise SystemExit(f"FAIL train numerics ({quant}): card {key} {g[key]} "
-                                 f"vs CPU {c[key]}")
+                raise SystemExit(f"FAIL {tag} ({quant}): card {key} {g[key]} vs CPU {c[key]}")
     if not rec["masters_max_abs_diff"] <= drift or not bool((diff <= allowed).all()) \
             or not rec["rows_mean_abs_diff"] <= rec["rows_mean_bound"]:
-        raise SystemExit(f"FAIL train numerics ({quant}): rows differ beyond the bound: {rec}")
+        raise SystemExit(f"FAIL {tag} ({quant}): rows differ beyond the bound: {rec}")
     return rec
 
 
@@ -1731,31 +1773,150 @@ def dp2_numerics_rank() -> dict:
                 or not rec["flat_mean_abs_diff"] <= rec["flat_mean_bound"]:
             failures.append(f"{case}: the rows differ beyond the bound")
         recs.append(rec)
+    for kind in DP2_CARD_CASES:
+        dp2_card_case(kind, meshes["cuda"])
     return {"rank": rank, "cases": recs, "failures": failures,
             "launches": ops.launch_counts(), "transport": meshes["cuda"].transport()}
 
 
-def dp_train_rank() -> dict:
+# the layered epoch's cases of "zero3 dp2 numerics" run on the card alone:
+# each is held against the one-rank CPU side its one-rank numerics phase
+# kept (the same function on the same weights and global batches): q8 rows
+# ("train numerics q8", full-width smollm-135m cut to 2 layers) and MoE's
+# expert rows ("moe numerics/layered", granite-moe-1b-a400m cut to 2)
+DP2_CARD_CASES = ("q8", "moe")
+
+
+def _dp2_card_record(kind: str, rank: int) -> str:
+    return os.path.join(ROOT, "build", f"chip_smoke_dp2_{kind}.rank{rank}.pt")
+
+
+def dp2_card_case(kind: str, mesh) -> None:
+    """(a rank) ``kind``'s layered run on 2 ranks on the card, from the
+    global state its one-rank numerics phase draws (on a one-rank CPU
+    engine, each rank keeping its slices) on the rank's rows of the same
+    global batches; saves the rank's trajectory, rows, masters by opt-store
+    key and, for MoE, its routing plans and 'other' leaves."""
+    rank, dev = mesh.rank, mesh.device
+    if kind == "q8":
+        layers, B, S, steps = TRAIN_NUMERICS
+        cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=layers)
+        quant = "q8"
+    else:
+        layers, B, S, steps = MOE_NUMERICS
+        cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=layers)
+        quant = "none"
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_dp2_{kind}")
+    shutil.rmtree(os.path.join(nvme, f"rank{rank}"), ignore_errors=True)
+    run = RunConfig(model=cfg, parallel=make_parallel("zero3", remat="none"),
+                    offload=make_offload(opt_tier="nvme", param_tier="nvme", grad_tier="nvme",
+                                         nvme_dir=nvme, param_quant=quant),
+                    train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+    state0 = ExplicitZero3Engine(run, "cpu").init_state(torch.Generator().manual_seed(SEED))
+    ex = InfinityExecutor(run, dev, mesh=mesh)
+    state = ex.reseed(ex.engine.place_state(_to(bridge.shard_zero3_state(state0, rank, 2), dev)))
+    stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                             cfg.vocab_size, seed=SEED)
+    step = ex.make_train_step()
+    traj = []
+    with RoutingRecorder() as rr:
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev)
+                     for k, a in rank_slice(stream.batch_at(i), rank, 2).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+            if kind == "moe":
+                traj[-1]["moe_dropped_token_fraction"] = float(m["moe_dropped_token_fraction"])
+                traj[-1]["moe_expert_load"] = m["moe_expert_load"].double().tolist()
+    rows = {k: v.float() for k, v in ex.materialize_rows().items()}
+    out = {"traj": traj, "rows": rows, "masters": _store_masters(ex), "plans": rr.plans,
+           "other": pt.tree_map(lambda t: t.detach().cpu(), state["other"]),
+           "quantized_leaves": ex.engine.quantized_leaves}
+    ex.close()
+    torch.save(out, _dp2_card_record(kind, rank))
+
+
+def _join_rank_masters(cpu_masters: dict, ranks: list) -> dict:
+    """The ranks' opt-store masters (``rank<r>/l<i>``, ``xrank<r>/l<j>``:
+    their slices) put together in the one-rank run's key order."""
+    out = {}
+    for key in cpu_masters:
+        prefix, row = key.split("/")
+        out[key] = torch.cat([r["masters"][f"{prefix[:-1]}{i}/{row}"]
+                              for i, r in enumerate(ranks)])
+    return out
+
+
+def hold_dp2_card_cases() -> dict:
+    """The ranks' records of ``DP2_CARD_CASES`` put together (rows and
+    masters by columns, plans by groups: each rank routes its rows' groups)
+    and held against the kept one-rank CPU sides by
+    ``hold_rows_to_cpu`` / ``hold_moe_to_cpu``; both ranks report one
+    trajectory."""
+    out = {}
+    for kind in DP2_CARD_CASES:
+        ranks = [torch.load(_dp2_card_record(kind, r), weights_only=False) for r in range(2)]
+        if ranks[0]["traj"] != ranks[1]["traj"]:
+            raise SystemExit(f"FAIL zero3 dp2 numerics ({kind}): the ranks report "
+                             f"{ranks[0]['traj']} and {ranks[1]['traj']}")
+        rows = {k: torch.cat([r["rows"][k] for r in ranks], dim=1) for k in ranks[0]["rows"]}
+        rec = {"case": f"{kind}_layered", "ranks": 2, "cpu_side": "one rank, kept",
+               "quantized_leaves": ["/".join(p) for p in ranks[0]["quantized_leaves"]]}
+        if kind == "q8":
+            cpu = LAYERED_CPU_RUNS["q8"]
+            masters = torch.stack(list(_join_rank_masters(
+                {f"rank0/l{i}": None for i in range(cpu[2].shape[0])}, ranks).values()))
+            out[kind] = hold_rows_to_cpu("zero3 dp2 numerics", "q8", cpu,
+                                         (ranks[0]["traj"], rows["flat"], masters.float()), rec)
+            continue
+        cpu = MOE_CPU_RUNS["layered"]
+        other = torch.cat([rows["flat"].reshape(-1)] + [t.float().reshape(-1) for t in
+                                                        pt.tree_leaves(ranks[0]["other"])])
+        plans = [torch.cat([r["plans"][i] for r in ranks]) for i in range(len(ranks[0]["plans"]))]
+        cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_NUMERICS[0])
+        card = (ranks[0]["traj"], other, rows["eflat"], _join_rank_masters(cpu[3], ranks), plans)
+        out[kind] = hold_moe_to_cpu("zero3 dp2 numerics", cfg, cpu, card,
+                                    {**rec, "kind": "layered"})
+    return out
+
+
+def _depth(arch: str, layers: int) -> list:
+    return ["--arch", arch] + (["--layers", str(layers)] if layers else [])
+
+
+def dp_train_rank(arch: str = "smollm-135m", layers: int = 0,
+                  steps: int = DP_TRAIN_STEPS) -> dict:
     """(a rank) ``launch.train --engine zero3 --data-mesh N`` (N the
-    launch's world size) on full smollm-135m, the layered epoch with
-    params, grads and optimizer on NVMe, ``DP_TRAIN_STEPS`` steps of 8 x
-    512 (8 / N x 512 a rank), tracer on; this rank's step metrics (the
-    wall's compute / io_wait / other split, the collectives' waits among
-    io_wait), launches, peak allocated memory and transport."""
+    launch's world size) on ``arch`` at full width (its depth cut to
+    ``layers``; 0: whole), the layered epoch with params, grads and
+    optimizer on NVMe (MoE: its expert rows paged as units, each rank's
+    slices), ``steps`` steps of 8 x 512 (8 / N x 512 a rank), tracer on;
+    this rank's step metrics (the wall's compute / io_wait / other split,
+    the collectives' waits among io_wait; MoE's routing statistics and
+    expert counters), launches, peak allocated memory and transport."""
     n = int(os.environ["WORLD_SIZE"])
-    nvme = os.path.join(ROOT, "build", f"chip_smoke_nvme_dp{n}")
-    argv = ["--arch", "smollm-135m", "--engine", "zero3", "--data-mesh", str(n),
-            "--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme",
-            "--batch", "8", "--seq", "512", "--steps", str(DP_TRAIN_STEPS), "--lr", "3e-3",
-            "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_nvme_dp{n}_{arch}")
+    shutil.rmtree(os.path.join(nvme, f"rank{os.environ['RANK']}"), ignore_errors=True)
+    argv = _depth(arch, layers) + [
+        "--engine", "zero3", "--data-mesh", str(n),
+        "--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme",
+        "--batch", "8", "--seq", "512", "--steps", str(steps), "--lr", "3e-3",
+        "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
     trace.enable()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     hist = train.train(train.build_argparser().parse_args(argv), argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trace.disable()
+    trace.clear()
     keys = [f"{t}_bytes" for t in TIERS] + ["param_total_bytes", "peak_resident_param_bytes"]
+    stats = ()
+    if "expert_total_bytes" in hist["metrics"][0]:
+        keys += ["expert_total_bytes", "expert_peak_resident_bytes"]
+        stats = ("moe_dropped_token_fraction", "moe_expert_load", "expert_evictions",
+                 "expert_prefetch_hit_rate")
 
     def fracs(m):
         w = max(m["trace_wall_s"], 1e-12)
@@ -1769,8 +1930,9 @@ def dp_train_rank() -> dict:
             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "steps": [{"step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
                        "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"], **fracs(m),
-                       **{k: m[k] for k in keys}, **{f"{k}_all_ranks": m[f"{k}_all_ranks"]
-                                                     for k in keys}} for m in hist["metrics"]]}
+                       **{k: m[k] for k in keys + list(stats)},
+                       **{f"{k}_all_ranks": m[f"{k}_all_ranks"] for k in keys}}
+                      for m in hist["metrics"]]}
 
 
 def dp_rank(mode: str) -> int:
@@ -1781,25 +1943,42 @@ def dp_rank(mode: str) -> int:
     if not torch.cuda.is_available():
         print("dp rank: CUDA is not available")
         return 1
-    if mode in ("numerics", "gspmd_numerics"):
-        created = mesh_mod.maybe_init_distributed("cuda")
-        try:
-            rec = dp2_numerics_rank() if mode == "numerics" else gspmd_dp2_numerics_rank()
-        finally:
-            if created:
-                torch.distributed.destroy_process_group()
-    else:  # launch.train joins and leaves the group itself
-        rec = dp_train_rank() if mode == "train" else gspmd_train_rank()
+    # the rank joins once: launch.train then runs in the group it finds, so
+    # one spawn runs every job ("all": ``DP_PARTS``, each rank's record by
+    # part) and trains more than one model ("<mode>+moe")
+    created = mesh_mod.maybe_init_distributed("cuda")
+    try:
+        rec = {}
+        for part in DP_PARTS if mode == "all" else (mode,):
+            base, _, extra = part.partition("+")
+            rec[part] = {"numerics": dp2_numerics_rank,
+                         "gspmd_numerics": gspmd_dp2_numerics_rank,
+                         "train": dp_train_rank, "gspmd_train": gspmd_train_rank}[base]()
+            if extra == "moe":
+                rec[part]["moe"] = (dp_train_rank if base == "train" else gspmd_train_rank)(
+                    MOE_ARCH, MOE_LAYERED_LAYERS, MOE_TRAIN_STEPS)
+            rec["rank"] = rec[part]["rank"]
+        if mode != "all":
+            rec = rec[mode]
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
     with open(_rank_record(mode, rec["rank"]), "w") as f:
         json.dump(rec, f)
     return 0
 
 
-def phase_zero3_dp2_numerics() -> tuple:
+def _part(recs, part: str, n: int = 2) -> list:
+    """Each rank's record of ``part``: from the ranks' one spawn of every
+    dp-2 job (``recs``, ``DP_PARTS``), or from a spawn of its own."""
+    return [r[part] for r in recs] if recs is not None else run_ranks(part, 900, n)
+
+
+def phase_zero3_dp2_numerics(recs=None) -> tuple:
     """Both ranks' ``dp2_numerics_rank``: every case within its bounds on
     each rank, the CUDA side's launches on the tensor-core routes."""
     t0 = time.perf_counter()
-    recs = run_ranks("numerics", 600)
+    recs = _part(recs, "numerics")
     for r in recs:
         for case in r["cases"]:
             say("zero3 dp2 numerics:", json.dumps(case))
@@ -1810,21 +1989,26 @@ def phase_zero3_dp2_numerics() -> tuple:
             raise SystemExit(f"FAIL zero3 dp2 numerics (rank {r['rank']}): {r['failures']}")
         check_main_path_routes("zero3 dp2 numerics", r["launches"])
     launches = _sum_launches(recs)
+    card = hold_dp2_card_cases()
     rec = {"phase_s": time.perf_counter() - t0, "transport": recs[0]["transport"],
-           "masters_worst_diff_over_drift": max(c["masters_worst_diff_over_drift"]
-                                                for r in recs for c in r["cases"])}
+           "masters_worst_diff_over_drift": max(
+               [c["masters_worst_diff_over_drift"] for r in recs for c in r["cases"]]
+               + [c["masters_worst_diff_over_drift"] for c in card.values()])}
     say("zero3 dp2 numerics phase:", json.dumps(rec))
     return rec, launches
 
 
-def phase_zero3_dp_train(dp1: dict, n: int = 2, tag: str = "zero3 dp2 train") -> tuple:
+def phase_zero3_dp_train(dp1: dict, n: int = 2, tag: str = "zero3 dp2 train",
+                         mode: str = "train", recs=None) -> tuple:
     """``n`` ranks' ``dp_train_rank``: the losses finite, falling and those
     of the one-rank layered run (``dp1``, phase 9: the same seed and global
     batches) by ``TRAIN_TOL``; each rank's tier bytes per step an n-th of
     the one-rank run's, their sum equal to it; each rank's launches those
-    of a one-rank step, all on the tensor cores."""
+    of a one-rank step, all on the tensor cores. ``mode`` "train+moe" also
+    trains MoE in the same spawn (``phase_moe_dp_train`` reads it): the
+    ranks' records come back third."""
     L = configs.get("smollm-135m").n_layers
-    recs = run_ranks("train", 600, n)
+    recs = _part(recs, mode, n)
     for r in recs:
         for m in r["steps"]:
             say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
@@ -1861,7 +2045,91 @@ def phase_zero3_dp_train(dp1: dict, n: int = 2, tag: str = "zero3 dp2 train") ->
                 raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched {name} "
                                  f"{r['launches'][name]} < {count}")
         check_main_path_routes(tag, r["launches"])
-    return rec, _sum_launches(recs)
+    return rec, _sum_launches(recs), recs
+
+
+# "moe layered"'s steps, and the dp-2 MoE runs' held against it (2, not 3:
+# chip_smoke.py's time budget)
+MOE_TRAIN_STEPS = 2
+# the dp-2 jobs one spawn of two ranks runs (``--dp-rank all``), in order:
+# a spawn costs ~17 s of process start, imports and CUDA contexts
+DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe")
+# the MoE layered epoch's counters the routing steers: the expert rows the
+# popularity predictor, the hot cache and the router read and drain
+MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
+
+
+def phase_moe_dp_train(dp1: dict, recs: list, tag: str = "moe dp2 train") -> tuple:
+    """The MoE part of the ranks' "train+moe" spawn: ``launch.train
+    --engine zero3 --data-mesh 2`` on granite-moe-1b-a400m at full width
+    cut to ``MOE_LAYERED_LAYERS``, expert rows paged from NVMe and every
+    state class there, ``MOE_TRAIN_STEPS`` steps of 8 x 512. Each rank's
+    tier and expert bytes per step half of the one-rank "moe layered"
+    run's (``dp1``: the same seed and global batches), their sum equal to
+    it; the losses that run's by ``TRAIN_TOL``, finite and falling; the
+    routing statistics equal on both ranks; the launches on the tensor
+    cores. The expert rows read and drained (``MOE_STEERED``) follow the
+    routing: once the two runs' updates have rounded apart, a near-tied
+    token may take another expert and the popularity predictor and hot
+    cache another row, so from the second step on those counters may
+    differ from the one-rank run's by whole expert rows (at most a wave a
+    layer), each rank its slice of them: counted and printed as
+    ``expert_rows_apart``."""
+    L, steps, n = MOE_LAYERED_LAYERS, MOE_TRAIN_STEPS, len(recs)
+    cfg = configs.get(MOE_ARCH)
+    apart = []
+    parts = [r["moe"] for r in recs]
+    for r in parts:
+        for m in r["steps"]:
+            say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
+    p0 = parts[0]
+    rec = {"argv": p0["argv"], "transport": p0["transport"],
+           "wall_s": [r["wall_s"] for r in parts],
+           "peak_allocated_gb": [r["peak_allocated_gb"] for r in parts],
+           "dp1_peak_allocated_gb": dp1.get("peak_allocated_gb"),
+           "launches_per_rank": [r["launches"] for r in parts],
+           "losses": [m["loss"] for m in p0["steps"]], "dp1_losses": dp1["losses"][:steps],
+           "bytes_per_rank": {k: p0["steps"][-1][k] for k in dp1["step_bytes"][-1]},
+           "dp1_bytes": dp1["step_bytes"][-1],
+           "median_step_s_after_first": statistics.median(m["step_s"] for m in p0["steps"][1:]),
+           "dp1_median_step_s_after_first": dp1["median_step_s_after_first"]}
+    rec["median_tokens_per_s_after_first"] = 8 * 512 / rec["median_step_s_after_first"]
+    say(f"{tag}:", json.dumps(rec))
+    losses = rec["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"FAIL {tag}: losses not finite or not falling: {losses}")
+    for got, want in zip(losses, rec["dp1_losses"]):
+        if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
+            raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
+    for i in range(steps):
+        ms = [r["steps"][i] for r in parts]
+        for key in ("moe_dropped_token_fraction", "moe_expert_load"):
+            if any(m[key] != ms[0][key] for m in ms):
+                raise SystemExit(f"FAIL {tag}: the ranks report {key} {[m[key] for m in ms]}")
+        row = dp1["step_bytes"][i]["expert_total_bytes"] // (L * cfg.n_experts)
+        apart.append({})
+        for k, whole in dp1["step_bytes"][i].items():
+            rows, rest = divmod(ms[0][f"{k}_all_ranks"] - whole, row)
+            for m in ms:
+                exact = n * m[k] == whole and m[f"{k}_all_ranks"] == whole
+                steered = (k in MOE_STEERED and i > 0 and n * m[k] == m[f"{k}_all_ranks"]
+                           and rest == 0 and abs(rows) <= cfg.top_k * L)
+                if not (exact or steered):
+                    raise SystemExit(f"FAIL {tag}: step {i} {k} {m[k]} (all ranks "
+                                     f"{m[f'{k}_all_ranks']}), the one-rank run's {whole}")
+            if k in MOE_STEERED:
+                apart[-1][k] = rows
+    rec["expert_rows_apart"] = apart
+    say(f"{tag} expert rows apart:", json.dumps(apart))
+    want = {"flash_attention": 3 * L * steps, "flash_attention_bwd": L * steps,
+            "fused_adam": 3 * steps}
+    for r in parts:
+        for name, count in want.items():
+            if r["launches"][name] < count:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched {name} "
+                                 f"{r['launches'][name]} < {count}")
+        check_main_path_routes(tag, r["launches"])
+    return rec, _sum_launches(parts)
 
 
 def nccl_check() -> int:
@@ -1877,10 +2145,10 @@ def nccl_check() -> int:
                        capture_output=True, text=True, check=True).stdout.strip())
     _build.build_all()
     dp1, _ = phase_train_main()
-    rec, launches = phase_zero3_dp_train(dp1, 4, "zero3 dp4 nccl train")
+    rec, launches, _ = phase_zero3_dp_train(dp1, 4, "zero3 dp4 nccl train")
     # one rank on card 0 plans for one device (detection counts the four)
     plan1, _ = phase_plan_train("plan train", ["--hw-devices", "1"])
-    grec, glaunches = phase_gspmd_dp_train(plan1, 4, "gspmd dp4 nccl train")
+    grec, glaunches, _ = phase_gspmd_dp_train(plan1, 4, "gspmd dp4 nccl train")
     for r in (rec, grec):
         if r["transport"]["backend"] != "nccl":
             raise SystemExit(f"FAIL nccl check: the ranks ran {r['transport']}")
@@ -1959,16 +2227,62 @@ def gspmd_dp2_numerics_rank() -> dict:
         ex.close()
     if rank == 0:
         torch.save(runs, _gspmd_dp2_record())
+    gspmd_dp2_moe_case(mesh)
     return {"rank": rank, "launches": ops.launch_counts(), "transport": mesh.transport(),
             "unsplit_leaves": unsplit, "trajectories": {p: r[0] for p, r in runs.items()}}
 
 
-def phase_gspmd_dp2_numerics() -> tuple:
+def _gspmd_dp2_moe_record(rank: int) -> str:
+    return os.path.join(ROOT, "build", f"chip_smoke_gspmd_dp2_moe.rank{rank}.pt")
+
+
+def gspmd_dp2_moe_case(mesh) -> None:
+    """(a rank) "moe numerics/gspmd"'s model, weights and global batches
+    (granite-moe-1b-a400m at full width cut to 2 layers) through the GSPMD
+    step at ZeRO-3 on 2 ranks on the card, each from its shards, on its
+    rows; saves the rank's trajectory and routing plans, and rank 0 the
+    params and f32 masters gathered over the ranks."""
+    rank, dev = mesh.rank, mesh.device
+    layers, B, S, steps = MOE_NUMERICS
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=layers)
+    run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none", zero_stage=3),
+                    offload=make_offload(nvme_dir=os.path.join(ROOT, "build",
+                                                               "chip_smoke_gspmd_dp2_moe")),
+                    train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+    params0 = init_params(cfg)
+    ex = InfinityExecutor(run, dev, mesh=mesh)
+    eng = ex.engine
+    full = {"params": params0, "opt": adam.init_state(params0)}
+    state = ex.reseed(eng.place_state(bridge.shard_gspmd_state(full, run, rank, 2)))
+    stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                             cfg.vocab_size, seed=SEED)
+    step = ex.make_train_step()
+    traj = []
+    with RoutingRecorder() as rr:
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev)
+                     for k, a in rank_batch(stream.batch_at(i), rank, 2).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                                  "moe_dropped_token_fraction")})
+            traj[-1]["moe_expert_load"] = m["moe_expert_load"].double().tolist()
+    params = eng.respec(state["params"], "param", None)
+    masters = eng.respec(state["opt"].master, "opt", None)
+    out = {"traj": traj, "plans": rr.plans}
+    if rank == 0:
+        out["groups"] = _moe_param_groups(None, None, "gspmd", params=params)
+        out["masters"] = {keystr(p): t.detach().float().cpu()
+                          for p, t in zip(pt.tree_paths(masters), pt.tree_leaves(masters))}
+    ex.close()
+    torch.save(out, _gspmd_dp2_moe_record(rank))
+
+
+def phase_gspmd_dp2_numerics(recs=None) -> tuple:
     """Both ranks' ``gspmd_dp2_numerics_rank``, each placement's gathered
     params and masters and its trajectory (the same on both ranks: loss
     and grad norm are summed over them) held against phase 11's kept
     one-rank CPU run by its bounds; the launches on the tensor cores."""
-    recs = run_ranks("gspmd_numerics", 600)
+    recs = _part(recs, "gspmd_numerics")
     gathered = torch.load(_gspmd_dp2_record(), weights_only=False)
     out = {}
     for placement, card in gathered.items():
@@ -1980,6 +2294,16 @@ def phase_gspmd_dp2_numerics() -> tuple:
                "unsplit_leaves": recs[0]["unsplit_leaves"]}
         out[placement] = hold_card_to_cpu("gspmd dp2 numerics", placement,
                                           CPU_RUNS[GSPMD_NUMERICS_KEY], card, rec)
+    ranks = [torch.load(_gspmd_dp2_moe_record(r), weights_only=False) for r in range(2)]
+    if ranks[0]["traj"] != ranks[1]["traj"]:
+        raise SystemExit(f"FAIL gspmd dp2 numerics (moe): the ranks report {ranks[0]['traj']} "
+                         f"and {ranks[1]['traj']}")
+    plans = [torch.cat([r["plans"][i] for r in ranks]) for i in range(len(ranks[0]["plans"]))]
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_NUMERICS[0])
+    card = (ranks[0]["traj"], *ranks[0]["groups"], ranks[0]["masters"], plans)
+    out["moe"] = hold_moe_to_cpu("gspmd dp2 numerics", cfg, MOE_CPU_RUNS["gspmd"], card,
+                                 {"kind": "gspmd", "arch": MOE_ARCH, "ranks": 2, "zero_stage": 3,
+                                  "cpu_side": "one rank, kept (moe numerics/gspmd)"})
     for r in recs:
         say("gspmd dp2 numerics launches:", json.dumps({
             "rank": r["rank"], "launches": r["launches"], "transport": r["transport"]}))
@@ -1987,18 +2311,21 @@ def phase_gspmd_dp2_numerics() -> tuple:
     return out, _sum_launches(recs)
 
 
-def gspmd_train_rank() -> dict:
+def gspmd_train_rank(arch: str = "smollm-135m", layers: int = 0,
+                     steps: int = DP_TRAIN_STEPS) -> dict:
     """(a rank) ``launch.train --plan auto --hw-devices N`` (N the launch's
-    world size) on full smollm-135m, ``DP_TRAIN_STEPS`` steps of 8 x 512
-    (8 / N x 512 a rank), tracer on: the plan it chose, this rank's state
-    bytes and their sums, the one-rank bytes of the same run, the leaves
-    that split over no rank, its step metrics, launches, peak allocated
-    memory and transport."""
+    world size) on ``arch`` at full width (its depth cut to ``layers``; 0:
+    whole), ``steps`` steps of 8 x 512 (8 / N x 512 a rank), tracer on:
+    the plan it chose, this rank's state bytes and their sums, the
+    one-rank bytes of the same run, the leaves that split over no rank,
+    its step metrics (MoE: the routing statistics), launches, peak
+    allocated memory and transport."""
     n = int(os.environ["WORLD_SIZE"])
-    nvme = os.path.join(ROOT, "build", f"chip_smoke_gspmd_dp{n}")
-    argv = ["--arch", "smollm-135m", "--plan", "auto", "--hw-devices", str(n),
-            "--batch", "8", "--seq", "512", "--steps", str(DP_TRAIN_STEPS), "--lr", "3e-3",
-            "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_gspmd_dp{n}_{arch}")
+    argv = _depth(arch, layers) + [
+        "--plan", "auto", "--hw-devices", str(n),
+        "--batch", "8", "--seq", "512", "--steps", str(steps), "--lr", "3e-3",
+        "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
     trace.enable()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2007,6 +2334,7 @@ def gspmd_train_rank() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trace.disable()
+    trace.clear()
     mesh, plan, run = hist["mesh"], hist["plan"], hist["run"]
     # the engine's layout on this rank (no collective: a CPU engine on the
     # rank's mesh), and the same run's one-rank bytes
@@ -2032,21 +2360,52 @@ def gspmd_train_rank() -> dict:
                        "step_s": m["step_time"], "tokens_per_s": m["tokens_per_s"], **fracs(m),
                        **{k: m[k] for k in keys}, **{f"{k}_all_ranks": m[f"{k}_all_ranks"]
                                                      for k in keys},
-                       **{f"plan_{k}": m[f"plan_{k}"] for k in keys}}
+                       **{f"plan_{k}": m[f"plan_{k}"] for k in keys},
+                       **{k: m[k] for k in ("moe_dropped_token_fraction", "moe_expert_load")
+                          if k in m}}
                       for m in hist["metrics"]]}
 
 
-def phase_gspmd_dp_train(dp1: dict, n: int = 2, tag: str = "gspmd dp2 train") -> tuple:
+def phase_gspmd_dp_train(dp1: dict, n: int = 2, tag: str = "gspmd dp2 train",
+                         mode: str = "gspmd_train", recs=None) -> tuple:
     """``n`` ranks' ``gspmd_train_rank``: the plan the GSPMD step with
     params on the device; the losses finite, falling and those of the
     one-rank "plan train" run (``dp1``: the same seed and global batches)
     by ``TRAIN_TOL``; each rank's param, grad and opt bytes an n-th of the
     one-rank run's and their sum equal to it, where every leaf splits
     (the leaves that do not are named); the launches of a step on every
-    rank, all on the tensor cores."""
+    rank, all on the tensor cores. ``mode`` "gspmd_train+moe" also trains
+    MoE in the same spawn (``phase_gspmd_moe_dp_train`` reads it): the
+    ranks' records come back third."""
     cfg = configs.get("smollm-135m")
-    L, steps = cfg.n_layers, DP_TRAIN_STEPS
-    recs = run_ranks("gspmd_train", 600, n)
+    recs = _part(recs, mode, n)
+    rec = check_gspmd_dp_train(tag, cfg, DP_TRAIN_STEPS, dp1, recs)
+    return rec, _sum_launches(recs), recs
+
+
+def phase_gspmd_moe_dp_train(dp1: dict, recs: list, tag: str = "gspmd moe dp2 train") -> tuple:
+    """The MoE part of the ranks' "gspmd_train+moe" spawn: ``launch.train
+    --plan auto --hw-devices 2`` on granite-moe-1b-a400m at full width cut
+    to ``MOE_LAYERED_LAYERS``, ``MOE_TRAIN_STEPS`` steps of 8 x 512, by
+    ``check_gspmd_dp_train``: held against the one-rank "moe layered" run
+    (``dp1``: the same weights, seed and global batches through the
+    explicit engine's waves, which sum to the all-resident step), the
+    routing statistics equal on both ranks."""
+    parts = [r["moe"] for r in recs]
+    cfg = configs.with_layers(configs.get(MOE_ARCH), MOE_LAYERED_LAYERS)
+    rec = check_gspmd_dp_train(tag, cfg, MOE_TRAIN_STEPS, dp1, parts)
+    for i in range(MOE_TRAIN_STEPS):
+        ms = [r["steps"][i] for r in parts]
+        for key in ("moe_dropped_token_fraction", "moe_expert_load"):
+            if any(m[key] != ms[0][key] for m in ms):
+                raise SystemExit(f"FAIL {tag}: the ranks report {key} {[m[key] for m in ms]}")
+    return rec, _sum_launches(parts)
+
+
+def check_gspmd_dp_train(tag: str, cfg, steps: int, dp1: dict, recs: list) -> dict:
+    """The checks of a GSPMD dp train run (``gspmd_train_rank``'s records
+    of each rank) on ``cfg`` against its one-rank run ``dp1``."""
+    L, n = cfg.n_layers, len(recs)
     for r in recs:
         for m in r["steps"]:
             say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
@@ -2089,15 +2448,16 @@ def phase_gspmd_dp_train(dp1: dict, n: int = 2, tag: str = "gspmd dp2 train") ->
                                      f"{m[k]} (all ranks {m[f'{k}_all_ranks']}), the one-rank "
                                      f"run's {whole}")
         fwd = 2 if r["remat"] == "full" else 1
+        mlp = mlp_products(cfg) if cfg.family in MLP_FAMILIES else 0  # MoE: einsums
         want = {"flash_attention": fwd * L * steps, "flash_attention_bwd": L * steps,
-                "tiled_matmul": (fwd + 2) * mlp_products(cfg) * steps,
+                "tiled_matmul": (fwd + 2) * mlp * steps,
                 "fused_adam": len(pt.tree_paths(registry.build(cfg).defs)) * steps}
         for name, count in want.items():
             if r["launches"][name] < count:
                 raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched {name} "
                                  f"{r['launches'][name]} < {count}")
         check_main_path_routes(tag, r["launches"])
-    return rec, _sum_launches(recs)
+    return rec
 
 
 def phase_resume_drill() -> tuple:
@@ -2173,6 +2533,10 @@ def phase_resume_drill() -> tuple:
 
 
 MOE_LAYERED_LAYERS = 4  # the layered MoE run's depth cut (full width)
+# "moe numerics"' cut, batches and steps: (layers, B, S, steps), and its
+# CPU sides by kind, kept for the dp-2 numerics of the same function
+MOE_NUMERICS = (2, 2, 256, 2)
+MOE_CPU_RUNS: dict = {}
 
 
 def phase_moe_serve() -> tuple:
@@ -2191,9 +2555,10 @@ def phase_moe_layered() -> tuple:
     states on NVMe on granite-moe-1b-a400m at full width, its depth cut to
     ``MOE_LAYERED_LAYERS``: the layered epoch where each layer's dense row
     follows the static plan and its router-selected expert rows page as
-    ("x", layer, expert) units. 3 steps of 8 x 512 tokens; counters zeroed
-    just before and read just after."""
-    L, steps = MOE_LAYERED_LAYERS, 3
+    ("x", layer, expert) units. ``MOE_TRAIN_STEPS`` steps of 8 x 512
+    tokens; counters zeroed just before and read just after. Its step
+    bytes, losses and peak memory are what "moe dp2 train" halves."""
+    L, steps = MOE_LAYERED_LAYERS, MOE_TRAIN_STEPS
     nvme = os.path.join(ROOT, "build", "chip_smoke_moe_layered")
     shutil.rmtree(nvme, ignore_errors=True)
     argv = ["--arch", MOE_ARCH, "--layers", str(L), "--engine", "zero3",
@@ -2201,6 +2566,7 @@ def phase_moe_layered() -> tuple:
             "--batch", "8", "--seq", "512", "--steps", str(steps), "--lr", "3e-3",
             "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
     trace.enable()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     hist = train.train(train.build_argparser().parse_args(argv), argv)
@@ -2230,7 +2596,14 @@ def phase_moe_layered() -> tuple:
            "expert_prefetch_hit_rate": last["expert_prefetch_hit_rate"],
            "expert_evictions": last["expert_evictions"],
            "moe_dropped_token_fraction": last["moe_dropped_token_fraction"],
-           "nvme": hist["nvme_stats"]}
+           "nvme": hist["nvme_stats"], "losses": losses,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "median_step_s_after_first": statistics.median(
+               m["step_time"] for m in hist["metrics"][1:]),
+           "step_bytes": [{k: m[k] for k in [f"{t}_bytes" for t in TIERS]
+                           + ["param_total_bytes", "peak_resident_param_bytes",
+                              "expert_total_bytes", "expert_peak_resident_bytes"]}
+                          for m in hist["metrics"]]}
     say("moe layered:", json.dumps(rec))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"FAIL moe layered: losses not finite or not falling: {losses}")
@@ -2315,15 +2688,16 @@ def rerouted_experts(a: list, b: list, L: int, E: int) -> tuple:
     return mask, slots
 
 
-def _moe_param_groups(state, ex, kind) -> tuple:
+def _moe_param_groups(state, ex, kind, params=None) -> tuple:
     """(every param outside the expert rows as one f32 vector, the expert
-    rows as (L * E, Pe) f32) on the CPU."""
+    rows as (L * E, Pe) f32) on the CPU; ``params`` replaces the GSPMD
+    state's (a mesh's gathered leaves)."""
     if kind == "layered":
         rows = ex.materialize_rows()
         other = [rows["flat"]] + pt.tree_leaves(state["other"])
         experts = rows["eflat"].float()
     else:
-        params = state["params"]
+        params = params if params is not None else state["params"]
         moe_p = params["blocks"]["moe"]
         names = [n for n in sorted(moe_p) if n != "router"]
         L, E = moe_p["w_in"].shape[:2]
@@ -2336,10 +2710,12 @@ def _moe_param_groups(state, ex, kind) -> tuple:
 
 
 def phase_moe_numerics(kind: str, cfg=None, devices=("cpu", "cuda")) -> dict:
-    """Full-width granite-moe-1b-a400m cut to 2 layers: 2 steps on the card
-    (kernels) and on the CPU (plain versions) from the same weights and
-    batches, of the GSPMD step all on the device (``kind="gspmd"``) or of
-    the layered epoch on NVMe (``"layered"``). Loss and grad norm by
+    """Full-width granite-moe-1b-a400m cut to 2 layers (``MOE_NUMERICS``): 2
+    steps on the card (kernels) and on the CPU (plain versions) from the
+    same weights and batches, of the GSPMD step all on the device
+    (``kind="gspmd"``) or of the layered epoch on NVMe (``"layered"``); the
+    CPU side is kept in ``MOE_CPU_RUNS`` for the dp-2 numerics. Loss and
+    grad norm by
     ``TRAIN_TOL``; the f32 masters (in the state, or read back from the
     optimizer store) by the drift bound; every param (the layered epoch's
     rows read back from the param store, expert rows included) by it plus
@@ -2355,9 +2731,8 @@ def phase_moe_numerics(kind: str, cfg=None, devices=("cpu", "cuda")) -> dict:
     (``RoutingRecorder``) are counted and printed. ``cfg`` and
     ``devices`` replace the model and the two sides (the tests run the
     smoke model on the CPU twice)."""
-    cfg = cfg or dataclasses.replace(configs.get(MOE_ARCH), n_layers=2)
-    L, E = cfg.n_layers, cfg.n_experts
-    B, S, steps = 4, 256, 2
+    layers, B, S, steps = MOE_NUMERICS
+    cfg = cfg or dataclasses.replace(configs.get(MOE_ARCH), n_layers=layers)
     base = os.path.join(ROOT, "build", f"chip_smoke_moe_{kind}")
     init = None
     out = []
@@ -2382,12 +2757,28 @@ def phase_moe_numerics(kind: str, cfg=None, devices=("cpu", "cuda")) -> dict:
                 traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr",
                                                       "moe_dropped_token_fraction")})
         other, experts = _moe_param_groups(state, ex, kind)
-        masters = (_store_masters(ex).values() if kind == "layered"
-                   else pt.tree_leaves(state["opt"].master))
-        masters = torch.cat([t.detach().float().cpu().reshape(-1) for t in masters])
+        masters = (_store_masters(ex) if kind == "layered"
+                   else {keystr(p): t for p, t in zip(pt.tree_paths(state["opt"].master),
+                                                      pt.tree_leaves(state["opt"].master))})
         out.append((traj, other, experts, masters, rr.plans))
         ex.close()
-    (tc, o_c, x_c, m_c, plans_c), (tg, o_g, x_g, m_g, plans_g) = out
+    if devices[0] == "cpu":
+        MOE_CPU_RUNS[kind] = out[0]
+    rec = {"kind": kind, "arch": cfg.arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": B, "seq": S, "steps": steps}
+    return hold_moe_to_cpu("moe numerics", cfg, out[0], out[1], rec)
+
+
+def hold_moe_to_cpu(tag: str, cfg, cpu: tuple, card: tuple, rec: dict) -> dict:
+    """``(trajectory, params outside the expert rows, (L * E, Pe) expert
+    rows, {name: f32 master}, routing plans)`` of a MoE card run against a
+    CPU run of the same function, by ``phase_moe_numerics``' bounds; prints
+    ``rec`` with the numbers, fails the script beyond a bound."""
+    L, E = cfg.n_layers, cfg.n_experts
+    kind = rec["kind"]
+    (tc, o_c, x_c, m_c, plans_c), (tg, o_g, x_g, m_g, plans_g) = cpu, card
+    m_c, m_g = (torch.cat([t.detach().float().cpu().reshape(-1) for t in m.values()])
+                for m in (m_c, m_g))
     rerouted, slots = rerouted_experts(plans_c, plans_g, L, E)
     lrs = [t["lr"] for t in tc]
     drift = adam.parity_bound(TrainConfig(), lrs)
@@ -2399,8 +2790,7 @@ def phase_moe_numerics(kind: str, cfg=None, devices=("cpu", "cuda")) -> dict:
     kept = ~rerouted.reshape(-1)
     bulk = torch.cat([(o_g - o_c).abs(), x_diff[kept].reshape(-1)])
     master_diff = (m_g - m_c).abs().max().item()
-    rec = {"kind": kind, "arch": cfg.arch, "layers": L, "d_model": cfg.d_model, "batch": B,
-           "seq": S, "steps": steps, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
+    rec = {**rec, "cpu": tc, "card": tg, "tol": TRAIN_TOL,
            "params_max_abs_diff": diff.max().item(), "params_mean_abs_diff": diff.mean().item(),
            "params_worst_diff_over_bound": (diff / allowed).max().item(),
            "masters_max_abs_diff": master_diff,
@@ -2414,15 +2804,14 @@ def phase_moe_numerics(kind: str, cfg=None, devices=("cpu", "cuda")) -> dict:
                                               if kept.any() else None),
            "rerouted_expert_rows_mean_abs_diff": (x_diff[~kept].mean().item()
                                                   if (~kept).any() else None)}
-    say("moe numerics:", json.dumps(rec))
+    say(f"{tag}:", json.dumps(rec))
     for c, g in zip(tc, tg):
         for key in ("loss", "grad_norm"):
             if not abs(g[key] - c[key]) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(c[key]):
-                raise SystemExit(f"FAIL moe numerics ({kind}): card {key} {g[key]} "
-                                 f"vs CPU {c[key]}")
+                raise SystemExit(f"FAIL {tag} ({kind}): card {key} {g[key]} vs CPU {c[key]}")
     if not master_diff <= drift or not bool((diff <= allowed).all()) \
             or not rec["bulk_mean_abs_diff"] <= mean_bound:
-        raise SystemExit(f"FAIL moe numerics ({kind}): params differ beyond the bound: {rec}")
+        raise SystemExit(f"FAIL {tag} ({kind}): params differ beyond the bound: {rec}")
     return rec
 
 
@@ -2824,25 +3213,36 @@ def main() -> int:
     z3h_rec, z3h_launches = timed(
         "zero3 host", phase_zero3_train, "zero3 host",
         ["--offload-param", "host", "--offload-opt", "host"])
-    dp2_rec, dp2_launches = timed("zero3 dp2 numerics", phase_zero3_dp2_numerics)
-    dp2_train_rec, dp2_train_launches = timed("zero3 dp2 train", phase_zero3_dp_train, train_rec)
-    gdp2, gdp2_launches = timed("gspmd dp2 numerics", phase_gspmd_dp2_numerics)
-    gdp2_train_rec, gdp2_train_launches = timed("gspmd dp2 train", phase_gspmd_dp_train, plan_rec)
     drill_rec, drill_launches = timed("resume drill", phase_resume_drill)
     moe_repeat = timed("moe repeat", phase_moe_repeat)
+    # their CPU sides are kept for the dp-2 numerics' MoE cases
     moe_numerics = {k: timed(f"moe numerics/{k}", phase_moe_numerics, k)
                     for k in ("gspmd", "layered")}
     moe_serve_rec, moe_serve_launches = timed("moe serve", phase_moe_serve)
     moe_plan_rec, moe_plan_launches = timed("moe plan train", phase_plan_train,
                                             "moe plan train", [], arch=MOE_ARCH)
     moe_layered_rec, moe_layered_launches = timed("moe layered", phase_moe_layered)
+    # two ranks on the card: one spawn runs every dp-2 job (DP_PARTS), whose
+    # records the phases below hold
+    dp_ranks = timed("dp2 ranks", run_ranks, "all", 900)
+    dp2_rec, dp2_launches = timed("zero3 dp2 numerics", phase_zero3_dp2_numerics, dp_ranks)
+    dp2_train_rec, dp2_train_launches, train_ranks = timed(
+        "zero3 dp2 train", phase_zero3_dp_train, train_rec, mode="train+moe", recs=dp_ranks)
+    moe_dp2_rec, moe_dp2_launches = timed("moe dp2 train", phase_moe_dp_train,
+                                          moe_layered_rec, train_ranks)
+    gdp2, gdp2_launches = timed("gspmd dp2 numerics", phase_gspmd_dp2_numerics, dp_ranks)
+    gdp2_train_rec, gdp2_train_launches, gtrain_ranks = timed(
+        "gspmd dp2 train", phase_gspmd_dp_train, plan_rec, mode="gspmd_train+moe",
+        recs=dp_ranks)
+    gmoe_dp2_rec, gmoe_dp2_launches = timed("gspmd moe dp2 train", phase_gspmd_moe_dp_train,
+                                            moe_layered_rec, gtrain_ranks)
     train_checks.update(timed("flash window", phase_flash_window))
-    # the hybrid's 1.7 B-param cut takes one step: its CPU side is the
-    # run's slowest (~110 s for two)
+    # the hybrid's 1.7 B-param cut takes one step of one sequence: its CPU
+    # side is the run's slowest (109-128 s at two sequences)
     recurrent = {arch: timed(f"recurrent numerics/{arch}", phase_gspmd_numerics, "in_graph",
                              arch, layers, B, S, tag="recurrent numerics", steps=steps)
                  for arch, layers, B, S, steps in ((SSM_ARCH, 2, 4, 256, 2),
-                                                   (HYBRID_ARCH, 3, 2, 128, 1))}
+                                                   (HYBRID_ARCH, 3, 1, 128, 1))}
     hybrid_serve_rec, hybrid_serve_launches = timed(
         "hybrid serve", phase_family_serve, "hybrid serve", HYBRID_ARCH, 2560, 16)
     hybrid_train_rec, hybrid_train_launches = timed(
@@ -2919,6 +3319,7 @@ def main() -> int:
              "zero3_offload": z3o_launches, "zero3_host": z3h_launches,
              "zero3_dp2_numerics": dp2_launches, "zero3_dp2_train": dp2_train_launches,
              "gspmd_dp2_numerics": gdp2_launches, "gspmd_dp2_train": gdp2_train_launches,
+             "moe_dp2_train": moe_dp2_launches, "gspmd_moe_dp2_train": gmoe_dp2_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -2980,6 +3381,10 @@ def main() -> int:
         f"{max(r['params_worst_diff_over_bound'] for r in gdp2.values()):.3f} of bound, "
         f"dp2 train {gdp2_train_rec['losses'][0]:.4f} -> {gdp2_train_rec['losses'][-1]:.4f} "
         f"at {gdp2_train_rec['median_tokens_per_s_after_first']:.0f} tok/s (2 ranks, 1 card); "
+        f"moe dp2 train {moe_dp2_rec['losses'][0]:.4f} -> {moe_dp2_rec['losses'][-1]:.4f} at "
+        f"{moe_dp2_rec['median_tokens_per_s_after_first']:.0f} tok/s, gspmd moe dp2 train "
+        f"{gmoe_dp2_rec['losses'][0]:.4f} -> {gmoe_dp2_rec['losses'][-1]:.4f} at "
+        f"{gmoe_dp2_rec['median_tokens_per_s_after_first']:.0f} tok/s; "
         f"resume drill restarts {drill_rec['restarts']}; moe repeat "
         f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
         f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "

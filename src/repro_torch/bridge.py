@@ -60,9 +60,10 @@ def zero3_state_from_numpy(state: dict, device="cpu", *, rank: int = 0, dp: int 
 def shard_zero3_state(state: dict, rank: int, dp: int, mode: str = "allgather") -> dict:
     """A global explicit-engine state (torch) -> rank ``rank``'s shard of
     it among ``dp`` ranks: the (L, P) ``flat`` and ``master``/``m``/``v``
-    as ``partition.row_shard`` splits them under ``mode``, each (dp, ...)
-    residual's slice ``[rank]``; the small 'other' states whole, as the
-    reference replicates them. The state itself at dp = 1."""
+    as ``partition.row_shard`` splits them under ``mode``, the MoE expert
+    rows ``eflat`` (L * E, Pe) by columns (the layered epoch's layout),
+    each (dp, ...) residual's slice ``[rank]``; the small 'other' states
+    whole, as the reference replicates them. The state itself at dp = 1."""
     from repro_torch.core.partition import row_shard, tree_map
 
     if dp == 1:
@@ -71,6 +72,8 @@ def shard_zero3_state(state: dict, rank: int, dp: int, mode: str = "allgather") 
     for key in ("flat", "master", "m", "v"):
         if key in out:
             out[key] = row_shard(out[key], rank, dp, mode).contiguous()
+    if "eflat" in out:
+        out["eflat"] = row_shard(out["eflat"], rank, dp, "allgather").contiguous()
     if "g_err" in out:
         out["g_err"] = tree_map(lambda t: t[rank:rank + 1].contiguous(), out["g_err"])
     return out

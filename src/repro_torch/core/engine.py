@@ -11,7 +11,9 @@ around both. ``make_train_step(grads_only=True)`` stops at the gradients:
 the executor's off-graph optimizer consumes them (``core/executor.py``).
 A family with step statistics (MoE: ``moe_dropped_token_fraction``, the
 (E,) ``moe_expert_load``) returns them beside loss and grad norm, from the
-bundle's ``loss_stats`` in the same gradient pass.
+bundle's ``loss_stats`` in the same gradient pass; on a mesh its routing
+counts are summed over the ranks before the ratios are taken, so every
+rank reports the global batch's statistics, as the reference's pjit step.
 
 Gradients are bf16, the params' dtype, as the reference's
 (``jax.value_and_grad`` over bf16 leaves); a leaf used twice (the tied
@@ -277,12 +279,14 @@ class ZeroInfinityEngine:
         accum = self.run.parallel.grad_accum
         mesh, dp = self.mesh, self.dp
         # families with step statistics (moe) expose loss_stats: its aux
-        # (the routing's drop fraction and expert load) rides out of the
-        # gradient pass into the step metrics without a second forward
+        # (the routing's drop fraction and expert load, from counts summed
+        # over the ranks) rides out of the gradient pass into the step
+        # metrics without a second forward
         loss_stats = self.bundle.loss_stats
         if loss_stats is None:
             loss_f = self.bundle.loss
-            loss_stats = lambda params, batch: (loss_f(params, batch), {})
+            loss_stats = lambda params, batch, reduce=None: (loss_f(params, batch), {})
+        reduce = mesh.all_reduce if mesh is not None else None
         param_host = self.param_host
         opt_host = self.opt_host and not grads_only
         if mesh is not None:
@@ -295,7 +299,7 @@ class ZeroInfinityEngine:
             for p, leaf in zip(paths, leaves):
                 dim = pt.tree_get(self.splits["param"], p) if mesh is not None else None
                 pt.tree_set(live, p, leaf if dim is None else LeafGather.apply(leaf, mesh, dim))
-            loss, aux = loss_stats(live, batch)
+            loss, aux = loss_stats(live, batch, reduce=reduce)
             if mesh is not None:
                 loss = loss / dp  # the ranks' sum is the global batch's loss
             grads: dict = {}

@@ -63,8 +63,9 @@ O(window).
 
 The MoE layered epoch (``_layered_moe_step``): a layer expands into
 heterogeneous schedule units. Its dense row (ln1 + attn + ln2) follows the
-static layer plan; its expert rows (``xrank0/c{l * E + e}`` in the param
-store, ``xrank0/l{l * E + e}`` in the opt store) page as dynamic units
+static layer plan; its expert rows (the rank's slices, ``xrank<r>/c{l * E
++ e}`` in the param store, ``xrank<r>/l{l * E + e}`` in the opt store, as
+the reference keys them) page as dynamic units
 ``("x", layer, expert)`` through a second ``PrefetchEngine`` (class
 ``expert``) sharing the working-set accounting. The router's counts (one
 small host sync per layer) pick the selected set, which streams through
@@ -78,7 +79,12 @@ O(wave + hot budget), never O(L * E); the step reports
 ``expert_total_bytes`` and the routing's ``moe_dropped_token_fraction`` and
 (E,) ``moe_expert_load``. Under ``param_quant`` the expert rows arrive
 decoded by the store, as the reference's: only dense rows travel as wire
-operands.
+operands. At dp > 1 the routing counts are the global batch's (summed over
+the ranks in ``moe_attn``), so every rank pages the same units in the same
+order and reports the reference's statistics; the hot cache counts its
+budget and each row in the global row's bytes, so every rank keeps and
+drops the same units; the expert byte counters are the rank's slices'
+(``*_all_ranks``: their sums).
 
 On the card two copies cross the host link asynchronously. A row goes up
 through a pinned pool buffer (``PinnedStager``: the buffer is not reused
@@ -100,7 +106,8 @@ the rank's shard of the rows, keyed by the rank as the reference keys each
 rank's (``rank<r>/flat``, ``rank<r>/l<i>``, param rows ``rank<r>/c<i>``);
 the GSPMD engine's step on the rank's shards of each leaf
 (``core/engine.py``), in-graph or with its off-graph optimizer over the
-rank's optimizer shards, keyed ``rank<r>/<keystr>``. The host Adam and the
+rank's optimizer shards, keyed ``rank<r>/<keystr>``; MoE's expert rows
+and q8/q4 rows included. The host Adam and the
 gradient drain run on the rank's shard, and the rank's stores live in
 ``<nvme_dir>/rank<r>/``, so no two processes share a file. The tier
 counters count the rank's own bytes (the GSPMD engine's steps add the
@@ -109,8 +116,8 @@ over the ranks, ``<counter>_all_ranks``, what the reference's one process
 counts, and an executor built from a plan the plan's per-device state
 bytes beside them (``plan_*_shard_bytes``). A plan for another number of
 devices than the ranks raises; so do, on a GSPMD mesh, a model axis (ROADMAP
-item 8e), a MoE family (8d) and params on NVMe (8f), and checkpoints at dp
-> 1 (item 5).
+item 8e), params on NVMe and ``param_quant``, which encodes only the NVMe
+param store (8f), and checkpoints at dp > 1 (item 5).
 
 What stays unported raises, naming its ROADMAP item (``check_ported``).
 Per-step metrics of the off-graph and layered steps are the reference's:
@@ -154,8 +161,8 @@ def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
     for ``n_devices`` devices (None: no plan) on another number of ranks;
     ``NotImplementedError`` naming the ROADMAP item that ports it for the
     GSPMD engine on a mesh with a model axis (tensor and context
-    parallelism), a MoE family (its capacity counts the global batch's
-    tokens) or params on NVMe (the leaf scheduler)."""
+    parallelism), params on NVMe (the leaf scheduler) or ``param_quant``
+    (the NVMe param store's encoding)."""
     if n_devices is not None and n_devices != dp:
         raise ValueError(
             f"a plan for {n_devices} device(s) runs on as many ranks, and this run "
@@ -169,10 +176,11 @@ def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
         raise NotImplementedError(
             f"{where} with a model axis of {model}: tensor and context parallelism "
             "are not ported (ROADMAP.md Queue 1 item 8e); --model-mesh 1")
-    if run.model.family == "moe":
+    if run.offload.param_quant != "none":
         raise NotImplementedError(
-            f"{where}: MoE routing counts its capacity over the global batch "
-            "(ROADMAP.md Queue 1 item 8d)")
+            f"{where}: --param-quant {run.offload.param_quant} encodes the NVMe param "
+            "store, and params on NVMe through the leaf scheduler are not ported across "
+            "ranks (ROADMAP.md Queue 1 item 8f)")
     if run.offload.param_tier == "nvme":
         raise NotImplementedError(
             f"{where}: params on NVMe through the leaf scheduler are not ported "
@@ -364,7 +372,7 @@ class InfinityExecutor:
             if eflat is not None:
                 E = self.engine.n_experts
                 for e in range(E):
-                    seed[f"xrank0/l{li * E + e}"] = eflat[li * E + e]
+                    seed[f"x{self.rank_key}/l{li * E + e}"] = eflat[li * E + e]
             seed[f"{self.rank_key}/l{li}"] = flat[li]
         self.offload.init_from_params(seed)
         self.offload.step_count = step
@@ -372,7 +380,7 @@ class InfinityExecutor:
             self.grad_store = self._make_store(off.grad_tier, "grad")
         named = {self.rank_key: flat}
         if eflat is not None:
-            named["xrank0"] = eflat
+            named[f"x{self.rank_key}"] = eflat
         self._seed_param_stream(named, row_split=True)
         return self._drop_params(state)
 
@@ -408,8 +416,9 @@ class InfinityExecutor:
         return bool(leaves) and isinstance(leaves[0], TensorSpec)
 
     def _eflat_placeholder(self) -> TensorSpec:
+        """The rank's (L * E, Pe/dp) expert rows' spec."""
         eng = self.engine
-        return TensorSpec((eng.n_layers * eng.n_experts, eng.elayout.padded),
+        return TensorSpec((eng.n_layers * eng.n_experts, eng.elayout.padded // self.dp),
                           torch.bfloat16)
 
     @property
@@ -426,8 +435,9 @@ class InfinityExecutor:
 
     @property
     def expert_total_bytes(self) -> int:
-        """Bytes of all expert rows (the expert-paging claim's denominator:
-        peak resident expert bytes stay below it); 0 without MoE rows."""
+        """Bytes of all expert rows (this rank's slices; the expert-paging
+        claim's denominator: peak resident expert bytes stay below it); 0
+        without MoE rows."""
         if not (self.layered and self.is_moe):
             return 0
         return math.prod(self._eflat_placeholder().shape) * 2
@@ -439,12 +449,12 @@ class InfinityExecutor:
 
     def materialize_rows(self) -> dict:
         """The rows assembled from the param store, on the CPU: ``flat``
-        (the rank's (L, P/dp) bf16) and, for MoE, ``eflat`` (L * E, Pe) —
-        for checks and checkpoints; the step never calls it."""
+        (the rank's (L, P/dp) bf16) and, for MoE, ``eflat`` (the rank's (L *
+        E, Pe/dp)) — for checks and checkpoints; the step never calls it."""
         loaded = self.param_stream.load_all()
         out = {"flat": loaded[self.rank_key]}
         if self.is_moe:
-            out["eflat"] = loaded["xrank0"]
+            out["eflat"] = loaded[f"x{self.rank_key}"]
         return out
 
     def materialize_flat(self) -> torch.Tensor:
@@ -844,14 +854,17 @@ class InfinityExecutor:
         if self._hot is not None:
             self._hot.clear()
         eng, stream = self.engine, self.param_stream
-        E = eng.n_experts
+        E, name = eng.n_experts, f"x{self.rank_key}"
 
         def fetch(unit):
             _, l, e = unit
-            # decoded by the store under param_quant: expert rows travel bf16
-            return [stream.read_row("xrank0", l * E + e)]
+            # the rank's slice, decoded by the store under param_quant:
+            # expert rows travel bf16
+            return [stream.read_row(name, l * E + e)]
 
         self._pe_x = sched_mod.PrefetchEngine(fetch, self._ws, cls="expert")
+        # the budget in the global row's bytes, as each offer counts: every
+        # rank keeps and drops the same units (the reference's decisions)
         budget = sched_mod.resolve_expert_hot_bytes(
             self.run.offload.expert_hot_mb, eng.top_k, eng.elayout.padded * 2)
         self._hot = sched_mod.HotUnitCache(budget, self._pe_x)
@@ -876,7 +889,8 @@ class InfinityExecutor:
         tc = self.run.train
         E, L = eng.n_experts, eng.n_layers
         W = max(1, eng.top_k)
-        row_bytes = eng.elayout.padded * 2
+        row_bytes = eng.elayout.padded * 2  # the global row's: the hot cache's unit
+        xkey = f"x{self.rank_key}"
 
         def step(state, batch):
             self._trace_step_begin()
@@ -995,26 +1009,26 @@ class InfinityExecutor:
                     # only the wave's real rows drain: a padded slot's
                     # gradient must not reach the expert it repeats
                     for i, e in enumerate(wave):
-                        drain(f"xrank0/l{l * E + e}", g_er[i])
+                        drain(f"{xkey}/l{l * E + e}", g_er[i])
                     retire(l, fresh)
                 dx_new, g_row_attn = fns["moe_attn_vjp"](x_in, rows[l], dxmid)
                 g_row = g_row_attn if g_row is None else g_row + g_row_attn
                 g_router[l] = g_rt
                 sumsq = fns["accum_sumsq"](sumsq, g_row)
                 dx = dx_new
-                drain(f"rank0/l{l}", g_row)
+                drain(f"{self.rank_key}/l{l}", g_row)
 
             run_pass(sched.backward(), bwd_use, lambda l: sel_by_layer.get(l, []))
 
             # unrouted experts step from known-zero gradients, fed straight
             # to the streamed Adam (their m and v decay as the all-resident
             # run's); no grad-tier traffic scales with E
-            zero_row = torch.zeros(eng.elayout.padded, dtype=torch.float32)
+            zero_row = torch.zeros(eng.elayout.padded // self.dp, dtype=torch.float32)
             for l in range(L):
                 selset = set(sel_by_layer[l])
                 for e in range(E):
                     if e not in selset:
-                        gdict[f"xrank0/l{l * E + e}"] = zero_row
+                        gdict[f"{xkey}/l{l * E + e}"] = zero_row
 
             g_emb = fns["embed_vjp"](state["other"], batch["tokens"], dx)
             g_head = dict(g_head)
@@ -1040,7 +1054,7 @@ class InfinityExecutor:
                 for u in hot.units():
                     _, l, e = u
                     hot.replace(u, self._expert_row(
-                        [new_master[f"xrank0/l{l * E + e}"].to(torch.bfloat16)]))
+                        [new_master[f"{xkey}/l{l * E + e}"].to(torch.bfloat16)]))
                 self.param_stream.flush()
             if self.grad_store is not None:
                 self.grad_store.flush()
@@ -1059,7 +1073,7 @@ class InfinityExecutor:
         return step
 
     def _expert_row(self, vals) -> torch.Tensor:
-        """One expert's host row (bf16) -> the device."""
+        """One expert's host row (the rank's bf16 slice) -> the device."""
         with trace.span("h2d_row", sys="store", cls="expert"):
             return self._stager.to_device(vals[0])
 

@@ -194,15 +194,24 @@ class QWeight(NamedTuple):
     anchor: Optional[torch.Tensor]
 
 
-def quantized_leaf_plan(layout: FlatLayout) -> tuple:
+def quantized_leaf_plan(layout: FlatLayout, dp: int = 1) -> tuple:
     """Paths of the leaves whose products take the q8 operands in place:
-    MLP weights (under ``"mlp"``) that are 2-D (K, N) with N and their row
-    offset multiples of the quant block, so the wire blocks tile them as
-    (K, N/32). Decided once per layout."""
+    MLP weights (under ``"mlp"``) that are 2-D (K, N) with N a multiple of
+    the quant block and whose blocks are contiguous in the gathered wire
+    row (``unflatten_wire_row``), so they tile the leaf as (K, N/32). Each
+    rank encodes its (P/dp,) slice in blocks from the slice's first
+    element, as the reference's store encodes each rank key: a leaf starts
+    on its slice's grid and either lies within the slice or crosses only
+    boundaries where P/dp is a multiple of 32 (no padded block between the
+    slices: the ranks' grids join into the row's own, as at one rank).
+    Decided once per layout and dp."""
     plan, off = [], 0
+    per = layout.padded // dp
+    seamless = per % QBLOCK == 0
     for path, shape, size in zip(layout.paths, layout.shapes, layout.sizes):
+        lo = off % per  # the offset within its rank's slice
         if (path[0] == "mlp" and len(shape) == 2 and shape[1] % QBLOCK == 0
-                and off % QBLOCK == 0):
+                and lo % QBLOCK == 0 and (seamless or lo + size <= per)):
             plan.append(path)
         off += size
     return tuple(plan)
@@ -210,30 +219,49 @@ def quantized_leaf_plan(layout: FlatLayout) -> tuple:
 
 def unflatten_wire_row(q: torch.Tensor, s: torch.Tensor,
                        anchor_row: Optional[torch.Tensor], layout: FlatLayout,
-                       plan: tuple) -> dict:
-    """A q8 wire row (``q`` int8 over whole blocks, ``s`` fp16, one scale
-    per block) -> nested dict of leaves: a ``QWeight`` of views for each
-    leaf in ``plan``, the bf16 values ``(q * s).to(bf16)`` for every other
-    leaf (the reference's host decode, bit for bit).
+                       plan: tuple, dp: int = 1) -> dict:
+    """A q8 wire row -> nested dict of leaves: a ``QWeight`` of views for
+    each leaf in ``plan``, the bf16 values ``(q * s).to(bf16)`` for every
+    other leaf (the reference's host decode, bit for bit).
 
-    ``anchor_row`` (a (padded,) bf16 zero row that requires grad, or None)
-    carries the gradient: each planned leaf's anchor is its segment, and
-    every other leaf adds its (zero) segment, so the row's gradient is the
-    leaves' gradients at their offsets, zero in the padding."""
+    The row is the concatenation of the ``dp`` ranks' block grids, rank
+    order (one rank: the row's own): each rank's (P/dp,) slice encoded in
+    blocks of ``QBLOCK`` from its first element, its last block padded, so
+    slice r's quants start at ``r * nb * QBLOCK`` and its scales at ``r *
+    nb`` (``nb`` blocks a slice). A leaf that spans slices decodes slice by
+    slice.
+
+    ``anchor_row`` (the (padded,) bf16 zero row that requires grad, or
+    None) carries the gradient: each planned leaf's anchor is its segment,
+    and every other leaf adds its (zero) segment, so the row's gradient is
+    the leaves' gradients at their offsets, zero in the padding."""
+    per = layout.padded // dp
+    nb = -(-per // QBLOCK)
+
+    def decode(off, size):
+        parts, end = [], off + size
+        while off < end:
+            r = off // per
+            lo, hi = off - r * per, min(end, (r + 1) * per) - r * per
+            b0, b1 = lo // QBLOCK, -(-hi // QBLOCK)
+            base = r * nb
+            vals = dequant_q8(q[(base + b0) * QBLOCK:(base + b1) * QBLOCK], s[base + b0:base + b1])
+            parts.append(vals[lo - b0 * QBLOCK:hi - b0 * QBLOCK])
+            off = r * per + hi
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     out: dict = {}
     off = 0
     for path, shape, size in zip(layout.paths, layout.shapes, layout.sizes):
         anchor = None if anchor_row is None else anchor_row[off:off + size].view(shape)
-        if path in plan:
+        if path in plan:  # contiguous in the grid (quantized_leaf_plan)
             K, N = shape
-            leaf = QWeight(q[off:off + size].view(K, N),
-                           s[off // QBLOCK:(off + size) // QBLOCK].view(K, N // QBLOCK),
-                           anchor)
+            r = off // per
+            at = r * nb * QBLOCK + off - r * per  # the leaf's first quant
+            leaf = QWeight(q[at:at + size].view(K, N),
+                           s[at // QBLOCK:(at + size) // QBLOCK].view(K, N // QBLOCK), anchor)
         else:
-            b0, b1 = off // QBLOCK, -(-(off + size) // QBLOCK)
-            lo = off - b0 * QBLOCK
-            vals = dequant_q8(q[b0 * QBLOCK:b1 * QBLOCK], s[b0:b1])[lo:lo + size]
-            leaf = vals.to(torch.bfloat16).view(shape)
+            leaf = decode(off, size).to(torch.bfloat16).view(shape)
             if anchor is not None:
                 leaf = leaf + anchor
         tree_set(out, path, leaf)

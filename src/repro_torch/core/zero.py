@@ -62,9 +62,16 @@ tier is the device, as the reference's host tier is on a CPU backend.
 
 Under q8 transport (``offload.param_quant="q8"``) a layered row reaches
 ``layer_fwd`` and ``layer_vjp`` as its wire operands ``(q, s)``: the MLP
-weights in ``quantized_leaves`` (a static plan per layout) go into the
-quantized-matmul kernel as they are, every other leaf is dequantized on
-the device.
+weights in ``quantized_leaves`` (a static plan per layout and dp) go into
+the quantized-matmul kernel as they are, every other leaf is dequantized
+on the device. At dp > 1 each rank's operands are its slice's, encoded in
+blocks from the slice's first element; the ranks all-gather the int8
+quants and fp16 scales (34 bytes a block of 32 on the collective, where
+the decoded bf16 takes 64), so a row is the concatenation of the ranks'
+block grids (``partition.unflatten_wire_row``). Its gradient is the
+reduce-scatter of the gathered bf16 anchor row's, upcast after: the
+reference's transpose of the gather of the decoded row. q4 rows reach the
+pieces decoded by the store and gather as bf16 rows do.
 
 MoE (the ``moe`` family) runs as the layered epoch only, as in the
 reference: a layer's attention and norm leaves flatten into its dense row,
@@ -74,9 +81,15 @@ is a small f32 'other' state so its master stays full precision. The
 layer runs as pieces: ``moe_attn`` (attention and the routing counts),
 then fixed-width waves of router-selected expert rows (``moe_wave_fwd`` /
 ``moe_wave_vjp``) whose sum is the all-resident ``moe_ffn``, and
-``moe_attn_vjp``. The monolithic step refuses MoE, as the reference's.
+``moe_attn_vjp``. The monolithic step refuses MoE, as the reference's. At
+dp > 1 each rank holds the (L * E, Pe/dp) column slice of ``eflat``, as
+the reference's ``P(None, axis)``; ``moe_attn`` sums the routing counts
+over the ranks (one all-reduce, before the executor reads them), so every
+rank selects the same experts and runs the same waves; a wave's (W, Pe/dp)
+slices are all-gathered along dim 1 (``LeafGather``; backward the bf16
+reduce-scatter, upcast after) and the router's f32 gradient is summed over
+the ranks.
 
-At dp > 1 MoE's expert rows and q8/q4 rows raise (ROADMAP item 8d).
 ``parallel.remat`` applies to the monolithic step's layers
 (``models/remat.py``); the layered epoch recomputes each layer in its
 reversed pass whatever the policy.
@@ -189,17 +202,11 @@ class ExplicitZero3Engine:
         self.dp = mesh.world if mesh is not None else 1
         self.rank = mesh.rank if mesh is not None else 0
         self.mode = run.parallel.partition_mode
-        if self.dp > 1:
-            if self.is_moe or run.offload.param_quant != "none":
-                raise NotImplementedError(
-                    f"explicit engine at dp {self.dp}: MoE expert rows and q8/q4 "
-                    "param rows are not ported across ranks (ROADMAP.md Queue 1 "
-                    "item 8d)")
-            if self.mode == "broadcast" and cfg.n_layers % self.dp:
-                raise ValueError(
-                    "broadcast (owner) mode needs n_layers % dp == 0 - and that is "
-                    "the point: single-owner placement does not scale; use "
-                    "partition_mode='allgather' (bandwidth-centric) at scale.")
+        if self.dp > 1 and self.mode == "broadcast" and cfg.n_layers % self.dp:
+            raise ValueError(
+                "broadcast (owner) mode needs n_layers % dp == 0 - and that is "
+                "the point: single-owner placement does not scale; use "
+                "partition_mode='allgather' (bandwidth-centric) at scale.")
         self.offgraph = run.opt_offgraph
         self.layered = run.offload.param_tier == "nvme"
         # the host tier is page-locked CPU memory on the card, the device
@@ -218,7 +225,7 @@ class ExplicitZero3Engine:
         self._build_layout()
         # the MLP weights whose products read the q8 wire row in place;
         # fixed by the layout, the same for every row and step
-        self.quantized_leaves = (pt.quantized_leaf_plan(self.layout)
+        self.quantized_leaves = (pt.quantized_leaf_plan(self.layout, self.dp)
                                  if run.offload.param_quant == "q8" else ())
 
     def _dense_blocks(self, blocks: dict) -> dict:
@@ -307,8 +314,10 @@ class ExplicitZero3Engine:
             "other_opt": adam_mod.init_state(other),
             "step": torch.zeros((), dtype=torch.int32, device=self.device),
         }
-        if self.is_moe:
-            state["eflat"] = self._flatten_experts(params["blocks"]["moe"])
+        if self.is_moe:  # the rank's column slice, as the dense rows'
+            eflat = self._flatten_experts(params["blocks"]["moe"])
+            state["eflat"] = (eflat if self.dp == 1 else
+                              pt.row_shard(eflat, self.rank, self.dp, "allgather").contiguous())
         return self.place_state(self.complete_state(state))
 
     @property
@@ -550,12 +559,18 @@ class ExplicitZero3Engine:
         cfg, tc, dp, mesh = self.run.model, self.run.train, self.dp, self.mesh
         block_fn, layout, plan = self.block_fn, self.layout, self.quantized_leaves
 
-        def _unflatten(row, anchor_row=None):
-            """``row``: a bf16 row (the rank's slice at dp > 1, gathered
-            here), or a q8 wire row ``(q, s)`` whose gradient
-            ``anchor_row`` carries (one rank only)."""
+        def _unflatten(row, anchor=None):
+            """``row``: a bf16 row, or a q8 wire row ``(q, s)`` whose
+            gradient ``anchor`` (a zero row) carries; at dp > 1 the rank's
+            slice of either, gathered here (a wire row as its quants and
+            scales, the anchor as a bf16 row)."""
             if isinstance(row, tuple):
-                return pt.unflatten_wire_row(*row, anchor_row, layout, plan)
+                q, s = row
+                if dp > 1:
+                    q, s = mesh.all_gather(q), mesh.all_gather(s)
+                    if anchor is not None:
+                        anchor = RowGather.apply(anchor, mesh)
+                return pt.unflatten_wire_row(q, s, anchor, layout, plan, dp)
             if dp > 1:
                 row = RowGather.apply(row, mesh)
             return pt.unflatten_row(row, layout, torch.bfloat16)
@@ -568,10 +583,10 @@ class ExplicitZero3Engine:
             """(the leaf that takes a row's gradient, the row's leaves read
             through it), under autograd: a bf16 row (slice) is its own leaf,
             its gradient the reduce-scattered slice; a wire row takes no
-            gradient itself and a zero row stands in for it
+            gradient itself and a zero row (slice) stands in for it
             (``unflatten_wire_row``)."""
             if isinstance(row, tuple):
-                anchor = torch.zeros(layout.padded, dtype=torch.bfloat16,
+                anchor = torch.zeros(layout.padded // dp, dtype=torch.bfloat16,
                                      device=device, requires_grad=True)
                 return anchor, _unflatten(row, anchor)
             row_ = row.detach().requires_grad_()
@@ -656,10 +671,11 @@ class ExplicitZero3Engine:
 
         # ---- MoE layer pieces: the attention part + fixed-width waves ----
         # A layer materializes as its dense row (ln1 + attn + ln2) plus, per
-        # wave, W expert rows as a (W, Pe) buffer; the waves' outputs summed
-        # over a partition of the selected experts are the all-resident
-        # moe_ffn (models/moe.py). At dp = 1 every all-gather and psum of the
-        # reference's pieces is the identity.
+        # wave, W expert rows as a (W, Pe) buffer (gathered from the ranks'
+        # (W, Pe/dp) slices); the waves' outputs summed over a partition of
+        # the selected experts are the all-resident moe_ffn (models/moe.py).
+        # At dp = 1 every all-gather and psum of the reference's pieces is
+        # the identity.
         group = moe_mod.DEFAULT_GROUP
         elayout = self.elayout
 
@@ -684,18 +700,23 @@ class ExplicitZero3Engine:
 
         @torch.no_grad()
         def _moe_attn(x, row, router_l):
-            """x_mid and the layer's routing: (E,) counts (which rows to page
-            in), the dropped and routed assignment counts."""
+            """x_mid and the layer's routing over the global batch: (E,)
+            counts (which rows to page in), the dropped and routed
+            assignment counts, each summed over the ranks (one
+            all-reduce)."""
             blk = _unflatten(row)
             x_mid = _xmid_of(x, blk)
             xn = cm.norm(x_mid, blk["ln2"], cfg.norm_kind)
             counts = moe_mod.moe_counts(router_l, xn, cfg, group=group)
             cap = moe_mod._capacity(cfg, min(group, x.shape[1]))
-            dropped = torch.sum(torch.clamp(counts - cap, min=0))
-            return x_mid, torch.sum(counts, dim=0), dropped, torch.sum(counts)
+            raw = _psum(mesh, moe_mod.routing_counts(counts, cap))
+            E = cfg.n_experts
+            return x_mid, raw[:E], raw[E], raw[E + 1]
 
         def _wave_of(x_mid, blk, router_l, erows, sel_ids, sel_mask):
             xn = cm.norm(x_mid, blk["ln2"], cfg.norm_kind)
+            if dp > 1:  # the ranks' (W, Pe/dp) slices -> the (W, Pe) wave
+                erows = LeafGather.apply(erows, mesh, 1)
             return moe_mod.moe_ffn_selected(router_l, _experts(erows), xn, sel_ids,
                                             sel_mask, cfg, group=group)
 
@@ -705,7 +726,8 @@ class ExplicitZero3Engine:
 
         def _wave_vjp(x_mid, row, router_l, erows, sel_ids, sel_mask, dy):
             """-> (dx_mid, the dense row's f32 gradient (through ln2), the
-            router's f32 gradient, the (W, Pe) f32 expert-row gradients)."""
+            router's f32 gradient summed over the ranks, the (W, Pe/dp) f32
+            expert-row gradients: the reduce-scattered slices)."""
             with torch.enable_grad():
                 xm = x_mid.detach().requires_grad_()
                 row_, blk = _grad_row(row, x_mid.device)
@@ -713,7 +735,7 @@ class ExplicitZero3Engine:
                 er = erows.detach().requires_grad_()
                 y = _wave_of(xm, blk, rt, er, sel_ids, sel_mask)
                 dxm, drow, drt, der = torch.autograd.grad(y, (xm, row_, rt, er), dy)
-            return dxm, drow.float(), drt.float(), der.float()
+            return dxm, drow.float(), _psum(mesh, drt.float()), der.float()
 
         def _moe_attn_vjp(x, row, dxmid):
             with torch.enable_grad():

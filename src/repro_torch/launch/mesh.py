@@ -41,10 +41,10 @@ import torch.distributed as dist
 
 from repro_torch.runtime import trace
 
-# The collectives the explicit engine issues. gloo takes every one of them
-# on CUDA tensors, in every dtype the engine hands it (f32, bf16, int8,
-# int64), with the right result: torch 2.11 on an H100, two ranks on the
-# card (launch/probe_transport.py). So no collective is staged through host
+# The collectives the engines issue. gloo takes every one of them on CUDA
+# tensors, in every dtype the engines hand it (f32, bf16, fp16 and int8: a
+# q8 wire row's scales and quants; int64), with the right result: torch
+# 2.11 on an H100, two ranks on the card (launch/probe_transport.py). So no collective is staged through host
 # memory by the port (gloo copies a CUDA tensor through the host itself).
 COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
 

@@ -3,7 +3,8 @@ and this torch: the facts behind ``launch/mesh.py``'s ``COLLECTIVES``
 table. Two ranks on one card (the case that selects gloo) run each
 collective the explicit engine issues (``all_reduce``, ``all_gather``,
 ``all_gather_into_tensor``, ``reduce_scatter_tensor``) on CUDA tensors in
-every dtype it hands them (f32, bf16, int8, int64), and each rank prints
+every dtype the engines hand them (f32, bf16, fp16, int8, int64: a q8
+wire row's scales are fp16), and each rank prints
 one JSON line per (collective, dtype): ``accepted`` (the call returned),
 ``correct`` (its result equals the sum or concatenation computed on the
 host) and the error's first line where it raised. A probe, not a path: the
@@ -22,7 +23,7 @@ import os
 import torch
 import torch.distributed as dist
 
-DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int64)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8, torch.int64)
 
 
 def _value(rank: int, n: int, dtype) -> torch.Tensor:

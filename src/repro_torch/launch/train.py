@@ -69,12 +69,16 @@ data-parallel mesh of ranks:
     ranks. A run whose world size is not N * M raises, naming the launch.
 
 Runs on the card by default and raises when CUDA is absent; ``--device
-cpu`` runs the kernels' plain versions (the tests do). What is not ported
-raises, naming the ROADMAP item that ports it: ``--elastic``/``--chaos``
-(item 5); on a mesh, ``--param-quant`` rows and MoE's expert rows (item
-8d), checkpoints and ``--resume`` (item 5: pass ``--ckpt-every 0``), and
-for the GSPMD engine a model axis (``--model-mesh`` > 1, item 8e), a MoE
-family (item 8d) and params on NVMe (item 8f). On the layered epoch
+cpu`` runs the kernels' plain versions (the tests do). On a mesh the
+explicit engine's layered epoch takes MoE's expert rows (each rank its
+column slice of every expert row) and ``--param-quant`` q8/q4 rows (each
+rank's slice encoded on its own; q8 slices gathered as wire bytes), and
+the GSPMD engine takes the MoE family (the routing statistics summed over
+the ranks). What is not ported raises, naming the ROADMAP item that ports
+it: ``--elastic``/``--chaos`` (item 5); on a mesh, checkpoints and
+``--resume`` (item 5: pass ``--ckpt-every 0``), and for the GSPMD engine a
+model axis (``--model-mesh`` > 1, item 8e), params on NVMe and
+``--param-quant``, which encodes only the NVMe param store (item 8f). On the layered epoch
 ``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the
 reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
@@ -231,13 +235,9 @@ def _unported(args, dp: int = 1) -> None:
         (args.chaos is not None, "--chaos", elastic),
     ]
     if dp > 1:  # the GSPMD engine's refusals: core/executor.check_ported
-        checks += [
-            (args.param_quant != "none", f"--param-quant rows across {dp} ranks",
-             "ROADMAP.md Queue 1 item 8d: MoE expert rows and q8/q4 rows at dp > 1"),
-            (args.ckpt_every > 0 or args.resume == "auto",
-             f"checkpoints across {dp} ranks (pass --ckpt-every 0)",
-             "ROADMAP.md Queue 1 item 5: re-sharding"),
-        ]
+        checks.append((args.ckpt_every > 0 or args.resume == "auto",
+                       f"checkpoints across {dp} ranks (pass --ckpt-every 0)",
+                       "ROADMAP.md Queue 1 item 5: re-sharding"))
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")

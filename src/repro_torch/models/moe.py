@@ -8,7 +8,11 @@ buffers, the experts run as two or three batched products
 to XLA outside Pallas), and each token's outputs come back weighted by its
 renormalized gates. Capacity overflow drops assignments; ``routing_stats``
 counts the dropped fraction and the per-expert load, the
-``moe_dropped_token_fraction`` / ``moe_expert_load`` step metrics.
+``moe_dropped_token_fraction`` / ``moe_expert_load`` step metrics. Routing
+and capacity are local to a group of ``min(group, S)`` tokens of one
+sequence, so a rank holding whole sequences routes as the global batch
+does; the statistics are sums over every group of the global batch, so a
+mesh sums the ranks' ``routing_counts`` before the ratios are taken.
 
 Where the reference scatter-adds the combine, the port gathers: every
 non-dropped (token, choice) assignment knows its slot (``inv``, the
@@ -197,15 +201,30 @@ def route_tokens(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig) -> di
             "counts": counts, "cap": cap, "inv": inv.reshape(G, T, k)}
 
 
+def routing_counts(counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """counts (G, E) -> (E + 2,) int64: each expert's routed assignments
+    summed over the groups, then the dropped and the routed totals. Sums,
+    so a mesh adds the ranks' (one all-reduce) before a ratio is taken."""
+    counts = counts.long()
+    return torch.cat([torch.sum(counts, dim=0),
+                      torch.sum(torch.clamp(counts - cap, min=0))[None],
+                      torch.sum(counts)[None]])
+
+
+def stats_from_counts(raw: torch.Tensor) -> dict:
+    """(L, E + 2) ``routing_counts`` of L layers -> the mean over the
+    layers of each layer's ``moe_dropped_token_fraction`` (the share of
+    routed assignments lost to capacity overflow) and (E,)
+    ``moe_expert_load`` (the share landing on each expert)."""
+    E = raw.shape[-1] - 2
+    routed = torch.clamp(raw[:, E + 1], min=1)
+    return {"moe_dropped_token_fraction": (raw[:, E] / routed).float().mean(),
+            "moe_expert_load": (raw[:, :E] / routed[:, None]).float().mean(dim=0)}
+
+
 def routing_stats(counts: torch.Tensor, cap: int, k: int) -> dict:
-    """counts (G, E) -> ``moe_dropped_token_fraction`` (the share of
-    routed assignments lost to capacity overflow) and ``moe_expert_load``
-    (E,) (the share landing on each expert)."""
-    routed = torch.clamp(torch.sum(counts), min=1)
-    dropped = torch.sum(torch.clamp(counts - cap, min=0))
-    load = torch.sum(counts, dim=0) / routed
-    return {"moe_dropped_token_fraction": (dropped / routed).float(),
-            "moe_expert_load": load.float()}
+    """counts (G, E) of one layer -> its ``stats_from_counts``."""
+    return stats_from_counts(routing_counts(counts, cap)[None])
 
 
 def expert_mix(xin: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
@@ -243,9 +262,11 @@ def _mix_and_combine(xg, rows, tok_e, valid_e, w_e, inv, cfg):
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
-            group: int = DEFAULT_GROUP, with_stats: bool = False):
+            group: int = DEFAULT_GROUP, with_stats: bool = False,
+            with_counts: bool = False):
     """x (B, S, d) -> (B, S, d): sorted-dispatch MoE over all E experts;
-    ``with_stats`` also returns ``routing_stats``."""
+    ``with_stats`` also returns ``routing_stats``, ``with_counts`` the
+    ``routing_counts`` they are taken from."""
     B, S, d = x.shape
     xg = _groups(x, group)
     r = route_tokens(p["router"], xg, cfg)
@@ -253,6 +274,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y.to(x.dtype).reshape(B, S, d)
     if with_stats:
         return y, routing_stats(r["counts"], r["cap"], cfg.top_k)
+    if with_counts:
+        return y, routing_counts(r["counts"], r["cap"])
     return y
 
 
@@ -312,21 +335,21 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
             "family's attention passes it)")
     remat = parallel.remat
 
-    def block(x, blk, positions, cache=None, collect_kv=False, with_stats=False):
+    def block(x, blk, positions, cache=None, collect_kv=False):
         a, new_cache = cm.attention_block(
             blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
             causal=True, cache=cache, collect_kv=collect_kv)
         x = x + a
-        m = moe_ffn(blk["moe"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg,
-                    with_stats=with_stats)
-        if with_stats:
-            m, stats = m
-            return x + m, new_cache, stats
-        return x + m, new_cache
+        return x + moe_ffn(blk["moe"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg), new_cache
 
     def train_block(x, blk, positions):
-        out, _, stats = block(x, blk, positions, with_stats=True)
-        return out, stats["moe_dropped_token_fraction"], stats["moe_expert_load"]
+        """-> (the block's output, its ``routing_counts``)."""
+        a, _ = cm.attention_block(blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind),
+                                  positions, cfg, causal=True)
+        x = x + a
+        m, counts = moe_ffn(blk["moe"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg,
+                            with_counts=True)
+        return x + m, counts
 
     def backbone_inputs(params, batch):
         x = cm.embed(params["embed"], batch["tokens"], cfg)
@@ -334,24 +357,25 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         return x, positions
 
-    def loss_stats_fn(params, batch):
+    def loss_stats_fn(params, batch, reduce=None):
         """(loss, aux): the mean next-token loss and, over the layers, the
         mean dropped fraction and the mean (E,) expert load. Stacked block
-        leaves are unbound once, as in the dense loss."""
+        leaves are unbound once, as in the dense loss. ``reduce`` (a mesh's
+        all-reduce) sums the layers' (L, E + 2) routing counts over the
+        ranks before the ratios are taken, so each rank reports the global
+        batch's statistics."""
         x, positions = backbone_inputs(params, batch)
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
-        drops, loads = [], []
+        raw = []
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            x, drop, load = remat_mod.remat(remat, train_block, x, blk, positions)
-            drops.append(drop)
-            loads.append(load)
+            x, counts = remat_mod.remat(remat, train_block, x, blk, positions)
+            raw.append(counts)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg)
         loss = cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
-        aux = {"moe_dropped_token_fraction": torch.stack(drops).mean().detach(),
-               "moe_expert_load": torch.stack(loads).mean(dim=0).detach()}
-        return loss, aux
+        raw = torch.stack(raw).detach()
+        return loss, stats_from_counts(raw if reduce is None else reduce(raw))
 
     def loss_fn(params, batch):
         return loss_stats_fn(params, batch)[0]

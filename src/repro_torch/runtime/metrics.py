@@ -63,7 +63,8 @@ def elastic_step_metrics(*, restarts: int = 0, replans: int = 0,
 
 # the tier counters a data-parallel step line shows, per rank and summed
 RANK_BYTES = ("param_in_bytes", "param_out_bytes", "grad_out_bytes", "opt_read_bytes",
-              "opt_write_bytes", "param_shard_bytes", "grad_shard_bytes", "opt_shard_bytes")
+              "opt_write_bytes", "param_shard_bytes", "grad_shard_bytes", "opt_shard_bytes",
+              "expert_total_bytes", "expert_peak_resident_bytes")
 
 
 def rank_bytes_note(rec: dict, world: int) -> str:

@@ -318,12 +318,17 @@ def _run(arch="smollm-135m", engine="zero3", **offload):
 @pytest.mark.parametrize("what,build,match", [
     ("gspmd", lambda m: texec.InfinityExecutor(_run(engine="pjit", param_tier="nvme"), "cpu",
                                                mesh=m), "item 8f"),
+    # MoE's expert rows and q8/q4 rows run at dp > 1 (tests/test_torch_dp_moe.py);
+    # what stays unported around them: assembling a MoE engine's params
+    # from the ranks' slices (item 5), the GSPMD engine's --param-quant on
+    # a mesh (8f) and the MoE family with a model axis (8e)
     ("moe", lambda m: ExplicitZero3Engine(_run("granite-moe-1b-a400m", param_tier="nvme"),
-                                          "cpu", m), "item 8d"),
-    ("q8", lambda m: ExplicitZero3Engine(_run(param_tier="nvme", param_quant="q8"), "cpu", m),
-     "item 8d"),
-    ("q4", lambda m: ExplicitZero3Engine(_run(param_tier="nvme", param_quant="q4"), "cpu", m),
-     "item 8d")])
+                                          "cpu", m).params_from_state({}), "item 5"),
+    ("q8", lambda m: texec.InfinityExecutor(_run(engine="pjit", param_quant="q8"), "cpu",
+                                            mesh=m), "item 8f"),
+    ("q4", lambda m: texec.InfinityExecutor(
+        _run("granite-moe-1b-a400m", engine="pjit", param_quant="q4"), "cpu",
+        mesh=mesh_mod.LocalMesh(1, 2, 0, 2, torch.device("cpu"), None, "gloo")), "item 8e")])
 def test_engine_refuses_what_stays_unported_at_dp2(what, build, match):
     with pytest.raises(NotImplementedError, match=match):
         build(_fake_mesh())
@@ -336,17 +341,18 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "zero3", "--data-mesh", "2",
 @pytest.mark.parametrize("extra,error,match", [
     (["--engine", "pjit", "--offload-param", "nvme"], NotImplementedError, "item 8f"),
     (["--plan", "auto"], ValueError, "a plan for 1 device.*this run has 2"),
-    (["--arch", "granite-moe-1b-a400m", "--offload-param", "nvme"], NotImplementedError,
-     "item 8d"),
-    (["--offload-param", "nvme", "--param-quant", "q8"], NotImplementedError, "item 8d"),
+    (["--arch", "granite-moe-1b-a400m", "--offload-param", "nvme", "--ckpt-every", "2"],
+     NotImplementedError, "item 5"),
+    (["--engine", "pjit", "--param-quant", "q8"], NotImplementedError, "item 8f"),
     (["--ckpt-every", "2"], NotImplementedError, "item 5"),
     (["--resume", "auto"], NotImplementedError, "item 5")])
 def test_cli_refuses_what_stays_unported_at_dp2(monkeypatch, tmp_path, extra, error, match):
     """``launch.train`` on a 2-rank mesh: the GSPMD engine with params on
-    NVMe (item 8f), a plan for the one device the CPU detects (ValueError,
-    naming both counts), MoE's expert rows and q8 rows (8d), checkpoints
+    NVMe or ``--param-quant`` (item 8f), a plan for the one device the CPU
+    detects (ValueError, naming both counts), checkpoints (a MoE run's too)
     and resume (item 5) raise. (The GSPMD engine and plans on a mesh run:
-    ``tests/test_torch_gspmd_mesh.py``.)"""
+    ``tests/test_torch_gspmd_mesh.py``; MoE's expert rows and q8/q4 rows:
+    ``tests/test_torch_dp_moe.py``.)"""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda *a: _fake_mesh())
     argv = BASE + ["--nvme-dir", str(tmp_path), "--ckpt-dir", str(tmp_path / "ck")] + extra
     with pytest.raises(error, match=match):

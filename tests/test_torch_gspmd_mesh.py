@@ -29,7 +29,8 @@
   same hardware, byte for byte, and its ``RunConfig``; it trains.
 * **Refusals.** A plan for another number of devices than the ranks
   (ValueError, naming both), and on a GSPMD mesh a model axis (ROADMAP item
-  8e), a MoE family (8d) and params on NVMe (8f).
+  8e), and params on NVMe and ``--param-quant`` (8f). (The MoE family on a
+  GSPMD mesh runs: ``tests/test_torch_dp_moe.py``.)
 
 Tolerances are ``tests/test_torch_gspmd.py``'s, imported from it:
 ``TIER_TOL`` (rtol = atol = 2e-3) for loss, grad norm and lr each step;
@@ -392,7 +393,7 @@ def test_a_plan_for_another_device_count_raises_naming_both(n_devices, dp):
 
 @pytest.mark.parametrize("what,run,mesh,match", [
     ("model_axis", _run(), (1, 2), "item 8e"),
-    ("moe", _run("granite-moe-1b-a400m"), (2, 1), "item 8d"),
+    ("moe", _run("granite-moe-1b-a400m", param_quant="q8"), (2, 1), "item 8f"),
     ("param_nvme", _run(param_tier="nvme"), (2, 1), "item 8f")])
 def test_gspmd_mesh_refuses_what_stays_unported(what, run, mesh, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -405,7 +406,8 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "pjit", "--steps", "1", "--bat
 
 @pytest.mark.parametrize("extra,error,match", [
     (["--data-mesh", "1", "--model-mesh", "2"], NotImplementedError, "item 8e"),
-    (["--data-mesh", "2", "--arch", "granite-moe-1b-a400m"], NotImplementedError, "item 8d"),
+    (["--data-mesh", "2", "--arch", "granite-moe-1b-a400m", "--param-quant", "q4"],
+     NotImplementedError, "item 8f"),
     (["--data-mesh", "2", "--offload-param", "nvme"], NotImplementedError, "item 8f"),
     (["--plan", "auto", "--hw-devices", "4", "--data-mesh", "2"], ValueError,
      "a plan for 4 device.*this run has 2")])

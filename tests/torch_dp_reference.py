@@ -1,14 +1,19 @@
-"""The reference's side of ``tests/test_torch_dp.py`` and
-``tests/test_torch_gspmd_mesh.py``, run as a script in a subprocess of its
-own with four host devices (the test process keeps one). Job ``dp``: the
-JAX package's ``InfinityExecutor(engine="zero3")`` on a mesh of dp devices
-for every case of ``torch_dp_worker.CASES``, and its ``psum_compressed``
-under ``shard_map`` on 2 devices; job ``gspmd``: its
+"""The reference's side of ``tests/test_torch_dp.py``,
+``tests/test_torch_gspmd_mesh.py`` and ``tests/test_torch_dp_moe.py``, run
+as a script in a subprocess of its own with four host devices (the test
+process keeps one). Job ``dp``: the JAX package's
+``InfinityExecutor(engine="zero3")`` on a mesh of dp devices for every
+case of ``torch_dp_worker.CASES``, and its ``psum_compressed`` under
+``shard_map`` on 2 devices; job ``gspmd``: its
 ``InfinityExecutor(engine="pjit")`` on a mesh of dp devices for every case
-of ``torch_dp_worker.GSPMD_CASES``, from the initial params the test saved.
-Writes the numbers to one ``.npz`` (pytest does not collect this file).
+of ``torch_dp_worker.GSPMD_CASES``, from the initial params the test saved;
+job ``dp_moe``: the explicit engine's layered epoch for every case of
+``torch_dp_worker.LAYERED_CASES`` and the pjit executor for every case of
+``torch_dp_worker.MOE_GSPMD_CASES``, from the initial states the test
+saved. Writes the numbers to one ``.npz`` (pytest does not collect this
+file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd]
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe]
 """
 from __future__ import annotations
 
@@ -86,6 +91,69 @@ def run_case(case: str, tmp: str, out: dict) -> None:
     ex.close()
 
 
+def _save_metrics(case: str, metrics: list, out: dict) -> None:
+    """Per step: loss, grad norm, lr, MoE's routing statistics where the
+    step reports them, and every tier counter (``*_bytes``)."""
+    for key in ("loss", "grad_norm", "lr", "moe_dropped_token_fraction"):
+        if key in metrics[0]:
+            out[f"{case}/{key}"] = np.array([float(m[key]) for m in metrics])
+    if "moe_expert_load" in metrics[0]:
+        out[f"{case}/moe_expert_load"] = np.stack([_f32(m["moe_expert_load"])
+                                                   for m in metrics])
+    for key in metrics[0]:
+        if key.endswith("_bytes") and "pinned" not in key:
+            out[f"{case}/ctr/{key}"] = np.array([int(m[key]) for m in metrics])
+
+
+def run_layered_case(case: str, tmp: str, out: dict) -> None:
+    """``STEPS`` steps of the layered ``case`` (every state class on NVMe)
+    on a mesh of its dp devices from the engine's own initial state (the
+    rows the test hands the ranks: its draw at one device, padded for dp):
+    the initial rows, per step metrics; after, the global rows from the
+    param store, 'other', each opt-store key's master, m and v, and the opt
+    store's keys."""
+    dp, _, _, quant = W.LAYERED_CASES[case]
+    run = RunConfig(model=W.layered_cfg(case, jconfigs),
+                    parallel=make_parallel("zero3", remat="none"),
+                    offload=make_offload(param_tier="nvme", grad_tier="nvme", opt_tier="nvme",
+                                         nvme_dir=os.path.join(tmp, case, "jax"),
+                                         param_quant=quant),
+                    train=TrainConfig(lr=W.LR, warmup_steps=W.WARMUP))
+    mesh = make_local_mesh(dp, 1)
+    ex = jexec.InfinityExecutor(run, mesh)
+    state = ex.engine.init_state(jax.random.PRNGKey(0))
+    for key in ("flat", "eflat"):
+        if key in state:
+            out[f"{case}/init_{key}"] = _f32(state[key])
+    state = ex.reseed(state)
+    shape = ShapeConfig("t", W.S, W.B, "train")
+    stream = jpipe.SyntheticStream(ex.input_specs(shape), run.model.vocab_size, seed=0)
+    shardings = ex.batch_shardings(shape)
+    step = ex.make_train_step()
+    metrics = []
+    # outside a context mesh: the expert waves index single-device shards
+    for i in range(W.STEPS):
+        batch = {k: jax.device_put(v, shardings[k]) for k, v in stream.batch_at(i).items()}
+        state, m = step(state, batch)
+        metrics.append(m)
+    _save_metrics(case, metrics, out)
+    flat, eflat = ex._materialize_rows()
+    out[f"{case}/flat"] = _f32(flat)
+    if eflat is not None:
+        out[f"{case}/eflat"] = _f32(eflat)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(state["other"])[0]:
+        out[f"{case}/other/{jax.tree_util.keystr(path)}"] = _f32(leaf)
+    off = ex.offload
+    off.store.flush()
+    for key, _, n in off.layout:
+        for what in ("master", "m", "v"):
+            out[f"{case}/opt/{key}/{what}"] = np.concatenate([
+                np.asarray(off.store.read(f"{key}.{what}.{ci}").result()).reshape(-1)
+                for ci in range(-(-n // off.chunk))]).astype(np.float32)
+    out[f"{case}/opt_keys"] = np.array(sorted(ex.opt_store.keys()))
+    ex.close()
+
+
 def run_psum(out: dict) -> None:
     """``psum_compressed`` on 2 devices, each rank its row of
     ``psum_inputs``, three steps of error feedback per case."""
@@ -125,7 +193,7 @@ def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
     from repro.core import partition as jpt
     from repro.optim import adam as jadam
 
-    dp, _, _, stage, param, grad, opt, accum, B = W.GSPMD_CASES[case]
+    dp, _, _, stage, param, grad, opt, accum, B = W.ALL_GSPMD_CASES[case]
     run = RunConfig(model=W.gspmd_cfg(case, jconfigs),
                     parallel=make_parallel("pjit", remat="none", zero_stage=stage,
                                            grad_accum=accum),
@@ -159,11 +227,7 @@ def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
             batch = {k: jax.device_put(v, shardings[k]) for k, v in stream.batch_at(i).items()}
             state, m = step(state, batch)
             metrics.append(m)
-    for key in ("loss", "grad_norm", "lr"):
-        out[f"{case}/{key}"] = np.array([float(m[key]) for m in metrics])
-    for key in metrics[0]:
-        if key.endswith("_bytes") and "pinned" not in key:
-            out[f"{case}/ctr/{key}"] = np.array([int(m[key]) for m in metrics])
+    _save_metrics(case, metrics, out)
     # laid out by the engine's shardings (the off-graph step hands back
     # plain arrays that its next step would lay out so)
     trees = {"params": jax.device_put(state["params"], eng.param_shardings())}
@@ -203,6 +267,11 @@ def main() -> None:
         for case in W.CASES:
             run_case(case, tmp, out)
         run_psum(out)
+    elif job == "dp_moe":
+        for case in W.LAYERED_CASES:
+            run_layered_case(case, tmp, out)
+        for case in W.MOE_GSPMD_CASES:
+            run_gspmd_case(case, tmp, out)
     else:
         for case in W.GSPMD_CASES:
             run_gspmd_case(case, tmp, out)

@@ -1,6 +1,8 @@
 """The port's side of ``tests/test_torch_dp.py`` (job ``dp``, the explicit
-engine) and ``tests/test_torch_gspmd_mesh.py`` (jobs ``gspmd`` and
-``plan``, the GSPMD engine): one process per rank over
+engine), ``tests/test_torch_gspmd_mesh.py`` (jobs ``gspmd`` and ``plan``,
+the GSPMD engine) and ``tests/test_torch_dp_moe.py`` (job ``dp_moe``: the
+layered epoch with MoE expert rows and q8/q4 rows, and the GSPMD engine on
+the MoE family): one process per rank over
 ``torch.distributed`` (gloo on the CPU), spawned by ``spawn`` and run as a
 script. Imports torch, numpy and ``repro_torch`` only, never JAX (pytest
 does not collect this file).
@@ -65,6 +67,37 @@ GSPMD_CASES = {
     "encdec_dp2": (2, "seamless-m4t-medium", None, 3, "device", "device", "device", 1, 4),
 }
 GSPMD_STEPS = 2
+# the GSPMD engine's MoE cases (job dp_moe), in GSPMD_CASES' format: the
+# smoke granite at ZeRO-3 (its expert leaves at moe_zero_stage 3), one
+# microbatch and two; each at one device too (the test's one-rank
+# baselines: the "_dp1" cases run in the test process, never spawned)
+MOE_GSPMD_CASES = {
+    f"moe_{name}_dp{dp}": (dp, "granite-moe-1b-a400m", None, 3, "device", "device", "device",
+                           accum, 4)
+    for name, accum in (("stage3", 1), ("accum2", 2)) for dp in (2, 1)}
+ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES}
+# the layered epoch's cases of job dp_moe, every state class on NVMe: case
+# -> (dp, arch, d_model (None: the smoke width), param_quant). smollm is cut
+# to 2 layers, granite keeps its smoke depth (2). The smoke smollm's row,
+# P = 24,672, splits into slices of 12,336 at dp 2, 16 elements off the
+# 32-element quant grid: the second slice's blocks start mid-leaf. The
+# aligned case takes d_model 64 (P = 32,896, slices of 16,448 = 514
+# blocks, so the two grids join into the row's own: test_torch_training's
+# QUANT_D, its MLP leaves' N multiples of 32, w_gate across the boundary);
+# the dp-4 case d_model 47 (P = 24,158 pads to 24,160, slices of 6040, 24
+# off the grid).
+LAYERED_CASES = {
+    "moe_layered_dp2": (2, "granite-moe-1b-a400m", None, "none"),
+    "moe_layered_dp4": (4, "granite-moe-1b-a400m", None, "none"),
+    "q8_layered_dp2": (2, "smollm-135m", None, "q8"),
+    "q8_layered_dp2_aligned": (2, "smollm-135m", 64, "q8"),
+    "q8_layered_dp4": (4, "smollm-135m", 47, "q8"),
+    "q4_layered_dp2": (2, "smollm-135m", None, "q4"),
+    "moe_q8_layered_dp2": (2, "granite-moe-1b-a400m", None, "q8"),
+    # the MoE cases' one-rank baselines, on the same global batches
+    "moe_layered_dp1": (1, "granite-moe-1b-a400m", None, "none"),
+    "moe_q8_layered_dp1": (1, "granite-moe-1b-a400m", None, "q8"),
+}
 # the plan job's argv: the planner's hardware pinned (no detected number
 # enters the plan), two devices, the smoke smollm
 PLAN_ARGV = ["--smoke", "--device", "cpu", "--plan", "auto", "--hw-devices", "2",
@@ -82,6 +115,16 @@ def psum_inputs(shape, step: int, world: int) -> np.ndarray:
     return (rng.standard_normal((world,) + tuple(shape))
             * np.array([1.0, 30.0, 1e-3, 7.0][:world]).reshape((world,) + (1,) * len(shape))
             ).astype(np.float32)
+
+
+def host_metric(v):
+    """A step metric as a host value: a 0-d tensor a float, a vector (MoE's
+    (E,) ``moe_expert_load``) a list of floats."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return float(v) if v.dim() == 0 else v.double().tolist()
+    return v
 
 
 def _name(job: str, world: int) -> str:
@@ -243,7 +286,7 @@ def psum_unit(mesh) -> dict:
 def gspmd_cfg(case: str, package):
     """``case``'s model config from ``package``'s ``configs`` (either
     package: their configs are equal field for field)."""
-    _, arch, d_model, *_ = GSPMD_CASES[case]
+    _, arch, d_model, *_ = ALL_GSPMD_CASES[case]
     cfg = package.smoke(arch)
     cut = {"n_layers": 2} if arch == "smollm-135m" else {}
     if d_model is not None:
@@ -252,7 +295,7 @@ def gspmd_cfg(case: str, package):
 
 
 def gspmd_seq(case: str) -> int:
-    return 64 if GSPMD_CASES[case][1] == "seamless-m4t-medium" else S
+    return 64 if ALL_GSPMD_CASES[case][1] == "seamless-m4t-medium" else S
 
 
 def gspmd_init_path(tmp: str, case: str) -> str:
@@ -265,7 +308,7 @@ def _gspmd_run(case: str, nvme_dir: str):
     from repro_torch import configs
     from repro_torch.config import RunConfig, TrainConfig, make_offload, make_parallel
 
-    _, _, _, stage, param, grad, opt, accum, _ = GSPMD_CASES[case]
+    _, _, _, stage, param, grad, opt, accum, _ = ALL_GSPMD_CASES[case]
     return RunConfig(model=gspmd_cfg(case, configs),
                      parallel=make_parallel("pjit", remat="none", zero_stage=stage,
                                             grad_accum=accum),
@@ -296,7 +339,7 @@ def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
         full["opt"] = adam.init_state(params)
     state = bridge.shard_gspmd_state(full, run, mesh.rank, mesh.world)
     state = ex.reseed(ex.engine.place_state(state))
-    B = GSPMD_CASES[case][8]
+    B = ALL_GSPMD_CASES[case][8]
     stream = tpipe.SyntheticStream(ex.input_specs(ShapeConfig("t", gspmd_seq(case), B, "train")),
                                    run.model.vocab_size, seed=0)
     step = ex.make_train_step()
@@ -305,8 +348,7 @@ def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
         batch = tpipe.rank_batch(stream.batch_at(i), mesh.rank, mesh.world,
                                  run.parallel.grad_accum)
         state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
-        metrics.append({k: (float(v) if isinstance(v, torch.Tensor) else v)
-                        for k, v in m.items()})
+        metrics.append({k: host_metric(v) for k, v in m.items()})
     out = {"metrics": metrics, "params": state["params"], "splits": ex.engine.splits,
            "shard_bytes": ex.engine.shard_bytes(),
            "opt_keys": sorted(ex.opt_store.keys()) if ex.opt_store is not None else []}
@@ -364,7 +406,169 @@ def job_plan(tmp: str, mesh) -> dict:
             "losses": hist["losses"], "metrics": hist["metrics"]}
 
 
-JOBS = {"dp": job_dp, "gspmd": job_gspmd}
+# ---------------------------------------------------------------------------
+# job dp_moe: the layered epoch's MoE and q8/q4 rows, the GSPMD engine's MoE
+# ---------------------------------------------------------------------------
+
+
+def layered_cfg(case: str, package):
+    """``case``'s model config from ``package``'s ``configs``."""
+    _, arch, d_model, _ = LAYERED_CASES[case]
+    cut = {"n_layers": 2}
+    if d_model is not None:
+        cut["d_model"] = d_model
+    return dataclasses.replace(package.smoke(arch), **cut)
+
+
+def layered_run(case: str, nvme_dir: str):
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, TrainConfig, make_offload, make_parallel
+
+    quant = LAYERED_CASES[case][3]
+    return RunConfig(model=layered_cfg(case, configs),
+                     parallel=make_parallel("zero3", remat="none"),
+                     offload=make_offload(param_tier="nvme", grad_tier="nvme", opt_tier="nvme",
+                                          nvme_dir=nvme_dir, param_quant=quant),
+                     train=TrainConfig(lr=LR, warmup_steps=WARMUP))
+
+
+def layered_init_path(tmp: str, case: str) -> str:
+    """Where the test saves ``case``'s global initial state: the
+    reference's tier-independent leaves (``flat`` and, for MoE, ``eflat``
+    padded for the case's dp), as the port's tensors."""
+    return os.path.join(tmp, f"layered_init_{case}.pt")
+
+
+def opt_states(ex) -> dict:
+    """Every key of the rank's opt store: ``(master, m, v)`` f32, read
+    back chunk by chunk."""
+    import torch
+
+    off = ex.offload
+    off.store.flush()
+
+    def read(key, what, n):
+        return torch.cat([off.store.read(f"{key}.{what}.{ci}").result().reshape(-1)
+                          for ci in range(-(-n // off.chunk))])
+
+    return {key: tuple(read(key, w, n) for w in ("master", "m", "v"))
+            for key, _, n in off.layout}
+
+
+def run_layered_case(case: str, tmp: str, mesh) -> dict:
+    """``STEPS`` steps of ``case`` on this rank (``mesh``: one rank for the
+    test's one-rank runs) from the global initial state at
+    ``layered_init_path``, each rank its slices (``bridge``), on the rank's
+    rows of the global batches: per step metrics, then the rank's rows
+    read back from the param store, its opt store (keys and states),
+    'other' and the step count."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import executor as texec
+    from repro_torch.data import pipeline as tpipe
+
+    run = layered_run(case, os.path.join(tmp, case, f"torch_w{mesh.world}"))
+    ex = texec.InfinityExecutor(run, "cpu", mesh=mesh if mesh.world > 1 else None)
+    init = torch.load(layered_init_path(tmp, case), weights_only=False)
+    state = bridge.shard_zero3_state(init, mesh.rank, mesh.world)
+    state = ex.reseed(ex.engine.place_state(ex.engine.complete_state(state)))
+    stream = tpipe.SyntheticStream(ex.input_specs(ShapeConfig("t", S, B, "train")),
+                                   run.model.vocab_size, seed=0)
+    step = ex.make_train_step()
+    metrics = []
+    for i in range(STEPS):
+        batch = tpipe.rank_slice(stream.batch_at(i), mesh.rank, mesh.world)
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        metrics.append({k: host_metric(v) for k, v in m.items()})
+    rows = ex.materialize_rows()
+    out = {"metrics": metrics, "rows": {k: v.float().clone() for k, v in rows.items()},
+           "other": state["other"], "step": int(state["step"]),
+           "opt": opt_states(ex), "opt_keys": sorted(ex.opt_store.keys()),
+           "quantized_leaves": ex.engine.quantized_leaves}
+    ex.close()
+    return out
+
+
+def wire_gather_unit(mesh) -> dict:
+    """Each rank's q8 wire row of a (101,) slice (its last block ragged):
+    the device operands (``qformat.wire_row_device``), all-gathered as the
+    layered epoch gathers them (int8 quants, fp16 scales), beside every
+    rank's own encode (``q8_encode``) of its slice."""
+    import torch
+
+    from repro_torch.core import qformat
+    from repro_torch.core.offload import PinnedBufferPool, PinnedStager
+
+    def piece(r):
+        return torch.randn(101, generator=torch.Generator().manual_seed(30 + r)) * (r + 1)
+
+    stager = PinnedStager(PinnedBufferPool(1 << 20, pin=False), torch.device("cpu"))
+    q, s = qformat.wire_row_device(qformat.encode_array(piece(mesh.rank), "q8"), stager)
+    got_q, got_s = mesh.all_gather(q), mesh.all_gather(s)
+    encodes = [qformat.q8_encode(piece(r)) for r in range(mesh.world)]
+    return {"q": got_q, "s": got_s, "want_q": torch.cat([e[0].reshape(-1) for e in encodes]),
+            "want_s": torch.cat([e[1] for e in encodes])}
+
+
+def wave_vjp_unit(mesh) -> dict:
+    """The layered epoch's ``moe_wave_vjp`` at dp 2 on the smoke granite
+    (each rank its own tokens, the wave's (W, Pe/2) slices of the same
+    rows) against the one-rank piece on the rank's tokens and the whole
+    rows: the expert rows' gradient is the dim-1 reduce-scatter, in bf16,
+    of the ranks' whole-row cotangents (each rank's the one-rank piece's),
+    upcast after; the router's the f32 sum of theirs."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.zero import ExplicitZero3Engine
+
+    run = layered_run("moe_layered_dp2", "")
+    engines = {w: ExplicitZero3Engine(run, "cpu", mesh if w > 1 else None) for w in (1, 2)}
+    fns = {w: e.make_layer_fns() for w, e in engines.items()}
+    cfg = configs.smoke("granite-moe-1b-a400m")
+    eng = engines[1]
+    W, P, Pe = cfg.top_k, eng.layout.padded, eng.elayout.padded
+    gen = torch.Generator().manual_seed(40)
+    row = (torch.randn(P, generator=gen) * 0.1).to(torch.bfloat16)
+    erows = (torch.randn(W, Pe, generator=gen) * 0.1).to(torch.bfloat16)
+    router = torch.randn(cfg.d_model, cfg.n_experts, generator=gen) * 0.1
+    gen_r = torch.Generator().manual_seed(50 + mesh.rank)
+    x_mid = torch.randn(1, S, cfg.d_model, generator=gen_r).to(torch.bfloat16)
+    dy = torch.randn(1, S, cfg.d_model, generator=gen_r).to(torch.bfloat16)
+    ids = torch.arange(W, dtype=torch.int64)
+    mask = torch.ones(W, dtype=torch.float32)
+    half, ehalf = P // 2, Pe // 2
+    two = fns[2]["moe_wave_vjp"](x_mid, row[mesh.rank * half:(mesh.rank + 1) * half], router,
+                                 erows[:, mesh.rank * ehalf:(mesh.rank + 1) * ehalf].contiguous(),
+                                 ids, mask, dy)
+    # the one-rank piece's bf16 cotangent of the whole rows: its f32 output
+    # is the bf16 value upcast
+    one = fns[1]["moe_wave_vjp"](x_mid, row, router, erows, ids, mask, dy)
+    ct = mesh.gather_stack(one[3].to(torch.bfloat16))
+    drt = mesh.gather_stack(one[2])
+    want = ct[0, :, mesh.rank * ehalf:(mesh.rank + 1) * ehalf]
+    for c in ct[1:]:
+        want = want + c[:, mesh.rank * ehalf:(mesh.rank + 1) * ehalf]
+    return {"der": two[3], "want_der": want.float(), "drt": two[2], "want_drt": drt[0] + drt[1]}
+
+
+def job_dp_moe(tmp: str, mesh) -> dict:
+    """Every layered case at this world size, then, at 2 ranks, the GSPMD
+    engine's MoE cases and the units (the wire gather, the wave's
+    backward)."""
+    out = {case: run_layered_case(case, tmp, mesh) for case, spec in LAYERED_CASES.items()
+           if spec[0] == mesh.world}
+    if mesh.world == 2:
+        out.update({case: run_gspmd_case(case, tmp, mesh)
+                    for case, spec in MOE_GSPMD_CASES.items() if spec[0] == 2})
+        out["wire_gather"] = wire_gather_unit(mesh)
+        out["wave_vjp"] = wave_vjp_unit(mesh)
+    return out
+
+
+JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe}
 
 
 def main() -> None:
