@@ -111,7 +111,7 @@ Phases (any failure exits non-zero; no phase is caught):
       the pinned host tier (the ZeRO-Offload placement) and with params and
       optimizer there; fused Adam on the flat and the two 'other' leaves
       each step;
-  16a-16f run after 18, whose kept CPU sides their MoE cases share; one
+  16a-16g run after 18, whose kept CPU sides their MoE cases share; one
       spawn of two ranks runs every dp-2 job (``DP_PARTS``, phase "dp2
       ranks") and the phases hold its records:
   16a. "zero3 dp2 numerics": the explicit engine at dp 2, two ranks on the
@@ -164,6 +164,14 @@ Phases (any failure exits non-zero; no phase is caught):
       ``TRAIN_TOL``, the routing statistics equal on both ranks; 16c also
       holds the GSPMD step on granite at 2 layers on the two ranks against
       phase 18's kept CPU side;
+  16g. "serve dp2" (the same spawn): ``launch.serve --data-mesh 2`` on full
+      smollm-135m at phase 5's sizes (8 sequences, 4 slots, 2 a rank, host
+      tier, prompt 512, 32 new): each rank its ZeRO-3 param shards, one
+      layer gathered at a time; every sequence's tokens phase 5's, each
+      rank's param bytes half the one-rank run's, the ``kv`` bytes summed
+      over the ranks phase 5's, each rank's flash and tiled-matmul launches
+      on wgmma as phase 5's; each rank's peak allocated memory and the
+      decode step's time printed;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -263,7 +271,7 @@ Phases (any failure exits non-zero; no phase is caught):
       ``phases:`` line of all of them), the kernels JSON line, then the
       device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16f (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16g (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -274,11 +282,13 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
-``chip_smoke.py --dp-rank all|numerics|train[+moe]|gspmd_numerics|gspmd_train[+moe]``
-is one rank of phase 16a-16f, started by the script itself through
-``torch.distributed.run``; ``chip_smoke.py --nccl-check`` runs phase 16b's
-and 16d's paths on four ranks with a card each (NCCL), on a machine with
-four cards.
+``chip_smoke.py --dp-rank all|numerics|train[+moe]|gspmd_numerics|gspmd_train[+moe]|serve``
+is one rank of phase 16a-16g, started by the script itself through
+``torch.distributed.run``; ``chip_smoke.py --nccl-check [train|serve]``
+runs phase 16b's and 16d's paths ("train") and llava served on the ranks
+("serve": at 8 layers against one rank's tokens, then at full depth, a
+quarter of its params a rank) on four ranks with a card each (NCCL), on a
+machine with four cards.
 """
 from __future__ import annotations
 
@@ -1953,7 +1963,11 @@ def dp_rank(mode: str) -> int:
             base, _, extra = part.partition("+")
             rec[part] = {"numerics": dp2_numerics_rank,
                          "gspmd_numerics": gspmd_dp2_numerics_rank,
-                         "train": dp_train_rank, "gspmd_train": gspmd_train_rank}[base]()
+                         "train": dp_train_rank, "gspmd_train": gspmd_train_rank,
+                         "serve": serve_rank,
+                         "vlm_serve": lambda: serve_rank(
+                             VLM_SERVE_ARGV + ["--layers", str(VLM_SERVE_LAYERS)]),
+                         "vlm_serve_full": lambda: serve_rank(VLM_SERVE_ARGV)}[base]()
             if extra == "moe":
                 rec[part]["moe"] = (dp_train_rank if base == "train" else gspmd_train_rank)(
                     MOE_ARCH, MOE_LAYERED_LAYERS, MOE_TRAIN_STEPS)
@@ -2053,7 +2067,7 @@ def phase_zero3_dp_train(dp1: dict, n: int = 2, tag: str = "zero3 dp2 train",
 MOE_TRAIN_STEPS = 2
 # the dp-2 jobs one spawn of two ranks runs (``--dp-rank all``), in order:
 # a spawn costs ~17 s of process start, imports and CUDA contexts
-DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe")
+DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve")
 # the MoE layered epoch's counters the routing steers: the expert rows the
 # popularity predictor, the hot cache and the router read and drain
 MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
@@ -2132,26 +2146,188 @@ def phase_moe_dp_train(dp1: dict, recs: list, tag: str = "moe dp2 train") -> tup
     return rec, _sum_launches(parts)
 
 
-def nccl_check() -> int:
-    """``chip_smoke.py --nccl-check``, on a machine with four cards: the
-    NCCL branch of the transport rule (each rank a card of its own), the
-    one-rank layered run (phase 9) on card 0, then "zero3 dp4 nccl train"
-    (``phase_zero3_dp_train`` on 4 ranks, cuda:0-3). Not part of the
-    one-card run."""
+# ---------------------------------------------------------------------------
+# serving on data-parallel ranks: each rank its ZeRO-3 param shards, its
+# slots and its KV store
+# ---------------------------------------------------------------------------
+
+# the serve host cell (phase 5): 8 sequences, 4 slots, host tier
+SERVE_ARGV = ["--arch", "smollm-135m", "--batch", "8", "--kv-slots", "4",
+              "--kv-tier", "host", "--prompt-len", "512", "--new-tokens", "32"]
+# llava at its serve cell's sizes, for --nccl-check's four-rank runs
+VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
+                  "--prompt-len", "3072", "--new-tokens", "16"]
+SERVE_KV = ("resident_bytes", "in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
+
+
+def serve_rank(argv=None) -> dict:
+    """(a rank) ``launch.serve --data-mesh N`` (N the launch's world size)
+    with ``argv`` (default the serve host cell's): the run as this rank
+    returns it (every sequence's tokens, the summed and per-rank KV bytes,
+    each rank's param shard and peak allocated bytes), this rank's
+    launches, and the param bytes of one rank and of this rank's layout."""
+    n, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    argv = list(argv or SERVE_ARGV) + ["--data-mesh", str(n)]
+    args = serve._parse(argv)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.run_serve(args, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    run = RunConfig(model=configs.with_layers(cfg, args.layers))
+    layout = ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
+        n, 1, rank, n, torch.device("cpu"), None, "gloo"))
+    t = out["timings"]
+    return {"rank": rank, "argv": " ".join(argv), "wall_s": wall, "launches": ops.launch_counts(),
+            "backend": out["mesh"]["backend"], "slots": out["slots"],
+            "generated": out["generated"], "done": out["done"], "steps": out["steps"],
+            "admissions": out["admissions"], "admissions_ranks": out["admissions_ranks"],
+            "kv": out["kv"], "kv_ranks": out["kv_ranks"],
+            "param_shard_bytes": out["param_shard_bytes"],
+            "peak_allocated_bytes": out["peak_allocated_bytes"],
+            "one_rank_param_bytes": ZeroInfinityEngine(run, "cpu").shard_bytes()[
+                "param_shard_bytes"],
+            "layout_param_bytes": layout.shard_bytes()["param_shard_bytes"],
+            "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+            "ttft_p50_s": out["latency"]["ttft"]["p50"],
+            "ttft_p99_s": out["latency"]["ttft"]["p99"],
+            "decode_token_p50_s": out["latency"]["decode_token"]["p50"]}
+
+
+def check_serve_ranks(tag: str, recs: list, one: dict, cfg, rows: dict = None) -> dict:
+    """The checks of a serving run on ranks (``serve_rank``'s records)
+    against the one-rank run ``one`` of the same argv (``launch.serve``'s
+    output, or None where no card holds the model: then every sequence
+    finished is what is held): every sequence's tokens equal (``rows``'
+    where given: a one-rank run whose forwards hold as many rows as each
+    rank's, see ``nccl_check``), each rank's param bytes 1/n of the
+    one-rank run's (that rank's layout's; their sum the whole), the ``kv``
+    bytes summed over the ranks equal, every flash and tiled-matmul launch
+    of each rank on the tensor cores, as at one rank; each rank's peak
+    allocated memory and the decode step's time printed."""
+    n, r0 = len(recs), recs[0]
+    steps = max(r0["steps"], 1)
+    rec = {"run": tag, "argv": r0["argv"], "ranks": n, "backend": r0["backend"],
+           "wall_s": [r["wall_s"] for r in recs], "steps": r0["steps"],
+           "admissions": r0["admissions"], "admissions_ranks": r0["admissions_ranks"],
+           "kv": {k: r0["kv"][k] for k in SERVE_KV},
+           "kv_ranks": [{k: kr[k] for k in SERVE_KV} for kr in r0["kv_ranks"]],
+           "param_shard_bytes": r0["param_shard_bytes"],
+           "one_rank_param_bytes": r0["one_rank_param_bytes"],
+           "peak_allocated_gb": [b / 1e9 for b in r0["peak_allocated_bytes"]],
+           "decode_step_ms": r0["decode_s"] / steps * 1e3,
+           "prefill_wave_ms": r0["prefill_s"] / -(-len(r0["generated"]) // r0["slots"]) * 1e3,
+           "ttft_p50_s": r0["ttft_p50_s"], "ttft_p99_s": r0["ttft_p99_s"],
+           "decode_token_p50_s": r0["decode_token_p50_s"],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    if one is not None:
+        ot = one["timings"]
+        rec.update({"one_rank_kv": {k: one["kv"][k] for k in SERVE_KV},
+                    "one_rank_steps": one["steps"], "one_rank_admissions": one["admissions"],
+                    "one_rank_decode_step_ms": ot["decode_s"] / max(one["steps"], 1) * 1e3})
+    say(f"{tag}:", json.dumps(rec))
+    for r in recs:
+        if not all(r["done"]) or any(len(g) != len(recs[0]["generated"][0]) for g in r["generated"]):
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}: not every sequence finished")
+        want = (rows or one or {}).get("generated")
+        if want is not None and r["generated"] != want:
+            diff = [s for s, (a, b) in enumerate(zip(r["generated"], want)) if a != b]
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}'s sequences {diff} differ from "
+                             "the one-rank run's tokens")
+        whole, mine = r["one_rank_param_bytes"], r["param_shard_bytes"][r["rank"]]
+        if not (n * mine == whole == sum(r["param_shard_bytes"])
+                and mine == r["layout_param_bytes"]):
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} holds {mine} param bytes "
+                             f"(all ranks {r['param_shard_bytes']}) of {whole}; want 1/{n}")
+        check_main_path_routes(tag, r["launches"])
+        for name in ("flash_attention", "tiled_matmul"):
+            if cfg.family in MLP_FAMILIES or name == "flash_attention":
+                if not r["launches"][f"{name}_wgmma"]:
+                    raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched no {name}")
+    if one is not None:
+        if rec["kv"] != rec["one_rank_kv"] or r0["admissions"] != one["admissions"]:
+            raise SystemExit(f"FAIL {tag}: kv bytes summed over the ranks {rec['kv']}, "
+                             f"{r0['admissions']} admissions; the one-rank run "
+                             f"{rec['one_rank_kv']}, {one['admissions']}")
+    return rec
+
+
+def phase_serve_dp2(recs, host: tuple) -> tuple:
+    """The "serve" part of the ranks' one spawn: ``launch.serve --data-mesh
+    2`` on full smollm-135m at the serve host cell's sizes (8 sequences, 4
+    slots, 2 a rank, host tier, prompt 512, 32 new), held by
+    ``check_serve_ranks`` against phase 5's run (``host``: its output and
+    launches): the same tokens, half the param bytes a rank, the same KV
+    bytes summed, flash and the tiled matmul on wgmma on each rank as in
+    phase 5."""
+    parts = _part(recs, "serve")
+    host_out, host_launches = host
+    rec = check_serve_ranks("serve dp2", parts, host_out, configs.get("smollm-135m"))
+    for name in ("flash_attention", "tiled_matmul"):
+        if not host_launches[f"{name}_wgmma"] or host_launches[f"{name}_simt"]:
+            raise SystemExit(f"FAIL serve dp2: phase 5 launched {name} off wgmma")
+    return rec, _sum_launches(parts)
+
+
+def nccl_check(parts=("train", "serve")) -> int:
+    """``chip_smoke.py --nccl-check [train|serve]``, on a machine with four
+    cards: the NCCL branch of the transport rule (each rank a card of its
+    own). "train": the one-rank layered run (phase 9) on card 0, then
+    "zero3 dp4 nccl train" (``phase_zero3_dp_train`` on 4 ranks,
+    cuda:0-3), the one-rank "plan train" and "gspmd dp4 nccl train";
+    "serve": llava at 8 layers on card 0 and on 4 ranks ("vlm serve dp4
+    nccl", the same tokens), then at full depth, which no one card holds,
+    on the 4 ranks alone ("vlm serve full dp4 nccl"). Both without an
+    argument. Not part of the one-card run."""
     if torch.cuda.device_count() < 4:
         print(f"nccl check: {torch.cuda.device_count()} cards; it needs 4")
         return 1
     say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, check=True).stdout.strip())
     _build.build_all()
-    dp1, _ = phase_train_main()
-    rec, launches, _ = phase_zero3_dp_train(dp1, 4, "zero3 dp4 nccl train")
-    # one rank on card 0 plans for one device (detection counts the four)
-    plan1, _ = phase_plan_train("plan train", ["--hw-devices", "1"])
-    grec, glaunches, _ = phase_gspmd_dp_train(plan1, 4, "gspmd dp4 nccl train")
-    for r in (rec, grec):
-        if r["transport"]["backend"] != "nccl":
-            raise SystemExit(f"FAIL nccl check: the ranks ran {r['transport']}")
+    launches = glaunches = None
+    if "train" in parts:
+        dp1, _ = phase_train_main()
+        rec, launches, _ = phase_zero3_dp_train(dp1, 4, "zero3 dp4 nccl train")
+        # one rank on card 0 plans for one device (detection counts the four)
+        plan1, _ = phase_plan_train("plan train", ["--hw-devices", "1"])
+        grec, glaunches, _ = phase_gspmd_dp_train(plan1, 4, "gspmd dp4 nccl train")
+        for r in (rec, grec):
+            if r["transport"]["backend"] != "nccl":
+                raise SystemExit(f"FAIL nccl check: the ranks ran {r['transport']}")
+    if "serve" in parts:
+        # each of the 4 ranks serves 1 of the 4 slots, so its forwards hold
+        # one row where one rank's hold four; the attention projections and
+        # the logits are cuBLAS products, whose kernel and summation order
+        # follow the row count. The ranks' tokens are held to a one-rank run
+        # of one slot (one row a forward, as theirs); the KV bytes and
+        # admissions to the run of the same argv, whose tokens are printed
+        # beside (the sequences the row count alone moves)
+        argv = VLM_SERVE_ARGV + ["--layers", str(VLM_SERVE_LAYERS)]
+        one, _, _ = run_serve(argv)
+        row_argv = list(argv)
+        row_argv[row_argv.index("--kv-slots") + 1] = "1"
+        rows, _, _ = run_serve(row_argv)
+        torch.cuda.empty_cache()
+        cut = configs.with_layers(configs.get(VLM_ARCH), VLM_SERVE_LAYERS)
+        recs = run_ranks("vlm_serve", 900, 4)
+        say("vlm serve dp4 nccl tokens:", json.dumps({
+            "one_rank_4_vs_1_slots_differ": [s for s, (a, b) in enumerate(
+                zip(one["generated"], rows["generated"])) if a != b],
+            "ranks_vs_one_rank_4_slots_differ": [s for s, (a, b) in enumerate(
+                zip(recs[0]["generated"], one["generated"])) if a != b]}))
+        vrec = check_serve_ranks("vlm serve dp4 nccl", recs, one, cut, rows=rows)
+        frec = check_serve_ranks("vlm serve full dp4 nccl",
+                                 run_ranks("vlm_serve_full", 900, 4), None,
+                                 configs.get(VLM_ARCH))
+        for r in (vrec, frec):
+            if r["backend"] != "nccl":
+                raise SystemExit(f"FAIL nccl check: {r['run']} ran {r['backend']}")
+        say("vlm serve full dp4 nccl peak:", json.dumps({
+            "peak_allocated_gb": frec["peak_allocated_gb"], "card_gb": 80,
+            "param_shard_gb": [b / 1e9 for b in frec["param_shard_bytes"]],
+            "one_rank_param_gb": frec["one_rank_param_bytes"] / 1e9}))
     say("nccl check:", json.dumps({"ok": True, "cards": torch.cuda.device_count(),
                                    "launches": launches, "gspmd_launches": glaunches}))
     return 0
@@ -3172,10 +3348,9 @@ def main() -> int:
 
     kv_dir = os.path.join(ROOT, "build", "chip_smoke_kv")
     shutil.rmtree(kv_dir, ignore_errors=True)
-    main_argv = ["--arch", "smollm-135m", "--batch", "8", "--kv-slots", "4",
-                 "--kv-tier", "host", "--prompt-len", "512", "--new-tokens", "32"]
-    out, launches, wall = timed("serve host", run_serve, main_argv)
-    main_rec = summarize("host", main_argv, out, launches, wall)
+    out, launches, wall = timed("serve host", run_serve, SERVE_ARGV)
+    main_rec = summarize("host", SERVE_ARGV, out, launches, wall)
+    host_serve = (out, launches)  # "serve dp2" holds its ranks to this run
 
     nvme_argv = ["--arch", "smollm-135m", "--batch", "3", "--kv-slots", "1",
                  "--kv-tier", "nvme", "--kv-dir", kv_dir, "--prompt-len", "128",
@@ -3236,6 +3411,7 @@ def main() -> int:
         recs=dp_ranks)
     gmoe_dp2_rec, gmoe_dp2_launches = timed("gspmd moe dp2 train", phase_gspmd_moe_dp_train,
                                             moe_layered_rec, gtrain_ranks)
+    sdp2_rec, sdp2_launches = timed("serve dp2", phase_serve_dp2, dp_ranks, host_serve)
     train_checks.update(timed("flash window", phase_flash_window))
     # the hybrid's 1.7 B-param cut takes one step of one sequence: its CPU
     # side is the run's slowest (109-128 s at two sequences)
@@ -3320,6 +3496,7 @@ def main() -> int:
              "zero3_dp2_numerics": dp2_launches, "zero3_dp2_train": dp2_train_launches,
              "gspmd_dp2_numerics": gdp2_launches, "gspmd_dp2_train": gdp2_train_launches,
              "moe_dp2_train": moe_dp2_launches, "gspmd_moe_dp2_train": gmoe_dp2_launches,
+             "serve_dp2": sdp2_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -3384,7 +3561,10 @@ def main() -> int:
         f"moe dp2 train {moe_dp2_rec['losses'][0]:.4f} -> {moe_dp2_rec['losses'][-1]:.4f} at "
         f"{moe_dp2_rec['median_tokens_per_s_after_first']:.0f} tok/s, gspmd moe dp2 train "
         f"{gmoe_dp2_rec['losses'][0]:.4f} -> {gmoe_dp2_rec['losses'][-1]:.4f} at "
-        f"{gmoe_dp2_rec['median_tokens_per_s_after_first']:.0f} tok/s; "
+        f"{gmoe_dp2_rec['median_tokens_per_s_after_first']:.0f} tok/s; serve dp2 "
+        f"{sdp2_rec['decode_step_ms']:.1f} ms a decode step (one rank "
+        f"{sdp2_rec['one_rank_decode_step_ms']:.1f}), peak "
+        + "/".join(f"{g:.2f}" for g in sdp2_rec["peak_allocated_gb"]) + " GB a rank; "
         f"resume drill restarts {drill_rec['restarts']}; moe repeat "
         f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
         f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "
@@ -3432,5 +3612,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--nccl-check"]:
-        sys.exit(nccl_check())
+        sys.exit(nccl_check(tuple(sys.argv[2:]) or ("train", "serve")))
     sys.exit(main())

@@ -69,6 +69,23 @@ Every rank issues every collective in the same order. The step reports
 each rank's state bytes (``param_shard_bytes``, ``grad_shard_bytes``,
 ``opt_shard_bytes`` in-graph); ``shard_bytes()`` predicts them from the
 defs.
+
+Serving on a mesh (``launch/serve.py``) keeps the rank's param shards and
+nothing else of the params: ``init_params`` draws them leaf by leaf
+(``partition.init_shards``: the one-rank draw's bits, no rank ever holding
+the whole model), and ``serve_params`` hands a prefill or decode step a
+view in which the unstacked leaves (``embed``, ``ln_f``, the encoder-
+decoder's ``ln_enc``) are gathered whole for that call and each stacked
+subtree (``blocks``; the hybrid's ``groups`` and ``tail``; the
+encoder-decoder's ``enc`` and ``dec``) is a ``LayerShards``, whose
+``layer(l)`` gathers layer ``l`` alone (each split leaf along its split
+dim less one, no autograd), in one collective, not one a leaf
+(``LocalMesh.all_gather_leaves``). The families read a layer through
+``transformer.layer_params``, so a rank's peak is its shards, one
+layer's whole leaves, the call's unstacked leaves, activations and KV:
+the reference's gather once per scanned step (``repro/models/
+transformer.py:5-6``). The rules never split a stacked leaf on its layer
+dim (``layers`` maps to no mesh axis); the engine refuses one that would.
 """
 from __future__ import annotations
 
@@ -133,6 +150,42 @@ def _nbytes(tree) -> int:
 STATE_CLASSES = ("param", "grad", "opt")
 
 
+def _stacked(defs) -> bool:
+    """Whether every leaf of a subtree of defs is stacked over ``layers``."""
+    return all(d.axes[:1] == ("layers",) for d in pt.tree_leaves(defs))
+
+
+def _gathered(leaves: dict, mesh) -> dict:
+    """``{path: (t, dim)}`` -> ``{path: t}`` with each split leaf (dim
+    not None) gathered whole over the ranks along ``dim``, all of them in
+    one collective (``LocalMesh.all_gather_leaves``)."""
+    split = [p for p, (_, d) in leaves.items() if d is not None]
+    out = {p: t for p, (t, d) in leaves.items() if d is None}
+    out.update(zip(split, mesh.all_gather_leaves([leaves[p] for p in split])))
+    return out
+
+
+class LayerShards:
+    """A stacked subtree of the rank's param shards, read a layer at a
+    time (``transformer.layer_params`` calls ``layer``): each leaf's slice
+    of layer ``l``, gathered over the ranks along its split dim less one
+    where it is split (the layer's split leaves in one collective), as it
+    is where it is not. Forward only: serving runs under ``no_grad``."""
+
+    def __init__(self, shards: dict, splits: dict, mesh):
+        self.shards, self.splits, self.mesh = shards, splits, mesh
+
+    def layer(self, l: int) -> dict:
+        leaves = {}
+        for path in pt.tree_paths(self.shards):
+            dim = pt.tree_get(self.splits, path)
+            leaves[path] = (pt.tree_get(self.shards, path)[l], None if dim is None else dim - 1)
+        out: dict = {}
+        for path, t in _gathered(leaves, self.mesh).items():
+            pt.tree_set(out, path, t)
+        return out
+
+
 class ZeroInfinityEngine:
     def __init__(self, run: RunConfig, device="cuda", mesh=None):
         self.run = run
@@ -146,6 +199,14 @@ class ZeroInfinityEngine:
         self.splits = {cls: pt.leaf_splits(self.bundle.defs, run.model, sizes,
                                            run.parallel, cls)
                        for cls in STATE_CLASSES}
+        # the top-level subtrees stacked over layers (serving reads them a
+        # layer at a time); none is split on that dim
+        self.stacked = tuple(k for k in sorted(self.bundle.defs) if _stacked(self.bundle.defs[k]))
+        for k in self.stacked:
+            for path in pt.tree_paths(self.bundle.defs[k]):
+                if pt.tree_get(self.splits["param"][k], path) == 0:
+                    raise ValueError(f"{(k,) + path}: split over the ranks on its layer dim; "
+                                     "serving gathers a layer's slice along another dim")
         # the host tier is page-locked CPU memory on the card, the device
         # itself on the CPU
         pinned = self.device.type == "cuda"
@@ -161,24 +222,45 @@ class ZeroInfinityEngine:
     def init_params(self, generator: torch.Generator) -> dict:
         """The params alone on the engine's device, drawn from
         ``generator`` (which must live there) with the reference's
-        distributions: what serving needs."""
-        return self.bundle.init(generator, self.device)
+        distributions: what serving needs. On a mesh the rank's ZeRO
+        param shards of that draw (``partition.init_shards``)."""
+        if self.mesh is None:
+            return self.bundle.init(generator, self.device)
+        return pt.init_shards(self.bundle.defs, self.splits["param"], generator, self.device,
+                              self.rank, self.dp)
+
+    def serve_params(self, params: dict) -> dict:
+        """What one prefill wave or decode step reads of the rank's
+        ``params``: at one rank ``params`` itself; on a mesh the unstacked
+        leaves gathered whole (one collective, freed with the view after
+        the call) and each stacked subtree a ``LayerShards``. Every rank
+        calls it, and the step it feeds, in lockstep."""
+        if self.mesh is None:
+            return params
+        split = self.splits["param"]
+        out = {k: LayerShards(params[k], split[k], self.mesh) for k in self.stacked}
+        whole = {p: (pt.tree_get(params, p), pt.tree_get(split, p))
+                 for p in pt.tree_paths(params) if p[0] not in self.stacked}
+        for path, t in _gathered(whole, self.mesh).items():
+            pt.tree_set(out, path, t)
+        return out
 
     def init_state(self, generator: torch.Generator) -> dict:
         """``{"params"}`` plus ``{"opt"}`` (an ``AdamState``) unless the
         optimizer is off-graph (``run.opt_offgraph``: its states live in
-        the executor's store), params drawn as ``init_params`` does."""
-        return self.adopt_params(self.init_params(generator))
+        the executor's store), params drawn as ``init_params`` does (on a
+        mesh the rank's shards alone)."""
+        return self.adopt_params(self.init_params(generator), src="param")
 
-    def adopt_params(self, params: dict, step: int = 0) -> dict:
-        """This engine's state around the whole ``params`` (any device):
-        Adam masters the params' f32 copies, zero moments, the Adam step
-        count ``step`` (a checkpoint's, on a tier migration); on a mesh the
-        rank's shards of each."""
+    def adopt_params(self, params: dict, step: int = 0, src: Optional[str] = None) -> dict:
+        """This engine's state around ``params`` (any device), whole or, with
+        ``src``, laid out as that state class: Adam masters the params' f32
+        copies, zero moments, the Adam step count ``step`` (a checkpoint's,
+        on a tier migration); on a mesh the rank's shards of each."""
         params = pt.tree_map(lambda t: t.to(self.device), params)
-        state = {"params": self.respec(params, None, "param")}
+        state = {"params": self.respec(params, src, "param")}
         if not self.run.opt_offgraph:
-            opt = adam.init_state(self.respec(params, None, "opt"))
+            opt = adam.init_state(self.respec(params, src, "opt"))
             state["opt"] = opt._replace(step=torch.full_like(opt.step, step))
         return self.place_state(state)
 

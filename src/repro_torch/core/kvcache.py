@@ -21,7 +21,9 @@ kv_heads, head_dim)`` tensor whose last key is in ``seq_axis_names``
 an SSM state, a conv tail, a window-bounded K/V ring) is parked whole and
 never grows: the cross keys' length is the encoder's, and zero-padded
 ones would get attention weight. The batch axis of every non-scalar leaf
-is axis 1.
+is axis 1. On data-parallel ranks each rank keeps its own
+``PagedKVCache`` over its own store (``launch/serve.py``), so its byte
+counters are the rank's.
 """
 from __future__ import annotations
 

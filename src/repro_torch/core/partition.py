@@ -60,24 +60,29 @@ class ParamDef:
 
 
 def initialize(d: ParamDef, generator: torch.Generator,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, shard: Optional[tuple] = None) -> torch.Tensor:
+    """One leaf drawn whole from ``generator``; with ``shard`` = ``(dim,
+    rank, parts)`` only that rank's ``shard_leaf`` of it is kept, cut from
+    the f32 draw before the cast (the cast is elementwise, so the shard's
+    bits are the whole leaf's)."""
     dtype = d.torch_dtype
+    cut = (lambda t: t) if shard is None else (lambda t: shard_leaf(t, *shard))
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=dtype, device=device)
+        return cut(torch.zeros(d.shape, dtype=dtype, device=device))
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=dtype, device=device)
+        return cut(torch.ones(d.shape, dtype=dtype, device=device))
     if d.init == "lru_lambda":
         # RG-LRU forget-gate params: a = exp(-8*softplus(L)*r) spans
         # (0.9, 0.999) per the Griffin paper
         u = torch.empty(d.shape, dtype=torch.float32, device=device).uniform_(
             0.9, 0.999, generator=generator)
         lam = torch.log(torch.expm1(-torch.log(u) / 8.0))  # inverse softplus
-        return lam.to(dtype)
+        return cut(lam).to(dtype)
     fan_in = d.shape[0] if len(d.shape) > 1 else d.shape[-1]
     scale = d.init_scale if d.init == "normal" else 1.0 / math.sqrt(fan_in)
     x = torch.randn(d.shape, dtype=torch.float32, device=device,
                     generator=generator)
-    return (x * scale).to(dtype)
+    return cut(x.mul_(scale)).to(dtype)  # in place: one f32 leaf at a time
 
 
 def init_tree(defs, generator: torch.Generator, device) -> dict:
@@ -87,6 +92,21 @@ def init_tree(defs, generator: torch.Generator, device) -> dict:
     if isinstance(defs, ParamDef):
         return initialize(defs, generator, device)
     return {k: init_tree(defs[k], generator, device) for k in sorted(defs)}
+
+
+def init_shards(defs, splits, generator: torch.Generator, device, rank: int,
+                parts: int) -> dict:
+    """``init_tree``'s draw, leaf by leaf in its order, each leaf cut to
+    rank ``rank``'s shard along its dim in ``splits`` (a tree shaped like
+    ``defs``; None: whole) and the rest freed before the next is drawn: the
+    shards are bit for bit ``shard_leaf`` of ``init_tree``'s leaves, and no
+    more than one whole leaf is ever held."""
+    device = torch.device(device)
+    out: dict = {}
+    for path in tree_paths(defs):
+        shard = (tree_get(splits, path), rank, parts)
+        tree_set(out, path, initialize(tree_get(defs, path), generator, device, shard))
+    return out
 
 
 def tree_map(fn, tree):

@@ -22,7 +22,8 @@ The transport is chosen by a rule, never on failure (``choose_backend``):
 
 A run's device for rank r is ``cuda:{LOCAL_RANK % device_count}``, or the
 CPU. A ``--data-mesh N`` run whose world size is not N raises, naming the
-launch that gives it N ranks. With the tracer on, each collective is a
+launch of the entry point that was run (``launch.train`` or
+``launch.serve``) that gives it N ranks. With the tracer on, each collective is a
 span (``sys="comm"``, class ``collective``, ``attr="io_wait"``: the
 calling thread waits on the other ranks, and on a CUDA tensor on the
 kernels that produce it), so a step's attribution carries
@@ -53,7 +54,7 @@ COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
 warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_scatter_tensor)"
                         r"` is deprecated", category=FutureWarning)
 
-LAUNCH = "torchrun --standalone --nproc-per-node {n} -m repro_torch.launch.train ..."
+LAUNCH = "torchrun --standalone --nproc-per-node {n} -m repro_torch.launch.{entry} ..."
 # a rank that waits longer than this on a collective raises instead of hanging
 TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -144,6 +145,26 @@ class LocalMesh:
             dist.all_gather_into_tensor(out, t, group=self.group)
         return out if dim == 0 else out.movedim(0, dim).contiguous()
 
+    def all_gather_leaves(self, items: list) -> list:
+        """``[(t, dim), ...]`` -> each ``t`` all-gathered along its ``dim``
+        (as ``all_gather``), in ONE collective: every tensor's bytes, its
+        dim moved to the front, packed into one int8 buffer (dtypes may
+        differ), gathered, and cut back apart. Serving gathers a layer's
+        leaves so, one collective a layer."""
+        if self.world == 1 or not items:
+            return [t for t, _ in items]
+        parts = [t.movedim(d, 0).contiguous() for t, d in items]
+        flat = torch.cat([p.reshape(-1).view(torch.int8) for p in parts])
+        rows = self.all_gather(flat).view(self.world, -1)
+        out, off = [], 0
+        for p, (_, d) in zip(parts, items):
+            n = p.numel() * p.element_size()
+            whole = rows[:, off:off + n].contiguous().view(p.dtype)
+            whole = whole.reshape((self.world * p.shape[0],) + tuple(p.shape[1:]))
+            out.append(whole if d == 0 else whole.movedim(0, d).contiguous())
+            off += n
+        return out
+
     def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's chunk along ``dim`` of the ranks' ``t`` summed, in
         ``t``'s dtype (``reduce_scatter_tensor``, along dim 0 as
@@ -175,18 +196,41 @@ class LocalMesh:
         t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=dev)
         return [int(v) for v in self.all_reduce(t).cpu()]
 
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj`` in rank order (a serving run's
+        per-rank results)."""
+        if self.world == 1:
+            return [obj]
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
-def make_local_mesh(data: int = 1, model: int = 1, device="cpu") -> LocalMesh:
+
+def data_mesh(args) -> int:
+    """A launch's data-parallel ranks (``launch.train``, ``launch.serve``):
+    ``--data-mesh``, or where it is not given the devices a ``--plan`` is
+    made for (``--hw-devices``), else 1."""
+    if args.data_mesh:
+        return args.data_mesh
+    if args.plan != "manual" and args.hw_devices:
+        return args.hw_devices
+    return 1
+
+
+def make_local_mesh(data: int = 1, model: int = 1, device="cpu",
+                    entry: str = "train") -> LocalMesh:
     """This rank's mesh of ``data * model`` ranks on ``device`` (its card
     from ``_rank_device``). Raises where the process group holds another
-    number of ranks, or chose another backend than ``choose_backend``."""
+    number of ranks, naming the launch of ``entry`` (``launch.<entry>``,
+    the entry point that was run), or chose another backend than
+    ``choose_backend``."""
     n = data * model
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != n:
         raise ValueError(
             f"--data-mesh {data} --model-mesh {model} needs {n} ranks, one process "
             f"each, and this run has {world}: launch it as "
-            + LAUNCH.format(n=n) + " --data-mesh ...")
+            + LAUNCH.format(n=n, entry=entry) + " --data-mesh ...")
     dev = _rank_device(device)
     if n == 1:
         return LocalMesh(data, model, 0, 1, dev, None, "none")

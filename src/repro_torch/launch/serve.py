@@ -19,8 +19,25 @@ field, and the smoke check holds the measured device KV to the plan's
 Runs on the card by default and raises when CUDA is absent; ``--device
 cpu`` runs the plain versions (the tests do). ``--kv-quant q8|q4`` parks
 waiting KV blocks as block-quantized wire bytes (``core/qformat.py``),
-decoded on the host when fetched. A mesh larger than one device (or a
-plan for more than one, ``--hw-devices``) is not ported yet and raises.
+decoded on the host when fetched.
+
+On data-parallel ranks (``--data-mesh D``, or ``--plan auto --hw-devices
+D``; one process a rank under torchrun, as ``launch/mesh.py`` describes)
+each rank holds its ZeRO-3 param shards (the reference's sharding rules,
+``partition.make_rules``) and gathers one layer's leaves at a time in
+every prefill wave and decode step (``ZeroInfinityEngine.serve_params``):
+the reference's gather once per scanned step. The global ``slots`` (the
+flags' or the plan's) split over the ranks where they divide: rank r owns
+global slots ``[r*S/D, (r+1)*S/D)`` and those rows of every prefill wave,
+parks the waiting ones in its own KV store (NVMe: ``<kv-dir>/rank<r>``)
+and admits them into its own slots. Where they do not divide, every rank
+serves every slot (the reference replicates such a batch) and rank 0's
+counters are the run's. The ranks step in lockstep until none has an
+active slot (one all-reduce of an int a step); every rank returns the
+run: the sequences' tokens and latencies gathered from their ranks,
+``admissions`` and ``kv`` summed (``kv_ranks`` beside), each rank's
+``param_shard_bytes`` and peak allocated bytes. ``--model-mesh`` > 1
+raises (ROADMAP.md Queue 1 item 8e).
 
 Every family serves: dense, MoE (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
@@ -37,7 +54,9 @@ their caches do not grow with the context, each slot keeps its own
 length, and a waiting sequence's cache parks whole (no token blocks).
 
 Examples (one H100: full smollm-135m, llava-next-34b at full width cut to
-8 layers, full seamless-m4t-medium; 8 sequences through 4 device slots):
+8 layers, full seamless-m4t-medium; 8 sequences through 4 device slots;
+then two ranks on the CPU, and full llava-next-34b on four cards, each
+rank a quarter of its params):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       --batch 8 --kv-slots 4 --kv-tier host --prompt-len 512 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \
@@ -46,6 +65,12 @@ Examples (one H100: full smollm-135m, llava-next-34b at full width cut to
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch seamless-m4t-medium --batch 8 --kv-slots 4 --kv-tier host \
       --prompt-len 2048 --new-tokens 32
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --smoke --device cpu --data-mesh 2 \
+      --batch 5 --kv-slots 2 --kv-tier host --prompt-len 16 --new-tokens 8
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch llava-next-34b --data-mesh 4 \
+      --batch 8 --kv-slots 4 --kv-tier host --prompt-len 3072 --new-tokens 16
 """
 from __future__ import annotations
 
@@ -66,6 +91,7 @@ from repro_torch.core import partition as pt
 from repro_torch.core.engine import ZeroInfinityEngine
 from repro_torch.core.offload import HostArrayStore, NvmeStore, PinnedBufferPool
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.runtime import metrics as metrics_mod
 from repro_torch.runtime import trace
 
@@ -104,8 +130,11 @@ def _parse(argv=None):
                     help="block-quantized wire format for parked KV "
                          "blocks (core/qformat.py): waiting KV costs "
                          "0.53x (q8) / 0.31x (q4) of bf16 on the tier")
-    ap.add_argument("--data-mesh", type=int, default=1)
-    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--data-mesh", type=int, default=0,
+                    help="data-parallel ranks, one process each (torchrun); 0: "
+                         "the devices a --plan is made for (--hw-devices), else 1")
+    ap.add_argument("--model-mesh", type=int, default=1,
+                    help="not ported beyond 1: raises")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
                     metavar="OUT.json",
@@ -125,12 +154,12 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def _unported(args, plan=None) -> None:
-    n = plan.hardware.n_devices if plan is not None else 1
-    if args.data_mesh * args.model_mesh != 1 or n != 1:
+def _unported(args) -> None:
+    if args.model_mesh > 1:
         raise NotImplementedError(
-            "serving on a mesh larger than one device is not ported yet "
-            "(ROADMAP.md Queue 1 item 8c: serving on a mesh)")
+            "--model-mesh > 1 is not ported yet: serving shards params over data-"
+            "parallel ranks only (ROADMAP.md Queue 1 item 8e: tensor parallelism "
+            "over the model axis)")
 
 
 def _percentiles(xs) -> dict:
@@ -179,8 +208,23 @@ def run_serve(args, argv=None) -> dict:
     """The serving run; returns per-sequence tokens + timings + KV metrics
     (the test surface — ``main`` just prints). ``argv`` (default
     ``sys.argv[1:]``) says which legacy flags were given: under ``--plan
-    auto`` those become overrides of the derived plan."""
+    auto`` those become overrides of the derived plan. Joins the process
+    group torchrun describes where none exists (and leaves it before
+    returning); on a mesh every rank returns the run's numbers, gathered
+    from the ranks (``_serve``)."""
     device = resolve_device(args.device)
+    _unported(args)
+    created = mesh_mod.maybe_init_distributed(device.type)
+    try:
+        mesh = mesh_mod.make_local_mesh(mesh_mod.data_mesh(args), 1, device, entry="serve")
+        return _serve(args, argv, mesh)
+    finally:
+        if created:
+            torch.distributed.destroy_process_group()
+
+
+def _serve(args, argv, mesh) -> dict:
+    device = mesh.device
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     cfg = configs.with_layers(cfg, args.layers)
     n_seqs, P, N = args.batch, args.prompt_len, args.new_tokens
@@ -188,7 +232,12 @@ def run_serve(args, argv=None) -> dict:
     plan = plan_mod.resolve_plan(
         args, cfg, ShapeConfig("serve-plan", P + N, n_seqs, "decode"),
         argv=argv)
-    _unported(args, plan)
+    if plan is not None and plan.hardware.n_devices != mesh.world:
+        n = plan.hardware.n_devices
+        raise ValueError(
+            f"a plan for {n} device(s) serves on as many ranks, and this run has "
+            f"{mesh.world}: plan for {mesh.world} (--hw-devices {mesh.world}) or launch "
+            f"{n} ranks (torchrun --standalone --nproc-per-node {n} ... --hw-devices {n})")
     if plan is not None:
         run = plan.to_run_config()
         kv_tier = plan.kv_tier
@@ -203,8 +252,17 @@ def run_serve(args, argv=None) -> dict:
         kv_prefetch = 2
     slots = max(1, min(int(slots), n_seqs))
     block_tokens = int(block_tokens) or kvcache.default_block_tokens(P + N)
+    # the rank's slots: global slots [lo, lo + local) where they divide over
+    # the ranks, else every slot (the batch replicated, as the reference's
+    # rule replicates a batch dim that does not divide)
+    split = slots % mesh.world == 0
+    local = slots // mesh.world if split else slots
+    lo = mesh.rank * local if split else 0
+    if device.type == "cuda":  # the run's peak, from here (its allocator up first)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
 
-    eng = ZeroInfinityEngine(run, device)
+    eng = ZeroInfinityEngine(run, device, mesh=mesh)
     params = eng.init_params(torch.Generator(device=device).manual_seed(args.seed))
     bundle = eng.bundle
 
@@ -212,11 +270,13 @@ def run_serve(args, argv=None) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    # the slow tier for waiting sequences (unused when every slot fits)
+    # the slow tier for waiting sequences (unused when every slot fits);
+    # on a mesh each rank's own store (NVMe: <kv-dir>/rank<r>/kv)
     pool = PinnedBufferPool(run.offload.pinned_buffer_mb << 20,
                             pin=device.type == "cuda")
     if kv_tier == "nvme":
-        store = NvmeStore(os.path.join(args.kv_dir, "kv"), pool=pool,
+        root = args.kv_dir if mesh.world == 1 else os.path.join(args.kv_dir, f"rank{mesh.rank}")
+        store = NvmeStore(os.path.join(root, "kv"), pool=pool,
                           workers=run.offload.nvme_workers)
     else:
         store = HostArrayStore(pool=pool, workers=2)
@@ -227,15 +287,18 @@ def run_serve(args, argv=None) -> dict:
                               seq_axis_names=seq_names,
                               prefetch_blocks=kv_prefetch)
 
-    # ---- prompts for every sequence (waves of `slots` rows) ----
+    # ---- prompts for every sequence (waves of `slots` rows, the rank's
+    # `local` of them) ----
     full = draw_inputs(bundle.input_specs(ShapeConfig("serve", P, slots, "prefill")),
                        n_seqs, cfg.vocab_size, args.seed)
 
     def wave_rows(w):
-        lo = w * slots
-        idx = list(range(lo, min(lo + slots, n_seqs)))
+        """The rank's rows of wave ``w`` (sequence ids, padded with 0) and
+        how many of them are real sequences."""
+        base = w * slots + lo
+        idx = list(range(base, min(base + local, n_seqs)))
         valid = len(idx)
-        while len(idx) < slots:
+        while len(idx) < local:
             idx.append(0)  # padding rows; results discarded
         return idx, valid
 
@@ -245,6 +308,7 @@ def run_serve(args, argv=None) -> dict:
     n_waves = -(-n_seqs // slots)
     gen = [[] for _ in range(n_seqs)]
     done = [False] * n_seqs
+    owned = []  # the sequences this rank prefilled
     waiting: collections.deque = collections.deque()
 
     pc = time.perf_counter
@@ -252,7 +316,7 @@ def run_serve(args, argv=None) -> dict:
         # untimed warm-up (kernel build and load, first launches): the
         # throughput below is steady-state compute
         t0 = pc()
-        bundle.prefill(params, wave_batch(wave_rows(0)[0]))
+        bundle.prefill(eng.serve_params(params), wave_batch(wave_rows(0)[0]))
         sync()
         t_compile_prefill = pc() - t0
 
@@ -264,7 +328,7 @@ def run_serve(args, argv=None) -> dict:
             idx, valid = wave_rows(w)
             t0 = pc()
             with trace.span("prefill", sys="serve", attr="compute", unit=w):
-                logits, cache = bundle.prefill(params, wave_batch(idx))
+                logits, cache = bundle.prefill(eng.serve_params(params), wave_batch(idx))
                 sync()
             t_prefill += pc() - t0
             first = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
@@ -272,6 +336,7 @@ def run_serve(args, argv=None) -> dict:
             t_first = pc() - t_serve
             for j in range(valid):
                 s = idx[j]
+                owned.append(s)
                 ttft[s] = t_first
                 gen[s].append(int(first[j]))
                 if int(first[j]) == eos or N <= 1:
@@ -292,21 +357,21 @@ def run_serve(args, argv=None) -> dict:
         cache0, idx0, valid0 = wave0
         slot_cache = kvcache.grow_cache(cache0, N, cfg.family)
         slot_cache = {**slot_cache,
-                      "len": torch.full((slots,), prefill_len,
+                      "len": torch.full((local,), prefill_len,
                                         dtype=torch.int32, device=device)}
         cap = prefill_len + N
         resident = kvcache.device_kv_bytes(slot_cache)
 
-        slot_seq = [idx0[j] if j < valid0 else None for j in range(slots)]
-        active = [j < valid0 and not done[idx0[j]] for j in range(slots)]
-        cur = np.zeros((slots,), np.int32)
+        slot_seq = [idx0[j] if j < valid0 else None for j in range(local)]
+        active = [j < valid0 and not done[idx0[j]] for j in range(local)]
+        cur = np.zeros((local,), np.int32)
         for j in range(valid0):
             cur[j] = gen[idx0[j]][-1]
 
         # untimed decode warm-up on a copy (decode writes its cache in place)
         t0 = pc()
-        bundle.decode_step(params, pt.tree_map(torch.clone, slot_cache),
-                           {"tokens": torch.zeros((slots, 1), dtype=torch.int32,
+        bundle.decode_step(eng.serve_params(params), pt.tree_map(torch.clone, slot_cache),
+                           {"tokens": torch.zeros((local, 1), dtype=torch.int32,
                                                   device=device)})
         sync()
         t_compile_decode = pc() - t0
@@ -314,7 +379,11 @@ def run_serve(args, argv=None) -> dict:
         # ---- continuous-batching decode loop ----
         # Admission fetches are issued AHEAD of need (kv.start_fetch) so the
         # block reads overlap decode steps; a freed slot pays only the
-        # uncovered remainder, reported as admit_stall_s.
+        # uncovered remainder, reported as admit_stall_s. On a mesh a
+        # waiting sequence is admitted into a slot of the rank that parked
+        # it; the ranks step in lockstep (every step gathers each layer)
+        # until no rank has an active slot, which a waiting sequence would
+        # have taken.
         history = []
         tok_lat = []  # per-token decode latency (one entry per token)
         t_decode = t_admit = t_admit_stall = 0.0
@@ -322,14 +391,14 @@ def run_serve(args, argv=None) -> dict:
         prefetched: collections.deque = collections.deque()
 
         def top_up_admissions():
-            while waiting and len(prefetched) < slots:
+            while waiting and len(prefetched) < local:
                 s = waiting.popleft()
                 prefetched.append((s, kv.start_fetch(f"seq{s}", cap)))
 
         top_up_admissions()  # first admissions overlap the first decodes
         while True:
             m = kv.mark()
-            for b in range(slots):
+            for b in range(local):
                 if active[b] or not prefetched:
                     continue
                 s, handle = prefetched.popleft()
@@ -349,13 +418,13 @@ def run_serve(args, argv=None) -> dict:
             top_up_admissions()
             for _, handle in prefetched:
                 handle.poll()  # keep windows full without blocking
-            if not any(active):
+            if not mesh.sum_over_ranks([sum(active)])[0]:
                 break
             t0 = pc()
             with trace.span("decode_step", sys="serve", attr="compute",
                             unit=steps):
                 logits, slot_cache = bundle.decode_step(
-                    params, slot_cache,
+                    eng.serve_params(params), slot_cache,
                     {"tokens": torch.from_numpy(cur[:, None].copy()).to(device)})
                 toks = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
             step_dt = pc() - t0
@@ -363,7 +432,7 @@ def run_serve(args, argv=None) -> dict:
             steps += 1
             history.append(
                 metrics_mod.kv_step_metrics(kv.delta_since(m), resident))
-            for b in range(slots):
+            for b in range(local):
                 if not active[b]:
                     continue  # idle slot: padding decode, masked out
                 s = slot_seq[b]
@@ -376,6 +445,31 @@ def run_serve(args, argv=None) -> dict:
 
     stats = store.bandwidth_stats()
     store.close()
+    kv_rank = {
+        "resident_bytes": resident,
+        "in_bytes": int(stats["logical_bytes_read"]),
+        "out_bytes": int(stats["logical_bytes_written"]),
+        "in_wire_bytes": int(stats["bytes_read"]),
+        "out_wire_bytes": int(stats["bytes_written"]),
+        "parked_peak_bytes": kv.parked_bytes(),
+        "pinned_peak_bytes": int(pool.peak_resident),
+        "pinned_budget_bytes": int(run.offload.pinned_buffer_mb) << 20,
+    }
+    mine = {"seqs": {s: (gen[s], done[s], ttft[s]) for s in owned}, "tok_lat": tok_lat,
+            "admissions": admissions, "kv": kv_rank,
+            "param_shard_bytes": sum(t.numel() * t.element_size()
+                                     for t in pt.tree_leaves(params)),
+            "peak_allocated_bytes": (torch.cuda.max_memory_allocated(device)
+                                     if device.type == "cuda" else 0)}
+    ranks = mesh.gather_objects(mine)
+    # the run's numbers: every rank's sequences and counters summed where
+    # the slots split; rank 0's where every rank served every slot
+    serving = ranks if split else ranks[:1]
+    tok_lat = []
+    for r in serving:
+        for s, (g, d, t) in r["seqs"].items():
+            gen[s], done[s], ttft[s] = g, d, t
+        tok_lat += r["tok_lat"]
     return {
         "generated": gen,
         "done": done,
@@ -383,7 +477,7 @@ def run_serve(args, argv=None) -> dict:
         "kv_tier": kv_tier,
         "block_tokens": block_tokens,
         "steps": steps,
-        "admissions": admissions,
+        "admissions": sum(r["admissions"] for r in serving),
         "plan": plan,
         "history": history,
         "latency": {
@@ -392,16 +486,13 @@ def run_serve(args, argv=None) -> dict:
             "ttft": _percentiles(ttft),
             "decode_token": _percentiles(tok_lat),
         },
-        "kv": {
-            "resident_bytes": resident,
-            "in_bytes": int(stats["logical_bytes_read"]),
-            "out_bytes": int(stats["logical_bytes_written"]),
-            "in_wire_bytes": int(stats["bytes_read"]),
-            "out_wire_bytes": int(stats["bytes_written"]),
-            "parked_peak_bytes": kv.parked_bytes(),
-            "pinned_peak_bytes": int(pool.peak_resident),
-            "pinned_budget_bytes": int(run.offload.pinned_buffer_mb) << 20,
-        },
+        "kv": {k: sum(r["kv"][k] for r in serving) for k in kv_rank},
+        "mesh": {"world": mesh.world, "rank": mesh.rank, "backend": mesh.backend,
+                 "slots_split": split, "local_slots": local},
+        "kv_ranks": [r["kv"] for r in ranks],
+        "admissions_ranks": [r["admissions"] for r in ranks],
+        "param_shard_bytes": [r["param_shard_bytes"] for r in ranks],
+        "peak_allocated_bytes": [r["peak_allocated_bytes"] for r in ranks],
         "timings": {
             "compile_prefill_s": t_compile_prefill,
             "compile_decode_s": t_compile_decode,
@@ -418,6 +509,8 @@ def main(argv=None) -> None:
     if args.trace:
         trace.enable()
     out = run_serve(args, argv)
+    if out["mesh"]["rank"] != 0:  # rank 0 prints the run
+        return
     t = out["timings"]
     gen, slots = out["generated"], out["slots"]
     n_seqs, P = args.batch, args.prompt_len
@@ -439,6 +532,18 @@ def main(argv=None) -> None:
           f"in {kvm['in_bytes']} B | out {kvm['out_bytes']} B | "
           f"pinned peak {kvm['pinned_peak_bytes']} B "
           f"(budget {kvm['pinned_budget_bytes']} B)")
+    msh = out["mesh"]
+    if msh["world"] > 1:
+        print(f"mesh: {msh['world']} ranks ({msh['backend']}), "
+              + (f"{msh['local_slots']} slots a rank" if msh["slots_split"] else
+                 f"{slots} slots do not divide: every rank serves all, rank 0's counters")
+              + f" | param_shard_bytes {out['param_shard_bytes']} | peak allocated "
+              f"{out['peak_allocated_bytes']} B | decode step "
+              f"{t['decode_s'] / max(out['steps'], 1) * 1e3:.1f} ms")
+        for r, kr in enumerate(out["kv_ranks"]):
+            print(f"kv rank {r}: in {kr['in_bytes']} B | out {kr['out_bytes']} B | "
+                  f"resident {kr['resident_bytes']} B | "
+                  f"{out['admissions_ranks'][r]} admissions")
     lat = out["latency"]
     ttft_p, tok_p = lat["ttft"], lat["decode_token"]
     print(f"latency: TTFT p50/p95/p99 = {ttft_p['p50']*1e3:.1f}/"
@@ -473,11 +578,12 @@ def main(argv=None) -> None:
                 raise SystemExit(
                     f"SERVE SMOKE FAIL: measured device KV "
                     f"{kvm['resident_bytes']} B > planned {pred:.0f} B")
-        if kvm["pinned_peak_bytes"] > kvm["pinned_budget_bytes"]:
-            raise SystemExit(
-                f"SERVE SMOKE FAIL: pinned staging "
-                f"{kvm['pinned_peak_bytes']} B exceeded the "
-                f"{kvm['pinned_budget_bytes']} B budget")
+        for r, kr in enumerate(out["kv_ranks"]):
+            if kr["pinned_peak_bytes"] > kr["pinned_budget_bytes"]:
+                raise SystemExit(
+                    f"SERVE SMOKE FAIL: rank {r}'s pinned staging "
+                    f"{kr['pinned_peak_bytes']} B exceeded the "
+                    f"{kr['pinned_budget_bytes']} B budget")
         for which in ("ttft", "decode_token"):
             p = lat[which]
             if p["p50"] > p["p99"]:

@@ -131,6 +131,7 @@ from repro_torch.config import (RunConfig, ShapeConfig, TrainConfig,
 from repro_torch.core.executor import InfinityExecutor
 from repro_torch.data.pipeline import PrefetchLoader, SyntheticStream
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.mesh import data_mesh
 from repro_torch.launch.serve import resolve_device
 from repro_torch.runtime import trace
 from repro_torch.runtime.elastic import wire_straggler
@@ -241,16 +242,6 @@ def _unported(args, dp: int = 1) -> None:
     for bad, what, item in checks:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-
-def data_mesh(args) -> int:
-    """The run's data-parallel ranks: ``--data-mesh``, or where it is not
-    given the devices a ``--plan`` is made for (``--hw-devices``), else 1."""
-    if args.data_mesh:
-        return args.data_mesh
-    if args.plan != "manual" and args.hw_devices:
-        return args.hw_devices
-    return 1
 
 
 def make_run(args, argv=None):

@@ -74,12 +74,16 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         h = h + a
         return h + cm.mlp_block(blk["mlp"], cm.norm(h, blk["ln2"], kind), cfg, tiles)
 
-    def enc_forward(params, frames):
+    def enc_forward(params, frames, serving=False):
+        """The encoder stack; training unbinds each stacked leaf once (as
+        the decoder's loss), serving reads a layer through
+        ``layer_params`` (a mesh's per-layer gather)."""
         x = frames.to(torch.bfloat16)
         positions = _positions(x)
-        layers = pt.tree_map(lambda t: t.unbind(0), params["enc"])
+        layers = None if serving else pt.tree_map(lambda t: t.unbind(0), params["enc"])
         for l in range(cfg.n_enc_layers):
-            blk = pt.tree_map(lambda ts: ts[l], layers)
+            blk = (layer_params(params["enc"], l) if serving
+                   else pt.tree_map(lambda ts: ts[l], layers))
             x = remat_mod.remat(remat, enc_block, x, blk, positions)
         return cm.norm(x, params["ln_enc"], kind)
 
@@ -152,7 +156,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         last position's logits (B, 1, V_padded) and the cache: ``k``/``v``
         (L, B, S_dec, KV, D), ``xk``/``xv`` (L, B, S_enc, KV, D), ``len``
         = S_dec."""
-        memory = enc_forward(params, batch["frames"])
+        memory = enc_forward(params, batch["frames"], serving=True)
         x = cm.embed(params["embed"], batch["tokens"], cfg)
         positions = _positions(x)
         kv = {"k": [], "v": [], "xk": [], "xv": []}

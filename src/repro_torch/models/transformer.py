@@ -63,9 +63,15 @@ def param_defs(cfg: ModelConfig) -> dict:
             "ln_f": cm.norm_defs(cfg.d_model, cfg.norm_kind)}
 
 
-def layer_params(blocks: dict, layer: int) -> dict:
-    """One layer's slice (views) of the stacked block params."""
-    return pt.tree_map(lambda t: t[layer], blocks)
+def layer_params(blocks, layer: int) -> dict:
+    """One layer's params of a stacked subtree: every family's prefill and
+    decode step read a layer through this hook. At one rank ``blocks`` is
+    the whole stacked leaves and this is their slice (views); on a mesh it
+    is the engine's ``LayerShards`` and this the layer's gather of the
+    rank's shards (``core/engine.py``)."""
+    if isinstance(blocks, dict):
+        return pt.tree_map(lambda t: t[layer], blocks)
+    return blocks.layer(layer)
 
 
 def _check_ported(cfg: ModelConfig) -> None:

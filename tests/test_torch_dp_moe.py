@@ -658,13 +658,15 @@ def test_wave_backward_is_the_dim1_reduce_scatter(dpm):
 
 
 def test_serving_moe_on_a_mesh_refuses_naming_its_item():
-    """MoE trains on a mesh; serving on one stays unported (item 8c)."""
+    """MoE trains and serves on data-parallel ranks (serving:
+    ``tests/test_torch_serve_mesh.py``); serving it over a model axis stays
+    unported (item 8e)."""
     from repro_torch.launch import serve
 
-    args = serve._parse(["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu",
-                         "--data-mesh", "2"])
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        serve._unported(args)
+    base = ["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--data-mesh", "2"]
+    serve._unported(serve._parse(base))
+    with pytest.raises(NotImplementedError, match="item 8e"):
+        serve._unported(serve._parse(base + ["--model-mesh", "2"]))
 
 
 def test_no_message_of_the_port_cites_a_global_capacity_or_item_8d():

@@ -1,5 +1,6 @@
 """The reference's side of ``tests/test_torch_dp.py``,
-``tests/test_torch_gspmd_mesh.py`` and ``tests/test_torch_dp_moe.py``, run
+``tests/test_torch_gspmd_mesh.py``, ``tests/test_torch_dp_moe.py`` and
+``tests/test_torch_serve_mesh.py``, run
 as a script in a subprocess of its own with four host devices (the test
 process keeps one). Job ``dp``: the JAX package's
 ``InfinityExecutor(engine="zero3")`` on a mesh of dp devices for every
@@ -10,10 +11,12 @@ of ``torch_dp_worker.GSPMD_CASES``, from the initial params the test saved;
 job ``dp_moe``: the explicit engine's layered epoch for every case of
 ``torch_dp_worker.LAYERED_CASES`` and the pjit executor for every case of
 ``torch_dp_worker.MOE_GSPMD_CASES``, from the initial states the test
+saved; job ``serve``: its ``launch.serve`` on a mesh of dp devices for
+every case of ``torch_dp_worker.SERVE_CASES``, from the params the test
 saved. Writes the numbers to one ``.npz`` (pytest does not collect this
 file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe]
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve]
 """
 from __future__ import annotations
 
@@ -258,6 +261,48 @@ def _torch_keyed(tree, prefix="") -> dict:
     return out
 
 
+SERVE_KV = ("resident_bytes", "in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
+
+
+def run_serve_case(case: str, tmp: str, out: dict) -> None:
+    """The reference's ``launch.serve`` with ``case``'s flags on a mesh of
+    its dp devices (``--data-mesh``), from the params the test saved,
+    laid out by the engine's param shardings: the generated tokens, the
+    admissions and steps, the ``kv`` byte counters and the plan."""
+    import json
+
+    import torch
+
+    from repro.core import partition as jpt
+    from repro.launch import serve as jserve
+
+    cfg = W.serve_cfg(case, jconfigs)
+    init = torch.load(W.serve_init_path(tmp, case), weights_only=False)
+    flat = {k: np.asarray(v.float().numpy()) for k, v in _torch_keyed(init).items()}
+
+    def init_state(self, rng):
+        params = jax.tree_util.tree_map_with_path(
+            lambda p, d: jnp.asarray(flat[jax.tree_util.keystr(p)]).astype(d.dtype),
+            self.bundle.defs, is_leaf=lambda x: isinstance(x, jpt.ParamDef))
+        return {"params": jax.device_put(params, self.param_shardings())}
+
+    real = jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state
+    jserve.configs.smoke = lambda name: cfg
+    jserve.ZeroInfinityEngine.init_state = init_state
+    try:
+        argv = W.serve_argv(case, "jax", tmp)
+        res = jserve.run_serve(jserve._parse(argv), argv)
+    finally:
+        jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state = real
+    out[f"{case}/generated"] = np.array(json.dumps(res["generated"]))
+    for key in ("admissions", "steps", "slots"):
+        out[f"{case}/{key}"] = np.array(int(res[key]))
+    for key in SERVE_KV:
+        out[f"{case}/kv/{key}"] = np.array(int(res["kv"][key]))
+    if res["plan"] is not None:
+        out[f"{case}/plan"] = np.array(res["plan"].to_json())
+
+
 def main() -> None:
     tmp, path = sys.argv[1], sys.argv[2]
     job = sys.argv[3] if len(sys.argv) > 3 else "dp"
@@ -272,6 +317,9 @@ def main() -> None:
             run_layered_case(case, tmp, out)
         for case in W.MOE_GSPMD_CASES:
             run_gspmd_case(case, tmp, out)
+    elif job == "serve":
+        for case in W.SERVE_CASES:
+            run_serve_case(case, tmp, out)
     else:
         for case in W.GSPMD_CASES:
             run_gspmd_case(case, tmp, out)

@@ -104,6 +104,29 @@ PLAN_ARGV = ["--smoke", "--device", "cpu", "--plan", "auto", "--hw-devices", "2"
              "--hw-device-mem", "4e9", "--hw-host-mem", "64e9", "--hw-nvme", "1e12",
              "--steps", "3", "--batch", "4", "--seq", "16", "--lr", "3e-3",
              "--ckpt-every", "0", "--log-every", "100"]
+# the serving cases (job serve): case -> (dp, arch, layers (0: the smoke
+# depth), flags). Five sequences through two slots, four new tokens each,
+# the prompts of tests/test_torch_kv_counters.py; at dp 4 the two slots do
+# not divide over the ranks (the batch replicated). The plan's case pins
+# its hardware (no detected number enters the plan) and keeps the two
+# slots as an override.
+SERVE_ARGV = ["--smoke", "--batch", "5", "--kv-slots", "2", "--new-tokens", "4"]
+SERVE_PROMPT = {"llava-next-34b": 16, "seamless-m4t-medium": 16}
+_HOST = ["--kv-tier", "host"]
+SERVE_CASES = {
+    "smollm_dp2": (2, "smollm-135m", 0, _HOST),
+    "smollm_dp4": (4, "smollm-135m", 0, _HOST),
+    "moe_dp2": (2, "granite-moe-1b-a400m", 0, _HOST),
+    "ssm_dp2": (2, "mamba2-370m", 0, _HOST),
+    "hybrid_dp2": (2, "recurrentgemma-9b", 5, _HOST),
+    "vlm_dp2": (2, "llava-next-34b", 0, _HOST),
+    "encdec_dp2": (2, "seamless-m4t-medium", 0, _HOST),
+    "q8_dp2": (2, "smollm-135m", 0, _HOST + ["--kv-quant", "q8"]),
+    "nvme_dp2": (2, "smollm-135m", 0, ["--kv-tier", "nvme"]),
+    "plan_dp2": (2, "smollm-135m", 0, ["--plan", "auto", "--hw-devices", "2",
+                                       "--hw-device-mem", "4e9", "--hw-host-mem", "64e9",
+                                       "--hw-nvme", "1e12"]),
+}
 # the psum_compressed cases: (shape, dtype) over three steps of error feedback
 PSUM_CASES = [((49, 7), "float32"), ((300,), "bfloat16"), ((2, 256), "float32")]
 
@@ -568,7 +591,109 @@ def job_dp_moe(tmp: str, mesh) -> dict:
     return out
 
 
-JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe}
+# ---------------------------------------------------------------------------
+# job serve: launch.serve on the ranks
+# ---------------------------------------------------------------------------
+
+
+def serve_cfg(case: str, package):
+    """``case``'s model config from ``package``'s ``configs``."""
+    _, arch, layers, _ = SERVE_CASES[case]
+    cfg = package.smoke(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def serve_argv(case: str, side: str, tmp: str) -> list:
+    """``case``'s serve flags for ``side`` ("torch": the port, on the CPU,
+    its ranks from ``--data-mesh`` or the plan's ``--hw-devices``; "jax":
+    the reference, whose mesh is ``--data-mesh`` alone)."""
+    dp, arch, layers, extra = SERVE_CASES[case]
+    argv = ["--arch", arch, *SERVE_ARGV, "--prompt-len", str(SERVE_PROMPT.get(arch, 8)),
+            *extra, "--kv-dir", os.path.join(tmp, case, side)]
+    if side == "jax" or "--plan" not in extra:
+        argv += ["--data-mesh", str(dp)]
+    if side == "torch":
+        argv += ["--device", "cpu"] + (["--layers", str(layers)] if layers else [])
+    return argv
+
+
+def serve_init_path(tmp: str, case: str) -> str:
+    """Where the test saves ``case``'s params: the reference bundle's init
+    at one device, as the port's whole tensors."""
+    return os.path.join(tmp, f"serve_init_{case}.pt")
+
+
+def layer_gather_unit(eng, whole: dict) -> dict:
+    """The rank's shards of ``whole`` read through ``serve_params``: each
+    stacked subtree's ``layer(l)`` against ``layer_params`` of the whole
+    leaves, each unstacked leaf against the whole leaf (``torch.equal``);
+    and what the rank holds of each stacked leaf."""
+    import torch
+
+    from repro_torch.core import partition as pt
+    from repro_torch.models.transformer import layer_params
+
+    shards = eng.respec(whole, None, "param")
+    view = eng.serve_params(shards)
+    equal, split = True, []
+    for k in sorted(whole):
+        if k in eng.stacked:
+            for l in range(pt.tree_leaves(whole[k])[0].shape[0]):
+                got, want = layer_params(view[k], l), layer_params(whole[k], l)
+                equal &= all(torch.equal(pt.tree_get(got, p), pt.tree_get(want, p))
+                             for p in pt.tree_paths(want))
+            for p in pt.tree_paths(whole[k]):
+                if pt.tree_get(eng.splits["param"][k], p) is not None:
+                    split.append((k,) + p)
+        else:
+            equal &= all(torch.equal(pt.tree_get(view[k], p), pt.tree_get(whole[k], p))
+                         for p in pt.tree_paths(whole[k]))
+    held = {(k,) + p: tuple(pt.tree_get(shards[k], p).shape) for k in eng.stacked
+            for p in pt.tree_paths(shards[k])}
+    return {"equal": equal, "stacked": list(eng.stacked), "split_stacked": split,
+            "held_shapes": held}
+
+
+def run_serve_case(case: str, tmp: str, mesh) -> dict:
+    """``launch.serve`` with ``case``'s flags on this rank's group, its
+    params the rank's shards of the saved whole params; the run's
+    numbers, the engine's ``shard_bytes`` and ``layer_gather_unit``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.config import ParallelConfig, RunConfig
+    from repro_torch.core import partition as pt
+    from repro_torch.core.engine import ZeroInfinityEngine
+    from repro_torch.launch import serve
+
+    whole = torch.load(serve_init_path(tmp, case), weights_only=False)
+    argv = serve_argv(case, "torch", tmp)
+    real = serve.ZeroInfinityEngine.init_params
+    serve.ZeroInfinityEngine.init_params = lambda self, gen: self.respec(
+        pt.tree_map(lambda t: t.to(self.device), whole), None, "param")
+    try:
+        out = serve.run_serve(serve._parse(argv), argv)
+    finally:
+        serve.ZeroInfinityEngine.init_params = real
+    eng = ZeroInfinityEngine(RunConfig(model=serve_cfg(case, configs),
+                                       parallel=ParallelConfig(remat="none")), "cpu", mesh=mesh)
+    rec = {k: out[k] for k in ("generated", "done", "slots", "steps", "admissions", "kv",
+                               "kv_ranks", "admissions_ranks", "param_shard_bytes", "mesh")}
+    rec["plan"] = out["plan"].to_json() if out["plan"] is not None else None
+    rec["plan_devices"] = out["plan"].hardware.n_devices if out["plan"] is not None else None
+    rec["shard_bytes"] = eng.shard_bytes()["param_shard_bytes"]
+    rec["whole_bytes"] = sum(t.numel() * t.element_size() for t in pt.tree_leaves(whole))
+    rec["gather"] = layer_gather_unit(eng, whole)
+    return rec
+
+
+def job_serve(tmp: str, mesh) -> dict:
+    """Every serving case at this world size."""
+    return {case: run_serve_case(case, tmp, mesh) for case, spec in SERVE_CASES.items()
+            if spec[0] == mesh.world}
+
+
+JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve}
 
 
 def main() -> None:
