@@ -172,6 +172,36 @@ Phases (any failure exits non-zero; no phase is caught):
       over the ranks phase 5's, each rank's flash and tiled-matmul launches
       on wgmma as phase 5's; each rank's peak allocated memory and the
       decode step's time printed;
+  16h. "cp numerics" (the same spawn): context parallelism, the GSPMD
+      engine at ZeRO-3 on a (1, 2) mesh (smollm's 9 heads do not split
+      over 2: each rank its half of the sequence, K/V all-gathered), phase
+      11's model, weights and global batches: the params and masters
+      joined over the ranks, the loss and grad norm held against phase
+      11's kept one-rank CPU run by its bounds;
+  16i. "cp train" (the same spawn): ``launch.train --engine pjit
+      --model-mesh 2`` on full smollm-135m, 4 steps of 8 x 512 (256 of
+      the 512 positions of each row a rank): each rank's param bytes
+      exactly 161,162,496 (the attention weights and norms whole, the MLP
+      and vocab halved), the losses phase 12's by ``TRAIN_TOL``;
+  16j. "tp numerics" / "tp train" / "tp serve": one spawn of three ranks
+      on the card (``TP3_PARTS``, phase "tp3 ranks"), tensor parallelism
+      over 3 (3 heads, 1 KV head, 512 MLP columns and 16,384 vocab rows a
+      rank): 16h's check at (1, 3); 16i's run at (1, 3) with 89,793,792
+      param bytes a rank; ``launch.serve --model-mesh 3`` on full
+      smollm-135m at phase 5's sizes but 8 new tokens (``TP_SERVE_ARGV``;
+      every sequence finished, 89,793,792 param bytes a rank, the ``kv``
+      bytes summed over the ranks those of a one-rank run of the same
+      argv, phase "tp serve one rank", the share of tokens equal to its
+      printed), then phase 4's teacher-forced prefill and decode at 2
+      layers on the ranks' shards held to phase 4's CPU side by
+      ``E2E_REL_TOL``;
+  16k. "model axis kernels": flash forward and backward at context
+      parallelism's shapes (``FLASH_CP``: 256 queries on 256 and on 512
+      keys, causal, the mask aligned at the end; timed beside the bound,
+      the CUDA-core kernel, the plain version and SDPA) and at tensor
+      parallelism's (``FLASH_TP``: "tp train"'s and "vlm tp4 nccl
+      train"'s), and the tiled matmul at their MLP shards forward and
+      backward (``TILED_TP``), bf16, by ``TOL``;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -271,7 +301,7 @@ Phases (any failure exits non-zero; no phase is caught):
       ``phases:`` line of all of them), the kernels JSON line, then the
       device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16g (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16j (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -282,13 +312,14 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
-``chip_smoke.py --dp-rank all|numerics|train[+moe]|gspmd_numerics|gspmd_train[+moe]|serve``
-is one rank of phase 16a-16g, started by the script itself through
-``torch.distributed.run``; ``chip_smoke.py --nccl-check [train|serve]``
-runs phase 16b's and 16d's paths ("train") and llava served on the ranks
+``chip_smoke.py --dp-rank all|tp3|numerics|train[+moe]|gspmd_numerics|gspmd_train[+moe]|serve``
+is one rank of phase 16a-16j, started by the script itself through
+``torch.distributed.run``; ``chip_smoke.py --nccl-check [train|serve|tp]``
+runs phase 16b's and 16d's paths ("train"), llava served on the ranks
 ("serve": at 8 layers against one rank's tokens, then at full depth, a
-quarter of its params a rank) on four ranks with a card each (NCCL), on a
-machine with four cards.
+quarter of its params a rank) and llava under tensor parallelism ("tp":
+trained at 2 layers, served at full depth with ``--model-mesh 4``) on
+four ranks with a card each (NCCL), on a machine with four cards.
 """
 from __future__ import annotations
 
@@ -552,10 +583,12 @@ def causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True) -> int:
 
 def sdpa(q, k, v, window: int = 0, causal: bool = True):
     """The library's attention on the same inputs: causal (or not), or
-    under a window the plain version's boolean mask."""
-    if not window:
+    under a window, or causal with fewer queries than keys (its
+    ``is_causal`` aligns the mask at the start, the kernel's at the end),
+    the plain version's boolean mask."""
+    if not window and (not causal or q.shape[2] == k.shape[2]):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
-    mask = ref.visible(q.shape[2], k.shape[2], True, window, q.device)
+    mask = ref.visible(q.shape[2], k.shape[2], causal, window, q.device)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
 
@@ -1169,6 +1202,7 @@ def phase_e2e(arch: str = "smollm-135m") -> dict:
             lgs.append(lg.float().cpu())
         out[dev] = torch.cat(lgs, dim=1)
     a, b = out["cpu"], out["cuda"]
+    E2E_CPU["logits"] = a
     if not torch.isfinite(b).all() or a.shape != b.shape:
         raise SystemExit(f"FAIL e2e: card logits {tuple(b.shape)} not finite "
                          f"or not {tuple(a.shape)}")
@@ -1959,20 +1993,26 @@ def dp_rank(mode: str) -> int:
     created = mesh_mod.maybe_init_distributed("cuda")
     try:
         rec = {}
-        for part in DP_PARTS if mode == "all" else (mode,):
+        for part in {"all": DP_PARTS, "tp3": TP3_PARTS}.get(mode, (mode,)):
             base, _, extra = part.partition("+")
             rec[part] = {"numerics": dp2_numerics_rank,
                          "gspmd_numerics": gspmd_dp2_numerics_rank,
                          "train": dp_train_rank, "gspmd_train": gspmd_train_rank,
-                         "serve": serve_rank,
+                         "serve": serve_rank, "cp_numerics": tp_numerics_rank,
+                         "tp_numerics": tp_numerics_rank, "cp_train": tp_train_rank,
+                         "tp_train": tp_train_rank, "tp_serve": tp_serve_rank,
                          "vlm_serve": lambda: serve_rank(
                              VLM_SERVE_ARGV + ["--layers", str(VLM_SERVE_LAYERS)]),
-                         "vlm_serve_full": lambda: serve_rank(VLM_SERVE_ARGV)}[base]()
+                         "vlm_serve_full": lambda: serve_rank(VLM_SERVE_ARGV),
+                         "vlm_serve_full_tp": lambda: serve_rank(
+                             VLM_SERVE_ARGV + ["--model-mesh", "4"], model=4),
+                         "vlm_tp_train": lambda: tp_train_rank(
+                             VLM_ARCH, VLM_TRAIN_LAYERS, 1, 4096)}[base]()
             if extra == "moe":
                 rec[part]["moe"] = (dp_train_rank if base == "train" else gspmd_train_rank)(
                     MOE_ARCH, MOE_LAYERED_LAYERS, MOE_TRAIN_STEPS)
             rec["rank"] = rec[part]["rank"]
-        if mode != "all":
+        if mode not in ("all", "tp3"):
             rec = rec[mode]
     finally:
         if created:
@@ -2067,7 +2107,8 @@ def phase_zero3_dp_train(dp1: dict, n: int = 2, tag: str = "zero3 dp2 train",
 MOE_TRAIN_STEPS = 2
 # the dp-2 jobs one spawn of two ranks runs (``--dp-rank all``), in order:
 # a spawn costs ~17 s of process start, imports and CUDA contexts
-DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve")
+DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve",
+            "cp_numerics", "cp_train")
 # the MoE layered epoch's counters the routing steers: the expert rows the
 # popularity predictor, the hot cache and the router read and drain
 MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
@@ -2160,14 +2201,15 @@ VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-t
 SERVE_KV = ("resident_bytes", "in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
 
 
-def serve_rank(argv=None) -> dict:
-    """(a rank) ``launch.serve --data-mesh N`` (N the launch's world size)
+def serve_rank(argv=None, model: int = 1) -> dict:
+    """(a rank) ``launch.serve --data-mesh N / model`` (N the launch's
+    world size; ``argv`` names ``--model-mesh model`` where it is not 1)
     with ``argv`` (default the serve host cell's): the run as this rank
     returns it (every sequence's tokens, the summed and per-rank KV bytes,
     each rank's param shard and peak allocated bytes), this rank's
     launches, and the param bytes of one rank and of this rank's layout."""
     n, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
-    argv = list(argv or SERVE_ARGV) + ["--data-mesh", str(n)]
+    argv = list(argv or SERVE_ARGV) + ["--data-mesh", str(n // model)]
     args = serve._parse(argv)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2177,7 +2219,7 @@ def serve_rank(argv=None) -> dict:
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     run = RunConfig(model=configs.with_layers(cfg, args.layers))
     layout = ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
-        n, 1, rank, n, torch.device("cpu"), None, "gloo"))
+        n // model, model, rank, n, torch.device("cpu"), None, "gloo"))
     t = out["timings"]
     return {"rank": rank, "argv": " ".join(argv), "wall_s": wall, "launches": ops.launch_counts(),
             "backend": out["mesh"]["backend"], "slots": out["slots"],
@@ -2189,6 +2231,8 @@ def serve_rank(argv=None) -> dict:
             "one_rank_param_bytes": ZeroInfinityEngine(run, "cpu").shard_bytes()[
                 "param_shard_bytes"],
             "layout_param_bytes": layout.shard_bytes()["param_shard_bytes"],
+            "data_split_leaves": [keystr(p) for p in pt.tree_paths(layout.splits["param"])
+                                  if pt.tree_get(layout.splits["param"], p) is not None],
             "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
             "ttft_p50_s": out["latency"]["ttft"]["p50"],
             "ttft_p99_s": out["latency"]["ttft"]["p99"],
@@ -2270,16 +2314,20 @@ def phase_serve_dp2(recs, host: tuple) -> tuple:
     return rec, _sum_launches(parts)
 
 
-def nccl_check(parts=("train", "serve")) -> int:
-    """``chip_smoke.py --nccl-check [train|serve]``, on a machine with four
-    cards: the NCCL branch of the transport rule (each rank a card of its
-    own). "train": the one-rank layered run (phase 9) on card 0, then
+def nccl_check(parts=("train", "serve", "tp")) -> int:
+    """``chip_smoke.py --nccl-check [train|serve|tp]``, on a machine with
+    four cards: the NCCL branch of the transport rule (each rank a card of
+    its own). "train": the one-rank layered run (phase 9) on card 0, then
     "zero3 dp4 nccl train" (``phase_zero3_dp_train`` on 4 ranks,
     cuda:0-3), the one-rank "plan train" and "gspmd dp4 nccl train";
     "serve": llava at 8 layers on card 0 and on 4 ranks ("vlm serve dp4
     nccl", the same tokens), then at full depth, which no one card holds,
-    on the 4 ranks alone ("vlm serve full dp4 nccl"). Both without an
-    argument. Not part of the one-card run."""
+    on the 4 ranks alone ("vlm serve full dp4 nccl"); "tp": llava under
+    tensor parallelism over the four ranks (``--model-mesh 4``), at 2
+    layers trained against card 0's one-rank run ("vlm tp4 nccl train")
+    and at full depth served ("vlm serve full tp4 nccl", each rank a
+    quarter of every split leaf and no layer gathered). All three without
+    an argument. Not part of the one-card run."""
     if torch.cuda.device_count() < 4:
         print(f"nccl check: {torch.cuda.device_count()} cards; it needs 4")
         return 1
@@ -2328,9 +2376,63 @@ def nccl_check(parts=("train", "serve")) -> int:
             "peak_allocated_gb": frec["peak_allocated_gb"], "card_gb": 80,
             "param_shard_gb": [b / 1e9 for b in frec["param_shard_bytes"]],
             "one_rank_param_gb": frec["one_rank_param_bytes"] / 1e9}))
+    tlaunches = None
+    if "tp" in parts:
+        # llava under tensor parallelism on the four cards: at 2 layers
+        # trained against the one-rank run of the same argv on card 0, then
+        # served at full depth (no card holds it), a quarter of every split
+        # leaf a rank and no layer gathered (one data rank)
+        dp1, _ = phase_plan_train("vlm plan train", ["--hw-devices", "1"], arch=VLM_ARCH,
+                                  batch=1, seq=4096, layers=VLM_TRAIN_LAYERS)
+        torch.cuda.empty_cache()
+        trec, tlaunches = phase_tp_train(run_ranks("vlm_tp_train", 900, 4), dp1,
+                                         "vlm tp4 nccl train", VLM_TP4_BYTES[VLM_TRAIN_LAYERS])
+        frec = check_tp_serve_full(run_ranks("vlm_serve_full_tp", 900, 4))
+        for r in (trec["transport"]["backend"], frec["backend"]):
+            if r != "nccl":
+                raise SystemExit(f"FAIL nccl check: the tp ranks ran {r}")
     say("nccl check:", json.dumps({"ok": True, "cards": torch.cuda.device_count(),
-                                   "launches": launches, "gspmd_launches": glaunches}))
+                                   "launches": launches, "gspmd_launches": glaunches,
+                                   "tp_launches": tlaunches}))
     return 0
+
+
+def check_tp_serve_full(recs: list) -> dict:
+    """"vlm serve full tp4 nccl": llava-next-34b at 60 layers served by
+    ``launch.serve --model-mesh 4`` on four cards (``serve_rank``): every
+    sequence finished, the same tokens on every rank, each rank's param
+    bytes exactly ``VLM_TP4_BYTES[0]`` and its layout's, no param gathered
+    over the data axis (one data rank: the serve view is the rank's own
+    shards), each rank's flash and tiled-matmul launches on the tensor
+    cores; the decode step, prefill wave, TTFT and peak allocated memory a
+    rank printed."""
+    tag, r0 = "vlm serve full tp4 nccl", recs[0]
+    steps = max(r0["steps"], 1)
+    rec = {"run": tag, "argv": r0["argv"], "ranks": len(recs), "backend": r0["backend"],
+           "param_shard_bytes": r0["param_shard_bytes"],
+           "want_param_shard_bytes": VLM_TP4_BYTES[0],
+           "one_rank_param_bytes": r0["one_rank_param_bytes"],
+           "kv": {k: r0["kv"][k] for k in SERVE_KV},
+           "kv_ranks": [{k: kr[k] for k in SERVE_KV} for kr in r0["kv_ranks"]],
+           "decode_step_ms": r0["decode_s"] / steps * 1e3,
+           "prefill_wave_ms": r0["prefill_s"] / -(-len(r0["generated"]) // r0["slots"]) * 1e3,
+           "ttft_p50_s": r0["ttft_p50_s"], "ttft_p99_s": r0["ttft_p99_s"],
+           "peak_allocated_gb": [b / 1e9 for b in r0["peak_allocated_bytes"]], "card_gb": 80,
+           "launches_per_rank": [r["launches"] for r in recs]}
+    say(f"{tag}:", json.dumps(rec))
+    for r in recs:
+        if not all(r["done"]) or r["generated"] != r0["generated"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}: not every sequence finished, or "
+                             "its tokens differ from rank 0's")
+        mine = r["param_shard_bytes"][r["rank"]]
+        if not mine == VLM_TP4_BYTES[0] == r["layout_param_bytes"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} holds {mine} param bytes; "
+                             f"want {VLM_TP4_BYTES[0]}")
+        if r["data_split_leaves"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} gathers {r['data_split_leaves']} "
+                             "over the data axis")
+    _check_tp_ranks(tag, recs)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2634,6 +2736,315 @@ def check_gspmd_dp_train(tag: str, cfg, steps: int, dp1: dict, recs: list) -> di
                                  f"{r['launches'][name]} < {count}")
         check_main_path_routes(tag, r["launches"])
     return rec
+
+
+# ---------------------------------------------------------------------------
+# tensor and context parallelism: model ranks sharing the one card (gloo)
+# ---------------------------------------------------------------------------
+
+# the model axis' jobs: context parallelism (smollm's 9 heads do not split
+# over 2) in the two-rank spawn (DP_PARTS), tensor parallelism over 3 (3
+# heads, 1 KV head, 512 MLP columns and 16,384 vocab rows a rank) in a
+# spawn of three ranks of its own
+TP3_PARTS = ("tp_numerics", "tp_train", "tp_serve")
+# full smollm-135m's param bytes a rank: at (1, 3) every leaf but the f32
+# norms a third; at (1, 2) the attention weights and norms (53,224,704
+# bytes) whole, the MLP and the vocab halved (of 269,100,288)
+TP_BYTES = {3: 89_793_792, 2: 161_162_496}
+TP_STRATEGY = {4: "tp", 3: "tp", 2: "cp"}
+# llava-next-34b on four NCCL cards under tensor parallelism (--nccl-check
+# tp): its 60 layers' param bytes a rank, of 68,823,609,344, and its 2
+# layers' (for "vlm tp4 nccl train"), of 4,110,561,280
+VLM_TP4_BYTES = {0: 17_208_504_320, VLM_TRAIN_LAYERS: 1_027_747_840}
+TP_TRAIN_STEPS = 4
+# flash at context parallelism's shapes: "cp train"'s rank 0 (its 256
+# queries on their 256 keys) and rank 1 (on all 512), causal
+FLASH_CP = [(8, 9, 3, 256, 256, 64), (8, 9, 3, 256, 512, 64)]
+# flash at tensor parallelism's shapes: "tp train"'s (smollm on 3 model
+# ranks: 3 heads, 1 KV head, 8 x 512) and "vlm tp4 nccl train"'s (llava on
+# 4: 14 heads, 2 KV heads of 128, 1 x 4096), causal
+FLASH_TP = [(8, 3, 1, 512, 512, 64), (1, 14, 2, 4096, 4096, 128)]
+
+
+def mlp_shard_shapes(T: int, d: int, f: int) -> list:
+    """The MLP's products of one layer at ``T`` tokens, width ``d`` and a
+    rank's ``f`` columns, as ``TILED_TRAIN`` lists them: x @ W_in|gate
+    (column shard) and h @ W_out (row shard), then dX = dY @ W^T and dW =
+    X^T @ dY of each on transposed views."""
+    return [(T, d, f, ""), (T, f, d, ""), (T, f, d, "w"), (d, T, f, "x"),
+            (T, d, f, "w"), (f, T, d, "x")]
+
+
+# the same two runs' MLP products: smollm's 512 of 1536 columns a rank and
+# llava's 5120 of 20480 (K <= 7168: K * 2^-24 < 2^-11, "tiled_matmul_k4096")
+TILED_TP = mlp_shard_shapes(4096, 576, 512) + mlp_shard_shapes(4096, 7168, 5120)
+# "tp serve"'s argv: the serve host cell's sizes at 8 new tokens (each
+# decode step on three gloo ranks takes ~6x one rank's), held to a one-rank
+# run of the same argv
+TP_SERVE_ARGV = SERVE_ARGV[:-1] + ["8"]
+# phase 4's CPU logits, kept for "tp serve"'s teacher-forced check
+E2E_CPU: dict = {}
+
+
+def _tp_record(name: str) -> str:
+    """Where rank 0 of a model-axis job saves what is too large for its
+    JSON record."""
+    return os.path.join(ROOT, "build", f"chip_smoke_{name}.pt")
+
+
+def tp_numerics_rank() -> dict:
+    """(a rank) Phase 11's model, weights and global batches (full-width
+    smollm-135m cut to 2 layers, 4 x 256, 2 steps) through the GSPMD step
+    at ZeRO-3 on a (1, M) mesh of the launch's M ranks on the card (tensor
+    parallelism at 3, context at 2), each from its shards of the global
+    state on the whole batch; the params and f32 masters joined over the
+    ranks after the last step, which rank 0 saves."""
+    M = int(os.environ["WORLD_SIZE"])
+    mesh = mesh_mod.make_local_mesh(1, M, "cuda")
+    rank, dev = mesh.rank, mesh.device
+    arch, cut, B, S, steps = GSPMD_NUMERICS_KEY
+    cfg = dataclasses.replace(configs.get(arch), **dict(cut))
+    params0 = init_params(cfg)
+    run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none", zero_stage=3),
+                    offload=make_offload(nvme_dir=os.path.join(ROOT, "build", "chip_smoke_tp")),
+                    train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+    ops.reset_launch_counts()
+    ex = InfinityExecutor(run, dev, mesh=mesh)
+    eng = ex.engine
+    full = {"params": params0, "opt": adam.init_state(params0)}
+    state = ex.reseed(eng.place_state(bridge.shard_gspmd_state(full, run, rank, 1, M)))
+    stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                             cfg.vocab_size, seed=SEED)
+    step = ex.make_train_step()
+    traj = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+        state, m = step(state, batch)
+        traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    whole = [torch.cat([t.detach().float().cpu().reshape(-1)
+                        for t in pt.tree_leaves(eng.respec(tree, cls, None))])
+             for tree, cls in ((state["params"], "param"), (state["opt"].master, "opt"))]
+    if rank == 0:
+        torch.save((traj, *whole), _tp_record(f"numerics_m{M}"))
+    ex.close()
+    return {"rank": rank, "launches": ops.launch_counts(), "transport": mesh.transport(),
+            "strategy": eng.mp.strategy, "trajectory": traj,
+            "param_shard_bytes": eng.shard_bytes()["param_shard_bytes"]}
+
+
+def tp_train_rank(arch: str = "smollm-135m", layers: int = 0, batch: int = 8, seq: int = 512,
+                  steps: int = TP_TRAIN_STEPS) -> dict:
+    """(a rank) ``launch.train --engine pjit --model-mesh M`` (M the
+    launch's world size) on ``arch`` at full width (its depth cut to
+    ``layers``; 0: whole) at ZeRO-3, ``steps`` steps of ``batch`` x
+    ``seq`` (each model rank the whole batch; under context parallelism
+    its seq / M positions of every row): this rank's step metrics, state
+    bytes, launches, peak allocated memory and transport."""
+    M = int(os.environ["WORLD_SIZE"])
+    argv = _depth(arch, layers) + [
+        "--engine", "pjit", "--data-mesh", "1", "--model-mesh", str(M), "--zero-stage", "3",
+        "--batch", str(batch), "--seq", str(seq), "--steps", str(steps), "--lr", "3e-3",
+        "--ckpt-every", "0", "--log-every", "1",
+        "--nvme-dir", os.path.join(ROOT, "build", f"chip_smoke_tp_train_m{M}")]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mesh, run = hist["mesh"], hist["run"]
+    keys = [f"{c}_shard_bytes" for c in ("param", "grad", "opt")]
+    return {"rank": mesh.rank, "argv": " ".join(argv), "wall_s": wall, "tokens": batch * seq,
+            "strategy": pt.choose_attn_strategy(run.model, mesh.axis_sizes(), run.parallel),
+            "launches": ops.launch_counts(), "transport": mesh.transport(),
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "steps": [{"step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
+                       "step_s": m["step_time"], **{k: m[k] for k in keys},
+                       **{f"{k}_all_ranks": m[f"{k}_all_ranks"] for k in keys}}
+                      for m in hist["metrics"]]}
+
+
+def tp_serve_rank() -> dict:
+    """(a rank) ``serve_rank`` with ``TP_SERVE_ARGV`` on a (1, M) mesh
+    (tensor parallelism), then phase 4's teacher-forced prefill and
+    decode (2 layers, full width, the same weights and tokens) on the
+    rank's shards, the logits gathered over the model ranks: rank 0 saves
+    them."""
+    M = int(os.environ["WORLD_SIZE"])
+    rec = serve_rank(TP_SERVE_ARGV + ["--model-mesh", str(M)], model=M)
+    mesh = mesh_mod.make_local_mesh(1, M, "cuda")
+    cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
+    eng = ZeroInfinityEngine(RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none")),
+                             mesh.device, mesh=mesh)
+    whole = _to(init_params(cfg), mesh.device)
+    view = eng.serve_params(eng.respec(whole, None, "param"))
+    del whole
+    rng = np.random.default_rng(SEED)
+    B, S, n_dec = 2, 64, 4
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + n_dec),
+                                         dtype=np.int32)).to(mesh.device)
+    with torch.no_grad():
+        lg, cache = eng.bundle.prefill(view, {"tokens": toks[:, :S]})
+        cache = kvcache.grow_cache(cache, n_dec, cfg.family)
+        cache["len"] = torch.full((B,), S, dtype=torch.int32, device=mesh.device)
+        lgs = [lg]
+        for i in range(n_dec):
+            lg, cache = eng.bundle.decode_step(view, cache, {"tokens": toks[:, S + i:S + i + 1]})
+            lgs.append(lg)
+    logits = mesh.all_gather(torch.cat(lgs, dim=1).float(), 2, "model").cpu()
+    if mesh.rank == 0:
+        torch.save(logits, _tp_record("serve_logits"))
+    return rec
+
+
+def phase_model_axis_kernels() -> dict:
+    """The kernels at the model axis' per-rank shapes, bf16, against the
+    plain version by ``TOL``, on the tensor cores: flash forward and
+    backward at context parallelism's (``FLASH_CP``: 256 queries on 256
+    and on 512 keys, causal, the mask aligned at the end; the 256-on-512
+    shape timed beside the bound, the CUDA-core kernel, the plain version
+    and SDPA, the end-aligned mask as a boolean one) and at tensor
+    parallelism's (``FLASH_TP``), and the tiled matmul at tensor
+    parallelism's MLP shards (``TILED_TP``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    bf16 = torch.bfloat16
+    timed = [shape[4] > shape[3] for shape in FLASH_CP]  # the new shape: Sq < Sk
+    fwd = [check_flash(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
+    bwd = [check_flash_bwd(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
+    fwd += [check_flash(shape, bf16, gen, timed=False) for shape in FLASH_TP]
+    bwd += [check_flash_bwd(shape, bf16, gen, timed=False) for shape in FLASH_TP]
+    check_flash_routes(fwd + bwd)
+    tiled = [check_tiled_t(c, bf16, gen, timed=False) for c in TILED_TP]
+    check_routes(tiled)
+    for rec in fwd + bwd + tiled:
+        say("model axis kernel check:", json.dumps(rec))
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd, "tiled_matmul": tiled}
+
+
+def _check_tp_ranks(tag: str, recs: list) -> None:
+    """Every rank ran the strategy of its model axis (tensor parallelism
+    at 3 and 4 ranks, context at 2) and launched flash and the tiled
+    matmul, all on the tensor cores."""
+    M = len(recs)
+    for r in recs:
+        if r.get("strategy", TP_STRATEGY[M]) != TP_STRATEGY[M]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} ran {r['strategy']}")
+        check_main_path_routes(tag, r["launches"])
+        for name in ("flash_attention", "tiled_matmul"):
+            if not r["launches"][f"{name}_wgmma"]:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched no {name}")
+
+
+def phase_tp_numerics(recs: list, tag: str) -> tuple:
+    """The ranks' ``tp_numerics_rank``: the trajectory (one on every rank)
+    and the joined params and masters held against phase 11's kept
+    one-rank CPU run by its bounds; each rank's param bytes and launches
+    (on the tensor cores) printed."""
+    M = len(recs)
+    card = torch.load(_tp_record(f"numerics_m{M}"), weights_only=False)
+    for r in recs:
+        if r["trajectory"] != card[0]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} reports {r['trajectory']}, "
+                             f"rank 0 {card[0]}")
+    rec = {"ranks": M, "mesh": [1, M], "strategy": recs[0]["strategy"], "zero_stage": 3,
+           "cpu_side": "one rank, in_graph, kept (gspmd numerics)",
+           "param_shard_bytes": [r["param_shard_bytes"] for r in recs],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    out = hold_card_to_cpu(tag, f"smollm-135m 2 layers on (1, {M})",
+                           CPU_RUNS[GSPMD_NUMERICS_KEY], card, rec)
+    _check_tp_ranks(tag, recs)
+    return out, _sum_launches(recs)
+
+
+def phase_tp_train(recs: list, dp1: dict, tag: str, want_bytes: int = 0) -> tuple:
+    """The ranks' ``tp_train_rank``: the losses (one on every rank) finite
+    and those of the one-rank "plan train" run (``dp1``: the same seed and
+    global batches) by ``TRAIN_TOL``; each rank's param bytes exactly
+    ``want_bytes`` (default full smollm's ``TP_BYTES[M]``) every step; each
+    rank's launches on the tensor cores; the step wall, tokens/s and peak
+    allocated memory a rank."""
+    M, r0 = len(recs), recs[0]
+    want_bytes = want_bytes or TP_BYTES[M]
+    for r in recs:
+        for m in r["steps"]:
+            say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
+    losses = [m["loss"] for m in r0["steps"]]
+    rec = {"argv": r0["argv"], "strategy": r0["strategy"], "transport": r0["transport"],
+           "losses": losses, "dp1_losses": dp1["losses"][:len(losses)],
+           "param_shard_bytes": [r["steps"][-1]["param_shard_bytes"] for r in recs],
+           "want_param_shard_bytes": want_bytes,
+           "bytes_all_ranks": {k: r0["steps"][-1][f"{k}_all_ranks"]
+                               for k in ("param_shard_bytes", "grad_shard_bytes",
+                                         "opt_shard_bytes")},
+           "wall_s": [r["wall_s"] for r in recs],
+           "peak_allocated_gb": [r["peak_allocated_gb"] for r in recs],
+           "median_step_s_after_first": statistics.median(m["step_s"] for m in r0["steps"][1:]),
+           "dp1_median_step_s_after_first": dp1["median_step_s_after_first"],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    rec["median_tokens_per_s_after_first"] = r0["tokens"] / rec["median_step_s_after_first"]
+    say(f"{tag}:", json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"FAIL {tag}: losses not finite: {losses}")
+    for r in recs:
+        if [m["loss"] for m in r["steps"]] != losses:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}'s losses differ from rank 0's")
+        for m in r["steps"]:
+            if m["param_shard_bytes"] != want_bytes:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} holds {m['param_shard_bytes']} "
+                                 f"param bytes; want {want_bytes}")
+    for got, want in zip(losses, rec["dp1_losses"]):
+        if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
+            raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
+    _check_tp_ranks(tag, recs)
+    return rec, _sum_launches(recs)
+
+
+def phase_tp_serve(recs: list, one: dict) -> tuple:
+    """The ranks' ``tp_serve_rank`` (full smollm-135m with
+    ``TP_SERVE_ARGV`` on (1, 3)) against ``one``, the one-rank run of the
+    same argv: every sequence finished, the same tokens on every rank and
+    their share equal to the one rank's printed (the row-parallel products
+    round apart from one rank's), each rank's param bytes exactly
+    ``TP_BYTES[3]``, the ``kv`` bytes summed over the ranks the one rank's
+    (the KV heads split), the teacher-forced logits at 2 layers held to phase
+    4's CPU side by ``E2E_REL_TOL``, each rank's launches on the tensor
+    cores; the decode step's time and peak allocated memory printed."""
+    tag, M, r0, host_out = "tp serve", len(recs), recs[0], one
+    lg = torch.load(_tp_record("serve_logits"), weights_only=False)
+    cpu = E2E_CPU["logits"]
+    err = ((lg - cpu).abs().max() / cpu.abs().max()).item() if lg.shape == cpu.shape else math.inf
+    pairs = [(a, b) for g, h in zip(r0["generated"], host_out["generated"])
+             for a, b in zip(g, h)]
+    steps = max(r0["steps"], 1)
+    rec = {"run": tag, "argv": r0["argv"], "ranks": M, "backend": r0["backend"],
+           "param_shard_bytes": r0["param_shard_bytes"], "want_param_shard_bytes": TP_BYTES[M],
+           "kv": {k: r0["kv"][k] for k in SERVE_KV},
+           "host_kv": {k: host_out["kv"][k] for k in SERVE_KV},
+           "tokens_equal_host_share": sum(a == b for a, b in pairs) / max(len(pairs), 1),
+           "teacher_forced_max_rel_err": err, "tol": E2E_REL_TOL,
+           "decode_step_ms": r0["decode_s"] / steps * 1e3,
+           "host_decode_step_ms": host_out["timings"]["decode_s"]
+           / max(host_out["steps"], 1) * 1e3,
+           "prefill_wave_ms": r0["prefill_s"] / -(-len(r0["generated"]) // r0["slots"]) * 1e3,
+           "ttft_p50_s": r0["ttft_p50_s"], "ttft_p99_s": r0["ttft_p99_s"],
+           "peak_allocated_gb": [b / 1e9 for b in r0["peak_allocated_bytes"]],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    say(f"{tag}:", json.dumps(rec))
+    for r in recs:
+        if not all(r["done"]) or r["generated"] != r0["generated"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}: not every sequence finished, or "
+                             "its tokens differ from rank 0's")
+        if not r["param_shard_bytes"][r["rank"]] == TP_BYTES[M] == r["layout_param_bytes"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} holds "
+                             f"{r['param_shard_bytes'][r['rank']]} param bytes; "
+                             f"want {TP_BYTES[M]}")
+    if rec["kv"] != rec["host_kv"]:
+        raise SystemExit(f"FAIL {tag}: kv bytes summed over the ranks {rec['kv']}, one "
+                         f"rank's {rec['host_kv']}")
+    if not err <= E2E_REL_TOL:
+        raise SystemExit(f"FAIL {tag}: teacher-forced logits rel err {err} > {E2E_REL_TOL}")
+    _check_tp_ranks(tag, recs)
+    return rec, _sum_launches(recs)
 
 
 def phase_resume_drill() -> tuple:
@@ -3412,6 +3823,22 @@ def main() -> int:
     gmoe_dp2_rec, gmoe_dp2_launches = timed("gspmd moe dp2 train", phase_gspmd_moe_dp_train,
                                             moe_layered_rec, gtrain_ranks)
     sdp2_rec, sdp2_launches = timed("serve dp2", phase_serve_dp2, dp_ranks, host_serve)
+    cp_rec, cp_launches = timed("cp numerics", phase_tp_numerics, _part(dp_ranks, "cp_numerics"),
+                                "cp numerics")
+    cpt_rec, cpt_launches = timed("cp train", phase_tp_train, _part(dp_ranks, "cp_train"),
+                                  plan_rec, "cp train")
+    # "tp serve"'s one-rank side, then three model ranks on the card: one
+    # spawn runs every tensor-parallel job
+    tp_one, _, _ = timed("tp serve one rank", run_serve, TP_SERVE_ARGV)
+    tp_ranks = timed("tp3 ranks", run_ranks, "tp3", 600, 3)
+    tp_rec, tp_launches = timed("tp numerics", phase_tp_numerics,
+                                _part(tp_ranks, "tp_numerics"), "tp numerics")
+    tpt_rec, tpt_launches = timed("tp train", phase_tp_train, _part(tp_ranks, "tp_train"),
+                                  plan_rec, "tp train")
+    tps_rec, tps_launches = timed("tp serve", phase_tp_serve, _part(tp_ranks, "tp_serve"),
+                                  tp_one)
+    for name, recs in timed("model axis kernels", phase_model_axis_kernels).items():
+        train_checks[name] += recs
     train_checks.update(timed("flash window", phase_flash_window))
     # the hybrid's 1.7 B-param cut takes one step of one sequence: its CPU
     # side is the run's slowest (109-128 s at two sequences)
@@ -3496,7 +3923,8 @@ def main() -> int:
              "zero3_dp2_numerics": dp2_launches, "zero3_dp2_train": dp2_train_launches,
              "gspmd_dp2_numerics": gdp2_launches, "gspmd_dp2_train": gdp2_train_launches,
              "moe_dp2_train": moe_dp2_launches, "gspmd_moe_dp2_train": gmoe_dp2_launches,
-             "serve_dp2": sdp2_launches,
+             "serve_dp2": sdp2_launches, "cp_numerics": cp_launches, "cp_train": cpt_launches,
+             "tp_numerics": tp_launches, "tp_train": tpt_launches, "tp_serve": tps_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -3565,6 +3993,13 @@ def main() -> int:
         f"{sdp2_rec['decode_step_ms']:.1f} ms a decode step (one rank "
         f"{sdp2_rec['one_rank_decode_step_ms']:.1f}), peak "
         + "/".join(f"{g:.2f}" for g in sdp2_rec["peak_allocated_gb"]) + " GB a rank; "
+        f"tp numerics params {tp_rec['params_worst_diff_over_bound']:.3f} of bound, cp "
+        f"{cp_rec['params_worst_diff_over_bound']:.3f}; tp train {tpt_rec['losses'][0]:.4f} -> "
+        f"{tpt_rec['losses'][-1]:.4f} at {tpt_rec['median_tokens_per_s_after_first']:.0f} "
+        f"tok/s, cp train {cpt_rec['losses'][0]:.4f} -> {cpt_rec['losses'][-1]:.4f} at "
+        f"{cpt_rec['median_tokens_per_s_after_first']:.0f} tok/s (model ranks on 1 card); "
+        f"tp serve {tps_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{tps_rec['tokens_equal_host_share']:.3f} one rank's; "
         f"resume drill restarts {drill_rec['restarts']}; moe repeat "
         f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
         f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "
@@ -3612,5 +4047,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--nccl-check"]:
-        sys.exit(nccl_check(tuple(sys.argv[2:]) or ("train", "serve")))
+        sys.exit(nccl_check(tuple(sys.argv[2:]) or ("train", "serve", "tp")))
     sys.exit(main())

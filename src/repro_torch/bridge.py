@@ -80,12 +80,12 @@ def shard_zero3_state(state: dict, rank: int, dp: int, mode: str = "allgather") 
 
 
 def gspmd_state_from_numpy(state: dict, run, device="cpu", *, rank: int = 0,
-                           dp: int = 1) -> dict:
+                           dp: int = 1, model: int = 1) -> dict:
     """The JAX package's GSPMD engine state with every leaf as numpy
     (``params``, and ``opt`` an ``AdamState``-shaped 4-tuple
     step/master/m/v where the optimizer is in-graph) -> the port engine's
-    state for ``run``; with ``dp`` > 1, rank ``rank``'s shards of it
-    (``shard_gspmd_state``)."""
+    state for ``run``; on a ``dp`` x ``model`` mesh, rank ``rank``'s shards
+    of it (``shard_gspmd_state``)."""
     from repro_torch.optim.adam import AdamState
 
     out = {"params": params_from_numpy(state["params"], device)}
@@ -93,30 +93,34 @@ def gspmd_state_from_numpy(state: dict, run, device="cpu", *, rank: int = 0,
         step, master, m, v = state["opt"]
         out["opt"] = AdamState(tensor_from_numpy(step, device),
                                *(params_from_numpy(t, device) for t in (master, m, v)))
-    return shard_gspmd_state(out, run, rank, dp)
+    return shard_gspmd_state(out, run, rank, dp, model)
 
 
-def shard_gspmd_state(state: dict, run, rank: int, dp: int) -> dict:
-    """A whole GSPMD engine state (torch) -> rank ``rank``'s shards among
-    ``dp`` data-parallel ranks, laid out by the port's rules
-    (``partition.leaf_splits`` on a ``{"data": dp, "model": 1}`` mesh at
-    ``run``'s ZeRO stage): the params by the param rules, the masters and
-    moments by the opt rules, the step count as it is. The state itself at
-    dp = 1."""
+def shard_gspmd_state(state: dict, run, rank: int, dp: int, model: int = 1) -> dict:
+    """A whole GSPMD engine state (torch) -> the shards of rank ``rank``
+    (data coordinate ``rank // model``, model coordinate ``rank % model``)
+    of a ``dp`` x ``model`` mesh, laid out by the port's rules
+    (``partition.leaf_splits`` along both axes at ``run``'s ZeRO stage,
+    ``partition.cut_leaf``): the params by the param rules, the masters and
+    moments by the opt rules, the step count as it is. The state itself on
+    one rank."""
     from repro_torch.core import partition as pt
     from repro_torch.models import registry
     from repro_torch.optim.adam import AdamState
 
-    if dp == 1:
+    if dp * model == 1:
         return state
     defs = registry.build(run.model, run.parallel).defs
+    sizes = {"data": dp, "model": model}
+    coords = {"data": rank // model, "model": rank % model}
 
     def shard(tree, cls):
-        splits = pt.leaf_splits(defs, run.model, {"data": dp, "model": 1}, run.parallel, cls)
+        splits = {a: pt.leaf_splits(defs, run.model, sizes, run.parallel, cls, axis=a)
+                  for a in sizes}
         out: dict = {}
         for path in pt.tree_paths(tree):
-            pt.tree_set(out, path, pt.shard_leaf(pt.tree_get(tree, path),
-                                                 pt.tree_get(splits, path), rank, dp))
+            dims = {a: pt.tree_get(t, path) for a, t in splits.items()}
+            pt.tree_set(out, path, pt.cut_leaf(pt.tree_get(tree, path), dims, coords, sizes))
         return out
 
     out = {"params": shard(state["params"], "param")}

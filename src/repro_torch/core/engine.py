@@ -65,6 +65,29 @@ rank's rows of the global batch (``data/pipeline.rank_batch``):
      updated shards where params are whole and optimizer states split
      (stages 1-2).
 
+With a model axis (``mesh.model`` = M > 1; rank r at data coordinate
+``r // M``, model coordinate ``r % M``, ``launch/mesh.py``) the dense and
+vlm families run tensor or context parallelism, the strategy of
+``partition.choose_attn_strategy`` (the reference's ``repro/core/
+partition.py:144-224``): each rank holds what the reference's spec gives
+its device, its leaves cut along both axes (``partition.cut_leaf``), and
+the bundle is built with the rank's ``zero.ModelAxis`` (``models/
+common.py``'s Megatron-style collectives on the model group). The engine
+keeps one set of splits per axis (``splits``: data, one tree a state
+class; ``model_splits``: the model axis, the same for every class). A
+step then gathers over the data axis only (context parallelism also
+gathers the leaves split over model, ``mlp`` and ``vocab``, before the
+loss: backward their reduce-scatter), scales the loss by 1/D (every model
+rank's tensor-parallel loss is the data row's; a context-parallel rank's
+is its chunk's share of it), reduces a gradient that is whole on the rank
+over the axes where the ranks' contributions differ (data; and model
+where every model rank computes the leaf's gradient from its own part:
+every leaf whole over model under context parallelism, the unsplit KV
+projections under tensor parallelism), sums ``loss`` over the data group
+(and the model group under context parallelism), and counts a leaf's
+squares in ``grad_norm`` on the ranks at coordinate 0 of every axis it is
+not split over.
+
 Every rank issues every collective in the same order. The step reports
 each rank's state bytes (``param_shard_bytes``, ``grad_shard_bytes``,
 ``opt_shard_bytes`` in-graph); ``shard_bytes()`` predicts them from the
@@ -86,6 +109,9 @@ layer's whole leaves, the call's unstacked leaves, activations and KV:
 the reference's gather once per scanned step (``repro/models/
 transformer.py:5-6``). The rules never split a stacked leaf on its layer
 dim (``layers`` maps to no mesh axis); the engine refuses one that would.
+Under tensor parallelism serving gathers over the data axis alone: the
+model shards stay split through the layer, and no param byte crosses the
+model axis.
 """
 from __future__ import annotations
 
@@ -157,20 +183,21 @@ def _stacked(defs) -> bool:
 
 def _gathered(leaves: dict, mesh) -> dict:
     """``{path: (t, dim)}`` -> ``{path: t}`` with each split leaf (dim
-    not None) gathered whole over the ranks along ``dim``, all of them in
+    not None) gathered over the data axis along ``dim``, all of them in
     one collective (``LocalMesh.all_gather_leaves``)."""
     split = [p for p, (_, d) in leaves.items() if d is not None]
     out = {p: t for p, (t, d) in leaves.items() if d is None}
-    out.update(zip(split, mesh.all_gather_leaves([leaves[p] for p in split])))
+    out.update(zip(split, mesh.all_gather_leaves([leaves[p] for p in split], "data")))
     return out
 
 
 class LayerShards:
     """A stacked subtree of the rank's param shards, read a layer at a
     time (``transformer.layer_params`` calls ``layer``): each leaf's slice
-    of layer ``l``, gathered over the ranks along its split dim less one
-    where it is split (the layer's split leaves in one collective), as it
-    is where it is not. Forward only: serving runs under ``no_grad``."""
+    of layer ``l``, gathered over the data axis along its split dim less
+    one where it is split (the layer's split leaves in one collective), as
+    it is where it is not (a model shard stays the rank's). Forward only:
+    serving runs under ``no_grad``."""
 
     def __init__(self, shards: dict, splits: dict, mesh):
         self.shards, self.splits, self.mesh = shards, splits, mesh
@@ -190,21 +217,38 @@ class ZeroInfinityEngine:
     def __init__(self, run: RunConfig, device="cuda", mesh=None):
         self.run = run
         self.device = torch.device(device)
-        self.bundle = registry.build(run.model, run.parallel)
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
-        self.dp = mesh.world if self.mesh is not None else 1
-        self.rank = mesh.rank if self.mesh is not None else 0
         sizes = mesh.axis_sizes() if self.mesh is not None else {"data": 1, "model": 1}
-        # each leaf's split dim (None: whole on every rank) per state class
+        self.sizes = sizes
+        self.coords = self.mesh.coords() if self.mesh is not None else {"data": 0, "model": 0}
+        self.dp = sizes["data"]  # the data-parallel ranks
+        self.rank = mesh.rank if self.mesh is not None else 0
+        self.mp = None  # the rank's model-parallel context (zero.ModelAxis)
+        if sizes["model"] > 1:
+            from repro_torch.core.zero import ModelAxis  # zero.py imports this module
+
+            self.mp = ModelAxis(self.mesh, self._strategy(run, sizes))
+        self.bundle = registry.build(run.model, run.parallel, self.mp)
+        # each leaf's split dim over the data axis (None: whole over it) per
+        # state class, and over the model axis (one tree: the rules put the
+        # model axis on the same dims for every state class)
         self.splits = {cls: pt.leaf_splits(self.bundle.defs, run.model, sizes,
                                            run.parallel, cls)
                        for cls in STATE_CLASSES}
+        self.model_splits = pt.leaf_splits(self.bundle.defs, run.model, sizes, run.parallel,
+                                           "param", axis="model")
+        for cls in STATE_CLASSES:
+            if pt.leaf_splits(self.bundle.defs, run.model, sizes, run.parallel, cls,
+                              axis="model") != self.model_splits:
+                raise ValueError(f"the rules split the {cls} class over the model axis "
+                                 "on other dims than the params")
         # the top-level subtrees stacked over layers (serving reads them a
         # layer at a time); none is split on that dim
         self.stacked = tuple(k for k in sorted(self.bundle.defs) if _stacked(self.bundle.defs[k]))
         for k in self.stacked:
             for path in pt.tree_paths(self.bundle.defs[k]):
-                if pt.tree_get(self.splits["param"][k], path) == 0:
+                if 0 in (pt.tree_get(self.splits["param"][k], path),
+                         pt.tree_get(self.model_splits[k], path)):
                     raise ValueError(f"{(k,) + path}: split over the ranks on its layer dim; "
                                      "serving gathers a layer's slice along another dim")
         # the host tier is page-locked CPU memory on the card, the device
@@ -215,6 +259,34 @@ class ZeroInfinityEngine:
                          and not run.opt_offgraph)
         self.host = PinnedHostTier(self.device)
 
+    @staticmethod
+    def _strategy(run: RunConfig, sizes: dict) -> str:
+        """The reference's attention strategy on this mesh; what the port
+        cannot lay out so raises."""
+        cfg, par, M = run.model, run.parallel, sizes["model"]
+        registry.check_model_axis(cfg, M)
+        if par.pure_dp:
+            raise NotImplementedError(
+                "pure_dp on the GSPMD engine with a model axis (every mesh axis data "
+                "parallel) is not ported: --model-mesh folds into dp on --engine zero3")
+        strategy = pt.choose_attn_strategy(cfg, sizes, par)
+        if strategy == "tp" and cfg.n_heads % M:
+            raise ValueError(f"tensor parallelism: {cfg.n_heads} heads do not split over "
+                             f"{M} model ranks; attn_strategy 'cp' or 'auto'")
+        return strategy
+
+    def _partial_over_model(self, path) -> bool:
+        """Whether the model ranks each compute a part of this leaf's
+        gradient (their sum the whole): a leaf whole over the model axis
+        under context parallelism (each rank its chunk), and under tensor
+        parallelism a KV projection whose heads do not split (each rank
+        its query heads' KV heads)."""
+        if self.mp is None or pt.tree_get(self.model_splits, path) is not None:
+            return False
+        if not self.mp.tp:
+            return True
+        return "kv_heads" in pt.tree_get(self.bundle.defs, path).axes
+
     # ------------------------------------------------------------------
     # state
     # ------------------------------------------------------------------
@@ -223,11 +295,13 @@ class ZeroInfinityEngine:
         """The params alone on the engine's device, drawn from
         ``generator`` (which must live there) with the reference's
         distributions: what serving needs. On a mesh the rank's ZeRO
-        param shards of that draw (``partition.init_shards``)."""
+        param shards of that draw, cut along both axes
+        (``partition.init_shards``)."""
         if self.mesh is None:
             return self.bundle.init(generator, self.device)
-        return pt.init_shards(self.bundle.defs, self.splits["param"], generator, self.device,
-                              self.rank, self.dp)
+        return pt.init_shards(self.bundle.defs, {"data": self.splits["param"],
+                                                 "model": self.model_splits},
+                              generator, self.device, self.coords, self.sizes)
 
     def serve_params(self, params: dict) -> dict:
         """What one prefill wave or decode step reads of the rank's
@@ -266,25 +340,32 @@ class ZeroInfinityEngine:
 
     def respec(self, tree: dict, src: Optional[str], dst: Optional[str]) -> dict:
         """``tree`` laid out by state class ``src`` (None: whole leaves)
-        -> laid out by ``dst`` (None: whole): the rank's shard where only
-        ``dst`` splits a leaf, the all-gather of the shards where only
-        ``src`` does (one collective a leaf, in tree order), the leaf
-        itself where both agree. The identity at one rank."""
+        -> laid out by ``dst`` (None: whole), axis by axis: the rank's
+        shard where only ``dst`` splits a leaf, the all-gather of the
+        shards over that axis where only ``src`` does (one collective a
+        leaf and axis, in tree order), the leaf itself where both agree.
+        The identity at one rank."""
         if self.mesh is None or src == dst:
             return tree
+
+        def dim(cls, axis, path):  # the leaf's split dim over ``axis`` as ``cls``
+            if cls is None:
+                return None
+            return pt.tree_get(self.splits[cls] if axis == "data" else self.model_splits, path)
+
         out: dict = {}
         for path in pt.tree_paths(tree):
-            t = pt.tree_get(tree, path)
-            da = pt.tree_get(self.splits[src], path) if src else None
-            db = pt.tree_get(self.splits[dst], path) if dst else None
-            if da == db:
-                leaf = t
-            elif da is None:
-                leaf = pt.shard_leaf(t, db, self.rank, self.dp)
-            elif db is None:
-                leaf = self.mesh.all_gather(t, da)
-            else:
-                raise ValueError(f"{path}: split on dim {da} as {src}, {db} as {dst}")
+            leaf = pt.tree_get(tree, path)
+            for axis in pt.CUT_ORDER:
+                da, db = dim(src, axis, path), dim(dst, axis, path)
+                if da == db:
+                    continue
+                if da is None:
+                    leaf = pt.shard_leaf(leaf, db, self.coords[axis], self.sizes[axis])
+                elif db is None:
+                    leaf = self.mesh.all_gather(leaf, da, axis)
+                else:
+                    raise ValueError(f"{path}: split on dim {da} as {src}, {db} as {dst}")
             pt.tree_set(out, path, leaf)
         return out
 
@@ -293,12 +374,15 @@ class ZeroInfinityEngine:
         shards in the params' dtypes, its gradient shards likewise (f32,
         the accumulators', under ``grad_accum`` > 1), its f32 master, m and
         v shards (12 bytes an element)."""
+        M = self.sizes["model"]
+
         def count(cls, per_elem=None):
             total = 0
             for path in pt.tree_paths(self.bundle.defs):
                 d = pt.tree_get(self.bundle.defs, path)
                 n = math.prod(d.shape) // (self.dp if pt.tree_get(self.splits[cls], path)
                                            is not None else 1)
+                n //= M if pt.tree_get(self.model_splits, path) is not None else 1
                 total += n * (per_elem or d.torch_dtype.itemsize)
             return total
 
@@ -311,7 +395,8 @@ class ZeroInfinityEngine:
         """The ``keystr`` names of the leaves every rank holds whole in
         state class ``cls`` (all of them at one rank)."""
         return ["".join(f"[{k!r}]" for k in path) for path in pt.tree_paths(self.bundle.defs)
-                if self.mesh is None or pt.tree_get(self.splits[cls], path) is None]
+                if self.mesh is None or (pt.tree_get(self.splits[cls], path) is None
+                                         and pt.tree_get(self.model_splits, path) is None)]
 
     def place_state(self, state: dict) -> dict:
         """``state``'s leaves where this engine keeps them: host-tier
@@ -374,13 +459,22 @@ class ZeroInfinityEngine:
         if mesh is not None:
             from repro_torch.core.zero import LeafGather  # zero.py imports this module
 
+        cp = self.mp is not None and not self.mp.tp
+
         def value_and_grad(params, batch):
             paths = pt.tree_paths(params)
             leaves = [pt.tree_get(params, p).detach().requires_grad_() for p in paths]
             live: dict = {}
             for p, leaf in zip(paths, leaves):
-                dim = pt.tree_get(self.splits["param"], p) if mesh is not None else None
-                pt.tree_set(live, p, leaf if dim is None else LeafGather.apply(leaf, mesh, dim))
+                t = leaf
+                if mesh is not None:
+                    dim = pt.tree_get(self.splits["param"], p)
+                    if dim is not None:
+                        t = LeafGather.apply(t, mesh, dim, "data")
+                    mdim = pt.tree_get(self.model_splits, p)
+                    if cp and mdim is not None:  # context parallel: the whole leaf
+                        t = LeafGather.apply(t, mesh, mdim, "model")
+                pt.tree_set(live, p, t)
             loss, aux = loss_stats(live, batch, reduce=reduce)
             if mesh is not None:
                 loss = loss / dp  # the ranks' sum is the global batch's loss
@@ -388,7 +482,10 @@ class ZeroInfinityEngine:
             for p, g in zip(paths, torch.autograd.grad(loss, leaves)):
                 if mesh is not None and pt.tree_get(self.splits["param"], p) is None:
                     dim = pt.tree_get(self.splits["grad"], p)
-                    g = mesh.all_reduce(g) if dim is None else mesh.reduce_scatter(g, dim)
+                    g = (mesh.all_reduce(g, "data") if dim is None
+                         else mesh.reduce_scatter(g, dim, "data"))
+                if self._partial_over_model(p):
+                    g = mesh.all_reduce(g, "model")
                 pt.tree_set(grads, p, g)
             return loss.detach(), grads, aux
 
@@ -422,8 +519,8 @@ class ZeroInfinityEngine:
                 opt = adam.AdamState(opt.step, *(self.host.to_device(t) for t in opt[1:]))
             loss, grads, aux = grads_of(params, batch)
             extra = {}
-            if mesh is not None:
-                loss = mesh.all_reduce(loss)
+            if mesh is not None:  # a context-parallel rank's is its chunk's share
+                loss = mesh.all_reduce(loss, None if cp else "data")
                 extra = {"param_shard_bytes": _nbytes(state["params"]),
                          "grad_shard_bytes": _nbytes(grads)}
             gnorm = self.grad_norm(grads)
@@ -448,20 +545,25 @@ class ZeroInfinityEngine:
 
     def grad_norm(self, grads: dict) -> torch.Tensor:
         """The global gradient's norm from this rank's grad-spec part: at
-        one rank ``global_norm``; on a mesh the split leaves' f32 sums of
-        squares summed over the ranks, each whole leaf's counted once
-        (rank 0 adds them), one all-reduce."""
+        one rank ``global_norm``; on a mesh the f32 sums of squares of the
+        leaves, each counted on the ranks at coordinate 0 of every axis it
+        is not split over (so once over the mesh), summed over the ranks in
+        one all-reduce (the leaves split on every axis and the others in
+        two sums)."""
         if self.mesh is None:
             return global_norm(grads)
         split = torch.zeros((), dtype=torch.float32, device=self.device)
         whole = torch.zeros((), dtype=torch.float32, device=self.device)
         for path in pt.tree_paths(grads):
             sq = torch.sum(torch.square(pt.tree_get(grads, path).float()))
-            if pt.tree_get(self.splits["grad"], path) is None:
-                whole = whole + sq
-            else:
+            dims = {"data": pt.tree_get(self.splits["grad"], path),
+                    "model": pt.tree_get(self.model_splits, path)}
+            unsplit = [a for a, n in self.sizes.items() if n > 1 and dims[a] is None]
+            if not unsplit:
                 split = split + sq
-        return torch.sqrt(self.mesh.all_reduce(split + whole if self.rank == 0 else split))
+            elif all(self.coords[a] == 0 for a in unsplit):
+                whole = whole + sq
+        return torch.sqrt(self.mesh.all_reduce(split + whole))
 
 
 def _tree_add_f32(acc: dict, g: dict) -> dict:

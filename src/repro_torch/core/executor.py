@@ -115,9 +115,13 @@ rank's state shards, ``*_shard_bytes``); each step also reports their sum
 over the ranks, ``<counter>_all_ranks``, what the reference's one process
 counts, and an executor built from a plan the plan's per-device state
 bytes beside them (``plan_*_shard_bytes``). A plan for another number of
-devices than the ranks raises; so do, on a GSPMD mesh, a model axis (ROADMAP
-item 8e), params on NVMe and ``param_quant``, which encodes only the NVMe
-param store (8f), and checkpoints at dp > 1 (item 5).
+devices than the ranks (``--data-mesh`` x ``--model-mesh``) raises; so
+do, on a GSPMD mesh, a model axis for a family other than dense and vlm
+(ROADMAP item 8g), params on NVMe and ``param_quant``, which encodes only
+the NVMe param store (8f), and checkpoints at dp > 1 (item 5). On a mesh
+with a model axis the step is the engine's tensor- or context-parallel
+one, in-graph or with the off-graph optimizer over the rank's shards (on
+the host or NVMe, keyed ``rank<r>/<keystr>`` as on data-parallel ranks).
 
 What stays unported raises, naming its ROADMAP item (``check_ported``).
 Per-step metrics of the off-graph and layered steps are the reference's:
@@ -149,6 +153,7 @@ from repro_torch.core.offload import (ArrayStore, ChunkedAdamOffload,
                                       HostArrayStore, NvmeStore, ParamStreamer,
                                       PinnedBufferPool, PinnedStager)
 from repro_torch.core.zero import ExplicitZero3Engine
+from repro_torch.models import registry
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam as adam_mod
 from repro_torch.runtime import trace
@@ -156,13 +161,14 @@ from repro_torch.runtime import trace
 
 def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
                  model: int = 1) -> None:
-    """Raise for a configuration the port cannot run on ``dp`` ranks of a
-    mesh whose model axis is ``model``: ``ValueError`` for a plan made
-    for ``n_devices`` devices (None: no plan) on another number of ranks;
-    ``NotImplementedError`` naming the ROADMAP item that ports it for the
-    GSPMD engine on a mesh with a model axis (tensor and context
-    parallelism), params on NVMe (the leaf scheduler) or ``param_quant``
-    (the NVMe param store's encoding)."""
+    """Raise for a configuration the port cannot run on ``dp`` ranks (every
+    rank of the mesh) of a mesh whose model axis is ``model``:
+    ``ValueError`` for a plan made for ``n_devices`` devices (None: no
+    plan) on another number of ranks; ``NotImplementedError`` naming the
+    ROADMAP item that ports it for the GSPMD engine on a mesh: a model axis
+    for the moe, ssm, hybrid and encdec families (8g), params on NVMe (the
+    leaf scheduler) or ``param_quant`` (the NVMe param store's encoding,
+    8f)."""
     if n_devices is not None and n_devices != dp:
         raise ValueError(
             f"a plan for {n_devices} device(s) runs on as many ranks, and this run "
@@ -172,10 +178,7 @@ def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
     if dp == 1 or run.parallel.engine == "zero3":
         return
     where = f"the GSPMD engine on a mesh of {dp} ranks"
-    if model > 1:
-        raise NotImplementedError(
-            f"{where} with a model axis of {model}: tensor and context parallelism "
-            "are not ported (ROADMAP.md Queue 1 item 8e); --model-mesh 1")
+    registry.check_model_axis(run.model, model)
     if run.offload.param_quant != "none":
         raise NotImplementedError(
             f"{where}: --param-quant {run.offload.param_quant} encodes the NVMe param "

@@ -23,17 +23,20 @@ table of a ZeRO stage for one state class (param, grad, opt, act) and
 ``spec_tree`` lays a tree of defs out by it. A spec is the reference's
 ``PartitionSpec`` as a tuple (its divisibility guard included: a dim that
 does not split evenly stays replicated); the rules read the mesh's axis
-sizes, ``{"data": N, "model": M}``, not devices. ``split_dim`` turns a
-spec into what one rank holds of the leaf: the dim split over the ranks,
-or None where the leaf is whole on every rank; ``shard_leaf`` /
-``unshard_leaf`` cut a whole leaf into a rank's shard and put the shards
-back together.
+sizes, ``{"data": N, "model": M}``, not devices. ``split_axes`` turns a
+spec into what one rank holds of the leaf: ``{axis: dim}``, the dim split
+over each mesh axis of more than one rank (empty where the leaf is whole
+on every rank; ``split_dim`` one axis's entry). A leaf may be cut along
+two dims at once: at ZeRO-3 on a (2, 2) mesh ``wq`` splits ``embed`` over
+data and ``heads`` over model. ``shard_leaf`` / ``unshard_leaf`` cut a
+whole leaf along one dim and put it back together; ``cut_leaf`` /
+``join_leaf`` do both axes for a rank at mesh coordinates ``coords``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,14 +62,15 @@ class ParamDef:
         return getattr(torch, self.dtype)
 
 
-def initialize(d: ParamDef, generator: torch.Generator,
-               device: torch.device, shard: Optional[tuple] = None) -> torch.Tensor:
-    """One leaf drawn whole from ``generator``; with ``shard`` = ``(dim,
-    rank, parts)`` only that rank's ``shard_leaf`` of it is kept, cut from
-    the f32 draw before the cast (the cast is elementwise, so the shard's
-    bits are the whole leaf's)."""
+def initialize(d: ParamDef, generator: torch.Generator, device: torch.device,
+               cut: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """One leaf drawn whole from ``generator``; with ``cut`` (a rank's
+    ``cut_leaf``) only that part of it is kept, cut from the f32 draw
+    before the cast (the cast is elementwise, so the shard's bits are the
+    whole leaf's)."""
     dtype = d.torch_dtype
-    cut = (lambda t: t) if shard is None else (lambda t: shard_leaf(t, *shard))
+    cut = cut or (lambda t: t)
+
     if d.init == "zeros":
         return cut(torch.zeros(d.shape, dtype=dtype, device=device))
     if d.init == "ones":
@@ -94,18 +98,20 @@ def init_tree(defs, generator: torch.Generator, device) -> dict:
     return {k: init_tree(defs[k], generator, device) for k in sorted(defs)}
 
 
-def init_shards(defs, splits, generator: torch.Generator, device, rank: int,
-                parts: int) -> dict:
+def init_shards(defs, splits: dict, generator: torch.Generator, device, coords: dict,
+                sizes: dict) -> dict:
     """``init_tree``'s draw, leaf by leaf in its order, each leaf cut to
-    rank ``rank``'s shard along its dim in ``splits`` (a tree shaped like
-    ``defs``; None: whole) and the rest freed before the next is drawn: the
-    shards are bit for bit ``shard_leaf`` of ``init_tree``'s leaves, and no
-    more than one whole leaf is ever held."""
+    the shard of the rank at mesh ``coords`` (``{axis: coordinate}``, the
+    axes' sizes in ``sizes``) along its dim on each axis of ``splits``
+    (``{axis: tree shaped like defs}``; None: whole) and the rest freed
+    before the next is drawn: the shards are bit for bit ``cut_leaf`` of
+    ``init_tree``'s leaves, and no more than one whole leaf is ever held."""
     device = torch.device(device)
     out: dict = {}
     for path in tree_paths(defs):
-        shard = (tree_get(splits, path), rank, parts)
-        tree_set(out, path, initialize(tree_get(defs, path), generator, device, shard))
+        dims = {a: tree_get(tree, path) for a, tree in splits.items()}
+        tree_set(out, path, initialize(tree_get(defs, path), generator, device,
+                                       lambda t: cut_leaf(t, dims, coords, sizes)))
     return out
 
 
@@ -412,24 +418,34 @@ def spec_tree(defs, rules: AxisRules):
     return tree_map(lambda d: rules.spec(d.axes, d.shape), defs)
 
 
-def split_dim(spec: Spec, rules: AxisRules) -> Optional[int]:
-    """The dim of a leaf laid out by ``spec`` that its ranks each hold a
-    part of, or None where every rank holds it whole (entries on mesh
-    axes of size 1 split nothing). One split dim at most: the GSPMD
-    engine's ranks are data-parallel."""
-    dims = [i for i, e in enumerate(spec)
-            if e is not None and rules.degree((e,) if isinstance(e, str) else e) > 1]
-    if len(dims) > 1:
-        raise NotImplementedError(f"spec {spec} splits {len(dims)} dims over the ranks")
-    return dims[0] if dims else None
+def split_axes(spec: Spec, rules: AxisRules) -> Dict[str, int]:
+    """``{axis: dim}``: the dim of a leaf laid out by ``spec`` that each
+    mesh axis of more than one rank splits (entries on axes of size 1
+    split nothing). An entry on two axes at once (``pure_dp``'s) is not
+    ported: no GSPMD run here lays a leaf out so."""
+    out: Dict[str, int] = {}
+    for i, e in enumerate(spec):
+        axes = [a for a in ((e,) if isinstance(e, str) else (e or ()))
+                if rules.degree((a,)) > 1]
+        if len(axes) > 1:
+            raise NotImplementedError(f"spec {spec} splits dim {i} over {axes} at once")
+        if axes:
+            out[axes[0]] = i
+    return out
+
+
+def split_dim(spec: Spec, rules: AxisRules, axis: str = "data") -> Optional[int]:
+    """The dim of a leaf laid out by ``spec`` that the ranks along ``axis``
+    each hold a part of, or None where that axis leaves it whole."""
+    return split_axes(spec, rules).get(axis)
 
 
 def leaf_splits(defs, cfg: ModelConfig, mesh_sizes: Dict[str, int],
-                parallel: ParallelConfig, for_state: str) -> dict:
-    """Each leaf's ``split_dim`` under ``make_rules`` for ``for_state``:
-    a tree shaped like ``defs``."""
+                parallel: ParallelConfig, for_state: str, axis: str = "data") -> dict:
+    """Each leaf's ``split_dim`` along ``axis`` under ``make_rules`` for
+    ``for_state``: a tree shaped like ``defs``."""
     rules = make_rules(cfg, mesh_sizes, parallel, for_state=for_state)
-    return tree_map(lambda d: split_dim(rules.spec(d.axes, d.shape), rules), defs)
+    return tree_map(lambda d: split_dim(rules.spec(d.axes, d.shape), rules, axis), defs)
 
 
 def shard_leaf(t: torch.Tensor, dim: Optional[int], rank: int, parts: int) -> torch.Tensor:
@@ -447,3 +463,26 @@ def unshard_leaf(shards: Sequence[torch.Tensor], dim: Optional[int]) -> torch.Te
     """The whole leaf from its ranks' shards in rank order (rank 0's where
     the leaf is whole on every rank)."""
     return shards[0] if dim is None else torch.cat(list(shards), dim=dim)
+
+
+# the axes in the order a leaf is cut and joined (an axis splits one dim,
+# and two axes never split the same one, so the order is only a convention)
+CUT_ORDER = ("data", "model")
+
+
+def cut_leaf(t: torch.Tensor, dims: Dict[str, Optional[int]], coords: Dict[str, int],
+             sizes: Dict[str, int]) -> torch.Tensor:
+    """The shard of a whole leaf that the rank at mesh ``coords`` holds:
+    cut along ``dims[axis]`` into ``sizes[axis]`` parts for each axis."""
+    for axis in CUT_ORDER:
+        t = shard_leaf(t, dims.get(axis), coords[axis], sizes[axis])
+    return t
+
+
+def join_leaf(shards: Sequence[torch.Tensor], dims: Dict[str, Optional[int]],
+              sizes: Dict[str, int]) -> torch.Tensor:
+    """The whole leaf from every rank's shard in rank order (rank r at
+    data ``r // model``, model ``r % model``): ``cut_leaf`` undone."""
+    D, M = sizes.get("data", 1), sizes.get("model", 1)
+    rows = [unshard_leaf(shards[d * M:(d + 1) * M], dims.get("model")) for d in range(D)]
+    return unshard_leaf(rows, dims.get("data"))

@@ -132,19 +132,88 @@ class RowGather(torch.autograd.Function):
 
 class LeafGather(torch.autograd.Function):
     """A GSPMD leaf from the ranks' shards along ``dim``: forward the
-    all-gather of the shards, backward the reduce-scatter (a sum, in the
-    cotangent's dtype: bf16 for bf16 leaves) of the leaf's cotangent into
-    this rank's shard, the transpose XLA emits for a ZeRO-3 leaf
-    (``core/engine.py``)."""
+    all-gather of the shards over ``axis`` (None: every rank; the GSPMD
+    engine's ZeRO gathers run over ``"data"``), backward the
+    reduce-scatter (a sum, in the cotangent's dtype: bf16 for bf16
+    leaves) of the leaf's cotangent into this rank's shard, the transpose
+    XLA emits for a ZeRO-3 leaf (``core/engine.py``). Context parallelism
+    gathers the leaves split over ``"model"`` so, and its K/V along the
+    sequence (``ModelAxis``)."""
 
     @staticmethod
-    def forward(ctx, shard, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
-        return mesh.all_gather(shard, dim)
+    def forward(ctx, shard, mesh, dim, axis=None):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim, axis
+        return mesh.all_gather(shard, dim, axis)
 
     @staticmethod
     def backward(ctx, ct):
-        return ctx.mesh.reduce_scatter(ct, ctx.dim), None, None
+        return ctx.mesh.reduce_scatter(ct, ctx.dim, ctx.axis), None, None, None
+
+
+class ToModel(torch.autograd.Function):
+    """Forward the identity, backward the all-reduce of the cotangent over
+    the model axis: what enters a column-parallel product (each model
+    rank's part of the input's gradient summed), Megatron's ``f``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.all_reduce(ct, "model"), None
+
+
+class FromModel(torch.autograd.Function):
+    """Forward the all-reduce over the model axis, backward the identity:
+    a row-parallel product's partial sums joined (Megatron's ``g``), the
+    vocab-parallel embedding's rows and cross-entropy's sums."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class ModelAxis:
+    """A rank's model-parallel context, what ``models/common.py`` and
+    ``models/transformer.py`` take as ``mp`` (None at one model rank):
+    the mesh (its ``"model"`` group), this rank's model coordinate
+    ``rank`` among ``size`` and the attention ``strategy`` of
+    ``partition.choose_attn_strategy``: ``"tp"`` (heads, MLP columns and
+    vocab rows split over the model ranks, Megatron's explicit
+    collectives) or ``"cp"`` (each rank its ``S / size`` chunk of the
+    sequence; the leaves split over model gathered before use)."""
+
+    def __init__(self, mesh, strategy: str):
+        self.mesh, self.strategy = mesh, strategy
+        self.rank, self.size = mesh.coords()["model"], mesh.model
+
+    @property
+    def tp(self) -> bool:
+        return self.strategy == "tp"
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Before a column-parallel product (``ToModel``)."""
+        return ToModel.apply(x, self.mesh)
+
+    def join(self, x: torch.Tensor) -> torch.Tensor:
+        """After a row-parallel product: the partial sums' all-reduce
+        (``FromModel``)."""
+        return FromModel.apply(x, self.mesh)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model ranks' ``t`` along ``dim`` (``LeafGather`` over model:
+        backward the reduce-scatter)."""
+        return LeafGather.apply(t, self.mesh, dim, "model")
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the model ranks (no gradient)."""
+        return self.mesh.all_reduce(t.detach(), "model", op="max")
 
 
 class Psum(torch.autograd.Function):

@@ -11,6 +11,15 @@ the reference's does), this rank, its device, the process group and the
 transport, with the collectives the engines issue (the all-gather and the
 reduce-scatter along any dim, for the GSPMD engine's leaves).
 
+Rank r sits at data coordinate ``r // model`` and model coordinate ``r %
+model``, the row-major order in which the reference's ``make_local_mesh``
+lays out its devices (``repro/launch/mesh.py:26-32``), so rank r holds
+what the reference's device r holds. Every rank creates one process group
+per model coordinate (the ranks of one data column: the ``"data"`` axis)
+and one per data coordinate (the ranks of one model row: ``"model"``), in
+the same order; each collective takes the ``axis`` it runs over (None:
+every rank, the dp paths' default). An axis of one rank is the identity.
+
 The transport is chosen by a rule, never on failure (``choose_backend``):
 
   * each rank has a card of its own: NCCL, on the device tensors;
@@ -104,9 +113,13 @@ def _rank_device(device) -> torch.device:
     return torch.device("cuda", _local_rank() % torch.cuda.device_count())
 
 
+AXES = ("data", "model")
+
+
 @dataclasses.dataclass
 class LocalMesh:
-    """One rank's view of a ``data x model`` mesh folded into dp ranks."""
+    """One rank's view of a ``data x model`` mesh: the explicit engine
+    folds it into ``world`` dp ranks, the GSPMD engine reads both axes."""
 
     data: int
     model: int
@@ -115,10 +128,24 @@ class LocalMesh:
     device: torch.device
     group: Optional[object]  # the process group; None at one rank
     backend: str  # "nccl" | "gloo" | "none" (one rank)
+    # {"data": group, "model": group}: this rank's group along each axis
+    # (the world's where the axis spans every rank); empty without a group
+    axis_groups: dict = dataclasses.field(default_factory=dict)
 
     def axis_sizes(self) -> dict:
         """The mesh's axis sizes, what the GSPMD engine's rules read."""
         return {"data": self.data, "model": self.model}
+
+    def coords(self) -> dict:
+        """This rank's ``{"data": r // model, "model": r % model}``."""
+        return {"data": self.rank // self.model, "model": self.rank % self.model}
+
+    def _axis(self, axis: Optional[str]) -> tuple:
+        """(group, size) of a collective over ``axis`` (None: the world)."""
+        if axis is None:
+            return self.group, self.world
+        size = self.axis_sizes()[axis]
+        return (self.group if size == self.world else self.axis_groups.get(axis)), size
 
     def transport(self) -> dict:
         """``{"backend", "device", op: "direct"}``: every collective takes
@@ -133,57 +160,67 @@ class LocalMesh:
         return trace.span(op, sys="comm", cls="collective", attr="io_wait",
                           nbytes=t.numel() * t.element_size())
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, dim: int = 0, axis: Optional[str] = None
+                   ) -> torch.Tensor:
         """The ranks' ``t`` (any shape) concatenated along ``dim``, in rank
-        order (``all_gather_into_tensor``, which gathers along dim 0: any
-        other dim is moved to the front for it and back after)."""
-        if self.world == 1:
+        order along ``axis`` (None: every rank; ``all_gather_into_tensor``,
+        which gathers along dim 0: any other dim is moved to the front for
+        it and back after)."""
+        group, n = self._axis(axis)
+        if n == 1:
             return t
         t = t.movedim(dim, 0).contiguous()
-        out = t.new_empty((self.world * t.shape[0],) + tuple(t.shape[1:]))
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
         with self._span("all_gather_into_tensor", t):
-            dist.all_gather_into_tensor(out, t, group=self.group)
+            dist.all_gather_into_tensor(out, t, group=group)
         return out if dim == 0 else out.movedim(0, dim).contiguous()
 
-    def all_gather_leaves(self, items: list) -> list:
+    def all_gather_leaves(self, items: list, axis: Optional[str] = None) -> list:
         """``[(t, dim), ...]`` -> each ``t`` all-gathered along its ``dim``
-        (as ``all_gather``), in ONE collective: every tensor's bytes, its
-        dim moved to the front, packed into one int8 buffer (dtypes may
-        differ), gathered, and cut back apart. Serving gathers a layer's
-        leaves so, one collective a layer."""
-        if self.world == 1 or not items:
+        over ``axis`` (as ``all_gather``), in ONE collective: every
+        tensor's bytes, its dim moved to the front, packed into one int8
+        buffer (dtypes may differ), gathered, and cut back apart. Serving
+        gathers a layer's leaves so, one collective a layer."""
+        n = self._axis(axis)[1]
+        if n == 1 or not items:
             return [t for t, _ in items]
         parts = [t.movedim(d, 0).contiguous() for t, d in items]
         flat = torch.cat([p.reshape(-1).view(torch.int8) for p in parts])
-        rows = self.all_gather(flat).view(self.world, -1)
+        rows = self.all_gather(flat, 0, axis).view(n, -1)
         out, off = [], 0
         for p, (_, d) in zip(parts, items):
-            n = p.numel() * p.element_size()
-            whole = rows[:, off:off + n].contiguous().view(p.dtype)
-            whole = whole.reshape((self.world * p.shape[0],) + tuple(p.shape[1:]))
+            size = p.numel() * p.element_size()
+            whole = rows[:, off:off + size].contiguous().view(p.dtype)
+            whole = whole.reshape((n * p.shape[0],) + tuple(p.shape[1:]))
             out.append(whole if d == 0 else whole.movedim(0, d).contiguous())
-            off += n
+            off += size
         return out
 
-    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """This rank's chunk along ``dim`` of the ranks' ``t`` summed, in
-        ``t``'s dtype (``reduce_scatter_tensor``, along dim 0 as
-        ``all_gather``)."""
-        if self.world == 1:
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0, axis: Optional[str] = None
+                       ) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the ranks' ``t`` summed over
+        ``axis``, in ``t``'s dtype (``reduce_scatter_tensor``, along dim 0
+        as ``all_gather``)."""
+        group, n = self._axis(axis)
+        if n == 1:
             return t
         t = t.movedim(dim, 0).contiguous()
-        out = t.new_empty((t.shape[0] // self.world,) + tuple(t.shape[1:]))
+        out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
         with self._span("reduce_scatter_tensor", t):
-            dist.reduce_scatter_tensor(out, t, group=self.group)
+            dist.reduce_scatter_tensor(out, t, group=group)
         return out if dim == 0 else out.movedim(0, dim).contiguous()
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``t`` summed, in ``t``'s dtype, as a new tensor."""
-        if self.world == 1:
+    def all_reduce(self, t: torch.Tensor, axis: Optional[str] = None,
+                   op: str = "sum") -> torch.Tensor:
+        """The ranks' ``t`` reduced over ``axis`` (``op``: "sum" or
+        "max"), in ``t``'s dtype, as a new tensor."""
+        group, n = self._axis(axis)
+        if n == 1:
             return t
         out = t.detach().clone(memory_format=torch.contiguous_format)
         with self._span("all_reduce", out):
-            dist.all_reduce(out, group=self.group)
+            dist.all_reduce(out, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                            group=group)
         return out
 
     def gather_stack(self, t: torch.Tensor) -> torch.Tensor:
@@ -209,11 +246,11 @@ class LocalMesh:
 def data_mesh(args) -> int:
     """A launch's data-parallel ranks (``launch.train``, ``launch.serve``):
     ``--data-mesh``, or where it is not given the devices a ``--plan`` is
-    made for (``--hw-devices``), else 1."""
+    made for (``--hw-devices``) over ``--model-mesh``, else 1."""
     if args.data_mesh:
         return args.data_mesh
     if args.plan != "manual" and args.hw_devices:
-        return args.hw_devices
+        return max(1, args.hw_devices // getattr(args, "model_mesh", 1))
     return 1
 
 
@@ -241,4 +278,17 @@ def make_local_mesh(data: int = 1, model: int = 1, device="cpu",
                          f"with {torch.cuda.device_count()} card(s) take {want}")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return LocalMesh(data, model, dist.get_rank(), n, dev, dist.group.WORLD, backend)
+    # every rank creates every group, in the same order: the data columns
+    # (one a model coordinate), then the model rows (one a data coordinate)
+    rank, groups = dist.get_rank(), {}
+    if 1 < data < n:
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if rank % model == m:
+                groups["data"] = g
+    if 1 < model < n:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if rank // model == d:
+                groups["model"] = g
+    return LocalMesh(data, model, rank, n, dev, dist.group.WORLD, backend, groups)

@@ -36,8 +36,24 @@ counters are the run's. The ranks step in lockstep until none has an
 active slot (one all-reduce of an int a step); every rank returns the
 run: the sequences' tokens and latencies gathered from their ranks,
 ``admissions`` and ``kv`` summed (``kv_ranks`` beside), each rank's
-``param_shard_bytes`` and peak allocated bytes. ``--model-mesh`` > 1
-raises (ROADMAP.md Queue 1 item 8e).
+``param_shard_bytes`` and peak allocated bytes.
+
+With a model axis (``--model-mesh M``: D * M ranks, rank r at data
+coordinate r // M and model coordinate r % M) the dense and vlm families
+serve under tensor parallelism (``models/common.py``): each rank holds its
+heads, MLP columns and vocab rows, gathers a layer over the data axis
+alone (the model shards stay split: no param byte crosses the model axis)
+and joins the row-parallel products with an all-reduce over its model
+group. The slots split over the data coordinate; the model ranks of a data
+row serve the same rows, each parking its own KV heads in its own store,
+so the ``kv`` bytes summed over the ranks are the reference's where the KV
+heads split over the model ranks; where they do not, each rank parks the
+KV heads its query heads read (``transformer.local_kv_heads``). The
+logits stay vocab-sharded: a token is the global argmax over the ranks'
+shards, the first index on ties as ``jnp.argmax`` takes it. Context
+parallelism (the heads do not split over M) does not serve: its decode
+cache split is ROADMAP.md Queue 1 item 8g, as are the other families on a
+model axis.
 
 Every family serves: dense, MoE (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
@@ -71,6 +87,9 @@ rank a quarter of its params):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch llava-next-34b --data-mesh 4 \
       --batch 8 --kv-slots 4 --kv-tier host --prompt-len 3072 --new-tokens 16
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve --arch llava-next-34b --model-mesh 4 \
+      --batch 8 --kv-slots 4 --kv-tier host --prompt-len 3072 --new-tokens 16
 """
 from __future__ import annotations
 
@@ -92,6 +111,8 @@ from repro_torch.core.engine import ZeroInfinityEngine
 from repro_torch.core.offload import HostArrayStore, NvmeStore, PinnedBufferPool
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import common as cm
+from repro_torch.models import registry
 from repro_torch.runtime import metrics as metrics_mod
 from repro_torch.runtime import trace
 
@@ -134,7 +155,8 @@ def _parse(argv=None):
                     help="data-parallel ranks, one process each (torchrun); 0: "
                          "the devices a --plan is made for (--hw-devices), else 1")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="not ported beyond 1: raises")
+                    help="model-parallel ranks (tensor parallelism, dense and vlm "
+                         "families): --data-mesh x --model-mesh ranks in all")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
                     metavar="OUT.json",
@@ -155,11 +177,39 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _unported(args) -> None:
-    if args.model_mesh > 1:
+    """Raise, before any process group, where the model axis does not
+    serve: the families outside dense and vlm, and context parallelism
+    (the heads do not split over ``--model-mesh``: its decode cache split
+    over the model axis, the reference's ``cache_seq``), both ROADMAP.md
+    Queue 1 item 8g."""
+    M = args.model_mesh
+    if M <= 1:
+        return
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    registry.check_model_axis(cfg, M)
+    sizes = {"data": mesh_mod.data_mesh(args), "model": M}
+    if pt.choose_attn_strategy(cfg, sizes, ParallelConfig()) != "tp":
         raise NotImplementedError(
-            "--model-mesh > 1 is not ported yet: serving shards params over data-"
-            "parallel ranks only (ROADMAP.md Queue 1 item 8e: tensor parallelism "
-            "over the model axis)")
+            f"serving {cfg.arch} on a model axis of {M}: its {cfg.n_heads} heads do not "
+            "split, so the reference runs context parallelism, whose decode cache split "
+            "over the model axis (cache_seq) is not ported (ROADMAP.md Queue 1 item 8g)")
+
+
+def global_argmax(logits: torch.Tensor, mesh, sharded: bool) -> torch.Tensor:
+    """The argmax over the last dim of ``logits`` (..., V); with
+    ``sharded`` they are the model rank's vocab columns ``[m * V, (m+1) *
+    V)`` and the argmax is the global one over the model ranks' shards:
+    each rank's (max, first index) gathered over the model axis, the
+    first rank holding the max wins, so ties go to the smallest global
+    index, as ``jnp.argmax`` breaks them."""
+    if not sharded:
+        return logits.argmax(-1)
+    n = logits.shape[-1]
+    val, idx = logits.float().max(-1)  # the first index of the max
+    idx = idx + mesh.coords()["model"] * n
+    vals = mesh.all_gather(val[None], 0, "model")
+    idxs = mesh.all_gather(idx[None], 0, "model")
+    return torch.gather(idxs, 0, vals.argmax(0, keepdim=True))[0]
 
 
 def _percentiles(xs) -> dict:
@@ -216,7 +266,8 @@ def run_serve(args, argv=None) -> dict:
     _unported(args)
     created = mesh_mod.maybe_init_distributed(device.type)
     try:
-        mesh = mesh_mod.make_local_mesh(mesh_mod.data_mesh(args), 1, device, entry="serve")
+        mesh = mesh_mod.make_local_mesh(mesh_mod.data_mesh(args), args.model_mesh, device,
+                                        entry="serve")
         return _serve(args, argv, mesh)
     finally:
         if created:
@@ -253,11 +304,13 @@ def _serve(args, argv, mesh) -> dict:
     slots = max(1, min(int(slots), n_seqs))
     block_tokens = int(block_tokens) or kvcache.default_block_tokens(P + N)
     # the rank's slots: global slots [lo, lo + local) where they divide over
-    # the ranks, else every slot (the batch replicated, as the reference's
-    # rule replicates a batch dim that does not divide)
-    split = slots % mesh.world == 0
-    local = slots // mesh.world if split else slots
-    lo = mesh.rank * local if split else 0
+    # the data ranks, else every slot (the batch replicated, as the
+    # reference's rule replicates a batch dim that does not divide); the
+    # model ranks of a data row serve the same slots
+    D, coord = mesh.data, mesh.coords()
+    split = slots % D == 0
+    local = slots // D if split else slots
+    lo = coord["data"] * local if split else 0
     if device.type == "cuda":  # the run's peak, from here (its allocator up first)
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -265,6 +318,19 @@ def _serve(args, argv, mesh) -> dict:
     eng = ZeroInfinityEngine(run, device, mesh=mesh)
     params = eng.init_params(torch.Generator(device=device).manual_seed(args.seed))
     bundle = eng.bundle
+    # the logits of a rank whose vocab rows are its own are that shard
+    sharded = eng.mp is not None and cm.vocab_sharded(params["embed"], cfg, eng.mp)
+
+    def next_tokens(logits):
+        return global_argmax(logits[:, -1], mesh, sharded).to(torch.int32).cpu().numpy()
+
+    def own_len(cache):
+        """``cache`` as this rank parks and counts it: the ``len`` leaf (a
+        parked placeholder no fetch reads, and the slots' lengths) is one
+        a data row, model rank 0's, so the ranks' summed bytes count it
+        once, as the reference's one cache does."""
+        return cache if coord["model"] == 0 else {k: v for k, v in cache.items()
+                                                   if k != "len"}
 
     def sync():
         if device.type == "cuda":
@@ -331,7 +397,7 @@ def _serve(args, argv, mesh) -> dict:
                 logits, cache = bundle.prefill(eng.serve_params(params), wave_batch(idx))
                 sync()
             t_prefill += pc() - t0
-            first = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+            first = next_tokens(logits)
             prefill_len = int(cache["len"])
             t_first = pc() - t_serve
             for j in range(valid):
@@ -347,8 +413,8 @@ def _serve(args, argv, mesh) -> dict:
                 for j in range(valid):
                     s = idx[j]
                     if not done[s]:
-                        kv.park(f"seq{s}",
-                                kvcache.slice_sequence(cache, j), prefill_len)
+                        kv.park(f"seq{s}", own_len(kvcache.slice_sequence(cache, j)),
+                                prefill_len)
                         waiting.append(s)
         kv.flush()
 
@@ -360,7 +426,7 @@ def _serve(args, argv, mesh) -> dict:
                       "len": torch.full((local,), prefill_len,
                                         dtype=torch.int32, device=device)}
         cap = prefill_len + N
-        resident = kvcache.device_kv_bytes(slot_cache)
+        resident = kvcache.device_kv_bytes(own_len(slot_cache))
 
         slot_seq = [idx0[j] if j < valid0 else None for j in range(local)]
         active = [j < valid0 and not done[idx0[j]] for j in range(local)]
@@ -426,7 +492,7 @@ def _serve(args, argv, mesh) -> dict:
                 logits, slot_cache = bundle.decode_step(
                     eng.serve_params(params), slot_cache,
                     {"tokens": torch.from_numpy(cur[:, None].copy()).to(device)})
-                toks = logits[:, -1].argmax(-1).to(torch.int32).cpu().numpy()
+                toks = next_tokens(logits)
             step_dt = pc() - t0
             t_decode += step_dt
             steps += 1
@@ -462,11 +528,13 @@ def _serve(args, argv, mesh) -> dict:
             "peak_allocated_bytes": (torch.cuda.max_memory_allocated(device)
                                      if device.type == "cuda" else 0)}
     ranks = mesh.gather_objects(mine)
-    # the run's numbers: every rank's sequences and counters summed where
-    # the slots split; rank 0's where every rank served every slot
-    serving = ranks if split else ranks[:1]
+    # the run's numbers: the sequences of every data row's model rank 0 and
+    # every rank's counters summed where the slots split; data row 0's
+    # where every data row served every slot
+    M = mesh.model
+    serving = ranks if split else ranks[:M]
     tok_lat = []
-    for r in serving:
+    for r in serving[::M]:
         for s, (g, d, t) in r["seqs"].items():
             gen[s], done[s], ttft[s] = g, d, t
         tok_lat += r["tok_lat"]
@@ -477,7 +545,7 @@ def _serve(args, argv, mesh) -> dict:
         "kv_tier": kv_tier,
         "block_tokens": block_tokens,
         "steps": steps,
-        "admissions": sum(r["admissions"] for r in serving),
+        "admissions": sum(r["admissions"] for r in serving[::M]),
         "plan": plan,
         "history": history,
         "latency": {
@@ -488,6 +556,7 @@ def _serve(args, argv, mesh) -> dict:
         },
         "kv": {k: sum(r["kv"][k] for r in serving) for k in kv_rank},
         "mesh": {"world": mesh.world, "rank": mesh.rank, "backend": mesh.backend,
+                 "data": D, "model": M, "strategy": eng.mp.strategy if eng.mp else None,
                  "slots_split": split, "local_slots": local},
         "kv_ranks": [r["kv"] for r in ranks],
         "admissions_ranks": [r["admissions"] for r in ranks],
@@ -534,9 +603,11 @@ def main(argv=None) -> None:
           f"(budget {kvm['pinned_budget_bytes']} B)")
     msh = out["mesh"]
     if msh["world"] > 1:
-        print(f"mesh: {msh['world']} ranks ({msh['backend']}), "
-              + (f"{msh['local_slots']} slots a rank" if msh["slots_split"] else
-                 f"{slots} slots do not divide: every rank serves all, rank 0's counters")
+        print(f"mesh: {msh['world']} ranks ({msh['data']} x {msh['model']}, "
+              f"{msh['backend']}), "
+              + (f"{msh['local_slots']} slots a data rank" if msh["slots_split"] else
+                 f"{slots} slots do not divide: every data rank serves all, data row 0's "
+                 "counters")
               + f" | param_shard_bytes {out['param_shard_bytes']} | peak allocated "
               f"{out['peak_allocated_bytes']} B | decode step "
               f"{t['decode_s'] / max(out['steps'], 1) * 1e3:.1f} ms")

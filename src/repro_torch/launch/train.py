@@ -62,8 +62,16 @@ data-parallel mesh of ranks:
     takes its rows of each global batch (``data/pipeline.rank_batch``: the
     whole batch where B does not split). ``--plan auto --hw-devices N``
     plans for N devices and runs on N ranks (``--data-mesh`` defaults to
-    the plan's devices); a plan for another number of devices than the
-    run's ranks raises, naming both. Every rank runs ``train`` and returns
+    the plan's devices over ``--model-mesh``); a plan for another number
+    of devices than the run's ranks raises, naming both.
+  * ``--engine pjit --data-mesh D --model-mesh M``: the GSPMD engine on D *
+    M ranks, rank r at data coordinate r // M and model coordinate r % M
+    (the reference's device order), the dense and vlm families under
+    tensor parallelism (heads, MLP columns and vocab rows over the model
+    ranks) or context parallelism (the sequence over them) as the
+    reference's ``choose_attn_strategy`` picks (``core/engine.py``); the
+    model ranks of one data row take the same rows of the batch. The other
+    families raise (ROADMAP item 8g). Every rank runs ``train`` and returns
     its history; rank 0 prints the step lines, each with the rank's bytes
     (tier bytes; the GSPMD engine's state shards) and their sum over the
     ranks. A run whose world size is not N * M raises, naming the launch.
@@ -77,8 +85,9 @@ the GSPMD engine takes the MoE family (the routing statistics summed over
 the ranks). What is not ported raises, naming the ROADMAP item that ports
 it: ``--elastic``/``--chaos`` (item 5); on a mesh, checkpoints and
 ``--resume`` (item 5: pass ``--ckpt-every 0``), and for the GSPMD engine a
-model axis (``--model-mesh`` > 1, item 8e), params on NVMe and
-``--param-quant``, which encodes only the NVMe param store (item 8f). On the layered epoch
+model axis for the moe, ssm, hybrid and encdec families (item 8g), params
+on NVMe and ``--param-quant``, which encodes only the NVMe param store
+(item 8f). On the layered epoch
 ``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the
 reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
@@ -112,6 +121,9 @@ Examples (one H100; llava-next-34b at full width cut to 2 layers):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch smollm-135m --plan auto \\
       --hw-devices 2 --batch 8 --seq 512 --steps 4 --ckpt-every 0
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 3 \\
+      -m repro_torch.launch.train --arch smollm-135m --engine pjit \\
+      --model-mesh 3 --batch 8 --seq 512 --steps 4 --ckpt-every 0
 """
 from __future__ import annotations
 
@@ -158,9 +170,10 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="data-parallel ranks (launch them with torchrun); "
                          "0: the plan's --hw-devices under --plan, else 1")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="folded into dp by the explicit engine, as the "
-                         "reference's: N * M ranks in all (the GSPMD engine "
-                         "takes 1)")
+                    help="model-parallel ranks: N * M ranks in all; the GSPMD "
+                         "engine runs tensor or context parallelism over them "
+                         "(dense and vlm families), the explicit engine folds "
+                         "them into dp, as the reference's")
     ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
                     help="pjit = the GSPMD engine's step (params on the device "
                          "or host tier); zero3 = the explicit engine's "
@@ -364,8 +377,12 @@ def _train(args, argv, init_state, mesh) -> dict:
                                  seed=tc.seed)
         # the explicit engine takes one microbatch whatever grad_accum says
         accum = 1 if executor.explicit else run.parallel.grad_accum
+        # the GSPMD engine's model ranks of one data row take its rows; the
+        # explicit engine's ranks are all data parallel
+        rank, dp = ((mesh.rank, mesh.world) if executor.explicit
+                    else (mesh.coords()["data"], mesh.data))
         loader = PrefetchLoader(stream, start_step, tc.steps, device,
-                                rank=mesh.rank, dp=mesh.world, accum=accum)
+                                rank=rank, dp=dp, accum=accum)
         # rank 0 prints the step lines; the MFU counts the cards the ranks
         # run on (ranks beyond the host's cards share them)
         cards = min(mesh.world, torch.cuda.device_count()) if device.type == "cuda" else 1

@@ -7,7 +7,36 @@ Prefill attention goes through ``kernels.ops.flash_attention`` (the CUDA
 kernel on the card) and the MLP projections through
 ``core.tiling.tiled_matmul``; the QKV/O projections, the tied logits and
 one-token decode attention are plain torch, as the reference leaves them
-to XLA outside Pallas. Sharding annotations have no counterpart here.
+to XLA outside Pallas.
+
+The reference's sharding annotations (``constrain``, ``repro/models/
+common.py:256-268,322-324,344``) leave XLA to partition the math over the
+``model`` axis; here a rank holds what the reference's spec gives one
+device and the functions take ``mp``, the rank's ``core/zero.ModelAxis``
+(None at one model rank: the code above unchanged). Whether a leaf is
+split over the model ranks is read from its shape (the rules' divisibility
+guard may leave it whole). Under tensor parallelism (``mp.tp``):
+
+  * attention: ``wq`` / ``wo`` hold the rank's ``H/M`` heads; ``wk`` /
+    ``wv`` its ``KV/M`` where the KV heads split, else whole, and the rank
+    projects only the KV heads its query heads map to (``tp_kv_heads``);
+    the input enters through ``mp.enter`` (backward: the all-reduce) and
+    ``wo``'s row-parallel partial sums leave through ``mp.join``;
+  * the MLP: ``w_in`` / ``w_gate`` column-parallel, ``w_out`` row-parallel
+    with the all-reduce after;
+  * the embedding is vocab-parallel: each rank looks up the tokens in its
+    rows, zeros the rest, and the ranks' rows are summed (exact: one
+    nonzero a position); ``logits`` stay vocab-sharded and ``lm_loss`` is
+    the vocab-parallel cross-entropy (max, sum of exponentials, the gold
+    logit from its owner, each an all-reduce, the padding masked on global
+    vocab ids).
+
+Under context parallelism (``mp.strategy == "cp"``) a rank's activations
+are its chunk of the sequence at absolute positions; attention all-gathers
+K and V along the sequence (backward: the reduce-scatter) and attends with
+the keys cut to the chunk's end, so the flash kernel's end-aligned causal
+mask is exactly causal for the chunk. The leaves split over model are
+gathered whole by the engine before the loss.
 """
 from __future__ import annotations
 
@@ -138,11 +167,27 @@ def _scatter_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     return cache
 
 
+def tp_kv_heads(n_heads: int, n_kv: int, size: int, rank: int) -> tuple:
+    """``(lo, hi)``: the KV heads that model rank ``rank``'s ``n_heads /
+    size`` query heads map to (query head h reads KV head h // (n_heads /
+    n_kv)), where the KV heads do not split over the ``size`` ranks. The
+    rank projects and keeps those alone; they must group its query heads
+    evenly, as the flash kernel's GQA does (every config here does)."""
+    local, rep = n_heads // size, n_heads // n_kv
+    lo = rank * local // rep
+    reads = [(rank * local + j) // rep - lo for j in range(local)]
+    n = reads[-1] + 1
+    if local % n or reads != [j // (local // n) for j in range(local)]:
+        raise ValueError(f"{n_heads} query heads over {size} model ranks do not group "
+                         f"evenly onto {n_kv} KV heads (rank {rank} reads {reads})")
+    return lo, lo + n
+
+
 def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, *, causal: bool = True, window: int = 0,
                     cache: dict | None = None,
                     kv_source: torch.Tensor | None = None,
-                    collect_kv: bool = False):
+                    collect_kv: bool = False, mp=None):
     """qkv proj -> rope -> attention -> out proj.
 
     With ``kv_source`` (B, Sk, d) — cross-attention to an encoder's memory —
@@ -159,15 +204,25 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     ring slot, ``len % window``) and ``valid_len`` (``min(len + 1,
     window)``), scalars or one per row; otherwise the write lands at
     ``len`` and the first ``len + S`` slots are attended. Returns ``(out,
-    new_cache_or_collected_kv)``.
+    new_cache_or_collected_kv)``. With ``mp`` (module docstring) the heads,
+    the collected K/V and the cache are the rank's.
     """
     B, S, d = x.shape
-    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    D = cfg.resolved_head_dim
+    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
+    tp = mp is not None and mp.tp and wq.shape[1] < cfg.n_heads  # the rank's heads
+    cp = mp is not None and not mp.tp
+    if tp:
+        x = mp.enter(x)
+        if wk.shape[1] == cfg.n_kv_heads:  # the KV heads do not split: the rank's own
+            lo, hi = tp_kv_heads(cfg.n_heads, cfg.n_kv_heads, mp.size, mp.rank)
+            wk, wv = wk[:, lo:hi], wv[:, lo:hi]
+    H, KV = wq.shape[1], wk.shape[1]
     xs = x if kv_source is None else kv_source
     Sk = xs.shape[1]
-    q = (x @ p["wq"].to(x.dtype).reshape(d, H * D)).reshape(B, S, H, D)
-    kx = (xs @ p["wk"].to(x.dtype).reshape(d, KV * D)).reshape(B, Sk, KV, D)
-    vx = (xs @ p["wv"].to(x.dtype).reshape(d, KV * D)).reshape(B, Sk, KV, D)
+    q = (x @ wq.to(x.dtype).reshape(d, H * D)).reshape(B, S, H, D)
+    kx = (xs @ wk.to(x.dtype).reshape(d, KV * D)).reshape(B, Sk, KV, D)
+    vx = (xs @ wv.to(x.dtype).reshape(d, KV * D)).reshape(B, Sk, KV, D)
     if kv_source is None:  # self-attention: rope at absolute positions
         q = rope(q, positions, cfg.rope_theta)
         kx = rope(kx, positions, cfg.rope_theta)
@@ -182,14 +237,21 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
         new_cache = {"k": k_cache, "v": v_cache, "len": clen + S}
         out = decode_attention(q, k_cache, v_cache, valid_len)
     else:
+        ka, va = kx, vx
+        if cp:
+            # context parallel: every chunk's K/V, cut to this chunk's end
+            end = (mp.rank + 1) * S
+            ka, va = (mp.gather(t, 1)[:, :end] for t in (kx, vx))
         # (B,S,H,D) storage seen as (B,H,S,D): the kernel takes the strides
-        out = ops.flash_attention(q.transpose(1, 2), kx.transpose(1, 2),
-                                  vx.transpose(1, 2), causal=causal and kv_source is None,
+        out = ops.flash_attention(q.transpose(1, 2), ka.transpose(1, 2),
+                                  va.transpose(1, 2), causal=causal and kv_source is None,
                                   window=window)
         out = out.transpose(1, 2)
         if collect_kv:
             new_cache = {"k": kx.to(torch.bfloat16), "v": vx.to(torch.bfloat16)}
-    out = out.to(x.dtype).reshape(B, S, H * D) @ p["wo"].to(x.dtype).reshape(H * D, d)
+    out = out.to(x.dtype).reshape(B, S, H * D) @ wo.to(x.dtype).reshape(H * D, d)
+    if tp:
+        out = mp.join(out)
     return out, new_cache
 
 
@@ -210,11 +272,16 @@ def mlp_defs(cfg: ModelConfig) -> dict:
 
 
 def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              tiling_factor: int = 1) -> torch.Tensor:
+              tiling_factor: int = 1, mp=None) -> torch.Tensor:
     """Every projection goes through the tiled-matmul kernel; a weight
     that arrived in the q8 wire layout (``pt.QWeight``) goes through the
-    quantized-matmul kernel as it is, without a cast."""
+    quantized-matmul kernel as it is, without a cast. Under tensor
+    parallelism with the MLP's columns split, ``w_in`` / ``w_gate`` take
+    the rank's columns and ``w_out``'s partial sums are all-reduced."""
     kind = cfg.mlp_kind
+    split = mp is not None and mp.tp and p["w_in"].shape[-1] < cfg.d_ff
+    if split:
+        x = mp.enter(x)
 
     def as_operand(w):
         return w if isinstance(w, pt.QWeight) else w.to(x.dtype)
@@ -231,7 +298,8 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         h = torch.square(F.relu(h))
     elif kind == "gelu":
         h = F.gelu(h, approximate="tanh")
-    return tiled_matmul(h, as_operand(p["w_out"]), tiling_factor)
+    out = tiled_matmul(h, as_operand(p["w_out"]), tiling_factor)
+    return mp.join(out) if split else out
 
 
 # ---------------------------------------------------------------------------
@@ -247,32 +315,74 @@ def embed_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The table is cast to bf16 before the gather (gemma scales by √d)."""
-    x = p["tok"].to(torch.bfloat16)[tokens]
+def _vocab_split(table: torch.Tensor, dim: int, cfg: ModelConfig, mp) -> bool:
+    """Whether ``table``'s vocab ``dim`` holds the rank's rows alone."""
+    return mp is not None and mp.tp and table.shape[dim] < cfg.padded_vocab()
+
+
+def embed(p: dict, tokens: torch.Tensor, cfg: ModelConfig, mp=None) -> torch.Tensor:
+    """The table is cast to bf16 before the gather (gemma scales by √d).
+    Vocab-parallel under tensor parallelism: the rank's rows
+    ``[rank * V/M, (rank+1) * V/M)`` looked up, zeros elsewhere, summed
+    over the model ranks."""
+    tok = p["tok"]
+    if _vocab_split(tok, 0, cfg, mp):
+        n = tok.shape[0]
+        ids = tokens.long() - mp.rank * n
+        mine = (ids >= 0) & (ids < n)
+        x = tok.to(torch.bfloat16)[ids.clamp(0, n - 1)] * mine[..., None].to(torch.bfloat16)
+        x = mp.join(x)
+    else:
+        x = tok.to(torch.bfloat16)[tokens]
     if cfg.arch.startswith("gemma") or cfg.arch.startswith("recurrentgemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
 
 
-def logits(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Logits over the PADDED vocab (serving's argmax runs over it too)."""
+def logits(p: dict, x: torch.Tensor, cfg: ModelConfig, mp=None) -> torch.Tensor:
+    """Logits over the PADDED vocab (serving's argmax runs over it too);
+    under tensor parallelism with the vocab split, the rank's columns
+    ``[rank * V/M, (rank+1) * V/M)`` of them."""
+    w = p["tok"] if cfg.tie_embeddings else p["unembed"]
+    if _vocab_split(w, 0 if cfg.tie_embeddings else 1, cfg, mp):
+        x = mp.enter(x)
     if cfg.tie_embeddings:
-        out = x @ p["tok"].to(x.dtype).T
+        out = x @ w.to(x.dtype).T
     else:
-        out = x @ p["unembed"].to(x.dtype)
+        out = x @ w.to(x.dtype)
     if cfg.logit_softcap > 0.0:
         out = torch.tanh(out / cfg.logit_softcap) * cfg.logit_softcap
     return out
 
 
-def lm_loss(lg: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
-    """Cross-entropy over the (possibly padded) vocab; labels (B, S) int."""
+def vocab_sharded(p: dict, cfg: ModelConfig, mp) -> bool:
+    """Whether ``logits(p, ..., mp)`` gives the rank's vocab columns alone
+    (tensor parallelism with the vocab split over the model ranks)."""
+    tied = cfg.tie_embeddings
+    return _vocab_split(p["tok"] if tied else p["unembed"], 0 if tied else 1, cfg, mp)
+
+
+def lm_loss(lg: torch.Tensor, labels: torch.Tensor, vocab_size: int, mp=None) -> torch.Tensor:
+    """Cross-entropy over the (possibly padded) vocab; labels (B, S) int.
+    With ``mp`` the logits are the model rank's vocab columns
+    (``vocab_sharded``) and the loss the vocab-parallel form: the max, the
+    sum of exponentials and the gold logit each reduced over the model
+    ranks, the padding masked on global vocab ids; the same value on every
+    model rank."""
     lg = lg.float()
-    pad = lg.shape[-1] - vocab_size
-    if pad > 0:
-        mask = torch.arange(lg.shape[-1], device=lg.device) < vocab_size
-        lg = torch.where(mask, lg, torch.full_like(lg, NEG_INF))
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    n = lg.shape[-1]
+    lo = 0 if mp is None else mp.rank * n
+    if lo + n > vocab_size:
+        ids = lo + torch.arange(n, device=lg.device)
+        lg = torch.where(ids < vocab_size, lg, torch.full_like(lg, NEG_INF))
+    if mp is None:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+        return torch.mean(logz - gold)
+    m = mp.max(torch.amax(lg, dim=-1, keepdim=True))
+    logz = torch.log(mp.join(torch.sum(torch.exp(lg - m), dim=-1))) + m[..., 0]
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = mp.join(torch.where(mine, gold, torch.zeros_like(gold)))
     return torch.mean(logz - gold)

@@ -59,7 +59,28 @@ class ModelBundle:
         return total
 
 
-def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> ModelBundle:
+# the families the model axis is ported for (tensor and context
+# parallelism, ``models/common.py``), and what ports the rest
+MODEL_AXIS_FAMILIES = ("dense", "vlm")
+MODEL_AXIS_ITEM = ("ROADMAP.md Queue 1 item 8g: MoE's experts, the SSM's and the hybrid's "
+                   "inner dim and the encoder-decoder on the model axis")
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise ``NotImplementedError`` naming item 8g for a family the model
+    axis is not ported for, where the mesh has one (``model`` > 1)."""
+    if model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.arch}) on a model axis of {model}: tensor and "
+            f"context parallelism cover the dense and vlm families ({MODEL_AXIS_ITEM})")
+
+
+def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None) -> ModelBundle:
+    """The family's bundle; with ``mp`` (a ``core/zero.ModelAxis``) a model
+    rank's part of it (``models/common.py``): the dense and vlm families
+    only, the others raise naming item 8g."""
+    if mp is not None:
+        check_model_axis(cfg, mp.size)
     if cfg.score_dtype != "float32":
         # the port's attention scores are f32 in every path (the kernels and
         # their plain versions); the reference's chunked attention honours
@@ -68,7 +89,7 @@ def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()) -> Mode
             f"score_dtype {cfg.score_dtype!r} ({cfg.arch}): the port computes "
             f"attention scores in float32 only (ROADMAP.md Queue 1 item 9b)")
     mod = FAMILY_MODULES[cfg.family]
-    fns = mod.make_fns(cfg, parallel)
+    fns = mod.make_fns(cfg, parallel, mp) if mp is not None else mod.make_fns(cfg, parallel)
     return ModelBundle(
         cfg=cfg,
         defs=mod.param_defs(cfg),

@@ -18,6 +18,19 @@ embeddings (``_merge_vision``); the loss covers the text positions only,
 and prefill's ``len`` counts the vision positions, so decode continues
 after them.
 
+With a model-parallel context (``mp``, a ``core/zero.ModelAxis``;
+``models/common.py``) the bundle computes a model rank's part. Tensor
+parallelism: every function as above on the rank's heads, MLP columns and
+vocab rows, ``logits`` vocab-sharded, ``loss`` the vocab-parallel
+cross-entropy (the same value on every model rank), the cache the rank's
+KV heads (``make_cache_defs``). Context parallelism (training only: its
+decode cache split, the reference's ``cache_seq``, is ROADMAP item 8g):
+the rank embeds its chunk ``[m * S/M, (m+1) * S/M)`` of the sequence (a
+VLM's merged vision + text sequence, chunked after ``_merge_vision``), at
+absolute positions, and ``loss`` returns the chunk's share of the batch's
+mean (its tokens' cross-entropy summed over the batch's count), which the
+model ranks' sum makes the mean.
+
 ``parallel.remat`` shapes ``loss`` as the reference's ``jax.checkpoint``
 of each scanned block does (``models/remat.py``): ``full`` runs every
 block under ``torch.utils.checkpoint`` (non-reentrant), so backward
@@ -90,21 +103,35 @@ def _merge_vision(x_tok: torch.Tensor, vision: torch.Tensor) -> torch.Tensor:
 
 
 def _block(cfg: ModelConfig, tiles: int, x, blk, positions, cache=None,
-           collect_kv=False):
+           collect_kv=False, mp=None):
     a, new_cache = cm.attention_block(
         blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
-        causal=True, cache=cache, collect_kv=collect_kv)
+        causal=True, cache=cache, collect_kv=collect_kv, mp=mp)
     x = x + a
-    m = cm.mlp_block(blk["mlp"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg, tiles)
+    m = cm.mlp_block(blk["mlp"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg, tiles, mp=mp)
     return x + m, new_cache
 
 
-def make_cache_defs(cfg: ModelConfig):
+def local_kv_heads(cfg: ModelConfig, mp=None) -> int:
+    """The KV heads a rank's attention computes and caches: all at one
+    model rank or under context parallelism; under tensor parallelism
+    ``KV/M`` where they split, else those its query heads map to."""
+    KV = cfg.n_kv_heads
+    if mp is None or not mp.tp:
+        return KV
+    if KV % mp.size == 0:
+        return KV // mp.size
+    lo, hi = cm.tp_kv_heads(cfg.n_heads, KV, mp.size, mp.rank)
+    return hi - lo
+
+
+def make_cache_defs(cfg: ModelConfig, mp=None):
     """``(batch, cache_len) -> {"k", "v", "len"}`` defs of the per-layer
-    K/V cache; the MoE family shares it, as the reference's does."""
+    K/V cache (the rank's KV heads, ``local_kv_heads``); the MoE family
+    shares it, as the reference's does."""
 
     def cache_defs(batch: int, cache_len: int) -> dict:
-        L, KV, D = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+        L, KV, D = cfg.n_layers, local_kv_heads(cfg, mp), cfg.resolved_head_dim
         axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
         return {
             "k": pt.ParamDef((L, batch, cache_len, KV, D), axes),
@@ -153,21 +180,39 @@ def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig())
     return block
 
 
-def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None):
     _check_ported(cfg)
     tiles = parallel.tiling_factor
     remat = parallel.remat
+    cp = mp is not None and not mp.tp
 
     def block(x, blk, positions, cache=None, collect_kv=False):
-        return _block(cfg, tiles, x, blk, positions, cache, collect_kv)
+        return _block(cfg, tiles, x, blk, positions, cache, collect_kv, mp)
 
     def backbone_inputs(params, batch):
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
         if cfg.family == "vlm":
             x = _merge_vision(x, batch["vision_embeds"])
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         return x, positions
+
+    def chunk_inputs(params, batch):
+        """Context parallel: this rank's chunk ``[lo, hi)`` of the (merged)
+        sequence, embedded, and its absolute positions."""
+        tokens = batch["tokens"]
+        B, T = tokens.shape
+        vl = cfg.vision_len if cfg.family == "vlm" else 0
+        S = vl + T
+        if S % mp.size:
+            raise ValueError(f"context parallelism: a sequence of {S} positions does not "
+                             f"split over {mp.size} model ranks")
+        lo, hi = mp.rank * (S // mp.size), (mp.rank + 1) * (S // mp.size)
+        x = cm.embed(params["embed"], tokens[:, max(lo - vl, 0):max(hi - vl, 0)], cfg)
+        if vl:
+            x = _merge_vision(x, batch["vision_embeds"][:, min(lo, vl):min(hi, vl)])
+        positions = torch.arange(lo, hi, device=x.device)[None, :].expand(B, hi - lo)
+        return x, positions, (lo, hi, vl, T)
 
     def train_block(x, blk, positions):
         return block(x, blk, positions)[0]
@@ -177,22 +222,53 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         one inside, padded vocab masked); differentiable. Each stacked
         block leaf is unbound once, so its gradient is one stack of the
         layers' gradients (indexing a layer would write a full-size zero
-        gradient per layer)."""
-        x, positions = backbone_inputs(params, batch)
+        gradient per layer). Context parallel: this rank's chunk's share
+        (module docstring)."""
+        if cp:
+            x, positions, chunk = chunk_inputs(params, batch)
+        else:
+            x, positions = backbone_inputs(params, batch)
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
             x = remat_mod.remat(remat, train_block, x, blk, positions)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
+        if cp:
+            return _chunk_loss(params, x, batch["labels"], chunk)
+        lg = cm.logits(params["embed"], x, cfg, mp)
         if cfg.family == "vlm":  # the loss covers the text positions only
             lg = lg[:, cfg.vision_len:]
-        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
+        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size,
+                          mp if cm.vocab_sharded(params["embed"], cfg, mp) else None)
+
+    def _chunk_loss(params, x, labels, chunk):
+        """The chunk's positions that predict a text label (merged position
+        p predicts label ``p - vision_len + 1``): their cross-entropy summed
+        over the batch's count of such positions, ``B * (T - 1)``."""
+        lo, hi, vl, T = chunk
+        a, b = max(lo, vl), min(hi, vl + T - 1)  # merged positions with a label
+        # a chunk without a label (a VLM's vision positions) takes the head
+        # on none of its positions: its zero gradient still reaches every
+        # leaf, so every rank runs the same collectives in the backward
+        lg = cm.logits(params["embed"], x[:, max(a - lo, 0):max(b - lo, 0)], cfg)
+        if b <= a:
+            return lg.float().sum()
+        mean = cm.lm_loss(lg, labels[:, a - vl + 1:b - vl + 1], cfg.vocab_size)
+        return mean * ((b - a) / (T - 1))
+
+    def serving_only_tp():
+        if cp:
+            raise NotImplementedError(
+                "serving under context parallelism (the decode cache split over the "
+                "model axis, the reference's cache_seq) is not ported "
+                "(ROADMAP.md Queue 1 item 8g)")
 
     @torch.no_grad()
     def prefill(params, batch):
         """Forward over the prompt, building the KV cache; returns the last
-        position's logits (B, 1, V_padded) and the cache."""
+        position's logits (B, 1, V_padded; the rank's vocab columns where
+        they are sharded) and the cache."""
+        serving_only_tp()
         x, positions = backbone_inputs(params, batch)
         S = x.shape[1]
         ks, vs = [], []
@@ -202,7 +278,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
             ks.append(kv["k"])
             vs.append(kv["v"])
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x[:, -1:], cfg)
+        lg = cm.logits(params["embed"], x[:, -1:], cfg, mp)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "len": torch.tensor(S, dtype=torch.int32, device=x.device)}
         return lg, cache
@@ -212,7 +288,8 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         """One new token per row against the cache; tokens (B, 1). ``len``
         is a scalar (lockstep) or a (B,) vector of per-slot lengths; each
         row's position is its own length."""
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        serving_only_tp()
+        x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
         B = x.shape[0]
         clen = cache["len"]
         positions = clen.reshape(-1, 1).expand(B, 1)
@@ -220,13 +297,13 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
             x, _ = block(x, layer_params(params["blocks"], l), positions,
                          cache={"k": cache["k"][l], "v": cache["v"][l], "len": clen})
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
+        lg = cm.logits(params["embed"], x, cfg, mp)
         return lg, {"k": cache["k"], "v": cache["v"], "len": clen + 1}
 
     return {
         "loss": loss_fn,
         "prefill": prefill,
         "decode_step": decode_step,
-        "cache_defs": make_cache_defs(cfg),
+        "cache_defs": make_cache_defs(cfg, mp),
         "input_specs": make_input_specs(cfg),
     }

@@ -660,12 +660,12 @@ def test_wave_backward_is_the_dim1_reduce_scatter(dpm):
 def test_serving_moe_on_a_mesh_refuses_naming_its_item():
     """MoE trains and serves on data-parallel ranks (serving:
     ``tests/test_torch_serve_mesh.py``); serving it over a model axis stays
-    unported (item 8e)."""
+    unported (item 8g: MoE's experts on the model axis)."""
     from repro_torch.launch import serve
 
     base = ["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--data-mesh", "2"]
     serve._unported(serve._parse(base))
-    with pytest.raises(NotImplementedError, match="item 8e"):
+    with pytest.raises(NotImplementedError, match="item 8g"):
         serve._unported(serve._parse(base + ["--model-mesh", "2"]))
 
 

@@ -28,8 +28,10 @@
   mesh (its hardware pinned by ``--hw-*``): the reference's plan for the
   same hardware, byte for byte, and its ``RunConfig``; it trains.
 * **Refusals.** A plan for another number of devices than the ranks
-  (ValueError, naming both), and on a GSPMD mesh a model axis (ROADMAP item
-  8e), and params on NVMe and ``--param-quant`` (8f). (The MoE family on a
+  (ValueError, naming both), and on a GSPMD mesh a model axis for the
+  families it is not ported for (ROADMAP item 8g; the dense and vlm
+  families run on one: ``tests/test_torch_tp.py``), and params on NVMe and
+  ``--param-quant`` (8f). (The MoE family on a
   GSPMD mesh runs: ``tests/test_torch_dp_moe.py``.)
 
 Tolerances are ``tests/test_torch_gspmd.py``'s, imported from it:
@@ -392,7 +394,7 @@ def test_a_plan_for_another_device_count_raises_naming_both(n_devices, dp):
 
 
 @pytest.mark.parametrize("what,run,mesh,match", [
-    ("model_axis", _run(), (1, 2), "item 8e"),
+    ("model_axis", _run("mamba2-370m"), (1, 2), "item 8g"),
     ("moe", _run("granite-moe-1b-a400m", param_quant="q8"), (2, 1), "item 8f"),
     ("param_nvme", _run(param_tier="nvme"), (2, 1), "item 8f")])
 def test_gspmd_mesh_refuses_what_stays_unported(what, run, mesh, match):
@@ -405,7 +407,8 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "pjit", "--steps", "1", "--bat
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--data-mesh", "1", "--model-mesh", "2"], NotImplementedError, "item 8e"),
+    (["--data-mesh", "1", "--model-mesh", "2", "--arch", "recurrentgemma-9b"],
+     NotImplementedError, "item 8g"),
     (["--data-mesh", "2", "--arch", "granite-moe-1b-a400m", "--param-quant", "q4"],
      NotImplementedError, "item 8f"),
     (["--data-mesh", "2", "--offload-param", "nvme"], NotImplementedError, "item 8f"),

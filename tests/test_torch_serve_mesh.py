@@ -25,7 +25,8 @@
   whole split stacked leaf.
 * **In this process.** The seeded draw on a mesh is the one-rank draw cut
   by ``shard_leaf``, bit for bit; no config's rules split a stacked leaf
-  on its layer dim; ``--model-mesh 2`` raises naming item 8e, and a
+  on its layer dim; ``--model-mesh 2`` on the smoke smollm (context
+  parallelism) raises naming item 8g, and a
   ``--data-mesh`` or a plan for more ranks than the run has raises naming
   the ``launch.serve`` torchrun launch.
 """
@@ -284,7 +285,12 @@ def test_no_config_splits_a_stacked_leaf_on_its_layer_dim(smoke):
 
 
 def test_model_mesh_raises_naming_item_8e():
-    with pytest.raises(NotImplementedError, match="item 8e"):
+    """What a model axis does not serve raises before any process group,
+    naming the item that ports it, 8g (8e's tensor parallelism serves:
+    ``tests/test_torch_tp_serve.py``): the smoke smollm's 3 heads do not
+    split over 2 model ranks, so the reference runs context parallelism,
+    whose decode cache split is not ported."""
+    with pytest.raises(NotImplementedError, match="context parallelism.*item 8g"):
         tserve.run_serve(tserve._parse(["--smoke", "--device", "cpu", "--batch", "2",
                                         "--data-mesh", "2", "--model-mesh", "2"]))
 

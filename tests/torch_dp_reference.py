@@ -13,10 +13,13 @@ job ``dp_moe``: the explicit engine's layered epoch for every case of
 ``torch_dp_worker.MOE_GSPMD_CASES``, from the initial states the test
 saved; job ``serve``: its ``launch.serve`` on a mesh of dp devices for
 every case of ``torch_dp_worker.SERVE_CASES``, from the params the test
-saved. Writes the numbers to one ``.npz`` (pytest does not collect this
-file).
+saved; jobs ``tp`` and ``tp_serve`` (``tests/test_torch_tp.py``,
+``tests/test_torch_tp_serve.py``): the pjit executor and ``launch.serve``
+on a ``data x model`` mesh for every case of ``torch_dp_worker.TP_CASES``
+and ``TP_SERVE_CASES``. Writes the numbers to one ``.npz`` (pytest does not
+collect this file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve]
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve]
 """
 from __future__ import annotations
 
@@ -196,14 +199,15 @@ def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
     from repro.core import partition as jpt
     from repro.optim import adam as jadam
 
-    dp, _, _, stage, param, grad, opt, accum, B = W.ALL_GSPMD_CASES[case]
+    _, _, _, stage, param, grad, opt, accum, B = W.ALL_GSPMD_CASES[case]
+    data, model, strategy = W.gspmd_mesh(case)
     run = RunConfig(model=W.gspmd_cfg(case, jconfigs),
                     parallel=make_parallel("pjit", remat="none", zero_stage=stage,
-                                           grad_accum=accum),
+                                           grad_accum=accum, attn_strategy=strategy),
                     offload=jmake_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
                                           nvme_dir=os.path.join(tmp, case, "jax")),
                     train=TrainConfig(lr=W.LR, warmup_steps=W.WARMUP))
-    mesh = make_local_mesh(dp, 1)
+    mesh = make_local_mesh(data, model)
     ex = jexec.InfinityExecutor(run, mesh)
     eng = ex.engine
     init = torch.load(W.gspmd_init_path(tmp, case), weights_only=False)
@@ -264,6 +268,25 @@ def _torch_keyed(tree, prefix="") -> dict:
 SERVE_KV = ("resident_bytes", "in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
 
 
+def _cache_replicated(decode_step, mesh):
+    """``decode_step`` with its new cache laid out replicated. On a model
+    axis ``launch.serve``'s compiled decode step gets back from XLA a cache
+    laid out otherwise than its input (the KV heads split, or the batch),
+    which the compiled step then refuses as its next input; with the slot
+    cache replicated going in (``grow_replicated``) and coming out, every
+    call sees the layout it was compiled for. The same computation, its
+    layouts pinned (test-side wrappers: the reference is not edited)."""
+    from jax.sharding import NamedSharding
+
+    whole = NamedSharding(mesh, P())
+
+    def step(params, cache, batch):
+        logits, new = decode_step(params, cache, batch)
+        return logits, jax.tree.map(lambda x: jax.lax.with_sharding_constraint(x, whole), new)
+
+    return step
+
+
 def run_serve_case(case: str, tmp: str, out: dict) -> None:
     """The reference's ``launch.serve`` with ``case``'s flags on a mesh of
     its dp devices (``--data-mesh``), from the params the test saved,
@@ -284,16 +307,31 @@ def run_serve_case(case: str, tmp: str, out: dict) -> None:
         params = jax.tree_util.tree_map_with_path(
             lambda p, d: jnp.asarray(flat[jax.tree_util.keystr(p)]).astype(d.dtype),
             self.bundle.defs, is_leaf=lambda x: isinstance(x, jpt.ParamDef))
+        if case in W.TP_SERVE_CASES:
+            meshes.append(self.mesh)
+            self.bundle.decode_step = _cache_replicated(self.bundle.decode_step, self.mesh)
         return {"params": jax.device_put(params, self.param_shardings())}
+
+    meshes: list = []
+    grow = jserve.kvcache.grow_cache
+
+    def grow_replicated(cache, extra, family):
+        """The slot cache the decode step is compiled for, replicated."""
+        from jax.sharding import NamedSharding
+
+        return jax.device_put(grow(cache, extra, family), NamedSharding(meshes[0], P()))
 
     real = jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state
     jserve.configs.smoke = lambda name: cfg
     jserve.ZeroInfinityEngine.init_state = init_state
+    if case in W.TP_SERVE_CASES:
+        jserve.kvcache.grow_cache = grow_replicated
     try:
         argv = W.serve_argv(case, "jax", tmp)
         res = jserve.run_serve(jserve._parse(argv), argv)
     finally:
         jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state = real
+        jserve.kvcache.grow_cache = grow
     out[f"{case}/generated"] = np.array(json.dumps(res["generated"]))
     for key in ("admissions", "steps", "slots"):
         out[f"{case}/{key}"] = np.array(int(res[key]))
@@ -319,6 +357,12 @@ def main() -> None:
             run_gspmd_case(case, tmp, out)
     elif job == "serve":
         for case in W.SERVE_CASES:
+            run_serve_case(case, tmp, out)
+    elif job == "tp":
+        for case in W.TP_CASES:
+            run_gspmd_case(case, tmp, out)
+    elif job == "tp_serve":
+        for case in W.TP_SERVE_CASES:
             run_serve_case(case, tmp, out)
     else:
         for case in W.GSPMD_CASES:

@@ -75,7 +75,42 @@ MOE_GSPMD_CASES = {
     f"moe_{name}_dp{dp}": (dp, "granite-moe-1b-a400m", None, 3, "device", "device", "device",
                            accum, 4)
     for name, accum in (("stage3", 1), ("accum2", 2)) for dp in (2, 1)}
-ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES}
+# the model axis' cases (job tp, tests/test_torch_tp.py): case -> (data,
+# model, arch, zero stage, param, grad, opt tiers, grad_accum, attention
+# strategy); the global batch is 4 x 16 (llava: 8 vision positions and 8
+# tokens), smollm cut to 2 layers. llama's 4 heads and 2 KV heads split over
+# 2 model ranks, over 4 the KV heads stay whole (each rank its query head's
+# one), as nemotron's 2 over 4 and llava's over 4; smollm's 3 heads split
+# over neither 2 nor 4: context parallelism, as llava's under "cp"
+TP_CASES = {
+    "llama_tp_1x2": (1, 2, "llama3.2-3b", 3, "device", "device", "device", 1, "auto"),
+    "llama_tp_1x4": (1, 4, "llama3.2-3b", 3, "device", "device", "device", 1, "auto"),
+    "llama_tp_2x2": (2, 2, "llama3.2-3b", 3, "device", "device", "device", 1, "auto"),
+    "smollm_cp_1x2": (1, 2, "smollm-135m", 3, "device", "device", "device", 1, "auto"),
+    "smollm_cp_2x2": (2, 2, "smollm-135m", 3, "device", "device", "device", 1, "auto"),
+    "vlm_tp_1x4": (1, 4, "llava-next-34b", 3, "device", "device", "device", 1, "auto"),
+    "vlm_cp_1x2": (1, 2, "llava-next-34b", 3, "device", "device", "device", 1, "cp"),
+    "gemma_tp_1x2": (1, 2, "gemma-7b", 3, "device", "device", "device", 1, "auto"),
+    "nemotron_tp_1x4": (1, 4, "nemotron-4-340b", 3, "device", "device", "device", 1, "auto"),
+    "stage0_tp_2x2": (2, 2, "llama3.2-3b", 0, "device", "device", "device", 1, "auto"),
+    "stage1_tp_2x2": (2, 2, "llama3.2-3b", 1, "device", "device", "device", 1, "auto"),
+    "stage2_cp_2x2": (2, 2, "smollm-135m", 2, "device", "device", "device", 1, "auto"),
+    "host_cp_2x2": (2, 2, "smollm-135m", 3, "host", "device", "host", 1, "auto"),
+    "nvme_opt_tp_2x2": (2, 2, "llama3.2-3b", 3, "device", "nvme", "nvme", 1, "auto"),
+    "accum2_tp_2x2": (2, 2, "llama3.2-3b", 3, "device", "device", "device", 2, "auto"),
+}
+ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES,
+                   **{case: (D * M, arch, None, stage, param, grad, opt, accum, 4)
+                      for case, (D, M, arch, stage, param, grad, opt, accum, _)
+                      in TP_CASES.items()}}
+
+
+def gspmd_mesh(case: str) -> tuple:
+    """``case``'s mesh and attention strategy: (data, model, strategy)."""
+    if case in TP_CASES:
+        D, M, *_, strategy = TP_CASES[case]
+        return D, M, strategy
+    return ALL_GSPMD_CASES[case][0], 1, "auto"
 # the layered epoch's cases of job dp_moe, every state class on NVMe: case
 # -> (dp, arch, d_model (None: the smoke width), param_quant). smollm is cut
 # to 2 layers, granite keeps its smoke depth (2). The smoke smollm's row,
@@ -127,6 +162,20 @@ SERVE_CASES = {
                                        "--hw-device-mem", "4e9", "--hw-host-mem", "64e9",
                                        "--hw-nvme", "1e12"]),
 }
+# the model axis' serving cases (job tp_serve, tests/test_torch_tp_serve.py),
+# in SERVE_CASES' format with the mesh in the flags: case -> (ranks, arch,
+# layers, flags). llama's and llava's KV heads split over 2 model ranks,
+# llava's 2 over 4 do not (each rank parks its query head's one)
+_TP2, _TP4 = ["--model-mesh", "2", "--data-mesh", "1"], ["--model-mesh", "4", "--data-mesh", "1"]
+TP_SERVE_CASES = {
+    "llama_tp_1x2": (2, "llama3.2-3b", 0, _HOST + _TP2),
+    "llama_tp_2x2": (4, "llama3.2-3b", 0, _HOST + ["--model-mesh", "2", "--data-mesh", "2"]),
+    "vlm_tp_1x2": (2, "llava-next-34b", 0, _HOST + _TP2),
+    "vlm_tp_1x4": (4, "llava-next-34b", 0, _HOST + _TP4),
+    "q8_tp_1x2": (2, "llama3.2-3b", 0, _HOST + ["--kv-quant", "q8"] + _TP2),
+    "nvme_tp_1x2": (2, "llama3.2-3b", 0, ["--kv-tier", "nvme"] + _TP2),
+}
+ALL_SERVE_CASES = {**SERVE_CASES, **TP_SERVE_CASES}
 # the psum_compressed cases: (shape, dtype) over three steps of error feedback
 PSUM_CASES = [((49, 7), "float32"), ((300,), "bfloat16"), ((2, 256), "float32")]
 
@@ -334,7 +383,8 @@ def _gspmd_run(case: str, nvme_dir: str):
     _, _, _, stage, param, grad, opt, accum, _ = ALL_GSPMD_CASES[case]
     return RunConfig(model=gspmd_cfg(case, configs),
                      parallel=make_parallel("pjit", remat="none", zero_stage=stage,
-                                            grad_accum=accum),
+                                            grad_accum=accum,
+                                            attn_strategy=gspmd_mesh(case)[2]),
                      offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
                                           nvme_dir=nvme_dir),
                      train=TrainConfig(lr=LR, warmup_steps=WARMUP))
@@ -360,7 +410,7 @@ def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
     full = {"params": params}
     if not run.opt_offgraph:
         full["opt"] = adam.init_state(params)
-    state = bridge.shard_gspmd_state(full, run, mesh.rank, mesh.world)
+    state = bridge.shard_gspmd_state(full, run, mesh.rank, mesh.data, mesh.model)
     state = ex.reseed(ex.engine.place_state(state))
     B = ALL_GSPMD_CASES[case][8]
     stream = tpipe.SyntheticStream(ex.input_specs(ShapeConfig("t", gspmd_seq(case), B, "train")),
@@ -368,11 +418,13 @@ def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
     step = ex.make_train_step()
     metrics = []
     for i in range(GSPMD_STEPS):
-        batch = tpipe.rank_batch(stream.batch_at(i), mesh.rank, mesh.world,
+        batch = tpipe.rank_batch(stream.batch_at(i), mesh.coords()["data"], mesh.data,
                                  run.parallel.grad_accum)
         state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         metrics.append({k: host_metric(v) for k, v in m.items()})
     out = {"metrics": metrics, "params": state["params"], "splits": ex.engine.splits,
+           "model_splits": ex.engine.model_splits, "sizes": ex.engine.sizes,
+           "strategy": ex.engine.mp.strategy if ex.engine.mp is not None else None,
            "shard_bytes": ex.engine.shard_bytes(),
            "opt_keys": sorted(ex.opt_store.keys()) if ex.opt_store is not None else []}
     if "opt" in state:
@@ -390,6 +442,52 @@ def job_gspmd(tmp: str, mesh) -> dict:
         out["plan"] = job_plan(tmp, mesh)
         out["leaf_gather"] = leaf_gather_unit(mesh)
     return out
+
+
+def job_tp(tmp: str, mesh) -> dict:
+    """Every model-axis case of this world size, each on a mesh of its
+    own (``make_local_mesh(data, model)``: every rank creates the same
+    groups in the same order), then, at 2 ranks, the model axis'
+    autograd functions (``model_axis_unit``)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    for case, (D, M, *_) in TP_CASES.items():
+        if D * M == mesh.world:
+            out[case] = run_gspmd_case(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+    if mesh.world == 2:
+        out["model_axis"] = model_axis_unit(mesh_mod.make_local_mesh(1, 2, "cpu"))
+    return out
+
+
+def model_axis_unit(mesh) -> dict:
+    """``zero.ModelAxis`` on a (1, 2) mesh, bf16: ``enter`` the identity
+    whose backward sums the ranks' cotangents, ``join`` the sum whose
+    backward is the identity, ``gather`` along dim 1 whose backward is the
+    reduce-scatter; each against the ranks' draws combined by hand."""
+    import torch
+
+    from repro_torch.core.zero import ModelAxis
+
+    mp = ModelAxis(mesh, "tp")
+
+    def draw(r):
+        gen = torch.Generator().manual_seed(60 + r)
+        return [torch.randn(*s, generator=gen).to(torch.bfloat16)
+                for s in ((3, 4), (3, 4), (3, 4), (3, 4), (2, 5, 3), (2, 10, 3))]
+
+    mine, all_ = draw(mesh.rank), [draw(r) for r in range(2)]
+    x, ct_x, y, ct_y, s, ct_s = (t.clone().requires_grad_() if i in (0, 2, 4) else t
+                                 for i, t in enumerate(mine))
+    entered, joined, gathered = mp.enter(x), mp.join(y), mp.gather(s, 1)
+    gx, gy, gs = torch.autograd.grad((entered, joined, gathered), (x, y, s), (ct_x, ct_y, ct_s))
+    lo = 5 * mesh.rank
+    return {"entered": entered.detach(), "want_entered": mine[0],
+            "gx": gx, "want_gx": all_[0][1] + all_[1][1],
+            "joined": joined.detach(), "want_joined": all_[0][2] + all_[1][2],
+            "gy": gy, "want_gy": mine[3],
+            "gathered": gathered.detach(), "want_gathered": torch.cat([all_[0][4], all_[1][4]], 1),
+            "gs": gs, "want_gs": all_[0][5][:, lo:lo + 5] + all_[1][5][:, lo:lo + 5]}
 
 
 def leaf_gather_unit(mesh) -> dict:
@@ -598,7 +696,7 @@ def job_dp_moe(tmp: str, mesh) -> dict:
 
 def serve_cfg(case: str, package):
     """``case``'s model config from ``package``'s ``configs``."""
-    _, arch, layers, _ = SERVE_CASES[case]
+    _, arch, layers, _ = ALL_SERVE_CASES[case]
     cfg = package.smoke(arch)
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
 
@@ -607,10 +705,10 @@ def serve_argv(case: str, side: str, tmp: str) -> list:
     """``case``'s serve flags for ``side`` ("torch": the port, on the CPU,
     its ranks from ``--data-mesh`` or the plan's ``--hw-devices``; "jax":
     the reference, whose mesh is ``--data-mesh`` alone)."""
-    dp, arch, layers, extra = SERVE_CASES[case]
+    dp, arch, layers, extra = ALL_SERVE_CASES[case]
     argv = ["--arch", arch, *SERVE_ARGV, "--prompt-len", str(SERVE_PROMPT.get(arch, 8)),
             *extra, "--kv-dir", os.path.join(tmp, case, side)]
-    if side == "jax" or "--plan" not in extra:
+    if case in SERVE_CASES and (side == "jax" or "--plan" not in extra):
         argv += ["--data-mesh", str(dp)]
     if side == "torch":
         argv += ["--device", "cpu"] + (["--layers", str(layers)] if layers else [])
@@ -626,8 +724,9 @@ def serve_init_path(tmp: str, case: str) -> str:
 def layer_gather_unit(eng, whole: dict) -> dict:
     """The rank's shards of ``whole`` read through ``serve_params``: each
     stacked subtree's ``layer(l)`` against ``layer_params`` of the whole
-    leaves, each unstacked leaf against the whole leaf (``torch.equal``);
-    and what the rank holds of each stacked leaf."""
+    leaves, each unstacked leaf against the whole leaf (``torch.equal``;
+    on a model axis the rank's model shard of it: serving gathers over the
+    data axis alone); and what the rank holds of each stacked leaf."""
     import torch
 
     from repro_torch.core import partition as pt
@@ -635,6 +734,11 @@ def layer_gather_unit(eng, whole: dict) -> dict:
 
     shards = eng.respec(whole, None, "param")
     view = eng.serve_params(shards)
+    M, m = eng.sizes["model"], eng.coords["model"]
+    whole = pt.tree_map(lambda t: t, whole)  # a copy of the tree, not of the leaves
+    for path in pt.tree_paths(whole):  # the rank's model shard of each leaf
+        pt.tree_set(whole, path, pt.shard_leaf(pt.tree_get(whole, path),
+                                               pt.tree_get(eng.model_splits, path), m, M))
     equal, split = True, []
     for k in sorted(whole):
         if k in eng.stacked:
@@ -654,16 +758,24 @@ def layer_gather_unit(eng, whole: dict) -> dict:
             "held_shapes": held}
 
 
+def _serve_engine(case: str, mesh):
+    """The engine ``launch.serve`` builds for ``case`` on this rank's mesh
+    (on the CPU: no collective is issued building it)."""
+    from repro_torch import configs
+    from repro_torch.config import ParallelConfig, RunConfig
+    from repro_torch.core.engine import ZeroInfinityEngine
+
+    return ZeroInfinityEngine(RunConfig(model=serve_cfg(case, configs),
+                                        parallel=ParallelConfig(remat="none")), "cpu", mesh=mesh)
+
+
 def run_serve_case(case: str, tmp: str, mesh) -> dict:
     """``launch.serve`` with ``case``'s flags on this rank's group, its
     params the rank's shards of the saved whole params; the run's
     numbers, the engine's ``shard_bytes`` and ``layer_gather_unit``."""
     import torch
 
-    from repro_torch import configs
-    from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.core import partition as pt
-    from repro_torch.core.engine import ZeroInfinityEngine
     from repro_torch.launch import serve
 
     whole = torch.load(serve_init_path(tmp, case), weights_only=False)
@@ -675,8 +787,7 @@ def run_serve_case(case: str, tmp: str, mesh) -> dict:
         out = serve.run_serve(serve._parse(argv), argv)
     finally:
         serve.ZeroInfinityEngine.init_params = real
-    eng = ZeroInfinityEngine(RunConfig(model=serve_cfg(case, configs),
-                                       parallel=ParallelConfig(remat="none")), "cpu", mesh=mesh)
+    eng = _serve_engine(case, mesh)
     rec = {k: out[k] for k in ("generated", "done", "slots", "steps", "admissions", "kv",
                                "kv_ranks", "admissions_ranks", "param_shard_bytes", "mesh")}
     rec["plan"] = out["plan"].to_json() if out["plan"] is not None else None
@@ -693,7 +804,42 @@ def job_serve(tmp: str, mesh) -> dict:
             if spec[0] == mesh.world}
 
 
-JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve}
+def run_tp_serve_case(case: str, tmp: str, mesh) -> dict:
+    """``run_serve_case`` on a model axis, and the teacher-forced logits:
+    every sequence's prompt through ``prefill`` on the rank's shards (its
+    data row's all-gathered over the model ranks: the global vocab)."""
+    import torch
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve
+
+    args = serve._parse(serve_argv(case, "torch", tmp))
+    tmesh = mesh_mod.make_local_mesh(args.data_mesh, args.model_mesh, "cpu")
+    rec = run_serve_case(case, tmp, tmesh)
+    eng = _serve_engine(case, tmesh)
+    whole = torch.load(serve_init_path(tmp, case), weights_only=False)
+    params = eng.respec(whole, None, "param")
+    cfg = eng.run.model
+    full = serve.draw_inputs(eng.bundle.input_specs(ShapeConfig("serve", args.prompt_len,
+                                                                args.batch, "prefill")),
+                             args.batch, cfg.vocab_size, args.seed)
+    with torch.no_grad():
+        lg, _ = eng.bundle.prefill(eng.serve_params(params), full)
+    rec["prefill_logits"] = tmesh.all_gather(lg[:, -1].float(), 1, "model")
+    rec["kv_heads"] = eng.bundle.cache_defs(1, 1)["k"].shape[3]
+    rec["mesh_shape"] = (tmesh.data, tmesh.model)
+    return rec
+
+
+def job_tp_serve(tmp: str, mesh) -> dict:
+    """Every model-axis serving case of this world size."""
+    return {case: run_tp_serve_case(case, tmp, mesh)
+            for case, spec in TP_SERVE_CASES.items() if spec[0] == mesh.world}
+
+
+JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve,
+        "tp": job_tp, "tp_serve": job_tp_serve}
 
 
 def main() -> None:
