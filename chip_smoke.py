@@ -165,13 +165,14 @@ Phases (any failure exits non-zero; no phase is caught):
       holds the GSPMD step on granite at 2 layers on the two ranks against
       phase 18's kept CPU side;
   16g. "serve dp2" (the same spawn): ``launch.serve --data-mesh 2`` on full
-      smollm-135m at phase 5's sizes (8 sequences, 4 slots, 2 a rank, host
-      tier, prompt 512, 32 new): each rank its ZeRO-3 param shards, one
-      layer gathered at a time; every sequence's tokens phase 5's, each
-      rank's param bytes half the one-rank run's, the ``kv`` bytes summed
-      over the ranks phase 5's, each rank's flash and tiled-matmul launches
-      on wgmma as phase 5's; each rank's peak allocated memory and the
-      decode step's time printed;
+      smollm-135m at phase 5's sizes but 8 new tokens (``TP_SERVE_ARGV``: 8
+      sequences, 4 slots, 2 a rank, host tier, prompt 512): each rank its
+      ZeRO-3 param shards, one layer gathered at a time; every sequence's
+      tokens those of a one-rank run of the argv ("tp serve one rank"),
+      each rank's param bytes half the one-rank run's, the ``kv`` bytes
+      summed over the ranks its, each rank's flash and tiled-matmul
+      launches on wgmma as phase 5's; each rank's peak allocated memory and
+      the decode step's time printed;
   16h. "cp numerics" (the same spawn): context parallelism, the GSPMD
       engine at ZeRO-3 on a (1, 2) mesh (smollm's 9 heads do not split
       over 2: each rank its half of the sequence, K/V all-gathered), phase
@@ -179,7 +180,7 @@ Phases (any failure exits non-zero; no phase is caught):
       joined over the ranks, the loss and grad norm held against phase
       11's kept one-rank CPU run by its bounds;
   16i. "cp train" (the same spawn): ``launch.train --engine pjit
-      --model-mesh 2`` on full smollm-135m, 4 steps of 8 x 512 (256 of
+      --model-mesh 2`` on full smollm-135m, 3 steps of 8 x 512 (256 of
       the 512 positions of each row a rank): each rank's param bytes
       exactly 161,162,496 (the attention weights and norms whole, the MLP
       and vocab halved), the losses phase 12's by ``TRAIN_TOL``;
@@ -200,8 +201,42 @@ Phases (any failure exits non-zero; no phase is caught):
       keys, causal, the mask aligned at the end; timed beside the bound,
       the CUDA-core kernel, the plain version and SDPA) and at tensor
       parallelism's (``FLASH_TP``: "tp train"'s and "vlm tp4 nccl
-      train"'s), and the tiled matmul at their MLP shards forward and
-      backward (``TILED_TP``), bf16, by ``TOL``;
+      train"'s and granite's 8 heads and 4 KV heads a rank), and the tiled
+      matmul at their MLP shards forward and backward (``TILED_TP``),
+      bf16, by ``TOL``; the flash shapes and the forward products timed
+      beside their bound, the CUDA-core kernel, the plain version and the
+      library call;
+  16l. "cp serve" (the two-rank spawn): ``launch.serve --model-mesh 2`` on
+      full smollm-135m at ``TP_SERVE_ARGV`` under context parallelism (9
+      heads over 2): each prompt chunked, its 520 cache positions split
+      260 a rank, decode combining the ranks' partial softmaxes; every
+      sequence finished, 161,162,496 param bytes a rank, the ``kv`` bytes
+      summed over the ranks "tp serve one rank"'s, each rank's resident
+      K/V half of it, the share of tokens equal to it printed, phase 4's
+      teacher-forced prefill and decode at 2 layers (the cache split as
+      the driver splits it) held to phase 4's CPU side by
+      ``E2E_REL_TOL``, the MLP's and vocab's bytes a decode step gathers
+      over the model axis, the decode step and prefill wave;
+  16m. "moe tp numerics" / "moe cp numerics" (the same spawn): phase 18's
+      GSPMD step (granite at full width cut to 2 layers, ZeRO-3) on a (1,
+      2) mesh under tensor parallelism (8 heads, 4 KV heads, 16 experts and
+      25,600 vocab rows a rank) and under context parallelism forced
+      (128 of 256 positions a rank, the experts still 16 a rank: partial
+      outputs reduce-scattered along the sequence), the params and masters
+      joined over the ranks and the routing plans held against phase 18's
+      kept CPU side by its bounds;
+  16n. "moe tp train" (the same spawn): ``launch.train --engine pjit
+      --model-mesh 2`` on granite at ``MOE_LAYERED_LAYERS`` layers,
+      ``MOE_TRAIN_STEPS`` steps of 8 x 512: each rank's param bytes the
+      rules', the losses "moe layered"'s by ``TRAIN_TOL``, the routing
+      statistics equal on both ranks and one rank's (the expert load
+      summing to 1, the dropped fraction "moe layered"'s), not twice them;
+  16o. "moe tp serve" (the same spawn): ``launch.serve --model-mesh 2`` on
+      full granite (24 layers) with phase 18's argv (``MOE_SERVE_ARGV``):
+      1,339,232,256 param
+      bytes a rank, the ``kv`` bytes summed over the ranks "moe serve"'s,
+      every sequence finished, the share of tokens equal to its printed,
+      the decode step's time;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -213,7 +248,8 @@ Phases (any failure exits non-zero; no phase is caught):
       (``moe repeat``); the GSPMD step all on the device and the layered
       epoch on NVMe at 2 layers, full width, card against CPU by phase 11's
       bounds (``moe numerics``); full granite (24 layers) served at the
-      serve host cell's sizes (``moe serve``) and trained 4 steps under
+      serve host cell's sizes but 8 new tokens (``moe serve``,
+      ``MOE_SERVE_ARGV``) and trained 4 steps under
       ``--plan auto`` (``moe plan train``: all on the device); the layered
       epoch at full width cut to ``MOE_LAYERED_LAYERS`` (4) layers,
       ``MOE_TRAIN_STEPS`` (2) steps,
@@ -358,6 +394,7 @@ from repro_torch.kernels import tiled_matmul as tmm  # noqa: E402
 from repro_torch.optim import adam  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.runtime import trace  # noqa: E402
@@ -1998,9 +2035,17 @@ def dp_rank(mode: str) -> int:
             rec[part] = {"numerics": dp2_numerics_rank,
                          "gspmd_numerics": gspmd_dp2_numerics_rank,
                          "train": dp_train_rank, "gspmd_train": gspmd_train_rank,
-                         "serve": serve_rank, "cp_numerics": tp_numerics_rank,
+                         "serve": lambda: serve_rank(TP_SERVE_ARGV),
+                         "cp_numerics": tp_numerics_rank,
                          "tp_numerics": tp_numerics_rank, "cp_train": tp_train_rank,
                          "tp_train": tp_train_rank, "tp_serve": tp_serve_rank,
+                         "cp_serve": cp_serve_rank,
+                         "moe_tp_numerics": lambda: moe_model_axis_numerics_rank("tp"),
+                         "moe_cp_numerics": lambda: moe_model_axis_numerics_rank("cp"),
+                         "moe_tp_train": lambda: tp_train_rank(
+                             MOE_ARCH, MOE_LAYERED_LAYERS, 8, 512, MOE_TRAIN_STEPS),
+                         "moe_tp_serve": lambda: serve_rank(
+                             MOE_SERVE_ARGV + ["--model-mesh", "2"], model=2),
                          "vlm_serve": lambda: serve_rank(
                              VLM_SERVE_ARGV + ["--layers", str(VLM_SERVE_LAYERS)]),
                          "vlm_serve_full": lambda: serve_rank(VLM_SERVE_ARGV),
@@ -2108,7 +2153,8 @@ MOE_TRAIN_STEPS = 2
 # the dp-2 jobs one spawn of two ranks runs (``--dp-rank all``), in order:
 # a spawn costs ~17 s of process start, imports and CUDA contexts
 DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve",
-            "cp_numerics", "cp_train")
+            "cp_numerics", "cp_train", "cp_serve", "moe_tp_numerics", "moe_cp_numerics",
+            "moe_tp_train", "moe_tp_serve")
 # the MoE layered epoch's counters the routing steers: the expert rows the
 # popularity predictor, the hot cache and the router read and drain
 MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
@@ -2234,6 +2280,8 @@ def serve_rank(argv=None, model: int = 1) -> dict:
             "data_split_leaves": [keystr(p) for p in pt.tree_paths(layout.splits["param"])
                                   if pt.tree_get(layout.splits["param"], p) is not None],
             "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+            **{k: out["mesh"][k] for k in ("cache_seq_split", "local_cache_len",
+                                            "model_gather_bytes_per_step")},
             "ttft_p50_s": out["latency"]["ttft"]["p50"],
             "ttft_p99_s": out["latency"]["ttft"]["p99"],
             "decode_token_p50_s": out["latency"]["decode_token"]["p50"]}
@@ -2297,17 +2345,16 @@ def check_serve_ranks(tag: str, recs: list, one: dict, cfg, rows: dict = None) -
     return rec
 
 
-def phase_serve_dp2(recs, host: tuple) -> tuple:
+def phase_serve_dp2(recs, one: dict, host_launches: dict) -> tuple:
     """The "serve" part of the ranks' one spawn: ``launch.serve --data-mesh
-    2`` on full smollm-135m at the serve host cell's sizes (8 sequences, 4
-    slots, 2 a rank, host tier, prompt 512, 32 new), held by
-    ``check_serve_ranks`` against phase 5's run (``host``: its output and
-    launches): the same tokens, half the param bytes a rank, the same KV
-    bytes summed, flash and the tiled matmul on wgmma on each rank as in
-    phase 5."""
+    2`` on full smollm-135m at the serve host cell's sizes but 8 new tokens
+    (``TP_SERVE_ARGV``: 8 sequences, 4 slots, 2 a rank, host tier, prompt
+    512), held by ``check_serve_ranks`` against ``one``, the one-rank run of
+    that argv ("tp serve one rank"): the same tokens, half the param bytes
+    a rank, the same KV bytes summed; flash and the tiled matmul on wgmma on
+    each rank as in phase 5 (``host_launches``)."""
     parts = _part(recs, "serve")
-    host_out, host_launches = host
-    rec = check_serve_ranks("serve dp2", parts, host_out, configs.get("smollm-135m"))
+    rec = check_serve_ranks("serve dp2", parts, one, configs.get("smollm-135m"))
     for name in ("flash_attention", "tiled_matmul"):
         if not host_launches[f"{name}_wgmma"] or host_launches[f"{name}_simt"]:
             raise SystemExit(f"FAIL serve dp2: phase 5 launched {name} off wgmma")
@@ -2756,14 +2803,20 @@ TP_STRATEGY = {4: "tp", 3: "tp", 2: "cp"}
 # tp): its 60 layers' param bytes a rank, of 68,823,609,344, and its 2
 # layers' (for "vlm tp4 nccl train"), of 4,110,561,280
 VLM_TP4_BYTES = {0: 17_208_504_320, VLM_TRAIN_LAYERS: 1_027_747_840}
-TP_TRAIN_STEPS = 4
+TP_TRAIN_STEPS = 3
+# a MoE run's routing statistics (launch.train's step metrics)
+MOE_STATS = ("moe_dropped_token_fraction", "moe_expert_load")
+# full granite-moe-1b-a400m's param bytes a rank under tensor parallelism
+# at (1, 2), of 2,675,118,080: the experts, vocab, heads and KV heads halved
+MOE_TP_BYTES = {2: 1_339_232_256}
 # flash at context parallelism's shapes: "cp train"'s rank 0 (its 256
 # queries on their 256 keys) and rank 1 (on all 512), causal
 FLASH_CP = [(8, 9, 3, 256, 256, 64), (8, 9, 3, 256, 512, 64)]
 # flash at tensor parallelism's shapes: "tp train"'s (smollm on 3 model
-# ranks: 3 heads, 1 KV head, 8 x 512) and "vlm tp4 nccl train"'s (llava on
-# 4: 14 heads, 2 KV heads of 128, 1 x 4096), causal
-FLASH_TP = [(8, 3, 1, 512, 512, 64), (1, 14, 2, 4096, 4096, 128)]
+# ranks: 3 heads, 1 KV head, 8 x 512), "vlm tp4 nccl train"'s (llava on 4:
+# 14 heads, 2 KV heads of 128, 1 x 4096) and "moe tp train"'s (granite on
+# 2: 8 heads, 4 KV heads, 8 x 512), causal
+FLASH_TP = [(8, 3, 1, 512, 512, 64), (1, 14, 2, 4096, 4096, 128), (8, 8, 4, 512, 512, 64)]
 
 
 def mlp_shard_shapes(T: int, d: int, f: int) -> list:
@@ -2778,6 +2831,8 @@ def mlp_shard_shapes(T: int, d: int, f: int) -> list:
 # the same two runs' MLP products: smollm's 512 of 1536 columns a rank and
 # llava's 5120 of 20480 (K <= 7168: K * 2^-24 < 2^-11, "tiled_matmul_k4096")
 TILED_TP = mlp_shard_shapes(4096, 576, 512) + mlp_shard_shapes(4096, 7168, 5120)
+# the products of TILED_TP timed: each run's forward column and row shards
+TILED_TP_TIMED = [c for c in TILED_TP if c[3] == ""]
 # "tp serve"'s argv: the serve host cell's sizes at 8 new tokens (each
 # decode step on three gloo ranks takes ~6x one rank's), held to a one-rank
 # run of the same argv
@@ -2860,18 +2915,20 @@ def tp_train_rank(arch: str = "smollm-135m", layers: int = 0, batch: int = 8, se
             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
             "steps": [{"step": m["step"], "loss": m["loss"], "grad_norm": m["grad_norm"],
                        "step_s": m["step_time"], **{k: m[k] for k in keys},
-                       **{f"{k}_all_ranks": m[f"{k}_all_ranks"] for k in keys}}
+                       **{f"{k}_all_ranks": m[f"{k}_all_ranks"] for k in keys},
+                       **{k: m[k] for k in MOE_STATS if k in m}}
                       for m in hist["metrics"]]}
 
 
-def tp_serve_rank() -> dict:
-    """(a rank) ``serve_rank`` with ``TP_SERVE_ARGV`` on a (1, M) mesh
-    (tensor parallelism), then phase 4's teacher-forced prefill and
-    decode (2 layers, full width, the same weights and tokens) on the
-    rank's shards, the logits gathered over the model ranks: rank 0 saves
-    them."""
+def forced_rank_logits(name: str) -> None:
+    """(a rank) Phase 4's teacher-forced prefill and decode (full-width
+    smollm-135m cut to 2 layers, the same weights and tokens) on the
+    rank's shards of a (1, M) mesh, the cache laid out as ``launch.serve``
+    lays out its slot cache (under context parallelism the rank's range of
+    the 68 positions, ``kvcache.decode_positions``), the logits gathered over
+    the model ranks where their vocab is split: rank 0 saves them as
+    ``name``."""
     M = int(os.environ["WORLD_SIZE"])
-    rec = serve_rank(TP_SERVE_ARGV + ["--model-mesh", str(M)], model=M)
     mesh = mesh_mod.make_local_mesh(1, M, "cuda")
     cfg = dataclasses.replace(configs.get("smollm-135m"), n_layers=2)
     eng = ZeroInfinityEngine(RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none")),
@@ -2885,15 +2942,37 @@ def tp_serve_rank() -> dict:
                                          dtype=np.int32)).to(mesh.device)
     with torch.no_grad():
         lg, cache = eng.bundle.prefill(view, {"tokens": toks[:, :S]})
-        cache = kvcache.grow_cache(cache, n_dec, cfg.family)
+        cache, own, n, split = kvcache.decode_positions(cache, eng.mp, S + n_dec)
+        cache = kvcache.grow_cache(cache, n - own, cfg.family)
         cache["len"] = torch.full((B,), S, dtype=torch.int32, device=mesh.device)
         lgs = [lg]
         for i in range(n_dec):
-            lg, cache = eng.bundle.decode_step(view, cache, {"tokens": toks[:, S + i:S + i + 1]})
+            lg, cache = eng.bundle.decode_step(view, cache, {"tokens": toks[:, S + i:S + i + 1]},
+                                               **({"seq_split": True} if split else {}))
             lgs.append(lg)
-    logits = mesh.all_gather(torch.cat(lgs, dim=1).float(), 2, "model").cpu()
+    logits = torch.cat(lgs, dim=1).float()
+    if cm.vocab_sharded(view["embed"], cfg, eng.mp):
+        logits = mesh.all_gather(logits, 2, "model")
     if mesh.rank == 0:
-        torch.save(logits, _tp_record("serve_logits"))
+        torch.save(logits.cpu(), _tp_record(name))
+
+
+def tp_serve_rank() -> dict:
+    """(a rank) ``serve_rank`` with ``TP_SERVE_ARGV`` on a (1, M) mesh
+    (tensor parallelism), then ``forced_rank_logits``."""
+    M = int(os.environ["WORLD_SIZE"])
+    rec = serve_rank(TP_SERVE_ARGV + ["--model-mesh", str(M)], model=M)
+    forced_rank_logits("serve_logits")
+    return rec
+
+
+def cp_serve_rank() -> dict:
+    """(a rank) ``serve_rank`` with ``TP_SERVE_ARGV`` on a (1, 2) mesh:
+    context parallelism (smollm's 9 heads over 2), then
+    ``forced_rank_logits``."""
+    M = int(os.environ["WORLD_SIZE"])
+    rec = serve_rank(TP_SERVE_ARGV + ["--model-mesh", str(M)], model=M)
+    forced_rank_logits("cp_serve_logits")
     return rec
 
 
@@ -2904,33 +2983,38 @@ def phase_model_axis_kernels() -> dict:
     and on 512 keys, causal, the mask aligned at the end; the 256-on-512
     shape timed beside the bound, the CUDA-core kernel, the plain version
     and SDPA, the end-aligned mask as a boolean one) and at tensor
-    parallelism's (``FLASH_TP``), and the tiled matmul at tensor
-    parallelism's MLP shards (``TILED_TP``)."""
+    parallelism's (``FLASH_TP``, timed likewise), and the tiled matmul at
+    tensor parallelism's MLP shards (``TILED_TP``; the forward products,
+    ``TILED_TP_TIMED``, timed beside the bound, the CUDA-core kernel, the
+    plain version and ``torch.matmul``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     bf16 = torch.bfloat16
     timed = [shape[4] > shape[3] for shape in FLASH_CP]  # the new shape: Sq < Sk
     fwd = [check_flash(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
     bwd = [check_flash_bwd(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
-    fwd += [check_flash(shape, bf16, gen, timed=False) for shape in FLASH_TP]
-    bwd += [check_flash_bwd(shape, bf16, gen, timed=False) for shape in FLASH_TP]
+    fwd += [check_flash(shape, bf16, gen, timed=True) for shape in FLASH_TP]
+    bwd += [check_flash_bwd(shape, bf16, gen, timed=True) for shape in FLASH_TP]
     check_flash_routes(fwd + bwd)
-    tiled = [check_tiled_t(c, bf16, gen, timed=False) for c in TILED_TP]
+    tiled = [check_tiled_t(c, bf16, gen, timed=c in TILED_TP_TIMED) for c in TILED_TP]
     check_routes(tiled)
     for rec in fwd + bwd + tiled:
         say("model axis kernel check:", json.dumps(rec))
     return {"flash_attention": fwd, "flash_attention_bwd": bwd, "tiled_matmul": tiled}
 
 
-def _check_tp_ranks(tag: str, recs: list) -> None:
-    """Every rank ran the strategy of its model axis (tensor parallelism
-    at 3 and 4 ranks, context at 2) and launched flash and the tiled
-    matmul, all on the tensor cores."""
+def _check_tp_ranks(tag: str, recs: list, strategy: str = "",
+                    kernels=("flash_attention", "tiled_matmul")) -> None:
+    """Every rank ran the strategy of its model axis (``strategy``; by
+    default smollm's: tensor parallelism at 3 and 4 ranks, context at 2)
+    and launched each of ``kernels``, all on the tensor cores (MoE's
+    experts are batched einsums: its runs launch no tiled matmul)."""
     M = len(recs)
+    strategy = strategy or TP_STRATEGY[M]
     for r in recs:
-        if r.get("strategy", TP_STRATEGY[M]) != TP_STRATEGY[M]:
+        if r.get("strategy", strategy) != strategy:
             raise SystemExit(f"FAIL {tag}: rank {r['rank']} ran {r['strategy']}")
         check_main_path_routes(tag, r["launches"])
-        for name in ("flash_attention", "tiled_matmul"):
+        for name in kernels:
             if not r["launches"][f"{name}_wgmma"]:
                 raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched no {name}")
 
@@ -2956,7 +3040,8 @@ def phase_tp_numerics(recs: list, tag: str) -> tuple:
     return out, _sum_launches(recs)
 
 
-def phase_tp_train(recs: list, dp1: dict, tag: str, want_bytes: int = 0) -> tuple:
+def phase_tp_train(recs: list, dp1: dict, tag: str, want_bytes: int = 0,
+                   strategy: str = "", kernels=("flash_attention", "tiled_matmul")) -> tuple:
     """The ranks' ``tp_train_rank``: the losses (one on every rank) finite
     and those of the one-rank "plan train" run (``dp1``: the same seed and
     global batches) by ``TRAIN_TOL``; each rank's param bytes exactly
@@ -2995,7 +3080,7 @@ def phase_tp_train(recs: list, dp1: dict, tag: str, want_bytes: int = 0) -> tupl
     for got, want in zip(losses, rec["dp1_losses"]):
         if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
             raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
-    _check_tp_ranks(tag, recs)
+    _check_tp_ranks(tag, recs, strategy, kernels)
     return rec, _sum_launches(recs)
 
 
@@ -3044,6 +3129,209 @@ def phase_tp_serve(recs: list, one: dict) -> tuple:
     if not err <= E2E_REL_TOL:
         raise SystemExit(f"FAIL {tag}: teacher-forced logits rel err {err} > {E2E_REL_TOL}")
     _check_tp_ranks(tag, recs)
+    return rec, _sum_launches(recs)
+
+
+def moe_model_axis_numerics_rank(strategy: str) -> dict:
+    """(a rank) Phase 18's GSPMD step (granite at full width cut to 2
+    layers, ``MOE_NUMERICS``, ZeRO-3) on a (1, M) mesh of the launch's M
+    ranks under ``strategy`` ("tp": heads and experts split; "cp" forced:
+    each rank its half of the sequence, the experts still split), each from
+    its shards of the global state on the whole batch: the trajectory and
+    each layer's routing plan as the routed groups see it (``route_tokens``
+    on the whole sequences); rank 0 saves them with the params (outside
+    and inside the expert rows) and f32 masters joined over the ranks."""
+    M = int(os.environ["WORLD_SIZE"])
+    mesh = mesh_mod.make_local_mesh(1, M, "cuda")
+    rank, dev = mesh.rank, mesh.device
+    layers, B, S, steps = MOE_NUMERICS
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=layers)
+    run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none", zero_stage=3,
+                                                      attn_strategy=strategy),
+                    offload=make_offload(nvme_dir=os.path.join(ROOT, "build",
+                                                               f"chip_smoke_moe_{strategy}")),
+                    train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
+    params0 = init_params(cfg)
+    ops.reset_launch_counts()
+    ex = InfinityExecutor(run, dev, mesh=mesh)
+    eng = ex.engine
+    full = {"params": params0, "opt": adam.init_state(params0)}
+    state = ex.reseed(eng.place_state(bridge.shard_gspmd_state(full, run, rank, 1, M)))
+    del full, params0
+    stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                             cfg.vocab_size, seed=SEED)
+    step = ex.make_train_step()
+    traj, plans, real = [], [], moe_mod.route_tokens
+
+    def route_tokens(router, xg, cfg_):
+        r = real(router, xg, cfg_)
+        plans.append(torch.where(r["valid_ec"], r["tok_ec"], -1).cpu())
+        return r
+
+    moe_mod.route_tokens = route_tokens
+    try:
+        for i in range(steps):
+            batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+            state, m = step(state, batch)
+            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr",
+                                                  "moe_dropped_token_fraction")})
+    finally:
+        moe_mod.route_tokens = real
+    launches = ops.launch_counts()
+    params = eng.respec(state["params"], "param", None)
+    masters = eng.respec(state["opt"].master, "opt", None)
+    if rank == 0:
+        torch.save((traj, *_moe_param_groups(None, None, "gspmd", params=params),
+                    {keystr(p): t.detach().float().cpu()
+                     for p, t in zip(pt.tree_paths(masters), pt.tree_leaves(masters))}, plans),
+                   _tp_record(f"moe_{strategy}_numerics"))
+    ex.close()
+    return {"rank": rank, "launches": launches, "transport": mesh.transport(),
+            "strategy": eng.mp.strategy, "trajectory": traj,
+            "param_shard_bytes": eng.shard_bytes()["param_shard_bytes"]}
+
+
+def phase_moe_model_axis_numerics(recs: list, strategy: str) -> tuple:
+    """The ranks' ``moe_model_axis_numerics_rank``: the trajectory one on
+    every rank, the joined params and masters and the routing plans held
+    against phase 18's kept CPU side ("moe numerics/gspmd") by its bounds
+    (``hold_moe_to_cpu``); each rank's launches on the tensor cores."""
+    tag = f"moe {strategy} numerics"
+    card = torch.load(_tp_record(f"moe_{strategy}_numerics"), weights_only=False)
+    for r in recs:
+        if r["trajectory"] != card[0] or r["strategy"] != strategy:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} ran {r['strategy']} and reports "
+                             f"{r['trajectory']}, rank 0 {card[0]}")
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), n_layers=MOE_NUMERICS[0])
+    rec = hold_moe_to_cpu(tag, cfg, MOE_CPU_RUNS["gspmd"], card, {
+        "kind": "gspmd", "arch": MOE_ARCH, "mesh": [1, len(recs)], "strategy": strategy,
+        "zero_stage": 3, "cpu_side": "one rank, kept (moe numerics/gspmd)",
+        "param_shard_bytes": [r["param_shard_bytes"] for r in recs],
+        "launches_per_rank": [r["launches"] for r in recs]})
+    _check_tp_ranks(tag, recs, strategy, ("flash_attention", "flash_attention_bwd"))
+    return rec, _sum_launches(recs)
+
+
+def moe_tp_bytes(layers: int, M: int) -> int:
+    """granite at full width cut to ``layers`` (0: whole): a rank's param
+    bytes on a (1, M) mesh, from the rules."""
+    run = RunConfig(model=configs.with_layers(configs.get(MOE_ARCH), layers))
+    return ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
+        1, M, 0, M, torch.device("cpu"), None, "gloo")).shard_bytes()["param_shard_bytes"]
+
+
+def phase_moe_tp_train(recs: list, dp1: dict) -> tuple:
+    """The ranks' "moe_tp_train" (``tp_train_rank`` on granite at
+    ``MOE_LAYERED_LAYERS``, ``MOE_TRAIN_STEPS`` steps of 8 x 512, tensor
+    parallelism over 2) held by ``phase_tp_train`` to "moe layered"'s
+    losses (``dp1``) with the rules' param bytes a rank; the routing
+    statistics equal on both ranks, the expert load summing to 1 and the
+    last step's dropped fraction "moe layered"'s within a quarter of it:
+    the global batch's, not the model ranks' sum."""
+    tag = "moe tp train"
+    want = moe_tp_bytes(MOE_LAYERED_LAYERS, len(recs))
+    rec, launches = phase_tp_train(recs, dp1, tag, want, "tp", ("flash_attention",
+                                                               "flash_attention_bwd"))
+    for m0, *ms in zip(*(r["steps"] for r in recs)):
+        for m in ms:
+            if any(m[k] != m0[k] for k in MOE_STATS):
+                raise SystemExit(f"FAIL {tag}: the ranks' routing statistics differ: {m0} {m}")
+        if abs(sum(m0["moe_expert_load"]) - 1.0) > 1e-4:
+            raise SystemExit(f"FAIL {tag}: the expert load sums to {sum(m0['moe_expert_load'])}")
+    got, one = recs[0]["steps"][-1]["moe_dropped_token_fraction"], dp1["moe_dropped_token_fraction"]
+    rec.update({"moe_dropped_token_fraction": got, "one_rank_dropped_fraction": one,
+                "want_param_shard_bytes": want})
+    say(f"{tag} routing:", json.dumps({k: rec[k] for k in (
+        "moe_dropped_token_fraction", "one_rank_dropped_fraction", "want_param_shard_bytes")}))
+    if not abs(got - one) <= 0.25 * one:
+        raise SystemExit(f"FAIL {tag}: dropped fraction {got} vs one rank's {one}")
+    return rec, launches
+
+
+def check_model_serve(tag: str, recs: list, want_bytes: int, one_kv: dict,
+                      one_generated, strategy: str) -> dict:
+    """A serving run on a (1, M) mesh (``serve_rank``'s records): every
+    sequence finished with the same tokens on every rank, each rank's
+    param bytes ``want_bytes`` (its layout's), the ``kv`` bytes moved
+    summed over the ranks ``one_kv`` (the one-rank run of the argv), the
+    share of tokens equal to ``one_generated`` printed, every flash launch
+    on the tensor cores; the decode step and prefill wave printed."""
+    r0 = recs[0]
+    steps = max(r0["steps"], 1)
+    pairs = [(a, b) for g, h in zip(r0["generated"], one_generated) for a, b in zip(g, h)]
+    rec = {"run": tag, "argv": r0["argv"], "ranks": len(recs), "strategy": strategy,
+           "backend": r0["backend"], "param_shard_bytes": r0["param_shard_bytes"],
+           "want_param_shard_bytes": want_bytes,
+           "kv": {k: r0["kv"][k] for k in SERVE_KV},
+           "kv_ranks": [{k: kr[k] for k in SERVE_KV} for kr in r0["kv_ranks"]],
+           "one_rank_kv": one_kv, "cache_seq_split": r0["cache_seq_split"],
+           "local_cache_len": r0["local_cache_len"],
+           "model_gather_bytes_per_step": r0["model_gather_bytes_per_step"],
+           "tokens_equal_one_rank_share": sum(a == b for a, b in pairs) / max(len(pairs), 1),
+           "decode_step_ms": r0["decode_s"] / steps * 1e3,
+           "prefill_wave_ms": r0["prefill_s"] / -(-len(r0["generated"]) // r0["slots"]) * 1e3,
+           "ttft_p50_s": r0["ttft_p50_s"], "ttft_p99_s": r0["ttft_p99_s"],
+           "peak_allocated_gb": [b / 1e9 for b in r0["peak_allocated_bytes"]],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    say(f"{tag}:", json.dumps(rec))
+    for r in recs:
+        if not all(r["done"]) or r["generated"] != r0["generated"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}: not every sequence finished, or "
+                             "its tokens differ from rank 0's")
+        if not r["param_shard_bytes"][r["rank"]] == want_bytes == r["layout_param_bytes"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} holds "
+                             f"{r['param_shard_bytes'][r['rank']]} param bytes; want {want_bytes}")
+    moved = [k for k in SERVE_KV if k != "resident_bytes"]
+    if any(rec["kv"][k] != one_kv[k] for k in moved):
+        raise SystemExit(f"FAIL {tag}: kv bytes summed over the ranks {rec['kv']}, one "
+                         f"rank's {one_kv}")
+    _check_tp_ranks(tag, recs, strategy, ("flash_attention",))
+    return rec
+
+
+def phase_cp_serve(recs: list, one: dict) -> tuple:
+    """The ranks' ``cp_serve_rank`` (full smollm-135m with
+    ``TP_SERVE_ARGV`` on (1, 2): context parallelism) against ``one``, the
+    one-rank run of the argv ("tp serve one rank"), by
+    ``check_model_serve`` with ``TP_BYTES[2]`` a rank; its 520 positions
+    split 260 a rank, each rank's resident K/V half of ``one``'s (model
+    rank 0 holds the slots' ``len`` leaf), the tiled matmul launched on the
+    tensor cores, phase 4's teacher-forced logits at 2 layers held to its
+    CPU side by ``E2E_REL_TOL``."""
+    tag, M = "cp serve", len(recs)
+    rec = check_model_serve(tag, recs, TP_BYTES[M], {k: one["kv"][k] for k in SERVE_KV},
+                            one["generated"], "cp")
+    lg = torch.load(_tp_record("cp_serve_logits"), weights_only=False)
+    cpu = E2E_CPU["logits"]
+    err = ((lg - cpu).abs().max() / cpu.abs().max()).item() if lg.shape == cpu.shape else math.inf
+    lens = 4 * len(recs[0]["generated"][:one["slots"]])  # the slots' int32 len leaf
+    kv_one = one["kv"]["resident_bytes"] - lens
+    resident = [kr["resident_bytes"] - (lens if r == 0 else 0)
+                for r, kr in enumerate(rec["kv_ranks"])]
+    rec.update({"teacher_forced_max_rel_err": err, "tol": E2E_REL_TOL,
+                "resident_kv_ranks": resident, "one_rank_resident_kv": kv_one,
+                "one_rank_decode_step_ms": one["timings"]["decode_s"]
+                / max(one["steps"], 1) * 1e3})
+    say(f"{tag} checks:", json.dumps({k: rec[k] for k in (
+        "teacher_forced_max_rel_err", "resident_kv_ranks", "one_rank_resident_kv",
+        "one_rank_decode_step_ms")}))
+    if not rec["cache_seq_split"] or any(M * b != kv_one for b in resident):
+        raise SystemExit(f"FAIL {tag}: resident K/V a rank {resident}, one rank's {kv_one}")
+    if not err <= E2E_REL_TOL:
+        raise SystemExit(f"FAIL {tag}: teacher-forced logits rel err {err} > {E2E_REL_TOL}")
+    _check_tp_ranks(tag, recs, "cp")
+    return rec, _sum_launches(recs)
+
+
+def phase_moe_tp_serve(recs: list) -> tuple:
+    """The ranks' "moe_tp_serve" (full granite with phase 18's argv on (1,
+    2): tensor parallelism, 16 experts a rank) by ``check_model_serve``
+    against "moe serve" (``MOE_SERVE_ONE``), ``MOE_TP_BYTES[2]`` a rank."""
+    one = MOE_SERVE_ONE["out"]
+    rec = check_model_serve("moe tp serve", recs, MOE_TP_BYTES[len(recs)],
+                            {k: one["kv"][k] for k in SERVE_KV}, one["generated"], "tp")
+    rec["one_rank_decode_step_ms"] = one["timings"]["decode_s"] / max(one["steps"], 1) * 1e3
+    say("moe tp serve one rank decode step ms:", json.dumps(rec["one_rank_decode_step_ms"]))
     return rec, _sum_launches(recs)
 
 
@@ -3124,16 +3412,23 @@ MOE_LAYERED_LAYERS = 4  # the layered MoE run's depth cut (full width)
 # CPU sides by kind, kept for the dp-2 numerics of the same function
 MOE_NUMERICS = (2, 2, 256, 2)
 MOE_CPU_RUNS: dict = {}
+# "moe serve"'s output, held by "moe tp serve"
+MOE_SERVE_ONE: dict = {}
+# both MoE serving runs: the serve host cell's sizes at 8 new tokens (a
+# decode step on two gloo ranks takes ~4x one rank's)
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
+                  "--prompt-len", "512", "--new-tokens", "8"]
 
 
 def phase_moe_serve() -> tuple:
     """``launch.serve`` on full granite-moe-1b-a400m (24 layers) at the
-    serve host cell's sizes: 8 sequences through 4 device slots, prompt
-    512, 32 new tokens, waiting KV on the host tier. Counters zeroed just
-    before and read just after."""
-    argv = ["--arch", MOE_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
-            "--prompt-len", "512", "--new-tokens", "32"]
+    serve host cell's sizes but 8 new tokens (``MOE_SERVE_ARGV``): 8
+    sequences through 4 device slots, prompt 512, waiting KV on the host
+    tier. Counters zeroed just before and read just after; the output is
+    kept for "moe tp serve"."""
+    argv = MOE_SERVE_ARGV
     out, launches, wall = run_serve(argv)
+    MOE_SERVE_ONE["out"] = out
     return summarize("moe serve", argv, out, launches, wall, arch=MOE_ARCH), launches
 
 
@@ -3761,7 +4056,7 @@ def main() -> int:
     shutil.rmtree(kv_dir, ignore_errors=True)
     out, launches, wall = timed("serve host", run_serve, SERVE_ARGV)
     main_rec = summarize("host", SERVE_ARGV, out, launches, wall)
-    host_serve = (out, launches)  # "serve dp2" holds its ranks to this run
+    host_serve = (out, launches)  # "serve dp2" holds its ranks' routes to this run's
 
     nvme_argv = ["--arch", "smollm-135m", "--batch", "3", "--kv-slots", "1",
                  "--kv-tier", "nvme", "--kv-dir", kv_dir, "--prompt-len", "128",
@@ -3822,14 +4117,15 @@ def main() -> int:
         recs=dp_ranks)
     gmoe_dp2_rec, gmoe_dp2_launches = timed("gspmd moe dp2 train", phase_gspmd_moe_dp_train,
                                             moe_layered_rec, gtrain_ranks)
-    sdp2_rec, sdp2_launches = timed("serve dp2", phase_serve_dp2, dp_ranks, host_serve)
+    # "serve dp2"'s, "tp serve"'s and "cp serve"'s one-rank side
+    tp_one, _, _ = timed("tp serve one rank", run_serve, TP_SERVE_ARGV)
+    sdp2_rec, sdp2_launches = timed("serve dp2", phase_serve_dp2, dp_ranks, tp_one,
+                                    host_serve[1])
     cp_rec, cp_launches = timed("cp numerics", phase_tp_numerics, _part(dp_ranks, "cp_numerics"),
                                 "cp numerics")
     cpt_rec, cpt_launches = timed("cp train", phase_tp_train, _part(dp_ranks, "cp_train"),
                                   plan_rec, "cp train")
-    # "tp serve"'s one-rank side, then three model ranks on the card: one
-    # spawn runs every tensor-parallel job
-    tp_one, _, _ = timed("tp serve one rank", run_serve, TP_SERVE_ARGV)
+    # three model ranks on the card: one spawn runs every tensor-parallel job
     tp_ranks = timed("tp3 ranks", run_ranks, "tp3", 600, 3)
     tp_rec, tp_launches = timed("tp numerics", phase_tp_numerics,
                                 _part(tp_ranks, "tp_numerics"), "tp numerics")
@@ -3837,6 +4133,15 @@ def main() -> int:
                                   plan_rec, "tp train")
     tps_rec, tps_launches = timed("tp serve", phase_tp_serve, _part(tp_ranks, "tp_serve"),
                                   tp_one)
+    # the two-rank spawn's model-axis serving and MoE parts
+    cps_rec, cps_launches = timed("cp serve", phase_cp_serve, _part(dp_ranks, "cp_serve"),
+                                  tp_one)
+    moe_mx = {s: timed(f"moe {s} numerics", phase_moe_model_axis_numerics,
+                       _part(dp_ranks, f"moe_{s}_numerics"), s) for s in ("tp", "cp")}
+    moe_tpt_rec, moe_tpt_launches = timed("moe tp train", phase_moe_tp_train,
+                                          _part(dp_ranks, "moe_tp_train"), moe_layered_rec)
+    moe_tps_rec, moe_tps_launches = timed("moe tp serve", phase_moe_tp_serve,
+                                          _part(dp_ranks, "moe_tp_serve"))
     for name, recs in timed("model axis kernels", phase_model_axis_kernels).items():
         train_checks[name] += recs
     train_checks.update(timed("flash window", phase_flash_window))
@@ -3925,6 +4230,9 @@ def main() -> int:
              "moe_dp2_train": moe_dp2_launches, "gspmd_moe_dp2_train": gmoe_dp2_launches,
              "serve_dp2": sdp2_launches, "cp_numerics": cp_launches, "cp_train": cpt_launches,
              "tp_numerics": tp_launches, "tp_train": tpt_launches, "tp_serve": tps_launches,
+             "cp_serve": cps_launches, "moe_tp_numerics": moe_mx["tp"][1],
+             "moe_cp_numerics": moe_mx["cp"][1], "moe_tp_train": moe_tpt_launches,
+             "moe_tp_serve": moe_tps_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -3999,7 +4307,15 @@ def main() -> int:
         f"tok/s, cp train {cpt_rec['losses'][0]:.4f} -> {cpt_rec['losses'][-1]:.4f} at "
         f"{cpt_rec['median_tokens_per_s_after_first']:.0f} tok/s (model ranks on 1 card); "
         f"tp serve {tps_rec['decode_step_ms']:.1f} ms a decode step, tokens "
-        f"{tps_rec['tokens_equal_host_share']:.3f} one rank's; "
+        f"{tps_rec['tokens_equal_host_share']:.3f} one rank's; cp serve "
+        f"{cps_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{cps_rec['tokens_equal_one_rank_share']:.3f} one rank's; moe tp / cp numerics "
+        f"params {moe_mx['tp'][0]['params_worst_diff_over_bound']:.3f} / "
+        f"{moe_mx['cp'][0]['params_worst_diff_over_bound']:.3f} of bound; moe tp train "
+        f"{moe_tpt_rec['losses'][0]:.4f} -> {moe_tpt_rec['losses'][-1]:.4f} at "
+        f"{moe_tpt_rec['median_tokens_per_s_after_first']:.0f} tok/s; moe tp serve "
+        f"{moe_tps_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{moe_tps_rec['tokens_equal_one_rank_share']:.3f} one rank's; "
         f"resume drill restarts {drill_rec['restarts']}; moe repeat "
         f"{'bit-equal' if not moe_repeat['differing'] else 'DIFFERS'}, moe numerics params "
         f"{max(r['params_worst_diff_over_bound'] for r in moe_numerics.values()):.3f} of "

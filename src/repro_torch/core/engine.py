@@ -66,8 +66,8 @@ rank's rows of the global batch (``data/pipeline.rank_batch``):
      (stages 1-2).
 
 With a model axis (``mesh.model`` = M > 1; rank r at data coordinate
-``r // M``, model coordinate ``r % M``, ``launch/mesh.py``) the dense and
-vlm families run tensor or context parallelism, the strategy of
+``r // M``, model coordinate ``r % M``, ``launch/mesh.py``) the dense,
+vlm and moe families run tensor or context parallelism, the strategy of
 ``partition.choose_attn_strategy`` (the reference's ``repro/core/
 partition.py:144-224``): each rank holds what the reference's spec gives
 its device, its leaves cut along both axes (``partition.cut_leaf``), and
@@ -83,10 +83,14 @@ is its chunk's share of it), reduces a gradient that is whole on the rank
 over the axes where the ranks' contributions differ (data; and model
 where every model rank computes the leaf's gradient from its own part:
 every leaf whole over model under context parallelism, the unsplit KV
-projections under tensor parallelism), sums ``loss`` over the data group
+projections and, where the experts split, MoE's router under tensor
+parallelism), sums ``loss`` over the data group
 (and the model group under context parallelism), and counts a leaf's
 squares in ``grad_norm`` on the ranks at coordinate 0 of every axis it is
-not split over.
+not split over. MoE's experts stay split under context parallelism too
+(``models/moe.py`` sums their partial outputs), and its routing counts
+are summed over the data group alone: the model ranks of a data row route
+the same tokens.
 
 Every rank issues every collective in the same order. The step reports
 each rank's state bytes (``param_shard_bytes``, ``grad_shard_bytes``,
@@ -111,7 +115,10 @@ transformer.py:5-6``). The rules never split a stacked leaf on its layer
 dim (``layers`` maps to no mesh axis); the engine refuses one that would.
 Under tensor parallelism serving gathers over the data axis alone: the
 model shards stay split through the layer, and no param byte crosses the
-model axis.
+model axis. Under context parallelism a layer's leaves split over model
+(the MLP's columns; MoE's experts excepted) and the unstacked vocab rows
+are gathered over the model axis too, one collective more a layer, as
+training gathers them; ``model_gather_bytes`` counts what that brings in.
 """
 from __future__ import annotations
 
@@ -181,13 +188,28 @@ def _stacked(defs) -> bool:
     return all(d.axes[:1] == ("layers",) for d in pt.tree_leaves(defs))
 
 
-def _gathered(leaves: dict, mesh) -> dict:
+def _gathered(leaves: dict, mesh, axis: str = "data") -> dict:
     """``{path: (t, dim)}`` -> ``{path: t}`` with each split leaf (dim
-    not None) gathered over the data axis along ``dim``, all of them in
-    one collective (``LocalMesh.all_gather_leaves``)."""
+    not None) gathered over ``axis`` along ``dim``, all of them in one
+    collective (``LocalMesh.all_gather_leaves``)."""
     split = [p for p, (_, d) in leaves.items() if d is not None]
     out = {p: t for p, (t, d) in leaves.items() if d is None}
-    out.update(zip(split, mesh.all_gather_leaves([leaves[p] for p in split], "data")))
+    out.update(zip(split, mesh.all_gather_leaves([leaves[p] for p in split], axis)))
+    return out
+
+
+def _gather_both(leaves: dict, mesh, counter: Optional[list] = None) -> dict:
+    """``{path: (t, data_dim, model_dim)}`` -> ``{path: t}``: each leaf
+    gathered over the data axis where it is split there, then over the
+    model axis where ``model_dim`` is given (one collective an axis);
+    ``counter[0]`` grows by the bytes the model gather brings in."""
+    out = _gathered({p: (t, d) for p, (t, d, _) in leaves.items()}, mesh)
+    if any(m is not None for _, _, m in leaves.values()):
+        model = {p: (out[p], m) for p, (_, _, m) in leaves.items()}
+        out = _gathered(model, mesh, "model")
+        if counter is not None:
+            counter[0] += sum(out[p].numel() * out[p].element_size() - t.numel() * t.element_size()
+                              for p, (t, m) in model.items() if m is not None)
     return out
 
 
@@ -196,19 +218,25 @@ class LayerShards:
     time (``transformer.layer_params`` calls ``layer``): each leaf's slice
     of layer ``l``, gathered over the data axis along its split dim less
     one where it is split (the layer's split leaves in one collective), as
-    it is where it is not (a model shard stays the rank's). Forward only:
+    it is where it is not. A model shard stays the rank's, but where
+    ``model_splits`` names its dim (context parallelism's whole leaves):
+    then it is gathered over the model axis too, in one more collective,
+    and ``counter[0]`` counts the bytes that brings in. Forward only:
     serving runs under ``no_grad``."""
 
-    def __init__(self, shards: dict, splits: dict, mesh):
+    def __init__(self, shards: dict, splits: dict, mesh, model_splits=None, counter=None):
         self.shards, self.splits, self.mesh = shards, splits, mesh
+        self.model_splits, self.counter = model_splits, counter
 
     def layer(self, l: int) -> dict:
         leaves = {}
         for path in pt.tree_paths(self.shards):
             dim = pt.tree_get(self.splits, path)
-            leaves[path] = (pt.tree_get(self.shards, path)[l], None if dim is None else dim - 1)
+            mdim = None if self.model_splits is None else pt.tree_get(self.model_splits, path)
+            leaves[path] = (pt.tree_get(self.shards, path)[l], None if dim is None else dim - 1,
+                            None if mdim is None else mdim - 1)
         out: dict = {}
-        for path, t in _gathered(leaves, self.mesh).items():
+        for path, t in _gather_both(leaves, self.mesh, self.counter).items():
             pt.tree_set(out, path, t)
         return out
 
@@ -224,6 +252,9 @@ class ZeroInfinityEngine:
         self.dp = sizes["data"]  # the data-parallel ranks
         self.rank = mesh.rank if self.mesh is not None else 0
         self.mp = None  # the rank's model-parallel context (zero.ModelAxis)
+        # bytes serve_params' gathers over the model axis brought in (context
+        # parallelism's whole leaves), summed over the calls
+        self.model_gather_bytes = [0]
         if sizes["model"] > 1:
             from repro_torch.core.zero import ModelAxis  # zero.py imports this module
 
@@ -280,12 +311,26 @@ class ZeroInfinityEngine:
         gradient (their sum the whole): a leaf whole over the model axis
         under context parallelism (each rank its chunk), and under tensor
         parallelism a KV projection whose heads do not split (each rank
-        its query heads' KV heads)."""
+        its query heads' KV heads) and MoE's router where the experts
+        split (a rank's gates take cotangents through its experts alone)."""
         if self.mp is None or pt.tree_get(self.model_splits, path) is not None:
             return False
         if not self.mp.tp:
             return True
+        if path[-1] == "router":
+            return pt.tree_get(self.model_splits, path[:-1] + ("w_in",)) is not None
         return "kv_heads" in pt.tree_get(self.bundle.defs, path).axes
+
+    def _whole_over_model(self, path) -> Optional[int]:
+        """The dim along which context parallelism gathers this leaf over
+        the model axis before use (None: the rank's shard is used as it
+        is): every leaf the rules split there but MoE's experts, whose
+        partial outputs are summed instead (``models/moe.py``)."""
+        if self.mp is None or self.mp.tp:
+            return None
+        if "experts" in pt.tree_get(self.bundle.defs, path).axes:
+            return None
+        return pt.tree_get(self.model_splits, path)
 
     # ------------------------------------------------------------------
     # state
@@ -312,10 +357,15 @@ class ZeroInfinityEngine:
         if self.mesh is None:
             return params
         split = self.splits["param"]
-        out = {k: LayerShards(params[k], split[k], self.mesh) for k in self.stacked}
-        whole = {p: (pt.tree_get(params, p), pt.tree_get(split, p))
+        model: dict = {}  # the dims context parallelism gathers over model
+        for p in pt.tree_paths(params):
+            pt.tree_set(model, p, self._whole_over_model(p))
+        count = self.model_gather_bytes
+        out = {k: LayerShards(params[k], split[k], self.mesh, model[k], count)
+               for k in self.stacked}
+        whole = {p: (pt.tree_get(params, p), pt.tree_get(split, p), pt.tree_get(model, p))
                  for p in pt.tree_paths(params) if p[0] not in self.stacked}
-        for path, t in _gathered(whole, self.mesh).items():
+        for path, t in _gather_both(whole, self.mesh, count).items():
             pt.tree_set(out, path, t)
         return out
 
@@ -453,7 +503,9 @@ class ZeroInfinityEngine:
         if loss_stats is None:
             loss_f = self.bundle.loss
             loss_stats = lambda params, batch, reduce=None: (loss_f(params, batch), {})
-        reduce = mesh.all_reduce if mesh is not None else None
+        # the model ranks of a data row route the same tokens: the routing
+        # counts are summed over the data ranks alone
+        reduce = (lambda t: mesh.all_reduce(t, "data")) if mesh is not None else None
         param_host = self.param_host
         opt_host = self.opt_host and not grads_only
         if mesh is not None:
@@ -471,8 +523,8 @@ class ZeroInfinityEngine:
                     dim = pt.tree_get(self.splits["param"], p)
                     if dim is not None:
                         t = LeafGather.apply(t, mesh, dim, "data")
-                    mdim = pt.tree_get(self.model_splits, p)
-                    if cp and mdim is not None:  # context parallel: the whole leaf
+                    mdim = self._whole_over_model(p)
+                    if mdim is not None:  # context parallel: the whole leaf
                         t = LeafGather.apply(t, mesh, mdim, "model")
                 pt.tree_set(live, p, t)
             loss, aux = loss_stats(live, batch, reduce=reduce)

@@ -23,7 +23,9 @@ never grows: the cross keys' length is the encoder's, and zero-padded
 ones would get attention weight. The batch axis of every non-scalar leaf
 is axis 1. On data-parallel ranks each rank keeps its own
 ``PagedKVCache`` over its own store (``launch/serve.py``), so its byte
-counters are the rank's.
+counters are the rank's. Under context parallelism a model rank keeps and
+parks its own range of each sequence's positions (``seq_split``,
+``decode_positions``), so the ranks' counters sum to one cache's.
 """
 from __future__ import annotations
 
@@ -67,6 +69,40 @@ def grow_cache(cache: dict, extra: int, family: str) -> dict:
     if family in SEQ_CACHE_FAMILIES:
         return pad_seq_caches(cache, extra)
     return cache
+
+
+def seq_split(capacity: int, model: int) -> bool:
+    """Whether a decode cache of ``capacity`` positions splits over
+    ``model`` context-parallel ranks, each holding ``capacity / model``:
+    the reference's divisibility guard on ``cache_seq``."""
+    return model > 1 and capacity % model == 0
+
+
+def decode_positions(cache: dict, mp, capacity: int) -> Tuple[dict, int, int, bool]:
+    """A prefill's cache -> ``(the cache of the prompt positions this rank
+    keeps for decode, how many, the rank's cache capacity, whether the
+    positions split over the model ranks)``: the serving driver's slot
+    cache is it grown by ``capacity - how many`` (``grow_cache``), and a
+    waiting sequence parks those positions. Under context parallelism
+    (``mp`` not tensor-parallel; its cache's ``k`` / ``v`` the rank's chunk
+    of the prompt's ``len`` positions, or all of them) the positions are
+    the rank's range ``[m * C/M, (m+1) * C/M)`` of the ``capacity`` C where
+    it splits (``seq_split``), else every one; a chunked prefill's are
+    all-gathered over the model ranks first (one collective, ``k`` and
+    ``v`` together), so they move to their owners once. Elsewhere the
+    cache is every rank's as it is."""
+    P = int(cache["len"])
+    if mp is None or mp.tp:
+        return cache, P, capacity, False
+    kv = [cache["k"], cache["v"]]
+    if kv[0].shape[SEQ_AXIS] < P:
+        kv = mp.mesh.all_gather_leaves([(t, SEQ_AXIS) for t in kv], "model")
+    split = seq_split(capacity, mp.size)
+    if split:
+        capacity //= mp.size
+        lo = mp.rank * capacity
+        kv = [t[:, :, lo:max(lo, min(lo + capacity, P))] for t in kv]
+    return {**cache, "k": kv[0], "v": kv[1]}, kv[0].shape[SEQ_AXIS], capacity, split
 
 
 def sequence_kv_bytes(model, cache_len: int) -> int:

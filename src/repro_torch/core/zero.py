@@ -180,22 +180,36 @@ class FromModel(torch.autograd.Function):
 
 
 class ModelAxis:
-    """A rank's model-parallel context, what ``models/common.py`` and
-    ``models/transformer.py`` take as ``mp`` (None at one model rank):
-    the mesh (its ``"model"`` group), this rank's model coordinate
-    ``rank`` among ``size`` and the attention ``strategy`` of
-    ``partition.choose_attn_strategy``: ``"tp"`` (heads, MLP columns and
-    vocab rows split over the model ranks, Megatron's explicit
-    collectives) or ``"cp"`` (each rank its ``S / size`` chunk of the
-    sequence; the leaves split over model gathered before use)."""
+    """A rank's model-parallel context, what ``models/common.py``,
+    ``models/transformer.py`` and ``models/moe.py`` take as ``mp`` (None
+    at one model rank): the mesh (its ``"model"`` group), this rank's
+    model coordinate ``rank`` among ``size`` and the attention
+    ``strategy`` of ``partition.choose_attn_strategy``: ``"tp"`` (heads,
+    MLP columns and vocab rows split over the model ranks, Megatron's
+    explicit collectives) or ``"cp"`` (each rank its ``S / size`` chunk of
+    the sequence; the leaves split over model gathered before use, but
+    MoE's experts). ``chunked`` says, under ``"cp"``, whether a call's
+    activations are the rank's chunk of the sequence (training, and a
+    prompt that splits over the ranks) or the whole of it on every model
+    rank (``whole()``: a prompt that does not split, the reference's
+    divisibility guard, and a decode step's one token)."""
 
-    def __init__(self, mesh, strategy: str):
-        self.mesh, self.strategy = mesh, strategy
+    def __init__(self, mesh, strategy: str, chunked: bool = True):
+        self.mesh, self.strategy, self.chunked = mesh, strategy, chunked
         self.rank, self.size = mesh.coords()["model"], mesh.model
 
     @property
     def tp(self) -> bool:
         return self.strategy == "tp"
+
+    @property
+    def seq(self) -> bool:
+        """Whether the activations are the rank's chunk of the sequence."""
+        return self.strategy == "cp" and self.chunked
+
+    def whole(self) -> "ModelAxis":
+        """This rank's context for a call whose activations are whole."""
+        return ModelAxis(self.mesh, self.strategy, chunked=False)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """Before a column-parallel product (``ToModel``)."""
@@ -211,9 +225,35 @@ class ModelAxis:
         backward the reduce-scatter)."""
         return LeafGather.apply(t, self.mesh, dim, "model")
 
+    def scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model ranks' partial ``t`` summed, this rank's chunk along
+        ``dim`` (``ScatterModel``: backward the all-gather)."""
+        return ScatterModel.apply(t, self.mesh, dim)
+
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the model ranks (no gradient)."""
         return self.mesh.all_reduce(t.detach(), "model", op="max")
+
+    def stack(self, t: torch.Tensor) -> torch.Tensor:
+        """``(size, *t.shape)``: the model ranks' ``t`` in rank order (no
+        gradient)."""
+        return self.mesh.all_gather(t.detach()[None], 0, "model")
+
+
+class ScatterModel(torch.autograd.Function):
+    """Forward the reduce-scatter over the model axis along ``dim`` (the
+    ranks' partial sums summed, each rank its chunk), backward the
+    all-gather of the chunks' cotangents: the expert-parallel MoE's join
+    under context parallelism, ``LeafGather``'s transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.reduce_scatter(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.all_gather(ct, ctx.dim, "model"), None, None
 
 
 class Psum(torch.autograd.Function):

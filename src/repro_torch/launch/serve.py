@@ -39,21 +39,37 @@ run: the sequences' tokens and latencies gathered from their ranks,
 ``param_shard_bytes`` and peak allocated bytes.
 
 With a model axis (``--model-mesh M``: D * M ranks, rank r at data
-coordinate r // M and model coordinate r % M) the dense and vlm families
-serve under tensor parallelism (``models/common.py``): each rank holds its
-heads, MLP columns and vocab rows, gathers a layer over the data axis
-alone (the model shards stay split: no param byte crosses the model axis)
-and joins the row-parallel products with an all-reduce over its model
-group. The slots split over the data coordinate; the model ranks of a data
-row serve the same rows, each parking its own KV heads in its own store,
-so the ``kv`` bytes summed over the ranks are the reference's where the KV
-heads split over the model ranks; where they do not, each rank parks the
-KV heads its query heads read (``transformer.local_kv_heads``). The
-logits stay vocab-sharded: a token is the global argmax over the ranks'
-shards, the first index on ties as ``jnp.argmax`` takes it. Context
-parallelism (the heads do not split over M) does not serve: its decode
-cache split is ROADMAP.md Queue 1 item 8g, as are the other families on a
-model axis.
+coordinate r // M and model coordinate r % M) the dense, vlm and moe
+families serve under the reference's attention strategy. Where the heads
+split over M, tensor parallelism (``models/common.py``): each rank holds
+its heads, MLP columns (MoE: its experts) and vocab rows, gathers a layer
+over the data axis alone (the model shards stay split: no param byte
+crosses the model axis) and joins the row-parallel products with an
+all-reduce over its model group. The slots split over the data
+coordinate; the model ranks of a data row serve the same rows, each
+parking its own KV heads in its own store, so the ``kv`` bytes summed over
+the ranks are the reference's where the KV heads split over the model
+ranks; where they do not, each rank parks the KV heads its query heads
+read (``transformer.local_kv_heads``). The logits stay vocab-sharded: a
+token is the global argmax over the ranks' shards, the first index on ties
+as ``jnp.argmax`` takes it.
+
+Where the heads do not split, context parallelism: a prompt that splits
+over the M ranks is prefilled a chunk a rank (else whole on each), the
+MLP's columns and the vocab rows are gathered whole a layer at a time
+(the bytes a decode step moves so are printed; MoE's experts stay split),
+and the decode cache is the reference's ``cache_seq`` on ``model``: where
+the capacity C (prompt + new tokens) divides by M, rank m holds positions
+``[m * C/M, (m+1) * C/M)`` of every slot (``kvcache.seq_split``), they
+move to their owners once after prefill (``kvcache.decode_positions``), a
+decode token is written by its position's owner, and attention combines
+the ranks' partial softmaxes (flash-decode). Each rank parks and fetches
+its own positions of a waiting sequence, so the ``kv`` bytes summed over
+the ranks are the reference's and each holds 1/M of the resident K/V.
+Where C does not divide, every model rank holds the whole cache, and
+model rank 0's ``kv`` counters are the data row's. The SSM, hybrid and
+encoder-decoder families on a model axis are ROADMAP.md Queue 1 items
+8g.3 and 8g.4.
 
 Every family serves: dense, MoE (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
@@ -90,11 +106,21 @@ rank a quarter of its params):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch llava-next-34b --model-mesh 4 \
       --batch 8 --kv-slots 4 --kv-tier host --prompt-len 3072 --new-tokens 16
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch smollm-135m --model-mesh 2 \
+      --batch 8 --kv-slots 4 --kv-tier host --prompt-len 512 --new-tokens 8
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch granite-moe-1b-a400m --model-mesh 2 \
+      --batch 8 --kv-slots 4 --kv-tier host --prompt-len 512 --new-tokens 32
+
+(the last two: context parallelism, smollm-135m's 9 heads over 2 ranks,
+and granite's 32 experts split over 2 ranks under tensor parallelism)
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import os
 import tempfile
 import time
@@ -155,8 +181,8 @@ def _parse(argv=None):
                     help="data-parallel ranks, one process each (torchrun); 0: "
                          "the devices a --plan is made for (--hw-devices), else 1")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="model-parallel ranks (tensor parallelism, dense and vlm "
-                         "families): --data-mesh x --model-mesh ranks in all")
+                    help="model-parallel ranks (tensor or context parallelism, dense, "
+                         "vlm and moe families): --data-mesh x --model-mesh ranks in all")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
                     metavar="OUT.json",
@@ -178,21 +204,11 @@ def resolve_device(name: str) -> torch.device:
 
 def _unported(args) -> None:
     """Raise, before any process group, where the model axis does not
-    serve: the families outside dense and vlm, and context parallelism
-    (the heads do not split over ``--model-mesh``: its decode cache split
-    over the model axis, the reference's ``cache_seq``), both ROADMAP.md
-    Queue 1 item 8g."""
-    M = args.model_mesh
-    if M <= 1:
-        return
-    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    registry.check_model_axis(cfg, M)
-    sizes = {"data": mesh_mod.data_mesh(args), "model": M}
-    if pt.choose_attn_strategy(cfg, sizes, ParallelConfig()) != "tp":
-        raise NotImplementedError(
-            f"serving {cfg.arch} on a model axis of {M}: its {cfg.n_heads} heads do not "
-            "split, so the reference runs context parallelism, whose decode cache split "
-            "over the model axis (cache_seq) is not ported (ROADMAP.md Queue 1 item 8g)")
+    serve: the families outside dense, vlm and moe (ROADMAP.md Queue 1
+    items 8g.3 and 8g.4)."""
+    if args.model_mesh > 1:
+        cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+        registry.check_model_axis(cfg, args.model_mesh)
 
 
 def global_argmax(logits: torch.Tensor, mesh, sharded: bool) -> torch.Tensor:
@@ -244,7 +260,7 @@ def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
     """Admission: write one fetched sequence (nested as the cache is) into
     decode slot ``b`` of the device slot cache IN PLACE (the reference's
     donated functional update). The parked ``len`` placeholder is not
-    consulted: the slot's length is ``length``, from the paging layout."""
+    consulted: the slot's length is ``length``, the sequence's."""
     for path in pt.tree_paths(single):
         if path == ("len",):
             continue
@@ -307,7 +323,7 @@ def _serve(args, argv, mesh) -> dict:
     # the data ranks, else every slot (the batch replicated, as the
     # reference's rule replicates a batch dim that does not divide); the
     # model ranks of a data row serve the same slots
-    D, coord = mesh.data, mesh.coords()
+    D, M, coord = mesh.data, mesh.model, mesh.coords()
     split = slots % D == 0
     local = slots // D if split else slots
     lo = coord["data"] * local if split else 0
@@ -318,6 +334,7 @@ def _serve(args, argv, mesh) -> dict:
     eng = ZeroInfinityEngine(run, device, mesh=mesh)
     params = eng.init_params(torch.Generator(device=device).manual_seed(args.seed))
     bundle = eng.bundle
+    cp = eng.mp is not None and not eng.mp.tp  # context parallelism
     # the logits of a rank whose vocab rows are its own are that shard
     sharded = eng.mp is not None and cm.vocab_sharded(params["embed"], cfg, eng.mp)
 
@@ -399,6 +416,10 @@ def _serve(args, argv, mesh) -> dict:
             t_prefill += pc() - t0
             first = next_tokens(logits)
             prefill_len = int(cache["len"])
+            # the positions this rank keeps of a sequence (under context
+            # parallelism where the capacity splits, its range of them)
+            cache, own, local_cap, split_seq = kvcache.decode_positions(
+                cache, eng.mp, prefill_len + N)
             t_first = pc() - t_serve
             for j in range(valid):
                 s = idx[j]
@@ -413,20 +434,20 @@ def _serve(args, argv, mesh) -> dict:
                 for j in range(valid):
                     s = idx[j]
                     if not done[s]:
-                        kv.park(f"seq{s}", own_len(kvcache.slice_sequence(cache, j)),
-                                prefill_len)
+                        kv.park(f"seq{s}", own_len(kvcache.slice_sequence(cache, j)), own)
                         waiting.append(s)
         kv.flush()
 
         # ---- device slot cache: wave 0 grown to decode capacity, with a
         # per-slot length vector in place of the scalar prefill length ----
         cache0, idx0, valid0 = wave0
-        slot_cache = kvcache.grow_cache(cache0, N, cfg.family)
+        slot_cache = kvcache.grow_cache(cache0, local_cap - own, cfg.family)
         slot_cache = {**slot_cache,
                       "len": torch.full((local,), prefill_len,
                                         dtype=torch.int32, device=device)}
-        cap = prefill_len + N
         resident = kvcache.device_kv_bytes(own_len(slot_cache))
+        decode = (functools.partial(bundle.decode_step, seq_split=True) if split_seq
+                  else bundle.decode_step)
 
         slot_seq = [idx0[j] if j < valid0 else None for j in range(local)]
         active = [j < valid0 and not done[idx0[j]] for j in range(local)]
@@ -436,11 +457,11 @@ def _serve(args, argv, mesh) -> dict:
 
         # untimed decode warm-up on a copy (decode writes its cache in place)
         t0 = pc()
-        bundle.decode_step(eng.serve_params(params), pt.tree_map(torch.clone, slot_cache),
-                           {"tokens": torch.zeros((local, 1), dtype=torch.int32,
-                                                  device=device)})
+        decode(eng.serve_params(params), pt.tree_map(torch.clone, slot_cache),
+               {"tokens": torch.zeros((local, 1), dtype=torch.int32, device=device)})
         sync()
         t_compile_decode = pc() - t0
+        gathered0 = eng.model_gather_bytes[0]
 
         # ---- continuous-batching decode loop ----
         # Admission fetches are issued AHEAD of need (kv.start_fetch) so the
@@ -459,7 +480,7 @@ def _serve(args, argv, mesh) -> dict:
         def top_up_admissions():
             while waiting and len(prefetched) < local:
                 s = waiting.popleft()
-                prefetched.append((s, kv.start_fetch(f"seq{s}", cap)))
+                prefetched.append((s, kv.start_fetch(f"seq{s}", local_cap)))
 
         top_up_admissions()  # first admissions overlap the first decodes
         while True:
@@ -471,11 +492,13 @@ def _serve(args, argv, mesh) -> dict:
                 ta = pc()
                 with trace.span("admit_wait", sys="serve", attr="io_wait",
                                 cls="kv", unit=s):
-                    single, length = handle.result()
+                    single, _ = handle.result()
                 t_admit_stall += pc() - ta
                 with trace.span("admit_insert", sys="serve", attr="compute",
                                 cls="kv", unit=s):
-                    _insert(slot_cache, single, b, length)
+                    # every sequence waited at its prompt's length (a
+                    # context-parallel rank parked its positions alone)
+                    _insert(slot_cache, single, b, prefill_len)
                 t_admit += pc() - ta
                 kv.drop(f"seq{s}")
                 slot_seq[b], active[b] = s, True
@@ -489,7 +512,7 @@ def _serve(args, argv, mesh) -> dict:
             t0 = pc()
             with trace.span("decode_step", sys="serve", attr="compute",
                             unit=steps):
-                logits, slot_cache = bundle.decode_step(
+                logits, slot_cache = decode(
                     eng.serve_params(params), slot_cache,
                     {"tokens": torch.from_numpy(cur[:, None].copy()).to(device)})
                 toks = next_tokens(logits)
@@ -521,6 +544,7 @@ def _serve(args, argv, mesh) -> dict:
         "pinned_peak_bytes": int(pool.peak_resident),
         "pinned_budget_bytes": int(run.offload.pinned_buffer_mb) << 20,
     }
+    gathered = eng.model_gather_bytes[0] - gathered0
     mine = {"seqs": {s: (gen[s], done[s], ttft[s]) for s in owned}, "tok_lat": tok_lat,
             "admissions": admissions, "kv": kv_rank,
             "param_shard_bytes": sum(t.numel() * t.element_size()
@@ -531,8 +555,10 @@ def _serve(args, argv, mesh) -> dict:
     # the run's numbers: the sequences of every data row's model rank 0 and
     # every rank's counters summed where the slots split; data row 0's
     # where every data row served every slot
-    M = mesh.model
     serving = ranks if split else ranks[:M]
+    # a cache whole on every model rank (context parallelism whose capacity
+    # does not split) is counted once a data row: model rank 0's
+    counted = serving if not cp or split_seq else serving[::M]
     tok_lat = []
     for r in serving[::M]:
         for s, (g, d, t) in r["seqs"].items():
@@ -554,10 +580,14 @@ def _serve(args, argv, mesh) -> dict:
             "ttft": _percentiles(ttft),
             "decode_token": _percentiles(tok_lat),
         },
-        "kv": {k: sum(r["kv"][k] for r in serving) for k in kv_rank},
+        "kv": {k: sum(r["kv"][k] for r in counted) for k in kv_rank},
         "mesh": {"world": mesh.world, "rank": mesh.rank, "backend": mesh.backend,
                  "data": D, "model": M, "strategy": eng.mp.strategy if eng.mp else None,
-                 "slots_split": split, "local_slots": local},
+                 "slots_split": split, "local_slots": local, "cache_seq_split": split_seq,
+                 "local_cache_len": local_cap,
+                 # the param bytes a decode step gathers over the model axis
+                 # (context parallelism's whole leaves), this rank's
+                 "model_gather_bytes_per_step": gathered // max(steps, 1)},
         "kv_ranks": [r["kv"] for r in ranks],
         "admissions_ranks": [r["admissions"] for r in ranks],
         "param_shard_bytes": [r["param_shard_bytes"] for r in ranks],
@@ -604,13 +634,20 @@ def main(argv=None) -> None:
     msh = out["mesh"]
     if msh["world"] > 1:
         print(f"mesh: {msh['world']} ranks ({msh['data']} x {msh['model']}, "
-              f"{msh['backend']}), "
+              f"{msh['backend']}, {msh['strategy'] or 'dp'}), "
               + (f"{msh['local_slots']} slots a data rank" if msh["slots_split"] else
                  f"{slots} slots do not divide: every data rank serves all, data row 0's "
                  "counters")
               + f" | param_shard_bytes {out['param_shard_bytes']} | peak allocated "
               f"{out['peak_allocated_bytes']} B | decode step "
               f"{t['decode_s'] / max(out['steps'], 1) * 1e3:.1f} ms")
+        if msh["strategy"] == "cp":
+            print(f"cp: decode cache "
+                  + (f"split, {msh['local_cache_len']} positions a rank"
+                     if msh["cache_seq_split"] else
+                     f"whole on every rank ({msh['local_cache_len']} positions do not split)")
+                  + f" | {msh['model_gather_bytes_per_step']} param bytes gathered over the "
+                  "model axis a decode step a rank")
         for r, kr in enumerate(out["kv_ranks"]):
             print(f"kv rank {r}: in {kr['in_bytes']} B | out {kr['out_bytes']} B | "
                   f"resident {kr['resident_bytes']} B | "

@@ -66,12 +66,12 @@ data-parallel mesh of ranks:
     of devices than the run's ranks raises, naming both.
   * ``--engine pjit --data-mesh D --model-mesh M``: the GSPMD engine on D *
     M ranks, rank r at data coordinate r // M and model coordinate r % M
-    (the reference's device order), the dense and vlm families under
-    tensor parallelism (heads, MLP columns and vocab rows over the model
-    ranks) or context parallelism (the sequence over them) as the
-    reference's ``choose_attn_strategy`` picks (``core/engine.py``); the
-    model ranks of one data row take the same rows of the batch. The other
-    families raise (ROADMAP item 8g). Every rank runs ``train`` and returns
+    (the reference's device order), the dense, vlm and moe families under
+    tensor parallelism (heads, MLP columns or experts, and vocab rows over
+    the model ranks) or context parallelism (the sequence over them) as
+    the reference's ``choose_attn_strategy`` picks (``core/engine.py``);
+    the model ranks of one data row take the same rows of the batch. The
+    other families raise (ROADMAP items 8g.3 and 8g.4). Every rank runs ``train`` and returns
     its history; rank 0 prints the step lines, each with the rank's bytes
     (tier bytes; the GSPMD engine's state shards) and their sum over the
     ranks. A run whose world size is not N * M raises, naming the launch.
@@ -82,10 +82,10 @@ explicit engine's layered epoch takes MoE's expert rows (each rank its
 column slice of every expert row) and ``--param-quant`` q8/q4 rows (each
 rank's slice encoded on its own; q8 slices gathered as wire bytes), and
 the GSPMD engine takes the MoE family (the routing statistics summed over
-the ranks). What is not ported raises, naming the ROADMAP item that ports
-it: ``--elastic``/``--chaos`` (item 5); on a mesh, checkpoints and
+the data ranks). What is not ported raises, naming the ROADMAP item that
+ports it: ``--elastic``/``--chaos`` (item 5); on a mesh, checkpoints and
 ``--resume`` (item 5: pass ``--ckpt-every 0``), and for the GSPMD engine a
-model axis for the moe, ssm, hybrid and encdec families (item 8g), params
+model axis for the ssm, hybrid and encdec families (items 8g.3, 8g.4), params
 on NVMe and ``--param-quant``, which encodes only the NVMe param store
 (item 8f). On the layered epoch
 ``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the

@@ -32,11 +32,19 @@ guard may leave it whole). Under tensor parallelism (``mp.tp``):
     vocab ids).
 
 Under context parallelism (``mp.strategy == "cp"``) a rank's activations
-are its chunk of the sequence at absolute positions; attention all-gathers
-K and V along the sequence (backward: the reduce-scatter) and attends with
-the keys cut to the chunk's end, so the flash kernel's end-aligned causal
-mask is exactly causal for the chunk. The leaves split over model are
-gathered whole by the engine before the loss.
+are its chunk of the sequence at absolute positions (``mp.seq``; a
+prompt that does not split over the ranks runs whole on each,
+``mp.whole()``); attention all-gathers K and V along the sequence
+(backward: the reduce-scatter) and attends with the keys cut to the
+chunk's end, so the flash kernel's end-aligned causal mask is exactly
+causal for the chunk. The leaves split over model are gathered whole by
+the engine before the loss (MoE's experts stay split, ``models/moe.py``).
+A decode step's cache may hold the rank's range of positions alone (the
+reference's ``cache_seq`` on ``model``): its layer cache then carries
+``seq_lo``, the range's first position; the new token's K/V is written by
+the rank that owns its position, and each rank's partial softmax over its
+valid positions (``decode_partial``) is combined over the model ranks
+(``combine_partials``), the reference's flash-decode pattern.
 """
 from __future__ import annotations
 
@@ -146,6 +154,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
+def decode_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   valid) -> tuple:
+    """Flash-decode's partial softmax of one-token attention over the
+    first ``valid`` positions of a cache (scalar or per row; 0 leaves a
+    row empty): the row max ``m``, the sum ``l`` and the unnormalised
+    output ``o``, all f32, shapes (B, KV, H/KV, 1) twice and (B, KV, H/KV,
+    D). An empty row's ``m`` is ``NEG_INF`` and its ``l`` and ``o`` zero."""
+    B, _, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    qh = q[:, 0].reshape(B, KV, H // KV, D)
+    s = torch.einsum("bknd,bskd->bkns", qh.float(), k_cache.float()) * D ** -0.5
+    n = torch.as_tensor(valid, device=q.device).reshape(-1, 1, 1, 1)
+    mask = torch.arange(S, device=q.device)[None, None, None, :] < n
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bkns,bskd->bknd", p, v_cache.float())
+    return m, l, o
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Partials stacked over a leading rank dim -> the normalised output:
+    ``m = max m_r``, ``l = sum l_r e^(m_r - m)``, ``o = sum o_r e^(m_r -
+    m) / l`` in f32, summed in rank order. An empty rank's weight
+    ``e^(NEG_INF - m)`` underflows to zero, so it adds exactly nothing."""
+    top = torch.amax(m, dim=0)
+    w = torch.exp(m - top)
+    return torch.sum(o * w, dim=0) / torch.clamp(torch.sum(l * w, dim=0), min=1e-30)
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           valid, mp) -> torch.Tensor:
+    """One-token attention over a cache whose positions are split over the
+    model ranks: this rank's ``decode_partial`` over its ``valid`` ones,
+    the ranks' partials gathered in one collective and combined on each
+    (the same bits on every rank). Plain torch, as the reference's
+    combine is XLA's outside Pallas."""
+    B, _, H, D = q.shape
+    m, l, o = decode_partial(q, k_cache, v_cache, valid)
+    parts = mp.stack(torch.cat([m, l, o], dim=-1))
+    out = combine_partials(parts[..., :1], parts[..., 1:2], parts[..., 2:])
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def _scatter_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     """Write ``new`` (B, S_new, KV, D) at offset ``pos`` (scalar or per row)
     along the seq dim of ``cache`` (B, S, KV, D), IN PLACE, and return it.
@@ -203,15 +256,18 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     window-bounded ring cache passes the reference's ``write_pos`` (the
     ring slot, ``len % window``) and ``valid_len`` (``min(len + 1,
     window)``), scalars or one per row; otherwise the write lands at
-    ``len`` and the first ``len + S`` slots are attended. Returns ``(out,
-    new_cache_or_collected_kv)``. With ``mp`` (module docstring) the heads,
-    the collected K/V and the cache are the rank's.
+    ``len`` and the first ``len + S`` slots are attended. A cache split
+    over the model ranks passes ``seq_lo`` (module docstring): the write
+    lands at ``len - seq_lo`` where that is one of the rank's slots and is
+    dropped elsewhere, and attention is ``decode_attention_split``.
+    Returns ``(out, new_cache_or_collected_kv)``. With ``mp`` (module
+    docstring) the heads, the collected K/V and the cache are the rank's.
     """
     B, S, d = x.shape
     D = cfg.resolved_head_dim
     wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
     tp = mp is not None and mp.tp and wq.shape[1] < cfg.n_heads  # the rank's heads
-    cp = mp is not None and not mp.tp
+    cp = mp is not None and mp.seq
     if tp:
         x = mp.enter(x)
         if wk.shape[1] == cfg.n_kv_heads:  # the KV heads do not split: the rank's own
@@ -230,12 +286,22 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     new_cache = None
     if cache is not None:
         k_cache, v_cache, clen = cache["k"], cache["v"], cache["len"]
-        write_pos = cache.get("write_pos", clen)
-        valid_len = cache.get("valid_len", clen + S)
+        lo = cache.get("seq_lo")
+        if lo is not None:  # the rank's positions [lo, lo + n) of a split cache
+            n = k_cache.shape[1]
+            local = torch.as_tensor(clen, device=x.device) - lo
+            write_pos = torch.where((local >= 0) & (local < n), local, torch.full_like(local, n))
+            valid_len = torch.clamp(local + S, 0, n)
+        else:
+            write_pos = cache.get("write_pos", clen)
+            valid_len = cache.get("valid_len", clen + S)
         _scatter_cache(k_cache, kx, write_pos)
         _scatter_cache(v_cache, vx, write_pos)
         new_cache = {"k": k_cache, "v": v_cache, "len": clen + S}
-        out = decode_attention(q, k_cache, v_cache, valid_len)
+        if lo is not None:
+            out = decode_attention_split(q, k_cache, v_cache, valid_len, mp)
+        else:
+            out = decode_attention(q, k_cache, v_cache, valid_len)
     else:
         ka, va = kx, vx
         if cp:

@@ -12,7 +12,16 @@ counts the dropped fraction and the per-expert load, the
 and capacity are local to a group of ``min(group, S)`` tokens of one
 sequence, so a rank holding whole sequences routes as the global batch
 does; the statistics are sums over every group of the global batch, so a
-mesh sums the ranks' ``routing_counts`` before the ratios are taken.
+mesh sums the data ranks' ``routing_counts`` before the ratios are taken
+(the model ranks of a data row route the same tokens).
+
+On a model axis (``mp``; the reference puts ``experts`` on ``model``,
+``repro/core/partition.py:213``, and falls back to ``mlp`` where they do
+not divide) each rank holds its experts, runs their slots alone and joins
+its partial output over the model ranks in the combine dtype: the
+reference's "cross-expert reduction lowers to the model-axis psum"
+(``moe_ffn``). The attention, embedding and logits are the dense
+transformer's under the same strategy (``make_fns``).
 
 Where the reference scatter-adds the combine, the port gathers: every
 non-dropped (token, choice) assignment knows its slot (``inv``, the
@@ -41,7 +50,6 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.core import partition as pt
 from repro_torch.models import common as cm
-from repro_torch.models import remat as remat_mod
 from repro_torch.models import transformer as tf
 
 DEFAULT_GROUP = 1024  # tokens per routing group (the reference's default)
@@ -261,17 +269,65 @@ def _mix_and_combine(xg, rows, tok_e, valid_e, w_e, inv, cfg):
     return combine(out.to(cdt).reshape(G, Ep * C, d), tok_slot, inv)
 
 
+def model_split(p: dict, cfg: ModelConfig) -> bool:
+    """Whether a model rank holds a part of the expert leaves in ``p``
+    (its ``E / M`` experts, or every expert's ``d_ff / M`` columns where
+    the experts do not split)."""
+    return p["w_in"].shape[0] < cfg.n_experts or p["w_in"].shape[-1] < cfg.d_ff
+
+
+def _local_experts(r: dict, lo: int, n: int) -> tuple:
+    """The slot plan of experts ``[lo, lo + n)`` alone: their (G, n, C)
+    slots and the token -> slot map re-aimed at them (``n * C`` where a
+    choice went to another rank's expert or was dropped)."""
+    cap, inv = r["cap"], r["inv"]
+    e = torch.div(inv, cap, rounding_mode="floor")
+    mine = (e >= lo) & (e < lo + n)
+    inv = torch.where(mine, inv - lo * cap, torch.full_like(inv, n * cap))
+    return (r["tok_ec"][:, lo:lo + n], r["valid_ec"][:, lo:lo + n],
+            r["w_ec"][:, lo:lo + n], inv)
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
             group: int = DEFAULT_GROUP, with_stats: bool = False,
-            with_counts: bool = False):
+            with_counts: bool = False, mp=None):
     """x (B, S, d) -> (B, S, d): sorted-dispatch MoE over all E experts;
     ``with_stats`` also returns ``routing_stats``, ``with_counts`` the
-    ``routing_counts`` they are taken from."""
+    ``routing_counts`` they are taken from.
+
+    With ``mp`` (a model rank's ``ModelAxis``) the expert leaves may be the
+    rank's part (``model_split``). Every model rank routes the same whole
+    groups with the whole router: under context parallelism with ``x``
+    the rank's chunk (``mp.seq``) the chunks are gathered along the
+    sequence first (backward: the reduce-scatter), else ``x`` is the same
+    on every rank and enters through ``mp.enter`` (backward: the
+    all-reduce, in ``x``'s bf16). The rank runs its experts' slots alone
+    (or every expert's MLP on its columns), and its partial ``y``, in
+    ``cfg.moe_combine_dtype``, is summed over the model ranks in that
+    dtype before the cast: an all-reduce (``mp.join``), or under ``mp.seq``
+    a reduce-scatter back to the rank's chunk (``mp.scatter``), which
+    gathers no expert leaf. Where nothing splits every rank computes the
+    whole ``y`` (a chunk keeps its part)."""
     B, S, d = x.shape
+    dt = x.dtype
+    split = mp is not None and model_split(p, cfg)
+    seq = mp is not None and mp.seq
+    if seq:
+        x = mp.gather(x, 1)
+    elif split:
+        x = mp.enter(x)
     xg = _groups(x, group)
     r = route_tokens(p["router"], xg, cfg)
-    y = _mix_and_combine(xg, p, r["tok_ec"], r["valid_ec"], r["w_ec"], r["inv"], cfg)
-    y = y.to(x.dtype).reshape(B, S, d)
+    plan = r["tok_ec"], r["valid_ec"], r["w_ec"], r["inv"]
+    n = p["w_in"].shape[0]
+    if n < cfg.n_experts:  # this rank's experts [m * n, (m+1) * n)
+        plan = _local_experts(r, mp.rank * n, n)
+    y = _mix_and_combine(xg, p, *plan, cfg).reshape(B, -1, d)
+    if split:
+        y = mp.scatter(y, 1) if seq else mp.join(y)
+    elif seq:
+        y = y[:, mp.rank * S:(mp.rank + 1) * S]
+    y = y.to(dt)
     if with_stats:
         return y, routing_stats(r["counts"], r["cap"], cfg.top_k)
     if with_counts:
@@ -327,93 +383,18 @@ def moe_ffn_selected(router: torch.Tensor, rows: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None):
+    """The dense transformer's functions (``transformer.make_fns``, the
+    reference's ``dense`` scaffolding) with ``moe_ffn`` in each block's
+    MLP place, ``loss_stats`` returning the routing statistics; with
+    ``mp`` a model rank's part (module docstring)."""
     if cfg.window:
         raise NotImplementedError(
             "a local attention window on this family is not wired: none of "
             "its configs sets one (the flash kernels take it; the hybrid "
             "family's attention passes it)")
-    remat = parallel.remat
 
-    def block(x, blk, positions, cache=None, collect_kv=False):
-        a, new_cache = cm.attention_block(
-            blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
-            causal=True, cache=cache, collect_kv=collect_kv)
-        x = x + a
-        return x + moe_ffn(blk["moe"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg), new_cache
+    def ffn(blk, h, bmp, counts=False):
+        return moe_ffn(blk["moe"], h, cfg, with_counts=counts, mp=bmp)
 
-    def train_block(x, blk, positions):
-        """-> (the block's output, its ``routing_counts``)."""
-        a, _ = cm.attention_block(blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind),
-                                  positions, cfg, causal=True)
-        x = x + a
-        m, counts = moe_ffn(blk["moe"], cm.norm(x, blk["ln2"], cfg.norm_kind), cfg,
-                            with_counts=True)
-        return x + m, counts
-
-    def backbone_inputs(params, batch):
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        return x, positions
-
-    def loss_stats_fn(params, batch, reduce=None):
-        """(loss, aux): the mean next-token loss and, over the layers, the
-        mean dropped fraction and the mean (E,) expert load. Stacked block
-        leaves are unbound once, as in the dense loss. ``reduce`` (a mesh's
-        all-reduce) sums the layers' (L, E + 2) routing counts over the
-        ranks before the ratios are taken, so each rank reports the global
-        batch's statistics."""
-        x, positions = backbone_inputs(params, batch)
-        layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
-        raw = []
-        for l in range(cfg.n_layers):
-            blk = pt.tree_map(lambda ts: ts[l], layers)
-            x, counts = remat_mod.remat(remat, train_block, x, blk, positions)
-            raw.append(counts)
-        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
-        loss = cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
-        raw = torch.stack(raw).detach()
-        return loss, stats_from_counts(raw if reduce is None else reduce(raw))
-
-    def loss_fn(params, batch):
-        return loss_stats_fn(params, batch)[0]
-
-    @torch.no_grad()
-    def prefill(params, batch):
-        x, positions = backbone_inputs(params, batch)
-        S = x.shape[1]
-        ks, vs = [], []
-        for l in range(cfg.n_layers):
-            x, kv = block(x, tf.layer_params(params["blocks"], l), positions,
-                          collect_kv=True)
-            ks.append(kv["k"])
-            vs.append(kv["v"])
-        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x[:, -1:], cfg)
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "len": torch.tensor(S, dtype=torch.int32, device=x.device)}
-        return lg, cache
-
-    @torch.no_grad()
-    def decode_step(params, cache, batch):
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
-        B = x.shape[0]
-        clen = cache["len"]
-        positions = clen.reshape(-1, 1).expand(B, 1)
-        for l in range(cfg.n_layers):
-            x, _ = block(x, tf.layer_params(params["blocks"], l), positions,
-                         cache={"k": cache["k"][l], "v": cache["v"][l], "len": clen})
-        x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
-        return lg, {"k": cache["k"], "v": cache["v"], "len": clen + 1}
-
-    return {
-        "loss": loss_fn,
-        "loss_stats": loss_stats_fn,
-        "prefill": prefill,
-        "decode_step": decode_step,
-        "cache_defs": tf.make_cache_defs(cfg),
-        "input_specs": tf.make_input_specs(cfg),
-    }
+    return tf.make_fns(cfg, parallel, mp, ffn=ffn, stats=stats_from_counts)

@@ -61,24 +61,26 @@ class ModelBundle:
 
 # the families the model axis is ported for (tensor and context
 # parallelism, ``models/common.py``), and what ports the rest
-MODEL_AXIS_FAMILIES = ("dense", "vlm")
-MODEL_AXIS_ITEM = ("ROADMAP.md Queue 1 item 8g: MoE's experts, the SSM's and the hybrid's "
-                   "inner dim and the encoder-decoder on the model axis")
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe")
+MODEL_AXIS_ITEMS = {"ssm": "8g.3: the SSM's inner dim", "hybrid": "8g.3: the hybrid's inner dim",
+                    "encdec": "8g.4: the encoder-decoder"}
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` naming item 8g for a family the model
-    axis is not ported for, where the mesh has one (``model`` > 1)."""
+    """Raise ``NotImplementedError`` naming the part of item 8g that ports
+    a family the model axis is not ported for, where the mesh has one
+    (``model`` > 1)."""
     if model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch}) on a model axis of {model}: tensor and "
-            f"context parallelism cover the dense and vlm families ({MODEL_AXIS_ITEM})")
+            f"context parallelism cover the dense, vlm and moe families (ROADMAP.md Queue 1 "
+            f"item {MODEL_AXIS_ITEMS[cfg.family]} on the model axis)")
 
 
 def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None) -> ModelBundle:
     """The family's bundle; with ``mp`` (a ``core/zero.ModelAxis``) a model
-    rank's part of it (``models/common.py``): the dense and vlm families
-    only, the others raise naming item 8g."""
+    rank's part of it (``models/common.py``): the dense, vlm and moe
+    families only, the others raise naming item 8g."""
     if mp is not None:
         check_model_axis(cfg, mp.size)
     if cfg.score_dtype != "float32":

@@ -23,13 +23,18 @@ With a model-parallel context (``mp``, a ``core/zero.ModelAxis``;
 parallelism: every function as above on the rank's heads, MLP columns and
 vocab rows, ``logits`` vocab-sharded, ``loss`` the vocab-parallel
 cross-entropy (the same value on every model rank), the cache the rank's
-KV heads (``make_cache_defs``). Context parallelism (training only: its
-decode cache split, the reference's ``cache_seq``, is ROADMAP item 8g):
-the rank embeds its chunk ``[m * S/M, (m+1) * S/M)`` of the sequence (a
+KV heads (``make_cache_defs``). Context parallelism: the rank embeds its chunk ``[m * S/M, (m+1) * S/M)`` of the sequence (a
 VLM's merged vision + text sequence, chunked after ``_merge_vision``), at
 absolute positions, and ``loss`` returns the chunk's share of the batch's
 mean (its tokens' cross-entropy summed over the batch's count), which the
-model ranks' sum makes the mean.
+model ranks' sum makes the mean; ``prefill`` keeps the chunk's K/V, and
+``decode_step`` attends over a cache whose positions may be split over the
+model ranks (``models/common.py``; the serving driver lays it out,
+``core/kvcache.decode_positions``).
+
+The MoE family (``models/moe.py``) is this model with its routed experts
+in each block's MLP place (``make_fns``' ``ffn``), so every strategy above
+serves and trains it too.
 
 ``parallel.remat`` shapes ``loss`` as the reference's ``jax.checkpoint``
 of each scanned block does (``models/remat.py``): ``full`` runs every
@@ -180,14 +185,31 @@ def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig())
     return block
 
 
-def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None):
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None,
+             ffn=None, stats=None):
+    """The family's functions. ``ffn`` (the MoE family's, ``models/moe.py``)
+    takes the dense MLP's place in every block: ``ffn(blk, h, mp,
+    counts)`` on the block's normed input, returning ``(out,
+    routing_counts)`` with ``counts``; ``stats`` then turns the layers'
+    stacked counts into the step statistics ``loss_stats`` returns."""
     _check_ported(cfg)
     tiles = parallel.tiling_factor
     remat = parallel.remat
     cp = mp is not None and not mp.tp
 
-    def block(x, blk, positions, cache=None, collect_kv=False):
-        return _block(cfg, tiles, x, blk, positions, cache, collect_kv, mp)
+    if ffn is None:
+        def ffn(blk, h, bmp, counts=False):
+            return cm.mlp_block(blk["mlp"], h, cfg, tiles, mp=bmp)
+
+    def block(x, blk, positions, cache=None, collect_kv=False, bmp=mp, counts=False):
+        a, new_cache = cm.attention_block(
+            blk["attn"], cm.norm(x, blk["ln1"], cfg.norm_kind), positions, cfg,
+            causal=True, cache=cache, collect_kv=collect_kv, mp=bmp)
+        x = x + a
+        m = ffn(blk, cm.norm(x, blk["ln2"], cfg.norm_kind), bmp, counts)
+        if counts:
+            return x + m[0], m[1]
+        return x + m, new_cache
 
     def backbone_inputs(params, batch):
         x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
@@ -196,6 +218,10 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         return x, positions
+
+    def seq_len(batch) -> int:
+        """The (merged) sequence's positions: a VLM's vision ones too."""
+        return (cfg.vision_len if cfg.family == "vlm" else 0) + batch["tokens"].shape[1]
 
     def chunk_inputs(params, batch):
         """Context parallel: this rank's chunk ``[lo, hi)`` of the (merged)
@@ -217,29 +243,49 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
     def train_block(x, blk, positions):
         return block(x, blk, positions)[0]
 
-    def loss_fn(params, batch):
+    def counted_block(x, blk, positions):
+        """-> (the block's output, its ``routing_counts``)."""
+        return block(x, blk, positions, counts=True)
+
+    def loss_stats_fn(params, batch, reduce=None):
         """Mean next-token cross-entropy over the batch (labels shifted by
         one inside, padded vocab masked); differentiable. Each stacked
         block leaf is unbound once, so its gradient is one stack of the
         layers' gradients (indexing a layer would write a full-size zero
         gradient per layer). Context parallel: this rank's chunk's share
-        (module docstring)."""
+        (module docstring). With ``stats``, ``(loss, aux)``: the layers'
+        (L, E + 2) routing counts, summed by ``reduce`` (a mesh's
+        all-reduce over the data ranks) before ``stats`` takes the ratios,
+        so each rank reports the global batch's statistics."""
         if cp:
             x, positions, chunk = chunk_inputs(params, batch)
         else:
             x, positions = backbone_inputs(params, batch)
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
+        raw = []
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
-            x = remat_mod.remat(remat, train_block, x, blk, positions)
+            if stats is None:
+                x = remat_mod.remat(remat, train_block, x, blk, positions)
+            else:
+                x, counts = remat_mod.remat(remat, counted_block, x, blk, positions)
+                raw.append(counts)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         if cp:
-            return _chunk_loss(params, x, batch["labels"], chunk)
-        lg = cm.logits(params["embed"], x, cfg, mp)
-        if cfg.family == "vlm":  # the loss covers the text positions only
-            lg = lg[:, cfg.vision_len:]
-        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size,
-                          mp if cm.vocab_sharded(params["embed"], cfg, mp) else None)
+            loss = _chunk_loss(params, x, batch["labels"], chunk)
+        else:
+            lg = cm.logits(params["embed"], x, cfg, mp)
+            if cfg.family == "vlm":  # the loss covers the text positions only
+                lg = lg[:, cfg.vision_len:]
+            loss = cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size,
+                              mp if cm.vocab_sharded(params["embed"], cfg, mp) else None)
+        if stats is None:
+            return loss, {}
+        raw = torch.stack(raw).detach()
+        return loss, stats(raw if reduce is None else reduce(raw))
+
+    def loss_fn(params, batch):
+        return loss_stats_fn(params, batch)[0]
 
     def _chunk_loss(params, x, labels, chunk):
         """The chunk's positions that predict a text label (merged position
@@ -256,54 +302,64 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
         mean = cm.lm_loss(lg, labels[:, a - vl + 1:b - vl + 1], cfg.vocab_size)
         return mean * ((b - a) / (T - 1))
 
-    def serving_only_tp():
-        if cp:
-            raise NotImplementedError(
-                "serving under context parallelism (the decode cache split over the "
-                "model axis, the reference's cache_seq) is not ported "
-                "(ROADMAP.md Queue 1 item 8g)")
-
     @torch.no_grad()
     def prefill(params, batch):
         """Forward over the prompt, building the KV cache; returns the last
         position's logits (B, 1, V_padded; the rank's vocab columns where
-        they are sharded) and the cache."""
-        serving_only_tp()
-        x, positions = backbone_inputs(params, batch)
-        S = x.shape[1]
+        they are sharded) and the cache. Context parallel: where the
+        prompt splits over the model ranks each runs its chunk and keeps
+        its positions' K/V (the cache's ``k`` / ``v`` hold ``len / M``
+        positions), and the last position's logits, the last rank's, reach
+        every rank; elsewhere every rank runs the whole prompt (the
+        reference's divisibility guard) and keeps all of it."""
+        chunked = cp and seq_len(batch) % mp.size == 0
+        if chunked:
+            x, positions, _ = chunk_inputs(params, batch)
+        else:
+            x, positions = backbone_inputs(params, batch)
+        bmp = mp.whole() if cp and not chunked else mp
         ks, vs = [], []
         for l in range(cfg.n_layers):
             x, kv = block(x, layer_params(params["blocks"], l), positions,
-                          collect_kv=True)
+                          collect_kv=True, bmp=bmp)
             ks.append(kv["k"])
             vs.append(kv["v"])
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x[:, -1:], cfg, mp)
+        last = mp.stack(x[:, -1:])[-1] if chunked else x[:, -1:]
+        lg = cm.logits(params["embed"], last, cfg, mp)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "len": torch.tensor(S, dtype=torch.int32, device=x.device)}
+                 "len": torch.tensor(seq_len(batch), dtype=torch.int32, device=x.device)}
         return lg, cache
 
     @torch.no_grad()
-    def decode_step(params, cache, batch):
+    def decode_step(params, cache, batch, seq_split: bool = False):
         """One new token per row against the cache; tokens (B, 1). ``len``
         is a scalar (lockstep) or a (B,) vector of per-slot lengths; each
-        row's position is its own length."""
-        serving_only_tp()
+        row's position is its own length. Context parallel with
+        ``seq_split``: the cache holds the rank's positions ``[m * n, (m+1)
+        * n)`` of every slot (``n`` its seq dim; the reference's
+        ``cache_seq`` on ``model``); without, every rank holds them all."""
         x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
         B = x.shape[0]
         clen = cache["len"]
         positions = clen.reshape(-1, 1).expand(B, 1)
+        bmp = mp.whole() if cp else mp
         for l in range(cfg.n_layers):
-            x, _ = block(x, layer_params(params["blocks"], l), positions,
-                         cache={"k": cache["k"][l], "v": cache["v"][l], "len": clen})
+            layer = {"k": cache["k"][l], "v": cache["v"][l], "len": clen}
+            if seq_split:
+                layer["seq_lo"] = mp.rank * cache["k"].shape[2]
+            x, _ = block(x, layer_params(params["blocks"], l), positions, cache=layer, bmp=bmp)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         lg = cm.logits(params["embed"], x, cfg, mp)
         return lg, {"k": cache["k"], "v": cache["v"], "len": clen + 1}
 
-    return {
+    fns = {
         "loss": loss_fn,
         "prefill": prefill,
         "decode_step": decode_step,
         "cache_defs": make_cache_defs(cfg, mp),
         "input_specs": make_input_specs(cfg),
     }
+    if stats is not None:
+        fns["loss_stats"] = loss_stats_fn
+    return fns

@@ -321,14 +321,14 @@ def _run(arch="smollm-135m", engine="zero3", **offload):
     # MoE's expert rows and q8/q4 rows run at dp > 1 (tests/test_torch_dp_moe.py);
     # what stays unported around them: assembling a MoE engine's params
     # from the ranks' slices (item 5), the GSPMD engine's --param-quant on
-    # a mesh (8f) and the MoE family with a model axis (8g)
+    # a mesh (8f), MoE on a model axis among them
     ("moe", lambda m: ExplicitZero3Engine(_run("granite-moe-1b-a400m", param_tier="nvme"),
                                           "cpu", m).params_from_state({}), "item 5"),
     ("q8", lambda m: texec.InfinityExecutor(_run(engine="pjit", param_quant="q8"), "cpu",
                                             mesh=m), "item 8f"),
     ("q4", lambda m: texec.InfinityExecutor(
         _run("granite-moe-1b-a400m", engine="pjit", param_quant="q4"), "cpu",
-        mesh=mesh_mod.LocalMesh(1, 2, 0, 2, torch.device("cpu"), None, "gloo")), "item 8g")])
+        mesh=mesh_mod.LocalMesh(1, 2, 0, 2, torch.device("cpu"), None, "gloo")), "item 8f")])
 def test_engine_refuses_what_stays_unported_at_dp2(what, build, match):
     with pytest.raises(NotImplementedError, match=match):
         build(_fake_mesh())

@@ -659,14 +659,17 @@ def test_wave_backward_is_the_dim1_reduce_scatter(dpm):
 
 def test_serving_moe_on_a_mesh_refuses_naming_its_item():
     """MoE trains and serves on data-parallel ranks (serving:
-    ``tests/test_torch_serve_mesh.py``); serving it over a model axis stays
-    unported (item 8g: MoE's experts on the model axis)."""
+    ``tests/test_torch_serve_mesh.py``) and over a model axis
+    (``tests/test_torch_moe_tp.py``); serving the hybrid over a model axis
+    stays unported (item 8g.3: its inner dim on the model axis)."""
     from repro_torch.launch import serve
 
     base = ["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--data-mesh", "2"]
     serve._unported(serve._parse(base))
-    with pytest.raises(NotImplementedError, match="item 8g"):
-        serve._unported(serve._parse(base + ["--model-mesh", "2"]))
+    serve._unported(serve._parse(base + ["--model-mesh", "2"]))
+    with pytest.raises(NotImplementedError, match="item 8g.3"):
+        serve._unported(serve._parse(base[2:] + ["--arch", "recurrentgemma-9b",
+                                                 "--model-mesh", "2"]))
 
 
 def test_no_message_of_the_port_cites_a_global_capacity_or_item_8d():

@@ -287,12 +287,16 @@ def test_no_config_splits_a_stacked_leaf_on_its_layer_dim(smoke):
 def test_model_mesh_raises_naming_item_8e():
     """What a model axis does not serve raises before any process group,
     naming the item that ports it, 8g (8e's tensor parallelism serves:
-    ``tests/test_torch_tp_serve.py``): the smoke smollm's 3 heads do not
-    split over 2 model ranks, so the reference runs context parallelism,
-    whose decode cache split is not ported."""
-    with pytest.raises(NotImplementedError, match="context parallelism.*item 8g"):
-        tserve.run_serve(tserve._parse(["--smoke", "--device", "cpu", "--batch", "2",
-                                        "--data-mesh", "2", "--model-mesh", "2"]))
+    ``tests/test_torch_tp_serve.py``): the SSM's inner dim (8g.3). The
+    smoke smollm's 3 heads over 2 model ranks serve under context
+    parallelism (``tests/test_torch_cp_serve.py``), and on a (2, 2) mesh in
+    a run of one process raise naming the launch of its 4 ranks."""
+    base = ["--smoke", "--device", "cpu", "--batch", "2", "--data-mesh", "2",
+            "--model-mesh", "2"]
+    with pytest.raises(NotImplementedError, match="item 8g.3"):
+        tserve.run_serve(tserve._parse(base + ["--arch", "mamba2-370m"]))
+    with pytest.raises(ValueError, match="needs 4 ranks.*--nproc-per-node 4"):
+        tserve.run_serve(tserve._parse(base))
 
 
 @pytest.mark.parametrize("flags", [["--data-mesh", "2"],

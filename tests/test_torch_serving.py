@@ -161,14 +161,13 @@ def test_serve_defaults_to_the_card():
 @pytest.mark.parametrize("flag", [["--plan", "auto", "--hw-devices", "2"],
                                   ["--model-mesh", "2"]])
 def test_unported_options_raise_with_roadmap_pointer(flag):
-    """A model axis the smoke smollm's heads do not split over (context
-    parallelism) stays unported for serving and raises, naming its ROADMAP
-    item (8g); a plan for 2 devices serves on 2 ranks, and in a run of one
-    process raises naming the torchrun launch of ``launch.serve`` that
-    gives it them (``tests/test_torch_serve_mesh.py`` serves on them)."""
-    error, match = ((ValueError, r"torchrun --standalone --nproc-per-node 2 -m "
-                                 r"repro_torch\.launch\.serve")
-                    if "--hw-devices" in flag else (NotImplementedError, "ROADMAP.*item 8g"))
+    """A model axis the smoke smollm's heads do not split over serves
+    under context parallelism (``tests/test_torch_cp_serve.py``) and a
+    plan for 2 devices on 2 ranks (``tests/test_torch_serve_mesh.py``):
+    in a run of one process each raises naming the torchrun launch of
+    ``launch.serve`` that gives it them."""
+    error, match = (ValueError, r"torchrun --standalone --nproc-per-node 2 -m "
+                                r"repro_torch\.launch\.serve")
     with pytest.raises(error, match=match):
         _serve(["--smoke", "--device", "cpu", "--batch", "1"] + flag)
 

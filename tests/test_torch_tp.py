@@ -359,8 +359,18 @@ def _fake_mesh(data=1, model=2, rank=0):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-9b",
                                   "seamless-m4t-medium"])
 def test_other_families_on_a_model_axis_raise_naming_item_8g(arch):
+    """The ssm, hybrid and encdec families on a model axis raise naming
+    their part of item 8g; MoE's experts on the model axis are ported
+    (``tests/test_torch_moe_tp.py``): granite builds, its experts split
+    over the model ranks under tensor parallelism."""
     run = RunConfig(model=tconfigs.smoke(arch), parallel=make_parallel("pjit"),
                     offload=make_offload())
+    if arch == "granite-moe-1b-a400m":
+        texec.check_ported(run, dp=2, model=2)
+        eng = ZeroInfinityEngine(run, "cpu", mesh=_fake_mesh())
+        assert eng.mp.strategy == "tp"
+        assert tpt.tree_get(eng.model_splits, ("blocks", "moe", "w_in")) == 1
+        return
     with pytest.raises(NotImplementedError, match="item 8g"):
         texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh())
     with pytest.raises(NotImplementedError, match="item 8g"):

@@ -217,14 +217,19 @@ def test_each_rank_holds_its_shards_and_gathers_over_data_alone(ranks, case):
 
 def test_context_parallel_serving_and_other_families_raise_naming_8g():
     """Serving where the heads do not split over the model ranks (the
-    smoke smollm's 3 over 2: context parallelism) and the families
-    outside dense and vlm on a model axis raise before any process
-    group, naming item 8g."""
+    smoke smollm's 3 over 2: context parallelism, ``tests/test_torch_cp_
+    serve.py``) and the MoE family (``tests/test_torch_moe_tp.py``) pass
+    the refusal and, in a run of one process, raise naming the torchrun
+    launch that gives them their ranks; the families outside dense, vlm
+    and moe on a model axis raise before any process group, naming item
+    8g."""
     base = ["--smoke", "--device", "cpu", "--batch", "2", "--model-mesh", "2"]
-    with pytest.raises(NotImplementedError, match="context parallelism.*item 8g"):
+    launch = r"needs 2 ranks.*torchrun --standalone --nproc-per-node 2"
+    with pytest.raises(ValueError, match=launch):
         tserve.run_serve(tserve._parse(base))
-    for arch in ("granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-9b",
-                 "seamless-m4t-medium"):
+    with pytest.raises(ValueError, match=launch):
+        tserve.run_serve(tserve._parse(base + ["--arch", "granite-moe-1b-a400m"]))
+    for arch in ("mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="item 8g"):
             tserve.run_serve(tserve._parse(base + ["--arch", arch]))
 

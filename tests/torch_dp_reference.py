@@ -16,10 +16,14 @@ every case of ``torch_dp_worker.SERVE_CASES``, from the params the test
 saved; jobs ``tp`` and ``tp_serve`` (``tests/test_torch_tp.py``,
 ``tests/test_torch_tp_serve.py``): the pjit executor and ``launch.serve``
 on a ``data x model`` mesh for every case of ``torch_dp_worker.TP_CASES``
-and ``TP_SERVE_CASES``. Writes the numbers to one ``.npz`` (pytest does not
-collect this file).
+and ``TP_SERVE_CASES``; job ``cp_serve`` (``tests/test_torch_cp_serve.py``):
+``launch.serve`` for every case of ``CP_SERVE_CASES``; job ``moe_tp``
+(``tests/test_torch_moe_tp.py``): the pjit executor for every case of
+``MOE_TP_CASES`` (their one-device baselines among them) and
+``launch.serve`` for every case of ``MOE_SERVE_CASES``. Writes the numbers
+to one ``.npz`` (pytest does not collect this file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve]
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve|cp_serve|moe_tp]
 """
 from __future__ import annotations
 
@@ -307,7 +311,7 @@ def run_serve_case(case: str, tmp: str, out: dict) -> None:
         params = jax.tree_util.tree_map_with_path(
             lambda p, d: jnp.asarray(flat[jax.tree_util.keystr(p)]).astype(d.dtype),
             self.bundle.defs, is_leaf=lambda x: isinstance(x, jpt.ParamDef))
-        if case in W.TP_SERVE_CASES:
+        if case in W.MODEL_SERVE_CASES:
             meshes.append(self.mesh)
             self.bundle.decode_step = _cache_replicated(self.bundle.decode_step, self.mesh)
         return {"params": jax.device_put(params, self.param_shardings())}
@@ -324,7 +328,7 @@ def run_serve_case(case: str, tmp: str, out: dict) -> None:
     real = jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state
     jserve.configs.smoke = lambda name: cfg
     jserve.ZeroInfinityEngine.init_state = init_state
-    if case in W.TP_SERVE_CASES:
+    if case in W.MODEL_SERVE_CASES:
         jserve.kvcache.grow_cache = grow_replicated
     try:
         argv = W.serve_argv(case, "jax", tmp)
@@ -363,6 +367,14 @@ def main() -> None:
             run_gspmd_case(case, tmp, out)
     elif job == "tp_serve":
         for case in W.TP_SERVE_CASES:
+            run_serve_case(case, tmp, out)
+    elif job == "cp_serve":
+        for case in W.CP_SERVE_CASES:
+            run_serve_case(case, tmp, out)
+    elif job == "moe_tp":
+        for case in W.MOE_TP_CASES:
+            run_gspmd_case(case, tmp, out)
+        for case in W.MOE_SERVE_CASES:
             run_serve_case(case, tmp, out)
     else:
         for case in W.GSPMD_CASES:

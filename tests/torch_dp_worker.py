@@ -1,8 +1,12 @@
 """The port's side of ``tests/test_torch_dp.py`` (job ``dp``, the explicit
 engine), ``tests/test_torch_gspmd_mesh.py`` (jobs ``gspmd`` and ``plan``,
-the GSPMD engine) and ``tests/test_torch_dp_moe.py`` (job ``dp_moe``: the
+the GSPMD engine), ``tests/test_torch_dp_moe.py`` (job ``dp_moe``: the
 layered epoch with MoE expert rows and q8/q4 rows, and the GSPMD engine on
-the MoE family): one process per rank over
+the MoE family), ``tests/test_torch_tp.py`` / ``tests/test_torch_tp_serve.py``
+(jobs ``tp`` and ``tp_serve``: the model axis), ``tests/test_torch_cp_serve.py``
+(job ``cp_serve``: serving under context parallelism) and
+``tests/test_torch_moe_tp.py`` (job ``moe_tp``: MoE on the model axis,
+trained and served): one process per rank over
 ``torch.distributed`` (gloo on the CPU), spawned by ``spawn`` and run as a
 script. Imports torch, numpy and ``repro_torch`` only, never JAX (pytest
 does not collect this file).
@@ -99,16 +103,32 @@ TP_CASES = {
     "nvme_opt_tp_2x2": (2, 2, "llama3.2-3b", 3, "device", "nvme", "nvme", 1, "auto"),
     "accum2_tp_2x2": (2, 2, "llama3.2-3b", 3, "device", "device", "device", 2, "auto"),
 }
+# MoE on the model axis (job moe_tp, tests/test_torch_moe_tp.py), in
+# TP_CASES' format: the smoke granite (4 heads, 2 KV heads, 8 experts)
+# under tensor parallelism at (1, 2) and (2, 2) (2 KV heads and 4 experts a
+# rank) and (1, 4) (the KV heads whole, 2 experts a rank), and under
+# context parallelism at (1, 3) (4 heads over 3; 8 experts, 32 columns and
+# the vocab split over none: every leaf whole) on 4 x 18 tokens; the
+# "_dp1" cases are their one-device baselines, on the same global batches
+MOE_TP_CASES = {
+    "moe_tp_1x2": (1, 2, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
+    "moe_tp_2x2": (2, 2, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
+    "moe_tp_1x4": (1, 4, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
+    "moe_cp_1x3": (1, 3, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
+    "moe_tp_dp1": (1, 1, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
+    "moe_cp_dp1": (1, 1, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
+}
+MOE_TP_SEQ = {"moe_cp_1x3": 18, "moe_cp_dp1": 18}
 ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES,
                    **{case: (D * M, arch, None, stage, param, grad, opt, accum, 4)
                       for case, (D, M, arch, stage, param, grad, opt, accum, _)
-                      in TP_CASES.items()}}
+                      in {**TP_CASES, **MOE_TP_CASES}.items()}}
 
 
 def gspmd_mesh(case: str) -> tuple:
     """``case``'s mesh and attention strategy: (data, model, strategy)."""
-    if case in TP_CASES:
-        D, M, *_, strategy = TP_CASES[case]
+    if case in TP_CASES or case in MOE_TP_CASES:
+        D, M, *_, strategy = {**TP_CASES, **MOE_TP_CASES}[case]
         return D, M, strategy
     return ALL_GSPMD_CASES[case][0], 1, "auto"
 # the layered epoch's cases of job dp_moe, every state class on NVMe: case
@@ -175,7 +195,36 @@ TP_SERVE_CASES = {
     "q8_tp_1x2": (2, "llama3.2-3b", 0, _HOST + ["--kv-quant", "q8"] + _TP2),
     "nvme_tp_1x2": (2, "llama3.2-3b", 0, ["--kv-tier", "nvme"] + _TP2),
 }
-ALL_SERVE_CASES = {**SERVE_CASES, **TP_SERVE_CASES}
+# context parallelism's serving cases (job cp_serve, tests/test_torch_cp_serve.py;
+# smollm's 3 heads over 2 model ranks, llava's 4 over 3): the capacity
+# prompt + new tokens splits over the model ranks (smollm 8 + 4: 6
+# positions a rank, the prompt chunked; llava 18 + 3 over 3: 7 a rank,
+# its 8 vision positions in the first two chunks), on the NVMe tier with
+# a 4-token prompt (5 a rank: rank 1 parks nothing, the decode crosses
+# from rank 0's range to rank 1's) and at 8 + 5 (13 positions do not
+# split: the whole cache on each rank); MoE on the model axis (job
+# moe_tp): granite under tensor parallelism at (1, 2) and context
+# parallelism at (1, 3) (9 + 3: 4 positions a rank, the prompt chunked)
+_CP3 = ["--model-mesh", "3", "--data-mesh", "1"]
+CP_SERVE_CASES = {
+    "smollm_cp_1x2": (2, "smollm-135m", 0, _HOST + _TP2),
+    "smollm_cp_2x2": (4, "smollm-135m", 0, _HOST + ["--model-mesh", "2", "--data-mesh", "2"]),
+    "vlm_cp_1x3": (3, "llava-next-34b", 0, _HOST + _CP3 + ["--prompt-len", "18",
+                                                           "--new-tokens", "3"]),
+    "nvme_cp_1x2": (2, "smollm-135m", 0, ["--kv-tier", "nvme", "--prompt-len", "4",
+                                          "--new-tokens", "6"] + _TP2),
+    "whole_cp_1x2": (2, "smollm-135m", 0, _HOST + ["--new-tokens", "5"] + _TP2),
+}
+MOE_SERVE_CASES = {
+    "moe_tp_serve_1x2": (2, "granite-moe-1b-a400m", 0, _HOST + _TP2),
+    "moe_cp_serve_1x3": (3, "granite-moe-1b-a400m", 0, _HOST + _CP3 + ["--prompt-len", "9",
+                                                                       "--new-tokens", "3"]),
+}
+# every serving case on a model axis
+MODEL_SERVE_CASES = {**TP_SERVE_CASES, **CP_SERVE_CASES, **MOE_SERVE_CASES}
+ALL_SERVE_CASES = {**SERVE_CASES, **MODEL_SERVE_CASES}
+# the teacher-forced decode tokens each model-axis serving case feeds
+TEACHER_STEPS = 2
 # the psum_compressed cases: (shape, dtype) over three steps of error feedback
 PSUM_CASES = [((49, 7), "float32"), ((300,), "bfloat16"), ((2, 256), "float32")]
 
@@ -367,6 +416,8 @@ def gspmd_cfg(case: str, package):
 
 
 def gspmd_seq(case: str) -> int:
+    if case in MOE_TP_SEQ:
+        return MOE_TP_SEQ[case]
     return 64 if ALL_GSPMD_CASES[case][1] == "seamless-m4t-medium" else S
 
 
@@ -725,8 +776,10 @@ def layer_gather_unit(eng, whole: dict) -> dict:
     """The rank's shards of ``whole`` read through ``serve_params``: each
     stacked subtree's ``layer(l)`` against ``layer_params`` of the whole
     leaves, each unstacked leaf against the whole leaf (``torch.equal``;
-    on a model axis the rank's model shard of it: serving gathers over the
-    data axis alone); and what the rank holds of each stacked leaf."""
+    on a model axis the rank's model shard of it: tensor parallelism
+    gathers over the data axis alone, context parallelism the leaves it
+    uses whole over the model axis too); and what the rank holds of each
+    stacked leaf."""
     import torch
 
     from repro_torch.core import partition as pt
@@ -737,8 +790,10 @@ def layer_gather_unit(eng, whole: dict) -> dict:
     M, m = eng.sizes["model"], eng.coords["model"]
     whole = pt.tree_map(lambda t: t, whole)  # a copy of the tree, not of the leaves
     for path in pt.tree_paths(whole):  # the rank's model shard of each leaf
-        pt.tree_set(whole, path, pt.shard_leaf(pt.tree_get(whole, path),
-                                               pt.tree_get(eng.model_splits, path), m, M))
+        # (context parallelism's view holds the leaves it gathers whole)
+        dim = None if eng._whole_over_model(path) is not None else pt.tree_get(
+            eng.model_splits, path)
+        pt.tree_set(whole, path, pt.shard_leaf(pt.tree_get(whole, path), dim, m, M))
     equal, split = True, []
     for k in sorted(whole):
         if k in eng.stacked:
@@ -804,10 +859,54 @@ def job_serve(tmp: str, mesh) -> dict:
             if spec[0] == mesh.world}
 
 
+def teacher_tokens(n_seqs: int, vocab: int) -> np.ndarray:
+    """The (``n_seqs``, ``TEACHER_STEPS``) tokens the teacher-forced
+    decode feeds the prompts (the test feeds the reference the same)."""
+    return np.random.default_rng(7).integers(0, vocab, (n_seqs, TEACHER_STEPS), dtype=np.int32)
+
+
+def teacher_forced(eng, params, full: dict, cap: int, tokens) -> list:
+    """Every prompt through ``prefill`` on the rank's shards, its cache
+    laid out as ``launch.serve`` lays out the slot cache for ``cap``
+    positions (``kvcache.decode_positions``: under context parallelism the
+    rank's range where ``cap`` splits), then ``tokens``' columns one decode
+    step each: the last position's logits of each call, the global vocab
+    (the vocab shards all-gathered over the model ranks where they are
+    split)."""
+    import torch
+
+    from repro_torch.core import kvcache
+    from repro_torch.models import common as cm
+
+    mp = eng.mp
+    with torch.no_grad():
+        view = eng.serve_params(params)
+        sharded = mp is not None and cm.vocab_sharded(view["embed"], eng.run.model, mp)
+
+        def whole(lg):
+            lg = lg[:, -1].float()
+            return eng.mesh.all_gather(lg, 1, "model") if sharded else lg
+
+        lg, cache = eng.bundle.prefill(view, full)
+        P, B = int(cache["len"]), lg.shape[0]
+        cache, own, n, split = kvcache.decode_positions(cache, mp, cap)
+        cache = kvcache.grow_cache(cache, n - own, eng.run.model.family)
+        cache["len"] = torch.full((B,), P, dtype=torch.int32)
+        out = [whole(lg)]
+        for i in range(tokens.shape[1]):
+            kw = {"seq_split": True} if split else {}
+            lg, cache = eng.bundle.decode_step(eng.serve_params(params), cache,
+                                               {"tokens": torch.from_numpy(
+                                                   np.ascontiguousarray(tokens[:, i:i + 1]))},
+                                               **kw)
+            out.append(whole(lg))
+    return out
+
+
 def run_tp_serve_case(case: str, tmp: str, mesh) -> dict:
-    """``run_serve_case`` on a model axis, and the teacher-forced logits:
-    every sequence's prompt through ``prefill`` on the rank's shards (its
-    data row's all-gathered over the model ranks: the global vocab)."""
+    """``run_serve_case`` on a model axis, and the teacher-forced logits
+    (``teacher_forced``: the prompts' prefill, then ``TEACHER_STEPS``
+    decode steps of ``teacher_tokens``) at the run's capacity."""
     import torch
 
     from repro_torch.config import ShapeConfig
@@ -824,22 +923,44 @@ def run_tp_serve_case(case: str, tmp: str, mesh) -> dict:
     full = serve.draw_inputs(eng.bundle.input_specs(ShapeConfig("serve", args.prompt_len,
                                                                 args.batch, "prefill")),
                              args.batch, cfg.vocab_size, args.seed)
-    with torch.no_grad():
-        lg, _ = eng.bundle.prefill(eng.serve_params(params), full)
-    rec["prefill_logits"] = tmesh.all_gather(lg[:, -1].float(), 1, "model")
+    # the prompt counts a VLM's vision positions (launch.serve)
+    forced = teacher_forced(eng, params, full, args.prompt_len + args.new_tokens,
+                            teacher_tokens(args.batch, cfg.vocab_size))
+    rec["prefill_logits"], rec["decode_logits"] = forced[0], forced[1:]
     rec["kv_heads"] = eng.bundle.cache_defs(1, 1)["k"].shape[3]
     rec["mesh_shape"] = (tmesh.data, tmesh.model)
     return rec
 
 
 def job_tp_serve(tmp: str, mesh) -> dict:
-    """Every model-axis serving case of this world size."""
+    """Every tensor-parallel serving case of this world size."""
     return {case: run_tp_serve_case(case, tmp, mesh)
             for case, spec in TP_SERVE_CASES.items() if spec[0] == mesh.world}
 
 
+def job_cp_serve(tmp: str, mesh) -> dict:
+    """Every context-parallel serving case of this world size."""
+    return {case: run_tp_serve_case(case, tmp, mesh)
+            for case, spec in CP_SERVE_CASES.items() if spec[0] == mesh.world}
+
+
+def job_moe_tp(tmp: str, mesh) -> dict:
+    """Every MoE model-axis case of this world size, each on a mesh of its
+    own, then its MoE serving cases."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    for case, (D, M, *_) in MOE_TP_CASES.items():
+        if D * M == mesh.world and M > 1:
+            out[case] = run_gspmd_case(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+    out.update({case: run_tp_serve_case(case, tmp, mesh)
+                for case, spec in MOE_SERVE_CASES.items() if spec[0] == mesh.world})
+    return out
+
+
 JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve,
-        "tp": job_tp, "tp_serve": job_tp_serve}
+        "tp": job_tp, "tp_serve": job_tp_serve, "cp_serve": job_cp_serve,
+        "moe_tp": job_moe_tp}
 
 
 def main() -> None:
