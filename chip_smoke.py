@@ -34,9 +34,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; no phase is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ``src/repro_torch/csrc`` (one nvcc each, in
-     parallel), and count the warpgroup MMA (HGMMA) instructions in the
-     flash-attention, tiled-matmul and quantized-matmul libraries (none in
-     any fails);
+     parallel; meanwhile the CPU sides of phases 11, 20's mamba2 and 25's
+     seamless run on the host, ``early_cpu_keys``), and count the
+     warpgroup MMA (HGMMA) instructions in the flash-attention,
+     tiled-matmul and quantized-matmul libraries (none in any fails);
   3. each kernel against its plain version at the serve shapes and at a
      ragged shape (flash attention: two), in bf16 and f32, element by element (``TOL``), with
      timings of the bf16 serve shapes (kernel, plain, library yardstick)
@@ -201,8 +202,11 @@ Phases (any failure exits non-zero; no phase is caught):
       keys, causal, the mask aligned at the end; timed beside the bound,
       the CUDA-core kernel, the plain version and SDPA) and at tensor
       parallelism's (``FLASH_TP``: "tp train"'s and "vlm tp4 nccl
-      train"'s and granite's 8 heads and 4 KV heads a rank), and the tiled
-      matmul at their MLP shards forward and backward (``TILED_TP``),
+      train"'s, granite's 8 heads and 4 KV heads a rank and
+      recurrentgemma's 8 heads of 256 with its window of 2048, whose
+      records are the windowed kernels'), and the tiled matmul at their
+      MLP shards forward and backward (``TILED_TP``: recurrentgemma's
+      GeGLU 6144 columns a rank among them),
       bf16, by ``TOL``; the flash shapes and the forward products timed
       beside their bound, the CUDA-core kernel, the plain version and the
       library call;
@@ -237,6 +241,32 @@ Phases (any failure exits non-zero; no phase is caught):
       bytes a rank, the ``kv`` bytes summed over the ranks "moe serve"'s,
       every sequence finished, the share of tokens equal to its printed,
       the decode step's time;
+  16p. the recurrent families on the model axis (the same spawn; held
+      after phase 23, against its one-rank runs): "ssm cp numerics"
+      (phase 20's mamba2, 2 layers at full width, 4 x 256, 2 steps, on a
+      (1, 2) mesh under context parallelism: each rank 16 of the 32 SSD
+      heads over the whole sequence, the chunks gathered, ``w_out``'s
+      partials reduce-scattered, the gated norm's sum of squares summed
+      over the ranks; held against phase 20's kept CPU side by its
+      bounds), "ssm cp train" (``launch.train --model-mesh 2`` on full
+      mamba2, 2 steps of 8 x 512: 382,546,944 param bytes a rank, the
+      rules', "ssm plan train"'s losses by ``TRAIN_TOL``, the step wall),
+      "ssm cp serve" (full mamba2 at phase 23's argv but 4 new tokens,
+      ``SSM_SERVE_ARGV``: every sequence finished, the rules' param bytes
+      a rank, each rank's parked caches its channels' and the whole
+      ``conv_B`` / ``conv_C``, the ``kv`` summed and per rank and the
+      share of tokens equal to "ssm serve"'s printed); mamba2's parts
+      launch fused Adam alone, no flash and no tiled matmul; "hybrid tp
+      train" (``launch.train --model-mesh 2`` on recurrentgemma at
+      ``HYBRID_TRAIN_LAYERS``, 2 steps of 1 x 4096, tensor parallelism: 8
+      heads, 2048 LRU channels, 6144 MLP columns and half the vocab a rank,
+      the gate products reading the gathered channels; the rules' bytes a
+      rank, "hybrid plan train"'s losses by ``TRAIN_TOL``, every flash
+      launch windowed) and "hybrid tp serve" (full recurrentgemma, 38
+      layers, phase 21's prompt, 3 sequences through 2 slots, 4 new
+      tokens, ``HYBRID_SERVE_ARGV``: the rules' param bytes a rank, the
+      window rings whole on each rank, checked as "ssm cp serve" against
+      a one-rank run of the argv, "hybrid tp serve one rank");
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -337,7 +367,7 @@ Phases (any failure exits non-zero; no phase is caught):
       ``phases:`` line of all of them), the kernels JSON line, then the
       device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16j (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16p (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -348,8 +378,8 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
-``chip_smoke.py --dp-rank all|tp3|numerics|train[+moe]|gspmd_numerics|gspmd_train[+moe]|serve``
-is one rank of phase 16a-16j, started by the script itself through
+``chip_smoke.py --dp-rank all|tp3|<part>`` (a part of ``DP_PARTS`` or
+``TP3_PARTS``) is one rank of phase 16a-16p, started by the script itself through
 ``torch.distributed.run``; ``chip_smoke.py --nccl-check [train|serve|tp]``
 runs phase 16b's and 16d's paths ("train"), llava served on the ranks
 ("serve": at 8 layers against one rank's tokens, then at full depth, a
@@ -359,6 +389,7 @@ four ranks with a card each (NCCL), on a machine with four cards.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -1355,10 +1386,40 @@ def init_params(cfg) -> dict:
     return registry.build(cfg).init(torch.Generator().manual_seed(SEED), torch.device("cpu"))
 
 
+def gspmd_side(key: tuple, dev: str, placement: str = "in_graph", params0=None) -> tuple:
+    """One side of a numerics phase (``key``: ``CPU_RUNS``' key, its model,
+    cut, B x S and steps): the GSPMD engine in ``placement`` on ``dev``
+    from ``params0`` (default ``init_params``' draw), the global batches
+    of ``SEED``; its trajectory and its params and f32 masters flat."""
+    arch, cut, B, S, steps = key
+    cfg = dataclasses.replace(configs.get(arch), **dict(cut))
+    params0 = init_params(cfg) if params0 is None else params0
+    base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{arch}_{placement}")
+    ex = InfinityExecutor(_gspmd_run(cfg, os.path.join(base, dev), steps, placement), dev)
+    state = ex.reseed(ex.engine.adopt_params(params0))
+    stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
+                             cfg.vocab_size, seed=SEED)
+    step = ex.make_train_step()
+    traj = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
+        state, m = step(state, batch)
+        traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    ex.wait_host()
+    masters = (_store_masters(ex) if ex.offgraph else
+               {k: v for k, v in zip(pt.tree_paths(state["opt"].master),
+                                     pt.tree_leaves(state["opt"].master))})
+    masters = torch.cat([t.detach().float().cpu().reshape(-1) for t in masters.values()])
+    # NVMe-resident params are read back from the param store
+    params = torch.cat([t.detach().float().cpu().reshape(-1)
+                        for t in pt.tree_leaves(ex.checkpoint_state(state)["params"])])
+    ex.close()  # the card's copy is freed with ``state`` on return
+    return traj, params, masters
+
+
 def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
                          layers: int = 2, B: int = 4, S: int = 256,
                          tag: str = "gspmd numerics", cut: dict | None = None,
-                         keep_cpu: bool = False, reuse_cpu: bool = False,
                          steps: int = 2) -> dict:
     """Full-width ``arch`` cut to ``layers`` layers (or by the config fields
     in ``cut``): ``steps`` steps of the GSPMD engine on the card (kernels)
@@ -1366,47 +1427,26 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
     one of ``GSPMD_PLACEMENTS``; loss and grad norm by ``TRAIN_TOL``, the
     f32 masters (in the state in-graph, read back from the optimizer store
     off-graph) by the drift bound, the params by it plus each side's bf16
-    rounding, their mean by 2^-5 * sum(lr). ``keep_cpu`` keeps the CPU
-    side in ``CPU_RUNS``; ``reuse_cpu`` holds the card against the kept
-    one instead of running the CPU again (its host Adam and NVMe traffic
-    would double the phase's time)."""
+    rounding, their mean by 2^-5 * sum(lr). Where ``CPU_RUNS`` holds the
+    in-graph CPU side of the same model, cut, weights and batches (every
+    placement computes one function; ``phase_build``'s), the card is held
+    against it instead of running the CPU again (its host Adam and NVMe
+    traffic would double the phase's time)."""
     cut = cut or {"n_layers": layers}
     cfg = dataclasses.replace(configs.get(arch), **cut)
-    base = os.path.join(ROOT, "build", f"chip_smoke_gspmd_{arch}_{placement}")
     key = (arch, tuple(sorted(cut.items())), B, S, steps)
     t0 = time.perf_counter()
     params0 = init_params(cfg)
     side_s = {"init": time.perf_counter() - t0}  # where the phase's seconds go
-    out = {"cpu": CPU_RUNS[key]} if reuse_cpu else {}
+    kept = key in CPU_RUNS
+    out = {"cpu": CPU_RUNS[key]} if kept else {}
     for dev in [d for d in ("cpu", "cuda") if d not in out]:
         t0 = time.perf_counter()
-        ex = InfinityExecutor(_gspmd_run(cfg, os.path.join(base, dev), steps, placement), dev)
-        state = ex.reseed(ex.engine.adopt_params(params0))
-        stream = SyntheticStream(ex.input_specs(ShapeConfig("n", S, B, "train")),
-                                 cfg.vocab_size, seed=SEED)
-        step = ex.make_train_step()
-        traj = []
-        for i in range(steps):
-            batch = {k: torch.from_numpy(a).to(dev) for k, a in stream.batch_at(i).items()}
-            state, m = step(state, batch)
-            traj.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
-        ex.wait_host()
-        masters = (_store_masters(ex) if ex.offgraph else
-                   {k: v for k, v in zip(pt.tree_paths(state["opt"].master),
-                                         pt.tree_leaves(state["opt"].master))})
-        masters = torch.cat([t.detach().float().cpu().reshape(-1) for t in masters.values()])
-        # NVMe-resident params are read back from the param store
-        params = torch.cat([t.detach().float().cpu().reshape(-1)
-                            for t in pt.tree_leaves(ex.checkpoint_state(state)["params"])])
-        out[dev] = (traj, params, masters)
-        ex.close()
-        del ex, state, step  # the card's copy is freed before the comparison
+        out[dev] = gspmd_side(key, dev, placement, params0)
         side_s[dev] = time.perf_counter() - t0
-    if keep_cpu:
-        CPU_RUNS[key] = out["cpu"]
     rec = {"arch": arch, "placement": placement,
            "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
-           "cpu_side": "in_graph, kept" if reuse_cpu else placement,
+           "cpu_side": "in_graph, kept" if kept else placement,
            "cut": cut, "n_params": registry.build(cfg).n_params(),
            "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps, "side_s": side_s}
     t0 = time.perf_counter()
@@ -2046,6 +2086,17 @@ def dp_rank(mode: str) -> int:
                              MOE_ARCH, MOE_LAYERED_LAYERS, 8, 512, MOE_TRAIN_STEPS),
                          "moe_tp_serve": lambda: serve_rank(
                              MOE_SERVE_ARGV + ["--model-mesh", "2"], model=2),
+                         "ssm_cp_numerics": lambda: tp_numerics_rank(SSM_NUMERICS_KEY,
+                                                                     "ssm_cp_numerics"),
+                         "ssm_cp_train": lambda: tp_train_rank(
+                             SSM_ARCH, steps=RECURRENT_TRAIN_STEPS),
+                         "ssm_cp_serve": lambda: serve_rank(
+                             SSM_SERVE_ARGV + ["--model-mesh", "2"], model=2),
+                         "hybrid_tp_train": lambda: tp_train_rank(
+                             HYBRID_ARCH, HYBRID_TRAIN_LAYERS, 1, 4096,
+                             RECURRENT_TRAIN_STEPS),
+                         "hybrid_tp_serve": lambda: serve_rank(
+                             HYBRID_SERVE_ARGV + ["--model-mesh", "2"], model=2),
                          "vlm_serve": lambda: serve_rank(
                              VLM_SERVE_ARGV + ["--layers", str(VLM_SERVE_LAYERS)]),
                          "vlm_serve_full": lambda: serve_rank(VLM_SERVE_ARGV),
@@ -2154,7 +2205,8 @@ MOE_TRAIN_STEPS = 2
 # a spawn costs ~17 s of process start, imports and CUDA contexts
 DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve",
             "cp_numerics", "cp_train", "cp_serve", "moe_tp_numerics", "moe_cp_numerics",
-            "moe_tp_train", "moe_tp_serve")
+            "moe_tp_train", "moe_tp_serve", "ssm_cp_numerics", "ssm_cp_train", "ssm_cp_serve",
+            "hybrid_tp_train", "hybrid_tp_serve")
 # the MoE layered epoch's counters the routing steers: the expert rows the
 # popularity predictor, the hot cache and the router read and drain
 MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
@@ -2262,10 +2314,12 @@ def serve_rank(argv=None, model: int = 1) -> dict:
     out = serve.run_serve(args, argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    run = RunConfig(model=configs.with_layers(cfg, args.layers))
+    cfg = configs.with_layers(configs.smoke(args.arch) if args.smoke else configs.get(args.arch),
+                              args.layers)
+    run = RunConfig(model=cfg)
     layout = ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
         n // model, model, rank, n, torch.device("cpu"), None, "gloo"))
+    cap = args.prompt_len + args.new_tokens
     t = out["timings"]
     return {"rank": rank, "argv": " ".join(argv), "wall_s": wall, "launches": ops.launch_counts(),
             "backend": out["mesh"]["backend"], "slots": out["slots"],
@@ -2277,6 +2331,9 @@ def serve_rank(argv=None, model: int = 1) -> dict:
             "one_rank_param_bytes": ZeroInfinityEngine(run, "cpu").shard_bytes()[
                 "param_shard_bytes"],
             "layout_param_bytes": layout.shard_bytes()["param_shard_bytes"],
+            # one sequence's cache in this rank's layout (a recurrent family's
+            # inner channels its own), the len leaf included
+            "cache_bytes_per_seq": kvcache.sequence_kv_bytes(cfg, cap, layout.bundle.cache_defs),
             "data_split_leaves": [keystr(p) for p in pt.tree_paths(layout.splits["param"])
                                   if pt.tree_get(layout.splits["param"], p) is not None],
             "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
@@ -2812,11 +2869,14 @@ MOE_TP_BYTES = {2: 1_339_232_256}
 # flash at context parallelism's shapes: "cp train"'s rank 0 (its 256
 # queries on their 256 keys) and rank 1 (on all 512), causal
 FLASH_CP = [(8, 9, 3, 256, 256, 64), (8, 9, 3, 256, 512, 64)]
-# flash at tensor parallelism's shapes: "tp train"'s (smollm on 3 model
-# ranks: 3 heads, 1 KV head, 8 x 512), "vlm tp4 nccl train"'s (llava on 4:
-# 14 heads, 2 KV heads of 128, 1 x 4096) and "moe tp train"'s (granite on
-# 2: 8 heads, 4 KV heads, 8 x 512), causal
-FLASH_TP = [(8, 3, 1, 512, 512, 64), (1, 14, 2, 4096, 4096, 128), (8, 8, 4, 512, 512, 64)]
+# flash at tensor parallelism's shapes, (shape, window): "tp train"'s
+# (smollm on 3 model ranks: 3 heads, 1 KV head, 8 x 512), "vlm tp4 nccl
+# train"'s (llava on 4: 14 heads, 2 KV heads of 128, 1 x 4096), "moe tp
+# train"'s (granite on 2: 8 heads, 4 KV heads, 8 x 512) and "hybrid tp
+# train"'s (recurrentgemma on 2: 8 heads on its one KV head of 256, 1 x
+# 4096, window 2048), causal
+FLASH_TP = [((8, 3, 1, 512, 512, 64), 0), ((1, 14, 2, 4096, 4096, 128), 0),
+            ((8, 8, 4, 512, 512, 64), 0), ((1, 8, 1, 4096, 4096, 256), 2048)]
 
 
 def mlp_shard_shapes(T: int, d: int, f: int) -> list:
@@ -2828,9 +2888,11 @@ def mlp_shard_shapes(T: int, d: int, f: int) -> list:
             (T, d, f, "w"), (f, T, d, "x")]
 
 
-# the same two runs' MLP products: smollm's 512 of 1536 columns a rank and
-# llava's 5120 of 20480 (K <= 7168: K * 2^-24 < 2^-11, "tiled_matmul_k4096")
-TILED_TP = mlp_shard_shapes(4096, 576, 512) + mlp_shard_shapes(4096, 7168, 5120)
+# the same runs' MLP products: smollm's 512 of 1536 columns a rank,
+# llava's 5120 of 20480 and recurrentgemma's GeGLU 6144 of 12,288 (K <=
+# 7168: K * 2^-24 < 2^-11, "tiled_matmul_k4096")
+TILED_TP = (mlp_shard_shapes(4096, 576, 512) + mlp_shard_shapes(4096, 7168, 5120)
+            + mlp_shard_shapes(4096, 4096, 6144))
 # the products of TILED_TP timed: each run's forward column and row shards
 TILED_TP_TIMED = [c for c in TILED_TP if c[3] == ""]
 # "tp serve"'s argv: the serve host cell's sizes at 8 new tokens (each
@@ -2839,6 +2901,27 @@ TILED_TP_TIMED = [c for c in TILED_TP if c[3] == ""]
 TP_SERVE_ARGV = SERVE_ARGV[:-1] + ["8"]
 # phase 4's CPU logits, kept for "tp serve"'s teacher-forced check
 E2E_CPU: dict = {}
+# the recurrent families on the model axis (the two-rank spawn): mamba2
+# under context parallelism (no attention heads: "auto" answers "cp"; each
+# rank 16 of its 32 SSD heads over the whole sequence), recurrentgemma
+# under tensor parallelism (8 of 16 heads, 2048 of its 4096 LRU channels,
+# 6144 of 12,288 MLP columns and half the vocab a rank). "ssm cp
+# numerics" runs "recurrent numerics"' mamba2 (its key in CPU_RUNS). These
+# phases are the ones cut for the run's time limit: "ssm cp train" and
+# "hybrid tp train" take ``RECURRENT_TRAIN_STEPS``, not 3; the serving runs
+# are "ssm serve"'s argv at 4 new tokens and full recurrentgemma at "hybrid
+# serve"'s prompt, 3 sequences through 2 slots (two prefill waves of 2 x
+# 2560, ~6 s each on two gloo ranks; the third sequence parked and
+# admitted) and 4 new tokens
+SSM_NUMERICS_KEY = (SSM_ARCH, (("n_layers", 2),), 4, 256, 2)
+RECURRENT_TRAIN_STEPS = 2
+SSM_SERVE_ARGV = ["--arch", SSM_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-tier", "host",
+                  "--prompt-len", "512", "--new-tokens", "4"]
+HYBRID_SERVE_ARGV = ["--arch", HYBRID_ARCH, "--batch", "3", "--kv-slots", "2", "--kv-tier",
+                     "host", "--prompt-len", "2560", "--new-tokens", "4"]
+# the one-rank runs the recurrent model-axis serving phases are held to, by
+# tag: "ssm serve" and "hybrid tp serve one rank" (``HYBRID_SERVE_ARGV``)
+FAMILY_SERVE_ONE: dict = {}
 
 
 def _tp_record(name: str) -> str:
@@ -2847,17 +2930,18 @@ def _tp_record(name: str) -> str:
     return os.path.join(ROOT, "build", f"chip_smoke_{name}.pt")
 
 
-def tp_numerics_rank() -> dict:
-    """(a rank) Phase 11's model, weights and global batches (full-width
+def tp_numerics_rank(key=GSPMD_NUMERICS_KEY, name: str = "numerics") -> dict:
+    """(a rank) A numerics phase's model, weights and global batches
+    (``key``, ``CPU_RUNS``' key: by default phase 11's full-width
     smollm-135m cut to 2 layers, 4 x 256, 2 steps) through the GSPMD step
-    at ZeRO-3 on a (1, M) mesh of the launch's M ranks on the card (tensor
-    parallelism at 3, context at 2), each from its shards of the global
-    state on the whole batch; the params and f32 masters joined over the
-    ranks after the last step, which rank 0 saves."""
+    at ZeRO-3 on a (1, M) mesh of the launch's M ranks on the card (smollm:
+    tensor parallelism at 3, context at 2), each from its shards of the
+    global state on the whole batch; the params and f32 masters joined over
+    the ranks after the last step, which rank 0 saves as ``name``."""
     M = int(os.environ["WORLD_SIZE"])
     mesh = mesh_mod.make_local_mesh(1, M, "cuda")
     rank, dev = mesh.rank, mesh.device
-    arch, cut, B, S, steps = GSPMD_NUMERICS_KEY
+    arch, cut, B, S, steps = key
     cfg = dataclasses.replace(configs.get(arch), **dict(cut))
     params0 = init_params(cfg)
     run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none", zero_stage=3),
@@ -2880,7 +2964,7 @@ def tp_numerics_rank() -> dict:
                         for t in pt.tree_leaves(eng.respec(tree, cls, None))])
              for tree, cls in ((state["params"], "param"), (state["opt"].master, "opt"))]
     if rank == 0:
-        torch.save((traj, *whole), _tp_record(f"numerics_m{M}"))
+        torch.save((traj, *whole), _tp_record(f"{name}_m{M}"))
     ex.close()
     return {"rank": rank, "launches": ops.launch_counts(), "transport": mesh.transport(),
             "strategy": eng.mp.strategy, "trajectory": traj,
@@ -2992,56 +3076,75 @@ def phase_model_axis_kernels() -> dict:
     timed = [shape[4] > shape[3] for shape in FLASH_CP]  # the new shape: Sq < Sk
     fwd = [check_flash(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
     bwd = [check_flash_bwd(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
-    fwd += [check_flash(shape, bf16, gen, timed=True) for shape in FLASH_TP]
-    bwd += [check_flash_bwd(shape, bf16, gen, timed=True) for shape in FLASH_TP]
-    check_flash_routes(fwd + bwd)
+    windowed = {"flash_attention_window": [], "flash_attention_bwd_window": []}
+    for shape, window in FLASH_TP:
+        fw, bw = (("flash_attention_window", "flash_attention_bwd_window") if window else
+                  ("flash_attention", "flash_attention_bwd"))
+        f = check_flash(shape, bf16, gen, True, window, name=fw)
+        b = check_flash_bwd(shape, bf16, gen, True, window, name=bw)
+        (windowed[fw] if window else fwd).append(f)
+        (windowed[bw] if window else bwd).append(b)
+    flash = fwd + bwd + windowed["flash_attention_window"] + windowed["flash_attention_bwd_window"]
+    check_flash_routes(flash)
     tiled = [check_tiled_t(c, bf16, gen, timed=c in TILED_TP_TIMED) for c in TILED_TP]
     check_routes(tiled)
-    for rec in fwd + bwd + tiled:
+    for rec in flash + tiled:
         say("model axis kernel check:", json.dumps(rec))
-    return {"flash_attention": fwd, "flash_attention_bwd": bwd, "tiled_matmul": tiled}
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd, "tiled_matmul": tiled,
+            **windowed}
 
 
 def _check_tp_ranks(tag: str, recs: list, strategy: str = "",
-                    kernels=("flash_attention", "tiled_matmul")) -> None:
+                    kernels=("flash_attention", "tiled_matmul"), none=()) -> None:
     """Every rank ran the strategy of its model axis (``strategy``; by
-    default smollm's: tensor parallelism at 3 and 4 ranks, context at 2)
-    and launched each of ``kernels``, all on the tensor cores (MoE's
-    experts are batched einsums: its runs launch no tiled matmul)."""
+    default smollm's: tensor parallelism at 3 and 4 ranks, context at 2),
+    launched each of ``kernels`` (the routed ones all on the tensor cores)
+    and none of ``none`` (MoE's experts are batched einsums: its runs
+    launch no tiled matmul; mamba2's products are all einsums outside
+    Pallas, as the reference's: its runs launch neither flash nor the
+    tiled matmul)."""
     M = len(recs)
     strategy = strategy or TP_STRATEGY[M]
     for r in recs:
+        launches = r["launches"]
         if r.get("strategy", strategy) != strategy:
             raise SystemExit(f"FAIL {tag}: rank {r['rank']} ran {r['strategy']}")
-        check_main_path_routes(tag, r["launches"])
+        check_main_path_routes(tag, launches)
         for name in kernels:
-            if not r["launches"][f"{name}_wgmma"]:
+            if not launches.get(f"{name}_wgmma", launches[name]):
                 raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched no {name}")
+        for name in none:
+            if launches[name]:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} launched {name} "
+                                 f"{launches[name]} times; want none")
 
 
-def phase_tp_numerics(recs: list, tag: str) -> tuple:
-    """The ranks' ``tp_numerics_rank``: the trajectory (one on every rank)
-    and the joined params and masters held against phase 11's kept
-    one-rank CPU run by its bounds; each rank's param bytes and launches
-    (on the tensor cores) printed."""
+def phase_tp_numerics(recs: list, tag: str, key=GSPMD_NUMERICS_KEY, name: str = "numerics",
+                      strategy: str = "", kernels=("flash_attention", "tiled_matmul"),
+                      none=()) -> tuple:
+    """The ranks' ``tp_numerics_rank`` of ``key``: the trajectory (one on
+    every rank) and the joined params and masters held against the kept
+    one-rank CPU run of ``key`` (phase 11's by default) by its bounds;
+    each rank's param bytes and launches (``_check_tp_ranks``) printed."""
     M = len(recs)
-    card = torch.load(_tp_record(f"numerics_m{M}"), weights_only=False)
+    card = torch.load(_tp_record(f"{name}_m{M}"), weights_only=False)
     for r in recs:
         if r["trajectory"] != card[0]:
             raise SystemExit(f"FAIL {tag}: rank {r['rank']} reports {r['trajectory']}, "
                              f"rank 0 {card[0]}")
+    arch, cut = key[:2]
     rec = {"ranks": M, "mesh": [1, M], "strategy": recs[0]["strategy"], "zero_stage": 3,
-           "cpu_side": "one rank, in_graph, kept (gspmd numerics)",
+           "arch": arch, "cut": dict(cut), "cpu_side": "one rank, in_graph, kept",
            "param_shard_bytes": [r["param_shard_bytes"] for r in recs],
            "launches_per_rank": [r["launches"] for r in recs]}
-    out = hold_card_to_cpu(tag, f"smollm-135m 2 layers on (1, {M})",
-                           CPU_RUNS[GSPMD_NUMERICS_KEY], card, rec)
-    _check_tp_ranks(tag, recs)
+    out = hold_card_to_cpu(tag, f"{arch} {dict(cut)} on (1, {M})", CPU_RUNS[key], card, rec)
+    _check_tp_ranks(tag, recs, strategy, kernels, none)
     return out, _sum_launches(recs)
 
 
 def phase_tp_train(recs: list, dp1: dict, tag: str, want_bytes: int = 0,
-                   strategy: str = "", kernels=("flash_attention", "tiled_matmul")) -> tuple:
+                   strategy: str = "", kernels=("flash_attention", "tiled_matmul"),
+                   none=()) -> tuple:
     """The ranks' ``tp_train_rank``: the losses (one on every rank) finite
     and those of the one-rank "plan train" run (``dp1``: the same seed and
     global batches) by ``TRAIN_TOL``; each rank's param bytes exactly
@@ -3080,7 +3183,7 @@ def phase_tp_train(recs: list, dp1: dict, tag: str, want_bytes: int = 0,
     for got, want in zip(losses, rec["dp1_losses"]):
         if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
             raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
-    _check_tp_ranks(tag, recs, strategy, kernels)
+    _check_tp_ranks(tag, recs, strategy, kernels, none)
     return rec, _sum_launches(recs)
 
 
@@ -3212,10 +3315,10 @@ def phase_moe_model_axis_numerics(recs: list, strategy: str) -> tuple:
     return rec, _sum_launches(recs)
 
 
-def moe_tp_bytes(layers: int, M: int) -> int:
-    """granite at full width cut to ``layers`` (0: whole): a rank's param
+def model_axis_bytes(arch: str, layers: int, M: int) -> int:
+    """``arch`` at full width cut to ``layers`` (0: whole): a rank's param
     bytes on a (1, M) mesh, from the rules."""
-    run = RunConfig(model=configs.with_layers(configs.get(MOE_ARCH), layers))
+    run = RunConfig(model=configs.with_layers(configs.get(arch), layers))
     return ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
         1, M, 0, M, torch.device("cpu"), None, "gloo")).shard_bytes()["param_shard_bytes"]
 
@@ -3229,7 +3332,7 @@ def phase_moe_tp_train(recs: list, dp1: dict) -> tuple:
     last step's dropped fraction "moe layered"'s within a quarter of it:
     the global batch's, not the model ranks' sum."""
     tag = "moe tp train"
-    want = moe_tp_bytes(MOE_LAYERED_LAYERS, len(recs))
+    want = model_axis_bytes(MOE_ARCH, MOE_LAYERED_LAYERS, len(recs))
     rec, launches = phase_tp_train(recs, dp1, tag, want, "tp", ("flash_attention",
                                                                "flash_attention_bwd"))
     for m0, *ms in zip(*(r["steps"] for r in recs)):
@@ -3320,6 +3423,61 @@ def phase_cp_serve(recs: list, one: dict) -> tuple:
     if not err <= E2E_REL_TOL:
         raise SystemExit(f"FAIL {tag}: teacher-forced logits rel err {err} > {E2E_REL_TOL}")
     _check_tp_ranks(tag, recs, "cp")
+    return rec, _sum_launches(recs)
+
+
+def phase_recurrent_serve(tag: str, recs: list, one_tag: str, strategy: str,
+                          kernels=(), none=()) -> tuple:
+    """A recurrent family served on a (1, M) mesh (``serve_rank``'s records
+    of ``SSM_SERVE_ARGV`` / ``HYBRID_SERVE_ARGV`` with ``--model-mesh M``)
+    against the one-rank run ``one_tag`` ("ssm serve": the same model and
+    prompts at more new tokens; "hybrid tp serve one rank": the same argv):
+    every sequence finished
+    with the same tokens on every rank, each rank's param bytes its
+    layout's (the rules'), each rank's parked ``kv`` bytes in and out its
+    admissions' caches in its layout (its ``inner`` channels, the leaves
+    every model rank holds whole, the ``len`` leaf on model rank 0), the
+    share of tokens equal to the one rank's first ones printed beside the
+    param bytes a rank and the ``kv`` summed and per rank; the launches
+    by ``_check_tp_ranks``."""
+    one = FAMILY_SERVE_ONE[one_tag]
+    r0, M = recs[0], len(recs)
+    n_new = len(r0["generated"][0])
+    pairs = [(a, b) for g, h in zip(r0["generated"], one["generated"])
+             for a, b in zip(g, h[:n_new])]
+    steps = max(r0["steps"], 1)
+    want_kv = [r0["admissions_ranks"][r] * (recs[r]["cache_bytes_per_seq"] - (4 if r else 0))
+               for r in range(M)]
+    rec = {"run": tag, "argv": r0["argv"], "ranks": M, "strategy": strategy,
+           "backend": r0["backend"], "param_shard_bytes": r0["param_shard_bytes"],
+           "layout_param_bytes": [r["layout_param_bytes"] for r in recs],
+           "one_rank_param_bytes": r0["one_rank_param_bytes"],
+           "kv": {k: r0["kv"][k] for k in SERVE_KV},
+           "kv_ranks": [{k: kr[k] for k in SERVE_KV} for kr in r0["kv_ranks"]],
+           "want_kv_out_ranks": want_kv,
+           "cache_bytes_per_seq_ranks": [r["cache_bytes_per_seq"] for r in recs],
+           "one_rank_kv": {k: one["kv"][k] for k in SERVE_KV},
+           "tokens_equal_one_rank_share": sum(a == b for a, b in pairs) / max(len(pairs), 1),
+           "decode_step_ms": r0["decode_s"] / steps * 1e3,
+           "one_rank_decode_step_ms": one["timings"]["decode_s"] / max(one["steps"], 1) * 1e3,
+           "prefill_wave_ms": r0["prefill_s"] / -(-len(r0["generated"]) // r0["slots"]) * 1e3,
+           "ttft_p50_s": r0["ttft_p50_s"], "ttft_p99_s": r0["ttft_p99_s"],
+           "peak_allocated_gb": [b / 1e9 for b in r0["peak_allocated_bytes"]],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    say(f"{tag}:", json.dumps(rec))
+    for r in recs:
+        if not all(r["done"]) or r["generated"] != r0["generated"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}: not every sequence finished, or "
+                             "its tokens differ from rank 0's")
+        if r["param_shard_bytes"][r["rank"]] != r["layout_param_bytes"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} holds "
+                             f"{r['param_shard_bytes'][r['rank']]} param bytes; want "
+                             f"{r['layout_param_bytes']}")
+    for r, kr in enumerate(r0["kv_ranks"]):
+        if not kr["out_bytes"] == kr["in_bytes"] == want_kv[r] > 0:
+            raise SystemExit(f"FAIL {tag}: rank {r} parked {kr['out_bytes']} and fetched "
+                             f"{kr['in_bytes']} bytes; want {want_kv[r]}")
+    _check_tp_ranks(tag, recs, strategy, kernels, none)
     return rec, _sum_launches(recs)
 
 
@@ -3801,6 +3959,7 @@ def phase_family_serve(tag: str, arch: str, prompt: int, new: int, layers: int =
         argv += ["--layers", str(layers)]
     cfg = configs.with_layers(configs.get(arch), layers)
     out, launches, wall = run_serve(argv)
+    FAMILY_SERVE_ONE[tag] = out
     rec = summarize(tag, argv, out, launches, wall, arch=arch, cfg=cfg)
     if any(len(g) != new for g in out["generated"]):
         raise SystemExit(f"FAIL {tag}: not every sequence produced its {new} tokens")
@@ -4009,17 +4168,51 @@ def count_hgmma(name: str) -> int:
     return n
 
 
+def early_cpu_keys() -> tuple:
+    """The numerics phases' CPU sides ``phase_build`` computes, by
+    ``CPU_RUNS``' key: "gspmd numerics"' smollm, "recurrent numerics"'
+    mamba2 and "family numerics"' seamless (~50 s together on the chip
+    machine's host, about nvcc's time; the hybrid's and llava's take
+    longer and stay in their phases)."""
+    return (GSPMD_NUMERICS_KEY, SSM_NUMERICS_KEY,
+            (ENCDEC_ARCH, tuple(sorted(ENCDEC_NUMERICS_CUT.items())), 2, 256, 2))
+
+
+def phase_build() -> dict:
+    """Every kernel built from the checkout (``_build.build_all``: one nvcc
+    a source, all started together) while the numerics phases' CPU sides
+    of ``early_cpu_keys`` run here, each kept in ``CPU_RUNS``: no kernel
+    runs on the CPU (each wrapper takes its plain version there), and
+    nvcc leaves most of the host's cores idle."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.build_all)
+        for key in early_cpu_keys():
+            t0 = time.perf_counter()
+            CPU_RUNS[key] = gspmd_side(key, "cpu")
+            say(f"build: the CPU side of {json.dumps(key)} in {time.perf_counter() - t0:.1f} s")
+        return building.result()
+
+
 # each phase's seconds, in the order run (printed as "phase <name>: s")
 PHASE_S: dict = {}
 
 
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds printed on a line of their own
-    and kept in ``PHASE_S``."""
+    and kept in ``PHASE_S``. Then the phase's scratch directories under
+    ``build/`` (``chip_smoke_*``: its NVMe stores, KV tiers and
+    checkpoints, which no later phase reads; the records later phases
+    read are files) are removed, so the run's disk holds one phase's
+    stores at a time: the chip machine bounds the disk a run touches, and
+    the stores of every phase together passed it."""
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     PHASE_S[name] = time.perf_counter() - t0
     say(f"phase {name}: {PHASE_S[name]:.1f} s")
+    build = os.path.join(ROOT, "build")
+    for entry in os.scandir(build) if os.path.isdir(build) else ():
+        if entry.name.startswith("chip_smoke_") and entry.is_dir():
+            shutil.rmtree(entry.path, ignore_errors=True)
     return out
 
 
@@ -4040,7 +4233,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    built = timed("build", _build.build_all)
+    built = timed("build", phase_build)
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, rec in built.items():
         for line in rec["log"].splitlines():
@@ -4073,9 +4266,8 @@ def main() -> int:
     timed("train numerics q8", phase_train_numerics, "q8")
     train_rec, train_launches = timed("train", phase_train_main)
     q8_rec, q8_launches = timed("train q8", phase_train_main, "q8")
-    # the three placements compute one function: one CPU run, kept
-    gspmd = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p,
-                      keep_cpu=p == "in_graph", reuse_cpu=p != "in_graph")
+    # the three placements compute one function: the build's CPU side
+    gspmd = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p)
              for p in SMOLLM_PLACEMENTS}
     plan_rec, plan_launches = timed("plan train", phase_plan_train, "plan train", [])
     offload_rec, offload_launches = timed("plan offload", phase_plan_train,
@@ -4105,6 +4297,7 @@ def main() -> int:
     moe_layered_rec, moe_layered_launches = timed("moe layered", phase_moe_layered)
     # two ranks on the card: one spawn runs every dp-2 job (DP_PARTS), whose
     # records the phases below hold
+    torch.cuda.empty_cache()  # the ranks' parts want the card's memory
     dp_ranks = timed("dp2 ranks", run_ranks, "all", 900)
     dp2_rec, dp2_launches = timed("zero3 dp2 numerics", phase_zero3_dp2_numerics, dp_ranks)
     dp2_train_rec, dp2_train_launches, train_ranks = timed(
@@ -4142,11 +4335,13 @@ def main() -> int:
                                           _part(dp_ranks, "moe_tp_train"), moe_layered_rec)
     moe_tps_rec, moe_tps_launches = timed("moe tp serve", phase_moe_tp_serve,
                                           _part(dp_ranks, "moe_tp_serve"))
-    for name, recs in timed("model axis kernels", phase_model_axis_kernels).items():
-        train_checks[name] += recs
+    model_axis_checks = timed("model axis kernels", phase_model_axis_kernels)
     train_checks.update(timed("flash window", phase_flash_window))
+    for name, recs in model_axis_checks.items():  # after the window's own shapes
+        train_checks[name] += recs
     # the hybrid's 1.7 B-param cut takes one step of one sequence: its CPU
     # side is the run's slowest (109-128 s at two sequences)
+    # mamba2's CPU side is the build's, held by "ssm cp numerics" too
     recurrent = {arch: timed(f"recurrent numerics/{arch}", phase_gspmd_numerics, "in_graph",
                              arch, layers, B, S, tag="recurrent numerics", steps=steps)
                  for arch, layers, B, S, steps in ((SSM_ARCH, 2, 4, 256, 2),
@@ -4160,12 +4355,37 @@ def main() -> int:
                                               "ssm serve", SSM_ARCH, 512, 32)
     ssm_train_rec, ssm_train_launches = timed("ssm plan train", phase_plan_train,
                                               "ssm plan train", [], arch=SSM_ARCH)
+    # the two-rank spawn's recurrent parts, held against the one-rank runs
+    # above: mamba2 under context parallelism, recurrentgemma under tensor
+    no_flash = ("flash_attention", "tiled_matmul")
+    scn_rec, scn_launches = timed(
+        "ssm cp numerics", phase_tp_numerics, _part(dp_ranks, "ssm_cp_numerics"),
+        "ssm cp numerics", SSM_NUMERICS_KEY, "ssm_cp_numerics", "cp", ("fused_adam",), no_flash)
+    sct_rec, sct_launches = timed(
+        "ssm cp train", phase_tp_train, _part(dp_ranks, "ssm_cp_train"), ssm_train_rec,
+        "ssm cp train", model_axis_bytes(SSM_ARCH, 0, 2), "cp", ("fused_adam",), no_flash)
+    scs_rec, scs_launches = timed(
+        "ssm cp serve", phase_recurrent_serve, "ssm cp serve", _part(dp_ranks, "ssm_cp_serve"),
+        "ssm serve", "cp", (), no_flash)
+    hybrid_cfg = configs.with_layers(configs.get(HYBRID_ARCH), HYBRID_TRAIN_LAYERS)
+    htt_rec, htt_launches = timed(
+        "hybrid tp train", phase_tp_train, _part(dp_ranks, "hybrid_tp_train"),
+        hybrid_train_rec, "hybrid tp train",
+        model_axis_bytes(HYBRID_ARCH, HYBRID_TRAIN_LAYERS, 2), "tp",
+        ("flash_attention", "flash_attention_bwd", "tiled_matmul", "fused_adam"))
+    check_window_launches("hybrid tp train", htt_launches, hybrid_cfg)
+    FAMILY_SERVE_ONE["hybrid tp serve one rank"] = timed(
+        "hybrid tp serve one rank", run_serve, HYBRID_SERVE_ARGV)[0]
+    hts_rec, hts_launches = timed(
+        "hybrid tp serve", phase_recurrent_serve, "hybrid tp serve",
+        _part(dp_ranks, "hybrid_tp_serve"), "hybrid tp serve one rank", "tp",
+        ("flash_attention", "tiled_matmul"))
+    check_window_launches("hybrid tp serve", hts_launches, configs.get(HYBRID_ARCH))
     for name, recs in timed("family kernels", phase_family_kernels).items():
         train_checks[name] += recs
     # llava's 1.45 B-param cut takes one step, as the hybrid's
     family = {arch: timed(f"family numerics/{arch}", phase_gspmd_numerics, "in_graph", arch,
-                          B=B, S=S, tag="family numerics", cut=cut,
-                          keep_cpu=arch == ENCDEC_ARCH, steps=steps)
+                          B=B, S=S, tag="family numerics", cut=cut, steps=steps)
               for arch, cut, B, S, steps in ((ENCDEC_ARCH, ENCDEC_NUMERICS_CUT, 2, 256, 2),
                                              (VLM_ARCH, VLM_NUMERICS_CUT, 1, 160, 1))}
     vlm_serve_rec, vlm_serve_launches = timed(
@@ -4180,8 +4400,7 @@ def main() -> int:
         "encdec plan train", phase_plan_train, "encdec plan train", [], arch=ENCDEC_ARCH,
         batch=8, seq=2048)
     nvme_numerics = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p, ENCDEC_ARCH,
-                              B=2, S=256, tag="gspmd numerics", cut=ENCDEC_NUMERICS_CUT,
-                              reuse_cpu=True)
+                              B=2, S=256, tag="gspmd numerics", cut=ENCDEC_NUMERICS_CUT)
                      for p in NVME_PLACEMENTS}
     plan_nvme_rec, plan_nvme_launches = timed("encdec plan nvme", phase_plan_nvme)
     remat_recs, remat_launches = timed("encdec remat", phase_encdec_remat)
@@ -4232,7 +4451,9 @@ def main() -> int:
              "tp_numerics": tp_launches, "tp_train": tpt_launches, "tp_serve": tps_launches,
              "cp_serve": cps_launches, "moe_tp_numerics": moe_mx["tp"][1],
              "moe_cp_numerics": moe_mx["cp"][1], "moe_tp_train": moe_tpt_launches,
-             "moe_tp_serve": moe_tps_launches,
+             "moe_tp_serve": moe_tps_launches, "ssm_cp_numerics": scn_launches,
+             "ssm_cp_train": sct_launches, "ssm_cp_serve": scs_launches,
+             "hybrid_tp_train": htt_launches, "hybrid_tp_serve": hts_launches,
              "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
@@ -4333,7 +4554,16 @@ def main() -> int:
         f"{hybrid_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; ssm serve "
         f"{ssm_serve_rec['decode_tok_s']:.0f} decode tok/s; ssm plan train "
         f"{ssm_train_rec['first_loss']:.4f} -> {ssm_train_rec['last_loss']:.4f} at "
-        f"{ssm_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; family numerics "
+        f"{ssm_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; ssm cp numerics params "
+        f"{scn_rec['params_worst_diff_over_bound']:.3f} of bound; ssm cp train "
+        f"{sct_rec['losses'][0]:.4f} -> {sct_rec['losses'][-1]:.4f} at "
+        f"{sct_rec['median_step_s_after_first']:.3f} s a step; ssm cp serve "
+        f"{scs_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{scs_rec['tokens_equal_one_rank_share']:.3f} one rank's; hybrid tp train "
+        f"{htt_rec['losses'][0]:.4f} -> {htt_rec['losses'][-1]:.4f} at "
+        f"{htt_rec['median_step_s_after_first']:.3f} s a step; hybrid tp serve "
+        f"{hts_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{hts_rec['tokens_equal_one_rank_share']:.3f} one rank's; family numerics "
         f"params {max(r['params_worst_diff_over_bound'] for r in family.values()):.3f} of "
         f"bound; vlm serve {vlm_serve_rec['decode_tok_s']:.0f} decode tok/s, "
         f"{vlm_serve_rec['prefill_tok_s']:.0f} prefill tok/s, TTFT p50 "

@@ -67,9 +67,9 @@ rank's rows of the global batch (``data/pipeline.rank_batch``):
 
 With a model axis (``mesh.model`` = M > 1; rank r at data coordinate
 ``r // M``, model coordinate ``r % M``, ``launch/mesh.py``) the dense,
-vlm and moe families run tensor or context parallelism, the strategy of
-``partition.choose_attn_strategy`` (the reference's ``repro/core/
-partition.py:144-224``): each rank holds what the reference's spec gives
+vlm, moe, ssm and hybrid families run tensor or context parallelism, the
+strategy of ``partition.choose_attn_strategy`` (the reference's
+``repro/core/partition.py:144-224``): each rank holds what the reference's spec gives
 its device, its leaves cut along both axes (``partition.cut_leaf``), and
 the bundle is built with the rank's ``zero.ModelAxis`` (``models/
 common.py``'s Megatron-style collectives on the model group). The engine
@@ -83,12 +83,15 @@ is its chunk's share of it), reduces a gradient that is whole on the rank
 over the axes where the ranks' contributions differ (data; and model
 where every model rank computes the leaf's gradient from its own part:
 every leaf whole over model under context parallelism, the unsplit KV
-projections and, where the experts split, MoE's router under tensor
+projections, where the experts split MoE's router and where the
+``inner`` channels split mamba2's ``state`` leaves under tensor
 parallelism), sums ``loss`` over the data group
 (and the model group under context parallelism), and counts a leaf's
 squares in ``grad_norm`` on the ranks at coordinate 0 of every axis it is
 not split over. MoE's experts stay split under context parallelism too
-(``models/moe.py`` sums their partial outputs), and its routing counts
+(``models/moe.py`` sums their partial outputs), as do the SSM's and the
+hybrid's ``inner`` leaves (their blocks gather the sequence and
+reduce-scatter their partial outputs); MoE's routing counts
 are summed over the data group alone: the model ranks of a data row route
 the same tokens.
 
@@ -116,9 +119,9 @@ dim (``layers`` maps to no mesh axis); the engine refuses one that would.
 Under tensor parallelism serving gathers over the data axis alone: the
 model shards stay split through the layer, and no param byte crosses the
 model axis. Under context parallelism a layer's leaves split over model
-(the MLP's columns; MoE's experts excepted) and the unstacked vocab rows
-are gathered over the model axis too, one collective more a layer, as
-training gathers them; ``model_gather_bytes`` counts what that brings in.
+(the MLP's columns; MoE's experts and the ``inner`` channels excepted)
+and the unstacked vocab rows are gathered over the model axis too, one
+collective more a layer, as training gathers them; ``model_gather_bytes`` counts what that brings in.
 """
 from __future__ import annotations
 
@@ -188,6 +191,19 @@ def _stacked(defs) -> bool:
     return all(d.axes[:1] == ("layers",) for d in pt.tree_leaves(defs))
 
 
+def _inner_split(defs, model_splits, cfg) -> bool:
+    """Whether the recurrent blocks' ``inner`` leaves (the SSM's heads and
+    channels, the RG-LRU's channels) split over the model ranks: the
+    rules split ``inner`` where it divides, and a block's leaves must all
+    split or all stay whole (a rank's channels are its heads')."""
+    split = {pt.tree_get(model_splits, p) is not None
+             for p, d in zip(pt.tree_paths(defs), pt.tree_leaves(defs)) if "inner" in d.axes}
+    if len(split) > 1:
+        raise ValueError(f"{cfg.arch}: its inner dims split differently over the model "
+                         "ranks; a rank's channels must be its heads'")
+    return split == {True}
+
+
 def _gathered(leaves: dict, mesh, axis: str = "data") -> dict:
     """``{path: (t, dim)}`` -> ``{path: t}`` with each split leaf (dim
     not None) gathered over ``axis`` along ``dim``, all of them in one
@@ -255,21 +271,22 @@ class ZeroInfinityEngine:
         # bytes serve_params' gathers over the model axis brought in (context
         # parallelism's whole leaves), summed over the calls
         self.model_gather_bytes = [0]
+        defs = registry.param_defs(run.model)
+        # each leaf's split dim over the model axis (None: whole over it; one
+        # tree: the rules put the model axis on the same dims for every state
+        # class) and over the data axis per state class
+        self.model_splits = pt.leaf_splits(defs, run.model, sizes, run.parallel,
+                                           "param", axis="model")
         if sizes["model"] > 1:
             from repro_torch.core.zero import ModelAxis  # zero.py imports this module
 
-            self.mp = ModelAxis(self.mesh, self._strategy(run, sizes))
+            self.mp = ModelAxis(self.mesh, self._strategy(run, sizes),
+                                inner=_inner_split(defs, self.model_splits, run.model))
         self.bundle = registry.build(run.model, run.parallel, self.mp)
-        # each leaf's split dim over the data axis (None: whole over it) per
-        # state class, and over the model axis (one tree: the rules put the
-        # model axis on the same dims for every state class)
-        self.splits = {cls: pt.leaf_splits(self.bundle.defs, run.model, sizes,
-                                           run.parallel, cls)
+        self.splits = {cls: pt.leaf_splits(defs, run.model, sizes, run.parallel, cls)
                        for cls in STATE_CLASSES}
-        self.model_splits = pt.leaf_splits(self.bundle.defs, run.model, sizes, run.parallel,
-                                           "param", axis="model")
         for cls in STATE_CLASSES:
-            if pt.leaf_splits(self.bundle.defs, run.model, sizes, run.parallel, cls,
+            if pt.leaf_splits(defs, run.model, sizes, run.parallel, cls,
                               axis="model") != self.model_splits:
                 raise ValueError(f"the rules split the {cls} class over the model axis "
                                  "on other dims than the params")
@@ -309,26 +326,36 @@ class ZeroInfinityEngine:
     def _partial_over_model(self, path) -> bool:
         """Whether the model ranks each compute a part of this leaf's
         gradient (their sum the whole): a leaf whole over the model axis
-        under context parallelism (each rank its chunk), and under tensor
-        parallelism a KV projection whose heads do not split (each rank
-        its query heads' KV heads) and MoE's router where the experts
-        split (a rank's gates take cotangents through its experts alone)."""
+        under context parallelism (each rank its chunk, or, in a recurrent
+        block, its ``inner`` channels over the whole sequence), and under
+        tensor parallelism a KV projection whose heads do not split (each
+        rank its query heads' KV heads), MoE's router where the experts
+        split (a rank's gates take cotangents through its experts alone)
+        and mamba2's ``state`` leaves (``w_B``, ``w_C``, ``conv_B``,
+        ``conv_C``) where its ``inner`` channels split (used after the
+        block's entry, each rank's cotangent through its own heads)."""
         if self.mp is None or pt.tree_get(self.model_splits, path) is not None:
             return False
         if not self.mp.tp:
             return True
         if path[-1] == "router":
             return pt.tree_get(self.model_splits, path[:-1] + ("w_in",)) is not None
-        return "kv_heads" in pt.tree_get(self.bundle.defs, path).axes
+        axes = pt.tree_get(self.bundle.defs, path).axes
+        if "state" in axes:
+            return self.mp.inner
+        return "kv_heads" in axes
 
     def _whole_over_model(self, path) -> Optional[int]:
         """The dim along which context parallelism gathers this leaf over
         the model axis before use (None: the rank's shard is used as it
         is): every leaf the rules split there but MoE's experts, whose
-        partial outputs are summed instead (``models/moe.py``)."""
+        partial outputs are summed instead (``models/moe.py``), and the
+        recurrent blocks' ``inner`` leaves, whose blocks gather the
+        sequence instead (``models/mamba2.py``, ``models/rglru.py``)."""
         if self.mp is None or self.mp.tp:
             return None
-        if "experts" in pt.tree_get(self.bundle.defs, path).axes:
+        axes = pt.tree_get(self.bundle.defs, path).axes
+        if "experts" in axes or "inner" in axes:
             return None
         return pt.tree_get(self.model_splits, path)
 

@@ -116,8 +116,8 @@ over the ranks, ``<counter>_all_ranks``, what the reference's one process
 counts, and an executor built from a plan the plan's per-device state
 bytes beside them (``plan_*_shard_bytes``). A plan for another number of
 devices than the ranks (``--data-mesh`` x ``--model-mesh``) raises; so
-do, on a GSPMD mesh, a model axis for a family other than dense, vlm and
-moe (ROADMAP items 8g.3 and 8g.4), params on NVMe and ``param_quant``, which encodes only
+do, on a GSPMD mesh, a model axis for the encoder-decoder (ROADMAP item
+8g.4), params on NVMe and ``param_quant``, which encodes only
 the NVMe param store (8f), and checkpoints at dp > 1 (item 5). On a mesh
 with a model axis the step is the engine's tensor- or context-parallel
 one, in-graph or with the off-graph optimizer over the rank's shards (on
@@ -166,7 +166,8 @@ def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
     ``ValueError`` for a plan made for ``n_devices`` devices (None: no
     plan) on another number of ranks; ``NotImplementedError`` naming the
     ROADMAP item that ports it for the GSPMD engine on a mesh: a model axis
-    for the ssm, hybrid and encdec families (8g.3, 8g.4), params on NVMe (the
+    for the encdec family (8g.4; the dense, vlm, moe, ssm and hybrid
+    families take one), params on NVMe (the
     leaf scheduler) or ``param_quant`` (the NVMe param store's encoding,
     8f)."""
     if n_devices is not None and n_devices != dp:

@@ -25,7 +25,10 @@ is axis 1. On data-parallel ranks each rank keeps its own
 ``PagedKVCache`` over its own store (``launch/serve.py``), so its byte
 counters are the rank's. Under context parallelism a model rank keeps and
 parks its own range of each sequence's positions (``seq_split``,
-``decode_positions``), so the ranks' counters sum to one cache's.
+``decode_positions``), so the ranks' counters sum to one cache's. A
+fixed-state cache on a model axis (the SSM, the hybrid) is the rank's
+``inner`` channels and the leaves every model rank holds whole: each rank
+parks its own, so the ranks' counters hold the whole leaves once a rank.
 """
 from __future__ import annotations
 
@@ -90,9 +93,11 @@ def decode_positions(cache: dict, mp, capacity: int) -> Tuple[dict, int, int, bo
     it splits (``seq_split``), else every one; a chunked prefill's are
     all-gathered over the model ranks first (one collective, ``k`` and
     ``v`` together), so they move to their owners once. Elsewhere the
-    cache is every rank's as it is."""
+    cache is every rank's as it is, and so is a cache without top-level
+    ``k`` / ``v`` (the SSM's and the hybrid's fixed state: their ``inner``
+    leaves are the rank's already, the rest whole on every model rank)."""
     P = int(cache["len"])
-    if mp is None or mp.tp:
+    if mp is None or mp.tp or "k" not in cache:
         return cache, P, capacity, False
     kv = [cache["k"], cache["v"]]
     if kv[0].shape[SEQ_AXIS] < P:
@@ -105,13 +110,13 @@ def decode_positions(cache: dict, mp, capacity: int) -> Tuple[dict, int, int, bo
     return {**cache, "k": kv[0], "v": kv[1]}, kv[0].shape[SEQ_AXIS], capacity, split
 
 
-def sequence_kv_bytes(model, cache_len: int) -> int:
+def sequence_kv_bytes(model, cache_len: int, cache_defs=None) -> int:
     """Bytes of ONE sequence's decode cache at ``cache_len`` context,
-    summed over the family's ``cache_defs`` leaves."""
-    from repro_torch.core import partition as pt
+    summed over the family's ``cache_defs`` leaves (``cache_defs``: a
+    bundle's, e.g. a model rank's; default the whole model's)."""
     from repro_torch.models import registry
 
-    defs = registry.build(model).cache_defs(1, cache_len)
+    defs = (cache_defs or registry.build(model).cache_defs)(1, cache_len)
     return sum(math.prod(d.shape) * d.torch_dtype.itemsize
                for d in pt.tree_leaves(defs))
 

@@ -179,23 +179,47 @@ class FromModel(torch.autograd.Function):
         return ct, None
 
 
+class ModelSum(torch.autograd.Function):
+    """Forward the all-reduce over the model axis, backward the all-reduce
+    of the cotangent over it: a statistic summed over the model ranks'
+    parts of a split dim (the gated RMS norm's sum of squares over the
+    SSM's ``inner`` channels) that each rank then uses on its own part, so
+    each rank's cotangent of it is partial. ``FromModel``'s identity
+    backward would keep the rank's own alone."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.mesh.all_reduce(ct, "model"), None
+
+
 class ModelAxis:
     """A rank's model-parallel context, what ``models/common.py``,
-    ``models/transformer.py`` and ``models/moe.py`` take as ``mp`` (None
-    at one model rank): the mesh (its ``"model"`` group), this rank's
-    model coordinate ``rank`` among ``size`` and the attention
-    ``strategy`` of ``partition.choose_attn_strategy``: ``"tp"`` (heads,
-    MLP columns and vocab rows split over the model ranks, Megatron's
-    explicit collectives) or ``"cp"`` (each rank its ``S / size`` chunk of
-    the sequence; the leaves split over model gathered before use, but
-    MoE's experts). ``chunked`` says, under ``"cp"``, whether a call's
-    activations are the rank's chunk of the sequence (training, and a
-    prompt that splits over the ranks) or the whole of it on every model
-    rank (``whole()``: a prompt that does not split, the reference's
-    divisibility guard, and a decode step's one token)."""
+    ``models/transformer.py``, ``models/moe.py``, ``models/mamba2.py`` and
+    ``models/rglru.py`` take as ``mp`` (None at one model rank): the mesh
+    (its ``"model"`` group), this rank's model coordinate ``rank`` among
+    ``size`` and the attention ``strategy`` of
+    ``partition.choose_attn_strategy``: ``"tp"`` (heads, MLP columns,
+    vocab rows and the recurrent blocks' ``inner`` channels split over the
+    model ranks, Megatron's explicit collectives) or ``"cp"`` (each rank
+    its ``S / size`` chunk of the sequence; the leaves split over model
+    gathered before use, but MoE's experts and the ``inner`` channels,
+    whose block gathers the sequence instead). ``chunked`` says, under
+    ``"cp"``, whether a call's activations are the rank's chunk of the
+    sequence (training, and a prompt that splits over the ranks) or the
+    whole of it on every model rank (``whole()``: a prompt that does not
+    split, the reference's divisibility guard, and a decode step's one
+    token). ``inner`` says whether the recurrent blocks' ``inner``
+    channels split over the model ranks (the engine reads it from the
+    rules, which leave a dim whole that does not divide); where they do
+    not, a recurrent block runs whole on every rank."""
 
-    def __init__(self, mesh, strategy: str, chunked: bool = True):
-        self.mesh, self.strategy, self.chunked = mesh, strategy, chunked
+    def __init__(self, mesh, strategy: str, chunked: bool = True, inner: bool = False):
+        self.mesh, self.strategy, self.chunked, self.inner = mesh, strategy, chunked, inner
         self.rank, self.size = mesh.coords()["model"], mesh.model
 
     @property
@@ -209,7 +233,7 @@ class ModelAxis:
 
     def whole(self) -> "ModelAxis":
         """This rank's context for a call whose activations are whole."""
-        return ModelAxis(self.mesh, self.strategy, chunked=False)
+        return ModelAxis(self.mesh, self.strategy, chunked=False, inner=self.inner)
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """Before a column-parallel product (``ToModel``)."""
@@ -229,6 +253,11 @@ class ModelAxis:
         """The model ranks' partial ``t`` summed, this rank's chunk along
         ``dim`` (``ScatterModel``: backward the all-gather)."""
         return ScatterModel.apply(t, self.mesh, dim)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the model ranks, backward the sum of their
+        cotangents (``ModelSum``)."""
+        return ModelSum.apply(t, self.mesh)
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the model ranks (no gradient)."""

@@ -39,9 +39,9 @@ run: the sequences' tokens and latencies gathered from their ranks,
 ``param_shard_bytes`` and peak allocated bytes.
 
 With a model axis (``--model-mesh M``: D * M ranks, rank r at data
-coordinate r // M and model coordinate r % M) the dense, vlm and moe
-families serve under the reference's attention strategy. Where the heads
-split over M, tensor parallelism (``models/common.py``): each rank holds
+coordinate r // M and model coordinate r % M) every family but the
+encoder-decoder serves under the reference's attention strategy. Where
+the heads split over M, tensor parallelism (``models/common.py``): each rank holds
 its heads, MLP columns (MoE: its experts) and vocab rows, gathers a layer
 over the data axis alone (the model shards stay split: no param byte
 crosses the model axis) and joins the row-parallel products with an
@@ -67,9 +67,13 @@ the ranks' partial softmaxes (flash-decode). Each rank parks and fetches
 its own positions of a waiting sequence, so the ``kv`` bytes summed over
 the ranks are the reference's and each holds 1/M of the resident K/V.
 Where C does not divide, every model rank holds the whole cache, and
-model rank 0's ``kv`` counters are the data row's. The SSM, hybrid and
-encoder-decoder families on a model axis are ROADMAP.md Queue 1 items
-8g.3 and 8g.4.
+model rank 0's ``kv`` counters are the data row's. The SSM and the
+hybrid serve there too, each rank its ``inner`` channels of every
+recurrent block (``models/mamba2.py``, ``models/rglru.py``): their fixed
+caches hold the rank's channels of the conv tails and states, and mamba2's
+``conv_B`` / ``conv_C`` and the hybrid's window rings whole on every model
+rank, so each rank parks its own; nothing of them splits by position. The
+encoder-decoder on a model axis is ROADMAP.md Queue 1 item 8g.4.
 
 Every family serves: dense, MoE (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
@@ -181,8 +185,8 @@ def _parse(argv=None):
                     help="data-parallel ranks, one process each (torchrun); 0: "
                          "the devices a --plan is made for (--hw-devices), else 1")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="model-parallel ranks (tensor or context parallelism, dense, "
-                         "vlm and moe families): --data-mesh x --model-mesh ranks in all")
+                    help="model-parallel ranks (tensor or context parallelism, every "
+                         "family but encdec): --data-mesh x --model-mesh ranks in all")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
                     metavar="OUT.json",
@@ -204,8 +208,7 @@ def resolve_device(name: str) -> torch.device:
 
 def _unported(args) -> None:
     """Raise, before any process group, where the model axis does not
-    serve: the families outside dense, vlm and moe (ROADMAP.md Queue 1
-    items 8g.3 and 8g.4)."""
+    serve: the encoder-decoder (ROADMAP.md Queue 1 item 8g.4)."""
     if args.model_mesh > 1:
         cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
         registry.check_model_axis(cfg, args.model_mesh)
@@ -557,8 +560,9 @@ def _serve(args, argv, mesh) -> dict:
     # where every data row served every slot
     serving = ranks if split else ranks[:M]
     # a cache whole on every model rank (context parallelism whose capacity
-    # does not split) is counted once a data row: model rank 0's
-    counted = serving if not cp or split_seq else serving[::M]
+    # does not split, and no recurrent family's inner channels split) is
+    # counted once a data row: model rank 0's
+    counted = serving if not cp or split_seq or eng.mp.inner else serving[::M]
     tok_lat = []
     for r in serving[::M]:
         for s, (g, d, t) in r["seqs"].items():

@@ -45,6 +45,14 @@ reference's ``cache_seq`` on ``model``): its layer cache then carries
 the rank that owns its position, and each rank's partial softmax over its
 valid positions (``decode_partial``) is combined over the model ranks
 (``combine_partials``), the reference's flash-decode pattern.
+
+The SSM's and the hybrid's recurrent blocks hold the rank's ``inner``
+channels under both strategies (the reference's ``inner`` on ``model``):
+the rank's slice computes over the whole sequence and no ``inner`` leaf
+moves. ``inner_enter`` gathers a context-parallel rank's chunks into the
+sequence (or enters the column-parallel product), ``inner_exit``
+reduce-scatters (or joins) the row-parallel output, and
+``rms_norm_split`` normalises over the split channels.
 """
 from __future__ import annotations
 
@@ -68,6 +76,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(dt)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, mp, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` over a last dim split over the model ranks, ``x`` and
+    ``scale`` the rank's part of it: the mean of squares is the ranks'
+    sums of squares summed (``mp.sum``, whose backward sums the ranks'
+    cotangents of it: each rank normalises its own part) over the whole
+    dim's length."""
+    dt = x.dtype
+    x = x.float()
+    var = mp.sum(torch.sum(x * x, dim=-1, keepdim=True)) / (x.shape[-1] * mp.size)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dt)
 
@@ -319,6 +340,41 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if tp:
         out = mp.join(out)
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Recurrent blocks' inner channels on the model axis
+# ---------------------------------------------------------------------------
+
+
+def inner_enter(x: torch.Tensor, mp, split: bool) -> torch.Tensor:
+    """A recurrent block's (normed) input over the whole sequence, the
+    block's ``inner`` channels the rank's where ``split``: under context
+    parallelism with chunked activations the model ranks' chunks gathered
+    along the sequence (backward: the reduce-scatter), whether or not the
+    channels split; elsewhere ``mp.enter`` where they split (backward: the
+    all-reduce), else ``x`` (the block runs whole)."""
+    if mp is None:
+        return x
+    if mp.seq:
+        return mp.gather(x, 1)
+    return mp.enter(x) if split else x
+
+
+def inner_exit(out: torch.Tensor, mp, split: bool) -> torch.Tensor:
+    """The block's output from ``inner_enter``'s input: where ``split``,
+    the row-parallel partial sums joined (``mp.scatter`` to the rank's
+    chunk under context parallelism, else ``mp.join``); a whole block's
+    output is every rank's, and under context parallelism its chunk is
+    sliced out with no sum."""
+    if mp is None:
+        return out
+    if mp.seq:
+        if split:
+            return mp.scatter(out, 1)
+        n = out.shape[1] // mp.size
+        return out[:, mp.rank * n:(mp.rank + 1) * n]
+    return mp.join(out) if split else out
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,20 @@ no intermediate is larger than (B, nc, H, Q, Q). The reference's
 runs under ``parallel.remat`` (``models/remat.py``), as the reference's
 ``jax.checkpoint`` of the scanned body: under ``dots`` the projections'
 products are saved and the SSD's batched einsums recomputed. Decode writes the stacked cache IN PLACE.
+
+With a model-parallel context (``mp``, ``models/common.py``) a rank holds
+``H/M`` SSD heads and ``d_in/M`` channels of the ``inner`` leaves (``w_z``,
+``w_x``, ``w_dt``, ``conv_x``, ``A_log``, ``D``, ``dt_bias``, ``gn`` and
+``w_out``'s rows) where both divide, under either strategy; ``w_B``,
+``w_C``, ``conv_B`` and ``conv_C`` are on ``state`` and whole, so every
+rank computes ``Bm`` and ``Cm`` whole. Each block runs the rank's heads
+over the whole sequence (the SSD scan is per head): ``cm.inner_enter``
+gathers a context-parallel rank's chunks, the gated RMS norm sums its
+squares over the model ranks (``cm.rms_norm_split``), and ``w_out``'s
+partial sums leave by ``cm.inner_exit``. The embedding, logits and loss
+are the dense family's (vocab-parallel under tensor parallelism, the
+rank's chunk under context parallelism); the decode cache's ``conv_x`` and
+``state`` hold the rank's channels and heads.
 """
 from __future__ import annotations
 
@@ -162,13 +176,18 @@ def ssd_chunked(xbar, dA, Bm, Cm, chunk: int, h0=None):
     return y, h
 
 
-def mamba_block(p, x, cfg: ModelConfig, cache=None, collect_state=False):
+def mamba_block(p, x, cfg: ModelConfig, cache=None, collect_state=False, mp=None):
     """x: (B,S,d) -> (out, new_cache). ``cache`` {"conv_x","conv_B",
     "conv_C","state"} for decode; ``collect_state`` (prefill) returns the
-    equivalent cache in one pass; otherwise the cache is None."""
-    d_in, H, P, N = _dims(cfg)
+    equivalent cache in one pass; otherwise the cache is None. With ``mp``
+    (module docstring) the heads, channels and cache are the rank's; under
+    context parallelism ``x`` and the output are its chunk."""
+    _, _, P, _ = _dims(cfg)
     W = cfg.conv_width
+    split = mp is not None and mp.inner
+    H, d_in = p["A_log"].shape[-1], p["w_x"].shape[-1]  # the rank's
     x = cm.norm(x, p["ln"], cfg.norm_kind)  # pre-norm (residual added by caller)
+    x = cm.inner_enter(x, mp, split)
     z = x @ p["w_z"].to(x.dtype)
     xs = x @ p["w_x"].to(x.dtype)
     Bm = x @ p["w_B"].to(x.dtype)
@@ -210,16 +229,21 @@ def mamba_block(p, x, cfg: ModelConfig, cache=None, collect_state=False):
 
     y = y + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(*y.shape[:2], d_in)
-    y = cm.rms_norm((y * F.silu(z.float())).to(x.dtype), p["gn"])
-    out = y @ p["w_out"].to(y.dtype)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    y = cm.rms_norm_split(y, p["gn"], mp) if split else cm.rms_norm(y, p["gn"])
+    out = cm.inner_exit(y @ p["w_out"].to(y.dtype), mp, split)
     return out, (new_cache if (cache is not None or collect_state) else None)
 
 
 CACHE_KEYS = ("conv_x", "conv_B", "conv_C", "state")
 
 
-def cache_defs_fn(cfg: ModelConfig):
+def cache_defs_fn(cfg: ModelConfig, mp=None):
+    """The decode cache's defs; with ``mp`` the rank's channels and heads
+    where they split over the model ranks."""
     d_in, H, P, N = _dims(cfg)
+    if mp is not None and mp.inner:
+        d_in, H = d_in // mp.size, H // mp.size
     w = cfg.conv_width
     L = cfg.n_layers
 
@@ -236,39 +260,59 @@ def cache_defs_fn(cfg: ModelConfig):
     return cache_defs
 
 
-def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None):
+    """The family's functions; with ``mp`` a model rank's part (module
+    docstring)."""
     remat = parallel.remat
+    cp = mp is not None and not mp.tp
 
     def train_block(h, blk):
-        return h + mamba_block(blk, h, cfg)[0]
+        return h + mamba_block(blk, h, cfg, mp=mp)[0]
 
     def loss_fn(params, batch):
         """Mean next-token cross-entropy (labels shifted by one inside);
-        each stacked block leaf is unbound once, as in the dense family."""
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        each stacked block leaf is unbound once, as in the dense family.
+        Context parallel: the rank's chunk's share (``tf.chunk_loss``)."""
+        if cp:
+            x, _, chunk = tf.chunk_embed(params, batch, cfg, mp)
+        else:
+            x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
         for l in range(cfg.n_layers):
             blk = pt.tree_map(lambda ts: ts[l], layers)
             x = remat_mod.remat(remat, train_block, x, blk)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
-        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
+        if cp:
+            return tf.chunk_loss(params, x, batch["labels"], chunk, cfg)
+        lg = cm.logits(params["embed"], x, cfg, mp)
+        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size,
+                          mp if cm.vocab_sharded(params["embed"], cfg, mp) else None)
 
     @torch.no_grad()
     def prefill(params, batch):
         """The chunked scan over the prompt, keeping each layer's conv tails
-        and final state; returns the last position's logits and the cache."""
+        and final state; returns the last position's logits and the cache.
+        Context parallel: where the prompt splits over the model ranks each
+        embeds its chunk (every block gathers the sequence), else every
+        rank runs the whole prompt; the cache is the rank's channels of the
+        whole prompt's either way."""
         tokens = batch["tokens"]
-        x = cm.embed(params["embed"], tokens, cfg)
+        chunked = cp and tokens.shape[1] % mp.size == 0
+        if chunked:
+            x, _, _ = tf.chunk_embed(params, batch, cfg, mp)
+        else:
+            x = cm.embed(params["embed"], tokens, cfg, mp)
+        bmp = mp.whole() if cp and not chunked else mp
         outs = {k: [] for k in CACHE_KEYS}
         for l in range(cfg.n_layers):
             out, nc = mamba_block(tf.layer_params(params["blocks"], l), x, cfg,
-                                  collect_state=True)
+                                  collect_state=True, mp=bmp)
             x = x + out
             for k in CACHE_KEYS:
                 outs[k].append(nc[k])
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x[:, -1:], cfg)
+        last = mp.stack(x[:, -1:])[-1] if chunked else x[:, -1:]
+        lg = cm.logits(params["embed"], last, cfg, mp)
         cache = {k: torch.stack(v) for k, v in outs.items()}
         cache["len"] = torch.tensor(tokens.shape[1], dtype=torch.int32, device=x.device)
         return lg, cache
@@ -278,21 +322,23 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         """One token per row against the fixed-size state; the conv tails
         and states are updated IN PLACE. ``len`` (scalar or per row) only
         counts."""
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
+        bmp = mp.whole() if cp else mp
         for l in range(cfg.n_layers):
             layer = {k: cache[k][l] for k in CACHE_KEYS}
-            out, nc = mamba_block(tf.layer_params(params["blocks"], l), x, cfg, cache=layer)
+            out, nc = mamba_block(tf.layer_params(params["blocks"], l), x, cfg, cache=layer,
+                                  mp=bmp)
             x = x + out
             for k in CACHE_KEYS:
                 layer[k].copy_(nc[k])
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
+        lg = cm.logits(params["embed"], x, cfg, mp)
         return lg, {**{k: cache[k] for k in CACHE_KEYS}, "len": cache["len"] + 1}
 
     return {
         "loss": loss_fn,
         "prefill": prefill,
         "decode_step": decode_step,
-        "cache_defs": cache_defs_fn(cfg),
+        "cache_defs": cache_defs_fn(cfg, mp),
         "input_specs": tf.make_input_specs(cfg),
     }

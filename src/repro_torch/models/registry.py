@@ -60,10 +60,11 @@ class ModelBundle:
 
 
 # the families the model axis is ported for (tensor and context
-# parallelism, ``models/common.py``), and what ports the rest
-MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe")
-MODEL_AXIS_ITEMS = {"ssm": "8g.3: the SSM's inner dim", "hybrid": "8g.3: the hybrid's inner dim",
-                    "encdec": "8g.4: the encoder-decoder"}
+# parallelism, ``models/common.py``; the recurrent blocks' ``inner``
+# channels, ``models/mamba2.py`` and ``models/rglru.py``), and what ports
+# the rest
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+MODEL_AXIS_ITEMS = {"encdec": "8g.4: the encoder-decoder"}
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
@@ -73,14 +74,19 @@ def check_model_axis(cfg: ModelConfig, model: int) -> None:
     if model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch}) on a model axis of {model}: tensor and "
-            f"context parallelism cover the dense, vlm and moe families (ROADMAP.md Queue 1 "
-            f"item {MODEL_AXIS_ITEMS[cfg.family]} on the model axis)")
+            f"context parallelism cover the dense, vlm, moe, ssm and hybrid families "
+            f"(ROADMAP.md Queue 1 item {MODEL_AXIS_ITEMS[cfg.family]} on the model axis)")
+
+
+def param_defs(cfg: ModelConfig):
+    """The family's param defs (every leaf's whole shape and axes)."""
+    return FAMILY_MODULES[cfg.family].param_defs(cfg)
 
 
 def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None) -> ModelBundle:
     """The family's bundle; with ``mp`` (a ``core/zero.ModelAxis``) a model
-    rank's part of it (``models/common.py``): the dense, vlm and moe
-    families only, the others raise naming item 8g."""
+    rank's part of it (``models/common.py``): every family but the
+    encoder-decoder, which raises naming item 8g.4."""
     if mp is not None:
         check_model_axis(cfg, mp.size)
     if cfg.score_dtype != "float32":
@@ -94,7 +100,7 @@ def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None
     fns = mod.make_fns(cfg, parallel, mp) if mp is not None else mod.make_fns(cfg, parallel)
     return ModelBundle(
         cfg=cfg,
-        defs=mod.param_defs(cfg),
+        defs=param_defs(cfg),
         loss=fns["loss"],
         prefill=fns["prefill"],
         decode_step=fns["decode_step"],

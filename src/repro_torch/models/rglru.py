@@ -22,6 +22,24 @@ slots, per row for continuous batching. The reference's ``lax.scan`` over
 groups and tail blocks is a Python loop; each group and each tail block
 runs under ``parallel.remat`` (``models/remat.py``). Decode writes the
 stacked cache IN PLACE.
+
+With a model-parallel context (``mp``, ``models/common.py``) a rank holds
+``r/M`` channels of the RG-LRU's ``inner`` leaves (``w_gate``, ``w_in``,
+``conv``, ``lam``, ``b_a``, ``b_i``; ``w_out``'s matching rows) where
+``lru_width`` divides, under either strategy. The gate products ``w_a`` /
+``w_i`` are ``(r, r)`` on ``("embed", "inner")``: the rank holds their
+output columns, so the whole ``uf`` is gathered over the model ranks along
+its channels before them (backward: the reduce-scatter, which sums the
+ranks' partial cotangents). The recurrence is elementwise per channel and
+runs on the rank's alone, over the whole sequence: ``cm.inner_enter``
+gathers a context-parallel rank's chunks and ``cm.inner_exit``
+reduce-scatters (or joins) ``w_out``'s partial sums. Where ``lru_width``
+does not divide the block runs whole (under context parallelism on the
+gathered sequence, its chunk kept). The attention sub-block and the GeGLU
+MLPs are the dense family's under ``mp``; the window rings stay whole on
+every model rank (a context-parallel prefill's K/V gathered over the
+sequence before the ring is laid out), the conv tails and LRU states hold
+the rank's channels.
 """
 from __future__ import annotations
 
@@ -144,11 +162,14 @@ def _causal_conv_silu_free(x, w, state=None):
     return mamba2._conv(x, w, state)
 
 
-def rec_block(p, x, cfg: ModelConfig, cache=None, collect_state=False):
+def rec_block(p, x, cfg: ModelConfig, cache=None, collect_state=False, mp=None):
     """Griffin recurrent block. cache: {"conv": (B,W-1,R), "h": (B,R)}.
-    Returns (out, new_cache or None)."""
+    Returns (out, new_cache or None). With ``mp`` (module docstring) the
+    channels and the cache are the rank's; under context parallelism ``x``
+    and the output are its chunk."""
     W = cfg.conv_width
-    xn = cm.norm(x, p["ln"], cfg.norm_kind)
+    split = mp is not None and mp.inner
+    xn = cm.inner_enter(cm.norm(x, p["ln"], cfg.norm_kind), mp, split)
     gate = F.gelu(xn @ p["w_gate"].to(xn.dtype), approximate="tanh")
     u = xn @ p["w_in"].to(xn.dtype)
 
@@ -161,18 +182,19 @@ def rec_block(p, x, cfg: ModelConfig, cache=None, collect_state=False):
         uc, new_cache["conv"] = _causal_conv_silu_free(u, p["conv"], cache["conv"])
 
     uf = uc.float()
-    r_gate = torch.sigmoid(uf @ p["w_a"].float() + p["b_a"])
-    i_gate = torch.sigmoid(uf @ p["w_i"].float() + p["b_i"])
+    ua = mp.gather(uf, 2) if split else uf  # the gates read every channel
+    r_gate = torch.sigmoid(ua @ p["w_a"].float() + p["b_a"])
+    i_gate = torch.sigmoid(ua @ p["w_i"].float() + p["b_i"])
     h0 = cache["h"].float() if cache is not None else None
     y, h_last = rg_lru(uf, r_gate, i_gate, p["lam"], h0=h0)
     if cache is not None or collect_state:
         new_cache["h"] = h_last
     out = (y.to(x.dtype) * gate) @ p["w_out"].to(x.dtype)
-    return out, (new_cache or None)
+    return cm.inner_exit(out, mp, split), (new_cache or None)
 
 
-def _mlp(p, x, cfg, tiles):
-    return cm.mlp_block(p["mlp"], cm.norm(x, p["ln"], cfg.norm_kind), cfg, tiles)
+def _mlp(p, x, cfg, tiles, mp=None):
+    return cm.mlp_block(p["mlp"], cm.norm(x, p["ln"], cfg.norm_kind), cfg, tiles, mp=mp)
 
 
 def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -184,41 +206,53 @@ def _ring(k: torch.Tensor, window: int) -> torch.Tensor:
     return F.pad(k, (0, 0, 0, 0, 0, window - S))
 
 
-def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
+def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None):
+    """The family's functions; with ``mp`` a model rank's part (module
+    docstring)."""
     remat = parallel.remat
     tiles = parallel.tiling_factor
     n_groups, n_tail = _layout(cfg)
     window = cfg.window
+    cp = mp is not None and not mp.tp
 
-    def attn_sub(p, x, positions, cache=None, collect_kv=False):
+    def attn_sub(p, x, positions, cache=None, collect_kv=False, bmp=mp):
         a, nc = cm.attention_block(
             p["attn"], cm.norm(x, p["ln"], cfg.norm_kind), positions, cfg,
-            causal=True, window=window, cache=cache, collect_kv=collect_kv)
+            causal=True, window=window, cache=cache, collect_kv=collect_kv, mp=bmp)
         return x + a, nc
 
-    def group_fwd(x, g, positions, caches=None, collect=False):
+    def group_fwd(x, g, positions, caches=None, collect=False, bmp=mp):
         """One (rec, mlp, rec, mlp, attn, mlp) group."""
         c = caches or {}
-        r1, c1 = rec_block(g["rec1"], x, cfg, c.get("rec1"), collect)
+        r1, c1 = rec_block(g["rec1"], x, cfg, c.get("rec1"), collect, mp=bmp)
         x = x + r1
-        x = x + _mlp(g["mlp1"], x, cfg, tiles)
-        r2, c2 = rec_block(g["rec2"], x, cfg, c.get("rec2"), collect)
+        x = x + _mlp(g["mlp1"], x, cfg, tiles, bmp)
+        r2, c2 = rec_block(g["rec2"], x, cfg, c.get("rec2"), collect, mp=bmp)
         x = x + r2
-        x = x + _mlp(g["mlp2"], x, cfg, tiles)
-        x, ca = attn_sub(g["attn"], x, positions, c.get("attn"), collect)
-        x = x + _mlp(g["mlp3"], x, cfg, tiles)
+        x = x + _mlp(g["mlp2"], x, cfg, tiles, bmp)
+        x, ca = attn_sub(g["attn"], x, positions, c.get("attn"), collect, bmp)
+        x = x + _mlp(g["mlp3"], x, cfg, tiles, bmp)
         return x, {"rec1": c1, "rec2": c2, "attn": ca}
 
-    def tail_fwd(x, t, caches=None, collect=False):
+    def tail_fwd(x, t, caches=None, collect=False, bmp=mp):
         c = caches or {}
-        r, cr = rec_block(t["rec"], x, cfg, c.get("rec"), collect)
+        r, cr = rec_block(t["rec"], x, cfg, c.get("rec"), collect, mp=bmp)
         x = x + r
-        x = x + _mlp(t["mlp"], x, cfg, tiles)
+        x = x + _mlp(t["mlp"], x, cfg, tiles, bmp)
         return x, {"rec": cr}
 
     def positions_of(x):
         B, S, _ = x.shape
         return torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+    def inputs(params, batch, chunked):
+        """The embedded tokens and their absolute positions: a
+        context-parallel rank's chunk where ``chunked``
+        (``tf.chunk_embed``), else the whole sequence."""
+        if chunked:
+            return tf.chunk_embed(params, batch, cfg, mp)
+        x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
+        return x, positions_of(x), None
 
     # ------------------------------ train ---------------------------------
 
@@ -230,9 +264,9 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
 
     def loss_fn(params, batch):
         """Mean next-token cross-entropy; each stacked leaf is unbound once
-        (one stack of the groups' gradients, as in the dense family)."""
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
-        positions = positions_of(x)
+        (one stack of the groups' gradients, as in the dense family).
+        Context parallel: the rank's chunk's share (``tf.chunk_loss``)."""
+        x, positions, chunk = inputs(params, batch, cp)
         groups = pt.tree_map(lambda t: t.unbind(0), params["groups"])
         for l in range(n_groups):
             g = pt.tree_map(lambda ts: ts[l], groups)
@@ -243,13 +277,19 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
                 t = pt.tree_map(lambda ts: ts[l], tails)
                 x = remat_mod.remat(remat, train_tail, x, t)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
-        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size)
+        if cp:
+            return tf.chunk_loss(params, x, batch["labels"], chunk, cfg)
+        lg = cm.logits(params["embed"], x, cfg, mp)
+        return cm.lm_loss(lg[:, :-1], batch["labels"][:, 1:], cfg.vocab_size,
+                          mp if cm.vocab_sharded(params["embed"], cfg, mp) else None)
 
     # ----------------------------- serving --------------------------------
 
     def cache_defs(batch: int, cache_len: int) -> dict:
-        r, w, KV, D = cfg.lru_width, cfg.conv_width, cfg.n_kv_heads, cfg.resolved_head_dim
+        r, w, D = cfg.lru_width, cfg.conv_width, cfg.resolved_head_dim
+        KV = tf.local_kv_heads(cfg, mp)
+        if mp is not None and mp.inner:
+            r //= mp.size  # the rank's channels
 
         def rec_cache(n):
             return {
@@ -275,30 +315,40 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
     def prefill(params, batch):
         """Forward over the prompt, keeping the recurrent states and each
         attention block's K/V ring; returns the last position's logits and
-        the cache."""
+        the cache. Context parallel: where the prompt splits over the model
+        ranks each runs its chunk (every recurrent block gathers the
+        sequence) and the chunks' K/V are gathered over the model ranks
+        before the ring is laid out, else every rank runs the whole
+        prompt."""
         tokens = batch["tokens"]
-        x = cm.embed(params["embed"], tokens, cfg)
-        positions = positions_of(x)
+        chunked = cp and tokens.shape[1] % mp.size == 0
+        x, positions, _ = inputs(params, batch, chunked)
+        bmp = mp.whole() if cp and not chunked else mp
         outs = {"rec1": {"conv": [], "h": []}, "rec2": {"conv": [], "h": []},
                 "attn": {"k": [], "v": []}}
         for l in range(n_groups):
-            x, c = group_fwd(x, tf.layer_params(params["groups"], l), positions, collect=True)
+            x, c = group_fwd(x, tf.layer_params(params["groups"], l), positions, collect=True,
+                             bmp=bmp)
             for sub in ("rec1", "rec2"):
                 for k in ("conv", "h"):
                     outs[sub][k].append(c[sub][k])
-            for k in ("k", "v"):
-                outs["attn"][k].append(_ring(c["attn"][k], window))
+            kv = [c["attn"]["k"], c["attn"]["v"]]
+            if chunked:  # the prompt's K/V from the ranks' chunks
+                kv = mp.mesh.all_gather_leaves([(t, 1) for t in kv], "model")
+            for k, t in zip(("k", "v"), kv):
+                outs["attn"][k].append(_ring(t, window))
         caches = {"groups": pt.tree_map(torch.stack, outs),
                   "len": torch.tensor(tokens.shape[1], dtype=torch.int32, device=x.device)}
         if n_tail:
             tail = {"conv": [], "h": []}
             for l in range(n_tail):
-                x, c = tail_fwd(x, tf.layer_params(params["tail"], l), collect=True)
+                x, c = tail_fwd(x, tf.layer_params(params["tail"], l), collect=True, bmp=bmp)
                 for k in ("conv", "h"):
                     tail[k].append(c["rec"][k])
             caches["tail"] = {"rec": pt.tree_map(torch.stack, tail)}
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x[:, -1:], cfg)
+        last = mp.stack(x[:, -1:])[-1] if chunked else x[:, -1:]
+        lg = cm.logits(params["embed"], last, cfg, mp)
         return lg, caches
 
     @torch.no_grad()
@@ -306,7 +356,8 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
         """One token per row: ``len`` is a scalar (lockstep) or (B,) per-slot
         lengths; each row writes its ring slot ``len % window`` and attends
         over ``min(len + 1, window)`` slots. States update IN PLACE."""
-        x = cm.embed(params["embed"], batch["tokens"], cfg)
+        x = cm.embed(params["embed"], batch["tokens"], cfg, mp)
+        bmp = mp.whole() if cp else mp
         B = x.shape[0]
         clen = cache["len"]
         positions = clen.reshape(-1, 1).expand(B, 1)
@@ -321,7 +372,8 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
                 "attn": {"k": g["attn"]["k"][l], "v": g["attn"]["v"][l], "len": clen,
                          "write_pos": write_pos, "valid_len": valid_len},
             }
-            x, c = group_fwd(x, tf.layer_params(params["groups"], l), positions, caches=caches)
+            x, c = group_fwd(x, tf.layer_params(params["groups"], l), positions, caches=caches,
+                             bmp=bmp)
             for sub in ("rec1", "rec2"):
                 for k in ("conv", "h"):
                     caches[sub][k].copy_(c[sub][k])
@@ -330,12 +382,13 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
             t = cache["tail"]["rec"]
             for l in range(n_tail):
                 rc = {k: t[k][l] for k in ("conv", "h")}
-                x, c = tail_fwd(x, tf.layer_params(params["tail"], l), caches={"rec": rc})
+                x, c = tail_fwd(x, tf.layer_params(params["tail"], l), caches={"rec": rc},
+                                bmp=bmp)
                 for k in ("conv", "h"):
                     rc[k].copy_(c["rec"][k])
             new["tail"] = cache["tail"]
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
-        lg = cm.logits(params["embed"], x, cfg)
+        lg = cm.logits(params["embed"], x, cfg, mp)
         return lg, new
 
     return {

@@ -172,6 +172,42 @@ def make_input_specs(cfg: ModelConfig):
     return input_specs
 
 
+def chunk_embed(params, batch, cfg: ModelConfig, mp):
+    """Context parallel: this model rank's chunk ``[lo, hi)`` of the
+    (merged) sequence, embedded, its absolute positions and ``(lo, hi,
+    vision_len, T)`` for ``chunk_loss``. Every decoder-only family's."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    vl = cfg.vision_len if cfg.family == "vlm" else 0
+    S = vl + T
+    if S % mp.size:
+        raise ValueError(f"context parallelism: a sequence of {S} positions does not "
+                         f"split over {mp.size} model ranks")
+    lo, hi = mp.rank * (S // mp.size), (mp.rank + 1) * (S // mp.size)
+    x = cm.embed(params["embed"], tokens[:, max(lo - vl, 0):max(hi - vl, 0)], cfg)
+    if vl:
+        x = _merge_vision(x, batch["vision_embeds"][:, min(lo, vl):min(hi, vl)])
+    positions = torch.arange(lo, hi, device=x.device)[None, :].expand(B, hi - lo)
+    return x, positions, (lo, hi, vl, T)
+
+
+def chunk_loss(params, x, labels, chunk, cfg: ModelConfig):
+    """The chunk's positions that predict a text label (merged position p
+    predicts label ``p - vision_len + 1``): their cross-entropy summed over
+    the batch's count of such positions, ``B * (T - 1)``, so the model
+    ranks' sum is the batch's mean."""
+    lo, hi, vl, T = chunk
+    a, b = max(lo, vl), min(hi, vl + T - 1)  # merged positions with a label
+    # a chunk without a label (a VLM's vision positions) takes the head
+    # on none of its positions: its zero gradient still reaches every
+    # leaf, so every rank runs the same collectives in the backward
+    lg = cm.logits(params["embed"], x[:, max(a - lo, 0):max(b - lo, 0)], cfg)
+    if b <= a:
+        return lg.float().sum()
+    mean = cm.lm_loss(lg, labels[:, a - vl + 1:b - vl + 1], cfg.vocab_size)
+    return mean * ((b - a) / (T - 1))
+
+
 def make_block_fn(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig()):
     """Standalone ``(x, blk_params, positions) -> x`` block (train mode),
     as ``repro/models/transformer.py:make_block_fn``: the explicit ZeRO-3
@@ -223,23 +259,6 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
         """The (merged) sequence's positions: a VLM's vision ones too."""
         return (cfg.vision_len if cfg.family == "vlm" else 0) + batch["tokens"].shape[1]
 
-    def chunk_inputs(params, batch):
-        """Context parallel: this rank's chunk ``[lo, hi)`` of the (merged)
-        sequence, embedded, and its absolute positions."""
-        tokens = batch["tokens"]
-        B, T = tokens.shape
-        vl = cfg.vision_len if cfg.family == "vlm" else 0
-        S = vl + T
-        if S % mp.size:
-            raise ValueError(f"context parallelism: a sequence of {S} positions does not "
-                             f"split over {mp.size} model ranks")
-        lo, hi = mp.rank * (S // mp.size), (mp.rank + 1) * (S // mp.size)
-        x = cm.embed(params["embed"], tokens[:, max(lo - vl, 0):max(hi - vl, 0)], cfg)
-        if vl:
-            x = _merge_vision(x, batch["vision_embeds"][:, min(lo, vl):min(hi, vl)])
-        positions = torch.arange(lo, hi, device=x.device)[None, :].expand(B, hi - lo)
-        return x, positions, (lo, hi, vl, T)
-
     def train_block(x, blk, positions):
         return block(x, blk, positions)[0]
 
@@ -258,7 +277,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
         all-reduce over the data ranks) before ``stats`` takes the ratios,
         so each rank reports the global batch's statistics."""
         if cp:
-            x, positions, chunk = chunk_inputs(params, batch)
+            x, positions, chunk = chunk_embed(params, batch, cfg, mp)
         else:
             x, positions = backbone_inputs(params, batch)
         layers = pt.tree_map(lambda t: t.unbind(0), params["blocks"])
@@ -272,7 +291,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
                 raw.append(counts)
         x = cm.norm(x, params["ln_f"], cfg.norm_kind)
         if cp:
-            loss = _chunk_loss(params, x, batch["labels"], chunk)
+            loss = chunk_loss(params, x, batch["labels"], chunk, cfg)
         else:
             lg = cm.logits(params["embed"], x, cfg, mp)
             if cfg.family == "vlm":  # the loss covers the text positions only
@@ -287,21 +306,6 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
     def loss_fn(params, batch):
         return loss_stats_fn(params, batch)[0]
 
-    def _chunk_loss(params, x, labels, chunk):
-        """The chunk's positions that predict a text label (merged position
-        p predicts label ``p - vision_len + 1``): their cross-entropy summed
-        over the batch's count of such positions, ``B * (T - 1)``."""
-        lo, hi, vl, T = chunk
-        a, b = max(lo, vl), min(hi, vl + T - 1)  # merged positions with a label
-        # a chunk without a label (a VLM's vision positions) takes the head
-        # on none of its positions: its zero gradient still reaches every
-        # leaf, so every rank runs the same collectives in the backward
-        lg = cm.logits(params["embed"], x[:, max(a - lo, 0):max(b - lo, 0)], cfg)
-        if b <= a:
-            return lg.float().sum()
-        mean = cm.lm_loss(lg, labels[:, a - vl + 1:b - vl + 1], cfg.vocab_size)
-        return mean * ((b - a) / (T - 1))
-
     @torch.no_grad()
     def prefill(params, batch):
         """Forward over the prompt, building the KV cache; returns the last
@@ -314,7 +318,7 @@ def make_fns(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=N
         reference's divisibility guard) and keeps all of it."""
         chunked = cp and seq_len(batch) % mp.size == 0
         if chunked:
-            x, positions, _ = chunk_inputs(params, batch)
+            x, positions, _ = chunk_embed(params, batch, cfg, mp)
         else:
             x, positions = backbone_inputs(params, batch)
         bmp = mp.whole() if cp and not chunked else mp

@@ -660,15 +660,17 @@ def test_wave_backward_is_the_dim1_reduce_scatter(dpm):
 def test_serving_moe_on_a_mesh_refuses_naming_its_item():
     """MoE trains and serves on data-parallel ranks (serving:
     ``tests/test_torch_serve_mesh.py``) and over a model axis
-    (``tests/test_torch_moe_tp.py``); serving the hybrid over a model axis
-    stays unported (item 8g.3: its inner dim on the model axis)."""
+    (``tests/test_torch_moe_tp.py``), as the hybrid does (item 8g.3,
+    ``tests/test_torch_recurrent_tp.py``); serving the encoder-decoder over
+    a model axis stays unported (item 8g.4)."""
     from repro_torch.launch import serve
 
     base = ["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--data-mesh", "2"]
     serve._unported(serve._parse(base))
     serve._unported(serve._parse(base + ["--model-mesh", "2"]))
-    with pytest.raises(NotImplementedError, match="item 8g.3"):
-        serve._unported(serve._parse(base[2:] + ["--arch", "recurrentgemma-9b",
+    serve._unported(serve._parse(base[2:] + ["--arch", "recurrentgemma-9b", "--model-mesh", "2"]))
+    with pytest.raises(NotImplementedError, match="item 8g.4"):
+        serve._unported(serve._parse(base[2:] + ["--arch", "seamless-m4t-medium",
                                                  "--model-mesh", "2"]))
 
 

@@ -394,7 +394,7 @@ def test_a_plan_for_another_device_count_raises_naming_both(n_devices, dp):
 
 
 @pytest.mark.parametrize("what,run,mesh,match", [
-    ("model_axis", _run("mamba2-370m"), (1, 2), "item 8g"),
+    ("model_axis", _run("seamless-m4t-medium"), (1, 2), "item 8g"),
     ("moe", _run("granite-moe-1b-a400m", param_quant="q8"), (2, 1), "item 8f"),
     ("param_nvme", _run(param_tier="nvme"), (2, 1), "item 8f")])
 def test_gspmd_mesh_refuses_what_stays_unported(what, run, mesh, match):
@@ -407,7 +407,7 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "pjit", "--steps", "1", "--bat
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--data-mesh", "1", "--model-mesh", "2", "--arch", "recurrentgemma-9b"],
+    (["--data-mesh", "1", "--model-mesh", "2", "--arch", "seamless-m4t-medium"],
      NotImplementedError, "item 8g"),
     (["--data-mesh", "2", "--arch", "granite-moe-1b-a400m", "--param-quant", "q4"],
      NotImplementedError, "item 8f"),

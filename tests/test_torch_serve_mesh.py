@@ -287,16 +287,19 @@ def test_no_config_splits_a_stacked_leaf_on_its_layer_dim(smoke):
 def test_model_mesh_raises_naming_item_8e():
     """What a model axis does not serve raises before any process group,
     naming the item that ports it, 8g (8e's tensor parallelism serves:
-    ``tests/test_torch_tp_serve.py``): the SSM's inner dim (8g.3). The
+    ``tests/test_torch_tp_serve.py``; the SSM's inner dim, 8g.3, too:
+    ``tests/test_torch_recurrent_tp.py``): the encoder-decoder (8g.4). The
     smoke smollm's 3 heads over 2 model ranks serve under context
     parallelism (``tests/test_torch_cp_serve.py``), and on a (2, 2) mesh in
-    a run of one process raise naming the launch of its 4 ranks."""
+    a run of one process raise naming the launch of its 4 ranks, as mamba2
+    does."""
     base = ["--smoke", "--device", "cpu", "--batch", "2", "--data-mesh", "2",
             "--model-mesh", "2"]
-    with pytest.raises(NotImplementedError, match="item 8g.3"):
-        tserve.run_serve(tserve._parse(base + ["--arch", "mamba2-370m"]))
-    with pytest.raises(ValueError, match="needs 4 ranks.*--nproc-per-node 4"):
-        tserve.run_serve(tserve._parse(base))
+    with pytest.raises(NotImplementedError, match="item 8g.4"):
+        tserve.run_serve(tserve._parse(base + ["--arch", "seamless-m4t-medium"]))
+    for arch in ("smollm-135m", "mamba2-370m"):
+        with pytest.raises(ValueError, match="needs 4 ranks.*--nproc-per-node 4"):
+            tserve.run_serve(tserve._parse(base + ["--arch", arch]))
 
 
 @pytest.mark.parametrize("flags", [["--data-mesh", "2"],

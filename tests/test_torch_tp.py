@@ -359,17 +359,24 @@ def _fake_mesh(data=1, model=2, rank=0):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-9b",
                                   "seamless-m4t-medium"])
 def test_other_families_on_a_model_axis_raise_naming_item_8g(arch):
-    """The ssm, hybrid and encdec families on a model axis raise naming
-    their part of item 8g; MoE's experts on the model axis are ported
-    (``tests/test_torch_moe_tp.py``): granite builds, its experts split
-    over the model ranks under tensor parallelism."""
+    """The encdec family on a model axis raises naming its part of item 8g
+    (8g.4); MoE's experts on the model axis are ported (``tests/
+    test_torch_moe_tp.py``): granite builds, its experts split over the
+    model ranks under tensor parallelism; so are the SSM's and the
+    hybrid's ``inner`` channels (``tests/test_torch_recurrent_tp.py``):
+    mamba2 builds under context parallelism, recurrentgemma under tensor
+    parallelism, each with its ``inner`` leaves split."""
     run = RunConfig(model=tconfigs.smoke(arch), parallel=make_parallel("pjit"),
                     offload=make_offload())
-    if arch == "granite-moe-1b-a400m":
+    split = {"granite-moe-1b-a400m": ("tp", ("blocks", "moe", "w_in"), 1),
+             "mamba2-370m": ("cp", ("blocks", "w_x"), 2),
+             "recurrentgemma-9b": ("tp", ("groups", "rec1", "w_in"), 2)}
+    if arch in split:
+        strategy, leaf, dim = split[arch]
         texec.check_ported(run, dp=2, model=2)
         eng = ZeroInfinityEngine(run, "cpu", mesh=_fake_mesh())
-        assert eng.mp.strategy == "tp"
-        assert tpt.tree_get(eng.model_splits, ("blocks", "moe", "w_in")) == 1
+        assert eng.mp.strategy == strategy
+        assert tpt.tree_get(eng.model_splits, leaf) == dim
         return
     with pytest.raises(NotImplementedError, match="item 8g"):
         texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh())
@@ -379,13 +386,14 @@ def test_other_families_on_a_model_axis_raise_naming_item_8g(arch):
 
 def test_the_cli_trains_a_model_axis_and_refuses_8g(monkeypatch, tmp_path):
     """``launch.train --model-mesh 2`` on a fake two-rank mesh refuses the
-    ssm family (item 8g) before any collective; the plan's devices cover
-    both axes (``data_mesh``: ``--hw-devices`` over ``--model-mesh``)."""
+    encdec family (item 8g.4) before any collective; the plan's devices
+    cover both axes (``data_mesh``: ``--hw-devices`` over
+    ``--model-mesh``)."""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda d, m, dev: _fake_mesh(d, m))
-    argv = ["--smoke", "--device", "cpu", "--engine", "pjit", "--arch", "mamba2-370m",
+    argv = ["--smoke", "--device", "cpu", "--engine", "pjit", "--arch", "seamless-m4t-medium",
             "--model-mesh", "2", "--steps", "1", "--batch", "2", "--seq", "16",
             "--ckpt-every", "0", "--nvme-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 8g"):
+    with pytest.raises(NotImplementedError, match="item 8g.4"):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)
     ap = ttrain.build_argparser()
     assert ttrain.data_mesh(ap.parse_args(["--plan", "auto", "--hw-devices", "4",

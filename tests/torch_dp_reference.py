@@ -20,14 +20,18 @@ and ``TP_SERVE_CASES``; job ``cp_serve`` (``tests/test_torch_cp_serve.py``):
 ``launch.serve`` for every case of ``CP_SERVE_CASES``; job ``moe_tp``
 (``tests/test_torch_moe_tp.py``): the pjit executor for every case of
 ``MOE_TP_CASES`` (their one-device baselines among them) and
-``launch.serve`` for every case of ``MOE_SERVE_CASES``. Writes the numbers
-to one ``.npz`` (pytest does not collect this file).
+``launch.serve`` for every case of ``MOE_SERVE_CASES``; job
+``recurrent_tp`` (``tests/test_torch_recurrent_tp.py``): the same for
+``RECURRENT_TP_CASES`` and ``RECURRENT_SERVE_CASES`` (a case's forced
+strategy set in the serving config's ``ParallelConfig``). Writes the
+numbers to one ``.npz`` (pytest does not collect this file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve|cp_serve|moe_tp]
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve|cp_serve|moe_tp|recurrent_tp]
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import sys
 
@@ -325,16 +329,18 @@ def run_serve_case(case: str, tmp: str, out: dict) -> None:
 
         return jax.device_put(grow(cache, extra, family), NamedSharding(meshes[0], P()))
 
-    real = jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state
+    real = jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state, jserve.ParallelConfig
     jserve.configs.smoke = lambda name: cfg
     jserve.ZeroInfinityEngine.init_state = init_state
     if case in W.MODEL_SERVE_CASES:
         jserve.kvcache.grow_cache = grow_replicated
+    if W.serve_strategy(case) != "auto":  # the strategy in the run's config, as the port's
+        jserve.ParallelConfig = functools.partial(real[2], attn_strategy=W.serve_strategy(case))
     try:
         argv = W.serve_argv(case, "jax", tmp)
         res = jserve.run_serve(jserve._parse(argv), argv)
     finally:
-        jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state = real
+        jserve.configs.smoke, jserve.ZeroInfinityEngine.init_state, jserve.ParallelConfig = real
         jserve.kvcache.grow_cache = grow
     out[f"{case}/generated"] = np.array(json.dumps(res["generated"]))
     for key in ("admissions", "steps", "slots"):
@@ -375,6 +381,11 @@ def main() -> None:
         for case in W.MOE_TP_CASES:
             run_gspmd_case(case, tmp, out)
         for case in W.MOE_SERVE_CASES:
+            run_serve_case(case, tmp, out)
+    elif job == "recurrent_tp":
+        for case in W.RECURRENT_TP_CASES:
+            run_gspmd_case(case, tmp, out)
+        for case in W.RECURRENT_SERVE_CASES:
             run_serve_case(case, tmp, out)
     else:
         for case in W.GSPMD_CASES:

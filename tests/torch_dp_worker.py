@@ -6,7 +6,9 @@ the MoE family), ``tests/test_torch_tp.py`` / ``tests/test_torch_tp_serve.py``
 (jobs ``tp`` and ``tp_serve``: the model axis), ``tests/test_torch_cp_serve.py``
 (job ``cp_serve``: serving under context parallelism) and
 ``tests/test_torch_moe_tp.py`` (job ``moe_tp``: MoE on the model axis,
-trained and served): one process per rank over
+trained and served) and ``tests/test_torch_recurrent_tp.py`` (job
+``recurrent_tp``: the SSM and the hybrid on the model axis, trained and
+served): one process per rank over
 ``torch.distributed`` (gloo on the CPU), spawned by ``spawn`` and run as a
 script. Imports torch, numpy and ``repro_torch`` only, never JAX (pytest
 does not collect this file).
@@ -23,6 +25,7 @@ any failed.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -119,16 +122,42 @@ MOE_TP_CASES = {
     "moe_cp_dp1": (1, 1, "granite-moe-1b-a400m", 3, "device", "device", "device", 1, "auto"),
 }
 MOE_TP_SEQ = {"moe_cp_1x3": 18, "moe_cp_dp1": 18}
+# the SSM's and the hybrid's inner channels on the model axis (job
+# recurrent_tp, tests/test_torch_recurrent_tp.py), in TP_CASES' format: the
+# smoke mamba2 (no attention heads: context parallelism under "auto"; d_in
+# 128 and 8 SSD heads split over 2 and 4) at (1, 2), (2, 2) and (1, 4), and
+# under tensor parallelism forced at (1, 2); the smoke recurrentgemma (4
+# heads, 1 KV head, lru_width 64) under tensor parallelism at (1, 2) and
+# (2, 2), under context parallelism at (1, 3) on 18 tokens (4 heads over
+# 3; lru_width, the vocab and the MLP's 192 columns: the inner channels
+# whole, the rank runs the whole block and keeps its chunk) and forced at
+# (1, 2) with a window of 4, shorter than its 8-token chunk; "ssm_dp1" is
+# the reference's one-device run of the mamba2 cases (its rounding spread
+# across layouts: mamba2's second step is rounding-sensitive)
+RECURRENT_TP_CASES = {
+    "ssm_cp_1x2": (1, 2, "mamba2-370m", 3, "device", "device", "device", 1, "auto"),
+    "ssm_cp_2x2": (2, 2, "mamba2-370m", 3, "device", "device", "device", 1, "auto"),
+    "ssm_cp_1x4": (1, 4, "mamba2-370m", 3, "device", "device", "device", 1, "auto"),
+    "ssm_tp_1x2": (1, 2, "mamba2-370m", 3, "device", "device", "device", 1, "tp"),
+    "hybrid_tp_1x2": (1, 2, "recurrentgemma-9b", 3, "device", "device", "device", 1, "auto"),
+    "hybrid_tp_2x2": (2, 2, "recurrentgemma-9b", 3, "device", "device", "device", 1, "auto"),
+    "hybrid_cp_1x3": (1, 3, "recurrentgemma-9b", 3, "device", "device", "device", 1, "auto"),
+    "hybrid_cp_1x2": (1, 2, "recurrentgemma-9b", 3, "device", "device", "device", 1, "cp"),
+    "ssm_dp1": (1, 1, "mamba2-370m", 3, "device", "device", "device", 1, "auto"),
+}
+RECURRENT_TP_SEQ = {"hybrid_cp_1x3": 18}
+GSPMD_CUT = {"hybrid_cp_1x2": {"window": 4}}  # a case's config fields beyond the smoke's
+MODEL_AXIS_CASES = {**TP_CASES, **MOE_TP_CASES, **RECURRENT_TP_CASES}
 ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES,
                    **{case: (D * M, arch, None, stage, param, grad, opt, accum, 4)
                       for case, (D, M, arch, stage, param, grad, opt, accum, _)
-                      in {**TP_CASES, **MOE_TP_CASES}.items()}}
+                      in MODEL_AXIS_CASES.items()}}
 
 
 def gspmd_mesh(case: str) -> tuple:
     """``case``'s mesh and attention strategy: (data, model, strategy)."""
-    if case in TP_CASES or case in MOE_TP_CASES:
-        D, M, *_, strategy = {**TP_CASES, **MOE_TP_CASES}[case]
+    if case in MODEL_AXIS_CASES:
+        D, M, *_, strategy = MODEL_AXIS_CASES[case]
         return D, M, strategy
     return ALL_GSPMD_CASES[case][0], 1, "auto"
 # the layered epoch's cases of job dp_moe, every state class on NVMe: case
@@ -220,8 +249,24 @@ MOE_SERVE_CASES = {
     "moe_cp_serve_1x3": (3, "granite-moe-1b-a400m", 0, _HOST + _CP3 + ["--prompt-len", "9",
                                                                        "--new-tokens", "3"]),
 }
+# the recurrent families served on the model axis (job recurrent_tp): each
+# at (1, 2) under its "auto" strategy (mamba2 context parallelism, the
+# prompt chunked; recurrentgemma at 5 layers, one group and the two-block
+# tail, tensor parallelism) and under the other forced (``SERVE_STRATEGY``:
+# each side's serve run builds its ParallelConfig with it); the forced
+# hybrid's 40-token prompt, chunked, passes its window of 32: the rings
+# are laid out from the gathered K/V, rolled
+RECURRENT_SERVE_CASES = {
+    "ssm_cp_serve_1x2": (2, "mamba2-370m", 0, _HOST + _TP2),
+    "ssm_tp_serve_1x2": (2, "mamba2-370m", 0, _HOST + _TP2),
+    "hybrid_tp_serve_1x2": (2, "recurrentgemma-9b", 5, _HOST + _TP2),
+    "hybrid_cp_serve_1x2": (2, "recurrentgemma-9b", 5, _HOST + _TP2 + ["--prompt-len", "40"]),
+}
+# the serving cases whose attention strategy is forced, not "auto"
+SERVE_STRATEGY = {"ssm_tp_serve_1x2": "tp", "hybrid_cp_serve_1x2": "cp"}
 # every serving case on a model axis
-MODEL_SERVE_CASES = {**TP_SERVE_CASES, **CP_SERVE_CASES, **MOE_SERVE_CASES}
+MODEL_SERVE_CASES = {**TP_SERVE_CASES, **CP_SERVE_CASES, **MOE_SERVE_CASES,
+                     **RECURRENT_SERVE_CASES}
 ALL_SERVE_CASES = {**SERVE_CASES, **MODEL_SERVE_CASES}
 # the teacher-forced decode tokens each model-axis serving case feeds
 TEACHER_STEPS = 2
@@ -412,12 +457,13 @@ def gspmd_cfg(case: str, package):
     cut = {"n_layers": 2} if arch == "smollm-135m" else {}
     if d_model is not None:
         cut["d_model"] = d_model
-    return dataclasses.replace(cfg, **cut)
+    return dataclasses.replace(cfg, **cut, **GSPMD_CUT.get(case, {}))
 
 
 def gspmd_seq(case: str) -> int:
-    if case in MOE_TP_SEQ:
-        return MOE_TP_SEQ[case]
+    seq = {**MOE_TP_SEQ, **RECURRENT_TP_SEQ}
+    if case in seq:
+        return seq[case]
     return 64 if ALL_GSPMD_CASES[case][1] == "seamless-m4t-medium" else S
 
 
@@ -766,6 +812,11 @@ def serve_argv(case: str, side: str, tmp: str) -> list:
     return argv
 
 
+def serve_strategy(case: str) -> str:
+    """``case``'s forced attention strategy ("auto" where none is)."""
+    return SERVE_STRATEGY.get(case, "auto")
+
+
 def serve_init_path(tmp: str, case: str) -> str:
     """Where the test saves ``case``'s params: the reference bundle's init
     at one device, as the port's whole tensors."""
@@ -821,7 +872,9 @@ def _serve_engine(case: str, mesh):
     from repro_torch.core.engine import ZeroInfinityEngine
 
     return ZeroInfinityEngine(RunConfig(model=serve_cfg(case, configs),
-                                        parallel=ParallelConfig(remat="none")), "cpu", mesh=mesh)
+                                        parallel=ParallelConfig(
+                                            remat="none", attn_strategy=serve_strategy(case))),
+                              "cpu", mesh=mesh)
 
 
 def run_serve_case(case: str, tmp: str, mesh) -> dict:
@@ -835,13 +888,15 @@ def run_serve_case(case: str, tmp: str, mesh) -> dict:
 
     whole = torch.load(serve_init_path(tmp, case), weights_only=False)
     argv = serve_argv(case, "torch", tmp)
-    real = serve.ZeroInfinityEngine.init_params
+    real = serve.ZeroInfinityEngine.init_params, serve.ParallelConfig
     serve.ZeroInfinityEngine.init_params = lambda self, gen: self.respec(
         pt.tree_map(lambda t: t.to(self.device), whole), None, "param")
+    if serve_strategy(case) != "auto":  # the strategy in the run's config, as the reference's
+        serve.ParallelConfig = functools.partial(real[1], attn_strategy=serve_strategy(case))
     try:
         out = serve.run_serve(serve._parse(argv), argv)
     finally:
-        serve.ZeroInfinityEngine.init_params = real
+        serve.ZeroInfinityEngine.init_params, serve.ParallelConfig = real
     eng = _serve_engine(case, mesh)
     rec = {k: out[k] for k in ("generated", "done", "slots", "steps", "admissions", "kv",
                                "kv_ranks", "admissions_ranks", "param_shard_bytes", "mesh")}
@@ -927,7 +982,8 @@ def run_tp_serve_case(case: str, tmp: str, mesh) -> dict:
     forced = teacher_forced(eng, params, full, args.prompt_len + args.new_tokens,
                             teacher_tokens(args.batch, cfg.vocab_size))
     rec["prefill_logits"], rec["decode_logits"] = forced[0], forced[1:]
-    rec["kv_heads"] = eng.bundle.cache_defs(1, 1)["k"].shape[3]
+    defs = eng.bundle.cache_defs(1, 1)
+    rec["kv_heads"] = defs["k"].shape[3] if "k" in defs else None
     rec["mesh_shape"] = (tmesh.data, tmesh.model)
     return rec
 
@@ -958,9 +1014,68 @@ def job_moe_tp(tmp: str, mesh) -> dict:
     return out
 
 
+def job_recurrent_tp(tmp: str, mesh) -> dict:
+    """Every recurrent model-axis case of this world size, each on a mesh
+    of its own, then its serving cases and, at 2 ranks, the model-axis
+    sum's unit (``model_sum_unit``)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    for case, (D, M, *_) in RECURRENT_TP_CASES.items():
+        if D * M == mesh.world and M > 1:
+            out[case] = run_gspmd_case(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+    out.update({case: run_tp_serve_case(case, tmp, mesh)
+                for case, spec in RECURRENT_SERVE_CASES.items() if spec[0] == mesh.world})
+    if mesh.world == 2:
+        out["model_sum"] = model_sum_unit(mesh_mod.make_local_mesh(1, 2, "cpu"))
+    return out
+
+
+def model_sum_unit(mesh) -> dict:
+    """``ModelAxis.sum`` on a (1, 2) mesh, f32: the ranks' draws summed,
+    and the gradient of a loss that uses the sum on the rank's own part
+    (``sum(ct * s)`` with a per-rank cotangent ``ct``): the ranks'
+    cotangents summed, which ``FromModel``'s identity backward (``join``)
+    gives only the rank's own of; and ``rms_norm_split`` over two ranks'
+    halves of a row against ``rms_norm`` of the whole row, value and
+    gradient, each rank its half."""
+    import torch
+
+    from repro_torch.core.zero import ModelAxis
+    from repro_torch.models import common as cm
+
+    mp = ModelAxis(mesh, "tp")
+
+    def draw(r):
+        gen = torch.Generator().manual_seed(70 + r)
+        return [torch.randn(*s, generator=gen) for s in ((3, 1), (3, 1))]
+
+    mine, all_ = draw(mesh.rank), [draw(r) for r in range(2)]
+    x = mine[0].clone().requires_grad_()
+    summed = mp.sum(x)
+    (gx,) = torch.autograd.grad(summed, x, mine[1])
+    y = mine[0].clone().requires_grad_()
+    (gy,) = torch.autograd.grad(mp.join(y), y, mine[1])
+    gen = torch.Generator().manual_seed(80)
+    row = torch.randn(3, 8, generator=gen).to(torch.bfloat16)
+    scale = torch.randn(8, generator=gen) * 0.1
+    ct = torch.randn(3, 8, generator=gen).to(torch.bfloat16)
+    lo, hi = 4 * mesh.rank, 4 * (mesh.rank + 1)
+    half = row[:, lo:hi].clone().requires_grad_()
+    got = cm.rms_norm_split(half, scale[lo:hi], mp)
+    (g_half,) = torch.autograd.grad(got, half, ct[:, lo:hi])
+    whole = row.clone().requires_grad_()
+    want = cm.rms_norm(whole, scale)
+    (g_whole,) = torch.autograd.grad(want, whole, ct)
+    return {"summed": summed.detach(), "want_summed": all_[0][0] + all_[1][0],
+            "gx": gx, "want_gx": all_[0][1] + all_[1][1], "join_gx": gy,
+            "norm": got.detach(), "want_norm": want.detach()[:, lo:hi],
+            "norm_grad": g_half, "want_norm_grad": g_whole[:, lo:hi]}
+
+
 JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve,
         "tp": job_tp, "tp_serve": job_tp_serve, "cp_serve": job_cp_serve,
-        "moe_tp": job_moe_tp}
+        "moe_tp": job_moe_tp, "recurrent_tp": job_recurrent_tp}
 
 
 def main() -> None:
