@@ -34,10 +34,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero; no phase is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from ``src/repro_torch/csrc`` (one nvcc each, in
-     parallel; meanwhile the CPU sides of phases 11, 20's mamba2 and 25's
-     seamless run on the host, ``early_cpu_keys``), and count the
-     warpgroup MMA (HGMMA) instructions in the flash-attention,
-     tiled-matmul and quantized-matmul libraries (none in any fails);
+     parallel), and count the warpgroup MMA (HGMMA) instructions in the
+     flash-attention, tiled-matmul and quantized-matmul libraries (none in
+     any fails). From before the build one thread computes the CPU sides
+     of phases 11, 20 and 25 on the host (``CPU_SIDE_KEYS``); beside it
+     run only the phases that read no host clock and trace nothing:
+     8, 11, 15, 18's repeat and numerics and 28's numerics on NVMe params,
+     in that order, right after the build. Then the thread is joined
+     ("phase cpu sides: s", the wait), and phases 3 on run with the host
+     to themselves;
   3. each kernel against its plain version at the serve shapes and at a
      ragged shape (flash attention: two), in bf16 and f32, element by element (``TOL``), with
      timings of the bf16 serve shapes (kernel, plain, library yardstick)
@@ -204,9 +209,11 @@ Phases (any failure exits non-zero; no phase is caught):
       parallelism's (``FLASH_TP``: "tp train"'s and "vlm tp4 nccl
       train"'s, granite's 8 heads and 4 KV heads a rank and
       recurrentgemma's 8 heads of 256 with its window of 2048, whose
-      records are the windowed kernels'), and the tiled matmul at their
-      MLP shards forward and backward (``TILED_TP``: recurrentgemma's
-      GeGLU 6144 columns a rank among them),
+      records are the windowed kernels', and seamless's 8 heads a rank:
+      the encoder's and the cross-attention's, not causal, the decoder's),
+      and the tiled matmul at their MLP shards forward and backward
+      (``TILED_TP``: recurrentgemma's GeGLU 6144 columns a rank and
+      seamless's 2048 at 16384 frames among them),
       bf16, by ``TOL``; the flash shapes and the forward products timed
       beside their bound, the CUDA-core kernel, the plain version and the
       library call;
@@ -267,6 +274,29 @@ Phases (any failure exits non-zero; no phase is caught):
       tokens, ``HYBRID_SERVE_ARGV``: the rules' param bytes a rank, the
       window rings whole on each rank, checked as "ssm cp serve" against
       a one-rank run of the argv, "hybrid tp serve one rank");
+  16q. the encoder-decoder on the model axis (the same spawn; held after
+      phase 27, against its one-rank runs): "encdec tp numerics" / "encdec
+      cp numerics" (phase 25's seamless, 2 + 2 layers at full width, 2 x
+      256 frames, 64 decoder tokens, on a (1, 2) mesh under tensor
+      parallelism, 8 of 16 heads a rank, the memory entering the model
+      axis once, and under context parallelism forced, each rank its
+      chunk of the frames and of the tokens, the encoder's and the
+      cross-attention's keys gathered uncut; held against phase 25's kept
+      CPU side by its bounds), "encdec tp train" (``launch.train
+      --model-mesh 2`` on full seamless, 2 steps of 8 x 2048 frames: the
+      rules' 617,070,592 param bytes a rank, "encdec plan train"'s losses
+      by ``TRAIN_TOL``), "encdec tp serve" (full seamless, 3 sequences of
+      2048 frames through 2 slots, 4 new tokens, ``ENCDEC_TP_SERVE_ARGV``:
+      checked as "moe tp serve" against a one-rank run of the argv, "encdec
+      tp serve one rank", each rank parking and fetching its KV heads of
+      the third sequence's decoder K/V and ``xk`` / ``xv``, half the one
+      rank's) and "encdec cp serve" (seamless at full width cut to 4 + 4
+      layers, ``ENCDEC_CP_SERVE_CUT``, 2 sequences of 2048 frames, 4 new
+      tokens, context parallelism forced: each rank's resident cache its
+      258 of the 516 decoder positions and 1024 of the 2048 memory
+      positions, half a one-rank run's of the same cut, "encdec cp serve
+      one rank"); flash forward and backward and the tiled matmul at
+      "encdec tp train"'s shapes are 16k's;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -299,7 +329,8 @@ Phases (any failure exits non-zero; no phase is caught):
       CPU by phase 11's bounds, on mamba2-370m at full width cut to 2
       layers (4 x 256 tokens) and recurrentgemma-9b at full width cut to 3
       layers (one group, 1,705,070,592 params; 1 x 128 tokens, one step:
-      its CPU side is the run's slowest);
+      its CPU side is the run's slowest, and runs beside the card's phases
+      from phase 2 on);
   21. hybrid serve: full recurrentgemma-9b (38 layers, 9,396,301,824
       params on the device), 8 sequences through 4 slots, prompt 2560 (past
       the window: the K/V rings roll at prefill and wrap), 16 new tokens,
@@ -328,9 +359,9 @@ Phases (any failure exits non-zero; no phase is caught):
       2 layers (2 x 256 frames, 64 decoder tokens) and on llava-next-34b
       at full width cut to one layer and 96 vision positions
       (``VLM_NUMERICS_CUT``: a layer at its 2880 positions costs the CPU
-      ~27 TFLOP a step), 1 x 160 positions, one step; each numerics phase
-      compares on the card and prints its sides' seconds (``... compare:``
-      lines);
+      ~27 TFLOP a step), 1 x 160 positions, one step (each CPU side from
+      the thread of phase 2); each numerics phase compares on the card and
+      prints its sides' seconds (``... compare:`` lines);
   26. vlm serve / vlm plan train: llava-next-34b at full width cut to 8
       layers (5.40 B params) served, 8 sequences through 4 slots, prompt
       3072 (2880 vision positions, 192 tokens), 16 new tokens, waiting K/V
@@ -367,7 +398,7 @@ Phases (any failure exits non-zero; no phase is caught):
       ``phases:`` line of all of them), the kernels JSON line, then the
       device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16p (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16q (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -379,7 +410,7 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 
 Needs no network and exactly one card; exits non-zero without CUDA.
 ``chip_smoke.py --dp-rank all|tp3|<part>`` (a part of ``DP_PARTS`` or
-``TP3_PARTS``) is one rank of phase 16a-16p, started by the script itself through
+``TP3_PARTS``) is one rank of phase 16a-16q, started by the script itself through
 ``torch.distributed.run``; ``chip_smoke.py --nccl-check [train|serve|tp]``
 runs phase 16b's and 16d's paths ("train"), llava served on the ranks
 ("serve": at 8 layers against one rank's tokens, then at full depth, a
@@ -399,6 +430,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1295,10 +1327,13 @@ def _to(tree, dev):
     return tree.to(dev, copy=True)
 
 
-def run_serve(argv) -> tuple:
+def run_serve(argv, **config) -> tuple:
+    """``launch.serve`` with ``argv`` in this process (``config``: its
+    ``run_serve``'s ``cfg`` / ``attn_strategy``): the run, its launches
+    and its seconds."""
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.run_serve(serve._parse(argv))
+    out = serve.run_serve(serve._parse(argv), **config)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return out, ops.launch_counts(), wall
@@ -1371,9 +1406,11 @@ def _gspmd_run(cfg, nvme_dir, steps, placement) -> RunConfig:
         train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
 
 
-# CPU sides of in-graph GSPMD runs kept for later placements of the same
-# model, cut, weights and batches: every placement computes the same
-# function, so a card run in another placement is held against them
+# CPU sides of in-graph GSPMD runs, by (model, cut, B, S, steps): the
+# future of (the side, its initial params) from the CPU sides' thread
+# (``start_cpu_sides``). Every placement computes the same function, so
+# a card run in any placement, and a model-axis run on ranks, is held
+# against them
 CPU_RUNS: dict = {}
 
 
@@ -1427,30 +1464,26 @@ def phase_gspmd_numerics(placement: str = "in_graph", arch: str = "smollm-135m",
     one of ``GSPMD_PLACEMENTS``; loss and grad norm by ``TRAIN_TOL``, the
     f32 masters (in the state in-graph, read back from the optimizer store
     off-graph) by the drift bound, the params by it plus each side's bf16
-    rounding, their mean by 2^-5 * sum(lr). Where ``CPU_RUNS`` holds the
-    in-graph CPU side of the same model, cut, weights and batches (every
-    placement computes one function; ``phase_build``'s), the card is held
-    against it instead of running the CPU again (its host Adam and NVMe
-    traffic would double the phase's time)."""
+    rounding, their mean by 2^-5 * sum(lr). The CPU side is the in-graph
+    one of ``CPU_RUNS`` (every placement computes one function; its host
+    Adam and NVMe traffic would double an off-graph phase's time), and
+    the card starts from its initial params."""
     cut = cut or {"n_layers": layers}
-    cfg = dataclasses.replace(configs.get(arch), **cut)
     key = (arch, tuple(sorted(cut.items())), B, S, steps)
     t0 = time.perf_counter()
-    params0 = init_params(cfg)
-    side_s = {"init": time.perf_counter() - t0}  # where the phase's seconds go
-    kept = key in CPU_RUNS
-    out = {"cpu": CPU_RUNS[key]} if kept else {}
-    for dev in [d for d in ("cpu", "cuda") if d not in out]:
-        t0 = time.perf_counter()
-        out[dev] = gspmd_side(key, dev, placement, params0)
-        side_s[dev] = time.perf_counter() - t0
+    runs = CPU_RUNS.pop(key) if key in CPU_SIDES_READ_ONCE else CPU_RUNS[key]
+    cpu, params0 = runs.result()
+    side_s = {"wait": time.perf_counter() - t0}  # where the phase's seconds go
+    t0 = time.perf_counter()
+    card = gspmd_side(key, "cuda", placement, params0)
+    side_s["cuda"] = time.perf_counter() - t0
+    cfg = dataclasses.replace(configs.get(arch), **cut)
     rec = {"arch": arch, "placement": placement,
            "tiers_param_grad_opt_remat": GSPMD_PLACEMENTS[placement],
-           "cpu_side": "in_graph, kept" if kept else placement,
-           "cut": cut, "n_params": registry.build(cfg).n_params(),
+           "cpu_side": "in_graph, kept", "cut": cut, "n_params": registry.build(cfg).n_params(),
            "d_model": cfg.d_model, "batch": B, "seq": S, "steps": steps, "side_s": side_s}
     t0 = time.perf_counter()
-    rec = hold_card_to_cpu(tag, f"{arch}, {placement}", out["cpu"], out["cuda"], rec)
+    rec = hold_card_to_cpu(tag, f"{arch}, {placement}", cpu, card, rec)
     say(f"{tag} compare: {time.perf_counter() - t0:.1f} s, sides {json.dumps(side_s)}")
     return rec
 
@@ -2097,6 +2130,15 @@ def dp_rank(mode: str) -> int:
                              RECURRENT_TRAIN_STEPS),
                          "hybrid_tp_serve": lambda: serve_rank(
                              HYBRID_SERVE_ARGV + ["--model-mesh", "2"], model=2),
+                         "encdec_tp_numerics": lambda: tp_numerics_rank(
+                             ENCDEC_NUMERICS_KEY, "encdec_tp_numerics"),
+                         "encdec_cp_numerics": lambda: tp_numerics_rank(
+                             ENCDEC_NUMERICS_KEY, "encdec_cp_numerics", "cp"),
+                         "encdec_tp_train": lambda: tp_train_rank(
+                             ENCDEC_ARCH, steps=RECURRENT_TRAIN_STEPS, seq=2048),
+                         "encdec_tp_serve": lambda: serve_rank(
+                             ENCDEC_TP_SERVE_ARGV + ["--model-mesh", "2"], model=2),
+                         "encdec_cp_serve": encdec_cp_serve_rank,
                          "vlm_serve": lambda: serve_rank(
                              VLM_SERVE_ARGV + ["--layers", str(VLM_SERVE_LAYERS)]),
                          "vlm_serve_full": lambda: serve_rank(VLM_SERVE_ARGV),
@@ -2206,7 +2248,8 @@ MOE_TRAIN_STEPS = 2
 DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve",
             "cp_numerics", "cp_train", "cp_serve", "moe_tp_numerics", "moe_cp_numerics",
             "moe_tp_train", "moe_tp_serve", "ssm_cp_numerics", "ssm_cp_train", "ssm_cp_serve",
-            "hybrid_tp_train", "hybrid_tp_serve")
+            "hybrid_tp_train", "hybrid_tp_serve", "encdec_tp_numerics", "encdec_cp_numerics",
+            "encdec_tp_train", "encdec_tp_serve", "encdec_cp_serve")
 # the MoE layered epoch's counters the routing steers: the expert rows the
 # popularity predictor, the hot cache and the router read and drain
 MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
@@ -2299,24 +2342,26 @@ VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--batch", "8", "--kv-slots", "4", "--kv-t
 SERVE_KV = ("resident_bytes", "in_bytes", "out_bytes", "in_wire_bytes", "out_wire_bytes")
 
 
-def serve_rank(argv=None, model: int = 1) -> dict:
+def serve_rank(argv=None, model: int = 1, strategy: str = "auto", cfg=None) -> dict:
     """(a rank) ``launch.serve --data-mesh N / model`` (N the launch's
     world size; ``argv`` names ``--model-mesh model`` where it is not 1)
-    with ``argv`` (default the serve host cell's): the run as this rank
-    returns it (every sequence's tokens, the summed and per-rank KV bytes,
-    each rank's param shard and peak allocated bytes), this rank's
-    launches, and the param bytes of one rank and of this rank's layout."""
+    with ``argv`` (default the serve host cell's), its run's config
+    forcing the attention ``strategy`` and serving ``cfg`` in place of
+    ``--arch``'s where given: the run as this rank returns it (every
+    sequence's tokens, the summed and per-rank KV bytes, each rank's param
+    shard and peak allocated bytes), this rank's launches, and the param
+    bytes of one rank and of this rank's layout."""
     n, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     argv = list(argv or SERVE_ARGV) + ["--data-mesh", str(n // model)]
     args = serve._parse(argv)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.run_serve(args, argv)
+    out = serve.run_serve(args, argv, cfg, strategy)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    cfg = configs.with_layers(configs.smoke(args.arch) if args.smoke else configs.get(args.arch),
-                              args.layers)
-    run = RunConfig(model=cfg)
+    cfg = configs.with_layers(cfg or (configs.smoke(args.arch) if args.smoke
+                                      else configs.get(args.arch)), args.layers)
+    run = RunConfig(model=cfg, parallel=make_parallel("pjit", attn_strategy=strategy))
     layout = ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
         n // model, model, rank, n, torch.device("cpu"), None, "gloo"))
     cap = args.prompt_len + args.new_tokens
@@ -2675,7 +2720,8 @@ def phase_gspmd_dp2_numerics(recs=None) -> tuple:
                "ranks": 2, "zero_stage": 3, "cpu_side": "one rank, in_graph, kept",
                "unsplit_leaves": recs[0]["unsplit_leaves"]}
         out[placement] = hold_card_to_cpu("gspmd dp2 numerics", placement,
-                                          CPU_RUNS[GSPMD_NUMERICS_KEY], card, rec)
+                                          CPU_RUNS[GSPMD_NUMERICS_KEY].result()[0], card,
+                                          rec)
     ranks = [torch.load(_gspmd_dp2_moe_record(r), weights_only=False) for r in range(2)]
     if ranks[0]["traj"] != ranks[1]["traj"]:
         raise SystemExit(f"FAIL gspmd dp2 numerics (moe): the ranks report {ranks[0]['traj']} "
@@ -2874,9 +2920,14 @@ FLASH_CP = [(8, 9, 3, 256, 256, 64), (8, 9, 3, 256, 512, 64)]
 # train"'s (llava on 4: 14 heads, 2 KV heads of 128, 1 x 4096), "moe tp
 # train"'s (granite on 2: 8 heads, 4 KV heads, 8 x 512) and "hybrid tp
 # train"'s (recurrentgemma on 2: 8 heads on its one KV head of 256, 1 x
-# 4096, window 2048), causal
-FLASH_TP = [((8, 3, 1, 512, 512, 64), 0), ((1, 14, 2, 4096, 4096, 128), 0),
-            ((8, 8, 4, 512, 512, 64), 0), ((1, 8, 1, 4096, 4096, 256), 2048)]
+# 4096, window 2048), causal; then "encdec tp train"'s (seamless on 2: 8
+# of 16 heads, 8 x 2048 frames): the encoder's and the cross-attention's
+# (512 decoder tokens on 2048 frames), not causal, and the decoder's,
+# causal. (shape, window, causal)
+FLASH_TP = [((8, 3, 1, 512, 512, 64), 0, True), ((1, 14, 2, 4096, 4096, 128), 0, True),
+            ((8, 8, 4, 512, 512, 64), 0, True), ((1, 8, 1, 4096, 4096, 256), 2048, True),
+            ((8, 8, 8, 2048, 2048, 64), 0, False), ((8, 8, 8, 512, 2048, 64), 0, False),
+            ((8, 8, 8, 512, 512, 64), 0, True)]
 
 
 def mlp_shard_shapes(T: int, d: int, f: int) -> list:
@@ -2889,10 +2940,11 @@ def mlp_shard_shapes(T: int, d: int, f: int) -> list:
 
 
 # the same runs' MLP products: smollm's 512 of 1536 columns a rank,
-# llava's 5120 of 20480 and recurrentgemma's GeGLU 6144 of 12,288 (K <=
-# 7168: K * 2^-24 < 2^-11, "tiled_matmul_k4096")
+# llava's 5120 of 20480, recurrentgemma's GeGLU 6144 of 12,288 (K <=
+# 7168: K * 2^-24 < 2^-11, "tiled_matmul_k4096") and seamless's 2048 of
+# 4096 at 16384 frames (its dW's K = 16384: "tiled_matmul_k20480")
 TILED_TP = (mlp_shard_shapes(4096, 576, 512) + mlp_shard_shapes(4096, 7168, 5120)
-            + mlp_shard_shapes(4096, 4096, 6144))
+            + mlp_shard_shapes(4096, 4096, 6144) + mlp_shard_shapes(16384, 1024, 2048))
 # the products of TILED_TP timed: each run's forward column and row shards
 TILED_TP_TIMED = [c for c in TILED_TP if c[3] == ""]
 # "tp serve"'s argv: the serve host cell's sizes at 8 new tokens (each
@@ -2922,6 +2974,22 @@ HYBRID_SERVE_ARGV = ["--arch", HYBRID_ARCH, "--batch", "3", "--kv-slots", "2", "
 # the one-rank runs the recurrent model-axis serving phases are held to, by
 # tag: "ssm serve" and "hybrid tp serve one rank" (``HYBRID_SERVE_ARGV``)
 FAMILY_SERVE_ONE: dict = {}
+# the encoder-decoder on the model axis (the two-rank spawn): seamless on
+# (1, 2) under tensor parallelism ("auto": 8 of 16 heads, 2048 of 4096 MLP
+# columns and half the vocab a rank) and context parallelism forced.
+# "encdec tp / cp numerics" run "family numerics"' seamless (its key in
+# CPU_RUNS: 2 x 256 frames, 64 decoder tokens a row);
+# "encdec tp train" full seamless, 8 x 2048 frames, 2 steps; "encdec tp
+# serve" full seamless, 3 sequences of 2048 frames through 2 slots (the
+# third parks), 4 new tokens, held to a one-rank run of its argv;
+# "encdec cp serve" full width cut to 4 + 4 layers (the run's time
+# limit), 2 sequences in 2 slots, 4 new tokens: the capacity 512 + 4 and
+# the 2048 frames split, each rank its range of both
+ENCDEC_NUMERICS_KEY = (ENCDEC_ARCH, tuple(sorted(ENCDEC_NUMERICS_CUT.items())), 2, 256, 2)
+ENCDEC_TP_SERVE_ARGV = ["--arch", ENCDEC_ARCH, "--batch", "3", "--kv-slots", "2", "--kv-tier",
+                        "host", "--prompt-len", "2048", "--new-tokens", "4"]
+ENCDEC_CP_SERVE_ARGV = ENCDEC_TP_SERVE_ARGV[:3] + ["2"] + ENCDEC_TP_SERVE_ARGV[4:]
+ENCDEC_CP_SERVE_CUT = {"n_layers": 8, "n_enc_layers": 4, "n_dec_layers": 4}
 
 
 def _tp_record(name: str) -> str:
@@ -2930,21 +2998,24 @@ def _tp_record(name: str) -> str:
     return os.path.join(ROOT, "build", f"chip_smoke_{name}.pt")
 
 
-def tp_numerics_rank(key=GSPMD_NUMERICS_KEY, name: str = "numerics") -> dict:
+def tp_numerics_rank(key=GSPMD_NUMERICS_KEY, name: str = "numerics",
+                     strategy: str = "auto") -> dict:
     """(a rank) A numerics phase's model, weights and global batches
     (``key``, ``CPU_RUNS``' key: by default phase 11's full-width
     smollm-135m cut to 2 layers, 4 x 256, 2 steps) through the GSPMD step
-    at ZeRO-3 on a (1, M) mesh of the launch's M ranks on the card (smollm:
-    tensor parallelism at 3, context at 2), each from its shards of the
-    global state on the whole batch; the params and f32 masters joined over
-    the ranks after the last step, which rank 0 saves as ``name``."""
+    at ZeRO-3 on a (1, M) mesh of the launch's M ranks on the card under
+    ``strategy`` (smollm's "auto": tensor parallelism at 3, context at 2),
+    each from its shards of the global state on the whole batch; the
+    params and f32 masters joined over the ranks after the last step, which
+    rank 0 saves as ``name``."""
     M = int(os.environ["WORLD_SIZE"])
     mesh = mesh_mod.make_local_mesh(1, M, "cuda")
     rank, dev = mesh.rank, mesh.device
     arch, cut, B, S, steps = key
     cfg = dataclasses.replace(configs.get(arch), **dict(cut))
     params0 = init_params(cfg)
-    run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none", zero_stage=3),
+    run = RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none", zero_stage=3,
+                                                      attn_strategy=strategy),
                     offload=make_offload(nvme_dir=os.path.join(ROOT, "build", "chip_smoke_tp")),
                     train=TrainConfig(lr=3e-3, steps=steps, seed=SEED))
     ops.reset_launch_counts()
@@ -3060,6 +3131,21 @@ def cp_serve_rank() -> dict:
     return rec
 
 
+def encdec_cp_serve_cfg():
+    """Seamless at full width cut to ``ENCDEC_CP_SERVE_CUT``: what "encdec
+    cp serve" and its one-rank run serve (``launch.serve``'s ``--layers``
+    cuts one stack, and an encoder-decoder has two)."""
+    return dataclasses.replace(configs.get(ENCDEC_ARCH), **ENCDEC_CP_SERVE_CUT)
+
+
+def encdec_cp_serve_rank() -> dict:
+    """(a rank) ``serve_rank`` with ``ENCDEC_CP_SERVE_ARGV`` on a (1, M)
+    mesh, ``encdec_cp_serve_cfg`` under context parallelism forced."""
+    M = int(os.environ["WORLD_SIZE"])
+    return serve_rank(ENCDEC_CP_SERVE_ARGV + ["--model-mesh", str(M)], model=M,
+                      strategy="cp", cfg=encdec_cp_serve_cfg())
+
+
 def phase_model_axis_kernels() -> dict:
     """The kernels at the model axis' per-rank shapes, bf16, against the
     plain version by ``TOL``, on the tensor cores: flash forward and
@@ -3077,11 +3163,11 @@ def phase_model_axis_kernels() -> dict:
     fwd = [check_flash(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
     bwd = [check_flash_bwd(shape, bf16, gen, t) for shape, t in zip(FLASH_CP, timed)]
     windowed = {"flash_attention_window": [], "flash_attention_bwd_window": []}
-    for shape, window in FLASH_TP:
+    for shape, window, causal in FLASH_TP:
         fw, bw = (("flash_attention_window", "flash_attention_bwd_window") if window else
                   ("flash_attention", "flash_attention_bwd"))
-        f = check_flash(shape, bf16, gen, True, window, name=fw)
-        b = check_flash_bwd(shape, bf16, gen, True, window, name=bw)
+        f = check_flash(shape, bf16, gen, True, window, name=fw, causal=causal)
+        b = check_flash_bwd(shape, bf16, gen, True, window, name=bw, causal=causal)
         (windowed[fw] if window else fwd).append(f)
         (windowed[bw] if window else bwd).append(b)
     flash = fwd + bwd + windowed["flash_attention_window"] + windowed["flash_attention_bwd_window"]
@@ -3137,7 +3223,8 @@ def phase_tp_numerics(recs: list, tag: str, key=GSPMD_NUMERICS_KEY, name: str = 
            "arch": arch, "cut": dict(cut), "cpu_side": "one rank, in_graph, kept",
            "param_shard_bytes": [r["param_shard_bytes"] for r in recs],
            "launches_per_rank": [r["launches"] for r in recs]}
-    out = hold_card_to_cpu(tag, f"{arch} {dict(cut)} on (1, {M})", CPU_RUNS[key], card, rec)
+    out = hold_card_to_cpu(tag, f"{arch} {dict(cut)} on (1, {M})",
+                           CPU_RUNS[key].result()[0], card, rec)
     _check_tp_ranks(tag, recs, strategy, kernels, none)
     return out, _sum_launches(recs)
 
@@ -3315,10 +3402,13 @@ def phase_moe_model_axis_numerics(recs: list, strategy: str) -> tuple:
     return rec, _sum_launches(recs)
 
 
-def model_axis_bytes(arch: str, layers: int, M: int) -> int:
-    """``arch`` at full width cut to ``layers`` (0: whole): a rank's param
-    bytes on a (1, M) mesh, from the rules."""
-    run = RunConfig(model=configs.with_layers(configs.get(arch), layers))
+def model_axis_bytes(arch: str, layers: int, M: int, strategy: str = "auto",
+                     cut: dict | None = None) -> int:
+    """``arch`` at full width cut to ``layers`` (0: whole; or by the config
+    fields in ``cut``): a rank's param bytes on a (1, M) mesh under the
+    attention ``strategy``, from the rules."""
+    cfg = dataclasses.replace(configs.with_layers(configs.get(arch), layers), **(cut or {}))
+    run = RunConfig(model=cfg, parallel=make_parallel("pjit", attn_strategy=strategy))
     return ZeroInfinityEngine(run, "cpu", mesh=mesh_mod.LocalMesh(
         1, M, 0, M, torch.device("cpu"), None, "gloo")).shard_bytes()["param_shard_bytes"]
 
@@ -3478,6 +3568,80 @@ def phase_recurrent_serve(tag: str, recs: list, one_tag: str, strategy: str,
             raise SystemExit(f"FAIL {tag}: rank {r} parked {kr['out_bytes']} and fetched "
                              f"{kr['in_bytes']} bytes; want {want_kv[r]}")
     _check_tp_ranks(tag, recs, strategy, kernels, none)
+    return rec, _sum_launches(recs)
+
+
+def phase_encdec_tp_serve(recs: list, one: dict) -> tuple:
+    """The ranks' "encdec_tp_serve" (full seamless with
+    ``ENCDEC_TP_SERVE_ARGV`` on (1, 2): tensor parallelism) by
+    ``check_model_serve`` against ``one``, the one-rank run of the argv
+    ("encdec tp serve one rank"), the rules' bytes a rank; each rank parks
+    and fetches its own cache of each sequence it admits: its KV heads of
+    the decoder's K/V up to the 512 prompt tokens and of the memory's
+    ``xk`` / ``xv`` at the 2048 frames, half the one rank's (the ``len``
+    placeholder on model rank 0), their ``xk`` / ``xv`` bytes printed;
+    every flash and tiled-matmul launch on the tensor cores."""
+    tag, M = "encdec tp serve", len(recs)
+    cfg = configs.get(ENCDEC_ARCH)
+    rec = check_model_serve(tag, recs, model_axis_bytes(ENCDEC_ARCH, 0, M),
+                            {k: one["kv"][k] for k in SERVE_KV}, one["generated"], "tp")
+    frames = int(ENCDEC_TP_SERVE_ARGV[ENCDEC_TP_SERVE_ARGV.index("--prompt-len") + 1])
+    new = int(ENCDEC_TP_SERVE_ARGV[-1])
+    per_rank = (parked_seq_bytes(cfg, frames, new) - 4) // M  # the len placeholder apart
+    admitted = recs[0]["admissions_ranks"]
+    want = [admitted[r] * (per_rank + (4 if r == 0 else 0)) for r in range(M)]
+    rec.update({"one_rank_decode_step_ms": one["timings"]["decode_s"]
+                / max(one["steps"], 1) * 1e3, "want_kv_out_ranks": want,
+                "xk_xv_bytes_per_seq_rank": 2 * cfg.n_dec_layers * frames
+                * (cfg.n_kv_heads // M) * cfg.resolved_head_dim * 2})
+    say(f"{tag} checks:", json.dumps({k: rec[k] for k in (
+        "one_rank_decode_step_ms", "want_kv_out_ranks", "xk_xv_bytes_per_seq_rank")}))
+    for r, kr in enumerate(rec["kv_ranks"]):
+        if not kr["out_bytes"] == kr["in_bytes"] == want[r] > 0:
+            raise SystemExit(f"FAIL {tag}: rank {r} parked {kr['out_bytes']} and fetched "
+                             f"{kr['in_bytes']} bytes; want {want[r]}")
+    _check_tp_ranks(tag, recs, "tp", ("flash_attention", "tiled_matmul"))
+    return rec, _sum_launches(recs)
+
+
+def phase_encdec_cp_serve(recs: list, one: dict) -> tuple:
+    """The ranks' "encdec_cp_serve" (seamless cut to
+    ``ENCDEC_CP_SERVE_CUT`` with ``ENCDEC_CP_SERVE_ARGV`` on (1, 2),
+    context parallelism forced) by ``check_model_serve`` against ``one``,
+    the one-rank run of the same cut and argv, the rules' context-parallel
+    bytes a rank; the decode cache split: each rank's resident cache its
+    two slots' 258 of the 516 decoder positions and 1024 of the 2048
+    memory positions (``xk`` / ``xv``), half the one rank's (the slots'
+    ``len`` leaf on model rank 0); flash and the tiled matmul on the tensor
+    cores."""
+    tag, M = "encdec cp serve", len(recs)
+    frames = int(ENCDEC_CP_SERVE_ARGV[ENCDEC_CP_SERVE_ARGV.index("--prompt-len") + 1])
+    cap = frames // 4 + int(ENCDEC_CP_SERVE_ARGV[-1])
+    cfg = encdec_cp_serve_cfg()
+    want_bytes = model_axis_bytes(ENCDEC_ARCH, 0, M, "cp", ENCDEC_CP_SERVE_CUT)
+    rec = check_model_serve(tag, recs, want_bytes, {k: one["kv"][k] for k in SERVE_KV},
+                            one["generated"], "cp")
+    row = cfg.n_dec_layers * cfg.n_kv_heads * cfg.resolved_head_dim * 2  # bf16, a position
+    slots = one["slots"]
+    lens = 4 * slots  # the slots' int32 len leaf
+    want = slots * 2 * row * (cap + frames) // M
+    resident = [kr["resident_bytes"] - (lens if r == 0 else 0)
+                for r, kr in enumerate(rec["kv_ranks"])]
+    one_resident = one["kv"]["resident_bytes"] - lens
+    rec.update({"resident_kv_ranks": resident, "want_resident_kv_rank": want,
+                "one_rank_resident_kv": one_resident, "cut": ENCDEC_CP_SERVE_CUT,
+                "xk_xv_bytes_per_seq_rank": 2 * row * frames // M,
+                "one_rank_decode_step_ms": one["timings"]["decode_s"]
+                / max(one["steps"], 1) * 1e3})
+    say(f"{tag} checks:", json.dumps({k: rec[k] for k in (
+        "resident_kv_ranks", "want_resident_kv_rank", "one_rank_resident_kv",
+        "xk_xv_bytes_per_seq_rank", "one_rank_decode_step_ms")}))
+    if not (rec["cache_seq_split"] and rec["local_cache_len"] == cap // M
+            and all(b == want and M * b == one_resident for b in resident)):
+        raise SystemExit(f"FAIL {tag}: resident K/V a rank {resident} over "
+                         f"{rec['local_cache_len']} positions; want {want} of one rank's "
+                         f"{one_resident}")
+    _check_tp_ranks(tag, recs, "cp", ("flash_attention", "tiled_matmul"))
     return rec, _sum_launches(recs)
 
 
@@ -4168,29 +4332,66 @@ def count_hgmma(name: str) -> int:
     return n
 
 
-def early_cpu_keys() -> tuple:
-    """The numerics phases' CPU sides ``phase_build`` computes, by
-    ``CPU_RUNS``' key: "gspmd numerics"' smollm, "recurrent numerics"'
-    mamba2 and "family numerics"' seamless (~50 s together on the chip
-    machine's host, about nvcc's time; the hybrid's and llava's take
-    longer and stay in their phases)."""
-    return (GSPMD_NUMERICS_KEY, SSM_NUMERICS_KEY,
-            (ENCDEC_ARCH, tuple(sorted(ENCDEC_NUMERICS_CUT.items())), 2, 256, 2))
+# the numerics phases' CPU sides, by ``CPU_RUNS``' key, in the order one
+# thread computes them (``start_cpu_sides``): "gspmd numerics"' smollm,
+# "recurrent numerics"' mamba2, "family numerics"' seamless, "recurrent
+# numerics"' recurrentgemma (3 layers at full width, 1.7 B params, one
+# step of one sequence) and "family numerics"' llava (one layer, 1.45 B
+# params); ~190 s together on ``CPU_SIDE_THREADS`` of the host's 8
+# threads, beside the build and the card's numerics phases (``main``).
+# The last two are read once, by their phase, which drops them.
+HYBRID_NUMERICS_KEY = (HYBRID_ARCH, (("n_layers", 3),), 1, 128, 1)
+VLM_NUMERICS_KEY = (VLM_ARCH, tuple(sorted(VLM_NUMERICS_CUT.items())), 1, 160, 1)
+CPU_SIDE_KEYS = (GSPMD_NUMERICS_KEY, SSM_NUMERICS_KEY, ENCDEC_NUMERICS_KEY,
+                 HYBRID_NUMERICS_KEY, VLM_NUMERICS_KEY)
+CPU_SIDES_READ_ONCE = (HYBRID_NUMERICS_KEY, VLM_NUMERICS_KEY)
+CPU_SIDE_THREADS = 4
 
 
-def phase_build() -> dict:
-    """Every kernel built from the checkout (``_build.build_all``: one nvcc
-    a source, all started together) while the numerics phases' CPU sides
-    of ``early_cpu_keys`` run here, each kept in ``CPU_RUNS``: no kernel
-    runs on the CPU (each wrapper takes its plain version there), and
-    nvcc leaves most of the host's cores idle."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        building = pool.submit(_build.build_all)
-        for key in early_cpu_keys():
-            t0 = time.perf_counter()
-            CPU_RUNS[key] = gspmd_side(key, "cpu")
-            say(f"build: the CPU side of {json.dumps(key)} in {time.perf_counter() - t0:.1f} s")
-        return building.result()
+def cpu_side(key: tuple) -> tuple:
+    """(in the CPU sides' thread) ``key``'s in-graph CPU side from
+    ``init_params``' draw, and that draw: the phase's card side starts
+    from it. No kernel runs on the CPU, so no launch counter moves, and an
+    in-graph run on the CPU opens no store."""
+    arch, cut = key[:2]
+    params0 = init_params(dataclasses.replace(configs.get(arch), **dict(cut)))
+    t0 = time.perf_counter()
+    side = gspmd_side(key, "cpu", params0=params0)
+    say(f"cpu sides: {json.dumps(key)} in {time.perf_counter() - t0:.1f} s")
+    return side, params0
+
+
+def start_cpu_sides() -> tuple:
+    """``CPU_SIDE_KEYS``' CPU sides in order, in one daemon thread (a
+    failing run exits without waiting for it), each's future of (its CPU
+    side, its initial params) in ``CPU_RUNS``; the thread and the host
+    threads torch took before. Until the join torch takes
+    ``CPU_SIDE_THREADS`` (the count is the process's, not a thread's: the
+    card's phases beside the thread take as many)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    CPU_RUNS.update({key: concurrent.futures.Future() for key in CPU_SIDE_KEYS})
+
+    def run():
+        for key in CPU_SIDE_KEYS:
+            try:
+                CPU_RUNS[key].set_result(cpu_side(key))
+            except BaseException as e:  # re-raised where the result is taken
+                CPU_RUNS[key].set_exception(e)
+
+    thread = threading.Thread(target=run, name="cpu sides", daemon=True)
+    thread.start()
+    return thread, threads
+
+
+def join_cpu_sides(thread: threading.Thread, threads: int) -> None:
+    """Wait for the CPU sides' thread and give torch its ``threads`` back
+    (the phases after this one have the host to themselves: they time it
+    or trace); the first side that failed fails the run here."""
+    thread.join()
+    torch.set_num_threads(threads)
+    for fut in CPU_RUNS.values():
+        fut.result()
 
 
 # each phase's seconds, in the order run (printed as "phase <name>: s")
@@ -4232,8 +4433,9 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
 
+    cpu_sides = start_cpu_sides()
     t0 = time.perf_counter()
-    built = timed("build", phase_build)
+    built = timed("build", _build.build_all)
     say(f"build: {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, rec in built.items():
         for line in rec["log"].splitlines():
@@ -4241,6 +4443,26 @@ def main() -> int:
                 say(f"  {name}: {line.strip()}")
     hgmma = {name: count_hgmma(name)
              for name in ("flash_attention", "tiled_matmul", "quantized_matmul")}
+    # beside the CPU sides' thread, only the numerics phases: they read no
+    # host clock and turn no trace on (the trace is the process's); then
+    # the thread is joined, before any phase that times the host or traces
+    numerics = timed("train numerics", phase_train_numerics)
+    timed("train numerics q8", phase_train_numerics, "q8")
+    # the three placements compute one function: the thread's CPU side
+    gspmd = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p)
+             for p in SMOLLM_PLACEMENTS}
+    # int8 quantizes the 'other' gradients: its CPU side is its own
+    zero3 = {p: timed(f"zero3 numerics/{p}", phase_zero3_numerics, p,
+                      keep_cpu=p == "in_graph", reuse_cpu=p in ("host", "off_graph_nvme"))
+             for p in ZERO3_PLACEMENTS}
+    moe_repeat = timed("moe repeat", phase_moe_repeat)
+    # their CPU sides are kept for the dp-2 numerics' MoE cases
+    moe_numerics = {k: timed(f"moe numerics/{k}", phase_moe_numerics, k)
+                    for k in ("gspmd", "layered")}
+    nvme_numerics = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p, ENCDEC_ARCH,
+                              B=2, S=256, tag="gspmd numerics", cut=ENCDEC_NUMERICS_CUT)
+                     for p in NVME_PLACEMENTS}
+    timed("cpu sides", join_cpu_sides, *cpu_sides)
 
     checks = timed("kernels", phase_kernels)
     e2e = timed("e2e", phase_e2e)
@@ -4262,21 +4484,12 @@ def main() -> int:
     summarize("nvme q8", q8kv_argv, out, q8kv_launches, wall)
 
     train_checks = timed("train kernels", phase_train_kernels)
-    numerics = timed("train numerics", phase_train_numerics)
-    timed("train numerics q8", phase_train_numerics, "q8")
     train_rec, train_launches = timed("train", phase_train_main)
     q8_rec, q8_launches = timed("train q8", phase_train_main, "q8")
-    # the three placements compute one function: the build's CPU side
-    gspmd = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p)
-             for p in SMOLLM_PLACEMENTS}
     plan_rec, plan_launches = timed("plan train", phase_plan_train, "plan train", [])
     offload_rec, offload_launches = timed("plan offload", phase_plan_train,
                                           "plan offload", ["--hw-device-mem", OFFLOAD_DEVICE_MEM])
     plan_serve_rec, plan_serve_launches = timed("plan serve", phase_plan_serve)
-    # int8 quantizes the 'other' gradients: its CPU side is its own
-    zero3 = {p: timed(f"zero3 numerics/{p}", phase_zero3_numerics, p,
-                      keep_cpu=p == "in_graph", reuse_cpu=p in ("host", "off_graph_nvme"))
-             for p in ZERO3_PLACEMENTS}
     z3_rec, z3_launches = timed(
         "zero3 train", phase_zero3_train, "zero3 train",
         ["--offload-param", "device", "--offload-opt", "device"])
@@ -4287,10 +4500,6 @@ def main() -> int:
         "zero3 host", phase_zero3_train, "zero3 host",
         ["--offload-param", "host", "--offload-opt", "host"])
     drill_rec, drill_launches = timed("resume drill", phase_resume_drill)
-    moe_repeat = timed("moe repeat", phase_moe_repeat)
-    # their CPU sides are kept for the dp-2 numerics' MoE cases
-    moe_numerics = {k: timed(f"moe numerics/{k}", phase_moe_numerics, k)
-                    for k in ("gspmd", "layered")}
     moe_serve_rec, moe_serve_launches = timed("moe serve", phase_moe_serve)
     moe_plan_rec, moe_plan_launches = timed("moe plan train", phase_plan_train,
                                             "moe plan train", [], arch=MOE_ARCH)
@@ -4341,7 +4550,7 @@ def main() -> int:
         train_checks[name] += recs
     # the hybrid's 1.7 B-param cut takes one step of one sequence: its CPU
     # side is the run's slowest (109-128 s at two sequences)
-    # mamba2's CPU side is the build's, held by "ssm cp numerics" too
+    # mamba2's CPU side is held by "ssm cp numerics" too
     recurrent = {arch: timed(f"recurrent numerics/{arch}", phase_gspmd_numerics, "in_graph",
                              arch, layers, B, S, tag="recurrent numerics", steps=steps)
                  for arch, layers, B, S, steps in ((SSM_ARCH, 2, 4, 256, 2),
@@ -4399,9 +4608,24 @@ def main() -> int:
     encdec_train_rec, encdec_train_launches = timed(
         "encdec plan train", phase_plan_train, "encdec plan train", [], arch=ENCDEC_ARCH,
         batch=8, seq=2048)
-    nvme_numerics = {p: timed(f"gspmd numerics/{p}", phase_gspmd_numerics, p, ENCDEC_ARCH,
-                              B=2, S=256, tag="gspmd numerics", cut=ENCDEC_NUMERICS_CUT)
-                     for p in NVME_PLACEMENTS}
+    # the two-rank spawn's encoder-decoder parts, held against the one-rank
+    # runs: tensor parallelism, and context parallelism forced
+    encdec_kernels = ("flash_attention", "flash_attention_bwd", "tiled_matmul", "fused_adam")
+    emx = {s: timed(f"encdec {s} numerics", phase_tp_numerics,
+                    _part(dp_ranks, f"encdec_{s}_numerics"), f"encdec {s} numerics",
+                    ENCDEC_NUMERICS_KEY, f"encdec_{s}_numerics", s, encdec_kernels)
+           for s in ("tp", "cp")}
+    ett_rec, ett_launches = timed(
+        "encdec tp train", phase_tp_train, _part(dp_ranks, "encdec_tp_train"),
+        encdec_train_rec, "encdec tp train", model_axis_bytes(ENCDEC_ARCH, 0, 2), "tp",
+        encdec_kernels)
+    encdec_one = timed("encdec tp serve one rank", run_serve, ENCDEC_TP_SERVE_ARGV)[0]
+    ets_rec, ets_launches = timed("encdec tp serve", phase_encdec_tp_serve,
+                                  _part(dp_ranks, "encdec_tp_serve"), encdec_one)
+    encdec_one = timed("encdec cp serve one rank", run_serve, ENCDEC_CP_SERVE_ARGV,
+                       cfg=encdec_cp_serve_cfg(), attn_strategy="cp")[0]
+    ecs_rec, ecs_launches = timed("encdec cp serve", phase_encdec_cp_serve,
+                                  _part(dp_ranks, "encdec_cp_serve"), encdec_one)
     plan_nvme_rec, plan_nvme_launches = timed("encdec plan nvme", phase_plan_nvme)
     remat_recs, remat_launches = timed("encdec remat", phase_encdec_remat)
 
@@ -4454,7 +4678,10 @@ def main() -> int:
              "moe_tp_serve": moe_tps_launches, "ssm_cp_numerics": scn_launches,
              "ssm_cp_train": sct_launches, "ssm_cp_serve": scs_launches,
              "hybrid_tp_train": htt_launches, "hybrid_tp_serve": hts_launches,
-             "resume_drill": drill_launches, "moe_serve": moe_serve_launches,
+             "encdec_tp_numerics": emx["tp"][1], "encdec_cp_numerics": emx["cp"][1],
+             "encdec_tp_train": ett_launches, "encdec_tp_serve": ets_launches,
+             "encdec_cp_serve": ecs_launches, "resume_drill": drill_launches,
+             "moe_serve": moe_serve_launches,
              "moe_plan_train": moe_plan_launches, "moe_layered": moe_layered_launches,
              "hybrid_serve": hybrid_serve_launches, "hybrid_plan_train": hybrid_train_launches,
              "ssm_serve": ssm_serve_launches, "ssm_plan_train": ssm_train_launches,
@@ -4573,7 +4800,15 @@ def main() -> int:
         f"{encdec_serve_rec['decode_tok_s']:.0f} decode tok/s, TTFT p50 "
         f"{encdec_serve_rec['ttft_p50_s']:.3f} s; encdec plan train "
         f"{encdec_train_rec['first_loss']:.4f} -> {encdec_train_rec['last_loss']:.4f} at "
-        f"{encdec_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; gspmd numerics "
+        f"{encdec_train_rec['median_tokens_per_s_after_first']:.0f} tok/s; encdec tp / cp "
+        f"numerics params {emx['tp'][0]['params_worst_diff_over_bound']:.3f} / "
+        f"{emx['cp'][0]['params_worst_diff_over_bound']:.3f} of bound; encdec tp train "
+        f"{ett_rec['losses'][0]:.4f} -> {ett_rec['losses'][-1]:.4f} at "
+        f"{ett_rec['median_step_s_after_first']:.3f} s a step; encdec tp serve "
+        f"{ets_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{ets_rec['tokens_equal_one_rank_share']:.3f} one rank's; encdec cp serve "
+        f"{ecs_rec['decode_step_ms']:.1f} ms a decode step, tokens "
+        f"{ecs_rec['tokens_equal_one_rank_share']:.3f} one rank's; gspmd numerics "
         f"on NVMe params "
         f"{max(r['params_worst_diff_over_bound'] for r in nvme_numerics.values()):.3f} of "
         f"bound; encdec plan nvme {plan_nvme_rec['first_loss']:.4f} -> "

@@ -66,9 +66,9 @@ rank's rows of the global batch (``data/pipeline.rank_batch``):
      (stages 1-2).
 
 With a model axis (``mesh.model`` = M > 1; rank r at data coordinate
-``r // M``, model coordinate ``r % M``, ``launch/mesh.py``) the dense,
-vlm, moe, ssm and hybrid families run tensor or context parallelism, the
-strategy of ``partition.choose_attn_strategy`` (the reference's
+``r // M``, model coordinate ``r % M``, ``launch/mesh.py``) every family
+runs tensor or context parallelism, the strategy of
+``partition.choose_attn_strategy`` (the reference's
 ``repro/core/partition.py:144-224``): each rank holds what the reference's spec gives
 its device, its leaves cut along both axes (``partition.cut_leaf``), and
 the bundle is built with the rank's ``zero.ModelAxis`` (``models/
@@ -312,7 +312,6 @@ class ZeroInfinityEngine:
         """The reference's attention strategy on this mesh; what the port
         cannot lay out so raises."""
         cfg, par, M = run.model, run.parallel, sizes["model"]
-        registry.check_model_axis(cfg, M)
         if par.pure_dp:
             raise NotImplementedError(
                 "pure_dp on the GSPMD engine with a model axis (every mesh axis data "

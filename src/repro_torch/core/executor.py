@@ -116,9 +116,8 @@ over the ranks, ``<counter>_all_ranks``, what the reference's one process
 counts, and an executor built from a plan the plan's per-device state
 bytes beside them (``plan_*_shard_bytes``). A plan for another number of
 devices than the ranks (``--data-mesh`` x ``--model-mesh``) raises; so
-do, on a GSPMD mesh, a model axis for the encoder-decoder (ROADMAP item
-8g.4), params on NVMe and ``param_quant``, which encodes only
-the NVMe param store (8f), and checkpoints at dp > 1 (item 5). On a mesh
+do, on a GSPMD mesh, params on NVMe and ``param_quant``, which encodes
+only the NVMe param store (8f), and checkpoints at dp > 1 (item 5). On a mesh
 with a model axis the step is the engine's tensor- or context-parallel
 one, in-graph or with the off-graph optimizer over the rank's shards (on
 the host or NVMe, keyed ``rank<r>/<keystr>`` as on data-parallel ranks).
@@ -153,23 +152,19 @@ from repro_torch.core.offload import (ArrayStore, ChunkedAdamOffload,
                                       HostArrayStore, NvmeStore, ParamStreamer,
                                       PinnedBufferPool, PinnedStager)
 from repro_torch.core.zero import ExplicitZero3Engine
-from repro_torch.models import registry
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam as adam_mod
 from repro_torch.runtime import trace
 
 
-def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
-                 model: int = 1) -> None:
+def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1) -> None:
     """Raise for a configuration the port cannot run on ``dp`` ranks (every
-    rank of the mesh) of a mesh whose model axis is ``model``:
-    ``ValueError`` for a plan made for ``n_devices`` devices (None: no
-    plan) on another number of ranks; ``NotImplementedError`` naming the
-    ROADMAP item that ports it for the GSPMD engine on a mesh: a model axis
-    for the encdec family (8g.4; the dense, vlm, moe, ssm and hybrid
-    families take one), params on NVMe (the
-    leaf scheduler) or ``param_quant`` (the NVMe param store's encoding,
-    8f)."""
+    rank of the mesh, on either axis): ``ValueError`` for a plan made for
+    ``n_devices`` devices (None: no plan) on another number of ranks;
+    ``NotImplementedError`` naming the ROADMAP item that ports it for the
+    GSPMD engine on a mesh: params on NVMe (the leaf scheduler) or
+    ``param_quant`` (the NVMe param store's encoding, 8f). Every family
+    takes a model axis."""
     if n_devices is not None and n_devices != dp:
         raise ValueError(
             f"a plan for {n_devices} device(s) runs on as many ranks, and this run "
@@ -179,7 +174,6 @@ def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1,
     if dp == 1 or run.parallel.engine == "zero3":
         return
     where = f"the GSPMD engine on a mesh of {dp} ranks"
-    registry.check_model_axis(run.model, model)
     if run.offload.param_quant != "none":
         raise NotImplementedError(
             f"{where}: --param-quant {run.offload.param_quant} encodes the NVMe param "
@@ -228,8 +222,7 @@ class InfinityExecutor:
         self.plan = plan
         self.mesh = mesh
         self.dp = mesh.world if mesh is not None else 1
-        check_ported(run, plan.hardware.n_devices if plan is not None else None, self.dp,
-                     mesh.model if mesh is not None else 1)
+        check_ported(run, plan.hardware.n_devices if plan is not None else None, self.dp)
         self.run = run
         self.device = torch.device(device)
         # this rank's key namespace in the stores, as the reference's

@@ -48,6 +48,9 @@ BATCH_AXIS = 1
 
 # families whose decode cache grows along a sequence axis
 SEQ_CACHE_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# the encoder-decoder's cross-attention keys and values: the memory's
+# positions, parked whole, never grown
+CROSS_NAMES = ("xk", "xv")
 
 
 def _is_seq_leaf(name: str, leaf, seq_axis_names) -> bool:
@@ -91,23 +94,40 @@ def decode_positions(cache: dict, mp, capacity: int) -> Tuple[dict, int, int, bo
     of the prompt's ``len`` positions, or all of them) the positions are
     the rank's range ``[m * C/M, (m+1) * C/M)`` of the ``capacity`` C where
     it splits (``seq_split``), else every one; a chunked prefill's are
-    all-gathered over the model ranks first (one collective, ``k`` and
-    ``v`` together), so they move to their owners once. Elsewhere the
+    all-gathered over the model ranks first (one collective), so they move
+    to their owners once. The encoder-decoder's cross-attention keys and
+    values (``xk`` / ``xv``, the reference's ``cache_seq`` on ``model``
+    too) split with them: where C and the memory's E positions both
+    divide by M, rank m keeps the memory's ``[m * E/M, (m+1) * E/M)`` (a
+    chunked prefill's own chunk) and decode combines the ranks' partial
+    softmaxes over it; where either does not, every rank keeps the whole
+    cache, ``xk`` / ``xv`` gathered with ``k`` / ``v``. Elsewhere the
     cache is every rank's as it is, and so is a cache without top-level
     ``k`` / ``v`` (the SSM's and the hybrid's fixed state: their ``inner``
     leaves are the rank's already, the rest whole on every model rank)."""
     P = int(cache["len"])
     if mp is None or mp.tp or "k" not in cache:
         return cache, P, capacity, False
-    kv = [cache["k"], cache["v"]]
-    if kv[0].shape[SEQ_AXIS] < P:
-        kv = mp.mesh.all_gather_leaves([(t, SEQ_AXIS) for t in kv], "model")
-    split = seq_split(capacity, mp.size)
+    M = mp.size
+    chunked = cache["k"].shape[SEQ_AXIS] < P
+    cross = [n for n in CROSS_NAMES if n in cache]
+    E = cache[cross[0]].shape[SEQ_AXIS] * (M if chunked else 1) if cross else 0
+    split = seq_split(capacity, M) and E % M == 0
+    out = dict(cache)
+    gather = (["k", "v"] + ([] if split else cross)) if chunked else []
+    if gather:
+        leaves = mp.mesh.all_gather_leaves([(cache[n], SEQ_AXIS) for n in gather], "model")
+        out.update(zip(gather, leaves))
     if split:
-        capacity //= mp.size
+        capacity //= M
         lo = mp.rank * capacity
-        kv = [t[:, :, lo:max(lo, min(lo + capacity, P))] for t in kv]
-    return {**cache, "k": kv[0], "v": kv[1]}, kv[0].shape[SEQ_AXIS], capacity, split
+        for n in ("k", "v"):
+            out[n] = out[n][:, :, lo:max(lo, min(lo + capacity, P))]
+        if not chunked:
+            n = E // M
+            out.update({c: out[c][:, :, mp.rank * n:(mp.rank + 1) * n].contiguous()
+                        for c in cross})
+    return out, out["k"].shape[SEQ_AXIS], capacity, split
 
 
 def sequence_kv_bytes(model, cache_len: int, cache_defs=None) -> int:

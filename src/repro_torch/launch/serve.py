@@ -39,8 +39,8 @@ run: the sequences' tokens and latencies gathered from their ranks,
 ``param_shard_bytes`` and peak allocated bytes.
 
 With a model axis (``--model-mesh M``: D * M ranks, rank r at data
-coordinate r // M and model coordinate r % M) every family but the
-encoder-decoder serves under the reference's attention strategy. Where
+coordinate r // M and model coordinate r % M) every family serves under
+the reference's attention strategy. Where
 the heads split over M, tensor parallelism (``models/common.py``): each rank holds
 its heads, MLP columns (MoE: its experts) and vocab rows, gathers a layer
 over the data axis alone (the model shards stay split: no param byte
@@ -73,7 +73,13 @@ recurrent block (``models/mamba2.py``, ``models/rglru.py``): their fixed
 caches hold the rank's channels of the conv tails and states, and mamba2's
 ``conv_B`` / ``conv_C`` and the hybrid's window rings whole on every model
 rank, so each rank parks its own; nothing of them splits by position. The
-encoder-decoder on a model axis is ROADMAP.md Queue 1 item 8g.4.
+encoder-decoder serves under both (``models/encdec.py``): under tensor
+parallelism each rank parks its KV heads of the decoder's K/V and of the
+cross-attention's ``xk`` / ``xv``; under context parallelism a wave's
+frames and tokens are prefilled a chunk a rank where both split over M,
+and ``xk`` / ``xv`` split by the memory's positions with ``k`` / ``v``
+where the capacity and the frames both divide by M (each rank parks its
+range of both), else every rank holds the whole cache.
 
 Every family serves: dense, MoE (``--arch granite-moe-1b-a400m``: the
 routed experts run in prefill and in every decode step, with the same
@@ -124,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import functools
 import os
 import tempfile
@@ -142,7 +149,6 @@ from repro_torch.core.offload import HostArrayStore, NvmeStore, PinnedBufferPool
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import common as cm
-from repro_torch.models import registry
 from repro_torch.runtime import metrics as metrics_mod
 from repro_torch.runtime import trace
 
@@ -186,7 +192,7 @@ def _parse(argv=None):
                          "the devices a --plan is made for (--hw-devices), else 1")
     ap.add_argument("--model-mesh", type=int, default=1,
                     help="model-parallel ranks (tensor or context parallelism, every "
-                         "family but encdec): --data-mesh x --model-mesh ranks in all")
+                         "family): --data-mesh x --model-mesh ranks in all")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", nargs="?", const="trace.json", default=None,
                     metavar="OUT.json",
@@ -204,14 +210,6 @@ def resolve_device(name: str) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"--device {name}: want cuda or cpu")
     return dev
-
-
-def _unported(args) -> None:
-    """Raise, before any process group, where the model axis does not
-    serve: the encoder-decoder (ROADMAP.md Queue 1 item 8g.4)."""
-    if args.model_mesh > 1:
-        cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-        registry.check_model_axis(cfg, args.model_mesh)
 
 
 def global_argmax(logits: torch.Tensor, mesh, sharded: bool) -> torch.Tensor:
@@ -273,29 +271,33 @@ def _insert(slot_cache: dict, single: dict, b: int, length: int) -> dict:
     return slot_cache
 
 
-def run_serve(args, argv=None) -> dict:
+def run_serve(args, argv=None, cfg=None, attn_strategy: str = "auto") -> dict:
     """The serving run; returns per-sequence tokens + timings + KV metrics
     (the test surface — ``main`` just prints). ``argv`` (default
     ``sys.argv[1:]``) says which legacy flags were given: under ``--plan
-    auto`` those become overrides of the derived plan. Joins the process
-    group torchrun describes where none exists (and leaves it before
-    returning); on a mesh every rank returns the run's numbers, gathered
-    from the ranks (``_serve``)."""
+    auto`` those become overrides of the derived plan. ``cfg`` serves
+    that model config in place of ``--arch``'s (a cut the flags cannot
+    name: ``--layers`` cuts one stack, an encoder-decoder has two), and
+    ``attn_strategy`` is the model axis' attention strategy the run's
+    config forces (``ParallelConfig.attn_strategy``; the CLI's is "auto").
+    Joins the process group torchrun describes where none exists (and
+    leaves it before returning); on a mesh every rank returns the run's
+    numbers, gathered from the ranks (``_serve``)."""
     device = resolve_device(args.device)
-    _unported(args)
     created = mesh_mod.maybe_init_distributed(device.type)
     try:
         mesh = mesh_mod.make_local_mesh(mesh_mod.data_mesh(args), args.model_mesh, device,
                                         entry="serve")
-        return _serve(args, argv, mesh)
+        return _serve(args, argv, mesh, cfg, attn_strategy)
     finally:
         if created:
             torch.distributed.destroy_process_group()
 
 
-def _serve(args, argv, mesh) -> dict:
+def _serve(args, argv, mesh, cfg, attn_strategy) -> dict:
     device = mesh.device
-    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if cfg is None:
+        cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     cfg = configs.with_layers(cfg, args.layers)
     n_seqs, P, N = args.batch, args.prompt_len, args.new_tokens
     eos = args.eos_id
@@ -320,6 +322,8 @@ def _serve(args, argv, mesh) -> dict:
         slots = args.kv_slots or n_seqs
         block_tokens = args.kv_block_tokens
         kv_prefetch = 2
+    run = dataclasses.replace(run, parallel=dataclasses.replace(run.parallel,
+                                                                attn_strategy=attn_strategy))
     slots = max(1, min(int(slots), n_seqs))
     block_tokens = int(block_tokens) or kvcache.default_block_tokens(P + N)
     # the rank's slots: global slots [lo, lo + local) where they divide over

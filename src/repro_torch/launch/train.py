@@ -66,14 +66,15 @@ data-parallel mesh of ranks:
     of devices than the run's ranks raises, naming both.
   * ``--engine pjit --data-mesh D --model-mesh M``: the GSPMD engine on D *
     M ranks, rank r at data coordinate r // M and model coordinate r % M
-    (the reference's device order), the dense, vlm, moe, ssm and hybrid
-    families under tensor parallelism (heads, MLP columns or experts, the
-    recurrent blocks' ``inner`` channels, and vocab rows over the model
+    (the reference's device order), every family under tensor parallelism
+    (heads, MLP columns or experts, the recurrent blocks' ``inner``
+    channels, and vocab rows over the model
     ranks) or context parallelism (the sequence over them; ``inner`` stays
-    split, its blocks gather the sequence) as the reference's
+    split, its blocks gather the sequence; the encoder-decoder's frames and
+    decoder tokens both, each a multiple of M) as the reference's
     ``choose_attn_strategy`` picks (``core/engine.py``); the model ranks of
-    one data row take the same rows of the batch. The encoder-decoder
-    raises (ROADMAP item 8g.4). Every rank runs ``train`` and returns
+    one data row take the same rows of the batch (an encoder-decoder's
+    frames too). Every rank runs ``train`` and returns
     its history; rank 0 prints the step lines, each with the rank's bytes
     (tier bytes; the GSPMD engine's state shards) and their sum over the
     ranks. A run whose world size is not N * M raises, naming the launch.
@@ -86,10 +87,9 @@ rank's slice encoded on its own; q8 slices gathered as wire bytes), and
 the GSPMD engine takes the MoE family (the routing statistics summed over
 the data ranks). What is not ported raises, naming the ROADMAP item that
 ports it: ``--elastic``/``--chaos`` (item 5); on a mesh, checkpoints and
-``--resume`` (item 5: pass ``--ckpt-every 0``), and for the GSPMD engine a
-model axis for the encdec family (item 8g.4), params
-on NVMe and ``--param-quant``, which encodes only the NVMe param store
-(item 8f). On the layered epoch
+``--resume`` (item 5: pass ``--ckpt-every 0``), and for the GSPMD engine
+params on NVMe and ``--param-quant``, which encodes only the NVMe param
+store (item 8f). On the layered epoch
 ``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the
 reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
@@ -174,7 +174,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--model-mesh", type=int, default=1,
                     help="model-parallel ranks: N * M ranks in all; the GSPMD "
                          "engine runs tensor or context parallelism over them "
-                         "(every family but encdec), the explicit engine folds "
+                         "(every family), the explicit engine folds "
                          "them into dp, as the reference's")
     ap.add_argument("--engine", default="pjit", choices=["pjit", "zero3"],
                     help="pjit = the GSPMD engine's step (params on the device "

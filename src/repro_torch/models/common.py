@@ -21,7 +21,10 @@ guard may leave it whole). Under tensor parallelism (``mp.tp``):
     ``wv`` its ``KV/M`` where the KV heads split, else whole, and the rank
     projects only the KV heads its query heads map to (``tp_kv_heads``);
     the input enters through ``mp.enter`` (backward: the all-reduce) and
-    ``wo``'s row-parallel partial sums leave through ``mp.join``;
+    ``wo``'s row-parallel partial sums leave through ``mp.join``; a
+    cross-attention's memory (``kv_source``) is taken as it comes: the
+    caller enters it once (``models/encdec.py``: one all-reduce of every
+    layer's partial cotangent);
   * the MLP: ``w_in`` / ``w_gate`` column-parallel, ``w_out`` row-parallel
     with the all-reduce after;
   * the embedding is vocab-parallel: each rank looks up the tokens in its
@@ -35,9 +38,11 @@ Under context parallelism (``mp.strategy == "cp"``) a rank's activations
 are its chunk of the sequence at absolute positions (``mp.seq``; a
 prompt that does not split over the ranks runs whole on each,
 ``mp.whole()``); attention all-gathers K and V along the sequence
-(backward: the reduce-scatter) and attends with the keys cut to the
-chunk's end, so the flash kernel's end-aligned causal mask is exactly
-causal for the chunk. The leaves split over model are gathered whole by
+(backward: the reduce-scatter). Causal self-attention attends with the
+keys cut to the chunk's end, so the flash kernel's end-aligned causal
+mask is exactly causal for the chunk; an encoder's (not causal) and a
+cross-attention's (``kv_source``: the memory's chunks) attend every
+gathered key. The leaves split over model are gathered whole by
 the engine before the loss (MoE's experts stay split, ``models/moe.py``).
 A decode step's cache may hold the rank's range of positions alone (the
 reference's ``cache_seq`` on ``model``): its layer cache then carries
@@ -326,9 +331,13 @@ def attention_block(p: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         ka, va = kx, vx
         if cp:
-            # context parallel: every chunk's K/V, cut to this chunk's end
-            end = (mp.rank + 1) * S
-            ka, va = (mp.gather(t, 1)[:, :end] for t in (kx, vx))
+            # context parallel: every chunk's K/V; causal self-attention cuts
+            # them to this chunk's end, an encoder's or a cross-attention's
+            # queries attend every gathered key
+            ka, va = (mp.gather(t, 1) for t in (kx, vx))
+            if causal and kv_source is None:
+                end = (mp.rank + 1) * S
+                ka, va = ka[:, :end], va[:, :end]
         # (B,S,H,D) storage seen as (B,H,S,D): the kernel takes the strides
         out = ops.flash_attention(q.transpose(1, 2), ka.transpose(1, 2),
                                   va.transpose(1, 2), causal=causal and kv_source is None,

@@ -59,25 +59,6 @@ class ModelBundle:
         return total
 
 
-# the families the model axis is ported for (tensor and context
-# parallelism, ``models/common.py``; the recurrent blocks' ``inner``
-# channels, ``models/mamba2.py`` and ``models/rglru.py``), and what ports
-# the rest
-MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-MODEL_AXIS_ITEMS = {"encdec": "8g.4: the encoder-decoder"}
-
-
-def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise ``NotImplementedError`` naming the part of item 8g that ports
-    a family the model axis is not ported for, where the mesh has one
-    (``model`` > 1)."""
-    if model > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch}) on a model axis of {model}: tensor and "
-            f"context parallelism cover the dense, vlm, moe, ssm and hybrid families "
-            f"(ROADMAP.md Queue 1 item {MODEL_AXIS_ITEMS[cfg.family]} on the model axis)")
-
-
 def param_defs(cfg: ModelConfig):
     """The family's param defs (every leaf's whole shape and axes)."""
     return FAMILY_MODULES[cfg.family].param_defs(cfg)
@@ -85,10 +66,7 @@ def param_defs(cfg: ModelConfig):
 
 def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None) -> ModelBundle:
     """The family's bundle; with ``mp`` (a ``core/zero.ModelAxis``) a model
-    rank's part of it (``models/common.py``): every family but the
-    encoder-decoder, which raises naming item 8g.4."""
-    if mp is not None:
-        check_model_axis(cfg, mp.size)
+    rank's part of it (``models/common.py``), for every family."""
     if cfg.score_dtype != "float32":
         # the port's attention scores are f32 in every path (the kernels and
         # their plain versions); the reference's chunked attention honours
@@ -97,7 +75,7 @@ def build(cfg: ModelConfig, parallel: ParallelConfig = ParallelConfig(), mp=None
             f"score_dtype {cfg.score_dtype!r} ({cfg.arch}): the port computes "
             f"attention scores in float32 only (ROADMAP.md Queue 1 item 9b)")
     mod = FAMILY_MODULES[cfg.family]
-    fns = mod.make_fns(cfg, parallel, mp) if mp is not None else mod.make_fns(cfg, parallel)
+    fns = mod.make_fns(cfg, parallel, mp)
     return ModelBundle(
         cfg=cfg,
         defs=param_defs(cfg),

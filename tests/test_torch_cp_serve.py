@@ -300,16 +300,22 @@ def test_each_rank_holds_its_shards_and_gathers_the_leaves_cp_uses_whole(ranks, 
 
 
 def test_serving_under_cp_raises_nothing_and_other_families_name_8g():
-    """Context parallelism serves (no refusal before the process group),
-    and so do the SSM and the hybrid on a model axis (8g.3, ``tests/
-    test_torch_recurrent_tp.py``); the encoder-decoder still raises,
-    naming 8g.4."""
+    """Context parallelism serves (no refusal), and so do the SSM and the
+    hybrid on a model axis (8g.3, ``tests/test_torch_recurrent_tp.py``)
+    and the encoder-decoder (8g.4, ``tests/test_torch_encdec_tp.py``): the
+    engine each rank of ``launch.serve --model-mesh 2`` builds takes its
+    strategy on a (1, 2) mesh, context parallelism where the heads do not
+    split (the smoke smollm's 3, mamba2's none), tensor parallelism where
+    they do."""
     base = ["--smoke", "--device", "cpu", "--batch", "2", "--model-mesh", "2"]
-    tserve._unported(tserve._parse(base))
-    for arch in ("mamba2-370m", "recurrentgemma-9b"):
-        tserve._unported(tserve._parse(base + ["--arch", arch]))
-    with pytest.raises(NotImplementedError, match="item 8g.4"):
-        tserve._unported(tserve._parse(base + ["--arch", "seamless-m4t-medium"]))
+    for arch, strategy in (("smollm-135m", "cp"), ("mamba2-370m", "cp"),
+                           ("recurrentgemma-9b", "tp"), ("seamless-m4t-medium", "tp")):
+        args = tserve._parse(base + ["--arch", arch])
+        eng = ZeroInfinityEngine(RunConfig(model=tconfigs.smoke(args.arch),
+                                           parallel=ParallelConfig(remat="none")), "cpu",
+                                 mesh=mesh_mod.LocalMesh(1, args.model_mesh, 0, 2,
+                                                         torch.device("cpu"), None, "gloo"))
+        assert eng.mp.strategy == strategy, arch
 
 
 # ---------------------------------------------------------------------------

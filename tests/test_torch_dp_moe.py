@@ -661,17 +661,27 @@ def test_serving_moe_on_a_mesh_refuses_naming_its_item():
     """MoE trains and serves on data-parallel ranks (serving:
     ``tests/test_torch_serve_mesh.py``) and over a model axis
     (``tests/test_torch_moe_tp.py``), as the hybrid does (item 8g.3,
-    ``tests/test_torch_recurrent_tp.py``); serving the encoder-decoder over
-    a model axis stays unported (item 8g.4)."""
+    ``tests/test_torch_recurrent_tp.py``) and the encoder-decoder (item
+    8g.4, ``tests/test_torch_encdec_tp.py``): nothing refuses them, and the
+    engine each rank of ``launch.serve`` builds takes its mesh (the data
+    ranks alone, or data x model under tensor parallelism)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.config import RunConfig as TRun
+    from repro_torch.core.engine import ZeroInfinityEngine
     from repro_torch.launch import serve
 
     base = ["--arch", "granite-moe-1b-a400m", "--smoke", "--device", "cpu", "--data-mesh", "2"]
-    serve._unported(serve._parse(base))
-    serve._unported(serve._parse(base + ["--model-mesh", "2"]))
-    serve._unported(serve._parse(base[2:] + ["--arch", "recurrentgemma-9b", "--model-mesh", "2"]))
-    with pytest.raises(NotImplementedError, match="item 8g.4"):
-        serve._unported(serve._parse(base[2:] + ["--arch", "seamless-m4t-medium",
-                                                 "--model-mesh", "2"]))
+    for argv, strategy in ((base, None), (base + ["--model-mesh", "2"], "tp"),
+                           (base[2:] + ["--arch", "recurrentgemma-9b", "--model-mesh", "2"], "tp"),
+                           (base[2:] + ["--arch", "seamless-m4t-medium", "--model-mesh", "2"],
+                            "tp")):
+        args = serve._parse(argv)
+        D, M = args.data_mesh, args.model_mesh
+        eng = ZeroInfinityEngine(TRun(model=tconfigs.smoke(args.arch),
+                                      parallel=ParallelConfig(remat="none")), "cpu",
+                                 mesh=mesh_mod.LocalMesh(D, M, 0, D * M, torch.device("cpu"),
+                                                         None, "gloo"))
+        assert (eng.mp.strategy if eng.mp is not None else None) == strategy, argv
 
 
 def test_no_message_of_the_port_cites_a_global_capacity_or_item_8d():

@@ -28,10 +28,10 @@
   mesh (its hardware pinned by ``--hw-*``): the reference's plan for the
   same hardware, byte for byte, and its ``RunConfig``; it trains.
 * **Refusals.** A plan for another number of devices than the ranks
-  (ValueError, naming both), and on a GSPMD mesh a model axis for the
-  families it is not ported for (ROADMAP item 8g; the dense and vlm
-  families run on one: ``tests/test_torch_tp.py``), and params on NVMe and
-  ``--param-quant`` (8f). (The MoE family on a
+  (ValueError, naming both), and on a GSPMD mesh params on NVMe and
+  ``--param-quant`` (8f); a model axis is ported for every family
+  (ROADMAP item 8g: the encoder-decoder builds and runs up to its first
+  collective here, ``tests/test_torch_encdec_tp.py`` runs it). (The MoE family on a
   GSPMD mesh runs: ``tests/test_torch_dp_moe.py``.)
 
 Tolerances are ``tests/test_torch_gspmd.py``'s, imported from it:
@@ -394,10 +394,16 @@ def test_a_plan_for_another_device_count_raises_naming_both(n_devices, dp):
 
 
 @pytest.mark.parametrize("what,run,mesh,match", [
-    ("model_axis", _run("seamless-m4t-medium"), (1, 2), "item 8g"),
+    ("model_axis", _run("seamless-m4t-medium"), (1, 2), None),
     ("moe", _run("granite-moe-1b-a400m", param_quant="q8"), (2, 1), "item 8f"),
     ("param_nvme", _run(param_tier="nvme"), (2, 1), "item 8f")])
 def test_gspmd_mesh_refuses_what_stays_unported(what, run, mesh, match):
+    """What stays unported raises naming its item; the encoder-decoder on a
+    model axis (item 8g.4, ported) builds, under tensor parallelism."""
+    if match is None:
+        ex = texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh(*mesh))
+        assert ex.engine.mp.strategy == "tp"
+        return
     with pytest.raises(NotImplementedError, match=match):
         texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh(*mesh))
 
@@ -406,9 +412,15 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "pjit", "--steps", "1", "--bat
         "--seq", "16", "--ckpt-every", "0"]
 
 
+class _Built(Exception):
+    """Raised, with the engine's attention strategy, where a run on a fake
+    mesh asks for its train step: it got past every refusal and built its
+    executor."""
+
+
 @pytest.mark.parametrize("extra,error,match", [
     (["--data-mesh", "1", "--model-mesh", "2", "--arch", "seamless-m4t-medium"],
-     NotImplementedError, "item 8g"),
+     _Built, "^tp$"),
     (["--data-mesh", "2", "--arch", "granite-moe-1b-a400m", "--param-quant", "q4"],
      NotImplementedError, "item 8f"),
     (["--data-mesh", "2", "--offload-param", "nvme"], NotImplementedError, "item 8f"),
@@ -416,8 +428,16 @@ BASE = ["--smoke", "--device", "cpu", "--engine", "pjit", "--steps", "1", "--bat
      "a plan for 4 device.*this run has 2")])
 def test_cli_on_a_gspmd_mesh_refuses_naming_the_item(monkeypatch, tmp_path, extra, error, match):
     """``launch.train`` on a 2-rank mesh (a fake one: each refusal comes
-    before the first collective)."""
+    before the first collective). The encoder-decoder on a model axis
+    (item 8g.4, ported) meets no refusal: it builds its executor under
+    tensor parallelism and asks for the train step, which the fake mesh
+    stops before any collective."""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda d, m, dev: _fake_mesh(d, m))
+
+    def make_train_step(self, **kw):
+        raise _Built(self.engine.mp.strategy)
+
+    monkeypatch.setattr(texec.InfinityExecutor, "make_train_step", make_train_step)
     argv = BASE + ["--nvme-dir", str(tmp_path), "--ckpt-dir", str(tmp_path / "ck")] + extra
     with pytest.raises(error, match=match):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)

@@ -169,7 +169,10 @@ def test_full_models_bytes_a_rank():
 
 def test_encdec_still_raises_naming_8g4_and_the_others_build():
     """On a model axis ``registry.build`` with a rank's context takes the
-    ssm and hybrid families; the encoder-decoder raises naming item 8g.4."""
+    ssm and hybrid families, and the encoder-decoder too (item 8g.4 is
+    ported, ``tests/test_torch_encdec_tp.py``): under either strategy its
+    cache holds the cross-attention's ``xk`` / ``xv``, the rank's K/V heads
+    under tensor parallelism."""
     from repro_torch.core.zero import ModelAxis
     from repro_torch.models import registry as treg
 
@@ -177,8 +180,11 @@ def test_encdec_still_raises_naming_8g4_and_the_others_build():
         mp = ModelAxis(_fake_mesh(), "tp" if arch == HYBRID else "cp", inner=True)
         bundle = treg.build(tconfigs.smoke(arch), mp=mp)
         assert "len" in bundle.cache_defs(1, 4)
-    with pytest.raises(NotImplementedError, match="item 8g.4"):
-        treg.build(tconfigs.smoke("seamless-m4t-medium"), mp=ModelAxis(_fake_mesh(), "cp"))
+    cfg = tconfigs.smoke("seamless-m4t-medium")
+    for strategy, heads in (("cp", cfg.n_kv_heads), ("tp", cfg.n_kv_heads // 2)):
+        bundle = treg.build(cfg, mp=ModelAxis(_fake_mesh(), strategy))
+        defs = bundle.cache_defs(1, 4)
+        assert defs["xk"].shape[3] == defs["k"].shape[3] == heads, strategy
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,7 @@
   whole split stacked leaf.
 * **In this process.** The seeded draw on a mesh is the one-rank draw cut
   by ``shard_leaf``, bit for bit; no config's rules split a stacked leaf
-  on its layer dim; ``--model-mesh 2`` on the smoke smollm (context
-  parallelism) raises naming item 8g, and a
+  on its layer dim; ``--model-mesh 2`` (every family, item 8g), a
   ``--data-mesh`` or a plan for more ranks than the run has raises naming
   the ``launch.serve`` torchrun launch.
 """
@@ -285,19 +284,16 @@ def test_no_config_splits_a_stacked_leaf_on_its_layer_dim(smoke):
 
 
 def test_model_mesh_raises_naming_item_8e():
-    """What a model axis does not serve raises before any process group,
-    naming the item that ports it, 8g (8e's tensor parallelism serves:
-    ``tests/test_torch_tp_serve.py``; the SSM's inner dim, 8g.3, too:
-    ``tests/test_torch_recurrent_tp.py``): the encoder-decoder (8g.4). The
-    smoke smollm's 3 heads over 2 model ranks serve under context
-    parallelism (``tests/test_torch_cp_serve.py``), and on a (2, 2) mesh in
-    a run of one process raise naming the launch of its 4 ranks, as mamba2
-    does."""
+    """A model axis serves every family: 8e's tensor parallelism (``tests/
+    test_torch_tp_serve.py``), the SSM's inner dim, 8g.3 (``tests/
+    test_torch_recurrent_tp.py``), and the encoder-decoder, 8g.4
+    (``tests/test_torch_encdec_tp.py``). The smoke smollm's 3 heads over 2
+    model ranks serve under context parallelism (``tests/test_torch_cp_
+    serve.py``); each, on a (2, 2) mesh in a run of one process, raises
+    naming the launch of its 4 ranks."""
     base = ["--smoke", "--device", "cpu", "--batch", "2", "--data-mesh", "2",
             "--model-mesh", "2"]
-    with pytest.raises(NotImplementedError, match="item 8g.4"):
-        tserve.run_serve(tserve._parse(base + ["--arch", "seamless-m4t-medium"]))
-    for arch in ("smollm-135m", "mamba2-370m"):
+    for arch in ("smollm-135m", "mamba2-370m", "seamless-m4t-medium"):
         with pytest.raises(ValueError, match="needs 4 ranks.*--nproc-per-node 4"):
             tserve.run_serve(tserve._parse(base + ["--arch", arch]))
 

@@ -26,8 +26,8 @@ on a mesh of as many host devices.
   (1, 2) and nemotron (1, 4: layer norm, relu2, untied unembedding);
   stages 0-2, the host tier, the optimizer on NVMe off-graph and two
   microbatches once each.
-* **Refusals and units.** The other families with a model axis raise
-  naming item 8g; what the port does not lay out raises; the model axis'
+* **Refusals and units.** The other families build on a model axis (item
+  8g is ported); what the port does not lay out raises; the model axis'
   autograd functions against the ranks' draws combined by hand.
 
 Tolerances are ``tests/test_torch_gspmd.py``'s, imported from it, none
@@ -359,42 +359,54 @@ def _fake_mesh(data=1, model=2, rank=0):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-9b",
                                   "seamless-m4t-medium"])
 def test_other_families_on_a_model_axis_raise_naming_item_8g(arch):
-    """The encdec family on a model axis raises naming its part of item 8g
-    (8g.4); MoE's experts on the model axis are ported (``tests/
-    test_torch_moe_tp.py``): granite builds, its experts split over the
-    model ranks under tensor parallelism; so are the SSM's and the
-    hybrid's ``inner`` channels (``tests/test_torch_recurrent_tp.py``):
-    mamba2 builds under context parallelism, recurrentgemma under tensor
-    parallelism, each with its ``inner`` leaves split."""
+    """No family on a model axis raises any longer: item 8g is ported.
+    MoE's experts (``tests/test_torch_moe_tp.py``): granite builds, its
+    experts split over the model ranks under tensor parallelism; the SSM's
+    and the hybrid's ``inner`` channels (``tests/test_torch_recurrent_
+    tp.py``): mamba2 builds under context parallelism, recurrentgemma
+    under tensor parallelism, each with its ``inner`` leaves split; the
+    encoder-decoder (``tests/test_torch_encdec_tp.py``): seamless builds
+    under tensor parallelism, its cross-attention's K/V heads split. The
+    executor builds on the mesh too."""
     run = RunConfig(model=tconfigs.smoke(arch), parallel=make_parallel("pjit"),
                     offload=make_offload())
     split = {"granite-moe-1b-a400m": ("tp", ("blocks", "moe", "w_in"), 1),
              "mamba2-370m": ("cp", ("blocks", "w_x"), 2),
-             "recurrentgemma-9b": ("tp", ("groups", "rec1", "w_in"), 2)}
-    if arch in split:
-        strategy, leaf, dim = split[arch]
-        texec.check_ported(run, dp=2, model=2)
-        eng = ZeroInfinityEngine(run, "cpu", mesh=_fake_mesh())
+             "recurrentgemma-9b": ("tp", ("groups", "rec1", "w_in"), 2),
+             "seamless-m4t-medium": ("tp", ("dec", "cross_attn", "wk"), 2)}
+    strategy, leaf, dim = split[arch]
+    texec.check_ported(run, dp=2)
+    for eng in (ZeroInfinityEngine(run, "cpu", mesh=_fake_mesh()),
+                texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh()).engine):
         assert eng.mp.strategy == strategy
         assert tpt.tree_get(eng.model_splits, leaf) == dim
-        return
-    with pytest.raises(NotImplementedError, match="item 8g"):
-        texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh())
-    with pytest.raises(NotImplementedError, match="item 8g"):
-        ZeroInfinityEngine(run, "cpu", mesh=_fake_mesh())
+
+
+class _Built(Exception):
+    """Raised where a run on a fake mesh asks for its train step: it got
+    past every refusal and built its executor."""
 
 
 def test_the_cli_trains_a_model_axis_and_refuses_8g(monkeypatch, tmp_path):
-    """``launch.train --model-mesh 2`` on a fake two-rank mesh refuses the
-    encdec family (item 8g.4) before any collective; the plan's devices
-    cover both axes (``data_mesh``: ``--hw-devices`` over
-    ``--model-mesh``)."""
+    """``launch.train --model-mesh 2`` on a fake two-rank mesh takes the
+    encdec family (item 8g.4 is ported): it builds its executor under
+    tensor parallelism and asks for the train step, which the fake mesh
+    stops before any collective; the plan's devices cover both axes
+    (``data_mesh``: ``--hw-devices`` over ``--model-mesh``)."""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda d, m, dev: _fake_mesh(d, m))
+    built = []
+
+    def make_train_step(self, **kw):
+        built.append(self.engine.mp.strategy)
+        raise _Built
+
+    monkeypatch.setattr(texec.InfinityExecutor, "make_train_step", make_train_step)
     argv = ["--smoke", "--device", "cpu", "--engine", "pjit", "--arch", "seamless-m4t-medium",
             "--model-mesh", "2", "--steps", "1", "--batch", "2", "--seq", "16",
             "--ckpt-every", "0", "--nvme-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 8g.4"):
+    with pytest.raises(_Built):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)
+    assert built == ["tp"]
     ap = ttrain.build_argparser()
     assert ttrain.data_mesh(ap.parse_args(["--plan", "auto", "--hw-devices", "4",
                                            "--model-mesh", "2"])) == 2

@@ -218,20 +218,19 @@ def test_each_rank_holds_its_shards_and_gathers_over_data_alone(ranks, case):
 def test_context_parallel_serving_and_other_families_raise_naming_8g():
     """Serving where the heads do not split over the model ranks (the
     smoke smollm's 3 over 2: context parallelism, ``tests/test_torch_cp_
-    serve.py``), the MoE family (``tests/test_torch_moe_tp.py``) and the
-    SSM and the hybrid (``tests/test_torch_recurrent_tp.py``) pass the
+    serve.py``), the MoE family (``tests/test_torch_moe_tp.py``), the SSM
+    and the hybrid (``tests/test_torch_recurrent_tp.py``) and the
+    encoder-decoder (item 8g.4, ``tests/test_torch_encdec_tp.py``) meet no
     refusal and, in a run of one process, raise naming the torchrun launch
-    that gives them their ranks; the encoder-decoder on a model axis
-    raises before any process group, naming item 8g.4."""
+    that gives them their ranks."""
     base = ["--smoke", "--device", "cpu", "--batch", "2", "--model-mesh", "2"]
     launch = r"needs 2 ranks.*torchrun --standalone --nproc-per-node 2"
     with pytest.raises(ValueError, match=launch):
         tserve.run_serve(tserve._parse(base))
-    for arch in ("granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-9b"):
+    for arch in ("granite-moe-1b-a400m", "mamba2-370m", "recurrentgemma-9b",
+                 "seamless-m4t-medium"):
         with pytest.raises(ValueError, match=launch):
             tserve.run_serve(tserve._parse(base + ["--arch", arch]))
-    with pytest.raises(NotImplementedError, match="item 8g.4"):
-        tserve.run_serve(tserve._parse(base + ["--arch", "seamless-m4t-medium"]))
 
 
 def test_global_argmax_takes_the_first_index_of_a_tie():

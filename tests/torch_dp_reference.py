@@ -23,10 +23,12 @@ and ``TP_SERVE_CASES``; job ``cp_serve`` (``tests/test_torch_cp_serve.py``):
 ``launch.serve`` for every case of ``MOE_SERVE_CASES``; job
 ``recurrent_tp`` (``tests/test_torch_recurrent_tp.py``): the same for
 ``RECURRENT_TP_CASES`` and ``RECURRENT_SERVE_CASES`` (a case's forced
-strategy set in the serving config's ``ParallelConfig``). Writes the
-numbers to one ``.npz`` (pytest does not collect this file).
+strategy set in the serving config's ``ParallelConfig``); job
+``encdec_tp`` (``tests/test_torch_encdec_tp.py``): the same for
+``ENCDEC_TP_CASES`` and ``ENCDEC_SERVE_CASES``. Writes the numbers to one
+``.npz`` (pytest does not collect this file).
 
-  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve|cp_serve|moe_tp|recurrent_tp]
+  python tests/torch_dp_reference.py <scratch dir> <out.npz> [dp|gspmd|dp_moe|serve|tp|tp_serve|cp_serve|moe_tp|recurrent_tp|encdec_tp]
 """
 from __future__ import annotations
 
@@ -386,6 +388,11 @@ def main() -> None:
         for case in W.RECURRENT_TP_CASES:
             run_gspmd_case(case, tmp, out)
         for case in W.RECURRENT_SERVE_CASES:
+            run_serve_case(case, tmp, out)
+    elif job == "encdec_tp":
+        for case in W.ENCDEC_TP_CASES:
+            run_gspmd_case(case, tmp, out)
+        for case in W.ENCDEC_SERVE_CASES:
             run_serve_case(case, tmp, out)
     else:
         for case in W.GSPMD_CASES:

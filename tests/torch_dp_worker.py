@@ -6,9 +6,11 @@ the MoE family), ``tests/test_torch_tp.py`` / ``tests/test_torch_tp_serve.py``
 (jobs ``tp`` and ``tp_serve``: the model axis), ``tests/test_torch_cp_serve.py``
 (job ``cp_serve``: serving under context parallelism) and
 ``tests/test_torch_moe_tp.py`` (job ``moe_tp``: MoE on the model axis,
-trained and served) and ``tests/test_torch_recurrent_tp.py`` (job
+trained and served), ``tests/test_torch_recurrent_tp.py`` (job
 ``recurrent_tp``: the SSM and the hybrid on the model axis, trained and
-served): one process per rank over
+served) and ``tests/test_torch_encdec_tp.py`` (job ``encdec_tp``: the
+encoder-decoder on the model axis, trained and served): one process per
+rank over
 ``torch.distributed`` (gloo on the CPU), spawned by ``spawn`` and run as a
 script. Imports torch, numpy and ``repro_torch`` only, never JAX (pytest
 does not collect this file).
@@ -25,7 +27,6 @@ any failed.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 import subprocess
 import sys
@@ -147,7 +148,21 @@ RECURRENT_TP_CASES = {
 }
 RECURRENT_TP_SEQ = {"hybrid_cp_1x3": 18}
 GSPMD_CUT = {"hybrid_cp_1x2": {"window": 4}}  # a case's config fields beyond the smoke's
-MODEL_AXIS_CASES = {**TP_CASES, **MOE_TP_CASES, **RECURRENT_TP_CASES}
+# the encoder-decoder on the model axis (job encdec_tp, tests/test_torch_
+# encdec_tp.py), in TP_CASES' format: the smoke seamless (4 heads, 4 KV
+# heads, 64 frames and 16 decoder tokens a row) under tensor parallelism
+# at (1, 2), (1, 4) (one head a rank) and (2, 2) (ZeRO-3: 2-D shards),
+# under context parallelism forced at (1, 2) and under "auto" at (1, 3),
+# where 4 heads do not split over 3, on 72 frames and 18 decoder tokens
+ENCDEC_TP_CASES = {
+    "encdec_tp_1x2": (1, 2, "seamless-m4t-medium", 3, "device", "device", "device", 1, "auto"),
+    "encdec_tp_1x4": (1, 4, "seamless-m4t-medium", 3, "device", "device", "device", 1, "auto"),
+    "encdec_tp_2x2": (2, 2, "seamless-m4t-medium", 3, "device", "device", "device", 1, "auto"),
+    "encdec_cp_1x2": (1, 2, "seamless-m4t-medium", 3, "device", "device", "device", 1, "cp"),
+    "encdec_cp_1x3": (1, 3, "seamless-m4t-medium", 3, "device", "device", "device", 1, "auto"),
+}
+ENCDEC_TP_SEQ = {"encdec_cp_1x3": 72}
+MODEL_AXIS_CASES = {**TP_CASES, **MOE_TP_CASES, **RECURRENT_TP_CASES, **ENCDEC_TP_CASES}
 ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES,
                    **{case: (D * M, arch, None, stage, param, grad, opt, accum, 4)
                       for case, (D, M, arch, stage, param, grad, opt, accum, _)
@@ -188,6 +203,13 @@ PLAN_ARGV = ["--smoke", "--device", "cpu", "--plan", "auto", "--hw-devices", "2"
              "--hw-device-mem", "4e9", "--hw-host-mem", "64e9", "--hw-nvme", "1e12",
              "--steps", "3", "--batch", "4", "--seq", "16", "--lr", "3e-3",
              "--ckpt-every", "0", "--log-every", "100"]
+# the encoder-decoder's plan on the model axis (job encdec_tp): the same
+# hardware, the smoke seamless at 64 frames, both devices on the model axis
+ENCDEC_PLAN_ARGV = ["--smoke", "--device", "cpu", "--plan", "auto", "--hw-devices", "2",
+                    "--hw-device-mem", "4e9", "--hw-host-mem", "64e9", "--hw-nvme", "1e12",
+                    "--steps", "3", "--batch", "4", "--seq", "64", "--lr", "3e-3",
+                    "--ckpt-every", "0", "--log-every", "100", "--arch", "seamless-m4t-medium",
+                    "--model-mesh", "2"]
 # the serving cases (job serve): case -> (dp, arch, layers (0: the smoke
 # depth), flags). Five sequences through two slots, four new tokens each,
 # the prompts of tests/test_torch_kv_counters.py; at dp 4 the two slots do
@@ -253,7 +275,7 @@ MOE_SERVE_CASES = {
 # at (1, 2) under its "auto" strategy (mamba2 context parallelism, the
 # prompt chunked; recurrentgemma at 5 layers, one group and the two-block
 # tail, tensor parallelism) and under the other forced (``SERVE_STRATEGY``:
-# each side's serve run builds its ParallelConfig with it); the forced
+# each side's serve run forces it in its run's config); the forced
 # hybrid's 40-token prompt, chunked, passes its window of 32: the rings
 # are laid out from the gathered K/V, rolled
 RECURRENT_SERVE_CASES = {
@@ -262,11 +284,24 @@ RECURRENT_SERVE_CASES = {
     "hybrid_tp_serve_1x2": (2, "recurrentgemma-9b", 5, _HOST + _TP2),
     "hybrid_cp_serve_1x2": (2, "recurrentgemma-9b", 5, _HOST + _TP2 + ["--prompt-len", "40"]),
 }
+# the encoder-decoder served on the model axis (job encdec_tp) at (1, 2):
+# 16 frames and 4 decoder tokens a prompt, 4 new tokens (a capacity of 8),
+# under tensor parallelism ("auto") and context parallelism forced (the
+# frames and tokens chunked, the decode cache and the memory's xk / xv
+# split over the ranks), and forced again at 5 new tokens (9 positions do
+# not split: every rank holds the whole cache, xk / xv gathered)
+ENCDEC_SERVE_CASES = {
+    "encdec_tp_serve_1x2": (2, "seamless-m4t-medium", 0, _HOST + _TP2),
+    "encdec_cp_serve_1x2": (2, "seamless-m4t-medium", 0, _HOST + _TP2),
+    "encdec_cp_whole_serve_1x2": (2, "seamless-m4t-medium", 0,
+                                  _HOST + _TP2 + ["--new-tokens", "5"]),
+}
 # the serving cases whose attention strategy is forced, not "auto"
-SERVE_STRATEGY = {"ssm_tp_serve_1x2": "tp", "hybrid_cp_serve_1x2": "cp"}
+SERVE_STRATEGY = {"ssm_tp_serve_1x2": "tp", "hybrid_cp_serve_1x2": "cp",
+                  "encdec_cp_serve_1x2": "cp", "encdec_cp_whole_serve_1x2": "cp"}
 # every serving case on a model axis
 MODEL_SERVE_CASES = {**TP_SERVE_CASES, **CP_SERVE_CASES, **MOE_SERVE_CASES,
-                     **RECURRENT_SERVE_CASES}
+                     **RECURRENT_SERVE_CASES, **ENCDEC_SERVE_CASES}
 ALL_SERVE_CASES = {**SERVE_CASES, **MODEL_SERVE_CASES}
 # the teacher-forced decode tokens each model-axis serving case feeds
 TEACHER_STEPS = 2
@@ -461,7 +496,7 @@ def gspmd_cfg(case: str, package):
 
 
 def gspmd_seq(case: str) -> int:
-    seq = {**MOE_TP_SEQ, **RECURRENT_TP_SEQ}
+    seq = {**MOE_TP_SEQ, **RECURRENT_TP_SEQ, **ENCDEC_TP_SEQ}
     if case in seq:
         return seq[case]
     return 64 if ALL_GSPMD_CASES[case][1] == "seamless-m4t-medium" else S
@@ -612,13 +647,14 @@ def leaf_gather_unit(mesh) -> dict:
             "want_grad": want_grad}
 
 
-def job_plan(tmp: str, mesh) -> dict:
+def job_plan(tmp: str, mesh, argv=PLAN_ARGV) -> dict:
     """``launch.train --plan auto --hw-devices 2`` in this rank's group
-    (``PLAN_ARGV``): its plan, resolved run and losses."""
+    (``argv``, by default ``PLAN_ARGV``): its plan, resolved run and
+    losses."""
     from repro_torch.launch import train
 
-    argv = PLAN_ARGV + ["--nvme-dir", os.path.join(tmp, "plan_nvme"),
-                        "--ckpt-dir", os.path.join(tmp, "plan_ck")]
+    argv = argv + ["--nvme-dir", os.path.join(tmp, "plan_nvme"),
+                   "--ckpt-dir", os.path.join(tmp, "plan_ck")]
     hist = train.train(train.build_argparser().parse_args(argv), argv)
     return {"plan": hist["plan"].to_json(), "run": dataclasses.asdict(hist["run"]),
             "losses": hist["losses"], "metrics": hist["metrics"]}
@@ -888,15 +924,13 @@ def run_serve_case(case: str, tmp: str, mesh) -> dict:
 
     whole = torch.load(serve_init_path(tmp, case), weights_only=False)
     argv = serve_argv(case, "torch", tmp)
-    real = serve.ZeroInfinityEngine.init_params, serve.ParallelConfig
+    real = serve.ZeroInfinityEngine.init_params
     serve.ZeroInfinityEngine.init_params = lambda self, gen: self.respec(
         pt.tree_map(lambda t: t.to(self.device), whole), None, "param")
-    if serve_strategy(case) != "auto":  # the strategy in the run's config, as the reference's
-        serve.ParallelConfig = functools.partial(real[1], attn_strategy=serve_strategy(case))
-    try:
-        out = serve.run_serve(serve._parse(argv), argv)
+    try:  # the strategy in the run's config, as the reference's
+        out = serve.run_serve(serve._parse(argv), argv, attn_strategy=serve_strategy(case))
     finally:
-        serve.ZeroInfinityEngine.init_params, serve.ParallelConfig = real
+        serve.ZeroInfinityEngine.init_params = real
     eng = _serve_engine(case, mesh)
     rec = {k: out[k] for k in ("generated", "done", "slots", "steps", "admissions", "kv",
                                "kv_ranks", "admissions_ranks", "param_shard_bytes", "mesh")}
@@ -978,8 +1012,10 @@ def run_tp_serve_case(case: str, tmp: str, mesh) -> dict:
     full = serve.draw_inputs(eng.bundle.input_specs(ShapeConfig("serve", args.prompt_len,
                                                                 args.batch, "prefill")),
                              args.batch, cfg.vocab_size, args.seed)
-    # the prompt counts a VLM's vision positions (launch.serve)
-    forced = teacher_forced(eng, params, full, args.prompt_len + args.new_tokens,
+    # the prompt counts a VLM's vision positions; an encoder-decoder's cache
+    # holds its decoder tokens (launch.serve)
+    prompt = full["tokens"].shape[1] if cfg.family == "encdec" else args.prompt_len
+    forced = teacher_forced(eng, params, full, prompt + args.new_tokens,
                             teacher_tokens(args.batch, cfg.vocab_size))
     rec["prefill_logits"], rec["decode_logits"] = forced[0], forced[1:]
     defs = eng.bundle.cache_defs(1, 1)
@@ -1073,9 +1109,90 @@ def model_sum_unit(mesh) -> dict:
             "norm_grad": g_half, "want_norm_grad": g_whole[:, lo:hi]}
 
 
+def job_encdec_tp(tmp: str, mesh) -> dict:
+    """Every encoder-decoder model-axis case of this world size, each on a
+    mesh of its own, then its serving cases and, at 2 ranks, the units
+    (``encdec_unit``) and the plan's run on the model axis
+    (``ENCDEC_PLAN_ARGV``)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    for case, (D, M, *_) in ENCDEC_TP_CASES.items():
+        if D * M == mesh.world:
+            out[case] = run_gspmd_case(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+    out.update({case: run_tp_serve_case(case, tmp, mesh)
+                for case, spec in ENCDEC_SERVE_CASES.items() if spec[0] == mesh.world})
+    if mesh.world == 2:
+        out["encdec_unit"] = encdec_unit(mesh_mod.make_local_mesh(1, 2, "cpu"))
+        out["plan"] = job_plan(tmp, mesh, ENCDEC_PLAN_ARGV)
+    return out
+
+
+def encdec_unit(mesh) -> dict:
+    """On a (1, 2) mesh, the smoke seamless: the loss's gradient in the
+    frames under tensor parallelism (the rank's model shards of one draw)
+    against the one-rank bundle's, which the memory's cotangent, summed
+    over the model ranks where it enters the model axis, carries into the
+    encoder; and under context parallelism the rank's chunk through
+    ``attention_block``, not causal (the encoder's), as a cross-attention
+    (the memory's chunk) and causal (the decoder's), against the rows of
+    the whole sequence's output at one rank, the rank's rows."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, make_parallel
+    from repro_torch.core import partition as pt
+    from repro_torch.core.engine import ZeroInfinityEngine
+    from repro_torch.core.zero import ModelAxis
+    from repro_torch.models import common as cm
+    from repro_torch.models import registry
+
+    cfg = configs.smoke("seamless-m4t-medium")
+    whole = registry.build(cfg).init(torch.Generator().manual_seed(11), "cpu")
+    gen = torch.Generator().manual_seed(12)
+    B, E, d = 2, 16, cfg.d_model
+    T = E // 4
+    frames = torch.randn(B, E, d, generator=gen).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, dtype=torch.int32)
+    batch = {"frames": frames, "tokens": tokens, "labels": tokens}
+
+    def frames_grad(bundle, params):
+        f = frames.clone().requires_grad_()
+        loss = bundle.loss(params, {**batch, "frames": f})
+        return loss.detach(), torch.autograd.grad(loss, f)[0]
+
+    want_loss, want_grad = frames_grad(registry.build(cfg), whole)
+    eng = ZeroInfinityEngine(RunConfig(model=cfg, parallel=make_parallel("pjit", remat="none")),
+                             "cpu", mesh=mesh)
+    loss, grad = frames_grad(eng.bundle, eng.respec(whole, None, "param"))
+    out = {"strategy": eng.mp.strategy, "loss": loss, "want_loss": want_loss, "grad": grad,
+           "want_grad": want_grad}
+
+    mp = ModelAxis(mesh, "cp")
+    enc = pt.tree_map(lambda t: t[0], whole["enc"]["attn"])
+    cross = pt.tree_map(lambda t: t[0], whole["dec"]["cross_attn"])
+    x = torch.randn(B, E, d, generator=gen).to(torch.bfloat16)
+    y = torch.randn(B, T, d, generator=gen).to(torch.bfloat16)
+    pos_x = torch.arange(E)[None].expand(B, E)
+    pos_y = torch.arange(T)[None].expand(B, T)
+    xl, xh = mesh.rank * E // 2, (mesh.rank + 1) * E // 2
+    yl, yh = mesh.rank * T // 2, (mesh.rank + 1) * T // 2
+    with torch.no_grad():
+        for name, p, q, pos, (lo, hi), causal, src in (
+                ("encoder", enc, x, pos_x, (xl, xh), False, None),
+                ("cross", cross, y, pos_y, (yl, yh), False, x),
+                ("causal", enc, x, pos_x, (xl, xh), True, None)):
+            want, _ = cm.attention_block(p, q, pos, cfg, causal=causal, kv_source=src)
+            got, _ = cm.attention_block(p, q[:, lo:hi], pos[:, lo:hi], cfg, causal=causal,
+                                        kv_source=None if src is None else src[:, xl:xh],
+                                        mp=mp)
+            out[name], out[f"want_{name}"] = got, want[:, lo:hi]
+    return out
+
+
 JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve,
         "tp": job_tp, "tp_serve": job_tp_serve, "cp_serve": job_cp_serve,
-        "moe_tp": job_moe_tp, "recurrent_tp": job_recurrent_tp}
+        "moe_tp": job_moe_tp, "recurrent_tp": job_recurrent_tp, "encdec_tp": job_encdec_tp}
 
 
 def main() -> None:
