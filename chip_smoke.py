@@ -297,6 +297,27 @@ Phases (any failure exits non-zero; no phase is caught):
       positions, half a one-rank run's of the same cut, "encdec cp serve
       one rank"); flash forward and backward and the tiled matmul at
       "encdec tp train"'s shapes are 16k's;
+  16r. the ranks' slow-tier state (the same spawn; held after the
+      encoder-decoder's phases): "gspmd nvme dp2 train" (``launch.train
+      --engine pjit --data-mesh 2`` on full smollm with every state class
+      on NVMe, params through the leaf scheduler, ``NVME_TRAIN_STEPS`` (2)
+      steps of 8 x 512: each rank reads and writes its shards' bytes once
+      a step, half of one rank's, the peak resident below the total,
+      phase 12's losses by ``TRAIN_TOL``), "gspmd nvme q8 dp2 train" (the
+      same with ``--param-quant q8``: each step's wire bytes the shards' q8
+      frames, ``qformat.wire_nbytes``; the losses within ``q8_loss_bound``
+      of the bf16 run's), "cp nvme train" (``--model-mesh 2``, context
+      parallelism, params on NVMe, the in-graph update: ``TP_BYTES[2]``
+      param bytes a rank each way a step, phase 12's losses) and "ckpt dp2
+      drill" (16d's argv, ``DP_TRAIN_STEPS`` steps, a checkpoint every 2,
+      a failure at step ``DRILL_FAIL_AT`` on both ranks, ``--resume auto``:
+      one restart a rank, 16d's losses bit for bit, rank 0's checkpoint
+      the bytes one rank's checkpoint of the state holds, its snapshot,
+      persist and restore times); then, on one rank, "ckpt reshard" (the
+      drill's step-2 checkpoint, one step, within ``TRAIN_TOL`` of the
+      ranks' step 2) and "ckpt zero3 reshard" (16b's layered run's last
+      checkpoint, one step of the layered epoch); every flash and tiled
+      launch on the tensor cores;
   17. the restart drill: the in-graph run with a checkpoint every 2 steps
       and a failure injected at step 3 (``REPRO_FAIL_AT_STEP``), resumed
       with ``--resume auto``: one restart, the redone steps' losses equal
@@ -398,7 +419,7 @@ Phases (any failure exits non-zero; no phase is caught):
       ``phases:`` line of all of them), the kernels JSON line, then the
       device JSON line last.
 
-In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16q (each rank), 17,
+In every main path (5, 6, 9, 10, 12, 13, 14, 16, 16a-16r (each rank), 17,
 18, 21, 22, 23, 26, 27, 28) each flash-attention launch, forward and backward (the recompute under
 ``remat="full"`` included), each tiled-matmul launch and each
 quantized-matmul launch, forward and dX, must be on the tensor-core route
@@ -409,8 +430,8 @@ tiled matmul (its products are the reference's einsums outside Pallas).
 ``plan_residency_ok`` must be true wherever a step reports it.
 
 Needs no network and exactly one card; exits non-zero without CUDA.
-``chip_smoke.py --dp-rank all|tp3|<part>`` (a part of ``DP_PARTS`` or
-``TP3_PARTS``) is one rank of phase 16a-16q, started by the script itself through
+``chip_smoke.py --dp-rank all|tp3|<part>[,<part>...]`` (parts of ``DP_PARTS`` or
+``TP3_PARTS``) is one rank of phase 16a-16r, started by the script itself through
 ``torch.distributed.run``; ``chip_smoke.py --nccl-check [train|serve|tp]``
 runs phase 16b's and 16d's paths ("train"), llava served on the ranks
 ("serve": at 8 layers against one rank's tokens, then at full depth, a
@@ -2047,15 +2068,20 @@ def dp_train_rank(arch: str = "smollm-135m", layers: int = 0,
     slices), ``steps`` steps of 8 x 512 (8 / N x 512 a rank), tracer on;
     this rank's step metrics (the wall's compute / io_wait / other split,
     the collectives' waits among io_wait; MoE's routing statistics and
-    expert counters), launches, peak allocated memory and transport."""
+    expert counters), launches, peak allocated memory and transport.
+    smollm's run checkpoints after its last step into ``CKPT_ZERO3_DIR``
+    (rank 0 writes the rows gathered over the ranks), which "ckpt zero3
+    reshard" restores on one rank."""
     n = int(os.environ["WORLD_SIZE"])
     nvme = os.path.join(ROOT, "build", f"chip_smoke_nvme_dp{n}_{arch}")
     shutil.rmtree(os.path.join(nvme, f"rank{os.environ['RANK']}"), ignore_errors=True)
+    ckpt = (["--ckpt-every", str(steps), "--ckpt-dir", CKPT_ZERO3_DIR]
+            if arch == "smollm-135m" and not layers else ["--ckpt-every", "0"])
     argv = _depth(arch, layers) + [
         "--engine", "zero3", "--data-mesh", str(n),
         "--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme",
         "--batch", "8", "--seq", "512", "--steps", str(steps), "--lr", "3e-3",
-        "--nvme-dir", nvme, "--ckpt-every", "0", "--log-every", "1"]
+        "--nvme-dir", nvme, *ckpt, "--log-every", "1"]
     trace.enable()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -2093,7 +2119,9 @@ def dp_rank(mode: str) -> int:
     """A rank's side of the dp phases, started by ``run_ranks``, on the
     backend ``mesh.choose_backend`` picks (gloo for ranks that share the
     card, NCCL for ranks with a card each); writes its record to
-    ``_rank_record``."""
+    ``_rank_record``. ``mode``: "all" (``DP_PARTS``), "tp3"
+    (``TP3_PARTS``), a part, or parts joined by commas (one record a
+    part)."""
     if not torch.cuda.is_available():
         print("dp rank: CUDA is not available")
         return 1
@@ -2103,7 +2131,8 @@ def dp_rank(mode: str) -> int:
     created = mesh_mod.maybe_init_distributed("cuda")
     try:
         rec = {}
-        for part in {"all": DP_PARTS, "tp3": TP3_PARTS}.get(mode, (mode,)):
+        parts = {"all": DP_PARTS, "tp3": TP3_PARTS}.get(mode, tuple(mode.split(",")))
+        for part in parts:
             base, _, extra = part.partition("+")
             rec[part] = {"numerics": dp2_numerics_rank,
                          "gspmd_numerics": gspmd_dp2_numerics_rank,
@@ -2145,12 +2174,16 @@ def dp_rank(mode: str) -> int:
                          "vlm_serve_full_tp": lambda: serve_rank(
                              VLM_SERVE_ARGV + ["--model-mesh", "4"], model=4),
                          "vlm_tp_train": lambda: tp_train_rank(
-                             VLM_ARCH, VLM_TRAIN_LAYERS, 1, 4096)}[base]()
+                             VLM_ARCH, VLM_TRAIN_LAYERS, 1, 4096),
+                         "gspmd_nvme_train": nvme_train_rank,
+                         "gspmd_nvme_q8_train": lambda: nvme_train_rank(quant="q8"),
+                         "cp_nvme_train": lambda: nvme_train_rank(model=2),
+                         "ckpt_drill": ckpt_drill_rank}[base]()
             if extra == "moe":
                 rec[part]["moe"] = (dp_train_rank if base == "train" else gspmd_train_rank)(
                     MOE_ARCH, MOE_LAYERED_LAYERS, MOE_TRAIN_STEPS)
             rec["rank"] = rec[part]["rank"]
-        if mode not in ("all", "tp3"):
+        if len(parts) == 1 and mode not in ("all", "tp3"):
             rec = rec[mode]
     finally:
         if created:
@@ -2249,7 +2282,8 @@ DP_PARTS = ("numerics", "train+moe", "gspmd_numerics", "gspmd_train+moe", "serve
             "cp_numerics", "cp_train", "cp_serve", "moe_tp_numerics", "moe_cp_numerics",
             "moe_tp_train", "moe_tp_serve", "ssm_cp_numerics", "ssm_cp_train", "ssm_cp_serve",
             "hybrid_tp_train", "hybrid_tp_serve", "encdec_tp_numerics", "encdec_cp_numerics",
-            "encdec_tp_train", "encdec_tp_serve", "encdec_cp_serve")
+            "encdec_tp_train", "encdec_tp_serve", "encdec_cp_serve", "gspmd_nvme_train",
+            "gspmd_nvme_q8_train", "cp_nvme_train", "ckpt_drill")
 # the MoE layered epoch's counters the routing steers: the expert rows the
 # popularity predictor, the hot cache and the router read and drain
 MOE_STEERED = ("param_in_bytes", "grad_out_bytes")
@@ -3729,6 +3763,378 @@ def phase_resume_drill() -> tuple:
     return rec, launches
 
 
+# the ranks' slow-tier state (two ranks in the dp-2 spawn): params on NVMe
+# through the GSPMD leaf scheduler, and checkpoints on ranks
+NVME_TRAIN_STEPS = 2
+# where the ranks' checkpoints wait for the main process's restores (not
+# ``chip_smoke_*``: ``timed`` removes those after the spawn's phase)
+CKPT_DRILL_DIR = os.path.join(ROOT, "build", "ckpt_dp2_drill")
+CKPT_ZERO3_DIR = os.path.join(ROOT, "build", "ckpt_zero3_dp2")
+DRILL_FAIL_AT = 3
+
+
+def _with_env(env: dict, fn):
+    """``fn()`` with ``env`` set in the process's environment around it."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _rank_layout(run, mesh) -> ZeroInfinityEngine:
+    """The GSPMD engine's layout on this rank (a CPU engine on the rank's
+    mesh: no collective)."""
+    return ZeroInfinityEngine(run, "cpu", mesh=dataclasses.replace(mesh, device="cpu"))
+
+
+def _spec_bytes(specs) -> int:
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in pt.tree_leaves(specs))
+
+
+def q8_rounding_norm_sq(run, mesh, seed: int = SEED) -> float:
+    """The squared L2 norm of q8's rounding of this rank's param shards as
+    the run draws them (``engine.init_params`` from the run's seeded
+    generator on the card): each shard encoded on its own grid and
+    decoded, less the shard."""
+    eng = ZeroInfinityEngine(run, mesh.device, mesh=mesh)
+    params = eng.init_params(torch.Generator(device=mesh.device).manual_seed(seed))
+    total = 0.0
+    for t in pt.tree_leaves(params):
+        x = t.detach().cpu()
+        d = qformat.decode_array(qformat.encode_array(x, "q8")).float() - x.float()
+        total += float(torch.sum(d.double() ** 2))
+    return total
+
+
+def nvme_train_rank(model: int = 1, quant: str = "none") -> dict:
+    """(a rank) ``launch.train --engine pjit`` on full smollm-135m with its
+    params on NVMe through the leaf scheduler, ``NVME_TRAIN_STEPS`` steps of
+    8 x 512: on ``model`` = 1 a data mesh of the launch's ranks with every
+    state class on NVMe (the host Adam over the rank's optimizer shards;
+    ``quant`` encodes each shard in the param store), on ``model`` > 1 a
+    (1, M) mesh, context parallelism, the in-graph update. This rank's
+    step metrics, the bytes of its param shards (and their q8 frames), the
+    leaves it holds whole, launches and peak memory; its stores removed
+    after."""
+    n = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    tag = f"m{model}_{quant}"
+    nvme = os.path.join(ROOT, "build", f"chip_smoke_gspmd_nvme_{tag}")
+    mesh_flags = (["--data-mesh", str(n)] if model == 1 else
+                  ["--data-mesh", "1", "--model-mesh", str(model)])
+    tiers = (["--offload-param", "nvme", "--offload-grad", "nvme", "--offload-opt", "nvme"]
+             if model == 1 else ["--offload-param", "nvme"])
+    argv = ["--arch", "smollm-135m", "--engine", "pjit", "--zero-stage", "3", *mesh_flags,
+            *tiers, "--param-quant", quant, "--batch", "8", "--seq", "512",
+            "--steps", str(NVME_TRAIN_STEPS), "--lr", "3e-3", "--nvme-dir", nvme,
+            "--ckpt-every", "0", "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    mesh, run = hist["mesh"], hist["run"]
+    layout = _rank_layout(run, mesh)
+    specs = layout.param_specs()
+    rec = {"rank": mesh.rank, "argv": " ".join(argv), "wall_s": wall,
+           "launches": launches, "transport": mesh.transport(),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "shard_bytes": _spec_bytes(specs),
+           "one_rank_bytes": _spec_bytes(layout.param_specs(whole=True)),
+           "unsplit_leaves": layout.unsplit_leaves("param"),
+           "steps": [{k: m[k] for k in (
+               "step", "loss", "grad_norm", "param_in_bytes", "param_out_bytes",
+               "param_in_wire_bytes", "param_out_wire_bytes", "param_in_gbps",
+               "param_out_gbps", "param_total_bytes", "param_total_bytes_all_ranks",
+               "peak_resident_param_bytes", "opt_read_bytes", "opt_write_bytes",
+               "grad_out_bytes") if k in m} | {"step_s": m["step_time"]}
+                     for m in hist["metrics"]]}
+    if model > 1:
+        rec["strategy"] = pt.choose_attn_strategy(run.model, mesh.axis_sizes(), run.parallel)
+    if quant != "none":
+        rec["wire_bytes"] = sum(qformat.wire_nbytes(sp.shape, sp.dtype, quant)
+                                for sp in pt.tree_leaves(specs))
+        rec["q8_rounding_norm_sq"] = q8_rounding_norm_sq(run, mesh)
+    shutil.rmtree(os.path.join(nvme, f"rank{rank}"), ignore_errors=True)
+    return rec
+
+
+def ckpt_drill_rank() -> dict:
+    """(a rank) "gspmd dp2 train"'s argv (``--plan auto --hw-devices N``,
+    the in-graph GSPMD step, ``DP_TRAIN_STEPS`` steps of 8 x 512) with a
+    checkpoint every 2 steps into ``CKPT_DRILL_DIR``, a failure injected at
+    step ``DRILL_FAIL_AT`` on every rank (each its own marker) and
+    ``--resume auto``: this rank's losses (the redone steps among them),
+    restarts, its checkpoint timings and bytes (rank 0 writes), and the
+    bytes one rank's checkpoint of the same state holds (the params in
+    their dtypes, f32 master, m and v, the int32 step count)."""
+    n = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    marker = os.path.join(ROOT, "build", "chip_smoke_ckpt_marker")
+    argv = ["--arch", "smollm-135m", "--plan", "auto", "--hw-devices", str(n),
+            "--batch", "8", "--seq", "512", "--steps", str(DP_TRAIN_STEPS), "--lr", "3e-3",
+            "--nvme-dir", os.path.join(ROOT, "build", "chip_smoke_ckpt_nvme"),
+            "--ckpt-every", "2", "--ckpt-dir", CKPT_DRILL_DIR, "--resume", "auto",
+            "--log-every", "1"]
+    if rank == 0:
+        shutil.rmtree(CKPT_DRILL_DIR, ignore_errors=True)
+    if os.path.exists(f"{marker}.rank{rank}"):
+        os.remove(f"{marker}.rank{rank}")
+    torch.distributed.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = _with_env({"REPRO_FAIL_AT_STEP": str(DRILL_FAIL_AT), "REPRO_FAIL_MARKER": marker},
+                     lambda: train.train(train.build_argparser().parse_args(argv), argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    whole = ZeroInfinityEngine(hist["run"], "cpu").param_specs(whole=True)
+    n_params = sum(math.prod(sp.shape) for sp in pt.tree_leaves(whole))
+    return {"rank": hist["mesh"].rank, "argv": " ".join(argv), "wall_s": wall,
+            "launches": ops.launch_counts(), "restarts": hist["restarts"],
+            "recovery_s": hist["recovery_s"], "losses": hist["losses"],
+            "steps": [m["step"] for m in hist["metrics"]],
+            "checkpoint": hist["checkpoint"],
+            "one_rank_checkpoint_bytes": _spec_bytes(whole) + 12 * n_params + 4,
+            "marker": os.path.exists(f"{marker}.rank{rank}")}
+
+
+def check_nvme_train(tag: str, recs: list, dp1_losses: list, want_bytes: int = 0,
+                     strategy: str = "") -> dict:
+    """The checks of ``nvme_train_rank``'s records: each step each rank
+    reads and writes its param shards' bytes once (``param_in`` =
+    ``param_out`` = ``param_total_bytes`` = its shards', an n-th of one
+    rank's where every leaf splits, ``want_bytes`` where given); the
+    leaves never all resident (peak below the total); the losses equal on
+    every rank, finite and those of ``dp1_losses`` by ``TRAIN_TOL`` (None:
+    not held here); every rank's launches on the tensor cores."""
+    n, r0 = len(recs), recs[0]
+    for r in recs:
+        for m in r["steps"]:
+            say(f"{tag} step:", json.dumps({"rank": r["rank"], **m}))
+    losses = [m["loss"] for m in r0["steps"]]
+    rec = {"argv": r0["argv"], "transport": r0["transport"], "losses": losses,
+           "dp1_losses": dp1_losses[:len(losses)] if dp1_losses else None,
+           "shard_bytes": [r["shard_bytes"] for r in recs], "one_rank_bytes": r0["one_rank_bytes"],
+           "unsplit_leaves": r0["unsplit_leaves"], "wall_s": [r["wall_s"] for r in recs],
+           "peak_allocated_gb": [r["peak_allocated_gb"] for r in recs],
+           "step_s": [m["step_s"] for m in r0["steps"]],
+           "param_in_gbps": [m["param_in_gbps"] for m in r0["steps"]],
+           "param_out_gbps": [m["param_out_gbps"] for m in r0["steps"]],
+           "peak_resident_param_bytes": [m["peak_resident_param_bytes"] for m in r0["steps"]],
+           "launches_per_rank": [r["launches"] for r in recs]}
+    say(f"{tag}:", json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"FAIL {tag}: losses not finite: {losses}")
+    for r in recs:
+        if [m["loss"] for m in r["steps"]] != losses:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']}'s losses differ from rank 0's")
+        want = want_bytes or r["shard_bytes"]
+        for m in r["steps"]:
+            moved = (m["param_in_bytes"], m["param_out_bytes"], m["param_total_bytes"])
+            if moved != (want,) * 3 or r["shard_bytes"] != want:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} step {m['step']} param "
+                                 f"in/out/total {moved}; its shards hold {r['shard_bytes']}, "
+                                 f"want {want}")
+            if not 0 < m["peak_resident_param_bytes"] < m["param_total_bytes"]:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} peak resident param bytes "
+                                 f"{m['peak_resident_param_bytes']} of "
+                                 f"{m['param_total_bytes']}")
+    if not want_bytes and not r0["unsplit_leaves"]:
+        if n * r0["shard_bytes"] != r0["one_rank_bytes"]:
+            raise SystemExit(f"FAIL {tag}: {n} x {r0['shard_bytes']} param bytes a rank != one "
+                             f"rank's {r0['one_rank_bytes']}, and no leaf stays whole")
+    if dp1_losses:
+        for got, want in zip(losses, rec["dp1_losses"]):
+            if not abs(got - want) <= TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want):
+                raise SystemExit(f"FAIL {tag}: loss {got} vs the one-rank run's {want}")
+    _check_tp_ranks(tag, recs, strategy or "dp", ("flash_attention", "tiled_matmul"))
+    return rec
+
+
+def phase_gspmd_nvme_train(recs: list, dp1: dict) -> tuple:
+    """The ranks' "gspmd_nvme_train": every state class on NVMe at (2, 1),
+    full smollm, held against "plan train"'s losses (the same seed and
+    global batches, all on the device) by ``TRAIN_TOL``; the wire bytes
+    the logical ones."""
+    tag = "gspmd nvme dp2 train"
+    rec = check_nvme_train(tag, recs, dp1["losses"])
+    for r in recs:
+        for m in r["steps"]:
+            if (m["param_in_wire_bytes"], m["param_out_wire_bytes"]) != (r["shard_bytes"],) * 2:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} wire bytes differ from bf16's")
+    return rec, _sum_launches(recs)
+
+
+def q8_loss_bound(step: int, bf16_loss: float, bf16_grad_norm: float, norm_sq: float) -> float:
+    """How far q8's rounding of the params may move a step's loss from the
+    bf16 run's: ``TRAIN_TOL`` plus, to first order, the gradient's norm
+    times the rounding's (Cauchy-Schwarz), ``step + 1`` roundings deep
+    (each write-back rounds again)."""
+    return (TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(bf16_loss)
+            + (step + 1) * bf16_grad_norm * math.sqrt(norm_sq))
+
+
+def phase_gspmd_nvme_q8_train(recs: list, bf16: list) -> tuple:
+    """The ranks' "gspmd_nvme_q8_train": the same run with ``--param-quant
+    q8``, each rank's shards on their own grids: each step's wire bytes the
+    shards' q8 frames (``qformat.wire_nbytes``: 34 bytes a 32-element
+    block, a ragged shard's pad block included, and each frame's header),
+    the logical bytes the bf16 run's; the losses within ``q8_loss_bound``
+    of the bf16 run's ("gspmd_nvme_train", ``bf16``), the rounding's norm
+    summed over the ranks."""
+    tag = "gspmd nvme q8 dp2 train"
+    rec = check_nvme_train(tag, recs, None)
+    norm_sq = sum(r["q8_rounding_norm_sq"] for r in recs)
+    b0 = bf16[0]
+    gaps, bounds = [], []
+    for i, m in enumerate(recs[0]["steps"]):
+        want = b0["steps"][i]
+        gaps.append(abs(m["loss"] - want["loss"]))
+        bounds.append(q8_loss_bound(i, want["loss"], want["grad_norm"], norm_sq))
+    rec.update(q8_rounding_norm=math.sqrt(norm_sq), bf16_losses=[m["loss"] for m in b0["steps"]],
+               loss_gap=gaps, loss_bound=bounds,
+               wire_bytes=[r["wire_bytes"] for r in recs],
+               compression=recs[0]["shard_bytes"] / recs[0]["wire_bytes"])
+    say(f"{tag} q8:", json.dumps({k: rec[k] for k in ("q8_rounding_norm", "bf16_losses",
+                                                       "loss_gap", "loss_bound", "wire_bytes",
+                                                       "compression")}))
+    for r, b in zip(recs, bf16):
+        if r["shard_bytes"] != b["shard_bytes"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} logical bytes {r['shard_bytes']} "
+                             f"!= the bf16 run's {b['shard_bytes']}")
+        for m in r["steps"]:
+            if (m["param_in_wire_bytes"], m["param_out_wire_bytes"]) != (r["wire_bytes"],) * 2:
+                raise SystemExit(f"FAIL {tag}: rank {r['rank']} step {m['step']} wire bytes "
+                                 f"{m['param_in_wire_bytes']} / {m['param_out_wire_bytes']}; "
+                                 f"the shards' q8 frames hold {r['wire_bytes']}")
+    for i, (gap, bound) in enumerate(zip(gaps, bounds)):
+        if not gap <= bound:
+            raise SystemExit(f"FAIL {tag}: step {i} loss {gap} from the bf16 run's; "
+                             f"q8's rounding bounds it by {bound}")
+    return rec, _sum_launches(recs)
+
+
+def phase_cp_nvme_train(recs: list, dp1: dict) -> tuple:
+    """The ranks' "cp_nvme_train": full smollm on (1, 2) (context
+    parallelism) with its params on NVMe and the in-graph update: each
+    step each rank reads and writes ``TP_BYTES[2]`` param bytes; "plan
+    train"'s losses by ``TRAIN_TOL``."""
+    rec = check_nvme_train("cp nvme train", recs, dp1["losses"], TP_BYTES[2], "cp")
+    return rec, _sum_launches(recs)
+
+
+def phase_ckpt_drill(recs: list, gtrain: list) -> tuple:
+    """The ranks' "ckpt_drill": one restart on every rank (each rank's
+    marker written), its losses those of "gspmd dp2 train" (``gtrain``:
+    the same argv without the drill) bit for bit, the redone steps among
+    them; rank 0's checkpoint the bytes a one-rank checkpoint of the same
+    state holds, rank 1 writing none; the snapshot, persist and restore
+    times printed."""
+    tag = "ckpt dp2 drill"
+    r0 = recs[0]
+    want = [m["loss"] for m in gtrain[0]["steps"]]
+    ck = r0["checkpoint"]
+    rec = {"argv": r0["argv"], "fail_at_step": DRILL_FAIL_AT,
+           "restarts": [r["restarts"] for r in recs], "recovery_s": r0["recovery_s"],
+           "steps": r0["steps"], "losses": r0["losses"], "gspmd_dp2_train_losses": want,
+           "checkpoint": ck, "one_rank_checkpoint_bytes": r0["one_rank_checkpoint_bytes"],
+           "wall_s": [r["wall_s"] for r in recs], "launches_per_rank": [r["launches"] for r in recs]}
+    say(f"{tag}:", json.dumps(rec))
+    say(f"{tag} checkpoint: {ck['bytes']} bytes, snapshot {ck['snapshot_s'] * 1e3:.1f} ms, "
+        f"persist {ck['persist_s']:.3f} s, restore {ck['restore_s']:.3f} s ({ck['saves']} saves)")
+    redo = [s for s in range(DRILL_FAIL_AT)] + list(range(2, DP_TRAIN_STEPS))
+    for r in recs:
+        if r["restarts"] != 1 or not r["marker"]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} restarted {r['restarts']} times "
+                             f"(marker written: {r['marker']}); want 1")
+        if r["steps"] != redo or r["losses"] != [want[s] for s in redo]:
+            raise SystemExit(f"FAIL {tag}: rank {r['rank']} steps {r['steps']} losses "
+                             f"{r['losses']}; want steps {redo} with gspmd dp2 train's {want}")
+    if ck["bytes"] != r0["one_rank_checkpoint_bytes"] or recs[1]["checkpoint"]["saves"]:
+        raise SystemExit(f"FAIL {tag}: rank 0 wrote {ck['bytes']} bytes (one rank's checkpoint "
+                         f"of the state: {r0['one_rank_checkpoint_bytes']}); rank 1 saved "
+                         f"{recs[1]['checkpoint']['saves']} times")
+    check_main_path_routes(tag, _sum_launches(recs))
+    return rec, _sum_launches(recs)
+
+
+def _resume_one_rank(tag: str, argv: list, ckpt_dir: str) -> tuple:
+    """``launch.train`` on one rank resuming the newest checkpoint in
+    ``ckpt_dir`` (written on two ranks) for one step; counters zeroed just
+    before and read just after; the directory removed after."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.train(train.build_argparser().parse_args(argv), argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rec = {"argv": " ".join(argv), "wall_s": wall, "steps": [m["step"] for m in hist["metrics"]],
+           "losses": hist["losses"], "restore_s": hist["checkpoint"]["restore_s"]}
+    say(f"{tag}:", json.dumps(rec))
+    check_main_path_routes(tag, launches)
+    return rec, launches
+
+
+def phase_ckpt_reshard(drill: list) -> tuple:
+    """The drill's step-2 checkpoint (two ranks) restored on one rank, its
+    newest dropped: one step (step 2) within ``TRAIN_TOL`` of the ranks'
+    step 2."""
+    tag = "ckpt reshard"
+    shutil.rmtree(os.path.join(CKPT_DRILL_DIR, f"step-{DP_TRAIN_STEPS:08d}"), ignore_errors=True)
+    argv = ["--arch", "smollm-135m", "--plan", "auto", "--batch", "8", "--seq", "512",
+            "--steps", "3", "--lr", "3e-3", "--ckpt-every", "0", "--ckpt-dir", CKPT_DRILL_DIR,
+            "--resume", "auto", "--log-every", "1",
+            "--nvme-dir", os.path.join(ROOT, "build", "chip_smoke_reshard_nvme")]
+    rec, launches = _resume_one_rank(tag, argv, CKPT_DRILL_DIR)
+    want = drill[0]["losses"][2]
+    if rec["steps"] != [2] or not abs(rec["losses"][0] - want) <= (
+            TRAIN_TOL["atol"] + TRAIN_TOL["rtol"] * abs(want)):
+        raise SystemExit(f"FAIL {tag}: steps {rec['steps']} losses {rec['losses']}; want step 2 "
+                         f"by TRAIN_TOL of the ranks' {want}")
+    return rec, launches
+
+
+def phase_zero3_ckpt_restore(train_ranks: list) -> tuple:
+    """The layered zero3 dp-2 run's last checkpoint (its rows padded for 2
+    ranks, written by rank 0) restored on one rank, the rows re-padded for
+    it (``runtime/elastic.adapt_state_layout``; full smollm's 3,540,096
+    elements a row split over 2 ranks as they are, so the re-pad is the
+    identity here: tests/test_torch_checkpoint_mesh.py re-pads d_model
+    47's), the layered epoch with every state on NVMe: one step, finite."""
+    tag = "ckpt zero3 reshard"
+    argv = ["--arch", "smollm-135m", "--engine", "zero3", "--offload-param", "nvme",
+            "--offload-grad", "nvme", "--offload-opt", "nvme", "--batch", "8", "--seq", "512",
+            "--steps", str(DP_TRAIN_STEPS + 1), "--lr", "3e-3", "--ckpt-every", "0",
+            "--ckpt-dir", CKPT_ZERO3_DIR, "--resume", "auto", "--log-every", "1",
+            "--nvme-dir", os.path.join(ROOT, "build", "chip_smoke_zero3_reshard_nvme")]
+    rows = {n: ExplicitZero3Engine(RunConfig(model=configs.get("smollm-135m"),
+                                             parallel=make_parallel("zero3")),
+                                   "cpu", None if n == 1 else types_mesh(n)).layout.padded
+            for n in (1, 2)}
+    say(f"{tag} rows: padded {rows[2]} at dp 2, {rows[1]} at dp 1")
+    rec, launches = _resume_one_rank(tag, argv, CKPT_ZERO3_DIR)
+    rec.update(padded_dp2=rows[2], padded_dp1=rows[1],
+               dp2_losses=[m["loss"] for m in train_ranks[0]["steps"]])
+    if rec["steps"] != [DP_TRAIN_STEPS] or not all(math.isfinite(x) for x in rec["losses"]):
+        raise SystemExit(f"FAIL {tag}: steps {rec['steps']} losses {rec['losses']}; want step "
+                         f"{DP_TRAIN_STEPS}, finite")
+    return rec, launches
+
+
+def types_mesh(n: int):
+    """A rank's mesh of ``n`` ranks with no process group (for a layout)."""
+    return mesh_mod.LocalMesh(n, 1, 0, n, torch.device("cpu"), None, "gloo")
+
+
 MOE_LAYERED_LAYERS = 4  # the layered MoE run's depth cut (full width)
 # "moe numerics"' cut, batches and steps: (layers, B, S, steps), and its
 # CPU sides by kind, kept for the dp-2 numerics of the same function
@@ -4626,6 +5032,22 @@ def main() -> int:
                        cfg=encdec_cp_serve_cfg(), attn_strategy="cp")[0]
     ecs_rec, ecs_launches = timed("encdec cp serve", phase_encdec_cp_serve,
                                   _part(dp_ranks, "encdec_cp_serve"), encdec_one)
+    # the two-rank spawn's slow-tier parts: params on NVMe through the leaf
+    # scheduler on a data mesh (bf16, then q8) and on the model axis, then
+    # the checkpoint drill; the drill's and the layered dp-2 run's
+    # checkpoints restored on one rank
+    gnv_rec, gnv_launches = timed("gspmd nvme dp2 train", phase_gspmd_nvme_train,
+                                  _part(dp_ranks, "gspmd_nvme_train"), plan_rec)
+    gq8_rec, gq8_launches = timed("gspmd nvme q8 dp2 train", phase_gspmd_nvme_q8_train,
+                                  _part(dp_ranks, "gspmd_nvme_q8_train"),
+                                  _part(dp_ranks, "gspmd_nvme_train"))
+    cpn_rec, cpn_launches = timed("cp nvme train", phase_cp_nvme_train,
+                                  _part(dp_ranks, "cp_nvme_train"), plan_rec)
+    drill2_rec, drill2_launches = timed("ckpt dp2 drill", phase_ckpt_drill,
+                                        _part(dp_ranks, "ckpt_drill"), gtrain_ranks)
+    reshard_rec, reshard_launches = timed("ckpt reshard", phase_ckpt_reshard,
+                                          _part(dp_ranks, "ckpt_drill"))
+    z3r_rec, z3r_launches = timed("ckpt zero3 reshard", phase_zero3_ckpt_restore, train_ranks)
     plan_nvme_rec, plan_nvme_launches = timed("encdec plan nvme", phase_plan_nvme)
     remat_recs, remat_launches = timed("encdec remat", phase_encdec_remat)
 
@@ -4689,6 +5111,9 @@ def main() -> int:
              "encdec_serve": encdec_serve_launches,
              "encdec_plan_train": encdec_train_launches,
              "encdec_plan_nvme": plan_nvme_launches,
+             "gspmd_nvme_dp2_train": gnv_launches, "gspmd_nvme_q8_dp2_train": gq8_launches,
+             "cp_nvme_train": cpn_launches, "ckpt_dp2_drill": drill2_launches,
+             "ckpt_reshard": reshard_launches, "ckpt_zero3_reshard": z3r_launches,
              **{f"encdec_remat_{p}": c for p, c in remat_launches.items()}}
     kernels = []
     for name in sources:
@@ -4811,7 +5236,13 @@ def main() -> int:
         f"{ecs_rec['tokens_equal_one_rank_share']:.3f} one rank's; gspmd numerics "
         f"on NVMe params "
         f"{max(r['params_worst_diff_over_bound'] for r in nvme_numerics.values()):.3f} of "
-        f"bound; encdec plan nvme {plan_nvme_rec['first_loss']:.4f} -> "
+        f"bound; gspmd nvme dp2 train {gnv_rec['losses'][0]:.4f} -> "
+        f"{gnv_rec['losses'][-1]:.4f} at {statistics.median(gnv_rec['step_s']):.2f} s/step, "
+        f"q8 loss gap {max(gq8_rec['loss_gap']):.3g} (bound {min(gq8_rec['loss_bound']):.3g}), "
+        f"cp nvme train {cpn_rec['losses'][0]:.4f} -> {cpn_rec['losses'][-1]:.4f}; ckpt dp2 drill "
+        f"restarts {drill2_rec['restarts']}, {drill2_rec['checkpoint']['bytes']} B, reshard "
+        f"{reshard_rec['losses'][0]:.4f}, zero3 reshard {z3r_rec['losses'][0]:.4f}; "
+        f"encdec plan nvme {plan_nvme_rec['first_loss']:.4f} -> "
         f"{plan_nvme_rec['last_loss']:.4f} at {plan_nvme_rec['median_step_s']:.2f} s/step, "
         f"busy {plan_nvme_rec['device_busy_share_of_steps']:.3f}; encdec remat peak GB "
         + ", ".join(f"{p} {r['peak_allocated_gb']:.2f}" for p, r in remat_recs.items())

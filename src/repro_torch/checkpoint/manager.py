@@ -26,6 +26,14 @@ other's checkpoints.
     without an explicit step falls back to the newest intact one, printing
     why. A leaf missing from the manifest raises ``KeyError``: a structure
     mismatch, which the resume path reads as a tier migration.
+  * **on ranks** (``launch/train.py``): every rank takes part in the
+    gathers of ``InfinityExecutor.checkpoint_state``, rank 0 alone holds
+    the global leaves and saves them (writes, fsyncs, commits,
+    garbage-collects), so a checkpoint written on a mesh is the file set
+    one rank writes for the same state. On a resume rank 0 reads the
+    directory once its own persist has committed, restores the newest
+    intact step (the fallback above) and names it
+    (``last_restore_step``); every other rank restores that step.
 """
 from __future__ import annotations
 
@@ -137,7 +145,8 @@ def _fsync_dir(path: str) -> None:
 class CheckpointManager:
     """``save`` / ``wait`` / ``restore`` over ``directory``, keeping the
     newest ``keep`` checkpoints. ``last_snapshot_s``, ``last_persist_s``,
-    ``last_bytes`` and ``last_restore_s`` time the latest of each."""
+    ``last_bytes`` and ``last_restore_s`` time the latest of each;
+    ``last_restore_step`` is the step the latest restore read."""
 
     def __init__(self, directory: str, keep: int = 2, async_save: bool = True):
         self.dir = directory
@@ -148,6 +157,7 @@ class CheckpointManager:
         self.save_count = 0
         self.last_snapshot_s = self.last_persist_s = self.last_restore_s = 0.0
         self.last_bytes = 0
+        self.last_restore_step: Optional[int] = None
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step-{step:08d}")
@@ -274,4 +284,5 @@ class CheckpointManager:
             out[key] = _to_tensor(arr, meta["dtype"])
         tree = _rebuild(like, out)
         self.last_restore_s = time.perf_counter() - t0
+        self.last_restore_step = step
         return tree, manifest["extra"]

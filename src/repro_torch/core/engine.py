@@ -487,12 +487,84 @@ class ZeroInfinityEngine:
             out["opt"] = adam.AdamState(opt.step.to(self.device), *(move(t) for t in opt[1:]))
         return out
 
-    def param_specs(self) -> dict:
+    def param_specs(self, whole: bool = False) -> dict:
         """The params' tree of ``TensorSpec`` (shape, dtype): what stands
         in the state for leaves that live in the executor's param store
-        (``param_tier="nvme"``), and what their bytes are counted from."""
-        return pt.tree_map(lambda d: TensorSpec(tuple(d.shape), d.torch_dtype),
-                           self.bundle.defs)
+        (``param_tier="nvme"``), and what their bytes are counted from. On
+        a mesh the rank's shards, each leaf cut along both axes by the
+        param rules (as ``respec(tree, None, "param")`` cuts it); with
+        ``whole`` the global leaves."""
+        out: dict = {}
+        for path in pt.tree_paths(self.bundle.defs):
+            d = pt.tree_get(self.bundle.defs, path)
+            shape = list(d.shape)
+            if self.mesh is not None and not whole:
+                for axis, splits in (("data", self.splits["param"]),
+                                     ("model", self.model_splits)):
+                    dim = pt.tree_get(splits, path)
+                    if dim is not None:
+                        shape[dim] //= self.sizes[axis]
+            pt.tree_set(out, path, TensorSpec(tuple(shape), d.torch_dtype))
+        return out
+
+    def shard_share(self, cls: str) -> float:
+        """The rank's elements of state class ``cls`` over the model's: 1
+        at one rank, 1 / (data x model) where every leaf splits on both
+        axes, more where the rank holds leaves whole (``unsplit_leaves``,
+        and the leaves whole over one axis), so the ranks' shares sum past
+        1 by those leaves' duplicates."""
+        if self.mesh is None:
+            return 1.0
+        mine = total = 0
+        for path in pt.tree_paths(self.bundle.defs):
+            n = math.prod(pt.tree_get(self.bundle.defs, path).shape)
+            total += n
+            for axis, splits in (("data", self.splits[cls]), ("model", self.model_splits)):
+                if pt.tree_get(splits, path) is not None:
+                    n //= self.sizes[axis]
+            mine += n
+        return mine / total
+
+    def gather_state(self, state: dict) -> Optional[dict]:
+        """The global state of the rank's ``state`` (``{"params"}``, and
+        ``{"opt"}`` while the optimizer is in-graph): on rank 0 each leaf
+        whole on the CPU, the leaves a one-rank checkpoint of the same
+        state holds; None on every other rank. Every rank gathers one leaf
+        at a time (``respec(leaf, cls, None)``, on the device) and hands
+        it on, so a rank that does not keep it holds at most one whole
+        leaf beyond its shards. The identity at one rank."""
+        if self.mesh is None:
+            return state
+        keep = self.rank == 0
+
+        def whole(tree, cls):
+            out: dict = {}
+            for path in pt.tree_paths(tree):
+                sub: dict = {}
+                pt.tree_set(sub, path, pt.tree_get(tree, path).to(self.device))
+                leaf = pt.tree_get(self.respec(sub, cls, None), path)
+                if keep:
+                    pt.tree_set(out, path, leaf.to("cpu"))
+            return out
+
+        out = {"params": whole(state["params"], "param")}
+        if "opt" in state:
+            opt = state["opt"]
+            out["opt"] = adam.AdamState(opt.step.to("cpu"),
+                                        *(whole(t, "opt") for t in opt[1:]))
+        return out if keep else None
+
+    def shard_state(self, state: dict) -> dict:
+        """A global state (a checkpoint's, written on any mesh) -> the
+        rank's shards of it: the params cut by the param rules, the
+        masters and moments by the opt rules, the step count as it is (no
+        collective). The identity at one rank."""
+        out = {"params": self.respec(state["params"], None, "param")}
+        if "opt" in state:
+            opt = state["opt"]
+            out["opt"] = adam.AdamState(opt.step, *(self.respec(t, None, "opt")
+                                                    for t in opt[1:]))
+        return out
 
     def host_ready(self) -> None:
         """Wait for the last step's write-backs into the pinned host tier."""

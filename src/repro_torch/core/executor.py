@@ -24,8 +24,10 @@ the executor drives the configured placement of each state class:
     --offload-param nvme``, below).
 
 The GSPMD leaf scheduler (``--engine pjit --offload-param nvme``): the
-param store holds every leaf whole, under its ``keystr`` name, and the
-state carries the engine's ``param_specs`` placeholders in its place.
+param store holds every leaf, under its ``keystr`` name (on a mesh the
+rank's shard of it, ``rank<r>/<keystr>``, in the rank's own store), and
+the state carries the engine's ``param_specs`` placeholders (the rank's
+shard specs) in its place.
 Each step (``_instrumented``) loads the leaves through the same
 ``LayerSchedule`` / ``PrefetchEngine`` the layered epoch uses, one leaf a
 unit (window ``prefetch_layers or max(2, read_ahead)``): a leaf goes to
@@ -35,17 +37,35 @@ in-graph update (fused Adam on the device) or the off-graph one. Its new
 params go back to the store: from the device behind an event recorded
 after the update's kernels, or, off-graph, from the host Adam's f32
 masters rounded to the leaves' dtype on the host (never a round trip
-through the card); then the state drops them to placeholders again.
-Under ``param_quant`` the store encodes on write and decodes on read, as
-the reference's. Each leaf crosses the tier once a step each way.
+through the card; on a mesh too where the param and opt rules cut a leaf
+alike, ZeRO stages 0 and 3; at stages 1-2 the rank's masters are rounded
+on the device and all-gathered, and each rank writes the whole leaf back
+to its store); then the state drops them to placeholders again. Under
+``param_quant`` the store encodes on write and decodes on read, as the
+reference's; on a mesh each rank's shard is its own frame, quantized in
+blocks of 32 from its first element: it decodes to the slice of the
+reference's decode of the whole leaf exactly where its runs in the leaf's
+flat order start and end on the block grid (``qformat.grid_aligned``),
+and its wire bytes are its own blocks, pad block and header included
+(``qformat.wire_nbytes``). Each leaf crosses the tier once a step each
+way.
 
 Checkpoint views (``checkpoint_state``, ``portable_state``,
-``adopt_state``) are the reference's: the full state with the layered
-epoch's rows materialized from the param store; the tier-independent
-leaves (``flat``/``other``/``other_opt``/``step``, or ``params``); and a
-full state for this executor's tiers around such leaves, where the
-streamed moments, the in-graph moments and the int8 residual restart at
-zero and the stores are reseeded.
+``adopt_state``, ``restore_state``) are the reference's: the full state
+with the layered epoch's rows materialized from the param store; the
+tier-independent leaves (``flat``/``other``/``other_opt``/``step``, or
+``params``); and a full state for this executor's tiers around such
+leaves, where the streamed moments, the in-graph moments and the int8
+residual restart at zero and the stores are reseeded. On a mesh they are
+global: ``checkpoint_state`` gathers each leaf over the ranks, one at a
+time, and hands it to rank 0 (``engine.gather_state``: the GSPMD
+engine's leaves by ``respec(leaf, cls, None)``, the explicit engine's
+rows along their split dim, its int8 residual as the reference's (dp, ...)
+stack), so rank 0's snapshot is what one rank's checkpoint of the same
+state holds; a restore takes global leaves written on any mesh and cuts
+the rank's part (``engine.shard_state``; the explicit engine's rows
+re-padded for this dp first, ``runtime/elastic.adapt_state_layout``, and
+its residual zero at another dp).
 
 The layered epoch: parameters, gradients and optimizer states all live
 off the device: each layer's bf16 row in the param store
@@ -113,16 +133,17 @@ gradient drain run on the rank's shard, and the rank's stores live in
 counters count the rank's own bytes (the GSPMD engine's steps add the
 rank's state shards, ``*_shard_bytes``); each step also reports their sum
 over the ranks, ``<counter>_all_ranks``, what the reference's one process
-counts, and an executor built from a plan the plan's per-device state
-bytes beside them (``plan_*_shard_bytes``). A plan for another number of
-devices than the ranks (``--data-mesh`` x ``--model-mesh``) raises; so
-do, on a GSPMD mesh, params on NVMe and ``param_quant``, which encodes
-only the NVMe param store (8f), and checkpoints at dp > 1 (item 5). On a mesh
+counts, and an executor built from a plan the plan's per-device
+predictions beside them (``plan_*_shard_bytes``, and the slow-tier bytes
+a step scaled to the rank's share, ``_plan_share``). A plan for another
+number of devices than the ranks (``--data-mesh`` x ``--model-mesh``)
+raises. The GSPMD engine's params on NVMe and ``param_quant`` run on a
+mesh, each rank its shards in its own store. On a mesh
 with a model axis the step is the engine's tensor- or context-parallel
 one, in-graph or with the off-graph optimizer over the rank's shards (on
 the host or NVMe, keyed ``rank<r>/<keystr>`` as on data-parallel ranks).
 
-What stays unported raises, naming its ROADMAP item (``check_ported``).
+A plan made for another number of devices raises (``check_ported``).
 Per-step metrics of the off-graph and layered steps are the reference's:
 loss, grad_norm, lr, the per-tier byte counters and GB/s (``param_in/out``,
 ``grad_out``, ``opt_read/write``; ``*_bytes`` logical, ``*_wire_bytes``
@@ -154,35 +175,20 @@ from repro_torch.core.offload import (ArrayStore, ChunkedAdamOffload,
 from repro_torch.core.zero import ExplicitZero3Engine
 from repro_torch.models.transformer import TensorSpec
 from repro_torch.optim import adam as adam_mod
-from repro_torch.runtime import trace
+from repro_torch.runtime import elastic, trace
 
 
 def check_ported(run: RunConfig, n_devices: Optional[int] = None, dp: int = 1) -> None:
-    """Raise for a configuration the port cannot run on ``dp`` ranks (every
-    rank of the mesh, on either axis): ``ValueError`` for a plan made for
-    ``n_devices`` devices (None: no plan) on another number of ranks;
-    ``NotImplementedError`` naming the ROADMAP item that ports it for the
-    GSPMD engine on a mesh: params on NVMe (the leaf scheduler) or
-    ``param_quant`` (the NVMe param store's encoding, 8f). Every family
-    takes a model axis."""
+    """Raise ``ValueError`` for a plan made for ``n_devices`` devices (None:
+    no plan) run on another number of ranks, ``dp`` (every rank of the
+    mesh, on either axis). Every engine, tier and family the port runs on
+    one rank runs on a mesh."""
     if n_devices is not None and n_devices != dp:
         raise ValueError(
             f"a plan for {n_devices} device(s) runs on as many ranks, and this run "
             f"has {dp}: plan for {dp} (--hw-devices {dp}) or launch {n_devices} "
             "ranks (torchrun --standalone --nproc-per-node "
             f"{n_devices} ... --hw-devices {n_devices})")
-    if dp == 1 or run.parallel.engine == "zero3":
-        return
-    where = f"the GSPMD engine on a mesh of {dp} ranks"
-    if run.offload.param_quant != "none":
-        raise NotImplementedError(
-            f"{where}: --param-quant {run.offload.param_quant} encodes the NVMe param "
-            "store, and params on NVMe through the leaf scheduler are not ported across "
-            "ranks (ROADMAP.md Queue 1 item 8f)")
-    if run.offload.param_tier == "nvme":
-        raise NotImplementedError(
-            f"{where}: params on NVMe through the leaf scheduler are not ported "
-            "across ranks (ROADMAP.md Queue 1 item 8f)")
 
 
 def make_engine(run: RunConfig, device, mesh=None):
@@ -328,9 +334,10 @@ class InfinityExecutor:
         """(Re)populate the stores from ``state`` (m, v restart at zero).
         GSPMD engine: an off-graph optimizer's store is seeded from the
         params, leaf by leaf under their ``keystr`` names in tree order;
-        with params on NVMe the param store takes every leaf whole under
-        the same names and the state returns with ``params`` dropped to
-        the placeholder tree, else as it is. Layered epoch: the state
+        with params on NVMe the param store takes every leaf under the
+        same names (on a mesh the rank's shards, ``rank<r>/<keystr>``, in
+        the rank's own store) and the state returns with ``params``
+        dropped to the placeholder tree, else as it is. Layered epoch: the state
         returns with ``flat`` dropped to a placeholder, and the opt store
         is seeded in backward order, the order the reversed pass emits the
         rows' gradients."""
@@ -344,13 +351,12 @@ class InfinityExecutor:
                 # exact), or the GSPMD engine's leaves
                 self.offload.init_from_params(
                     {f"{self.rank_key}/flat": state["flat"].float()} if self.explicit
-                    else self._opt_named(self.engine.respec(state["params"], "param", "opt")))
+                    else self._rank_named(self.engine.respec(state["params"], "param", "opt")))
                 self.offload.step_count = step
             if self.grad_offload and self.grad_store is None:
                 self.grad_store = self._make_store(off.grad_tier, "grad")
             if self.param_nvme:
-                self._seed_param_stream(flatten_with_paths(state["params"]),
-                                        row_split=False)
+                self._seed_param_stream(self._rank_named(state["params"]), row_split=False)
                 state = self._drop_params(state)
             return state
         keys = ("flat", "eflat") if self.is_moe else ("flat",)
@@ -460,63 +466,71 @@ class InfinityExecutor:
 
     def materialize_params(self) -> dict:
         """The GSPMD engine's param tree assembled from the param store, on
-        the CPU — for checks and checkpoints; the step never calls it."""
-        return _unflatten_like(self._param_placeholder(), self.param_stream.load_all())
+        the CPU (on a mesh the rank's shards) — for checks and
+        checkpoints; the step never calls it."""
+        return _unflatten_like(self._param_placeholder(),
+                               self._unprefixed(self.param_stream.load_all()))
 
     # ------------------------------------------------------------------
     # tier-independent checkpoint views
     # ------------------------------------------------------------------
 
-    def checkpoint_state(self, state: dict) -> dict:
+    def checkpoint_state(self, state: dict) -> Optional[dict]:
         """``state`` with its placeholder params (the layered epoch's rows,
         the GSPMD engine's leaves) materialized from the param store: what
         the full-state checkpoint persists. Waits for the pinned host
         tier's write-backs first, so a snapshot reads the last step's
-        values."""
-        self._one_rank_checkpoints()
+        values. On a mesh every rank calls it: rank 0 gets the global
+        state, the leaves the reference's checkpoint of the same state
+        holds under the same keys, shapes and dtypes, each gathered over
+        the ranks one leaf at a time (``engine.gather_state``); every other
+        rank gets None."""
         self.wait_host()
-        if not self.param_nvme:
-            return state
-        state = dict(state)
-        if self.explicit and isinstance(state["flat"], TensorSpec):
-            state.update(self.materialize_rows())
-        elif not self.explicit and self._is_dropped(state["params"]):
-            state["params"] = self.materialize_params()
-        return state
+        if self.param_nvme:
+            state = dict(state)
+            if self.explicit and isinstance(state["flat"], TensorSpec):
+                state.update(self.materialize_rows())
+            elif not self.explicit and self._is_dropped(state["params"]):
+                state["params"] = self.materialize_params()
+        return self.engine.gather_state(state)
 
-    def portable_state(self, state: dict) -> dict:
-        """The leaves whose presence and layout do not depend on the tiers,
-        so a checkpoint of them restores into an executor at any tier."""
-        state = self.checkpoint_state(state)
+    def portable_like(self, state: dict) -> dict:
+        """The portable leaves' structure in ``state`` (the rank's tensors
+        or placeholders; nothing gathered or read from a store): what a
+        restore of a portable checkpoint reads its keys from."""
         if self.explicit:
             return {k: state[k] for k in self.engine.portable_keys}
         return {"params": state["params"]}
 
+    def portable_state(self, state: dict) -> Optional[dict]:
+        """The leaves whose presence and layout do not depend on the tiers,
+        so a checkpoint of them restores into an executor at any tier; on
+        a mesh, as ``checkpoint_state``, the global leaves on rank 0 and
+        None on every other rank."""
+        state = self.checkpoint_state(state)
+        return None if state is None else self.portable_like(state)
+
     def adopt_state(self, portable: dict, *, step: int = 0) -> dict:
-        """Portable leaves -> a full state for this executor's tiers: the
-        moments (in-graph or streamed) and the int8 residual restart at
-        zero, in-graph masters are the params' f32 copies, the stores are
+        """Portable leaves (global: a checkpoint's, written on any mesh) ->
+        a full state for this executor's tiers on this rank: the moments
+        (in-graph or streamed) and the int8 residual restart at zero,
+        in-graph masters are the params' f32 copies, the stores are
         reseeded."""
-        self._one_rank_checkpoints()
         if self.explicit:
+            portable = self.engine.shard_state(elastic.adapt_state_layout(portable, self))
             state = self.engine.place_state(self.engine.complete_state(portable))
         else:
             state = self.engine.adopt_params(portable["params"], step=step)
         return self.reseed(state, step=step)
 
     def restore_state(self, restored: dict, *, step: int) -> dict:
-        """A full checkpoint restored on the CPU -> this executor's state:
-        each leaf placed on its tier, the stores reseeded (their moments
-        restart at zero)."""
-        self._one_rank_checkpoints()
+        """A full checkpoint restored on the CPU (global leaves, written on
+        any mesh) -> this executor's state: the rank's part of each leaf
+        (the explicit engine's rows re-padded for this dp first,
+        ``runtime/elastic.adapt_state_layout``), placed on its tier, the
+        stores reseeded (their moments restart at zero)."""
+        restored = self.engine.shard_state(elastic.adapt_state_layout(restored, self))
         return self.reseed(self.engine.place_state(restored), step=step)
-
-    def _one_rank_checkpoints(self) -> None:
-        if self.dp > 1:
-            raise NotImplementedError(
-                f"checkpoints at dp {self.dp}: a checkpoint holds the global rows, "
-                "and saving or restoring it across ranks is re-sharding (ROADMAP.md "
-                "Queue 1 item 5)")
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         return self.engine.input_specs(shape)
@@ -610,7 +624,7 @@ class InfinityExecutor:
             # the rank's gradient in the optimizer's spec (its shard where
             # the gradient is whole and the optimizer split: stage 1)
             gflat = {k: g.float() for k, g in
-                     self._opt_named(eng.respec(grads, "grad", "opt")).items()}
+                     self._rank_named(eng.respec(grads, "grad", "opt")).items()}
             if self.grad_offload:
                 gflat = self._drain_grads(gflat)
             lr = float(adam_mod.lr_at(tc, torch.tensor(self.offload.step_count + 1,
@@ -632,25 +646,43 @@ class InfinityExecutor:
 
         return step
 
-    def _opt_named(self, tree: dict) -> Dict[str, torch.Tensor]:
-        """The GSPMD engine's leaves by their opt-store names: ``keystr``,
-        under the rank's prefix (``rank<r>/``) on a mesh."""
+    def _rank_named(self, tree: dict) -> Dict[str, torch.Tensor]:
+        """The GSPMD engine's leaves by their opt- and param-store names:
+        ``keystr``, under the rank's prefix (``rank<r>/``) on a mesh."""
         named = flatten_with_paths(tree)
         if self.dp == 1:
             return named
         return {f"{self.rank_key}/{k}": v for k, v in named.items()}
 
+    def _unprefixed(self, named: Dict[str, object]) -> Dict[str, object]:
+        """Store names -> ``keystr`` names (``_rank_named`` undone)."""
+        if self.dp == 1:
+            return named
+        cut = len(self.rank_key) + 1
+        return {k[cut:]: v for k, v in named.items()}
+
     def _opt_to_params(self, like: dict,
                        new_flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A mesh rank's updated f32 masters (opt-store names, the opt
-        spec) -> its params by ``keystr``: each rounded to its leaf's
-        dtype on the device, then gathered where the params are whole and
-        the optimizer split (stages 1-2)."""
-        tree: dict = {}
+        spec) -> its params by ``keystr``. Where the param and opt rules
+        cut a leaf alike (every leaf at stages 0 and 3) the rank's master
+        is its param shard: it stays on the host, for ``_unflatten_like``
+        to round there (with params on NVMe it never crosses to the card).
+        Where the params are whole and the optimizer split (stages 1-2)
+        the master is rounded to the leaf's dtype on the device and
+        all-gathered over the data ranks: every rank then holds, and with
+        params on NVMe writes back to its own store, the whole leaf."""
+        eng = self.engine
+        out: Dict[str, torch.Tensor] = {}
+        gather: dict = {}
         for path in pt.tree_paths(like):
             t = new_flat[f"{self.rank_key}/{keystr(path)}"]
-            pt.tree_set(tree, path, t.to(self.device).to(pt.tree_get(like, path).dtype))
-        return flatten_with_paths(self.engine.respec(tree, "opt", "param"))
+            if pt.tree_get(eng.splits["opt"], path) == pt.tree_get(eng.splits["param"], path):
+                out[keystr(path)] = t
+            else:
+                pt.tree_set(gather, path, t.to(self.device).to(pt.tree_get(like, path).dtype))
+        out.update(flatten_with_paths(eng.respec(gather, "opt", "param")))
+        return out
 
     def _drain_grads(self, gflat: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """Drain f32 gradients to the grad tier: each becomes a write-then-
@@ -702,7 +734,7 @@ class InfinityExecutor:
                       on_use=use,
                       on_evict=lambda i: host.pop(i, None))
         state = dict(state)
-        state["params"] = _unflatten_like(state["params"], on_device)
+        state["params"] = _unflatten_like(state["params"], self._unprefixed(on_device))
         return state
 
     def _save_params(self, new_state: dict) -> None:
@@ -710,7 +742,7 @@ class InfinityExecutor:
         copied off after an event behind the update's kernels, host leaves
         as they are."""
         with trace.span("param_writeback", sys="optim", attr="io_wait", cls="param"):
-            self.param_stream.save_all(flatten_with_paths(new_state["params"]),
+            self.param_stream.save_all(self._rank_named(new_state["params"]),
                                        ready=self._ready_event())
 
     def _ensure_row_scheduler(self, batch):
@@ -1145,7 +1177,13 @@ class InfinityExecutor:
 
     def _with_plan_crosscheck(self, out: dict) -> dict:
         """Predicted beside measured: with a plan, its predictions sit next
-        to the step's counters. The residency claim is directional (the
+        to the step's counters, per device as the counters are: the
+        residency budget and the state bytes (``plan_*_shard_bytes``) are a
+        device's, the slow-tier bytes a step (``plan_*_step_bytes``, the
+        plan's count of the whole model) are scaled to the rank's share
+        (``_plan_share``); the ``*_all_ranks`` sums of the counters hold
+        the whole model's bytes and the duplicates of the leaves every
+        rank holds whole. The residency claim is directional (the
         measured peak must stay at or below the plan's budget), so it also
         gets a pass/fail flag, ``plan_residency_ok``."""
         if self.plan is None:
@@ -1169,17 +1207,32 @@ class InfinityExecutor:
                 ("param", ("param_in_bytes", "param_out_bytes")),
                 ("grad", ("grad_out_bytes",)),
                 ("opt", ("opt_read_bytes", "opt_write_bytes"))):
-            total = sum(v for v in (pred.get(f"{cls_}_step_read_bytes"),
-                                    pred.get(f"{cls_}_step_write_bytes"))
-                        if v is not None)
-            if total and any(k in out for k in measured_keys):
-                out[f"plan_{cls_}_step_bytes"] = total
-            total_wire = sum(v for v in (pred.get(f"{cls_}_step_read_wire_bytes"),
-                                         pred.get(f"{cls_}_step_write_wire_bytes"))
-                             if v is not None)
-            if total_wire and any(k in out for k in measured_keys):
-                out[f"plan_{cls_}_step_wire_bytes"] = total_wire
+            if not any(k in out for k in measured_keys):
+                continue
+            # the plan counts the model's bytes once; a rank's counters
+            # count its own, so the prediction beside them is the rank's
+            # share of it (all of it at one rank)
+            share = self._plan_share(cls_)
+            for what in ("", "_wire"):
+                total = sum(v for v in (pred.get(f"{cls_}_step_read{what}_bytes"),
+                                        pred.get(f"{cls_}_step_write{what}_bytes"))
+                            if v is not None)
+                if total:
+                    out[f"plan_{cls_}_step{what}_bytes"] = total * share
         return out
+
+    def _plan_share(self, cls: str) -> float:
+        """The rank's share of the bytes the plan predicts for state class
+        ``cls`` a step: 1 at one rank; the explicit engine's ranks each
+        stream 1/dp of every row; a GSPMD rank its elements of the class's
+        spec over the model's (``engine.shard_share``), which counts the
+        leaves the rank holds whole in full (``engine.unsplit_leaves``),
+        so the ranks' shares sum past 1 by those leaves' duplicates."""
+        if self.dp == 1:
+            return 1.0
+        if self.explicit:
+            return 1.0 / self.dp
+        return self.engine.shard_share(cls)
 
     def bandwidth_stats(self) -> dict:
         """Whole-run aggregate over every store, per class and combined."""

@@ -157,20 +157,64 @@ def encode_array(x: torch.Tensor, fmt: str) -> torch.Tensor:
     the KV cache's length placeholders) passes through as ``raw`` bytes."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown quant format {fmt!r}; known: {FORMATS}")
-    name = dtype_name(x.dtype)
-    if name not in _FLOAT_NAMES or x.numel() == 0:
-        used, block, body = "raw", 0, [_bytes_of(x)]
-    elif fmt == "q8":
+    used = _used_format(x.dtype, x.numel(), fmt)
+    if used == "raw":
+        body = [_bytes_of(x)]
+    elif used == "q8":
         q, s = q8_encode(x)
-        used, block, body = "q8", BLOCK, [_bytes_of(s), _bytes_of(q)]
+        body = [_bytes_of(s), _bytes_of(q)]
     else:
         packed, s, m16 = q4_encode(x)
-        used, block = "q4", BLOCK
         body = [_bytes_of(s), _bytes_of(m16), _bytes_of(packed)]
-    header = json.dumps({"fmt": used, "dtype": name, "shape": list(x.shape),
-                         "block": block}, separators=(",", ":")).encode()
-    prefix = bytearray(MAGIC + struct.pack("<I", len(header)) + header)
+    prefix = bytearray(_prefix(used, x.dtype, x.shape))
     return torch.cat([torch.frombuffer(prefix, dtype=torch.uint8)] + body)
+
+
+def _used_format(dtype: torch.dtype, numel: int, fmt: str) -> str:
+    """What ``encode_array`` writes a tensor in: ``fmt`` for a non-empty
+    float tensor, ``raw`` otherwise."""
+    return fmt if dtype_name(dtype) in _FLOAT_NAMES and numel else "raw"
+
+
+def _prefix(used: str, dtype: torch.dtype, shape) -> bytes:
+    """A frame's magic, header length and JSON header."""
+    header = json.dumps({"fmt": used, "dtype": dtype_name(dtype), "shape": list(shape),
+                         "block": 0 if used == "raw" else BLOCK},
+                        separators=(",", ":")).encode()
+    return MAGIC + struct.pack("<I", len(header)) + header
+
+
+def wire_nbytes(shape, dtype: torch.dtype, fmt: str) -> int:
+    """The bytes of ``encode_array``'s frame of a tensor of ``shape`` and
+    ``dtype``: the prefix (magic, header length, JSON header) plus, for a
+    float tensor, ``ceil(n / 32)`` blocks of 34 (q8) or 20 (q4) bytes, the
+    last block's zero pad included (n the elements); a raw frame carries
+    the bytes themselves. On a mesh each rank's shard is its own frame:
+    its own pad block where its length is ragged, its own header."""
+    n = math.prod(shape)
+    used = _used_format(dtype, n, fmt)
+    body = (n * dtype.itemsize if used == "raw"
+            else -(-n // BLOCK) * round(WIRE_BYTES_PER_ELEM[used] * BLOCK))
+    return len(_prefix(used, dtype, shape)) + body
+
+
+def grid_aligned(shape, cuts: dict) -> bool:
+    """Whether a shard of a leaf of ``shape``, cut into ``cuts[dim]``
+    equal parts along each dim in ``cuts``, quantizes on the whole leaf's
+    block grid: every contiguous run of the shard in the whole leaf's flat
+    order starts and ends on a ``BLOCK`` boundary. A run spans the
+    innermost cut dim's part and everything after it, and the runs start
+    at multiples of their length, so the rule is that length % ``BLOCK``
+    == 0 (a column cut of a (K, N) leaf: N / parts % 32 == 0). Then the
+    shard's frame decodes to the slice of the whole leaf's decode; else
+    its blocks straddle other ranks' elements and its values differ from
+    the whole leaf's decode by up to both grids' rounding. A leaf no axis
+    cuts is its own grid."""
+    dims = [d for d, parts in cuts.items() if parts > 1]
+    if not dims:
+        return True
+    k = max(dims)
+    return (shape[k] // cuts[k]) * math.prod(shape[k + 1:]) % BLOCK == 0
 
 
 def _parse_wire(wire: torch.Tensor) -> Tuple[dict, int]:

@@ -97,6 +97,7 @@ reversed pass whatever the policy.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -306,6 +307,10 @@ def _psum(mesh, t: torch.Tensor) -> torch.Tensor:
     return t if mesh is None else mesh.all_reduce(t)
 
 
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.to("cpu")
+
+
 def _trace_wrap_fns(fns: dict) -> dict:
     """Each piece in a compute span. On the card the span covers the
     host's launches; the executor's ``device_sync`` span is where the
@@ -478,6 +483,46 @@ class ExplicitZero3Engine:
                          v=torch.zeros_like(flat32))
         return state
 
+    def gather_state(self, state: dict) -> Optional[dict]:
+        """The global state of the rank's materialized ``state``, the
+        leaves the reference's checkpoint of it holds: on rank 0 the rows
+        (``flat``, in-graph ``master``/``m``/``v``, MoE's ``eflat``)
+        all-gathered over the ranks, one leaf at a time, each handed to
+        the CPU as it is gathered; ``g_err`` as the reference's (dp, ...)
+        stack of the ranks' residuals; ``other``, ``other_opt`` and
+        ``step`` as they are (equal on every rank). None on every other
+        rank, which holds at most one leaf's global rows at once. The
+        identity at dp = 1."""
+        if self.dp == 1:
+            return state
+        keep = self.rank == 0
+        out = {}
+        for key, val in state.items():
+            if key in ("flat", "master", "m", "v", "eflat"):
+                val = self.gather_rows(key, val)
+            elif key == "g_err":
+                val = pt.tree_map(lambda t: self.mesh.all_gather(t.to(self.device)), val)
+            if keep:
+                out[key] = (adam_mod.AdamState(*(pt.tree_map(_cpu, t) for t in val))
+                            if key == "other_opt" else pt.tree_map(_cpu, val))
+        return out if keep else None
+
+    def shard_state(self, state: dict) -> dict:
+        """A global state (a checkpoint's, its rows re-padded for this dp
+        by ``runtime/elastic.adapt_state_layout``) -> this rank's part of
+        it (``bridge.shard_zero3_state``: the rows as ``partition.row_shard``
+        cuts them, MoE's expert rows by columns, ``g_err``'s row of this
+        rank, the rest as it is); ``g_err`` restarts at zero where the
+        checkpoint was written at another dp (each rank's residual is its
+        own quantization error, not portable)."""
+        from repro_torch.bridge import shard_zero3_state
+
+        same_dp = all(t.shape[0] == self.dp for t in pt.tree_leaves(state.get("g_err", {})))
+        out = shard_zero3_state(dict(state), self.rank, self.dp, self.mode)
+        if not same_dp:
+            out["g_err"] = self.g_err_zeros()
+        return out
+
     def place_state(self, state: dict) -> dict:
         """``state``'s leaves where this engine keeps them: the host-tier
         ``flat`` and ``master``/``m``/``v`` in pinned CPU memory on the
@@ -515,14 +560,29 @@ class ExplicitZero3Engine:
             blocks += sum(self.elayout.sizes) * self.top_k * self.n_layers
         return blocks + other
 
+    def _row_dim(self, key: str) -> int:
+        """The dim along which the ranks' parts of ``key``'s rows join:
+        the columns (allgather mode, and MoE's expert rows always) or the
+        layers (broadcast mode)."""
+        return 1 if key == "eflat" or self.mode == "allgather" else 0
+
+    def gather_rows(self, key: str, rows: torch.Tensor) -> torch.Tensor:
+        """The global rows of the rank's part ``rows`` of ``key`` (``flat``
+        and its ``master``/``m``/``v``, or ``eflat``): their all-gather
+        over the ranks, on the device. The rows themselves at dp = 1."""
+        if self.dp == 1:
+            return rows
+        return self.mesh.all_gather(rows.to(self.device), self._row_dim(key))
+
     def params_from_state(self, state: dict) -> dict:
         """The bundle-shaped param tree rebuilt from an engine state with
         materialized rows (``InfinityExecutor.checkpoint_state``): the
-        eval path, the bundle's prefill after a layered run."""
-        if self.dp > 1:
-            raise NotImplementedError(
-                f"params_from_state at dp {self.dp}: the rank holds a shard of the "
-                "rows; assembling them is re-sharding (ROADMAP.md Queue 1 item 5)")
+        eval path, the bundle's prefill after a layered run. At dp > 1
+        every rank calls it, on its own rows: they are all-gathered over
+        the ranks first, so each rank gets dp 1's tree."""
+        state = dict(state)
+        for key in ("flat", "eflat") if self.is_moe else ("flat",):
+            state[key] = self.gather_rows(key, state[key])
         rows = [pt.unflatten_row(r, self.layout) for r in state["flat"]]
         blocks: dict = {}
         for path in self.layout.paths:

@@ -47,7 +47,7 @@ data-parallel mesh of ranks:
     run up to ``--max-restarts`` times within ``--recovery-budget``
     seconds, and ``--resume auto`` resumes from the newest intact
     checkpoint: the full state, or on a tier change the tier-independent
-    leaves (``portable_state``/``adopt_state``); ``--straggler-factor``
+    leaves (``portable_like``/``adopt_state``); ``--straggler-factor``
     flags slow steps.
 
   * ``--data-mesh N``: N data-parallel ranks, one process each, launched
@@ -79,17 +79,26 @@ data-parallel mesh of ranks:
     (tier bytes; the GSPMD engine's state shards) and their sum over the
     ranks. A run whose world size is not N * M raises, naming the launch.
 
+  * checkpoints and ``--resume auto`` on a mesh: every rank takes part in
+    ``checkpoint_state``'s gathers and rank 0 writes the global leaves,
+    the file set a one-rank run of the same state writes (the reference's
+    format); on a resume rank 0 waits for its persist, picks the newest
+    intact step and every rank restores it, cutting its part of the
+    global leaves, so a checkpoint written on any mesh (another dp or
+    model size, one rank, the reference's host-device mesh) restores on
+    any other. ``REPRO_FAIL_MARKER`` is then each rank's own
+    (``<marker>.rank<r>``), so every rank fails at the step and restarts.
+
 Runs on the card by default and raises when CUDA is absent; ``--device
 cpu`` runs the kernels' plain versions (the tests do). On a mesh the
 explicit engine's layered epoch takes MoE's expert rows (each rank its
 column slice of every expert row) and ``--param-quant`` q8/q4 rows (each
 rank's slice encoded on its own; q8 slices gathered as wire bytes), and
 the GSPMD engine takes the MoE family (the routing statistics summed over
-the data ranks). What is not ported raises, naming the ROADMAP item that
-ports it: ``--elastic``/``--chaos`` (item 5); on a mesh, checkpoints and
-``--resume`` (item 5: pass ``--ckpt-every 0``), and for the GSPMD engine
-params on NVMe and ``--param-quant``, which encodes only the NVMe param
-store (item 8f). On the layered epoch
+the data ranks) and params on NVMe (each rank its shards in its own store,
+``--param-quant`` encoding each shard on its own). What is not ported
+raises, naming the ROADMAP item that ports it: ``--elastic``/``--chaos``
+(item 5, the elastic supervisor). On the layered epoch
 ``--grad-compress int8`` and ``partition_mode="broadcast"`` raise the
 reference's ``ValueError``s. The explicit engine reads neither
 ``--zero-stage`` nor ``--grad-accum``, as the reference's does not.
@@ -116,16 +125,22 @@ Examples (one H100; llava-next-34b at full width cut to 2 layers):
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch smollm-135m --engine zero3 \\
       --data-mesh 2 --offload-param nvme --offload-grad nvme \\
-      --offload-opt nvme --batch 8 --seq 512 --steps 4 --ckpt-every 0
+      --offload-opt nvme --batch 8 --seq 512 --steps 4
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch smollm-135m --engine pjit \\
-      --data-mesh 2 --zero-stage 3 --batch 8 --seq 512 --steps 4 --ckpt-every 0
+      --data-mesh 2 --zero-stage 3 --batch 8 --seq 512 --steps 4
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+      -m repro_torch.launch.train --arch smollm-135m --engine pjit \\
+      --data-mesh 2 --offload-param nvme --offload-grad nvme \\
+      --offload-opt nvme --param-quant q8 --batch 8 --seq 512 --steps 2 \\
+      --nvme-dir /path/on/nvme
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
       -m repro_torch.launch.train --arch smollm-135m --plan auto \\
-      --hw-devices 2 --batch 8 --seq 512 --steps 4 --ckpt-every 0
+      --hw-devices 2 --batch 8 --seq 512 --steps 4 --ckpt-every 2 \\
+      --ckpt-dir /path/ck --resume auto
   PYTHONPATH=src torchrun --standalone --nproc-per-node 3 \\
       -m repro_torch.launch.train --arch smollm-135m --engine pjit \\
-      --model-mesh 3 --batch 8 --seq 512 --steps 4 --ckpt-every 0
+      --model-mesh 3 --batch 8 --seq 512 --steps 4
 """
 from __future__ import annotations
 
@@ -242,19 +257,12 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args, dp: int = 1) -> None:
-    """Raise for every flag set to something the port cannot run, on one
-    rank or on a mesh of ``dp`` ranks."""
-    elastic = "ROADMAP.md Queue 1 item 5: elastic runtime"
-    checks = [
-        (args.elastic, "--elastic", elastic),
-        (args.chaos is not None, "--chaos", elastic),
-    ]
-    if dp > 1:  # the GSPMD engine's refusals: core/executor.check_ported
-        checks.append((args.ckpt_every > 0 or args.resume == "auto",
-                       f"checkpoints across {dp} ranks (pass --ckpt-every 0)",
-                       "ROADMAP.md Queue 1 item 5: re-sharding"))
-    for bad, what, item in checks:
+def _unported(args) -> None:
+    """Raise for every flag set to something the port cannot run: the
+    elastic supervisor's (membership from the process group, chaos
+    injection), on one rank or on a mesh."""
+    item = "ROADMAP.md Queue 1 item 5: the elastic supervisor"
+    for bad, what in ((args.elastic, "--elastic"), (args.chaos is not None, "--chaos")):
         if bad:
             raise NotImplementedError(f"{what} is not ported yet ({item})")
 
@@ -325,7 +333,7 @@ def train(args, argv=None, *, init_state=None) -> dict:
     created = mesh_mod.maybe_init_distributed(device.type)
     try:
         mesh = mesh_mod.make_local_mesh(data_mesh(args), args.model_mesh, device)
-        _unported(args, mesh.world)
+        _unported(args)
         return _train(args, argv, init_state, mesh)
     finally:
         if created:
@@ -340,7 +348,8 @@ def _train(args, argv, init_state, mesh) -> dict:
     tokens = shape.global_batch * shape.seq_len
     tc = run.train
     ckpt = CheckpointManager(tc.checkpoint_dir, keep=tc.keep_checkpoints)
-    injector = FailureInjector()
+    # each rank of a mesh fails at the step, under a marker of its own
+    injector = FailureInjector(rank=mesh.rank if mesh.world > 1 else None)
     straggler = wire_straggler(StragglerMonitor(factor=args.straggler_factor))
     retry_stats = {"restarts": 0, "recovery_s": 0.0}
     history = {"losses": [], "grad_norms": [], "metrics": [], "restarts": 0,
@@ -356,23 +365,18 @@ def _train(args, argv, init_state, mesh) -> dict:
         return state if resuming else executor.reseed(state)
 
     def run_once():
-        ckpt.wait()  # a save the failure interrupted commits first
-        resuming = args.resume == "auto" and ckpt.latest_step() is not None
+        ckpt.wait()  # a save the failure interrupted commits first (rank 0's)
+        # with --resume auto rank 0 reads the directory once its persist
+        # has committed, and every rank follows its answer (the gather is
+        # the ranks' barrier)
+        resuming = args.resume == "auto" and mesh.gather_objects(
+            mesh.rank == 0 and ckpt.latest_step() is not None)[0]
         state = fresh_state(resuming)
         start_step = 0
         if resuming:
-            try:
-                restored, extra = ckpt.restore(state)
-            except KeyError:
-                # tier migration: the checkpoint was written at other tiers;
-                # restore the tier-independent leaves, rebuild the rest
-                portable, extra = ckpt.restore(executor.portable_state(state))
-                start_step = extra["next_step"]
-                state = executor.adopt_state(portable, step=start_step)
-            else:
-                start_step = extra["next_step"]
-                state = executor.restore_state(restored, step=start_step)
-            print(f"resumed from checkpoint at step {start_step}")
+            state, start_step = _resume(ckpt, executor, state, mesh)
+            if mesh.rank == 0:
+                print(f"resumed from checkpoint at step {start_step}")
 
         step_fn = executor.make_train_step()
         stream = SyntheticStream(executor.input_specs(shape), run.model.vocab_size,
@@ -408,9 +412,11 @@ def _train(args, argv, init_state, mesh) -> dict:
                     extras["note"] = rank_bytes_note(rec, mesh.world)
                 logger.log(step, rec["loss"], tokens, dt, **extras)
             if tc.checkpoint_every and (step + 1) % tc.checkpoint_every == 0:
-                # the layered epoch's rows are materialized from the store
-                ckpt.save(step + 1, executor.checkpoint_state(state),
-                          {"next_step": step + 1})
+                # the layered epoch's rows are materialized from the store;
+                # on a mesh every rank gathers, and rank 0 saves
+                snapshot = executor.checkpoint_state(state)
+                if snapshot is not None:
+                    ckpt.save(step + 1, snapshot, {"next_step": step + 1})
         ckpt.wait()
         history["final_state"] = state
 
@@ -433,6 +439,41 @@ def _train(args, argv, init_state, mesh) -> dict:
     finally:
         executor.close()
     return history
+
+
+def _resume(ckpt, executor, state: dict, mesh) -> tuple:
+    """(the restored state, its next step). Rank 0 restores the newest
+    intact checkpoint (past a corrupt newest one, ``CheckpointManager
+    .restore``); a ``KeyError``, a structure mismatch, is a tier migration:
+    the tier-independent leaves are restored and the rest rebuilt
+    (``adopt_state``). Every other rank restores the step rank 0 read, the
+    same way, and cuts its part of the global leaves; a rank that cannot
+    read it raises (it never starts fresh), and where rank 0 could not
+    restore at all every rank raises."""
+    decision, error = None, None
+    if mesh.rank == 0:
+        try:
+            try:
+                restored, extra = ckpt.restore(state)
+                how = "full"
+            except KeyError:
+                restored, extra = ckpt.restore(executor.portable_like(state))
+                how = "portable"
+            decision = (how, ckpt.last_restore_step)
+        except Exception as e:  # every rank raises below
+            error = e
+    how, step = mesh.gather_objects(decision if error is None else (None, repr(error)))[0]
+    if how is None:
+        if error is not None:
+            raise error
+        raise RuntimeError(f"rank 0 could not restore a checkpoint: {step}")
+    if mesh.rank != 0:
+        restored, extra = ckpt.restore(state if how == "full" else executor.portable_like(state),
+                                       step=step)
+    start_step = extra["next_step"]
+    if how == "full":
+        return executor.restore_state(restored, step=start_step), start_step
+    return executor.adopt_state(restored, step=start_step), start_step
 
 
 def main(argv=None) -> dict:

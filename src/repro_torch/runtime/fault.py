@@ -35,13 +35,20 @@ class RecoveryBudgetExceeded(RuntimeError):
 class FailureInjector:
     """Raise at a target step, once. Configure via ctor or env:
     REPRO_FAIL_AT_STEP=N (and optional REPRO_FAIL_MARKER=<path> so the
-    failure fires only in the first process incarnation)."""
+    failure fires only in the first process incarnation). With ``rank``
+    (a rank of a mesh) the marker is the rank's own, ``<path>.rank<r>``:
+    every rank fails at the step and restarts, where one marker shared by
+    the ranks would let the first to fail stop the others from failing
+    (they would run on into the step's collectives, alone)."""
 
-    def __init__(self, fail_at_step: Optional[int] = None, marker: Optional[str] = None):
+    def __init__(self, fail_at_step: Optional[int] = None, marker: Optional[str] = None,
+                 rank: Optional[int] = None):
         env = os.environ.get("REPRO_FAIL_AT_STEP")
         self.fail_at = fail_at_step if fail_at_step is not None else (
             int(env) if env else None)
         self.marker = marker or os.environ.get("REPRO_FAIL_MARKER")
+        if self.marker and rank is not None:
+            self.marker = f"{self.marker}.rank{rank}"
 
     def maybe_fail(self, step: int) -> None:
         if self.fail_at is None or step != self.fail_at:

@@ -304,10 +304,18 @@ def test_one_rank_mesh_and_a_mismatched_world_size():
         mesh_mod.make_local_mesh(2, 2, "cpu")
 
 
+class _FakeMesh(mesh_mod.LocalMesh):
+    """A rank's mesh with no process group, its object gather every rank's
+    own: enough for what runs before the first tensor collective."""
+
+    def gather_objects(self, obj) -> list:
+        return [obj] * self.world
+
+
 def _fake_mesh(world=2):
     """A rank's mesh with no process group: enough for what refuses
     before the first collective."""
-    return mesh_mod.LocalMesh(world, 1, 0, world, torch.device("cpu"), None, "gloo")
+    return _FakeMesh(world, 1, 0, world, torch.device("cpu"), None, "gloo")
 
 
 def _run(arch="smollm-135m", engine="zero3", **offload):
@@ -317,43 +325,61 @@ def _run(arch="smollm-135m", engine="zero3", **offload):
 
 @pytest.mark.parametrize("what,build,match", [
     ("gspmd", lambda m: texec.InfinityExecutor(_run(engine="pjit", param_tier="nvme"), "cpu",
-                                               mesh=m), "item 8f"),
+                                               mesh=m), None),
     # MoE's expert rows and q8/q4 rows run at dp > 1 (tests/test_torch_dp_moe.py);
-    # what stays unported around them: assembling a MoE engine's params
-    # from the ranks' slices (item 5), the GSPMD engine's --param-quant on
-    # a mesh (8f), MoE on a model axis among them
+    # around them, assembling a MoE engine's params from the ranks' slices
+    # gathers its rows (``params_from_state``: expert rows by columns), and
+    # the GSPMD engine's --param-quant runs on a mesh (8f), MoE on a model
+    # axis among them
     ("moe", lambda m: ExplicitZero3Engine(_run("granite-moe-1b-a400m", param_tier="nvme"),
-                                          "cpu", m).params_from_state({}), "item 5"),
+                                          "cpu", m)._row_dim("eflat"), None),
     ("q8", lambda m: texec.InfinityExecutor(_run(engine="pjit", param_quant="q8"), "cpu",
-                                            mesh=m), "item 8f"),
+                                            mesh=m), None),
     ("q4", lambda m: texec.InfinityExecutor(
         _run("granite-moe-1b-a400m", engine="pjit", param_quant="q4"), "cpu",
-        mesh=mesh_mod.LocalMesh(1, 2, 0, 2, torch.device("cpu"), None, "gloo")), "item 8f")])
+        mesh=mesh_mod.LocalMesh(1, 2, 0, 2, torch.device("cpu"), None, "gloo")), None)])
 def test_engine_refuses_what_stays_unported_at_dp2(what, build, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build(_fake_mesh())
+    """Nothing of these stays unported at dp 2 (items 5's checkpoint half
+    and 8f): each builds on a rank of a fake mesh, MoE's expert rows join
+    along their columns."""
+    out = build(_fake_mesh())
+    if what == "moe":
+        assert out == 1
+    else:
+        assert out.dp == 2 and out.param_store is None
 
 
 BASE = ["--smoke", "--device", "cpu", "--engine", "zero3", "--data-mesh", "2",
         "--steps", "1", "--batch", "2", "--seq", "16", "--ckpt-every", "0"]
 
 
+class _Built(Exception):
+    """Raised where a run on a fake mesh asks for its train step: it got
+    past every refusal, built its executor and its state."""
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    (["--engine", "pjit", "--offload-param", "nvme"], NotImplementedError, "item 8f"),
+    (["--engine", "pjit", "--offload-param", "nvme"], _Built, "pjit"),
     (["--plan", "auto"], ValueError, "a plan for 1 device.*this run has 2"),
     (["--arch", "granite-moe-1b-a400m", "--offload-param", "nvme", "--ckpt-every", "2"],
-     NotImplementedError, "item 5"),
-    (["--engine", "pjit", "--param-quant", "q8"], NotImplementedError, "item 8f"),
-    (["--ckpt-every", "2"], NotImplementedError, "item 5"),
-    (["--resume", "auto"], NotImplementedError, "item 5")])
+     _Built, "zero3"),
+    (["--engine", "pjit", "--param-quant", "q8"], _Built, "pjit"),
+    (["--ckpt-every", "2"], _Built, "zero3"),
+    (["--resume", "auto"], _Built, "zero3")])
 def test_cli_refuses_what_stays_unported_at_dp2(monkeypatch, tmp_path, extra, error, match):
-    """``launch.train`` on a 2-rank mesh: the GSPMD engine with params on
-    NVMe or ``--param-quant`` (item 8f), a plan for the one device the CPU
-    detects (ValueError, naming both counts), checkpoints (a MoE run's too)
-    and resume (item 5) raise. (The GSPMD engine and plans on a mesh run:
-    ``tests/test_torch_gspmd_mesh.py``; MoE's expert rows and q8/q4 rows:
-    ``tests/test_torch_dp_moe.py``.)"""
+    """``launch.train`` on a 2-rank mesh: a plan for the one device the CPU
+    detects raises (ValueError, naming both counts); the GSPMD engine with
+    params on NVMe or ``--param-quant`` (8f), checkpoints (a MoE run's
+    too) and resume (item 5's checkpoint half) build their executor and
+    state and ask for the train step, which the fake mesh stops before any
+    collective. (They run on ranks: ``tests/test_torch_nvme_mesh.py``,
+    ``tests/test_torch_checkpoint_mesh.py``.)"""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda *a: _fake_mesh())
+
+    def make_train_step(self, **kw):
+        raise _Built(self.run.parallel.engine)
+
+    monkeypatch.setattr(texec.InfinityExecutor, "make_train_step", make_train_step)
     argv = BASE + ["--nvme-dir", str(tmp_path), "--ckpt-dir", str(tmp_path / "ck")] + extra
     with pytest.raises(error, match=match):
         ttrain.train(ttrain.build_argparser().parse_args(argv), argv)
@@ -374,11 +400,22 @@ def test_plan_for_two_devices_and_profile_on_a_mesh_raise(tmp_path):
 
 
 def test_checkpoint_views_refuse_at_dp2(tmp_path):
+    """The views no longer refuse at dp 2 (item 5's checkpoint half): a
+    restore cuts the rank's part of the global leaves with no collective.
+    On rank 0 of 2, ``restore_state`` and ``adopt_state`` of a global
+    state give the rank's columns of the rows (in-graph: masters and
+    moments too), the small states whole; the portable structure is read
+    without a gather."""
     ex = texec.InfinityExecutor(_run(), "cpu", mesh=_fake_mesh())
-    for call in (lambda: ex.checkpoint_state({}), lambda: ex.adopt_state({}),
-                 lambda: ex.restore_state({}, step=0)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    one = texec.InfinityExecutor(_run(), "cpu")
+    whole = one.engine.init_state(torch.Generator().manual_seed(3))
+    half = whole["flat"].shape[1] // 2
+    for state in (ex.restore_state(whole, step=0), ex.adopt_state(
+            {k: whole[k] for k in one.engine.portable_keys})):
+        assert torch.equal(state["flat"], whole["flat"][:, :half])
+        assert torch.equal(state["master"], whole["flat"][:, :half].float())
+        assert torch.equal(state["other"]["embed"]["tok"], whole["other"]["embed"]["tok"])
+    assert sorted(ex.portable_like(state)) == sorted(one.engine.portable_keys)
 
 
 def test_rank_slices_and_row_shards_tile_the_global_arrays():

@@ -28,10 +28,11 @@
   mesh (its hardware pinned by ``--hw-*``): the reference's plan for the
   same hardware, byte for byte, and its ``RunConfig``; it trains.
 * **Refusals.** A plan for another number of devices than the ranks
-  (ValueError, naming both), and on a GSPMD mesh params on NVMe and
-  ``--param-quant`` (8f); a model axis is ported for every family
+  (ValueError, naming both). A model axis is ported for every family
   (ROADMAP item 8g: the encoder-decoder builds and runs up to its first
-  collective here, ``tests/test_torch_encdec_tp.py`` runs it). (The MoE family on a
+  collective here, ``tests/test_torch_encdec_tp.py`` runs it), and on a
+  GSPMD mesh params on NVMe and ``--param-quant`` (8f: they build here,
+  ``tests/test_torch_nvme_mesh.py`` runs them). (The MoE family on a
   GSPMD mesh runs: ``tests/test_torch_dp_moe.py``.)
 
 Tolerances are ``tests/test_torch_gspmd.py``'s, imported from it:
@@ -47,6 +48,7 @@ rank's state bytes equal ``ZeroInfinityEngine.shard_bytes``.
 import concurrent.futures
 import dataclasses
 import functools
+import math
 import os
 import subprocess
 import sys
@@ -375,10 +377,18 @@ def test_plan_for_two_devices_runs_on_two_ranks(ranks):
 # ---------------------------------------------------------------------------
 
 
+class _FakeMesh(mesh_mod.LocalMesh):
+    """A rank's mesh with no process group, its object gather every rank's
+    own: enough for what runs before the first tensor collective."""
+
+    def gather_objects(self, obj) -> list:
+        return [obj] * self.world
+
+
 def _fake_mesh(data=2, model=1):
     """A rank's mesh with no process group: enough for what refuses
     before the first collective."""
-    return mesh_mod.LocalMesh(data, model, 0, data * model, torch.device("cpu"), None, "gloo")
+    return _FakeMesh(data, model, 0, data * model, torch.device("cpu"), None, "gloo")
 
 
 def _run(arch="smollm-135m", **offload):
@@ -394,18 +404,26 @@ def test_a_plan_for_another_device_count_raises_naming_both(n_devices, dp):
 
 
 @pytest.mark.parametrize("what,run,mesh,match", [
-    ("model_axis", _run("seamless-m4t-medium"), (1, 2), None),
-    ("moe", _run("granite-moe-1b-a400m", param_quant="q8"), (2, 1), "item 8f"),
-    ("param_nvme", _run(param_tier="nvme"), (2, 1), "item 8f")])
+    ("model_axis", _run("seamless-m4t-medium"), (1, 2), "tp"),
+    ("moe", _run("granite-moe-1b-a400m", param_quant="q8"), (2, 1), None),
+    ("param_nvme", _run(param_tier="nvme"), (2, 1), None)])
 def test_gspmd_mesh_refuses_what_stays_unported(what, run, mesh, match):
-    """What stays unported raises naming its item; the encoder-decoder on a
-    model axis (item 8g.4, ported) builds, under tensor parallelism."""
-    if match is None:
-        ex = texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh(*mesh))
-        assert ex.engine.mp.strategy == "tp"
+    """Nothing here stays unported: the encoder-decoder on a model axis
+    (item 8g.4) builds under tensor parallelism, and ``--param-quant`` and
+    params on NVMe (item 8f) build on a data mesh, each rank's param specs
+    its shards (half of every leaf the rules split)."""
+    ex = texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh(*mesh))
+    if match is not None:
+        assert ex.engine.mp.strategy == match
         return
-    with pytest.raises(NotImplementedError, match=match):
-        texec.InfinityExecutor(run, "cpu", mesh=_fake_mesh(*mesh))
+    whole, mine = ex.engine.param_specs(whole=True), ex.engine.param_specs()
+    for path in tpt.tree_paths(whole):
+        n, m = (math.prod(tpt.tree_get(t, path).shape) for t in (whole, mine))
+        split = tpt.tree_get(ex.engine.splits["param"], path) is not None
+        assert m * (2 if split else 1) == n, path
+    if what == "param_nvme":
+        assert ex.total_param_bytes == sum(math.prod(s.shape) * s.dtype.itemsize
+                                           for s in tpt.tree_leaves(mine))
 
 
 BASE = ["--smoke", "--device", "cpu", "--engine", "pjit", "--steps", "1", "--batch", "2",
@@ -422,20 +440,21 @@ class _Built(Exception):
     (["--data-mesh", "1", "--model-mesh", "2", "--arch", "seamless-m4t-medium"],
      _Built, "^tp$"),
     (["--data-mesh", "2", "--arch", "granite-moe-1b-a400m", "--param-quant", "q4"],
-     NotImplementedError, "item 8f"),
-    (["--data-mesh", "2", "--offload-param", "nvme"], NotImplementedError, "item 8f"),
+     _Built, "^dp$"),
+    (["--data-mesh", "2", "--offload-param", "nvme"], _Built, "^dp$"),
     (["--plan", "auto", "--hw-devices", "4", "--data-mesh", "2"], ValueError,
      "a plan for 4 device.*this run has 2")])
 def test_cli_on_a_gspmd_mesh_refuses_naming_the_item(monkeypatch, tmp_path, extra, error, match):
     """``launch.train`` on a 2-rank mesh (a fake one: each refusal comes
-    before the first collective). The encoder-decoder on a model axis
-    (item 8g.4, ported) meets no refusal: it builds its executor under
-    tensor parallelism and asks for the train step, which the fake mesh
-    stops before any collective."""
+    before the first collective). A plan for another number of devices
+    raises. The encoder-decoder on a model axis (item 8g.4, ported), and
+    ``--param-quant`` and params on NVMe on a data mesh (item 8f, ported),
+    meet no refusal: each builds its executor and its state and asks for
+    the train step, which the fake mesh stops before any collective."""
     monkeypatch.setattr(mesh_mod, "make_local_mesh", lambda d, m, dev: _fake_mesh(d, m))
 
     def make_train_step(self, **kw):
-        raise _Built(self.engine.mp.strategy)
+        raise _Built(self.engine.mp.strategy if self.engine.mp is not None else "dp")
 
     monkeypatch.setattr(texec.InfinityExecutor, "make_train_step", make_train_step)
     argv = BASE + ["--nvme-dir", str(tmp_path), "--ckpt-dir", str(tmp_path / "ck")] + extra

@@ -161,17 +161,19 @@ def test_the_router_gradient_is_summed_over_the_model_ranks():
 
 def test_moe_on_a_mesh_passes_the_executors_check_and_nvme_params_still_raise_8f():
     """The GSPMD engine takes MoE on a model axis, and the SSM and the
-    hybrid (8g.3) and the encoder-decoder (8g.4); params on NVMe or
-    ``--param-quant`` there still raise naming item 8f, for the
-    encoder-decoder too."""
+    hybrid (8g.3) and the encoder-decoder (8g.4); since item 8f params on
+    NVMe and ``--param-quant`` pass the check there too, for every family
+    (``tests/test_torch_nvme_mesh.py`` runs them); only a plan for another
+    number of devices than the ranks raises."""
     mk = lambda arch, **off: RunConfig(model=tconfigs.smoke(arch), parallel=make_parallel("pjit"),
                                        offload=make_offload(**off))
     for arch in (ARCH, "mamba2-370m", "recurrentgemma-9b", "seamless-m4t-medium"):
         texec.check_ported(mk(arch), dp=2)
     for arch in (ARCH, "seamless-m4t-medium"):
         for off in ({"param_tier": "nvme"}, {"param_quant": "q8"}):
-            with pytest.raises(NotImplementedError, match="item 8f"):
-                texec.check_ported(mk(arch, **off), dp=2)
+            texec.check_ported(mk(arch, **off), dp=2)
+            with pytest.raises(ValueError, match="a plan for 4 device"):
+                texec.check_ported(mk(arch, **off), n_devices=4, dp=2)
 
 
 # ---------------------------------------------------------------------------

@@ -215,7 +215,8 @@ def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
                     parallel=make_parallel("pjit", remat="none", zero_stage=stage,
                                            grad_accum=accum, attn_strategy=strategy),
                     offload=jmake_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
-                                          nvme_dir=os.path.join(tmp, case, "jax")),
+                                          nvme_dir=os.path.join(tmp, case, "jax"),
+                                          param_quant=W.GSPMD_QUANT.get(case, "none")),
                     train=TrainConfig(lr=W.LR, warmup_steps=W.WARMUP))
     mesh = make_local_mesh(data, model)
     ex = jexec.InfinityExecutor(run, mesh)
@@ -234,6 +235,14 @@ def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
             state["opt"] = jax.jit(jadam.init_state,
                                    out_shardings=eng._opt_state_from(eng.opt_shardings()))(params)
     state = ex.reseed(state)
+    if ex.param_nvme:  # the leaves as the store decodes them, before a step
+        for k, leaf in _keyed(ex.checkpoint_state(state)["params"]).items():
+            out[f"{case}/init_decoded/{k}"] = _f32(leaf)
+        ex.param_store.flush()
+        inner = getattr(ex.param_store, "inner", ex.param_store)
+        out[f"{case}/param_store_keys"] = np.array(sorted(ex.param_store.keys()))
+        out[f"{case}/param_store_bytes"] = np.array(
+            [np.asarray(inner.read(k).result()).nbytes for k in sorted(ex.param_store.keys())])
     shape = ShapeConfig("t", W.gspmd_seq(case), B, "train")
     stream = jpipe.SyntheticStream(ex.input_specs(shape), run.model.vocab_size, seed=0)
     shardings = ex.batch_shardings(shape)
@@ -247,6 +256,8 @@ def run_gspmd_case(case: str, tmp: str, out: dict) -> None:
     _save_metrics(case, metrics, out)
     # laid out by the engine's shardings (the off-graph step hands back
     # plain arrays that its next step would lay out so)
+    if ex.param_nvme:  # the placeholders' leaves from the param store
+        state = dict(state, params=ex.checkpoint_state(state)["params"])
     trees = {"params": jax.device_put(state["params"], eng.param_shardings())}
     if "opt" in state:
         opt_sh = eng.opt_shardings()
@@ -353,6 +364,63 @@ def run_serve_case(case: str, tmp: str, out: dict) -> None:
         out[f"{case}/plan"] = np.array(res["plan"].to_json())
 
 
+def _ckpt_run(case: str, nvme_dir: str):
+    engine, _, _, _, param, grad, opt, compress = W.CKPT_CASES[case]
+    return RunConfig(model=W.ckpt_cfg(case, jconfigs),
+                     parallel=make_parallel(engine, remat="none", grad_compression=compress),
+                     offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                                          nvme_dir=nvme_dir),
+                     train=TrainConfig(lr=W.LR, warmup_steps=W.WARMUP))
+
+
+def run_ckpt_case(case: str, tmp: str) -> None:
+    """``case``'s initial state on a mesh of its devices (the explicit
+    engine's own draw, which the test saved for the port; the GSPMD
+    engine's state around the saved params, as ``run_gspmd_case`` builds
+    it), reseeded, checkpointed through ``checkpoint_state`` into
+    ``W.ckpt_path(..., "jax")``."""
+    import torch
+
+    from repro.checkpoint.manager import CheckpointManager
+    from repro.core import partition as jpt
+    from repro.optim import adam as jadam
+
+    engine, D, M = W.CKPT_CASES[case][:3]
+    mesh = make_local_mesh(D, M)
+    ex = jexec.InfinityExecutor(_ckpt_run(case, os.path.join(tmp, "nv", case, "jax")), mesh)
+    eng = ex.engine
+    with compat.set_mesh(mesh):
+        if engine == "zero3":
+            state = eng.init_state(jax.random.PRNGKey(0))
+        else:
+            init = torch.load(W.ckpt_init_path(tmp, case), weights_only=False)
+            flat = {k: np.asarray(v.float().numpy()) for k, v in _torch_keyed(init).items()}
+            params = jax.tree_util.tree_map_with_path(
+                lambda p, d: jnp.asarray(flat[jax.tree_util.keystr(p)]).astype(d.dtype),
+                eng.bundle.defs, is_leaf=lambda x: isinstance(x, jpt.ParamDef))
+            params = jax.device_put(params, eng.param_shardings())
+            state = {"params": params}
+            if not ex.run.opt_offgraph:
+                state["opt"] = jax.jit(jadam.init_state, out_shardings=eng._opt_state_from(
+                    eng.opt_shardings()))(params)
+    state = ex.reseed(state)
+    CheckpointManager(W.ckpt_path(tmp, case, "jax"), async_save=False).save(
+        0, ex.checkpoint_state(state), {"next_step": 0})
+    ex.close()
+
+
+def run_ckpt_cli(tmp: str, name: str, steps: int, every: int, out: dict, extra=()) -> None:
+    """The reference's ``launch.train`` with ``W.CKPT_ARGV`` on its (2, 1)
+    mesh: its losses under ``cli/<name>``."""
+    from repro.launch import train as jtrain
+
+    argv = W.CKPT_ARGV + ["--steps", str(steps), "--ckpt-every", str(every),
+                          "--ckpt-dir", os.path.join(tmp, "cli", name),
+                          "--nvme-dir", os.path.join(tmp, "nv", "cli", name), *extra]
+    hist = jtrain.train(jtrain.build_argparser().parse_args(argv))
+    out[f"cli/{name}/losses"] = np.array(hist["losses"])
+
+
 def main() -> None:
     tmp, path = sys.argv[1], sys.argv[2]
     job = sys.argv[3] if len(sys.argv) > 3 else "dp"
@@ -389,6 +457,15 @@ def main() -> None:
             run_gspmd_case(case, tmp, out)
         for case in W.RECURRENT_SERVE_CASES:
             run_serve_case(case, tmp, out)
+    elif job == "nvme_mesh":
+        for case in W.NVME_MESH_CASES:
+            run_gspmd_case(case, tmp, out)
+    elif job == "ckpt_mesh":
+        for case in W.CKPT_CASES:
+            run_ckpt_case(case, tmp)
+        run_ckpt_cli(tmp, "jax", 3, 2, out)
+    elif job == "ckpt_restore":
+        run_ckpt_cli(tmp, "torch_into_jax", 3, 0, out, ["--resume", "auto"])
     elif job == "encdec_tp":
         for case in W.ENCDEC_TP_CASES:
             run_gspmd_case(case, tmp, out)

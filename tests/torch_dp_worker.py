@@ -162,7 +162,27 @@ ENCDEC_TP_CASES = {
     "encdec_cp_1x3": (1, 3, "seamless-m4t-medium", 3, "device", "device", "device", 1, "auto"),
 }
 ENCDEC_TP_SEQ = {"encdec_cp_1x3": 72}
-MODEL_AXIS_CASES = {**TP_CASES, **MOE_TP_CASES, **RECURRENT_TP_CASES, **ENCDEC_TP_CASES}
+# params on NVMe through the GSPMD leaf scheduler on a mesh (job nvme_mesh,
+# tests/test_torch_nvme_mesh.py), in TP_CASES' format: the smoke smollm (2
+# layers) at (2, 1) under ZeRO-3 with the in-graph update (fused Adam through
+# its plain version) and with every state class on NVMe (the masters
+# rounded on the host), at stage 1 all on NVMe (params whole, the masters
+# split: each rank writes back the gathered whole leaf), the smoke llama
+# under tensor parallelism at (2, 2), smollm under context parallelism at
+# (1, 2), and q8 / q4 at (2, 1) (``GSPMD_QUANT``: each rank's shards encoded
+# on their own grids)
+NVME_MESH_CASES = {
+    "nvme_stage3_2x1": (2, 1, "smollm-135m", 3, "nvme", "device", "device", 1, "auto"),
+    "all_nvme_stage3_2x1": (2, 1, "smollm-135m", 3, "nvme", "nvme", "nvme", 1, "auto"),
+    "all_nvme_stage1_2x1": (2, 1, "smollm-135m", 1, "nvme", "nvme", "nvme", 1, "auto"),
+    "nvme_tp_2x2": (2, 2, "llama3.2-3b", 3, "nvme", "nvme", "nvme", 1, "auto"),
+    "nvme_cp_1x2": (1, 2, "smollm-135m", 3, "nvme", "device", "device", 1, "auto"),
+    "q8_2x1": (2, 1, "smollm-135m", 3, "nvme", "device", "device", 1, "auto"),
+    "q4_2x1": (2, 1, "smollm-135m", 3, "nvme", "device", "device", 1, "auto"),
+}
+GSPMD_QUANT = {"q8_2x1": "q8", "q4_2x1": "q4"}
+MODEL_AXIS_CASES = {**TP_CASES, **MOE_TP_CASES, **RECURRENT_TP_CASES, **ENCDEC_TP_CASES,
+                    **NVME_MESH_CASES}
 ALL_GSPMD_CASES = {**GSPMD_CASES, **MOE_GSPMD_CASES,
                    **{case: (D * M, arch, None, stage, param, grad, opt, accum, 4)
                       for case, (D, M, arch, stage, param, grad, opt, accum, _)
@@ -518,8 +538,18 @@ def _gspmd_run(case: str, nvme_dir: str):
                                             grad_accum=accum,
                                             attn_strategy=gspmd_mesh(case)[2]),
                      offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
-                                          nvme_dir=nvme_dir),
+                                          nvme_dir=nvme_dir,
+                                          param_quant=GSPMD_QUANT.get(case, "none")),
                      train=TrainConfig(lr=LR, warmup_steps=WARMUP))
+
+
+def store_bytes(store) -> dict:
+    """Every key of a store with the bytes it holds (a quantizing store's
+    wire bytes)."""
+    inner = getattr(store, "inner", store)
+    store.flush()
+    return {k: (lambda t: t.numel() * t.element_size())(inner.read(k).result())
+            for k in store.keys()}
 
 
 def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
@@ -544,6 +574,10 @@ def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
         full["opt"] = adam.init_state(params)
     state = bridge.shard_gspmd_state(full, run, mesh.rank, mesh.data, mesh.model)
     state = ex.reseed(ex.engine.place_state(state))
+    extra = {}
+    if ex.param_nvme:  # the rank's shards as its store decodes them, before a step
+        extra = {"init_decoded": ex.materialize_params(), "param_store": store_bytes(
+            ex.param_store)}
     B = ALL_GSPMD_CASES[case][8]
     stream = tpipe.SyntheticStream(ex.input_specs(ShapeConfig("t", gspmd_seq(case), B, "train")),
                                    run.model.vocab_size, seed=0)
@@ -554,7 +588,8 @@ def run_gspmd_case(case: str, tmp: str, mesh) -> dict:
                                  run.parallel.grad_accum)
         state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         metrics.append({k: host_metric(v) for k, v in m.items()})
-    out = {"metrics": metrics, "params": state["params"], "splits": ex.engine.splits,
+    out = {"metrics": metrics, "splits": ex.engine.splits, **extra,
+           "params": ex.materialize_params() if ex.param_nvme else state["params"],
            "model_splits": ex.engine.model_splits, "sizes": ex.engine.sizes,
            "strategy": ex.engine.mp.strategy if ex.engine.mp is not None else None,
            "shard_bytes": ex.engine.shard_bytes(),
@@ -1190,9 +1225,238 @@ def encdec_unit(mesh) -> dict:
     return out
 
 
+def job_nvme_mesh(tmp: str, mesh) -> dict:
+    """Every NVMe-param case of this world size, each on a mesh of its
+    own."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    return {case: run_gspmd_case(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+            for case, (D, M, *_) in NVME_MESH_CASES.items() if D * M == mesh.world}
+
+
+# ---------------------------------------------------------------------------
+# jobs ckpt_mesh and ckpt_restore: checkpoints on the ranks
+# ---------------------------------------------------------------------------
+
+# the checkpointed states (tests/test_torch_checkpoint_mesh.py): case ->
+# (engine, data, model, d_model (None: the smoke width), param, grad, opt
+# tiers, grad_compression), the smoke smollm at 2 layers, ZeRO-3. d_model 47
+# gives the explicit engine's rows P = 24,158: unpadded at dp 2, padded to
+# 24,160 at dp 4 (two zeros in rank 3's slice)
+CKPT_CASES = {
+    "g_device_2x1": ("pjit", 2, 1, None, "device", "device", "device", "none"),
+    "g_nvme_2x1": ("pjit", 2, 1, None, "nvme", "nvme", "nvme", "none"),
+    "g_device_1x2": ("pjit", 1, 2, None, "device", "device", "device", "none"),
+    "g_nvme_1x2": ("pjit", 1, 2, None, "nvme", "device", "device", "none"),
+    "z_int8_dp2": ("zero3", 2, 1, 47, "device", "device", "device", "int8"),
+    "z_layered_dp2": ("zero3", 2, 1, None, "nvme", "nvme", "nvme", "none"),
+    "z_dp4": ("zero3", 4, 1, 47, "device", "device", "device", "none"),
+}
+# the re-sharding restores: (source case, data, model of the restoring mesh)
+RESHARDS = [("g_device_2x1", 1, 1), ("g_device_2x1", 1, 2), ("g_device_2x1", 2, 2),
+            ("z_dp4", 1, 1), ("z_dp4", 2, 1), ("z_int8_dp2", 4, 1)]
+# the training CLI's flags on both sides (GSPMD, in-graph, on (2, 1))
+CKPT_ARGV = ["--smoke", "--engine", "pjit", "--data-mesh", "2", "--batch", "4", "--seq", "16",
+             "--lr", "3e-3", "--log-every", "100"]
+
+
+def ckpt_cfg(case: str, package):
+    d_model = CKPT_CASES[case][3]
+    return dataclasses.replace(package.smoke("smollm-135m"), n_layers=2,
+                               **({} if d_model is None else {"d_model": d_model}))
+
+
+def ckpt_run(case: str, nvme_dir: str):
+    """``case``'s port RunConfig at its tiers, the stores under
+    ``nvme_dir``."""
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, TrainConfig, make_offload, make_parallel
+
+    engine, _, _, _, param, grad, opt, compress = CKPT_CASES[case]
+    return RunConfig(model=ckpt_cfg(case, configs),
+                     parallel=make_parallel(engine, remat="none", grad_compression=compress),
+                     offload=make_offload(param_tier=param, grad_tier=grad, opt_tier=opt,
+                                          nvme_dir=nvme_dir),
+                     train=TrainConfig(lr=LR, warmup_steps=WARMUP))
+
+
+def ckpt_path(tmp: str, case: str, side: str) -> str:
+    """Where ``side`` ("torch", "jax", or a re-shard's name) checkpoints
+    ``case``'s state."""
+    return os.path.join(tmp, "ck", case, side)
+
+
+def ckpt_init_path(tmp: str, case: str) -> str:
+    """Where the test saves ``case``'s global initial state: the GSPMD
+    cases' whole params, the explicit cases' tier-independent leaves (rows
+    padded for the case's dp), as the port's tensors."""
+    engine, dp, _, d_model = CKPT_CASES[case][:4]
+    return os.path.join(tmp, f"ckpt_init_{engine}_{d_model or 'smoke'}"
+                             f"{'_dp' + str(dp) if engine == 'zero3' else ''}.pt")
+
+
+def _ckpt_state(case: str, tmp: str, mesh, ex) -> dict:
+    """The rank's part of ``case``'s global initial state, placed and the
+    stores seeded (Adam's state from the params as both inits build it)."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.optim import adam
+
+    init = torch.load(ckpt_init_path(tmp, case), weights_only=False)
+    if not ex.explicit:
+        full = {"params": init}
+        if not ex.run.opt_offgraph:
+            full["opt"] = adam.init_state(init)
+        return ex.reseed(ex.engine.place_state(
+            bridge.shard_gspmd_state(full, ex.run, mesh.rank, mesh.data, mesh.model)))
+    state = bridge.shard_zero3_state(init, mesh.rank, mesh.world)
+    return ex.reseed(ex.engine.place_state(ex.engine.complete_state(state)))
+
+
+def _save_rank0(snapshot, path: str, extra: dict) -> None:
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    if snapshot is not None:
+        CheckpointManager(path, async_save=False).save(0, snapshot, extra)
+
+
+def run_ckpt_case(case: str, tmp: str, mesh) -> dict:
+    """``case``'s initial state on this rank, checkpointed (rank 0 writes
+    the global leaves) into ``ckpt_path(..., "torch")``."""
+    from repro_torch.core import executor as texec
+
+    ex = texec.InfinityExecutor(ckpt_run(case, os.path.join(tmp, "nv", case, "torch")), "cpu",
+                                mesh=mesh if mesh.world > 1 else None)
+    snap = ex.checkpoint_state(_ckpt_state(case, tmp, mesh, ex))
+    _save_rank0(snap, ckpt_path(tmp, case, "torch"), {"next_step": 0})
+    ex.close()
+    return {"saved": snap is not None}
+
+
+def reshard_name(data: int, model: int) -> str:
+    return f"torch_{data}x{model}"
+
+
+def reshard(case: str, tmp: str, mesh) -> dict:
+    """``case``'s checkpoint restored on this rank's mesh (another data or
+    model size; the explicit engine's rows re-padded for its dp) at the
+    case's tiers, then checkpointed again at once into
+    ``ckpt_path(case, reshard_name(...))``."""
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import executor as texec
+
+    name = reshard_name(mesh.data, mesh.model)
+    ex = texec.InfinityExecutor(ckpt_run(case, os.path.join(tmp, "nv", case, name)), "cpu",
+                                mesh=mesh if mesh.world > 1 else None)
+    state = ex.init_state(torch.Generator().manual_seed(0), seed_stores=False)
+    restored, extra = CheckpointManager(ckpt_path(tmp, case, "torch")).restore(state, step=0)
+    state = ex.restore_state(restored, step=extra["next_step"])
+    _save_rank0(ex.checkpoint_state(state), ckpt_path(tmp, case, name), extra)
+    ex.close()
+    return {"name": name}
+
+
+def run_cli(argv: list, env: dict = None) -> dict:
+    """``launch.train`` with ``argv`` on this rank's group (``env`` set
+    around it): its losses, step numbers and restarts."""
+    from repro_torch.launch import train
+
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        hist = train.train(train.build_argparser().parse_args(argv), argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"losses": hist["losses"], "steps": [m["step"] for m in hist["metrics"]],
+            "restarts": hist["restarts"], "checkpoint": hist["checkpoint"]}
+
+
+def cli_argv(tmp: str, name: str, steps: int, every: int, extra=()) -> list:
+    return CKPT_ARGV + ["--device", "cpu", "--steps", str(steps), "--ckpt-every", str(every),
+                        "--ckpt-dir", os.path.join(tmp, "cli", name),
+                        "--nvme-dir", os.path.join(tmp, "nv", "cli", name), *extra]
+
+
+def params_from_state_unit(tmp: str, mesh) -> dict:
+    """The explicit engine's ``params_from_state`` on this rank's rows of
+    ``z_int8_dp2``'s initial state (dp 2) beside a one-rank engine's of the
+    global state."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.core.zero import ExplicitZero3Engine
+
+    run = ckpt_run("z_int8_dp2", "")
+    init = torch.load(ckpt_init_path(tmp, "z_int8_dp2"), weights_only=False)
+    two = ExplicitZero3Engine(run, "cpu", mesh)
+    one = ExplicitZero3Engine(run, "cpu")
+    return {"dp2": two.params_from_state(bridge.shard_zero3_state(init, mesh.rank, 2)),
+            "dp1": one.params_from_state(init)}
+
+
+def job_ckpt_mesh(tmp: str, mesh) -> dict:
+    """Phase one: every checkpoint case of this world size; at 2 ranks
+    also the CLI run the reference restores (3 steps, a checkpoint at step
+    2), the restart drill (a checkpoint every step, a failure at step 2,
+    4 steps) beside its uninterrupted run, and ``params_from_state``."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    for case, (_, D, M, *_) in CKPT_CASES.items():
+        if D * M == mesh.world:
+            out[case] = run_ckpt_case(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+    if mesh.world == 2:
+        out["cli"] = run_cli(cli_argv(tmp, "torch", 3, 2))
+        out["unbroken"] = run_cli(cli_argv(tmp, "unbroken", 4, 0))
+        out["drill"] = run_cli(cli_argv(tmp, "drill", 4, 1, ["--resume", "auto"]),
+                               {"REPRO_FAIL_AT_STEP": "2",
+                                "REPRO_FAIL_MARKER": os.path.join(tmp, "drill_marker")})
+        out["params_from_state"] = params_from_state_unit(tmp, mesh)
+    return out
+
+
+def job_ckpt_restore(tmp: str, mesh) -> dict:
+    """Phase two: this world size's re-shards; at 2 ranks also the CLI's
+    resume from the reference's checkpoint (one step), the resume past a
+    corrupt newest checkpoint, and the tier migration (an off-graph
+    checkpoint into an in-graph run: ``adopt_state`` counted)."""
+    from repro_torch.core import executor as texec
+    from repro_torch.launch import mesh as mesh_mod
+
+    out = {}
+    for case, D, M in RESHARDS:
+        if D * M == mesh.world:
+            out[f"{case}/{D}x{M}"] = reshard(case, tmp, mesh_mod.make_local_mesh(D, M, "cpu"))
+    if mesh.world == 2:
+        out["cross"] = run_cli(cli_argv(tmp, "jax_into_torch", 3, 0, ["--resume", "auto"]))
+        out["fallback"] = run_cli(cli_argv(tmp, "fallback", 5, 0, ["--resume", "auto"]))
+        calls = []
+        real = texec.InfinityExecutor.adopt_state
+
+        def adopt_state(self, portable, **kw):
+            calls.append(sorted(portable))
+            return real(self, portable, **kw)
+
+        texec.InfinityExecutor.adopt_state = adopt_state
+        try:
+            out["migration"] = run_cli(cli_argv(tmp, "migration", 1, 0, ["--resume", "auto"]))
+        finally:
+            texec.InfinityExecutor.adopt_state = real
+        out["migration"]["adopted"] = calls
+    return out
+
+
 JOBS = {"dp": job_dp, "gspmd": job_gspmd, "dp_moe": job_dp_moe, "serve": job_serve,
         "tp": job_tp, "tp_serve": job_tp_serve, "cp_serve": job_cp_serve,
-        "moe_tp": job_moe_tp, "recurrent_tp": job_recurrent_tp, "encdec_tp": job_encdec_tp}
+        "moe_tp": job_moe_tp, "recurrent_tp": job_recurrent_tp, "encdec_tp": job_encdec_tp,
+        "nvme_mesh": job_nvme_mesh, "ckpt_mesh": job_ckpt_mesh, "ckpt_restore": job_ckpt_restore}
 
 
 def main() -> None:
